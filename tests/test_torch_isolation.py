@@ -1,0 +1,112 @@
+"""elasticdeform_tpu_torch stands alone: no JAX, no elasticdeform_tpu.
+
+* a subprocess that cannot import ``jax`` or ``elasticdeform_tpu`` imports
+  the port and runs a deformation on the CPU;
+* no module of the port and not ``chip_smoke.py`` imports either;
+* the entry points default to the card: with no CUDA device, a call
+  without ``device`` raises instead of computing on the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "elasticdeform_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "elasticdeform_tpu")
+
+
+def _run(code: str, env_extra=None):
+    env = dict(os.environ)
+    env.update(env_extra or {})
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=240, env=env, cwd=str(ROOT))
+
+
+_BLOCKER = """
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split('.')[0]
+        if top in ('jax', 'jaxlib', 'elasticdeform_tpu'):
+            raise ImportError('blocked: ' + name)
+        return None
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    code = _BLOCKER + """
+import numpy as np
+import elasticdeform_tpu_torch as et
+import elasticdeform_tpu_torch.api, elasticdeform_tpu_torch.core
+X = np.random.RandomState(0).rand(12, 14)
+d = np.random.RandomState(1).randn(2, 3, 3) * 3
+Y = et.deform_grid([X, (X * 100).astype(np.uint8)], d, order=[3, 0],
+                   device='cpu')
+assert Y[0].shape == X.shape and Y[1].dtype == np.uint8
+assert np.isfinite(Y[0]).all()
+assert not any(m.split('.')[0] in ('jax', 'elasticdeform_tpu')
+               for m in sys.modules)
+print('ok')
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_forbidden_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_default_device_is_the_card():
+    code = """
+import numpy as np, torch
+import elasticdeform_tpu_torch as et
+assert not torch.cuda.is_available()
+X = np.random.RandomState(0).rand(10, 11)
+d = np.zeros((2, 3, 3))
+for call in (lambda: et.deform_grid(X, d),
+             lambda: et.deform_random_grid(X),
+             lambda: et.deform(torch.as_tensor(X), torch.as_tensor(d)),
+             lambda: et.deform_batch(torch.as_tensor(X[None]),
+                                     torch.as_tensor(d[None]))):
+    try:
+        call()
+    except (RuntimeError, AssertionError):
+        continue
+    raise SystemExit('a call without device ran without a card')
+assert et.deform_grid(X, d, device='cpu').shape == X.shape
+print('ok')
+"""
+    r = _run(code, {"CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == 0, r.stderr + r.stdout
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_refuses_without_card():
+    r = _run("import runpy, sys; sys.argv = ['chip_smoke.py'];"
+             "runpy.run_path('chip_smoke.py', run_name='__main__')",
+             {"CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
