@@ -9,16 +9,25 @@ Phases (any failure raises, and the exit code is not 0):
 
 1. device and build: prints the card's name and power limit, builds the
    CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc;
-2. each kernel against its plain PyTorch version on the card: K1 (resample)
-   over orders 0-5 x five modes x 2-D/3-D in float32 and float64 with
-   coordinates far past every edge; K2 (prefilter) over orders 2-5 and
-   axis lengths 9/64/200 at every axis position, plus the uint8/int16
-   writeback, bit for bit;
+2. each kernel against its plain PyTorch version on the card: K1 (resample),
+   K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
+   orders 0-5 x five modes x 2-D/3-D in float32 and float64 with
+   coordinates far past every edge, shared and per-sample affines and crop
+   offsets; K2 (prefilter) over orders 2-5 and axis lengths 9/64/200 at
+   every axis position, plus the uint8/int16 writeback, bit for bit; K4
+   (the transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at
+   every axis position; and the K1/K3 and K2/K4 adjoint identities in
+   float64;
 3. the main path through the public entry points at the BASELINE configs
-   c1, c2, c3 and c5, each compared with the port's own ``device="cpu"``
-   run; the kernels' launch counters must grow;
+   c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
+   affine and constant mode), c4 (forward and autograd to X), c5 (batched
+   forward and backward) and c6 (batched, autograd to X and the grids),
+   each compared with the port's own ``device="cpu"`` run; the launch
+   counters must show each kernel on the configs that run it, and K5 on no
+   config that does not ask for the grid gradient;
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
-   its plain version and library yardstick, and each config (Mvox/s).
+   its plain version and library yardstick at the c5 shapes, and each
+   config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -42,6 +51,9 @@ REPS = 10
 
 MODES = ("nearest", "wrap", "reflect", "mirror", "constant")
 
+KERNELS = ("resample_fwd", "spline_prefilter", "resample_bwd",
+           "spline_prefilter_transpose", "resample_coord_grad")
+
 
 def _tol(dtype, scale):
     """(rtol, atol) of a kernel against its plain version: float32
@@ -53,13 +65,18 @@ def _tol(dtype, scale):
 
 
 def _assert_close(got, want, rtol, atol, what):
+    """Raise unless |got - want| <= atol + rtol * |want| everywhere;
+    ``atol`` is a number or a tensor of per-element bounds. Returns the
+    largest absolute difference."""
     import torch
     err = (got.double() - want.double()).abs()
     bad = err > atol + rtol * want.double().abs()
     if bool(bad.any()):
+        amax = float(atol.max()) if isinstance(atol, torch.Tensor) else atol
         raise AssertionError(
             f"{what}: {int(bad.sum())} of {bad.numel()} values off, max abs "
-            f"err {float(err.max()):.3e} (rtol={rtol}, atol={atol:.3e})")
+            f"err {float(err.max()):.3e} (rtol={rtol}, atol up to "
+            f"{amax:.3e})")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -126,9 +143,10 @@ def phase_kernels():
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
     dev = torch.device("cuda")
     rs = np.random.RandomState(1)
-    worst = {"resample_fwd": 0.0, "spline_prefilter": 0.0}
+    worst = dict.fromkeys(KERNELS, 0.0)
     n = 0
     for naxis, in_sp, out_sp in ((2, (23, 31), (20, 27)),
                                  (3, (11, 13, 9), (10, 12, 8))):
@@ -157,15 +175,36 @@ def phase_kernels():
                     got = rsm.resample(*args)
                     want = rsm.resample_plain(*args)
                     torch.cuda.synchronize()
+                    what = (f"naxis={naxis} {dtype} order={order} "
+                            f"mode={MODES[mode]}")
                     rtol, atol = _tol(dtype, 4.0)
-                    err = _assert_close(
-                        got, want, rtol, atol,
-                        f"K1 naxis={naxis} {dtype} order={order} "
-                        f"mode={MODES[mode]}")
+                    err = _assert_close(got, want, rtol, atol, f"K1 {what}")
                     worst["resample_fwd"] = max(worst["resample_fwd"], err)
+                    g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype,
+                                        device=dev)
+                    bargs = (displ, affine, offsets, order, mode)
+                    worst["resample_bwd"] = max(
+                        worst["resample_bwd"],
+                        _check_k3(rb, g, bargs, in_sp, dtype, f"K3 {what}"))
+                    got = rb.resample_coord_grad(coeffs, g, *bargs)
+                    want = rb.resample_coord_grad_plain(coeffs, g, *bargs)
+                    torch.cuda.synchronize()
+                    rtol, atol = _tol(dtype, _k5_scale(coeffs, g))
+                    worst["resample_coord_grad"] = max(
+                        worst["resample_coord_grad"],
+                        _assert_close(got, want, rtol, atol, f"K5 {what}"))
+                    if dtype == torch.float64:
+                        _check_adjoint(
+                            rsm.resample(coeffs, displ, affine, offsets,
+                                         order, mode, 0.0), g, coeffs,
+                            rb.resample_transpose(g, *bargs, in_sp),
+                            f"K1/K3 {what}")
                     n += 1
-    print(f"K1 resample_fwd vs plain: {n} cases pass, max abs err "
-          f"{worst['resample_fwd']:.3e}")
+    print(f"K1 resample_fwd, K3 resample_bwd, K5 resample_coord_grad vs "
+          f"plain: {n} cases each pass, max abs err "
+          f"{worst['resample_fwd']:.3e} / {worst['resample_bwd']:.3e} / "
+          f"{worst['resample_coord_grad']:.3e}; the K1/K3 adjoint identity "
+          f"holds in float64 ({n // 2} cases)")
 
     n = 0
     for dtype in (torch.float32, torch.float64):
@@ -206,15 +245,104 @@ def phase_kernels():
                 n += 1
     print(f"K2 spline_prefilter vs plain: {n} cases pass, max abs err "
           f"{worst['spline_prefilter']:.3e}")
+
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        for order in (2, 3, 4, 5):
+            for length in (1, 2, 9, 64, 200):
+                for pos in range(4):
+                    shape = [5, 6, 3, 4]
+                    shape[pos] = length
+                    x = torch.as_tensor(rs.rand(*shape) * 200 - 50,
+                                        dtype=dtype, device=dev)
+                    got = pf.spline_filter1d_transpose(x, order, pos)
+                    want = pf.spline_filter1d_transpose_plain(x, order, pos)
+                    torch.cuda.synchronize()
+                    what = f"{dtype} order={order} n={length} axis={pos}"
+                    rtol, atol = _tol(dtype, float(x.abs().max()))
+                    worst["spline_prefilter_transpose"] = max(
+                        worst["spline_prefilter_transpose"],
+                        _assert_close(got, want, rtol, atol, f"K4 {what}"))
+                    if dtype == torch.float64:
+                        y = torch.as_tensor(rs.randn(*shape), dtype=dtype,
+                                            device=dev)
+                        _check_adjoint(
+                            pf.spline_filter1d(x, order, pos), y, x,
+                            pf.spline_filter1d_transpose(y, order, pos),
+                            f"K2/K4 {what}")
+                    n += 1
+    print(f"K4 spline_prefilter_transpose vs plain: {n} cases pass, max abs "
+          f"err {worst['spline_prefilter_transpose']:.3e}; the K2/K4 adjoint "
+          f"identity holds in float64 ({n // 2} cases)")
     return worst
 
 
+def _check_k3(rb, g, bargs, in_sp, dtype, what):
+    """K3 against its plain version. Atomics add in a run-dependent order,
+    so float32 is held to rtol=1e-5 and atol=1e-5 * S elementwise, where S
+    (the plain transpose of |g|) is the sum of the absolute terms that
+    land on the element (B-spline weights are >= 0 up to rounding);
+    float64 to 1e-10."""
+    import torch
+    got = rb.resample_transpose(g, *bargs, in_sp)
+    want = rb.resample_transpose_plain(g, *bargs, in_sp)
+    terms = rb.resample_transpose_plain(g.abs(), *bargs, in_sp)
+    torch.cuda.synchronize()
+    rtol, _ = _tol(dtype, 1.0)
+    return _assert_close(got, want, rtol, rtol * terms.double().abs(),
+                         what)
+
+
+def _k5_scale(coeffs, g):
+    """Bound on the sum of a K5 voxel's absolute terms: the weights are
+    >= 0 and sum to 1, the derivative weights' absolute values to at most
+    2, the fold's derivative is at most 1, so 2 * C * max|g| * max|coeffs|."""
+    return 2.0 * coeffs.shape[-1] * float(g.abs().max()) * \
+        float(coeffs.abs().max())
+
+
+def _check_adjoint(ax, y, x, aty, what):
+    """<A x, y> == <x, A^T y> in float64, to 1e-10 of the sum of the
+    absolute products."""
+    lhs = float((ax * y).sum())
+    rhs = float((x * aty).sum())
+    scale = float((ax.abs() * y.abs()).sum()) + \
+        float((x.abs() * aty.abs()).sum())
+    if abs(lhs - rhs) > 1e-10 * scale:
+        raise AssertionError(f"{what}: adjoint identity off, <Ax,y>={lhs!r} "
+                             f"<x,A^T y>={rhs!r}")
+
+
+class _Config:
+    """One BASELINE config: ``run(device, n)`` drives the public entry
+    points and returns the tensors or arrays to compare (``n`` samples of a
+    batch, all if None); ``tols`` holds (rtol, atol / max|ref|) per output;
+    ``n_vox`` counts output voxels; ``nsub`` is the batch subset the CPU
+    run recomputes (None: all)."""
+
+    def __init__(self, name, run, n_vox, tols, nsub=None):
+        self.name, self.run, self.n_vox = name, run, n_vox
+        self.tols, self.nsub = tols, nsub
+
+
+def _on(cache, device, *arrays):
+    """The arrays as tensors on ``device``, uploaded once per device."""
+    import torch
+    key = str(device)
+    if key not in cache:
+        cache[key] = [torch.as_tensor(a).to(device) for a in arrays]
+    return cache[key]
+
+
 def _configs(seed=0):
-    """The BASELINE configs c1, c2, c3, c5 as (name, run(device), n_out_vox,
-    rtol, atol-scale, samples compared)."""
+    """The BASELINE configs: c1, c2, c3 and c3's gradient, c4, c5, c6."""
     import torch
     import elasticdeform_tpu_torch as et
     rs = np.random.RandomState(seed)
+    F32 = (1e-5, 1e-4)   # float32 output against the CPU run
+    # a float32 grid gradient sums 64^3 voxels' signed terms per sample;
+    # reordered float32 sums of that length differ by ~1e-4 of the largest
+    GRID32 = (1e-4, 1e-3)
 
     X1 = rs.rand(200, 300)
 
@@ -237,88 +365,183 @@ def _configs(seed=0):
     A3 = np.array([[np.cos(th), -np.sin(th), 0, 4.0],
                    [np.sin(th), np.cos(th), 0, -3.0],
                    [0, 0, 1.1, 2.0]])
+    crop3 = [slice(16, 112)] * 3
 
     def c3(device, n=None):
-        return [et.deform_grid(X3, d3, order=3, mode="constant",
-                               crop=[slice(16, 112)] * 3, affine=A3,
-                               device=device)]
+        return [et.deform_grid(X3, d3, order=3, mode="constant", crop=crop3,
+                               affine=A3, device=device)]
 
-    X5 = torch.as_tensor(rs.rand(64, 64, 64, 64).astype(np.float32))
-    d5 = torch.as_tensor((rs.randn(64, 3, 3, 3, 3) * 6).astype(np.float32))
-    X5_dev, d5_dev = {}, {}
+    dY3 = rs.rand(96, 96, 96).astype(np.float32)
+
+    def c3_grad(device, n=None):
+        return [et.deform_grid_gradient(dY3, d3, order=3, mode="constant",
+                                        crop=crop3, X_shape=X3.shape,
+                                        affine=A3, device=device)]
+
+    # c4: one train step, mean((y - t)^2) differentiated with respect to X
+    X4 = rs.rand(64, 64, 64).astype(np.float32)
+    d4 = (rs.randn(3, 3, 3, 3) * 15).astype(np.float32)
+    t4 = rs.rand(64, 64, 64).astype(np.float32)
+    dev4 = {}
+
+    def c4(device, n=None):
+        x, d, t = _on(dev4, device, X4, d4, t4)
+        x = x.detach().requires_grad_()
+        y = et.deform(x, d, order=3, mode="mirror", device=device)
+        (gx,) = torch.autograd.grad(torch.mean((y - t) ** 2), x)
+        return [y.detach(), gx]
+
+    # c5: the batched forward, then its backward with a given gy
+    X5 = rs.rand(64, 64, 64, 64).astype(np.float32)
+    d5 = (rs.randn(64, 3, 3, 3, 3) * 6).astype(np.float32)
+    gy5 = rs.rand(64, 64, 64, 64).astype(np.float32)
+    dev5 = {}
 
     def c5(device, n=None):
-        key = str(device)
-        if key not in X5_dev:
-            X5_dev[key] = X5.to(device)
-            d5_dev[key] = d5.to(device)
-        x, d = X5_dev[key], d5_dev[key]
-        if n is not None:
-            x, d = x[:n], d[:n]
-        return [et.deform_batch(x, d, order=3, mode="mirror", device=device)]
+        x, d, gy = (a[:n] for a in _on(dev5, device, X5, d5, gy5))
+        x = x.detach().requires_grad_()
+        y = et.deform_batch(x, d, order=3, mode="mirror", device=device)
+        (gx,) = torch.autograd.grad(y, x, gy)
+        return [y.detach(), gx]
 
-    return [("c1", c1, 200 * 300, 1e-10, 1e-10, None),
-            ("c2", c2, 200 * 300, 1e-5, 1e-5, None),
-            ("c3", c3, 96 ** 3, 1e-5, 1e-4, None),
-            ("c5", c5, 64 * 64 ** 3, 1e-5, 1e-4, 2)]
+    # c6: batched, per-sample grids, autograd to X and to the grids
+    X6 = rs.rand(8, 64, 64, 64).astype(np.float32)
+    d6 = (rs.randn(8, 3, 3, 3, 3) * 6).astype(np.float32)
+    gy6 = rs.randn(8, 64, 64, 64).astype(np.float32)
+    dev6 = {}
+
+    def c6(device, n=None):
+        x, d, gy = (a[:n] for a in _on(dev6, device, X6, d6, gy6))
+        x = x.detach().requires_grad_()
+        d = d.detach().requires_grad_()
+        y = et.deform_batch(x, d, order=3, mode="mirror", device=device)
+        gx, gd = torch.autograd.grad(y, (x, d), gy)
+        return [y.detach(), gx, gd]
+
+    return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
+            _Config("c2", c2, 200 * 300, [F32, F32]),
+            _Config("c3", c3, 96 ** 3, [F32]),
+            _Config("c3_grad", c3_grad, 96 ** 3, [F32]),
+            _Config("c4", c4, 64 ** 3, [F32, F32]),
+            _Config("c5", c5, 64 * 64 ** 3, [F32, F32], nsub=2),
+            _Config("c6", c6, 8 * 64 ** 3, [F32, F32, GRID32], nsub=2)]
+
+
+# kernels each config must launch (K5 only where the grid gradient is
+# asked for, and never elsewhere)
+_MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
+                "c4": ("resample_bwd", "spline_prefilter_transpose"),
+                "c5": ("resample_bwd", "spline_prefilter_transpose"),
+                "c6": ("resample_bwd", "spline_prefilter_transpose",
+                       "resample_coord_grad")}
+_MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
+                    "c4": ("resample_coord_grad",),
+                    "c5": ("resample_coord_grad",)}
+
+
+def _wrappers():
+    """Each kernel's wrapper, which holds its launch counter."""
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    from elasticdeform_tpu_torch.ops import resample as rsm
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    return {"resample_fwd": rsm.resample,
+            "spline_prefilter": pf.spline_filter1d,
+            "resample_bwd": rb.resample_transpose,
+            "spline_prefilter_transpose": pf.spline_filter1d_transpose,
+            "resample_coord_grad": rb.resample_coord_grad}
+
+
+def _counts():
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
 def phase_main_path():
     """Phase 3: the public entry points on the card, counted, then each
     output against the port's CPU run."""
     import torch
-    from elasticdeform_tpu_torch.ops import prefilter as pf
-    from elasticdeform_tpu_torch.ops import resample as rsm
     configs = _configs()
     outs, launches = {}, {}
-    pf.spline_filter1d.launches = 0
-    rsm.resample.launches = 0
-    for name, run, _, _, _, _ in configs:
-        k1, k2 = rsm.resample.launches, pf.spline_filter1d.launches
-        outs[name] = run("cuda")
+    for w in _wrappers().values():
+        w.launches = 0
+    for cfg in configs:
+        before = _counts()
+        outs[cfg.name] = cfg.run("cuda")
         torch.cuda.synchronize()
-        launches[name] = {"resample_fwd": rsm.resample.launches - k1,
-                          "spline_prefilter":
-                              pf.spline_filter1d.launches - k2}
-    total = {"resample_fwd": rsm.resample.launches,
-             "spline_prefilter": pf.spline_filter1d.launches}
+        launches[cfg.name] = {k: v - before[k] for k, v in _counts().items()}
+    total = _counts()
     print(f"main path launches per config: {json.dumps(launches)}")
     if min(total.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {total}")
+    for name, kernels in _MUST_LAUNCH.items():
+        for k in kernels:
+            if launches[name][k] <= 0:
+                raise AssertionError(f"{name} did not launch {k}")
+    for name, kernels in _MUST_NOT_LAUNCH.items():
+        for k in kernels:
+            if launches[name][k] != 0:
+                raise AssertionError(f"{name} launched {k}, which it does "
+                                     "not need")
 
-    for name, run, _, rtol, atol_scale, nsub in configs:
-        ref = run("cpu", nsub)
-        for got, want in zip(outs[name], ref):
-            got = got if isinstance(got, torch.Tensor) else torch.as_tensor(got)
-            want = want if isinstance(want, torch.Tensor) \
-                else torch.as_tensor(want)
-            got = got.cpu()[:nsub] if nsub else got.cpu()
+    for cfg in configs:
+        ref = cfg.run("cpu", cfg.nsub)
+        assert len(ref) == len(outs[cfg.name]) == len(cfg.tols)
+        for i, (got, want, (rtol, atol_scale)) in enumerate(
+                zip(outs[cfg.name], ref, cfg.tols)):
+            what = f"{cfg.name} output {i}"
+            got = torch.as_tensor(got).cpu()
+            want = torch.as_tensor(want)
+            got = got[:cfg.nsub] if cfg.nsub else got
             if got.shape != want.shape or got.dtype != want.dtype:
                 raise AssertionError(
-                    f"{name}: got {tuple(got.shape)} {got.dtype}, CPU run "
+                    f"{what}: got {tuple(got.shape)} {got.dtype}, CPU run "
                     f"gives {tuple(want.shape)} {want.dtype}")
             if not bool(torch.isfinite(got.double()).all()):
-                raise AssertionError(f"{name}: non-finite output")
+                raise AssertionError(f"{what}: non-finite output")
             if not got.dtype.is_floating_point:
                 if not torch.equal(got, want):
                     raise AssertionError(
-                        f"{name}: {int((got != want).sum())} integer values "
+                        f"{what}: {int((got != want).sum())} integer values "
                         "differ from the CPU run")
                 continue
             scale = float(want.abs().max())
             err = _assert_close(got, want, rtol, atol_scale * scale,
-                                f"{name} vs CPU")
-            print(f"{name}: {tuple(got.shape)} {got.dtype} matches the CPU "
+                                f"{what} vs CPU")
+            print(f"{what}: {tuple(got.shape)} {got.dtype} matches the CPU "
                   f"run (max abs err {err:.3e}, rtol={rtol}, "
-                  f"atol={atol_scale:g}*max|y|)")
+                  f"atol={atol_scale:g}*max|ref|)")
     return total, launches
 
 
 def _k1_ops(B, n_out, naxis, order, C):
-    """Operations of one K1 call: per voxel, about 40 per axis for the
-    coordinate, fold and weights, and per tap one weight product plus a
+    """Operations of one K1 or K3 call: per voxel, about 40 per axis for
+    the coordinate, fold and weights, and per tap one weight product plus a
     multiply-add per channel."""
     return B * n_out * ((order + 1) ** naxis * (1 + 2 * C) + 40 * naxis)
+
+
+def _k5_ops(B, n_out, naxis, order, C):
+    """The fewest operations K5's function needs (not the kernel's own tap
+    loop): per voxel, about 60 per axis for the coordinate, fold, weights
+    and their derivatives; the channels folded into one value per tap
+    (``sum_c g_c coeff_c``, nothing to fold for one channel, whose ``g``
+    multiplies the naxis results instead); then the taps contracted axis by
+    axis. Contracting the m-th axis, each of the m+1 partial sums so far
+    (none or one derivative weight) goes on with ``w``, the one with none
+    also with ``w'``: 2 operations per tap left, for m+1 outputs (naxis at
+    the last axis, where the sum with no derivative is not needed)."""
+    k = order + 1
+    taps = k ** naxis
+    fold = taps * (2 * C - 1) if C > 1 else naxis
+    contract = sum((m + 1 if m < naxis else naxis) * 2 * k ** (naxis - m + 1)
+                   for m in range(1, naxis + 1))
+    return B * n_out * (60 * naxis + fold + contract)
+
+
+def _bound(nbytes, ops):
+    """(bound ms, what bounds it) on the H100 SXM peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_times(card, total_launches, errs):
@@ -327,108 +550,128 @@ def phase_times(card, total_launches, errs):
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
     from elasticdeform_tpu_torch.ops.displacement import dense_displacement
     dev = torch.device("cuda")
     rs = np.random.RandomState(5)
     B, S, C, order = 64, (64, 64, 64), 1, 3
     x = torch.as_tensor(rs.rand(B, *S, C).astype(np.float32), device=dev)
+    gy = torch.as_tensor(rs.rand(B, *S, C).astype(np.float32), device=dev)
     grid = torch.as_tensor((rs.randn(B, 3, 3, 3, 3) * 6).astype(np.float32),
                            device=dev)
     displ = dense_displacement(grid, S, S, (0, 0, 0))
-    save = rsm.resample.launches, pf.spline_filter1d.launches
-
-    # K2: one prefilter of the batch = one launch per deformed axis
-    def k2():
-        y = x
-        for a in (1, 2, 3):
-            y = pf.spline_filter1d(y, order, a)
-        return y
-
-    def k2_plain():
-        y = x
-        for a in (1, 2, 3):
-            y = pf.spline_filter1d_plain(y, order, a)
-        return y
-
-    mats = [torch.as_tensor(pf.filter_matrix(n, order), dtype=x.dtype,
-                            device=dev) for n in S]
-
-    def k2_library():
-        y = x
-        for a, m in zip((1, 2, 3), mats):
-            y = torch.tensordot(m, y, dims=([1], [a]))
-        return y
-
-    coeffs = k2()
-    want = k2_plain()
-    k2_err = _assert_close(coeffs, want, *_tol(torch.float32,
-                                               float(x.abs().max())),
-                           "K2 at c5 shapes")
-    per_axis = []
-    for a in (1, 2, 3):
-        per_axis.append(_time_ms(lambda a=a: pf.spline_filter1d(x, order, a)))
-    print(f"K2 per-axis ms at (64, 64, 64, 64, 1) f32, axes 1/2/3: "
-          f"{per_axis} [{card}]")
-    k2_ms = _time_ms(k2)
-    k2_plain_ms = _time_ms(k2_plain)
-    k2_lib_ms = _time_ms(k2_library)
+    save = _counts()
     numel = x.numel()
-    k2_bytes = 3 * 2 * numel * 4
-    k2_ops = 3 * numel * (1 + 4 * len(pf.spline_poles(order)))
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S, k2_ops / FP32_FLOPS) * 1e3
+    n_out = math.prod(S)
+    rows = []
+
+    def row(name, source, replaces, ms, plain_ms, bound, library_ms, err):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"elasticdeform_tpu_torch/csrc/{source}",
+                     "replaces": replaces,
+                     "launches": total_launches[name],
+                     "max_abs_err": max(err, errs[name]), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": library_ms})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"{name} at c5 shapes: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"library {lib}, bound {bound[0]:.4f} ms by {bound[1]}) "
+              f"[{card}]")
+
+    def per_axis(fn, axes):
+        return [_time_ms(lambda a=a: fn(x, order, a)) for a in axes]
+
+    def chain(fn, axes, mats=None):
+        def run():
+            y = x
+            for i, a in enumerate(axes):
+                y = fn(y, order, a) if mats is None else torch.tensordot(
+                    mats[i], y, dims=([1], [a]))
+            return y
+        return run
+
+    # K2 and K4: one launch per deformed axis, K4 in reverse axis order
+    fwd_mats = [torch.as_tensor(pf.filter_matrix(n, order), dtype=x.dtype,
+                                device=dev) for n in S]
+    k2_err = _assert_close(chain(pf.spline_filter1d, (1, 2, 3))(),
+                           chain(pf.spline_filter1d_plain, (1, 2, 3))(),
+                           *_tol(torch.float32, float(x.abs().max())),
+                           "K2 at c5 shapes")
+    print(f"spline_prefilter per-axis ms at (64, 64, 64, 64, 1) f32, axes "
+          f"1/2/3: {per_axis(pf.spline_filter1d, (1, 2, 3))} [{card}]")
+    filter_bound = _bound(3 * 2 * numel * 4,
+                          3 * numel * (1 + 4 * len(pf.spline_poles(order))))
+    row("spline_prefilter", "prefilter.cu",
+        "elasticdeform_tpu/ops/prefilter.py:333",
+        _time_ms(chain(pf.spline_filter1d, (1, 2, 3))),
+        _time_ms(chain(pf.spline_filter1d_plain, (1, 2, 3))), filter_bound,
+        _time_ms(chain(None, (1, 2, 3), fwd_mats)), k2_err)
+    coeffs = chain(pf.spline_filter1d, (1, 2, 3))()
+
+    # (the transposed matrices in the order the axes are applied, 3, 2, 1)
+    t_mats = [torch.as_tensor(pf.filter_matrix(n, order).T.copy(),
+                              dtype=x.dtype, device=dev) for n in S][::-1]
+    tr = pf.spline_filter1d_transpose
+    k4_err = _assert_close(
+        chain(tr, (3, 2, 1))(),
+        chain(pf.spline_filter1d_transpose_plain, (3, 2, 1))(),
+        *_tol(torch.float32, float(x.abs().max())), "K4 at c5 shapes")
+    print(f"spline_prefilter_transpose per-axis ms at (64, 64, 64, 64, 1) "
+          f"f32, axes 1/2/3: {per_axis(tr, (1, 2, 3))} [{card}]")
+    row("spline_prefilter_transpose", "prefilter.cu",
+        "elasticdeform_tpu/ops/prefilter.py:376",
+        _time_ms(chain(tr, (3, 2, 1))),
+        _time_ms(chain(pf.spline_filter1d_transpose_plain, (3, 2, 1))),
+        filter_bound, _time_ms(chain(None, (3, 2, 1), t_mats)), k4_err)
 
     # K1: resample of the prefiltered batch at its dense displacement
-    def k1():
-        return rsm.resample(coeffs, displ, None, (0, 0, 0), order, 3, 0.0)
+    args = (displ, None, (0, 0, 0), order, 3)
+    k1_err = _assert_close(rsm.resample(coeffs, *args, 0.0),
+                           rsm.resample_plain(coeffs, *args, 0.0),
+                           *_tol(torch.float32, 1.0), "K1 at c5 shapes")
+    row("resample_fwd", "resample.cu", "elasticdeform_tpu/ops/resample.py:66",
+        _time_ms(lambda: rsm.resample(coeffs, *args, 0.0)),
+        _time_ms(lambda: rsm.resample_plain(coeffs, *args, 0.0), warmup=1),
+        _bound((numel + 3 * B * n_out + B * n_out * C) * 4,
+               _k1_ops(B, n_out, 3, order, C)), None, k1_err)
 
-    def k1_plain():
-        return rsm.resample_plain(coeffs, displ, None, (0, 0, 0), order, 3,
-                                  0.0)
+    # K3: the scatter of gy back onto the coefficients (reads gy and the
+    # displacement, writes d_coeffs once; the zero fill that its atomics
+    # need is the design's cost, not the function's)
+    k3_err = _check_k3(rb, gy, args, S, torch.float32, "K3 at c5 shapes")
+    k3_ms = _time_ms(lambda: rb.resample_transpose(gy, *args, S))
+    k3_bytes = (B * n_out * (C + 3) + numel) * 4
+    row("resample_bwd", "resample_bwd.cu",
+        "elasticdeform_tpu/ops/windows.py:1354", k3_ms,
+        _time_ms(lambda: rb.resample_transpose_plain(gy, *args, S),
+                 warmup=1),
+        _bound(k3_bytes, _k1_ops(B, n_out, 3, order, C)), None, k3_err)
+    adds = B * n_out * (order + 1) ** 3 * C
+    print(f"resample_bwd scatter-add rate at c5 shapes: {adds} atomic adds "
+          f"in {k3_ms:.4f} ms = {adds / k3_ms / 1e6:.2f} G adds/s, "
+          f"{k3_bytes / k3_ms / 1e6:.2f} GB/s of compulsory bytes [{card}]")
 
-    k1_err = _assert_close(k1(), k1_plain(), *_tol(torch.float32, 1.0),
-                           "K1 at c5 shapes")
-    k1_ms = _time_ms(k1)
-    k1_plain_ms = _time_ms(k1_plain, reps=REPS, warmup=1)
-    n_out = math.prod(S)
-    k1_bytes = (B * n_out * C + 3 * B * n_out + B * n_out * C) * 4
-    k1_ops = _k1_ops(B, n_out, 3, order, C)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_FLOPS) * 1e3
-    k1_by = "bytes" if k1_bytes / HBM_BYTES_PER_S >= k1_ops / FP32_FLOPS \
-        else "operations"
-    k2_by = "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / FP32_FLOPS \
-        else "operations"
-    rsm.resample.launches, pf.spline_filter1d.launches = save
-    print(f"K1 at c5 shapes: {k1_ms:.4f} ms (plain {k1_plain_ms:.4f} ms, "
-          f"bound {k1_bound:.4f} ms by {k1_by}) [{card}]")
-    print(f"K2 at c5 shapes (3 axes): {k2_ms:.4f} ms (plain "
-          f"{k2_plain_ms:.4f} ms, tensordot {k2_lib_ms:.4f} ms, bound "
-          f"{k2_bound:.4f} ms by {k2_by}) [{card}]")
+    # K5: the gradient with respect to the dense displacement
+    k5_err = _assert_close(
+        rb.resample_coord_grad(coeffs, gy, *args),
+        rb.resample_coord_grad_plain(coeffs, gy, *args),
+        *_tol(torch.float32, _k5_scale(coeffs, gy)), "K5 at c5 shapes")
+    row("resample_coord_grad", "resample_bwd.cu",
+        "elasticdeform_tpu/ops/windows.py:1247",
+        _time_ms(lambda: rb.resample_coord_grad(coeffs, gy, *args)),
+        _time_ms(lambda: rb.resample_coord_grad_plain(coeffs, gy, *args),
+                 reps=3, warmup=1),
+        _bound((numel + B * n_out * C + 2 * 3 * B * n_out) * 4,
+               _k5_ops(B, n_out, 3, order, C)), None, k5_err)
+    for name, w in _wrappers().items():
+        w.launches = save[name]
 
-    configs = _configs()
-    for name, run, n_vox, _, _, _ in configs:
-        ms = _time_ms(lambda run=run: run("cuda"))
-        batch = 64 if name == "c5" else 1
-        print(f"{name}: {ms:.3f} ms per call, "
-              f"{n_vox / ms / 1e3:.2f} Mvox/s (output voxels"
-              f"{' over the batch' if batch > 1 else ''}) [{card}]")
-
-    return [
-        {"name": "resample_fwd", "route": "cuda",
-         "source": "elasticdeform_tpu_torch/csrc/resample.cu",
-         "replaces": "elasticdeform_tpu/ops/resample.py:66",
-         "launches": total_launches["resample_fwd"],
-         "max_abs_err": max(k1_err, errs["resample_fwd"]),
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
-        {"name": "spline_prefilter", "route": "cuda",
-         "source": "elasticdeform_tpu_torch/csrc/prefilter.cu",
-         "replaces": "elasticdeform_tpu/ops/prefilter.py:333",
-         "launches": total_launches["spline_prefilter"],
-         "max_abs_err": max(k2_err, errs["spline_prefilter"]),
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib_ms},
-    ]
-
+    for cfg in _configs():
+        ms = _time_ms(lambda run=cfg.run: run("cuda"))
+        print(f"{cfg.name}: {ms:.3f} ms per call, "
+              f"{cfg.n_vox / ms / 1e3:.2f} Mvox/s (output voxels) [{card}]")
+    order_of = {k: i for i, k in enumerate(KERNELS)}
+    return sorted(rows, key=lambda r: order_of[r["name"]])
 
 
 def main() -> int:

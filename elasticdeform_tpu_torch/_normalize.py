@@ -21,6 +21,16 @@ from elasticdeform_tpu_torch.ops.modes import mode_to_code
 from elasticdeform_tpu_torch.ops.resample import numpy_dtype
 
 
+class Shaped:
+    """Shape-and-dtype stand-in for an array that is not there: one
+    sample of a batch, or the input of a gradient call."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(int(s) for s in shape)
+        self.ndim = len(self.shape)
+        self.dtype = dtype
+
+
 def _is_array(x):
     return hasattr(x, "shape") and hasattr(x, "ndim") and hasattr(x, "dtype")
 
@@ -186,9 +196,10 @@ def build_spec(Xs, axis, deform_shape, output_shapes, output_offset,
             order=o,
             mode=m,
             cval=c,
+            out_shape=tuple(int(s) for s in os),
         )
-        for x, dt, ax, o, m, c in zip(Xs, dtypes, axis, orders, modes,
-                                      cvals))
+        for x, dt, ax, o, m, c, os in zip(Xs, dtypes, axis, orders, modes,
+                                          cvals, output_shapes))
     return DeformSpec(
         inputs=inputs,
         deform_shape=tuple(deform_shape),
@@ -197,3 +208,32 @@ def build_spec(Xs, axis, deform_shape, output_shapes, output_offset,
         prefilter=bool(prefilter),
         compute_dtype=str(compute_dtype),
     )
+
+
+def gradient_inputs(dYs, X_shape, crop, batched=False):
+    """Stand-ins for the forward inputs of a gradient call: the uncropped
+    shapes ``X_shape`` (per sample when ``batched``) with the dtypes of
+    ``dYs`` (reference deform_grid.py:234-245; the JAX package's
+    ``core.py:108-123`` and ``:303-313``). ``X_shape`` is a tuple, a list
+    of tuples, or None, which means the shapes of ``dYs`` and is refused
+    with ``crop``."""
+    lead = 1 if batched else 0
+    if isinstance(X_shape, tuple):
+        X_shape = [X_shape]
+    elif X_shape is None:
+        if crop is not None:
+            raise ValueError(
+                "X_shape is required if the crop parameter is given.")
+        X_shape = [tuple(dy.shape[lead:]) for dy in dYs]
+    return [Shaped(s, dy.dtype) for s, dy in zip(X_shape, dYs)]
+
+
+def check_gradient_shapes(output_shapes, dYs, batched=False):
+    """Refuse ``dYs`` whose shapes are not the forward's output shapes
+    (reference deform_grid.py:250-256)."""
+    lead = 1 if batched else 0
+    given = [tuple(int(d) for d in dy.shape[lead:]) for dy in dYs]
+    if [tuple(s) for s in output_shapes] != given:
+        raise ValueError("X_shape does not match output shape and cropping. "
+                         "Expected output shape is %s, but %s given."
+                         % (str(output_shapes), str(given)))

@@ -1,9 +1,10 @@
 """Numpy API, mirroring the reference's public surface.
 
-``deform_grid`` and ``deform_random_grid`` (reference deform_grid.py:6-179)
-and the batched ``deform_batch``: numpy in, numpy out with the input
-dtypes, computed on ``device`` (default ``"cuda"``; pass ``device="cpu"``
-to run on the host). Counterpart of the JAX package's ``api.py``.
+``deform_grid``, ``deform_random_grid`` and ``deform_grid_gradient``
+(reference deform_grid.py:6-291) and the batched ``deform_batch`` and
+``deform_batch_gradient``: numpy in, numpy out with the input dtypes,
+computed on ``device`` (default ``"cuda"``; pass ``device="cpu"`` to run on
+the host). Counterpart of the JAX package's ``api.py``.
 """
 
 from __future__ import annotations
@@ -94,6 +95,49 @@ def deform_grid(X, displacement, order=3, mode='constant', cval=0.0,
     return outputs if isinstance(X, list) else outputs[0]
 
 
+def deform_grid_gradient(dY, displacement, order=3, mode='constant',
+                         cval=0.0, crop=None, prefilter=True, axis=None,
+                         X_shape=None, affine=None, rotate=None, zoom=None, *,
+                         device=None):
+    """Gradient of :func:`deform_grid` with respect to the input image.
+
+    Given the gradient ``dY`` of a scalar loss with respect to the output
+    of :func:`deform_grid`, returns the gradient with respect to its input:
+    the exact adjoint of the forward (scatter-add of the interpolation
+    stencils, then the transposed spline prefilter), as the reference's
+    ``deform_grid_gradient`` (reference deform_grid.py:182-291).
+
+    Parameters
+    ----------
+    dY : numpy array or list of arrays
+        Gradient(s) with respect to the deformed output(s), with the output
+        shape(s) of the forward call (the cropped shape with ``crop``).
+    displacement, order, mode, cval, crop, prefilter, axis, affine, \
+rotate, zoom
+        The values passed to the forward :func:`deform_grid` call.
+    X_shape : None, tuple, or list of tuples
+        Shape(s) of the forward input(s); required with ``crop``, else the
+        shape(s) of ``dY``.
+    device : None, str or torch.device, keyword-only
+        Where to compute: ``None`` means ``"cuda"``.
+
+    Returns
+    -------
+    numpy array or list of arrays
+        Gradient(s) with respect to the input(s), with shape ``X_shape``
+        and the dtype(s) of ``dY``. The gradient with respect to the
+        displacement comes from autograd through
+        :func:`elasticdeform_tpu_torch.deform`.
+    """
+    dYs = _n.normalize_inputs(dY)
+    dxs = _core.deform_gradient(dYs, displacement, order=order, mode=mode,
+                                cval=cval, crop=crop, prefilter=prefilter,
+                                axis=axis, X_shape=X_shape, affine=affine,
+                                rotate=rotate, zoom=zoom, device=device)
+    outputs = _to_host(dxs, dYs)
+    return outputs if isinstance(dY, list) else outputs[0]
+
+
 def deform_batch(X, displacement, order=3, mode='constant', cval=0.0,
                  crop=None, prefilter=True, axis=None, affine=None,
                  rotate=None, zoom=None, *, device=None):
@@ -108,3 +152,21 @@ def deform_batch(X, displacement, order=3, mode='constant', cval=0.0,
                             zoom=zoom, device=device)
     outputs = _to_host(ys, Xs)
     return outputs if isinstance(X, list) else outputs[0]
+
+
+def deform_batch_gradient(dY, displacement, order=3, mode='constant',
+                          cval=0.0, crop=None, prefilter=True, axis=None,
+                          X_shape=None, affine=None, rotate=None, zoom=None,
+                          *, device=None):
+    """Batched :func:`deform_grid_gradient`: numpy in, numpy out. Maps
+    ``dY`` ``(B, *output_shape)`` (or a list) to the input cotangents of
+    :func:`deform_batch` given its per-sample grids ``(B, naxis,
+    *points)``; ``X_shape`` is the per-sample uncropped input shape(s),
+    required with ``crop``."""
+    dYs = _n.normalize_inputs(dY)
+    dxs = _core.deform_batch_gradient(
+        dYs, displacement, order=order, mode=mode, cval=cval, crop=crop,
+        prefilter=prefilter, axis=axis, X_shape=X_shape, affine=affine,
+        rotate=rotate, zoom=zoom, device=device)
+    outputs = _to_host(dxs, dYs)
+    return outputs if isinstance(dY, list) else outputs[0]

@@ -36,152 +36,15 @@
 // are summed in the plain version's order (axis 0 slowest), and the weight
 // product is formed left to right. The kernel therefore reproduces the
 // plain version up to the rounding of the dense displacement it is given.
+// The coordinate, fold and weight code is in resample_common.cuh, shared
+// with K3 and K5.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "resample_common.cuh"
 
-#define ED_MAXD 4
 #define ED_CCH 4
 
 namespace {
 
-enum { MODE_NEAREST = 0, MODE_WRAP = 1, MODE_REFLECT = 2, MODE_MIRROR = 3,
-       MODE_CONSTANT = 4 };
-
-struct Params {
-  int naxis;
-  int mode;
-  int64_t batch;
-  int64_t channels;
-  int64_t n_in;    // prod(in_shape)
-  int64_t n_out;   // prod(out_shape)
-  int64_t affine_stride;  // elements between samples' affines; 0 = shared
-  int64_t in_shape[ED_MAXD];
-  int64_t in_stride[ED_MAXD];  // in voxels, row-major over in_shape
-  int64_t out_shape[ED_MAXD];
-  int64_t offset[ED_MAXD];
-  double cval;
-};
-
-template <typename T>
-__device__ __forceinline__ T clampT(T v, T lo, T hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// ops/modes.py map_coordinate; `inside` is cleared for constant mode.
-template <typename T>
-__device__ __forceinline__ T map_coord(T cc, int64_t length, int mode,
-                                       bool* inside) {
-  const T lm1 = T(length - 1);
-  const bool below = cc < T(0);
-  const bool above = cc > lm1;
-  if (mode == MODE_CONSTANT) {
-    if (below || above) *inside = false;
-    return clampT(cc, T(0), lm1);
-  }
-  if (mode == MODE_NEAREST) return clampT(cc, T(0), lm1);
-  if (length <= 1) return T(0);
-  if (mode == MODE_MIRROR) {
-    const T sz2 = T(2 * length - 2);
-    if (below) {
-      T neg = sz2 * trunc(-cc / sz2) + cc;
-      return neg <= T(1 - length) ? neg + sz2 : -neg;
-    }
-    if (above) {
-      T pos = cc - sz2 * trunc(cc / sz2);
-      return pos >= T(length) ? sz2 - pos : pos;
-    }
-    return cc;
-  }
-  if (mode == MODE_REFLECT) {
-    const T sz2 = T(2 * length);
-    if (below) {
-      T neg0 = cc < -sz2 ? sz2 * trunc(-cc / sz2) + cc : cc;
-      return neg0 < T(-length) ? neg0 + sz2 : -neg0 - T(1);
-    }
-    if (above) {
-      T pos = cc - sz2 * trunc(cc / sz2);
-      return pos >= T(length) ? sz2 - pos - T(1) : pos;
-    }
-    return cc;
-  }
-  // MODE_WRAP, period len - 1
-  const T sz = T(length - 1);
-  if (below) return cc + sz * (trunc(-cc / sz) + T(1));
-  if (above) return cc - sz * trunc(cc / sz);
-  return cc;
-}
-
-__device__ __forceinline__ int64_t mirror_fold(int64_t i, int64_t n) {
-  if (n <= 1) return 0;
-  const int64_t s2 = 2 * n - 2;
-  int64_t m = i % s2;
-  if (m < 0) m += s2;
-  return m >= n ? s2 - m : m;
-}
-
-// ops/bspline.py spline_weights, same operations in the same order.
-template <typename T, int ORDER>
-__device__ __forceinline__ void spline_weights(T cc, T* w) {
-  if (ORDER == 0) {
-    w[0] = T(1);
-    return;
-  }
-  const T x = (ORDER & 1) ? cc - floor(cc) : cc - floor(cc + T(0.5));
-  if (ORDER == 1) {
-    w[0] = T(1) - x;
-    w[1] = T(1) - w[0];
-  } else if (ORDER == 2) {
-    w[1] = T(0.75) - x * x;
-    const T y = T(0.5) - x;
-    w[0] = T(0.5) * y * y;
-    w[2] = T(1) - w[0] - w[1];
-  } else if (ORDER == 3) {
-    const T y = x, z = T(1) - x;
-    w[1] = (y * y * (y - T(2)) * T(3) + T(4)) / T(6);
-    w[2] = (z * z * (z - T(2)) * T(3) + T(4)) / T(6);
-    w[0] = z * z * z / T(6);
-    w[3] = T(1) - w[0] - w[1] - w[2];
-  } else if (ORDER == 4) {
-    T t = x * x;
-    w[2] = t * (t * T(0.25) - T(0.625)) + T(115.0 / 192.0);
-    const T y = T(1) + x;
-    w[1] = y * (y * (y * (T(5) - y) / T(6) - T(1.25)) + T(5.0 / 24.0)) +
-           T(55.0 / 96.0);
-    const T z = T(1) - x;
-    w[3] = z * (z * (z * (T(5) - z) / T(6) - T(1.25)) + T(5.0 / 24.0)) +
-           T(55.0 / 96.0);
-    const T y2 = T(0.5) - x;
-    t = y2 * y2;
-    w[0] = t * t / T(24);
-    w[4] = T(1) - w[0] - w[1] - w[2] - w[3];
-  } else if (ORDER == 5) {
-    const T y = x, z = T(1) - x;
-    T t = y * y;
-    w[2] = t * (t * (T(0.25) - y / T(12)) - T(0.5)) + T(0.55);
-    t = z * z;
-    w[3] = t * (t * (T(0.25) - z / T(12)) - T(0.5)) + T(0.55);
-    const T y1 = T(1) + x;
-    w[1] = y1 * (y1 * (y1 * (y1 * (y1 / T(24) - T(0.375)) + T(1.25)) -
-                       T(1.75)) +
-                 T(0.625)) +
-           T(0.425);
-    const T z1 = T(2) - x;
-    w[4] = z1 * (z1 * (z1 * (z1 * (z1 / T(24) - T(0.375)) + T(1.25)) -
-                       T(1.75)) +
-                 T(0.625)) +
-           T(0.425);
-    const T y2 = T(1) - x;
-    t = y2 * y2;
-    w[0] = y2 * t * t / T(120);
-    w[5] = T(1) - w[0] - w[1] - w[2] - w[3] - w[4];
-  }
-}
-
-// The naxis real axes sit at the END of the ED_MAXD slots (slot
-// ED_MAXD - naxis + h holds axis h); leading unused slots take one tap of
-// weight 1 and offset 0. Multiplying by 1 is exact, so the weight product
-// equals the plain version's left-to-right product over the real axes.
 template <typename T, int ORDER>
 __global__ void __launch_bounds__(256)
 resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
@@ -192,61 +55,13 @@ resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
   if (gid >= p.batch * p.n_out) return;
   const int64_t b = gid / p.n_out;
   const int64_t v = gid - b * p.n_out;
-  const int naxis = p.naxis;
-  const int lead = ED_MAXD - naxis;
-
-  int64_t j[ED_MAXD];
-  {
-    int64_t rem = v;
-#pragma unroll
-    for (int h = ED_MAXD - 1; h >= 0; --h) {
-      if (h < naxis) {
-        j[h] = rem % p.out_shape[h];
-        rem /= p.out_shape[h];
-      } else {
-        j[h] = 0;
-      }
-    }
-  }
 
   T w[ED_MAXD][NT];
   int64_t off[ED_MAXD][NT];
   int ntap[ED_MAXD];
-  bool inside = true;
-  const T* A = affine ? affine + b * p.affine_stride : nullptr;
-#pragma unroll
-  for (int s = 0; s < ED_MAXD; ++s) {
-    const int h = s - lead;
-    if (h < 0) {
-      ntap[s] = 1;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        w[s][t] = T(1);
-        off[s][t] = 0;
-      }
-      continue;
-    }
-    ntap[s] = NT;
-    T cc;
-    if (A) {
-      const T* row = A + h * (naxis + 1);
-      T acc = row[naxis];
-      for (int l = 0; l < naxis; ++l) acc = acc + row[l] * T(j[l]);
-      cc = acc;
-    } else {
-      cc = T(j[h]);
-    }
-    cc = cc + T(p.offset[h]);
-    cc = cc + displ[(b * naxis + h) * p.n_out + v];
-    const T m = map_coord(cc, p.in_shape[h], p.mode, &inside);
-    const T fs = (ORDER & 1) ? floor(m) - T(ORDER / 2)
-                             : floor(m + T(0.5)) - T(ORDER / 2);
-    const int64_t start = (int64_t)fs;
-    spline_weights<T, ORDER>(m, w[s]);
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-      off[s][t] = mirror_fold(start + t, p.in_shape[h]) * p.in_stride[h];
-  }
+  T unused_dw[ED_MAXD][NT], unused_fd[ED_MAXD];
+  const bool inside = tap_tables<T, ORDER, false>(
+      p, displ, affine, b, v, w, off, ntap, unused_dw, unused_fd);
 
   const int64_t C = p.channels;
   T* dst = out + gid * C;
@@ -330,30 +145,10 @@ int ed_resample_fwd(int dtype, const void* coeffs, const void* displ,
                     const long long* in_shape, const long long* out_shape,
                     const long long* offsets, long long affine_stride,
                     double cval, void* stream) {
-  if (naxis < 1 || naxis > ED_MAXD || mode < 0 || mode > 4)
-    return (int)cudaErrorInvalidValue;
   Params p;
-  p.naxis = naxis;
-  p.mode = mode;
-  p.batch = batch;
-  p.channels = channels;
-  p.affine_stride = affine_stride;
-  p.cval = cval;
-  p.n_in = 1;
-  p.n_out = 1;
-  for (int h = ED_MAXD - 1; h >= 0; --h) {
-    if (h < naxis) {
-      p.in_shape[h] = in_shape[h];
-      p.out_shape[h] = out_shape[h];
-      p.offset[h] = offsets[h];
-      p.in_stride[h] = p.n_in;
-      p.n_in *= in_shape[h];
-      p.n_out *= out_shape[h];
-    } else {
-      p.in_shape[h] = p.out_shape[h] = 1;
-      p.in_stride[h] = p.offset[h] = 0;
-    }
-  }
+  if (!make_params(&p, naxis, mode, batch, channels, in_shape, out_shape,
+                   offsets, affine_stride, cval))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0
       ? dispatch<float>(order, coeffs, displ, affine, out, p, s)

@@ -1,7 +1,8 @@
-"""Forward deformation: the per-call pipeline over one or more inputs.
+"""Deformation: the per-call pipeline over one or more inputs, and its
+exact adjoints.
 
-Counterpart of the JAX package's ``ops/deform.py`` (forward path only).
-For a batch of samples with per-sample control grids:
+Counterpart of the JAX package's ``ops/deform.py``. Forward, for a batch of
+samples with per-sample control grids:
 
 1. the raw control grids become a dense displacement field
    (:func:`~elasticdeform_tpu_torch.ops.displacement.dense_displacement`,
@@ -15,6 +16,14 @@ For a batch of samples with per-sample control grids:
    boundary mode and cval (reference deform.c:768-903);
 4. the result is cast to the input dtype by the reference's rules
    (deform.c:906-924) and put back in the input's axis order.
+
+The gradient with respect to the inputs is the transpose of the linear
+part, run backward (reference deform_grid.py:274-286, deform.c:926-997 and
+1049-1168): kernel K3 scatters the output cotangent into the coefficients,
+kernel K4 applies the transposed prefilter along each axis in reverse
+order, and the result is cast to the cotangent's dtype. The path has no
+integer writeback. The gradient with respect to the control grids is
+kernel K5 per input, summed over the inputs, then the transpose of step 1.
 """
 
 from __future__ import annotations
@@ -26,9 +35,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from elasticdeform_tpu_torch.ops.displacement import dense_displacement
-from elasticdeform_tpu_torch.ops.prefilter import spline_filter1d
+from elasticdeform_tpu_torch.ops.displacement import (
+    dense_displacement, dense_displacement_transpose,
+)
+from elasticdeform_tpu_torch.ops.prefilter import (
+    spline_filter1d, spline_filter1d_transpose,
+)
 from elasticdeform_tpu_torch.ops.resample import cast_output, resample
+from elasticdeform_tpu_torch.ops.resample_bwd import (
+    resample_coord_grad, resample_transpose,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +56,7 @@ class InputSpec:
     order: int                    # 0-5
     mode: int                     # boundary mode code
     cval: float
+    out_shape: Tuple[int, ...]    # full (cropped) per-sample output shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +89,12 @@ def _split_axes(ispec: InputSpec):
     return perm, inv_perm, chan_shape
 
 
-def _to_spatial_channels(x: torch.Tensor, ispec: InputSpec):
-    """``(B, *shape)`` -> ``(B, *deform_spatial, C)``."""
+def _to_spatial_channels(x: torch.Tensor, ispec: InputSpec, shape=None):
+    """``(B, *shape)`` -> ``(B, *deform_spatial, C)``; ``shape`` defaults
+    to the input's, the output cotangent passes ``ispec.out_shape``."""
     perm, _, chan_shape = _split_axes(ispec)
-    spatial = tuple(ispec.shape[d] for d in ispec.axis)
+    shape = ispec.shape if shape is None else shape
+    spatial = tuple(shape[d] for d in ispec.axis)
     xt = x.permute(0, *(p + 1 for p in perm))
     return xt.reshape(x.shape[0], *spatial, max(math.prod(chan_shape), 1))
 
@@ -104,6 +123,35 @@ def _prefilter_input(xt: torch.Tensor, ispec: InputSpec, spec: DeformSpec,
     return xf
 
 
+def _setup(displacement: torch.Tensor, affine, spec: DeformSpec):
+    """Compute dtype, dense displacement and affine tensor of a call."""
+    cdt = getattr(torch, spec.compute_dtype)
+    displ = dense_displacement(displacement.to(cdt), spec.out_spatial,
+                               spec.deform_shape, spec.offsets)
+    if affine is not None:
+        affine = torch.as_tensor(affine, dtype=cdt, device=displ.device)
+    return cdt, displ, affine
+
+
+def deform_forward(xs, displacement: torch.Tensor, affine, spec: DeformSpec,
+                   keep_coeffs: bool = False):
+    """Forward deformation of a batch, returning ``(ys, displ, affine,
+    coeffs)``: the outputs, the dense displacement and affine tensor it
+    used, and, if ``keep_coeffs``, each input's prefiltered coefficients
+    ``(B, *spatial, C)`` for the displacement gradient (else None)."""
+    cdt, displ, affine = _setup(displacement, affine, spec)
+    ys, coeffs = [], []
+    for x, ispec in zip(xs, spec.inputs):
+        xf = _prefilter_input(_to_spatial_channels(x, ispec), ispec, spec,
+                              cdt)
+        y = resample(xf, displ, affine, spec.offsets, ispec.order,
+                     ispec.mode, ispec.cval)
+        y = cast_output(y, ispec.dtype)
+        ys.append(_from_spatial_channels(y, ispec, spec.out_spatial))
+        coeffs.append(xf if keep_coeffs else None)
+    return ys, displ, affine, (coeffs if keep_coeffs else None)
+
+
 def deform_apply_batched(xs, displacement: torch.Tensor, affine,
                          spec: DeformSpec):
     """Forward deformation of a batch with per-sample control grids.
@@ -113,20 +161,7 @@ def deform_apply_batched(xs, displacement: torch.Tensor, affine,
     or a per-sample ``(B, naxis, naxis+1)`` inverse affine (array or
     tensor). Returns the list of ``(B, *out_shape_i)`` outputs.
     """
-    cdt = getattr(torch, spec.compute_dtype)
-    displ = dense_displacement(displacement.to(cdt), spec.out_spatial,
-                               spec.deform_shape, spec.offsets)
-    if affine is not None:
-        affine = torch.as_tensor(affine, dtype=cdt, device=displ.device)
-    ys = []
-    for x, ispec in zip(xs, spec.inputs):
-        xf = _prefilter_input(_to_spatial_channels(x, ispec), ispec, spec,
-                              cdt)
-        y = resample(xf, displ, affine, spec.offsets, ispec.order,
-                     ispec.mode, ispec.cval)
-        y = cast_output(y, ispec.dtype)
-        ys.append(_from_spatial_channels(y, ispec, spec.out_spatial))
-    return ys
+    return deform_forward(xs, displacement, affine, spec)[0]
 
 
 def deform_apply(xs, displacement: torch.Tensor, affine, spec: DeformSpec):
@@ -135,3 +170,60 @@ def deform_apply(xs, displacement: torch.Tensor, affine, spec: DeformSpec):
     ys = deform_apply_batched([x[None] for x in xs], displacement[None],
                               affine, spec)
     return [y[0] for y in ys]
+
+
+def input_gradient(dy: torch.Tensor, ispec: InputSpec, spec: DeformSpec,
+                   displ: torch.Tensor, affine, cdt) -> torch.Tensor:
+    """The transpose of one input's forward: ``dy`` ``(B, *out_shape)`` to
+    ``(B, *shape)`` in ``ispec.dtype`` (K3, then K4 per axis in reverse
+    order, then the cast)."""
+    g = _to_spatial_channels(dy, ispec, ispec.out_shape).to(cdt).contiguous()
+    spatial = tuple(ispec.shape[d] for d in ispec.axis)
+    dxt = resample_transpose(g, displ, affine, spec.offsets, ispec.order,
+                             ispec.mode, spatial)
+    if spec.prefilter and ispec.order > 1:
+        for d in range(len(spatial) - 1, -1, -1):
+            dxt = spline_filter1d_transpose(dxt, ispec.order, d + 1)
+    return _from_spatial_channels(cast_output(dxt, ispec.dtype), ispec,
+                                  spatial)
+
+
+def deform_gradient_apply_batched(dys, displacement: torch.Tensor, affine,
+                                  spec: DeformSpec):
+    """Exact adjoint of :func:`deform_apply_batched` with respect to the
+    inputs: ``dys[i]`` ``(B, *out_shape_i)`` output cotangents to ``(B,
+    *shape_i)`` input cotangents with ``spec.inputs[i].dtype`` (the JAX
+    package's ``deform_gradient_apply``, ``ops/deform.py:499``)."""
+    cdt, displ, affine = _setup(displacement, affine, spec)
+    return [input_gradient(dy, ispec, spec, displ, affine, cdt)
+            for dy, ispec in zip(dys, spec.inputs)]
+
+
+def deform_gradient_apply(dys, displacement: torch.Tensor, affine,
+                          spec: DeformSpec):
+    """:func:`deform_gradient_apply_batched` for single samples."""
+    dxs = deform_gradient_apply_batched([dy[None] for dy in dys],
+                                        displacement[None], affine, spec)
+    return [dx[0] for dx in dxs]
+
+
+def grid_gradient(coeffs, dys, displ, affine, spec: DeformSpec, points,
+                  dtype) -> torch.Tensor:
+    """Gradient with respect to the raw control grids ``(B, naxis,
+    *points)``, in ``dtype``: K5 for each input whose coefficients and
+    cotangent are given (not None), summed, then the transpose of the
+    dense displacement. Integer and bool outputs are rounded, so they are
+    not differentiable and add nothing, as under ``jax.grad``."""
+    cdt = displ.dtype
+    total = None
+    for xf, dy, ispec in zip(coeffs, dys, spec.inputs):
+        if xf is None or dy is None or np.dtype(ispec.dtype).kind in "biu":
+            continue
+        g = _to_spatial_channels(dy, ispec, ispec.out_shape).to(cdt)
+        d = resample_coord_grad(xf, g.contiguous(), displ, affine,
+                                spec.offsets, ispec.order, ispec.mode)
+        total = d if total is None else total + d
+    if total is None:
+        total = torch.zeros_like(displ)
+    return dense_displacement_transpose(
+        total, points, spec.deform_shape, spec.offsets).to(dtype)

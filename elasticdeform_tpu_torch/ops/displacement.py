@@ -64,3 +64,21 @@ def dense_displacement(displacement: torch.Tensor, out_shape, in_shape,
         out = torch.movedim(torch.tensordot(Wt, out, dims=([1], [h + 2])),
                             0, h + 2)
     return out.contiguous()
+
+
+def dense_displacement_transpose(d_dense: torch.Tensor, points, in_shape,
+                                 offsets) -> torch.Tensor:
+    """Transpose of :func:`dense_displacement`: a dense-field cotangent
+    ``(B, naxis, *out_shape)`` to the raw control grids' ``(B, naxis,
+    *points)``, each axis contracted with ``displacement_matrix(...).T``
+    (prefilter composed in; the vjp of the JAX package's
+    ``dense_displacement``)."""
+    out = d_dense
+    for h in range(len(points)):
+        W = displacement_matrix(out.shape[h + 2], points[h], in_shape[h],
+                                offsets[h], True)
+        Wt = torch.as_tensor(np.ascontiguousarray(W.T), dtype=out.dtype,
+                             device=out.device)
+        out = torch.movedim(torch.tensordot(Wt, out, dims=([1], [h + 2])),
+                            0, h + 2)
+    return out.contiguous()

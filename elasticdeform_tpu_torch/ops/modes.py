@@ -8,7 +8,9 @@ library's *pre-SciPy-1.6* conventions (reference deform.c:47-128):
 * the boundary mode is applied once to the floating-point sample
   coordinate; filter taps that still fall outside the array are folded with
   mirror index arithmetic whatever the mode (:func:`mirror_index_np`);
-* ``constant`` reports an explicit ``inside`` mask.
+* ``constant`` reports an explicit ``inside`` mask;
+* :func:`map_coordinate_grad` is the fold's derivative, for the gradient
+  with respect to the displacement.
 
 The divisions below divide by a 0-dim tensor on the coordinates' device, not
 by a Python number: PyTorch's CUDA division by a host scalar multiplies by
@@ -96,6 +98,53 @@ def map_coordinate(cc: torch.Tensor, length: int, mode: int):
         neg = cc + sz * (torch.trunc(-cc / d) + 1)
         pos = cc - sz * torch.trunc(cc / d)
         return torch.where(below, neg, torch.where(above, pos, cc)), inside
+
+    raise RuntimeError("boundary mode not supported")
+
+
+def map_coordinate_grad(cc: torch.Tensor, length: int, mode: int):
+    """``d mapped / d cc`` of :func:`map_coordinate`, as JAX's autodiff
+    gives it for the JAX package's ``map_coordinate``.
+
+    Mirror and reflect give +1 or -1 by branch and wrap gives 1 (``trunc``
+    has a zero derivative). Nearest and constant clip with ``jnp.clip``,
+    which is ``minimum(maximum(cc, 0), length-1)``: 1 inside, 0 outside,
+    and each of the two operations passes half at an exact tie, so 0.5 at
+    ``cc == 0`` or ``cc == length-1`` (0.25 when both hold). This is
+    written out because ``torch.clamp``'s backward gives 1 at a tie.
+    """
+    one = torch.ones_like(cc)
+    if mode in (MODE_CONSTANT, MODE_NEAREST):
+        half, zero = 0.5 * one, torch.zeros_like(cc)
+        lo = torch.where(cc > 0, one, torch.where(cc == 0, half, zero))
+        hi = torch.where(cc < length - 1, one,
+                         torch.where(cc == length - 1, half, zero))
+        return lo * hi
+    if length <= 1:
+        return torch.zeros_like(cc)
+    below = cc < 0
+    above = cc > length - 1
+
+    if mode == MODE_MIRROR:
+        sz2 = 2 * length - 2
+        d = _const(sz2, cc)
+        neg = sz2 * torch.trunc(-cc / d) + cc
+        pos = cc - sz2 * torch.trunc(cc / d)
+        dneg = torch.where(neg <= 1 - length, one, -one)
+        dpos = torch.where(pos >= length, -one, one)
+        return torch.where(below, dneg, torch.where(above, dpos, one))
+
+    if mode == MODE_REFLECT:
+        sz2 = 2 * length
+        d = _const(sz2, cc)
+        neg0 = torch.where(cc < -sz2, sz2 * torch.trunc(-cc / d) + cc, cc)
+        pos = cc - sz2 * torch.trunc(cc / d)
+        dneg = torch.where(neg0 < -length, one, -one)
+        dpos = torch.where(pos >= length, -one, one)
+        return torch.where(below, dneg, torch.where(above, dpos, one))
+
+    if mode == MODE_WRAP:
+        return one
 
     raise RuntimeError("boundary mode not supported")
 

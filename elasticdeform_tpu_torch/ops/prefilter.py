@@ -6,6 +6,13 @@ the card, one thread per line. On a CPU tensor it takes the plain version,
 :func:`spline_filter1d_plain`: a ``tensordot`` with the dense float64 filter
 matrix, as the JAX package computes it (``ops/prefilter.py:333`` there).
 
+:func:`spline_filter1d_transpose` is the wrapper of kernel K4 (the second
+entry point of ``csrc/prefilter.cu``), the exact transpose of the filter
+for the gradient: the stages of :func:`_filter_lines` transposed and run
+in reverse, on the card. Its plain version,
+:func:`spline_filter1d_transpose_plain`, is a ``tensordot`` with the
+transposed filter matrix (``ops/prefilter.py:376`` there).
+
 The float64 numpy helpers (poles, the reference recursion, the filter
 matrix) are this package's own copies of the JAX package's.
 """
@@ -126,6 +133,16 @@ def spline_filter1d_plain(x: torch.Tensor, order: int, axis: int,
     return y if int_dtype is None else cast_int_c(y, int_dtype)
 
 
+def spline_filter1d_transpose_plain(x: torch.Tensor, order: int,
+                                    axis: int) -> torch.Tensor:
+    """Plain version of K4: the transposed float64 filter matrix applied
+    in the tensor's dtype (the JAX package's ``ops/prefilter.py:376``)."""
+    if order <= 1:
+        return x
+    mat = np.ascontiguousarray(filter_matrix(x.shape[axis], order).T)
+    return _apply_matrix(x, mat, axis)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_params(n: int, order: int):
     poles = spline_poles(order)
@@ -149,7 +166,24 @@ def _lib():
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_double), ctypes.c_double, ctypes.c_int,
             ctypes.c_double, ctypes.c_void_p]
+        fn = lib.ed_spline_prefilter_transpose
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double), ctypes.c_double,
+            ctypes.c_void_p]
     return lib
+
+
+def _lines(x: torch.Tensor, axis: int):
+    """``(outer, n, inner)`` view of ``x`` around ``axis``."""
+    axis = axis % x.dim()
+    shape = x.shape
+    return (math.prod(shape[:axis]), int(shape[axis]),
+            math.prod(shape[axis + 1:]))
 
 
 def spline_filter1d(x: torch.Tensor, order: int, axis: int,
@@ -167,11 +201,7 @@ def spline_filter1d(x: torch.Tensor, order: int, axis: int,
     if x.device.type == "cpu":
         return spline_filter1d_plain(x, order, axis, int_dtype)
     check_kernel_tensor(x, "spline_filter1d")
-    axis = axis % x.dim()
-    shape = x.shape
-    n = int(shape[axis])
-    outer = math.prod(shape[:axis])
-    inner = math.prod(shape[axis + 1:])
+    outer, n, inner = _lines(x, axis)
     poles, horizons, pn1, denom, gain = _kernel_params(n, order)
     if int_dtype is None:
         bits, lo = 0, 0.0
@@ -191,3 +221,34 @@ def spline_filter1d(x: torch.Tensor, order: int, axis: int,
 
 
 spline_filter1d.launches = 0
+
+
+def spline_filter1d_transpose(x: torch.Tensor, order: int,
+                              axis: int) -> torch.Tensor:
+    """The exact transpose of :func:`spline_filter1d` along ``axis`` (no
+    integer writeback: the gradient path is linear). Orders 0 and 1 return
+    ``x`` as it is. A CPU tensor takes
+    :func:`spline_filter1d_transpose_plain`; a CUDA tensor launches K4
+    (contiguous float32 or float64 only) and adds one to
+    ``spline_filter1d_transpose.launches``.
+    """
+    if order <= 1:
+        return x
+    if x.device.type == "cpu":
+        return spline_filter1d_transpose_plain(x, order, axis)
+    check_kernel_tensor(x, "spline_filter1d_transpose")
+    outer, n, inner = _lines(x, axis)
+    poles, horizons, pn1, denom, gain = _kernel_params(n, order)
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.ed_spline_prefilter_transpose(
+        0 if x.dtype == torch.float32 else 1, x.data_ptr(), out.data_ptr(),
+        outer, n, inner, len(spline_poles(order)), poles, horizons, pn1,
+        denom, gain, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, lib, "ed_prefilter_error_string",
+                 "spline_prefilter_transpose")
+    spline_filter1d_transpose.launches += 1
+    return out
+
+
+spline_filter1d_transpose.launches = 0

@@ -127,6 +127,65 @@ def sample_coordinates(displ: torch.Tensor, affine, offsets):
     return [cc[h] + offsets[h] + displ[:, h] for h in range(naxis)]
 
 
+def mirror_unpad(d: torch.Tensor, axes, pad: int, lengths) -> torch.Tensor:
+    """Transpose of :func:`mirror_pad`: fold each padded axis of ``axes``
+    back onto its ``lengths`` entry by adding the pad onto the mirror
+    positions (the JAX package's ``window_unpad_axis``)."""
+    if pad == 0:
+        return d
+    for a, n in zip(axes, lengths):
+        idx = _modes.mirror_index_np(np.arange(-pad, n + pad), n)
+        shape = list(d.shape)
+        shape[a] = n
+        out = torch.zeros(shape, dtype=d.dtype, device=d.device)
+        d = out.index_add_(a, torch.as_tensor(idx, device=d.device), d)
+    return d
+
+
+def tap_geometry(spatial, mapped, order: int):
+    """Per-voxel gather geometry into the mirror-padded ``(B, *spatial)``
+    coefficients: the pad, the padded shape, the flat row of each voxel's
+    first tap (``n_out``), the row strides per axis, and per axis the
+    per-tap :func:`spline_weights` flattened to ``n_out``."""
+    naxis = len(mapped)
+    B = mapped[0].shape[0]
+    n_out = mapped[0].numel()
+    pad = pad_amount(order)
+    padded = tuple(n + 2 * pad for n in spatial)
+    per_sample = math.prod(padded)
+    strides = [math.prod(padded[h + 1:]) for h in range(naxis)]
+    base = (torch.arange(B, device=mapped[0].device) * per_sample).view(
+        (B,) + (1,) * naxis)
+    weights = []
+    for h in range(naxis):
+        cc = mapped[h]
+        start = filter_start(cc, order).to(torch.int64) + pad
+        base = base + start * strides[h]
+        weights.append([w.reshape(n_out) for w in spline_weights(cc, order)])
+    return pad, padded, base.reshape(n_out), strides, weights
+
+
+def tap_products(order: int, strides, factors):
+    """Yield ``(row offset, products)`` for each of the ``(order+1)^naxis``
+    taps, axis 0 slowest (the separable loop of reference
+    deform.c:841-901). ``factors[k][h][t]`` is the factor of tap ``t``
+    along axis ``h`` in product ``k``; each product is formed left to right
+    over the axes (None at order 0, which skips weighting)."""
+    naxis = len(strides)
+
+    def visit(h, parts, offset):
+        if h == naxis:
+            yield offset, parts
+            return
+        for tap in range(order + 1):
+            new = parts if order == 0 else [
+                f[h][tap] if p is None else p * f[h][tap]
+                for p, f in zip(parts, factors)]
+            yield from visit(h + 1, new, offset + tap * strides[h])
+
+    yield from visit(0, [None] * len(factors), 0)
+
+
 def resample_linear(x: torch.Tensor, mapped, inside, order: int):
     """Gather-resample ``x`` at boundary-mapped coordinates (no cval).
 
@@ -138,46 +197,33 @@ def resample_linear(x: torch.Tensor, mapped, inside, order: int):
     B, C = x.shape[0], x.shape[-1]
     out_spatial = tuple(mapped[0].shape[1:])
     n_out = B * math.prod(out_spatial)
+    pad, padded, base, strides, weights = tap_geometry(
+        x.shape[1:naxis + 1], mapped, order)
+    rows = B * math.prod(padded)
+    xf = mirror_pad(x, range(1, naxis + 1), pad).reshape(rows, C)
 
-    pad = pad_amount(order)
-    xp = mirror_pad(x, range(1, naxis + 1), pad)
-    padded = xp.shape[1:naxis + 1]
-    per_sample = math.prod(padded)
-    strides = [math.prod(padded[h + 1:]) for h in range(naxis)]
-    xf = xp.reshape(B * per_sample, C)
-
-    base = (torch.arange(B, device=x.device) * per_sample).view(
-        (B,) + (1,) * naxis)
-    weights = []
-    for h in range(naxis):
-        cc = mapped[h]
-        start = filter_start(cc, order).to(torch.int64) + pad
-        base = base + start * strides[h]
-        weights.append([w.reshape(n_out) for w in spline_weights(cc, order)])
-    base = base.reshape(n_out)
-
-    # static tap loop, axis 0 slowest; partial weight products left to right
-    # (the separable accumulation of reference deform.c:841-901)
     acc = None
-
-    def visit(h, wpart, offset):
-        nonlocal acc
-        if h == naxis:
-            idx = torch.clamp(base + offset, 0, B * per_sample - 1)
-            vals = torch.index_select(xf, 0, idx)
-            contrib = vals if wpart is None else wpart[:, None] * vals
-            acc = contrib if acc is None else acc + contrib
-            return
-        for tap in range(order + 1):
-            wnew = wpart if order == 0 else (
-                weights[h][tap] if wpart is None else wpart * weights[h][tap])
-            visit(h + 1, wnew, offset + tap * strides[h])
-
-    visit(0, None, 0)
+    for offset, (w,) in tap_products(order, strides, [weights]):
+        idx = torch.clamp(base + offset, 0, rows - 1)
+        vals = torch.index_select(xf, 0, idx)
+        contrib = vals if w is None else w[:, None] * vals
+        acc = contrib if acc is None else acc + contrib
     if inside is not None:
         acc = torch.where(inside.reshape(n_out, 1), acc,
                           torch.zeros((), dtype=acc.dtype, device=acc.device))
     return acc.reshape(B, *out_spatial, C)
+
+
+def map_all(cc, spatial, mode: int):
+    """Mode-folded coordinates per axis and the constant-mode mask."""
+    mapped = []
+    inside = None
+    for h, n in enumerate(spatial):
+        m, ins = _modes.map_coordinate(cc[h], n, mode)
+        mapped.append(m)
+        if mode == _modes.MODE_CONSTANT:
+            inside = ins if inside is None else (inside & ins)
+    return mapped, inside
 
 
 def resample_plain(coeffs: torch.Tensor, displ: torch.Tensor, affine,
@@ -186,13 +232,7 @@ def resample_plain(coeffs: torch.Tensor, displ: torch.Tensor, affine,
     ``cval`` where constant mode falls outside."""
     naxis = displ.shape[1]
     cc = sample_coordinates(displ, affine, offsets)
-    mapped = []
-    inside = None
-    for h in range(naxis):
-        m, ins = _modes.map_coordinate(cc[h], coeffs.shape[h + 1], mode)
-        mapped.append(m)
-        if mode == _modes.MODE_CONSTANT:
-            inside = ins if inside is None else (inside & ins)
+    mapped, inside = map_all(cc, coeffs.shape[1:naxis + 1], mode)
     y = resample_linear(coeffs, mapped, inside, order)
     if inside is not None:
         fill = torch.tensor(cval, dtype=y.dtype, device=y.device)
@@ -216,6 +256,48 @@ def _lib():
     return lib
 
 
+def check_resample_args(what: str, x: torch.Tensor, displ: torch.Tensor,
+                        affine):
+    """Validate the tensors of a resample kernel (K1, K3, K5): ``x``
+    ``(B, *spatial, C)`` and ``displ`` ``(B, naxis, *out_spatial)``,
+    contiguous float32/float64 on one CUDA device in one dtype, ``naxis <=
+    4``. Returns ``affine`` (None, ``(naxis, naxis+1)`` or ``(B, naxis,
+    naxis+1)``) as a contiguous tensor of ``x``'s dtype and device."""
+    check_kernel_tensor(x, what)
+    check_kernel_tensor(displ, what)
+    B, naxis = displ.shape[:2]
+    if naxis > MAX_KERNEL_AXES:
+        raise ValueError(f"{what}: the CUDA kernel deforms at most "
+                         f"{MAX_KERNEL_AXES} axes, got {naxis}")
+    if displ.dtype != x.dtype or displ.device != x.device:
+        raise ValueError(f"{what}: displ must match the other tensors in "
+                         "dtype and device")
+    if x.dim() != naxis + 2 or x.shape[0] != B:
+        raise ValueError(f"{what}: tensors must be (B, *spatial, C) with the "
+                         "batch and rank of displ")
+    if affine is None:
+        return None
+    affine = affine.to(device=x.device, dtype=x.dtype).contiguous()
+    if affine.shape[-2:] != (naxis, naxis + 1) or \
+            affine.dim() not in (2, 3) or \
+            (affine.dim() == 3 and affine.shape[0] != B):
+        raise ValueError(f"{what}: affine must be (naxis, naxis+1) or "
+                         "(B, naxis, naxis+1)")
+    return affine
+
+
+def kernel_geometry(in_spatial, displ: torch.Tensor, affine, offsets):
+    """The shape arguments shared by the resample kernels' C entry points:
+    ``(naxis, B, in_shape, out_shape, offsets, affine pointer, affine
+    stride)``, shapes as ctypes int64 arrays."""
+    B, naxis = displ.shape[:2]
+    ll = ctypes.c_longlong * naxis
+    return (naxis, B, ll(*in_spatial), ll(*displ.shape[2:]), ll(*offsets),
+            None if affine is None else affine.data_ptr(),
+            0 if affine is None or affine.dim() == 2
+            else naxis * (naxis + 1))
+
+
 def resample(coeffs: torch.Tensor, displ: torch.Tensor, affine, offsets,
              order: int, mode: int, cval: float) -> torch.Tensor:
     """Resample ``coeffs`` ``(B, *spatial, C)`` at ``affine(j) + offsets +
@@ -230,39 +312,18 @@ def resample(coeffs: torch.Tensor, displ: torch.Tensor, affine, offsets,
     if coeffs.device.type == "cpu":
         return resample_plain(coeffs, displ, affine, offsets, order, mode,
                               cval)
-    check_kernel_tensor(coeffs, "resample")
-    check_kernel_tensor(displ, "resample")
-    B, naxis = displ.shape[:2]
-    if naxis > MAX_KERNEL_AXES:
-        raise ValueError(f"resample: the CUDA kernel deforms at most "
-                         f"{MAX_KERNEL_AXES} axes, got {naxis}")
-    if displ.dtype != coeffs.dtype or displ.device != coeffs.device:
-        raise ValueError("resample: displ must match coeffs in dtype and "
-                         "device")
-    if coeffs.dim() != naxis + 2 or coeffs.shape[0] != B:
-        raise ValueError("resample: coeffs must be (B, *spatial, C) with the "
-                         "batch and rank of displ")
-    if affine is not None:
-        affine = affine.to(device=coeffs.device,
-                           dtype=coeffs.dtype).contiguous()
-        if affine.shape[-2:] != (naxis, naxis + 1) or \
-                affine.dim() not in (2, 3) or \
-                (affine.dim() == 3 and affine.shape[0] != B):
-            raise ValueError("resample: affine must be (naxis, naxis+1) or "
-                             "(B, naxis, naxis+1)")
+    affine = check_resample_args("resample", coeffs, displ, affine)
+    naxis, B, in_shape, out_shape, offs, a_ptr, a_stride = kernel_geometry(
+        coeffs.shape[1:-1], displ, affine, offsets)
     C = coeffs.shape[-1]
-    out_spatial = tuple(displ.shape[2:])
-    out = torch.empty((B, *out_spatial, C), dtype=coeffs.dtype,
+    out = torch.empty((B, *displ.shape[2:], C), dtype=coeffs.dtype,
                       device=coeffs.device)
-    ll = ctypes.c_longlong * naxis
     lib = _lib()
     err = lib.ed_resample_fwd(
         0 if coeffs.dtype == torch.float32 else 1, coeffs.data_ptr(),
-        displ.data_ptr(), None if affine is None else affine.data_ptr(),
-        out.data_ptr(), naxis, order, mode, B, C,
-        ll(*coeffs.shape[1:naxis + 1]), ll(*out_spatial), ll(*offsets),
-        0 if affine is None or affine.dim() == 2 else naxis * (naxis + 1),
-        float(cval), torch.cuda.current_stream(coeffs.device).cuda_stream)
+        displ.data_ptr(), a_ptr, out.data_ptr(), naxis, order, mode, B, C,
+        in_shape, out_shape, offs, a_stride, float(cval),
+        torch.cuda.current_stream(coeffs.device).cuda_stream)
     _build.check(err, lib, "ed_resample_error_string", "resample_fwd")
     resample.launches += 1
     return out

@@ -221,10 +221,15 @@ def test_unported_dtypes_raise_type_error():
 
 
 def test_requires_grad_raises():
+    # a tensor that requires grad no longer raises: the gradient exists,
+    # with the shape and dtype of the tensor it belongs to
     X = torch.rand(8, 9, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="gradient"):
-        et.deform(X, torch.zeros(2, 3, 3), device="cpu")
-    with pytest.raises(NotImplementedError, match="gradient"):
-        et.deform_batch(torch.rand(2, 8, 9),
-                        torch.zeros(2, 2, 3, 3, requires_grad=True),
+    y = et.deform(X, torch.zeros(2, 3, 3, dtype=torch.float64), device="cpu")
+    (gx,) = torch.autograd.grad(y.sum(), X)
+    assert gx.shape == X.shape and gx.dtype == torch.float32
+    d = torch.zeros(2, 2, 3, 3, requires_grad=True)
+    y = et.deform_batch(torch.rand(2, 8, 9, dtype=torch.float64), d,
                         device="cpu")
+    (gd,) = torch.autograd.grad((y ** 2).sum(), d)
+    assert gd.shape == d.shape and gd.dtype == torch.float32
+    assert bool(torch.isfinite(gd).all()) and bool((gd != 0).any())
