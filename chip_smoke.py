@@ -13,20 +13,30 @@ Phases (any failure raises, and the exit code is not 0):
    K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
    orders 0-5 x five modes x 2-D/3-D in float32 and float64 with
    coordinates far past every edge, shared and per-sample affines and crop
-   offsets; K2 (prefilter) over orders 2-5 and axis lengths 9/64/200 at
-   every axis position, plus the uint8/int16 writeback, bit for bit; K4
-   (the transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at
-   every axis position; and the K1/K3 and K2/K4 adjoint identities in
-   float64;
+   offsets; K1c, K3c and K5c (the same at caller-given coordinates, K1c
+   and K5c bit for bit) over the same sweep plus a flat point list; K2
+   (prefilter) over orders 2-5 and axis lengths 9/64/200 at every axis
+   position, plus the uint8/int16 writeback, bit for bit; K4 (the
+   transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at every
+   axis position; K6 and K7 (the reflect/wrap prefilter and its transpose)
+   against ``filter_matrix_bc`` and its transpose over orders 2-5 x
+   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; and the
+   K1/K3, K1c/K3c, K2/K4 and K6/K7 adjoint identities in float64;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
    forward and backward) and c6 (batched, autograd to X and the grids),
-   each compared with the port's own ``device="cpu"`` run; the launch
-   counters must show each kernel on the configs that run it, and K5 on no
-   config that does not ask for the grid gradient;
+   and the general resampler's c7 (``deform_field_batch``, autograd to X
+   and the field), c8 (``affine_transform``, modern reflect, autograd to
+   X), c9 (``zoom`` with ``grid-wrap``) and c10 (``map_coordinates`` with
+   ``grid-constant``, then ``map_coordinates_gradient``), each compared
+   with the port's own ``device="cpu"`` run; the launch counters, set to 0
+   before each config and read after it, must show each kernel on the
+   configs that run it and none on the configs that do not need it;
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
-   its plain version and library yardstick at the c5 shapes, and each
+   its plain version and library yardstick (K1-K5 at the c5 shapes, also
+   at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
+   ``grid_sample``; K6, K7 and again K1c, K3c at the c8 shapes), and each
    config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -52,7 +62,10 @@ REPS = 10
 MODES = ("nearest", "wrap", "reflect", "mirror", "constant")
 
 KERNELS = ("resample_fwd", "spline_prefilter", "resample_bwd",
-           "spline_prefilter_transpose", "resample_coord_grad")
+           "spline_prefilter_transpose", "resample_coord_grad",
+           "spline_prefilter_bc", "spline_prefilter_bc_transpose",
+           "resample_coords_fwd", "resample_coords_bwd",
+           "resample_coords_grad")
 
 
 def _tol(dtype, scale):
@@ -274,7 +287,130 @@ def phase_kernels():
     print(f"K4 spline_prefilter_transpose vs plain: {n} cases pass, max abs "
           f"err {worst['spline_prefilter_transpose']:.3e}; the K2/K4 adjoint "
           f"identity holds in float64 ({n // 2} cases)")
+    _check_coords_kernels(rs, worst)
+    _check_bc_prefilter(rs, worst)
     return worst
+
+
+def _check_coords_kernels(rs, worst):
+    """K1c and K5c bit for bit against their twins, K3c per element as K3,
+    and the K1c/K3c adjoint identity in float64, at coordinates up to 3x
+    the extent past every edge, some exactly on the clip bounds, for 2-D,
+    3-D and a flat point list."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample as rsm
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    dev = torch.device("cuda")
+    n = 0
+    for naxis, in_sp, out_sp in ((2, (23, 31), (20, 27)),
+                                 (3, (11, 13, 9), (10, 12, 8)),
+                                 (3, (11, 13, 9), (257,))):
+        for dtype in (torch.float32, torch.float64):
+            B, C = 2, 2
+            for order in range(6):
+                for mode in range(5):
+                    coeffs = torch.as_tensor(
+                        rs.rand(B, *in_sp, C) * 4 - 1, dtype=dtype,
+                        device=dev)
+                    ext = max(in_sp)
+                    cc = rs.uniform(-3 * ext, 4 * ext, (B, naxis, *out_sp))
+                    cc.reshape(-1)[:3] = (0.0, in_sp[0] - 1.0, -0.5)
+                    coords = torch.as_tensor(cc, dtype=dtype, device=dev)
+                    g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype,
+                                        device=dev)
+                    what = (f"naxis={naxis} out={out_sp} {dtype} "
+                            f"order={order} mode={MODES[mode]}")
+                    for name, got, want in (
+                            ("resample_coords_fwd",
+                             rsm.resample_coords(coeffs, coords, order, mode,
+                                                 1.5),
+                             rsm.resample_coords_plain(coeffs, coords, order,
+                                                       mode, 1.5)),
+                            ("resample_coords_grad",
+                             rb.resample_coords_grad(coeffs, g, coords, order,
+                                                     mode),
+                             rb.resample_coords_grad_plain(coeffs, g, coords,
+                                                           order, mode))):
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{name} {what}: not bit-identical to its "
+                                f"plain twin, max abs err "
+                                f"{float((got - want).abs().max()):.3e}")
+                    got = rb.resample_coords_transpose(g, coords, order, mode,
+                                                       in_sp)
+                    want = rb.resample_coords_transpose_plain(
+                        g, coords, order, mode, in_sp)
+                    terms = rb.resample_coords_transpose_plain(
+                        g.abs(), coords, order, mode, in_sp)
+                    torch.cuda.synchronize()
+                    rtol, _ = _tol(dtype, 1.0)
+                    worst["resample_coords_bwd"] = max(
+                        worst["resample_coords_bwd"],
+                        _assert_close(got, want, rtol,
+                                      rtol * terms.double().abs(),
+                                      f"K3c {what}"))
+                    if dtype == torch.float64:
+                        _check_adjoint(
+                            rsm.resample_coords(coeffs, coords, order, mode,
+                                                0.0), g, coeffs, got,
+                            f"K1c/K3c {what}")
+                    n += 1
+    print(f"K1c resample_coords_fwd and K5c resample_coords_grad bit for bit "
+          f"with their plain twins, K3c resample_coords_bwd within "
+          f"{worst['resample_coords_bwd']:.3e}: {n} cases each; the K1c/K3c "
+          f"adjoint identity holds in float64 ({n // 2} cases)")
+
+
+def _check_bc_prefilter(rs, worst):
+    """K6 against ``filter_matrix_bc`` and K7 against its transpose (the
+    plain twins), float32 rtol=1e-5, atol=1e-5*max|x|, float64 1e-10, and
+    the K6/K7 adjoint identity in float64."""
+    import torch
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    dev = torch.device("cuda")
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        for bc in ("reflect", "wrap"):
+            for order in (2, 3, 4, 5):
+                for length in (1, 2, 9, 64, 224, 248):
+                    for pos in range(4):
+                        shape = [5, 6, 3, 4]
+                        shape[pos] = length
+                        x = torch.as_tensor(rs.rand(*shape) * 200 - 50,
+                                            dtype=dtype, device=dev)
+                        what = (f"{dtype} {bc} order={order} n={length} "
+                                f"axis={pos}")
+                        rtol, atol = _tol(dtype, float(x.abs().max()))
+                        k6 = pf.spline_filter1d_bc(x, order, pos, bc)
+                        k7 = pf.spline_filter1d_bc_transpose(x, order, pos,
+                                                             bc)
+                        torch.cuda.synchronize()
+                        worst["spline_prefilter_bc"] = max(
+                            worst["spline_prefilter_bc"], _assert_close(
+                                k6, pf.spline_filter1d_bc_plain(
+                                    x, order, pos, bc), rtol, atol,
+                                f"K6 {what}"))
+                        worst["spline_prefilter_bc_transpose"] = max(
+                            worst["spline_prefilter_bc_transpose"],
+                            _assert_close(
+                                k7, pf.spline_filter1d_bc_transpose_plain(
+                                    x, order, pos, bc), rtol, atol,
+                                f"K7 {what}"))
+                        if dtype == torch.float64:
+                            y = torch.as_tensor(rs.randn(*shape),
+                                                dtype=dtype, device=dev)
+                            _check_adjoint(
+                                k6, y, x,
+                                pf.spline_filter1d_bc_transpose(y, order,
+                                                                pos, bc),
+                                f"K6/K7 {what}")
+                        n += 1
+    print(f"K6 spline_prefilter_bc and K7 spline_prefilter_bc_transpose vs "
+          f"filter_matrix_bc and its transpose: {n} cases each pass, max abs "
+          f"err {worst['spline_prefilter_bc']:.3e} / "
+          f"{worst['spline_prefilter_bc_transpose']:.3e}; the K6/K7 adjoint "
+          f"identity holds in float64 ({n // 2} cases)")
 
 
 def _check_k3(rb, g, bargs, in_sp, dtype, what):
@@ -418,25 +554,133 @@ def _configs(seed=0):
         gx, gd = torch.autograd.grad(y, (x, d), gy)
         return [y.detach(), gx, gd]
 
+    # c7: the registration training warp, deform_field_batch order 1
+    # nearest on the VoxelMorph brain-MRI volume, autograd to X and the field
+    S7 = (160, 192, 224)
+    X7 = rs.rand(4, *S7).astype(np.float32)
+    F7 = _smooth_field(rs, 4, S7, 4.0)
+    gy7 = rs.randn(4, *S7).astype(np.float32)
+    dev7 = {}
+
+    def c7(device, n=None):
+        x, f, gy = (a[:n] for a in _on(dev7, device, X7, F7, gy7))
+        x = x.detach().requires_grad_()
+        f = f.detach().requires_grad_()
+        y = et.deform_field_batch(x, f, order=1, mode="nearest",
+                                  device=device)
+        gx, gf = torch.autograd.grad(y, (x, f), gy)
+        return [y.detach(), gx, gf]
+
+    # c8: affine_transform order 3, modern reflect, a 12 degree rotation,
+    # a 1.1 zoom and a shift about the centre; autograd to X
+    X8 = rs.rand(*S7).astype(np.float32)
+    gy8 = rs.randn(*S7).astype(np.float32)
+    M8, off8 = _c8_affine(S7)
+    dev8 = {}
+
+    def c8(device, n=None):
+        x, gy = _on(dev8, device, X8, gy8)
+        x = x.detach().requires_grad_()
+        y = et.affine_transform(x, M8, off8, order=3, mode="reflect",
+                                device=device)
+        (gx,) = torch.autograd.grad(y, x, gy)
+        return [y.detach(), gx]
+
+    X9 = rs.rand(96, 96, 96).astype(np.float32)
+    dev9 = {}
+
+    def c9(device, n=None):
+        (x,) = _on(dev9, device, X9)
+        return [et.zoom(x, 2.0, order=3, mode="grid-wrap", grid_mode=True,
+                        device=device)]
+
+    # c10: map_coordinates, grid-constant with cval=-1 at coordinates up to
+    # 25 voxels past the extent, then its adjoint
+    X10 = rs.rand(128, 128, 128).astype(np.float32)
+    j = np.arange(128, dtype=np.float64) * (177.0 / 127.0) - 25.0
+    C10 = np.stack(np.meshgrid(j, j, j, indexing="ij"))
+    C10 = (C10 + rs.randn(*C10.shape) * 0.3).astype(np.float32)
+    dy10 = rs.randn(128, 128, 128).astype(np.float32)
+    dev10 = {}
+
+    def c10(device, n=None):
+        x, c, dy = _on(dev10, device, X10, C10, dy10)
+        kw = dict(order=3, mode="grid-constant", cval=-1.0, device=device)
+        return [et.map_coordinates(x, c, **kw),
+                et.map_coordinates_gradient(dy, c, X_shape=x.shape, **kw)]
+
     return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
             _Config("c2", c2, 200 * 300, [F32, F32]),
             _Config("c3", c3, 96 ** 3, [F32]),
             _Config("c3_grad", c3_grad, 96 ** 3, [F32]),
             _Config("c4", c4, 64 ** 3, [F32, F32]),
             _Config("c5", c5, 64 * 64 ** 3, [F32, F32], nsub=2),
-            _Config("c6", c6, 8 * 64 ** 3, [F32, F32, GRID32], nsub=2)]
+            _Config("c6", c6, 8 * 64 ** 3, [F32, F32, GRID32], nsub=2),
+            _Config("c7", c7, 4 * math.prod(S7), [F32, F32, F32], nsub=1),
+            _Config("c8", c8, math.prod(S7), [F32, F32]),
+            _Config("c9", c9, 192 ** 3, [F32]),
+            _Config("c10", c10, 128 ** 3, [F32, F32])]
 
 
-# kernels each config must launch (K5 only where the grid gradient is
-# asked for, and never elsewhere)
+def _smooth_field(rs, B, shape, amplitude):
+    """A smooth dense displacement field ``(B, naxis, *shape)`` float32 of
+    about ``amplitude`` voxels: a few low-frequency sines per component."""
+    axes = [np.linspace(0, 1, n, dtype=np.float32) for n in shape]
+    f = np.empty((B, len(shape), *shape), dtype=np.float32)
+    for b in range(B):
+        for h in range(len(shape)):
+            acc = np.zeros(shape, dtype=np.float32)
+            for k, ax in enumerate(axes):
+                view = [1] * len(shape)
+                view[k] = -1
+                acc = acc + np.sin(ax * rs.uniform(2, 6) + rs.uniform(0, 6)
+                                   ).reshape(view)
+            f[b, h] = acc * (amplitude / len(shape))
+    return f
+
+
+def _c8_affine(shape):
+    """c8's pull-back matrix and offset: a 12 degree rotation in the plane
+    of axes 0 and 1 and a 1.1 zoom about the centre, then a shift."""
+    th = np.radians(12.0)
+    rot = np.array([[np.cos(th), -np.sin(th), 0.0],
+                    [np.sin(th), np.cos(th), 0.0],
+                    [0.0, 0.0, 1.0]])
+    M = rot / 1.1
+    centre = (np.asarray(shape, dtype=np.float64) - 1) / 2
+    return M, centre - M @ centre + np.array([3.0, -2.0, 1.5])
+
+
+# kernels each config must launch, and kernels it must not (K5 and K5c
+# only where a gradient to the grid or the coordinates is asked for)
 _MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
                 "c4": ("resample_bwd", "spline_prefilter_transpose"),
                 "c5": ("resample_bwd", "spline_prefilter_transpose"),
                 "c6": ("resample_bwd", "spline_prefilter_transpose",
-                       "resample_coord_grad")}
+                       "resample_coord_grad"),
+                "c7": ("resample_coords_fwd", "resample_coords_bwd",
+                       "resample_coords_grad"),
+                "c8": ("spline_prefilter_bc", "resample_coords_fwd",
+                       "resample_coords_bwd",
+                       "spline_prefilter_bc_transpose"),
+                "c9": ("spline_prefilter_bc", "resample_coords_fwd"),
+                "c10": ("spline_prefilter", "resample_coords_fwd",
+                        "resample_coords_bwd", "spline_prefilter_transpose")}
+_DEFORM_KERNELS = ("resample_fwd", "resample_bwd", "resample_coord_grad")
 _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c4": ("resample_coord_grad",),
-                    "c5": ("resample_coord_grad",)}
+                    "c5": ("resample_coord_grad",),
+                    "c7": ("spline_prefilter", "spline_prefilter_transpose",
+                           "spline_prefilter_bc",
+                           "spline_prefilter_bc_transpose") + _DEFORM_KERNELS,
+                    "c8": ("resample_coords_grad", "spline_prefilter")
+                + _DEFORM_KERNELS,
+                    "c9": ("resample_coords_bwd", "resample_coords_grad",
+                           "spline_prefilter", "spline_prefilter_transpose",
+                           "spline_prefilter_bc_transpose") + _DEFORM_KERNELS,
+                    "c10": ("resample_coords_grad", "spline_prefilter_bc",
+                            "spline_prefilter_bc_transpose")
+                    + _DEFORM_KERNELS}
 
 
 def _wrappers():
@@ -448,7 +692,12 @@ def _wrappers():
             "spline_prefilter": pf.spline_filter1d,
             "resample_bwd": rb.resample_transpose,
             "spline_prefilter_transpose": pf.spline_filter1d_transpose,
-            "resample_coord_grad": rb.resample_coord_grad}
+            "resample_coord_grad": rb.resample_coord_grad,
+            "spline_prefilter_bc": pf.spline_filter1d_bc,
+            "spline_prefilter_bc_transpose": pf.spline_filter1d_bc_transpose,
+            "resample_coords_fwd": rsm.resample_coords,
+            "resample_coords_bwd": rb.resample_coords_transpose,
+            "resample_coords_grad": rb.resample_coords_grad}
 
 
 def _counts():
@@ -461,14 +710,15 @@ def phase_main_path():
     import torch
     configs = _configs()
     outs, launches = {}, {}
-    for w in _wrappers().values():
-        w.launches = 0
+    total = dict.fromkeys(KERNELS, 0)
     for cfg in configs:
-        before = _counts()
+        for w in _wrappers().values():
+            w.launches = 0
         outs[cfg.name] = cfg.run("cuda")
         torch.cuda.synchronize()
-        launches[cfg.name] = {k: v - before[k] for k, v in _counts().items()}
-    total = _counts()
+        launches[cfg.name] = _counts()
+        for k, v in launches[cfg.name].items():
+            total[k] += v
     print(f"main path launches per config: {json.dumps(launches)}")
     if min(total.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {total}")
@@ -544,6 +794,157 @@ def _bound(nbytes, ops):
                                        else "operations")
 
 
+def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
+                           card):
+    """Time the order-1, nearest-mode calls ``fwd``/``bwd``/``grad`` of a
+    resample kernel and ``grid_sample``'s forward and its two backward
+    halves (``grid_sampler_3d_backward`` with one output each) on the same
+    inputs: ``coeffs`` ``(B, D, H, W, C)``, ``coords`` ``(B, 3, D, H, W)``,
+    ``g`` like ``coeffs``. Returns ``{part: (kernel ms, library ms)}``."""
+    import torch
+    import torch.nn.functional as F
+    spatial = coeffs.shape[1:-1]
+    inp = coeffs.movedim(-1, 1).contiguous()
+    grid = torch.stack([coords[:, h] * (2.0 / (spatial[h] - 1)) - 1.0
+                        for h in (2, 1, 0)], -1).contiguous()
+    gy = g.movedim(-1, 1).contiguous()
+
+    def lib_fwd():
+        return F.grid_sample(inp, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    def lib_bwd(mask):
+        return lambda: torch.ops.aten.grid_sampler_3d_backward(
+            gy, inp, grid, 0, 1, True, mask)
+
+    diff = float((lib_fwd().movedim(1, -1) - fwd()).abs().max())
+    out = {"fwd": (_time_ms(fwd), _time_ms(lib_fwd)),
+           "bwd": (_time_ms(bwd), _time_ms(lib_bwd([True, False]))),
+           "grad": (_time_ms(grad), _time_ms(lib_bwd([False, True])))}
+    print(f"{label} at order 1, nearest, {at} shapes, kernel vs grid_sample "
+          f"ms: forward {out['fwd'][0]:.4f} vs {out['fwd'][1]:.4f}, "
+          f"transpose {out['bwd'][0]:.4f} vs {out['bwd'][1]:.4f}, "
+          f"coordinate gradient {out['grad'][0]:.4f} vs "
+          f"{out['grad'][1]:.4f}; forward outputs differ by {diff:.3e} "
+          f"[{card}]")
+    return out
+
+
+def _times_resampler(row, card):
+    """Phase 4 for the general resampler: K1c, K3c and K5c at the c7 shapes
+    (order 1, nearest) beside grid_sample; K6 and K7 at the c8 shapes
+    beside the tensordot with filter_matrix_bc; K1c and K3c at the c8
+    shapes (order 3, on the ring-padded array)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    from elasticdeform_tpu_torch.ops import resample as rsm
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(7)
+    S, B, naxis = (160, 192, 224), 4, 3
+    n_out = math.prod(S)
+    x = torch.as_tensor(rs.rand(B, *S, 1).astype(np.float32), device=dev)
+    g = torch.as_tensor(rs.randn(B, *S, 1).astype(np.float32), device=dev)
+    iota = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S],
+        indexing="ij"))
+    coords = (iota + torch.as_tensor(_smooth_field(rs, B, S, 4.0),
+                                     device=dev)).contiguous()
+    del iota
+    a = (1, 0)
+    o1 = _grid_sample_yardstick(
+        x, coords, g, lambda: rsm.resample_coords(x, coords, *a, 0.0),
+        lambda: rb.resample_coords_transpose(g, coords, *a, S),
+        lambda: rb.resample_coords_grad(x, g, coords, *a), "K1c/K3c/K5c",
+        "c7", card)
+    vox = B * n_out
+    row("resample_coords_fwd", "resample.cu",
+        "elasticdeform_tpu/ops/deform.py:533", o1["fwd"][0],
+        _time_ms(lambda: rsm.resample_coords_plain(x, coords, *a, 0.0),
+                 reps=3, warmup=1),
+        _bound(vox * (1 + naxis + 1) * 4, _k1_ops(B, n_out, naxis, 1, 1)),
+        o1["fwd"][1], 0.0, at="c7")
+    k3c_err = _assert_close(
+        rb.resample_coords_transpose(g, coords, *a, S),
+        rb.resample_coords_transpose_plain(g, coords, *a, S), 1e-5,
+        1e-5 * rb.resample_coords_transpose_plain(
+            g.abs(), coords, *a, S).double(), "K3c at c7 shapes")
+    row("resample_coords_bwd", "resample_bwd.cu",
+        "elasticdeform_tpu/ops/deform.py:608", o1["bwd"][0],
+        _time_ms(lambda: rb.resample_coords_transpose_plain(g, coords, *a, S),
+                 reps=3, warmup=1),
+        _bound(vox * (1 + naxis + 1) * 4, _k1_ops(B, n_out, naxis, 1, 1)),
+        o1["bwd"][1], k3c_err, at="c7")
+    row("resample_coords_grad", "resample_bwd.cu",
+        "elasticdeform_tpu/ops/windows.py:1247", o1["grad"][0],
+        _time_ms(lambda: rb.resample_coords_grad_plain(x, g, coords, *a),
+                 reps=3, warmup=1),
+        _bound(vox * (1 + 1 + 2 * naxis) * 4,
+               _k5_ops(B, n_out, naxis, 1, 1)),
+        o1["grad"][1], 0.0, at="c7")
+    del x, g, coords
+
+    # K6 and K7 along the three axes of c8's volume, reflect
+    v = torch.as_tensor(rs.rand(1, *S).astype(np.float32), device=dev)
+    order, numel = 3, math.prod(S)
+    mats = [torch.as_tensor(pf.filter_matrix_bc(n, order, "reflect"),
+                            dtype=v.dtype, device=dev) for n in S]
+    t_mats = [m.t().contiguous() for m in mats][::-1]
+
+    def chain(fn, axes, lib_mats=None):
+        def run():
+            y = v
+            for i, ax in enumerate(axes):
+                y = fn(y, order, ax, "reflect") if lib_mats is None else \
+                    torch.movedim(torch.tensordot(lib_mats[i], y,
+                                                  dims=([1], [ax])), 0, ax)
+            return y
+        return run
+
+    bound = _bound(3 * 2 * numel * 4,
+                   3 * numel * (1 + 9 * len(pf.spline_poles(order))))
+    scale = float(v.abs().max())
+    for name, fn, plain, axes, lib_mats, replaces in (
+            ("spline_prefilter_bc", pf.spline_filter1d_bc,
+             pf.spline_filter1d_bc_plain, (1, 2, 3), mats,
+             "elasticdeform_tpu/ops/prefilter.py:150"),
+            ("spline_prefilter_bc_transpose",
+             pf.spline_filter1d_bc_transpose,
+             pf.spline_filter1d_bc_transpose_plain, (3, 2, 1), t_mats,
+             "elasticdeform_tpu/ops/prefilter.py:177")):
+        err = _assert_close(chain(fn, axes)(), chain(plain, axes)(),
+                            *_tol(torch.float32, scale),
+                            f"{name} at c8 shapes")
+        per_axis = [_time_ms(lambda ax=ax: fn(v, order, ax, "reflect"))
+                    for ax in (1, 2, 3)]
+        print(f"{name} per-axis ms at (1, 160, 192, 224) f32, axes 1/2/3: "
+              f"{per_axis} [{card}]")
+        row(name, "prefilter.cu", replaces, _time_ms(chain(fn, axes)),
+            _time_ms(chain(plain, axes)), bound,
+            _time_ms(chain(None, axes, lib_mats)), err, at="c8")
+
+    # K1c and K3c as c8 runs them: order 3, nearest, on the ring-padded
+    # (6 each side) coefficients at the rotated, zoomed, reflect-folded
+    # coordinates
+    M, off = _c8_affine(S)
+    P = tuple(n + 12 for n in S)
+    coeffs = torch.as_tensor(rs.rand(1, *P, 1).astype(np.float32),
+                             device=dev)
+    gy = torch.as_tensor(rs.randn(1, *S, 1).astype(np.float32), device=dev)
+    j = np.stack(np.meshgrid(*[np.arange(n) for n in S], indexing="ij"))
+    cc = np.tensordot(M, j, axes=1) + off.reshape(3, 1, 1, 1)
+    cc = np.stack([np.where(np.mod(c, 2 * n) >= n, 2 * n - 1 - np.mod(
+        c, 2 * n), np.mod(c, 2 * n)) for c, n in zip(cc, S)]) + 6
+    c8c = torch.as_tensor(cc[None].astype(np.float32), device=dev)
+    k1 = _time_ms(lambda: rsm.resample_coords(coeffs, c8c, 3, 0, 0.0))
+    k3 = _time_ms(lambda: rb.resample_coords_transpose(gy, c8c, 3, 0, P))
+    b1 = _bound((math.prod(P) + 4 * numel) * 4, _k1_ops(1, numel, 3, 3, 1))
+    b3 = _bound((4 * numel + math.prod(P)) * 4, _k1_ops(1, numel, 3, 3, 1))
+    print(f"resample_coords_fwd at c8 shapes (order 3): {k1:.4f} ms, bound "
+          f"{b1[0]:.4f} ms by {b1[1]}; resample_coords_bwd: {k3:.4f} ms, "
+          f"bound {b3[0]:.4f} ms by {b3[1]} [{card}]")
+
+
 def phase_times(card, total_launches, errs):
     """Phase 4: kernel, plain and library times at the c5 shapes, and the
     configs' throughput."""
@@ -565,18 +966,20 @@ def phase_times(card, total_launches, errs):
     n_out = math.prod(S)
     rows = []
 
-    def row(name, source, replaces, ms, plain_ms, bound, library_ms, err):
+    def row(name, source, replaces, ms, plain_ms, bound, library_ms, err,
+            at="c5", extra=None):
         rows.append({"name": name, "route": "cuda",
                      "source": f"elasticdeform_tpu_torch/csrc/{source}",
                      "replaces": replaces,
                      "launches": total_launches[name],
                      "max_abs_err": max(err, errs[name]), "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound[0],
-                     "bound_by": bound[1], "library_ms": library_ms})
+                     "bound_by": bound[1], "library_ms": library_ms,
+                     "shapes": at, **(extra or {})})
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"{name} at c5 shapes: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        print(f"{name} at {at} shapes: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
               f"library {lib}, bound {bound[0]:.4f} ms by {bound[1]}) "
-              f"[{card}]")
+              f"{extra or ''} [{card}]")
 
     def per_axis(fn, axes):
         return [_time_ms(lambda a=a: fn(x, order, a)) for a in axes]
@@ -585,8 +988,8 @@ def phase_times(card, total_launches, errs):
         def run():
             y = x
             for i, a in enumerate(axes):
-                y = fn(y, order, a) if mats is None else torch.tensordot(
-                    mats[i], y, dims=([1], [a]))
+                y = fn(y, order, a) if mats is None else torch.movedim(
+                    torch.tensordot(mats[i], y, dims=([1], [a])), 0, a)
             return y
         return run
 
@@ -624,6 +1027,19 @@ def phase_times(card, total_launches, errs):
         _time_ms(chain(pf.spline_filter1d_transpose_plain, (3, 2, 1))),
         filter_bound, _time_ms(chain(None, (3, 2, 1), t_mats)), k4_err)
 
+    # K1, K3 and K5 at order 1, nearest, beside grid_sample (bilinear,
+    # border, align_corners), which computes that function in one call;
+    # orders >= 2 have none (bicubic grid_sample is Keys' kernel, not a
+    # B-spline)
+    iota = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S],
+        indexing="ij"))
+    a1 = (displ, None, (0, 0, 0), 1, 0)
+    o1 = _grid_sample_yardstick(
+        x, iota + displ, gy, lambda: rsm.resample(x, *a1, 0.0),
+        lambda: rb.resample_transpose(gy, *a1, S),
+        lambda: rb.resample_coord_grad(x, gy, *a1), "K1/K3/K5", "c5", card)
+
     # K1: resample of the prefiltered batch at its dense displacement
     args = (displ, None, (0, 0, 0), order, 3)
     k1_err = _assert_close(rsm.resample(coeffs, *args, 0.0),
@@ -633,7 +1049,8 @@ def phase_times(card, total_launches, errs):
         _time_ms(lambda: rsm.resample(coeffs, *args, 0.0)),
         _time_ms(lambda: rsm.resample_plain(coeffs, *args, 0.0), warmup=1),
         _bound((numel + 3 * B * n_out + B * n_out * C) * 4,
-               _k1_ops(B, n_out, 3, order, C)), None, k1_err)
+               _k1_ops(B, n_out, 3, order, C)), o1["fwd"][1], k1_err,
+        extra={"order1_ms": o1["fwd"][0]})
 
     # K3: the scatter of gy back onto the coefficients (reads gy and the
     # displacement, writes d_coeffs once; the zero fill that its atomics
@@ -645,7 +1062,8 @@ def phase_times(card, total_launches, errs):
         "elasticdeform_tpu/ops/windows.py:1354", k3_ms,
         _time_ms(lambda: rb.resample_transpose_plain(gy, *args, S),
                  warmup=1),
-        _bound(k3_bytes, _k1_ops(B, n_out, 3, order, C)), None, k3_err)
+        _bound(k3_bytes, _k1_ops(B, n_out, 3, order, C)), o1["bwd"][1],
+        k3_err, extra={"order1_ms": o1["bwd"][0]})
     adds = B * n_out * (order + 1) ** 3 * C
     print(f"resample_bwd scatter-add rate at c5 shapes: {adds} atomic adds "
           f"in {k3_ms:.4f} ms = {adds / k3_ms / 1e6:.2f} G adds/s, "
@@ -662,7 +1080,10 @@ def phase_times(card, total_launches, errs):
         _time_ms(lambda: rb.resample_coord_grad_plain(coeffs, gy, *args),
                  reps=3, warmup=1),
         _bound((numel + B * n_out * C + 2 * 3 * B * n_out) * 4,
-               _k5_ops(B, n_out, 3, order, C)), None, k5_err)
+               _k5_ops(B, n_out, 3, order, C)), o1["grad"][1], k5_err,
+        extra={"order1_ms": o1["grad"][0]})
+    del x, gy, coeffs, displ, iota
+    _times_resampler(row, card)
     for name, w in _wrappers().items():
         w.launches = save[name]
 

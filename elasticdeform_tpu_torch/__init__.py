@@ -2,29 +2,45 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The PyTorch port of :mod:`elasticdeform_tpu`, which stays the reference.
-It imports neither JAX nor that package. It ports the forward deformation
-and its exact adjoint:
+It imports neither JAX nor that package. It ports the forward deformation,
+its exact adjoint and the general resampler family:
 
 numpy API (numpy in, numpy out):
     deform_grid, deform_random_grid, deform_grid_gradient,
-    api.deform_batch, api.deform_batch_gradient
+    api.deform_batch, api.deform_batch_gradient, api.map_coordinates,
+    api.geometric_transform, api.map_coordinates_gradient
 tensor API (torch tensors in and out):
     deform, deform_batch (differentiable with respect to X and the
-    displacement grid), core.deform_gradient, core.deform_batch_gradient
+    displacement grid), core.deform_gradient, core.deform_batch_gradient;
+    map_coordinates (+ _batch, _gradient), deform_field (+ _batch),
+    affine_transform, shift, zoom, rotate, geometric_transform,
+    spline_filter, spline_filter1d (differentiable with respect to X and
+    the coordinates, field, matrix, offset or shift)
 
 Every entry point takes ``device=None``, which means ``"cuda"``; the CPU
 runs only on ``device="cpu"``. On the card the input prefilter runs as
 kernel K2 and its transpose as K4 (``csrc/prefilter.cu``), the resampling
 as K1 (``csrc/resample.cu``), its transpose, a scatter, as K3 and the
-gradient with respect to the displacement as K5 (``csrc/resample_bwd.cu``),
-all built with ``nvcc`` at first use; on the CPU their plain PyTorch
-versions run.
+gradient with respect to the displacement as K5 (``csrc/resample_bwd.cu``);
+the general resampler runs K1c, K3c and K5c, the same kernels at
+caller-given coordinates, and the reflect/wrap prefilter K6 and its
+transpose K7 (``csrc/prefilter.cu``); all are built with ``nvcc`` at first
+use. On the CPU their plain PyTorch versions run.
 """
 
 from elasticdeform_tpu_torch.api import (
     deform_grid, deform_grid_gradient, deform_random_grid,
 )
-from elasticdeform_tpu_torch.core import deform, deform_batch
+from elasticdeform_tpu_torch.core import (
+    affine_transform, deform, deform_batch, deform_field, deform_field_batch,
+    geometric_transform, map_coordinates, map_coordinates_batch,
+    map_coordinates_gradient, rotate, shift, spline_filter, spline_filter1d,
+    zoom,
+)
 
 __all__ = ["deform_grid", "deform_random_grid", "deform_grid_gradient",
-           "deform", "deform_batch"]
+           "deform", "deform_batch", "map_coordinates",
+           "map_coordinates_batch", "map_coordinates_gradient",
+           "deform_field", "deform_field_batch", "affine_transform", "shift",
+           "zoom", "rotate", "geometric_transform", "spline_filter",
+           "spline_filter1d"]

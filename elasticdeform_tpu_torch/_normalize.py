@@ -210,6 +210,51 @@ def build_spec(Xs, axis, deform_shape, output_shapes, output_offset,
     )
 
 
+def build_map_spec(x, axis, deform_shape, out_spatial, order, mode, cval,
+                   prefilter, coord_dtype):
+    """Assemble the static :class:`DeformSpec` of a ``map_coordinates``
+    call (the JAX package's ``_normalize.py:182``): the output spatial
+    shape is the trailing shape of the coordinates, of any rank when ``x``
+    has no channel (non-deformed) axes. Raises TypeError as
+    :func:`build_spec` does."""
+    naxis = len(axis)
+    dtype = numpy_dtype(x.dtype)
+    channels = tuple(d for d in range(x.ndim) if d not in axis)
+    if channels and len(out_spatial) != naxis:
+        raise ValueError(
+            "with non-deformed (channel) axes, coordinates must have shape "
+            f"(naxis, *out_shape) with len(out_shape) == naxis == {naxis}; "
+            f"got output rank {len(out_spatial)}.")
+    if channels:
+        out_shape = list(x.shape)
+        for h, d in enumerate(axis):
+            out_shape[d] = out_spatial[h]
+        out_shape = tuple(int(s) for s in out_shape)
+    else:
+        out_shape = tuple(int(s) for s in out_spatial)
+    cval = cval_scalar(cval)
+    if isinstance(cval, complex):
+        raise TypeError("complex cval is not supported by "
+                        "elasticdeform_tpu_torch yet")
+    ispec = InputSpec(
+        shape=tuple(int(s) for s in x.shape),
+        dtype=dtype.name,
+        axis=tuple(axis),
+        order=int(order),
+        mode=mode_to_code(mode),
+        cval=cval,
+        out_shape=out_shape,
+    )
+    return DeformSpec(
+        inputs=(ispec,),
+        deform_shape=tuple(deform_shape),
+        out_spatial=tuple(int(s) for s in out_spatial),
+        offsets=(0,) * naxis,
+        prefilter=bool(prefilter),
+        compute_dtype=default_compute_dtype(numpy_dtype(coord_dtype), dtype),
+    )
+
+
 def gradient_inputs(dYs, X_shape, crop, batched=False):
     """Stand-ins for the forward inputs of a gradient call: the uncropped
     shapes ``X_shape`` (per sample when ``batched``) with the dtypes of

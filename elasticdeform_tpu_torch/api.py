@@ -1,10 +1,12 @@
 """Numpy API, mirroring the reference's public surface.
 
 ``deform_grid``, ``deform_random_grid`` and ``deform_grid_gradient``
-(reference deform_grid.py:6-291) and the batched ``deform_batch`` and
-``deform_batch_gradient``: numpy in, numpy out with the input dtypes,
-computed on ``device`` (default ``"cuda"``; pass ``device="cpu"`` to run on
-the host). Counterpart of the JAX package's ``api.py``.
+(reference deform_grid.py:6-291), the batched ``deform_batch`` and
+``deform_batch_gradient``, and the general resampler's ``map_coordinates``,
+``geometric_transform`` and ``map_coordinates_gradient``: numpy in, numpy
+out with the input dtypes, computed on ``device`` (default ``"cuda"``; pass
+``device="cpu"`` to run on the host). Counterpart of the JAX package's
+``api.py``.
 """
 
 from __future__ import annotations
@@ -170,3 +172,55 @@ def deform_batch_gradient(dY, displacement, order=3, mode='constant',
         rotate=rotate, zoom=zoom, device=device)
     outputs = _to_host(dxs, dYs)
     return outputs if isinstance(dY, list) else outputs[0]
+
+
+def map_coordinates(X, coordinates, order=3, mode='constant', cval=0.0,
+                    prefilter=True, axis=None, *, device=None):
+    """Resample ``X`` at explicit per-voxel coordinates ``(naxis,
+    *out_shape)``: numpy in, numpy out (the JAX package's
+    ``api.map_coordinates``). The five mode names keep the reference's
+    pre-SciPy-1.6 meaning; with ``axis`` the channel axes are carried
+    along. See :func:`elasticdeform_tpu_torch.core.map_coordinates` for the
+    tensor version, which also takes the grid modes and gives gradients."""
+    X = np.asarray(X)
+    y = _core._map_classic(X, np.asarray(coordinates), order, mode, cval,
+                           prefilter, axis, device)
+    return y.cpu().numpy().astype(X.dtype, copy=False)
+
+
+def geometric_transform(X, mapping, output_shape=None, order=3,
+                        mode='constant', cval=0.0, prefilter=True,
+                        extra_arguments=(), extra_keywords=None, *,
+                        device=None):
+    """Resample through a coordinate mapping, numpy in and out
+    (``scipy.ndimage.geometric_transform``): ``mapping`` gets a tuple of
+    float64 output coordinate arrays of shape ``output_shape`` and returns
+    one input coordinate array per axis; it runs once on the host, then
+    :func:`map_coordinates` resamples on ``device``."""
+    X = np.asarray(X)
+    out_shape = tuple(int(s) for s in output_shape) \
+        if output_shape is not None else X.shape
+    idx = np.indices(out_shape, dtype=np.float64)
+    coords = mapping(tuple(idx), *extra_arguments, **(extra_keywords or {}))
+    coordinates = np.stack(
+        [np.broadcast_to(np.asarray(c, dtype=np.float64), out_shape)
+         for c in coords])
+    return map_coordinates(X, coordinates, order, mode, cval, prefilter,
+                           None, device=device)
+
+
+def map_coordinates_gradient(dY, coordinates, order=3, mode='constant',
+                             cval=0.0, prefilter=True, axis=None,
+                             X_shape=None, *, device=None):
+    """Adjoint of :func:`map_coordinates` with respect to ``X``, numpy in
+    and out: maps ``dY`` to an input cotangent of shape ``X_shape``
+    (required) with the dtype of ``dY``, with no forward pass (kernels K3c
+    and K4 on the card)."""
+    if X_shape is None:
+        raise ValueError("X_shape is required (the input shape cannot be "
+                         "inferred from dY).")
+    dY = np.asarray(dY)
+    dx = _core._map_gradient_classic(
+        dY, np.asarray(coordinates), order, mode, cval, prefilter, axis,
+        tuple(int(s) for s in X_shape), device)
+    return dx.cpu().numpy().astype(dY.dtype, copy=False)

@@ -1,5 +1,5 @@
-"""Tensor API: elastic deformation of torch tensors on the card, and its
-exact adjoint.
+"""Tensor API: elastic deformation of torch tensors on the card, its exact
+adjoint, and the general resampler family.
 
 Counterparts of the JAX package's ``core.deform``, ``deform_gradient``,
 ``deform_batch`` and ``deform_batch_gradient`` with the same keywords, less
@@ -15,9 +15,29 @@ transposed pipeline (kernels K3 and K4) for the inputs and kernel K5 for
 the grid, each only when it is asked for. The backward is not itself
 differentiable (no double backward), and there is no gradient with respect
 to the affine, which is a host-side constant as in the JAX package.
+
+The general resampler family (the JAX package's ``core.py:471-1222``):
+:func:`map_coordinates` (+ :func:`map_coordinates_batch`,
+:func:`map_coordinates_gradient`), :func:`deform_field` (+
+:func:`deform_field_batch`), :func:`affine_transform`, :func:`shift`,
+:func:`zoom`, :func:`rotate`, :func:`geometric_transform`,
+:func:`spline_filter` and :func:`spline_filter1d`, with the same keywords
+less ``strategy``, ``table_dtype`` and ``batch_impl``, plus ``device``.
+They are torch glue around two autograd functions
+(:class:`~elasticdeform_tpu_torch.ops.deform.ResampleAt`, kernel K1c with
+K3c/K5c behind it, and
+:class:`~elasticdeform_tpu_torch.ops.deform.Prefilter1d`, K2/K6 with K4/K7
+behind it), so they are differentiable with respect to ``X``, the
+coordinates, the field, ``matrix``/``offset``, ``shift`` and whatever a
+``geometric_transform`` mapping closes over. The five classic mode names
+keep the reference's pre-SciPy-1.6 meaning on :func:`map_coordinates`; the
+``grid-*`` names, and every name on the scipy-convention resamplers, follow
+SciPy >= 1.6.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -25,6 +45,10 @@ from torch.autograd.function import once_differentiable
 
 from elasticdeform_tpu_torch import _normalize as _n
 from elasticdeform_tpu_torch.ops import deform as _d
+from elasticdeform_tpu_torch.ops import modes as _modes
+from elasticdeform_tpu_torch.ops.resample import (
+    cast_output, numpy_dtype, torch_dtype,
+)
 
 
 def _device(device) -> torch.device:
@@ -32,9 +56,15 @@ def _device(device) -> torch.device:
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
+    """A tensor (kept in the autograd graph) or an array-like, on
+    ``device``; numpy's dtype rules for array-likes (Python floats are
+    float64)."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
-    return torch.as_tensor(np.ascontiguousarray(x), device=device)
+    a = np.asarray(x)
+    # torch warns on (and must not write through) a read-only buffer
+    return torch.as_tensor(a if a.flags.writeable else a.copy(),
+                           device=device)
 
 
 class _Deform(torch.autograd.Function):
@@ -239,3 +269,533 @@ def deform_batch_gradient(dY, displacement, *, order=3, mode='constant',
         [_to_device(dy, dev) for dy in dYs], _to_device(displacement, dev),
         inv_affine, spec)
     return dxs if isinstance(dY, list) else dxs[0]
+
+
+# ---------------------------------------------------------------------------
+# the general resampler family
+
+
+# modern-SciPy (>= 1.6) boundary modes; on map_coordinates only the grid-*
+# names take them, the classic five keep the reference's meaning
+_GRID_MODE_NAMES = ('grid-mirror', 'grid-wrap', 'grid-constant')
+_MODERN_MODE_NAMES = _GRID_MODE_NAMES + ('reflect', 'nearest')
+
+
+def _refuse_list(X):
+    if isinstance(X, list):
+        raise ValueError("map_coordinates takes a single input array "
+                         "(vmap it or loop for multiple inputs).")
+
+
+def _prepare_map(X, coordinates, order, mode, cval, prefilter, axis):
+    """Validate a map_coordinates call on the shapes of one sample and its
+    coordinates; returns the :class:`DeformSpec`."""
+    _refuse_list(X)
+    axis_n, deform_shape = _n.normalize_axis_list(axis, [X])
+    axis_t = axis_n[0]
+    _check_coordinates(coordinates, len(axis_t))
+    (order,) = _n.normalize_order(order, [X])
+    return _n.build_map_spec(X, axis_t, deform_shape,
+                             tuple(coordinates.shape[1:]), order, mode, cval,
+                             prefilter, coordinates.dtype)
+
+
+def _check_coordinates(coordinates, naxis):
+    if coordinates.ndim < 1 or coordinates.shape[0] != naxis:
+        raise ValueError(
+            "coordinates should have shape (naxis, *out_shape) with one "
+            f"row per deformed axis; got {tuple(coordinates.shape)} for "
+            f"{naxis} deformed axes.")
+
+
+def _check_batch(X, coordinates):
+    B = int(X.shape[0])
+    if coordinates.ndim < 2 or int(coordinates.shape[0]) != B:
+        raise ValueError(
+            "coordinates must have a leading batch axis matching X "
+            f"(got {tuple(coordinates.shape)} for batch {B}).")
+
+
+def _sample(x) -> _n.Shaped:
+    return _n.Shaped(x.shape[1:], x.dtype)
+
+
+def _map_classic(X, coordinates, order, mode, cval, prefilter, axis, device,
+                 batched=False):
+    """map_coordinates with the classic mode semantics; ``batched`` takes a
+    leading batch axis on ``X`` and ``coordinates``."""
+    dev = _device(device)
+    _refuse_list(X)
+    X = _to_device(X, dev)
+    coordinates = _to_device(coordinates, dev)
+    if batched:
+        _check_batch(X, coordinates)
+        spec = _prepare_map(_sample(X), _sample(coordinates), order, mode,
+                            cval, prefilter, axis)
+        return _d.map_coordinates_apply_batched(X, coordinates, spec)
+    spec = _prepare_map(X, coordinates, order, mode, cval, prefilter, axis)
+    return _d.map_coordinates_apply_batched(X[None], coordinates[None],
+                                            spec)[0]
+
+
+def _ring_pad(y: torch.Tensor, axes, width: int, pad_mode: str, cval):
+    """numpy's ``pad`` of ``width`` on both sides of each of ``axes``, by
+    index so that autograd transposes it (``index_select``, whose backward
+    is ``index_add_``): ``symmetric`` (half-sample reflect, period 2n),
+    ``wrap``, ``edge``, or ``constant`` with ``cval``."""
+    for a in axes:
+        n = y.shape[a]
+        i = np.arange(-width, n + width)
+        if pad_mode == 'symmetric':
+            m = np.mod(i, 2 * n)
+            idx = np.where(m >= n, 2 * n - 1 - m, m)
+        elif pad_mode == 'wrap':
+            idx = np.mod(i, n)
+        else:
+            idx = np.clip(i, 0, n - 1)
+        y = torch.index_select(y, a, torch.as_tensor(idx, device=y.device))
+        if pad_mode == 'constant':
+            view = [1] * y.dim()
+            view[a] = len(i)
+            inside = torch.as_tensor((i >= 0) & (i < n),
+                                     device=y.device).view(view)
+            y = torch.where(inside, y, torch.tensor(float(cval),
+                                                    dtype=y.dtype,
+                                                    device=y.device))
+    return y
+
+
+def _jnp_mod(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``jnp.mod(t, n)`` for ``n > 0``: the exact ``fmod``, plus ``n``
+    where it is negative; derivative 1."""
+    r = torch.fmod(t, n)
+    return torch.where((r != 0) & (r < 0), r + n, r)
+
+
+def _jnp_clip(t: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(t, lo), hi)``, whose derivative
+    passes half at an exact tie with a bound (``torch.clamp`` passes
+    all)."""
+    def c(v):
+        return torch.tensor(v, dtype=t.dtype, device=t.device)
+    return torch.minimum(torch.maximum(t, c(lo)), c(hi))
+
+
+def _modern_map_coordinates(X, coordinates, *, order, mode, cval, prefilter,
+                            axis, device, batched=False):
+    """SciPy >= 1.6 resampling for ``mode`` in ``_MODERN_MODE_NAMES`` (the
+    JAX package's ``core.py:503``): pad ``npad``, prefilter with the mode's
+    boundary condition (K6 for reflect and wrap, K2 for mirror), pad a ring
+    so every tap lies inside, fold the coordinates by the mode, then K1c
+    with the classic ``nearest`` mode on the padded array, where its clamp
+    does nothing. ``batched``: a leading batch axis on both."""
+    dev = _device(device)
+    _refuse_list(X)
+    X = _to_device(X, dev)
+    coordinates = _to_device(coordinates, dev)
+    if batched:
+        _check_batch(X, coordinates)
+    else:
+        X, coordinates = X[None], coordinates[None]
+    sample = _sample(X)
+    axis_n, _ = _n.normalize_axis_list(axis, [sample])
+    axis_t = axis_n[0]
+    _check_coordinates(_sample(coordinates), len(axis_t))
+    (order,) = _n.normalize_order(order, [sample])
+    out_dtype = numpy_dtype(X.dtype)
+    comp = torch.float64 if out_dtype == np.float64 else torch.float32
+    needs_filter = bool(prefilter) and order > 1
+    r = order + 1                       # tap half-width bound
+    if mode in ('reflect', 'grid-mirror'):
+        bc, pad_mode, npad, ring = 'reflect', 'symmetric', 0, r + 2
+    elif mode == 'grid-wrap':
+        bc, pad_mode, npad, ring = 'wrap', 'wrap', 0, r + 2
+    elif mode == 'nearest':
+        bc, pad_mode = 'reflect', 'edge'
+        npad, ring = (12 if needs_filter else 0), 2 * r + 3
+    elif mode == 'grid-constant':
+        bc, pad_mode = 'mirror', 'constant'
+        npad, ring = (12 if needs_filter else 0), 2 * r + 3
+    else:
+        raise RuntimeError("boundary mode not supported")
+    cval = _n.cval_scalar(cval)
+    if isinstance(cval, complex):
+        raise TypeError("complex cval is not supported by "
+                        "elasticdeform_tpu_torch yet")
+    axes = [a + 1 for a in axis_t]
+
+    Y = X.to(comp)
+    if npad:
+        Y = _ring_pad(Y, axes, npad, pad_mode, cval)
+    if needs_filter:
+        for a in axes:
+            Y = _d.Prefilter1d.apply(Y.contiguous(), order, a, bc)
+    Y = _ring_pad(Y, axes, ring, pad_mode, cval)
+
+    cc = coordinates.to(comp)
+    shift = npad + ring
+    rows = []
+    for i, a in enumerate(axis_t):
+        n_a = int(sample.shape[a])
+        t = cc[:, i]
+        if mode in ('reflect', 'grid-mirror'):
+            t, _ = _modes.map_coordinate(t, n_a, _modes.MODE_REFLECT)
+        elif mode == 'grid-wrap':
+            t = _jnp_mod(t, n_a) if n_a > 1 else torch.zeros_like(t)
+        else:                           # nearest / grid-constant
+            t = _jnp_clip(t, -(npad + r + 1), n_a - 1 + npad + r + 1)
+        rows.append(t + shift)
+    coords2 = torch.stack(rows, 1)
+    spec = _prepare_map(_sample(Y), _sample(coords2), order, 'nearest', 0.0,
+                        False, axis)
+    res = _d.map_coordinates_apply_batched(Y, coords2, spec)
+    if out_dtype.kind in "biu":
+        res = cast_output(res, out_dtype)
+    else:
+        res = res.to(torch_dtype(out_dtype))
+    return res if batched else res[0]
+
+
+def _map_coordinates_scipy(X, coordinates, *, order, mode, cval, prefilter,
+                           axis, device):
+    """The scipy-convention resamplers' dispatch: 'reflect', 'nearest' and
+    the grid-* names take the modern path; 'mirror', 'wrap' and
+    'constant', the same before and after SciPy 1.6, the classic one."""
+    if mode in _MODERN_MODE_NAMES:
+        return _modern_map_coordinates(
+            X, coordinates, order=order, mode=mode, cval=cval,
+            prefilter=prefilter, axis=axis, device=device)
+    return _map_classic(X, coordinates, order, mode, cval, prefilter, axis,
+                        device)
+
+
+def map_coordinates(X, coordinates, *, order=3, mode='constant', cval=0.0,
+                    prefilter=True, axis=None, device=None):
+    """Resample ``X`` at explicit per-voxel coordinates
+    (``scipy.ndimage.map_coordinates``; the JAX package's
+    ``core.map_coordinates``).
+
+    ``coordinates`` ``(naxis, *out_shape)`` gives the input position of
+    every output voxel; the output has shape ``out_shape`` (any rank), or,
+    with ``axis``, the input's with the deformed axes resized and the
+    channel axes carried along. The five classic mode names keep the
+    reference's pre-SciPy-1.6 meaning; ``'grid-mirror'``, ``'grid-wrap'``
+    and ``'grid-constant'`` follow SciPy >= 1.6. Returns a tensor on
+    ``device`` (default ``"cuda"``) with ``X``'s dtype, differentiable with
+    respect to ``X`` and ``coordinates``.
+    """
+    if mode in _GRID_MODE_NAMES:
+        return _modern_map_coordinates(
+            X, coordinates, order=order, mode=mode, cval=cval,
+            prefilter=prefilter, axis=axis, device=device)
+    return _map_classic(X, coordinates, order, mode, cval, prefilter, axis,
+                        device)
+
+
+def map_coordinates_batch(X, coordinates, *, order=3, mode='constant',
+                          cval=0.0, prefilter=True, axis=None, device=None):
+    """Batched :func:`map_coordinates` with per-sample coordinates: ``X``
+    ``(B, *image_shape)``, ``coordinates`` ``(B, naxis, *out_shape)``;
+    ``axis`` refers to the per-sample shape. Differentiable with respect
+    to ``X`` and ``coordinates``."""
+    if mode in _GRID_MODE_NAMES:
+        return _modern_map_coordinates(
+            X, coordinates, order=order, mode=mode, cval=cval,
+            prefilter=prefilter, axis=axis, device=device, batched=True)
+    return _map_classic(X, coordinates, order, mode, cval, prefilter, axis,
+                        device, batched=True)
+
+
+def _map_gradient_classic(dY, coordinates, order, mode, cval, prefilter,
+                          axis, X_shape, device):
+    dev = _device(device)
+    dY = _to_device(dY, dev)
+    coordinates = _to_device(coordinates, dev)
+    shaped = _n.Shaped(X_shape, dY.dtype)
+    spec = _prepare_map(shaped, coordinates, order, mode, cval, prefilter,
+                        axis)
+    return _d.map_coordinates_gradient_apply_batched(
+        dY[None], coordinates[None], spec)[0]
+
+
+def map_coordinates_gradient(dY, coordinates, *, order=3, mode='constant',
+                             cval=0.0, prefilter=True, axis=None,
+                             X_shape=None, device=None):
+    """Adjoint of :func:`map_coordinates` with respect to ``X``: maps an
+    output cotangent ``dY`` to an input cotangent of shape ``X_shape``
+    (required). The classic modes run the transposed stages with no
+    forward pass (K3c, then K4); the grid modes, linear in ``X``, take the
+    vector-Jacobian product at a zero input, as the JAX package does."""
+    if X_shape is None:
+        raise ValueError("X_shape is required (the input shape cannot be "
+                         "inferred from dY).")
+    X_shape = tuple(int(s) for s in X_shape)
+    if mode in _GRID_MODE_NAMES:
+        dev = _device(device)
+        dY = _to_device(dY, dev)
+        dt = dY.dtype if dY.dtype.is_floating_point else torch.float32
+        zero = torch.zeros(X_shape, dtype=dt, device=dev, requires_grad=True)
+        with torch.enable_grad():
+            y = _modern_map_coordinates(
+                zero, coordinates, order=order, mode=mode, cval=cval,
+                prefilter=prefilter, axis=axis, device=dev)
+            (g,) = torch.autograd.grad(y, zero, dY.to(dt))
+        return g
+    return _map_gradient_classic(dY, coordinates, order, mode, cval,
+                                 prefilter, axis, X_shape, device)
+
+
+def _identity_plus_field(field: torch.Tensor, lead: int) -> torch.Tensor:
+    """``identity + field`` sample coordinates from a dense displacement
+    field with ``lead`` leading (batch) axes before the component axis."""
+    cdt = field.dtype if field.dtype in (torch.float32, torch.float64) \
+        else torch.float64
+    spatial = tuple(field.shape[lead + 1:])
+    idx = torch.stack(_iotas(spatial, cdt, field.device))
+    return idx.reshape((1,) * lead + tuple(idx.shape)) + field.to(cdt)
+
+
+def _iotas(shape, dtype, device):
+    """``jax.lax.broadcasted_iota`` of ``shape`` along each axis."""
+    out = []
+    for h, n in enumerate(shape):
+        view = [1] * len(shape)
+        view[h] = n
+        out.append(torch.arange(n, dtype=dtype, device=device).view(view)
+                   .expand(shape))
+    return out
+
+
+def deform_field(X, field, *, order=3, mode='constant', cval=0.0,
+                 prefilter=True, axis=None, device=None):
+    """Deform ``X`` with a dense per-voxel displacement field ``(naxis,
+    *out_shape)``: output voxel ``v`` takes the input at ``v + field[:,
+    v]``. With ``field`` the dense field of a control grid this equals
+    :func:`deform`. Differentiable with respect to ``X`` and ``field``."""
+    coords = _identity_plus_field(_to_device(field, _device(device)), 0)
+    return map_coordinates(X, coords, order=order, mode=mode, cval=cval,
+                           prefilter=prefilter, axis=axis, device=device)
+
+
+def deform_field_batch(X, field, *, order=3, mode='constant', cval=0.0,
+                       prefilter=True, axis=None, device=None):
+    """Batched :func:`deform_field`: ``X`` ``(B, *image_shape)``, ``field``
+    ``(B, naxis, *out_shape)``; the warp layer of registration training,
+    differentiable with respect to ``X`` and ``field``."""
+    coords = _identity_plus_field(_to_device(field, _device(device)), 1)
+    return map_coordinates_batch(X, coords, order=order, mode=mode,
+                                 cval=cval, prefilter=prefilter, axis=axis,
+                                 device=device)
+
+
+def affine_transform(X, matrix, offset=0.0, *, output_shape=None, order=3,
+                     mode='constant', cval=0.0, prefilter=True, axis=None,
+                     device=None):
+    """Affine resampling (``scipy.ndimage.affine_transform``): output voxel
+    ``o`` takes the input at ``matrix @ o + offset``. ``matrix`` is
+    ``(naxis, naxis)``, a length-``naxis`` scaling vector, or the
+    homogeneous ``(naxis+1, naxis+1)`` form; every mode name takes its
+    SciPy >= 1.6 meaning. Differentiable with respect to ``X``, ``matrix``
+    and ``offset``."""
+    dev = _device(device)
+    axis_n, deform_shape = _n.normalize_axis_list(axis, [X])
+    naxis = len(axis_n[0])
+    matrix = _to_device(matrix, dev)
+    cdt = torch.float64 if matrix.dtype == torch.float64 else torch.float32
+    matrix = matrix.to(cdt)
+    if matrix.dim() == 2 and tuple(matrix.shape) == (naxis + 1, naxis + 1):
+        offset = matrix[:naxis, naxis]
+        matrix = matrix[:naxis, :naxis]
+    elif matrix.dim() == 1 and tuple(matrix.shape) != (naxis,) or \
+            matrix.dim() == 2 and tuple(matrix.shape) != (naxis, naxis) or \
+            matrix.dim() not in (1, 2):
+        raise ValueError(
+            f"matrix should have shape ({naxis},), ({naxis}, {naxis}) or "
+            f"({naxis + 1}, {naxis + 1}); got {tuple(matrix.shape)}.")
+    offset = torch.broadcast_to(_to_device(offset, dev).to(cdt), (naxis,))
+    if output_shape is None:
+        output_shape = tuple(deform_shape)
+    else:
+        output_shape = tuple(int(s) for s in output_shape)
+        if len(output_shape) != naxis:
+            raise ValueError(
+                f"output_shape must have one entry per deformed axis "
+                f"({naxis}); got {output_shape}.")
+    iotas = _iotas(output_shape, cdt, dev)
+    if matrix.dim() == 1:
+        cc = [matrix[h] * iotas[h] + offset[h] for h in range(naxis)]
+    else:
+        cc = [sum(matrix[h, l] * iotas[l] for l in range(naxis))
+              + offset[h] for h in range(naxis)]
+    return _map_coordinates_scipy(X, torch.stack(cc), order=order,
+                                  mode=mode, cval=cval, prefilter=prefilter,
+                                  axis=axis, device=device)
+
+
+def shift(X, shift, *, order=3, mode='constant', cval=0.0, prefilter=True,
+          axis=None, device=None):
+    """Translate an image (``scipy.ndimage.shift``): ``output[o] =
+    input[o - shift]``, ``shift`` a scalar or one value per deformed axis,
+    differentiable. A wrapper of :func:`affine_transform`."""
+    dev = _device(device)
+    axis_n, _ = _n.normalize_axis_list(axis, [X])
+    naxis = len(axis_n[0])
+    sh = torch.broadcast_to(_to_device(shift, dev), (naxis,))
+    return affine_transform(X, torch.ones(naxis, dtype=sh.dtype, device=dev),
+                            offset=-sh, order=order, mode=mode, cval=cval,
+                            prefilter=prefilter, axis=axis, device=device)
+
+
+def zoom(X, zoom, *, order=3, mode='constant', cval=0.0, prefilter=True,
+         axis=None, grid_mode=False, device=None):
+    """Rescale an image (``scipy.ndimage.zoom``) to ``round(in_size *
+    zoom)`` per deformed axis: output voxel ``o`` samples ``o * (in - 1) /
+    (out - 1)``, or with ``grid_mode=True`` ``(o + 0.5) * in / out -
+    0.5``."""
+    axis_n, deform_shape = _n.normalize_axis_list(axis, [X])
+    naxis = len(axis_n[0])
+    if not isinstance(zoom, (list, tuple, np.ndarray)):
+        zoom = [zoom] * naxis
+    if len(zoom) != naxis:
+        raise ValueError(f"zoom must be a scalar or give one factor per "
+                         f"deformed axis ({naxis}); got {len(zoom)}.")
+    out_shape = tuple(int(round(i * float(z)))
+                      for i, z in zip(deform_shape, zoom))
+    if grid_mode:
+        if mode in ('constant', 'wrap'):
+            warnings.warn(
+                "It is recommended to use mode = 'grid-constant' or "
+                "'grid-wrap' instead of 'constant'/'wrap' when "
+                "grid_mode is True.", UserWarning, stacklevel=2)
+        factors = np.array([i / o if o > 0 else 1.0
+                            for i, o in zip(deform_shape, out_shape)])
+        offsets = (factors - 1.0) / 2.0
+        return affine_transform(X, factors, offsets,
+                                output_shape=out_shape, order=order,
+                                mode=mode, cval=cval, prefilter=prefilter,
+                                axis=axis, device=device)
+    factors = np.array([(i - 1) / (o - 1) if o > 1 else 1.0
+                        for i, o in zip(deform_shape, out_shape)])
+    return affine_transform(X, factors, 0.0, output_shape=out_shape,
+                            order=order, mode=mode, cval=cval,
+                            prefilter=prefilter, axis=axis, device=device)
+
+
+def rotate(X, angle, axes=(1, 0), *, reshape=True, order=3, mode='constant',
+           cval=0.0, prefilter=True, device=None):
+    """Rotate an image in the plane of two axes (``scipy.ndimage.rotate``):
+    ``angle`` in degrees; ``reshape=True`` enlarges the output to hold the
+    whole rotated input; the other axes are carried along."""
+    ndim = len(X.shape)
+    axes = sorted(a % ndim for a in axes)
+    if len(set(axes)) != 2:
+        raise ValueError("axes should be two distinct axes")
+    rad = np.deg2rad(float(angle))
+    c, s = np.cos(rad), np.sin(rad)
+    rot = np.array([[c, s], [-s, c]])
+    in_plane = np.array([X.shape[axes[0]], X.shape[axes[1]]])
+    if reshape:
+        iy, ix = in_plane
+        out_bounds = rot @ np.array([[0, 0, iy, iy], [0, ix, 0, ix]],
+                                    dtype=float)
+        out_plane = (np.ptp(out_bounds, axis=1) + 0.5).astype(int)
+    else:
+        out_plane = in_plane
+    offset = (in_plane - 1) / 2 - rot @ ((out_plane - 1) / 2)
+    return affine_transform(X, rot, offset,
+                            output_shape=tuple(int(n) for n in out_plane),
+                            order=order, mode=mode, cval=cval,
+                            prefilter=prefilter, axis=tuple(axes),
+                            device=device)
+
+
+def geometric_transform(X, mapping, output_shape=None, *, order=3,
+                        mode='constant', cval=0.0, prefilter=True,
+                        extra_arguments=(), extra_keywords=None, device=None):
+    """Resample through a coordinate mapping
+    (``scipy.ndimage.geometric_transform``): ``mapping(output_coords,
+    *extra_arguments, **extra_keywords)`` receives a tuple of float64
+    coordinate tensors of shape ``output_shape`` on ``device`` and returns
+    one input coordinate (tensor or broadcastable value) per input axis. It
+    is applied to whole tensors, so autograd reaches whatever it closes
+    over. Every mode name takes its SciPy >= 1.6 meaning."""
+    dev = _device(device)
+    out_shape = tuple(int(s) for s in output_shape) \
+        if output_shape is not None else tuple(int(s) for s in X.shape)
+    idx = tuple(_iotas(out_shape, torch.float64, dev))
+    coords = mapping(idx, *extra_arguments, **(extra_keywords or {}))
+    coordinates = torch.stack(
+        [torch.broadcast_to(_to_device(c, dev).to(torch.float64), out_shape)
+         for c in coords])
+    return _map_coordinates_scipy(X, coordinates, order=order, mode=mode,
+                                  cval=cval, prefilter=prefilter, axis=None,
+                                  device=device)
+
+
+# spline-filter boundary condition per scipy mode name (the JAX package's
+# core.py:1134)
+_SPLINE_BC = {'mirror': 'mirror', 'constant': 'mirror', 'wrap': 'mirror',
+              'grid-constant': 'mirror', 'reflect': 'reflect',
+              'nearest': 'reflect', 'grid-mirror': 'reflect',
+              'grid-wrap': 'wrap'}
+
+
+def _resolve_output(X, output):
+    """scipy's ``output=`` contract: ``None`` keeps ``X``'s dtype, a
+    dtype-like selects the result's, a numpy array is filled on the host
+    and returned. Returns ``(numpy dtype, array or None)``."""
+    if output is None:
+        return numpy_dtype(X.dtype), None
+    if isinstance(output, np.ndarray):
+        if output.shape != tuple(X.shape):
+            raise RuntimeError("output shape not correct")
+        return output.dtype, output
+    return np.dtype(output), None
+
+
+def _finish(res: torch.Tensor, dtype, out_array):
+    res = res.to(torch_dtype(dtype))
+    if out_array is not None:
+        out_array[...] = res.detach().cpu().numpy()
+        return out_array
+    return res
+
+
+def spline_filter1d(X, *, order=3, axis=-1, mode='mirror', output=None,
+                    device=None):
+    """B-spline prefilter along one axis (``scipy.ndimage.spline_filter1d``)
+    with the boundary condition of ``mode`` (any of the eight scipy names:
+    mirror on K2, reflect and wrap on K6). ``output`` follows scipy's
+    contract; ``None`` keeps a floating input's dtype (integers give
+    float64). Differentiable; orders 0 and 1 return the input cast."""
+    (order,) = _n.normalize_order(order, [X])
+    try:
+        bc = _SPLINE_BC[mode]
+    except KeyError:
+        raise RuntimeError("boundary mode not supported") from None
+    dtype, out_array = _resolve_output(X, output)
+    if dtype.kind != "f":
+        dtype = np.dtype(np.float64)
+    Xf = _to_device(X, _device(device)).to(torch_dtype(dtype))
+    if order > 1:
+        Xf = _d.Prefilter1d.apply(Xf.contiguous(), order, axis % Xf.dim(),
+                                  bc)
+    return _finish(Xf, dtype, out_array)
+
+
+def spline_filter(X, *, order=3, axis=None, mode='mirror', output=None,
+                  device=None):
+    """B-spline prefilter over several axes (``scipy.ndimage.spline_filter``):
+    :func:`spline_filter1d` along each of ``axis`` (default all) in
+    turn."""
+    ndim = len(X.shape)
+    if axis is None:
+        axis = tuple(range(ndim))
+    elif isinstance(axis, int):
+        axis = (axis,)
+    dtype, out_array = _resolve_output(X, output)
+    for d in axis:
+        X = spline_filter1d(X, order=order, axis=d, mode=mode, device=device)
+    if dtype.kind != "f":
+        dtype = numpy_dtype(X.dtype)
+    return _finish(_to_device(X, _device(device)), dtype, out_array)

@@ -37,17 +37,41 @@
 // plain twin is ops/prefilter.py:spline_filter1d_transpose_plain, a
 // tensordot with F^T. Bound and the innermost-axis limit as for K2.
 //
+// K6 spline_prefilter_bc and K7 spline_prefilter_bc_transpose: the same
+// line-parallel recursion and its exact transpose under the 'reflect'
+// (half-sample symmetric, period 2n) and 'wrap' (periodic, period n)
+// boundary conditions of SciPy >= 1.6 (the public statement of the
+// initialisations is ni_splines.c, _init_causal_reflect /
+// _init_anticausal_reflect / _init_causal_wrap / _init_anticausal_wrap).
+// They replace the JAX package's filter_matrix_bc + _apply_matrix
+// (elasticdeform_tpu/ops/prefilter.py:150, :177; core.py:568-569 and
+// :1176-1177), a dense n x n inverse of the B-spline sampling matrix on the
+// TPU's matrix unit. Per pole, the causal initialisation is the full sum
+// over the period, with no truncated branch:
+//   reflect: c0 + z/(1 - z^2n) * sum_i z^i (c_i + z^n c_{n-1-i})
+//   wrap:    (c0 + sum_{i>=1} z^i c_{n-i}) / (1 - z^n)
+// and the anti-causal one c_{n-1} * z/(z - 1) (reflect) or
+// (c_{n-1} + sum_{i<n-1} z^(i+1) c_i) * z/(z^n - 1) (wrap). K7 runs each
+// stage's transpose in reverse, as K4 does: row 0's (row n-1's) cotangent
+// spreads over the line with the same coefficients. Plain twins:
+// ops/prefilter.py spline_filter1d_bc_plain / _transpose_plain (tensordot
+// with filter_matrix_bc(n, order, bc) or its transpose). Bound and the
+// innermost-axis limit as for K2.
+//
 // Optional fused writeback (int_bits > 0): after the axis, truncate toward
 // zero and wrap modulo 2^int_bits (ops/resample.py cast_int_c), the
 // reference's per-axis integer writeback, which is nonlinear and must run
 // after each axis. It is computed in T with the plain version's operations.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #define ED_MAXPOLES 2
 
 namespace {
+
+enum { BC_REFLECT = 1, BC_WRAP = 2 };
 
 struct Params {
   int64_t outer, n, inner;
@@ -56,6 +80,7 @@ struct Params {
   int horizon[ED_MAXPOLES];
   double pn1[ED_MAXPOLES];    // p^(n-1)
   double denom[ED_MAXPOLES];  // 1 - p^(2n-2)
+  double zn[ED_MAXPOLES];     // p^n (K6, K7)
   double gain;
   int int_bits;       // 0: no writeback
   double int_lo;      // iinfo(dtype).min
@@ -201,6 +226,180 @@ prefilter_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
   for (int64_t k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
 }
 
+// K6: the filter of prefilter_kernel with the initialisations of the
+// boundary condition BC (reflect or wrap), no integer writeback.
+template <typename T, int BC>
+__global__ void __launch_bounds__(256)
+prefilter_bc_kernel(const T* __restrict__ in, T* __restrict__ out,
+                    const Params p) {
+  const int64_t line = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (line >= p.outer * p.inner) return;
+  const int64_t o = line / p.inner;
+  const int64_t i0 = line - o * p.inner;
+  const int64_t n = p.n;
+  const int64_t s = p.inner;
+  const T* src = in + o * n * s + i0;
+  T* x = out + o * n * s + i0;
+
+  if (n <= 1 || p.npoles == 0) {
+    for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
+    return;
+  }
+  const T gain = T(p.gain);
+  for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s] * gain;
+  for (int q = 0; q < p.npoles; ++q) {
+    const double zd = p.pole[q], znd = p.zn[q];
+    const T z = T(zd);
+    const T zn = T(znd);
+    // causal initialisation over the whole period
+    if (BC == BC_REFLECT) {
+      const T c0 = x[0];
+      T zi = T(1);
+      T acc = T(0);
+      for (int64_t i = 0; i < n; ++i) {
+        acc = acc + zi * (x[i * s] + zn * x[(n - 1 - i) * s]);
+        zi = zi * z;
+      }
+      x[0] = acc * T(zd / (1.0 - znd * znd)) + c0;
+    } else {
+      T zi = z;
+      T acc = x[0];
+      for (int64_t i = 1; i < n; ++i) {
+        acc = acc + zi * x[(n - i) * s];
+        zi = zi * z;
+      }
+      x[0] = acc * T(1.0 / (1.0 - znd));
+    }
+    // causal pass
+    T prev = x[0];
+    for (int64_t k = 1; k < n; ++k) {
+      prev = x[k * s] + z * prev;
+      x[k * s] = prev;
+    }
+    // anti-causal initialisation
+    if (BC == BC_REFLECT) {
+      prev = prev * T(zd / (zd - 1.0));
+    } else {
+      T zi = z;
+      T acc = prev;
+      for (int64_t i = 0; i < n - 1; ++i) {
+        acc = acc + zi * x[i * s];
+        zi = zi * z;
+      }
+      prev = acc * T(zd / (znd - 1.0));
+    }
+    x[(n - 1) * s] = prev;
+    // anti-causal pass
+    for (int64_t k = n - 2; k >= 0; --k) {
+      prev = z * (prev - x[k * s]);
+      x[k * s] = prev;
+    }
+  }
+}
+
+// K7: the exact transpose of prefilter_bc_kernel, equal to
+// filter_matrix_bc(n, order, bc).T: per pole in reverse order, the
+// transposed anti-causal pass (as K4), its transposed initialisation, the
+// transposed causal pass (as K4), the transposed causal initialisation;
+// the gain last.
+template <typename T, int BC>
+__global__ void __launch_bounds__(256)
+prefilter_bc_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
+                              const Params p) {
+  const int64_t line = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (line >= p.outer * p.inner) return;
+  const int64_t o = line / p.inner;
+  const int64_t i0 = line - o * p.inner;
+  const int64_t n = p.n;
+  const int64_t s = p.inner;
+  const T* src = in + o * n * s + i0;
+  T* x = out + o * n * s + i0;
+
+  for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
+  if (n <= 1 || p.npoles == 0) return;
+  for (int q = p.npoles - 1; q >= 0; --q) {
+    const double zd = p.pole[q], znd = p.zn[q];
+    const T z = T(zd);
+    const T zn = T(znd);
+    // anti-causal pass, transposed; u ends as row n-1's cotangent
+    T u = x[0];
+    for (int64_t k = 0; k < n - 1; ++k) {
+      const T next = x[(k + 1) * s] + z * u;
+      x[k * s] = u * -z;
+      u = next;
+    }
+    // its initialisation row, transposed
+    if (BC == BC_REFLECT) {
+      x[(n - 1) * s] = u * T(zd / (zd - 1.0));
+    } else {
+      const T t = u * T(zd / (znd - 1.0));
+      x[(n - 1) * s] = t;
+      T zi = z;
+      for (int64_t i = 0; i < n - 1; ++i) {
+        x[i * s] = x[i * s] + zi * t;
+        zi = zi * z;
+      }
+    }
+    // causal pass, transposed
+    T v = x[(n - 1) * s];
+    for (int64_t k = n - 1; k >= 1; --k) {
+      v = x[(k - 1) * s] + z * v;
+      x[(k - 1) * s] = v;
+    }
+    // causal initialisation, transposed: row 0 spreads over the line
+    if (BC == BC_REFLECT) {
+      const T t = x[0] * T(zd / (1.0 - znd * znd));
+      T zi = T(1);
+      for (int64_t i = 0; i < n; ++i) {
+        x[i * s] = x[i * s] + zi * t;
+        x[(n - 1 - i) * s] = x[(n - 1 - i) * s] + zn * zi * t;
+        zi = zi * z;
+      }
+    } else {
+      const T t = x[0] * T(1.0 / (1.0 - znd));
+      x[0] = t;
+      T zi = z;
+      for (int64_t i = 1; i < n; ++i) {
+        x[(n - i) * s] = x[(n - i) * s] + zi * t;
+        zi = zi * z;
+      }
+    }
+  }
+  const T gain = T(p.gain);
+  for (int64_t k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
+}
+
+template <typename T, int BC, bool TRANSPOSE>
+cudaError_t launch_bc(const void* in, void* out, const Params& p,
+                      cudaStream_t stream) {
+  const int64_t lines = p.outer * p.inner;
+  if (lines == 0 || p.n == 0) return cudaSuccess;
+  const int threads = 256;
+  const int64_t blocks = (lines + threads - 1) / threads;
+  if (TRANSPOSE)
+    prefilter_bc_transpose_kernel<T, BC>
+        <<<(unsigned)blocks, threads, 0, stream>>>(
+            static_cast<const T*>(in), static_cast<T*>(out), p);
+  else
+    prefilter_bc_kernel<T, BC><<<(unsigned)blocks, threads, 0, stream>>>(
+        static_cast<const T*>(in), static_cast<T*>(out), p);
+  return cudaGetLastError();
+}
+
+template <bool TRANSPOSE>
+cudaError_t dispatch_bc(int dtype, int bc, const void* in, void* out,
+                        const Params& p, cudaStream_t s) {
+  if (dtype == 0 && bc == BC_REFLECT)
+    return launch_bc<float, BC_REFLECT, TRANSPOSE>(in, out, p, s);
+  if (dtype == 0 && bc == BC_WRAP)
+    return launch_bc<float, BC_WRAP, TRANSPOSE>(in, out, p, s);
+  if (dtype == 1 && bc == BC_REFLECT)
+    return launch_bc<double, BC_REFLECT, TRANSPOSE>(in, out, p, s);
+  if (dtype == 1 && bc == BC_WRAP)
+    return launch_bc<double, BC_WRAP, TRANSPOSE>(in, out, p, s);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, bool TRANSPOSE>
 cudaError_t launch(const void* in, void* out, const Params& p,
                    cudaStream_t stream) {
@@ -229,9 +428,11 @@ bool make_params(Params* p, long long outer, long long n, long long inner,
   for (int q = 0; q < ED_MAXPOLES; ++q) {
     const bool used = q < npoles;
     p->pole[q] = used ? poles[q] : 0.0;
-    p->horizon[q] = used ? horizons[q] : 0;
-    p->pn1[q] = used ? pn1[q] : 0.0;
-    p->denom[q] = used ? denom[q] : 1.0;
+    // the mirror terms are absent (null) for K6 and K7
+    p->horizon[q] = used && horizons ? horizons[q] : 0;
+    p->pn1[q] = used && pn1 ? pn1[q] : 0.0;
+    p->denom[q] = used && denom ? denom[q] : 1.0;
+    p->zn[q] = used ? pow(poles[q], (double)n) : 0.0;
   }
   p->gain = gain;
   p->int_bits = int_bits;
@@ -278,6 +479,23 @@ int ed_spline_prefilter_transpose(int dtype, const void* in, void* out,
   cudaError_t err = dtype == 0   ? launch<float, true>(in, out, p, s)
                     : dtype == 1 ? launch<double, true>(in, out, p, s)
                                  : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K6 (transpose = 0) and K7 (transpose = 1): the filter and its transpose
+// under boundary condition bc (1 reflect, 2 wrap). poles: npoles, host
+// float64. in and out must not overlap. Returns cudaGetLastError().
+int ed_spline_prefilter_bc(int dtype, int bc, int transpose, const void* in,
+                           void* out, long long outer, long long n,
+                           long long inner, int npoles, const double* poles,
+                           double gain, void* stream) {
+  Params p;
+  if (!make_params(&p, outer, n, inner, npoles, poles, nullptr, nullptr,
+                   nullptr, gain, 0, 0.0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = transpose ? dispatch_bc<true>(dtype, bc, in, out, p, s)
+                              : dispatch_bc<false>(dtype, bc, in, out, p, s);
   return (int)err;
 }
 

@@ -38,6 +38,16 @@
 // plain version up to the rounding of the dense displacement it is given.
 // The coordinate, fold and weight code is in resample_common.cuh, shared
 // with K3 and K5.
+//
+// K1c resample_coords_fwd is the same kernel with the coordinate source of
+// resample_common.cuh: cc_h = coords[b, h, v] as the caller gives them
+// (B, naxis, n_out), output (B, n_out, C) of any output rank. It replaces
+// the JAX package's map_coordinates resample stage
+// (elasticdeform_tpu/ops/deform.py:533 map_coordinates_apply, :573
+// map_coordinates_apply_batched, which run _deform_one_linear(_batched),
+// ops/deform.py:270, at the caller's coordinates). Its plain twin is
+// ops/resample.py:resample_coords_plain. Bound: bytes, B*(n_in*C +
+// naxis*n_out + n_out*C) * sizeof(T).
 
 #include "resample_common.cuh"
 
@@ -45,7 +55,7 @@
 
 namespace {
 
-template <typename T, int ORDER>
+template <typename T, int ORDER, bool COORDS>
 __global__ void __launch_bounds__(256)
 resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
                     const T* __restrict__ affine, T* __restrict__ out,
@@ -60,7 +70,7 @@ resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
   int64_t off[ED_MAXD][NT];
   int ntap[ED_MAXD];
   T unused_dw[ED_MAXD][NT], unused_fd[ED_MAXD];
-  const bool inside = tap_tables<T, ORDER, false>(
+  const bool inside = tap_tables<T, ORDER, false, COORDS>(
       p, displ, affine, b, v, w, off, ntap, unused_dw, unused_fd);
 
   const int64_t C = p.channels;
@@ -104,30 +114,31 @@ resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
   }
 }
 
-template <typename T, int ORDER>
+template <typename T, int ORDER, bool COORDS>
 cudaError_t launch(const void* coeffs, const void* displ, const void* affine,
                    void* out, const Params& p, cudaStream_t stream) {
   const int64_t total = p.batch * p.n_out;
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
-  resample_fwd_kernel<T, ORDER><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(coeffs), static_cast<const T*>(displ),
-      static_cast<const T*>(affine), static_cast<T*>(out), p);
+  resample_fwd_kernel<T, ORDER, COORDS>
+      <<<(unsigned)blocks, threads, 0, stream>>>(
+          static_cast<const T*>(coeffs), static_cast<const T*>(displ),
+          static_cast<const T*>(affine), static_cast<T*>(out), p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool COORDS>
 cudaError_t dispatch(int order, const void* coeffs, const void* displ,
                      const void* affine, void* out, const Params& p,
-                     cudaStream_t stream) {
+                     cudaStream_t s) {
   switch (order) {
-    case 0: return launch<T, 0>(coeffs, displ, affine, out, p, stream);
-    case 1: return launch<T, 1>(coeffs, displ, affine, out, p, stream);
-    case 2: return launch<T, 2>(coeffs, displ, affine, out, p, stream);
-    case 3: return launch<T, 3>(coeffs, displ, affine, out, p, stream);
-    case 4: return launch<T, 4>(coeffs, displ, affine, out, p, stream);
-    case 5: return launch<T, 5>(coeffs, displ, affine, out, p, stream);
+    case 0: return launch<T, 0, COORDS>(coeffs, displ, affine, out, p, s);
+    case 1: return launch<T, 1, COORDS>(coeffs, displ, affine, out, p, s);
+    case 2: return launch<T, 2, COORDS>(coeffs, displ, affine, out, p, s);
+    case 3: return launch<T, 3, COORDS>(coeffs, displ, affine, out, p, s);
+    case 4: return launch<T, 4, COORDS>(coeffs, displ, affine, out, p, s);
+    case 5: return launch<T, 5, COORDS>(coeffs, displ, affine, out, p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -150,9 +161,32 @@ int ed_resample_fwd(int dtype, const void* coeffs, const void* displ,
                    offsets, affine_stride, cval))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0
-      ? dispatch<float>(order, coeffs, displ, affine, out, p, s)
-      : dtype == 1 ? dispatch<double>(order, coeffs, displ, affine, out, p, s)
+  cudaError_t err =
+      dtype == 0   ? dispatch<float, false>(order, coeffs, displ, affine, out,
+                                            p, s)
+      : dtype == 1 ? dispatch<double, false>(order, coeffs, displ, affine,
+                                             out, p, s)
+                   : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K1c: coords (B, naxis, n_out) are the sample coordinates; out (B, n_out,
+// C). in_shape: naxis int64. Returns cudaGetLastError().
+int ed_resample_coords_fwd(int dtype, const void* coeffs, const void* coords,
+                           void* out, int naxis, int order, int mode,
+                           long long batch, long long channels,
+                           const long long* in_shape, long long n_out,
+                           double cval, void* stream) {
+  Params p;
+  if (!make_params_coords(&p, naxis, mode, batch, channels, in_shape, n_out,
+                          cval))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0   ? dispatch<float, true>(order, coeffs, coords, nullptr,
+                                           out, p, s)
+      : dtype == 1 ? dispatch<double, true>(order, coeffs, coords, nullptr,
+                                            out, p, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

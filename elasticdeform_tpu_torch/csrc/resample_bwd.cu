@@ -44,6 +44,17 @@
 // Offsets are int64.
 //
 // Numerics: built with --fmad=false, every constant cast to T.
+//
+// K3c resample_coords_bwd and K5c resample_coords_grad are K3 and K5 with
+// the coordinate source of resample_common.cuh: caller-given coordinates
+// (B, naxis, n_out) in place of the displacement, so K5c's result is the
+// gradient with respect to those coordinates. They replace the backward
+// of the JAX package's map_coordinates (elasticdeform_tpu/ops/deform.py:608
+// map_coordinates_gradient_apply, and the autodiff of :533 / :573, which
+// reach _scatter_fold and the d_cc branch of _windows_op_bwd at the
+// caller's coordinates). Plain twins: ops/resample_bwd.py
+// resample_coords_transpose_plain and resample_coords_grad_plain. Bounds as
+// for K3 and K5.
 
 #include "resample_common.cuh"
 
@@ -51,7 +62,7 @@
 
 namespace {
 
-template <typename T, int ORDER>
+template <typename T, int ORDER, bool COORDS>
 __global__ void __launch_bounds__(256)
 resample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ displ,
                     const T* __restrict__ affine, T* __restrict__ d_coeffs,
@@ -66,8 +77,8 @@ resample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ displ,
   int64_t off[ED_MAXD][NT];
   int ntap[ED_MAXD];
   T unused_dw[ED_MAXD][NT], unused_fd[ED_MAXD];
-  if (!tap_tables<T, ORDER, false>(p, displ, affine, b, v, w, off, ntap,
-                                   unused_dw, unused_fd))
+  if (!tap_tables<T, ORDER, false, COORDS>(p, displ, affine, b, v, w, off,
+                                           ntap, unused_dw, unused_fd))
     return;  // constant mode outside: g is zeroed there
 
   const int64_t C = p.channels;
@@ -100,7 +111,7 @@ resample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ displ,
   }
 }
 
-template <typename T, int ORDER>
+template <typename T, int ORDER, bool COORDS>
 __global__ void __launch_bounds__(256)
 resample_coord_grad_kernel(const T* __restrict__ coeffs,
                            const T* __restrict__ g,
@@ -120,8 +131,8 @@ resample_coord_grad_kernel(const T* __restrict__ coeffs,
   int64_t off[ED_MAXD][NT];
   int ntap[ED_MAXD];
   T dw[ED_MAXD][NT], fd[ED_MAXD];
-  const bool inside = tap_tables<T, ORDER, true>(p, displ, affine, b, v, w,
-                                                 off, ntap, dw, fd);
+  const bool inside = tap_tables<T, ORDER, true, COORDS>(
+      p, displ, affine, b, v, w, off, ntap, dw, fd);
   if (!inside || ORDER == 0) {
     // outside the constant-mode mask, and at order 0 (one tap of weight
     // 1), the output does not depend on the coordinate
@@ -166,20 +177,21 @@ resample_coord_grad_kernel(const T* __restrict__ coeffs,
     dst[h * p.n_out] = fd[lead + h] * acc[lead + h];
 }
 
-template <typename T, int ORDER>
+template <typename T, int ORDER, bool COORDS>
 cudaError_t launch_bwd(const void* g, const void* displ, const void* affine,
                        void* d_coeffs, const Params& p, cudaStream_t stream) {
   const int64_t total = p.batch * p.n_out;
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
-  resample_bwd_kernel<T, ORDER><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(displ),
-      static_cast<const T*>(affine), static_cast<T*>(d_coeffs), p);
+  resample_bwd_kernel<T, ORDER, COORDS>
+      <<<(unsigned)blocks, threads, 0, stream>>>(
+          static_cast<const T*>(g), static_cast<const T*>(displ),
+          static_cast<const T*>(affine), static_cast<T*>(d_coeffs), p);
   return cudaGetLastError();
 }
 
-template <typename T, int ORDER>
+template <typename T, int ORDER, bool COORDS>
 cudaError_t launch_coord_grad(const void* coeffs, const void* g,
                               const void* displ, const void* affine,
                               void* d_displ, const Params& p,
@@ -188,7 +200,7 @@ cudaError_t launch_coord_grad(const void* coeffs, const void* g,
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
-  resample_coord_grad_kernel<T, ORDER>
+  resample_coord_grad_kernel<T, ORDER, COORDS>
       <<<(unsigned)blocks, threads, 0, stream>>>(
           static_cast<const T*>(coeffs), static_cast<const T*>(g),
           static_cast<const T*>(displ), static_cast<const T*>(affine),
@@ -196,39 +208,39 @@ cudaError_t launch_coord_grad(const void* coeffs, const void* g,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool COORDS>
 cudaError_t dispatch_bwd(int order, const void* g, const void* displ,
                          const void* affine, void* d_coeffs, const Params& p,
                          cudaStream_t s) {
   switch (order) {
-    case 0: return launch_bwd<T, 0>(g, displ, affine, d_coeffs, p, s);
-    case 1: return launch_bwd<T, 1>(g, displ, affine, d_coeffs, p, s);
-    case 2: return launch_bwd<T, 2>(g, displ, affine, d_coeffs, p, s);
-    case 3: return launch_bwd<T, 3>(g, displ, affine, d_coeffs, p, s);
-    case 4: return launch_bwd<T, 4>(g, displ, affine, d_coeffs, p, s);
-    case 5: return launch_bwd<T, 5>(g, displ, affine, d_coeffs, p, s);
+    case 0: return launch_bwd<T, 0, COORDS>(g, displ, affine, d_coeffs, p, s);
+    case 1: return launch_bwd<T, 1, COORDS>(g, displ, affine, d_coeffs, p, s);
+    case 2: return launch_bwd<T, 2, COORDS>(g, displ, affine, d_coeffs, p, s);
+    case 3: return launch_bwd<T, 3, COORDS>(g, displ, affine, d_coeffs, p, s);
+    case 4: return launch_bwd<T, 4, COORDS>(g, displ, affine, d_coeffs, p, s);
+    case 5: return launch_bwd<T, 5, COORDS>(g, displ, affine, d_coeffs, p, s);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool COORDS>
 cudaError_t dispatch_coord_grad(int order, const void* coeffs, const void* g,
                                 const void* displ, const void* affine,
                                 void* d_displ, const Params& p,
                                 cudaStream_t s) {
   switch (order) {
-    case 0: return launch_coord_grad<T, 0>(coeffs, g, displ, affine, d_displ,
-                                           p, s);
-    case 1: return launch_coord_grad<T, 1>(coeffs, g, displ, affine, d_displ,
-                                           p, s);
-    case 2: return launch_coord_grad<T, 2>(coeffs, g, displ, affine, d_displ,
-                                           p, s);
-    case 3: return launch_coord_grad<T, 3>(coeffs, g, displ, affine, d_displ,
-                                           p, s);
-    case 4: return launch_coord_grad<T, 4>(coeffs, g, displ, affine, d_displ,
-                                           p, s);
-    case 5: return launch_coord_grad<T, 5>(coeffs, g, displ, affine, d_displ,
-                                           p, s);
+    case 0: return launch_coord_grad<T, 0, COORDS>(coeffs, g, displ, affine,
+                                                   d_displ, p, s);
+    case 1: return launch_coord_grad<T, 1, COORDS>(coeffs, g, displ, affine,
+                                                   d_displ, p, s);
+    case 2: return launch_coord_grad<T, 2, COORDS>(coeffs, g, displ, affine,
+                                                   d_displ, p, s);
+    case 3: return launch_coord_grad<T, 3, COORDS>(coeffs, g, displ, affine,
+                                                   d_displ, p, s);
+    case 4: return launch_coord_grad<T, 4, COORDS>(coeffs, g, displ, affine,
+                                                   d_displ, p, s);
+    case 5: return launch_coord_grad<T, 5, COORDS>(coeffs, g, displ, affine,
+                                                   d_displ, p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -253,10 +265,10 @@ int ed_resample_bwd(int dtype, const void* g, const void* displ,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      dtype == 0   ? dispatch_bwd<float>(order, g, displ, affine, d_coeffs, p,
-                                         s)
-      : dtype == 1 ? dispatch_bwd<double>(order, g, displ, affine, d_coeffs,
-                                          p, s)
+      dtype == 0   ? dispatch_bwd<float, false>(order, g, displ, affine,
+                                                d_coeffs, p, s)
+      : dtype == 1 ? dispatch_bwd<double, false>(order, g, displ, affine,
+                                                 d_coeffs, p, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }
@@ -277,10 +289,55 @@ int ed_resample_coord_grad(int dtype, const void* coeffs, const void* g,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      dtype == 0   ? dispatch_coord_grad<float>(order, coeffs, g, displ,
-                                                affine, d_displ, p, s)
-      : dtype == 1 ? dispatch_coord_grad<double>(order, coeffs, g, displ,
-                                                 affine, d_displ, p, s)
+      dtype == 0   ? dispatch_coord_grad<float, false>(order, coeffs, g,
+                                                       displ, affine, d_displ,
+                                                       p, s)
+      : dtype == 1 ? dispatch_coord_grad<double, false>(order, coeffs, g,
+                                                        displ, affine,
+                                                        d_displ, p, s)
+                   : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K3c: the transpose of K1c; g (B, n_out, C), coords (B, naxis, n_out),
+// d_coeffs (B, *in_shape, C) zero-filled. Returns cudaGetLastError().
+int ed_resample_coords_bwd(int dtype, const void* g, const void* coords,
+                           void* d_coeffs, int naxis, int order, int mode,
+                           long long batch, long long channels,
+                           const long long* in_shape, long long n_out,
+                           void* stream) {
+  Params p;
+  if (!make_params_coords(&p, naxis, mode, batch, channels, in_shape, n_out,
+                          0.0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0   ? dispatch_bwd<float, true>(order, g, coords, nullptr,
+                                               d_coeffs, p, s)
+      : dtype == 1 ? dispatch_bwd<double, true>(order, g, coords, nullptr,
+                                                d_coeffs, p, s)
+                   : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K5c: the gradient of <K1c(coeffs), g> with respect to coords; d_coords
+// (B, naxis, n_out), every element written. Returns cudaGetLastError().
+int ed_resample_coords_grad(int dtype, const void* coeffs, const void* g,
+                            const void* coords, void* d_coords, int naxis,
+                            int order, int mode, long long batch,
+                            long long channels, const long long* in_shape,
+                            long long n_out, void* stream) {
+  Params p;
+  if (!make_params_coords(&p, naxis, mode, batch, channels, in_shape, n_out,
+                          0.0) || channels < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0   ? dispatch_coord_grad<float, true>(order, coeffs, g, coords,
+                                                      nullptr, d_coords, p, s)
+      : dtype == 1 ? dispatch_coord_grad<double, true>(order, coeffs, g,
+                                                       coords, nullptr,
+                                                       d_coords, p, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

@@ -7,7 +7,10 @@
 //
 // Layouts: coefficients (B, *in_shape, C) with the channels last, the dense
 // displacement (B, naxis, *out_shape), the affine (naxis, naxis+1) per
-// sample at affine_stride elements apart (0 = one shared affine).
+// sample at affine_stride elements apart (0 = one shared affine). The
+// coordinate-input kernels (K1c, K3c, K5c) read caller-given coordinates
+// (B, naxis, n_out) in place of the displacement: the output is flat over
+// n_out, so its rank is free.
 
 #pragma once
 
@@ -64,6 +67,21 @@ inline bool make_params(Params* p, int naxis, int mode, long long batch,
       p->in_stride[h] = p->offset[h] = 0;
     }
   }
+  return true;
+}
+
+// Host side: the Params of the coordinate-input entry points, which give
+// n_out in place of an output shape, and no offsets or affine.
+inline bool make_params_coords(Params* p, int naxis, int mode,
+                               long long batch, long long channels,
+                               const long long* in_shape, long long n_out,
+                               double cval) {
+  const long long ones[ED_MAXD] = {1, 1, 1, 1};
+  const long long zeros[ED_MAXD] = {0, 0, 0, 0};
+  if (!make_params(p, naxis, mode, batch, channels, in_shape, ones, zeros, 0,
+                   cval))
+    return false;
+  p->n_out = n_out;
   return true;
 }
 
@@ -320,9 +338,10 @@ __device__ __forceinline__ T sample_coordinate(const Params& p, const T* A,
 // so a left-to-right weight product over the slots equals the twin's over
 // the real axes. off[s][t] is the element offset (in voxels) of tap t,
 // folded by the integer mirror fold into the UNPADDED array. With GRAD,
-// dw[s][t] holds d w / d cc and fd[s] the fold's derivative. Returns false
-// where constant mode falls outside.
-template <typename T, int ORDER, bool GRAD>
+// dw[s][t] holds d w / d cc and fd[s] the fold's derivative. With COORDS,
+// displ holds the sample coordinates themselves (B, naxis, n_out), read as
+// they are. Returns false where constant mode falls outside.
+template <typename T, int ORDER, bool GRAD, bool COORDS>
 __device__ __forceinline__ bool tap_tables(
     const Params& p, const T* displ, const T* affine, int64_t b, int64_t v,
     T (&w)[ED_MAXD][ORDER + 1], int64_t (&off)[ED_MAXD][ORDER + 1],
@@ -330,7 +349,7 @@ __device__ __forceinline__ bool tap_tables(
   constexpr int NT = ORDER + 1;
   const int lead = ED_MAXD - p.naxis;
   int64_t j[ED_MAXD];
-  voxel_index(p, v, j);
+  if constexpr (!COORDS) voxel_index(p, v, j);
   bool inside = true;
   const T* A = affine ? affine + b * p.affine_stride : nullptr;
 #pragma unroll
@@ -348,7 +367,11 @@ __device__ __forceinline__ bool tap_tables(
       continue;
     }
     ntap[s] = NT;
-    const T cc = sample_coordinate(p, A, displ, j, b, v, h);
+    T cc;
+    if constexpr (COORDS)
+      cc = displ[(b * p.naxis + h) * p.n_out + v];
+    else
+      cc = sample_coordinate(p, A, displ, j, b, v, h);
     const T m = map_coord(cc, p.in_shape[h], p.mode, &inside);
     const T fs = (ORDER & 1) ? floor(m) - T(ORDER / 2)
                              : floor(m + T(0.5)) - T(ORDER / 2);

@@ -24,6 +24,15 @@ kernel K4 applies the transposed prefilter along each axis in reverse
 order, and the result is cast to the cotangent's dtype. The path has no
 integer writeback. The gradient with respect to the control grids is
 kernel K5 per input, summed over the inputs, then the transpose of step 1.
+
+The general resampler (``map_coordinates`` and its family, the JAX
+package's ``ops/deform.py:533-635``) runs the same stages at caller-given
+coordinates: the prefilter without the integer writeback (scipy's
+``map_coordinates`` filters integer inputs in float), kernel K1c, the cast.
+Its two autograd functions compose under autograd with any torch glue
+around them: :class:`ResampleAt` (K1c; backward K3c to the coefficients,
+K5c to the coordinates) and :class:`Prefilter1d` (K2 or K6; backward K4 or
+K7).
 """
 
 from __future__ import annotations
@@ -38,12 +47,18 @@ import torch
 from elasticdeform_tpu_torch.ops.displacement import (
     dense_displacement, dense_displacement_transpose,
 )
+from torch.autograd.function import once_differentiable
+
 from elasticdeform_tpu_torch.ops.prefilter import (
-    spline_filter1d, spline_filter1d_transpose,
+    spline_filter1d, spline_filter1d_bc, spline_filter1d_bc_transpose,
+    spline_filter1d_transpose,
 )
-from elasticdeform_tpu_torch.ops.resample import cast_output, resample
+from elasticdeform_tpu_torch.ops.resample import (
+    cast_output, resample, resample_coords,
+)
 from elasticdeform_tpu_torch.ops.resample_bwd import (
-    resample_coord_grad, resample_transpose,
+    resample_coord_grad, resample_coords_grad, resample_coords_transpose,
+    resample_transpose,
 )
 
 
@@ -227,3 +242,108 @@ def grid_gradient(coeffs, dys, displ, affine, spec: DeformSpec, points,
         total = torch.zeros_like(displ)
     return dense_displacement_transpose(
         total, points, spec.deform_shape, spec.offsets).to(dtype)
+
+
+class ResampleAt(torch.autograd.Function):
+    """:func:`~elasticdeform_tpu_torch.ops.resample.resample_coords` (K1c)
+    as an autograd function of the coefficients ``(B, *spatial, C)`` and
+    the coordinates ``(B, naxis, *out)``, both contiguous in one dtype. The
+    backward runs K3c for the coefficients and K5c for the coordinates,
+    each only when asked; it is not itself differentiable."""
+
+    @staticmethod
+    def forward(ctx, coeffs, coords, order, mode, cval):
+        ctx.order, ctx.mode = order, mode
+        ctx.in_spatial = tuple(coeffs.shape[1:-1])
+        # the coefficients are kept only for K5c
+        ctx.save_for_backward(coords,
+                              coeffs if ctx.needs_input_grad[1] else None)
+        return resample_coords(coeffs, coords, order, mode, cval)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        coords, coeffs = ctx.saved_tensors
+        g = g.contiguous()
+        d_coeffs = d_coords = None
+        if ctx.needs_input_grad[0]:
+            d_coeffs = resample_coords_transpose(g, coords, ctx.order,
+                                                 ctx.mode, ctx.in_spatial)
+        if ctx.needs_input_grad[1]:
+            d_coords = resample_coords_grad(coeffs, g, coords, ctx.order,
+                                            ctx.mode)
+        return d_coeffs, d_coords, None, None, None
+
+
+class Prefilter1d(torch.autograd.Function):
+    """The spline prefilter of a contiguous tensor along ``axis`` with the
+    boundary condition ``bc`` (``'mirror'``: K2, ``'reflect'`` or
+    ``'wrap'``: K6) as an autograd function; the backward is its exact
+    transpose (K4 or K7). Orders 0 and 1 are not passed here."""
+
+    @staticmethod
+    def forward(ctx, x, order, axis, bc):
+        ctx.order, ctx.axis, ctx.bc = order, axis, bc
+        if bc == "mirror":
+            return spline_filter1d(x, order, axis)
+        return spline_filter1d_bc(x, order, axis, bc)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.bc == "mirror":
+            d = spline_filter1d_transpose(g, ctx.order, ctx.axis)
+        else:
+            d = spline_filter1d_bc_transpose(g, ctx.order, ctx.axis, ctx.bc)
+        return d, None, None, None
+
+
+def _map_output(y: torch.Tensor, ispec: InputSpec, spatial):
+    """``(B, *spatial, C)`` to the caller's layout: the channel axes put
+    back where the input had them, or, with none, ``(B, *spatial)`` of any
+    rank."""
+    if len(ispec.shape) > len(ispec.axis):
+        return _from_spatial_channels(y, ispec, spatial)
+    return y.reshape(y.shape[0], *spatial)
+
+
+def map_coordinates_apply_batched(x: torch.Tensor, coords: torch.Tensor,
+                                  spec: DeformSpec) -> torch.Tensor:
+    """Resample ``x`` ``(B, *shape)`` at per-sample coordinates ``(B,
+    naxis, *out_spatial)``: the mirror prefilter in the compute dtype with
+    no integer writeback, K1c, the cast (the JAX package's
+    ``map_coordinates_apply_batched``). Differentiable with respect to
+    ``x`` and ``coords``."""
+    cdt = getattr(torch, spec.compute_dtype)
+    ispec = spec.inputs[0]
+    xt = _to_spatial_channels(x, ispec).to(cdt).contiguous()
+    if spec.prefilter and ispec.order > 1:
+        for d in range(len(ispec.axis)):
+            xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror")
+    y = ResampleAt.apply(xt, coords.to(cdt).contiguous(), ispec.order,
+                         ispec.mode, ispec.cval)
+    return _map_output(cast_output(y, ispec.dtype), ispec, spec.out_spatial)
+
+
+def map_coordinates_gradient_apply_batched(dy: torch.Tensor,
+                                           coords: torch.Tensor,
+                                           spec: DeformSpec) -> torch.Tensor:
+    """Exact adjoint of :func:`map_coordinates_apply_batched` with respect
+    to ``x``, with no forward pass: K3c, then K4 along each axis in reverse
+    order, then the cast to ``spec.inputs[0].dtype`` (the JAX package's
+    ``map_coordinates_gradient_apply``)."""
+    cdt = getattr(torch, spec.compute_dtype)
+    ispec = spec.inputs[0]
+    spatial = tuple(ispec.shape[d] for d in ispec.axis)
+    if len(ispec.shape) > len(ispec.axis):
+        g = _to_spatial_channels(dy, ispec, ispec.out_shape)
+    else:
+        g = dy.reshape(dy.shape[0], *spec.out_spatial, 1)
+    dxt = resample_coords_transpose(g.to(cdt).contiguous(),
+                                    coords.to(cdt).contiguous(), ispec.order,
+                                    ispec.mode, spatial)
+    if spec.prefilter and ispec.order > 1:
+        for d in range(len(spatial) - 1, -1, -1):
+            dxt = spline_filter1d_transpose(dxt, ispec.order, d + 1)
+    return _map_output(cast_output(dxt, ispec.dtype), ispec, spatial)

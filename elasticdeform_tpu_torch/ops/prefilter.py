@@ -13,8 +13,16 @@ in reverse, on the card. Its plain version,
 :func:`spline_filter1d_transpose_plain`, is a ``tensordot`` with the
 transposed filter matrix (``ops/prefilter.py:376`` there).
 
+:func:`spline_filter1d_bc` and :func:`spline_filter1d_bc_transpose` are
+the wrappers of kernels K6 and K7 (the third entry point of
+``csrc/prefilter.cu``): the same recursion and its transpose under the
+``reflect`` (half-sample symmetric) and ``wrap`` (periodic) boundary
+conditions of SciPy >= 1.6, for the general resampler's modern modes and
+``spline_filter``. Their plain versions are ``tensordot`` with
+:func:`filter_matrix_bc` and its transpose (``ops/prefilter.py:150`` there).
+
 The float64 numpy helpers (poles, the reference recursion, the filter
-matrix) are this package's own copies of the JAX package's.
+matrices) are this package's own copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -117,6 +125,54 @@ def filter_matrix(n: int, order: int) -> np.ndarray:
                                               order))
 
 
+# B-spline kernel values at integer offsets, per order (the row of the
+# sampling matrix around its diagonal)
+_BSPLINE_INT_KERNEL = {
+    2: (6 / 8, 1 / 8),
+    3: (4 / 6, 1 / 6),
+    4: (230 / 384, 76 / 384, 1 / 384),
+    5: (66 / 120, 26 / 120, 1 / 120),
+}
+
+# kernel codes of the boundary conditions K6 and K7 take
+_BC_CODES = {"reflect": 1, "wrap": 2}
+
+
+def _fold_index_bc(q: int, n: int, bc: str) -> int:
+    """Fold integer index ``q`` into ``[0, n)`` under a boundary condition:
+    'mirror' (period ``2n-2``), 'reflect' (half-sample, period ``2n``) or
+    'wrap' (period ``n``)."""
+    if n == 1:
+        return 0
+    if bc == "mirror":
+        m = q % (2 * n - 2)
+        return 2 * n - 2 - m if m >= n else m
+    if bc == "reflect":
+        m = q % (2 * n)
+        return 2 * n - 1 - m if m >= n else m
+    if bc == "wrap":
+        return q % n
+    raise ValueError(f"unknown boundary condition {bc!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def filter_matrix_bc(n: int, order: int, bc: str = "mirror") -> np.ndarray:
+    """Exact ``n x n`` float64 prefilter matrix for a boundary condition:
+    the inverse of the B-spline sampling matrix ``S[i, fold(i+k)] +=
+    B(k)``; ``'mirror'`` is :func:`filter_matrix`."""
+    if order <= 1 or n <= 1:
+        return np.eye(n, dtype=np.float64)
+    if bc == "mirror":
+        return filter_matrix(n, order)
+    ks = _BSPLINE_INT_KERNEL[order]
+    r = len(ks) - 1
+    S = np.zeros((n, n), dtype=np.float64)
+    for i in range(n):
+        for k in range(-r, r + 1):
+            S[i, _fold_index_bc(i + k, n, bc)] += ks[abs(k)]
+    return np.ascontiguousarray(np.linalg.inv(S))
+
+
 def _apply_matrix(x: torch.Tensor, mat: np.ndarray, axis: int):
     m = torch.as_tensor(mat, dtype=x.dtype, device=x.device)
     return torch.movedim(torch.tensordot(m, x, dims=([1], [axis])), 0, axis)
@@ -140,6 +196,24 @@ def spline_filter1d_transpose_plain(x: torch.Tensor, order: int,
     if order <= 1:
         return x
     mat = np.ascontiguousarray(filter_matrix(x.shape[axis], order).T)
+    return _apply_matrix(x, mat, axis)
+
+
+def spline_filter1d_bc_plain(x: torch.Tensor, order: int, axis: int,
+                            bc: str) -> torch.Tensor:
+    """Plain version of K6: ``filter_matrix_bc(n, order, bc)`` applied in
+    the tensor's dtype."""
+    if order <= 1:
+        return x
+    return _apply_matrix(x, filter_matrix_bc(x.shape[axis], order, bc), axis)
+
+
+def spline_filter1d_bc_transpose_plain(x: torch.Tensor, order: int,
+                                       axis: int, bc: str) -> torch.Tensor:
+    """Plain version of K7: the transposed ``filter_matrix_bc``."""
+    if order <= 1:
+        return x
+    mat = np.ascontiguousarray(filter_matrix_bc(x.shape[axis], order, bc).T)
     return _apply_matrix(x, mat, axis)
 
 
@@ -175,6 +249,13 @@ def _lib():
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_double), ctypes.c_double,
             ctypes.c_void_p]
+        fn = lib.ed_spline_prefilter_bc
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+            ctypes.c_double, ctypes.c_void_p]
     return lib
 
 
@@ -252,3 +333,62 @@ def spline_filter1d_transpose(x: torch.Tensor, order: int,
 
 
 spline_filter1d_transpose.launches = 0
+
+
+def _launch_bc(x: torch.Tensor, order: int, axis: int, bc: str,
+               transpose: bool, what: str) -> torch.Tensor:
+    check_kernel_tensor(x, what)
+    if bc not in _BC_CODES:
+        raise ValueError(f"{what}: bc must be 'reflect' or 'wrap', got {bc!r}")
+    outer, n, inner = _lines(x, axis)
+    poles = spline_poles(order)
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.ed_spline_prefilter_bc(
+        0 if x.dtype == torch.float32 else 1, _BC_CODES[bc], int(transpose),
+        x.data_ptr(), out.data_ptr(), outer, n, inner, len(poles),
+        (ctypes.c_double * len(poles))(*poles), _gain(poles),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, lib, "ed_prefilter_error_string", what)
+    return out
+
+
+def spline_filter1d_bc(x: torch.Tensor, order: int, axis: int,
+                       bc: str) -> torch.Tensor:
+    """Spline prefilter of ``x`` along ``axis`` under the boundary condition
+    ``bc``, ``'reflect'`` or ``'wrap'`` (the mirror one is
+    :func:`spline_filter1d`). Orders 0 and 1 return ``x`` as it is. A CPU
+    tensor takes :func:`spline_filter1d_bc_plain`; a CUDA tensor launches K6
+    (contiguous float32 or float64 only) and adds one to
+    ``spline_filter1d_bc.launches``.
+    """
+    if order <= 1:
+        return x
+    if x.device.type == "cpu":
+        return spline_filter1d_bc_plain(x, order, axis, bc)
+    out = _launch_bc(x, order, axis, bc, False, "spline_prefilter_bc")
+    spline_filter1d_bc.launches += 1
+    return out
+
+
+spline_filter1d_bc.launches = 0
+
+
+def spline_filter1d_bc_transpose(x: torch.Tensor, order: int, axis: int,
+                                 bc: str) -> torch.Tensor:
+    """The exact transpose of :func:`spline_filter1d_bc` along ``axis``.
+    Orders 0 and 1 return ``x`` as it is. A CPU tensor takes
+    :func:`spline_filter1d_bc_transpose_plain`; a CUDA tensor launches K7
+    and adds one to ``spline_filter1d_bc_transpose.launches``.
+    """
+    if order <= 1:
+        return x
+    if x.device.type == "cpu":
+        return spline_filter1d_bc_transpose_plain(x, order, axis, bc)
+    out = _launch_bc(x, order, axis, bc, True,
+                     "spline_prefilter_bc_transpose")
+    spline_filter1d_bc_transpose.launches += 1
+    return out
+
+
+spline_filter1d_bc_transpose.launches = 0

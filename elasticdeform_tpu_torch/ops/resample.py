@@ -1,4 +1,5 @@
-"""B-spline resampling at displaced coordinates, and the output casts.
+"""B-spline resampling at displaced or given coordinates, and the output
+casts.
 
 :func:`resample` is the wrapper of kernel K1 (``csrc/resample.cu``): from
 the spline coefficients and the dense displacement it forms the sample
@@ -8,9 +9,16 @@ tensor it takes the plain version, :func:`resample_plain`: the JAX
 package's formulation (``ops/resample.py:66`` there), a static mirror pad
 and one gather per tap.
 
+:func:`resample_coords` is the wrapper of kernel K1c (the second entry
+point of ``csrc/resample.cu``), the same resampling at coordinates the
+caller gives (the general resampler, ``map_coordinates``); its plain
+version is :func:`resample_coords_plain`.
+
 Layout: coefficients ``(B, *spatial, C)`` with the channels last, the dense
-displacement ``(B, naxis, *out_spatial)``, the result ``(B, *out_spatial,
-C)``.
+displacement or the coordinates ``(B, naxis, *out_spatial)`` (for K1c of
+any output rank), the result ``(B, *out_spatial, C)``. The kernels take
+float32 and float64; complex, float16 and bfloat16 inputs raise TypeError
+at the entry points (:func:`numpy_dtype`).
 """
 
 from __future__ import annotations
@@ -49,8 +57,10 @@ def numpy_dtype(dtype) -> np.dtype:
         name = name if name in _TORCH_DTYPES else None
     if name is None:
         raise TypeError(
-            f"dtype {dtype} is not supported by elasticdeform_tpu_torch yet "
-            "(complex, float16 and bfloat16 inputs are not ported)")
+            f"dtype {dtype} is not supported by elasticdeform_tpu_torch yet: "
+            "complex, float16 and bfloat16 inputs are not ported, on the "
+            "deform path nor on the general resampler (map_coordinates and "
+            "its family)")
     return np.dtype(name)
 
 
@@ -155,7 +165,7 @@ def tap_geometry(spatial, mapped, order: int):
     per_sample = math.prod(padded)
     strides = [math.prod(padded[h + 1:]) for h in range(naxis)]
     base = (torch.arange(B, device=mapped[0].device) * per_sample).view(
-        (B,) + (1,) * naxis)
+        (B,) + (1,) * (mapped[0].dim() - 1))
     weights = []
     for h in range(naxis):
         cc = mapped[h]
@@ -230,8 +240,21 @@ def resample_plain(coeffs: torch.Tensor, displ: torch.Tensor, affine,
                    offsets, order: int, mode: int, cval: float):
     """Plain version of K1: coordinates, mode fold, per-tap gathers, and
     ``cval`` where constant mode falls outside."""
-    naxis = displ.shape[1]
-    cc = sample_coordinates(displ, affine, offsets)
+    return _resample_at(coeffs, sample_coordinates(displ, affine, offsets),
+                        order, mode, cval)
+
+
+def resample_coords_plain(coeffs: torch.Tensor, coords: torch.Tensor,
+                          order: int, mode: int, cval: float):
+    """Plain version of K1c: :func:`resample_plain` at the given
+    coordinates ``(B, naxis, *out_spatial)``."""
+    return _resample_at(coeffs, [coords[:, h] for h in range(coords.shape[1])],
+                        order, mode, cval)
+
+
+def _resample_at(coeffs: torch.Tensor, cc, order: int, mode: int,
+                 cval: float):
+    naxis = len(cc)
     mapped, inside = map_all(cc, coeffs.shape[1:naxis + 1], mode)
     y = resample_linear(coeffs, mapped, inside, order)
     if inside is not None:
@@ -253,6 +276,13 @@ def _lib():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_longlong, ll_p, ll_p, ll_p,
             ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p]
+        fn = lib.ed_resample_coords_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ll_p, ctypes.c_longlong, ctypes.c_double,
+            ctypes.c_void_p]
     return lib
 
 
@@ -330,6 +360,61 @@ def resample(coeffs: torch.Tensor, displ: torch.Tensor, affine, offsets,
 
 
 resample.launches = 0
+
+
+def check_coords_args(what: str, x: torch.Tensor, coords: torch.Tensor):
+    """Validate the tensors of a coordinate-input kernel (K1c, K3c, K5c):
+    ``x`` ``(B, *spatial, C)`` and ``coords`` ``(B, naxis, *out)``,
+    contiguous float32/float64 on one CUDA device in one dtype, ``naxis <=
+    4``. Returns ``(naxis, B, in_shape, n_out)``, ``in_shape`` a ctypes
+    int64 array of ``x``'s spatial shape."""
+    check_kernel_tensor(x, what)
+    check_kernel_tensor(coords, what)
+    if coords.dim() < 2:
+        raise ValueError(f"{what}: coords must be (B, naxis, *out_spatial)")
+    B, naxis = coords.shape[:2]
+    if naxis > MAX_KERNEL_AXES:
+        raise ValueError(f"{what}: the CUDA kernel resamples at most "
+                         f"{MAX_KERNEL_AXES} axes, got {naxis}")
+    if coords.dtype != x.dtype or coords.device != x.device:
+        raise ValueError(f"{what}: coords must match the other tensors in "
+                         "dtype and device")
+    if x.dim() != naxis + 2 or x.shape[0] != B:
+        raise ValueError(f"{what}: tensors must be (B, *spatial, C) with the "
+                         "batch of coords and naxis spatial axes")
+    return (naxis, B, (ctypes.c_longlong * naxis)(*x.shape[1:-1]),
+            math.prod(coords.shape[2:]))
+
+
+def resample_coords(coeffs: torch.Tensor, coords: torch.Tensor, order: int,
+                    mode: int, cval: float) -> torch.Tensor:
+    """Resample ``coeffs`` ``(B, *spatial, C)`` at the coordinates
+    ``coords`` ``(B, naxis, *out_spatial)`` (any output rank, in the
+    coefficients' dtype) with the boundary ``mode`` (code) and spline
+    ``order``; returns ``(B, *out_spatial, C)``. A CPU tensor takes
+    :func:`resample_coords_plain`; a CUDA tensor launches K1c (contiguous
+    float32 or float64, ``naxis <= 4``) and adds one to
+    ``resample_coords.launches``.
+    """
+    if coeffs.device.type == "cpu":
+        return resample_coords_plain(coeffs, coords, order, mode, cval)
+    naxis, B, in_shape, n_out = check_coords_args("resample_coords", coeffs,
+                                                  coords)
+    C = coeffs.shape[-1]
+    out = torch.empty((B, *coords.shape[2:], C), dtype=coeffs.dtype,
+                      device=coeffs.device)
+    lib = _lib()
+    err = lib.ed_resample_coords_fwd(
+        0 if coeffs.dtype == torch.float32 else 1, coeffs.data_ptr(),
+        coords.data_ptr(), out.data_ptr(), naxis, order, mode, B, C,
+        in_shape, n_out, float(cval),
+        torch.cuda.current_stream(coeffs.device).cuda_stream)
+    _build.check(err, lib, "ed_resample_error_string", "resample_coords_fwd")
+    resample_coords.launches += 1
+    return out
+
+
+resample_coords.launches = 0
 
 
 def cast_int_c(t: torch.Tensor, dtype) -> torch.Tensor:

@@ -19,9 +19,19 @@ w_l``, and 0 where constant mode falls outside (the d_cc branch of
 ``ops/windows.py:1247``, ``:1277-1308`` there). Its plain version is
 :func:`resample_coord_grad_plain`.
 
+The coordinate-input wrappers serve the general resampler
+(``map_coordinates``): :func:`resample_coords_transpose` (kernel K3c,
+``ed_resample_coords_bwd``) is K3 at caller-given coordinates, and
+:func:`resample_coords_grad` (kernel K5c, ``ed_resample_coords_grad``) is K5
+with respect to those coordinates; their plain versions are
+:func:`resample_coords_transpose_plain` and
+:func:`resample_coords_grad_plain`.
+
 Layouts are those of :mod:`~elasticdeform_tpu_torch.ops.resample`. On a CPU
 tensor each wrapper takes its plain version; on a CUDA tensor it launches
-its kernel or raises, and adds one to its ``.launches`` counter.
+its kernel or raises, and adds one to its ``.launches`` counter. The
+kernels take float32 and float64; complex, float16 and bfloat16 raise
+TypeError at the entry points.
 """
 
 from __future__ import annotations
@@ -35,8 +45,9 @@ from elasticdeform_tpu_torch.ops import _build
 from elasticdeform_tpu_torch.ops import modes as _modes
 from elasticdeform_tpu_torch.ops.bspline import spline_weights_grad
 from elasticdeform_tpu_torch.ops.resample import (
-    check_resample_args, kernel_geometry, map_all, mirror_pad, mirror_unpad,
-    sample_coordinates, tap_geometry, tap_products,
+    check_coords_args, check_kernel_tensor, check_resample_args,
+    kernel_geometry, map_all,
+    mirror_pad, mirror_unpad, sample_coordinates, tap_geometry, tap_products,
 )
 
 
@@ -78,18 +89,42 @@ def resample_transpose_plain(g: torch.Tensor, displ: torch.Tensor, affine,
     return resample_linear_transpose(g, mapped, inside, order, in_spatial)
 
 
+def resample_coords_transpose_plain(g: torch.Tensor, coords: torch.Tensor,
+                                    order: int, mode: int, in_spatial):
+    """Plain version of K3c: :func:`resample_transpose_plain` at the given
+    coordinates ``(B, naxis, *out_spatial)``."""
+    cc = [coords[:, h] for h in range(coords.shape[1])]
+    mapped, inside = map_all(cc, in_spatial, mode)
+    return resample_linear_transpose(g, mapped, inside, order, in_spatial)
+
+
 def resample_coord_grad_plain(coeffs: torch.Tensor, g: torch.Tensor,
                               displ: torch.Tensor, affine, offsets,
                               order: int, mode: int) -> torch.Tensor:
     """Plain version of K5: ``d <resample(coeffs), g> / d displ``, shaped
     like ``displ``. The channels are summed in order and the taps axis 0
     slowest, as the kernel does."""
-    B, naxis = displ.shape[:2]
+    return _coord_grad_at(coeffs, g, sample_coordinates(displ, affine,
+                                                        offsets),
+                          order, mode, displ)
+
+
+def resample_coords_grad_plain(coeffs: torch.Tensor, g: torch.Tensor,
+                               coords: torch.Tensor, order: int,
+                               mode: int) -> torch.Tensor:
+    """Plain version of K5c: :func:`resample_coord_grad_plain` with respect
+    to the given coordinates ``(B, naxis, *out_spatial)``."""
+    return _coord_grad_at(coeffs, g,
+                          [coords[:, h] for h in range(coords.shape[1])],
+                          order, mode, coords)
+
+
+def _coord_grad_at(coeffs, g, cc, order, mode, like):
+    B, naxis = like.shape[:2]
     if order == 0:
-        return torch.zeros_like(displ)
+        return torch.zeros_like(like)
     in_spatial = tuple(coeffs.shape[1:naxis + 1])
     C = coeffs.shape[-1]
-    cc = sample_coordinates(displ, affine, offsets)
     mapped, inside = map_all(cc, in_spatial, mode)
     pad, padded, base, strides, weights = tap_geometry(in_spatial, mapped,
                                                        order)
@@ -115,7 +150,7 @@ def resample_coord_grad_plain(coeffs: torch.Tensor, g: torch.Tensor,
     out = torch.stack([
         _modes.map_coordinate_grad(cc[h], in_spatial[h], mode).reshape(n_out)
         * acc[h] for h in range(naxis)])
-    out = out.reshape(naxis, B, *displ.shape[2:]).transpose(0, 1)
+    out = out.reshape(naxis, B, *like.shape[2:]).transpose(0, 1)
     return _zero_outside(out, None if inside is None else inside[:, None])
 
 
@@ -132,6 +167,15 @@ def _lib():
         fn = lib.ed_resample_coord_grad
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + shape_args
+        coords_args = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong, ll_p,
+                       ctypes.c_longlong, ctypes.c_void_p]
+        fn = lib.ed_resample_coords_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + coords_args
+        fn = lib.ed_resample_coords_grad
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + coords_args
     return lib
 
 
@@ -206,3 +250,78 @@ def resample_coord_grad(coeffs: torch.Tensor, g: torch.Tensor,
 
 
 resample_coord_grad.launches = 0
+
+
+def resample_coords_transpose(g: torch.Tensor, coords: torch.Tensor,
+                              order: int, mode: int,
+                              in_spatial) -> torch.Tensor:
+    """The transpose of
+    :func:`~elasticdeform_tpu_torch.ops.resample.resample_coords` with
+    respect to the coefficients: ``g`` ``(B, *out_spatial, C)`` to ``(B,
+    *in_spatial, C)``. A CPU tensor takes
+    :func:`resample_coords_transpose_plain`; a CUDA tensor launches K3c and
+    adds one to ``resample_coords_transpose.launches``.
+    """
+    if g.device.type == "cpu":
+        return resample_coords_transpose_plain(g, coords, order, mode,
+                                               in_spatial)
+    C = g.shape[-1]
+    # the kernel adds into this zero fill
+    out = torch.zeros((g.shape[0], *in_spatial, C), dtype=g.dtype,
+                      device=g.device)
+    naxis, B, in_shape, n_out = check_coords_args(
+        "resample_coords_transpose", out, coords)
+    check_kernel_tensor(g, "resample_coords_transpose")
+    if tuple(g.shape[:-1]) != (B, *coords.shape[2:]) or \
+            g.dtype != coords.dtype:
+        raise ValueError("resample_coords_transpose: g must be (B, "
+                         "*out_spatial, C) with the shape and dtype of "
+                         "coords")
+    lib = _lib()
+    err = lib.ed_resample_coords_bwd(
+        0 if g.dtype == torch.float32 else 1, g.data_ptr(),
+        coords.data_ptr(), out.data_ptr(), naxis, order, mode, B, C,
+        in_shape, n_out, torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, lib, "ed_resample_bwd_error_string",
+                 "resample_coords_bwd")
+    resample_coords_transpose.launches += 1
+    return out
+
+
+resample_coords_transpose.launches = 0
+
+
+def resample_coords_grad(coeffs: torch.Tensor, g: torch.Tensor,
+                         coords: torch.Tensor, order: int,
+                         mode: int) -> torch.Tensor:
+    """Gradient of ``<resample_coords(coeffs, coords, ...), g>`` with
+    respect to ``coords``, shaped like ``coords`` ``(B, naxis,
+    *out_spatial)``. A CPU tensor takes :func:`resample_coords_grad_plain`;
+    a CUDA tensor launches K5c and adds one to
+    ``resample_coords_grad.launches``.
+    """
+    if coeffs.device.type == "cpu":
+        return resample_coords_grad_plain(coeffs, g, coords, order, mode)
+    naxis, B, in_shape, n_out = check_coords_args("resample_coords_grad",
+                                                  coeffs, coords)
+    C = coeffs.shape[-1]
+    check_kernel_tensor(g, "resample_coords_grad")
+    if tuple(g.shape) != (B, *coords.shape[2:], C) or \
+            g.dtype != coords.dtype:
+        raise ValueError("resample_coords_grad: g must be (B, *out_spatial, "
+                         "C) with the shape and dtype of coords and the "
+                         "channels of coeffs")
+    out = torch.empty_like(coords)
+    lib = _lib()
+    err = lib.ed_resample_coords_grad(
+        0 if g.dtype == torch.float32 else 1, coeffs.data_ptr(),
+        g.data_ptr(), coords.data_ptr(), out.data_ptr(), naxis, order, mode,
+        B, C, in_shape, n_out,
+        torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, lib, "ed_resample_bwd_error_string",
+                 "resample_coords_grad")
+    resample_coords_grad.launches += 1
+    return out
+
+
+resample_coords_grad.launches = 0

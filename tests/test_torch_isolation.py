@@ -56,6 +56,11 @@ Y = et.deform_grid([X, (X * 100).astype(np.uint8)], d, order=[3, 0],
                    device='cpu')
 assert Y[0].shape == X.shape and Y[1].dtype == np.uint8
 assert np.isfinite(Y[0]).all()
+c = np.random.RandomState(2).uniform(-3, 15, (2, 5, 6))
+assert et.map_coordinates(X, c, mode='grid-wrap', device='cpu').shape == (5, 6)
+assert et.affine_transform(X, np.eye(2) * 1.1, mode='reflect',
+                           device='cpu').shape == X.shape
+assert et.spline_filter(X, mode='nearest', device='cpu').shape == X.shape
 assert not any(m.split('.')[0] in ('jax', 'elasticdeform_tpu')
                for m in sys.modules)
 print('ok')
@@ -86,11 +91,29 @@ import elasticdeform_tpu_torch as et
 assert not torch.cuda.is_available()
 X = np.random.RandomState(0).rand(10, 11)
 d = np.zeros((2, 3, 3))
+c = np.zeros((2, 4, 5))
 for call in (lambda: et.deform_grid(X, d),
              lambda: et.deform_random_grid(X),
              lambda: et.deform(torch.as_tensor(X), torch.as_tensor(d)),
              lambda: et.deform_batch(torch.as_tensor(X[None]),
-                                     torch.as_tensor(d[None]))):
+                                     torch.as_tensor(d[None])),
+             lambda: et.map_coordinates(X, c),
+             lambda: et.map_coordinates(X, c, mode='grid-wrap'),
+             lambda: et.map_coordinates_batch(X[None], c[None]),
+             lambda: et.map_coordinates_gradient(c[0], c, X_shape=X.shape),
+             lambda: et.deform_field(X, np.zeros((2, 10, 11))),
+             lambda: et.deform_field_batch(X[None], np.zeros((1, 2, 10, 11))),
+             lambda: et.affine_transform(X, np.eye(2)),
+             lambda: et.shift(X, 1.5),
+             lambda: et.zoom(X, 1.5),
+             lambda: et.rotate(X, 30.0),
+             lambda: et.geometric_transform(X, lambda o: o),
+             lambda: et.spline_filter(X),
+             lambda: et.spline_filter1d(X),
+             lambda: et.api.map_coordinates(X, c),
+             lambda: et.api.geometric_transform(X, lambda o: o),
+             lambda: et.api.map_coordinates_gradient(c[0], c,
+                                                     X_shape=X.shape)):
     try:
         call()
     except (RuntimeError, AssertionError):
