@@ -20,8 +20,14 @@ Phases (any failure raises, and the exit code is not 0):
    transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at every
    axis position; K6 and K7 (the reflect/wrap prefilter and its transpose)
    against ``filter_matrix_bc`` and its transpose over orders 2-5 x
-   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; and the
-   K1/K3, K1c/K3c, K2/K4 and K6/K7 adjoint identities in float64;
+   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; K8 and
+   K8T (the 1-D correlation and its transpose) over the five filter modes,
+   1-41 taps (longer than some axes) at every centre, every axis of 2-D and
+   3-D shapes with odd sizes, and the paired integer route bit for bit; K9
+   and K9T (the N-D correlation and its transpose) over the five modes and
+   the grid aliases, 2-D to 4-D kernels with batch axes and origins; and the
+   K1/K3, K1c/K3c, K2/K4, K6/K7, K8/K8T and K9/K9T adjoint identities in
+   float64;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
@@ -29,7 +35,12 @@ Phases (any failure raises, and the exit code is not 0):
    and the general resampler's c7 (``deform_field_batch``, autograd to X
    and the field), c8 (``affine_transform``, modern reflect, autograd to
    X), c9 (``zoom`` with ``grid-wrap``) and c10 (``map_coordinates`` with
-   ``grid-constant``, then ``map_coordinates_gradient``), each compared
+   ``grid-constant``, then ``map_coordinates_gradient``), the filter tier's
+   c11 (``gaussian_filter`` of a displacement field, autograd to it), c12
+   (``gaussian_laplace`` and ``gaussian_gradient_magnitude``), c13 (an int16
+   CT volume of 512x512x300: ``gaussian_filter`` and ``sobel`` with int16
+   output, bit for bit) and c14 (N-D
+   ``correlate`` with autograd, ``convolve`` on a batch), each compared
    with the port's own ``device="cpu"`` run; the launch counters, set to 0
    before each config and read after it, must show each kernel on the
    configs that run it and none on the configs that do not need it;
@@ -57,6 +68,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+FP64_FLOPS = 34e12            # H100 SXM float64 outside the tensor cores
 REPS = 10
 
 MODES = ("nearest", "wrap", "reflect", "mirror", "constant")
@@ -65,7 +77,9 @@ KERNELS = ("resample_fwd", "spline_prefilter", "resample_bwd",
            "spline_prefilter_transpose", "resample_coord_grad",
            "spline_prefilter_bc", "spline_prefilter_bc_transpose",
            "resample_coords_fwd", "resample_coords_bwd",
-           "resample_coords_grad")
+           "resample_coords_grad", "correlate1d", "correlate1d_transpose",
+           "correlate_nd", "correlate_nd_transpose")
+FILTER_KERNELS = KERNELS[-4:]
 
 
 def _tol(dtype, scale):
@@ -289,6 +303,7 @@ def phase_kernels():
           f"identity holds in float64 ({n // 2} cases)")
     _check_coords_kernels(rs, worst)
     _check_bc_prefilter(rs, worst)
+    _check_filter_kernels(rs, worst)
     return worst
 
 
@@ -410,6 +425,137 @@ def _check_bc_prefilter(rs, worst):
           f"filter_matrix_bc and its transpose: {n} cases each pass, max abs "
           f"err {worst['spline_prefilter_bc']:.3e} / "
           f"{worst['spline_prefilter_bc_transpose']:.3e}; the K6/K7 adjoint "
+          f"identity holds in float64 ({n // 2} cases)")
+
+
+def _terms_tol(dtype, terms):
+    """Per-element bound of a transpose against its twin, which sums the
+    same terms in another order: rtol times the sum of the absolute terms
+    landing on the element."""
+    rtol, _ = _tol(dtype, 1.0)
+    return rtol, rtol * terms.double().abs()
+
+
+def _check_filter_kernels(rs, worst):
+    """K8 and K9 against their twins (float32 rtol=1e-5, atol=1e-5*S,
+    float64 1e-10, S = max|x| * sum|w|; the twins add in the kernels' order,
+    so most cases agree bit for bit, which is counted), the paired route bit
+    for bit on integer data in float64, K8T and K9T per element against the
+    sum of their absolute terms, and the K8/K8T and K9/K9T adjoint
+    identities in float64."""
+    import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
+    dev = torch.device("cuda")
+    modes = ("reflect", "constant", "nearest", "mirror", "wrap")
+    n = exact = 0
+    for dtype in (torch.float32, torch.float64):
+        for mode in modes:
+            for shape in ((37, 300), (7, 33, 9)):
+                for axis in range(len(shape)):
+                    for L in (1, 2, 4, 17, 41):
+                        x = torch.as_tensor(rs.rand(*shape) * 200 - 50,
+                                            dtype=dtype, device=dev)
+                        g = torch.as_tensor(rs.randn(*shape), dtype=dtype,
+                                            device=dev)
+                        w = rs.randn(L)
+                        scale = float(x.abs().max()) * float(np.abs(w).sum())
+                        for c in sorted({0, L // 2, L - 1}):
+                            what = (f"{dtype} {mode} shape={shape} "
+                                    f"axis={axis} taps={L} centre={c}")
+                            got = ft.correlate1d(x, w, axis, mode, 1.5, c)
+                            want = ft.correlate1d_plain(x, w, axis, mode,
+                                                        1.5, c)
+                            torch.cuda.synchronize()
+                            exact += int(torch.equal(got, want))
+                            worst["correlate1d"] = max(
+                                worst["correlate1d"], _assert_close(
+                                    got, want, *_tol(dtype, scale),
+                                    f"K8 {what}"))
+                            got = ft.correlate1d_transpose(g, w, axis, mode,
+                                                           c)
+                            want = ft.correlate1d_transpose_plain(
+                                g, w, axis, mode, c)
+                            terms = ft.correlate1d_transpose_plain(
+                                g.abs(), np.abs(w), axis, mode, c)
+                            torch.cuda.synchronize()
+                            worst["correlate1d_transpose"] = max(
+                                worst["correlate1d_transpose"],
+                                _assert_close(got, want,
+                                              *_terms_tol(dtype, terms),
+                                              f"K8T {what}"))
+                            if dtype == torch.float64:
+                                _check_adjoint(
+                                    ft.correlate1d(x, w, axis, mode, 0.0, c),
+                                    g, x, got, f"K8/K8T {what}")
+                            n += 1
+    # the paired route (integer outputs): symmetric and antisymmetric
+    # Gaussian taps on integer data in float64, bit for bit
+    paired = 0
+    for mode in modes:
+        for order, pair in ((0, 1), (1, -1), (2, 1)):
+            w = ft.gaussian_weights(1.0, order, 4.0, None)
+            assert ft._scipy_pair_class(w) == pair
+            x = torch.as_tensor(rs.randint(-3000, 3000, (33, 40, 31)),
+                                dtype=torch.float64, device=dev)
+            for axis in range(3):
+                got = ft.correlate1d(x, w, axis, mode, 7.0, len(w) // 2,
+                                     pair)
+                want = ft.correlate1d_plain(x, w, axis, mode, 7.0,
+                                            len(w) // 2, pair)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K8 paired order={order} {mode} axis={axis}: "
+                        f"{int((got != want).sum())} values differ")
+                paired += 1
+    print(f"K8 correlate1d vs plain: {n} cases pass ({exact} bit for bit), "
+          f"max abs err {worst['correlate1d']:.3e}; the paired route bit "
+          f"for bit in {paired} cases; K8T correlate1d_transpose within "
+          f"{worst['correlate1d_transpose']:.3e}; the K8/K8T adjoint "
+          f"identity holds in float64 ({n // 2} cases)")
+
+    n = exact = 0
+    for dtype in (torch.float32, torch.float64):
+        for mode in modes + ("grid-mirror", "grid-wrap", "grid-constant"):
+            for shape, kshape in (((13, 17), (3, 4)), ((5, 6), (7, 3)),
+                                  ((9, 10, 11), (3, 2, 5)),
+                                  ((2, 9, 10, 11), (1, 3, 3, 3)),
+                                  ((6, 3, 7, 5), (4, 1, 1, 3)),
+                                  ((3, 4, 5, 6), (2, 3, 2, 3))):
+                x = torch.as_tensor(rs.rand(*shape) * 200 - 50, dtype=dtype,
+                                    device=dev)
+                g = torch.as_tensor(rs.randn(*shape), dtype=dtype, device=dev)
+                w = rs.randn(*kshape) * (rs.rand(*kshape) > 0.3)
+                w.reshape(-1)[0] = 1.0
+                centers = tuple(int(rs.randint(0, k)) for k in kshape)
+                md = ft.check_mode(mode)
+                what = (f"{dtype} {mode} shape={shape} kernel={kshape} "
+                        f"centres={centers}")
+                got = ft.correlate_nd(x, w, centers, md, -2.5)
+                want = ft.correlate_nd_plain(x, w, centers, md, -2.5)
+                torch.cuda.synchronize()
+                exact += int(torch.equal(got, want))
+                scale = float(x.abs().max()) * float(np.abs(w).sum())
+                worst["correlate_nd"] = max(
+                    worst["correlate_nd"], _assert_close(
+                        got, want, *_tol(dtype, scale), f"K9 {what}"))
+                got = ft.correlate_nd_transpose(g, w, centers, md)
+                want = ft.correlate_nd_transpose_plain(g, w, centers, md)
+                terms = ft.correlate_nd_transpose_plain(g.abs(), np.abs(w),
+                                                        centers, md)
+                torch.cuda.synchronize()
+                worst["correlate_nd_transpose"] = max(
+                    worst["correlate_nd_transpose"],
+                    _assert_close(got, want, *_terms_tol(dtype, terms),
+                                  f"K9T {what}"))
+                if dtype == torch.float64:
+                    _check_adjoint(ft.correlate_nd(x, w, centers, md, 0.0),
+                                   g, x, got, f"K9/K9T {what}")
+                n += 1
+    print(f"K9 correlate_nd vs plain: {n} cases pass ({exact} bit for bit), "
+          f"max abs err {worst['correlate_nd']:.3e}; K9T "
+          f"correlate_nd_transpose within "
+          f"{worst['correlate_nd_transpose']:.3e}; the K9/K9T adjoint "
           f"identity holds in float64 ({n // 2} cases)")
 
 
@@ -609,6 +755,64 @@ def _configs(seed=0):
         return [et.map_coordinates(x, c, **kw),
                 et.map_coordinates_gradient(dy, c, X_shape=x.shape, **kw)]
 
+    # c11: regularising a displacement field, as registration loops do every
+    # iteration: gaussian_filter over the spatial axes of the VoxelMorph
+    # volume's field, sigma 2, reflect; autograd of a given gy to the field
+    F11 = _smooth_field(rs, 1, S7, 4.0)[0] + \
+        rs.randn(3, *S7).astype(np.float32) * 0.5
+    gy11 = rs.randn(3, *S7).astype(np.float32)
+    dev11 = {}
+
+    def c11(device, n=None):
+        f, gy = (a[:n] for a in _on(dev11, device, F11, gy11))
+        f = f.detach().requires_grad_()
+        y = et.gaussian_filter(f, 2.0, mode="reflect", axes=(1, 2, 3),
+                               device=device)
+        (gf,) = torch.autograd.grad(y, f, gy)
+        return [y.detach(), gf]
+
+    # c12: similarity-pyramid features, LoG and gradient magnitude, nearest
+    X12 = rs.rand(*S7).astype(np.float32)
+    dev12 = {}
+
+    def c12(device, n=None):
+        (x,) = _on(dev12, device, X12)
+        kw = dict(mode="nearest", device=device)
+        return [et.gaussian_laplace(x, 1.5, **kw),
+                et.gaussian_gradient_magnitude(x, 1.5, **kw)]
+
+    # c13: an int16 CT volume smoothed with int16 output (the paired route
+    # in float64, truncated per pass), then sobel along axis 0 (wraps); the
+    # CPU run of the whole volume takes 11 s on the card's host
+    X13 = rs.randint(-1024, 3072, (512, 512, 300)).astype(np.int16)
+    dev13 = {}
+
+    def c13(device, n=None):
+        (x,) = _on(dev13, device, X13)
+        kw = dict(output=np.int16, device=device)
+        return [et.gaussian_filter(x, 1.0, mode="mirror", **kw),
+                et.sobel(x, 0, **kw)]
+
+    # c14: N-D correlation with a seeded 5^3 kernel, constant cval 0.5,
+    # origin (1, 0, -1), autograd to X; convolve with a 3^3 kernel on the
+    # spatial axes of a batch of two
+    X14 = rs.rand(*S7).astype(np.float32)
+    gy14 = rs.randn(*S7).astype(np.float32)
+    W14 = rs.randn(5, 5, 5)
+    B14 = rs.rand(2, *S7).astype(np.float32)
+    K14 = rs.randn(3, 3, 3)
+    dev14 = {}
+
+    def c14(device, n=None):
+        x, gy, b = _on(dev14, device, X14, gy14, B14)
+        x = x.detach().requires_grad_()
+        y = et.correlate(x, W14, mode="constant", cval=0.5, origin=(1, 0, -1),
+                         device=device)
+        (gx,) = torch.autograd.grad(y, x, gy)
+        return [y.detach(), gx,
+                et.convolve(b, K14, mode="reflect", axes=(1, 2, 3),
+                            device=device)]
+
     return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
             _Config("c2", c2, 200 * 300, [F32, F32]),
             _Config("c3", c3, 96 ** 3, [F32]),
@@ -619,7 +823,11 @@ def _configs(seed=0):
             _Config("c7", c7, 4 * math.prod(S7), [F32, F32, F32], nsub=1),
             _Config("c8", c8, math.prod(S7), [F32, F32]),
             _Config("c9", c9, 192 ** 3, [F32]),
-            _Config("c10", c10, 128 ** 3, [F32, F32])]
+            _Config("c10", c10, 128 ** 3, [F32, F32]),
+            _Config("c11", c11, 3 * math.prod(S7), [F32, F32], nsub=1),
+            _Config("c12", c12, math.prod(S7), [F32, F32]),
+            _Config("c13", c13, 512 * 512 * 300, [None, None]),
+            _Config("c14", c14, 3 * math.prod(S7), [F32, F32, F32])]
 
 
 def _smooth_field(rs, B, shape, amplitude):
@@ -665,7 +873,24 @@ _MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
                        "spline_prefilter_bc_transpose"),
                 "c9": ("spline_prefilter_bc", "resample_coords_fwd"),
                 "c10": ("spline_prefilter", "resample_coords_fwd",
-                        "resample_coords_bwd", "spline_prefilter_transpose")}
+                        "resample_coords_bwd", "spline_prefilter_transpose"),
+                "c11": ("correlate1d", "correlate1d_transpose"),
+                "c12": ("correlate1d",),
+                "c13": ("correlate1d",),
+                "c14": ("correlate_nd", "correlate_nd_transpose")}
+# exact launch counts of the filter configs: c11 one K8 and one K8T per
+# spatial axis; c12 three passes for each of the three LoG and three
+# gradient terms; c13 three gaussian passes and sobel's three; c14 K9 for
+# correlate and convolve, K9T for the gradient
+_EXACT_LAUNCHES = {
+    "c11": {"correlate1d": 3, "correlate1d_transpose": 3, "correlate_nd": 0,
+            "correlate_nd_transpose": 0},
+    "c12": {"correlate1d": 18, "correlate1d_transpose": 0, "correlate_nd": 0,
+            "correlate_nd_transpose": 0},
+    "c13": {"correlate1d": 6, "correlate1d_transpose": 0, "correlate_nd": 0,
+            "correlate_nd_transpose": 0},
+    "c14": {"correlate1d": 0, "correlate1d_transpose": 0, "correlate_nd": 2,
+            "correlate_nd_transpose": 1}}
 _DEFORM_KERNELS = ("resample_fwd", "resample_bwd", "resample_coord_grad")
 _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c4": ("resample_coord_grad",),
@@ -681,10 +906,19 @@ _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c10": ("resample_coords_grad", "spline_prefilter_bc",
                             "spline_prefilter_bc_transpose")
                     + _DEFORM_KERNELS}
+# the resampler's configs run no filter kernel, the filter configs nothing
+# else
+for _name in ("c1", "c2", "c3", "c3_grad", "c4", "c5", "c6", "c7", "c8",
+              "c9", "c10"):
+    _MUST_NOT_LAUNCH[_name] = _MUST_NOT_LAUNCH.get(_name, ()) + FILTER_KERNELS
+for _name in _EXACT_LAUNCHES:
+    _MUST_NOT_LAUNCH[_name] = tuple(k for k in KERNELS
+                                    if k not in FILTER_KERNELS)
 
 
 def _wrappers():
     """Each kernel's wrapper, which holds its launch counter."""
+    from elasticdeform_tpu_torch.ops import filters as ft
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
@@ -697,7 +931,11 @@ def _wrappers():
             "spline_prefilter_bc_transpose": pf.spline_filter1d_bc_transpose,
             "resample_coords_fwd": rsm.resample_coords,
             "resample_coords_bwd": rb.resample_coords_transpose,
-            "resample_coords_grad": rb.resample_coords_grad}
+            "resample_coords_grad": rb.resample_coords_grad,
+            "correlate1d": ft.correlate1d,
+            "correlate1d_transpose": ft.correlate1d_transpose,
+            "correlate_nd": ft.correlate_nd,
+            "correlate_nd_transpose": ft.correlate_nd_transpose}
 
 
 def _counts():
@@ -731,12 +969,19 @@ def phase_main_path():
             if launches[name][k] != 0:
                 raise AssertionError(f"{name} launched {k}, which it does "
                                      "not need")
+    for name, counts in _EXACT_LAUNCHES.items():
+        for k, v in counts.items():
+            if launches[name][k] != v:
+                raise AssertionError(f"{name} launched {k} "
+                                     f"{launches[name][k]} times, not {v}")
 
     for cfg in configs:
+        t0 = time.perf_counter()
         ref = cfg.run("cpu", cfg.nsub)
+        print(f"{cfg.name}: CPU run {time.perf_counter() - t0:.1f} s")
         assert len(ref) == len(outs[cfg.name]) == len(cfg.tols)
-        for i, (got, want, (rtol, atol_scale)) in enumerate(
-                zip(outs[cfg.name], ref, cfg.tols)):
+        for i, (got, want, tol) in enumerate(zip(outs[cfg.name], ref,
+                                                 cfg.tols)):
             what = f"{cfg.name} output {i}"
             got = torch.as_tensor(got).cpu()
             want = torch.as_tensor(want)
@@ -752,7 +997,10 @@ def phase_main_path():
                     raise AssertionError(
                         f"{what}: {int((got != want).sum())} integer values "
                         "differ from the CPU run")
+                print(f"{what}: {tuple(got.shape)} {got.dtype} equals the "
+                      "CPU run")
                 continue
+            rtol, atol_scale = tol
             scale = float(want.abs().max())
             err = _assert_close(got, want, rtol, atol_scale * scale,
                                 f"{what} vs CPU")
@@ -787,9 +1035,10 @@ def _k5_ops(B, n_out, naxis, order, C):
     return B * n_out * (60 * naxis + fold + contract)
 
 
-def _bound(nbytes, ops):
-    """(bound ms, what bounds it) on the H100 SXM peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+def _bound(nbytes, ops, flops=FP32_FLOPS):
+    """(bound ms, what bounds it) on the H100 SXM peaks (``flops``: the
+    rate of the operations' type)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -945,6 +1194,142 @@ def _times_resampler(row, card):
           f"bound {b3[0]:.4f} ms by {b3[1]} [{card}]")
 
 
+def _times_filters(row, card):
+    """Phase 4 for the filter tier: K8 and K8T along the three spatial axes
+    of c11's field (sigma 2, 17 taps, reflect) beside the JAX package's
+    formulation (a banded-matrix ``tensordot`` per axis, the library time)
+    and ``conv3d`` with an (L,1,1), (1,L,1), (1,1,L) kernel under zero
+    padding; K8 in float64 on the paired route at c13's shapes; K9 and K9T
+    at c14's shapes (5^3 kernel, constant) beside ``conv3d`` and
+    ``conv_transpose3d`` (zero padding). cuDNN's TF32 is off for the
+    yardsticks."""
+    import torch
+    import torch.nn.functional as F
+    from elasticdeform_tpu_torch.ops import filters as ft
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(11)
+    S = (160, 192, 224)
+    f = torch.as_tensor(rs.rand(3, *S).astype(np.float32), device=dev)
+    numel = f.numel()
+    w = ft.gaussian_weights(2.0, 0, 4.0, None)
+    L, c = len(w), len(w) // 2
+    mats = {a: torch.as_tensor(ft.gaussian_filter1d_matrix(
+        S[a - 1], 2.0, 0, "reflect", 4.0, None)[0], dtype=f.dtype,
+        device=dev) for a in (1, 2, 3)}
+
+    def chain(fn, axes):
+        def run():
+            y = f
+            for a in axes:
+                y = fn(y, a)
+            return y
+        return run
+
+    def k8(y, a):
+        return ft.correlate1d(y, w, a, "reflect", 0.0, c)
+
+    def k8t(y, a):
+        return ft.correlate1d_transpose(y, w, a, "reflect", c)
+
+    def mat(y, a, t=False):
+        m = mats[a].t() if t else mats[a]
+        return torch.movedim(torch.tensordot(m, y, dims=([1], [a])), 0, a)
+
+    wt = torch.as_tensor(w, dtype=f.dtype, device=dev)
+    conv_w = [wt.view(1, 1, L, 1, 1), wt.view(1, 1, 1, L, 1),
+              wt.view(1, 1, 1, 1, L)]
+    pads = [(c, 0, 0), (0, c, 0), (0, 0, c)]
+
+    def conv_chain():
+        y = f[:, None]
+        for k, p in zip(conv_w, pads):
+            y = F.conv3d(y, k, padding=p)
+        return y[:, 0]
+
+    bound = _bound(3 * 2 * numel * 4, 3 * numel * 2 * L)
+    scale = float(f.abs().max())
+    err = _assert_close(chain(k8, (1, 2, 3))(),
+                        chain(lambda y, a: ft.correlate1d_plain(
+                            y, w, a, "reflect", 0.0, c), (1, 2, 3))(),
+                        *_tol(torch.float32, scale), "K8 at c11 shapes")
+    per_axis = [_time_ms(lambda a=a: k8(f, a)) for a in (1, 2, 3)]
+    conv_ms = _time_ms(conv_chain)
+    print(f"correlate1d per-axis ms at (3, 160, 192, 224) f32, 17 taps, "
+          f"axes 1/2/3: {per_axis}; conv3d (zero padding) chain "
+          f"{conv_ms:.4f} ms [{card}]")
+    row("correlate1d", "filters.cu", "elasticdeform_tpu/ops/filters.py:125",
+        _time_ms(chain(k8, (1, 2, 3))),
+        _time_ms(chain(lambda y, a: ft.correlate1d_plain(
+            y, w, a, "reflect", 0.0, c), (1, 2, 3))), bound,
+        _time_ms(chain(mat, (1, 2, 3))), err, at="c11",
+        extra={"conv3d_ms": conv_ms, "axis_ms": per_axis})
+    g = f
+    terms = chain(lambda y, a: ft.correlate1d_transpose_plain(
+        y.abs(), np.abs(w), a, "reflect", c), (3, 2, 1))()
+    err = _assert_close(chain(k8t, (3, 2, 1))(),
+                        chain(lambda y, a: ft.correlate1d_transpose_plain(
+                            y, w, a, "reflect", c), (3, 2, 1))(),
+                        *_terms_tol(torch.float32, terms),
+                        "K8T at c11 shapes")
+    del terms
+    per_axis = [_time_ms(lambda a=a: k8t(g, a)) for a in (1, 2, 3)]
+    print(f"correlate1d_transpose per-axis ms at c11 shapes, axes 1/2/3: "
+          f"{per_axis} [{card}]")
+    row("correlate1d_transpose", "filters.cu",
+        "elasticdeform_tpu/ops/filters.py:125",
+        _time_ms(chain(k8t, (3, 2, 1))),
+        _time_ms(chain(lambda y, a: ft.correlate1d_transpose_plain(
+            y, w, a, "reflect", c), (3, 2, 1))), bound,
+        _time_ms(chain(lambda y, a: mat(y, a, True), (3, 2, 1))), err,
+        at="c11", extra={"axis_ms": per_axis})
+    del f, g, mats
+
+    # K8 on c13's paired route: float64, sigma 1 (9 taps), mirror
+    v = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)),
+                        dtype=torch.float64, device=dev)
+    w1 = ft.gaussian_weights(1.0, 0, 4.0, None)
+    k13 = [_time_ms(lambda a=a: ft.correlate1d(v, w1, a, "mirror", 0.0, 4, 1))
+           for a in (0, 1, 2)]
+    b13 = _bound(2 * v.numel() * 8, v.numel() * 2 * len(w1), FP64_FLOPS)
+    print(f"correlate1d float64 paired route at (512, 512, 300), 9 taps, "
+          f"per-axis ms 0/1/2: {k13}; bound per axis {b13[0]:.4f} ms by "
+          f"{b13[1]} [{card}]")
+    del v
+
+    # K9 and K9T at c14's shapes
+    x = torch.as_tensor(rs.rand(*S).astype(np.float32), device=dev)
+    w5 = rs.randn(5, 5, 5)
+    cen = (3, 2, 1)                     # origin (1, 0, -1)
+    w5t = torch.as_tensor(w5, dtype=x.dtype, device=dev)[None, None]
+    n9 = x.numel()
+    bound9 = _bound(2 * n9 * 4, n9 * 2 * 125)
+    scale = float(x.abs().max()) * float(np.abs(w5).sum())
+    err = _assert_close(ft.correlate_nd(x, w5, cen, "constant", 0.5),
+                        ft.correlate_nd_plain(x, w5, cen, "constant", 0.5),
+                        *_tol(torch.float32, scale), "K9 at c14 shapes")
+    row("correlate_nd", "filters.cu", "elasticdeform_tpu/ops/filters.py:317",
+        _time_ms(lambda: ft.correlate_nd(x, w5, cen, "constant", 0.5)),
+        _time_ms(lambda: ft.correlate_nd_plain(x, w5, cen, "constant", 0.5)),
+        bound9, _time_ms(lambda: F.conv3d(x[None, None], w5t, padding=2)),
+        err, at="c14")
+    terms = ft.correlate_nd_transpose_plain(x.abs(), np.abs(w5), cen,
+                                            "constant")
+    err = _assert_close(ft.correlate_nd_transpose(x, w5, cen, "constant"),
+                        ft.correlate_nd_transpose_plain(x, w5, cen,
+                                                        "constant"),
+                        *_terms_tol(torch.float32, terms), "K9T at c14 shapes")
+    del terms
+    row("correlate_nd_transpose", "filters.cu",
+        "elasticdeform_tpu/ops/filters.py:317",
+        _time_ms(lambda: ft.correlate_nd_transpose(x, w5, cen, "constant")),
+        _time_ms(lambda: ft.correlate_nd_transpose_plain(x, w5, cen,
+                                                         "constant")),
+        bound9,
+        _time_ms(lambda: F.conv_transpose3d(x[None, None], w5t, padding=2)),
+        err, at="c14")
+
+
 def phase_times(card, total_launches, errs):
     """Phase 4: kernel, plain and library times at the c5 shapes, and the
     configs' throughput."""
@@ -1084,6 +1469,7 @@ def phase_times(card, total_launches, errs):
         extra={"order1_ms": o1["grad"][0]})
     del x, gy, coeffs, displ, iota
     _times_resampler(row, card)
+    _times_filters(row, card)
     for name, w in _wrappers().items():
         w.launches = save[name]
 

@@ -15,7 +15,12 @@ tensor API (torch tensors in and out):
     map_coordinates (+ _batch, _gradient), deform_field (+ _batch),
     affine_transform, shift, zoom, rotate, geometric_transform,
     spline_filter, spline_filter1d (differentiable with respect to X and
-    the coordinates, field, matrix, offset or shift)
+    the coordinates, field, matrix, offset or shift);
+    gaussian_filter1d, gaussian_filter, gaussian_laplace,
+    gaussian_gradient_magnitude, correlate1d, convolve1d, uniform_filter1d,
+    uniform_filter, sobel, prewitt, laplace, correlate, convolve,
+    generic_laplace, generic_gradient_magnitude (differentiable with
+    respect to X)
 
 Every entry point takes ``device=None``, which means ``"cuda"``; the CPU
 runs only on ``device="cpu"``. On the card the input prefilter runs as
@@ -24,7 +29,9 @@ as K1 (``csrc/resample.cu``), its transpose, a scatter, as K3 and the
 gradient with respect to the displacement as K5 (``csrc/resample_bwd.cu``);
 the general resampler runs K1c, K3c and K5c, the same kernels at
 caller-given coordinates, and the reflect/wrap prefilter K6 and its
-transpose K7 (``csrc/prefilter.cu``); all are built with ``nvcc`` at first
+transpose K7 (``csrc/prefilter.cu``); the filter tier runs the 1-D
+correlation K8 and its transpose K8T, the N-D correlation K9 and its
+transpose K9T (``csrc/filters.cu``); all are built with ``nvcc`` at first
 use. On the CPU their plain PyTorch versions run.
 """
 
@@ -32,10 +39,13 @@ from elasticdeform_tpu_torch.api import (
     deform_grid, deform_grid_gradient, deform_random_grid,
 )
 from elasticdeform_tpu_torch.core import (
-    affine_transform, deform, deform_batch, deform_field, deform_field_batch,
-    geometric_transform, map_coordinates, map_coordinates_batch,
-    map_coordinates_gradient, rotate, shift, spline_filter, spline_filter1d,
-    zoom,
+    affine_transform, convolve, convolve1d, correlate, correlate1d, deform,
+    deform_batch, deform_field, deform_field_batch, gaussian_filter,
+    gaussian_filter1d, gaussian_gradient_magnitude, gaussian_laplace,
+    generic_gradient_magnitude, generic_laplace, geometric_transform,
+    laplace, map_coordinates, map_coordinates_batch, map_coordinates_gradient,
+    prewitt, rotate, shift, sobel, spline_filter, spline_filter1d,
+    uniform_filter, uniform_filter1d, zoom,
 )
 
 __all__ = ["deform_grid", "deform_random_grid", "deform_grid_gradient",
@@ -43,4 +53,8 @@ __all__ = ["deform_grid", "deform_random_grid", "deform_grid_gradient",
            "map_coordinates_batch", "map_coordinates_gradient",
            "deform_field", "deform_field_batch", "affine_transform", "shift",
            "zoom", "rotate", "geometric_transform", "spline_filter",
-           "spline_filter1d"]
+           "spline_filter1d", "gaussian_filter1d", "gaussian_filter",
+           "gaussian_laplace", "gaussian_gradient_magnitude", "correlate1d",
+           "convolve1d", "uniform_filter1d", "uniform_filter", "sobel",
+           "prewitt", "laplace", "correlate", "convolve", "generic_laplace",
+           "generic_gradient_magnitude"]

@@ -33,6 +33,19 @@ coordinates, the field, ``matrix``/``offset``, ``shift`` and whatever a
 keep the reference's pre-SciPy-1.6 meaning on :func:`map_coordinates`; the
 ``grid-*`` names, and every name on the scipy-convention resamplers, follow
 SciPy >= 1.6.
+
+The linear filter tier (the JAX package's ``core.py:1210-1573`` and
+``1926-1977``): :func:`gaussian_filter1d`, :func:`gaussian_filter`,
+:func:`gaussian_laplace`, :func:`gaussian_gradient_magnitude`,
+:func:`correlate1d`, :func:`convolve1d`, :func:`uniform_filter1d`,
+:func:`uniform_filter`, :func:`sobel`, :func:`prewitt`, :func:`laplace`,
+:func:`correlate`, :func:`convolve`, :func:`generic_laplace` and
+:func:`generic_gradient_magnitude`, with SciPy's filter boundary modes and
+``output=`` contract, plus ``device``. The 1-D passes run through the
+autograd function :class:`~elasticdeform_tpu_torch.ops.filters.Correlate1d`
+(kernel K8, backward K8T), the N-D ones through
+:class:`~elasticdeform_tpu_torch.ops.filters.CorrelateNd` (K9, backward
+K9T), so the float results are differentiable with respect to ``X``.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ from torch.autograd.function import once_differentiable
 
 from elasticdeform_tpu_torch import _normalize as _n
 from elasticdeform_tpu_torch.ops import deform as _d
+from elasticdeform_tpu_torch.ops import filters as _f
 from elasticdeform_tpu_torch.ops import modes as _modes
 from elasticdeform_tpu_torch.ops.resample import (
     cast_output, numpy_dtype, torch_dtype,
@@ -742,15 +756,16 @@ _SPLINE_BC = {'mirror': 'mirror', 'constant': 'mirror', 'wrap': 'mirror',
 
 def _resolve_output(X, output):
     """scipy's ``output=`` contract: ``None`` keeps ``X``'s dtype, a
-    dtype-like selects the result's, a numpy array is filled on the host
-    and returned. Returns ``(numpy dtype, array or None)``."""
+    dtype-like (numpy or torch) selects the result's, a numpy array is
+    filled on the host and returned. Returns ``(numpy dtype, array or
+    None)``."""
     if output is None:
         return numpy_dtype(X.dtype), None
     if isinstance(output, np.ndarray):
         if output.shape != tuple(X.shape):
             raise RuntimeError("output shape not correct")
         return output.dtype, output
-    return np.dtype(output), None
+    return numpy_dtype(output), None
 
 
 def _finish(res: torch.Tensor, dtype, out_array):
@@ -799,3 +814,329 @@ def spline_filter(X, *, order=3, axis=None, mode='mirror', output=None,
     if dtype.kind != "f":
         dtype = numpy_dtype(X.dtype)
     return _finish(_to_device(X, _device(device)), dtype, out_array)
+
+
+# ---------------------------------------------------------------------------
+# the linear filter tier (the JAX package's core.py:1210-1573, 1926-1977)
+
+
+def _filter_input(X, device) -> torch.Tensor:
+    """``X`` on the device; complex, float16 and bfloat16 raise
+    TypeError."""
+    x = _to_device(X, _device(device))
+    numpy_dtype(x.dtype)
+    return x
+
+
+def _truncating_dtype(dtype) -> bool:
+    """True when :func:`_finish_filter` truncates (integer or bool output):
+    the callers then take SciPy's paired order, so the value before the
+    cast is SciPy's to the bit."""
+    return np.dtype(dtype).kind in "biu"
+
+
+def _finish_filter(res: torch.Tensor, dtype, out_array=None):
+    """A filter result cast to the output dtype as SciPy's C cast does:
+    integers truncate toward zero, then wrap modulo 2^bits (through int64,
+    as the JAX package under x64); bool is ``trunc != 0``."""
+    dtype = np.dtype(dtype)
+    if res.dtype != torch_dtype(dtype) and res.is_floating_point():
+        if dtype.kind in "iu":
+            res = torch.trunc(res).to(torch.int64)
+        elif dtype.kind == "b":
+            res = torch.trunc(res)
+    return _finish(res, dtype, out_array)
+
+
+def _filter_axes(axes, ndim: int):
+    if axes is None:
+        return tuple(range(ndim))
+    if isinstance(axes, int):
+        axes = (axes,)
+    return tuple(a % ndim for a in axes)
+
+
+def _per_axis(p, name: str, n: int):
+    if isinstance(p, (list, tuple, np.ndarray)):
+        if len(p) != n:
+            raise ValueError(
+                f"{name} should be a scalar or have one entry per "
+                f"filtered axis ({n}); got {len(p)}.")
+        return list(p)
+    return [p] * n
+
+
+def gaussian_filter1d(X, sigma, axis=-1, *, order=0, mode='reflect',
+                      cval=0.0, truncate=4.0, radius=None, output=None,
+                      device=None):
+    """Gaussian (derivative) filter along one axis
+    (``scipy.ndimage.gaussian_filter1d``): kernel K8 on the card, the
+    reversed Gaussian taps, SciPy's filter boundary modes ('reflect',
+    'mirror', 'nearest', 'wrap', 'constant'; the 1-D tier takes no
+    ``grid-*`` alias, as in the JAX package, the N-D :func:`correlate` and
+    :func:`convolve` do).
+    ``output`` follows SciPy: ``None`` keeps the input dtype, integer
+    results truncate toward zero and wrap, computed in SciPy's paired order;
+    a dtype selects the result's; a numpy array is filled and returned.
+    Differentiable with respect to ``X`` (K8T)."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _f.apply_filter1d(x, axis, sigma, order, mode, cval, truncate,
+                            radius, int_exact=_truncating_dtype(dtype))
+    return _finish_filter(res, dtype, out_array)
+
+
+def gaussian_filter(X, sigma, *, order=0, mode='reflect', cval=0.0,
+                    truncate=4.0, radius=None, axes=None, output=None,
+                    device=None):
+    """Gaussian filter over ``axes`` (default all;
+    ``scipy.ndimage.gaussian_filter``): :func:`gaussian_filter1d` along each
+    in turn. ``sigma``, ``order``, ``radius`` and ``mode`` may be per-axis
+    sequences; a sigma of at most 1e-15 skips its axis. Integer outputs
+    truncate after each pass, as SciPy's passes do. To smooth a
+    displacement field's spatial axes, pass ``axes=(1, ..., naxis)``."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    axes = _filter_axes(axes, x.dim())
+    n = len(axes)
+    for ax, s, o, r, md in zip(axes, _per_axis(sigma, "sigma", n),
+                               _per_axis(order, "order", n),
+                               _per_axis(radius, "radius", n),
+                               _per_axis(mode, "mode", n)):
+        if float(s) <= 1e-15:
+            continue
+        x = gaussian_filter1d(x, s, ax, order=o, mode=md, cval=cval,
+                              truncate=truncate, radius=r, output=dtype,
+                              device=x.device)
+    return _finish(x, dtype, out_array)
+
+
+def gaussian_laplace(X, sigma, *, mode='reflect', cval=0.0, truncate=4.0,
+                     radius=None, axes=None, output=None, device=None):
+    """Laplacian of Gaussian (``scipy.ndimage.gaussian_laplace``): the sum
+    over ``axes`` of the second-derivative Gaussian along each, smoothing
+    along the others; the terms are summed in the output dtype."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    axes = _filter_axes(axes, x.dim())
+    out = None
+    for i in range(len(axes)):
+        orders = [0] * len(axes)
+        orders[i] = 2
+        term = gaussian_filter(x, sigma, order=orders, mode=mode, cval=cval,
+                               truncate=truncate, radius=radius, axes=axes,
+                               output=dtype, device=x.device)
+        out = term if out is None else out + term
+    return _finish_filter(out, dtype, out_array)
+
+
+def gaussian_gradient_magnitude(X, sigma, *, mode='reflect', cval=0.0,
+                                truncate=4.0, radius=None, axes=None,
+                                output=None, device=None):
+    """Gradient magnitude of Gaussian
+    (``scipy.ndimage.gaussian_gradient_magnitude``): ``sqrt(sum_k
+    (d/dx_k G * X)^2)`` over ``axes``, the squares summed in the output
+    dtype and the root taken in float64."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    axes = _filter_axes(axes, x.dim())
+    acc = None
+    for i in range(len(axes)):
+        orders = [0] * len(axes)
+        orders[i] = 1
+        term = gaussian_filter(x, sigma, order=orders, mode=mode, cval=cval,
+                               truncate=truncate, radius=radius, axes=axes,
+                               output=dtype, device=x.device)
+        acc = term * term if acc is None else acc + term * term
+    return _finish_filter(torch.sqrt(acc.to(torch.float64)), dtype,
+                          out_array)
+
+
+def correlate1d(X, weights, axis=-1, *, mode='reflect', cval=0.0, origin=0,
+                output=None, device=None):
+    """1-D correlation with any taps (``scipy.ndimage.correlate1d``): tap
+    ``len(weights) // 2 + origin`` on the output position; kernel K8 on the
+    card. ``output`` as :func:`gaussian_filter1d`."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _f.apply_correlate1d(x, weights, axis, mode, cval, origin,
+                               int_exact=_truncating_dtype(dtype))
+    return _finish_filter(res, dtype, out_array)
+
+
+def convolve1d(X, weights, axis=-1, *, mode='reflect', cval=0.0, origin=0,
+               output=None, device=None):
+    """1-D convolution (``scipy.ndimage.convolve1d``): correlation with the
+    reversed taps and the mirrored origin (shifted by one for an even
+    length)."""
+    weights = np.asarray(weights, dtype=np.float64)[::-1]
+    origin = -int(origin)
+    if not len(weights) & 1:
+        origin -= 1
+    return correlate1d(X, weights, axis, mode=mode, cval=cval, origin=origin,
+                       output=output, device=device)
+
+
+def uniform_filter1d(X, size, axis=-1, *, mode='reflect', cval=0.0,
+                     origin=0, output=None, device=None):
+    """Box filter along one axis (``scipy.ndimage.uniform_filter1d``): unit
+    taps, then a true division by ``size`` (a 0-dim tensor on the device:
+    PyTorch's CUDA division by a host scalar multiplies by a rounded
+    reciprocal)."""
+    size = int(size)
+    if size < 1:
+        raise ValueError("size must be at least 1")
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _f.apply_correlate1d(x, np.ones(size), axis, mode, cval, origin)
+    res = res / torch.tensor(float(size), dtype=res.dtype, device=res.device)
+    return _finish_filter(res, dtype, out_array)
+
+
+def uniform_filter(X, size=3, *, mode='reflect', cval=0.0, origin=0,
+                   axes=None, output=None, device=None):
+    """Box filter over ``axes`` (``scipy.ndimage.uniform_filter``);
+    ``size``, ``origin`` and ``mode`` may be per-axis sequences; integer
+    outputs truncate after each pass."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    axes = _filter_axes(axes, x.dim())
+    n = len(axes)
+    for ax, s, o, md in zip(axes, _per_axis(size, "size", n),
+                            _per_axis(origin, "origin", n),
+                            _per_axis(mode, "mode", n)):
+        if int(s) == 1 and int(o) == 0:
+            continue
+        x = uniform_filter1d(x, s, ax, mode=md, cval=cval, origin=o,
+                             output=dtype, device=x.device)
+    return _finish(x, dtype, out_array)
+
+
+def _derivative_smooth(X, axis, deriv_taps, smooth_taps, mode, cval,
+                       axes=None, output=None, device=None):
+    """``deriv_taps`` along ``axis``, then ``smooth_taps`` along the other
+    ``axes``, each pass cast to the output dtype."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    axes = _filter_axes(axes, x.dim())
+    axis = axis % x.dim()
+    out = correlate1d(x, deriv_taps, axis, mode=mode, cval=cval,
+                      output=dtype, device=x.device)
+    for ax in axes:
+        if ax != axis:
+            out = correlate1d(out, smooth_taps, ax, mode=mode, cval=cval,
+                              output=dtype, device=x.device)
+    return _finish_filter(out, dtype, out_array)
+
+
+def sobel(X, axis=-1, *, mode='reflect', cval=0.0, axes=None, output=None,
+          device=None):
+    """Sobel filter (``scipy.ndimage.sobel``): ``[-1, 0, 1]`` along
+    ``axis``, ``[1, 2, 1]`` along the other ``axes``."""
+    return _derivative_smooth(X, axis, [-1.0, 0.0, 1.0], [1.0, 2.0, 1.0],
+                              mode, cval, axes, output, device)
+
+
+def prewitt(X, axis=-1, *, mode='reflect', cval=0.0, axes=None, output=None,
+            device=None):
+    """Prewitt filter (``scipy.ndimage.prewitt``): ``[-1, 0, 1]`` along
+    ``axis``, ``[1, 1, 1]`` along the other ``axes``."""
+    return _derivative_smooth(X, axis, [-1.0, 0.0, 1.0], [1.0, 1.0, 1.0],
+                              mode, cval, axes, output, device)
+
+
+def laplace(X, *, mode='reflect', cval=0.0, axes=None, output=None,
+            device=None):
+    """Discrete Laplacian (``scipy.ndimage.laplace``): the sum over
+    ``axes`` of ``[1, -2, 1]`` along each, in the output dtype."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    out = None
+    for ax in _filter_axes(axes, x.dim()):
+        term = correlate1d(x, [1.0, -2.0, 1.0], ax, mode=mode, cval=cval,
+                           output=dtype, device=x.device)
+        out = term if out is None else out + term
+    return _finish_filter(out, dtype, out_array)
+
+
+def _expand_weights_axes(x, weights, origin, axes):
+    """SciPy's ``axes=`` for N-D kernels: ``weights`` and the per-axis
+    ``origin`` cover only ``axes``; the other (batch) axes get extent 1."""
+    axes_t = _f._normalize_axes(axes, x.dim())
+    if len(axes_t) == x.dim():
+        return weights, origin
+    weights = _f._expand_to_ndim(np.asarray(weights), x.dim(), axes_t)
+    origins = _f.normalize_sequence(origin, len(axes_t), "origin")
+    full = [0] * x.dim()
+    for a, o in zip(axes_t, origins):
+        full[a] = int(o)
+    return weights, full
+
+
+def correlate(X, weights, *, mode='reflect', cval=0.0, origin=0,
+              output=None, axes=None, device=None):
+    """N-D correlation (``scipy.ndimage.correlate``) over the kernel's
+    nonzero taps in raster order: kernel K9 on the card, K9T for the
+    gradient. With ``axes`` the kernel covers only those axes. ``output``
+    as :func:`gaussian_filter1d` (no paired order: SciPy has none for N-D
+    kernels)."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    weights, origin = _expand_weights_axes(x, weights, origin, axes)
+    res = _f.apply_correlate(x, weights, mode, cval, origin)
+    return _finish_filter(res, dtype, out_array)
+
+
+def convolve(X, weights, *, mode='reflect', cval=0.0, origin=0,
+             output=None, axes=None, device=None):
+    """N-D convolution (``scipy.ndimage.convolve``): correlation with the
+    flipped kernel and mirrored origins."""
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    weights, origin = _expand_weights_axes(x, weights, origin, axes)
+    res = _f.apply_correlate(x, weights, mode, cval, origin,
+                             convolution=True)
+    return _finish_filter(res, dtype, out_array)
+
+
+def generic_laplace(X, derivative2, *, mode='reflect', cval=0.0,
+                    extra_arguments=(), extra_keywords=None, axes=None,
+                    output=None, device=None):
+    """Laplace with a second-derivative callable
+    (``scipy.ndimage.generic_laplace``): ``derivative2(x, axis, mode, cval,
+    *extra_arguments, **extra_keywords)`` takes and returns a tensor on the
+    device and is called once per axis (SciPy's in-place ``output``
+    argument is dropped); the terms are summed."""
+    extra_keywords = extra_keywords or {}
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    out = None
+    for ax in _filter_axes(axes, x.dim()):
+        term = _to_device(derivative2(x, ax, mode, cval, *extra_arguments,
+                                      **extra_keywords), x.device)
+        out = term if out is None else out + term
+    if out is None:
+        out = torch.zeros_like(x)
+    return _finish_filter(out, dtype, out_array)
+
+
+def generic_gradient_magnitude(X, derivative, *, mode='reflect', cval=0.0,
+                               extra_arguments=(), extra_keywords=None,
+                               axes=None, output=None, device=None):
+    """Gradient magnitude with a derivative callable
+    (``scipy.ndimage.generic_gradient_magnitude``; the callable as in
+    :func:`generic_laplace`)."""
+    extra_keywords = extra_keywords or {}
+    x = _filter_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    out = None
+    for ax in _filter_axes(axes, x.dim()):
+        d = _to_device(derivative(x, ax, mode, cval, *extra_arguments,
+                                  **extra_keywords), x.device)
+        d = d * d
+        out = d if out is None else out + d
+    if out is None:
+        return _finish_filter(torch.zeros_like(x), dtype, out_array)
+    if not out.is_floating_point():
+        out = out.to(torch.float64)
+    return _finish_filter(torch.sqrt(out), dtype, out_array)

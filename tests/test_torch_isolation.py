@@ -50,6 +50,7 @@ def test_port_runs_with_jax_and_reference_blocked():
 import numpy as np
 import elasticdeform_tpu_torch as et
 import elasticdeform_tpu_torch.api, elasticdeform_tpu_torch.core
+import elasticdeform_tpu_torch.ops.filters
 X = np.random.RandomState(0).rand(12, 14)
 d = np.random.RandomState(1).randn(2, 3, 3) * 3
 Y = et.deform_grid([X, (X * 100).astype(np.uint8)], d, order=[3, 0],
@@ -61,6 +62,12 @@ assert et.map_coordinates(X, c, mode='grid-wrap', device='cpu').shape == (5, 6)
 assert et.affine_transform(X, np.eye(2) * 1.1, mode='reflect',
                            device='cpu').shape == X.shape
 assert et.spline_filter(X, mode='nearest', device='cpu').shape == X.shape
+assert et.gaussian_filter(X, 1.5, device='cpu').shape == X.shape
+assert et.gaussian_laplace(X, 1.0, output=np.int16, device='cpu').dtype \
+    == elasticdeform_tpu_torch.core.torch.int16
+assert et.correlate(X, np.ones((3, 2)), mode='grid-wrap',
+                    device='cpu').shape == X.shape
+assert et.sobel(X, device='cpu').shape == X.shape
 assert not any(m.split('.')[0] in ('jax', 'elasticdeform_tpu')
                for m in sys.modules)
 print('ok')
@@ -113,7 +120,22 @@ for call in (lambda: et.deform_grid(X, d),
              lambda: et.api.map_coordinates(X, c),
              lambda: et.api.geometric_transform(X, lambda o: o),
              lambda: et.api.map_coordinates_gradient(c[0], c,
-                                                     X_shape=X.shape)):
+                                                     X_shape=X.shape),
+             lambda: et.gaussian_filter1d(X, 1.0),
+             lambda: et.gaussian_filter(X, 1.0),
+             lambda: et.gaussian_laplace(X, 1.0),
+             lambda: et.gaussian_gradient_magnitude(X, 1.0),
+             lambda: et.correlate1d(X, [1.0, 2.0]),
+             lambda: et.convolve1d(X, [1.0, 2.0]),
+             lambda: et.uniform_filter1d(X, 3),
+             lambda: et.uniform_filter(X, 3),
+             lambda: et.sobel(X),
+             lambda: et.prewitt(X),
+             lambda: et.laplace(X),
+             lambda: et.correlate(X, np.ones((2, 2))),
+             lambda: et.convolve(X, np.ones((2, 2))),
+             lambda: et.generic_laplace(X, lambda *a: a[0]),
+             lambda: et.generic_gradient_magnitude(X, lambda *a: a[0])):
     try:
         call()
     except (RuntimeError, AssertionError):
