@@ -25,9 +25,15 @@ Phases (any failure raises, and the exit code is not 0):
    1-41 taps (longer than some axes) at every centre, every axis of 2-D and
    3-D shapes with odd sizes, and the paired integer route bit for bit; K9
    and K9T (the N-D correlation and its transpose) over the five modes and
-   the grid aliases, 2-D to 4-D kernels with batch axes and origins; and the
+   the grid aliases, 2-D to 4-D kernels with batch axes and origins; the
    K1/K3, K1c/K3c, K2/K4, K6/K7, K8/K8T and K9/K9T adjoint identities in
-   float64;
+   float64; and, bit for bit in all eleven dtypes (bool, the eight integer
+   types, float32 and float64 with NaN and infinities), K10 (1-D min/max)
+   over sizes 1-15 at every centre, the five modes and every axis, K11
+   (footprint min/max) over flat and non-flat 2-D to 4-D footprints with
+   saturating integer casts, K12 (rank selection) over 2-343 taps on both
+   routes, and K13 (binary sweep) over random, even and empty structures,
+   borders, masks, its changed flag and the fixpoint;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
@@ -40,15 +46,23 @@ Phases (any failure raises, and the exit code is not 0):
    (``gaussian_laplace`` and ``gaussian_gradient_magnitude``), c13 (an int16
    CT volume of 512x512x300: ``gaussian_filter`` and ``sobel`` with int16
    output, bit for bit) and c14 (N-D
-   ``correlate`` with autograd, ``convolve`` on a batch), each compared
-   with the port's own ``device="cpu"`` run; the launch counters, set to 0
-   before each config and read after it, must show each kernel on the
-   configs that run it and none on the configs that do not need it;
+   ``correlate`` with autograd, ``convolve`` on a batch), and the
+   morphology tier's c15 (median and percentile filters of a 160x192x224
+   float32 MRI-like volume, bit for bit), c16 (grey opening, white top-hat
+   and a non-flat dilation of c13's int16 CT volume, bit for bit) and c17
+   (binary opening, hole filling and propagation of a 160x192x224 bool
+   segmentation), each compared with the port's own ``device="cpu"`` run;
+   the launch counters, set to 0 before each config and read after it, must
+   show each kernel on the configs that run it and none on the configs that
+   do not need it (exact counts for c11-c16, and c17's K13 sweeps per
+   call);
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
    its plain version and library yardstick (K1-K5 at the c5 shapes, also
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
-   ``grid_sample``; K6, K7 and again K1c, K3c at the c8 shapes), and each
-   config (Mvox/s).
+   ``grid_sample``; K6, K7 and again K1c, K3c at the c8 shapes; K8-K9T at
+   the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
+   ``max_pool3d``, K12 at the c15 shapes, K13 at the c17 shapes beside
+   ``max_pool3d``), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -78,8 +92,10 @@ KERNELS = ("resample_fwd", "spline_prefilter", "resample_bwd",
            "spline_prefilter_bc", "spline_prefilter_bc_transpose",
            "resample_coords_fwd", "resample_coords_bwd",
            "resample_coords_grad", "correlate1d", "correlate1d_transpose",
-           "correlate_nd", "correlate_nd_transpose")
-FILTER_KERNELS = KERNELS[-4:]
+           "correlate_nd", "correlate_nd_transpose", "min_max_filter1d",
+           "min_max_filter", "rank_filter", "binary_step")
+FILTER_KERNELS = KERNELS[10:14]
+MORPH_KERNELS = KERNELS[14:]
 
 
 def _tol(dtype, scale):
@@ -304,6 +320,7 @@ def phase_kernels():
     _check_coords_kernels(rs, worst)
     _check_bc_prefilter(rs, worst)
     _check_filter_kernels(rs, worst)
+    _check_morph_kernels(rs)
     return worst
 
 
@@ -559,6 +576,227 @@ def _check_filter_kernels(rs, worst):
           f"identity holds in float64 ({n // 2} cases)")
 
 
+# morphology dtypes, in the kernels' order
+def _morph_dtypes():
+    import torch
+    return (torch.bool, torch.uint8, torch.int8, torch.uint16, torch.int16,
+            torch.uint32, torch.int32, torch.uint64, torch.int64,
+            torch.float32, torch.float64)
+
+
+def _ball(radius):
+    """A ball footprint of ``radius`` in a (2r+1)^3 cube (33 taps at r=2)."""
+    g = np.indices((2 * radius + 1,) * 3) - radius
+    return (g ** 2).sum(0) <= radius ** 2
+
+
+def _rand_volume(rs, shape, dtype, dev):
+    """Seeded values of ``dtype``: the whole integer range or a pool of a
+    few values (ties), floats with about 3% NaN, 8% zeros of each sign and a
+    few infinities."""
+    import torch
+    from elasticdeform_tpu_torch.ops.resample import numpy_dtype
+    npt = numpy_dtype(dtype)
+    if dtype == torch.bool:
+        a = rs.rand(*shape) > 0.5
+    elif dtype.is_floating_point:
+        a = (rs.randn(*shape) * 100).astype(npt)
+        a[rs.rand(*shape) < 0.08] = 0.0
+        a[rs.rand(*shape) < 0.08] = -0.0
+        a[rs.rand(*shape) < 0.03] = np.nan
+        a[rs.rand(*shape) < 0.005] = np.inf
+        a[rs.rand(*shape) < 0.005] = -np.inf
+    else:
+        info = np.iinfo(npt)
+        a = rs.randint(info.min, info.max, size=shape, dtype=npt)
+        a.reshape(-1)[:2] = (info.min, info.max)
+        if rs.rand() < 0.5:
+            a = rs.choice(a.reshape(-1)[:7], size=shape)
+    return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+
+def _same(got, want, what):
+    """Raise unless ``got`` equals ``want`` bit for bit in dtype, shape and
+    value: floats by their bits (a zero's sign too), NaN where NaN (a NaN's
+    payload is not compared)."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: got {tuple(got.shape)} {got.dtype}, "
+                             f"want {tuple(want.shape)} {want.dtype}")
+    views = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+             torch.uint64: torch.int64, torch.float32: torch.int32,
+             torch.float64: torch.int64}
+    ok = True
+    if got.dtype.is_floating_point:
+        nan = torch.isnan(got)
+        ok = torch.equal(nan, torch.isnan(want))
+        got = torch.where(nan, torch.zeros_like(got), got)
+        want = torch.where(nan, torch.zeros_like(want), want)
+    if got.dtype in views:
+        got, want = got.view(views[got.dtype]), want.view(views[want.dtype])
+    ok = ok and torch.equal(got, want)
+    if not ok:
+        raise AssertionError(f"{what}: not bit-identical to its plain twin, "
+                             f"{int((got != want).sum())} values differ")
+
+
+def _cval_for(rs, dtype):
+    """A seeded constant-mode value that converts into ``dtype``."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    if dtype.is_floating_point:
+        return float(rs.randn() * 50)
+    if dtype.is_signed or dtype == torch.bool:
+        return mo.raw_cval(rs.uniform(-100.0, 100.0), dtype)
+    return mo.raw_cval(rs.uniform(0.0, 200.0), dtype)
+
+
+def _check_morph_kernels(rs, dev=None):
+    """K10-K13 against their plain twins, bit for bit (NaN where NaN; float
+    data hold zeros of both signs, whose order min, max and the rank routes
+    decide):
+    K10 over sizes 1-15 (some longer than the axis) at every centre, the
+    five modes, every axis of odd 2-D and 3-D shapes, all eleven dtypes, min
+    and max; K11 over random flat and non-flat footprints from 2-D to 4-D,
+    centres, modes and dtypes, the non-flat integers saturating; K12 over
+    tap counts 2-64 at every rank and 65-343 at five ranks, NaN windows on
+    both routes; K13 over random,
+    even and empty structures, border 0 and 1, with and without a mask, one
+    sweep (and its changed flag) and to the fixpoint."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    dev = torch.device("cuda") if dev is None else dev
+    dtypes = _morph_dtypes()
+    n = 0
+    combos = (((37, 41), 0), ((37, 41), 1), ((7, 33, 9), 0), ((7, 33, 9), 1),
+              ((7, 33, 9), 2))
+    for dtype in dtypes:
+        for minimum in (True, False):
+            for size in range(1, 16):
+                for center in range(size):
+                    shape, axis = combos[n % 5]
+                    mode = MODES[(n // 5) % 5]
+                    x = _rand_volume(rs, shape, dtype, dev)
+                    cval = _cval_for(rs, dtype)
+                    args = (x, size, axis, mode, cval, center, minimum)
+                    got = mo.min_max_filter1d(*args)
+                    want = mo.min_max_filter1d_plain(*args)
+                    torch.cuda.synchronize()
+                    _same(got, want, f"K10 {dtype} {mode} shape={shape} "
+                          f"axis={axis} size={size} centre={center} "
+                          f"min={minimum}")
+                    n += 1
+    print(f"K10 min_max_filter1d bit for bit with its plain twin in {n} "
+          f"cases")
+
+    n = 0
+    geoms = (((13, 17), (3, 3)), ((11, 12), (2, 5)), ((9, 10, 11), (3, 2, 4)),
+             ((6, 9, 10), (1, 3, 3)), ((4, 5, 6, 7), (2, 2, 2, 3)))
+    for dtype in dtypes:
+        for minimum in (True, False):
+            for shape, kshape in geoms:
+                for nonflat in (False, True):
+                    mode = MODES[n % 5]
+                    fp = rs.rand(*kshape) > 0.3
+                    fp.reshape(-1)[rs.randint(fp.size)] = True
+                    centers = [int(rs.randint(0, k)) for k in kshape]
+                    st = None
+                    work = dtype
+                    if nonflat:
+                        st = np.round(rs.randn(*kshape) * 50, 1)
+                        if not dtype.is_floating_point:
+                            work = torch.float64
+                    x = _rand_volume(rs, shape, dtype, dev)
+                    cval = _cval_for(rs, work)
+                    args = (x, fp, st, centers, mode, cval, minimum)
+                    got = mo.min_max_filter(*args)
+                    want = mo.min_max_filter_plain(*args)
+                    torch.cuda.synchronize()
+                    _same(got, want, f"K11 {dtype} {mode} shape={shape} "
+                          f"footprint={kshape} centres={centers} "
+                          f"nonflat={nonflat} min={minimum}")
+                    n += 1
+    print(f"K11 min_max_filter bit for bit with its plain twin in {n} cases")
+
+    n = 0
+    for k in list(range(2, 65)) + [65, 100, 125, 200, 343]:
+        if k <= 25:
+            shape, kshape = (13, 17), (5, 5)
+        elif k <= 64:
+            shape, kshape = (9, 10, 11), (4, 4, 4)
+        elif k <= 125:
+            shape, kshape = (9, 10, 11), (5, 5, 5)
+        else:
+            shape, kshape = (9, 10, 11), (7, 7, 7)
+        ranks = range(k) if k <= 64 else (0, 1, k // 2, k - 2, k - 1)
+        for rank in ranks:
+            fp = np.zeros(int(np.prod(kshape)), dtype=bool)
+            fp[rs.choice(fp.size, k, replace=False)] = True
+            fp = fp.reshape(kshape)
+            dtype = dtypes[(n + k) % len(dtypes)] if k > 4 else \
+                torch.float32
+            if k > 64 and n % 2 == 0:
+                dtype = (torch.float32, torch.float64)[n % 4 // 2]
+            mode = MODES[n % 5]
+            centers = [int(rs.randint(0, s)) for s in kshape]
+            x = _rand_volume(rs, shape, dtype, dev)
+            args = (x, fp, centers, mode, _cval_for(rs, dtype), rank)
+            got = mo.rank_filter(*args)
+            want = mo.rank_filter_plain(*args)
+            torch.cuda.synchronize()
+            _same(got, want, f"K12 {dtype} {mode} taps={k} rank={rank} "
+                  f"centres={centers}")
+            n += 1
+    print(f"K12 rank_filter bit for bit with its plain twin in {n} cases "
+          f"(network route up to {mo.RANK_NETWORK_MAX_TAPS} taps, select "
+          f"route above; float inputs hold NaN windows)")
+
+    n = 0
+    for shape, kshape in (((16, 17), (3, 3)), ((16, 17), (2, 3)),
+                          ((16, 17), (1, 4)), ((9, 10, 11), (3, 3, 3)),
+                          ((9, 10, 11), (2, 2, 3)), ((16, 17), (0, 0))):
+        for border in (False, True):
+            for use_mask in (False, True):
+                for dilation in (False, True):
+                    if kshape == (0, 0):
+                        st = np.zeros((3, 3), dtype=bool)
+                    else:
+                        st = rs.rand(*kshape) > 0.4
+                    centers = [int(rs.randint(0, s)) for s in st.shape]
+                    x = torch.as_tensor(rs.rand(*shape) > 0.5).to(dev)
+                    mask = torch.as_tensor(rs.rand(*shape) > 0.3).to(dev) \
+                        if use_mask else None
+                    flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                             for _ in range(2)]
+                    got = mo.binary_step(x, st, centers, border, dilation,
+                                         mask, flags[0])
+                    want = mo.binary_step_plain(x, st, centers, border,
+                                                dilation, mask, flags[1])
+                    torch.cuda.synchronize()
+                    what = (f"K13 structure={st.astype(int).tolist()} "
+                            f"border={border} mask={use_mask} "
+                            f"dilation={dilation}")
+                    _same(got, want, what)
+                    _same(flags[0], flags[1], f"{what} changed flag")
+                    # binary_erosion_dilation, three sweeps and to the
+                    # fixpoint, against the CPU run; the centre tap keeps
+                    # each sweep monotone, so the fixpoint is reached
+                    st[tuple(k // 2 for k in st.shape)] |= kshape != (0, 0)
+                    for its in (3, 0):
+                        got = mo.binary_erosion_dilation(
+                            x, st, its, mask, border, 0, dilation)
+                        want = mo.binary_erosion_dilation(
+                            x.cpu(), st, its,
+                            None if mask is None else mask.cpu(), border, 0,
+                            dilation)
+                        torch.cuda.synchronize()
+                        _same(got.cpu(), want, f"{what} iterations={its}")
+                    n += 1
+    print(f"K13 binary_step bit for bit with its plain twin in {n} cases, "
+          f"each also at 3 iterations and to the fixpoint against the CPU "
+          f"run")
+
+
 def _check_k3(rb, g, bargs, in_sp, dtype, what):
     """K3 against its plain version. Atomics add in a run-dependent order,
     so float32 is held to rtol=1e-5 and atol=1e-5 * S elementwise, where S
@@ -622,6 +860,7 @@ def _configs(seed=0):
     import elasticdeform_tpu_torch as et
     rs = np.random.RandomState(seed)
     F32 = (1e-5, 1e-4)   # float32 output against the CPU run
+    EXACT = "exact"      # float output bit for bit with the CPU run
     # a float32 grid gradient sums 64^3 voxels' signed terms per sample;
     # reordered float32 sums of that length differ by ~1e-4 of the largest
     GRID32 = (1e-4, 1e-3)
@@ -813,6 +1052,65 @@ def _configs(seed=0):
                 et.convolve(b, K14, mode="reflect", axes=(1, 2, 3),
                             device=device)]
 
+    # c15: median denoising of a brain-MRI-like volume (c7's shape) before
+    # registration: 3^3 median (27 taps, network route), 5^3 median (125
+    # taps, select route) of the first 80 slices, 20th percentile over a
+    # ball of radius 2 (33 taps); the whole 5^3 median made the CPU run take
+    # 18.4 s on the card's host
+    X15 = _mri_like(rs, S7)
+    dev15 = {}
+
+    def c15(device, n=None):
+        (x,) = _on(dev15, device, X15)
+        return [et.median_filter(x, size=3, device=device),
+                et.median_filter(x[:80], size=5, device=device),
+                et.percentile_filter(x, 20, footprint=_ball(2),
+                                     device=device)]
+
+    # c16: grey morphology of c13's int16 CT volume: opening with a 5^3 box
+    # (six K10 passes), white top-hat with a ball (K11 erosion and
+    # dilation), dilation of the first 256 slices with a non-flat 3^3
+    # structure (float64 work type, saturating cast); on the whole volume
+    # it made the CPU run take 17.3 s on the card's host
+    X16 = rs.randint(-1024, 3072, (512, 512, 300)).astype(np.int16)
+    g3 = np.indices((3, 3, 3)) - 1
+    S16 = -30.0 * (g3 ** 2).sum(0)
+    dev16 = {}
+
+    def c16(device, n=None):
+        (x,) = _on(dev16, device, X16)
+        return [et.grey_opening(x, size=5, device=device),
+                et.white_tophat(x, footprint=_ball(2), device=device),
+                et.grey_dilation(x[:256], structure=S16, device=device)]
+
+    # c17: clean-up of a bool segmentation with enclosed holes: opening with
+    # a 3^3 cube, two iterations (four K13 sweeps), hole filling and
+    # propagation of a seed inside the mask (K13 to the fixpoint); the K13
+    # launches of each call are kept in ``sweeps``
+    M17, seed17 = _segmentation(rs, S7)
+    dev17 = {}
+    sweeps17 = {}
+
+    def c17(device, n=None):
+        from elasticdeform_tpu_torch.ops import morphology as mo
+        m, sd = _on(dev17, device, M17, seed17)
+        out = []
+        for name, call in (
+                ("opening", lambda: et.binary_opening(
+                    m, structure=np.ones((3, 3, 3)), iterations=2,
+                    device=device)),
+                ("fill_holes", lambda: et.binary_fill_holes(m,
+                                                            device=device)),
+                ("propagation", lambda: et.binary_propagation(
+                    sd, mask=m, device=device))):
+            before = mo.binary_step.launches
+            out.append(call())
+            sweeps17[name] = mo.binary_step.launches - before
+        return out
+
+    cfg17 = _Config("c17", c17, 3 * math.prod(S7), [None, None, None])
+    cfg17.sweeps = sweeps17
+
     return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
             _Config("c2", c2, 200 * 300, [F32, F32]),
             _Config("c3", c3, 96 ** 3, [F32]),
@@ -827,7 +1125,43 @@ def _configs(seed=0):
             _Config("c11", c11, 3 * math.prod(S7), [F32, F32], nsub=1),
             _Config("c12", c12, math.prod(S7), [F32, F32]),
             _Config("c13", c13, 512 * 512 * 300, [None, None]),
-            _Config("c14", c14, 3 * math.prod(S7), [F32, F32, F32])]
+            _Config("c14", c14, 3 * math.prod(S7), [F32, F32, F32]),
+            _Config("c15", c15, (2 * 160 + 80) * 192 * 224, [EXACT] * 3),
+            _Config("c16", c16, (2 * 512 + 256) * 512 * 300, [None] * 3),
+            cfg17]
+
+
+def _mri_like(rs, shape):
+    """A float32 volume shaped like a brain MRI scan: a smooth intensity
+    field inside an ellipsoid, dark outside, with 5% Gaussian noise."""
+    axes = [np.linspace(-1, 1, n, dtype=np.float32) for n in shape]
+    g = np.meshgrid(*axes, indexing="ij", sparse=True)
+    r2 = sum(a * a / (0.85 ** 2) for a in g)
+    brain = 0.6 + 0.3 * _smooth_field(rs, 1, shape, 1.0)[0, 0]
+    vol = np.where(r2 < 1.0, brain, 0.05).astype(np.float32)
+    return vol + rs.randn(*shape).astype(np.float32) * 0.05
+
+
+def _segmentation(rs, shape):
+    """A bool segmentation mask: an ellipsoid less where a noisy smooth field
+    peaks (an irregular outline, speckle holes), with twelve enclosed
+    spherical cavities of radius 4-10 voxels, and a seed voxel inside it."""
+    axes = [np.linspace(-1, 1, n, dtype=np.float32) for n in shape]
+    g = np.meshgrid(*axes, indexing="ij", sparse=True)
+    r2 = sum(a * a / (0.8 ** 2) for a in g)
+    field = _smooth_field(rs, 1, shape, 3.0)[0, 0]
+    field = field + rs.randn(*shape).astype(np.float32) * 0.05
+    mask = (r2 < 1.0) & (field < np.quantile(field, 0.9))
+    idx = np.meshgrid(*[np.arange(n) for n in shape], indexing="ij",
+                      sparse=True)
+    for _ in range(12):
+        c = [int(n * rs.uniform(0.35, 0.65)) for n in shape]
+        r = rs.uniform(4.0, 10.0)
+        mask[sum((i - ci) ** 2 for i, ci in zip(idx, c)) <= r * r] = False
+    seed = np.zeros(shape, dtype=bool)
+    inside = np.argwhere(mask & (r2 < 0.1))
+    seed[tuple(inside[len(inside) // 2])] = True
+    return mask, seed
 
 
 def _smooth_field(rs, B, shape, amplitude):
@@ -877,7 +1211,10 @@ _MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
                 "c11": ("correlate1d", "correlate1d_transpose"),
                 "c12": ("correlate1d",),
                 "c13": ("correlate1d",),
-                "c14": ("correlate_nd", "correlate_nd_transpose")}
+                "c14": ("correlate_nd", "correlate_nd_transpose"),
+                "c15": ("rank_filter",),
+                "c16": ("min_max_filter1d", "min_max_filter"),
+                "c17": ("binary_step",)}
 # exact launch counts of the filter configs: c11 one K8 and one K8T per
 # spatial axis; c12 three passes for each of the three LoG and three
 # gradient terms; c13 three gaussian passes and sobel's three; c14 K9 for
@@ -890,7 +1227,14 @@ _EXACT_LAUNCHES = {
     "c13": {"correlate1d": 6, "correlate1d_transpose": 0, "correlate_nd": 0,
             "correlate_nd_transpose": 0},
     "c14": {"correlate1d": 0, "correlate1d_transpose": 0, "correlate_nd": 2,
-            "correlate_nd_transpose": 1}}
+            "correlate_nd_transpose": 1},
+    # c15: one K12 per filter; c16: K10 on three axes for the erosion and
+    # the dilation of the opening, K11 for the top-hat's erosion and
+    # dilation and for the non-flat dilation
+    "c15": {"min_max_filter1d": 0, "min_max_filter": 0, "rank_filter": 3,
+            "binary_step": 0},
+    "c16": {"min_max_filter1d": 6, "min_max_filter": 3, "rank_filter": 0,
+            "binary_step": 0}}
 _DEFORM_KERNELS = ("resample_fwd", "resample_bwd", "resample_coord_grad")
 _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c4": ("resample_coord_grad",),
@@ -906,19 +1250,24 @@ _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c10": ("resample_coords_grad", "spline_prefilter_bc",
                             "spline_prefilter_bc_transpose")
                     + _DEFORM_KERNELS}
-# the resampler's configs run no filter kernel, the filter configs nothing
-# else
+# the resampler's configs run no filter or morphology kernel, the filter
+# and morphology configs nothing outside their tier; c17 only K13 (its sweep
+# counts are checked per call)
 for _name in ("c1", "c2", "c3", "c3_grad", "c4", "c5", "c6", "c7", "c8",
               "c9", "c10"):
-    _MUST_NOT_LAUNCH[_name] = _MUST_NOT_LAUNCH.get(_name, ()) + FILTER_KERNELS
-for _name in _EXACT_LAUNCHES:
-    _MUST_NOT_LAUNCH[_name] = tuple(k for k in KERNELS
-                                    if k not in FILTER_KERNELS)
+    _MUST_NOT_LAUNCH[_name] = _MUST_NOT_LAUNCH.get(_name, ()) + \
+        FILTER_KERNELS + MORPH_KERNELS
+for _name, _tier in (("c11", FILTER_KERNELS), ("c12", FILTER_KERNELS),
+                     ("c13", FILTER_KERNELS), ("c14", FILTER_KERNELS),
+                     ("c15", MORPH_KERNELS), ("c16", MORPH_KERNELS),
+                     ("c17", ("binary_step",))):
+    _MUST_NOT_LAUNCH[_name] = tuple(k for k in KERNELS if k not in _tier)
 
 
 def _wrappers():
     """Each kernel's wrapper, which holds its launch counter."""
     from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import morphology as mo
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
@@ -935,7 +1284,11 @@ def _wrappers():
             "correlate1d": ft.correlate1d,
             "correlate1d_transpose": ft.correlate1d_transpose,
             "correlate_nd": ft.correlate_nd,
-            "correlate_nd_transpose": ft.correlate_nd_transpose}
+            "correlate_nd_transpose": ft.correlate_nd_transpose,
+            "min_max_filter1d": mo.min_max_filter1d,
+            "min_max_filter": mo.min_max_filter,
+            "rank_filter": mo.rank_filter,
+            "binary_step": mo.binary_step}
 
 
 def _counts():
@@ -974,6 +1327,15 @@ def phase_main_path():
             if launches[name][k] != v:
                 raise AssertionError(f"{name} launched {k} "
                                      f"{launches[name][k]} times, not {v}")
+    for cfg in configs:
+        sweeps = getattr(cfg, "sweeps", None)
+        if sweeps is None:
+            continue
+        print(f"{cfg.name} K13 sweeps per call: {json.dumps(sweeps)}")
+        if sweeps["opening"] != 4 or min(sweeps.values()) < 1:
+            raise AssertionError(f"{cfg.name}: the opening must take 4 K13 "
+                                 "sweeps and each fixpoint at least one, got "
+                                 f"{sweeps}")
 
     for cfg in configs:
         t0 = time.perf_counter()
@@ -992,6 +1354,11 @@ def phase_main_path():
                     f"gives {tuple(want.shape)} {want.dtype}")
             if not bool(torch.isfinite(got.double()).all()):
                 raise AssertionError(f"{what}: non-finite output")
+            if tol == "exact":
+                _same(got, want, f"{what} vs CPU")
+                print(f"{what}: {tuple(got.shape)} {got.dtype} equals the "
+                      "CPU run bit for bit")
+                continue
             if not got.dtype.is_floating_point:
                 if not torch.equal(got, want):
                     raise AssertionError(
@@ -1033,6 +1400,17 @@ def _k5_ops(B, n_out, naxis, order, C):
     contract = sum((m + 1 if m < naxis else naxis) * 2 * k ** (naxis - m + 1)
                    for m in range(1, naxis + 1))
     return B * n_out * (60 * naxis + fold + contract)
+
+
+def _select_comparisons(k, rank):
+    """The comparisons a selection of the ``rank``-th smallest (from 0) of
+    ``k`` values takes: the expected count of Hoare's quickselect (Knuth),
+    2((k+1)H(k) - (k+2-rank)H(k-rank) - (rank+3)H(rank+1) + k + 3), about
+    3.4 k for a median. Either K12 route computes this function."""
+    def h(n):
+        return sum(1.0 / i for i in range(1, n + 1))
+    return 2.0 * ((k + 1) * h(k) - (k + 2 - rank) * h(k - rank)
+                  - (rank + 3) * h(rank + 1) + k + 3)
 
 
 def _bound(nbytes, ops, flops=FP32_FLOPS):
@@ -1330,6 +1708,129 @@ def _times_filters(row, card):
         err, at="c14")
 
 
+def _times_morphology(row, card):
+    """Phase 4 for the morphology tier: K10 as the three passes of c16's
+    5^3 dilation (int16, 512x512x300) beside ``max_pool3d`` (stride 1) on the
+    reflect-padded float32 volume; K11 as the ball erosion of c16's
+    top-hat, and its non-flat 3^3 float64 route; K12 at c15's shapes on its
+    three filters (network 27 and 33 taps, select 125); K13 as one 3^3
+    erosion sweep of c17's mask beside ``max_pool3d`` with a 3^3 window, and
+    c17's hole filling per sweep. Every kernel is held to its twin bit for
+    bit at these shapes."""
+    import torch
+    import torch.nn.functional as F
+    from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(13)
+
+    v = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)).astype(
+        np.int16), device=dev)
+    numel = v.numel()
+
+    def dilate(fn):
+        def run():
+            y = v
+            for a in (0, 1, 2):
+                y = fn(y, 5, a, "reflect", 0, 2, False)
+            return y
+        return run
+
+    _same(dilate(mo.min_max_filter1d)(), dilate(mo.min_max_filter1d_plain)(),
+          "K10 at c16 shapes")
+    vp = v.float()
+    for a in (0, 1, 2):
+        vp = ft.pad_axis(vp, a, 2, 2, "reflect", 0.0)
+    vp = vp[None, None].contiguous()
+    per_axis = [_time_ms(lambda a=a: mo.min_max_filter1d(
+        v, 5, a, "reflect", 0, 2, False)) for a in (0, 1, 2)]
+    print(f"min_max_filter1d per-axis ms at (512, 512, 300) int16, size 5: "
+          f"{per_axis} [{card}]")
+    row("min_max_filter1d", "morphology.cu",
+        "elasticdeform_tpu/ops/morphology.py:119",
+        _time_ms(dilate(mo.min_max_filter1d)),
+        _time_ms(dilate(mo.min_max_filter1d_plain)),
+        _bound(3 * 2 * numel * 2, 3 * numel * 4),
+        _time_ms(lambda: F.max_pool3d(vp, 5, stride=1)), 0.0, at="c16",
+        extra={"axis_ms": per_axis})
+    del vp
+
+    ball = _ball(2)
+    cen = [2, 2, 2]
+    _same(mo.min_max_filter(v, ball, None, cen, "reflect", 0, True),
+          mo.min_max_filter_plain(v, ball, None, cen, "reflect", 0, True),
+          "K11 at c16 shapes")
+    g3 = np.indices((3, 3, 3)) - 1
+    s3 = -30.0 * (g3 ** 2).sum(0)
+    ones3 = np.ones((3, 3, 3), dtype=bool)
+    nonflat = _time_ms(lambda: mo.min_max_filter(
+        v, ones3, s3, [1, 1, 1], "reflect", 0.0, False))
+    print(f"min_max_filter non-flat 3^3 (float64 work, saturating cast) at "
+          f"c16 shapes: {nonflat:.4f} ms [{card}]")
+    row("min_max_filter", "morphology.cu",
+        "elasticdeform_tpu/ops/morphology.py:196",
+        _time_ms(lambda: mo.min_max_filter(v, ball, None, cen, "reflect", 0,
+                                           True)),
+        _time_ms(lambda: mo.min_max_filter_plain(v, ball, None, cen,
+                                                 "reflect", 0, True)),
+        _bound(2 * numel * 2, numel * int(ball.sum())), None, 0.0, at="c16",
+        extra={"nonflat_ms": nonflat})
+    del v
+
+    S = (160, 192, 224)
+    x = torch.as_tensor(_mri_like(rs, S), device=dev)
+    numel = x.numel()
+    routes = {}
+    for label, fp, rank in (("median3", np.ones((3, 3, 3), bool), 13),
+                            ("median5", np.ones((5, 5, 5), bool), 62),
+                            ("percentile20_ball2", ball, 6)):
+        c = [k // 2 for k in fp.shape]
+        k = int(fp.sum())
+        args = (x, fp, c, "reflect", 0.0, rank)
+        _same(mo.rank_filter(*args), mo.rank_filter_plain(*args),
+              f"K12 {label} at c15 shapes")
+        routes[label] = (_time_ms(lambda a=args: mo.rank_filter(*a)),
+                         _time_ms(lambda a=args: mo.rank_filter_plain(*a),
+                                  reps=3, warmup=1),
+                         _bound(2 * numel * 4,
+                                numel * _select_comparisons(k, rank)), k)
+        ms, plain, b, _ = routes[label]
+        print(f"rank_filter {label} ({k} taps, rank {rank}) at c15 shapes: "
+              f"{ms:.4f} ms (plain {plain:.4f} ms, bound {b[0]:.4f} ms by "
+              f"{b[1]}) [{card}]")
+    ms, plain, b, _ = routes["median3"]
+    row("rank_filter", "morphology.cu",
+        "elasticdeform_tpu/ops/morphology.py:302", ms, plain, b, None, 0.0,
+        at="c15", extra={label: {"ms": r[0], "plain_ms": r[1],
+                                 "bound_ms": r[2][0], "taps": r[3]}
+                         for label, r in routes.items()})
+    del x
+
+    m, _ = _segmentation(rs, S)
+    m = torch.as_tensor(m, device=dev)
+    numel = m.numel()
+    cen = [1, 1, 1]
+    _same(mo.binary_step(m, ones3, cen, False, False),
+          mo.binary_step_plain(m, ones3, cen, False, False),
+          "K13 at c17 shapes")
+    mf = m.float()[None, None]
+    before = mo.binary_step.launches
+    fill_ms = _time_ms(lambda: mo.binary_erosion_dilation(
+        torch.zeros_like(m), None, -1, ~m, 1, 0, True), reps=3, warmup=1)
+    sweeps = (mo.binary_step.launches - before) // 4
+    print(f"binary_step fill_holes at c17 shapes: {sweeps} sweeps, "
+          f"{fill_ms:.4f} ms, {fill_ms / sweeps:.4f} ms per sweep [{card}]")
+    row("binary_step", "morphology.cu",
+        "elasticdeform_tpu/ops/morphology.py:452",
+        _time_ms(lambda: mo.binary_step(m, ones3, cen, False, False)),
+        _time_ms(lambda: mo.binary_step_plain(m, ones3, cen, False, False)),
+        _bound(2 * numel, numel * 27),
+        _time_ms(lambda: F.max_pool3d(mf, 3, stride=1, padding=1)), 0.0,
+        at="c17", extra={"fill_holes_sweeps": sweeps,
+                         "fill_holes_ms": fill_ms,
+                         "fill_holes_ms_per_sweep": fill_ms / sweeps})
+
+
 def phase_times(card, total_launches, errs):
     """Phase 4: kernel, plain and library times at the c5 shapes, and the
     configs' throughput."""
@@ -1470,6 +1971,7 @@ def phase_times(card, total_launches, errs):
     del x, gy, coeffs, displ, iota
     _times_resampler(row, card)
     _times_filters(row, card)
+    _times_morphology(row, card)
     for name, w in _wrappers().items():
         w.launches = save[name]
 

@@ -46,6 +46,13 @@ autograd function :class:`~elasticdeform_tpu_torch.ops.filters.Correlate1d`
 (kernel K8, backward K8T), the N-D ones through
 :class:`~elasticdeform_tpu_torch.ops.filters.CorrelateNd` (K9, backward
 K9T), so the float results are differentiable with respect to ``X``.
+
+The morphology tier (the JAX package's ``core.py:1576-1923`` and
+``1980-2146``): the minimum / maximum filters, :func:`rank_filter`,
+:func:`median_filter`, :func:`percentile_filter`, grey and binary
+morphology and the generic filters, with the same keywords plus ``device``,
+on kernels K10-K13 (:mod:`~elasticdeform_tpu_torch.ops.morphology`). It has
+no gradient: a tensor that requires grad raises.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from elasticdeform_tpu_torch import _normalize as _n
 from elasticdeform_tpu_torch.ops import deform as _d
 from elasticdeform_tpu_torch.ops import filters as _f
 from elasticdeform_tpu_torch.ops import modes as _modes
+from elasticdeform_tpu_torch.ops import morphology as _m
 from elasticdeform_tpu_torch.ops.resample import (
     cast_output, numpy_dtype, torch_dtype,
 )
@@ -1140,3 +1148,531 @@ def generic_gradient_magnitude(X, derivative, *, mode='reflect', cval=0.0,
     if not out.is_floating_point():
         out = out.to(torch.float64)
     return _finish_filter(torch.sqrt(out), dtype, out_array)
+
+
+# ---------------------------------------------------------------------------
+# the morphology tier (the JAX package's core.py:1576-1923, 1980-2146)
+
+
+def _morph_input(X, device) -> torch.Tensor:
+    """``X`` on the device (as :func:`_filter_input`); a tensor that
+    requires grad raises: the morphology tier has no gradient."""
+    x = _filter_input(X, device)
+    if x.requires_grad:
+        raise RuntimeError(
+            "the morphology and rank filters of elasticdeform_tpu_torch have "
+            "no gradient; pass a tensor that does not require grad (detach "
+            "it)")
+    return x
+
+
+def _host_array(a):
+    """A footprint or structure as a numpy array (tensors copied to the
+    host); None stays None."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+_WRAP_VIA_INT64 = (torch.uint16, torch.uint32)
+
+
+def _wrapping(op, a: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
+    """``op`` on same-typed tensors with integer wraparound, as the JAX
+    package computes; uint16/uint32/uint64, which PyTorch cannot add or
+    subtract, go through int64 (uint64 by its bits) and back. bool refuses
+    subtraction, as JAX does."""
+    if a.dtype == torch.bool and op is torch.sub:
+        raise TypeError("sub does not accept dtype bool")
+    if a.dtype in _WRAP_VIA_INT64:
+        return op(a.to(torch.int64), *[t.to(torch.int64) for t in rest]).to(
+            a.dtype)
+    if a.dtype == torch.uint64:
+        return op(a.view(torch.int64),
+                  *[t.view(torch.int64) for t in rest]).view(torch.uint64)
+    return op(a, *rest)
+
+
+def minimum_filter1d(X, size, axis=-1, *, mode='reflect', cval=0.0, origin=0,
+                     output=None, device=None):
+    """1-D minimum filter (``scipy.ndimage.minimum_filter1d``): kernel K10 on
+    the card, the input's dtype kept (no arithmetic). ``cval`` pads in the
+    input's dtype as numpy converts it (a fraction truncates, a value out of
+    the integer range raises OverflowError). ``output`` as
+    :func:`gaussian_filter1d`."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_min_max_filter1d(x, size, axis, mode, cval, origin, True)
+    return _finish_filter(res, dtype, out_array)
+
+
+def maximum_filter1d(X, size, axis=-1, *, mode='reflect', cval=0.0, origin=0,
+                     output=None, device=None):
+    """1-D maximum filter (``scipy.ndimage.maximum_filter1d``; K10)."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_min_max_filter1d(x, size, axis, mode, cval, origin, False)
+    return _finish_filter(res, dtype, out_array)
+
+
+def minimum_filter(X, size=None, footprint=None, *, mode='reflect', cval=0.0,
+                   origin=0, axes=None, output=None, device=None):
+    """N-D minimum filter (``scipy.ndimage.minimum_filter``): a box runs one
+    K10 pass per axis, as SciPy separates it; any other footprint runs K11
+    over its taps. ``mode`` may be per axis for a box only."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_min_max_filter(x, size, _host_array(footprint), None, mode,
+                                  cval, origin, True, axes)
+    return _finish_filter(res, dtype, out_array)
+
+
+def maximum_filter(X, size=None, footprint=None, *, mode='reflect', cval=0.0,
+                   origin=0, axes=None, output=None, device=None):
+    """N-D maximum filter (``scipy.ndimage.maximum_filter``; K10 or K11)."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_min_max_filter(x, size, _host_array(footprint), None, mode,
+                                  cval, origin, False, axes)
+    return _finish_filter(res, dtype, out_array)
+
+
+def rank_filter(X, rank, size=None, footprint=None, *, mode='reflect',
+                cval=0.0, origin=0, axes=None, output=None, device=None):
+    """Order-statistic filter (``scipy.ndimage.rank_filter``): kernel K12,
+    the JAX package's pruned comparator network up to 64 taps (a window
+    holding a NaN gives NaN), a selection in sorted order above (NaN last).
+    Negative ranks count from the top; the lowest and highest rank run as
+    minimum / maximum filters."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_rank_filter(x, rank, size, _host_array(footprint), mode,
+                               cval, origin, 'rank', axes)
+    return _finish_filter(res, dtype, out_array)
+
+
+def median_filter(X, size=None, footprint=None, *, mode='reflect', cval=0.0,
+                  origin=0, axes=None, output=None, device=None):
+    """Median filter (``scipy.ndimage.median_filter``): :func:`rank_filter`
+    at rank ``footprint_size // 2``."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_rank_filter(x, 0, size, _host_array(footprint), mode, cval,
+                               origin, 'median', axes)
+    return _finish_filter(res, dtype, out_array)
+
+
+def percentile_filter(X, percentile, size=None, footprint=None, *,
+                      mode='reflect', cval=0.0, origin=0, axes=None,
+                      output=None, device=None):
+    """Percentile filter (``scipy.ndimage.percentile_filter``): SciPy's rank
+    ``int(k * p / 100)`` of ``k`` taps."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_rank_filter(x, percentile, size, _host_array(footprint),
+                               mode, cval, origin, 'percentile', axes)
+    return _finish_filter(res, dtype, out_array)
+
+
+def grey_erosion(X, size=None, footprint=None, structure=None, *,
+                 mode='reflect', cval=0.0, origin=0, axes=None, output=None,
+                 device=None):
+    """Greyscale erosion (``scipy.ndimage.grey_erosion``): ``min(x(y + z) -
+    s(z))`` over the footprint (K11); a flat structure is a minimum filter.
+    An integer or bool input with a non-flat structure computes in float64,
+    then truncates and saturates at its type's range, as the JAX package
+    casts."""
+    if size is None and footprint is None and structure is None:
+        raise ValueError("size, footprint, or structure must be specified")
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_min_max_filter(x, size, _host_array(footprint),
+                                  _host_array(structure), mode, cval, origin,
+                                  True, axes)
+    return _finish_filter(res, dtype, out_array)
+
+
+def grey_dilation(X, size=None, footprint=None, structure=None, *,
+                  mode='reflect', cval=0.0, origin=0, axes=None, output=None,
+                  device=None):
+    """Greyscale dilation (``scipy.ndimage.grey_dilation``): the footprint
+    and structure reflected and the origin mirrored (shifted by one on even
+    axes), as SciPy does, then a maximum (K10 or K11)."""
+    if size is None and footprint is None and structure is None:
+        raise ValueError("size, footprint, or structure must be specified")
+    structure, footprint = _host_array(structure), _host_array(footprint)
+    if structure is not None:
+        structure = structure[(slice(None, None, -1),) * structure.ndim]
+    if footprint is not None:
+        footprint = footprint[(slice(None, None, -1),) * footprint.ndim]
+    x = _morph_input(X, device)
+    axes_t = tuple(range(x.dim())) if axes is None else (
+        (axes,) if np.isscalar(axes) else tuple(axes))
+    axes_t = tuple(int(a) % x.dim() for a in axes_t)
+    origins = [-int(o) for o in
+               _f.normalize_sequence(origin, len(axes_t), "origin")]
+    for ii in range(len(origins)):
+        if footprint is not None:
+            sz = footprint.shape[ii]
+        elif structure is not None:
+            sz = structure.shape[ii]
+        elif np.isscalar(size):
+            sz = size
+        else:
+            sz = size[ii]
+        if not sz & 1:
+            origins[ii] -= 1
+    dtype, out_array = _resolve_output(x, output)
+    res = _m.apply_min_max_filter(x, size, footprint, structure, mode, cval,
+                                  origins, False, axes_t)
+    return _finish_filter(res, dtype, out_array)
+
+
+def grey_opening(X, size=None, footprint=None, structure=None, *,
+                 mode='reflect', cval=0.0, origin=0, axes=None, output=None,
+                 device=None):
+    """Greyscale opening (``scipy.ndimage.grey_opening``): erosion, then
+    dilation."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    kw = dict(mode=mode, cval=cval, origin=origin, axes=axes, device=x.device)
+    tmp = grey_erosion(x, size, footprint, structure, **kw)
+    res = grey_dilation(tmp, size, footprint, structure, **kw)
+    return _finish_filter(res, dtype, out_array)
+
+
+def grey_closing(X, size=None, footprint=None, structure=None, *,
+                 mode='reflect', cval=0.0, origin=0, axes=None, output=None,
+                 device=None):
+    """Greyscale closing (``scipy.ndimage.grey_closing``): dilation, then
+    erosion."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    kw = dict(mode=mode, cval=cval, origin=origin, axes=axes, device=x.device)
+    tmp = grey_dilation(x, size, footprint, structure, **kw)
+    res = grey_erosion(tmp, size, footprint, structure, **kw)
+    return _finish_filter(res, dtype, out_array)
+
+
+def morphological_gradient(X, size=None, footprint=None, structure=None, *,
+                           mode='reflect', cval=0.0, origin=0, axes=None,
+                           output=None, device=None):
+    """Morphological gradient (``scipy.ndimage.morphological_gradient``):
+    dilation minus erosion, integers wrapping."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    kw = dict(mode=mode, cval=cval, origin=origin, axes=axes, device=x.device)
+    res = _wrapping(torch.sub,
+                    grey_dilation(x, size, footprint, structure, **kw),
+                    grey_erosion(x, size, footprint, structure, **kw))
+    return _finish_filter(res, dtype, out_array)
+
+
+def morphological_laplace(X, size=None, footprint=None, structure=None, *,
+                          mode='reflect', cval=0.0, origin=0, axes=None,
+                          output=None, device=None):
+    """Morphological Laplace (``scipy.ndimage.morphological_laplace``):
+    dilation + erosion - 2 x, in the JAX package's order, integers
+    wrapping."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    kw = dict(mode=mode, cval=cval, origin=origin, axes=axes, device=x.device)
+    res = _wrapping(torch.add,
+                    grey_dilation(x, size, footprint, structure, **kw),
+                    grey_erosion(x, size, footprint, structure, **kw))
+    res = _wrapping(torch.sub, _wrapping(torch.sub, res, x), x)
+    return _finish_filter(res, dtype, out_array)
+
+
+def white_tophat(X, size=None, footprint=None, structure=None, *,
+                 mode='reflect', cval=0.0, origin=0, axes=None, output=None,
+                 device=None):
+    """White top-hat (``scipy.ndimage.white_tophat``): the input minus its
+    opening (bool: exclusive or)."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    tmp = grey_opening(x, size, footprint, structure, mode=mode, cval=cval,
+                       origin=origin, axes=axes, device=x.device)
+    if x.dtype == torch.bool and tmp.dtype == torch.bool:
+        res = x ^ tmp
+    else:
+        res = _wrapping(torch.sub, x, tmp)
+    return _finish_filter(res, dtype, out_array)
+
+
+def black_tophat(X, size=None, footprint=None, structure=None, *,
+                 mode='reflect', cval=0.0, origin=0, axes=None, output=None,
+                 device=None):
+    """Black top-hat (``scipy.ndimage.black_tophat``): the closing minus the
+    input (bool: exclusive or)."""
+    x = _morph_input(X, device)
+    dtype, out_array = _resolve_output(x, output)
+    tmp = grey_closing(x, size, footprint, structure, mode=mode, cval=cval,
+                       origin=origin, axes=axes, device=x.device)
+    if x.dtype == torch.bool and tmp.dtype == torch.bool:
+        res = tmp ^ x
+    else:
+        res = _wrapping(torch.sub, tmp, x)
+    return _finish_filter(res, dtype, out_array)
+
+
+def _binary_axes_args(ndim: int, structure, origin, axes):
+    """SciPy's ``axes=`` for binary morphology: the structure (default:
+    connectivity 1 over ``axes``) and the per-axis ``origin`` cover only
+    ``axes``; the other axes get extent 1."""
+    axes_t = _f._normalize_axes(axes, ndim)
+    structure = _host_array(structure)
+    if len(axes_t) == ndim:
+        return structure, origin
+    if structure is None:
+        structure = _m.generate_binary_structure(len(axes_t), 1)
+    structure = _f._expand_to_ndim(structure, ndim, axes_t)
+    origins = _f.normalize_sequence(origin, len(axes_t), "origin")
+    full = [0] * ndim
+    for a, o in zip(axes_t, origins):
+        full[a] = int(o)
+    return structure, full
+
+
+def _binary(X, structure, iterations, mask, border_value, origin, axes,
+            dilation, device):
+    x = _morph_input(X, device)
+    structure, origin = _binary_axes_args(x.dim(), structure, origin, axes)
+    m = None if mask is None else _to_device(mask, x.device)
+    return _m.binary_erosion_dilation(x, structure, iterations, m,
+                                      border_value, origin, dilation)
+
+
+def binary_erosion(X, structure=None, iterations=1, mask=None, *,
+                   border_value=0, origin=0, axes=None, brute_force=False,
+                   device=None):
+    """Binary erosion (``scipy.ndimage.binary_erosion``): ``iterations``
+    sweeps of kernel K13, or sweeps to the fixpoint for ``iterations <= 0``;
+    ``mask`` gates which voxels may change each sweep; the border extends
+    with ``border_value``; with ``axes`` the structure covers only those
+    axes. ``brute_force`` is accepted and ignored, as in the JAX package
+    (every sweep reconsiders every voxel). Returns a bool tensor."""
+    return _binary(X, structure, iterations, mask, border_value, origin,
+                   axes, False, device)
+
+
+def binary_dilation(X, structure=None, iterations=1, mask=None, *,
+                    border_value=0, origin=0, axes=None, brute_force=False,
+                    device=None):
+    """Binary dilation (``scipy.ndimage.binary_dilation``): the structure
+    reflected and the origin mirrored, as SciPy does; otherwise as
+    :func:`binary_erosion`."""
+    return _binary(X, structure, iterations, mask, border_value, origin,
+                   axes, True, device)
+
+
+def binary_opening(X, structure=None, iterations=1, mask=None, *,
+                   border_value=0, origin=0, axes=None, brute_force=False,
+                   device=None):
+    """Binary opening (``scipy.ndimage.binary_opening``): ``iterations``
+    erosions, then as many dilations."""
+    x = _morph_input(X, device)
+    structure, origin = _binary_axes_args(x.dim(), structure, origin, axes)
+    kw = dict(border_value=border_value, origin=origin, device=x.device)
+    tmp = binary_erosion(x, structure, iterations, mask, **kw)
+    return binary_dilation(tmp, structure, iterations, mask, **kw)
+
+
+def binary_closing(X, structure=None, iterations=1, mask=None, *,
+                   border_value=0, origin=0, axes=None, brute_force=False,
+                   device=None):
+    """Binary closing (``scipy.ndimage.binary_closing``): ``iterations``
+    dilations, then as many erosions."""
+    x = _morph_input(X, device)
+    structure, origin = _binary_axes_args(x.dim(), structure, origin, axes)
+    kw = dict(border_value=border_value, origin=origin, device=x.device)
+    tmp = binary_dilation(x, structure, iterations, mask, **kw)
+    return binary_erosion(tmp, structure, iterations, mask, **kw)
+
+
+def binary_propagation(X, structure=None, mask=None, *, border_value=0,
+                       origin=0, axes=None, device=None):
+    """Binary propagation (``scipy.ndimage.binary_propagation``): dilation
+    to the fixpoint inside ``mask`` (reconstruction by dilation)."""
+    x = _morph_input(X, device)
+    structure, origin = _binary_axes_args(x.dim(), structure, origin, axes)
+    return binary_dilation(x, structure, -1, mask, border_value=border_value,
+                           origin=origin, device=x.device)
+
+
+def binary_fill_holes(X, structure=None, *, origin=0, axes=None,
+                      device=None):
+    """Hole filling (``scipy.ndimage.binary_fill_holes``): the background
+    propagated from the border (``border_value=1``) through the complement,
+    to the fixpoint, then inverted."""
+    x = _morph_input(X, device) != 0
+    structure, origin = _binary_axes_args(x.dim(), structure, origin, axes)
+    seed = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    reached = binary_dilation(seed, structure, -1, ~x, border_value=1,
+                              origin=origin, device=x.device)
+    return ~reached
+
+
+def binary_hit_or_miss(X, structure1=None, structure2=None, *, origin1=0,
+                       origin2=None, axes=None, device=None):
+    """Binary hit-or-miss (``scipy.ndimage.binary_hit_or_miss``):
+    ``erosion(x, s1) & erosion(~x, s2)``, ``s2`` defaulting to ``~s1``, the
+    second erosion with a border of 1."""
+    x = _morph_input(X, device) != 0
+    axes_t = _f._normalize_axes(axes, x.dim())
+    if structure1 is None:
+        structure1 = _m.generate_binary_structure(len(axes_t), 1)
+    else:
+        structure1 = _host_array(structure1)
+    if structure2 is None:
+        structure2 = np.logical_not(structure1)
+    else:
+        structure2 = _host_array(structure2)
+    if origin2 is None:
+        origin2 = origin1
+    structure1, origin1 = _binary_axes_args(x.dim(), structure1, origin1,
+                                            axes)
+    structure2, origin2 = _binary_axes_args(x.dim(), structure2, origin2,
+                                            axes)
+    tmp1 = binary_erosion(x, structure1, 1, None, border_value=0,
+                          origin=origin1, device=x.device)
+    tmp2 = binary_erosion(~x, structure2, 1, None, border_value=1,
+                          origin=origin2, device=x.device)
+    return tmp1 & tmp2
+
+
+# the RuntimeErrors torch.func.vmap raises when a callable turns a batched
+# tensor into numpy or a Python number or bool: those callables run once per
+# voxel (or line) on the host instead, as the JAX package's fallback does
+_HOST_CALLABLE_ERRORS = (
+    "Cannot access data pointer of Tensor that doesn't have storage",
+    "vmap: It looks like you're calling .item() on a Tensor",
+    "vmap: It looks like you're attempting to use a Tensor in some "
+    "data-dependent control flow")
+
+
+def _map_rows(fn, rows: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the rows of ``rows``: ``torch.func.vmap``, or one host
+    call per row for a callable that needs numpy values."""
+    try:
+        return _to_device(torch.func.vmap(fn)(rows), rows.device)
+    except RuntimeError as e:
+        if not str(e).startswith(_HOST_CALLABLE_ERRORS):
+            raise
+    host = rows.cpu().numpy()
+    return _to_device(np.asarray([fn(host[i]) for i in range(len(host))]),
+                      rows.device)
+
+
+def generic_filter(X, function, size=None, footprint=None, output=None, *,
+                   mode='reflect', cval=0.0, origin=0, extra_arguments=(),
+                   extra_keywords=None, axes=None, device=None):
+    """Window filter with a callable (``scipy.ndimage.generic_filter``): the
+    footprint's taps of every voxel stacked along a new trailing axis (raster
+    order, SciPy's window order) and ``function(taps, *extra_arguments,
+    **extra_keywords)`` mapped over all voxels with ``torch.func.vmap``; a
+    callable that needs numpy values (``np.ptp``) runs once per voxel on the
+    host."""
+    extra_keywords = extra_keywords or {}
+    x = _morph_input(X, device)
+    out_dtype, out_array = _resolve_output(x, output)
+    footprint, origins = _m._footprint_for(x, size, _host_array(footprint),
+                                           origin, axes)
+    stack = _m.footprint_tap_stack(x, footprint, origins, mode, cval)
+    out = _map_rows(lambda v: function(v, *extra_arguments, **extra_keywords),
+                    stack.reshape(-1, stack.shape[-1]))
+    return _finish_filter(out.reshape(x.shape), out_dtype, out_array)
+
+
+def generic_filter1d(X, function, filter_size, axis=-1, output=None, *,
+                     mode='reflect', cval=0.0, origin=0, extra_arguments=(),
+                     extra_keywords=None, device=None):
+    """Line filter with a callable (``scipy.ndimage.generic_filter1d``), in
+    the JAX package's functional form: ``function(line_in) -> line_out``,
+    ``line_in`` the boundary-extended line of ``n + filter_size - 1``
+    samples, ``line_out`` of ``n``; mapped over all lines as
+    :func:`generic_filter` maps."""
+    extra_keywords = extra_keywords or {}
+    x = _morph_input(X, device)
+    out_dtype, out_array = _resolve_output(x, output)
+    axis = axis % x.dim()
+    size = int(filter_size)
+    if size < 1:
+        raise RuntimeError("invalid filter size")
+    c = size // 2 + int(origin)
+    if not 0 <= c < size:
+        raise ValueError("invalid origin")
+    mode = _f.check_mode(mode)
+    cv = _m._pad_value(cval, x.dtype, mode, [(c, size - 1 - c)])
+    xp = _m._unplain(_f.pad_axis(_m._plain(x), axis, c, size - 1 - c, mode,
+                                 _m._plain_scalar(cv, x.dtype)), x.dtype)
+    n = int(x.shape[axis])
+    moved = torch.movedim(xp, axis, -1)
+    out = _map_rows(lambda v: function(v, *extra_arguments, **extra_keywords),
+                    moved.reshape(-1, moved.shape[-1]))
+    if out.shape[-1] != n:
+        raise ValueError(f"function must return lines of length {n}; got "
+                         f"{out.shape[-1]}")
+    out = out.reshape(tuple(moved.shape[:-1]) + (n,))
+    return _finish_filter(torch.movedim(out, -1, axis), out_dtype, out_array)
+
+
+def vectorized_filter(X, function, *, size=None, footprint=None,
+                      mode='reflect', cval=None, origin=None, axes=None,
+                      batch_memory=None, device=None):
+    """Window filter with a vectorized callable
+    (``scipy.ndimage.vectorized_filter``): ``function(windows, axis=...)``
+    is called once, the window axes appended as trailing axes (``axis`` the
+    tuple of them) or, with a ``footprint``, its selected taps flattened into
+    one trailing axis (``axis=-1``). The five modes, or ``'valid'`` (the
+    output shrinks by ``size - 1``). ``batch_memory`` is accepted and
+    ignored."""
+    x = _morph_input(X, device)
+    axes_t = _f._normalize_axes(axes, x.dim())
+    n_axes = len(axes_t)
+    footprint = _host_array(footprint)
+    if footprint is not None:
+        footprint = footprint.astype(bool)
+        if footprint.ndim != n_axes:
+            raise ValueError("footprint.ndim must equal len(axes)")
+        sizes = list(footprint.shape)
+    else:
+        if size is None:
+            raise ValueError("either size or footprint must be given")
+        sizes = [int(s) for s in _f.normalize_sequence(size, n_axes, "size")]
+    origins = [int(o) for o in _f.normalize_sequence(
+        0 if origin is None else origin, n_axes, "origin")]
+    if cval is not None and mode != 'constant':
+        raise ValueError(
+            "Use of `cval` is compatible only with `mode='constant'`.")
+    cval = 0.0 if cval is None else cval
+    work = _m._plain(x)
+    out_shape = list(x.shape)
+    if mode == 'valid':
+        for ax, s in zip(axes_t, sizes):
+            out_shape[ax] = x.shape[ax] - (s - 1)
+            if out_shape[ax] < 1:
+                raise ValueError("size must not exceed input shape in "
+                                 "'valid' mode")
+    else:
+        md = _f.check_mode(mode)
+        for ax, s, o in zip(axes_t, sizes, origins):
+            lo, hi = s // 2 + o, (s - 1) // 2 - o
+            cv = _m._pad_value(cval, x.dtype, md, [(lo, hi)])
+            work = _f.pad_axis(work, ax, lo, hi, md,
+                               _m._plain_scalar(cv, x.dtype))
+    for ax, s in zip(axes_t, sizes):
+        work = torch.stack([work.narrow(ax, k, out_shape[ax])
+                            for k in range(s)], -1)
+
+    def raw(w):
+        return w if w.dtype == x.dtype else _m._unplain(w, x.dtype)
+
+    if footprint is not None:
+        sel = torch.as_tensor(np.nonzero(footprint.reshape(-1))[0],
+                              device=x.device)
+        work = work.reshape(tuple(work.shape[:x.dim()]) + (-1,))
+        return function(raw(torch.index_select(work, -1, sel)), axis=-1)
+    return function(raw(work), axis=tuple(range(-n_axes, 0)))

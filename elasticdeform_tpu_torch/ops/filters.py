@@ -248,7 +248,8 @@ def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str,
              cval) -> torch.Tensor:
     """Extend one axis by ``(lo, hi)`` under a filter mode: one
     ``index_select`` with numpy fold indices, or ``cval`` blocks in
-    constant mode. Any width works; the fold repeats as SciPy's does."""
+    constant mode (``cval`` a Python number that ``x``'s dtype holds). Any
+    width works; the fold repeats as SciPy's does."""
     if lo == 0 and hi == 0:
         return x
     n = int(x.shape[axis])
@@ -256,8 +257,7 @@ def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str,
         def block(k):
             shape = list(x.shape)
             shape[axis] = k
-            return torch.full(shape, float(cval), dtype=x.dtype,
-                              device=x.device)
+            return torch.full(shape, cval, dtype=x.dtype, device=x.device)
         return torch.cat([block(lo), x, block(hi)], axis)
     idx = torch.as_tensor(_fold_indices(n, int(lo), int(hi), mode),
                           device=x.device)

@@ -51,6 +51,7 @@ import numpy as np
 import elasticdeform_tpu_torch as et
 import elasticdeform_tpu_torch.api, elasticdeform_tpu_torch.core
 import elasticdeform_tpu_torch.ops.filters
+import elasticdeform_tpu_torch.ops.morphology
 X = np.random.RandomState(0).rand(12, 14)
 d = np.random.RandomState(1).randn(2, 3, 3) * 3
 Y = et.deform_grid([X, (X * 100).astype(np.uint8)], d, order=[3, 0],
@@ -68,6 +69,11 @@ assert et.gaussian_laplace(X, 1.0, output=np.int16, device='cpu').dtype \
 assert et.correlate(X, np.ones((3, 2)), mode='grid-wrap',
                     device='cpu').shape == X.shape
 assert et.sobel(X, device='cpu').shape == X.shape
+assert et.median_filter(X, size=3, device='cpu').shape == X.shape
+assert et.grey_opening((X * 100).astype(np.int16), size=(3, 2),
+                       device='cpu').dtype == elasticdeform_tpu_torch.core.torch.int16
+assert et.binary_fill_holes(X > 0.5, device='cpu').dtype \
+    == elasticdeform_tpu_torch.core.torch.bool
 assert not any(m.split('.')[0] in ('jax', 'elasticdeform_tpu')
                for m in sys.modules)
 print('ok')
@@ -135,7 +141,32 @@ for call in (lambda: et.deform_grid(X, d),
              lambda: et.correlate(X, np.ones((2, 2))),
              lambda: et.convolve(X, np.ones((2, 2))),
              lambda: et.generic_laplace(X, lambda *a: a[0]),
-             lambda: et.generic_gradient_magnitude(X, lambda *a: a[0])):
+             lambda: et.generic_gradient_magnitude(X, lambda *a: a[0]),
+             lambda: et.minimum_filter1d(X, 3),
+             lambda: et.maximum_filter1d(X, 3),
+             lambda: et.minimum_filter(X, 3),
+             lambda: et.maximum_filter(X, footprint=np.eye(3)),
+             lambda: et.rank_filter(X, 1, 3),
+             lambda: et.median_filter(X, 3),
+             lambda: et.percentile_filter(X, 20, 3),
+             lambda: et.grey_erosion(X, 3),
+             lambda: et.grey_dilation(X, 3),
+             lambda: et.grey_opening(X, 3),
+             lambda: et.grey_closing(X, 3),
+             lambda: et.morphological_gradient(X, 3),
+             lambda: et.morphological_laplace(X, 3),
+             lambda: et.white_tophat(X, 3),
+             lambda: et.black_tophat(X, 3),
+             lambda: et.binary_erosion(X),
+             lambda: et.binary_dilation(X),
+             lambda: et.binary_opening(X),
+             lambda: et.binary_closing(X),
+             lambda: et.binary_propagation(X),
+             lambda: et.binary_fill_holes(X),
+             lambda: et.binary_hit_or_miss(X),
+             lambda: et.generic_filter(X, lambda v: v.max(), 3),
+             lambda: et.generic_filter1d(X, lambda v: v[:11], 3),
+             lambda: et.vectorized_filter(X, torch.amax, size=3)):
     try:
         call()
     except (RuntimeError, AssertionError):
