@@ -33,7 +33,13 @@ Phases (any failure raises, and the exit code is not 0):
    (footprint min/max) over flat and non-flat 2-D to 4-D footprints with
    saturating integer casts, K12 (rank selection) over 2-343 taps on both
    routes, and K13 (binary sweep) over random, even and empty structures,
-   borders, masks, its changed flag and the fixpoint;
+   borders, masks, its changed flag and the fixpoint; K1 and K1c reading a
+   narrow (bfloat16 or float32) coefficient table, bit for bit; and the
+   probe kernels at the JAX probes' default sizes: P1 (shared memory) at
+   48-227 KiB, 228 KiB raising the CUDA error, P2 (row gather: copy,
+   element and sum modes) bit for bit and its sums repeating bit for bit,
+   P3 (row scatter-add) per element to the sum of its terms, integer
+   counts exactly, P4 (bulk-copy row gather) as P2's sums;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
@@ -55,14 +61,21 @@ Phases (any failure raises, and the exit code is not 0):
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16, and c17's K13 sweeps per
-   call);
+   call); then the probes' path: every Pallas probe through the port's
+   public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
+   default sizes, counters set to 0 before and read after (exact counts of
+   P1-P4, none of K1-K13), each output equal to phase 2's kernel output;
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
    its plain version and library yardstick (K1-K5 at the c5 shapes, also
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
    ``grid_sample``; K6, K7 and again K1c, K3c at the c8 shapes; K8-K9T at
    the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
    ``max_pool3d``, K12 at the c15 shapes, K13 at the c17 shapes beside
-   ``max_pool3d``), and each config (Mvox/s).
+   ``max_pool3d``; one line per probe, its calls timed back to back: ms,
+   M rows/s, GB/s of the rows
+   moved, from L2 or HBM, beside the byte bound, the twin and the library
+   call, ``index_select``, ``gather``, ``embedding_bag`` or ``index_add_``;
+   the library-only probes' rates), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. It exits non-zero with no
@@ -93,9 +106,13 @@ KERNELS = ("resample_fwd", "spline_prefilter", "resample_bwd",
            "resample_coords_fwd", "resample_coords_bwd",
            "resample_coords_grad", "correlate1d", "correlate1d_transpose",
            "correlate_nd", "correlate_nd_transpose", "min_max_filter1d",
-           "min_max_filter", "rank_filter", "binary_step")
+           "min_max_filter", "rank_filter", "binary_step", "smem_probe",
+           "row_gather", "row_scatter_add", "row_gather_async")
 FILTER_KERNELS = KERNELS[10:14]
-MORPH_KERNELS = KERNELS[14:]
+MORPH_KERNELS = KERNELS[14:18]
+PROBE_KERNELS = KERNELS[18:]
+# the kernels of the deform, resampler, filter and morphology path (phase 3)
+PATH_KERNELS = KERNELS[:18]
 
 
 def _tol(dtype, scale):
@@ -137,6 +154,27 @@ def _time_ms(fn, reps=REPS, warmup=2):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _loop_ms(fn, n=20, reps=3, warmup=2):
+    """Milliseconds per call of ``fn()`` run ``n`` times back to back
+    between two CUDA events, the median of ``reps`` such runs: as the JAX
+    probes time, so that a kernel of a few tens of microseconds is not
+    timed together with the host's work of launching it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -318,6 +356,7 @@ def phase_kernels():
           f"err {worst['spline_prefilter_transpose']:.3e}; the K2/K4 adjoint "
           f"identity holds in float64 ({n // 2} cases)")
     _check_coords_kernels(rs, worst)
+    _check_narrow_table(rs)
     _check_bc_prefilter(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_kernels(rs)
@@ -392,6 +431,53 @@ def _check_coords_kernels(rs, worst):
           f"with their plain twins, K3c resample_coords_bwd within "
           f"{worst['resample_coords_bwd']:.3e}: {n} cases each; the K1c/K3c "
           f"adjoint identity holds in float64 ({n // 2} cases)")
+
+
+def _check_narrow_table(rs):
+    """K1 and K1c with the narrow table (``table_dtype``): bfloat16 under
+    float32 and float64, float32 under float64, bit for bit against their
+    twins, which round the coefficients to the table and back."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample as rsm
+    dev = torch.device("cuda")
+    n = 0
+    for dtype, table in ((torch.float32, torch.bfloat16),
+                         (torch.float64, torch.bfloat16),
+                         (torch.float64, torch.float32)):
+        for naxis, in_sp, out_sp in ((2, (23, 31), (20, 27)),
+                                     (3, (11, 13, 9), (10, 12, 8))):
+            B, C = 2, 3
+            for order in range(6):
+                for mode in (0, 3, 4):
+                    coeffs = torch.as_tensor(rs.rand(B, *in_sp, C) * 4 - 1,
+                                             dtype=dtype, device=dev)
+                    displ = _smooth_displacement(rs, B, naxis, out_sp,
+                                                 2.0 * max(in_sp), dtype, dev)
+                    ext = max(in_sp)
+                    coords = torch.as_tensor(
+                        rs.uniform(-ext, 2 * ext, (B, naxis, *out_sp)),
+                        dtype=dtype, device=dev)
+                    args = (displ, None, (1,) * naxis, order, mode, 1.5)
+                    cargs = (coords, order, mode, 1.5)
+                    what = (f"{dtype} table {table} naxis={naxis} "
+                            f"order={order} mode={MODES[mode]}")
+                    narrow = rsm.narrowed(coeffs, table)
+                    for name, got, want in (
+                            ("K1", rsm.resample(coeffs, *args, table),
+                             rsm.resample_plain(narrow, *args)),
+                            ("K1c", rsm.resample_coords(coeffs, *cargs,
+                                                        table),
+                             rsm.resample_coords_plain(narrow, *cargs))):
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{name} narrow {what}: not bit-identical to "
+                                "its plain twin, max abs err "
+                                f"{float((got - want).abs().max()):.3e}")
+                    n += 1
+    print(f"K1 and K1c with the narrow table (bfloat16 under float32 and "
+          f"float64, float32 under float64) bit for bit with their twins: "
+          f"{n} cases each")
 
 
 def _check_bc_prefilter(rs, worst):
@@ -1256,7 +1342,7 @@ _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
 for _name in ("c1", "c2", "c3", "c3_grad", "c4", "c5", "c6", "c7", "c8",
               "c9", "c10"):
     _MUST_NOT_LAUNCH[_name] = _MUST_NOT_LAUNCH.get(_name, ()) + \
-        FILTER_KERNELS + MORPH_KERNELS
+        FILTER_KERNELS + MORPH_KERNELS + PROBE_KERNELS
 for _name, _tier in (("c11", FILTER_KERNELS), ("c12", FILTER_KERNELS),
                      ("c13", FILTER_KERNELS), ("c14", FILTER_KERNELS),
                      ("c15", MORPH_KERNELS), ("c16", MORPH_KERNELS),
@@ -1265,7 +1351,14 @@ for _name, _tier in (("c11", FILTER_KERNELS), ("c12", FILTER_KERNELS),
 
 
 def _wrappers():
-    """Each kernel's wrapper, which holds its launch counter."""
+    """Each kernel's wrappers, which hold its launch counters (P2 has one
+    per mode)."""
+    from elasticdeform_tpu_torch.ops import probes as po
+    return {k: w if isinstance(w, tuple) else (w,)
+            for k, w in {**_path_wrappers(), **po.KERNEL_WRAPPERS}.items()}
+
+
+def _path_wrappers():
     from elasticdeform_tpu_torch.ops import filters as ft
     from elasticdeform_tpu_torch.ops import morphology as mo
     from elasticdeform_tpu_torch.ops import prefilter as pf
@@ -1292,7 +1385,13 @@ def _wrappers():
 
 
 def _counts():
-    return {k: w.launches for k, w in _wrappers().items()}
+    return {k: sum(w.launches for w in ws) for k, ws in _wrappers().items()}
+
+
+def _reset_counts():
+    for ws in _wrappers().values():
+        for w in ws:
+            w.launches = 0
 
 
 def phase_main_path():
@@ -1301,15 +1400,14 @@ def phase_main_path():
     import torch
     configs = _configs()
     outs, launches = {}, {}
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(PATH_KERNELS, 0)
     for cfg in configs:
-        for w in _wrappers().values():
-            w.launches = 0
+        _reset_counts()
         outs[cfg.name] = cfg.run("cuda")
         torch.cuda.synchronize()
         launches[cfg.name] = _counts()
-        for k, v in launches[cfg.name].items():
-            total[k] += v
+        for k in PATH_KERNELS:
+            total[k] += launches[cfg.name][k]
     print(f"main path launches per config: {json.dumps(launches)}")
     if min(total.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {total}")
@@ -1375,6 +1473,351 @@ def phase_main_path():
                   f"run (max abs err {err:.3e}, rtol={rtol}, "
                   f"atol={atol_scale:g}*max|ref|)")
     return total, launches
+
+
+# ---------------------------------------------------------------------------
+# the probes: kernels P1-P4 at the JAX probes' default sizes
+
+
+# probe_dyngather2's four runs: (label, contract, n_rows, chunk, idx_shape)
+_PROBE_DEVICE = "cuda"
+_DG2_RUNS = (("take axis=0, idx 1-D", "take", 1024, 1024, None),
+             ("take_along_axis, idx 2-D", "take_along", 1024, 1024, "2d"),
+             ("fancy [idx2d, iota]", "fancy", 1024, 1024, "2d"),
+             ("take_along big (64K rows)", "take_along", 65536, 32768, "2d"))
+
+
+def _probe_data():
+    """Every probe's inputs on the card at the JAX probes' default sizes,
+    drawn once: ``pl_dma``'s 2 GiB table serves phases 2-4, and is also
+    the table of the ``xla`` and ``xla_map_sample`` yardsticks (the same
+    draw)."""
+    import torch
+    from elasticdeform_tpu_torch.probes import _common
+    from elasticdeform_tpu_torch.probes import probe_dyngather2 as dg2
+    from elasticdeform_tpu_torch.probes import probe_pallas as pp
+    t0 = time.perf_counter()
+    dev = _PROBE_DEVICE
+    d = {"dynload": pp.dynload_data(dev), "dynstore": pp.dynstore_data(dev),
+         "dyngather": pp.dyngather_data(dev),
+         "scatrate": pp.scatrate_data(device=dev),
+         # pl_vmem, both pl_dg and xla_small; pl_loop_gather and
+         # pl_loop_scatter; pl_dma; onehot
+         "1m": _common.make_data(8192, 1 << 20, device=dev),
+         "512k": _common.make_data(8192, 1 << 19, device=dev),
+         "dma": _common.make_data(1 << 22, 1 << 18, device=dev),
+         "onehot": _common.make_data(2048, 1 << 20, device=dev)}
+    for label, _, n_rows, chunk, shape in _DG2_RUNS:
+        d[label] = dg2.gather_data(n_rows, chunk, shape, dev)
+    torch.cuda.synchronize()
+    print(f"probe data drawn and uploaded in {time.perf_counter() - t0:.1f} "
+          "s")
+    return d
+
+
+def _probe_cases(d):
+    """``(label, kernel, entry, kernel call, plain call, kind)`` for every
+    Pallas probe: ``entry`` drives the port's public probe function on
+    ``d``, ``kernel call`` the wrapper directly; ``kind`` says how it is
+    held against its twin: ``bits``, ``sum`` (1e-5 of the sum of the
+    absolute terms, all positive here: the twin itself), ``scatter`` (the
+    same, atomics), ``count`` (integer counts, exact)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import probes as po
+    from elasticdeform_tpu_torch.probes import probe_dyngather2 as dg2
+    from elasticdeform_tpu_torch.probes import probe_gather as pg
+    from elasticdeform_tpu_torch.probes import probe_gather2 as pg2
+    from elasticdeform_tpu_torch.probes import probe_pallas as pp
+    ones8 = torch.ones((8, 128), device=_PROBE_DEVICE)
+    cases = [(f"smem{k}", "smem_probe",
+              lambda k=k: pp.vmem(k, _PROBE_DEVICE),
+              lambda k=k: po.smem_probe(ones8, k * 1024),
+              lambda: ones8.clone(), "bits") for k in pp.SMEM_KIB[:-1]]
+    t, i = d["dynload"]
+    cases.append(("dynload", "row_gather",
+                  lambda: pp.dynload(data=d["dynload"]),
+                  lambda: po.row_gather_sum(t, i, 65536, 8),
+                  lambda: po.row_gather_sum_plain(t, i, 65536, 8), "sum"))
+    si, sv = d["dynstore"]
+    cases.append(("dynstore", "row_scatter_add",
+                  lambda: pp.dynstore(data=d["dynstore"]),
+                  lambda: po.row_scatter_add(si, sv, 8192),
+                  lambda: po.row_scatter_add_plain(si, sv, 8192), "scatter"))
+    gt, gi = d["dyngather"]
+    cases.append(("dyngather", "row_gather",
+                  lambda: pp.dyngather(data=d["dyngather"]),
+                  lambda: po.row_gather(gt, gi),
+                  lambda: po.row_gather_plain(gt, gi), "bits"))
+    ci, cv = d["scatrate"]
+    cases.append(("scatrate", "row_scatter_add",
+                  lambda: pp.scatrate(data=d["scatrate"]),
+                  lambda: po.row_scatter_add(ci, cv, 40960),
+                  lambda: po.row_scatter_add_plain(ci, cv, 40960),
+                  "scatter"))
+    t1, i1 = d["1m"]
+    n1 = i1.numel()
+    cases += [
+        ("pl_vmem", "row_gather", lambda: pg.pl_vmem(data=d["1m"]),
+         lambda: po.row_gather_sum(t1, i1, 8192),
+         lambda: po.row_gather_sum_plain(t1, i1, 8192), "sum"),
+        ("pl_dg", "row_gather", lambda: pg.pl_dg(data=d["1m"]),
+         lambda: po.row_gather(t1, i1, n1 - 8192),
+         lambda: po.row_gather_plain(t1, i1, n1 - 8192), "bits")]
+    td, idd = d["dma"]
+    cases.append(("pl_dma", "row_gather_async",
+                  lambda: pg.pl_dma(data=d["dma"]),
+                  lambda: po.row_gather_async(td, idd, 4096),
+                  lambda: po.row_gather_sum_plain(td, idd, 4096), "sum"))
+    t5, i5 = d["512k"]
+    cases += [
+        ("pl_loop_gather", "row_gather",
+         lambda: pg2.pl_loop_gather(data=d["512k"]),
+         lambda: po.row_gather(t5, i5), lambda: po.row_gather_plain(t5, i5),
+         "bits"),
+        ("gather2.pl_dg", "row_gather", lambda: pg2.pl_dg(data=d["1m"]),
+         lambda: po.row_gather(t1, i1), lambda: po.row_gather_plain(t1, i1),
+         "bits")]
+    ones5 = torch.ones((i5.numel(), 128), device=_PROBE_DEVICE)
+    cases.append(("pl_loop_scatter", "row_scatter_add",
+                  lambda: pg2.pl_loop_scatter(data=d["512k"]),
+                  lambda: po.row_scatter_add(i5, ones5, 8192),
+                  lambda: po.row_scatter_add_plain(i5, ones5, 8192),
+                  "count"))
+    for label, contract, n_rows, chunk, shape in _DG2_RUNS:
+        tt, ii, _ = d[label]
+        fn = po.row_gather if contract == "take" else po.row_gather_element
+        plain = po.row_gather_plain if contract == "take" \
+            else po.row_gather_element_plain
+        cases.append((
+            f"dyngather2 {label}", "row_gather",
+            lambda c=contract, n=n_rows, k=chunk, sh=shape, dd=d[label]:
+            dg2.gather(c, n, k, sh, data=dd),
+            lambda fn=fn, tt=tt, ii=ii: fn(tt, ii),
+            lambda plain=plain, tt=tt, ii=ii: plain(tt, ii), "bits"))
+    return cases
+
+
+def _check_probe_kernels(d):
+    """Phase 2 for P1-P4: every Pallas probe's kernel call against its
+    plain twin on the card at the JAX probe's default sizes; the sums run
+    twice and repeat bit for bit; the element mode also on an index that is
+    not broadcast; P1 up to the card's limit, and one KiB past it must
+    raise. Returns ``(worst error per kernel, kernel outputs by label)``."""
+    import torch
+    from elasticdeform_tpu_torch.ops import probes as po
+    worst = dict.fromkeys(PROBE_KERNELS, 0.0)
+    outs = {}
+    limit = po.smem_limit()
+    if limit != 227 * 1024:
+        raise AssertionError(f"the card allows {limit} bytes of shared "
+                             "memory per block, not 227 KiB")
+    try:
+        po.smem_probe(torch.ones((8, 128), device=_PROBE_DEVICE), 228 * 1024)
+    except RuntimeError as e:
+        if "CUDA error" not in str(e):
+            raise
+        print(f"P1 smem_probe at 228 KiB raises as it must: {e}")
+    else:
+        raise AssertionError("P1 smem_probe ran past the card's limit")
+    for label, kernel, _, call, plain, kind in _probe_cases(d):
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} "
+                                 f"vs {tuple(want.shape)} {want.dtype}")
+        if kind in ("bits", "count"):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{label} ({kernel}): not bit-identical to its twin, "
+                    f"{int((got != want).sum())} values differ")
+        else:
+            worst[kernel] = max(worst[kernel], _assert_close(
+                got, want, 0.0, 1e-5 * want.double().abs(),
+                f"{label} ({kernel})"))
+            if kind == "sum" and not torch.equal(got, call()):
+                raise AssertionError(f"{label}: the sums did not repeat")
+        outs[label] = got
+    rs = np.random.RandomState(6)
+    table = torch.as_tensor(rs.rand(4096, 128), dtype=torch.float32,
+                            device=_PROBE_DEVICE)
+    idx2d = torch.as_tensor(rs.randint(0, 4096, (8192, 128)),
+                            dtype=torch.int32, device=_PROBE_DEVICE)
+    if not torch.equal(po.row_gather_element(table, idx2d),
+                       po.row_gather_element_plain(table, idx2d)):
+        raise AssertionError("P2 element mode on a random index: differs")
+    print(f"P1-P4 vs their plain twins at the JAX probes' default sizes: "
+          f"{len(outs)} probes pass (gathers and counts bit for bit, sums "
+          f"repeat bit for bit), max abs err {json.dumps(worst)}; the card "
+          f"allows {limit} bytes of shared memory per block")
+    return worst, outs
+
+
+def phase_probe_path(d, kernel_outs):
+    """The probes' main path: every Pallas probe through the port's public
+    functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
+    default sizes, with the launch counters set to 0 just before and read
+    just after; each output must equal phase 2's kernel output (the
+    atomics' within 1e-5 of the sum of their terms). Returns the launch
+    counts."""
+    import collections
+    import torch
+    cases = _probe_cases(d)
+    _reset_counts()
+    outs = {label: entry() for label, _, entry, *_ in cases}
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = collections.Counter(kernel for _, kernel, *_ in cases)
+    print(f"probe path launches: "
+          f"{json.dumps({k: launches[k] for k in PROBE_KERNELS})}")
+    for k in KERNELS:
+        if launches[k] != want.get(k, 0):
+            raise AssertionError(f"the probe path launched {k} "
+                                 f"{launches[k]} times, not {want.get(k, 0)}")
+    for label, kernel, _, _, _, kind in cases:
+        got, ref = outs[label], kernel_outs[label]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"probe {label}: non-finite output")
+        if kind == "scatter":
+            _assert_close(got, ref, 0.0, 1e-5 * ref.double().abs(),
+                          f"probe {label}")
+        elif not torch.equal(got, ref):
+            raise AssertionError(f"probe {label}: the entry point's output "
+                                 "differs from the kernel's in phase 2")
+    print(f"probe path: {len(cases)} Pallas probes through the public "
+          "functions match phase 2's kernel outputs")
+    return launches
+
+
+def _rows_bytes(table, *index_sets):
+    """Bytes of the distinct table rows that the index tensors touch."""
+    import torch
+    rows = torch.unique(torch.cat([i.reshape(-1) for i in index_sets]))
+    return rows.numel() * table.shape[1] * table.element_size()
+
+
+def _times_probes(row, card, d, errs):
+    """Phase 4 for the probes: per Pallas probe its kernel, twin and
+    library times (calls back to back, :func:`_loop_ms`: one call of the
+    small probes takes less device time than the host needs to launch it),
+    M rows/s as the JAX probe counts them, and the GB/s of
+    the rows it gathered or scattered (an L2 rate where the table fits the
+    50 MB L2) beside the bound; then the library-only probes' rates; then
+    the kernels' rows of the ``kernels`` line (P1 at smem227, P2 at
+    pl_vmem, P3 at scatrate, P4 at pl_dma)."""
+    import torch
+    import torch.nn.functional as F
+    from elasticdeform_tpu_torch.ops import probes as po
+    from elasticdeform_tpu_torch.probes import probe_gather as pg
+    from elasticdeform_tpu_torch.probes import probe_gather2 as pg2
+    cases = {c[0]: c for c in _probe_cases(d)}
+    t1, i1 = d["1m"]
+    t5, i5 = d["512k"]
+    td, idd = d["dma"]
+    lt, li = d["dynload"]
+    lstarts = po.window_starts(li, 8192, 8)
+    lbags = lstarts[None] + torch.arange(8, dtype=torch.int32,
+                                         device=_PROBE_DEVICE)[:, None]
+    gt, gi = d["dyngather"]
+    si, sv = d["dynstore"]
+    ci, cv = d["scatrate"]
+    ones5 = torch.ones((i5.numel(), 128), device=_PROBE_DEVICE)
+
+    def zeros(n):
+        return torch.zeros((n, 128), device=_PROBE_DEVICE)
+    # label: (JAX's row count, rows moved, bytes the function needs,
+    #         library call or None, table bytes (L2 or HBM))
+    spec = {
+        "smem227": (1, 0, 2 * 8 * 128 * 4, None, 0),
+        "dynload": (65536, 65536 * 8,
+                    _rows_bytes(lt, lbags) + li.numel() * 4 + 8 * 512,
+                    lambda: F.embedding_bag(lbags, lt, mode="sum"),
+                    lt.numel() * 4),
+        "dynstore": (65536, 65536, (sv.numel() + si.numel()) * 4
+                     + 8192 * 512,
+                     lambda: zeros(8192).index_add_(0, si, sv), 8192 * 512),
+        "dyngather": (1024, 1024, _rows_bytes(gt, gi) + 1024 * (4 + 512),
+                      lambda: torch.index_select(gt, 0, gi), 1024 * 512),
+        "scatrate": (1 << 20, 1 << 20, (cv.numel() + ci.numel()) * 4
+                     + 40960 * 512,
+                     lambda: zeros(40960).index_add_(0, ci, cv),
+                     40960 * 512),
+        "pl_vmem": (1 << 20, 1 << 20,
+                    _rows_bytes(t1, i1) + i1.numel() * 4 + 128 * 512,
+                    lambda: F.embedding_bag(i1.view(-1, 8192), t1,
+                                            mode="sum"), t1.numel() * 4),
+        "pl_dg": (1 << 20, 1 << 20,
+                  _rows_bytes(t1, i1[-8192:]) + 8192 * 4 + 8192 * 512,
+                  lambda: torch.index_select(t1, 0, i1[-8192:]),
+                  t1.numel() * 4),
+        "pl_dma": (1 << 18, 1 << 18,
+                   _rows_bytes(td, idd) + idd.numel() * 4 + 64 * 512,
+                   lambda: F.embedding_bag(idd.view(-1, 4096), td,
+                                           mode="sum"), td.numel() * 4),
+        "pl_loop_gather": (1 << 19, 1 << 19,
+                           _rows_bytes(t5, i5) + i5.numel() * (4 + 512),
+                           lambda: torch.index_select(t5, 0, i5),
+                           t5.numel() * 4),
+        "gather2.pl_dg": (1 << 20, 1 << 20,
+                          _rows_bytes(t1, i1) + i1.numel() * (4 + 512),
+                          lambda: torch.index_select(t1, 0, i1),
+                          t1.numel() * 4),
+        "pl_loop_scatter": (1 << 19, 1 << 19, (ones5.numel() + i5.numel())
+                            * 4 + 8192 * 512,
+                            lambda: zeros(8192).index_add_(0, i5, ones5),
+                            8192 * 512)}
+    for label, _, n_rows, chunk, shape in _DG2_RUNS:
+        tt, ii, i1d = d[label]
+        lib = (lambda tt=tt, ii=ii: torch.index_select(tt, 0, ii)) \
+            if shape is None else \
+            (lambda tt=tt, i64=ii.long(): torch.gather(tt, 0, i64))
+        spec[f"dyngather2 {label}"] = (
+            chunk, chunk, _rows_bytes(tt, i1d) + ii.numel() * 4
+            + chunk * 512, lib, tt.numel() * 4)
+    times = {}
+    for label, (n_jax, moved, nbytes, lib, tbytes) in spec.items():
+        _, kernel, _, call, plain, _ = cases[label]
+        ms = _loop_ms(call)
+        plain_ms = _loop_ms(plain, n=5, warmup=1)
+        lib_ms = None if lib is None else _loop_ms(lib)
+        bound = _bound(nbytes, 0)
+        where = "L2" if tbytes < 50e6 else "HBM"
+        rate = (f"{n_jax / ms / 1e3:.1f} M rows/s, "
+                f"{moved * 512 / ms / 1e6:.1f} GB/s of rows ({where} table)"
+                if moved else "a launch")
+        lib_s = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"probe {label} ({kernel}): {ms:.4f} ms, {rate}; bound "
+              f"{bound[0]:.4f} ms by bytes ({nbytes} B); plain "
+              f"{plain_ms:.4f} ms, library {lib_s} [{card}]")
+        times[label] = (ms, plain_ms, lib_ms, bound, moved)
+    # the library-only probes of the same files
+    gen = torch.Generator(device=_PROBE_DEVICE).manual_seed(0)
+    idx_x = torch.randint(0, td.shape[0], (1 << 20,), generator=gen,
+                          device=_PROBE_DEVICE, dtype=torch.int32)
+    idx_s = torch.randint(0, 65536, (64, 262144), generator=gen,
+                          device=_PROBE_DEVICE, dtype=torch.int32)
+    for label, fn, n in (
+            ("xla", lambda: pg.xla(data=(td, idx_x)), 1 << 20),
+            ("xla_small", lambda: pg.xla_small(data=d["1m"]), 1 << 20),
+            ("onehot", lambda: pg.onehot(data=d["onehot"]), 1 << 20),
+            ("xla_map_sample", lambda: pg2.xla_map_sample(data=(td, idx_s)),
+             64 * 262144)):
+        ms = _loop_ms(fn, n=5, warmup=1)
+        print(f"library probe {label}: {ms:.4f} ms, {n / ms / 1e3:.1f} M "
+              f"rows/s, {n * 512 / ms / 1e6:.1f} GB/s of rows [{card}]")
+    for kernel, label, replaces in (
+            ("smem_probe", "smem227", "tools/probe_pallas.py:50"),
+            ("row_gather", "pl_vmem", "tools/probe_gather.py:91"),
+            ("row_scatter_add", "scatrate", "tools/probe_pallas.py:188"),
+            ("row_gather_async", "pl_dma", "tools/probe_gather.py:179")):
+        ms, plain_ms, lib_ms, bound, moved = times[label]
+        extra = {"rows_gb_per_s": moved * 512 / ms / 1e6} if moved else {}
+        if kernel == "row_gather":
+            extra.update({f"{k}_ms": times[k][0] for k in (
+                "dynload", "dyngather", "pl_dg", "pl_loop_gather",
+                "gather2.pl_dg")})
+        row(kernel, "probes.cu", replaces, ms, plain_ms, bound, lib_ms,
+            errs.get(kernel, 0.0), at=label, extra=extra)
+
 
 
 def _k1_ops(B, n_out, naxis, order, C):
@@ -1831,9 +2274,10 @@ def _times_morphology(row, card):
                          "fill_holes_ms_per_sweep": fill_ms / sweeps})
 
 
-def phase_times(card, total_launches, errs):
-    """Phase 4: kernel, plain and library times at the c5 shapes, and the
-    configs' throughput."""
+def phase_times(card, total_launches, errs, probe_data):
+    """Phase 4: kernel, plain and library times at the c5 shapes (and the
+    other tiers' shapes, the probes' default sizes), and the configs'
+    throughput."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
@@ -1847,7 +2291,7 @@ def phase_times(card, total_launches, errs):
     grid = torch.as_tensor((rs.randn(B, 3, 3, 3, 3) * 6).astype(np.float32),
                            device=dev)
     displ = dense_displacement(grid, S, S, (0, 0, 0))
-    save = _counts()
+    save = {w: w.launches for ws in _wrappers().values() for w in ws}
     numel = x.numel()
     n_out = math.prod(S)
     rows = []
@@ -1936,7 +2380,10 @@ def phase_times(card, total_launches, errs):
         _time_ms(lambda: rsm.resample_plain(coeffs, *args, 0.0), warmup=1),
         _bound((numel + 3 * B * n_out + B * n_out * C) * 4,
                _k1_ops(B, n_out, 3, order, C)), o1["fwd"][1], k1_err,
-        extra={"order1_ms": o1["fwd"][0]})
+        extra={"order1_ms": o1["fwd"][0],
+               # the narrow table: the coefficients read as bfloat16
+               "bf16_table_ms": _time_ms(lambda: rsm.resample(
+                   coeffs, *args, 0.0, torch.bfloat16))})
 
     # K3: the scatter of gy back onto the coefficients (reads gy and the
     # displacement, writes d_coeffs once; the zero fill that its atomics
@@ -1972,8 +2419,9 @@ def phase_times(card, total_launches, errs):
     _times_resampler(row, card)
     _times_filters(row, card)
     _times_morphology(row, card)
-    for name, w in _wrappers().items():
-        w.launches = save[name]
+    _times_probes(row, card, probe_data, errs)
+    for w, v in save.items():
+        w.launches = v
 
     for cfg in _configs():
         ms = _time_ms(lambda run=cfg.run: run("cuda"))
@@ -1998,8 +2446,14 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     errs = phase_kernels()
+    probe_data = _probe_data()
+    probe_errs, probe_outs = _check_probe_kernels(probe_data)
+    errs.update(probe_errs)
     total, _ = phase_main_path()
-    kernels = phase_times(smi, total, errs)
+    probe_launches = phase_probe_path(probe_data, probe_outs)
+    del probe_outs
+    total.update({k: probe_launches[k] for k in PROBE_KERNELS})
+    kernels = phase_times(smi, total, errs, probe_data)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

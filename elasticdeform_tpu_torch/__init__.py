@@ -12,7 +12,7 @@ numpy API (numpy in, numpy out):
     api.geometric_transform, api.map_coordinates_gradient
 tensor API (torch tensors in and out):
     deform, deform_batch (differentiable with respect to X and the
-    displacement grid), core.deform_gradient, core.deform_batch_gradient;
+    displacement grid), deform_gradient, deform_batch_gradient;
     map_coordinates (+ _batch, _gradient), deform_field (+ _batch),
     affine_transform, shift, zoom, rotate, geometric_transform,
     spline_filter, spline_filter1d (differentiable with respect to X and
@@ -53,7 +53,8 @@ from elasticdeform_tpu_torch.core import (
     affine_transform, binary_closing, binary_dilation, binary_erosion,
     binary_fill_holes, binary_hit_or_miss, binary_opening, binary_propagation,
     black_tophat, convolve, convolve1d, correlate, correlate1d, deform,
-    deform_batch, deform_field, deform_field_batch, gaussian_filter,
+    deform_batch, deform_batch_gradient, deform_field, deform_field_batch,
+    deform_gradient, gaussian_filter,
     gaussian_filter1d, gaussian_gradient_magnitude, gaussian_laplace,
     generic_filter, generic_filter1d, generic_gradient_magnitude,
     generic_laplace, geometric_transform, grey_closing, grey_dilation,
@@ -69,8 +70,11 @@ from elasticdeform_tpu_torch.ops.morphology import (
     generate_binary_structure, iterate_structure,
 )
 
+__version__ = "0.1.0"
+
 __all__ = ["deform_grid", "deform_random_grid", "deform_grid_gradient",
-           "deform", "deform_batch", "map_coordinates",
+           "deform", "deform_gradient", "deform_batch",
+           "deform_batch_gradient", "map_coordinates",
            "map_coordinates_batch", "map_coordinates_gradient",
            "deform_field", "deform_field_batch", "affine_transform", "shift",
            "zoom", "rotate", "geometric_transform", "spline_filter",
@@ -87,4 +91,4 @@ __all__ = ["deform_grid", "deform_random_grid", "deform_grid_gradient",
            "binary_opening", "binary_closing", "binary_propagation",
            "binary_fill_holes", "binary_hit_or_miss", "generic_filter",
            "generic_filter1d", "vectorized_filter",
-           "generate_binary_structure", "iterate_structure"]
+           "generate_binary_structure", "iterate_structure", "__version__"]

@@ -7,6 +7,8 @@ so numpy arrays and torch tensors both pass.
 
 from __future__ import annotations
 
+import numpy as np
+
 from elasticdeform_tpu_torch.affine import (
     normalize_affine,
     inverse_affine,
@@ -174,13 +176,54 @@ def resolve_affine(affine, rotate, zoom, axis, output_shapes):
     return inv
 
 
+def check_strategy(strategy):
+    """The JAX package's ``strategy`` check (its ``_normalize.py:192``).
+    Its two strategies agree tap for tap, so here it selects nothing."""
+    _check(strategy in ("auto", "windows", "gather"),
+           "strategy must be 'auto', 'windows' or 'gather'")
+
+
+def normalize_table_dtype(table_dtype):
+    """The JAX package's ``table_dtype`` check (its ``_normalize.py:171``):
+    None, or the name of a float dtype."""
+    if table_dtype is None:
+        return None
+    table_dtype = np.dtype(table_dtype).name if table_dtype != "bfloat16" \
+        else "bfloat16"
+    if table_dtype not in ("bfloat16", "float32", "float64"):
+        raise ValueError(
+            "table_dtype must be a float dtype (got %r)" % table_dtype)
+    return table_dtype
+
+
+_TABLE_BYTES = {"bfloat16": 2, "float32": 4, "float64": 8}
+
+
+def narrow_table(table_dtype, strategy, compute_dtype: str) -> str:
+    """The dtype the resampling kernels read the coefficients in, ``""``
+    for the compute dtype: ``table_dtype`` where it is narrower than the
+    compute dtype. The JAX package casts its window table only on the
+    windows strategy (``'auto'`` or ``'windows'``; ``ops/windows.py:1201``),
+    so ``'gather'`` keeps the compute dtype; a table at least as wide as
+    the compute dtype changes nothing."""
+    table_dtype = normalize_table_dtype(table_dtype)
+    if table_dtype is None or strategy == "gather" or \
+            _TABLE_BYTES[table_dtype] >= np.dtype(compute_dtype).itemsize:
+        return ""
+    return table_dtype
+
+
 def build_spec(Xs, axis, deform_shape, output_shapes, output_offset,
-               orders, modes, cvals, prefilter, displacement_dtype):
+               orders, modes, cvals, prefilter, displacement_dtype,
+               strategy="auto", table_dtype=None):
     """Assemble the static :class:`DeformSpec` for a call.
 
     Raises TypeError for dtypes this package does not take yet (complex,
-    float16, bfloat16) and for a complex cval.
+    float16, bfloat16) and for a complex cval; checks ``strategy`` and
+    ``table_dtype`` as the JAX package does.
     """
+    check_strategy(strategy)
+    table_dtype = normalize_table_dtype(table_dtype)
     dtypes = [numpy_dtype(x.dtype) for x in Xs]
     if any(isinstance(c, complex) for c in cvals):
         raise TypeError("complex cval is not supported by "
@@ -207,16 +250,18 @@ def build_spec(Xs, axis, deform_shape, output_shapes, output_offset,
         offsets=tuple(output_offset),
         prefilter=bool(prefilter),
         compute_dtype=str(compute_dtype),
+        table_dtype=narrow_table(table_dtype, strategy, compute_dtype),
     )
 
 
 def build_map_spec(x, axis, deform_shape, out_spatial, order, mode, cval,
-                   prefilter, coord_dtype):
+                   prefilter, coord_dtype, strategy="auto", table_dtype=None):
     """Assemble the static :class:`DeformSpec` of a ``map_coordinates``
     call (the JAX package's ``_normalize.py:182``): the output spatial
     shape is the trailing shape of the coordinates, of any rank when ``x``
-    has no channel (non-deformed) axes. Raises TypeError as
-    :func:`build_spec` does."""
+    has no channel (non-deformed) axes. Raises as :func:`build_spec`
+    does."""
+    check_strategy(strategy)
     naxis = len(axis)
     dtype = numpy_dtype(x.dtype)
     channels = tuple(d for d in range(x.ndim) if d not in axis)
@@ -245,13 +290,15 @@ def build_map_spec(x, axis, deform_shape, out_spatial, order, mode, cval,
         cval=cval,
         out_shape=out_shape,
     )
+    compute_dtype = default_compute_dtype(numpy_dtype(coord_dtype), dtype)
     return DeformSpec(
         inputs=(ispec,),
         deform_shape=tuple(deform_shape),
         out_spatial=tuple(int(s) for s in out_spatial),
         offsets=(0,) * naxis,
         prefilter=bool(prefilter),
-        compute_dtype=default_compute_dtype(numpy_dtype(coord_dtype), dtype),
+        compute_dtype=compute_dtype,
+        table_dtype=narrow_table(table_dtype, strategy, compute_dtype),
     )
 
 

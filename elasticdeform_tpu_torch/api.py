@@ -6,7 +6,8 @@
 ``geometric_transform`` and ``map_coordinates_gradient``: numpy in, numpy
 out with the input dtypes, computed on ``device`` (default ``"cuda"``; pass
 ``device="cpu"`` to run on the host). Counterpart of the JAX package's
-``api.py``.
+``api.py``, with its keyword-only ``strategy``, ``batch_impl`` and
+``table_dtype`` (see :mod:`elasticdeform_tpu_torch.core`).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def deform_random_grid(X, sigma=25, points=3, order=3, mode='constant',
 
 def deform_grid(X, displacement, order=3, mode='constant', cval=0.0,
                 crop=None, prefilter=True, axis=None, affine=None,
-                rotate=None, zoom=None, *, device=None):
+                rotate=None, zoom=None, *, strategy="auto", device=None):
     """Elastic deformation of an image with a displacement grid.
 
     The coarse grid of per-axis displacement vectors is interpolated to a
@@ -80,6 +81,10 @@ def deform_grid(X, displacement, order=3, mode='constant', cval=0.0,
         displacement is added.
     rotate, zoom : None or float
         Rotation (degrees) and zoom about the output's centre, 2-D only.
+    strategy : str, keyword-only
+        ``'auto'``, ``'windows'`` or ``'gather'``, checked as the JAX
+        package checks it; its strategies agree tap for tap, so it changes
+        nothing here.
     device : None, str or torch.device, keyword-only
         Where to compute: ``None`` means ``"cuda"``.
 
@@ -92,7 +97,8 @@ def deform_grid(X, displacement, order=3, mode='constant', cval=0.0,
     Xs = _n.normalize_inputs(X)
     ys = _core.deform(Xs, displacement, order=order, mode=mode, cval=cval,
                       crop=crop, prefilter=prefilter, axis=axis,
-                      affine=affine, rotate=rotate, zoom=zoom, device=device)
+                      affine=affine, rotate=rotate, zoom=zoom,
+                      strategy=strategy, device=device)
     outputs = _to_host(ys, Xs)
     return outputs if isinstance(X, list) else outputs[0]
 
@@ -100,7 +106,7 @@ def deform_grid(X, displacement, order=3, mode='constant', cval=0.0,
 def deform_grid_gradient(dY, displacement, order=3, mode='constant',
                          cval=0.0, crop=None, prefilter=True, axis=None,
                          X_shape=None, affine=None, rotate=None, zoom=None, *,
-                         device=None):
+                         strategy="auto", device=None):
     """Gradient of :func:`deform_grid` with respect to the input image.
 
     Given the gradient ``dY`` of a scalar loss with respect to the output
@@ -115,7 +121,7 @@ def deform_grid_gradient(dY, displacement, order=3, mode='constant',
         Gradient(s) with respect to the deformed output(s), with the output
         shape(s) of the forward call (the cropped shape with ``crop``).
     displacement, order, mode, cval, crop, prefilter, axis, affine, \
-rotate, zoom
+rotate, zoom, strategy
         The values passed to the forward :func:`deform_grid` call.
     X_shape : None, tuple, or list of tuples
         Shape(s) of the forward input(s); required with ``crop``, else the
@@ -135,14 +141,16 @@ rotate, zoom
     dxs = _core.deform_gradient(dYs, displacement, order=order, mode=mode,
                                 cval=cval, crop=crop, prefilter=prefilter,
                                 axis=axis, X_shape=X_shape, affine=affine,
-                                rotate=rotate, zoom=zoom, device=device)
+                                rotate=rotate, zoom=zoom, strategy=strategy,
+                                device=device)
     outputs = _to_host(dxs, dYs)
     return outputs if isinstance(dY, list) else outputs[0]
 
 
 def deform_batch(X, displacement, order=3, mode='constant', cval=0.0,
                  crop=None, prefilter=True, axis=None, affine=None,
-                 rotate=None, zoom=None, *, device=None):
+                 rotate=None, zoom=None, *, strategy="auto",
+                 batch_impl="auto", table_dtype=None, device=None):
     """Batched :func:`deform_grid`: ``X`` ``(B, *image_shape)`` (or a list
     of such arrays), ``displacement`` ``(B, naxis, *points)`` per-sample
     grids; numpy in, numpy out. Other parameters are shared by the batch
@@ -151,7 +159,9 @@ def deform_batch(X, displacement, order=3, mode='constant', cval=0.0,
     ys = _core.deform_batch(Xs, displacement, order=order, mode=mode,
                             cval=cval, crop=crop, prefilter=prefilter,
                             axis=axis, affine=affine, rotate=rotate,
-                            zoom=zoom, device=device)
+                            zoom=zoom, strategy=strategy,
+                            batch_impl=batch_impl, table_dtype=table_dtype,
+                            device=device)
     outputs = _to_host(ys, Xs)
     return outputs if isinstance(X, list) else outputs[0]
 
@@ -159,7 +169,7 @@ def deform_batch(X, displacement, order=3, mode='constant', cval=0.0,
 def deform_batch_gradient(dY, displacement, order=3, mode='constant',
                           cval=0.0, crop=None, prefilter=True, axis=None,
                           X_shape=None, affine=None, rotate=None, zoom=None,
-                          *, device=None):
+                          *, strategy="auto", batch_impl="auto", device=None):
     """Batched :func:`deform_grid_gradient`: numpy in, numpy out. Maps
     ``dY`` ``(B, *output_shape)`` (or a list) to the input cotangents of
     :func:`deform_batch` given its per-sample grids ``(B, naxis,
@@ -169,13 +179,15 @@ def deform_batch_gradient(dY, displacement, order=3, mode='constant',
     dxs = _core.deform_batch_gradient(
         dYs, displacement, order=order, mode=mode, cval=cval, crop=crop,
         prefilter=prefilter, axis=axis, X_shape=X_shape, affine=affine,
-        rotate=rotate, zoom=zoom, device=device)
+        rotate=rotate, zoom=zoom, strategy=strategy, batch_impl=batch_impl,
+        device=device)
     outputs = _to_host(dxs, dYs)
     return outputs if isinstance(dY, list) else outputs[0]
 
 
 def map_coordinates(X, coordinates, order=3, mode='constant', cval=0.0,
-                    prefilter=True, axis=None, *, device=None):
+                    prefilter=True, axis=None, *, strategy="auto",
+                    table_dtype=None, device=None):
     """Resample ``X`` at explicit per-voxel coordinates ``(naxis,
     *out_shape)``: numpy in, numpy out (the JAX package's
     ``api.map_coordinates``). The five mode names keep the reference's
@@ -184,14 +196,15 @@ def map_coordinates(X, coordinates, order=3, mode='constant', cval=0.0,
     tensor version, which also takes the grid modes and gives gradients."""
     X = np.asarray(X)
     y = _core._map_classic(X, np.asarray(coordinates), order, mode, cval,
-                           prefilter, axis, device)
+                           prefilter, axis, device, strategy=strategy,
+                           table_dtype=table_dtype)
     return y.cpu().numpy().astype(X.dtype, copy=False)
 
 
 def geometric_transform(X, mapping, output_shape=None, order=3,
                         mode='constant', cval=0.0, prefilter=True,
                         extra_arguments=(), extra_keywords=None, *,
-                        device=None):
+                        strategy="auto", device=None):
     """Resample through a coordinate mapping, numpy in and out
     (``scipy.ndimage.geometric_transform``): ``mapping`` gets a tuple of
     float64 output coordinate arrays of shape ``output_shape`` and returns
@@ -206,12 +219,12 @@ def geometric_transform(X, mapping, output_shape=None, order=3,
         [np.broadcast_to(np.asarray(c, dtype=np.float64), out_shape)
          for c in coords])
     return map_coordinates(X, coordinates, order, mode, cval, prefilter,
-                           None, device=device)
+                           None, strategy=strategy, device=device)
 
 
 def map_coordinates_gradient(dY, coordinates, order=3, mode='constant',
                              cval=0.0, prefilter=True, axis=None,
-                             X_shape=None, *, device=None):
+                             X_shape=None, *, strategy="auto", device=None):
     """Adjoint of :func:`map_coordinates` with respect to ``X``, numpy in
     and out: maps ``dY`` to an input cotangent of shape ``X_shape``
     (required) with the dtype of ``dY``, with no forward pass (kernels K3c
@@ -222,5 +235,5 @@ def map_coordinates_gradient(dY, coordinates, order=3, mode='constant',
     dY = np.asarray(dY)
     dx = _core._map_gradient_classic(
         dY, np.asarray(coordinates), order, mode, cval, prefilter, axis,
-        tuple(int(s) for s in X_shape), device)
+        tuple(int(s) for s in X_shape), device, strategy)
     return dx.cpu().numpy().astype(dY.dtype, copy=False)

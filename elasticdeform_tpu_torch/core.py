@@ -2,11 +2,21 @@
 adjoint, and the general resampler family.
 
 Counterparts of the JAX package's ``core.deform``, ``deform_gradient``,
-``deform_batch`` and ``deform_batch_gradient`` with the same keywords, less
-the TPU-only ``strategy``, ``table_dtype`` and ``batch_impl``, plus
+``deform_batch`` and ``deform_batch_gradient`` with the same keywords plus
 ``device``: ``None`` means ``"cuda"``; the CPU runs only when the caller
 passes ``device="cpu"``. Inputs are moved to that device; outputs are
 tensors there, with the input dtypes.
+
+``strategy`` and ``batch_impl`` are checked as the JAX package checks them
+and change nothing: its strategies agree tap for tap
+(``tests/test_strategies.py``), and its batch layouts are one layout here.
+``table_dtype`` (``'bfloat16'``; ``'float32'`` under float64) is the opt-in
+narrow window table of fast augmentation (the JAX package's
+``core.py:77-83``): the prefiltered coefficients are cast to it and K1/K1c
+read them in it, about 2^-8 relative error; the gradients with respect to
+the inputs stay exact, the coordinate gradients read the narrow
+coefficients, as in the JAX package. ``strategy='gather'`` keeps the full
+table there, and so here.
 
 :func:`deform` and :func:`deform_batch` are differentiable with respect to
 ``X`` and the displacement grid: when any of them requires grad, the call
@@ -22,7 +32,7 @@ The general resampler family (the JAX package's ``core.py:471-1222``):
 :func:`deform_field_batch`), :func:`affine_transform`, :func:`shift`,
 :func:`zoom`, :func:`rotate`, :func:`geometric_transform`,
 :func:`spline_filter` and :func:`spline_filter1d`, with the same keywords
-less ``strategy``, ``table_dtype`` and ``batch_impl``, plus ``device``.
+plus ``device``.
 They are torch glue around two autograd functions
 (:class:`~elasticdeform_tpu_torch.ops.deform.ResampleAt`, kernel K1c with
 K3c/K5c behind it, and
@@ -146,7 +156,7 @@ def _apply(xs, displacement: torch.Tensor, affine, spec):
 
 
 def _prepare(X, displacement, order, mode, cval, crop, prefilter, axis,
-             affine, rotate, zoom):
+             affine, rotate, zoom, strategy, table_dtype):
     Xs = _n.normalize_inputs(X)
     axis, deform_shape = _n.normalize_axis_list(axis, Xs)
     output_shapes, output_offset = _n.compute_output_shapes(
@@ -158,13 +168,13 @@ def _prepare(X, displacement, order, mode, cval, crop, prefilter, axis,
     inv_affine = _n.resolve_affine(affine, rotate, zoom, axis, output_shapes)
     spec = _n.build_spec(Xs, axis, deform_shape, output_shapes, output_offset,
                          orders, modes, cvals, prefilter,
-                         displacement.dtype)
+                         displacement.dtype, strategy, table_dtype)
     return Xs, displacement, inv_affine, spec
 
 
 def deform(X, displacement, *, order=3, mode='constant', cval=0.0, crop=None,
            prefilter=True, axis=None, affine=None, rotate=None, zoom=None,
-           device=None):
+           strategy="auto", table_dtype=None, device=None):
     """Elastic deformation of a tensor (or list of tensors) with a
     control-point displacement grid ``(naxis, *points)``.
 
@@ -173,10 +183,11 @@ def deform(X, displacement, *, order=3, mode='constant', cval=0.0, crop=None,
     ``displacement`` may be tensors or numpy arrays. Returns tensors on
     ``device`` (default ``"cuda"``) with the input dtypes, differentiable
     with respect to ``X`` and ``displacement`` where they require grad.
+    ``strategy`` and ``table_dtype``: see the module docstring.
     """
     Xs, displacement, inv_affine, spec = _prepare(
         X, displacement, order, mode, cval, crop, prefilter, axis, affine,
-        rotate, zoom)
+        rotate, zoom, strategy, table_dtype)
     dev = _device(device)
     ys = _apply([_to_device(x, dev)[None] for x in Xs],
                 _to_device(displacement, dev)[None], inv_affine, spec)
@@ -186,7 +197,8 @@ def deform(X, displacement, *, order=3, mode='constant', cval=0.0, crop=None,
 
 def deform_gradient(dY, displacement, *, order=3, mode='constant', cval=0.0,
                     crop=None, prefilter=True, axis=None, X_shape=None,
-                    affine=None, rotate=None, zoom=None, device=None):
+                    affine=None, rotate=None, zoom=None, strategy="auto",
+                    device=None):
     """Exact adjoint of :func:`deform` with respect to the inputs.
 
     Maps output cotangents ``dY`` (tensor, array or list) to input
@@ -208,7 +220,8 @@ def deform_gradient(dY, displacement, *, order=3, mode='constant', cval=0.0,
     cvals = _n.normalize_cval(cval, dYs)
     inv_affine = _n.resolve_affine(affine, rotate, zoom, axis, output_shapes)
     spec = _n.build_spec(Xs, axis, deform_shape, output_shapes, output_offset,
-                         orders, modes, cvals, prefilter, displacement.dtype)
+                         orders, modes, cvals, prefilter, displacement.dtype,
+                         strategy)
     dev = _device(device)
     dxs = _d.deform_gradient_apply([_to_device(dy, dev) for dy in dYs],
                                    _to_device(displacement, dev), inv_affine,
@@ -217,7 +230,7 @@ def deform_gradient(dY, displacement, *, order=3, mode='constant', cval=0.0,
 
 
 def _prepare_batch(X, displacement, order, mode, cval, crop, prefilter,
-                   axis, affine, rotate, zoom):
+                   axis, affine, rotate, zoom, strategy, table_dtype=None):
     """Normalize a batched call on the per-sample shapes; returns
     ``(Xs, inv_affine, spec, output_shapes)``."""
     Xs = _n.normalize_inputs(X)
@@ -240,24 +253,26 @@ def _prepare_batch(X, displacement, order, mode, cval, crop, prefilter,
                                    output_shapes)
     spec = _n.build_spec(samples, axis_n, deform_shape, output_shapes,
                          output_offset, orders, modes, cvals, prefilter,
-                         displacement.dtype)
+                         displacement.dtype, strategy, table_dtype)
     return Xs, inv_affine, spec, output_shapes
 
 
 def deform_batch(X, displacement, *, order=3, mode='constant', cval=0.0,
                  crop=None, prefilter=True, axis=None, affine=None,
-                 rotate=None, zoom=None, device=None):
+                 rotate=None, zoom=None, strategy="auto", batch_impl="auto",
+                 table_dtype=None, device=None):
     """Batched elastic deformation with per-sample displacement grids.
 
     ``X``: ``(B, *image_shape)`` tensor (or list of such tensors sharing the
     deformation); ``displacement``: ``(B, naxis, *points)``. The other
     parameters are shared by the batch and follow :func:`deform`
     (``axis``/``crop`` refer to the per-sample shape). Differentiable with
-    respect to ``X`` and ``displacement``.
+    respect to ``X`` and ``displacement``. ``strategy``, ``batch_impl`` and
+    ``table_dtype``: see the module docstring.
     """
     Xs, inv_affine, spec, _ = _prepare_batch(
         X, displacement, order, mode, cval, crop, prefilter, axis, affine,
-        rotate, zoom)
+        rotate, zoom, strategy, table_dtype)
     dev = _device(device)
     ys = _apply([_to_device(x, dev) for x in Xs],
                 _to_device(displacement, dev), inv_affine, spec)
@@ -267,7 +282,7 @@ def deform_batch(X, displacement, *, order=3, mode='constant', cval=0.0,
 def deform_batch_gradient(dY, displacement, *, order=3, mode='constant',
                           cval=0.0, crop=None, prefilter=True, axis=None,
                           X_shape=None, affine=None, rotate=None, zoom=None,
-                          device=None):
+                          strategy="auto", batch_impl="auto", device=None):
     """Exact adjoint of :func:`deform_batch` with respect to the inputs:
     batched output cotangents ``dY`` ``(B, *output_shape)`` (or a list) to
     batched input cotangents, given the per-sample grids ``(B, naxis,
@@ -284,7 +299,7 @@ def deform_batch_gradient(dY, displacement, *, order=3, mode='constant',
              for s in _n.gradient_inputs(dYs, X_shape, crop, batched=True)]
     _, inv_affine, spec, output_shapes = _prepare_batch(
         fakes, _n.Shaped(displacement.shape, displacement.dtype), order,
-        mode, cval, crop, prefilter, axis, affine, rotate, zoom)
+        mode, cval, crop, prefilter, axis, affine, rotate, zoom, strategy)
     _n.check_gradient_shapes(output_shapes, dYs, batched=True)
     dev = _device(device)
     dxs = _d.deform_gradient_apply_batched(
@@ -309,7 +324,8 @@ def _refuse_list(X):
                          "(vmap it or loop for multiple inputs).")
 
 
-def _prepare_map(X, coordinates, order, mode, cval, prefilter, axis):
+def _prepare_map(X, coordinates, order, mode, cval, prefilter, axis,
+                 strategy="auto", table_dtype=None):
     """Validate a map_coordinates call on the shapes of one sample and its
     coordinates; returns the :class:`DeformSpec`."""
     _refuse_list(X)
@@ -319,7 +335,8 @@ def _prepare_map(X, coordinates, order, mode, cval, prefilter, axis):
     (order,) = _n.normalize_order(order, [X])
     return _n.build_map_spec(X, axis_t, deform_shape,
                              tuple(coordinates.shape[1:]), order, mode, cval,
-                             prefilter, coordinates.dtype)
+                             prefilter, coordinates.dtype, strategy,
+                             table_dtype)
 
 
 def _check_coordinates(coordinates, naxis):
@@ -343,7 +360,7 @@ def _sample(x) -> _n.Shaped:
 
 
 def _map_classic(X, coordinates, order, mode, cval, prefilter, axis, device,
-                 batched=False):
+                 batched=False, strategy="auto", table_dtype=None):
     """map_coordinates with the classic mode semantics; ``batched`` takes a
     leading batch axis on ``X`` and ``coordinates``."""
     dev = _device(device)
@@ -353,9 +370,10 @@ def _map_classic(X, coordinates, order, mode, cval, prefilter, axis, device,
     if batched:
         _check_batch(X, coordinates)
         spec = _prepare_map(_sample(X), _sample(coordinates), order, mode,
-                            cval, prefilter, axis)
+                            cval, prefilter, axis, strategy, table_dtype)
         return _d.map_coordinates_apply_batched(X, coordinates, spec)
-    spec = _prepare_map(X, coordinates, order, mode, cval, prefilter, axis)
+    spec = _prepare_map(X, coordinates, order, mode, cval, prefilter, axis,
+                        strategy, table_dtype)
     return _d.map_coordinates_apply_batched(X[None], coordinates[None],
                                             spec)[0]
 
@@ -404,7 +422,8 @@ def _jnp_clip(t: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 
 def _modern_map_coordinates(X, coordinates, *, order, mode, cval, prefilter,
-                            axis, device, batched=False):
+                            axis, device, batched=False, strategy="auto",
+                            table_dtype=None):
     """SciPy >= 1.6 resampling for ``mode`` in ``_MODERN_MODE_NAMES`` (the
     JAX package's ``core.py:503``): pad ``npad``, prefilter with the mode's
     boundary condition (K6 for reflect and wrap, K2 for mirror), pad a ring
@@ -469,7 +488,7 @@ def _modern_map_coordinates(X, coordinates, *, order, mode, cval, prefilter,
         rows.append(t + shift)
     coords2 = torch.stack(rows, 1)
     spec = _prepare_map(_sample(Y), _sample(coords2), order, 'nearest', 0.0,
-                        False, axis)
+                        False, axis, strategy, table_dtype)
     res = _d.map_coordinates_apply_batched(Y, coords2, spec)
     if out_dtype.kind in "biu":
         res = cast_output(res, out_dtype)
@@ -479,20 +498,22 @@ def _modern_map_coordinates(X, coordinates, *, order, mode, cval, prefilter,
 
 
 def _map_coordinates_scipy(X, coordinates, *, order, mode, cval, prefilter,
-                           axis, device):
+                           axis, device, strategy, table_dtype):
     """The scipy-convention resamplers' dispatch: 'reflect', 'nearest' and
     the grid-* names take the modern path; 'mirror', 'wrap' and
     'constant', the same before and after SciPy 1.6, the classic one."""
     if mode in _MODERN_MODE_NAMES:
         return _modern_map_coordinates(
             X, coordinates, order=order, mode=mode, cval=cval,
-            prefilter=prefilter, axis=axis, device=device)
+            prefilter=prefilter, axis=axis, device=device, strategy=strategy,
+            table_dtype=table_dtype)
     return _map_classic(X, coordinates, order, mode, cval, prefilter, axis,
-                        device)
+                        device, strategy=strategy, table_dtype=table_dtype)
 
 
 def map_coordinates(X, coordinates, *, order=3, mode='constant', cval=0.0,
-                    prefilter=True, axis=None, device=None):
+                    prefilter=True, axis=None, strategy="auto",
+                    table_dtype=None, device=None):
     """Resample ``X`` at explicit per-voxel coordinates
     (``scipy.ndimage.map_coordinates``; the JAX package's
     ``core.map_coordinates``).
@@ -504,18 +525,22 @@ def map_coordinates(X, coordinates, *, order=3, mode='constant', cval=0.0,
     reference's pre-SciPy-1.6 meaning; ``'grid-mirror'``, ``'grid-wrap'``
     and ``'grid-constant'`` follow SciPy >= 1.6. Returns a tensor on
     ``device`` (default ``"cuda"``) with ``X``'s dtype, differentiable with
-    respect to ``X`` and ``coordinates``.
+    respect to ``X`` and ``coordinates``. ``strategy`` and ``table_dtype``:
+    see the module docstring.
     """
     if mode in _GRID_MODE_NAMES:
         return _modern_map_coordinates(
             X, coordinates, order=order, mode=mode, cval=cval,
-            prefilter=prefilter, axis=axis, device=device)
+            prefilter=prefilter, axis=axis, device=device, strategy=strategy,
+            table_dtype=table_dtype)
     return _map_classic(X, coordinates, order, mode, cval, prefilter, axis,
-                        device)
+                        device, strategy=strategy, table_dtype=table_dtype)
 
 
 def map_coordinates_batch(X, coordinates, *, order=3, mode='constant',
-                          cval=0.0, prefilter=True, axis=None, device=None):
+                          cval=0.0, prefilter=True, axis=None,
+                          strategy="auto", batch_impl="auto",
+                          table_dtype=None, device=None):
     """Batched :func:`map_coordinates` with per-sample coordinates: ``X``
     ``(B, *image_shape)``, ``coordinates`` ``(B, naxis, *out_shape)``;
     ``axis`` refers to the per-sample shape. Differentiable with respect
@@ -523,26 +548,28 @@ def map_coordinates_batch(X, coordinates, *, order=3, mode='constant',
     if mode in _GRID_MODE_NAMES:
         return _modern_map_coordinates(
             X, coordinates, order=order, mode=mode, cval=cval,
-            prefilter=prefilter, axis=axis, device=device, batched=True)
+            prefilter=prefilter, axis=axis, device=device, batched=True,
+            strategy=strategy, table_dtype=table_dtype)
     return _map_classic(X, coordinates, order, mode, cval, prefilter, axis,
-                        device, batched=True)
+                        device, batched=True, strategy=strategy,
+                        table_dtype=table_dtype)
 
 
 def _map_gradient_classic(dY, coordinates, order, mode, cval, prefilter,
-                          axis, X_shape, device):
+                          axis, X_shape, device, strategy="auto"):
     dev = _device(device)
     dY = _to_device(dY, dev)
     coordinates = _to_device(coordinates, dev)
     shaped = _n.Shaped(X_shape, dY.dtype)
     spec = _prepare_map(shaped, coordinates, order, mode, cval, prefilter,
-                        axis)
+                        axis, strategy)
     return _d.map_coordinates_gradient_apply_batched(
         dY[None], coordinates[None], spec)[0]
 
 
 def map_coordinates_gradient(dY, coordinates, *, order=3, mode='constant',
                              cval=0.0, prefilter=True, axis=None,
-                             X_shape=None, device=None):
+                             X_shape=None, strategy="auto", device=None):
     """Adjoint of :func:`map_coordinates` with respect to ``X``: maps an
     output cotangent ``dY`` to an input cotangent of shape ``X_shape``
     (required). The classic modes run the transposed stages with no
@@ -560,11 +587,12 @@ def map_coordinates_gradient(dY, coordinates, *, order=3, mode='constant',
         with torch.enable_grad():
             y = _modern_map_coordinates(
                 zero, coordinates, order=order, mode=mode, cval=cval,
-                prefilter=prefilter, axis=axis, device=dev)
+                prefilter=prefilter, axis=axis, device=dev,
+                strategy=strategy)
             (g,) = torch.autograd.grad(y, zero, dY.to(dt))
         return g
     return _map_gradient_classic(dY, coordinates, order, mode, cval,
-                                 prefilter, axis, X_shape, device)
+                                 prefilter, axis, X_shape, device, strategy)
 
 
 def _identity_plus_field(field: torch.Tensor, lead: int) -> torch.Tensor:
@@ -589,30 +617,34 @@ def _iotas(shape, dtype, device):
 
 
 def deform_field(X, field, *, order=3, mode='constant', cval=0.0,
-                 prefilter=True, axis=None, device=None):
+                 prefilter=True, axis=None, strategy="auto", table_dtype=None,
+                 device=None):
     """Deform ``X`` with a dense per-voxel displacement field ``(naxis,
     *out_shape)``: output voxel ``v`` takes the input at ``v + field[:,
     v]``. With ``field`` the dense field of a control grid this equals
     :func:`deform`. Differentiable with respect to ``X`` and ``field``."""
     coords = _identity_plus_field(_to_device(field, _device(device)), 0)
     return map_coordinates(X, coords, order=order, mode=mode, cval=cval,
-                           prefilter=prefilter, axis=axis, device=device)
+                           prefilter=prefilter, axis=axis, strategy=strategy,
+                           table_dtype=table_dtype, device=device)
 
 
 def deform_field_batch(X, field, *, order=3, mode='constant', cval=0.0,
-                       prefilter=True, axis=None, device=None):
+                       prefilter=True, axis=None, strategy="auto",
+                       batch_impl="auto", table_dtype=None, device=None):
     """Batched :func:`deform_field`: ``X`` ``(B, *image_shape)``, ``field``
     ``(B, naxis, *out_shape)``; the warp layer of registration training,
     differentiable with respect to ``X`` and ``field``."""
     coords = _identity_plus_field(_to_device(field, _device(device)), 1)
     return map_coordinates_batch(X, coords, order=order, mode=mode,
                                  cval=cval, prefilter=prefilter, axis=axis,
-                                 device=device)
+                                 strategy=strategy, batch_impl=batch_impl,
+                                 table_dtype=table_dtype, device=device)
 
 
 def affine_transform(X, matrix, offset=0.0, *, output_shape=None, order=3,
                      mode='constant', cval=0.0, prefilter=True, axis=None,
-                     device=None):
+                     strategy="auto", table_dtype=None, device=None):
     """Affine resampling (``scipy.ndimage.affine_transform``): output voxel
     ``o`` takes the input at ``matrix @ o + offset``. ``matrix`` is
     ``(naxis, naxis)``, a length-``naxis`` scaling vector, or the
@@ -651,11 +683,12 @@ def affine_transform(X, matrix, offset=0.0, *, output_shape=None, order=3,
               + offset[h] for h in range(naxis)]
     return _map_coordinates_scipy(X, torch.stack(cc), order=order,
                                   mode=mode, cval=cval, prefilter=prefilter,
-                                  axis=axis, device=device)
+                                  axis=axis, device=device, strategy=strategy,
+                                  table_dtype=table_dtype)
 
 
 def shift(X, shift, *, order=3, mode='constant', cval=0.0, prefilter=True,
-          axis=None, device=None):
+          axis=None, strategy="auto", device=None):
     """Translate an image (``scipy.ndimage.shift``): ``output[o] =
     input[o - shift]``, ``shift`` a scalar or one value per deformed axis,
     differentiable. A wrapper of :func:`affine_transform`."""
@@ -665,11 +698,12 @@ def shift(X, shift, *, order=3, mode='constant', cval=0.0, prefilter=True,
     sh = torch.broadcast_to(_to_device(shift, dev), (naxis,))
     return affine_transform(X, torch.ones(naxis, dtype=sh.dtype, device=dev),
                             offset=-sh, order=order, mode=mode, cval=cval,
-                            prefilter=prefilter, axis=axis, device=device)
+                            prefilter=prefilter, axis=axis, strategy=strategy,
+                            device=device)
 
 
 def zoom(X, zoom, *, order=3, mode='constant', cval=0.0, prefilter=True,
-         axis=None, grid_mode=False, device=None):
+         axis=None, strategy="auto", grid_mode=False, device=None):
     """Rescale an image (``scipy.ndimage.zoom``) to ``round(in_size *
     zoom)`` per deformed axis: output voxel ``o`` samples ``o * (in - 1) /
     (out - 1)``, or with ``grid_mode=True`` ``(o + 0.5) * in / out -
@@ -695,16 +729,17 @@ def zoom(X, zoom, *, order=3, mode='constant', cval=0.0, prefilter=True,
         return affine_transform(X, factors, offsets,
                                 output_shape=out_shape, order=order,
                                 mode=mode, cval=cval, prefilter=prefilter,
-                                axis=axis, device=device)
+                                axis=axis, strategy=strategy, device=device)
     factors = np.array([(i - 1) / (o - 1) if o > 1 else 1.0
                         for i, o in zip(deform_shape, out_shape)])
     return affine_transform(X, factors, 0.0, output_shape=out_shape,
                             order=order, mode=mode, cval=cval,
-                            prefilter=prefilter, axis=axis, device=device)
+                            prefilter=prefilter, axis=axis, strategy=strategy,
+                            device=device)
 
 
 def rotate(X, angle, axes=(1, 0), *, reshape=True, order=3, mode='constant',
-           cval=0.0, prefilter=True, device=None):
+           cval=0.0, prefilter=True, strategy="auto", device=None):
     """Rotate an image in the plane of two axes (``scipy.ndimage.rotate``):
     ``angle`` in degrees; ``reshape=True`` enlarges the output to hold the
     whole rotated input; the other axes are carried along."""
@@ -728,12 +763,13 @@ def rotate(X, angle, axes=(1, 0), *, reshape=True, order=3, mode='constant',
                             output_shape=tuple(int(n) for n in out_plane),
                             order=order, mode=mode, cval=cval,
                             prefilter=prefilter, axis=tuple(axes),
-                            device=device)
+                            strategy=strategy, device=device)
 
 
 def geometric_transform(X, mapping, output_shape=None, *, order=3,
                         mode='constant', cval=0.0, prefilter=True,
-                        extra_arguments=(), extra_keywords=None, device=None):
+                        extra_arguments=(), extra_keywords=None,
+                        strategy="auto", table_dtype=None, device=None):
     """Resample through a coordinate mapping
     (``scipy.ndimage.geometric_transform``): ``mapping(output_coords,
     *extra_arguments, **extra_keywords)`` receives a tuple of float64
@@ -751,7 +787,8 @@ def geometric_transform(X, mapping, output_shape=None, *, order=3,
          for c in coords])
     return _map_coordinates_scipy(X, coordinates, order=order, mode=mode,
                                   cval=cval, prefilter=prefilter, axis=None,
-                                  device=device)
+                                  device=device, strategy=strategy,
+                                  table_dtype=table_dtype)
 
 
 # spline-filter boundary condition per scipy mode name (the JAX package's

@@ -39,6 +39,14 @@
 // The coordinate, fold and weight code is in resample_common.cuh, shared
 // with K3 and K5.
 //
+// Narrow table (the JAX package's opt-in table_dtype, ops/windows.py:1201
+// _cast_table): both entry points take the dtype CT in which the
+// coefficients lie, T itself, bfloat16, or float32 under a float64 T. The
+// load converts CT to T exactly (bfloat16 is the top half of a float32), and
+// all arithmetic stays in T, so the kernel matches its twin, which rounds
+// the coefficients to CT and back. A bfloat16 table halves the coefficient
+// bytes of the gather.
+//
 // K1c resample_coords_fwd is the same kernel with the coordinate source of
 // resample_common.cuh: cc_h = coords[b, h, v] as the caller gives them
 // (B, naxis, n_out), output (B, n_out, C) of any output rank. It replaces
@@ -49,15 +57,31 @@
 // ops/resample.py:resample_coords_plain. Bound: bytes, B*(n_in*C +
 // naxis*n_out + n_out*C) * sizeof(T).
 
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "resample_common.cuh"
 
 #define ED_CCH 4
 
 namespace {
 
-template <typename T, int ORDER, bool COORDS>
+// One coefficient of the table, converted exactly to the compute type T.
+template <typename T, typename CT>
+__device__ __forceinline__ T load_coeff(const CT* q) {
+  if constexpr (std::is_same<CT, __nv_bfloat16>::value) {
+    const unsigned short bits =
+        __ldg(reinterpret_cast<const unsigned short*>(q));
+    return T(__uint_as_float(((unsigned)bits) << 16));
+  } else {
+    return T(__ldg(q));
+  }
+}
+
+template <typename T, typename CT, int ORDER, bool COORDS>
 __global__ void __launch_bounds__(256)
-resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
+resample_fwd_kernel(const CT* __restrict__ coeffs, const T* __restrict__ displ,
                     const T* __restrict__ affine, T* __restrict__ out,
                     const Params p) {
   constexpr int NT = ORDER + 1;
@@ -79,7 +103,7 @@ resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
     for (int64_t c = 0; c < C; ++c) dst[c] = T(p.cval);
     return;
   }
-  const T* src = coeffs + b * p.n_in * C;
+  const CT* src = coeffs + b * p.n_in * C;
   for (int64_t c0 = 0; c0 < C; c0 += ED_CCH) {
     T acc[ED_CCH];
     bool first = true;
@@ -95,11 +119,11 @@ resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
 #pragma unroll
           for (int t3 = 0; t3 < NT; ++t3) {
             const T wt = w012 * w[3][t3];
-            const T* q = src + (o012 + off[3][t3]) * C + c0;
+            const CT* q = src + (o012 + off[3][t3]) * C + c0;
 #pragma unroll
             for (int k = 0; k < ED_CCH; ++k) {
               if (c0 + k < C) {
-                const T contrib = wt * __ldg(q + k);
+                const T contrib = wt * load_coeff<T>(q + k);
                 acc[k] = first ? contrib : acc[k] + contrib;
               }
             }
@@ -114,32 +138,57 @@ resample_fwd_kernel(const T* __restrict__ coeffs, const T* __restrict__ displ,
   }
 }
 
-template <typename T, int ORDER, bool COORDS>
+template <typename T, typename CT, int ORDER, bool COORDS>
 cudaError_t launch(const void* coeffs, const void* displ, const void* affine,
                    void* out, const Params& p, cudaStream_t stream) {
   const int64_t total = p.batch * p.n_out;
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
-  resample_fwd_kernel<T, ORDER, COORDS>
+  resample_fwd_kernel<T, CT, ORDER, COORDS>
       <<<(unsigned)blocks, threads, 0, stream>>>(
-          static_cast<const T*>(coeffs), static_cast<const T*>(displ),
+          static_cast<const CT*>(coeffs), static_cast<const T*>(displ),
           static_cast<const T*>(affine), static_cast<T*>(out), p);
   return cudaGetLastError();
 }
 
-template <typename T, bool COORDS>
+template <typename T, typename CT, bool COORDS>
 cudaError_t dispatch(int order, const void* coeffs, const void* displ,
                      const void* affine, void* out, const Params& p,
                      cudaStream_t s) {
   switch (order) {
-    case 0: return launch<T, 0, COORDS>(coeffs, displ, affine, out, p, s);
-    case 1: return launch<T, 1, COORDS>(coeffs, displ, affine, out, p, s);
-    case 2: return launch<T, 2, COORDS>(coeffs, displ, affine, out, p, s);
-    case 3: return launch<T, 3, COORDS>(coeffs, displ, affine, out, p, s);
-    case 4: return launch<T, 4, COORDS>(coeffs, displ, affine, out, p, s);
-    case 5: return launch<T, 5, COORDS>(coeffs, displ, affine, out, p, s);
+    case 0: return launch<T, CT, 0, COORDS>(coeffs, displ, affine, out, p, s);
+    case 1: return launch<T, CT, 1, COORDS>(coeffs, displ, affine, out, p, s);
+    case 2: return launch<T, CT, 2, COORDS>(coeffs, displ, affine, out, p, s);
+    case 3: return launch<T, CT, 3, COORDS>(coeffs, displ, affine, out, p, s);
+    case 4: return launch<T, CT, 4, COORDS>(coeffs, displ, affine, out, p, s);
+    case 5: return launch<T, CT, 5, COORDS>(coeffs, displ, affine, out, p, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+// dtype: 0 float32, 1 float64; table: 0 the coefficients in that dtype,
+// 1 bfloat16, 2 float32 (with dtype 1 only).
+template <bool COORDS>
+cudaError_t dispatch_table(int dtype, int table, int order,
+                           const void* coeffs, const void* displ,
+                           const void* affine, void* out, const Params& p,
+                           cudaStream_t s) {
+  if (dtype == 0 && table == 0)
+    return dispatch<float, float, COORDS>(order, coeffs, displ, affine, out,
+                                          p, s);
+  if (dtype == 0 && table == 1)
+    return dispatch<float, __nv_bfloat16, COORDS>(order, coeffs, displ,
+                                                  affine, out, p, s);
+  if (dtype == 1 && table == 0)
+    return dispatch<double, double, COORDS>(order, coeffs, displ, affine,
+                                            out, p, s);
+  if (dtype == 1 && table == 1)
+    return dispatch<double, __nv_bfloat16, COORDS>(order, coeffs, displ,
+                                                   affine, out, p, s);
+  if (dtype == 1 && table == 2)
+    return dispatch<double, float, COORDS>(order, coeffs, displ, affine, out,
+                                           p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -147,7 +196,8 @@ cudaError_t dispatch(int order, const void* coeffs, const void* displ,
 
 extern "C" {
 
-// dtype: 0 float32, 1 float64. Shapes, offsets: naxis int64 each.
+// dtype: 0 float32, 1 float64; table: the coefficients' dtype, 0 dtype,
+// 1 bfloat16, 2 float32 (dtype 1 only). Shapes, offsets: naxis int64 each.
 // affine: null, or (naxis, naxis+1) per sample at affine_stride elements
 // apart (0 = one affine shared by the batch). Returns cudaGetLastError().
 int ed_resample_fwd(int dtype, const void* coeffs, const void* displ,
@@ -155,40 +205,30 @@ int ed_resample_fwd(int dtype, const void* coeffs, const void* displ,
                     int mode, long long batch, long long channels,
                     const long long* in_shape, const long long* out_shape,
                     const long long* offsets, long long affine_stride,
-                    double cval, void* stream) {
+                    double cval, int table, void* stream) {
   Params p;
   if (!make_params(&p, naxis, mode, batch, channels, in_shape, out_shape,
                    offsets, affine_stride, cval))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0   ? dispatch<float, false>(order, coeffs, displ, affine, out,
-                                            p, s)
-      : dtype == 1 ? dispatch<double, false>(order, coeffs, displ, affine,
-                                             out, p, s)
-                   : cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_table<false>(dtype, table, order, coeffs, displ,
+                                    affine, out, p,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // K1c: coords (B, naxis, n_out) are the sample coordinates; out (B, n_out,
-// C). in_shape: naxis int64. Returns cudaGetLastError().
+// C). in_shape: naxis int64; table as above. Returns cudaGetLastError().
 int ed_resample_coords_fwd(int dtype, const void* coeffs, const void* coords,
                            void* out, int naxis, int order, int mode,
                            long long batch, long long channels,
                            const long long* in_shape, long long n_out,
-                           double cval, void* stream) {
+                           double cval, int table, void* stream) {
   Params p;
   if (!make_params_coords(&p, naxis, mode, batch, channels, in_shape, n_out,
                           cval))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0   ? dispatch<float, true>(order, coeffs, coords, nullptr,
-                                           out, p, s)
-      : dtype == 1 ? dispatch<double, true>(order, coeffs, coords, nullptr,
-                                            out, p, s)
-                   : cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_table<true>(dtype, table, order, coeffs, coords,
+                                   nullptr, out, p,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 const char* ed_resample_error_string(int err) {

@@ -27,7 +27,8 @@ BUILD_ROOT = _PKG.parent / "build" / "elasticdeform_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("resample", "prefilter", "resample_bwd", "filters", "morphology")
+SOURCES = ("resample", "prefilter", "resample_bwd", "filters", "morphology",
+           "probes")
 
 _lock = threading.Lock()
 _libs: dict = {}

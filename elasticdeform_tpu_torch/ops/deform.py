@@ -54,7 +54,7 @@ from elasticdeform_tpu_torch.ops.prefilter import (
     spline_filter1d_transpose,
 )
 from elasticdeform_tpu_torch.ops.resample import (
-    cast_output, resample, resample_coords,
+    cast_output, narrowed, resample, resample_coords,
 )
 from elasticdeform_tpu_torch.ops.resample_bwd import (
     resample_coord_grad, resample_coords_grad, resample_coords_transpose,
@@ -83,6 +83,9 @@ class DeformSpec:
     offsets: Tuple[int, ...]        # crop offsets per deformed axis
     prefilter: bool
     compute_dtype: str
+    # the dtype K1/K1c read the coefficients in, "" for compute_dtype: the
+    # opt-in narrow window table of the JAX package (``table_dtype=``)
+    table_dtype: str = ""
 
 
 def default_compute_dtype(*dtypes) -> str:
@@ -138,6 +141,11 @@ def _prefilter_input(xt: torch.Tensor, ispec: InputSpec, spec: DeformSpec,
     return xf
 
 
+def _table(spec: DeformSpec):
+    """The narrow table dtype of a call as a torch dtype, or None."""
+    return getattr(torch, spec.table_dtype) if spec.table_dtype else None
+
+
 def _setup(displacement: torch.Tensor, affine, spec: DeformSpec):
     """Compute dtype, dense displacement and affine tensor of a call."""
     cdt = getattr(torch, spec.compute_dtype)
@@ -155,15 +163,16 @@ def deform_forward(xs, displacement: torch.Tensor, affine, spec: DeformSpec,
     used, and, if ``keep_coeffs``, each input's prefiltered coefficients
     ``(B, *spatial, C)`` for the displacement gradient (else None)."""
     cdt, displ, affine = _setup(displacement, affine, spec)
+    table = _table(spec)
     ys, coeffs = [], []
     for x, ispec in zip(xs, spec.inputs):
         xf = _prefilter_input(_to_spatial_channels(x, ispec), ispec, spec,
                               cdt)
         y = resample(xf, displ, affine, spec.offsets, ispec.order,
-                     ispec.mode, ispec.cval)
+                     ispec.mode, ispec.cval, table)
         y = cast_output(y, ispec.dtype)
         ys.append(_from_spatial_channels(y, ispec, spec.out_spatial))
-        coeffs.append(xf if keep_coeffs else None)
+        coeffs.append(narrowed(xf, table) if keep_coeffs else None)
     return ys, displ, affine, (coeffs if keep_coeffs else None)
 
 
@@ -247,18 +256,22 @@ def grid_gradient(coeffs, dys, displ, affine, spec: DeformSpec, points,
 class ResampleAt(torch.autograd.Function):
     """:func:`~elasticdeform_tpu_torch.ops.resample.resample_coords` (K1c)
     as an autograd function of the coefficients ``(B, *spatial, C)`` and
-    the coordinates ``(B, naxis, *out)``, both contiguous in one dtype. The
-    backward runs K3c for the coefficients and K5c for the coordinates,
-    each only when asked; it is not itself differentiable."""
+    the coordinates ``(B, naxis, *out)``, both contiguous in one dtype,
+    with the narrow table ``table`` (a torch dtype or None). The backward
+    runs K3c for the coefficients and K5c for the coordinates, each only
+    when asked; it is not itself differentiable. As in the JAX package the
+    cast to the narrow table passes the coefficients' cotangent unchanged,
+    and K5c reads the narrowed coefficients."""
 
     @staticmethod
-    def forward(ctx, coeffs, coords, order, mode, cval):
+    def forward(ctx, coeffs, coords, order, mode, cval, table=None):
         ctx.order, ctx.mode = order, mode
         ctx.in_spatial = tuple(coeffs.shape[1:-1])
         # the coefficients are kept only for K5c
-        ctx.save_for_backward(coords,
-                              coeffs if ctx.needs_input_grad[1] else None)
-        return resample_coords(coeffs, coords, order, mode, cval)
+        ctx.save_for_backward(
+            coords,
+            narrowed(coeffs, table) if ctx.needs_input_grad[1] else None)
+        return resample_coords(coeffs, coords, order, mode, cval, table)
 
     @staticmethod
     @once_differentiable
@@ -272,7 +285,7 @@ class ResampleAt(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             d_coords = resample_coords_grad(coeffs, g, coords, ctx.order,
                                             ctx.mode)
-        return d_coeffs, d_coords, None, None, None
+        return d_coeffs, d_coords, None, None, None, None
 
 
 class Prefilter1d(torch.autograd.Function):
@@ -322,7 +335,7 @@ def map_coordinates_apply_batched(x: torch.Tensor, coords: torch.Tensor,
         for d in range(len(ispec.axis)):
             xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror")
     y = ResampleAt.apply(xt, coords.to(cdt).contiguous(), ispec.order,
-                         ispec.mode, ispec.cval)
+                         ispec.mode, ispec.cval, _table(spec))
     return _map_output(cast_output(y, ispec.dtype), ispec, spec.out_spatial)
 
 

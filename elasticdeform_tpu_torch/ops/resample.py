@@ -19,6 +19,14 @@ displacement or the coordinates ``(B, naxis, *out_spatial)`` (for K1c of
 any output rank), the result ``(B, *out_spatial, C)``. The kernels take
 float32 and float64; complex, float16 and bfloat16 inputs raise TypeError
 at the entry points (:func:`numpy_dtype`).
+
+Both wrappers take ``table``, the opt-in narrow window table of the JAX
+package (``table_dtype=``, its ``ops/windows.py:1201``): None, or a torch
+dtype narrower than the compute dtype (bfloat16; float32 under float64).
+The coefficients are cast to it and the kernels read them in that dtype
+(an instantiation of the coefficient load), so the gather moves fewer
+bytes; the arithmetic stays in the compute dtype. The plain versions round
+the coefficients to ``table`` and back, then compute as before.
 """
 
 from __future__ import annotations
@@ -275,15 +283,43 @@ def _lib():
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_longlong, ll_p, ll_p, ll_p,
-            ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_double, ctypes.c_int,
+            ctypes.c_void_p]
         fn = lib.ed_resample_coords_fwd
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, ll_p, ctypes.c_longlong, ctypes.c_double,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
     return lib
+
+
+# the C entry points' code of the coefficients' dtype: 0 the compute dtype
+_TABLE_CODES = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def table_coeffs(coeffs: torch.Tensor, table):
+    """``(coefficients as the kernel reads them, table code)`` for the
+    narrow table ``table`` (None, or a torch dtype narrower than
+    ``coeffs``'s: bfloat16, or float32 under float64)."""
+    if table is None or table == coeffs.dtype:
+        return coeffs, 0
+    if table not in _TABLE_CODES or \
+            table.itemsize >= coeffs.dtype.itemsize:
+        raise ValueError(f"the narrow table must be bfloat16, or float32 "
+                         f"under float64; got {table} for {coeffs.dtype}")
+    return coeffs.to(table).contiguous(), _TABLE_CODES[table]
+
+
+def narrowed(coeffs: torch.Tensor, table) -> torch.Tensor:
+    """The coefficients as the kernels read them with the narrow table
+    ``table`` (a torch dtype or None): rounded to it and back to their own
+    dtype. The plain versions compute on these; so do the coordinate
+    gradients (K5, K5c), as the JAX package's d_cc branch reads its cast
+    table (``ops/windows.py:1282``); the scatters (K3, K3c) do not read the
+    coefficients."""
+    return coeffs if table is None else coeffs.to(table).to(coeffs.dtype)
 
 
 def check_resample_args(what: str, x: torch.Tensor, displ: torch.Tensor,
@@ -329,30 +365,32 @@ def kernel_geometry(in_spatial, displ: torch.Tensor, affine, offsets):
 
 
 def resample(coeffs: torch.Tensor, displ: torch.Tensor, affine, offsets,
-             order: int, mode: int, cval: float) -> torch.Tensor:
+             order: int, mode: int, cval: float, table=None) -> torch.Tensor:
     """Resample ``coeffs`` ``(B, *spatial, C)`` at ``affine(j) + offsets +
     displ`` with the boundary ``mode`` (code) and spline ``order``.
 
     ``displ`` is ``(B, naxis, *out_spatial)`` in the coefficients' dtype;
     ``affine`` None or a shared ``(naxis, naxis+1)`` or per-sample
-    ``(B, naxis, naxis+1)`` tensor. A CPU tensor takes
-    :func:`resample_plain`; a CUDA tensor launches K1 (contiguous float32
-    or float64, ``naxis <= 4``) and adds one to ``resample.launches``.
+    ``(B, naxis, naxis+1)`` tensor; ``table`` the narrow table (module
+    docstring). A CPU tensor takes :func:`resample_plain`; a CUDA tensor
+    launches K1 (contiguous float32 or float64, ``naxis <= 4``) and adds
+    one to ``resample.launches``.
     """
     if coeffs.device.type == "cpu":
-        return resample_plain(coeffs, displ, affine, offsets, order, mode,
-                              cval)
+        return resample_plain(narrowed(coeffs, table), displ, affine,
+                              offsets, order, mode, cval)
     affine = check_resample_args("resample", coeffs, displ, affine)
     naxis, B, in_shape, out_shape, offs, a_ptr, a_stride = kernel_geometry(
         coeffs.shape[1:-1], displ, affine, offsets)
     C = coeffs.shape[-1]
     out = torch.empty((B, *displ.shape[2:], C), dtype=coeffs.dtype,
                       device=coeffs.device)
+    src, code = table_coeffs(coeffs, table)
     lib = _lib()
     err = lib.ed_resample_fwd(
-        0 if coeffs.dtype == torch.float32 else 1, coeffs.data_ptr(),
+        0 if coeffs.dtype == torch.float32 else 1, src.data_ptr(),
         displ.data_ptr(), a_ptr, out.data_ptr(), naxis, order, mode, B, C,
-        in_shape, out_shape, offs, a_stride, float(cval),
+        in_shape, out_shape, offs, a_stride, float(cval), code,
         torch.cuda.current_stream(coeffs.device).cuda_stream)
     _build.check(err, lib, "ed_resample_error_string", "resample_fwd")
     resample.launches += 1
@@ -387,27 +425,29 @@ def check_coords_args(what: str, x: torch.Tensor, coords: torch.Tensor):
 
 
 def resample_coords(coeffs: torch.Tensor, coords: torch.Tensor, order: int,
-                    mode: int, cval: float) -> torch.Tensor:
+                    mode: int, cval: float, table=None) -> torch.Tensor:
     """Resample ``coeffs`` ``(B, *spatial, C)`` at the coordinates
     ``coords`` ``(B, naxis, *out_spatial)`` (any output rank, in the
-    coefficients' dtype) with the boundary ``mode`` (code) and spline
-    ``order``; returns ``(B, *out_spatial, C)``. A CPU tensor takes
-    :func:`resample_coords_plain`; a CUDA tensor launches K1c (contiguous
-    float32 or float64, ``naxis <= 4``) and adds one to
-    ``resample_coords.launches``.
+    coefficients' dtype) with the boundary ``mode`` (code), spline
+    ``order`` and narrow table ``table`` (module docstring); returns ``(B,
+    *out_spatial, C)``. A CPU tensor takes :func:`resample_coords_plain`; a
+    CUDA tensor launches K1c (contiguous float32 or float64, ``naxis <=
+    4``) and adds one to ``resample_coords.launches``.
     """
     if coeffs.device.type == "cpu":
-        return resample_coords_plain(coeffs, coords, order, mode, cval)
+        return resample_coords_plain(narrowed(coeffs, table), coords,
+                                     order, mode, cval)
     naxis, B, in_shape, n_out = check_coords_args("resample_coords", coeffs,
                                                   coords)
     C = coeffs.shape[-1]
     out = torch.empty((B, *coords.shape[2:], C), dtype=coeffs.dtype,
                       device=coeffs.device)
+    src, code = table_coeffs(coeffs, table)
     lib = _lib()
     err = lib.ed_resample_coords_fwd(
-        0 if coeffs.dtype == torch.float32 else 1, coeffs.data_ptr(),
+        0 if coeffs.dtype == torch.float32 else 1, src.data_ptr(),
         coords.data_ptr(), out.data_ptr(), naxis, order, mode, B, C,
-        in_shape, n_out, float(cval),
+        in_shape, n_out, float(cval), code,
         torch.cuda.current_stream(coeffs.device).cuda_stream)
     _build.check(err, lib, "ed_resample_error_string", "resample_coords_fwd")
     resample_coords.launches += 1

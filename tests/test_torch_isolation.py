@@ -1,10 +1,12 @@
 """elasticdeform_tpu_torch stands alone: no JAX, no elasticdeform_tpu.
 
 * a subprocess that cannot import ``jax`` or ``elasticdeform_tpu`` imports
-  the port and runs a deformation on the CPU;
+  the port, its probes included, and runs a deformation and the probes on
+  the CPU;
 * no module of the port and not ``chip_smoke.py`` imports either;
-* the entry points default to the card: with no CUDA device, a call
-  without ``device`` raises instead of computing on the CPU.
+* the entry points, the probes' too, default to the card: with no CUDA
+  device, a call without ``device`` raises instead of computing on the
+  CPU.
 """
 
 import ast
@@ -52,6 +54,9 @@ import elasticdeform_tpu_torch as et
 import elasticdeform_tpu_torch.api, elasticdeform_tpu_torch.core
 import elasticdeform_tpu_torch.ops.filters
 import elasticdeform_tpu_torch.ops.morphology
+import elasticdeform_tpu_torch.ops.probes
+from elasticdeform_tpu_torch.probes import (
+    probe_dyngather2, probe_gather, probe_gather2, probe_pallas)
 X = np.random.RandomState(0).rand(12, 14)
 d = np.random.RandomState(1).randn(2, 3, 3) * 3
 Y = et.deform_grid([X, (X * 100).astype(np.uint8)], d, order=[3, 0],
@@ -74,6 +79,12 @@ assert et.grey_opening((X * 100).astype(np.int16), size=(3, 2),
                        device='cpu').dtype == elasticdeform_tpu_torch.core.torch.int16
 assert et.binary_fill_holes(X > 0.5, device='cpu').dtype \
     == elasticdeform_tpu_torch.core.torch.bool
+assert probe_pallas.dynload('cpu').shape == (8, 128)
+assert probe_gather.pl_dg(256, 1024, 256, 'cpu').shape == (256, 128)
+assert probe_gather2.pl_loop_scatter(256, 1024, 256, 'cpu').sum() \
+    == 1024 * 128
+assert probe_dyngather2.gather('fancy', 64, 32, '2d', 'cpu').shape \
+    == (32, 128)
 assert not any(m.split('.')[0] in ('jax', 'elasticdeform_tpu')
                for m in sys.modules)
 print('ok')
@@ -101,6 +112,8 @@ def test_default_device_is_the_card():
     code = """
 import numpy as np, torch
 import elasticdeform_tpu_torch as et
+from elasticdeform_tpu_torch.probes import (
+    probe_dyngather2, probe_gather, probe_gather2, probe_pallas)
 assert not torch.cuda.is_available()
 X = np.random.RandomState(0).rand(10, 11)
 d = np.zeros((2, 3, 3))
@@ -166,7 +179,22 @@ for call in (lambda: et.deform_grid(X, d),
              lambda: et.binary_hit_or_miss(X),
              lambda: et.generic_filter(X, lambda v: v.max(), 3),
              lambda: et.generic_filter1d(X, lambda v: v[:11], 3),
-             lambda: et.vectorized_filter(X, torch.amax, size=3)):
+             lambda: et.vectorized_filter(X, torch.amax, size=3),
+             lambda: probe_pallas.vmem(48),
+             lambda: probe_pallas.dynload(),
+             lambda: probe_pallas.dynstore(),
+             lambda: probe_pallas.dyngather(),
+             lambda: probe_pallas.scatrate(256, 1024, 256),
+             lambda: probe_pallas.probe_dyngather(),
+             lambda: probe_gather.pl_vmem(256, 1024, 256),
+             lambda: probe_gather.pl_dg(256, 1024, 256),
+             lambda: probe_gather.pl_dma(4096, 1024, 256),
+             lambda: probe_gather.xla(256, 1024),
+             lambda: probe_gather.onehot(256, 1024, 256),
+             lambda: probe_gather2.pl_loop_gather(256, 1024, 256),
+             lambda: probe_gather2.pl_loop_scatter(256, 1024, 256),
+             lambda: probe_gather2.xla_map_sample(2, 64, 32),
+             lambda: probe_dyngather2.gather('take', 64, 32)):
     try:
         call()
     except (RuntimeError, AssertionError):
@@ -186,3 +214,20 @@ def test_chip_smoke_refuses_without_card():
              {"CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("module, args", [
+    ("probe_pallas", ["dyngather", "smem48"]),
+    ("probe_gather", ["pl_vmem"]),
+    ("probe_gather2", ["pl_loop_scatter"]),
+    ("probe_dyngather2", [])])
+def test_probe_cli_fails_without_card(module, args):
+    """``python -m elasticdeform_tpu_torch.probes.<file>`` measures the
+    card: without one every probe fails and the exit code says so."""
+    r = subprocess.run(
+        [sys.executable, "-m", f"elasticdeform_tpu_torch.probes.{module}",
+         *args], capture_output=True, text=True, timeout=240,
+        env={**os.environ, "PYTHONPATH": str(ROOT),
+             "CUDA_VISIBLE_DEVICES": ""}, cwd=str(ROOT))
+    assert r.returncode == 1, r.stderr
+    assert "FAIL" in r.stdout
