@@ -8,15 +8,17 @@ Run from the root of the repository, with no arguments:
 Phases (any failure raises, and the exit code is not 0):
 
 1. device and build: prints the card's name and power limit, builds the
-   CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc;
+   CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc, prints
+   each source's build time and ptxas figures, and holds K5/K5c at orders
+   1 and 3 in float32 to no stack frame and no spills;
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
    K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
-   orders 0-5 x five modes x 2-D/3-D in float32 and float64 with
-   coordinates far past every edge, shared and per-sample affines and crop
-   offsets; K1c, K3c and K5c (the same at caller-given coordinates, K1c
-   and K5c bit for bit) over the same sweep plus a flat point list; K2
-   (prefilter) over orders 2-5 and axis lengths 9/64/200 at every axis
-   position, plus the uint8/int16 writeback, bit for bit; K4 (the
+   orders 0-5 x five modes x 1-D to 4-D x one and two channels in float32
+   and float64 with coordinates far past every edge, shared and per-sample
+   affines and crop offsets; K1c, K3c and K5c (the same at caller-given
+   coordinates, K1c and K5c bit for bit) over the same sweep plus a flat
+   point list; K2 (prefilter) over orders 2-5 and axis lengths 9/64/200 at
+   every axis position, plus the uint8/int16 writeback, bit for bit; K4 (the
    transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at every
    axis position; K6 and K7 (the reflect/wrap prefilter and its transpose)
    against ``filter_matrix_bc`` and its transpose over orders 2-5 x
@@ -68,7 +70,8 @@ Phases (any failure raises, and the exit code is not 0):
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
    its plain version and library yardstick (K1-K5 at the c5 shapes, also
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
-   ``grid_sample``; K6, K7 and again K1c, K3c at the c8 shapes; K8-K9T at
+   ``grid_sample``; the share of K5's and K5c's blocks whose tap box would
+   fit 16 KB of shared memory; K6, K7 and again K1c, K3c at the c8 shapes; K8-K9T at
    the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
    ``max_pool3d``, K12 at the c15 shapes, K13 at the c17 shapes beside
    ``max_pool3d``; one line per probe, its calls timed back to back: ms,
@@ -84,8 +87,10 @@ result when no CUDA device is present or when the package is missing.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -113,6 +118,11 @@ MORPH_KERNELS = KERNELS[14:18]
 PROBE_KERNELS = KERNELS[18:]
 # the kernels of the deform, resampler, filter and morphology path (phase 3)
 PATH_KERNELS = KERNELS[:18]
+
+
+# the resample kernels' sweep (phase 2): (naxis, input shape, output shape)
+SWEEP_SHAPES = ((1, (37,), (50,)), (2, (23, 31), (20, 27)),
+                (3, (11, 13, 9), (10, 12, 8)), (4, (7, 6, 5, 8), (6, 5, 4, 7)))
 
 
 def _tol(dtype, scale):
@@ -192,15 +202,85 @@ def phase_device():
     return name, smi
 
 
+# K5/K5c's kernel instantiations: dtype, order, rank, index type
+_K5_NAME = re.compile(r"coord_grad_kernelI([fd])Li(\d)ELi(\d)E([il])E")
+
+
+def _ptxas_kernels(log):
+    """``{mangled kernel: [registers, stack frame bytes, spill store bytes,
+    spill load bytes, ptxas ms]}`` from nvcc's ``-Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [0, 0, 0, 0, 0.0])
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur][1:4] = [int(x) for x in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+        m = re.search(r"Compile time = ([\d.]+) ms", line)
+        if m:
+            out[cur][4] = float(m.group(1))
+    return out
+
+
 def phase_build():
+    """Build every source; print each one's nvcc time, its kernels' worst
+    register, stack and spill figures, every kernel with a stack frame or
+    spills, and K5/K5c's table. K5/K5c at orders 1 and 3 in float32 must
+    keep their tap tables in registers: no stack frame, no spills."""
     from elasticdeform_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
-    print(f"build: {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    each = ", ".join(f"{k} {v:.1f} s"
+                     for k, v in sorted(_build.build_seconds.items()))
+    print(f"build: {sorted(paths)} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc per source: {each})")
+    k5 = {}
+    for name, log in sorted(_build.build_logs.items()):
+        kern = _ptxas_kernels(log)
+        worst = [max((v[i] for v in kern.values()), default=0)
+                 for i in range(4)]
+        print(f"  ptxas {name}: {len(kern)} kernels, at most {worst[0]} "
+              f"registers, {worst[1]} bytes stack frame, {worst[2]} bytes "
+              f"spill stores; ptxas "
+              f"{sum(v[4] for v in kern.values()) / 1e3:.1f} s in all")
+        for fn, v in kern.items():
+            m = _K5_NAME.search(fn)
+            if m:
+                k5[m.groups()] = v
+            elif v[1] or v[2]:
+                print(f"  ptxas {name}: {fn}: {v[0]} registers, {v[1]} "
+                      f"bytes stack frame, {v[2]}/{v[3]} bytes spill "
+                      f"stores/loads")
+    if "resample_bwd" not in _build.build_logs:
+        print("  ptxas: resample_bwd was built before this run; K5's "
+              "register check skipped")
+        return
+    for (dt, dname), (ix, width), rank in itertools.product(
+            (("f", "float32"), ("d", "float64")),
+            (("i", "int32"), ("l", "int64")), "1234"):
+        parts = []
+        for order in "12345":
+            r, st, ss, sl, ms = k5.get((dt, order, rank, ix), [-1] * 5)
+            parts.append(f"o{order} {r} {st}/{ss}/{sl} {ms / 1e3:.1f}s")
+        print(f"  ptxas K5/K5c {dname} rank {rank} {width} (registers, "
+              f"stack/spill-store/spill-load bytes, ptxas s): "
+              f"{'; '.join(parts)}")
+    bad = {k: v for k, v in k5.items()
+           if k[0] == "f" and k[1] in "13" and any(v[1:4])}
+    if len(k5) != 80 or bad:
+        raise AssertionError(f"K5/K5c: {len(k5)} of 80 instantiations "
+                             f"found; float32 orders 1 and 3 with a stack "
+                             f"frame or spills: {bad}")
 
 
 def _smooth_displacement(rs, B, naxis, out_spatial, sigma, dtype, device):
@@ -229,58 +309,51 @@ def phase_kernels():
     rs = np.random.RandomState(1)
     worst = dict.fromkeys(KERNELS, 0.0)
     n = 0
-    for naxis, in_sp, out_sp in ((2, (23, 31), (20, 27)),
-                                 (3, (11, 13, 9), (10, 12, 8))):
-        for dtype in (torch.float32, torch.float64):
-            B, C = 2, 2
-            for order in range(6):
-                for mode in range(5):
-                    coeffs = torch.as_tensor(
-                        rs.rand(B, *in_sp, C) * 4 - 1, dtype=dtype,
-                        device=dev)
-                    displ = _smooth_displacement(
-                        rs, B, naxis, out_sp, 3.0 * max(in_sp), dtype, dev)
-                    kind = (order + mode) % 3
-                    if kind == 0:
-                        affine = None
-                    else:
-                        A = np.zeros((B, naxis, naxis + 1))
-                        A[:, :, :naxis] = np.eye(naxis) + rs.randn(
-                            B, naxis, naxis) * 0.2
-                        A[:, :, naxis] = rs.randn(B, naxis) * 3
-                        affine = torch.as_tensor(
-                            A if kind == 2 else A[0], dtype=dtype,
-                            device=dev)
-                    offsets = tuple(int(o) for o in rs.randint(0, 3, naxis))
-                    args = (coeffs, displ, affine, offsets, order, mode, 1.5)
-                    got = rsm.resample(*args)
-                    want = rsm.resample_plain(*args)
-                    torch.cuda.synchronize()
-                    what = (f"naxis={naxis} {dtype} order={order} "
-                            f"mode={MODES[mode]}")
-                    rtol, atol = _tol(dtype, 4.0)
-                    err = _assert_close(got, want, rtol, atol, f"K1 {what}")
-                    worst["resample_fwd"] = max(worst["resample_fwd"], err)
-                    g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype,
-                                        device=dev)
-                    bargs = (displ, affine, offsets, order, mode)
-                    worst["resample_bwd"] = max(
-                        worst["resample_bwd"],
-                        _check_k3(rb, g, bargs, in_sp, dtype, f"K3 {what}"))
-                    got = rb.resample_coord_grad(coeffs, g, *bargs)
-                    want = rb.resample_coord_grad_plain(coeffs, g, *bargs)
-                    torch.cuda.synchronize()
-                    rtol, atol = _tol(dtype, _k5_scale(coeffs, g))
-                    worst["resample_coord_grad"] = max(
-                        worst["resample_coord_grad"],
-                        _assert_close(got, want, rtol, atol, f"K5 {what}"))
-                    if dtype == torch.float64:
-                        _check_adjoint(
-                            rsm.resample(coeffs, displ, affine, offsets,
-                                         order, mode, 0.0), g, coeffs,
-                            rb.resample_transpose(g, *bargs, in_sp),
-                            f"K1/K3 {what}")
-                    n += 1
+    B = 2
+    for (naxis, in_sp, out_sp), dtype, C, order, mode in itertools.product(
+            SWEEP_SHAPES, (torch.float32, torch.float64), (1, 2), range(6),
+            range(5)):
+        coeffs = torch.as_tensor(rs.rand(B, *in_sp, C) * 4 - 1, dtype=dtype,
+                                 device=dev)
+        displ = _smooth_displacement(rs, B, naxis, out_sp, 3.0 * max(in_sp),
+                                     dtype, dev)
+        kind = (order + mode) % 3
+        if kind == 0:
+            affine = None
+        else:
+            A = np.zeros((B, naxis, naxis + 1))
+            A[:, :, :naxis] = np.eye(naxis) + rs.randn(B, naxis, naxis) * 0.2
+            A[:, :, naxis] = rs.randn(B, naxis) * 3
+            affine = torch.as_tensor(A if kind == 2 else A[0], dtype=dtype,
+                                     device=dev)
+        offsets = tuple(int(o) for o in rs.randint(0, 3, naxis))
+        args = (coeffs, displ, affine, offsets, order, mode, 1.5)
+        got = rsm.resample(*args)
+        want = rsm.resample_plain(*args)
+        torch.cuda.synchronize()
+        what = (f"naxis={naxis} C={C} {dtype} order={order} "
+                f"mode={MODES[mode]}")
+        rtol, atol = _tol(dtype, 4.0)
+        err = _assert_close(got, want, rtol, atol, f"K1 {what}")
+        worst["resample_fwd"] = max(worst["resample_fwd"], err)
+        g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype, device=dev)
+        bargs = (displ, affine, offsets, order, mode)
+        worst["resample_bwd"] = max(
+            worst["resample_bwd"],
+            _check_k3(rb, g, bargs, in_sp, dtype, f"K3 {what}"))
+        got = rb.resample_coord_grad(coeffs, g, *bargs)
+        want = rb.resample_coord_grad_plain(coeffs, g, *bargs)
+        torch.cuda.synchronize()
+        rtol, atol = _tol(dtype, _k5_scale(coeffs, g))
+        worst["resample_coord_grad"] = max(
+            worst["resample_coord_grad"],
+            _assert_close(got, want, rtol, atol, f"K5 {what}"))
+        if dtype == torch.float64:
+            _check_adjoint(
+                rsm.resample(coeffs, displ, affine, offsets, order, mode,
+                             0.0), g, coeffs,
+                rb.resample_transpose(g, *bargs, in_sp), f"K1/K3 {what}")
+        n += 1
     print(f"K1 resample_fwd, K3 resample_bwd, K5 resample_coord_grad vs "
           f"plain: {n} cases each pass, max abs err "
           f"{worst['resample_fwd']:.3e} / {worst['resample_bwd']:.3e} / "
@@ -366,67 +439,57 @@ def phase_kernels():
 def _check_coords_kernels(rs, worst):
     """K1c and K5c bit for bit against their twins, K3c per element as K3,
     and the K1c/K3c adjoint identity in float64, at coordinates up to 3x
-    the extent past every edge, some exactly on the clip bounds, for 2-D,
-    3-D and a flat point list."""
+    the extent past every edge, some exactly on the clip bounds, for the
+    1-D to 4-D sweep shapes and a flat point list, one and two channels."""
     import torch
     from elasticdeform_tpu_torch.ops import resample as rsm
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
     dev = torch.device("cuda")
     n = 0
-    for naxis, in_sp, out_sp in ((2, (23, 31), (20, 27)),
-                                 (3, (11, 13, 9), (10, 12, 8)),
-                                 (3, (11, 13, 9), (257,))):
-        for dtype in (torch.float32, torch.float64):
-            B, C = 2, 2
-            for order in range(6):
-                for mode in range(5):
-                    coeffs = torch.as_tensor(
-                        rs.rand(B, *in_sp, C) * 4 - 1, dtype=dtype,
-                        device=dev)
-                    ext = max(in_sp)
-                    cc = rs.uniform(-3 * ext, 4 * ext, (B, naxis, *out_sp))
-                    cc.reshape(-1)[:3] = (0.0, in_sp[0] - 1.0, -0.5)
-                    coords = torch.as_tensor(cc, dtype=dtype, device=dev)
-                    g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype,
-                                        device=dev)
-                    what = (f"naxis={naxis} out={out_sp} {dtype} "
-                            f"order={order} mode={MODES[mode]}")
-                    for name, got, want in (
-                            ("resample_coords_fwd",
-                             rsm.resample_coords(coeffs, coords, order, mode,
-                                                 1.5),
-                             rsm.resample_coords_plain(coeffs, coords, order,
-                                                       mode, 1.5)),
-                            ("resample_coords_grad",
-                             rb.resample_coords_grad(coeffs, g, coords, order,
-                                                     mode),
-                             rb.resample_coords_grad_plain(coeffs, g, coords,
-                                                           order, mode))):
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, want):
-                            raise AssertionError(
-                                f"{name} {what}: not bit-identical to its "
-                                f"plain twin, max abs err "
-                                f"{float((got - want).abs().max()):.3e}")
-                    got = rb.resample_coords_transpose(g, coords, order, mode,
-                                                       in_sp)
-                    want = rb.resample_coords_transpose_plain(
-                        g, coords, order, mode, in_sp)
-                    terms = rb.resample_coords_transpose_plain(
-                        g.abs(), coords, order, mode, in_sp)
-                    torch.cuda.synchronize()
-                    rtol, _ = _tol(dtype, 1.0)
-                    worst["resample_coords_bwd"] = max(
-                        worst["resample_coords_bwd"],
-                        _assert_close(got, want, rtol,
-                                      rtol * terms.double().abs(),
-                                      f"K3c {what}"))
-                    if dtype == torch.float64:
-                        _check_adjoint(
-                            rsm.resample_coords(coeffs, coords, order, mode,
-                                                0.0), g, coeffs, got,
-                            f"K1c/K3c {what}")
-                    n += 1
+    B = 2
+    shapes = SWEEP_SHAPES + ((3, (11, 13, 9), (257,)),)
+    for (naxis, in_sp, out_sp), dtype, C, order, mode in itertools.product(
+            shapes, (torch.float32, torch.float64), (1, 2), range(6),
+            range(5)):
+        coeffs = torch.as_tensor(rs.rand(B, *in_sp, C) * 4 - 1, dtype=dtype,
+                                 device=dev)
+        ext = max(in_sp)
+        cc = rs.uniform(-3 * ext, 4 * ext, (B, naxis, *out_sp))
+        cc.reshape(-1)[:3] = (0.0, in_sp[0] - 1.0, -0.5)
+        coords = torch.as_tensor(cc, dtype=dtype, device=dev)
+        g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype, device=dev)
+        what = (f"naxis={naxis} out={out_sp} C={C} {dtype} order={order} "
+                f"mode={MODES[mode]}")
+        for name, got, want in (
+                ("resample_coords_fwd",
+                 rsm.resample_coords(coeffs, coords, order, mode, 1.5),
+                 rsm.resample_coords_plain(coeffs, coords, order, mode,
+                                           1.5)),
+                ("resample_coords_grad",
+                 rb.resample_coords_grad(coeffs, g, coords, order, mode),
+                 rb.resample_coords_grad_plain(coeffs, g, coords, order,
+                                               mode))):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} {what}: not bit-identical to its plain twin, "
+                    f"max abs err {float((got - want).abs().max()):.3e}")
+        got = rb.resample_coords_transpose(g, coords, order, mode, in_sp)
+        want = rb.resample_coords_transpose_plain(g, coords, order, mode,
+                                                  in_sp)
+        terms = rb.resample_coords_transpose_plain(g.abs(), coords, order,
+                                                   mode, in_sp)
+        torch.cuda.synchronize()
+        rtol, _ = _tol(dtype, 1.0)
+        worst["resample_coords_bwd"] = max(
+            worst["resample_coords_bwd"],
+            _assert_close(got, want, rtol, rtol * terms.double().abs(),
+                          f"K3c {what}"))
+        if dtype == torch.float64:
+            _check_adjoint(
+                rsm.resample_coords(coeffs, coords, order, mode, 0.0), g,
+                coeffs, got, f"K1c/K3c {what}")
+        n += 1
     print(f"K1c resample_coords_fwd and K5c resample_coords_grad bit for bit "
           f"with their plain twins, K3c resample_coords_bwd within "
           f"{worst['resample_coords_bwd']:.3e}: {n} cases each; the K1c/K3c "
@@ -1864,6 +1927,25 @@ def _bound(nbytes, ops, flops=FP32_FLOPS):
                                        else "operations")
 
 
+def _tap_box_share(coords, in_shape, order, mode, block=256, limit=16384):
+    """The share of K5's blocks (``block`` consecutive output voxels of a
+    sample) whose taps' bounding box, float32 with one channel, fits
+    ``limit`` bytes and needs no fold, and the median box in bytes: the
+    blocks that staging the box in shared memory could serve."""
+    from elasticdeform_tpu_torch.ops import bspline, modes
+    B, naxis = coords.shape[:2]
+    fits, vol = None, None
+    for h in range(naxis):
+        m, _ = modes.map_coordinate(coords[:, h], in_shape[h], mode)
+        start = bspline.filter_start(m, order).reshape(B, -1, block)
+        lo, hi = start.amin(-1), start.amax(-1) + order
+        ok = (lo >= 0) & (hi <= in_shape[h] - 1)
+        fits = ok if fits is None else fits & ok
+        vol = hi - lo + 1 if vol is None else vol * (hi - lo + 1)
+    fits &= vol * 4 <= limit
+    return float(fits.float().mean()), float(vol.float().median()) * 4
+
+
 def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
                            card):
     """Time the order-1, nearest-mode calls ``fwd``/``bwd``/``grad`` of a
@@ -1945,13 +2027,17 @@ def _times_resampler(row, card):
                  reps=3, warmup=1),
         _bound(vox * (1 + naxis + 1) * 4, _k1_ops(B, n_out, naxis, 1, 1)),
         o1["bwd"][1], k3c_err, at="c7")
+    box = _tap_box_share(coords, S, *a)
+    print(f"K5c's 256-voxel blocks at c7 shapes (order 1, nearest) whose "
+          f"tap box fits 16 KB unfolded: {100 * box[0]:.2f}%, median box "
+          f"{box[1] / 1024:.1f} KB")
     row("resample_coords_grad", "resample_bwd.cu",
         "elasticdeform_tpu/ops/windows.py:1247", o1["grad"][0],
         _time_ms(lambda: rb.resample_coords_grad_plain(x, g, coords, *a),
                  reps=3, warmup=1),
         _bound(vox * (1 + 1 + 2 * naxis) * 4,
                _k5_ops(B, n_out, naxis, 1, 1)),
-        o1["grad"][1], 0.0, at="c7")
+        o1["grad"][1], 0.0, at="c7", extra={"box_16k_share": box[0]})
     del x, g, coords
 
     # K6 and K7 along the three axes of c8's volume, reflect
@@ -2407,6 +2493,10 @@ def phase_times(card, total_launches, errs, probe_data):
         rb.resample_coord_grad(coeffs, gy, *args),
         rb.resample_coord_grad_plain(coeffs, gy, *args),
         *_tol(torch.float32, _k5_scale(coeffs, gy)), "K5 at c5 shapes")
+    box = _tap_box_share(iota + displ, S, order, 3)
+    print(f"K5's 256-voxel blocks at c5 shapes (order 3, mirror) whose tap "
+          f"box fits 16 KB unfolded: {100 * box[0]:.2f}%, median box "
+          f"{box[1] / 1024:.1f} KB")
     row("resample_coord_grad", "resample_bwd.cu",
         "elasticdeform_tpu/ops/windows.py:1247",
         _time_ms(lambda: rb.resample_coord_grad(coeffs, gy, *args)),
@@ -2414,7 +2504,7 @@ def phase_times(card, total_launches, errs, probe_data):
                  reps=3, warmup=1),
         _bound((numel + B * n_out * C + 2 * 3 * B * n_out) * 4,
                _k5_ops(B, n_out, 3, order, C)), o1["grad"][1], k5_err,
-        extra={"order1_ms": o1["grad"][0]})
+        extra={"order1_ms": o1["grad"][0], "box_16k_share": box[0]})
     del x, gy, coeffs, displ, iota
     _times_resampler(row, card)
     _times_filters(row, card)

@@ -93,9 +93,8 @@ resample_fwd_kernel(const CT* __restrict__ coeffs, const T* __restrict__ displ,
   T w[ED_MAXD][NT];
   int64_t off[ED_MAXD][NT];
   int ntap[ED_MAXD];
-  T unused_dw[ED_MAXD][NT], unused_fd[ED_MAXD];
-  const bool inside = tap_tables<T, ORDER, false, COORDS>(
-      p, displ, affine, b, v, w, off, ntap, unused_dw, unused_fd);
+  const bool inside =
+      tap_tables<T, ORDER, COORDS>(p, displ, affine, b, v, w, off, ntap);
 
   const int64_t C = p.channels;
   T* dst = out + gid * C;

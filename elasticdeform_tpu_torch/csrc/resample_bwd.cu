@@ -17,7 +17,12 @@
 // sm_90) handles both, so the sums land in a run-dependent order, and the
 // float32 result agrees with the plain twin
 // (ops/resample_bwd.py:resample_transpose_plain) only to the rounding of a
-// reordered sum. The caller zero-fills d_coeffs.
+// reordered sum. The caller zero-fills d_coeffs. Bound on the H100: bytes;
+// K3 reads g and the dense displacement (C + naxis values per voxel) and
+// writes d_coeffs once (its zero fill is this design's extra cost). Design:
+// the first, simple form. Neighbouring threads take neighbouring output
+// voxels, so the g and displacement reads coalesce; the atomics resolve in
+// L2. Offsets are int64.
 //
 // K5 resample_coord_grad: the gradient of <K1(coeffs), g> with respect to
 // the dense displacement. Per voxel and axis h (cc = A j + offset + displ,
@@ -25,25 +30,49 @@
 //   d_displ[b, h, j] = fold'_h(cc_h) * sum_taps (sum_c g[b,j,c] *
 //                      coeffs[b, fold(start+t), c]) * w'_h[t_h] *
 //                      prod_{l != h} w_l[t_l]
-// and 0 where constant mode falls outside (the d_cc branch of
-// elasticdeform_tpu/ops/windows.py:1247 _windows_op_bwd, :1277-1308, which
-// JAX forms by forward mode through the weight polynomials). fold' is 0.5
-// at the clip ties of nearest and constant, as JAX's jnp.clip gives. The
-// channels are summed in order and the taps axis 0 slowest, the weight
-// products left to right, as the plain twin
-// (ops/resample_bwd.py:resample_coord_grad_plain) does.
+// and 0 where constant mode falls outside. It replaces the d_cc branch of
+// elasticdeform_tpu/ops/windows.py:1247 _windows_op_bwd (:1277-1308), which
+// JAX forms by forward mode through the weight polynomials. fold' is 0.5 at
+// the clip ties of nearest and constant, as JAX's jnp.clip gives; order 0
+// writes zeros.
 //
-// Bounds on the H100: bytes. K3 reads g and the dense displacement
-// (C + naxis values per voxel) and writes d_coeffs once (its zero fill is
-// this design's extra cost); K5 reads the coefficients, g and the
-// displacement and writes naxis values per voxel, and the operations it
-// needs (the taps contracted axis by axis) take less time than those bytes.
-// Design: the first, simple form. Neighbouring threads take
-// neighbouring output voxels, so the g and displacement reads coalesce and
-// a warp's taps fall in a few cache lines; K3's atomics resolve in L2.
-// Offsets are int64.
+// Bound on the H100: bytes. It reads the coefficients, g and the
+// displacement and writes naxis values per voxel: 0.160 ms at the c5
+// shapes (64 x 64^3 float32, one channel) at 3.35 TB/s; the fewest
+// operations its function needs (the taps contracted axis by axis, about
+// 559 per voxel at order 3) take less.
 //
-// Numerics: built with --fmad=false, every constant cast to T.
+// Design, for a kernel that waits on its gathers:
+// * The sum is contracted axis by axis, innermost first: per tap the
+//   channels fold into gc = sum_c g_c * coeff_c (in channel order), the
+//   innermost axis forms sum_t w[t] gc and sum_t w'[t] gc, and each outer
+//   axis carries the partial without a derivative on with w and w' and
+//   every other partial with w. No tap forms a product of weights, where
+//   the first form re-formed naxis four-factor products per tap (~1270
+//   operations per voxel at order 3, 3-D). The plain twin
+//   (ops/resample_bwd.py:_coord_grad_at) takes the same order, so K5c is
+//   bit for bit with it and K5 within 1e-5 * 2C max|g| max|coeffs|.
+// * The rank is a template parameter, so every table index is a
+//   compile-time constant and the weights, derivative weights and tap
+//   offsets stay in registers (the first form kept them, int64 offsets
+//   included, in a 176-320 byte stack frame). The two innermost axes are
+//   unrolled up to order 3, one above; an outer axis loops over its taps
+//   and picks its table entries by selects, which keeps the 80
+//   instantiations (order 1-5, rank 1-4, float32/float64, int32/int64
+//   offsets) building in about a minute; fully unrolled, they took minutes.
+// * The launch bounds ask for as many blocks per SM as fit the tables
+//   without a spill (CoordGradBlocks): occupancy, not the operation count,
+//   set the speed in the A/B of the bounds on the card.
+// * Offsets within a sample are int32 when every sample is under 2^31
+//   elements (the wrapper's wide_indices); the sample's base is an int64
+//   pointer. A run of taps inside its axis takes start + t; only edge runs
+//   take the integer mirror fold. The voxel index unravels in int32.
+// * The fold, its derivative and each axis's first tap come before the
+//   weights, so the division slow paths find few values live.
+// Neighbouring threads take neighbouring output voxels, so the g and
+// displacement reads coalesce and a warp's taps fall in a few cache lines.
+//
+// Numerics (K3 and K5): built with --fmad=false, every constant cast to T.
 //
 // K3c resample_coords_bwd and K5c resample_coords_grad are K3 and K5 with
 // the coordinate source of resample_common.cuh: caller-given coordinates
@@ -76,9 +105,7 @@ resample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ displ,
   T w[ED_MAXD][NT];
   int64_t off[ED_MAXD][NT];
   int ntap[ED_MAXD];
-  T unused_dw[ED_MAXD][NT], unused_fd[ED_MAXD];
-  if (!tap_tables<T, ORDER, false, COORDS>(p, displ, affine, b, v, w, off,
-                                           ntap, unused_dw, unused_fd))
+  if (!tap_tables<T, ORDER, COORDS>(p, displ, affine, b, v, w, off, ntap))
     return;  // constant mode outside: g is zeroed there
 
   const int64_t C = p.channels;
@@ -111,70 +138,227 @@ resample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ displ,
   }
 }
 
-template <typename T, int ORDER, bool COORDS>
-__global__ void __launch_bounds__(256)
-resample_coord_grad_kernel(const T* __restrict__ coeffs,
-                           const T* __restrict__ g,
-                           const T* __restrict__ displ,
-                           const T* __restrict__ affine,
-                           T* __restrict__ d_displ, const Params p) {
-  constexpr int NT = ORDER + 1;
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= p.batch * p.n_out) return;
-  const int64_t b = gid / p.n_out;
-  const int64_t v = gid - b * p.n_out;
-  const int naxis = p.naxis;
-  const int lead = ED_MAXD - naxis;
-  T* dst = d_displ + b * naxis * p.n_out + v;
+// K5/K5c: the partial sums of one voxel. v[0] carries no derivative
+// weight; v[1 + k] the derivative along the k-th of the axes contracted so
+// far, outermost first.
+template <typename T, int K>
+struct Partials {
+  T v[K];
+};
 
-  T w[ED_MAXD][NT];
-  int64_t off[ED_MAXD][NT];
-  int ntap[ED_MAXD];
-  T dw[ED_MAXD][NT], fd[ED_MAXD];
-  const bool inside = tap_tables<T, ORDER, true, COORDS>(
-      p, displ, affine, b, v, w, off, ntap, dw, fd);
-  if (!inside || ORDER == 0) {
-    // outside the constant-mode mask, and at order 0 (one tap of weight
-    // 1), the output does not depend on the coordinate
-    for (int h = 0; h < naxis; ++h) dst[h * p.n_out] = T(0);
-    return;
+// How many of the innermost axes a K5 kernel unrolls: two up to order 3,
+// one above (at most 16 taps). Each outer axis runs a loop over its taps
+// that picks its table entries by selects, so every table stays in
+// registers and the 80 instantiations build in about a minute.
+__host__ __device__ constexpr int unrolled_axes(int nt, int naxis) {
+  const int k = nt <= 4 ? 2 : 1;
+  return naxis < k ? naxis : k;
+}
+
+// a[t] for a runtime t, by selects over the compile-time entries
+template <typename V, int N>
+__device__ __forceinline__ V pick(const V (&a)[N], const int t) {
+  V r = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = t == k ? a[k] : r;
+  return r;
+}
+
+template <typename T, int NT, int NAXIS, int H, typename I>
+__device__ __forceinline__ Partials<T, NAXIS - H + 1> contract(
+    const T* __restrict__ src, I base, const T (&w)[NAXIS][NT],
+    const T (&dw)[NAXIS][NT], const I (&off)[NAXIS][NT],
+    const T* __restrict__ gv, T g0, I C);
+
+// Tap t of axis H (weight wt, derivative weight dwt, element offset o of
+// the taps so far): the partials of the axes after H at o, or at the
+// innermost axis gc = sum_c g_c * coeff_c in channel order; then each
+// partial's term added to acc (or put there at the axis's first tap).
+template <typename T, int NT, int NAXIS, int H, typename I>
+__device__ __forceinline__ void contract_tap(
+    Partials<T, NAXIS - H + 1>& acc, const bool first, const T wt,
+    const T dwt, const I o, const T* __restrict__ src,
+    const T (&w)[NAXIS][NT], const T (&dw)[NAXIS][NT],
+    const I (&off)[NAXIS][NT], const T* __restrict__ gv, const T g0,
+    const I C) {
+  constexpr int K = NAXIS - H + 1;
+  Partials<T, K - 1> sub;
+  if constexpr (H == NAXIS - 1) {
+    const T* q = src + o;
+    T gc = g0 * __ldg(q);
+    for (I c = 1; c < C; ++c) gc = gc + __ldg(gv + c) * __ldg(q + c);
+    sub.v[0] = gc;
+  } else {
+    sub = contract<T, NT, NAXIS, H + 1, I>(src, o, w, dw, off, gv, g0, C);
   }
+  T term[K];
+  term[0] = wt * sub.v[0];
+  term[1] = dwt * sub.v[0];
+#pragma unroll
+  for (int k = 1; k < K - 1; ++k) term[k + 1] = wt * sub.v[k];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc.v[k] = first ? term[k] : acc.v[k] + term[k];
+}
 
-  const int64_t C = p.channels;
-  const T* src = coeffs + b * p.n_in * C;
-  const T* gv = g + gid * C;
-  T acc[ED_MAXD];
-  bool first = true;
-  int t[ED_MAXD];
-  for (t[0] = 0; t[0] < ntap[0]; ++t[0]) {
-    for (t[1] = 0; t[1] < ntap[1]; ++t[1]) {
-      for (t[2] = 0; t[2] < ntap[2]; ++t[2]) {
+// Contracts the taps of axes H..NAXIS-1 of one voxel whose outer taps sit
+// at element offset `base`: innermost axis first, each axis's taps in
+// order, as ops/resample_bwd.py:_coord_grad_at.
+template <typename T, int NT, int NAXIS, int H, typename I>
+__device__ __forceinline__ Partials<T, NAXIS - H + 1> contract(
+    const T* __restrict__ src, const I base, const T (&w)[NAXIS][NT],
+    const T (&dw)[NAXIS][NT], const I (&off)[NAXIS][NT],
+    const T* __restrict__ gv, const T g0, const I C) {
+  Partials<T, NAXIS - H + 1> acc = {};
+  if constexpr (H >= NAXIS - unrolled_axes(NT, NAXIS)) {
 #pragma unroll
-        for (int t3 = 0; t3 < NT; ++t3) {
-          t[3] = t3;
-          const T* q = src + (off[0][t[0]] + off[1][t[1]] + off[2][t[2]] +
-                              off[3][t3]) * C;
-          T gc = gv[0] * __ldg(q);
-          for (int64_t c = 1; c < C; ++c) gc = gc + gv[c] * __ldg(q + c);
+    for (int t = 0; t < NT; ++t)
+      contract_tap<T, NT, NAXIS, H, I>(acc, t == 0, w[H][t], dw[H][t],
+                                       base + off[H][t], src, w, dw, off, gv,
+                                       g0, C);
+  } else {
+#pragma unroll 1
+    for (int t = 0; t < NT; ++t)
+      contract_tap<T, NT, NAXIS, H, I>(acc, t == 0, pick(w[H], t),
+                                       pick(dw[H], t), base + pick(off[H], t),
+                                       src, w, dw, off, gv, g0, C);
+  }
+  return acc;
+}
+
+// One output voxel v of sample b: its coordinates (read from `displ` when
+// `coords`; else affine(j) + offset + displ, resample_common.cuh's
+// operations), the rank-NAXIS tables of weights, derivative weights and
+// tap offsets in elements (channels included), then the contraction.
+// Offsets within a sample are of type I (int32 where the wrapper found
+// every sample under 2^31 elements); the sample's base is int64. A run of
+// taps that lies inside its axis takes start + t, unfolded.
+template <typename T, int ORDER, int NAXIS, typename I>
+__device__ __forceinline__ void coord_grad_voxel(
+    const T* __restrict__ coeffs, const T* __restrict__ g,
+    const T* __restrict__ displ, const T* __restrict__ affine,
+    T* __restrict__ d_displ, const Params& p, const bool coords,
+    const int64_t b, const I v) {
+  constexpr int NT = ORDER + 1;
+  const I n_out = (I)p.n_out;
+  const I C = (I)p.channels;
+  const T* cs = displ + b * NAXIS * p.n_out;
+  T* dst = d_displ + b * NAXIS * p.n_out + v;
+
+  T cc[NAXIS];
+  if (coords) {
 #pragma unroll
-          for (int s = 0; s < ED_MAXD; ++s) {
-            if (s < lead) continue;
-            // product over the slots, left to right, with the derivative
-            // weights in slot s
-            T part = s == 0 ? dw[0][t[0]] : w[0][t[0]];
+    for (int h = 0; h < NAXIS; ++h) cc[h] = cs[h * n_out + v];
+  } else {
+    I j[NAXIS];
+    I rem = v;
 #pragma unroll
-            for (int l = 1; l < ED_MAXD; ++l)
-              part = part * (l == s ? dw[l][t[l]] : w[l][t[l]]);
-            const T term = gc * part;
-            acc[s] = first ? term : acc[s] + term;
-          }
-          first = false;
-        }
+    for (int h = NAXIS - 1; h > 0; --h) {
+      const I n = (I)p.out_shape[h];
+      const I q = rem / n;
+      j[h] = rem - q * n;
+      rem = q;
+    }
+    j[0] = rem;
+    const T* A = affine ? affine + b * p.affine_stride : nullptr;
+#pragma unroll
+    for (int h = 0; h < NAXIS; ++h) {
+      T c;
+      if (A) {
+        const T* row = A + h * (NAXIS + 1);
+        T acc = row[NAXIS];
+#pragma unroll
+        for (int l = 0; l < NAXIS; ++l) acc = acc + row[l] * T(j[l]);
+        c = acc;
+      } else {
+        c = T(j[h]);
       }
+      c = c + T(p.offset[h]);
+      cc[h] = c + cs[h * n_out + v];
     }
   }
-  for (int h = 0; h < naxis; ++h)
-    dst[h * p.n_out] = fd[lead + h] * acc[lead + h];
+
+  // the fold, its derivative and the first tap of each axis first, then
+  // the weights, the derivative weights and the offsets: the divisions'
+  // slow-path calls then find few values live and nothing spills
+  T m[NAXIS], fd[NAXIS];
+  I start[NAXIS];
+  bool inside = true;
+#pragma unroll
+  for (int h = 0; h < NAXIS; ++h) {
+    m[h] = map_coord(cc[h], p.in_shape[h], p.mode, &inside);
+    fd[h] = map_coord_grad(cc[h], p.in_shape[h], p.mode);
+    start[h] = (I)((ORDER & 1) ? floor(m[h]) - T(ORDER / 2)
+                               : floor(m[h] + T(0.5)) - T(ORDER / 2));
+  }
+  if (!inside) {
+    // constant mode outside: the output does not depend on the coordinate
+#pragma unroll
+    for (int h = 0; h < NAXIS; ++h) dst[h * n_out] = T(0);
+    return;
+  }
+  T w[NAXIS][NT], dw[NAXIS][NT];
+#pragma unroll
+  for (int h = 0; h < NAXIS; ++h) spline_weights<T, ORDER>(m[h], w[h]);
+#pragma unroll
+  for (int h = 0; h < NAXIS; ++h) spline_weights_grad<T, ORDER>(m[h], dw[h]);
+  I off[NAXIS][NT];
+#pragma unroll
+  for (int h = 0; h < NAXIS; ++h) {
+    const I n = (I)p.in_shape[h];
+    const I stride = (I)(p.in_stride[h] * p.channels);
+    if (start[h] >= 0 && start[h] + NT <= n) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) off[h][t] = (start[h] + t) * stride;
+    } else {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        off[h][t] = mirror_fold<I>(start[h] + t, n) * stride;
+    }
+  }
+
+  const T* src = coeffs + b * p.n_in * p.channels;
+  const T* gv = g + b * p.n_out * p.channels + v * C;
+  const Partials<T, NAXIS + 1> r =
+      contract<T, NT, NAXIS, 0, I>(src, I(0), w, dw, off, gv, gv[0], C);
+#pragma unroll
+  for (int h = 0; h < NAXIS; ++h) dst[h * n_out] = fd[h] * r.v[1 + h];
+}
+
+// The blocks per SM that K5's launch bounds ask for, which set ptxas's
+// register budget to 65536 / (256 * blocks): for float32 with 32-bit
+// offsets, the most blocks whose budget holds the tables and the unrolled
+// taps without a spill (48 registers up to 8 taps, 64 up to 16, 80 up to
+// 64, 128 above). The kernel waits on its gathers, so occupancy is its
+// speed: given only the thread count, ptxas cut registers to fit more
+// blocks and spilled; given one block, it spent up to twice the registers
+// and the kernels ran far slower. float64 and 64-bit offsets take one
+// block: their tables are twice as wide, and they are not the hot path.
+template <typename T, int NT, int NAXIS, typename I>
+struct CoordGradBlocks {
+  static constexpr int taps = NAXIS == 1   ? NT
+                              : NAXIS == 2 ? NT * NT
+                              : NAXIS == 3 ? NT * NT * NT
+                                           : NT * NT * NT * NT;
+  static constexpr int value = sizeof(T) > 4 || sizeof(I) > 4 ? 1
+                               : taps <= 8                     ? 5
+                               : taps <= 16                    ? 4
+                               : taps <= 64                    ? 3
+                                                               : 2;
+};
+
+// One thread per output voxel of a sample; the grid's y walks the batch.
+template <typename T, int ORDER, int NAXIS, typename I>
+__global__ void __launch_bounds__(
+    256, (CoordGradBlocks<T, ORDER + 1, NAXIS, I>::value))
+coord_grad_kernel(const T* __restrict__ coeffs, const T* __restrict__ g,
+                  const T* __restrict__ displ, const T* __restrict__ affine,
+                  T* __restrict__ d_displ, const Params p,
+                  const bool coords) {
+  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= p.n_out) return;
+  for (int64_t b = blockIdx.y; b < p.batch; b += gridDim.y)
+    coord_grad_voxel<T, ORDER, NAXIS, I>(coeffs, g, displ, affine, d_displ,
+                                         p, coords, b, (I)v);
 }
 
 template <typename T, int ORDER, bool COORDS>
@@ -188,23 +372,6 @@ cudaError_t launch_bwd(const void* g, const void* displ, const void* affine,
       <<<(unsigned)blocks, threads, 0, stream>>>(
           static_cast<const T*>(g), static_cast<const T*>(displ),
           static_cast<const T*>(affine), static_cast<T*>(d_coeffs), p);
-  return cudaGetLastError();
-}
-
-template <typename T, int ORDER, bool COORDS>
-cudaError_t launch_coord_grad(const void* coeffs, const void* g,
-                              const void* displ, const void* affine,
-                              void* d_displ, const Params& p,
-                              cudaStream_t stream) {
-  const int64_t total = p.batch * p.n_out;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  resample_coord_grad_kernel<T, ORDER, COORDS>
-      <<<(unsigned)blocks, threads, 0, stream>>>(
-          static_cast<const T*>(coeffs), static_cast<const T*>(g),
-          static_cast<const T*>(displ), static_cast<const T*>(affine),
-          static_cast<T*>(d_displ), p);
   return cudaGetLastError();
 }
 
@@ -223,26 +390,72 @@ cudaError_t dispatch_bwd(int order, const void* g, const void* displ,
   return cudaErrorInvalidValue;
 }
 
-template <typename T, bool COORDS>
-cudaError_t dispatch_coord_grad(int order, const void* coeffs, const void* g,
-                                const void* displ, const void* affine,
-                                void* d_displ, const Params& p,
-                                cudaStream_t s) {
-  switch (order) {
-    case 0: return launch_coord_grad<T, 0, COORDS>(coeffs, g, displ, affine,
-                                                   d_displ, p, s);
-    case 1: return launch_coord_grad<T, 1, COORDS>(coeffs, g, displ, affine,
-                                                   d_displ, p, s);
-    case 2: return launch_coord_grad<T, 2, COORDS>(coeffs, g, displ, affine,
-                                                   d_displ, p, s);
-    case 3: return launch_coord_grad<T, 3, COORDS>(coeffs, g, displ, affine,
-                                                   d_displ, p, s);
-    case 4: return launch_coord_grad<T, 4, COORDS>(coeffs, g, displ, affine,
-                                                   d_displ, p, s);
-    case 5: return launch_coord_grad<T, 5, COORDS>(coeffs, g, displ, affine,
-                                                   d_displ, p, s);
+struct GradArgs {
+  const void* coeffs;
+  const void* g;
+  const void* displ;
+  const void* affine;
+  void* d_displ;
+};
+
+template <typename T, int ORDER, int NAXIS, typename I>
+cudaError_t launch_coord_grad(const GradArgs& a, const Params& p,
+                              bool coords, cudaStream_t stream) {
+  const int threads = 256;
+  const dim3 grid((unsigned)((p.n_out + threads - 1) / threads),
+                  (unsigned)(p.batch < 65535 ? p.batch : 65535));
+  coord_grad_kernel<T, ORDER, NAXIS, I><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(a.coeffs), static_cast<const T*>(a.g),
+      static_cast<const T*>(a.displ), static_cast<const T*>(a.affine),
+      static_cast<T*>(a.d_displ), p, coords);
+  return cudaGetLastError();
+}
+
+template <typename T, int ORDER, typename I>
+cudaError_t coord_grad_rank(const GradArgs& a, const Params& p, bool coords,
+                            cudaStream_t s) {
+  switch (p.naxis) {
+    case 1: return launch_coord_grad<T, ORDER, 1, I>(a, p, coords, s);
+    case 2: return launch_coord_grad<T, ORDER, 2, I>(a, p, coords, s);
+    case 3: return launch_coord_grad<T, ORDER, 3, I>(a, p, coords, s);
+    case 4: return launch_coord_grad<T, ORDER, 4, I>(a, p, coords, s);
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename T, int ORDER>
+cudaError_t coord_grad_width(bool wide, const GradArgs& a, const Params& p,
+                             bool coords, cudaStream_t s) {
+  return wide ? coord_grad_rank<T, ORDER, int64_t>(a, p, coords, s)
+              : coord_grad_rank<T, ORDER, int32_t>(a, p, coords, s);
+}
+
+// K5/K5c: order 0 (one tap of weight 1) does not depend on the
+// coordinates, so its gradient is all zeros.
+template <typename T>
+cudaError_t dispatch_coord_grad(int order, bool wide, bool coords,
+                                const GradArgs& a, const Params& p,
+                                cudaStream_t s) {
+  if (p.batch * p.n_out == 0) return cudaSuccess;
+  switch (order) {
+    case 0:
+      return cudaMemsetAsync(a.d_displ, 0,
+                             p.batch * p.naxis * p.n_out * sizeof(T), s);
+    case 1: return coord_grad_width<T, 1>(wide, a, p, coords, s);
+    case 2: return coord_grad_width<T, 2>(wide, a, p, coords, s);
+    case 3: return coord_grad_width<T, 3>(wide, a, p, coords, s);
+    case 4: return coord_grad_width<T, 4>(wide, a, p, coords, s);
+    case 5: return coord_grad_width<T, 5>(wide, a, p, coords, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Whether 32-bit offsets reach every element of one sample (the wrapper's
+// wide_indices, checked again here).
+inline bool fits_32(const Params& p) {
+  const int64_t lim = (int64_t)1 << 31;
+  const int64_t per = p.channels > p.naxis ? p.channels : p.naxis;
+  return p.n_in * p.channels < lim && p.n_out * per < lim;
 }
 
 }  // namespace
@@ -274,7 +487,8 @@ int ed_resample_bwd(int dtype, const void* g, const void* displ,
 }
 
 // As ed_resample_bwd; coeffs (B, *in_shape, C), g (B, *out_shape, C),
-// d_displ (B, naxis, *out_shape), every element written.
+// d_displ (B, naxis, *out_shape), every element written. wide: 64-bit
+// offsets within a sample (required once a sample reaches 2^31 elements).
 int ed_resample_coord_grad(int dtype, const void* coeffs, const void* g,
                            const void* displ, const void* affine,
                            void* d_displ, int naxis, int order, int mode,
@@ -282,19 +496,17 @@ int ed_resample_coord_grad(int dtype, const void* coeffs, const void* g,
                            const long long* in_shape,
                            const long long* out_shape,
                            const long long* offsets, long long affine_stride,
-                           void* stream) {
+                           void* stream, int wide) {
   Params p;
   if (!make_params(&p, naxis, mode, batch, channels, in_shape, out_shape,
-                   offsets, affine_stride, 0.0) || channels < 1)
+                   offsets, affine_stride, 0.0) || channels < 1 ||
+      (!wide && !fits_32(p)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GradArgs a{coeffs, g, displ, affine, d_displ};
   cudaError_t err =
-      dtype == 0   ? dispatch_coord_grad<float, false>(order, coeffs, g,
-                                                       displ, affine, d_displ,
-                                                       p, s)
-      : dtype == 1 ? dispatch_coord_grad<double, false>(order, coeffs, g,
-                                                        displ, affine,
-                                                        d_displ, p, s)
+      dtype == 0   ? dispatch_coord_grad<float>(order, wide, false, a, p, s)
+      : dtype == 1 ? dispatch_coord_grad<double>(order, wide, false, a, p, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }
@@ -321,23 +533,22 @@ int ed_resample_coords_bwd(int dtype, const void* g, const void* coords,
 }
 
 // K5c: the gradient of <K1c(coeffs), g> with respect to coords; d_coords
-// (B, naxis, n_out), every element written. Returns cudaGetLastError().
+// (B, naxis, n_out), every element written; wide as for K5. Returns
+// cudaGetLastError().
 int ed_resample_coords_grad(int dtype, const void* coeffs, const void* g,
                             const void* coords, void* d_coords, int naxis,
                             int order, int mode, long long batch,
                             long long channels, const long long* in_shape,
-                            long long n_out, void* stream) {
+                            long long n_out, void* stream, int wide) {
   Params p;
   if (!make_params_coords(&p, naxis, mode, batch, channels, in_shape, n_out,
-                          0.0) || channels < 1)
+                          0.0) || channels < 1 || (!wide && !fits_32(p)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GradArgs a{coeffs, g, coords, nullptr, d_coords};
   cudaError_t err =
-      dtype == 0   ? dispatch_coord_grad<float, true>(order, coeffs, g, coords,
-                                                      nullptr, d_coords, p, s)
-      : dtype == 1 ? dispatch_coord_grad<double, true>(order, coeffs, g,
-                                                       coords, nullptr,
-                                                       d_coords, p, s)
+      dtype == 0   ? dispatch_coord_grad<float>(order, wide, true, a, p, s)
+      : dtype == 1 ? dispatch_coord_grad<double>(order, wide, true, a, p, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

@@ -175,10 +175,12 @@ __device__ __forceinline__ T map_coord_grad(T cc, int64_t length, int mode) {
   return T(1);  // MODE_WRAP
 }
 
-__device__ __forceinline__ int64_t mirror_fold(int64_t i, int64_t n) {
+// The integer mirror fold of tap index i into [0, n), in the index type I.
+template <typename I>
+__device__ __forceinline__ I mirror_fold(I i, I n) {
   if (n <= 1) return 0;
-  const int64_t s2 = 2 * n - 2;
-  int64_t m = i % s2;
+  const I s2 = 2 * n - 2;
+  I m = i % s2;
   if (m < 0) m += s2;
   return m >= n ? s2 - m : m;
 }
@@ -337,15 +339,14 @@ __device__ __forceinline__ T sample_coordinate(const Params& p, const T* A,
 // slots take one tap of weight 1 and offset 0. Multiplying by 1 is exact,
 // so a left-to-right weight product over the slots equals the twin's over
 // the real axes. off[s][t] is the element offset (in voxels) of tap t,
-// folded by the integer mirror fold into the UNPADDED array. With GRAD,
-// dw[s][t] holds d w / d cc and fd[s] the fold's derivative. With COORDS,
+// folded by the integer mirror fold into the UNPADDED array. With COORDS,
 // displ holds the sample coordinates themselves (B, naxis, n_out), read as
 // they are. Returns false where constant mode falls outside.
-template <typename T, int ORDER, bool GRAD, bool COORDS>
+template <typename T, int ORDER, bool COORDS>
 __device__ __forceinline__ bool tap_tables(
     const Params& p, const T* displ, const T* affine, int64_t b, int64_t v,
     T (&w)[ED_MAXD][ORDER + 1], int64_t (&off)[ED_MAXD][ORDER + 1],
-    int (&ntap)[ED_MAXD], T (&dw)[ED_MAXD][ORDER + 1], T (&fd)[ED_MAXD]) {
+    int (&ntap)[ED_MAXD]) {
   constexpr int NT = ORDER + 1;
   const int lead = ED_MAXD - p.naxis;
   int64_t j[ED_MAXD];
@@ -361,9 +362,7 @@ __device__ __forceinline__ bool tap_tables(
       for (int t = 0; t < NT; ++t) {
         w[s][t] = T(1);
         off[s][t] = 0;
-        if (GRAD) dw[s][t] = T(1);
       }
-      if (GRAD) fd[s] = T(1);
       continue;
     }
     ntap[s] = NT;
@@ -377,10 +376,6 @@ __device__ __forceinline__ bool tap_tables(
                              : floor(m + T(0.5)) - T(ORDER / 2);
     const int64_t start = (int64_t)fs;
     spline_weights<T, ORDER>(m, w[s]);
-    if (GRAD) {
-      spline_weights_grad<T, ORDER>(m, dw[s]);
-      fd[s] = map_coord_grad(cc, p.in_shape[h], p.mode);
-    }
 #pragma unroll
     for (int t = 0; t < NT; ++t)
       off[s][t] = mirror_fold(start + t, p.in_shape[h]) * p.in_stride[h];

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -33,6 +34,7 @@ SOURCES = ("resample", "prefilter", "resample_bwd", "filters", "morphology",
 _lock = threading.Lock()
 _libs: dict = {}
 build_logs: dict = {}   # source name -> nvcc's stderr (ptxas register use)
+build_seconds: dict = {}  # source name -> seconds its nvcc ran
 
 
 def _nvcc() -> str:
@@ -65,17 +67,29 @@ def build_all() -> dict:
         return paths
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for name in todo:
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        log = open(f"{tmp}.log", "w+")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        procs[name] = (tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True))
+    running = set(todo)
+    while running:
+        for name in list(running):
+            if procs[name][2].poll() is not None:
+                build_seconds[name] = time.perf_counter() - t0
+                running.discard(name)
+        time.sleep(0.1)
     failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
+    for name, (tmp, log, proc) in procs.items():
+        log.seek(0)
+        build_logs[name] = log.read()
+        log.close()
+        os.unlink(log.name)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n"
+                          f"{build_logs[name]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, paths[name])   # atomic against concurrent builds

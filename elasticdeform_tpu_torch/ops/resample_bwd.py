@@ -17,7 +17,9 @@ with respect to the dense displacement: per voxel and axis ``h``, the
 fold's derivative times ``sum_c sum_taps g * coeff * w'_h * prod_{l != h}
 w_l``, and 0 where constant mode falls outside (the d_cc branch of
 ``ops/windows.py:1247``, ``:1277-1308`` there). Its plain version is
-:func:`resample_coord_grad_plain`.
+:func:`resample_coord_grad_plain`. Both take the sum in one order: the
+channels folded per tap, then the taps contracted axis by axis, innermost
+first (:func:`_coord_grad_at`), so no tap re-forms a product of weights.
 
 The coordinate-input wrappers serve the general resampler
 (``map_coordinates``): :func:`resample_coords_transpose` (kernel K3c,
@@ -102,8 +104,8 @@ def resample_coord_grad_plain(coeffs: torch.Tensor, g: torch.Tensor,
                               displ: torch.Tensor, affine, offsets,
                               order: int, mode: int) -> torch.Tensor:
     """Plain version of K5: ``d <resample(coeffs), g> / d displ``, shaped
-    like ``displ``. The channels are summed in order and the taps axis 0
-    slowest, as the kernel does."""
+    like ``displ``, summed in the kernel's order (:func:`_coord_grad_at`).
+    """
     return _coord_grad_at(coeffs, g, sample_coordinates(displ, affine,
                                                         offsets),
                           order, mode, displ)
@@ -120,6 +122,14 @@ def resample_coords_grad_plain(coeffs: torch.Tensor, g: torch.Tensor,
 
 
 def _coord_grad_at(coeffs, g, cc, order, mode, like):
+    """K5's contraction: per tap the channels folded into ``gc = sum_c g_c
+    * coeff_c`` (in channel order), then the taps contracted axis by axis,
+    the innermost (last) axis first, each tap's terms summed in tap order.
+    Contracting axis ``h`` turns the partials of the axes after it, ``[s,
+    d_{h+1}, ..., d_{naxis-1}]`` (``s`` without a derivative weight, ``d_l``
+    with the derivative along ``l``), into ``[sum w_h s, sum w'_h s, sum
+    w_h d_{h+1}, ...]``. After axis 0 the derivative partials are the
+    result; each is multiplied by its fold's derivative last."""
     B, naxis = like.shape[:2]
     if order == 0:
         return torch.zeros_like(like)
@@ -131,27 +141,45 @@ def _coord_grad_at(coeffs, g, cc, order, mode, like):
     n_out = base.numel()
     dweights = [[d.reshape(n_out) for d in spline_weights_grad(m, order)]
                 for m in mapped]
-    # product h takes the derivative weights along axis h
-    factors = [[dweights[l] if l == h else weights[l] for l in range(naxis)]
-               for h in range(naxis)]
     rows = B * math.prod(padded)
     xf = mirror_pad(coeffs, range(1, naxis + 1), pad).reshape(rows, C)
     g2 = g.reshape(n_out, C)
-    acc = [None] * naxis
-    for offset, parts in tap_products(order, strides, factors):
-        vals = torch.index_select(xf, 0, torch.clamp(base + offset, 0,
-                                                     rows - 1))
-        gc = g2[:, 0] * vals[:, 0]
-        for c in range(1, C):
-            gc = gc + g2[:, c] * vals[:, c]
-        for h in range(naxis):
-            term = gc * parts[h]
-            acc[h] = term if acc[h] is None else acc[h] + term
+
+    def contract(h, offset):
+        acc = None
+        for tap in range(order + 1):
+            row = offset + tap * strides[h]
+            if h == naxis - 1:
+                vals = torch.index_select(xf, 0, torch.clamp(base + row, 0,
+                                                             rows - 1))
+                gc = g2[:, 0] * vals[:, 0]
+                for c in range(1, C):
+                    gc = gc + g2[:, c] * vals[:, c]
+                sub = [gc]
+            else:
+                sub = contract(h + 1, row)
+            w, dw = weights[h][tap], dweights[h][tap]
+            terms = [w * sub[0], dw * sub[0]] + [w * s for s in sub[1:]]
+            acc = terms if acc is None else [a + t for a, t in
+                                             zip(acc, terms)]
+        return acc
+
+    acc = contract(0, 0)[1:]
     out = torch.stack([
         _modes.map_coordinate_grad(cc[h], in_spatial[h], mode).reshape(n_out)
         * acc[h] for h in range(naxis)])
     out = out.reshape(naxis, B, *like.shape[2:]).transpose(0, 1)
     return _zero_outside(out, None if inside is None else inside[:, None])
+
+
+def wide_indices(n_in: int, n_out: int, channels: int, naxis: int) -> bool:
+    """Whether K5/K5c index one sample with 64-bit integers: exactly when
+    one sample of the coefficients (``n_in * C`` elements), of ``g``
+    (``n_out * C``) or of the coordinates (``naxis * n_out``) reaches
+    ``2**31`` elements. Below that every offset inside a sample fits in 32
+    bits; the batch offset goes into the base pointers as int64 either
+    way."""
+    return max(n_in * channels, n_out * max(channels, naxis)) >= 2 ** 31
 
 
 def _lib():
@@ -166,7 +194,8 @@ def _lib():
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + shape_args
         fn = lib.ed_resample_coord_grad
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + shape_args
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + shape_args
+                       + [ctypes.c_int])
         coords_args = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong, ll_p,
                        ctypes.c_longlong, ctypes.c_void_p]
@@ -175,7 +204,8 @@ def _lib():
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + coords_args
         fn = lib.ed_resample_coords_grad
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + coords_args
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + coords_args
+                       + [ctypes.c_int])
     return lib
 
 
@@ -236,13 +266,16 @@ def resample_coord_grad(coeffs: torch.Tensor, g: torch.Tensor,
                          "channels of coeffs")
     naxis, B, in_shape, out_shape, offs, a_ptr, a_stride = kernel_geometry(
         coeffs.shape[1:-1], displ, affine, offsets)
+    C = coeffs.shape[-1]
     out = torch.empty_like(displ)
     lib = _lib()
     err = lib.ed_resample_coord_grad(
         0 if g.dtype == torch.float32 else 1, coeffs.data_ptr(),
         g.data_ptr(), displ.data_ptr(), a_ptr, out.data_ptr(), naxis, order,
-        mode, B, coeffs.shape[-1], in_shape, out_shape, offs, a_stride,
-        torch.cuda.current_stream(g.device).cuda_stream)
+        mode, B, C, in_shape, out_shape, offs, a_stride,
+        torch.cuda.current_stream(g.device).cuda_stream,
+        int(wide_indices(math.prod(coeffs.shape[1:-1]),
+                         math.prod(displ.shape[2:]), C, naxis)))
     _build.check(err, lib, "ed_resample_bwd_error_string",
                  "resample_coord_grad")
     resample_coord_grad.launches += 1
@@ -317,7 +350,8 @@ def resample_coords_grad(coeffs: torch.Tensor, g: torch.Tensor,
         0 if g.dtype == torch.float32 else 1, coeffs.data_ptr(),
         g.data_ptr(), coords.data_ptr(), out.data_ptr(), naxis, order, mode,
         B, C, in_shape, n_out,
-        torch.cuda.current_stream(g.device).cuda_stream)
+        torch.cuda.current_stream(g.device).cuda_stream,
+        int(wide_indices(math.prod(coeffs.shape[1:-1]), n_out, C, naxis)))
     _build.check(err, lib, "ed_resample_bwd_error_string",
                  "resample_coords_grad")
     resample_coords_grad.launches += 1
