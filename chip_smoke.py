@@ -9,8 +9,10 @@ Phases (any failure raises, and the exit code is not 0):
 
 1. device and build: prints the card's name and power limit, builds the
    CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc, prints
-   each source's build time and ptxas figures, and holds K5/K5c at orders
-   1 and 3 in float32 to no stack frame and no spills;
+   each source's build time and ptxas figures and each K4/K7
+   instantiation's (both routes, every tile width), and holds K4/K7 in
+   float32 and K5/K5c at orders 1 and 3 in float32 to no stack frame and
+   no spills;
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
    K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
    orders 0-5 x five modes x 1-D to 4-D x one and two channels in float32
@@ -22,7 +24,11 @@ Phases (any failure raises, and the exit code is not 0):
    transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at every
    axis position; K6 and K7 (the reflect/wrap prefilter and its transpose)
    against ``filter_matrix_bc`` and its transpose over orders 2-5 x
-   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; K8 and
+   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; K4 and
+   K7 on both routes (shared-memory line tiles and one thread per line)
+   over inner 1/3/33/64/100, partial last tiles and lines one below, at
+   and one above the tile cap, the tile route at every width equal to the
+   lines route bit for bit; K8 and
    K8T (the 1-D correlation and its transpose) over the five filter modes,
    1-41 taps (longer than some axes) at every centre, every axis of 2-D and
    3-D shapes with odd sizes, and the paired integer route bit for bit; K9
@@ -63,12 +69,16 @@ Phases (any failure raises, and the exit code is not 0):
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16, and c17's K13 sweeps per
-   call); then the probes' path: every Pallas probe through the port's
+   call; K4's and K7's launches split by route, the tile route taken);
+   then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
    P1-P4, none of K1-K13), each output equal to phase 2's kernel output;
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
-   its plain version and library yardstick (K1-K5 at the c5 shapes, also
+   its plain version and library yardstick (K1-K5 at the c5 shapes, K4
+   and K7 also per axis with their route, tile width, blocks per SM and
+   waves, every width, the lines route, the tile's copy alone and a plain
+   device copy; also
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
    ``grid_sample``; the share of K5's and K5c's blocks whose tap box would
    fit 16 KB of shared memory; K6, K7 and again K1c, K3c at the c8 shapes; K8-K9T at
@@ -208,14 +218,15 @@ _K5_NAME = re.compile(r"coord_grad_kernelI([fd])Li(\d)ELi(\d)E([il])E")
 
 def _ptxas_kernels(log):
     """``{mangled kernel: [registers, stack frame bytes, spill store bytes,
-    spill load bytes, ptxas ms]}`` from nvcc's ``-Xptxas -v`` output."""
+    spill load bytes, ptxas ms, static shared bytes]}`` from nvcc's
+    ``-Xptxas -v`` output."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )([\w$]+)", line)
         if m:
             cur = m.group(1)
-            out.setdefault(cur, [0, 0, 0, 0, 0.0])
+            out.setdefault(cur, [0, 0, 0, 0, 0.0, 0])
             continue
         if cur is None:
             continue
@@ -229,14 +240,55 @@ def _ptxas_kernels(log):
         m = re.search(r"Compile time = ([\d.]+) ms", line)
         if m:
             out[cur][4] = float(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[cur][5] = int(m.group(1))
     return out
+
+
+# K4/K7's kernels: the tile route (dtype, width, kind 0 mirror / 1 reflect /
+# 2 wrap) and the lines route (dtype; K7 with its boundary condition)
+_K47_NAMES = (
+    ("tile", re.compile(r"prefilter_transpose_tile_kernelI([fd])Li(\d+)ELi"
+                        r"(\d)E")),
+    ("lines", re.compile(r"prefilter_transpose_kernelI([fd])E")),
+    ("lines", re.compile(r"prefilter_bc_transpose_kernelI([fd])Li(\d)E")))
+
+
+def _check_k47_ptxas(log):
+    """Print each K4/K7 instantiation's registers, stack, spills and static
+    shared bytes (the tile's own shared memory is dynamic: its bytes are
+    the plan's, printed in phase 4); fail if one in float32 has a stack
+    frame or spills."""
+    found, bad = 0, []
+    for fn, v in sorted(_ptxas_kernels(log).items()):
+        for route, pat in _K47_NAMES:
+            m = pat.search(fn)
+            if not m or fn.startswith("_ZZ"):   # _ZZ: a kernel's lambda
+                continue
+            g = m.groups()
+            kind = ("K4" if route == "lines" and len(g) == 1 else
+                    "K4" if route == "tile" and g[2] == "0" else
+                    "K7 reflect" if g[-1] == "1" else "K7 wrap")
+            width = f" W={g[1]}" if route == "tile" else ""
+            dt = "float32" if g[0] == "f" else "float64"
+            print(f"  ptxas {kind} {route}{width} {dt}: {v[0]} registers, "
+                  f"{v[1]} bytes stack frame, {v[2]}/{v[3]} bytes spill "
+                  f"stores/loads, {v[5]} bytes static shared")
+            found += 1
+            if g[0] == "f" and any(v[1:4]):
+                bad.append(fn)
+    if found != 24 or bad:
+        raise AssertionError(f"K4/K7: {found} of 24 instantiations found; "
+                             f"float32 with a stack frame or spills: {bad}")
 
 
 def phase_build():
     """Build every source; print each one's nvcc time, its kernels' worst
     register, stack and spill figures, every kernel with a stack frame or
-    spills, and K5/K5c's table. K5/K5c at orders 1 and 3 in float32 must
-    keep their tap tables in registers: no stack frame, no spills."""
+    spills, K4/K7's instantiations and K5/K5c's table. K4/K7 in float32,
+    and K5/K5c at orders 1 and 3 in float32, must keep their state in
+    registers: no stack frame, no spills."""
     from elasticdeform_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -261,6 +313,11 @@ def phase_build():
                 print(f"  ptxas {name}: {fn}: {v[0]} registers, {v[1]} "
                       f"bytes stack frame, {v[2]}/{v[3]} bytes spill "
                       f"stores/loads")
+    if "prefilter" in _build.build_logs:
+        _check_k47_ptxas(_build.build_logs["prefilter"])
+    else:
+        print("  ptxas: prefilter was built before this run; K4/K7's check "
+              "skipped")
     if "resample_bwd" not in _build.build_logs:
         print("  ptxas: resample_bwd was built before this run; K5's "
               "register check skipped")
@@ -270,7 +327,7 @@ def phase_build():
             (("i", "int32"), ("l", "int64")), "1234"):
         parts = []
         for order in "12345":
-            r, st, ss, sl, ms = k5.get((dt, order, rank, ix), [-1] * 5)
+            r, st, ss, sl, ms = k5.get((dt, order, rank, ix), [-1] * 6)[:5]
             parts.append(f"o{order} {r} {st}/{ss}/{sl} {ms / 1e3:.1f}s")
         print(f"  ptxas K5/K5c {dname} rank {rank} {width} (registers, "
               f"stack/spill-store/spill-load bytes, ptxas s): "
@@ -431,6 +488,7 @@ def phase_kernels():
     _check_coords_kernels(rs, worst)
     _check_narrow_table(rs)
     _check_bc_prefilter(rs, worst)
+    _check_transpose_routes(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_kernels(rs)
     return worst
@@ -592,6 +650,97 @@ def _check_bc_prefilter(rs, worst):
           f"err {worst['spline_prefilter_bc']:.3e} / "
           f"{worst['spline_prefilter_bc_transpose']:.3e}; the K6/K7 adjoint "
           f"identity holds in float64 ({n // 2} cases)")
+
+
+def _bits(t):
+    """The tensor's bits as integers, for a bit-for-bit comparison."""
+    import torch
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int64)
+
+
+def _check_transpose_routes(rs, worst):
+    """K4 and K7 beyond the [5, 6, 3, 4] sweeps, on both routes: views
+    (outer, n, inner) with inner 1, 3, 33, 64 and 100 and outers that make
+    the last tile of every width partial, and lines one below, at and one
+    above the tile route's cap, in float32 and float64. The wrapper is held
+    to its plain twin (float32 rtol=1e-5, atol=1e-5*max|x|; float64 1e-10)
+    and must take the route its plan names (its route count); every tile
+    width that fits must equal the lines route bit for bit; the K2/K4 and
+    K6/K7 adjoint identities hold in float64."""
+    import torch
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    dev = torch.device("cuda")
+    kinds = (("K4", "spline_prefilter_transpose", "mirror"),
+             ("K7", "spline_prefilter_bc_transpose", "reflect"),
+             ("K7", "spline_prefilter_bc_transpose", "wrap"))
+    shapes = [(outer, n, inner) for inner, outer in
+              ((1, 131), (3, 23), (33, 5), (64, 3), (100, 2))
+              for n in (9, 64, 224)]
+    for dtype in (torch.float32, torch.float64):
+        cap = pf.tile_cap(dtype)
+        shapes += [(3, n, 5) for n in (cap - 1, cap, cap + 1)]
+        shapes += [(2, n, 1) for n in (cap - 1, cap, cap + 1)]
+    n_cases = n_bits = 0
+    for (outer, n, inner), dtype, order, (k, name, bc) in itertools.product(
+            shapes, (torch.float32, torch.float64), (2, 3, 4, 5), kinds):
+        if n > 224 and order in (2, 4):
+            continue    # long lines: orders 3 and 5 (one and two poles)
+        x = torch.as_tensor(rs.rand(outer, n, inner) * 200 - 50,
+                            dtype=dtype, device=dev)
+        what = (f"{k} {bc} {dtype} order={order} (outer, n, inner)="
+                f"{(outer, n, inner)}")
+        plan = pf._plan_for(x, 1)
+        if bc == "mirror":
+            wrapper = pf.spline_filter1d_transpose
+            before = dict(wrapper.routes)
+            got = wrapper(x, order, 1)
+            want = pf.spline_filter1d_transpose_plain(x, order, 1)
+        else:
+            wrapper = pf.spline_filter1d_bc_transpose
+            before = dict(wrapper.routes)
+            got = wrapper(x, order, 1, bc)
+            want = pf.spline_filter1d_bc_transpose_plain(x, order, 1, bc)
+        if wrapper.routes[plan.route] != before[plan.route] + 1:
+            raise AssertionError(f"{what}: the wrapper did not count a "
+                                 f"launch on the {plan.route} route")
+        if plan.route != ("tile" if n <= pf.tile_cap(dtype) else "lines"):
+            raise AssertionError(f"{what}: plan {plan} on the wrong route")
+        torch.cuda.synchronize()
+        worst[name] = max(worst[name], _assert_close(
+            got, want, *_tol(dtype, float(x.abs().max())), what))
+        ref = pf._launch_transpose(
+            x, order, 1, bc, pf._transpose_plan(outer, n, inner, dtype,
+                                                route="lines"))
+        for width in pf.TILE_WIDTHS:
+            try:
+                tp = pf._transpose_plan(outer, n, inner, dtype, width=width,
+                                        route="tile")
+            except ValueError:      # the tile does not fit shared memory
+                continue
+            tile = pf._launch_transpose(x, order, 1, bc, tp)
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(tile), _bits(ref)):
+                raise AssertionError(
+                    f"{what}: tile route W={width} ({tp}) differs from the "
+                    f"lines route in {int((tile != ref).sum())} values")
+            n_bits += 1
+        if dtype == torch.float64 and n <= 224:
+            y = torch.as_tensor(rs.randn(outer, n, inner), dtype=dtype,
+                                device=dev)
+            fwd = (pf.spline_filter1d(x, order, 1) if bc == "mirror" else
+                   pf.spline_filter1d_bc(x, order, 1, bc))
+            back = (pf.spline_filter1d_transpose(y, order, 1) if bc ==
+                    "mirror" else
+                    pf.spline_filter1d_bc_transpose(y, order, 1, bc))
+            _check_adjoint(fwd, y, x, back, f"{what} adjoint")
+        n_cases += 1
+    print(f"K4 and K7 over inner 1/3/33/64/100, partial last tiles and "
+          f"lines at the tile cap (float32 {pf.tile_cap(torch.float32)}, "
+          f"float64 {pf.tile_cap(torch.float64)}) and one above: {n_cases} "
+          f"cases pass against their twins; {n_bits} tile launches (W "
+          f"{'/'.join(map(str, pf.TILE_WIDTHS))}) equal the lines route bit "
+          f"for bit; the adjoint identities hold in float64")
 
 
 def _terms_tol(dtype, terms):
@@ -1455,6 +1604,14 @@ def _reset_counts():
     for ws in _wrappers().values():
         for w in ws:
             w.launches = 0
+            for route in getattr(w, "routes", {}):
+                w.routes[route] = 0
+
+
+def _route_counts():
+    """K4's and K7's launches per route (``{"tile": .., "lines": ..}``)."""
+    return {k: dict(w.routes) for k, ws in _path_wrappers().items()
+            for w in (ws,) if hasattr(w, "routes")}
 
 
 def phase_main_path():
@@ -1464,6 +1621,7 @@ def phase_main_path():
     configs = _configs()
     outs, launches = {}, {}
     total = dict.fromkeys(PATH_KERNELS, 0)
+    routes = {k: {"tile": 0, "lines": 0} for k in _route_counts()}
     for cfg in configs:
         _reset_counts()
         outs[cfg.name] = cfg.run("cuda")
@@ -1471,9 +1629,21 @@ def phase_main_path():
         launches[cfg.name] = _counts()
         for k in PATH_KERNELS:
             total[k] += launches[cfg.name][k]
+        for k, by_route in _route_counts().items():
+            if sum(by_route.values()) != launches[cfg.name][k]:
+                raise AssertionError(f"{cfg.name}: {k}'s route counts "
+                                     f"{by_route} do not add up to its "
+                                     f"{launches[cfg.name][k]} launches")
+            for r, v in by_route.items():
+                routes[k][r] += v
     print(f"main path launches per config: {json.dumps(launches)}")
+    print(f"main path launches per route: {json.dumps(routes)}")
     if min(total.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {total}")
+    for k, by_route in routes.items():
+        if by_route["tile"] <= 0:
+            raise AssertionError(f"{k} never ran on its tile route: "
+                                 f"{by_route}")
     for name, kernels in _MUST_LAUNCH.items():
         for k in kernels:
             if launches[name][k] <= 0:
@@ -1982,6 +2152,63 @@ def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
     return out
 
 
+def _transpose_axes(name, x, order, bc, card):
+    """Phase 4's per-axis lines of K4 (``bc='mirror'``) or K7 on ``x`` along
+    axes 1-3, through the private launcher (no counts): the wrapper's plan
+    (route, W, blocks per SM, shared bytes) timed alone (CUDA events,
+    median of 10) and back to back (``_loop_ms``), the lines route alone,
+    and every tile width back to back. Returns the lists of per-axis ms and
+    the width the wrapper took on each axis."""
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    res = {"per_axis_ms": [], "per_axis_loop_ms": [],
+           "lines_route_per_axis_ms": [], "widths": [],
+           "width_loop_ms": {w: [] for w in pf.TILE_WIDTHS},
+           "stage_only_loop_ms": [], "clone_loop_ms": []}
+    sms = pf._sm_count(x.device)
+    for a in (1, 2, 3):
+        shape = pf._lines(x, a)
+
+        def run(plan, a=a, order=order, bc=bc):
+            return lambda: pf._launch_transpose(x, order, a, bc, plan)
+        plan = pf._plan_for(x, a)
+        ms, loop = _time_ms(run(plan)), _loop_ms(run(plan))
+        lines_ms = _time_ms(run(pf._transpose_plan(*shape, x.dtype,
+                                                   route="lines")))
+        # the tile's copy alone (no poles: staged and stored, no recursion)
+        # and a plain device copy of the volume
+        stage = _loop_ms(run(plan, order=1, bc="reflect"))
+        clone = _loop_ms(lambda: x.clone())
+        for k, v in (("per_axis_ms", ms), ("per_axis_loop_ms", loop),
+                     ("lines_route_per_axis_ms", lines_ms),
+                     ("widths", plan.width), ("stage_only_loop_ms", stage),
+                     ("clone_loop_ms", clone)):
+            res[k].append(v)
+        parts = []
+        for w in pf.TILE_WIDTHS:
+            try:
+                p = pf._transpose_plan(*shape, x.dtype, width=w,
+                                       route="tile")
+            except ValueError:
+                res["width_loop_ms"][w].append(None)
+                parts.append(f"W={w} does not fit")
+                continue
+            wm = _loop_ms(run(p))
+            res["width_loop_ms"][w].append(wm)
+            parts.append(f"W={w} {wm:.4f} ms "
+                         f"({pf.tile_blocks_per_sm(x.dtype, bc, p)} blocks "
+                         f"per SM, model {pf.blocks_per_sm(p)}; "
+                         f"{pf.waves(p, sms)} waves; {p.smem} B)")
+        occ = (f", {pf.tile_blocks_per_sm(x.dtype, bc, plan)} blocks per SM"
+               f", {pf.waves(plan, sms)} waves of {sms} SMs, {plan.smem} "
+               f"bytes shared" if plan.route == "tile" else "")
+        print(f"{name} axis {a} (outer, n, inner)={shape}: {ms:.4f} ms "
+              f"(back to back {loop:.4f}) on the {plan.route} route, "
+              f"W={plan.width}{occ}; lines route {lines_ms:.4f} ms; the "
+              f"tile's copy alone {stage:.4f} ms, x.clone() {clone:.4f} ms; "
+              f"tile widths back to back: {'; '.join(parts)} [{card}]")
+    return res
+
+
 def _times_resampler(row, card):
     """Phase 4 for the general resampler: K1c, K3c and K5c at the c7 shapes
     (order 1, nearest) beside grid_sample; K6 and K7 at the c8 shapes
@@ -2071,13 +2298,27 @@ def _times_resampler(row, card):
         err = _assert_close(chain(fn, axes)(), chain(plain, axes)(),
                             *_tol(torch.float32, scale),
                             f"{name} at c8 shapes")
-        per_axis = [_time_ms(lambda ax=ax: fn(v, order, ax, "reflect"))
-                    for ax in (1, 2, 3)]
-        print(f"{name} per-axis ms at (1, 160, 192, 224) f32, axes 1/2/3: "
-              f"{per_axis} [{card}]")
+        if fn is pf.spline_filter1d_bc:
+            per_axis = [_time_ms(lambda ax=ax: fn(v, order, ax, "reflect"))
+                        for ax in (1, 2, 3)]
+            print(f"{name} per-axis ms at (1, 160, 192, 224) f32, axes "
+                  f"1/2/3: {per_axis} [{card}]")
+            extra = None
+        else:
+            def lines(y, o, a, bc):
+                return pf._launch_transpose(y, o, a, bc, pf._transpose_plan(
+                    *pf._lines(y, a), y.dtype, route="lines"))
+            if not torch.equal(_bits(chain(fn, axes)()),
+                               _bits(chain(lines, axes)())):
+                raise AssertionError(f"{name} at c8 shapes: the tile route "
+                                     "differs from the lines route")
+            extra = {"lines_route_ms": _time_ms(chain(lines, axes)),
+                     **_transpose_axes(f"{name} at (1, 160, 192, 224) f32",
+                                       v, order, "reflect", card)}
         row(name, "prefilter.cu", replaces, _time_ms(chain(fn, axes)),
             _time_ms(chain(plain, axes)), bound,
-            _time_ms(chain(None, axes, lib_mats)), err, at="c8")
+            _time_ms(chain(None, axes, lib_mats)), err, at="c8",
+            extra=extra)
 
     # K1c and K3c as c8 runs them: order 3, nearest, on the ring-padded
     # (6 each side) coefficients at the rotated, zoomed, reflect-folded
@@ -2378,6 +2619,7 @@ def phase_times(card, total_launches, errs, probe_data):
                            device=dev)
     displ = dense_displacement(grid, S, S, (0, 0, 0))
     save = {w: w.launches for ws in _wrappers().values() for w in ws}
+    save_routes = _route_counts()
     numel = x.numel()
     n_out = math.prod(S)
     rows = []
@@ -2435,13 +2677,23 @@ def phase_times(card, total_launches, errs, probe_data):
         chain(tr, (3, 2, 1))(),
         chain(pf.spline_filter1d_transpose_plain, (3, 2, 1))(),
         *_tol(torch.float32, float(x.abs().max())), "K4 at c5 shapes")
-    print(f"spline_prefilter_transpose per-axis ms at (64, 64, 64, 64, 1) "
-          f"f32, axes 1/2/3: {per_axis(tr, (1, 2, 3))} [{card}]")
+
+    def tr_lines(y, o, a):
+        return pf._launch_transpose(y, o, a, "mirror", pf._transpose_plan(
+            *pf._lines(y, a), y.dtype, route="lines"))
+    if not torch.equal(_bits(chain(tr, (3, 2, 1))()),
+                       _bits(chain(tr_lines, (3, 2, 1))())):
+        raise AssertionError("K4 at c5 shapes: the tile route differs from "
+                             "the lines route")
+    axes = _transpose_axes("spline_prefilter_transpose at (64, 64, 64, 64, "
+                           "1) f32", x, order, "mirror", card)
     row("spline_prefilter_transpose", "prefilter.cu",
         "elasticdeform_tpu/ops/prefilter.py:376",
         _time_ms(chain(tr, (3, 2, 1))),
         _time_ms(chain(pf.spline_filter1d_transpose_plain, (3, 2, 1))),
-        filter_bound, _time_ms(chain(None, (3, 2, 1), t_mats)), k4_err)
+        filter_bound, _time_ms(chain(None, (3, 2, 1), t_mats)), k4_err,
+        extra={"lines_route_ms": _time_ms(chain(tr_lines, (3, 2, 1))),
+               **axes})
 
     # K1, K3 and K5 at order 1, nearest, beside grid_sample (bilinear,
     # border, align_corners), which computes that function in one call;
@@ -2512,6 +2764,8 @@ def phase_times(card, total_launches, errs, probe_data):
     _times_probes(row, card, probe_data, errs)
     for w, v in save.items():
         w.launches = v
+    for k, by_route in save_routes.items():
+        _path_wrappers()[k].routes.update(by_route)
 
     for cfg in _configs():
         ms = _time_ms(lambda run=cfg.run: run("cuda"))

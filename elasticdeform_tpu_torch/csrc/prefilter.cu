@@ -1,7 +1,7 @@
 // K2 spline_prefilter: the B-spline prefilter (sample values -> spline
 // coefficients) along one axis, as the causal / anti-causal recursion,
 // one thread per line; and K4 spline_prefilter_transpose, its exact
-// transpose for the gradient, with the same line mapping.
+// transpose for the gradient, on the routes described below.
 //
 // Replaces the JAX package's prefilter stage:
 // elasticdeform_tpu/ops/prefilter.py:333 spline_filter1d, which applies a
@@ -35,7 +35,7 @@
 // causal initialisation: the transposed full mirror sum spreads row 0's
 // cotangent over every k with (p^k + p^(2n-2-k)) / (1 - p^(2n-2)). Its
 // plain twin is ops/prefilter.py:spline_filter1d_transpose_plain, a
-// tensordot with F^T. Bound and the innermost-axis limit as for K2.
+// tensordot with F^T. Bound: bytes, as K2.
 //
 // K6 spline_prefilter_bc and K7 spline_prefilter_bc_transpose: the same
 // line-parallel recursion and its exact transpose under the 'reflect'
@@ -55,8 +55,36 @@
 // stage's transpose in reverse, as K4 does: row 0's (row n-1's) cotangent
 // spreads over the line with the same coefficients. Plain twins:
 // ops/prefilter.py spline_filter1d_bc_plain / _transpose_plain (tensordot
-// with filter_matrix_bc(n, order, bc) or its transpose). Bound and the
-// innermost-axis limit as for K2.
+// with filter_matrix_bc(n, order, bc) or its transpose). Bound as for K2;
+// K6 has K2's line mapping and its innermost-axis limit, K7 K4's routes.
+//
+// K4 and K7 take one of two routes, picked on the host by
+// ops/prefilter.py:_transpose_plan from (outer, n, inner, dtype):
+//
+// * tile (every line that fits): a block stages W whole lines (W = 32, 64
+//   or 128) in shared memory, runs the recursion there with thread w on
+//   line w, and stores the lines back: one read and one write of each
+//   element in device memory. When inner >= W, a tile is W consecutive i
+//   of one o: row k is W contiguous elements, kept as row k of the shared
+//   tile at an odd stride, so that the threads touch consecutive words.
+//   When inner < W (the innermost axis: inner is 1 or a channel count), a
+//   tile is floor(W / inner) whole outers, one contiguous run of elements
+//   that the block loads and stores linearly and keeps as it is in shared
+//   memory, each outer's n * inner elements at a stride congruent to inner
+//   modulo 32 words, so that the threads of consecutive lines still touch
+//   distinct banks (float64 too: 8-byte words). A warp's loads and stores
+//   then touch consecutive words in device and shared memory alike, on
+//   every axis. The loads are cp.async copies straight into shared memory,
+//   all of a thread's in flight at once. The last tile of a row of outers
+//   may be partial and is guarded. The stages are the lines route's, word
+//   for word, so with --fmad=false the two routes agree bit for bit. The
+//   host picks W so that the blocks fill the fewest rounds of the card's
+//   SMs: a block's load, recursion and store run in turn, and several
+//   blocks on an SM overlap them.
+// * lines (a line too long for a tile of 32 lines in the card's 227 KB of
+//   shared memory: n > 1760 in float32, n > 880 in float64): one thread per
+//   line, the recursion in device memory, uncoalesced on the innermost
+//   axis.
 //
 // Optional fused writeback (int_bits > 0): after the axis, truncate toward
 // zero and wrap modulo 2^int_bits (ops/resample.py cast_int_c), the
@@ -157,12 +185,163 @@ prefilter_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
-// K4: the exact transpose of prefilter_kernel's filter (without the
-// integer writeback), equal to filter_matrix(n).T (ops/prefilter.py): per
-// pole in reverse order, the transposed anti-causal pass and its init row,
-// ln[n-1] = c (ln[n-1] + p ln[n-2]); the transposed causal pass
-// ln[k] += p ln[k-1]; the transposed causal init (either branch); the gain
-// last.
+// The transposed passes and spreads of K4 and K7. Each loop loads kChunk
+// elements ahead of its chain, so that a thread waits on one load per
+// chunk, not on one per step; every element still sees the same
+// operations in the same order. (Within a chunk the loads read no element
+// that the chunk's earlier steps store.)
+constexpr int kChunk = 8;
+
+// The anti-causal pass ln[k] = z * (ln[k+1] - ln[k]), k = n-2 .. 0,
+// transposed: ct[k+1] += z * ct[k], then ct[k] *= -z, k = 0 .. n-2.
+// Returns row n-1's cotangent, which the pass leaves unstored.
+template <typename T, typename I>
+__device__ __forceinline__ T anticausal_t(T* x, const I n, const I s,
+                                          const T z) {
+  T u = x[0];
+  I k = 0;
+  for (; k + kChunk < n; k += kChunk) {
+    T a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = x[(k + 1 + j) * s];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      x[(k + j) * s] = u * -z;
+      u = a[j] + z * u;
+    }
+  }
+  for (; k < n - 1; ++k) {
+    const T next = x[(k + 1) * s] + z * u;
+    x[k * s] = u * -z;
+    u = next;
+  }
+  return u;
+}
+
+// The causal pass ln[k] += z * ln[k-1], k = 1 .. n-1, transposed:
+// ct[k-1] += z * ct[k], k = n-1 .. 1.
+template <typename T, typename I>
+__device__ __forceinline__ void causal_t(T* x, const I n, const I s,
+                                         const T z) {
+  T v = x[(n - 1) * s];
+  I k = n - 1;
+  for (; k >= kChunk; k -= kChunk) {
+    T a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = x[(k - 1 - j) * s];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      v = a[j] + z * v;
+      x[(k - 1 - j) * s] = v;
+    }
+  }
+  for (; k >= 1; --k) {
+    v = x[(k - 1) * s] + z * v;
+    x[(k - 1) * s] = v;
+  }
+}
+
+// x[e] = x[e] + zm * t at e = first, first + dir, ... (count elements),
+// zm starting at zm and multiplied by z after each.
+template <typename T, typename I>
+__device__ __forceinline__ void spread(T* x, const I s, const I first,
+                                       const I dir, const I count, T zm,
+                                       const T z, const T t) {
+  I m = 0;
+  for (; m + kChunk <= count; m += kChunk) {
+    T a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = x[(first + (m + j) * dir) * s];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      x[(first + (m + j) * dir) * s] = a[j] + zm * t;
+      zm = zm * z;
+    }
+  }
+  for (; m < count; ++m) {
+    const I e = (first + m * dir) * s;
+    x[e] = x[e] + zm * t;
+    zm = zm * z;
+  }
+}
+
+// K7's reflect spread for i in [lo, hi): x[i] += zi * t, then
+// x[n-1-i] += zn * zi * t, zi *= z. A range within one half of the line
+// (i < n-1-i throughout, or i > n-1-i) touches each element once, so its
+// chunks may load ahead; the middle element of an odd line is a range of
+// its own.
+template <typename T, typename I>
+__device__ __forceinline__ void reflect_pairs(T* x, const I n, const I s,
+                                              const I lo, const I hi, T& zi,
+                                              const T z, const T zn,
+                                              const T t) {
+  I i = lo;
+  for (; i + kChunk <= hi; i += kChunk) {
+    T a[kChunk], b[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      a[j] = x[(i + j) * s];
+      b[j] = x[(n - 1 - i - j) * s];
+    }
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      x[(i + j) * s] = a[j] + zi * t;
+      x[(n - 1 - i - j) * s] = b[j] + zn * zi * t;
+      zi = zi * z;
+    }
+  }
+  for (; i < hi; ++i) {
+    x[i * s] = x[i * s] + zi * t;
+    x[(n - 1 - i) * s] = x[(n - 1 - i) * s] + zn * zi * t;
+    zi = zi * z;
+  }
+}
+
+// K4's stages after the copy: the exact transpose of prefilter_kernel's
+// filter (without the integer writeback and without the gain, which the
+// caller applies last), equal with the gain to filter_matrix(n).T
+// (ops/prefilter.py): per pole in reverse order, the transposed
+// anti-causal pass and its init row, ln[n-1] = c (ln[n-1] + p ln[n-2]);
+// the transposed causal pass ln[k] += p ln[k-1]; the transposed causal
+// init (either branch). x is one line at stride s: device memory on the
+// lines route, a shared-memory tile on the tile route.
+template <typename T, typename I>
+__device__ __forceinline__ void k4_stages(T* x, const I n, const I s,
+                                          const Params& p) {
+  // unrolled, so that each pole's parameters are read at a fixed offset
+  // and the kernel keeps no copy of Params on its stack
+#pragma unroll
+  for (int q = ED_MAXPOLES - 1; q >= 0; --q) {
+    if (q >= p.npoles) continue;
+    const T z = T(p.pole[q]);
+    const T u = anticausal_t(x, n, s, z);
+    // the anti-causal init row ln[n-1] = c * (ln[n-1] + z * ln[n-2]),
+    // transposed
+    const double c = p.pole[q] / (p.pole[q] * p.pole[q] - 1.0);
+    x[(n - 2) * s] = x[(n - 2) * s] + T(c * p.pole[q]) * u;
+    x[(n - 1) * s] = u * T(c);
+    causal_t(x, n, s, z);
+    // causal initialisation, transposed: row 0 spreads onto the others
+    if (p.horizon[q] < n) {
+      spread(x, s, I(1), I(1), I(p.horizon[q] - 1), z, z, x[0]);
+    } else {
+      T zn = z;
+      const T iz = T(1) / z;
+      T z2n = T(p.pn1[q]);
+      const T t = x[0] / T(p.denom[q]);
+      x[0] = t;
+      x[(n - 1) * s] = x[(n - 1) * s] + z2n * t;
+      z2n = z2n * (z2n * iz);
+      for (I k = 1; k < n - 1; ++k) {
+        x[k * s] = x[k * s] + (zn + z2n) * t;
+        zn = zn * z;
+        z2n = z2n * iz;
+      }
+    }
+  }
+}
+
+// K4, lines route: one thread per line in device memory.
 template <typename T>
 __global__ void __launch_bounds__(256)
 prefilter_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
@@ -178,50 +357,7 @@ prefilter_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
 
   for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
   if (n <= 1 || p.npoles == 0) return;
-  for (int q = p.npoles - 1; q >= 0; --q) {
-    const T z = T(p.pole[q]);
-    // anti-causal pass ln[k] = z * (ln[k+1] - ln[k]), k = n-2 .. 0,
-    // transposed: ct[k+1] += z * ct[k], then ct[k] *= -z, k = 0 .. n-2
-    T u = x[0];
-    for (int64_t k = 0; k < n - 1; ++k) {
-      const T next = x[(k + 1) * s] + z * u;
-      x[k * s] = u * -z;
-      u = next;
-    }
-    // its init row ln[n-1] = c * (ln[n-1] + z * ln[n-2]), transposed
-    const double c = p.pole[q] / (p.pole[q] * p.pole[q] - 1.0);
-    x[(n - 2) * s] = x[(n - 2) * s] + T(c * p.pole[q]) * u;
-    x[(n - 1) * s] = u * T(c);
-    // causal pass ln[k] += z * ln[k-1], k = 1 .. n-1, transposed:
-    // ct[k-1] += z * ct[k], k = n-1 .. 1
-    T v = x[(n - 1) * s];
-    for (int64_t k = n - 1; k >= 1; --k) {
-      v = x[(k - 1) * s] + z * v;
-      x[(k - 1) * s] = v;
-    }
-    // causal initialisation, transposed: row 0 spreads onto the others
-    if (p.horizon[q] < n) {
-      const T c0 = x[0];
-      T zn = z;
-      for (int k = 1; k < p.horizon[q]; ++k) {
-        x[k * s] = x[k * s] + zn * c0;
-        zn = zn * z;
-      }
-    } else {
-      T zn = z;
-      const T iz = T(1) / z;
-      T z2n = T(p.pn1[q]);
-      const T t = x[0] / T(p.denom[q]);
-      x[0] = t;
-      x[(n - 1) * s] = x[(n - 1) * s] + z2n * t;
-      z2n = z2n * (z2n * iz);
-      for (int64_t k = 1; k < n - 1; ++k) {
-        x[k * s] = x[k * s] + (zn + z2n) * t;
-        zn = zn * z;
-        z2n = z2n * iz;
-      }
-    }
-  }
+  k4_stages<T, int64_t>(x, n, s, p);
   const T gain = T(p.gain);
   for (int64_t k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
 }
@@ -297,11 +433,48 @@ prefilter_bc_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
-// K7: the exact transpose of prefilter_bc_kernel, equal to
+// K7's stages after the copy: the exact transpose of prefilter_bc_kernel,
+// equal with the gain (applied last by the caller) to
 // filter_matrix_bc(n, order, bc).T: per pole in reverse order, the
 // transposed anti-causal pass (as K4), its transposed initialisation, the
-// transposed causal pass (as K4), the transposed causal initialisation;
-// the gain last.
+// transposed causal pass (as K4), the transposed causal initialisation.
+// x is one line at stride s, as in k4_stages.
+template <typename T, int BC, typename I>
+__device__ __forceinline__ void k7_stages(T* x, const I n, const I s,
+                                          const Params& p) {
+#pragma unroll   // as in k4_stages
+  for (int q = ED_MAXPOLES - 1; q >= 0; --q) {
+    if (q >= p.npoles) continue;
+    const double zd = p.pole[q], znd = p.zn[q];
+    const T z = T(zd);
+    const T zn = T(znd);
+    // the anti-causal pass, transposed; u is row n-1's cotangent
+    const T u = anticausal_t(x, n, s, z);
+    // its initialisation row, transposed
+    if (BC == BC_REFLECT) {
+      x[(n - 1) * s] = u * T(zd / (zd - 1.0));
+    } else {
+      const T t = u * T(zd / (znd - 1.0));
+      x[(n - 1) * s] = t;
+      spread(x, s, I(0), I(1), n - 1, z, z, t);
+    }
+    causal_t(x, n, s, z);
+    // causal initialisation, transposed: row 0 spreads over the line
+    if (BC == BC_REFLECT) {
+      const T t = x[0] * T(zd / (1.0 - znd * znd));
+      T zi = T(1);
+      reflect_pairs(x, n, s, I(0), n / 2, zi, z, zn, t);
+      reflect_pairs(x, n, s, n / 2, (n + 1) / 2, zi, z, zn, t);
+      reflect_pairs(x, n, s, (n + 1) / 2, n, zi, z, zn, t);
+    } else {
+      const T t = x[0] * T(1.0 / (1.0 - znd));
+      x[0] = t;
+      spread(x, s, n - 1, I(-1), n - 1, z, z, t);
+    }
+  }
+}
+
+// K7, lines route: one thread per line in device memory.
 template <typename T, int BC>
 __global__ void __launch_bounds__(256)
 prefilter_bc_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
@@ -317,56 +490,130 @@ prefilter_bc_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
 
   for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
   if (n <= 1 || p.npoles == 0) return;
-  for (int q = p.npoles - 1; q >= 0; --q) {
-    const double zd = p.pole[q], znd = p.zn[q];
-    const T z = T(zd);
-    const T zn = T(znd);
-    // anti-causal pass, transposed; u ends as row n-1's cotangent
-    T u = x[0];
-    for (int64_t k = 0; k < n - 1; ++k) {
-      const T next = x[(k + 1) * s] + z * u;
-      x[k * s] = u * -z;
-      u = next;
-    }
-    // its initialisation row, transposed
-    if (BC == BC_REFLECT) {
-      x[(n - 1) * s] = u * T(zd / (zd - 1.0));
-    } else {
-      const T t = u * T(zd / (znd - 1.0));
-      x[(n - 1) * s] = t;
-      T zi = z;
-      for (int64_t i = 0; i < n - 1; ++i) {
-        x[i * s] = x[i * s] + zi * t;
-        zi = zi * z;
-      }
-    }
-    // causal pass, transposed
-    T v = x[(n - 1) * s];
-    for (int64_t k = n - 1; k >= 1; --k) {
-      v = x[(k - 1) * s] + z * v;
-      x[(k - 1) * s] = v;
-    }
-    // causal initialisation, transposed: row 0 spreads over the line
-    if (BC == BC_REFLECT) {
-      const T t = x[0] * T(zd / (1.0 - znd * znd));
-      T zi = T(1);
-      for (int64_t i = 0; i < n; ++i) {
-        x[i * s] = x[i * s] + zi * t;
-        x[(n - 1 - i) * s] = x[(n - 1 - i) * s] + zn * zi * t;
-        zi = zi * z;
-      }
-    } else {
-      const T t = x[0] * T(1.0 / (1.0 - znd));
-      x[0] = t;
-      T zi = z;
-      for (int64_t i = 1; i < n; ++i) {
-        x[(n - i) * s] = x[(n - i) * s] + zi * t;
-        zi = zi * z;
-      }
-    }
-  }
+  k7_stages<T, BC, int64_t>(x, n, s, p);
   const T gain = T(p.gain);
   for (int64_t k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
+}
+
+// The tile route's geometry (ops/prefilter.py:_transpose_plan).
+struct Tile {
+  int packed;     // 1: inner < W, a tile is whole outers, one run of memory
+  int lines;      // lines of a full tile: W, or inner * floor(W / inner)
+  // shared-memory stride in elements: of a row k (odd), or, packed, of an
+  // outer's run of n * inner elements (congruent to inner modulo 32)
+  int stride;
+  int64_t col_tiles;  // not packed: tiles per outer, ceil(inner / W)
+  // packed: a thread walks the run in steps of W elements, W = dol outers
+  // + dr elements, as (outer, offset in its run) with a carry
+  int dol, dr;
+};
+
+// one element from device memory into shared memory, asynchronously
+template <typename T>
+__device__ __forceinline__ void stage_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void stage_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Calls f(global offset from base, shared offset) for each element of a
+// packed tile that thread w moves: elements w, w + W, ... of the run of
+// `outers` whole outers, (outer, offset in its run) carried without
+// divisions.
+template <int W, typename F>
+__device__ __forceinline__ void packed_walk(const Tile& t, int run,
+                                            int outers, int w, F f) {
+  const int elems = outers * run;
+  int ol = w / run;
+  int r = w - ol * run;
+  for (int e = w; e < elems; e += W) {
+    f(e, ol * t.stride + r);
+    r += t.dr;
+    const int wrap = r >= run;
+    r -= wrap ? run : 0;
+    ol += t.dol + wrap;
+  }
+}
+
+// K4 (KIND 0) and K7 (KIND BC_REFLECT or BC_WRAP), tile route: stage W
+// lines in shared memory, run the stages there, store them with the gain.
+// At most 1024 / W blocks' worth of registers per SM are asked for (64
+// registers a thread), so that shared memory, not registers, limits how
+// many blocks share an SM at the main path's line lengths.
+template <typename T, int W, int KIND>
+__global__ void __launch_bounds__(W, 1024 / W)
+prefilter_transpose_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                const Params p, const Tile t) {
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  T* tile = reinterpret_cast<T*>(ed_smem);
+  const int n = (int)p.n;
+  const int w = threadIdx.x;
+  const bool filter = n > 1 && p.npoles > 0;
+  const T gain = T(p.gain);
+  // packed: the run of `outers` whole outers from offset `first`; column:
+  // line w of the tile's `width` lines starts at offset `first`
+  const int inner = t.packed ? (int)p.inner : 0;
+  int64_t first;
+  int outers = 0, width;
+  if (t.packed) {
+    const int64_t g = t.lines / inner;
+    const int64_t o0 = (int64_t)blockIdx.x * g;
+    const int64_t left = p.outer - o0;
+    outers = (int)(left < g ? left : g);
+    width = outers * inner;
+    first = o0 * p.n * inner;
+  } else {
+    const int64_t o = blockIdx.x / t.col_tiles;
+    const int64_t c0 = (blockIdx.x - o * t.col_tiles) * W;
+    const int64_t left = p.inner - c0;
+    width = (int)(left < W ? left : W);
+    first = o * p.n * p.inner + c0 + w;
+  }
+
+  if (t.packed) {
+    const T* src = in + first;
+    packed_walk<W>(t, n * inner, outers, w,
+                   [&](int e, int sh) { stage_async(tile + sh, src + e); });
+  } else if (w < width) {
+    const T* src = in + first;
+    for (int k = 0; k < n; ++k, src += p.inner)
+      stage_async(tile + k * t.stride + w, src);
+  }
+  stage_wait();
+  __syncthreads();
+  if (filter && w < width) {
+    // line w: element k at x[k * s]
+    T* x = t.packed ? tile + (w / inner) * t.stride + w % inner : tile + w;
+    const int s = t.packed ? inner : t.stride;
+    if constexpr (KIND == 0)
+      k4_stages<T, int>(x, n, s, p);
+    else
+      k7_stages<T, KIND, int>(x, n, s, p);
+  }
+  __syncthreads();
+  if (t.packed) {
+    T* dst = out + first;
+    packed_walk<W>(t, n * inner, outers, w, [&](int e, int sh) {
+      dst[e] = filter ? tile[sh] * gain : tile[sh];
+    });
+  } else if (w < width) {
+    T* dst = out + first;
+    for (int k = 0; k < n; ++k, dst += p.inner) {
+      const T v = tile[k * t.stride + w];
+      *dst = filter ? v * gain : v;
+    }
+  }
 }
 
 template <typename T, int BC, bool TRANSPOSE>
@@ -416,6 +663,101 @@ cudaError_t launch(const void* in, void* out, const Params& p,
   return cudaGetLastError();
 }
 
+// the shared memory a block may use on the H100 (227 KB)
+constexpr int kSmemLimit = 232448;
+
+// Launches the tile kernel <T, W, KIND>, or, when occupancy is not null,
+// only writes how many of its blocks one SM holds at smem bytes each.
+template <typename T, int W, int KIND>
+cudaError_t launch_tile_w(const void* in, void* out, const Params& p,
+                          const Tile& t, int smem, int64_t blocks,
+                          cudaStream_t stream, int* occupancy) {
+  auto kern = prefilter_transpose_tile_kernel<T, W, KIND>;
+  if (smem > 48 * 1024 || occupancy) {
+    // above 48 KB a launch is refused unless the kernel asks for it
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        occupancy ? kSmemLimit : smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (occupancy)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kern, W,
+                                                         (size_t)smem);
+  kern<<<(unsigned)blocks, W, (size_t)smem, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), p, t);
+  return cudaGetLastError();
+}
+
+template <typename T, int KIND>
+cudaError_t launch_tile_k(int width, const void* in, void* out,
+                          const Params& p, const Tile& t, int smem,
+                          int64_t blocks, cudaStream_t s, int* occ) {
+  if (width == 32)
+    return launch_tile_w<T, 32, KIND>(in, out, p, t, smem, blocks, s, occ);
+  if (width == 64)
+    return launch_tile_w<T, 64, KIND>(in, out, p, t, smem, blocks, s, occ);
+  if (width == 128)
+    return launch_tile_w<T, 128, KIND>(in, out, p, t, smem, blocks, s, occ);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_tile_t(int kind, int width, const void* in, void* out,
+                          const Params& p, const Tile& t, int smem,
+                          int64_t blocks, cudaStream_t s, int* occ) {
+  if (kind == 0)
+    return launch_tile_k<T, 0>(width, in, out, p, t, smem, blocks, s, occ);
+  if (kind == BC_REFLECT)
+    return launch_tile_k<T, BC_REFLECT>(width, in, out, p, t, smem, blocks,
+                                        s, occ);
+  if (kind == BC_WRAP)
+    return launch_tile_k<T, BC_WRAP>(width, in, out, p, t, smem, blocks, s,
+                                     occ);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_tile(int dtype, int kind, int width, const void* in,
+                        void* out, const Params& p, const Tile& t, int smem,
+                        int64_t blocks, cudaStream_t s, int* occ) {
+  if (dtype == 0)
+    return launch_tile_t<float>(kind, width, in, out, p, t, smem, blocks, s,
+                                occ);
+  if (dtype == 1)
+    return launch_tile_t<double>(kind, width, in, out, p, t, smem, blocks,
+                                 s, occ);
+  return cudaErrorInvalidValue;
+}
+
+// Checks a tile plan against the shape and fills in what the kernel walks
+// by; false when the plan does not fit the shape or the card.
+bool make_tile(Tile* t, int itemsize, int64_t outer, int64_t n,
+               int64_t inner, int width, int packed, int lines, int stride,
+               int smem, int64_t blocks) {
+  if (width != 32 && width != 64 && width != 128) return false;
+  if (n < 1 || outer < 1 || inner < 1 || smem > kSmemLimit) return false;
+  t->packed = packed;
+  t->lines = lines;
+  t->stride = stride;
+  t->col_tiles = (inner + width - 1) / width;
+  int64_t want;
+  if (packed) {
+    const int64_t run = n * inner, g = width / inner;
+    if (inner >= width || lines != inner * g || stride < run ||
+        stride % 32 != inner % 32 || g * stride * itemsize != smem)
+      return false;
+    t->dol = (int)(width / run);
+    t->dr = (int)(width % run);
+    want = (outer + g - 1) / g;
+  } else {
+    if (inner < width || lines != width || stride < lines ||
+        stride % 2 == 0 || (int64_t)stride * n * itemsize != smem)
+      return false;
+    t->dol = t->dr = 0;
+    want = outer * t->col_tiles;
+  }
+  return blocks == want && blocks <= 0x7fffffffLL;
+}
+
 bool make_params(Params* p, long long outer, long long n, long long inner,
                  int npoles, const double* poles, const int* horizons,
                  const double* pn1, const double* denom, double gain,
@@ -463,8 +805,9 @@ int ed_spline_prefilter(int dtype, const void* in, void* out, long long outer,
   return (int)err;
 }
 
-// K4, the transpose of ed_spline_prefilter's filter; the same arguments
-// without the integer writeback. Returns cudaGetLastError().
+// K4 on the lines route, the transpose of ed_spline_prefilter's filter;
+// the same arguments without the integer writeback. Returns
+// cudaGetLastError().
 int ed_spline_prefilter_transpose(int dtype, const void* in, void* out,
                                   long long outer, long long n,
                                   long long inner, int npoles,
@@ -482,9 +825,10 @@ int ed_spline_prefilter_transpose(int dtype, const void* in, void* out,
   return (int)err;
 }
 
-// K6 (transpose = 0) and K7 (transpose = 1): the filter and its transpose
-// under boundary condition bc (1 reflect, 2 wrap). poles: npoles, host
-// float64. in and out must not overlap. Returns cudaGetLastError().
+// K6 (transpose = 0) and K7 on the lines route (transpose = 1): the filter
+// and its transpose under boundary condition bc (1 reflect, 2 wrap).
+// poles: npoles, host float64. in and out must not overlap. Returns
+// cudaGetLastError().
 int ed_spline_prefilter_bc(int dtype, int bc, int transpose, const void* in,
                            void* out, long long outer, long long n,
                            long long inner, int npoles, const double* poles,
@@ -497,6 +841,46 @@ int ed_spline_prefilter_bc(int dtype, int bc, int transpose, const void* in,
   cudaError_t err = transpose ? dispatch_bc<true>(dtype, bc, in, out, p, s)
                               : dispatch_bc<false>(dtype, bc, in, out, p, s);
   return (int)err;
+}
+
+// K4 (kind 0, the mirror terms given) and K7 (kind 1 reflect, 2 wrap;
+// horizons, pn1 and denom null) on the tile route, with the plan of
+// ops/prefilter.py:_transpose_plan: width W threads and lines a block,
+// packed (inner < W), lines per full tile, shared row stride, shared
+// bytes, blocks. A plan that does not fit the shape is refused with
+// cudaErrorInvalidValue. in and out must not overlap. Returns
+// cudaGetLastError().
+int ed_spline_prefilter_transpose_tile(
+    int dtype, int kind, const void* in, void* out, long long outer,
+    long long n, long long inner, int npoles, const double* poles,
+    const int* horizons, const double* pn1, const double* denom, double gain,
+    int width, int packed, int lines, int stride, int smem, long long blocks,
+    void* stream) {
+  if (outer * inner == 0 || n == 0) return (int)cudaSuccess;
+  Params p;
+  Tile t;
+  const int itemsize = dtype == 0 ? 4 : 8;
+  if ((kind == 0 && (!horizons || !pn1 || !denom)) ||
+      !make_params(&p, outer, n, inner, npoles, poles, horizons, pn1, denom,
+                   gain, 0, 0.0) ||
+      !make_tile(&t, itemsize, outer, n, inner, width, packed, lines, stride,
+                 smem, blocks))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_tile(dtype, kind, width, in, out, p, t, smem, blocks,
+                          static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// Blocks of the tile kernel (dtype, kind, width) that one SM holds at smem
+// bytes of shared memory each (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// a negative CUDA error code on failure.
+int ed_prefilter_tile_blocks_per_sm(int dtype, int kind, int width,
+                                    int smem) {
+  Params p{};
+  Tile t{};
+  int blocks = 0;
+  const cudaError_t err = launch_tile(dtype, kind, width, nullptr, nullptr,
+                                      p, t, smem, 0, nullptr, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 const char* ed_prefilter_error_string(int err) {

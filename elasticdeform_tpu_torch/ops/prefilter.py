@@ -21,6 +21,13 @@ conditions of SciPy >= 1.6, for the general resampler's modern modes and
 ``spline_filter``. Their plain versions are ``tensordot`` with
 :func:`filter_matrix_bc` and its transpose (``ops/prefilter.py:150`` there).
 
+K4 and K7 take one of two routes, which :func:`_transpose_plan` picks from
+the shape: ``"tile"`` stages W whole lines of the axis in shared memory and
+filters them there (every line of at most :func:`tile_cap` elements: 1760
+in float32, 880 in float64), ``"lines"`` runs one thread per line in
+device memory (longer lines). Both compute the same operations in the same
+order. Each wrapper counts its launches per route in ``.routes``.
+
 The float64 numpy helpers (poles, the reference recursion, the filter
 matrices) are this package's own copies of the JAX package's.
 """
@@ -30,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -256,6 +264,19 @@ def _lib():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
             ctypes.c_double, ctypes.c_void_p]
+        fn = lib.ed_spline_prefilter_transpose_tile
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double), ctypes.c_double, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p]
+        fn = lib.ed_prefilter_tile_blocks_per_sm
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -265,6 +286,169 @@ def _lines(x: torch.Tensor, axis: int):
     shape = x.shape
     return (math.prod(shape[:axis]), int(shape[axis]),
             math.prod(shape[axis + 1:]))
+
+
+# shared memory a block may use on the H100 (227 KB); an SM holds 228 KB,
+# less 1 KB for each block it runs
+SMEM_LIMIT = 232448
+_SM_SMEM = 233472
+# lines of a tile, one thread each, in the order a plan prefers them
+# among widths that fill as few rounds of SMs
+TILE_WIDTHS = (64, 32, 128)
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+
+
+class TransposePlan(NamedTuple):
+    """How K4 or K7 runs on an ``(outer, n, inner)`` view: ``route``
+    ``"tile"`` or ``"lines"``; for a tile, ``width`` threads and lines a
+    block, ``packed`` (``inner < width``: a tile is ``lines // inner``
+    whole outers, one contiguous run), ``lines`` of a full tile, the
+    shared-memory ``stride`` (of a row ``k``, odd; packed, of an outer's
+    run of ``n * inner`` elements, congruent to ``inner`` modulo 32) and
+    ``smem`` bytes; ``blocks`` of the grid (the lines route: 256 lines a
+    block)."""
+    route: str
+    width: int
+    packed: bool
+    lines: int
+    stride: int
+    smem: int
+    blocks: int
+
+
+def tile_cap(dtype) -> int:
+    """The longest line the tile route takes: 32 lines at stride 33 fill
+    at most :data:`SMEM_LIMIT` bytes (1760 in float32, 880 in float64)."""
+    return SMEM_LIMIT // (33 * _ITEMSIZE[dtype])
+
+
+def blocks_per_sm(plan: TransposePlan) -> int:
+    """Blocks of a tile plan that one SM holds: as many as its shared
+    memory takes, up to the 1024 threads for which the kernel's launch
+    bounds reserve registers (64 a thread)."""
+    return min(_SM_SMEM // (plan.smem + 1024), 1024 // plan.width)
+
+
+def waves(plan: TransposePlan, sms: int) -> int:
+    """How many rounds of blocks a tile plan takes on ``sms`` SMs."""
+    return -(-plan.blocks // (sms * blocks_per_sm(plan)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _transpose_plan(outer: int, n: int, inner: int, dtype, width=None,
+                    route=None, sms: int = 132) -> TransposePlan:
+    """The launch of K4 or K7 on an ``(outer, n, inner)`` view of a
+    ``dtype`` tensor: the tile route for ``n <= tile_cap(dtype)``, else the
+    lines route. The tile width is the one of :data:`TILE_WIDTHS` whose
+    blocks fill the fewest rounds (:func:`waves`) of ``sms`` SMs, the first
+    in :data:`TILE_WIDTHS` among equals: a block stages, filters and
+    stores in turn, so a last round that is nearly empty costs as much as
+    a full one. ``width`` and ``route`` force a choice (``chip_smoke.py``
+    times both routes and every width); a forced tile that does not fit
+    raises ValueError. Cached: the wrappers ask for a plan at every
+    launch."""
+    if route is None:
+        route = "tile" if n <= tile_cap(dtype) else "lines"
+    if route == "lines":
+        return TransposePlan("lines", 0, False, 0, 0, 0,
+                             -(-outer * inner // 256))
+    if route != "tile":
+        raise ValueError(f"route must be 'tile' or 'lines', got {route!r}")
+    if width is None:
+        plans = []
+        for w in TILE_WIDTHS:
+            try:
+                plans.append(_transpose_plan(outer, n, inner, dtype, w))
+            except ValueError:
+                continue
+        if not plans:
+            raise ValueError(f"a line of {n} does not fit a tile")
+        return min(plans, key=lambda p: waves(p, sms))
+    item = _ITEMSIZE[dtype]
+    if width not in TILE_WIDTHS:
+        raise ValueError(f"width must be one of {TILE_WIDTHS}, got {width}")
+    packed = 0 < inner < width
+    if packed:
+        lines = inner * (width // inner)
+        stride = n * inner + (inner - n * inner) % 32
+        smem = width // inner * stride * item
+    else:
+        lines = width
+        stride = lines | 1
+        smem = n * stride * item
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a tile of {lines} lines of {n} takes {smem} "
+                         f"bytes, over {SMEM_LIMIT}")
+    if outer * inner == 0 or n == 0:
+        blocks = 0
+    elif packed:
+        blocks = -(-outer // (width // inner))
+    else:
+        blocks = outer * -(-inner // width)
+    return TransposePlan("tile", width, packed, lines, stride, smem, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_for(x: torch.Tensor, axis: int) -> TransposePlan:
+    """The wrapper's plan for a CUDA tensor, sized to its card's SMs."""
+    return _transpose_plan(*_lines(x, axis), x.dtype,
+                           sms=_sm_count(x.device))
+
+
+def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
+                      plan: TransposePlan) -> torch.Tensor:
+    """K4 (``bc='mirror'``) or K7 (``'reflect'``, ``'wrap'``) on a CUDA
+    tensor along ``axis``, on the route and tile ``plan`` names; counts
+    nothing (the public wrappers count)."""
+    what = ("spline_prefilter_transpose" if bc == "mirror"
+            else "spline_prefilter_bc_transpose")
+    check_kernel_tensor(x, what)
+    if bc != "mirror" and bc not in _BC_CODES:
+        raise ValueError(f"{what}: bc must be 'reflect' or 'wrap', got {bc!r}")
+    outer, n, inner = _lines(x, axis)
+    poles = spline_poles(order)
+    if bc == "mirror":
+        cpoles, horizons, pn1, denom, gain = _kernel_params(n, order)
+    else:
+        cpoles = (ctypes.c_double * len(poles))(*poles)
+        horizons = pn1 = denom = None
+        gain = _gain(poles)
+    dt = 0 if x.dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = torch.empty_like(x)
+    lib = _lib()
+    if plan.route == "tile":
+        err = lib.ed_spline_prefilter_transpose_tile(
+            dt, _BC_CODES.get(bc, 0), x.data_ptr(), out.data_ptr(), outer, n,
+            inner, len(poles), cpoles, horizons, pn1, denom, gain,
+            plan.width, int(plan.packed), plan.lines, plan.stride, plan.smem,
+            plan.blocks, stream)
+    elif bc == "mirror":
+        err = lib.ed_spline_prefilter_transpose(
+            dt, x.data_ptr(), out.data_ptr(), outer, n, inner, len(poles),
+            cpoles, horizons, pn1, denom, gain, stream)
+    else:
+        err = lib.ed_spline_prefilter_bc(
+            dt, _BC_CODES[bc], 1, x.data_ptr(), out.data_ptr(), outer, n,
+            inner, len(poles), cpoles, gain, stream)
+    _build.check(err, lib, "ed_prefilter_error_string", what)
+    return out
+
+
+def tile_blocks_per_sm(dtype, bc: str, plan: TransposePlan) -> int:
+    """Blocks of K4's or K7's tile kernel that one SM holds under
+    ``plan`` (CUDA's occupancy calculator; needs the card)."""
+    kind = 0 if bc == "mirror" else _BC_CODES[bc]
+    lib = _lib()
+    got = lib.ed_prefilter_tile_blocks_per_sm(
+        0 if dtype == torch.float32 else 1, kind, plan.width, plan.smem)
+    _build.check(max(-got, 0), lib, "ed_prefilter_error_string",
+                 "tile occupancy")
+    return got
 
 
 def spline_filter1d(x: torch.Tensor, order: int, axis: int,
@@ -310,47 +494,25 @@ def spline_filter1d_transpose(x: torch.Tensor, order: int,
     integer writeback: the gradient path is linear). Orders 0 and 1 return
     ``x`` as it is. A CPU tensor takes
     :func:`spline_filter1d_transpose_plain`; a CUDA tensor launches K4
-    (contiguous float32 or float64 only) and adds one to
-    ``spline_filter1d_transpose.launches``.
+    (contiguous float32 or float64 only) on the route of
+    :func:`_transpose_plan` and adds one to
+    ``spline_filter1d_transpose.launches`` and to its route's count in
+    ``spline_filter1d_transpose.routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
         return spline_filter1d_transpose_plain(x, order, axis)
     check_kernel_tensor(x, "spline_filter1d_transpose")
-    outer, n, inner = _lines(x, axis)
-    poles, horizons, pn1, denom, gain = _kernel_params(n, order)
-    out = torch.empty_like(x)
-    lib = _lib()
-    err = lib.ed_spline_prefilter_transpose(
-        0 if x.dtype == torch.float32 else 1, x.data_ptr(), out.data_ptr(),
-        outer, n, inner, len(spline_poles(order)), poles, horizons, pn1,
-        denom, gain, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, lib, "ed_prefilter_error_string",
-                 "spline_prefilter_transpose")
+    plan = _plan_for(x, axis)
+    out = _launch_transpose(x, order, axis, "mirror", plan)
     spline_filter1d_transpose.launches += 1
+    spline_filter1d_transpose.routes[plan.route] += 1
     return out
 
 
 spline_filter1d_transpose.launches = 0
-
-
-def _launch_bc(x: torch.Tensor, order: int, axis: int, bc: str,
-               transpose: bool, what: str) -> torch.Tensor:
-    check_kernel_tensor(x, what)
-    if bc not in _BC_CODES:
-        raise ValueError(f"{what}: bc must be 'reflect' or 'wrap', got {bc!r}")
-    outer, n, inner = _lines(x, axis)
-    poles = spline_poles(order)
-    out = torch.empty_like(x)
-    lib = _lib()
-    err = lib.ed_spline_prefilter_bc(
-        0 if x.dtype == torch.float32 else 1, _BC_CODES[bc], int(transpose),
-        x.data_ptr(), out.data_ptr(), outer, n, inner, len(poles),
-        (ctypes.c_double * len(poles))(*poles), _gain(poles),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, lib, "ed_prefilter_error_string", what)
-    return out
+spline_filter1d_transpose.routes = {"tile": 0, "lines": 0}
 
 
 def spline_filter1d_bc(x: torch.Tensor, order: int, axis: int,
@@ -366,7 +528,20 @@ def spline_filter1d_bc(x: torch.Tensor, order: int, axis: int,
         return x
     if x.device.type == "cpu":
         return spline_filter1d_bc_plain(x, order, axis, bc)
-    out = _launch_bc(x, order, axis, bc, False, "spline_prefilter_bc")
+    what = "spline_prefilter_bc"
+    check_kernel_tensor(x, what)
+    if bc not in _BC_CODES:
+        raise ValueError(f"{what}: bc must be 'reflect' or 'wrap', got {bc!r}")
+    outer, n, inner = _lines(x, axis)
+    poles = spline_poles(order)
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.ed_spline_prefilter_bc(
+        0 if x.dtype == torch.float32 else 1, _BC_CODES[bc], 0,
+        x.data_ptr(), out.data_ptr(), outer, n, inner, len(poles),
+        (ctypes.c_double * len(poles))(*poles), _gain(poles),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, lib, "ed_prefilter_error_string", what)
     spline_filter1d_bc.launches += 1
     return out
 
@@ -379,16 +554,21 @@ def spline_filter1d_bc_transpose(x: torch.Tensor, order: int, axis: int,
     """The exact transpose of :func:`spline_filter1d_bc` along ``axis``.
     Orders 0 and 1 return ``x`` as it is. A CPU tensor takes
     :func:`spline_filter1d_bc_transpose_plain`; a CUDA tensor launches K7
-    and adds one to ``spline_filter1d_bc_transpose.launches``.
+    on the route of :func:`_transpose_plan` and adds one to
+    ``spline_filter1d_bc_transpose.launches`` and to its route's count in
+    ``spline_filter1d_bc_transpose.routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
         return spline_filter1d_bc_transpose_plain(x, order, axis, bc)
-    out = _launch_bc(x, order, axis, bc, True,
-                     "spline_prefilter_bc_transpose")
+    check_kernel_tensor(x, "spline_prefilter_bc_transpose")
+    plan = _plan_for(x, axis)
+    out = _launch_transpose(x, order, axis, bc, plan)
     spline_filter1d_bc_transpose.launches += 1
+    spline_filter1d_bc_transpose.routes[plan.route] += 1
     return out
 
 
 spline_filter1d_bc_transpose.launches = 0
+spline_filter1d_bc_transpose.routes = {"tile": 0, "lines": 0}
