@@ -10,9 +10,10 @@ Phases (any failure raises, and the exit code is not 0):
 1. device and build: prints the card's name and power limit, builds the
    CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc, prints
    each source's build time and ptxas figures and each K4/K7
-   instantiation's (both routes, every tile width), and holds K4/K7 in
-   float32 and K5/K5c at orders 1 and 3 in float32 to no stack frame and
-   no spills;
+   instantiation's (both routes, every tile width) and K1/K1c's and
+   K5/K5c's (per dtype, index width, rank and order), and holds K4/K7 in
+   float32 and K1/K1c and K5/K5c at orders 1 and 3 in float32 to no stack
+   frame and no spills;
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
    K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
    orders 0-5 x five modes x 1-D to 4-D x one and two channels in float32
@@ -42,7 +43,10 @@ Phases (any failure raises, and the exit code is not 0):
    saturating integer casts, K12 (rank selection) over 2-343 taps on both
    routes, and K13 (binary sweep) over random, even and empty structures,
    borders, masks, its changed flag and the fixpoint; K1 and K1c reading a
-   narrow (bfloat16 or float32) coefficient table, bit for bit; and the
+   narrow (bfloat16 or float32) coefficient table, bit for bit; K1 and K1c
+   with 64-bit offsets (forced through the C entry points) bit for bit
+   with the 32-bit ones, and K1 with no affine and zero offsets bit for bit
+   with K1c at ``iota + displ``; and the
    probe kernels at the JAX probes' default sizes: P1 (shared memory) at
    48-227 KiB, 228 KiB raising the CUDA error, P2 (row gather: copy,
    element and sum modes) bit for bit and its sums repeating bit for bit,
@@ -81,7 +85,10 @@ Phases (any failure raises, and the exit code is not 0):
    device copy; also
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
    ``grid_sample``; the share of K5's and K5c's blocks whose tap box would
-   fit 16 KB of shared memory; K6, K7 and again K1c, K3c at the c8 shapes; K8-K9T at
+   fit 16 KB of shared memory; K6, K7 and again K1c, K3c at the c8 shapes;
+   one line each for K1 at c5 (orders 1 and 3) and K1c at c7 and c8: taps
+   gathered per second beside P2's L2 element rate, the bfloat16-table time
+   and ``grid_sample`` at order 1; K8-K9T at
    the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
    ``max_pool3d``, K12 at the c15 shapes, K13 at the c17 shapes beside
    ``max_pool3d``; one line per probe, its calls timed back to back: ms,
@@ -212,8 +219,10 @@ def phase_device():
     return name, smi
 
 
-# K5/K5c's kernel instantiations: dtype, order, rank, index type
+# the rank-specialised kernels' instantiations (dtype, order, rank, index
+# type): K5/K5c in resample_bwd.cu, K1/K1c in resample.cu
 _K5_NAME = re.compile(r"coord_grad_kernelI([fd])Li(\d)ELi(\d)E([il])E")
+_K1_NAME = re.compile(r"resample_fwd_kernelI([fd])Li(\d)ELi(\d)E([il])E")
 
 
 def _ptxas_kernels(log):
@@ -283,10 +292,42 @@ def _check_k47_ptxas(log):
                              f"float32 with a stack frame or spills: {bad}")
 
 
+def _check_rank_table(label, log, pattern, orders, count):
+    """Print the registers, stack and spills of a rank-specialised kernel's
+    instantiations (K5/K5c or K1/K1c) per dtype, index type and rank, one
+    entry per order; fail unless all ``count`` are found and every float32
+    one at order 1 or 3 keeps its state in registers (no stack frame, no
+    spills)."""
+    found = {}
+    for fn, v in _ptxas_kernels(log).items():
+        m = pattern.search(fn)
+        if m:
+            found[m.groups()] = v
+    for (dt, dname), (ix, width), rank in itertools.product(
+            (("f", "float32"), ("d", "float64")),
+            (("i", "int32"), ("l", "int64")), "1234"):
+        parts = []
+        for order in orders:
+            r, st, ss, sl, ms = found.get((dt, order, rank, ix),
+                                          [-1] * 6)[:5]
+            parts.append(f"o{order} {r} {st}/{ss}/{sl} {ms / 1e3:.1f}s")
+        print(f"  ptxas {label} {dname} rank {rank} {width} (registers, "
+              f"stack/spill-store/spill-load bytes, ptxas s): "
+              f"{'; '.join(parts)}")
+    bad = {k: v for k, v in found.items()
+           if k[0] == "f" and k[1] in "13" and any(v[1:4])}
+    if len(found) != count or bad:
+        raise AssertionError(f"{label}: {len(found)} of {count} "
+                             f"instantiations found; float32 orders 1 and 3 "
+                             f"with a stack frame or spills: {bad}")
+
+
 def phase_build():
     """Build every source; print each one's nvcc time, its kernels' worst
-    register, stack and spill figures, every kernel with a stack frame or
-    spills, K4/K7's instantiations and K5/K5c's table. K4/K7 in float32,
+    register, stack and spill figures, every other kernel with a stack
+    frame or spills, K4/K7's instantiations and the K1/K1c and K5/K5c
+    tables, from the ptxas report kept beside each library (built in this
+    run or before; a missing report fails). K4/K7 in float32, and K1/K1c
     and K5/K5c at orders 1 and 3 in float32, must keep their state in
     registers: no stack frame, no spills."""
     from elasticdeform_tpu_torch.ops import _build
@@ -296,7 +337,6 @@ def phase_build():
                      for k, v in sorted(_build.build_seconds.items()))
     print(f"build: {sorted(paths)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc per source: {each})")
-    k5 = {}
     for name, log in sorted(_build.build_logs.items()):
         kern = _ptxas_kernels(log)
         worst = [max((v[i] for v in kern.values()), default=0)
@@ -306,38 +346,26 @@ def phase_build():
               f"spill stores; ptxas "
               f"{sum(v[4] for v in kern.values()) / 1e3:.1f} s in all")
         for fn, v in kern.items():
-            m = _K5_NAME.search(fn)
-            if m:
-                k5[m.groups()] = v
-            elif v[1] or v[2]:
+            if not (_K5_NAME.search(fn) or _K1_NAME.search(fn)) and \
+                    (v[1] or v[2]):
                 print(f"  ptxas {name}: {fn}: {v[0]} registers, {v[1]} "
                       f"bytes stack frame, {v[2]}/{v[3]} bytes spill "
                       f"stores/loads")
-    if "prefilter" in _build.build_logs:
-        _check_k47_ptxas(_build.build_logs["prefilter"])
-    else:
-        print("  ptxas: prefilter was built before this run; K4/K7's check "
-              "skipped")
-    if "resample_bwd" not in _build.build_logs:
-        print("  ptxas: resample_bwd was built before this run; K5's "
-              "register check skipped")
-        return
-    for (dt, dname), (ix, width), rank in itertools.product(
-            (("f", "float32"), ("d", "float64")),
-            (("i", "int32"), ("l", "int64")), "1234"):
-        parts = []
-        for order in "12345":
-            r, st, ss, sl, ms = k5.get((dt, order, rank, ix), [-1] * 6)[:5]
-            parts.append(f"o{order} {r} {st}/{ss}/{sl} {ms / 1e3:.1f}s")
-        print(f"  ptxas K5/K5c {dname} rank {rank} {width} (registers, "
-              f"stack/spill-store/spill-load bytes, ptxas s): "
-              f"{'; '.join(parts)}")
-    bad = {k: v for k, v in k5.items()
-           if k[0] == "f" and k[1] in "13" and any(v[1:4])}
-    if len(k5) != 80 or bad:
-        raise AssertionError(f"K5/K5c: {len(k5)} of 80 instantiations "
-                             f"found; float32 orders 1 and 3 with a stack "
-                             f"frame or spills: {bad}")
+    missing = set(_build.SOURCES) - _build.build_logs.keys()
+    if missing:
+        raise AssertionError(f"no ptxas report for {sorted(missing)}: the "
+                             "register checks cannot run")
+    _check_k47_ptxas(_build.build_logs["prefilter"])
+    for name, label, pattern, orders, count in (
+            ("resample", "K1/K1c", _K1_NAME, "012345", 96),
+            ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80)):
+        _check_rank_table(label, _build.build_logs[name], pattern, orders,
+                          count)
+    if {"resample", "resample_bwd"} <= _build.build_seconds.keys():
+        print(f"  nvcc: resample.cu {_build.build_seconds['resample']:.1f} "
+              f"s (K1/K1c, 96 instantiations), resample_bwd.cu "
+              f"{_build.build_seconds['resample_bwd']:.1f} s (K3/K3c, "
+              f"K5/K5c) in the same build")
 
 
 def _smooth_displacement(rs, B, naxis, out_spatial, sigma, dtype, device):
@@ -487,6 +515,7 @@ def phase_kernels():
           f"identity holds in float64 ({n // 2} cases)")
     _check_coords_kernels(rs, worst)
     _check_narrow_table(rs)
+    _check_k1_widths(rs)
     _check_bc_prefilter(rs, worst)
     _check_transpose_routes(rs, worst)
     _check_filter_kernels(rs, worst)
@@ -599,6 +628,91 @@ def _check_narrow_table(rs):
     print(f"K1 and K1c with the narrow table (bfloat16 under float32 and "
           f"float64, float32 under float64) bit for bit with their twins: "
           f"{n} cases each")
+
+
+def _k1_entry(coeffs, src, affine, offsets, order, mode, cval, wide,
+              coords):
+    """K1 (``coords`` False: ``src`` the dense displacement) or K1c (the
+    coordinates) through its C entry point with the index width ``wide``
+    given, not the wrapper's: no launch is counted."""
+    import torch
+    from elasticdeform_tpu_torch.ops import _build
+    from elasticdeform_tpu_torch.ops import resample as rsm
+    lib = rsm._lib()
+    C = coeffs.shape[-1]
+    out = torch.empty((src.shape[0], *src.shape[2:], C), dtype=coeffs.dtype,
+                      device=coeffs.device)
+    dt = 0 if coeffs.dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream(coeffs.device).cuda_stream
+    if coords:
+        naxis, B, in_shape, n_out = rsm.check_coords_args("K1c", coeffs, src)
+        err = lib.ed_resample_coords_fwd(
+            dt, coeffs.data_ptr(), src.data_ptr(), out.data_ptr(), naxis,
+            order, mode, B, C, in_shape, n_out, cval, 0, stream, wide)
+    else:
+        affine = rsm.check_resample_args("K1", coeffs, src, affine)
+        naxis, B, in_shape, out_shape, offs, a_ptr, a_stride = \
+            rsm.kernel_geometry(coeffs.shape[1:-1], src, affine, offsets)
+        err = lib.ed_resample_fwd(
+            dt, coeffs.data_ptr(), src.data_ptr(), a_ptr, out.data_ptr(),
+            naxis, order, mode, B, C, in_shape, out_shape, offs, a_stride,
+            cval, 0, stream, wide)
+    _build.check(err, lib, "ed_resample_error_string", "K1/K1c")
+    return out
+
+
+def _check_k1_widths(rs):
+    """K1 and K1c with 64-bit offsets (forced through the C entry points on
+    the sweep's small shapes) bit for bit with the wrappers' 32-bit ones,
+    and K1 with no affine and zero offsets bit for bit with K1c at ``iota
+    + displ``: naxis 1-4, orders 0-5, the five modes, one and three
+    channels, float32 and float64."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample as rsm
+    dev = torch.device("cuda")
+    n = 0
+    B = 2
+    for (naxis, in_sp, out_sp), dtype, C, order, mode in itertools.product(
+            SWEEP_SHAPES, (torch.float32, torch.float64), (1, 3), range(6),
+            range(5)):
+        coeffs = torch.as_tensor(rs.rand(B, *in_sp, C) * 4 - 1, dtype=dtype,
+                                 device=dev)
+        displ = _smooth_displacement(rs, B, naxis, out_sp, 3.0 * max(in_sp),
+                                     dtype, dev)
+        A = np.zeros((B, naxis, naxis + 1))
+        A[:, :, :naxis] = np.eye(naxis) + rs.randn(B, naxis, naxis) * 0.2
+        A[:, :, naxis] = rs.randn(B, naxis) * 3
+        affine = torch.as_tensor(A, dtype=dtype, device=dev)
+        offsets = tuple(int(o) for o in rs.randint(0, 3, naxis))
+        iota = torch.stack(torch.meshgrid(
+            *[torch.arange(k, dtype=dtype, device=dev) for k in out_sp],
+            indexing="ij"))
+        coords = (iota + displ).contiguous()
+        zeros = (0,) * naxis
+        what = (f"naxis={naxis} C={C} {dtype} order={order} "
+                f"mode={MODES[mode]}")
+        for name, got, want in (
+                ("K1 64-bit offsets",
+                 _k1_entry(coeffs, displ, affine, offsets, order, mode, 1.5,
+                           1, False),
+                 rsm.resample(coeffs, displ, affine, offsets, order, mode,
+                              1.5)),
+                ("K1c 64-bit offsets",
+                 _k1_entry(coeffs, coords, None, None, order, mode, 1.5, 1,
+                           True),
+                 rsm.resample_coords(coeffs, coords, order, mode, 1.5)),
+                ("K1 without affine or offsets against K1c at iota + displ",
+                 rsm.resample(coeffs, displ, None, zeros, order, mode, 1.5),
+                 rsm.resample_coords(coeffs, coords, order, mode, 1.5))):
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(got), _bits(want)):
+                raise AssertionError(
+                    f"{name} {what}: not bit-identical, max abs err "
+                    f"{float((got - want).abs().max()):.3e}")
+        n += 1
+    print(f"K1 and K1c with 64-bit offsets bit for bit with 32-bit ones, and "
+          f"K1 (no affine, zero offsets) bit for bit with K1c at iota + "
+          f"displ: {n} cases each")
 
 
 def _check_bc_prefilter(rs, worst):
@@ -1491,6 +1605,18 @@ def _c8_affine(shape):
     return M, centre - M @ centre + np.array([3.0, -2.0, 1.5])
 
 
+def _c8_ring_coords(shape):
+    """c8's sample coordinates as K1c reads them: the rotated, zoomed
+    coordinates, reflect-folded, on the array ring-padded by 6 on each
+    side; float32 ``(3, *shape)``."""
+    M, off = _c8_affine(shape)
+    j = np.stack(np.meshgrid(*[np.arange(n) for n in shape], indexing="ij"))
+    cc = np.tensordot(M, j, axes=1) + off.reshape(3, 1, 1, 1)
+    cc = np.stack([np.where(np.mod(c, 2 * n) >= n, 2 * n - 1 - np.mod(
+        c, 2 * n), np.mod(c, 2 * n)) for c, n in zip(cc, shape)]) + 6
+    return cc.astype(np.float32)
+
+
 # kernels each config must launch, and kernels it must not (K5 and K5c
 # only where a gradient to the grid or the coordinates is asked for)
 _MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
@@ -1936,7 +2062,8 @@ def _times_probes(row, card, d, errs):
     the rows it gathered or scattered (an L2 rate where the table fits the
     50 MB L2) beside the bound; then the library-only probes' rates; then
     the kernels' rows of the ``kernels`` line (P1 at smem227, P2 at
-    pl_vmem, P3 at scatrate, P4 at pl_dma)."""
+    pl_vmem, P3 at scatrate, P4 at pl_dma). Returns ``{probe label: (ms,
+    plain ms, library ms, bound, rows moved)}``."""
     import torch
     import torch.nn.functional as F
     from elasticdeform_tpu_torch.ops import probes as po
@@ -2050,6 +2177,7 @@ def _times_probes(row, card, d, errs):
                 "gather2.pl_dg")})
         row(kernel, "probes.cu", replaces, ms, plain_ms, bound, lib_ms,
             errs.get(kernel, 0.0), at=label, extra=extra)
+    return times
 
 
 
@@ -2209,11 +2337,12 @@ def _transpose_axes(name, x, order, bc, card):
     return res
 
 
-def _times_resampler(row, card):
+def _times_resampler(row, card, k1_lines):
     """Phase 4 for the general resampler: K1c, K3c and K5c at the c7 shapes
     (order 1, nearest) beside grid_sample; K6 and K7 at the c8 shapes
     beside the tensordot with filter_matrix_bc; K1c and K3c at the c8
-    shapes (order 3, on the ring-padded array)."""
+    shapes (order 3, on the ring-padded array). K1c's two shapes go into
+    ``k1_lines`` (:func:`_print_k1_lines`)."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
@@ -2237,12 +2366,17 @@ def _times_resampler(row, card):
         lambda: rb.resample_coords_grad(x, g, coords, *a), "K1c/K3c/K5c",
         "c7", card)
     vox = B * n_out
+    bf16 = _time_ms(lambda: rsm.resample_coords(x, coords, *a, 0.0,
+                                                torch.bfloat16))
+    k1_lines.append(("K1c resample_coords_fwd at c7 shapes (order 1, "
+                     "nearest)", o1["fwd"][0], vox * 2 ** naxis, bf16,
+                     o1["fwd"][1]))
     row("resample_coords_fwd", "resample.cu",
         "elasticdeform_tpu/ops/deform.py:533", o1["fwd"][0],
         _time_ms(lambda: rsm.resample_coords_plain(x, coords, *a, 0.0),
                  reps=3, warmup=1),
         _bound(vox * (1 + naxis + 1) * 4, _k1_ops(B, n_out, naxis, 1, 1)),
-        o1["fwd"][1], 0.0, at="c7")
+        o1["fwd"][1], 0.0, at="c7", extra={"bf16_table_ms": bf16})
     k3c_err = _assert_close(
         rb.resample_coords_transpose(g, coords, *a, S),
         rb.resample_coords_transpose_plain(g, coords, *a, S), 1e-5,
@@ -2323,17 +2457,16 @@ def _times_resampler(row, card):
     # K1c and K3c as c8 runs them: order 3, nearest, on the ring-padded
     # (6 each side) coefficients at the rotated, zoomed, reflect-folded
     # coordinates
-    M, off = _c8_affine(S)
     P = tuple(n + 12 for n in S)
     coeffs = torch.as_tensor(rs.rand(1, *P, 1).astype(np.float32),
                              device=dev)
     gy = torch.as_tensor(rs.randn(1, *S, 1).astype(np.float32), device=dev)
-    j = np.stack(np.meshgrid(*[np.arange(n) for n in S], indexing="ij"))
-    cc = np.tensordot(M, j, axes=1) + off.reshape(3, 1, 1, 1)
-    cc = np.stack([np.where(np.mod(c, 2 * n) >= n, 2 * n - 1 - np.mod(
-        c, 2 * n), np.mod(c, 2 * n)) for c, n in zip(cc, S)]) + 6
-    c8c = torch.as_tensor(cc[None].astype(np.float32), device=dev)
+    c8c = torch.as_tensor(_c8_ring_coords(S)[None], device=dev)
     k1 = _time_ms(lambda: rsm.resample_coords(coeffs, c8c, 3, 0, 0.0))
+    k1_lines.append(("K1c resample_coords_fwd at c8 shapes (order 3, "
+                     "nearest)", k1, numel * 4 ** 3,
+                     _time_ms(lambda: rsm.resample_coords(
+                         coeffs, c8c, 3, 0, 0.0, torch.bfloat16)), None))
     k3 = _time_ms(lambda: rb.resample_coords_transpose(gy, c8c, 3, 0, P))
     b1 = _bound((math.prod(P) + 4 * numel) * 4, _k1_ops(1, numel, 3, 3, 1))
     b3 = _bound((4 * numel + math.prod(P)) * 4, _k1_ops(1, numel, 3, 3, 1))
@@ -2601,6 +2734,53 @@ def _times_morphology(row, card):
                          "fill_holes_ms_per_sweep": fill_ms / sweeps})
 
 
+def _print_k1_lines(k1_lines, probe_times, card):
+    """One line each for K1 at c5 (orders 1 and 3) and K1c at c7 and c8:
+    ms, taps gathered per second beside P2's L2 element rate (probe pl_dg:
+    random 128-float rows from a table in L2, counted in elements), the
+    time with a bfloat16 table and ``grid_sample``'s where it computes the
+    same function (order 1)."""
+    ms, _, _, _, rows = probe_times["pl_dg"]
+    l2 = rows * 128 / ms / 1e6
+    for label, k_ms, taps, bf16_ms, lib_ms in k1_lines:
+        rate = taps / k_ms / 1e6
+        lib = "none (no B-spline of that order)" if lib_ms is None else \
+            f"{lib_ms:.4f} ms ({k_ms / lib_ms:.2f}x)"
+        print(f"{label}: {k_ms:.4f} ms, {taps} taps = {rate:.1f} G taps/s, "
+              f"{100 * rate / l2:.1f}% of P2's L2 element rate "
+              f"({l2:.1f} G/s); bfloat16 table {bf16_ms:.4f} ms; "
+              f"grid_sample {lib} [{card}]")
+
+
+def times_c6(card, cfg):
+    """K1 and K5 at c6's shapes (8 x 64^3 float32, order 3, mirror, the
+    dense displacement of per-sample 3x3x3 grids), and the c6 config
+    ``cfg`` whole, in ms over 30 calls each. It calls only the package's
+    public wrappers, so it also times an older tree's package, one
+    process per tree, in one call to the card."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample as rsm
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    from elasticdeform_tpu_torch.ops.displacement import dense_displacement
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(6)
+    B, S = 8, (64, 64, 64)
+    x = torch.as_tensor(rs.rand(B, *S, 1).astype(np.float32), device=dev)
+    gy = torch.as_tensor(rs.randn(B, *S, 1).astype(np.float32), device=dev)
+    grid = torch.as_tensor((rs.randn(B, 3, 3, 3, 3) * 6).astype(np.float32),
+                           device=dev)
+    args = (dense_displacement(grid, S, S, (0, 0, 0)), None, (0, 0, 0), 3,
+            3)
+    out = {"K1": _time_ms(lambda: rsm.resample(x, *args, 0.0), reps=30),
+           "K5": _time_ms(lambda: rb.resample_coord_grad(x, gy, *args),
+                          reps=30),
+           "c6": _time_ms(lambda: cfg.run("cuda"), reps=30)}
+    print(f"at c6 shapes (8 x 64^3, order 3, mirror): K1 resample_fwd "
+          f"{out['K1']:.4f} ms, K5 resample_coord_grad {out['K5']:.4f} ms; "
+          f"c6 {out['c6']:.3f} ms per call [{card}]")
+    return out
+
+
 def phase_times(card, total_launches, errs, probe_data):
     """Phase 4: kernel, plain and library times at the c5 shapes (and the
     other tiers' shapes, the probes' default sizes), and the configs'
@@ -2713,15 +2893,22 @@ def phase_times(card, total_launches, errs, probe_data):
     k1_err = _assert_close(rsm.resample(coeffs, *args, 0.0),
                            rsm.resample_plain(coeffs, *args, 0.0),
                            *_tol(torch.float32, 1.0), "K1 at c5 shapes")
+    k1_ms = _time_ms(lambda: rsm.resample(coeffs, *args, 0.0))
+    # the narrow table: the coefficients read as bfloat16
+    bf16 = [_time_ms(lambda: rsm.resample(x, *a1, 0.0, torch.bfloat16)),
+            _time_ms(lambda: rsm.resample(coeffs, *args, 0.0,
+                                          torch.bfloat16))]
+    k1_lines = [("K1 resample_fwd at c5 shapes (order 1, nearest)",
+                 o1["fwd"][0], B * n_out * 2 ** 3 * C, bf16[0], o1["fwd"][1]),
+                ("K1 resample_fwd at c5 shapes (order 3, mirror)", k1_ms,
+                 B * n_out * 4 ** 3 * C, bf16[1], None)]
     row("resample_fwd", "resample.cu", "elasticdeform_tpu/ops/resample.py:66",
-        _time_ms(lambda: rsm.resample(coeffs, *args, 0.0)),
+        k1_ms,
         _time_ms(lambda: rsm.resample_plain(coeffs, *args, 0.0), warmup=1),
         _bound((numel + 3 * B * n_out + B * n_out * C) * 4,
                _k1_ops(B, n_out, 3, order, C)), o1["fwd"][1], k1_err,
-        extra={"order1_ms": o1["fwd"][0],
-               # the narrow table: the coefficients read as bfloat16
-               "bf16_table_ms": _time_ms(lambda: rsm.resample(
-                   coeffs, *args, 0.0, torch.bfloat16))})
+        extra={"order1_ms": o1["fwd"][0], "order1_bf16_table_ms": bf16[0],
+               "bf16_table_ms": bf16[1]})
 
     # K3: the scatter of gy back onto the coefficients (reads gy and the
     # displacement, writes d_coeffs once; the zero fill that its atomics
@@ -2758,10 +2945,11 @@ def phase_times(card, total_launches, errs, probe_data):
                _k5_ops(B, n_out, 3, order, C)), o1["grad"][1], k5_err,
         extra={"order1_ms": o1["grad"][0], "box_16k_share": box[0]})
     del x, gy, coeffs, displ, iota
-    _times_resampler(row, card)
+    _times_resampler(row, card, k1_lines)
     _times_filters(row, card)
     _times_morphology(row, card)
-    _times_probes(row, card, probe_data, errs)
+    probe_times = _times_probes(row, card, probe_data, errs)
+    _print_k1_lines(k1_lines, probe_times, card)
     for w, v in save.items():
         w.launches = v
     for k, by_route in save_routes.items():
@@ -2771,6 +2959,8 @@ def phase_times(card, total_launches, errs, probe_data):
         ms = _time_ms(lambda run=cfg.run: run("cuda"))
         print(f"{cfg.name}: {ms:.3f} ms per call, "
               f"{cfg.n_vox / ms / 1e3:.2f} Mvox/s (output voxels) [{card}]")
+        if cfg.name == "c6":
+            times_c6(card, cfg)
     order_of = {k: i for i, k in enumerate(KERNELS)}
     return sorted(rows, key=lambda r: order_of[r["name"]])
 

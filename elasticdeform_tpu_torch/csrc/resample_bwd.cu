@@ -146,24 +146,6 @@ struct Partials {
   T v[K];
 };
 
-// How many of the innermost axes a K5 kernel unrolls: two up to order 3,
-// one above (at most 16 taps). Each outer axis runs a loop over its taps
-// that picks its table entries by selects, so every table stays in
-// registers and the 80 instantiations build in about a minute.
-__host__ __device__ constexpr int unrolled_axes(int nt, int naxis) {
-  const int k = nt <= 4 ? 2 : 1;
-  return naxis < k ? naxis : k;
-}
-
-// a[t] for a runtime t, by selects over the compile-time entries
-template <typename V, int N>
-__device__ __forceinline__ V pick(const V (&a)[N], const int t) {
-  V r = a[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) r = t == k ? a[k] : r;
-  return r;
-}
-
 template <typename T, int NT, int NAXIS, int H, typename I>
 __device__ __forceinline__ Partials<T, NAXIS - H + 1> contract(
     const T* __restrict__ src, I base, const T (&w)[NAXIS][NT],
@@ -241,41 +223,9 @@ __device__ __forceinline__ void coord_grad_voxel(
   constexpr int NT = ORDER + 1;
   const I n_out = (I)p.n_out;
   const I C = (I)p.channels;
-  const T* cs = displ + b * NAXIS * p.n_out;
   T* dst = d_displ + b * NAXIS * p.n_out + v;
-
   T cc[NAXIS];
-  if (coords) {
-#pragma unroll
-    for (int h = 0; h < NAXIS; ++h) cc[h] = cs[h * n_out + v];
-  } else {
-    I j[NAXIS];
-    I rem = v;
-#pragma unroll
-    for (int h = NAXIS - 1; h > 0; --h) {
-      const I n = (I)p.out_shape[h];
-      const I q = rem / n;
-      j[h] = rem - q * n;
-      rem = q;
-    }
-    j[0] = rem;
-    const T* A = affine ? affine + b * p.affine_stride : nullptr;
-#pragma unroll
-    for (int h = 0; h < NAXIS; ++h) {
-      T c;
-      if (A) {
-        const T* row = A + h * (NAXIS + 1);
-        T acc = row[NAXIS];
-#pragma unroll
-        for (int l = 0; l < NAXIS; ++l) acc = acc + row[l] * T(j[l]);
-        c = acc;
-      } else {
-        c = T(j[h]);
-      }
-      c = c + T(p.offset[h]);
-      cc[h] = c + cs[h * n_out + v];
-    }
-  }
+  voxel_coords<T, NAXIS, I>(p, displ, affine, coords, b, v, cc);
 
   // the fold, its derivative and the first tap of each axis first, then
   // the weights, the derivative weights and the offsets: the divisions'
@@ -287,8 +237,7 @@ __device__ __forceinline__ void coord_grad_voxel(
   for (int h = 0; h < NAXIS; ++h) {
     m[h] = map_coord(cc[h], p.in_shape[h], p.mode, &inside);
     fd[h] = map_coord_grad(cc[h], p.in_shape[h], p.mode);
-    start[h] = (I)((ORDER & 1) ? floor(m[h]) - T(ORDER / 2)
-                               : floor(m[h] + T(0.5)) - T(ORDER / 2));
+    start[h] = first_tap<T, ORDER, I>(m[h]);
   }
   if (!inside) {
     // constant mode outside: the output does not depend on the coordinate
@@ -302,19 +251,7 @@ __device__ __forceinline__ void coord_grad_voxel(
 #pragma unroll
   for (int h = 0; h < NAXIS; ++h) spline_weights_grad<T, ORDER>(m[h], dw[h]);
   I off[NAXIS][NT];
-#pragma unroll
-  for (int h = 0; h < NAXIS; ++h) {
-    const I n = (I)p.in_shape[h];
-    const I stride = (I)(p.in_stride[h] * p.channels);
-    if (start[h] >= 0 && start[h] + NT <= n) {
-#pragma unroll
-      for (int t = 0; t < NT; ++t) off[h][t] = (start[h] + t) * stride;
-    } else {
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-        off[h][t] = mirror_fold<I>(start[h] + t, n) * stride;
-    }
-  }
+  tap_offsets<NT, NAXIS, I>(p, start, off);
 
   const T* src = coeffs + b * p.n_in * p.channels;
   const T* gv = g + b * p.n_out * p.channels + v * C;
@@ -335,10 +272,7 @@ __device__ __forceinline__ void coord_grad_voxel(
 // block: their tables are twice as wide, and they are not the hot path.
 template <typename T, int NT, int NAXIS, typename I>
 struct CoordGradBlocks {
-  static constexpr int taps = NAXIS == 1   ? NT
-                              : NAXIS == 2 ? NT * NT
-                              : NAXIS == 3 ? NT * NT * NT
-                                           : NT * NT * NT * NT;
+  static constexpr int taps = voxel_taps(NT, NAXIS);
   static constexpr int value = sizeof(T) > 4 || sizeof(I) > 4 ? 1
                                : taps <= 8                     ? 5
                                : taps <= 16                    ? 4
@@ -448,14 +382,6 @@ cudaError_t dispatch_coord_grad(int order, bool wide, bool coords,
     case 5: return coord_grad_width<T, 5>(wide, a, p, coords, s);
   }
   return cudaErrorInvalidValue;
-}
-
-// Whether 32-bit offsets reach every element of one sample (the wrapper's
-// wide_indices, checked again here).
-inline bool fits_32(const Params& p) {
-  const int64_t lim = (int64_t)1 << 31;
-  const int64_t per = p.channels > p.naxis ? p.channels : p.naxis;
-  return p.n_in * p.channels < lim && p.n_out * per < lim;
 }
 
 }  // namespace

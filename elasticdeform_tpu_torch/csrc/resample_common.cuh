@@ -3,7 +3,9 @@
 // derivative, the integer mirror fold of the taps, and the B-spline weights
 // and their derivatives, each with the operations, in the order, of its
 // plain PyTorch twin (ops/resample.py, ops/modes.py, ops/bspline.py), so
-// that a kernel built with --fmad=false rounds as its twin does.
+// that a kernel built with --fmad=false rounds as its twin does. The
+// rank-specialised kernels (K1, K5) take their coordinates and tap offsets
+// from voxel_coords and tap_offsets, in the index type that fits_32 allows.
 //
 // Layouts: coefficients (B, *in_shape, C) with the channels last, the dense
 // displacement (B, naxis, *out_shape), the affine (naxis, naxis+1) per
@@ -297,6 +299,115 @@ __device__ __forceinline__ void spline_weights_grad(T cc, T* d) {
   }
 }
 
+// Whether 32-bit offsets reach every element of one sample: the
+// coefficients (n_in * C), the output or g (n_out * C) and the displacement
+// or coordinates (naxis * n_out). The wrappers' wide_indices
+// (ops/resample.py) is the same rule; the C entry points check it again.
+inline bool fits_32(const Params& p) {
+  const int64_t lim = (int64_t)1 << 31;
+  const int64_t per = p.channels > p.naxis ? p.channels : p.naxis;
+  return p.n_in * p.channels < lim && p.n_out * per < lim;
+}
+
+// How many of the innermost axes a rank-specialised kernel unrolls: two up
+// to order 3, one above (at most 16 taps). Each outer axis runs a loop over
+// its taps that picks its table entries by selects, so every table stays in
+// registers and the instantiations build in about a minute.
+__host__ __device__ constexpr int unrolled_axes(int nt, int naxis) {
+  const int k = nt <= 4 ? 2 : 1;
+  return naxis < k ? naxis : k;
+}
+
+// The taps of one voxel, nt^naxis (the launch bounds' classes).
+__host__ __device__ constexpr int voxel_taps(int nt, int naxis) {
+  return naxis == 0 ? 1 : nt * voxel_taps(nt, naxis - 1);
+}
+
+// a[t] for a runtime t, by selects over the compile-time entries
+template <typename V, int N>
+__device__ __forceinline__ V pick(const V (&a)[N], const int t) {
+  V r = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = t == k ? a[k] : r;
+  return r;
+}
+
+// The NAXIS sample coordinates of output voxel v of sample b, in the
+// twin's operations (ops/resample.py sample_coordinates): read from `displ`
+// as they are when `coords` (K1c, K5c: (B, naxis, n_out)); else
+// affine(j) + offset + displ, with j unravelled from v in the index type I.
+template <typename T, int NAXIS, typename I>
+__device__ __forceinline__ void voxel_coords(const Params& p,
+                                             const T* __restrict__ displ,
+                                             const T* __restrict__ affine,
+                                             const bool coords,
+                                             const int64_t b, const I v,
+                                             T (&cc)[NAXIS]) {
+  const I n_out = (I)p.n_out;
+  const T* cs = displ + b * NAXIS * p.n_out;
+  if (coords) {
+#pragma unroll
+    for (int h = 0; h < NAXIS; ++h) cc[h] = cs[h * n_out + v];
+    return;
+  }
+  I j[NAXIS];
+  I rem = v;
+#pragma unroll
+  for (int h = NAXIS - 1; h > 0; --h) {
+    const I n = (I)p.out_shape[h];
+    const I q = rem / n;
+    j[h] = rem - q * n;
+    rem = q;
+  }
+  j[0] = rem;
+  const T* A = affine ? affine + b * p.affine_stride : nullptr;
+#pragma unroll
+  for (int h = 0; h < NAXIS; ++h) {
+    T c;
+    if (A) {
+      const T* row = A + h * (NAXIS + 1);
+      T acc = row[NAXIS];
+#pragma unroll
+      for (int l = 0; l < NAXIS; ++l) acc = acc + row[l] * T(j[l]);
+      c = acc;
+    } else {
+      c = T(j[h]);
+    }
+    c = c + T(p.offset[h]);
+    cc[h] = c + cs[h * n_out + v];
+  }
+}
+
+// The first tap of the (ORDER+1)-wide window at the folded coordinate m
+// (ops/bspline.py filter_start), in the index type I.
+template <typename T, int ORDER, typename I>
+__device__ __forceinline__ I first_tap(const T m) {
+  return (I)((ORDER & 1) ? floor(m) - T(ORDER / 2)
+                         : floor(m + T(0.5)) - T(ORDER / 2));
+}
+
+// The element offsets (channels included) of each axis's NT taps from
+// their first taps `start`: a run inside its axis takes (start + t) *
+// stride unfolded; only a run over an edge takes the integer mirror fold.
+template <int NT, int NAXIS, typename I>
+__device__ __forceinline__ void tap_offsets(const Params& p,
+                                            const I (&start)[NAXIS],
+                                            I (&off)[NAXIS][NT]) {
+#pragma unroll
+  for (int h = 0; h < NAXIS; ++h) {
+    const I n = (I)p.in_shape[h];
+    const I stride = (I)(p.in_stride[h] * p.channels);
+    if (start[h] >= 0 && start[h] + NT <= n) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) off[h][t] = (start[h] + t) * stride;
+    } else {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        off[h][t] = mirror_fold<I>(start[h] + t, n) * stride;
+    }
+  }
+}
+
 // Output voxel v of a sample as its ED_MAXD-slot index; axis h < naxis in
 // slot h here (the tap tables below put axis h in slot ED_MAXD-naxis+h).
 __device__ __forceinline__ void voxel_index(const Params& p, int64_t v,
@@ -334,7 +445,8 @@ __device__ __forceinline__ T sample_coordinate(const Params& p, const T* A,
   return cc + displ[(b * naxis + h) * p.n_out + v];
 }
 
-// The tap tables of one voxel: the naxis real axes sit at the END of the
+// The tap tables of one voxel for K3 and K3c (resample_bwd_kernel, which
+// keeps the first design): the naxis real axes sit at the END of the
 // ED_MAXD slots (slot ED_MAXD - naxis + h holds axis h); leading unused
 // slots take one tap of weight 1 and offset 0. Multiplying by 1 is exact,
 // so a left-to-right weight product over the slots equals the twin's over

@@ -58,11 +58,18 @@ def _digest() -> str:
 
 def build_all() -> dict:
     """Compile every source not yet built, all in parallel; return
-    ``{name: path}``. Raises RuntimeError with nvcc's output on failure."""
+    ``{name: path}``. Raises RuntimeError with nvcc's output on failure.
+    nvcc's output is kept beside each library (``lib<name>.log``), so
+    ``build_logs`` holds every source's, whether built now or before."""
     out_dir = BUILD_ROOT / _digest()
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
-    todo = [name for name, p in paths.items() if not p.exists()]
+    logs = {name: out_dir / f"lib{name}.log" for name in SOURCES}
+    todo = [name for name, p in paths.items()
+            if not (p.exists() and logs[name].exists())]
+    for name in SOURCES:
+        if name not in todo and name not in build_logs:
+            build_logs[name] = logs[name].read_text()
     if not todo:
         return paths
     nvcc = _nvcc()
@@ -86,13 +93,16 @@ def build_all() -> dict:
         log.seek(0)
         build_logs[name] = log.read()
         log.close()
-        os.unlink(log.name)
         if proc.returncode != 0:
             failed.append(f"nvcc failed on csrc/{name}.cu:\n"
                           f"{build_logs[name]}")
             tmp.unlink(missing_ok=True)
+            os.unlink(log.name)
         else:
-            os.replace(tmp, paths[name])   # atomic against concurrent builds
+            # atomic against concurrent builds; the log first, so a
+            # library never stands without its log
+            os.replace(log.name, logs[name])
+            os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths

@@ -273,6 +273,17 @@ def _resample_at(coeffs: torch.Tensor, cc, order: int, mode: int,
     return y
 
 
+def wide_indices(n_in: int, n_out: int, channels: int, naxis: int) -> bool:
+    """Whether the rank-specialised resample kernels (K1, K1c, K5, K5c)
+    index one sample with 64-bit integers: exactly when one sample of the
+    coefficients (``n_in * C`` elements), of the output or ``g`` (``n_out *
+    C``) or of the displacement or coordinates (``naxis * n_out``) reaches
+    ``2**31`` elements. Below that every offset inside a sample fits in 32
+    bits; the batch offset goes into the base pointers as int64 either
+    way. The C entry points check the same rule (``fits_32``)."""
+    return max(n_in * channels, n_out * max(channels, naxis)) >= 2 ** 31
+
+
 def _lib():
     lib = _build.library("resample")
     fn = lib.ed_resample_fwd
@@ -284,14 +295,14 @@ def _lib():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_longlong, ll_p, ll_p, ll_p,
             ctypes.c_longlong, ctypes.c_double, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int]
         fn = lib.ed_resample_coords_fwd
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, ll_p, ctypes.c_longlong, ctypes.c_double,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     return lib
 
 
@@ -391,7 +402,9 @@ def resample(coeffs: torch.Tensor, displ: torch.Tensor, affine, offsets,
         0 if coeffs.dtype == torch.float32 else 1, src.data_ptr(),
         displ.data_ptr(), a_ptr, out.data_ptr(), naxis, order, mode, B, C,
         in_shape, out_shape, offs, a_stride, float(cval), code,
-        torch.cuda.current_stream(coeffs.device).cuda_stream)
+        torch.cuda.current_stream(coeffs.device).cuda_stream,
+        int(wide_indices(math.prod(coeffs.shape[1:-1]),
+                         math.prod(displ.shape[2:]), C, naxis)))
     _build.check(err, lib, "ed_resample_error_string", "resample_fwd")
     resample.launches += 1
     return out
@@ -448,7 +461,8 @@ def resample_coords(coeffs: torch.Tensor, coords: torch.Tensor, order: int,
         0 if coeffs.dtype == torch.float32 else 1, src.data_ptr(),
         coords.data_ptr(), out.data_ptr(), naxis, order, mode, B, C,
         in_shape, n_out, float(cval), code,
-        torch.cuda.current_stream(coeffs.device).cuda_stream)
+        torch.cuda.current_stream(coeffs.device).cuda_stream,
+        int(wide_indices(math.prod(coeffs.shape[1:-1]), n_out, C, naxis)))
     _build.check(err, lib, "ed_resample_error_string", "resample_coords_fwd")
     resample_coords.launches += 1
     return out

@@ -50,6 +50,7 @@ from elasticdeform_tpu_torch.ops.resample import (
     check_coords_args, check_kernel_tensor, check_resample_args,
     kernel_geometry, map_all,
     mirror_pad, mirror_unpad, sample_coordinates, tap_geometry, tap_products,
+    wide_indices,
 )
 
 
@@ -170,16 +171,6 @@ def _coord_grad_at(coeffs, g, cc, order, mode, like):
         * acc[h] for h in range(naxis)])
     out = out.reshape(naxis, B, *like.shape[2:]).transpose(0, 1)
     return _zero_outside(out, None if inside is None else inside[:, None])
-
-
-def wide_indices(n_in: int, n_out: int, channels: int, naxis: int) -> bool:
-    """Whether K5/K5c index one sample with 64-bit integers: exactly when
-    one sample of the coefficients (``n_in * C`` elements), of ``g``
-    (``n_out * C``) or of the coordinates (``naxis * n_out``) reaches
-    ``2**31`` elements. Below that every offset inside a sample fits in 32
-    bits; the batch offset goes into the base pointers as int64 either
-    way."""
-    return max(n_in * channels, n_out * max(channels, naxis)) >= 2 ** 31
 
 
 def _lib():
