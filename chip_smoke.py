@@ -9,11 +9,12 @@ Phases (any failure raises, and the exit code is not 0):
 
 1. device and build: prints the card's name and power limit, builds the
    CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc, prints
-   each source's build time and ptxas figures and each K4/K7
-   instantiation's (both routes, every tile width) and K1/K1c's and
-   K5/K5c's (per dtype, index width, rank and order), and holds K4/K7 in
-   float32 and K1/K1c and K5/K5c at orders 1 and 3 in float32 to no stack
-   frame and no spills;
+   each source's build time and ptxas figures and each K2/K4/K7
+   instantiation's (both routes, every tile width), K9T's tile
+   instantiations (per dtype, column and fold flag) and K1/K1c's and
+   K5/K5c's (per dtype, index width, rank and order), and holds K2/K4/K7
+   and K9T's tile in float32 and K1/K1c and K5/K5c at orders 1 and 3 in
+   float32 to no stack frame and no spills;
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
    K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
    orders 0-5 x five modes x 1-D to 4-D x one and two channels in float32
@@ -25,11 +26,14 @@ Phases (any failure raises, and the exit code is not 0):
    transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at every
    axis position; K6 and K7 (the reflect/wrap prefilter and its transpose)
    against ``filter_matrix_bc`` and its transpose over orders 2-5 x
-   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; K4 and
-   K7 on both routes (shared-memory line tiles and one thread per line)
+   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; K2, K4
+   and K7 on both routes (shared-memory line tiles and one thread per line)
    over inner 1/3/33/64/100, partial last tiles and lines one below, at
-   and one above the tile cap, the tile route at every width equal to the
-   lines route bit for bit; K8 and
+   and one above the tile cap, c5's three axes, K2 also with the integer
+   writeback, the tile route at every width equal to the lines route bit
+   for bit; K9T on both routes (a shared-memory halo box and one thread
+   per output) at c14's shapes in every mode, 2-D, rank-4 and sparse
+   kernels, every column, per element to the twin and to each other; K8 and
    K8T (the 1-D correlation and its transpose) over the five filter modes,
    1-41 taps (longer than some axes) at every centre, every axis of 2-D and
    3-D shapes with odd sizes, and the paired integer route bit for bit; K9
@@ -91,15 +95,22 @@ Phases (any failure raises, and the exit code is not 0):
    and ``grid_sample`` at order 1; K8-K9T at
    the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
    ``max_pool3d``, K12 at the c15 shapes, K13 at the c17 shapes beside
-   ``max_pool3d``; one line per probe, its calls timed back to back: ms,
+   ``max_pool3d``; K2 per axis at c5 as K4 (route, W, blocks per SM,
+   waves, every width, the lines route), K9T at c14 per column and on
+   its nd route; one line per probe, its calls timed back to back: ms,
    M rows/s, GB/s of the rows
    moved, from L2 or HBM, beside the byte bound, the twin and the library
    call, ``index_select``, ``gather``, ``embedding_bag`` or ``index_add_``;
    the library-only probes' rates), and each config (Mvox/s).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. It exits non-zero with no
-result when no CUDA device is present or when the package is missing.
+The line before the last is a JSON object with one entry per kernel (K2,
+K4, K7 and K9T with their launches per route); the last line is
+``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
+CUDA device is present or when the package is missing.
+
+``times_ab(card)`` times K2 at c5, K9T at c14 and every config through the
+public wrappers only, so that a copy of this file put into an older tree
+times that tree's package in the same call to the card.
 """
 
 from __future__ import annotations
@@ -255,29 +266,35 @@ def _ptxas_kernels(log):
     return out
 
 
-# K4/K7's kernels: the tile route (dtype, width, kind 0 mirror / 1 reflect /
-# 2 wrap) and the lines route (dtype; K7 with its boundary condition)
-_K47_NAMES = (
-    ("tile", re.compile(r"prefilter_transpose_tile_kernelI([fd])Li(\d+)ELi"
-                        r"(\d)E")),
-    ("lines", re.compile(r"prefilter_transpose_kernelI([fd])E")),
-    ("lines", re.compile(r"prefilter_bc_transpose_kernelI([fd])Li(\d)E")))
+# K2/K4/K7's kernels: the tile route (dtype, width, kind 0 K4 / 1 K7
+# reflect / 2 K7 wrap / 3 K2) and the lines route (dtype; K7 with its
+# boundary condition)
+_TILE_KINDS = {"0": "K4", "1": "K7 reflect", "2": "K7 wrap", "3": "K2"}
+_K247_NAMES = (
+    ("tile", re.compile(r"prefilter_tile_kernelI([fd])Li(\d+)ELi(\d)E")),
+    ("lines", re.compile(r"prefilter_kernelI([fd])E"), "K2"),
+    ("lines", re.compile(r"prefilter_transpose_kernelI([fd])E"), "K4"),
+    ("lines", re.compile(r"prefilter_bc_transpose_kernelI([fd])Li(\d)E"),
+     "K7"))
+# K9T's tile route (dtype, column C, fold lists)
+_K9T_TILE = re.compile(r"correlate_nd_transpose_tile_kernelI([fd])Li(\d)"
+                       r"ELb([01])E")
 
 
-def _check_k47_ptxas(log):
-    """Print each K4/K7 instantiation's registers, stack, spills and static
-    shared bytes (the tile's own shared memory is dynamic: its bytes are
-    the plan's, printed in phase 4); fail if one in float32 has a stack
+def _check_tile_ptxas(log):
+    """Print each K2/K4/K7 instantiation's registers, stack, spills and
+    static shared bytes (the tile's own shared memory is dynamic: its bytes
+    are the plan's, printed in phase 4); fail if one in float32 has a stack
     frame or spills."""
     found, bad = 0, []
     for fn, v in sorted(_ptxas_kernels(log).items()):
-        for route, pat in _K47_NAMES:
+        for route, pat, *name in _K247_NAMES:
             m = pat.search(fn)
             if not m or fn.startswith("_ZZ"):   # _ZZ: a kernel's lambda
                 continue
             g = m.groups()
-            kind = ("K4" if route == "lines" and len(g) == 1 else
-                    "K4" if route == "tile" and g[2] == "0" else
+            kind = (_TILE_KINDS[g[2]] if route == "tile" else
+                    name[0] if len(g) == 1 else
                     "K7 reflect" if g[-1] == "1" else "K7 wrap")
             width = f" W={g[1]}" if route == "tile" else ""
             dt = "float32" if g[0] == "f" else "float64"
@@ -287,8 +304,30 @@ def _check_k47_ptxas(log):
             found += 1
             if g[0] == "f" and any(v[1:4]):
                 bad.append(fn)
-    if found != 24 or bad:
-        raise AssertionError(f"K4/K7: {found} of 24 instantiations found; "
+    if found != 32 or bad:
+        raise AssertionError(f"K2/K4/K7: {found} of 32 instantiations found; "
+                             f"float32 with a stack frame or spills: {bad}")
+
+
+def _check_k9t_ptxas(log):
+    """Print each K9T tile instantiation's registers, stack and spills per
+    dtype, column C and fold flag; fail unless all 16 are found and none in
+    float32 has a stack frame or spills."""
+    found, bad = 0, []
+    for fn, v in sorted(_ptxas_kernels(log).items()):
+        m = _K9T_TILE.search(fn)
+        if not m or fn.startswith("_ZZ"):
+            continue
+        dt, col, fold = m.groups()
+        print(f"  ptxas K9T tile {'float32' if dt == 'f' else 'float64'} "
+              f"C={col} {'fold' if fold == '1' else 'constant'}: {v[0]} "
+              f"registers, {v[1]} bytes stack frame, {v[2]}/{v[3]} bytes "
+              f"spill stores/loads")
+        found += 1
+        if dt == "f" and any(v[1:4]):
+            bad.append(fn)
+    if found != 16 or bad:
+        raise AssertionError(f"K9T: {found} of 16 tile instantiations found; "
                              f"float32 with a stack frame or spills: {bad}")
 
 
@@ -325,11 +364,12 @@ def _check_rank_table(label, log, pattern, orders, count):
 def phase_build():
     """Build every source; print each one's nvcc time, its kernels' worst
     register, stack and spill figures, every other kernel with a stack
-    frame or spills, K4/K7's instantiations and the K1/K1c and K5/K5c
-    tables, from the ptxas report kept beside each library (built in this
-    run or before; a missing report fails). K4/K7 in float32, and K1/K1c
-    and K5/K5c at orders 1 and 3 in float32, must keep their state in
-    registers: no stack frame, no spills."""
+    frame or spills, K2/K4/K7's and K9T's tile instantiations and the
+    K1/K1c and K5/K5c tables, from the ptxas report kept beside each
+    library (built in this run or before; a missing report fails). K2/K4/K7
+    and K9T's tile in float32, and K1/K1c and K5/K5c at orders 1 and 3 in
+    float32, must keep their state in registers: no stack frame, no
+    spills."""
     from elasticdeform_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -355,7 +395,8 @@ def phase_build():
     if missing:
         raise AssertionError(f"no ptxas report for {sorted(missing)}: the "
                              "register checks cannot run")
-    _check_k47_ptxas(_build.build_logs["prefilter"])
+    _check_tile_ptxas(_build.build_logs["prefilter"])
+    _check_k9t_ptxas(_build.build_logs["filters"])
     for name, label, pattern, orders, count in (
             ("resample", "K1/K1c", _K1_NAME, "012345", 96),
             ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80)):
@@ -517,7 +558,8 @@ def phase_kernels():
     _check_narrow_table(rs)
     _check_k1_widths(rs)
     _check_bc_prefilter(rs, worst)
-    _check_transpose_routes(rs, worst)
+    _check_tile_routes(rs, worst)
+    _check_k9t_routes(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_kernels(rs)
     return worst
@@ -773,21 +815,30 @@ def _bits(t):
                                else torch.int64)
 
 
-def _check_transpose_routes(rs, worst):
-    """K4 and K7 beyond the [5, 6, 3, 4] sweeps, on both routes: views
+def _check_tile_routes(rs, worst):
+    """K2, K4 and K7 beyond the [5, 6, 3, 4] sweeps, on both routes: views
     (outer, n, inner) with inner 1, 3, 33, 64 and 100 and outers that make
     the last tile of every width partial, and lines one below, at and one
-    above the tile route's cap, in float32 and float64. The wrapper is held
-    to its plain twin (float32 rtol=1e-5, atol=1e-5*max|x|; float64 1e-10)
-    and must take the route its plan names (its route count); every tile
-    width that fits must equal the lines route bit for bit; the K2/K4 and
-    K6/K7 adjoint identities hold in float64."""
+    above the tile route's cap, in float32 and float64; K2 also with the
+    uint8 and int16 writebacks and on c5's three axes. The wrapper is held
+    to its plain twin (float32 rtol=1e-5, atol=1e-5*max|x|; float64 1e-10;
+    the writeback in float64 bit for bit on lines of 33 and more: in
+    float32, or where a short line's filter maps integers to rationals of
+    small denominators, some of them integers, the recursion and the
+    twin's matrix can truncate apart, so there only the routes are held to
+    each other) and must take the route its plan names
+    (its route count); every tile width that fits must equal the lines
+    route bit for bit; the K2/K4 and K6/K7 adjoint identities hold in
+    float64."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     dev = torch.device("cuda")
-    kinds = (("K4", "spline_prefilter_transpose", "mirror"),
-             ("K7", "spline_prefilter_bc_transpose", "reflect"),
-             ("K7", "spline_prefilter_bc_transpose", "wrap"))
+    kinds = (("K2", "spline_prefilter", "mirror", None),
+             ("K2", "spline_prefilter", "mirror", np.uint8),
+             ("K2", "spline_prefilter", "mirror", np.int16),
+             ("K4", "spline_prefilter_transpose", "mirror", None),
+             ("K7", "spline_prefilter_bc_transpose", "reflect", None),
+             ("K7", "spline_prefilter_bc_transpose", "wrap", None))
     shapes = [(outer, n, inner) for inner, outer in
               ((1, 131), (3, 23), (33, 5), (64, 3), (100, 2))
               for n in (9, 64, 224)]
@@ -795,51 +846,73 @@ def _check_transpose_routes(rs, worst):
         cap = pf.tile_cap(dtype)
         shapes += [(3, n, 5) for n in (cap - 1, cap, cap + 1)]
         shapes += [(2, n, 1) for n in (cap - 1, cap, cap + 1)]
+    # c5's three axes of (64, 64, 64, 64, 1)
+    shapes += [(64, 64, 4096), (4096, 64, 64), (262144, 64, 1)]
     n_cases = n_bits = 0
-    for (outer, n, inner), dtype, order, (k, name, bc) in itertools.product(
-            shapes, (torch.float32, torch.float64), (2, 3, 4, 5), kinds):
+    for (outer, n, inner), dtype, order, (k, name, bc, idt) in \
+            itertools.product(shapes, (torch.float32, torch.float64),
+                              (2, 3, 4, 5), kinds):
         if n > 224 and order in (2, 4):
             continue    # long lines: orders 3 and 5 (one and two poles)
-        x = torch.as_tensor(rs.rand(outer, n, inner) * 200 - 50,
-                            dtype=dtype, device=dev)
-        what = (f"{k} {bc} {dtype} order={order} (outer, n, inner)="
-                f"{(outer, n, inner)}")
-        plan = pf._plan_for(x, 1)
-        if bc == "mirror":
-            wrapper = pf.spline_filter1d_transpose
-            before = dict(wrapper.routes)
-            got = wrapper(x, order, 1)
-            want = pf.spline_filter1d_transpose_plain(x, order, 1)
+        if outer * inner > 4096 and (order != 3 or idt is not None):
+            continue    # c5's axes: order 3, no writeback
+        if idt is None:
+            x = torch.as_tensor(rs.rand(outer, n, inner) * 200 - 50,
+                                dtype=dtype, device=dev)
         else:
-            wrapper = pf.spline_filter1d_bc_transpose
-            before = dict(wrapper.routes)
-            got = wrapper(x, order, 1, bc)
-            want = pf.spline_filter1d_bc_transpose_plain(x, order, 1, bc)
+            x = torch.as_tensor(rs.randint(-3000, 3000, (outer, n, inner)),
+                                dtype=dtype, device=dev)
+        what = (f"{k} {bc} {dtype} order={order} (outer, n, inner)="
+                f"{(outer, n, inner)}" + (f" writeback {np.dtype(idt)}"
+                                          if idt is not None else ""))
+        plan = pf._plan_for(x, 1)
+        if k == "K2":
+            wrapper, plain, args = (pf.spline_filter1d,
+                                    pf.spline_filter1d_plain, (idt,))
+        elif bc == "mirror":
+            wrapper, plain, args = (pf.spline_filter1d_transpose,
+                                    pf.spline_filter1d_transpose_plain, ())
+        else:
+            wrapper, plain, args = (pf.spline_filter1d_bc_transpose,
+                                    pf.spline_filter1d_bc_transpose_plain,
+                                    (bc,))
+        before = dict(wrapper.routes)
+        got = wrapper(x, order, 1, *args)
+        want = plain(x, order, 1, *args)
+
+        def launch(p, k=k, x=x, order=order, bc=bc, idt=idt):
+            if k == "K2":
+                return pf._launch_filter(x, order, 1, p, idt)
+            return pf._launch_transpose(x, order, 1, bc, p)
         if wrapper.routes[plan.route] != before[plan.route] + 1:
             raise AssertionError(f"{what}: the wrapper did not count a "
                                  f"launch on the {plan.route} route")
         if plan.route != ("tile" if n <= pf.tile_cap(dtype) else "lines"):
             raise AssertionError(f"{what}: plan {plan} on the wrong route")
         torch.cuda.synchronize()
-        worst[name] = max(worst[name], _assert_close(
-            got, want, *_tol(dtype, float(x.abs().max())), what))
-        ref = pf._launch_transpose(
-            x, order, 1, bc, pf._transpose_plan(outer, n, inner, dtype,
-                                                route="lines"))
+        if idt is None:
+            worst[name] = max(worst[name], _assert_close(
+                got, want, *_tol(dtype, float(x.abs().max())), what))
+        elif dtype == torch.float64 and n >= 33 and \
+                not torch.equal(got, want.contiguous()):
+            raise AssertionError(f"{what}: {int((got != want).sum())} "
+                                 "values differ from the plain twin")
+        ref = launch(pf._tile_plan(outer, n, inner, dtype, route="lines"))
         for width in pf.TILE_WIDTHS:
             try:
-                tp = pf._transpose_plan(outer, n, inner, dtype, width=width,
-                                        route="tile")
+                tp = pf._tile_plan(outer, n, inner, dtype, width=width,
+                                   route="tile")
             except ValueError:      # the tile does not fit shared memory
                 continue
-            tile = pf._launch_transpose(x, order, 1, bc, tp)
+            tile = launch(tp)
             torch.cuda.synchronize()
             if not torch.equal(_bits(tile), _bits(ref)):
                 raise AssertionError(
                     f"{what}: tile route W={width} ({tp}) differs from the "
                     f"lines route in {int((tile != ref).sum())} values")
             n_bits += 1
-        if dtype == torch.float64 and n <= 224:
+        if dtype == torch.float64 and n <= 224 and idt is None and \
+                k != "K2" and outer * inner <= 4096:
             y = torch.as_tensor(rs.randn(outer, n, inner), dtype=dtype,
                                 device=dev)
             fwd = (pf.spline_filter1d(x, order, 1) if bc == "mirror" else
@@ -849,12 +922,89 @@ def _check_transpose_routes(rs, worst):
                     pf.spline_filter1d_bc_transpose(y, order, 1, bc))
             _check_adjoint(fwd, y, x, back, f"{what} adjoint")
         n_cases += 1
-    print(f"K4 and K7 over inner 1/3/33/64/100, partial last tiles and "
-          f"lines at the tile cap (float32 {pf.tile_cap(torch.float32)}, "
-          f"float64 {pf.tile_cap(torch.float64)}) and one above: {n_cases} "
-          f"cases pass against their twins; {n_bits} tile launches (W "
+    print(f"K2, K4 and K7 over inner 1/3/33/64/100, partial last tiles, lines "
+          f"at the tile cap (float32 {pf.tile_cap(torch.float32)}, float64 "
+          f"{pf.tile_cap(torch.float64)}) and one above, c5's three axes, K2 "
+          f"with the uint8 and int16 writebacks: {n_cases} cases pass against "
+          f"their twins; {n_bits} tile launches (W "
           f"{'/'.join(map(str, pf.TILE_WIDTHS))}) equal the lines route bit "
           f"for bit; the adjoint identities hold in float64")
+
+
+def _check_k9t_routes(rs, worst):
+    """K9T on both routes: the tile route at every column (C 1/2/4/8) held
+    per element to the twin and to the nd route (1e-5 of the sum of the
+    absolute terms landing there, float32; 1e-10 float64), and the wrapper
+    to its route count; at c14's shapes (160x192x224, a 5^3 kernel at
+    origin (1, 0, -1); a 3^3 kernel on a (2, 160, 192, 224) batch), in every
+    mode; a 2-D and a rank-4 batch-merged case; a sparse 3x2x4 kernel at
+    extreme origins; kernels longer than an axis; float64 too. The K9/K9T
+    adjoint identity holds in float64 on the small cases."""
+    import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
+    dev = torch.device("cuda")
+    modes = ("reflect", "constant", "nearest", "mirror", "wrap")
+    w5 = rs.randn(5, 5, 5)
+    w3 = rs.randn(1, 3, 3, 3)
+    sparse = rs.randn(3, 2, 4) * (rs.rand(3, 2, 4) > 0.5)
+    sparse[0, 0, 0] = 0.0       # a zero first tap
+    sparse[2, 1, 3] = 1.5
+    cases = [((160, 192, 224), w5, (3, 2, 1)),
+             ((2, 160, 192, 224), w3, (0, 1, 1, 1)),
+             ((37, 300), rs.randn(5, 3), (2, 1)),
+             ((2, 9, 10, 11), rs.randn(1, 3, 3, 3), (0, 2, 0, 1)),
+             ((9, 10, 11), sparse, (0, 1, 3)),
+             ((9, 10, 11), sparse, (2, 0, 0)),
+             ((5, 3, 40), rs.randn(7, 1, 5), (6, 0, 0)),
+             ((3, 4, 9), rs.randn(5, 6, 3), (2, 5, 1))]
+    n = exact = 0
+    for (shape, w, centers), dtype, mode in itertools.product(
+            cases, (torch.float32, torch.float64), modes):
+        big = math.prod(shape) > 10 ** 6
+        if big and dtype == torch.float64 and mode != "mirror":
+            continue    # c14's shapes: float32 in every mode, float64 once
+        g = torch.as_tensor(rs.randn(*shape), dtype=dtype, device=dev)
+        what = f"K9T {dtype} {mode} shape={shape} kernel={w.shape} " \
+            f"centres={centers}"
+        want = ft.correlate_nd_transpose_plain(g, w, centers, mode)
+        terms = ft.correlate_nd_transpose_plain(g.abs(), np.abs(w), centers,
+                                                mode)
+        rtol, atol = _terms_tol(dtype, terms)
+        plan = ft._nd_transpose_plan(tuple(shape), w.shape, dtype)
+        if plan.route != "tile":
+            raise AssertionError(f"{what}: plan {plan}, not the tile route")
+        before = dict(ft.correlate_nd_transpose.routes)
+        got = ft.correlate_nd_transpose(g, w, centers, mode)
+        if ft.correlate_nd_transpose.routes["tile"] != before["tile"] + 1:
+            raise AssertionError(f"{what}: the wrapper did not count a tile "
+                                 "launch")
+        nd = ft._launch_nd_transpose(g, w, centers, mode,
+                                     ft._nd_transpose_plan(shape, w.shape,
+                                                           dtype, route="nd"))
+        torch.cuda.synchronize()
+        worst["correlate_nd_transpose"] = max(
+            worst["correlate_nd_transpose"],
+            _assert_close(got, want, rtol, atol, f"{what} vs plain"),
+            _assert_close(got, nd, rtol, atol, f"{what} vs the nd route"))
+        exact += int(torch.equal(got, nd))
+        for c in ft.TILE_COLUMNS:
+            tp = ft._nd_transpose_plan(shape, w.shape, dtype, column=c,
+                                       route="tile")
+            t = ft._launch_nd_transpose(g, w, centers, mode, tp)
+            torch.cuda.synchronize()
+            _assert_close(t, nd, rtol, atol, f"{what} C={c} vs the nd route")
+            exact += int(torch.equal(t, nd))
+            n += 1
+        if dtype == torch.float64 and not big:
+            x = torch.as_tensor(rs.rand(*shape), dtype=dtype, device=dev)
+            _check_adjoint(ft.correlate_nd(x, w, centers, mode, 0.0), g, x,
+                           got, f"K9/K9T {what}")
+        del g, want, terms, nd, got
+    print(f"K9T tile route (C {'/'.join(map(str, ft.TILE_COLUMNS))}) at c14's "
+          f"shapes, 2-D, rank 4 and sparse kernels, every mode: {n} launches "
+          f"within 1e-5 of the sum of their absolute terms of the twin and "
+          f"the nd route ({exact} equal to the nd route); the K9/K9T adjoint "
+          f"identity holds in float64")
 
 
 def _terms_tol(dtype, terms):
@@ -1735,7 +1885,8 @@ def _reset_counts():
 
 
 def _route_counts():
-    """K4's and K7's launches per route (``{"tile": .., "lines": ..}``)."""
+    """K2's, K4's and K7's launches per route (``{"tile": .., "lines":
+    ..}``) and K9T's (``{"tile": .., "nd": ..}``)."""
     return {k: dict(w.routes) for k, ws in _path_wrappers().items()
             for w in (ws,) if hasattr(w, "routes")}
 
@@ -1747,7 +1898,7 @@ def phase_main_path():
     configs = _configs()
     outs, launches = {}, {}
     total = dict.fromkeys(PATH_KERNELS, 0)
-    routes = {k: {"tile": 0, "lines": 0} for k in _route_counts()}
+    routes = {k: dict.fromkeys(v, 0) for k, v in _route_counts().items()}
     for cfg in configs:
         _reset_counts()
         outs[cfg.name] = cfg.run("cuda")
@@ -1831,7 +1982,7 @@ def phase_main_path():
             print(f"{what}: {tuple(got.shape)} {got.dtype} matches the CPU "
                   f"run (max abs err {err:.3e}, rtol={rtol}, "
                   f"atol={atol_scale:g}*max|ref|)")
-    return total, launches
+    return total, launches, routes
 
 
 # ---------------------------------------------------------------------------
@@ -2280,13 +2431,14 @@ def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
     return out
 
 
-def _transpose_axes(name, x, order, bc, card):
+def _tile_axes(name, x, order, bc, card, forward=False):
     """Phase 4's per-axis lines of K4 (``bc='mirror'``) or K7 on ``x`` along
-    axes 1-3, through the private launcher (no counts): the wrapper's plan
-    (route, W, blocks per SM, shared bytes) timed alone (CUDA events,
-    median of 10) and back to back (``_loop_ms``), the lines route alone,
-    and every tile width back to back. Returns the lists of per-axis ms and
-    the width the wrapper took on each axis."""
+    axes 1-3, or with ``forward`` K2's, through the private launchers (no
+    counts): the wrapper's plan (route, W, blocks per SM, shared bytes)
+    timed alone (CUDA events, median of 10) and back to back
+    (``_loop_ms``), the lines route alone, and every tile width back to
+    back. Returns the lists of per-axis ms and the width the wrapper took
+    on each axis."""
     from elasticdeform_tpu_torch.ops import prefilter as pf
     res = {"per_axis_ms": [], "per_axis_loop_ms": [],
            "lines_route_per_axis_ms": [], "widths": [],
@@ -2297,11 +2449,13 @@ def _transpose_axes(name, x, order, bc, card):
         shape = pf._lines(x, a)
 
         def run(plan, a=a, order=order, bc=bc):
+            if forward:
+                return lambda: pf._launch_filter(x, order, a, plan)
             return lambda: pf._launch_transpose(x, order, a, bc, plan)
         plan = pf._plan_for(x, a)
         ms, loop = _time_ms(run(plan)), _loop_ms(run(plan))
-        lines_ms = _time_ms(run(pf._transpose_plan(*shape, x.dtype,
-                                                   route="lines")))
+        lines_ms = _time_ms(run(pf._tile_plan(*shape, x.dtype,
+                                              route="lines")))
         # the tile's copy alone (no poles: staged and stored, no recursion)
         # and a plain device copy of the volume
         stage = _loop_ms(run(plan, order=1, bc="reflect"))
@@ -2314,8 +2468,7 @@ def _transpose_axes(name, x, order, bc, card):
         parts = []
         for w in pf.TILE_WIDTHS:
             try:
-                p = pf._transpose_plan(*shape, x.dtype, width=w,
-                                       route="tile")
+                p = pf._tile_plan(*shape, x.dtype, width=w, route="tile")
             except ValueError:
                 res["width_loop_ms"][w].append(None)
                 parts.append(f"W={w} does not fit")
@@ -2323,10 +2476,12 @@ def _transpose_axes(name, x, order, bc, card):
             wm = _loop_ms(run(p))
             res["width_loop_ms"][w].append(wm)
             parts.append(f"W={w} {wm:.4f} ms "
-                         f"({pf.tile_blocks_per_sm(x.dtype, bc, p)} blocks "
+                         f"({pf.tile_blocks_per_sm(x.dtype, bc, p, not forward)}"
+                         f" blocks "
                          f"per SM, model {pf.blocks_per_sm(p)}; "
                          f"{pf.waves(p, sms)} waves; {p.smem} B)")
-        occ = (f", {pf.tile_blocks_per_sm(x.dtype, bc, plan)} blocks per SM"
+        occ = (f", {pf.tile_blocks_per_sm(x.dtype, bc, plan, not forward)} "
+               f"blocks per SM"
                f", {pf.waves(plan, sms)} waves of {sms} SMs, {plan.smem} "
                f"bytes shared" if plan.route == "tile" else "")
         print(f"{name} axis {a} (outer, n, inner)={shape}: {ms:.4f} ms "
@@ -2440,15 +2595,15 @@ def _times_resampler(row, card, k1_lines):
             extra = None
         else:
             def lines(y, o, a, bc):
-                return pf._launch_transpose(y, o, a, bc, pf._transpose_plan(
+                return pf._launch_transpose(y, o, a, bc, pf._tile_plan(
                     *pf._lines(y, a), y.dtype, route="lines"))
             if not torch.equal(_bits(chain(fn, axes)()),
                                _bits(chain(lines, axes)())):
                 raise AssertionError(f"{name} at c8 shapes: the tile route "
                                      "differs from the lines route")
             extra = {"lines_route_ms": _time_ms(chain(lines, axes)),
-                     **_transpose_axes(f"{name} at (1, 160, 192, 224) f32",
-                                       v, order, "reflect", card)}
+                     **_tile_axes(f"{name} at (1, 160, 192, 224) f32", v,
+                                  order, "reflect", card)}
         row(name, "prefilter.cu", replaces, _time_ms(chain(fn, axes)),
             _time_ms(chain(plain, axes)), bound,
             _time_ms(chain(None, axes, lib_mats)), err, at="c8",
@@ -2601,6 +2756,23 @@ def _times_filters(row, card):
                                                         "constant"),
                         *_terms_tol(torch.float32, terms), "K9T at c14 shapes")
     del terms
+    plan = ft._nd_transpose_plan(x.shape, w5.shape, x.dtype)
+    nd_plan = ft._nd_transpose_plan(x.shape, w5.shape, x.dtype, route="nd")
+    nd_ms = _time_ms(lambda: ft._launch_nd_transpose(x, w5, cen, "constant",
+                                                     nd_plan))
+    cols = {}
+    for c in ft.TILE_COLUMNS:
+        p = ft._nd_transpose_plan(x.shape, w5.shape, x.dtype, column=c,
+                                  route="tile")
+        cols[c] = _time_ms(lambda p=p: ft._launch_nd_transpose(
+            x, w5, cen, "constant", p))
+    taps = n9 * 125
+    print(f"correlate_nd_transpose at c14 shapes: {plan.route} route, C="
+          f"{plan.column}, box {plan.box}, {plan.smem} bytes shared, "
+          f"{plan.blocks} blocks; per column ms "
+          f"{', '.join(f'C={c} {v:.4f}' for c, v in cols.items())}; nd route "
+          f"{nd_ms:.4f} ms; {taps / cols[plan.column] / 1e6:.1f} G taps/s on "
+          f"the tile route [{card}]")
     row("correlate_nd_transpose", "filters.cu",
         "elasticdeform_tpu/ops/filters.py:317",
         _time_ms(lambda: ft.correlate_nd_transpose(x, w5, cen, "constant")),
@@ -2608,7 +2780,8 @@ def _times_filters(row, card):
                                                          "constant")),
         bound9,
         _time_ms(lambda: F.conv_transpose3d(x[None, None], w5t, padding=2)),
-        err, at="c14")
+        err, at="c14", extra={"nd_route_ms": nd_ms, "column": plan.column,
+                              "column_ms": cols})
 
 
 def _times_morphology(row, card):
@@ -2781,10 +2954,58 @@ def times_c6(card, cfg):
     return out
 
 
-def phase_times(card, total_launches, errs, probe_data):
+def times_ab(card, reps=REPS):
+    """K2 over c5's three axes (64 x 64^3 float32, order 3) beside the
+    ``tensordot`` chain, K9T at c14's shapes (160x192x224 float32, a 5^3
+    kernel at origin (1, 0, -1), constant mode) beside ``conv_transpose3d``
+    (TF32 off), and every config c1-c17 whole, in ms (CUDA events, median of
+    ``reps``). It calls only the package's public wrappers and configs, so
+    it also times an older tree's package, one process per tree, in one
+    call to the card. Prints one line ``ab: {json}`` and returns it."""
+    import torch
+    import torch.nn.functional as F
+    from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(5)
+    x = torch.as_tensor(rs.rand(64, 64, 64, 64, 1).astype(np.float32),
+                        device=dev)
+    mat = torch.as_tensor(pf.filter_matrix(64, 3), dtype=x.dtype, device=dev)
+
+    def k2():
+        y = x
+        for a in (1, 2, 3):
+            y = pf.spline_filter1d(y, 3, a)
+        return y
+
+    def k2_lib():
+        y = x
+        for a in (1, 2, 3):
+            y = torch.movedim(torch.tensordot(mat, y, dims=([1], [a])), 0, a)
+        return y
+    v = torch.as_tensor(rs.rand(160, 192, 224).astype(np.float32),
+                        device=dev)
+    w5 = rs.randn(5, 5, 5)
+    w5t = torch.as_tensor(w5, dtype=v.dtype, device=dev)[None, None]
+    out = {"K2_c5": _time_ms(k2, reps), "tensordot_c5": _time_ms(k2_lib, reps),
+           "K9T_c14": _time_ms(lambda: ft.correlate_nd_transpose(
+               v, w5, (3, 2, 1), "constant"), reps),
+           "conv_transpose3d_c14": _time_ms(
+               lambda: F.conv_transpose3d(v[None, None], w5t, padding=2),
+               reps)}
+    del x, v
+    for cfg in _configs():
+        out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
+    print(f"ab: {json.dumps(out)} [{card}]")
+    return out
+
+
+def phase_times(card, total_launches, errs, probe_data, routes=None):
     """Phase 4: kernel, plain and library times at the c5 shapes (and the
     other tiers' shapes, the probes' default sizes), and the configs'
-    throughput."""
+    throughput. ``routes``: phase 3's launches per route of the kernels
+    that have routes, kept in their rows."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
@@ -2814,6 +3035,8 @@ def phase_times(card, total_launches, errs, probe_data):
                      "plain_ms": plain_ms, "bound_ms": bound[0],
                      "bound_by": bound[1], "library_ms": library_ms,
                      "shapes": at, **(extra or {})})
+        if routes and name in routes:
+            rows[-1]["routes"] = routes[name]
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"{name} at {at} shapes: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
               f"library {lib}, bound {bound[0]:.4f} ms by {bound[1]}) "
@@ -2838,15 +3061,25 @@ def phase_times(card, total_launches, errs, probe_data):
                            chain(pf.spline_filter1d_plain, (1, 2, 3))(),
                            *_tol(torch.float32, float(x.abs().max())),
                            "K2 at c5 shapes")
-    print(f"spline_prefilter per-axis ms at (64, 64, 64, 64, 1) f32, axes "
-          f"1/2/3: {per_axis(pf.spline_filter1d, (1, 2, 3))} [{card}]")
+
+    def k2_lines(y, o, a):
+        return pf._launch_filter(y, o, a, pf._tile_plan(
+            *pf._lines(y, a), y.dtype, route="lines"))
+    if not torch.equal(_bits(chain(pf.spline_filter1d, (1, 2, 3))()),
+                       _bits(chain(k2_lines, (1, 2, 3))())):
+        raise AssertionError("K2 at c5 shapes: the tile route differs from "
+                             "the lines route")
+    axes = _tile_axes("spline_prefilter at (64, 64, 64, 64, 1) f32", x, order,
+                      "mirror", card, forward=True)
     filter_bound = _bound(3 * 2 * numel * 4,
                           3 * numel * (1 + 4 * len(pf.spline_poles(order))))
     row("spline_prefilter", "prefilter.cu",
         "elasticdeform_tpu/ops/prefilter.py:333",
         _time_ms(chain(pf.spline_filter1d, (1, 2, 3))),
         _time_ms(chain(pf.spline_filter1d_plain, (1, 2, 3))), filter_bound,
-        _time_ms(chain(None, (1, 2, 3), fwd_mats)), k2_err)
+        _time_ms(chain(None, (1, 2, 3), fwd_mats)), k2_err,
+        extra={"lines_route_ms": _time_ms(chain(k2_lines, (1, 2, 3))),
+               **axes})
     coeffs = chain(pf.spline_filter1d, (1, 2, 3))()
 
     # (the transposed matrices in the order the axes are applied, 3, 2, 1)
@@ -2859,14 +3092,14 @@ def phase_times(card, total_launches, errs, probe_data):
         *_tol(torch.float32, float(x.abs().max())), "K4 at c5 shapes")
 
     def tr_lines(y, o, a):
-        return pf._launch_transpose(y, o, a, "mirror", pf._transpose_plan(
+        return pf._launch_transpose(y, o, a, "mirror", pf._tile_plan(
             *pf._lines(y, a), y.dtype, route="lines"))
     if not torch.equal(_bits(chain(tr, (3, 2, 1))()),
                        _bits(chain(tr_lines, (3, 2, 1))())):
         raise AssertionError("K4 at c5 shapes: the tile route differs from "
                              "the lines route")
-    axes = _transpose_axes("spline_prefilter_transpose at (64, 64, 64, 64, "
-                           "1) f32", x, order, "mirror", card)
+    axes = _tile_axes("spline_prefilter_transpose at (64, 64, 64, 64, 1) "
+                      "f32", x, order, "mirror", card)
     row("spline_prefilter_transpose", "prefilter.cu",
         "elasticdeform_tpu/ops/prefilter.py:376",
         _time_ms(chain(tr, (3, 2, 1))),
@@ -2983,11 +3216,11 @@ def main() -> int:
     probe_data = _probe_data()
     probe_errs, probe_outs = _check_probe_kernels(probe_data)
     errs.update(probe_errs)
-    total, _ = phase_main_path()
+    total, _, routes = phase_main_path()
     probe_launches = phase_probe_path(probe_data, probe_outs)
     del probe_outs
     total.update({k: probe_launches[k] for k in PROBE_KERNELS})
-    kernels = phase_times(smi, total, errs, probe_data)
+    kernels = phase_times(smi, total, errs, probe_data, routes)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

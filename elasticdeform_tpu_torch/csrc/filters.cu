@@ -33,7 +33,8 @@
 // ED_FILTER_MAXR axes remain. K9T is its transpose, the N-D form of K8T: for
 // output j, the sum over the product of the per-axis fold lists of P(p), the
 // flipped-kernel correlation of g at padded position p. Twins:
-// correlate_nd_plain and correlate_nd_transpose_plain.
+// correlate_nd_plain and correlate_nd_transpose_plain. K9T's JAX reference
+// is the autodiff of ops/filters.py:317 apply_correlate with respect to X.
 //
 // Layout and bound on the H100: one thread per output element, neighbouring
 // threads on neighbouring addresses (the innermost index), so every tap's
@@ -43,7 +44,35 @@
 // elements (every tap inside the array) take a path with no fold. Each
 // kernel's least time is its bytes, 2 * numel * sizeof(T) over 3.35 TB/s,
 // for the tap counts of the filter tier (L FMAs per element at 67 TFLOP/s in
-// float32 stay below that for L < ~40).
+// float32 stay below that for L < ~40); a 5^3 kernel (c14) is bound by its
+// operations.
+//
+// K9T takes one of two routes, picked on the host by
+// ops/filters.py:_nd_transpose_plan from the shapes:
+// * tile (at most 3 axes where the kernel has extent > 1, a box that fits
+//   shared memory, each sample within int32): a block owns a tile of
+//   C x 8 x 32 outputs over three tile axes (the kernel's axes; ranks 1-2
+//   take batch axes or leading extents of 1 in their place), and the grid
+//   walks the batch axes left over. The block first stages the tile's halo
+//   box of g (the tile grown by the kernel's extent - 1 on each axis) into
+//   shared memory with cp.async, zeros outside the array written by the
+//   copy itself (its source size 0), and the nonzero taps (weight, and
+//   offset into the box as int32, in raster order). Thread (y, x) keeps a
+//   register column of C outputs along tile axis 0 and runs the tap list
+//   for them (tap_column): one shared-memory load, one multiply and one add
+//   per tap and output, no bounds test, no 64-bit index. An output sums its
+//   taps in the nd route's raster order, acc = v_0 w_0, then acc + v_t w_t;
+//   a tap landing outside reads a staged zero, so where the nd route adds no
+//   term this route adds 0 * w_t: the same value up to the sign of a zero
+//   (the check against the twin is per element to 1e-5 of the sum of the
+//   absolute terms, which a zero term does not move; non-finite weights take
+//   the nd route, since 0 * inf would be NaN). Outside constant mode a
+//   border output then adds the other entries of the product of its fold
+//   lists (j itself is the first), from device memory, in the nd route's
+//   order and with its code (fold_rest); in constant mode every fold list is
+//   [j] and the kernel has no such branch.
+// * nd (everything else: more axes, a huge kernel, 2^31-element samples):
+//   one thread per output with 64-bit indices, as described above.
 //
 // Built with --fmad=false, as every source of this package: products and
 // sums round on their own, so K8 and K9 add in their twins' order and agree
@@ -52,9 +81,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 #define ED_FILTER_MAXR 8
 #define ED_ROW_TILE 256
 #define ED_THREADS 256
+// K9T's tile route: a block of ED_TILE_Y x ED_TILE_X threads
+#define ED_TILE_Y 8
+#define ED_TILE_X 32
 
 namespace {
 
@@ -355,6 +389,184 @@ correlate_nd_transpose_kernel(const T* __restrict__ g, T* __restrict__ out,
   out[e] = acc;
 }
 
+// K9T's tile route geometry (ops/filters.py:_nd_transpose_plan): three
+// tile axes, each an axis of the kernel, a batch axis or an extent of 1,
+// and the batch axes the grid walks.
+struct NdTile {
+  int n[3];         // extents of the tile axes
+  int st[3];        // their element strides within a sample
+  int hi[3];        // greatest tap offset (0 on a batch axis)
+  int box[3];       // the halo box: tile extent + kernel extent - 1
+  int tiles[3];     // tiles along each axis
+  int ptr_base[3];  // the axis' fold lists in ptr; -1 the identity
+  int taps;
+  int nb;                        // batch axes walked by the grid
+  int bn[ED_FILTER_MAXR];        // their extents
+  int64_t bst[ED_FILTER_MAXR];   // and strides
+};
+
+// Stages the box of gs whose first element is (o0, o1, o2) in the tile
+// axes' indices into shared memory, row-major (row (b0, b1) at
+// (b0 * box[1] + b1) * box[2]): warp `warp` of `warps` takes rows warp,
+// warp + warps, ..., its lanes consecutive elements of a row, so that the
+// copies coalesce along tile axis 2. Elements outside the array are zeros.
+// (K9 can take it up with a source that folds the index, and cval.)
+template <typename T>
+__device__ __forceinline__ void stage_box(T* box, const T* gs,
+                                          const NdTile& p, int o0, int o1,
+                                          int o2, int warp, int warps,
+                                          int lane) {
+  const int rows = p.box[0] * p.box[1];
+  for (int r = warp; r < rows; r += warps) {
+    const int b0 = r / p.box[1];
+    const int i0 = o0 + b0, i1 = o1 + r - b0 * p.box[1];
+    const bool row_in = (unsigned)i0 < (unsigned)p.n[0] &&
+                        (unsigned)i1 < (unsigned)p.n[1];
+    const T* src = gs + (row_in ? i0 * p.st[0] + i1 * p.st[1] : 0);
+    T* dst = box + r * p.box[2];
+    for (int b2 = lane; b2 < p.box[2]; b2 += 32) {
+      const int i2 = o2 + b2;
+      const bool in = row_in && (unsigned)i2 < (unsigned)p.n[2];
+      stage_async_zfill(dst + b2, in ? src + i2 * p.st[2] : gs, in);
+    }
+  }
+}
+
+// The tap loop for a register column of C outputs, output c's box element
+// at col + c * P0 + toff[t] for tap t: acc = v_0 w_0, then acc + v_t w_t,
+// the taps in raster order. (K9 can take it up with its own offsets.)
+template <typename T, int C>
+__device__ __forceinline__ void tap_column(T (&acc)[C], const T* col, int P0,
+                                           const T* tw, const int* toff,
+                                           int taps) {
+  {
+    const T* v = col + toff[0];
+    const T w0 = tw[0];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = v[c * P0] * w0;
+  }
+  for (int t = 1; t < taps; ++t) {
+    const T* v = col + toff[t];
+    const T wt = tw[t];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = acc[c] + v[c * P0] * wt;
+  }
+}
+
+// acc holds P(j), from the box. Adds P(q) for every other entry of the
+// product of j's per-axis fold lists (j itself is the first), the last axis
+// fastest, each P(q) = sum over the taps landing inside the array of
+// w_t g[q - off_t] from device memory: the nd route's code and order.
+template <typename T>
+__device__ __forceinline__ T fold_rest(T acc, int j0, int j1, int j2,
+                                       const NdTile& p, const T* gs,
+                                       const T* tw, const int* off,
+                                       const int* ptr, const int* pos) {
+  int b0 = -1, b1 = -1, b2 = -1, n0 = 1, n1 = 1, n2 = 1;
+  if (p.ptr_base[0] >= 0) {
+    b0 = ptr[p.ptr_base[0] + j0];
+    n0 = ptr[p.ptr_base[0] + j0 + 1] - b0;
+  }
+  if (p.ptr_base[1] >= 0) {
+    b1 = ptr[p.ptr_base[1] + j1];
+    n1 = ptr[p.ptr_base[1] + j1 + 1] - b1;
+  }
+  if (p.ptr_base[2] >= 0) {
+    b2 = ptr[p.ptr_base[2] + j2];
+    n2 = ptr[p.ptr_base[2] + j2 + 1] - b2;
+  }
+  if (n0 * n1 * n2 == 1) return acc;
+  for (int c0 = 0; c0 < n0; ++c0) {
+    const int q0 = b0 < 0 ? j0 : pos[b0 + c0];
+    for (int c1 = 0; c1 < n1; ++c1) {
+      const int q1 = b1 < 0 ? j1 : pos[b1 + c1];
+      for (int c2 = c0 == 0 && c1 == 0 ? 1 : 0; c2 < n2; ++c2) {
+        const int q2 = b2 < 0 ? j2 : pos[b2 + c2];
+        T part = T(0);
+        for (int t = 0; t < p.taps; ++t) {
+          const int i0 = q0 - off[3 * t], i1 = q1 - off[3 * t + 1],
+                    i2 = q2 - off[3 * t + 2];
+          if ((unsigned)i0 < (unsigned)p.n[0] &&
+              (unsigned)i1 < (unsigned)p.n[1] &&
+              (unsigned)i2 < (unsigned)p.n[2])
+            part = part + gs[i0 * p.st[0] + i1 * p.st[1] + i2 * p.st[2]] *
+                              tw[t];
+        }
+        acc = acc + part;
+      }
+    }
+  }
+  return acc;
+}
+
+// K9T, tile route: block (batch, tile) stages its halo box and the taps,
+// then thread (y, x) computes outputs (c, y, x) of the tile, c < C. off
+// holds each tap's offset along the three tile axes (0 on a batch axis).
+// FOLD: some axis has fold lists (not constant mode). At most 4 blocks'
+// worth of registers per SM are asked for (64 registers a thread).
+template <typename T, int C, bool FOLD>
+__global__ void __launch_bounds__(ED_TILE_Y * ED_TILE_X, 4)
+correlate_nd_transpose_tile_kernel(const T* __restrict__ g,
+                                   T* __restrict__ out,
+                                   const T* __restrict__ w,
+                                   const int* __restrict__ off,
+                                   const int* __restrict__ ptr,
+                                   const int* __restrict__ pos,
+                                   const NdTile p) {
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  T* box = reinterpret_cast<T*>(ed_smem);
+  const int P1 = p.box[2], P0 = p.box[1] * p.box[2];
+  T* tw = box + p.box[0] * P0;
+  int* toff = reinterpret_cast<int*>(tw + p.taps);
+  // the block's tile (q0, q1, q2) and batch index, without 64-bit division
+  unsigned rest = blockIdx.x;
+  const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
+  unsigned bi = rest / per;
+  rest -= bi * per;
+  const int q2 = (int)(rest % (unsigned)p.tiles[2]);
+  rest /= (unsigned)p.tiles[2];
+  const int q1 = (int)(rest % (unsigned)p.tiles[1]);
+  const int q0 = (int)(rest / (unsigned)p.tiles[1]);
+  int64_t base = 0;
+#pragma unroll
+  for (int a = ED_FILTER_MAXR - 1; a >= 0; --a) {
+    if (a < p.nb) {
+      const unsigned e = bi % (unsigned)p.bn[a];
+      bi /= (unsigned)p.bn[a];
+      base += (int64_t)e * p.bst[a];
+    }
+  }
+  const T* gs = g + base;
+  const int s0 = q0 * C, s1 = q1 * ED_TILE_Y, s2 = q2 * ED_TILE_X;
+  const int tid = threadIdx.y * ED_TILE_X + threadIdx.x;
+  // output j reads g[j - off_t]: the box starts hi before the tile
+  stage_box(box, gs, p, s0 - p.hi[0], s1 - p.hi[1], s2 - p.hi[2],
+            (int)threadIdx.y, ED_TILE_Y, (int)threadIdx.x);
+  for (int t = tid; t < p.taps; t += ED_TILE_Y * ED_TILE_X) {
+    tw[t] = w[t];
+    toff[t] = (p.hi[0] - off[3 * t]) * P0 + (p.hi[1] - off[3 * t + 1]) * P1 +
+              (p.hi[2] - off[3 * t + 2]);
+  }
+  stage_wait();
+  __syncthreads();
+  T acc[C];
+  tap_column<T, C>(acc, box + threadIdx.y * P1 + threadIdx.x, P0, tw, toff,
+                   p.taps);
+  const int j1 = s1 + threadIdx.y, j2 = s2 + threadIdx.x;
+  if (j1 >= p.n[1] || j2 >= p.n[2]) return;
+  T* os = out + base + j1 * p.st[1] + j2 * p.st[2];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j0 = s0 + c;
+    if (j0 < p.n[0]) {
+      T v = acc[c];
+      if constexpr (FOLD)
+        v = fold_rest(v, j0, j1, j2, p, gs, tw, off, ptr, pos);
+      os[j0 * p.st[0]] = v;
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch_line(const void* x, void* out, const void* w,
                         const Line& p, cudaStream_t s) {
@@ -408,6 +620,61 @@ cudaError_t launch_nd(bool transpose, const void* x, void* out, const void* w,
         static_cast<const T*>(x), static_cast<T*>(out),
         static_cast<const T*>(w), off, delta, p);
   return cudaGetLastError();
+}
+
+// the shared memory a block may use on the H100 (227 KB)
+constexpr int kSmemLimit = 232448;
+
+template <typename T, int C, bool FOLD>
+cudaError_t launch_nd_tile_c(const void* g, void* out, const void* w,
+                             const int* off, const int* ptr, const int* pos,
+                             const NdTile& p, int smem, unsigned blocks,
+                             cudaStream_t s) {
+  auto kern = correlate_nd_transpose_tile_kernel<T, C, FOLD>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch is refused unless the kernel asks for it
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<blocks, dim3(ED_TILE_X, ED_TILE_Y), (size_t)smem, s>>>(
+      static_cast<const T*>(g), static_cast<T*>(out),
+      static_cast<const T*>(w), off, ptr, pos, p);
+  return cudaGetLastError();
+}
+
+template <typename T, bool FOLD>
+cudaError_t launch_nd_tile_f(int column, const void* g, void* out,
+                             const void* w, const int* off, const int* ptr,
+                             const int* pos, const NdTile& p, int smem,
+                             unsigned blocks, cudaStream_t s) {
+  switch (column) {
+    case 1:
+      return launch_nd_tile_c<T, 1, FOLD>(g, out, w, off, ptr, pos, p, smem,
+                                          blocks, s);
+    case 2:
+      return launch_nd_tile_c<T, 2, FOLD>(g, out, w, off, ptr, pos, p, smem,
+                                          blocks, s);
+    case 4:
+      return launch_nd_tile_c<T, 4, FOLD>(g, out, w, off, ptr, pos, p, smem,
+                                          blocks, s);
+    case 8:
+      return launch_nd_tile_c<T, 8, FOLD>(g, out, w, off, ptr, pos, p, smem,
+                                          blocks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_nd_tile(bool fold, int column, const void* g, void* out,
+                           const void* w, const int* off, const int* ptr,
+                           const int* pos, const NdTile& p, int smem,
+                           unsigned blocks, cudaStream_t s) {
+  return fold ? launch_nd_tile_f<T, true>(column, g, out, w, off, ptr, pos,
+                                          p, smem, blocks, s)
+              : launch_nd_tile_f<T, false>(column, g, out, w, off, ptr, pos,
+                                           p, smem, blocks, s);
 }
 
 Line make_line(long long outer, long long n, long long inner, int taps,
@@ -505,6 +772,71 @@ int ed_correlate_nd(int dtype, int transpose, const void* x, void* out,
       : dtype == 1
           ? launch_nd<double>(transpose != 0, x, out, w, of, de, pt, ps, p, s)
           : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K9T on the tile route, with the plan of ops/filters.py:_nd_transpose_plan.
+// Host arrays: per tile axis (3) its extent n3, element stride st3, kernel
+// extent k3, greatest tap offset hi3 and fold-list base ptr_base3 (-1 the
+// identity); the nb batch axes the grid walks, extents bn and strides bst.
+// Device arrays: w[taps], off[taps * 3] (each tap's offset along the tile
+// axes), the fold lists ptr / pos. column: C, the outputs a thread keeps
+// along tile axis 0 (1, 2, 4 or 8); smem: the plan's shared bytes, at least
+// the box and the taps; blocks: the tiles times the batch. A plan that does
+// not fit the shapes (a sample past int32, more blocks than a grid takes, a
+// box past smem) is refused with cudaErrorInvalidValue. g and out must not
+// overlap. Returns cudaGetLastError().
+int ed_correlate_nd_transpose_tile(
+    int dtype, const void* g, void* out, const void* w, const void* off,
+    const void* ptr, const void* pos, const int* n3, const long long* st3,
+    const int* k3, const int* hi3, const int* ptr_base3, int nb,
+    const long long* bn, const long long* bst, int taps, int column,
+    int smem, long long blocks, void* stream) {
+  const int tile[3] = {column, ED_TILE_Y, ED_TILE_X};
+  const int itemsize = dtype == 0 ? 4 : dtype == 1 ? 8 : 0;
+  if (itemsize == 0 || taps < 1 || nb < 0 || nb > ED_FILTER_MAXR ||
+      (column != 1 && column != 2 && column != 4 && column != 8))
+    return (int)cudaErrorInvalidValue;
+  NdTile p;
+  p.taps = taps;
+  p.nb = nb;
+  int64_t span = 0, count = 1, box = 1;
+  bool fold = false;
+  for (int d = 0; d < 3; ++d) {
+    if (n3[d] < 1 || st3[d] < 0 || k3[d] < 1 || hi3[d] < 0 ||
+        hi3[d] >= k3[d])
+      return (int)cudaErrorInvalidValue;
+    p.n[d] = n3[d];
+    p.st[d] = n3[d] > 1 ? (int)st3[d] : 0;  // (within int32: span below)
+    p.hi[d] = hi3[d];
+    p.box[d] = tile[d] + k3[d] - 1;
+    p.tiles[d] = (n3[d] + tile[d] - 1) / tile[d];
+    p.ptr_base[d] = ptr_base3[d];
+    fold = fold || ptr_base3[d] >= 0;
+    span += (int64_t)(n3[d] - 1) * st3[d];
+    count *= p.tiles[d];
+    box *= p.box[d];
+  }
+  for (int a = 0; a < ED_FILTER_MAXR; ++a) {
+    p.bn[a] = a < nb ? (int)bn[a] : 1;
+    p.bst[a] = a < nb ? bst[a] : 0;
+    if (a < nb && (bn[a] < 1 || bn[a] > INT32_MAX))
+      return (int)cudaErrorInvalidValue;
+    count *= p.bn[a];
+  }
+  const int64_t need = box * itemsize + (int64_t)taps * (itemsize + 4);
+  if (span > INT32_MAX || count != blocks || blocks > INT32_MAX ||
+      smem < need || smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* of = static_cast<const int*>(off);
+  const int* pt = static_cast<const int*>(ptr);
+  const int* ps = static_cast<const int*>(pos);
+  cudaError_t err =
+      dtype == 0 ? launch_nd_tile<float>(fold, column, g, out, w, of, pt, ps,
+                                         p, smem, (unsigned)blocks, s)
+                 : launch_nd_tile<double>(fold, column, g, out, w, of, pt, ps,
+                                          p, smem, (unsigned)blocks, s);
   return (int)err;
 }
 

@@ -1,7 +1,7 @@
 // K2 spline_prefilter: the B-spline prefilter (sample values -> spline
-// coefficients) along one axis, as the causal / anti-causal recursion,
-// one thread per line; and K4 spline_prefilter_transpose, its exact
-// transpose for the gradient, on the routes described below.
+// coefficients) along one axis, as the causal / anti-causal recursion;
+// and K4 spline_prefilter_transpose, its exact transpose for the gradient;
+// both on the routes described below.
 //
 // Replaces the JAX package's prefilter stage:
 // elasticdeform_tpu/ops/prefilter.py:333 spline_filter1d, which applies a
@@ -16,15 +16,13 @@
 // with the float64 filter matrix).
 //
 // The tensor is viewed as (outer, n, inner) with the filtered axis in the
-// middle; thread (o, i) filters line o*n*inner + k*inner + i, k = 0..n-1.
-// Neighbouring threads take neighbouring i, so their accesses coalesce
-// when inner >= 32. Known limit: when the filtered axis is innermost
-// (inner == 1) every access of a warp touches a different line, and the
-// kernel is uncoalesced; a transposed tile in shared memory would fix it.
+// middle; line (o, i) is o*n*inner + k*inner + i, k = 0..n-1. The stages
+// (k2_stages: the gain, the poles, the integer writeback) run on a line in
+// shared memory on the tile route, in device memory on the lines route.
 //
 // Bound on the H100: bytes, 2 * numel * sizeof(T) (each element read once
 // and written once) over 3.35 TB/s. The recursion touches each element
-// about 2 + 4 * npoles times; the passes of one line stay in L1/L2.
+// about 2 + 4 * npoles times, in shared memory on the tile route.
 //
 // K4 replaces the JAX package's transpose prefilter:
 // elasticdeform_tpu/ops/prefilter.py:376 spline_filter1d_transpose (the
@@ -55,11 +53,12 @@
 // stage's transpose in reverse, as K4 does: row 0's (row n-1's) cotangent
 // spreads over the line with the same coefficients. Plain twins:
 // ops/prefilter.py spline_filter1d_bc_plain / _transpose_plain (tensordot
-// with filter_matrix_bc(n, order, bc) or its transpose). Bound as for K2;
-// K6 has K2's line mapping and its innermost-axis limit, K7 K4's routes.
+// with filter_matrix_bc(n, order, bc) or its transpose). Bound as for K2.
+// K6 runs one thread per line in device memory, uncoalesced when the
+// filtered axis is innermost (inner == 1); K7 takes K4's routes.
 //
-// K4 and K7 take one of two routes, picked on the host by
-// ops/prefilter.py:_transpose_plan from (outer, n, inner, dtype):
+// K2, K4 and K7 take one of two routes, picked on the host by
+// ops/prefilter.py:_tile_plan from (outer, n, inner, dtype):
 //
 // * tile (every line that fits): a block stages W whole lines (W = 32, 64
 //   or 128) in shared memory, runs the recursion there with thread w on
@@ -77,7 +76,9 @@
 //   every axis. The loads are cp.async copies straight into shared memory,
 //   all of a thread's in flight at once. The last tile of a row of outers
 //   may be partial and is guarded. The stages are the lines route's, word
-//   for word, so with --fmad=false the two routes agree bit for bit. The
+//   for word (K2: the gain, the stages and the writeback in shared memory,
+//   then a raw store; K4 and K7: the stages, then a store with the gain),
+//   so with --fmad=false the two routes agree bit for bit. The
 //   host picks W so that the blocks fill the fewest rounds of the card's
 //   SMs: a block's load, recursion and store run in turn, and several
 //   blocks on an SM overlap them.
@@ -95,11 +96,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 #define ED_MAXPOLES 2
 
 namespace {
 
 enum { BC_REFLECT = 1, BC_WRAP = 2 };
+// the tile kernel's stage sets: K4, K7 (BC_REFLECT, BC_WRAP) and K2
+enum { TILE_K4 = 0, TILE_K2 = 3 };
 
 struct Params {
   int64_t outer, n, inner;
@@ -118,71 +123,6 @@ template <typename T>
 __device__ __forceinline__ T cast_int_c(T v, T lo, T span) {
   const T tr = trunc(v);
   return tr - floor((tr - lo) / span) * span;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-prefilter_kernel(const T* __restrict__ in, T* __restrict__ out,
-                 const Params p) {
-  const int64_t line = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (line >= p.outer * p.inner) return;
-  const int64_t o = line / p.inner;
-  const int64_t i = line - o * p.inner;
-  const int64_t n = p.n;
-  const int64_t s = p.inner;
-  const T* src = in + o * n * s + i;
-  T* x = out + o * n * s + i;
-
-  if (n <= 1 || p.npoles == 0) {
-    for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
-  } else {
-    const T gain = T(p.gain);
-    for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s] * gain;
-    for (int q = 0; q < p.npoles; ++q) {
-      const T z = T(p.pole[q]);
-      // causal initialisation, mirror boundary
-      if (p.horizon[q] < n) {
-        T zn = z;
-        T acc = x[0];
-        for (int k = 1; k < p.horizon[q]; ++k) {
-          acc = acc + zn * x[k * s];
-          zn = zn * z;
-        }
-        x[0] = acc;
-      } else {
-        T zn = z;
-        const T iz = T(1) / z;
-        T z2n = T(p.pn1[q]);
-        T acc = x[0] + z2n * x[(n - 1) * s];
-        z2n = z2n * (z2n * iz);
-        for (int64_t k = 1; k < n - 1; ++k) {
-          acc = acc + (zn + z2n) * x[k * s];
-          zn = zn * z;
-          z2n = z2n * iz;
-        }
-        x[0] = acc / T(p.denom[q]);
-      }
-      // causal pass
-      T prev = x[0];
-      for (int64_t k = 1; k < n; ++k) {
-        prev = x[k * s] + z * prev;
-        x[k * s] = prev;
-      }
-      // anti-causal initialisation and pass
-      prev = T(p.pole[q] / (p.pole[q] * p.pole[q] - 1.0)) *
-             (prev + z * x[(n - 2) * s]);
-      x[(n - 1) * s] = prev;
-      for (int64_t k = n - 2; k >= 0; --k) {
-        prev = z * (prev - x[k * s]);
-        x[k * s] = prev;
-      }
-    }
-  }
-  if (p.int_bits > 0) {
-    const T lo = T(p.int_lo);
-    const T span = T(ldexp(1.0, p.int_bits));
-    for (int64_t k = 0; k < n; ++k) x[k * s] = cast_int_c(x[k * s], lo, span);
-  }
 }
 
 // The transposed passes and spreads of K4 and K7. Each loop loads kChunk
@@ -295,6 +235,168 @@ __device__ __forceinline__ void reflect_pairs(T* x, const I n, const I s,
     x[(n - 1 - i) * s] = x[(n - 1 - i) * s] + zn * zi * t;
     zi = zi * z;
   }
+}
+
+// The forward passes of K2, on one line at stride s. Each loop loads
+// kChunk elements ahead of its chain, as the transposed passes above do;
+// every element sees the same operations in the same order as a loop of
+// one step at a time.
+
+// The truncated causal initialisation: x[0] + sum_{k=1}^{h-1} z^k x[k].
+template <typename T, typename I>
+__device__ __forceinline__ T causal_init_sum(const T* x, const I h, const I s,
+                                             const T z) {
+  T zn = z;
+  T acc = x[0];
+  I k = 1;
+  for (; k + kChunk <= h; k += kChunk) {
+    T a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = x[(k + j) * s];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      acc = acc + zn * a[j];
+      zn = zn * z;
+    }
+  }
+  for (; k < h; ++k) {
+    acc = acc + zn * x[k * s];
+    zn = zn * z;
+  }
+  return acc;
+}
+
+// The full mirror initialisation over the line, before the division by
+// 1 - p^(2n-2): x[0] + p^(n-1) x[n-1] + sum_{k=1}^{n-2} (p^k + p^(2n-2-k))
+// x[k], with p^(2n-2-k) carried down from pn1 = p^(n-1) by 1/p.
+template <typename T, typename I>
+__device__ __forceinline__ T causal_init_mirror(const T* x, const I n,
+                                                const I s, const T z,
+                                                const T pn1) {
+  T zn = z;
+  const T iz = T(1) / z;
+  T z2n = pn1;
+  T acc = x[0] + z2n * x[(n - 1) * s];
+  z2n = z2n * (z2n * iz);
+  I k = 1;
+  for (; k + kChunk <= n - 1; k += kChunk) {
+    T a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = x[(k + j) * s];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      acc = acc + (zn + z2n) * a[j];
+      zn = zn * z;
+      z2n = z2n * iz;
+    }
+  }
+  for (; k < n - 1; ++k) {
+    acc = acc + (zn + z2n) * x[k * s];
+    zn = zn * z;
+    z2n = z2n * iz;
+  }
+  return acc;
+}
+
+// The causal pass x[k] = x[k] + z * x[k-1], k = 1 .. n-1; returns x[n-1].
+template <typename T, typename I>
+__device__ __forceinline__ T causal_f(T* x, const I n, const I s,
+                                      const T z) {
+  T prev = x[0];
+  I k = 1;
+  for (; k + kChunk <= n; k += kChunk) {
+    T a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = x[(k + j) * s];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      prev = a[j] + z * prev;
+      x[(k + j) * s] = prev;
+    }
+  }
+  for (; k < n; ++k) {
+    prev = x[k * s] + z * prev;
+    x[k * s] = prev;
+  }
+  return prev;
+}
+
+// The anti-causal pass x[k] = z * (x[k+1] - x[k]), k = n-2 .. 0, from
+// prev = x[n-1].
+template <typename T, typename I>
+__device__ __forceinline__ void anticausal_f(T* x, const I n, const I s,
+                                             const T z, T prev) {
+  I k = n - 2;
+  for (; k >= kChunk - 1; k -= kChunk) {
+    T a[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) a[j] = x[(k - j) * s];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      prev = z * (prev - a[j]);
+      x[(k - j) * s] = prev;
+    }
+  }
+  for (; k >= 0; --k) {
+    prev = z * (prev - x[k * s]);
+    x[k * s] = prev;
+  }
+}
+
+// K2's stages on a line already copied in raw: the gain; per pole the
+// causal initialisation (the truncated sum when the horizon is shorter
+// than the line, else the full mirror sum over 1 - p^(2n-2)), the causal
+// pass, the anti-causal initialisation x[n-1] = c (x[n-1] + p x[n-2]) and
+// pass; then, with int_bits > 0, the integer writeback. A line of n <= 1
+// (or no poles) is left as it is before the writeback. x is one line at
+// stride s: device memory on the lines route, a shared-memory tile on the
+// tile route.
+template <typename T, typename I>
+__device__ __forceinline__ void k2_stages(T* x, const I n, const I s,
+                                          const Params& p) {
+  if (n > 1 && p.npoles > 0) {
+    const T gain = T(p.gain);
+    for (I k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
+    // unrolled, as in k4_stages, so that no copy of Params stays on the
+    // stack
+#pragma unroll
+    for (int q = 0; q < ED_MAXPOLES; ++q) {
+      if (q >= p.npoles) continue;
+      const T z = T(p.pole[q]);
+      if (p.horizon[q] < n)
+        x[0] = causal_init_sum(x, I(p.horizon[q]), s, z);
+      else
+        x[0] = causal_init_mirror(x, n, s, z, T(p.pn1[q])) / T(p.denom[q]);
+      T prev = causal_f(x, n, s, z);
+      prev = T(p.pole[q] / (p.pole[q] * p.pole[q] - 1.0)) *
+             (prev + z * x[(n - 2) * s]);
+      x[(n - 1) * s] = prev;
+      anticausal_f(x, n, s, z, prev);
+    }
+  }
+  if (p.int_bits > 0) {
+    const T lo = T(p.int_lo);
+    const T span = T(ldexp(1.0, p.int_bits));
+    for (I k = 0; k < n; ++k) x[k * s] = cast_int_c(x[k * s], lo, span);
+  }
+}
+
+// K2, lines route: one thread per line in device memory.
+template <typename T>
+__global__ void __launch_bounds__(256)
+prefilter_kernel(const T* __restrict__ in, T* __restrict__ out,
+                 const Params p) {
+  const int64_t line = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (line >= p.outer * p.inner) return;
+  const int64_t o = line / p.inner;
+  const int64_t i = line - o * p.inner;
+  const int64_t n = p.n;
+  const int64_t s = p.inner;
+  const T* src = in + o * n * s + i;
+  T* x = out + o * n * s + i;
+
+  for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
+  k2_stages<T, int64_t>(x, n, s, p);
 }
 
 // K4's stages after the copy: the exact transpose of prefilter_kernel's
@@ -495,7 +597,7 @@ prefilter_bc_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
   for (int64_t k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
 }
 
-// The tile route's geometry (ops/prefilter.py:_transpose_plan).
+// The tile route's geometry (ops/prefilter.py:_tile_plan).
 struct Tile {
   int packed;     // 1: inner < W, a tile is whole outers, one run of memory
   int lines;      // lines of a full tile: W, or inner * floor(W / inner)
@@ -507,25 +609,6 @@ struct Tile {
   // + dr elements, as (outer, offset in its run) with a carry
   int dol, dr;
 };
-
-// one element from device memory into shared memory, asynchronously
-template <typename T>
-__device__ __forceinline__ void stage_async(T* dst, const T* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(sizeof(T))
-               : "memory");
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void stage_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
 
 // Calls f(global offset from base, shared offset) for each element of a
 // packed tile that thread w moves: elements w, w + W, ... of the run of
@@ -546,20 +629,24 @@ __device__ __forceinline__ void packed_walk(const Tile& t, int run,
   }
 }
 
-// K4 (KIND 0) and K7 (KIND BC_REFLECT or BC_WRAP), tile route: stage W
-// lines in shared memory, run the stages there, store them with the gain.
-// At most 1024 / W blocks' worth of registers per SM are asked for (64
-// registers a thread), so that shared memory, not registers, limits how
-// many blocks share an SM at the main path's line lengths.
+// K2 (KIND TILE_K2), K4 (TILE_K4) and K7 (BC_REFLECT or BC_WRAP), tile
+// route: stage W lines in shared memory, run the stages there and store
+// them: K2 raw (k2_stages applies the gain first and the writeback last),
+// K4 and K7 with the gain. At most 1024 / W blocks' worth of registers per
+// SM are asked for (64 registers a thread), so that shared memory, not
+// registers, limits how many blocks share an SM at the main path's line
+// lengths.
 template <typename T, int W, int KIND>
 __global__ void __launch_bounds__(W, 1024 / W)
-prefilter_transpose_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                const Params p, const Tile t) {
+prefilter_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
+                      const Params p, const Tile t) {
   extern __shared__ __align__(16) unsigned char ed_smem[];
   T* tile = reinterpret_cast<T*>(ed_smem);
   const int n = (int)p.n;
   const int w = threadIdx.x;
-  const bool filter = n > 1 && p.npoles > 0;
+  // K4 and K7 filter, then scale by the gain on the store; K2's stages do
+  // both themselves
+  const bool filter = n > 1 && p.npoles > 0 && KIND != TILE_K2;
   const T gain = T(p.gain);
   // packed: the run of `outers` whole outers from offset `first`; column:
   // line w of the tile's `width` lines starts at offset `first`
@@ -592,11 +679,13 @@ prefilter_transpose_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
   stage_wait();
   __syncthreads();
-  if (filter && w < width) {
+  if ((filter || KIND == TILE_K2) && w < width) {
     // line w: element k at x[k * s]
     T* x = t.packed ? tile + (w / inner) * t.stride + w % inner : tile + w;
     const int s = t.packed ? inner : t.stride;
-    if constexpr (KIND == 0)
+    if constexpr (KIND == TILE_K2)
+      k2_stages<T, int>(x, n, s, p);
+    else if constexpr (KIND == TILE_K4)
       k4_stages<T, int>(x, n, s, p);
     else
       k7_stages<T, KIND, int>(x, n, s, p);
@@ -672,7 +761,7 @@ template <typename T, int W, int KIND>
 cudaError_t launch_tile_w(const void* in, void* out, const Params& p,
                           const Tile& t, int smem, int64_t blocks,
                           cudaStream_t stream, int* occupancy) {
-  auto kern = prefilter_transpose_tile_kernel<T, W, KIND>;
+  auto kern = prefilter_tile_kernel<T, W, KIND>;
   if (smem > 48 * 1024 || occupancy) {
     // above 48 KB a launch is refused unless the kernel asks for it
     const cudaError_t err = cudaFuncSetAttribute(
@@ -705,8 +794,12 @@ template <typename T>
 cudaError_t launch_tile_t(int kind, int width, const void* in, void* out,
                           const Params& p, const Tile& t, int smem,
                           int64_t blocks, cudaStream_t s, int* occ) {
-  if (kind == 0)
-    return launch_tile_k<T, 0>(width, in, out, p, t, smem, blocks, s, occ);
+  if (kind == TILE_K4)
+    return launch_tile_k<T, TILE_K4>(width, in, out, p, t, smem, blocks, s,
+                                     occ);
+  if (kind == TILE_K2)
+    return launch_tile_k<T, TILE_K2>(width, in, out, p, t, smem, blocks, s,
+                                     occ);
   if (kind == BC_REFLECT)
     return launch_tile_k<T, BC_REFLECT>(width, in, out, p, t, smem, blocks,
                                         s, occ);
@@ -843,26 +936,29 @@ int ed_spline_prefilter_bc(int dtype, int bc, int transpose, const void* in,
   return (int)err;
 }
 
-// K4 (kind 0, the mirror terms given) and K7 (kind 1 reflect, 2 wrap;
-// horizons, pn1 and denom null) on the tile route, with the plan of
-// ops/prefilter.py:_transpose_plan: width W threads and lines a block,
-// packed (inner < W), lines per full tile, shared row stride, shared
-// bytes, blocks. A plan that does not fit the shape is refused with
-// cudaErrorInvalidValue. in and out must not overlap. Returns
-// cudaGetLastError().
-int ed_spline_prefilter_transpose_tile(
+// K2 (kind 3, the mirror terms given, int_bits / int_lo as for
+// ed_spline_prefilter), K4 (kind 0, the mirror terms given) and K7 (kind 1
+// reflect, 2 wrap; horizons, pn1 and denom null) on the tile route, with
+// the plan of ops/prefilter.py:_tile_plan: width W threads and lines a
+// block, packed (inner < W), lines per full tile, shared row stride, shared
+// bytes, blocks. A plan that does not fit the shape, or a writeback asked
+// of K4 or K7, is refused with cudaErrorInvalidValue. in and out must not
+// overlap. Returns cudaGetLastError().
+int ed_spline_prefilter_tile(
     int dtype, int kind, const void* in, void* out, long long outer,
     long long n, long long inner, int npoles, const double* poles,
     const int* horizons, const double* pn1, const double* denom, double gain,
-    int width, int packed, int lines, int stride, int smem, long long blocks,
-    void* stream) {
+    int int_bits, double int_lo, int width, int packed, int lines,
+    int stride, int smem, long long blocks, void* stream) {
   if (outer * inner == 0 || n == 0) return (int)cudaSuccess;
   Params p;
   Tile t;
   const int itemsize = dtype == 0 ? 4 : 8;
-  if ((kind == 0 && (!horizons || !pn1 || !denom)) ||
+  const bool mirror = kind == TILE_K4 || kind == TILE_K2;
+  if ((mirror && (!horizons || !pn1 || !denom)) ||
+      (kind != TILE_K2 && int_bits != 0) ||
       !make_params(&p, outer, n, inner, npoles, poles, horizons, pn1, denom,
-                   gain, 0, 0.0) ||
+                   gain, int_bits, int_lo) ||
       !make_tile(&t, itemsize, outer, n, inner, width, packed, lines, stride,
                  smem, blocks))
     return (int)cudaErrorInvalidValue;
@@ -870,9 +966,10 @@ int ed_spline_prefilter_transpose_tile(
                           static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// Blocks of the tile kernel (dtype, kind, width) that one SM holds at smem
-// bytes of shared memory each (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
-// a negative CUDA error code on failure.
+// Blocks of the tile kernel (dtype, kind as for ed_spline_prefilter_tile,
+// width) that one SM holds at smem bytes of shared memory each
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a negative CUDA error
+// code on failure.
 int ed_prefilter_tile_blocks_per_sm(int dtype, int kind, int width,
                                     int smem) {
   Params p{};

@@ -19,11 +19,16 @@ correlation a stack of such matrices; here they are stencils:
   same for an N-D kernel, over its nonzero taps in raster order, with the
   fold on every axis. Axes where the kernel has extent 1 are batch axes;
   runs of them are merged before the launch, and the kernels take at most
-  :data:`MAX_ND_AXES` axes after that.
+  :data:`MAX_ND_AXES` axes after that. K9T takes one of two routes, which
+  :func:`_nd_transpose_plan` picks from the shapes: ``"tile"`` stages each
+  block's halo box of the cotangent in shared memory (at most three axes
+  where the kernel has extent > 1), ``"nd"`` runs one thread per output in
+  device memory (everything else).
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches its kernel (contiguous float32 or float64) or raises, and adds one
-to its ``.launches`` counter. :class:`Correlate1d` and :class:`CorrelateNd`
+to its ``.launches`` counter (K9T also to its route's count in
+``.routes``). :class:`Correlate1d` and :class:`CorrelateNd`
 are the autograd functions (gradient to ``x`` only: the taps and ``cval``
 are host constants, as in the JAX package). The ``apply_*`` functions are
 the JAX package's, on tensors; the numpy helpers (kernels, folds, dense
@@ -34,13 +39,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from elasticdeform_tpu_torch.ops import _build
-from elasticdeform_tpu_torch.ops.prefilter import _lines
+from elasticdeform_tpu_torch.ops.prefilter import SMEM_LIMIT, _lines
 from elasticdeform_tpu_torch.ops.resample import check_kernel_tensor
 
 # K9 and K9T's fixed limit on the axes left after merging batch axes
@@ -393,6 +400,11 @@ def _lib():
                        ctypes.POINTER(ll), ctypes.POINTER(i),
                        ctypes.POINTER(i), ctypes.POINTER(i), i, i,
                        ctypes.c_double, vp]
+        fn = lib.ed_correlate_nd_transpose_tile
+        fn.restype = i
+        pi, pl = ctypes.POINTER(i), ctypes.POINTER(ll)
+        fn.argtypes = [i, vp, vp, vp, vp, vp, vp, pi, pl, pi, pi, pi, i, pl,
+                       pl, i, i, i, ll, vp]
     return lib
 
 
@@ -488,12 +500,11 @@ def nd_geometry(shape, kshape):
 
 
 def _launch_nd(x: torch.Tensor, weights, centers, mode: str, cval,
-               wrapper) -> torch.Tensor:
-    """K9 (``wrapper`` :func:`correlate_nd`) or K9T
-    (:func:`correlate_nd_transpose`), whose counter it adds one to when it
-    launches."""
-    transpose = wrapper is correlate_nd_transpose
-    what = wrapper.__name__
+               transpose: bool):
+    """K9, or with ``transpose`` K9T on its nd route; None, with no launch,
+    for an empty tensor or an all-zero kernel. Counts nothing (the public
+    wrappers count)."""
+    what = "correlate_nd_transpose" if transpose else "correlate_nd"
     check_kernel_tensor(x, what)
     w = np.asarray(weights, dtype=np.float64)
     merged, group, batch = nd_geometry(x.shape, w.shape)
@@ -503,10 +514,10 @@ def _launch_nd(x: torch.Tensor, weights, centers, mode: str, cval,
             f"{what}: after merging the axes where the kernel has extent 1 "
             f"the correlation has {rank} axes; the CUDA kernel takes at most "
             f"{MAX_ND_AXES}")
-    out = torch.empty_like(x)
     taps = _nd_taps(w)
     if x.numel() == 0 or not taps:
-        return out.zero_()
+        return None
+    out = torch.empty_like(x)
     off = np.zeros((len(taps), rank), dtype=np.int32)
     for t, tap in enumerate(taps):
         for d, k in enumerate(tap):
@@ -544,7 +555,178 @@ def _launch_nd(x: torch.Tensor, weights, centers, mode: str, cval,
         (i * rank)(*hi.tolist()), (i * rank)(*ptr_base), len(taps),
         _MODE_CODES[mode], float(cval), _stream(x))
     _build.check(err, lib, "ed_filters_error_string", what)
-    wrapper.launches += 1
+    return out
+
+
+# K9T's tile route (csrc/filters.cu): a block of 8 x 32 threads, each with
+# a column of C outputs along tile axis 0, C one of TILE_COLUMNS
+ND_TILE = (8, 32)
+TILE_COLUMNS = (8, 4, 2, 1)
+# the column a plan takes where tile axis 0 is long enough and the box
+# fits: the fastest of TILE_COLUMNS at c14's shapes on an H100
+# (chip_smoke.py, phase 4)
+ND_COLUMN = 8
+
+
+class NdPlan(NamedTuple):
+    """How K9T runs on a tensor of ``shape`` with a kernel of ``kshape``:
+    ``route`` ``"tile"`` or ``"nd"``. For a tile: the merged axis (of
+    :func:`nd_geometry`) on each of the three tile axes, -1 for an extent
+    of 1 (the kernel's axes, and for fewer than three the innermost batch
+    axes, in memory order); the batch axes the grid walks; the ``column``
+    C of outputs a thread keeps along tile axis 0; the halo ``box`` (the
+    tile ``(C, 8, 32)`` grown by the kernel's extent - 1); ``smem``, the
+    shared bytes of the box and of ``prod(kshape)`` taps; ``blocks``, the
+    tiles times the walked batch."""
+    route: str
+    tile_axes: tuple = ()
+    grid_axes: tuple = ()
+    column: int = 0
+    box: tuple = ()
+    smem: int = 0
+    blocks: int = 0
+
+
+def _contiguous_strides(shape):
+    return [math.prod(shape[d + 1:]) for d in range(len(shape))]
+
+
+@functools.lru_cache(maxsize=1024)
+def _nd_transpose_plan(shape, kshape, dtype, column=None, route=None,
+                       finite: bool = True) -> NdPlan:
+    """The launch of K9T on a ``dtype`` tensor of ``shape`` with a kernel
+    of ``kshape``: the tile route when the kernel has extent > 1 on one to
+    three axes, a tile's box fits :data:`SMEM_LIMIT`, a sample's tile axes
+    span fewer than 2^31 elements, the grid fewer than 2^31 blocks and the
+    weights are ``finite`` (a staged zero times an infinite weight would be
+    NaN where the nd route adds no term); else the nd route. The column is
+    :data:`ND_COLUMN`, less where tile axis 0 is shorter (the next power of
+    two) or has extent 1 (1), and halved until the box fits. ``column``
+    and ``route`` force a choice (``chip_smoke.py`` times every column);
+    a forced tile that does not fit raises ValueError. Cached: the wrapper
+    asks for a plan at every launch."""
+    if route == "nd":
+        return NdPlan("nd")
+    if route not in (None, "tile"):
+        raise ValueError(f"route must be 'tile' or 'nd', got {route!r}")
+    if column is not None and column not in TILE_COLUMNS:
+        raise ValueError(f"column must be one of {TILE_COLUMNS}, got "
+                         f"{column}")
+
+    def refuse(why):
+        if route == "tile":
+            raise ValueError(f"K9T's tile route does not take {why}")
+        return NdPlan("nd")
+
+    shape, kshape = tuple(int(n) for n in shape), tuple(int(k)
+                                                       for k in kshape)
+    merged, group, batch = nd_geometry(shape, kshape)
+    spatial = [d for d, b in enumerate(batch) if not b]
+    if not finite:
+        return refuse("non-finite weights")
+    if not 1 <= len(spatial) <= 3:
+        return refuse(f"a kernel with extent > 1 on {len(spatial)} axes")
+    extra = [d for d, b in enumerate(batch) if b][::-1][:3 - len(spatial)]
+    axes = sorted(spatial + extra)
+    tile_axes = (-1,) * (3 - len(axes)) + tuple(axes)
+    grid_axes = tuple(d for d in range(len(merged)) if d not in axes)
+    strides = _contiguous_strides(merged)
+    n3 = [merged[a] if a >= 0 else 1 for a in tile_axes]
+    k3 = [1 if a < 0 or batch[a] else kshape[group.index(a)]
+          for a in tile_axes]
+    if sum((n - 1) * strides[a] for n, a in zip(n3, tile_axes)
+           if a >= 0) >= 2 ** 31:
+        return refuse("a sample of 2^31 elements or more")
+    item = 4 if dtype == torch.float32 else 8
+    taps = math.prod(kshape)
+    if column is None:
+        want = 1 if n3[0] <= 1 else min(ND_COLUMN,
+                                         1 << (n3[0] - 1).bit_length())
+        columns = [c for c in TILE_COLUMNS if c <= want]
+    else:
+        columns = [column]
+    for c in columns:
+        box = (c + k3[0] - 1, ND_TILE[0] + k3[1] - 1, ND_TILE[1] + k3[2] - 1)
+        smem = math.prod(box) * item + taps * (item + 4)
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        return refuse(f"a box and {taps} taps over {SMEM_LIMIT} bytes")
+    tiles = (-(-n3[0] // c), -(-n3[1] // ND_TILE[0]),
+             -(-n3[2] // ND_TILE[1]))
+    blocks = math.prod(tiles) * math.prod(merged[a] for a in grid_axes)
+    if blocks >= 2 ** 31:
+        return refuse(f"{blocks} blocks")
+    return NdPlan("tile", tile_axes, grid_axes, c, box, smem, blocks)
+
+
+@functools.lru_cache(maxsize=16)
+def _nd_tile_tables(wkey, kshape, centers, mode, shape, plan, device, dtype):
+    """K9T's tile-route arguments for ``plan``, built and uploaded once per
+    kernel, shapes and device: the taps' weights and offsets along the
+    three tile axes and the fold lists on ``device``, and the host arrays
+    of ``ed_correlate_nd_transpose_tile``."""
+    w = np.frombuffer(wkey, dtype=np.float64).reshape(kshape)
+    taps = _nd_taps(w)
+    merged, group, batch = nd_geometry(shape, kshape)
+    strides = _contiguous_strides(merged)
+    off = np.zeros((len(taps), 3), dtype=np.int32)
+    n3, st3, k3, hi3, base3 = [1] * 3, [0] * 3, [1] * 3, [0] * 3, [-1] * 3
+    ptrs, poss = [np.zeros(1, np.int32)], [np.zeros(1, np.int32)]
+    for a, d in enumerate(plan.tile_axes):
+        if d < 0:
+            continue
+        n3[a], st3[a] = merged[d], strides[d]
+        if batch[d]:
+            continue
+        ax = group.index(d)
+        k, c = kshape[ax], int(centers[ax])
+        k3[a], hi3[a] = k, k - 1 - c
+        off[:, a] = [int(t[ax]) - c for t in taps]
+        if mode != "constant":
+            ptr, pos = fold_lists(merged[d], c, k - 1 - c, mode)
+            base3[a] = sum(len(p) for p in ptrs)
+            ptrs.append(ptr + sum(len(p) for p in poss))
+            poss.append(pos)
+    i, ll = ctypes.c_int, ctypes.c_longlong
+    nb = len(plan.grid_axes)
+    host = ((i * 3)(*n3), (ll * 3)(*st3), (i * 3)(*k3), (i * 3)(*hi3),
+            (i * 3)(*base3), nb,
+            (ll * max(nb, 1))(*[merged[d] for d in plan.grid_axes]),
+            (ll * max(nb, 1))(*[strides[d] for d in plan.grid_axes]),
+            len(taps))
+
+    def up(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
+                                                           dtype=dt)
+    dev = (up(np.array([w[t] for t in taps]), dtype), up(off, torch.int32),
+           up(np.concatenate(ptrs), torch.int32),
+           up(np.concatenate(poss), torch.int32))
+    return dev, host
+
+
+def _launch_nd_transpose(g: torch.Tensor, weights, centers, mode: str,
+                         plan: NdPlan) -> torch.Tensor:
+    """K9T on a CUDA tensor on the route ``plan`` names; zeros, with no
+    launch, for an empty tensor or an all-zero kernel. Counts nothing (the
+    public wrapper counts)."""
+    what = "correlate_nd_transpose"
+    check_kernel_tensor(g, what)
+    w = np.ascontiguousarray(weights, dtype=np.float64)
+    if g.numel() == 0 or not w.any():
+        return torch.zeros_like(g)
+    if plan.route == "nd":
+        return _launch_nd(g, w, centers, mode, 0.0, True)
+    (w_d, off_d, ptr_d, pos_d), host = _nd_tile_tables(
+        w.tobytes(), w.shape, tuple(int(c) for c in centers), mode,
+        tuple(g.shape), plan, g.device, g.dtype)
+    out = torch.empty_like(g)
+    lib = _lib()
+    err = lib.ed_correlate_nd_transpose_tile(
+        _DTYPE_CODES[g.dtype], g.data_ptr(), out.data_ptr(), w_d.data_ptr(),
+        off_d.data_ptr(), ptr_d.data_ptr(), pos_d.data_ptr(), *host,
+        plan.column, plan.smem, plan.blocks, _stream(g))
+    _build.check(err, lib, "ed_filters_error_string", what)
     return out
 
 
@@ -557,7 +739,11 @@ def correlate_nd(x: torch.Tensor, weights, centers, mode: str,
     (an all-zero kernel or an empty tensor gives zeros with no launch)."""
     if x.device.type == "cpu":
         return correlate_nd_plain(x, weights, centers, mode, cval)
-    return _launch_nd(x, weights, centers, mode, cval, correlate_nd)
+    out = _launch_nd(x, weights, centers, mode, cval, False)
+    if out is None:
+        return torch.zeros_like(x)
+    correlate_nd.launches += 1
+    return out
 
 
 correlate_nd.launches = 0
@@ -566,14 +752,27 @@ correlate_nd.launches = 0
 def correlate_nd_transpose(g: torch.Tensor, weights, centers,
                            mode: str) -> torch.Tensor:
     """The exact transpose of :func:`correlate_nd`. A CPU tensor takes
-    :func:`correlate_nd_transpose_plain`; a CUDA tensor launches K9T and
-    adds one to ``correlate_nd_transpose.launches``."""
+    :func:`correlate_nd_transpose_plain`; a CUDA tensor launches K9T on
+    the route of :func:`_nd_transpose_plan` and adds one to
+    ``correlate_nd_transpose.launches`` and to its route's count in
+    ``correlate_nd_transpose.routes`` (an all-zero kernel or an empty
+    tensor gives zeros with no launch)."""
     if g.device.type == "cpu":
         return correlate_nd_transpose_plain(g, weights, centers, mode)
-    return _launch_nd(g, weights, centers, mode, 0.0, correlate_nd_transpose)
+    check_kernel_tensor(g, "correlate_nd_transpose")
+    w = np.asarray(weights, dtype=np.float64)
+    if g.numel() == 0 or not w.any():
+        return torch.zeros_like(g)
+    plan = _nd_transpose_plan(tuple(g.shape), w.shape, g.dtype,
+                              finite=bool(np.isfinite(w).all()))
+    out = _launch_nd_transpose(g, w, centers, mode, plan)
+    correlate_nd_transpose.launches += 1
+    correlate_nd_transpose.routes[plan.route] += 1
+    return out
 
 
 correlate_nd_transpose.launches = 0
+correlate_nd_transpose.routes = {"tile": 0, "nd": 0}
 
 
 class Correlate1d(torch.autograd.Function):

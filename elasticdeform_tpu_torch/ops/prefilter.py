@@ -2,7 +2,7 @@
 
 :func:`spline_filter1d` is the wrapper of kernel K2 (``csrc/prefilter.cu``),
 which runs the causal / anti-causal recursion of :func:`_filter_lines` on
-the card, one thread per line. On a CPU tensor it takes the plain version,
+the card. On a CPU tensor it takes the plain version,
 :func:`spline_filter1d_plain`: a ``tensordot`` with the dense float64 filter
 matrix, as the JAX package computes it (``ops/prefilter.py:333`` there).
 
@@ -21,12 +21,13 @@ conditions of SciPy >= 1.6, for the general resampler's modern modes and
 ``spline_filter``. Their plain versions are ``tensordot`` with
 :func:`filter_matrix_bc` and its transpose (``ops/prefilter.py:150`` there).
 
-K4 and K7 take one of two routes, which :func:`_transpose_plan` picks from
+K2, K4 and K7 take one of two routes, which :func:`_tile_plan` picks from
 the shape: ``"tile"`` stages W whole lines of the axis in shared memory and
 filters them there (every line of at most :func:`tile_cap` elements: 1760
 in float32, 880 in float64), ``"lines"`` runs one thread per line in
 device memory (longer lines). Both compute the same operations in the same
-order. Each wrapper counts its launches per route in ``.routes``.
+order. Each wrapper counts its launches per route in ``.routes``; K6 runs
+one thread per line.
 
 The float64 numpy helpers (poles, the reference recursion, the filter
 matrices) are this package's own copies of the JAX package's.
@@ -264,7 +265,7 @@ def _lib():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
             ctypes.c_double, ctypes.c_void_p]
-        fn = lib.ed_spline_prefilter_transpose_tile
+        fn = lib.ed_spline_prefilter_tile
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -272,8 +273,8 @@ def _lib():
             ctypes.c_int, ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_double), ctypes.c_double, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p]
+            ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         fn = lib.ed_prefilter_tile_blocks_per_sm
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4
@@ -298,8 +299,8 @@ TILE_WIDTHS = (64, 32, 128)
 _ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 
 
-class TransposePlan(NamedTuple):
-    """How K4 or K7 runs on an ``(outer, n, inner)`` view: ``route``
+class TilePlan(NamedTuple):
+    """How K2, K4 or K7 runs on an ``(outer, n, inner)`` view: ``route``
     ``"tile"`` or ``"lines"``; for a tile, ``width`` threads and lines a
     block, ``packed`` (``inner < width``: a tile is ``lines // inner``
     whole outers, one contiguous run), ``lines`` of a full tile, the
@@ -322,22 +323,22 @@ def tile_cap(dtype) -> int:
     return SMEM_LIMIT // (33 * _ITEMSIZE[dtype])
 
 
-def blocks_per_sm(plan: TransposePlan) -> int:
+def blocks_per_sm(plan: TilePlan) -> int:
     """Blocks of a tile plan that one SM holds: as many as its shared
     memory takes, up to the 1024 threads for which the kernel's launch
     bounds reserve registers (64 a thread)."""
     return min(_SM_SMEM // (plan.smem + 1024), 1024 // plan.width)
 
 
-def waves(plan: TransposePlan, sms: int) -> int:
+def waves(plan: TilePlan, sms: int) -> int:
     """How many rounds of blocks a tile plan takes on ``sms`` SMs."""
     return -(-plan.blocks // (sms * blocks_per_sm(plan)))
 
 
 @functools.lru_cache(maxsize=1024)
-def _transpose_plan(outer: int, n: int, inner: int, dtype, width=None,
-                    route=None, sms: int = 132) -> TransposePlan:
-    """The launch of K4 or K7 on an ``(outer, n, inner)`` view of a
+def _tile_plan(outer: int, n: int, inner: int, dtype, width=None,
+               route=None, sms: int = 132) -> TilePlan:
+    """The launch of K2, K4 or K7 on an ``(outer, n, inner)`` view of a
     ``dtype`` tensor: the tile route for ``n <= tile_cap(dtype)``, else the
     lines route. The tile width is the one of :data:`TILE_WIDTHS` whose
     blocks fill the fewest rounds (:func:`waves`) of ``sms`` SMs, the first
@@ -350,15 +351,15 @@ def _transpose_plan(outer: int, n: int, inner: int, dtype, width=None,
     if route is None:
         route = "tile" if n <= tile_cap(dtype) else "lines"
     if route == "lines":
-        return TransposePlan("lines", 0, False, 0, 0, 0,
-                             -(-outer * inner // 256))
+        return TilePlan("lines", 0, False, 0, 0, 0,
+                        -(-outer * inner // 256))
     if route != "tile":
         raise ValueError(f"route must be 'tile' or 'lines', got {route!r}")
     if width is None:
         plans = []
         for w in TILE_WIDTHS:
             try:
-                plans.append(_transpose_plan(outer, n, inner, dtype, w))
+                plans.append(_tile_plan(outer, n, inner, dtype, w))
             except ValueError:
                 continue
         if not plans:
@@ -385,7 +386,7 @@ def _transpose_plan(outer: int, n: int, inner: int, dtype, width=None,
         blocks = -(-outer // (width // inner))
     else:
         blocks = outer * -(-inner // width)
-    return TransposePlan("tile", width, packed, lines, stride, smem, blocks)
+    return TilePlan("tile", width, packed, lines, stride, smem, blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -393,14 +394,56 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _plan_for(x: torch.Tensor, axis: int) -> TransposePlan:
+def _plan_for(x: torch.Tensor, axis: int) -> TilePlan:
     """The wrapper's plan for a CUDA tensor, sized to its card's SMs."""
-    return _transpose_plan(*_lines(x, axis), x.dtype,
-                           sms=_sm_count(x.device))
+    return _tile_plan(*_lines(x, axis), x.dtype, sms=_sm_count(x.device))
+
+
+# the tile kernel's stage sets (csrc/prefilter.cu): K4, K7 and K2
+_TILE_KINDS = {"mirror": 0, **_BC_CODES}
+_TILE_K2 = 3
+
+
+def _int_writeback(int_dtype):
+    """``(bits, iinfo.min)`` of K2's integer writeback; ``(0, 0.0)`` for
+    none."""
+    if int_dtype is None:
+        return 0, 0.0
+    dt = np.dtype(int_dtype)
+    info = np.iinfo(np.uint8 if dt.kind == "b" else dt)
+    return info.bits, float(info.min)
+
+
+def _launch_filter(x: torch.Tensor, order: int, axis: int, plan: TilePlan,
+                   int_dtype=None) -> torch.Tensor:
+    """K2 on a CUDA tensor along ``axis``, with the integer writeback of
+    ``int_dtype``, on the route and tile ``plan`` names; counts nothing
+    (the public wrapper counts)."""
+    check_kernel_tensor(x, "spline_prefilter")
+    outer, n, inner = _lines(x, axis)
+    poles, horizons, pn1, denom, gain = _kernel_params(n, order)
+    bits, lo = _int_writeback(int_dtype)
+    dt = 0 if x.dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    npoles = len(spline_poles(order))
+    out = torch.empty_like(x)
+    lib = _lib()
+    if plan.route == "tile":
+        err = lib.ed_spline_prefilter_tile(
+            dt, _TILE_K2, x.data_ptr(), out.data_ptr(), outer, n, inner,
+            npoles, poles, horizons, pn1, denom, gain, bits, lo, plan.width,
+            int(plan.packed), plan.lines, plan.stride, plan.smem, plan.blocks,
+            stream)
+    else:
+        err = lib.ed_spline_prefilter(
+            dt, x.data_ptr(), out.data_ptr(), outer, n, inner, npoles, poles,
+            horizons, pn1, denom, gain, bits, lo, stream)
+    _build.check(err, lib, "ed_prefilter_error_string", "spline_prefilter")
+    return out
 
 
 def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
-                      plan: TransposePlan) -> torch.Tensor:
+                      plan: TilePlan) -> torch.Tensor:
     """K4 (``bc='mirror'``) or K7 (``'reflect'``, ``'wrap'``) on a CUDA
     tensor along ``axis``, on the route and tile ``plan`` names; counts
     nothing (the public wrappers count)."""
@@ -422,9 +465,9 @@ def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
     out = torch.empty_like(x)
     lib = _lib()
     if plan.route == "tile":
-        err = lib.ed_spline_prefilter_transpose_tile(
-            dt, _BC_CODES.get(bc, 0), x.data_ptr(), out.data_ptr(), outer, n,
-            inner, len(poles), cpoles, horizons, pn1, denom, gain,
+        err = lib.ed_spline_prefilter_tile(
+            dt, _TILE_KINDS[bc], x.data_ptr(), out.data_ptr(), outer, n,
+            inner, len(poles), cpoles, horizons, pn1, denom, gain, 0, 0.0,
             plan.width, int(plan.packed), plan.lines, plan.stride, plan.smem,
             plan.blocks, stream)
     elif bc == "mirror":
@@ -439,10 +482,12 @@ def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
     return out
 
 
-def tile_blocks_per_sm(dtype, bc: str, plan: TransposePlan) -> int:
-    """Blocks of K4's or K7's tile kernel that one SM holds under
-    ``plan`` (CUDA's occupancy calculator; needs the card)."""
-    kind = 0 if bc == "mirror" else _BC_CODES[bc]
+def tile_blocks_per_sm(dtype, bc: str, plan: TilePlan,
+                       transpose: bool = True) -> int:
+    """Blocks of K4's or K7's tile kernel (``bc``), or with ``transpose``
+    False K2's, that one SM holds under ``plan`` (CUDA's occupancy
+    calculator; needs the card)."""
+    kind = _TILE_KINDS[bc] if transpose else _TILE_K2
     lib = _lib()
     got = lib.ed_prefilter_tile_blocks_per_sm(
         0 if dtype == torch.float32 else 1, kind, plan.width, plan.smem)
@@ -459,33 +504,24 @@ def spline_filter1d(x: torch.Tensor, order: int, axis: int,
     per-axis integer writeback after the filter. Orders 0 and 1 need no
     filter and return ``x`` as it is. A CPU tensor takes
     :func:`spline_filter1d_plain`; a CUDA tensor launches K2 (contiguous
-    float32 or float64 only) and adds one to ``spline_filter1d.launches``.
+    float32 or float64 only) on the route of :func:`_tile_plan` and adds
+    one to ``spline_filter1d.launches`` and to its route's count in
+    ``spline_filter1d.routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
         return spline_filter1d_plain(x, order, axis, int_dtype)
     check_kernel_tensor(x, "spline_filter1d")
-    outer, n, inner = _lines(x, axis)
-    poles, horizons, pn1, denom, gain = _kernel_params(n, order)
-    if int_dtype is None:
-        bits, lo = 0, 0.0
-    else:
-        dt = np.dtype(int_dtype)
-        info = np.iinfo(np.uint8 if dt.kind == "b" else dt)
-        bits, lo = info.bits, float(info.min)
-    out = torch.empty_like(x)
-    lib = _lib()
-    err = lib.ed_spline_prefilter(
-        0 if x.dtype == torch.float32 else 1, x.data_ptr(), out.data_ptr(),
-        outer, n, inner, len(spline_poles(order)), poles, horizons, pn1,
-        denom, gain, bits, lo, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, lib, "ed_prefilter_error_string", "spline_prefilter")
+    plan = _plan_for(x, axis)
+    out = _launch_filter(x, order, axis, plan, int_dtype)
     spline_filter1d.launches += 1
+    spline_filter1d.routes[plan.route] += 1
     return out
 
 
 spline_filter1d.launches = 0
+spline_filter1d.routes = {"tile": 0, "lines": 0}
 
 
 def spline_filter1d_transpose(x: torch.Tensor, order: int,
@@ -495,7 +531,7 @@ def spline_filter1d_transpose(x: torch.Tensor, order: int,
     ``x`` as it is. A CPU tensor takes
     :func:`spline_filter1d_transpose_plain`; a CUDA tensor launches K4
     (contiguous float32 or float64 only) on the route of
-    :func:`_transpose_plan` and adds one to
+    :func:`_tile_plan` and adds one to
     ``spline_filter1d_transpose.launches`` and to its route's count in
     ``spline_filter1d_transpose.routes``.
     """
@@ -554,7 +590,7 @@ def spline_filter1d_bc_transpose(x: torch.Tensor, order: int, axis: int,
     """The exact transpose of :func:`spline_filter1d_bc` along ``axis``.
     Orders 0 and 1 return ``x`` as it is. A CPU tensor takes
     :func:`spline_filter1d_bc_transpose_plain`; a CUDA tensor launches K7
-    on the route of :func:`_transpose_plan` and adds one to
+    on the route of :func:`_tile_plan` and adds one to
     ``spline_filter1d_bc_transpose.launches`` and to its route's count in
     ``spline_filter1d_bc_transpose.routes``.
     """

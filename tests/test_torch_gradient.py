@@ -301,7 +301,7 @@ def test_prefilter_transpose_kernel_matches_plain(cuda_device, order, axis):
 def test_prefilter_transpose_routes_match_plain(cuda_device, route, axis):
     rs = np.random.RandomState(axis)
     x = torch.as_tensor(rs.rand(9, 64, 5) * 100, device=cuda_device)
-    plan = tp._transpose_plan(*tp._lines(x, axis), x.dtype, route=route)
+    plan = tp._tile_plan(*tp._lines(x, axis), x.dtype, route=route)
     torch.testing.assert_close(
         tp._launch_transpose(x, 3, axis, "mirror", plan),
         tp.spline_filter1d_transpose_plain(x, 3, axis),

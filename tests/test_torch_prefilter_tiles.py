@@ -3,7 +3,7 @@
 The card runs K4 (``spline_filter1d_transpose``) and K7
 (``spline_filter1d_bc_transpose``) either as line tiles staged in shared
 memory or one thread per line in device memory; ``ops/prefilter.py``'s
-``_transpose_plan`` picks the route and the tile from the shape. On the
+``_tile_plan`` picks the route and the tile from the shape. On the
 CPU:
 
 * the plan over a sweep of ``(outer, n, inner, dtype)``: every line falls
@@ -59,7 +59,7 @@ PLAN_SHAPES = [(outer, n, inner)
 @pytest.mark.parametrize("width", [None, 32, 64, 128])
 def test_plan_covers_every_line_once(dtype, width):
     for outer, n, inner in PLAN_SHAPES:
-        plan = tp._transpose_plan(outer, n, inner, dtype, width=width)
+        plan = tp._tile_plan(outer, n, inner, dtype, width=width)
         assert plan.route == "tile"
         assert plan.width in tp.TILE_WIDTHS
         item = 4 if dtype == torch.float32 else 8
@@ -88,15 +88,15 @@ def test_plan_switches_route_at_the_cap(dtype):
     assert cap * 33 * item <= tp.SMEM_LIMIT < (cap + 1) * 33 * item
     assert cap == (1760 if dtype == torch.float32 else 880)
     for outer, inner in ((1, 1), (3, 5), (2, 100)):
-        below = tp._transpose_plan(outer, cap, inner, dtype)
-        above = tp._transpose_plan(outer, cap + 1, inner, dtype)
+        below = tp._tile_plan(outer, cap, inner, dtype)
+        above = tp._tile_plan(outer, cap + 1, inner, dtype)
         assert below.route == "tile" and below.width == 32  # only 32 fits
         assert below.smem <= tp.SMEM_LIMIT
         assert above.route == "lines" and above.smem == 0
         assert above.blocks == -(-outer * inner // 256)
         with pytest.raises(ValueError):
-            tp._transpose_plan(outer, cap + 1, max(inner, 32), dtype,
-                               width=32, route="tile")
+            tp._tile_plan(outer, cap + 1, max(inner, 32), dtype,
+                          width=32, route="tile")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -109,12 +109,12 @@ def test_plan_takes_the_width_with_fewest_waves(dtype, sms):
     for outer, n, inner in PLAN_SHAPES + [(30720, 224, 1), (1, 160, 43008),
                                           (160, 192, 224), (64, 64, 4096),
                                           (262144, 64, 1), (4, 800, 64)]:
-        plan = tp._transpose_plan(outer, n, inner, dtype, sms=sms)
+        plan = tp._tile_plan(outer, n, inner, dtype, sms=sms)
         fits = []
         for w in tp.TILE_WIDTHS:
             try:
-                fits.append(tp._transpose_plan(outer, n, inner, dtype,
-                                               width=w))
+                fits.append(tp._tile_plan(outer, n, inner, dtype,
+                                          width=w))
             except ValueError:
                 pass
         least = min(tp.waves(p, sms) for p in fits)
@@ -126,18 +126,18 @@ def test_plan_takes_the_width_with_fewest_waves(dtype, sms):
         assert 1 <= bpsm and bpsm * plan.width <= 1024
         assert bpsm * (plan.smem + 1024) <= 233472
     # c8's innermost axis: 128-line tiles fill one round of an H100's SMs
-    assert tp._transpose_plan(30720, 224, 1, torch.float32).width == 128
+    assert tp._tile_plan(30720, 224, 1, torch.float32).width == 128
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
-        tp._transpose_plan(2, 9, 4, torch.float32, width=48)
+        tp._tile_plan(2, 9, 4, torch.float32, width=48)
     with pytest.raises(ValueError):
-        tp._transpose_plan(2, 9, 4, torch.float32, route="scan")
+        tp._tile_plan(2, 9, 4, torch.float32, route="scan")
     with pytest.raises(ValueError):
-        tp._transpose_plan(2, 1200, 64, torch.float32, width=128,
-                           route="tile")
-    empty = tp._transpose_plan(0, 9, 4, torch.float32)
+        tp._tile_plan(2, 1200, 64, torch.float32, width=128,
+                      route="tile")
+    empty = tp._tile_plan(0, 9, 4, torch.float32)
     assert empty.route == "tile" and empty.blocks == 0
 
 
@@ -152,8 +152,8 @@ def test_packed_walk_visits_each_element_once(n, inner, width):
     (outer, i) finds its element k at outer * stride + k * inner + i, and
     the 32 lines a warp filters fall in 32 distinct banks."""
     for outer in (1, 2, 7):
-        plan = tp._transpose_plan(outer, n, inner, torch.float32,
-                                  width=width)
+        plan = tp._tile_plan(outer, n, inner, torch.float32,
+                             width=width)
         assert plan.packed
         run = n * inner
         dol, dr = width // run, width % run
@@ -185,7 +185,7 @@ def test_every_line_up_to_the_cap_has_a_tile(dtype):
     cap = tp.tile_cap(dtype)
     for n in range(cap - 64, cap + 1):
         for inner in range(1, 40):
-            plan = tp._transpose_plan(3, n, inner, dtype)
+            plan = tp._tile_plan(3, n, inner, dtype)
             assert plan.route == "tile" and plan.smem <= tp.SMEM_LIMIT
 
 
@@ -307,15 +307,15 @@ def test_both_routes_match_plain_and_each_other(cuda_device, dtype, bc):
         plain = (tp.spline_filter1d_transpose_plain(x, order, 1)
                  if bc == "mirror" else
                  tp.spline_filter1d_bc_transpose_plain(x, order, 1, bc))
-        lines = tp._launch_transpose(x, order, 1, bc, tp._transpose_plan(
+        lines = tp._launch_transpose(x, order, 1, bc, tp._tile_plan(
             outer, n, inner, dtype, route="lines"))
         scale = float(x.abs().max())
         tol = 1e-5 if dtype == torch.float32 else 1e-10
         torch.testing.assert_close(lines, plain, rtol=tol, atol=tol * scale)
         for width in tp.TILE_WIDTHS:
             try:
-                plan = tp._transpose_plan(outer, n, inner, dtype,
-                                          width=width, route="tile")
+                plan = tp._tile_plan(outer, n, inner, dtype,
+                                     width=width, route="tile")
             except ValueError:
                 continue
             assert torch.equal(tp._launch_transpose(x, order, 1, bc, plan),
