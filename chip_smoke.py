@@ -9,12 +9,13 @@ Phases (any failure raises, and the exit code is not 0):
 
 1. device and build: prints the card's name and power limit, builds the
    CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc, prints
-   each source's build time and ptxas figures and each K2/K4/K7
-   instantiation's (both routes, every tile width), K9T's tile
-   instantiations (per dtype, column and fold flag) and K1/K1c's and
-   K5/K5c's (per dtype, index width, rank and order), and holds K2/K4/K7
-   and K9T's tile in float32 and K1/K1c and K5/K5c at orders 1 and 3 in
-   float32 to no stack frame and no spills;
+   each source's build time and ptxas figures and each K2/K4/K6/K7
+   instantiation's (both routes, every tile width, K2's writeback route),
+   K9T's tile instantiations (per dtype, column and fold flag) and
+   K1/K1c's and K5/K5c's (per dtype, index width, rank and order), and
+   holds K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's writeback route
+   in float64 too, and K1/K1c and K5/K5c at orders 1 and 3 in float32 to no
+   stack frame and no spills;
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
    K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
    orders 0-5 x five modes x 1-D to 4-D x one and two channels in float32
@@ -22,18 +23,24 @@ Phases (any failure raises, and the exit code is not 0):
    affines and crop offsets; K1c, K3c and K5c (the same at caller-given
    coordinates, K1c and K5c bit for bit) over the same sweep plus a flat
    point list; K2 (prefilter) over orders 2-5 and axis lengths 9/64/200 at
-   every axis position, plus the uint8/int16 writeback, bit for bit; K4 (the
+   every axis position, plus the uint8/int16 writeback (K2's writeback
+   route) in float32 and float64 on lines of 2-9, 33 and 40, bit for bit;
+   K4 (the
    transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at every
    axis position; K6 and K7 (the reflect/wrap prefilter and its transpose)
    against ``filter_matrix_bc`` and its transpose over orders 2-5 x
-   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; K2, K4
-   and K7 on both routes (shared-memory line tiles and one thread per line)
-   over inner 1/3/33/64/100, partial last tiles and lines one below, at
-   and one above the tile cap, c5's three axes, K2 also with the integer
-   writeback, the tile route at every width equal to the lines route bit
-   for bit; K9T on both routes (a shared-memory halo box and one thread
-   per output) at c14's shapes in every mode, 2-D, rank-4 and sparse
-   kernels, every column, per element to the twin and to each other; K8 and
+   reflect/wrap x lengths 1/2/9/64/224/248 at every axis position; K2, K4,
+   K6 and K7 on both routes (shared-memory line tiles and one thread per
+   line) over inner 1/3/33/64/100, partial last tiles and lines one below,
+   at and one above the tile cap, c5's three axes, K2 also with the integer
+   writeback (its writeback route, bit for bit with the twin), the tile
+   route at every width equal to the lines route bit for bit; ``deform``
+   and ``deform_grid`` with uint8 and int16 inputs at orders 2-5, float32
+   and float64 compute, 1-D to 3-D (axes 2-64) and a 512x512 image, bit for
+   bit with the same call on the CPU; K9T on both routes (a shared-memory
+   halo box and one thread per output) at c14's shapes in every mode, 2-D,
+   rank-4 and sparse kernels, every column, per element to the twin and to
+   each other; K8 and
    K8T (the 1-D correlation and its transpose) over the five filter modes,
    1-41 taps (longer than some axes) at every centre, every axis of 2-D and
    3-D shapes with odd sizes, and the paired integer route bit for bit; K9
@@ -77,16 +84,18 @@ Phases (any failure raises, and the exit code is not 0):
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16, and c17's K13 sweeps per
-   call; K4's and K7's launches split by route, the tile route taken);
+   call; K2's, K4's, K6's and K7's launches split by route, the tile route
+   taken, c8's and c9's K6 only there, no config on K2's writeback route);
    then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
    P1-P4, none of K1-K13), each output equal to phase 2's kernel output;
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
-   its plain version and library yardstick (K1-K5 at the c5 shapes, K4
-   and K7 also per axis with their route, tile width, blocks per SM and
+   its plain version and library yardstick (K1-K5 at the c5 shapes, K4,
+   K6 and K7 also per axis with their route, tile width, blocks per SM and
    waves, every width, the lines route, the tile's copy alone and a plain
-   device copy; also
+   device copy; K2's writeback route at c2's 200x300 and on a 128^3 int16
+   volume beside its operation bound; also
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
    ``grid_sample``; the share of K5's and K5c's blocks whose tap box would
    fit 16 KB of shared memory; K6, K7 and again K1c, K3c at the c8 shapes;
@@ -108,9 +117,11 @@ K4, K7 and K9T with their launches per route); the last line is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
 
-``times_ab(card)`` times K2 at c5, K9T at c14 and every config through the
-public wrappers only, so that a copy of this file put into an older tree
-times that tree's package in the same call to the card.
+``times_ab(card)`` times K2 at c5, K6 at c8 and c9, K2's integer writeback
+at c2, K9T at c14 and every config through the public wrappers only, and
+prints a digest of K6's output bits, so that a copy of this file put into
+an older tree times (and checks) that tree's package in the same call to
+the card.
 """
 
 from __future__ import annotations
@@ -266,26 +277,33 @@ def _ptxas_kernels(log):
     return out
 
 
-# K2/K4/K7's kernels: the tile route (dtype, width, kind 0 K4 / 1 K7
-# reflect / 2 K7 wrap / 3 K2) and the lines route (dtype; K7 with its
-# boundary condition)
-_TILE_KINDS = {"0": "K4", "1": "K7 reflect", "2": "K7 wrap", "3": "K2"}
+# K2/K4/K6/K7's kernels: the tile route (dtype, width, kind 0 K4 / 1 K7
+# reflect / 2 K7 wrap / 3 K2 / 4 K6 reflect / 5 K6 wrap / 6 K2's writeback
+# route) and the lines route (dtype; K6 and K7 with their boundary
+# condition)
+_TILE_KINDS = {"0": "K4", "1": "K7 reflect", "2": "K7 wrap", "3": "K2",
+               "4": "K6 reflect", "5": "K6 wrap", "6": "K2 writeback"}
 _K247_NAMES = (
     ("tile", re.compile(r"prefilter_tile_kernelI([fd])Li(\d+)ELi(\d)E")),
     ("lines", re.compile(r"prefilter_kernelI([fd])E"), "K2"),
     ("lines", re.compile(r"prefilter_transpose_kernelI([fd])E"), "K4"),
     ("lines", re.compile(r"prefilter_bc_transpose_kernelI([fd])Li(\d)E"),
-     "K7"))
+     "K7"),
+    ("lines", re.compile(r"prefilter_bc_kernelI([fd])Li(\d)E"), "K6"),
+    ("lines", re.compile(r"prefilter_writeback_kernelI([fd])E"),
+     "K2 writeback"))
 # K9T's tile route (dtype, column C, fold lists)
 _K9T_TILE = re.compile(r"correlate_nd_transpose_tile_kernelI([fd])Li(\d)"
                        r"ELb([01])E")
 
 
 def _check_tile_ptxas(log):
-    """Print each K2/K4/K7 instantiation's registers, stack, spills and
+    """Print each K2/K4/K6/K7 instantiation's registers, stack, spills and
     static shared bytes (the tile's own shared memory is dynamic: its bytes
-    are the plan's, printed in phase 4); fail if one in float32 has a stack
-    frame or spills."""
+    are the plan's, printed in phase 4); fail unless all 56 are found (42
+    tile: 2 dtypes x 3 widths x 7 stage sets; 14 lines) or if one in
+    float32, or one of K6 or K2's writeback route in either dtype, has a
+    stack frame or spills."""
     found, bad = 0, []
     for fn, v in sorted(_ptxas_kernels(log).items()):
         for route, pat, *name in _K247_NAMES:
@@ -295,18 +313,20 @@ def _check_tile_ptxas(log):
             g = m.groups()
             kind = (_TILE_KINDS[g[2]] if route == "tile" else
                     name[0] if len(g) == 1 else
-                    "K7 reflect" if g[-1] == "1" else "K7 wrap")
+                    f"{name[0]} {'reflect' if g[-1] == '1' else 'wrap'}")
             width = f" W={g[1]}" if route == "tile" else ""
             dt = "float32" if g[0] == "f" else "float64"
             print(f"  ptxas {kind} {route}{width} {dt}: {v[0]} registers, "
                   f"{v[1]} bytes stack frame, {v[2]}/{v[3]} bytes spill "
                   f"stores/loads, {v[5]} bytes static shared")
             found += 1
-            if g[0] == "f" and any(v[1:4]):
+            held = g[0] == "f" or kind.startswith(("K6", "K2 writeback"))
+            if held and any(v[1:4]):
                 bad.append(fn)
-    if found != 32 or bad:
-        raise AssertionError(f"K2/K4/K7: {found} of 32 instantiations found; "
-                             f"float32 with a stack frame or spills: {bad}")
+    if found != 56 or bad:
+        raise AssertionError(f"K2/K4/K6/K7: {found} of 56 instantiations "
+                             f"found; with a stack frame or spills (float32, "
+                             f"or K6 or K2's writeback route): {bad}")
 
 
 def _check_k9t_ptxas(log):
@@ -364,12 +384,12 @@ def _check_rank_table(label, log, pattern, orders, count):
 def phase_build():
     """Build every source; print each one's nvcc time, its kernels' worst
     register, stack and spill figures, every other kernel with a stack
-    frame or spills, K2/K4/K7's and K9T's tile instantiations and the
+    frame or spills, K2/K4/K6/K7's and K9T's tile instantiations and the
     K1/K1c and K5/K5c tables, from the ptxas report kept beside each
-    library (built in this run or before; a missing report fails). K2/K4/K7
-    and K9T's tile in float32, and K1/K1c and K5/K5c at orders 1 and 3 in
-    float32, must keep their state in registers: no stack frame, no
-    spills."""
+    library (built in this run or before; a missing report fails).
+    K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's writeback route in
+    float64 too, and K1/K1c and K5/K5c at orders 1 and 3 in float32, must
+    keep their state in registers: no stack frame, no spills."""
     from elasticdeform_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -505,24 +525,27 @@ def phase_kernels():
                     worst["spline_prefilter"] = max(
                         worst["spline_prefilter"], err)
                     n += 1
-    # the fused integer writeback, float64 as deform_grid computes it for a
-    # float64 grid: must agree bit for bit after each of the axes
-    for int_dtype, lo, hi in ((np.uint8, 0, 256), (np.int16, -3000, 3000)):
-        for order in (2, 3, 4, 5):
-            x = torch.as_tensor(rs.randint(lo, hi, (2, 40, 33, 3)),
-                                dtype=torch.float64, device=dev)
-            got, want = x, x
-            for pos in (1, 2):
-                got = pf.spline_filter1d(got, order, pos, int_dtype)
-                want = pf.spline_filter1d_plain(want, order, pos,
-                                                int_dtype).contiguous()
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"K2 writeback {np.dtype(int_dtype)} order={order} "
-                        f"axis={pos}: "
-                        f"{int((got != want).sum())} values differ")
-                n += 1
+    # the integer writeback (K2's writeback route), float32 and float64 as
+    # deform computes it for a float32 or a float64 grid, on lines of 2-9,
+    # 33 and 40: must agree with the twin bit for bit after each axis
+    for (int_dtype, lo, hi), dtype, order, axes in itertools.product(
+            ((np.uint8, 0, 256), (np.int16, -3000, 3000)),
+            (torch.float32, torch.float64), (2, 3, 4, 5),
+            ((40, 33), (2, 3), (4, 5), (6, 7), (8, 9))):
+        x = torch.as_tensor(rs.randint(lo, hi, (2, *axes, 3)), dtype=dtype,
+                            device=dev)
+        got, want = x, x
+        for pos in (1, 2):
+            got = pf.spline_filter1d(got, order, pos, int_dtype)
+            want = pf.spline_filter1d_plain(want, order, pos,
+                                            int_dtype).contiguous()
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(got), _bits(want)):
+                raise AssertionError(
+                    f"K2 writeback {np.dtype(int_dtype)} {dtype} "
+                    f"order={order} lines {axes} axis={pos}: "
+                    f"{int((got != want).sum())} values differ")
+            n += 1
     print(f"K2 spline_prefilter vs plain: {n} cases pass, max abs err "
           f"{worst['spline_prefilter']:.3e}")
 
@@ -559,6 +582,7 @@ def phase_kernels():
     _check_k1_widths(rs)
     _check_bc_prefilter(rs, worst)
     _check_tile_routes(rs, worst)
+    _check_int_deform(rs)
     _check_k9t_routes(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_kernels(rs)
@@ -816,19 +840,17 @@ def _bits(t):
 
 
 def _check_tile_routes(rs, worst):
-    """K2, K4 and K7 beyond the [5, 6, 3, 4] sweeps, on both routes: views
-    (outer, n, inner) with inner 1, 3, 33, 64 and 100 and outers that make
-    the last tile of every width partial, and lines one below, at and one
-    above the tile route's cap, in float32 and float64; K2 also with the
-    uint8 and int16 writebacks and on c5's three axes. The wrapper is held
-    to its plain twin (float32 rtol=1e-5, atol=1e-5*max|x|; float64 1e-10;
-    the writeback in float64 bit for bit on lines of 33 and more: in
-    float32, or where a short line's filter maps integers to rationals of
-    small denominators, some of them integers, the recursion and the
-    twin's matrix can truncate apart, so there only the routes are held to
-    each other) and must take the route its plan names
-    (its route count); every tile width that fits must equal the lines
-    route bit for bit; the K2/K4 and K6/K7 adjoint identities hold in
+    """K2, K4, K6 and K7 beyond the [5, 6, 3, 4] sweeps, on both routes:
+    views (outer, n, inner) with inner 1, 3, 33, 64 and 100 and outers that
+    make the last tile of every width partial, and lines one below, at and
+    one above the tile route's cap, in float32 and float64; K2 also with the
+    uint8 and int16 writebacks (its writeback route, in its tile and lines
+    forms) and on c5's three axes. The wrapper is held to its plain twin
+    (float32 rtol=1e-5, atol=1e-5*max|x|; float64 1e-10; the writeback
+    route bit for bit, every length, both dtypes) and must take the route
+    its plan names (its route count; ``"writeback"`` for an integer
+    writeback); every tile width that fits must equal the lines route (the
+    lines form) bit for bit; the K2/K4 and K6/K7 adjoint identities hold in
     float64."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
@@ -837,6 +859,8 @@ def _check_tile_routes(rs, worst):
              ("K2", "spline_prefilter", "mirror", np.uint8),
              ("K2", "spline_prefilter", "mirror", np.int16),
              ("K4", "spline_prefilter_transpose", "mirror", None),
+             ("K6", "spline_prefilter_bc", "reflect", None),
+             ("K6", "spline_prefilter_bc", "wrap", None),
              ("K7", "spline_prefilter_bc_transpose", "reflect", None),
              ("K7", "spline_prefilter_bc_transpose", "wrap", None))
     shapes = [(outer, n, inner) for inner, outer in
@@ -848,6 +872,12 @@ def _check_tile_routes(rs, worst):
         shapes += [(2, n, 1) for n in (cap - 1, cap, cap + 1)]
     # c5's three axes of (64, 64, 64, 64, 1)
     shapes += [(64, 64, 4096), (4096, 64, 64), (262144, 64, 1)]
+    wrappers = {"K2": (pf.spline_filter1d, pf.spline_filter1d_plain),
+                "K4": (pf.spline_filter1d_transpose,
+                       pf.spline_filter1d_transpose_plain),
+                "K6": (pf.spline_filter1d_bc, pf.spline_filter1d_bc_plain),
+                "K7": (pf.spline_filter1d_bc_transpose,
+                       pf.spline_filter1d_bc_transpose_plain)}
     n_cases = n_bits = 0
     for (outer, n, inner), dtype, order, (k, name, bc, idt) in \
             itertools.product(shapes, (torch.float32, torch.float64),
@@ -866,16 +896,9 @@ def _check_tile_routes(rs, worst):
                 f"{(outer, n, inner)}" + (f" writeback {np.dtype(idt)}"
                                           if idt is not None else ""))
         plan = pf._plan_for(x, 1)
-        if k == "K2":
-            wrapper, plain, args = (pf.spline_filter1d,
-                                    pf.spline_filter1d_plain, (idt,))
-        elif bc == "mirror":
-            wrapper, plain, args = (pf.spline_filter1d_transpose,
-                                    pf.spline_filter1d_transpose_plain, ())
-        else:
-            wrapper, plain, args = (pf.spline_filter1d_bc_transpose,
-                                    pf.spline_filter1d_bc_transpose_plain,
-                                    (bc,))
+        wrapper, plain = wrappers[k]
+        args = (idt,) if k == "K2" else () if k == "K4" else (bc,)
+        route = "writeback" if idt is not None else plan.route
         before = dict(wrapper.routes)
         got = wrapper(x, order, 1, *args)
         want = plain(x, order, 1, *args)
@@ -883,18 +906,19 @@ def _check_tile_routes(rs, worst):
         def launch(p, k=k, x=x, order=order, bc=bc, idt=idt):
             if k == "K2":
                 return pf._launch_filter(x, order, 1, p, idt)
+            if k == "K6":
+                return pf._launch_bc_filter(x, order, 1, bc, p)
             return pf._launch_transpose(x, order, 1, bc, p)
-        if wrapper.routes[plan.route] != before[plan.route] + 1:
+        if wrapper.routes[route] != before[route] + 1:
             raise AssertionError(f"{what}: the wrapper did not count a "
-                                 f"launch on the {plan.route} route")
+                                 f"launch on the {route} route")
         if plan.route != ("tile" if n <= pf.tile_cap(dtype) else "lines"):
             raise AssertionError(f"{what}: plan {plan} on the wrong route")
         torch.cuda.synchronize()
         if idt is None:
             worst[name] = max(worst[name], _assert_close(
                 got, want, *_tol(dtype, float(x.abs().max())), what))
-        elif dtype == torch.float64 and n >= 33 and \
-                not torch.equal(got, want.contiguous()):
+        elif not torch.equal(_bits(got), _bits(want)):
             raise AssertionError(f"{what}: {int((got != want).sum())} "
                                  "values differ from the plain twin")
         ref = launch(pf._tile_plan(outer, n, inner, dtype, route="lines"))
@@ -911,8 +935,8 @@ def _check_tile_routes(rs, worst):
                     f"{what}: tile route W={width} ({tp}) differs from the "
                     f"lines route in {int((tile != ref).sum())} values")
             n_bits += 1
-        if dtype == torch.float64 and n <= 224 and idt is None and \
-                k != "K2" and outer * inner <= 4096:
+        if dtype == torch.float64 and n <= 224 and k in ("K4", "K7") and \
+                outer * inner <= 4096:
             y = torch.as_tensor(rs.randn(outer, n, inner), dtype=dtype,
                                 device=dev)
             fwd = (pf.spline_filter1d(x, order, 1) if bc == "mirror" else
@@ -922,13 +946,77 @@ def _check_tile_routes(rs, worst):
                     pf.spline_filter1d_bc_transpose(y, order, 1, bc))
             _check_adjoint(fwd, y, x, back, f"{what} adjoint")
         n_cases += 1
-    print(f"K2, K4 and K7 over inner 1/3/33/64/100, partial last tiles, lines "
-          f"at the tile cap (float32 {pf.tile_cap(torch.float32)}, float64 "
-          f"{pf.tile_cap(torch.float64)}) and one above, c5's three axes, K2 "
-          f"with the uint8 and int16 writebacks: {n_cases} cases pass against "
-          f"their twins; {n_bits} tile launches (W "
-          f"{'/'.join(map(str, pf.TILE_WIDTHS))}) equal the lines route bit "
-          f"for bit; the adjoint identities hold in float64")
+    print(f"K2, K4, K6 and K7 over inner 1/3/33/64/100, partial last tiles, "
+          f"lines at the tile cap (float32 {pf.tile_cap(torch.float32)}, "
+          f"float64 {pf.tile_cap(torch.float64)}) and one above, c5's three "
+          f"axes, K2's writeback route with uint8 and int16 bit for bit: "
+          f"{n_cases} cases pass against their twins; {n_bits} tile launches "
+          f"(W {'/'.join(map(str, pf.TILE_WIDTHS))}) equal the lines route "
+          f"bit for bit; the adjoint identities hold in float64")
+
+
+# the integer deform check's inputs: 1-D to 3-D, axes of 2, 3, 5, 8, 9,
+# 33 and 64
+_INT_DEFORM_SHAPES = ((2,), (33,), (64,), (2, 9), (5, 8), (3, 33), (64, 9),
+                     (2, 3, 5), (8, 9, 33), (5, 64, 2))
+
+
+def _check_int_deform(rs):
+    """``deform`` (tensor API) and ``deform_grid`` (numpy API) with uint8
+    and int16 inputs at orders 2-5, the prefilter on, computing in float32
+    (a float32 grid) and float64 (a float64 grid), on 1-D to 3-D inputs
+    with axes of 2, 3, 5, 8, 9, 33 and 64 and on one 512 x 512 uint8 image
+    at order 3: each output equal to the same call with ``device="cpu"``
+    bit for bit, and each call's integer prefilter on K2's writeback route,
+    once per deformed axis (its count). The dense displacement, which
+    places every sample and which an integer output sums in one fixed
+    order, is held to the CPU's bit for bit too."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    from elasticdeform_tpu_torch.ops.displacement import dense_displacement
+    cases = [(shape, idt, order, gdt) for shape, idt, order, gdt in
+             itertools.product(_INT_DEFORM_SHAPES, ("uint8", "int16"),
+                               (2, 3, 4, 5), (np.float32, np.float64))]
+    cases += [((512, 512), "uint8", 3, gdt)
+              for gdt in (np.float32, np.float64)]
+    n = 0
+    for i, (shape, idt, order, gdt) in enumerate(cases):
+        lo, hi = (0, 256) if idt == "uint8" else (-3000, 3000)
+        x = rs.randint(lo, hi, shape).astype(idt)
+        grid = (rs.randn(len(shape), *(3,) * len(shape)) *
+                max(1.0, min(shape) / 4)).astype(gdt)
+        mode = MODES[i % len(MODES)]
+        what = (f"{idt} {shape} order={order} {np.dtype(gdt).name} grid "
+                f"mode={mode}")
+        displ = [dense_displacement(torch.as_tensor(grid, device=d)[None],
+                                    shape, shape, (0,) * len(shape), True)
+                 for d in ("cuda", "cpu")]
+        if not torch.equal(_bits(displ[0].cpu()), _bits(displ[1])):
+            raise AssertionError(f"{what}: the dense displacement differs "
+                                 "from the CPU's")
+        for api in ("deform", "deform_grid"):
+            fn = getattr(et, api)
+            before = pf.spline_filter1d.routes["writeback"]
+            got = fn(x, grid, order=order, mode=mode, device="cuda")
+            torch.cuda.synchronize()
+            took = pf.spline_filter1d.routes["writeback"] - before
+            want = fn(x, grid, order=order, mode=mode, device="cpu")
+            got = got.cpu().numpy() if api == "deform" else got
+            want = want.numpy() if api == "deform" else want
+            if took != len(shape):
+                raise AssertionError(f"{api} {what}: {took} launches on K2's "
+                                     f"writeback route, not {len(shape)}")
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{api} {what}: {int((got != want).sum())} of "
+                    f"{want.size} values differ from the CPU run (max "
+                    f"|diff| {np.abs(got.astype(np.int64) - want).max()})")
+            n += 1
+    print(f"deform and deform_grid with uint8 and int16 inputs, orders 2-5, "
+          f"float32 and float64 compute, 1-D to 3-D (axes 2-64) and a "
+          f"512x512 uint8 image: {n} calls equal the CPU run bit for bit, "
+          f"each prefilter axis on K2's writeback route")
 
 
 def _check_k9t_routes(rs, worst):
@@ -1885,8 +1973,9 @@ def _reset_counts():
 
 
 def _route_counts():
-    """K2's, K4's and K7's launches per route (``{"tile": .., "lines":
-    ..}``) and K9T's (``{"tile": .., "nd": ..}``)."""
+    """K2's, K4's, K6's and K7's launches per route (``{"tile": ..,
+    "lines": ..}``, K2 also ``"writeback"``) and K9T's (``{"tile": ..,
+    "nd": ..}``)."""
     return {k: dict(w.routes) for k, ws in _path_wrappers().items()
             for w in (ws,) if hasattr(w, "routes")}
 
@@ -1896,7 +1985,7 @@ def phase_main_path():
     output against the port's CPU run."""
     import torch
     configs = _configs()
-    outs, launches = {}, {}
+    outs, launches, cfg_routes = {}, {}, {}
     total = dict.fromkeys(PATH_KERNELS, 0)
     routes = {k: dict.fromkeys(v, 0) for k, v in _route_counts().items()}
     for cfg in configs:
@@ -1904,9 +1993,10 @@ def phase_main_path():
         outs[cfg.name] = cfg.run("cuda")
         torch.cuda.synchronize()
         launches[cfg.name] = _counts()
+        cfg_routes[cfg.name] = _route_counts()
         for k in PATH_KERNELS:
             total[k] += launches[cfg.name][k]
-        for k, by_route in _route_counts().items():
+        for k, by_route in cfg_routes[cfg.name].items():
             if sum(by_route.values()) != launches[cfg.name][k]:
                 raise AssertionError(f"{cfg.name}: {k}'s route counts "
                                      f"{by_route} do not add up to its "
@@ -1915,6 +2005,19 @@ def phase_main_path():
                 routes[k][r] += v
     print(f"main path launches per config: {json.dumps(launches)}")
     print(f"main path launches per route: {json.dumps(routes)}")
+    print("K2's and K6's launches per route and config: " + json.dumps(
+        {name: {k: r[k] for k in ("spline_prefilter", "spline_prefilter_bc")
+                if sum(r[k].values())} for name, r in cfg_routes.items()}))
+    # no config has an integer input with the prefilter on, so none takes
+    # K2's writeback route; c8 and c9 run K6 on its tile route only
+    for name, r in cfg_routes.items():
+        if r["spline_prefilter"]["writeback"]:
+            raise AssertionError(f"{name} took K2's writeback route: "
+                                 f"{r['spline_prefilter']}")
+        k6 = r["spline_prefilter_bc"]
+        if name in ("c8", "c9") and (k6["lines"] or not k6["tile"]):
+            raise AssertionError(f"{name} must run K6 on its tile route "
+                                 f"only: {k6}")
     if min(total.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {total}")
     for k, by_route in routes.items():
@@ -2431,9 +2534,20 @@ def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
     return out
 
 
-def _tile_axes(name, x, order, bc, card, forward=False):
-    """Phase 4's per-axis lines of K4 (``bc='mirror'``) or K7 on ``x`` along
-    axes 1-3, or with ``forward`` K2's, through the private launchers (no
+def _launcher(kernel, bc):
+    """``run(x, order, axis, plan)`` of ``kernel`` (K2, K4, K6 or K7) under
+    ``bc``, through the private launchers (no counts)."""
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    if kernel == "K2":
+        return pf._launch_filter
+    if kernel == "K6":
+        return lambda x, o, a, p: pf._launch_bc_filter(x, o, a, bc, p)
+    return lambda x, o, a, p: pf._launch_transpose(x, o, a, bc, p)
+
+
+def _tile_axes(name, x, order, bc, card, kernel):
+    """Phase 4's per-axis lines of ``kernel`` (K2, K4, K6 or K7) under
+    ``bc`` on ``x`` along axes 1-3, through the private launchers (no
     counts): the wrapper's plan (route, W, blocks per SM, shared bytes)
     timed alone (CUDA events, median of 10) and back to back
     (``_loop_ms``), the lines route alone, and every tile width back to
@@ -2448,17 +2562,16 @@ def _tile_axes(name, x, order, bc, card, forward=False):
     for a in (1, 2, 3):
         shape = pf._lines(x, a)
 
-        def run(plan, a=a, order=order, bc=bc):
-            if forward:
-                return lambda: pf._launch_filter(x, order, a, plan)
-            return lambda: pf._launch_transpose(x, order, a, bc, plan)
+        def run(plan, a=a, order=order):
+            launch = _launcher(kernel, bc)
+            return lambda: launch(x, order, a, plan)
         plan = pf._plan_for(x, a)
         ms, loop = _time_ms(run(plan)), _loop_ms(run(plan))
         lines_ms = _time_ms(run(pf._tile_plan(*shape, x.dtype,
                                               route="lines")))
         # the tile's copy alone (no poles: staged and stored, no recursion)
         # and a plain device copy of the volume
-        stage = _loop_ms(run(plan, order=1, bc="reflect"))
+        stage = _loop_ms(run(plan, order=1))
         clone = _loop_ms(lambda: x.clone())
         for k, v in (("per_axis_ms", ms), ("per_axis_loop_ms", loop),
                      ("lines_route_per_axis_ms", lines_ms),
@@ -2476,11 +2589,11 @@ def _tile_axes(name, x, order, bc, card, forward=False):
             wm = _loop_ms(run(p))
             res["width_loop_ms"][w].append(wm)
             parts.append(f"W={w} {wm:.4f} ms "
-                         f"({pf.tile_blocks_per_sm(x.dtype, bc, p, not forward)}"
+                         f"({pf.tile_blocks_per_sm(x.dtype, kernel, bc, p)}"
                          f" blocks "
                          f"per SM, model {pf.blocks_per_sm(p)}; "
                          f"{pf.waves(p, sms)} waves; {p.smem} B)")
-        occ = (f", {pf.tile_blocks_per_sm(x.dtype, bc, plan, not forward)} "
+        occ = (f", {pf.tile_blocks_per_sm(x.dtype, kernel, bc, plan)} "
                f"blocks per SM"
                f", {pf.waves(plan, sms)} waves of {sms} SMs, {plan.smem} "
                f"bytes shared" if plan.route == "tile" else "")
@@ -2490,6 +2603,68 @@ def _tile_axes(name, x, order, bc, card, forward=False):
               f"tile's copy alone {stage:.4f} ms, x.clone() {clone:.4f} ms; "
               f"tile widths back to back: {'; '.join(parts)} [{card}]")
     return res
+
+
+def _times_writeback(rs, card):
+    """K2's writeback route (an integer input with the prefilter on, order
+    3) over every deformed axis at c2's 200 x 300 (uint8, float64 compute,
+    as ``deform_grid`` with c2's float64 grid) and on a 128^3 int16 volume
+    (float32 compute, as ``deform`` with a float32 grid): its time, held to
+    its twin bit for bit, beside the twin's, the recursion's (K2 without
+    the writeback) and ``tensordot``'s on the same input, and its bound:
+    ``numel * n`` multiply-adds per axis at the float64 or float32 rate."""
+    import torch
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    dev = torch.device("cuda")
+    out = {}
+    for label, shape, idt, dtype in (
+            ("c2 200x300 uint8 float64", (1, 200, 300, 1), np.uint8,
+             torch.float64),
+            ("128^3 int16 float32", (1, 128, 128, 128, 1), np.int16,
+             torch.float32)):
+        lo, hi = (0, 256) if idt is np.uint8 else (-3000, 3000)
+        x = torch.as_tensor(rs.randint(lo, hi, shape), dtype=dtype,
+                            device=dev)
+        axes = tuple(range(1, len(shape) - 1))
+        mats = [torch.as_tensor(pf.filter_matrix(shape[a], 3), dtype=dtype,
+                                device=dev) for a in axes]
+
+        def chain(fn, int_dtype=idt, x=x, axes=axes):
+            def run():
+                y = x
+                for a in axes:
+                    y = fn(y, 3, a, int_dtype)
+                return y
+            return run
+
+        def lib(x=x, axes=axes, mats=mats):
+            y = x
+            for a, m in zip(axes, mats):
+                y = torch.movedim(torch.tensordot(m, y, dims=([1], [a])), 0,
+                                  a)
+            return y
+        got = chain(pf.spline_filter1d)()
+        if not torch.equal(_bits(got), _bits(chain(
+                pf.spline_filter1d_plain)().contiguous())):
+            raise AssertionError(f"K2 writeback at {label}: differs from "
+                                 "the plain twin")
+        numel = x.numel()
+        ops = sum(2 * numel * shape[a] for a in axes)
+        bound = _bound(2 * len(axes) * numel * x.element_size(), ops,
+                       FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS)
+        res = {"ms": _time_ms(chain(pf.spline_filter1d)),
+               "plain_ms": _time_ms(chain(pf.spline_filter1d_plain), reps=3,
+                                    warmup=1),
+               "recursion_ms": _time_ms(chain(pf.spline_filter1d, None)),
+               "library_ms": _time_ms(lib), "bound_ms": bound[0],
+               "bound_by": bound[1]}
+        out[label] = res
+        print(f"K2 writeback route at {label}, order 3, {len(axes)} axes: "
+              f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms; K2's "
+              f"recursion without the writeback {res['recursion_ms']:.4f} "
+              f"ms; tensordot {res['library_ms']:.4f} ms; bound "
+              f"{bound[0]:.4f} ms by {bound[1]}) [{card}]")
+    return out
 
 
 def _times_resampler(row, card, k1_lines):
@@ -2576,34 +2751,28 @@ def _times_resampler(row, card, k1_lines):
     bound = _bound(3 * 2 * numel * 4,
                    3 * numel * (1 + 9 * len(pf.spline_poles(order))))
     scale = float(v.abs().max())
-    for name, fn, plain, axes, lib_mats, replaces in (
-            ("spline_prefilter_bc", pf.spline_filter1d_bc,
+    for name, kernel, fn, plain, axes, lib_mats, replaces in (
+            ("spline_prefilter_bc", "K6", pf.spline_filter1d_bc,
              pf.spline_filter1d_bc_plain, (1, 2, 3), mats,
              "elasticdeform_tpu/ops/prefilter.py:150"),
-            ("spline_prefilter_bc_transpose",
+            ("spline_prefilter_bc_transpose", "K7",
              pf.spline_filter1d_bc_transpose,
              pf.spline_filter1d_bc_transpose_plain, (3, 2, 1), t_mats,
              "elasticdeform_tpu/ops/prefilter.py:177")):
         err = _assert_close(chain(fn, axes)(), chain(plain, axes)(),
                             *_tol(torch.float32, scale),
                             f"{name} at c8 shapes")
-        if fn is pf.spline_filter1d_bc:
-            per_axis = [_time_ms(lambda ax=ax: fn(v, order, ax, "reflect"))
-                        for ax in (1, 2, 3)]
-            print(f"{name} per-axis ms at (1, 160, 192, 224) f32, axes "
-                  f"1/2/3: {per_axis} [{card}]")
-            extra = None
-        else:
-            def lines(y, o, a, bc):
-                return pf._launch_transpose(y, o, a, bc, pf._tile_plan(
-                    *pf._lines(y, a), y.dtype, route="lines"))
-            if not torch.equal(_bits(chain(fn, axes)()),
-                               _bits(chain(lines, axes)())):
-                raise AssertionError(f"{name} at c8 shapes: the tile route "
-                                     "differs from the lines route")
-            extra = {"lines_route_ms": _time_ms(chain(lines, axes)),
-                     **_tile_axes(f"{name} at (1, 160, 192, 224) f32", v,
-                                  order, "reflect", card)}
+
+        def lines(y, o, a, bc, kernel=kernel):
+            return _launcher(kernel, bc)(y, o, a, pf._tile_plan(
+                *pf._lines(y, a), y.dtype, route="lines"))
+        if not torch.equal(_bits(chain(fn, axes)()),
+                           _bits(chain(lines, axes)())):
+            raise AssertionError(f"{name} at c8 shapes: the tile route "
+                                 "differs from the lines route")
+        extra = {"lines_route_ms": _time_ms(chain(lines, axes)),
+                 **_tile_axes(f"{name} at (1, 160, 192, 224) f32", v,
+                              order, "reflect", card, kernel)}
         row(name, "prefilter.cu", replaces, _time_ms(chain(fn, axes)),
             _time_ms(chain(plain, axes)), bound,
             _time_ms(chain(None, axes, lib_mats)), err, at="c8",
@@ -2954,14 +3123,40 @@ def times_c6(card, cfg):
     return out
 
 
+def _k6_digest(rs):
+    """sha256 of K6's output bits (the public wrapper, as the plan routes
+    it) over the tile sweep's views, orders 2-5, reflect and wrap, float32
+    and float64: equal digests from two trees mean bit-equal K6s."""
+    import hashlib
+    import torch
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    h = hashlib.sha256()
+    shapes = [(131, 9, 1), (23, 64, 3), (5, 224, 33), (3, 64, 64),
+              (2, 9, 100), (2, 1760, 1), (3, 881, 5), (1, 160, 43008),
+              (160, 192, 224), (30720, 224, 1)]
+    for shape, dtype, order, bc in itertools.product(
+            shapes, (torch.float32, torch.float64), (2, 3, 4, 5),
+            ("reflect", "wrap")):
+        x = torch.as_tensor(rs.rand(*shape) * 200 - 50, dtype=dtype,
+                            device="cuda")
+        h.update(_bits(pf.spline_filter1d_bc(x, order, 1, bc)).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
 def times_ab(card, reps=REPS):
     """K2 over c5's three axes (64 x 64^3 float32, order 3) beside the
-    ``tensordot`` chain, K9T at c14's shapes (160x192x224 float32, a 5^3
-    kernel at origin (1, 0, -1), constant mode) beside ``conv_transpose3d``
-    (TF32 off), and every config c1-c17 whole, in ms (CUDA events, median of
-    ``reps``). It calls only the package's public wrappers and configs, so
-    it also times an older tree's package, one process per tree, in one
-    call to the card. Prints one line ``ab: {json}`` and returns it."""
+    ``tensordot`` chain, K6 over c8's three axes (1 x 160 x 192 x 224
+    float32, reflect, order 3) and c9's input (96^3, wrap) beside the
+    ``tensordot`` chain, K2 with the uint8 writeback over c2's 200 x 300
+    (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
+    origin (1, 0, -1), constant mode) beside ``conv_transpose3d`` (TF32
+    off), and every config c1-c17 whole, in ms (CUDA events, median of
+    ``reps``); and the digest of K6's outputs over a sweep
+    (:func:`_k6_digest`). It calls only the package's public wrappers and
+    configs, so it also times an older tree's package, one process per
+    tree, in one call to the card. Prints one line ``ab: {json}`` and
+    returns it."""
     import torch
     import torch.nn.functional as F
     from elasticdeform_tpu_torch.ops import filters as ft
@@ -2994,7 +3189,37 @@ def times_ab(card, reps=REPS):
            "conv_transpose3d_c14": _time_ms(
                lambda: F.conv_transpose3d(v[None, None], w5t, padding=2),
                reps)}
-    del x, v
+    del x
+    for label, y, bc in (("c8", v[None], "reflect"),
+                         ("c9", torch.as_tensor(rs.rand(1, 96, 96, 96).astype(
+                             np.float32), device=dev), "wrap")):
+        mats = [torch.as_tensor(pf.filter_matrix_bc(n, 3, bc),
+                                dtype=y.dtype, device=dev)
+                for n in y.shape[1:]]
+
+        def k6(y=y, bc=bc):
+            for a in (1, 2, 3):
+                y = pf.spline_filter1d_bc(y, 3, a, bc)
+            return y
+
+        def k6_lib(y=y, mats=mats):
+            for a in (1, 2, 3):
+                y = torch.movedim(torch.tensordot(mats[a - 1], y,
+                                                  dims=([1], [a])), 0, a)
+            return y
+        out[f"K6_{label}"] = _time_ms(k6, reps)
+        out[f"tensordot_{label}"] = _time_ms(k6_lib, reps)
+    xi = torch.as_tensor(rs.randint(0, 256, (1, 200, 300, 1)),
+                         dtype=torch.float64, device=dev)
+
+    def wb():
+        y = xi
+        for a in (1, 2):
+            y = pf.spline_filter1d(y, 3, a, np.uint8)
+        return y
+    out["K2_writeback_c2"] = _time_ms(wb, reps)
+    out["K6_digest"] = _k6_digest(rs)
+    del v, xi
     for cfg in _configs():
         out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
     print(f"ab: {json.dumps(out)} [{card}]")
@@ -3070,7 +3295,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
         raise AssertionError("K2 at c5 shapes: the tile route differs from "
                              "the lines route")
     axes = _tile_axes("spline_prefilter at (64, 64, 64, 64, 1) f32", x, order,
-                      "mirror", card, forward=True)
+                      "mirror", card, "K2")
     filter_bound = _bound(3 * 2 * numel * 4,
                           3 * numel * (1 + 4 * len(pf.spline_poles(order))))
     row("spline_prefilter", "prefilter.cu",
@@ -3079,7 +3304,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
         _time_ms(chain(pf.spline_filter1d_plain, (1, 2, 3))), filter_bound,
         _time_ms(chain(None, (1, 2, 3), fwd_mats)), k2_err,
         extra={"lines_route_ms": _time_ms(chain(k2_lines, (1, 2, 3))),
-               **axes})
+               **axes, "writeback": _times_writeback(rs, card)})
     coeffs = chain(pf.spline_filter1d, (1, 2, 3))()
 
     # (the transposed matrices in the order the axes are applied, 3, 2, 1)
@@ -3099,7 +3324,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
         raise AssertionError("K4 at c5 shapes: the tile route differs from "
                              "the lines route")
     axes = _tile_axes("spline_prefilter_transpose at (64, 64, 64, 64, 1) "
-                      "f32", x, order, "mirror", card)
+                      "f32", x, order, "mirror", card, "K4")
     row("spline_prefilter_transpose", "prefilter.cu",
         "elasticdeform_tpu/ops/prefilter.py:376",
         _time_ms(chain(tr, (3, 2, 1))),

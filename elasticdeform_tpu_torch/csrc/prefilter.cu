@@ -17,8 +17,8 @@
 //
 // The tensor is viewed as (outer, n, inner) with the filtered axis in the
 // middle; line (o, i) is o*n*inner + k*inner + i, k = 0..n-1. The stages
-// (k2_stages: the gain, the poles, the integer writeback) run on a line in
-// shared memory on the tile route, in device memory on the lines route.
+// (k2_stages: the gain, the poles) run on a line in shared memory on the
+// tile route, in device memory on the lines route.
 //
 // Bound on the H100: bytes, 2 * numel * sizeof(T) (each element read once
 // and written once) over 3.35 TB/s. The recursion touches each element
@@ -54,10 +54,9 @@
 // spreads over the line with the same coefficients. Plain twins:
 // ops/prefilter.py spline_filter1d_bc_plain / _transpose_plain (tensordot
 // with filter_matrix_bc(n, order, bc) or its transpose). Bound as for K2.
-// K6 runs one thread per line in device memory, uncoalesced when the
-// filtered axis is innermost (inner == 1); K7 takes K4's routes.
+// K6 (k6_stages) and K7 take K4's routes.
 //
-// K2, K4 and K7 take one of two routes, picked on the host by
+// K2, K4, K6 and K7 take one of two routes, picked on the host by
 // ops/prefilter.py:_tile_plan from (outer, n, inner, dtype):
 //
 // * tile (every line that fits): a block stages W whole lines (W = 32, 64
@@ -76,8 +75,8 @@
 //   every axis. The loads are cp.async copies straight into shared memory,
 //   all of a thread's in flight at once. The last tile of a row of outers
 //   may be partial and is guarded. The stages are the lines route's, word
-//   for word (K2: the gain, the stages and the writeback in shared memory,
-//   then a raw store; K4 and K7: the stages, then a store with the gain),
+//   for word (K2 and K6: the gain and the stages in shared memory, then a
+//   raw store; K4 and K7: the stages, then a store with the gain),
 //   so with --fmad=false the two routes agree bit for bit. The
 //   host picks W so that the blocks fill the fewest rounds of the card's
 //   SMs: a block's load, recursion and store run in turn, and several
@@ -87,10 +86,24 @@
 //   line, the recursion in device memory, uncoalesced on the innermost
 //   axis.
 //
-// Optional fused writeback (int_bits > 0): after the axis, truncate toward
-// zero and wrap modulo 2^int_bits (ops/resample.py cast_int_c), the
-// reference's per-axis integer writeback, which is nonlinear and must run
-// after each axis. It is computed in T with the plain version's operations.
+// K2's writeback route (an integer input: ops/deform.py passes int_dtype):
+// the reference's per-axis integer writeback (truncate toward zero, wrap
+// modulo 2^int_bits: ops/resample.py cast_int_c) is nonlinear, so where
+// the exact value lies at or near an integer, two summation orders that
+// agree to 1e-13 can truncate to different integers. This route therefore
+// does not run the recursion: each output is the row sum
+// y[a] = sum_k M[a,k] x[k] of filter_matrix(n, order) M (uploaded in T),
+// k ascending from 0, float64 a rounded multiply then a rounded add
+// (__dmul_rn, __dadd_rn), float32 one fused multiply-add per term (fmaf),
+// then cast_int_c, stored straight to device memory. Its plain twin
+// (ops/prefilter.py:_row_sums) runs the same order; it is the JAX
+// package's order where XLA's CPU dot is a sequential chain. n
+// multiply-adds per element: bound by operations. A tile form stages W
+// lines as the tile route does; a lines form reads lines over the cap
+// from device memory. Every row sum is independent, so the rows of a line
+// split into runs (Params::row_groups, picked by ops/prefilter.py:
+// _row_groups), each run by its own block or thread: with few lines, one
+// thread's n * n chain steps would leave most of the card idle.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,8 +116,10 @@
 namespace {
 
 enum { BC_REFLECT = 1, BC_WRAP = 2 };
-// the tile kernel's stage sets: K4, K7 (BC_REFLECT, BC_WRAP) and K2
-enum { TILE_K4 = 0, TILE_K2 = 3 };
+// the tile kernel's stage sets: K4, K7 (BC_REFLECT, BC_WRAP), K2, K6
+// (reflect, wrap) and K2's writeback route
+enum { TILE_K4 = 0, TILE_K2 = 3, TILE_K6_REFLECT = 4, TILE_K6_WRAP = 5,
+       TILE_K2_WRITEBACK = 6 };
 
 struct Params {
   int64_t outer, n, inner;
@@ -115,8 +130,12 @@ struct Params {
   double denom[ED_MAXPOLES];  // 1 - p^(2n-2)
   double zn[ED_MAXPOLES];     // p^n (K6, K7)
   double gain;
-  int int_bits;       // 0: no writeback
+  int int_bits;       // K2's writeback route: the integer's bits
   double int_lo;      // iinfo(dtype).min
+  const void* mat;    // K2's writeback route: filter_matrix(n) in T
+  // K2's writeback route: the rows of a line split into this many runs,
+  // each run by its own block (tile form) or thread (lines form)
+  int row_groups;
 };
 
 template <typename T>
@@ -347,8 +366,7 @@ __device__ __forceinline__ void anticausal_f(T* x, const I n, const I s,
 // causal initialisation (the truncated sum when the horizon is shorter
 // than the line, else the full mirror sum over 1 - p^(2n-2)), the causal
 // pass, the anti-causal initialisation x[n-1] = c (x[n-1] + p x[n-2]) and
-// pass; then, with int_bits > 0, the integer writeback. A line of n <= 1
-// (or no poles) is left as it is before the writeback. x is one line at
+// pass. A line of n <= 1 (or no poles) is left as it is. x is one line at
 // stride s: device memory on the lines route, a shared-memory tile on the
 // tile route.
 template <typename T, typename I>
@@ -373,11 +391,6 @@ __device__ __forceinline__ void k2_stages(T* x, const I n, const I s,
       x[(n - 1) * s] = prev;
       anticausal_f(x, n, s, z, prev);
     }
-  }
-  if (p.int_bits > 0) {
-    const T lo = T(p.int_lo);
-    const T span = T(ldexp(1.0, p.int_bits));
-    for (I k = 0; k < n; ++k) x[k * s] = cast_int_c(x[k * s], lo, span);
   }
 }
 
@@ -464,8 +477,62 @@ prefilter_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
   for (int64_t k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
 }
 
-// K6: the filter of prefilter_kernel with the initialisations of the
-// boundary condition BC (reflect or wrap), no integer writeback.
+// K6's stages on a line already copied in raw: the filter of k2_stages
+// with the initialisations of the boundary condition BC (reflect or wrap).
+// The gain; per pole the causal initialisation over the whole period, the
+// causal pass, the anti-causal initialisation and pass. A line of n <= 1
+// (or no poles) is left as it is. x is one line at stride s, as in
+// k2_stages.
+template <typename T, int BC, typename I>
+__device__ __forceinline__ void k6_stages(T* x, const I n, const I s,
+                                          const Params& p) {
+  if (n <= 1 || p.npoles == 0) return;
+  const T gain = T(p.gain);
+  for (I k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
+#pragma unroll   // as in k2_stages
+  for (int q = 0; q < ED_MAXPOLES; ++q) {
+    if (q >= p.npoles) continue;
+    const double zd = p.pole[q], znd = p.zn[q];
+    const T z = T(zd);
+    const T zn = T(znd);
+    // causal initialisation over the whole period
+    if (BC == BC_REFLECT) {
+      const T c0 = x[0];
+      T zi = T(1);
+      T acc = T(0);
+      for (I i = 0; i < n; ++i) {
+        acc = acc + zi * (x[i * s] + zn * x[(n - 1 - i) * s]);
+        zi = zi * z;
+      }
+      x[0] = acc * T(zd / (1.0 - znd * znd)) + c0;
+    } else {
+      T zi = z;
+      T acc = x[0];
+      for (I i = 1; i < n; ++i) {
+        acc = acc + zi * x[(n - i) * s];
+        zi = zi * z;
+      }
+      x[0] = acc * T(1.0 / (1.0 - znd));
+    }
+    T prev = causal_f(x, n, s, z);
+    // anti-causal initialisation
+    if (BC == BC_REFLECT) {
+      prev = prev * T(zd / (zd - 1.0));
+    } else {
+      T zi = z;
+      T acc = prev;
+      for (I i = 0; i < n - 1; ++i) {
+        acc = acc + zi * x[i * s];
+        zi = zi * z;
+      }
+      prev = acc * T(zd / (znd - 1.0));
+    }
+    x[(n - 1) * s] = prev;
+    anticausal_f(x, n, s, z, prev);
+  }
+}
+
+// K6, lines route: one thread per line in device memory.
 template <typename T, int BC>
 __global__ void __launch_bounds__(256)
 prefilter_bc_kernel(const T* __restrict__ in, T* __restrict__ out,
@@ -479,60 +546,90 @@ prefilter_bc_kernel(const T* __restrict__ in, T* __restrict__ out,
   const T* src = in + o * n * s + i0;
   T* x = out + o * n * s + i0;
 
-  if (n <= 1 || p.npoles == 0) {
-    for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
-    return;
+  for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s];
+  k6_stages<T, BC, int64_t>(x, n, s, p);
+}
+
+// One sum-of-products step of K2's writeback route: float32 one fused
+// multiply-add (fmaf, which --fmad=false leaves fused), float64 a rounded
+// multiply, then a rounded add.
+__device__ __forceinline__ float wb_step(float m, float v, float acc) {
+  return fmaf(m, v, acc);
+}
+__device__ __forceinline__ double wb_step(double m, double v, double acc) {
+  return __dadd_rn(acc, __dmul_rn(m, v));
+}
+
+// K2's writeback route on one line x at stride s (shared memory on the
+// tile form, device memory on the lines form): for a = a0 .. a1-1 the row
+// sum of p.mat (n x n, row-major, in T) with k ascending from 0, then
+// cast_int_c, stored to dst[a * ds]. Four rows at a time share each load
+// of x[k] and run four independent chains; each row's own chain is the
+// same.
+template <typename T, typename I>
+__device__ __forceinline__ void writeback_rows(const T* x, const I n,
+                                               const I s, T* dst,
+                                               const int64_t ds, const I a0,
+                                               const I a1, const Params& p) {
+  const T* __restrict__ mat = static_cast<const T*>(p.mat);
+  const T lo = T(p.int_lo);
+  const T span = T(ldexp(1.0, p.int_bits));
+  I a = a0;
+  for (; a + 4 <= a1; a += 4) {
+    const T* r0 = mat + (int64_t)a * n;
+    const T* r1 = r0 + n;
+    const T* r2 = r1 + n;
+    const T* r3 = r2 + n;
+    T c0 = T(0), c1 = T(0), c2 = T(0), c3 = T(0);
+#pragma unroll 2
+    for (I k = 0; k < n; ++k) {
+      const T v = x[k * s];
+      c0 = wb_step(__ldg(r0 + k), v, c0);
+      c1 = wb_step(__ldg(r1 + k), v, c1);
+      c2 = wb_step(__ldg(r2 + k), v, c2);
+      c3 = wb_step(__ldg(r3 + k), v, c3);
+    }
+    dst[a * ds] = cast_int_c(c0, lo, span);
+    dst[(a + 1) * ds] = cast_int_c(c1, lo, span);
+    dst[(a + 2) * ds] = cast_int_c(c2, lo, span);
+    dst[(a + 3) * ds] = cast_int_c(c3, lo, span);
   }
-  const T gain = T(p.gain);
-  for (int64_t k = 0; k < n; ++k) x[k * s] = src[k * s] * gain;
-  for (int q = 0; q < p.npoles; ++q) {
-    const double zd = p.pole[q], znd = p.zn[q];
-    const T z = T(zd);
-    const T zn = T(znd);
-    // causal initialisation over the whole period
-    if (BC == BC_REFLECT) {
-      const T c0 = x[0];
-      T zi = T(1);
-      T acc = T(0);
-      for (int64_t i = 0; i < n; ++i) {
-        acc = acc + zi * (x[i * s] + zn * x[(n - 1 - i) * s]);
-        zi = zi * z;
-      }
-      x[0] = acc * T(zd / (1.0 - znd * znd)) + c0;
-    } else {
-      T zi = z;
-      T acc = x[0];
-      for (int64_t i = 1; i < n; ++i) {
-        acc = acc + zi * x[(n - i) * s];
-        zi = zi * z;
-      }
-      x[0] = acc * T(1.0 / (1.0 - znd));
-    }
-    // causal pass
-    T prev = x[0];
-    for (int64_t k = 1; k < n; ++k) {
-      prev = x[k * s] + z * prev;
-      x[k * s] = prev;
-    }
-    // anti-causal initialisation
-    if (BC == BC_REFLECT) {
-      prev = prev * T(zd / (zd - 1.0));
-    } else {
-      T zi = z;
-      T acc = prev;
-      for (int64_t i = 0; i < n - 1; ++i) {
-        acc = acc + zi * x[i * s];
-        zi = zi * z;
-      }
-      prev = acc * T(zd / (znd - 1.0));
-    }
-    x[(n - 1) * s] = prev;
-    // anti-causal pass
-    for (int64_t k = n - 2; k >= 0; --k) {
-      prev = z * (prev - x[k * s]);
-      x[k * s] = prev;
-    }
+  for (; a < a1; ++a) {
+    const T* row = mat + (int64_t)a * n;
+    T acc = T(0);
+    for (I k = 0; k < n; ++k) acc = wb_step(__ldg(row + k), x[k * s], acc);
+    dst[a * ds] = cast_int_c(acc, lo, span);
   }
+}
+
+// The rows [a0, a1) of row group g of a line of n under p.row_groups: runs
+// of a multiple of 4 rows (ops/prefilter.py:_row_groups).
+template <typename I>
+__device__ __forceinline__ void row_run(const I n, const int groups,
+                                        const int g, I* a0, I* a1) {
+  const I run = ((n + groups - 1) / groups + 3) / 4 * 4;
+  *a0 = g * run < n ? g * run : n;
+  *a1 = *a0 + run < n ? *a0 + run : n;
+}
+
+// K2's writeback route, lines form: one thread per line and row group,
+// read from device memory.
+template <typename T>
+__global__ void __launch_bounds__(256)
+prefilter_writeback_kernel(const T* __restrict__ in, T* __restrict__ out,
+                           const Params p) {
+  const int64_t lines = p.outer * p.inner;
+  const int64_t id = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= lines * p.row_groups) return;
+  const int64_t g = id / lines;
+  const int64_t line = id - g * lines;
+  const int64_t o = line / p.inner;
+  const int64_t i = line - o * p.inner;
+  const int64_t s = p.inner;
+  const int64_t base = o * p.n * s + i;
+  int64_t a0, a1;
+  row_run<int64_t>(p.n, p.row_groups, (int)g, &a0, &a1);
+  writeback_rows<T, int64_t>(in + base, p.n, s, out + base, s, a0, a1, p);
 }
 
 // K7's stages after the copy: the exact transpose of prefilter_bc_kernel,
@@ -629,10 +726,12 @@ __device__ __forceinline__ void packed_walk(const Tile& t, int run,
   }
 }
 
-// K2 (KIND TILE_K2), K4 (TILE_K4) and K7 (BC_REFLECT or BC_WRAP), tile
-// route: stage W lines in shared memory, run the stages there and store
-// them: K2 raw (k2_stages applies the gain first and the writeback last),
-// K4 and K7 with the gain. At most 1024 / W blocks' worth of registers per
+// K2 (KIND TILE_K2), K4 (TILE_K4), K6 (TILE_K6_REFLECT or TILE_K6_WRAP)
+// and K7 (BC_REFLECT or BC_WRAP), tile route: stage W lines in shared
+// memory, run the stages there and store them: K2 and K6 raw (their stages
+// apply the gain first), K4 and K7 with the gain. K2's writeback route
+// (TILE_K2_WRITEBACK) stages the same lines and stores each row sum
+// straight to device memory. At most 1024 / W blocks' worth of registers per
 // SM are asked for (64 registers a thread), so that shared memory, not
 // registers, limits how many blocks share an SM at the main path's line
 // lengths.
@@ -644,9 +743,16 @@ prefilter_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
   T* tile = reinterpret_cast<T*>(ed_smem);
   const int n = (int)p.n;
   const int w = threadIdx.x;
-  // K4 and K7 filter, then scale by the gain on the store; K2's stages do
-  // both themselves
-  const bool filter = n > 1 && p.npoles > 0 && KIND != TILE_K2;
+  // K2's writeback route runs p.row_groups blocks on each tile, one run of
+  // rows each
+  const int64_t tile_id = KIND == TILE_K2_WRITEBACK
+                              ? (int64_t)blockIdx.x / p.row_groups
+                              : (int64_t)blockIdx.x;
+  // K2's and K6's stages apply the gain themselves and are stored raw; K4
+  // and K7 filter, then scale by the gain on the store
+  constexpr bool raw = KIND == TILE_K2 || KIND == TILE_K6_REFLECT ||
+                       KIND == TILE_K6_WRAP;
+  const bool filter = n > 1 && p.npoles > 0 && !raw;
   const T gain = T(p.gain);
   // packed: the run of `outers` whole outers from offset `first`; column:
   // line w of the tile's `width` lines starts at offset `first`
@@ -655,14 +761,14 @@ prefilter_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
   int outers = 0, width;
   if (t.packed) {
     const int64_t g = t.lines / inner;
-    const int64_t o0 = (int64_t)blockIdx.x * g;
+    const int64_t o0 = tile_id * g;
     const int64_t left = p.outer - o0;
     outers = (int)(left < g ? left : g);
     width = outers * inner;
     first = o0 * p.n * inner;
   } else {
-    const int64_t o = blockIdx.x / t.col_tiles;
-    const int64_t c0 = (blockIdx.x - o * t.col_tiles) * W;
+    const int64_t o = tile_id / t.col_tiles;
+    const int64_t c0 = (tile_id - o * t.col_tiles) * W;
     const int64_t left = p.inner - c0;
     width = (int)(left < W ? left : W);
     first = o * p.n * p.inner + c0 + w;
@@ -679,28 +785,44 @@ prefilter_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
   stage_wait();
   __syncthreads();
-  if ((filter || KIND == TILE_K2) && w < width) {
-    // line w: element k at x[k * s]
-    T* x = t.packed ? tile + (w / inner) * t.stride + w % inner : tile + w;
-    const int s = t.packed ? inner : t.stride;
-    if constexpr (KIND == TILE_K2)
-      k2_stages<T, int>(x, n, s, p);
-    else if constexpr (KIND == TILE_K4)
-      k4_stages<T, int>(x, n, s, p);
-    else
-      k7_stages<T, KIND, int>(x, n, s, p);
-  }
-  __syncthreads();
-  if (t.packed) {
-    T* dst = out + first;
-    packed_walk<W>(t, n * inner, outers, w, [&](int e, int sh) {
-      dst[e] = filter ? tile[sh] * gain : tile[sh];
-    });
-  } else if (w < width) {
-    T* dst = out + first;
-    for (int k = 0; k < n; ++k, dst += p.inner) {
-      const T v = tile[k * t.stride + w];
-      *dst = filter ? v * gain : v;
+  // line w: element k at x[k * s]
+  T* x = t.packed ? tile + (w / inner) * t.stride + w % inner : tile + w;
+  const int s = t.packed ? inner : t.stride;
+  if constexpr (KIND == TILE_K2_WRITEBACK) {
+    // each row sum goes straight to device memory: no store phase
+    if (w < width) {
+      T* dst = out + first +
+               (t.packed ? (int64_t)(w / inner) * n * inner + w % inner : 0);
+      int a0, a1;
+      row_run<int>(n, p.row_groups,
+                   (int)(blockIdx.x - tile_id * p.row_groups), &a0, &a1);
+      writeback_rows<T, int>(x, n, s, dst, p.inner, a0, a1, p);
+    }
+  } else {
+    if ((filter || raw) && w < width) {
+      if constexpr (KIND == TILE_K2)
+        k2_stages<T, int>(x, n, s, p);
+      else if constexpr (KIND == TILE_K4)
+        k4_stages<T, int>(x, n, s, p);
+      else if constexpr (KIND == TILE_K6_REFLECT)
+        k6_stages<T, BC_REFLECT, int>(x, n, s, p);
+      else if constexpr (KIND == TILE_K6_WRAP)
+        k6_stages<T, BC_WRAP, int>(x, n, s, p);
+      else
+        k7_stages<T, KIND, int>(x, n, s, p);
+    }
+    __syncthreads();
+    if (t.packed) {
+      T* dst = out + first;
+      packed_walk<W>(t, n * inner, outers, w, [&](int e, int sh) {
+        dst[e] = filter ? tile[sh] * gain : tile[sh];
+      });
+    } else if (w < width) {
+      T* dst = out + first;
+      for (int k = 0; k < n; ++k, dst += p.inner) {
+        const T v = tile[k * t.stride + w];
+        *dst = filter ? v * gain : v;
+      }
     }
   }
 }
@@ -734,6 +856,18 @@ cudaError_t dispatch_bc(int dtype, int bc, const void* in, void* out,
   if (dtype == 1 && bc == BC_WRAP)
     return launch_bc<double, BC_WRAP, TRANSPOSE>(in, out, p, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_writeback(const void* in, void* out, const Params& p,
+                             cudaStream_t stream) {
+  const int64_t lines = p.outer * p.inner * p.row_groups;
+  if (lines == 0 || p.n == 0) return cudaSuccess;
+  const int threads = 256;
+  const int64_t blocks = (lines + threads - 1) / threads;
+  prefilter_writeback_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), p);
+  return cudaGetLastError();
 }
 
 template <typename T, bool TRANSPOSE>
@@ -806,6 +940,15 @@ cudaError_t launch_tile_t(int kind, int width, const void* in, void* out,
   if (kind == BC_WRAP)
     return launch_tile_k<T, BC_WRAP>(width, in, out, p, t, smem, blocks, s,
                                      occ);
+  if (kind == TILE_K6_REFLECT)
+    return launch_tile_k<T, TILE_K6_REFLECT>(width, in, out, p, t, smem,
+                                             blocks, s, occ);
+  if (kind == TILE_K6_WRAP)
+    return launch_tile_k<T, TILE_K6_WRAP>(width, in, out, p, t, smem, blocks,
+                                          s, occ);
+  if (kind == TILE_K2_WRITEBACK)
+    return launch_tile_k<T, TILE_K2_WRITEBACK>(width, in, out, p, t, smem,
+                                               blocks, s, occ);
   return cudaErrorInvalidValue;
 }
 
@@ -853,8 +996,7 @@ bool make_tile(Tile* t, int itemsize, int64_t outer, int64_t n,
 
 bool make_params(Params* p, long long outer, long long n, long long inner,
                  int npoles, const double* poles, const int* horizons,
-                 const double* pn1, const double* denom, double gain,
-                 int int_bits, double int_lo) {
+                 const double* pn1, const double* denom, double gain) {
   if (npoles < 0 || npoles > ED_MAXPOLES) return false;
   p->outer = outer;
   p->n = n;
@@ -870,8 +1012,10 @@ bool make_params(Params* p, long long outer, long long n, long long inner,
     p->zn[q] = used ? pow(poles[q], (double)n) : 0.0;
   }
   p->gain = gain;
-  p->int_bits = int_bits;
-  p->int_lo = int_lo;
+  p->int_bits = 0;
+  p->int_lo = 0.0;
+  p->mat = nullptr;
+  p->row_groups = 1;
   return true;
 }
 
@@ -879,17 +1023,17 @@ bool make_params(Params* p, long long outer, long long n, long long inner,
 
 extern "C" {
 
-// dtype: 0 float32, 1 float64. poles/horizons/pn1/denom: npoles each
-// (host-computed in float64). in and out must not overlap.
-// Returns cudaGetLastError().
+// K2 on the lines route. dtype: 0 float32, 1 float64.
+// poles/horizons/pn1/denom: npoles each (host-computed in float64). in and
+// out must not overlap. Returns cudaGetLastError().
 int ed_spline_prefilter(int dtype, const void* in, void* out, long long outer,
                         long long n, long long inner, int npoles,
                         const double* poles, const int* horizons,
                         const double* pn1, const double* denom, double gain,
-                        int int_bits, double int_lo, void* stream) {
+                        void* stream) {
   Params p;
   if (!make_params(&p, outer, n, inner, npoles, poles, horizons, pn1, denom,
-                   gain, int_bits, int_lo))
+                   gain))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0   ? launch<float, false>(in, out, p, s)
@@ -899,8 +1043,7 @@ int ed_spline_prefilter(int dtype, const void* in, void* out, long long outer,
 }
 
 // K4 on the lines route, the transpose of ed_spline_prefilter's filter;
-// the same arguments without the integer writeback. Returns
-// cudaGetLastError().
+// the same arguments. Returns cudaGetLastError().
 int ed_spline_prefilter_transpose(int dtype, const void* in, void* out,
                                   long long outer, long long n,
                                   long long inner, int npoles,
@@ -909,7 +1052,7 @@ int ed_spline_prefilter_transpose(int dtype, const void* in, void* out,
                                   double gain, void* stream) {
   Params p;
   if (!make_params(&p, outer, n, inner, npoles, poles, horizons, pn1, denom,
-                   gain, 0, 0.0))
+                   gain))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0   ? launch<float, true>(in, out, p, s)
@@ -928,7 +1071,7 @@ int ed_spline_prefilter_bc(int dtype, int bc, int transpose, const void* in,
                            double gain, void* stream) {
   Params p;
   if (!make_params(&p, outer, n, inner, npoles, poles, nullptr, nullptr,
-                   nullptr, gain, 0, 0.0))
+                   nullptr, gain))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = transpose ? dispatch_bc<true>(dtype, bc, in, out, p, s)
@@ -936,29 +1079,28 @@ int ed_spline_prefilter_bc(int dtype, int bc, int transpose, const void* in,
   return (int)err;
 }
 
-// K2 (kind 3, the mirror terms given, int_bits / int_lo as for
-// ed_spline_prefilter), K4 (kind 0, the mirror terms given) and K7 (kind 1
-// reflect, 2 wrap; horizons, pn1 and denom null) on the tile route, with
-// the plan of ops/prefilter.py:_tile_plan: width W threads and lines a
-// block, packed (inner < W), lines per full tile, shared row stride, shared
-// bytes, blocks. A plan that does not fit the shape, or a writeback asked
-// of K4 or K7, is refused with cudaErrorInvalidValue. in and out must not
-// overlap. Returns cudaGetLastError().
+// K2 (kind 3) and K4 (kind 0), the mirror terms given, and K7 (kind 1
+// reflect, 2 wrap) and K6 (kind 4 reflect, 5 wrap), horizons, pn1 and denom
+// null, on the tile route, with the plan of ops/prefilter.py:_tile_plan:
+// width W threads and lines a block, packed (inner < W), lines per full
+// tile, shared row stride, shared bytes, blocks. A plan that does not fit
+// the shape, or another kind, is refused with cudaErrorInvalidValue. in
+// and out must not overlap. Returns cudaGetLastError().
 int ed_spline_prefilter_tile(
     int dtype, int kind, const void* in, void* out, long long outer,
     long long n, long long inner, int npoles, const double* poles,
     const int* horizons, const double* pn1, const double* denom, double gain,
-    int int_bits, double int_lo, int width, int packed, int lines,
-    int stride, int smem, long long blocks, void* stream) {
+    int width, int packed, int lines, int stride, int smem, long long blocks,
+    void* stream) {
   if (outer * inner == 0 || n == 0) return (int)cudaSuccess;
   Params p;
   Tile t;
   const int itemsize = dtype == 0 ? 4 : 8;
   const bool mirror = kind == TILE_K4 || kind == TILE_K2;
-  if ((mirror && (!horizons || !pn1 || !denom)) ||
-      (kind != TILE_K2 && int_bits != 0) ||
+  if (kind < TILE_K4 || kind > TILE_K6_WRAP ||
+      (mirror && (!horizons || !pn1 || !denom)) ||
       !make_params(&p, outer, n, inner, npoles, poles, horizons, pn1, denom,
-                   gain, int_bits, int_lo) ||
+                   gain) ||
       !make_tile(&t, itemsize, outer, n, inner, width, packed, lines, stride,
                  smem, blocks))
     return (int)cudaErrorInvalidValue;
@@ -966,10 +1108,46 @@ int ed_spline_prefilter_tile(
                           static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// Blocks of the tile kernel (dtype, kind as for ed_spline_prefilter_tile,
-// width) that one SM holds at smem bytes of shared memory each
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a negative CUDA error
-// code on failure.
+// K2's writeback route: each output the row sum of mat (filter_matrix(n)
+// as n x n row-major T on the card) in the fixed order above, truncated
+// and wrapped to int_bits bits from int_lo (iinfo.min), the rows of each
+// line split into row_groups runs. width 0: the lines form (a thread per
+// line and run, blocks of 256); else the tile form with the plan's
+// geometry, as for ed_spline_prefilter_tile, row_groups blocks on each
+// tile. in and out must not overlap. Returns cudaGetLastError().
+int ed_spline_prefilter_writeback(
+    int dtype, const void* in, void* out, const void* mat, long long outer,
+    long long n, long long inner, int int_bits, double int_lo,
+    int row_groups, int width, int packed, int lines, int stride, int smem,
+    long long blocks, void* stream) {
+  if (outer * inner == 0 || n == 0) return (int)cudaSuccess;
+  Params p;
+  if (!mat || int_bits < 1 || int_bits > 64 || row_groups < 1 ||
+      !make_params(&p, outer, n, inner, 0, nullptr, nullptr, nullptr,
+                   nullptr, 1.0))
+    return (int)cudaErrorInvalidValue;
+  p.int_bits = int_bits;
+  p.int_lo = int_lo;
+  p.mat = mat;
+  p.row_groups = row_groups;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 0)
+    return (int)(dtype == 0   ? launch_writeback<float>(in, out, p, s)
+                 : dtype == 1 ? launch_writeback<double>(in, out, p, s)
+                              : cudaErrorInvalidValue);
+  Tile t;
+  if (!make_tile(&t, dtype == 0 ? 4 : 8, outer, n, inner, width, packed,
+                 lines, stride, smem, blocks) ||
+      blocks * row_groups > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_tile(dtype, TILE_K2_WRITEBACK, width, in, out, p, t,
+                          smem, blocks * row_groups, s, nullptr);
+}
+
+// Blocks of the tile kernel (dtype; kind as for ed_spline_prefilter_tile,
+// or 6 for K2's writeback route; width) that one SM holds at smem bytes of
+// shared memory each (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a
+// negative CUDA error code on failure.
 int ed_prefilter_tile_blocks_per_sm(int dtype, int kind, int width,
                                     int smem) {
   Params p{};

@@ -147,10 +147,13 @@ def _table(spec: DeformSpec):
 
 
 def _setup(displacement: torch.Tensor, affine, spec: DeformSpec):
-    """Compute dtype, dense displacement and affine tensor of a call."""
+    """Compute dtype, dense displacement and affine tensor of a call; the
+    displacement summed in one order on every device when an output is an
+    integer (rounded from the resampled values)."""
     cdt = getattr(torch, spec.compute_dtype)
+    exact = any(np.dtype(i.dtype).kind in "biu" for i in spec.inputs)
     displ = dense_displacement(displacement.to(cdt), spec.out_spatial,
-                               spec.deform_shape, spec.offsets)
+                               spec.deform_shape, spec.offsets, exact)
     if affine is not None:
         affine = torch.as_tensor(affine, dtype=cdt, device=displ.device)
     return cdt, displ, affine

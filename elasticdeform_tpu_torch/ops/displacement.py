@@ -6,7 +6,12 @@ B-spline per output voxel, folding out-of-grid taps with mirror arithmetic
 deform.c:643,655). Along each axis that is a fixed linear map, so it is a
 host-built float64 matrix per axis, applied with ``torch.tensordot``: a
 small dense product (``ncp`` is a handful of points), which the JAX package
-also leaves to its compiler rather than to a kernel.
+also leaves to its compiler rather than to a kernel. A ``tensordot`` is a
+cuBLAS product on the card and a CPU BLAS product on the CPU, which sum in
+different orders; for a call with an integer output, which rounds the
+resampled values, the field is summed in one fixed order instead
+(:func:`_contract`), so that the card and the CPU place every sample at the
+same coordinates, bit for bit.
 """
 
 from __future__ import annotations
@@ -48,21 +53,35 @@ def displacement_matrix(odim: int, ncp: int, idim: int, offset: int,
     return W
 
 
+def _contract(W: torch.Tensor, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``tensordot(W, x, ([1], [axis]))`` with the new axis moved back to
+    ``axis``, summed in one order on every device: k ascending, each
+    product rounded, then each sum (separate elementwise operations)."""
+    xm = torch.movedim(x, axis, 0)
+    shape = (W.shape[0],) + (1,) * (xm.dim() - 1)
+    y = W[:, 0].reshape(shape) * xm[0]
+    for k in range(1, W.shape[1]):
+        y = y + W[:, k].reshape(shape) * xm[k]
+    return torch.movedim(y, 0, axis)
+
+
 def dense_displacement(displacement: torch.Tensor, out_shape, in_shape,
-                       offsets) -> torch.Tensor:
+                       offsets, fixed_order: bool = False) -> torch.Tensor:
     """Dense field ``(B, naxis, *out_shape)`` from raw control grids
     ``(B, naxis, *points)``, prefilter composed in.
 
     ``in_shape`` is the uncropped extent (the ``cp`` formula divides by it,
     reference deform.c:643) and ``offsets`` the per-axis crop offsets.
+    ``fixed_order`` sums in :func:`_contract`'s order, the same bits on
+    every device (for integer outputs; a ``tensordot`` otherwise).
     """
     out = displacement
     for h in range(len(out_shape)):
         W = displacement_matrix(out_shape[h], out.shape[h + 2], in_shape[h],
                                 offsets[h], True)
         Wt = torch.as_tensor(W, dtype=out.dtype, device=out.device)
-        out = torch.movedim(torch.tensordot(Wt, out, dims=([1], [h + 2])),
-                            0, h + 2)
+        out = (_contract(Wt, out, h + 2) if fixed_order else torch.movedim(
+            torch.tensordot(Wt, out, dims=([1], [h + 2])), 0, h + 2))
     return out.contiguous()
 
 

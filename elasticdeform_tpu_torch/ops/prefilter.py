@@ -21,13 +21,20 @@ conditions of SciPy >= 1.6, for the general resampler's modern modes and
 ``spline_filter``. Their plain versions are ``tensordot`` with
 :func:`filter_matrix_bc` and its transpose (``ops/prefilter.py:150`` there).
 
-K2, K4 and K7 take one of two routes, which :func:`_tile_plan` picks from
-the shape: ``"tile"`` stages W whole lines of the axis in shared memory and
-filters them there (every line of at most :func:`tile_cap` elements: 1760
-in float32, 880 in float64), ``"lines"`` runs one thread per line in
-device memory (longer lines). Both compute the same operations in the same
-order. Each wrapper counts its launches per route in ``.routes``; K6 runs
-one thread per line.
+K2, K4, K6 and K7 take one of two routes, which :func:`_tile_plan` picks
+from the shape: ``"tile"`` stages W whole lines of the axis in shared
+memory and filters them there (every line of at most :func:`tile_cap`
+elements: 1760 in float32, 880 in float64), ``"lines"`` runs one thread
+per line in device memory (longer lines). Both compute the same operations
+in the same order. Each wrapper counts its launches per route in
+``.routes``.
+
+With an integer writeback (``int_dtype``, an integer input to ``deform``)
+K2 takes its ``"writeback"`` route instead: no recursion, but the row sums
+of the filter matrix in one fixed order, then the truncating cast after the
+axis (:func:`_row_sums`, which its plain version runs too), so that the
+card and the CPU truncate to the same integers. It has a tile form and a
+lines form, on the same plan.
 
 The float64 numpy helpers (poles, the reference recursion, the filter
 matrices) are this package's own copies of the JAX package's.
@@ -187,15 +194,64 @@ def _apply_matrix(x: torch.Tensor, mat: np.ndarray, axis: int):
     return torch.movedim(torch.tensordot(m, x, dims=([1], [axis])), 0, axis)
 
 
+@functools.lru_cache(maxsize=64)
+def _filter_table(n: int, order: int, dtype, device) -> torch.Tensor:
+    """``filter_matrix(n, order)`` in ``dtype`` on ``device``, uploaded
+    once: the table of K2's writeback route and of its twin."""
+    return torch.as_tensor(filter_matrix(n, order), dtype=dtype,
+                           device=device)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """``fmaf(a, b, c)`` of float32 tensors (broadcast), rounded once, on
+    any device. The product of two float32 values is exact in float64; the
+    float64 sum with ``c`` is taken rounded to odd (the rounded sum, moved
+    one step toward the exact sum where it is inexact and even, the error
+    found exactly by TwoSum), and rounding that to float32 rounds the exact
+    ``a * b + c`` once (53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _row_sums(x: torch.Tensor, mat: torch.Tensor, axis: int):
+    """``y[a] = sum_k mat[a, k] x[k]`` along ``axis`` in one fixed order,
+    k ascending from 0: float64 a rounded multiply, then a rounded add (no
+    fused multiply-add: separate PyTorch operations); float32 one fused
+    multiply-add per term (:func:`_fma32`). The order of K2's writeback
+    route, and of XLA's CPU dot where that is a sequential chain."""
+    xm = torch.movedim(x, axis, 0)
+    shape = (xm.shape[0],) + (1,) * (xm.dim() - 1)
+    y = torch.zeros_like(xm)
+    for k in range(xm.shape[0]):
+        col = mat[:, k].reshape(shape)
+        if x.dtype == torch.float32:
+            y = _fma32(col, xm[k], y)
+        else:
+            y = y + col * xm[k]
+    return torch.movedim(y, 0, axis)
+
+
 def spline_filter1d_plain(x: torch.Tensor, order: int, axis: int,
                           int_dtype=None) -> torch.Tensor:
     """Plain version of K2: the float64 filter matrix applied in the
-    tensor's dtype, then, if ``int_dtype`` is given, the reference's
-    integer writeback :func:`cast_int_c`."""
+    tensor's dtype (``tensordot``); with ``int_dtype``, the plain version of
+    its writeback route: the matrix's row sums in the route's order
+    (:func:`_row_sums`), then the reference's integer writeback
+    :func:`cast_int_c`."""
     if order <= 1:
         return x
-    y = _apply_matrix(x, filter_matrix(x.shape[axis], order), axis)
-    return y if int_dtype is None else cast_int_c(y, int_dtype)
+    n = x.shape[axis]
+    if int_dtype is None:
+        return _apply_matrix(x, filter_matrix(n, order), axis)
+    mat = _filter_table(n, order, x.dtype, x.device)
+    return cast_int_c(_row_sums(x, mat, axis), int_dtype)
 
 
 def spline_filter1d_transpose_plain(x: torch.Tensor, order: int,
@@ -247,8 +303,8 @@ def _lib():
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
-            ctypes.POINTER(ctypes.c_double), ctypes.c_double, ctypes.c_int,
-            ctypes.c_double, ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_double), ctypes.c_double,
+            ctypes.c_void_p]
         fn = lib.ed_spline_prefilter_transpose
         fn.restype = ctypes.c_int
         fn.argtypes = [
@@ -273,8 +329,16 @@ def _lib():
             ctypes.c_int, ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
             ctypes.POINTER(ctypes.c_double), ctypes.c_double, ctypes.c_int,
-            ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p]
+        fn = lib.ed_spline_prefilter_writeback
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p]
         fn = lib.ed_prefilter_tile_blocks_per_sm
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4
@@ -300,7 +364,7 @@ _ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 
 
 class TilePlan(NamedTuple):
-    """How K2, K4 or K7 runs on an ``(outer, n, inner)`` view: ``route``
+    """How K2, K4, K6 or K7 runs on an ``(outer, n, inner)`` view: ``route``
     ``"tile"`` or ``"lines"``; for a tile, ``width`` threads and lines a
     block, ``packed`` (``inner < width``: a tile is ``lines // inner``
     whole outers, one contiguous run), ``lines`` of a full tile, the
@@ -338,7 +402,7 @@ def waves(plan: TilePlan, sms: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def _tile_plan(outer: int, n: int, inner: int, dtype, width=None,
                route=None, sms: int = 132) -> TilePlan:
-    """The launch of K2, K4 or K7 on an ``(outer, n, inner)`` view of a
+    """The launch of K2, K4, K6 or K7 on an ``(outer, n, inner)`` view of a
     ``dtype`` tensor: the tile route for ``n <= tile_cap(dtype)``, else the
     lines route. The tile width is the one of :data:`TILE_WIDTHS` whose
     blocks fill the fewest rounds (:func:`waves`) of ``sms`` SMs, the first
@@ -399,9 +463,11 @@ def _plan_for(x: torch.Tensor, axis: int) -> TilePlan:
     return _tile_plan(*_lines(x, axis), x.dtype, sms=_sm_count(x.device))
 
 
-# the tile kernel's stage sets (csrc/prefilter.cu): K4, K7 and K2
-_TILE_KINDS = {"mirror": 0, **_BC_CODES}
-_TILE_K2 = 3
+# the tile kernel's stage sets (csrc/prefilter.cu), by kernel and boundary
+# condition
+_TILE_KINDS = {("K4", "mirror"): 0, ("K7", "reflect"): 1, ("K7", "wrap"): 2,
+               ("K2", "mirror"): 3, ("K6", "reflect"): 4, ("K6", "wrap"): 5,
+               ("K2 writeback", "mirror"): 6}
 
 
 def _int_writeback(int_dtype):
@@ -414,43 +480,68 @@ def _int_writeback(int_dtype):
     return info.bits, float(info.min)
 
 
+def _row_groups(plan: TilePlan, n: int, lines: int, sms: int) -> int:
+    """How many runs K2's writeback route splits each line's n output rows
+    into, each run taken by its own block (tile form) or thread (lines
+    form): every row is an independent sum, and a line's rows in turn are
+    a chain of n * n steps, so with few lines the card would sit idle. As
+    many runs as bring the launch to about 4 blocks of the plan (or 4
+    blocks of 256 threads) per SM, each of at least 4 rows."""
+    units = plan.blocks if plan.route == "tile" else lines
+    want = 4 * sms * (1 if plan.route == "tile" else 256)
+    return max(1, min(-(-want // max(units, 1)), -(-n // 4)))
+
+
 def _launch_filter(x: torch.Tensor, order: int, axis: int, plan: TilePlan,
                    int_dtype=None) -> torch.Tensor:
-    """K2 on a CUDA tensor along ``axis``, with the integer writeback of
-    ``int_dtype``, on the route and tile ``plan`` names; counts nothing
-    (the public wrapper counts)."""
+    """K2 on a CUDA tensor along ``axis`` on the route and tile ``plan``
+    names; with ``int_dtype``, K2's writeback route instead (its tile form
+    on a tile plan, its lines form on a lines plan) with that integer's
+    writeback. Counts nothing (the public wrapper counts)."""
     check_kernel_tensor(x, "spline_prefilter")
     outer, n, inner = _lines(x, axis)
-    poles, horizons, pn1, denom, gain = _kernel_params(n, order)
-    bits, lo = _int_writeback(int_dtype)
     dt = 0 if x.dtype == torch.float32 else 1
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    npoles = len(spline_poles(order))
     out = torch.empty_like(x)
     lib = _lib()
+    if int_dtype is not None:
+        bits, lo = _int_writeback(int_dtype)
+        mat = _filter_table(n, order, x.dtype, x.device)
+        groups = _row_groups(plan, n, outer * inner, _sm_count(x.device))
+        err = lib.ed_spline_prefilter_writeback(
+            dt, x.data_ptr(), out.data_ptr(), mat.data_ptr(), outer, n, inner,
+            bits, lo, groups, plan.width, int(plan.packed), plan.lines,
+            plan.stride, plan.smem, plan.blocks, stream)
+        _build.check(err, lib, "ed_prefilter_error_string",
+                     "spline_prefilter writeback")
+        return out
+    poles, horizons, pn1, denom, gain = _kernel_params(n, order)
+    npoles = len(spline_poles(order))
     if plan.route == "tile":
         err = lib.ed_spline_prefilter_tile(
-            dt, _TILE_K2, x.data_ptr(), out.data_ptr(), outer, n, inner,
-            npoles, poles, horizons, pn1, denom, gain, bits, lo, plan.width,
-            int(plan.packed), plan.lines, plan.stride, plan.smem, plan.blocks,
-            stream)
+            dt, _TILE_KINDS["K2", "mirror"], x.data_ptr(), out.data_ptr(),
+            outer, n, inner, npoles, poles, horizons, pn1, denom, gain,
+            plan.width, int(plan.packed), plan.lines, plan.stride, plan.smem,
+            plan.blocks, stream)
     else:
         err = lib.ed_spline_prefilter(
             dt, x.data_ptr(), out.data_ptr(), outer, n, inner, npoles, poles,
-            horizons, pn1, denom, gain, bits, lo, stream)
+            horizons, pn1, denom, gain, stream)
     _build.check(err, lib, "ed_prefilter_error_string", "spline_prefilter")
     return out
 
 
-def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
-                      plan: TilePlan) -> torch.Tensor:
-    """K4 (``bc='mirror'``) or K7 (``'reflect'``, ``'wrap'``) on a CUDA
-    tensor along ``axis``, on the route and tile ``plan`` names; counts
-    nothing (the public wrappers count)."""
-    what = ("spline_prefilter_transpose" if bc == "mirror"
-            else "spline_prefilter_bc_transpose")
+def _launch_poles(x: torch.Tensor, order: int, axis: int, bc: str,
+                  plan: TilePlan, transpose: bool) -> torch.Tensor:
+    """K4 (``bc='mirror'``, ``transpose``), K7 (``'reflect'``, ``'wrap'``,
+    ``transpose``) or K6 (``'reflect'``, ``'wrap'``) on a CUDA tensor
+    along ``axis``, on the route and tile ``plan`` names; counts nothing
+    (the public wrappers count)."""
+    what = ("spline_prefilter_transpose" if bc == "mirror" else
+            "spline_prefilter_bc_transpose" if transpose else
+            "spline_prefilter_bc")
     check_kernel_tensor(x, what)
-    if bc != "mirror" and bc not in _BC_CODES:
+    if bc not in _BC_CODES and (bc != "mirror" or not transpose):
         raise ValueError(f"{what}: bc must be 'reflect' or 'wrap', got {bc!r}")
     outer, n, inner = _lines(x, axis)
     poles = spline_poles(order)
@@ -465,9 +556,10 @@ def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
     out = torch.empty_like(x)
     lib = _lib()
     if plan.route == "tile":
+        kernel = "K4" if bc == "mirror" else "K7" if transpose else "K6"
         err = lib.ed_spline_prefilter_tile(
-            dt, _TILE_KINDS[bc], x.data_ptr(), out.data_ptr(), outer, n,
-            inner, len(poles), cpoles, horizons, pn1, denom, gain, 0, 0.0,
+            dt, _TILE_KINDS[kernel, bc], x.data_ptr(), out.data_ptr(), outer,
+            n, inner, len(poles), cpoles, horizons, pn1, denom, gain,
             plan.width, int(plan.packed), plan.lines, plan.stride, plan.smem,
             plan.blocks, stream)
     elif bc == "mirror":
@@ -476,18 +568,32 @@ def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
             cpoles, horizons, pn1, denom, gain, stream)
     else:
         err = lib.ed_spline_prefilter_bc(
-            dt, _BC_CODES[bc], 1, x.data_ptr(), out.data_ptr(), outer, n,
-            inner, len(poles), cpoles, gain, stream)
+            dt, _BC_CODES[bc], int(transpose), x.data_ptr(), out.data_ptr(),
+            outer, n, inner, len(poles), cpoles, gain, stream)
     _build.check(err, lib, "ed_prefilter_error_string", what)
     return out
 
 
-def tile_blocks_per_sm(dtype, bc: str, plan: TilePlan,
-                       transpose: bool = True) -> int:
-    """Blocks of K4's or K7's tile kernel (``bc``), or with ``transpose``
-    False K2's, that one SM holds under ``plan`` (CUDA's occupancy
+def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
+                      plan: TilePlan) -> torch.Tensor:
+    """K4 (``bc='mirror'``) or K7 (``'reflect'``, ``'wrap'``) on ``plan``:
+    :func:`_launch_poles`."""
+    return _launch_poles(x, order, axis, bc, plan, True)
+
+
+def _launch_bc_filter(x: torch.Tensor, order: int, axis: int, bc: str,
+                      plan: TilePlan) -> torch.Tensor:
+    """K6 under ``bc`` (``'reflect'`` or ``'wrap'``) on ``plan``:
+    :func:`_launch_poles`."""
+    return _launch_poles(x, order, axis, bc, plan, False)
+
+
+def tile_blocks_per_sm(dtype, kernel: str, bc: str, plan: TilePlan) -> int:
+    """Blocks of the tile kernel of ``kernel`` (``"K2"``, ``"K2
+    writeback"``, ``"K4"``, ``"K6"`` or ``"K7"``) under ``bc`` (``'mirror'``
+    for K2 and K4) that one SM holds under ``plan`` (CUDA's occupancy
     calculator; needs the card)."""
-    kind = _TILE_KINDS[bc] if transpose else _TILE_K2
+    kind = _TILE_KINDS[kernel, bc]
     lib = _lib()
     got = lib.ed_prefilter_tile_blocks_per_sm(
         0 if dtype == torch.float32 else 1, kind, plan.width, plan.smem)
@@ -500,12 +606,13 @@ def spline_filter1d(x: torch.Tensor, order: int, axis: int,
                     int_dtype=None) -> torch.Tensor:
     """Spline prefilter of ``x`` along ``axis`` (mirror boundary).
 
-    ``int_dtype`` (a numpy integer or bool dtype) fuses the reference's
-    per-axis integer writeback after the filter. Orders 0 and 1 need no
-    filter and return ``x`` as it is. A CPU tensor takes
-    :func:`spline_filter1d_plain`; a CUDA tensor launches K2 (contiguous
-    float32 or float64 only) on the route of :func:`_tile_plan` and adds
-    one to ``spline_filter1d.launches`` and to its route's count in
+    ``int_dtype`` (a numpy integer or bool dtype) adds the reference's
+    per-axis integer writeback after the filter, on K2's writeback route.
+    Orders 0 and 1 need no filter and return ``x`` as it is. A CPU tensor
+    takes :func:`spline_filter1d_plain`; a CUDA tensor launches K2
+    (contiguous float32 or float64 only) on the route of :func:`_tile_plan`,
+    or with ``int_dtype`` on its writeback route, and adds one to
+    ``spline_filter1d.launches`` and to that route's count in
     ``spline_filter1d.routes``.
     """
     if order <= 1:
@@ -516,12 +623,13 @@ def spline_filter1d(x: torch.Tensor, order: int, axis: int,
     plan = _plan_for(x, axis)
     out = _launch_filter(x, order, axis, plan, int_dtype)
     spline_filter1d.launches += 1
-    spline_filter1d.routes[plan.route] += 1
+    spline_filter1d.routes["writeback" if int_dtype is not None
+                           else plan.route] += 1
     return out
 
 
 spline_filter1d.launches = 0
-spline_filter1d.routes = {"tile": 0, "lines": 0}
+spline_filter1d.routes = {"tile": 0, "lines": 0, "writeback": 0}
 
 
 def spline_filter1d_transpose(x: torch.Tensor, order: int,
@@ -557,32 +665,24 @@ def spline_filter1d_bc(x: torch.Tensor, order: int, axis: int,
     ``bc``, ``'reflect'`` or ``'wrap'`` (the mirror one is
     :func:`spline_filter1d`). Orders 0 and 1 return ``x`` as it is. A CPU
     tensor takes :func:`spline_filter1d_bc_plain`; a CUDA tensor launches K6
-    (contiguous float32 or float64 only) and adds one to
-    ``spline_filter1d_bc.launches``.
+    (contiguous float32 or float64 only) on the route of :func:`_tile_plan`
+    and adds one to ``spline_filter1d_bc.launches`` and to its route's
+    count in ``spline_filter1d_bc.routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
         return spline_filter1d_bc_plain(x, order, axis, bc)
-    what = "spline_prefilter_bc"
-    check_kernel_tensor(x, what)
-    if bc not in _BC_CODES:
-        raise ValueError(f"{what}: bc must be 'reflect' or 'wrap', got {bc!r}")
-    outer, n, inner = _lines(x, axis)
-    poles = spline_poles(order)
-    out = torch.empty_like(x)
-    lib = _lib()
-    err = lib.ed_spline_prefilter_bc(
-        0 if x.dtype == torch.float32 else 1, _BC_CODES[bc], 0,
-        x.data_ptr(), out.data_ptr(), outer, n, inner, len(poles),
-        (ctypes.c_double * len(poles))(*poles), _gain(poles),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, lib, "ed_prefilter_error_string", what)
+    check_kernel_tensor(x, "spline_prefilter_bc")
+    plan = _plan_for(x, axis)
+    out = _launch_bc_filter(x, order, axis, bc, plan)
     spline_filter1d_bc.launches += 1
+    spline_filter1d_bc.routes[plan.route] += 1
     return out
 
 
 spline_filter1d_bc.launches = 0
+spline_filter1d_bc.routes = {"tile": 0, "lines": 0}
 
 
 def spline_filter1d_bc_transpose(x: torch.Tensor, order: int, axis: int,

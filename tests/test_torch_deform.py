@@ -17,7 +17,9 @@ from elasticdeform_tpu.ops import deform as jdef
 import elasticdeform_tpu_torch as et
 from elasticdeform_tpu_torch import _normalize as tn
 from elasticdeform_tpu_torch import api as tapi
+from elasticdeform_tpu_torch import core as tcore
 from elasticdeform_tpu_torch.ops import deform as tdef
+from elasticdeform_tpu_torch.ops import displacement as tdisp
 
 MODES = ["nearest", "wrap", "reflect", "mirror", "constant"]
 RTOL, ATOL = 1e-5, 1e-8
@@ -98,6 +100,23 @@ def test_integer_and_bool_dtypes(dtype, order):
     d = rs.randn(2, 3, 3) * 4
     _close(et.deform_grid(X, d, order=order, device="cpu"),
            ej.deform_grid(X, d, order=order))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_integer_output_sums_its_displacement_in_fixed_order(dtype):
+    """A call with an integer output sums the dense displacement in
+    ``dense_displacement``'s fixed order (the same bits on the card and
+    the CPU); a float output keeps the ``tensordot``."""
+    rs = np.random.RandomState(9)
+    X = (rs.rand(16, 19) * 200).astype(dtype)
+    d = rs.randn(2, 3, 3).astype(np.float32) * 4
+    _, disp, _, spec = tcore._prepare(X, d, 3, "mirror", 0.0, None, True,
+                                     None, None, None, None, "auto", None)
+    disp = torch.as_tensor(disp)[None]
+    _, got, _ = tdef._setup(disp, None, spec)
+    want = tdisp.dense_displacement(disp, spec.out_spatial, spec.deform_shape,
+                                    spec.offsets, dtype == np.uint8)
+    assert torch.equal(got, want)
 
 
 def test_deform_random_grid_same_seed():

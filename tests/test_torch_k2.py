@@ -7,16 +7,17 @@ shared memory or one thread per line in device memory, with the stages of
 K7. On the CPU:
 
 * a numpy model of ``k2_stages`` in the kernel's operation order (the
-  gain, both branches of the causal initialisation, the passes, the
-  integer writeback) against ``filter_matrix(n, order)``, 1e-13;
+  gain, both branches of the causal initialisation, the passes) against
+  ``filter_matrix(n, order)``, 1e-13;
 * the K2 plain twin against the JAX package's ``spline_filter1d``
   (float64, 1e-10) at the shapes the route sweep of ``chip_smoke.py``
   adds, and with the integer writeback against the JAX package's
   ``ops/deform.py::_prefilter_input``, bit for bit;
 * the plan at K2's shapes: every line in exactly one tile.
 
-The ``cuda`` test holds both routes against the twin and each other, and
-skips without a card.
+The ``cuda`` test holds both routes against the twin and each other (with
+an integer writeback, K2's writeback route in its tile and lines forms,
+bit for bit with the twin), and skips without a card.
 """
 
 import itertools
@@ -42,7 +43,8 @@ def _cast_int_c(v, lo, span):
 
 def _k2_model(x, order, int_dtype=None):
     """numpy float64 model of K2 on one line (``k2_stages`` in
-    ``csrc/prefilter.cu``), in the kernel's operation order."""
+    ``csrc/prefilter.cu``), in the kernel's operation order; with
+    ``int_dtype``, then the integer writeback."""
     x = np.array(x, dtype=np.float64)
     n = len(x)
     poles = tp.spline_poles(order)
@@ -97,10 +99,13 @@ def test_k2_model_is_filter_matrix(order):
 @pytest.mark.parametrize("int_dtype", [np.uint8, np.int16, np.bool_])
 @pytest.mark.parametrize("n", [1, 9, 40])
 def test_k2_model_writeback_is_the_twin(n, int_dtype):
-    """The writeback after the stages, n = 1 included (no filter, the
-    cast alone), against the twin's ``cast_int_c``. (At n = 2 and 3 the
-    filter maps integers to rationals of small denominators, some of them
-    integers, where truncation tells the two summation orders apart.)"""
+    """The recursion, then the cast, n = 1 included (no filter, the cast
+    alone), against the twin's row sums and ``cast_int_c``: they agree on
+    these draws. (At n = 2 and 3 the filter maps integers to rationals of
+    small denominators, some of them integers, where truncation tells the
+    two summation orders apart: so an integer input takes K2's writeback
+    route, which sums in the twin's order; ``test_torch_k2_writeback.py``.)
+    """
     rs = np.random.RandomState(n)
     lines = rs.randint(-3000, 3000, (5, n)).astype(np.float64)
     for order in (2, 3, 5):
@@ -180,9 +185,10 @@ def test_cpu_tensors_count_no_route():
     before, routes = tp.spline_filter1d.launches, dict(
         tp.spline_filter1d.routes)
     tp.spline_filter1d(x, 3, 1)
+    tp.spline_filter1d(x, 3, 1, np.uint8)
     assert tp.spline_filter1d.launches == before
     assert tp.spline_filter1d.routes == routes
-    assert set(routes) == {"tile", "lines"}
+    assert set(routes) == {"tile", "lines", "writeback"}
 
 
 @pytest.fixture
@@ -212,6 +218,8 @@ def test_both_routes_match_plain_and_each_other(cuda_device, dtype,
         if int_dtype is None:
             torch.testing.assert_close(lines, plain, rtol=tol,
                                        atol=tol * scale)
+        else:   # the writeback route, in its twin's order
+            assert torch.equal(lines, plain)
         for width in tp.TILE_WIDTHS:
             try:
                 plan = tp._tile_plan(outer, n, inner, dtype, width=width,

@@ -110,6 +110,39 @@ def test_dense_displacement_batched():
                                    rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dense_displacement_fixed_order(dtype):
+    """With ``fixed_order`` (an integer output) each axis is the sum over
+    control points k = 0, 1, ... of rounded products, in ``dtype``: a numpy
+    loop of the same operations gives the same bits, and the field agrees
+    with the ``tensordot`` one and with the JAX package's to round-off."""
+    rs = np.random.RandomState(4)
+    grids = (rs.randn(2, 2, 3, 4) * 5).astype(dtype)
+    got = td.dense_displacement(_t(grids), (10, 12), (16, 20), (3, 5),
+                                True).numpy()
+    want = grids
+    for h, (odim, idim, off) in enumerate(zip((10, 12), (16, 20), (3, 5))):
+        W = td.displacement_matrix(odim, want.shape[h + 2], idim, off,
+                                   True).astype(dtype)
+        xm = np.moveaxis(want, h + 2, 0)
+        y = W[:, 0].reshape((-1,) + (1,) * (xm.ndim - 1)) * xm[0]
+        for k in range(1, W.shape[1]):
+            y = y + W[:, k].reshape((-1,) + (1,) * (xm.ndim - 1)) * xm[k]
+        want = np.moveaxis(y, 0, h + 2)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(
+        got, td.dense_displacement(_t(grids), (10, 12), (16, 20),
+                                   (3, 5)).numpy(), rtol=tol, atol=tol)
+    for b in range(2):
+        np.testing.assert_allclose(
+            got[b], np.asarray(jd.dense_displacement(
+                jnp.asarray(grids[b].astype(np.float64)), (10, 12), (16, 20),
+                (3, 5), jnp.float64, prefilter_grid=True)),
+            rtol=tol, atol=tol * 10)
+
+
 @pytest.mark.parametrize("order", [2, 3, 4, 5])
 @pytest.mark.parametrize("n", [9, 200])
 def test_spline_filter1d_plain(order, n):
