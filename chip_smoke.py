@@ -12,16 +12,21 @@ Phases (any failure raises, and the exit code is not 0):
    each source's build time and ptxas figures and each K2/K4/K6/K7
    instantiation's (both routes, every tile width, K2's writeback route),
    K9T's tile instantiations (per dtype, column and fold flag) and
-   K1/K1c's and K5/K5c's (per dtype, index width, rank and order), and
-   holds K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's writeback route
-   in float64 too, and K1/K1c and K5/K5c at orders 1 and 3 in float32 to no
-   stack frame and no spills;
+   K1/K1c's, K5/K5c's and K3/K3c's (per dtype, index width, rank and
+   order), and holds K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's
+   writeback route in float64 too, K1/K1c and K5/K5c at orders 1 and 3 in
+   float32, and every K3/K3c instantiation to no stack frame and no spills;
+   then prints the atomic instructions of K3/K3c at rank 3 (``cuobjdump
+   -sass``: native shared-memory adds or compare-and-swap loops);
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
-   K3 (its transpose, a scatter) and K5 (the coordinate gradient) over
+   K3 (its transpose, a scatter, on the plan's tile route and with every
+   block forced onto its direct branch, the blocks of each branch counted
+   from a host model of the boxes) and K5 (the coordinate gradient) over
    orders 0-5 x five modes x 1-D to 4-D x one and two channels in float32
    and float64 with coordinates far past every edge, shared and per-sample
    affines and crop offsets; K1c, K3c and K5c (the same at caller-given
-   coordinates, K1c and K5c bit for bit) over the same sweep plus a flat
+   coordinates, K1c and K5c bit for bit, K3c on both branches and at a
+   NaN and a far-outside coordinate) over the same sweep plus a flat
    point list; K2 (prefilter) over orders 2-5 and axis lengths 9/64/200 at
    every axis position, plus the uint8/int16 writeback (K2's writeback
    route) in float32 and float64 on lines of 2-9, 33 and 40, bit for bit;
@@ -37,6 +42,10 @@ Phases (any failure raises, and the exit code is not 0):
    route at every width equal to the lines route bit for bit; ``deform``
    and ``deform_grid`` with uint8 and int16 inputs at orders 2-5, float32
    and float64 compute, 1-D to 3-D (axes 2-64) and a 512x512 image, bit for
+   bit with the same call on the CPU; K2 and K6 on their fixed-order route
+   bit for bit with their twins, then ``affine_transform``, ``zoom``,
+   ``rotate``, ``shift`` and ``map_coordinates`` on uint8 and int16 inputs
+   at orders 0, 1 and 3, a legacy and a modern mode, 2-D and 3-D, bit for
    bit with the same call on the CPU; K9T on both routes (a shared-memory
    halo box and one thread per output) at c14's shapes in every mode, 2-D,
    rank-4 and sparse kernels, every column, per element to the twin and to
@@ -84,8 +93,9 @@ Phases (any failure raises, and the exit code is not 0):
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16, and c17's K13 sweeps per
-   call; K2's, K4's, K6's and K7's launches split by route, the tile route
-   taken, c8's and c9's K6 only there, no config on K2's writeback route);
+   call; K2's, K4's, K6's, K7's, K3's and K3c's launches split by route,
+   the tile route taken, c8's and c9's K6 only there, no config on K2's
+   writeback route);
    then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
@@ -99,9 +109,14 @@ Phases (any failure raises, and the exit code is not 0):
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
    ``grid_sample``; the share of K5's and K5c's blocks whose tap box would
    fit 16 KB of shared memory; K6, K7 and again K1c, K3c at the c8 shapes;
+   K3 at c5 (orders 3 and 1) and K3c at c7 and c8 on the plan's route, the
+   direct route, a 4x8x16 tile and a 24 KB box, with blocks per SM and the
+   distribution of the tile's boxes (share that fits, median, p90, p99);
    one line each for K1 at c5 (orders 1 and 3) and K1c at c7 and c8: taps
    gathered per second beside P2's L2 element rate, the bfloat16-table time
-   and ``grid_sample`` at order 1; K8-K9T at
+   and ``grid_sample`` at order 1; one line each for K3 and K3c there: the
+   shared-memory adds and the device-memory atomics per second beside P3's
+   rate; K8-K9T at
    the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
    ``max_pool3d``, K12 at the c15 shapes, K13 at the c17 shapes beside
    ``max_pool3d``; K2 per axis at c5 as K4 (route, W, blocks per SM,
@@ -113,12 +128,14 @@ Phases (any failure raises, and the exit code is not 0):
    the library-only probes' rates), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel (K2,
-K4, K7 and K9T with their launches per route); the last line is
+K4, K6, K7, K9T, K3 and K3c with their launches per route); the last line
+is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
 
 ``times_ab(card)`` times K2 at c5, K6 at c8 and c9, K2's integer writeback
-at c2, K9T at c14 and every config through the public wrappers only, and
+at c2, K9T at c14, K3 at c5 (orders 3 and 1), K3c at c7 and every config
+through the public wrappers only, and
 prints a digest of K6's output bits, so that a copy of this file put into
 an older tree times (and checks) that tree's package in the same call to
 the card.
@@ -245,6 +262,7 @@ def phase_device():
 # type): K5/K5c in resample_bwd.cu, K1/K1c in resample.cu
 _K5_NAME = re.compile(r"coord_grad_kernelI([fd])Li(\d)ELi(\d)E([il])E")
 _K1_NAME = re.compile(r"resample_fwd_kernelI([fd])Li(\d)ELi(\d)E([il])E")
+_K3_NAME = re.compile(r"resample_bwd_kernelI([fd])Li(\d)ELi(\d)E([il])E")
 
 
 def _ptxas_kernels(log):
@@ -351,12 +369,12 @@ def _check_k9t_ptxas(log):
                              f"float32 with a stack frame or spills: {bad}")
 
 
-def _check_rank_table(label, log, pattern, orders, count):
+def _check_rank_table(label, log, pattern, orders, count, every=False):
     """Print the registers, stack and spills of a rank-specialised kernel's
-    instantiations (K5/K5c or K1/K1c) per dtype, index type and rank, one
-    entry per order; fail unless all ``count`` are found and every float32
-    one at order 1 or 3 keeps its state in registers (no stack frame, no
-    spills)."""
+    instantiations (K5/K5c, K1/K1c or K3/K3c) per dtype, index type and
+    rank, one entry per order; fail unless all ``count`` are found and every
+    float32 one at order 1 or 3 (``every``: every one) keeps its state in
+    registers (no stack frame, no spills)."""
     found = {}
     for fn, v in _ptxas_kernels(log).items():
         m = pattern.search(fn)
@@ -374,22 +392,64 @@ def _check_rank_table(label, log, pattern, orders, count):
               f"stack/spill-store/spill-load bytes, ptxas s): "
               f"{'; '.join(parts)}")
     bad = {k: v for k, v in found.items()
-           if k[0] == "f" and k[1] in "13" and any(v[1:4])}
+           if (every or k[0] == "f" and k[1] in "13") and any(v[1:4])}
     if len(found) != count or bad:
+        held = "any" if every else "float32 orders 1 and 3"
         raise AssertionError(f"{label}: {len(found)} of {count} "
-                             f"instantiations found; float32 orders 1 and 3 "
-                             f"with a stack frame or spills: {bad}")
+                             f"instantiations found; {held} with a stack "
+                             f"frame or spills: {bad}")
+
+
+def _k3_sass(path):
+    """Print the atomic instructions of K3/K3c's float32 and float64
+    instantiations at rank 3 and orders 1 and 3 (32-bit offsets), from
+    ``cuobjdump -sass`` of the built library: whether the shared-memory
+    adds are native (ATOMS.ADD) or compare-and-swap loops (ATOMS.CAS*),
+    and the device-memory ones (RED/ATOMG). Returns ``{dtype: {opcode:
+    count}}`` at order 3; prints "not available" without cuobjdump."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("  sass K3/K3c: cuobjdump not available")
+        return {}
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    found, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = _K3_NAME.search(m.group(1))
+            cur = k.groups() if k and k.group(3) == "3" and \
+                k.group(4) == "i" and k.group(2) in "13" else None
+            if cur:
+                found[cur] = {}
+            continue
+        if cur:
+            for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG)\.[\w.]+)",
+                                 line):
+                found[cur][op] = found[cur].get(op, 0) + 1
+    out = {}
+    for (dt, order, _, _), ops in sorted(found.items()):
+        name = "float32" if dt == "f" else "float64"
+        print(f"  sass K3/K3c {name} rank 3 order {order}: " + ", ".join(
+            f"{op} x{n}" for op, n in sorted(ops.items())))
+        if order == "3":
+            out[name] = ops
+    return out
 
 
 def phase_build():
     """Build every source; print each one's nvcc time, its kernels' worst
     register, stack and spill figures, every other kernel with a stack
     frame or spills, K2/K4/K6/K7's and K9T's tile instantiations and the
-    K1/K1c and K5/K5c tables, from the ptxas report kept beside each
-    library (built in this run or before; a missing report fails).
+    K1/K1c, K5/K5c and K3/K3c tables, from the ptxas report kept beside
+    each library (built in this run or before; a missing report fails).
     K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's writeback route in
-    float64 too, and K1/K1c and K5/K5c at orders 1 and 3 in float32, must
-    keep their state in registers: no stack frame, no spills."""
+    float64 too, K1/K1c and K5/K5c at orders 1 and 3 in float32, and every
+    K3/K3c instantiation must keep their state in registers: no stack
+    frame, no spills. Then K3/K3c's atomic instructions (:func:`_k3_sass`),
+    which it returns."""
     from elasticdeform_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -406,8 +466,8 @@ def phase_build():
               f"spill stores; ptxas "
               f"{sum(v[4] for v in kern.values()) / 1e3:.1f} s in all")
         for fn, v in kern.items():
-            if not (_K5_NAME.search(fn) or _K1_NAME.search(fn)) and \
-                    (v[1] or v[2]):
+            if not (_K5_NAME.search(fn) or _K1_NAME.search(fn) or
+                    _K3_NAME.search(fn)) and (v[1] or v[2]):
                 print(f"  ptxas {name}: {fn}: {v[0]} registers, {v[1]} "
                       f"bytes stack frame, {v[2]}/{v[3]} bytes spill "
                       f"stores/loads")
@@ -417,16 +477,18 @@ def phase_build():
                              "register checks cannot run")
     _check_tile_ptxas(_build.build_logs["prefilter"])
     _check_k9t_ptxas(_build.build_logs["filters"])
-    for name, label, pattern, orders, count in (
-            ("resample", "K1/K1c", _K1_NAME, "012345", 96),
-            ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80)):
+    for name, label, pattern, orders, count, every in (
+            ("resample", "K1/K1c", _K1_NAME, "012345", 96, False),
+            ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80, False),
+            ("resample_bwd", "K3/K3c", _K3_NAME, "012345", 96, True)):
         _check_rank_table(label, _build.build_logs[name], pattern, orders,
-                          count)
+                          count, every)
     if {"resample", "resample_bwd"} <= _build.build_seconds.keys():
         print(f"  nvcc: resample.cu {_build.build_seconds['resample']:.1f} "
               f"s (K1/K1c, 96 instantiations), resample_bwd.cu "
-              f"{_build.build_seconds['resample_bwd']:.1f} s (K3/K3c, "
-              f"K5/K5c) in the same build")
+              f"{_build.build_seconds['resample_bwd']:.1f} s (K3/K3c 96, "
+              f"K5/K5c 80) in the same build")
+    return _k3_sass(paths["resample_bwd"])
 
 
 def _smooth_displacement(rs, B, naxis, out_spatial, sigma, dtype, device):
@@ -454,6 +516,7 @@ def phase_kernels():
     dev = torch.device("cuda")
     rs = np.random.RandomState(1)
     worst = dict.fromkeys(KERNELS, 0.0)
+    tally = {"tile": 0, "direct": 0}
     n = 0
     B = 2
     for (naxis, in_sp, out_sp), dtype, C, order, mode in itertools.product(
@@ -484,9 +547,9 @@ def phase_kernels():
         worst["resample_fwd"] = max(worst["resample_fwd"], err)
         g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype, device=dev)
         bargs = (displ, affine, offsets, order, mode)
-        worst["resample_bwd"] = max(
-            worst["resample_bwd"],
-            _check_k3(rb, g, bargs, in_sp, dtype, f"K3 {what}"))
+        err, k3_outs = _check_k3(rb, g, bargs, in_sp, dtype, f"K3 {what}",
+                                 tally)
+        worst["resample_bwd"] = max(worst["resample_bwd"], err)
         got = rb.resample_coord_grad(coeffs, g, *bargs)
         want = rb.resample_coord_grad_plain(coeffs, g, *bargs)
         torch.cuda.synchronize()
@@ -495,16 +558,19 @@ def phase_kernels():
             worst["resample_coord_grad"],
             _assert_close(got, want, rtol, atol, f"K5 {what}"))
         if dtype == torch.float64:
-            _check_adjoint(
-                rsm.resample(coeffs, displ, affine, offsets, order, mode,
-                             0.0), g, coeffs,
-                rb.resample_transpose(g, *bargs, in_sp), f"K1/K3 {what}")
+            fwd = rsm.resample(coeffs, displ, affine, offsets, order, mode,
+                               0.0)
+            for got in k3_outs:
+                _check_adjoint(fwd, g, coeffs, got, f"K1/K3 {what}")
         n += 1
-    print(f"K1 resample_fwd, K3 resample_bwd, K5 resample_coord_grad vs "
-          f"plain: {n} cases each pass, max abs err "
-          f"{worst['resample_fwd']:.3e} / {worst['resample_bwd']:.3e} / "
+    print(f"K1 resample_fwd, K3 resample_bwd (the plan's route, the tile "
+          f"route and the direct route), K5 resample_coord_grad vs plain: "
+          f"{n} cases each pass, max abs err {worst['resample_fwd']:.3e} / "
+          f"{worst['resample_bwd']:.3e} / "
           f"{worst['resample_coord_grad']:.3e}; the K1/K3 adjoint identity "
-          f"holds in float64 ({n // 2} cases)")
+          f"holds in float64 on every route ({n // 2} cases each); K3's "
+          f"blocks on the tile route: {tally['tile']} fit their box, "
+          f"{tally['direct']} took the direct branch")
 
     n = 0
     for dtype in (torch.float32, torch.float64):
@@ -583,6 +649,7 @@ def phase_kernels():
     _check_bc_prefilter(rs, worst)
     _check_tile_routes(rs, worst)
     _check_int_deform(rs)
+    _check_int_resampler(rs)
     _check_k9t_routes(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_kernels(rs)
@@ -600,6 +667,7 @@ def _check_coords_kernels(rs, worst):
     dev = torch.device("cuda")
     n = 0
     B = 2
+    tally = {"tile": 0, "direct": 0}
     shapes = SWEEP_SHAPES + ((3, (11, 13, 9), (257,)),)
     for (naxis, in_sp, out_sp), dtype, C, order, mode in itertools.product(
             shapes, (torch.float32, torch.float64), (1, 2), range(6),
@@ -627,26 +695,69 @@ def _check_coords_kernels(rs, worst):
                 raise AssertionError(
                     f"{name} {what}: not bit-identical to its plain twin, "
                     f"max abs err {float((got - want).abs().max()):.3e}")
-        got = rb.resample_coords_transpose(g, coords, order, mode, in_sp)
+        plans = [p for p in _k3_plans(rb, in_sp, out_sp, C, order, dtype)
+                 if p is not None]
+        outs = [rb.resample_coords_transpose(g, coords, order, mode, in_sp)]
+        outs += [rb._launch_k3c(g, coords, order, mode, in_sp, p)
+                 for p in plans]
         want = rb.resample_coords_transpose_plain(g, coords, order, mode,
                                                   in_sp)
         terms = rb.resample_coords_transpose_plain(g.abs(), coords, order,
                                                    mode, in_sp)
         torch.cuda.synchronize()
+        if plans[0].route == "tile":
+            _tally_boxes(tally, _bwd_boxes(coords, in_sp, order, mode,
+                                           plans[0], C), plans[0])
         rtol, _ = _tol(dtype, 1.0)
-        worst["resample_coords_bwd"] = max(
-            worst["resample_coords_bwd"],
-            _assert_close(got, want, rtol, rtol * terms.double().abs(),
-                          f"K3c {what}"))
-        if dtype == torch.float64:
-            _check_adjoint(
-                rsm.resample_coords(coeffs, coords, order, mode, 0.0), g,
-                coeffs, got, f"K1c/K3c {what}")
+        for got, route in zip(outs, ["plan"] + [p.route for p in plans]):
+            worst["resample_coords_bwd"] = max(
+                worst["resample_coords_bwd"],
+                _assert_close(got, want, rtol, rtol * terms.double().abs(),
+                              f"K3c ({route}) {what}"))
+            if dtype == torch.float64:
+                _check_adjoint(
+                    rsm.resample_coords(coeffs, coords, order, mode, 0.0), g,
+                    coeffs, got, f"K1c/K3c ({route}) {what}")
         n += 1
+    _check_k3c_nan(rs)
     print(f"K1c resample_coords_fwd and K5c resample_coords_grad bit for bit "
-          f"with their plain twins, K3c resample_coords_bwd within "
+          f"with their plain twins, K3c resample_coords_bwd (the plan's "
+          f"route, the tile route and the direct route) within "
           f"{worst['resample_coords_bwd']:.3e}: {n} cases each; the K1c/K3c "
-          f"adjoint identity holds in float64 ({n // 2} cases)")
+          f"adjoint identity holds in float64 on every route ({n // 2} cases "
+          f"each); K3c's blocks on the tile route: {tally['tile']} fit their "
+          f"box, {tally['direct']} took the direct branch")
+
+
+def _check_k3c_nan(rs):
+    """K3c at coordinates with a NaN and one far outside (1e20), in the
+    five modes: a block holding either takes the direct branch, so the
+    tile route's output equals the direct route's (NaN where NaN, the rest
+    per element to 1e-5 of the sum of the absolute terms, float64 1e-10)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    in_sp, out_sp = (12, 10, 9), (9, 8, 10)
+    for mode, dtype in itertools.product(range(5), (torch.float32,
+                                                     torch.float64)):
+        cc = rs.uniform(-2, 12, (1, 3, *out_sp))
+        cc[0, 1, 4, 3, 5] = np.nan
+        cc[0, 2, 0, 0, 0] = 1e20
+        coords = torch.as_tensor(cc, dtype=dtype, device="cuda")
+        g = torch.as_tensor(rs.randn(1, *out_sp, 1), dtype=dtype,
+                            device="cuda")
+        got, want = (rb._launch_k3c(g, coords, 3, mode, in_sp, rb._bwd_plan(
+            in_sp, out_sp, 1, 3, dtype, route=r)) for r in ("tile",
+                                                             "direct"))
+        terms = rb._launch_k3c(g.abs(), coords, 3, mode, in_sp,
+                               rb._bwd_plan(in_sp, out_sp, 1, 3, dtype,
+                                            route="direct"))
+        what = f"K3c with a NaN coordinate, mode={MODES[mode]} {dtype}"
+        if not torch.equal(got.isnan(), want.isnan()):
+            raise AssertionError(f"{what}: NaN elsewhere on the tile route")
+        fin = ~want.isnan()
+        rtol, _ = _tol(dtype, 1.0)
+        _assert_close(got[fin], want[fin], rtol,
+                      rtol * terms[fin].double().abs(), what)
 
 
 def _check_narrow_table(rs):
@@ -1017,6 +1128,101 @@ def _check_int_deform(rs):
           f"float32 and float64 compute, 1-D to 3-D (axes 2-64) and a "
           f"512x512 uint8 image: {n} calls equal the CPU run bit for bit, "
           f"each prefilter axis on K2's writeback route")
+
+
+def _check_int_resampler(rs):
+    """The general resampler on integer inputs: ``affine_transform``,
+    ``zoom``, ``rotate``, ``shift`` and ``map_coordinates`` with uint8 and
+    int16 inputs, orders 0, 1 and 3, a legacy mode (mirror) and a modern
+    one (reflect; grid-wrap for ``map_coordinates``), 2-D and 3-D: each
+    output equal to the same call with ``device="cpu"`` bit for bit, and at
+    order 3 each deformed axis's prefilter on the fixed-order route (K2's
+    writeback route with no cast, on ``filter_matrix`` or
+    ``filter_matrix_bc``: its count). First that route alone, K2 and K6
+    under each boundary condition, bit for bit with its twin on lines of
+    2-9, 33, 40 and 300."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    n = 0
+    for dtype, order, bc, length in itertools.product(
+            (torch.float32, torch.float64), (2, 3, 4, 5),
+            ("mirror", "reflect", "wrap"), (2, 5, 9, 33, 40, 300)):
+        x = torch.as_tensor(rs.randint(-3000, 3000, (3, length, 7)),
+                            dtype=dtype, device="cuda")
+        if bc == "mirror":
+            got = pf.spline_filter1d(x, order, 1, fixed_order=True)
+            want = pf.spline_filter1d_plain(x, order, 1, fixed_order=True)
+        else:
+            got = pf.spline_filter1d_bc(x, order, 1, bc, True)
+            want = pf.spline_filter1d_bc_plain(x, order, 1, bc, True)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(got), _bits(want.contiguous())):
+            raise AssertionError(
+                f"fixed-order prefilter {bc} {dtype} order={order} "
+                f"n={length}: {int((got != want).sum())} values differ from "
+                f"its twin")
+        n += 1
+    print(f"K2 and K6 on the fixed-order route (mirror, reflect, wrap), "
+          f"orders 2-5, float32 and float64: {n} cases bit for bit with "
+          f"their twins")
+    routes = (pf.spline_filter1d.routes, pf.spline_filter1d_bc.routes)
+    n = 0
+    for shape, idt, order, legacy in itertools.product(
+            ((37, 45), (17, 20, 23)), ("uint8", "int16"), (0, 1, 3),
+            (True, False)):
+        lo, hi = (0, 256) if idt == "uint8" else (-3000, 3000)
+        x = rs.randint(lo, hi, shape).astype(idt)
+        nd = len(shape)
+        ang = np.deg2rad(12.0)
+        mat = np.eye(nd) * 1.1
+        mat[:2, :2] = [[np.cos(ang) * 1.1, np.sin(ang)],
+                       [-np.sin(ang), np.cos(ang) * 1.1]]
+        off = rs.uniform(-3, 3, nd)
+        coords = np.stack([rs.uniform(-3, n + 3, shape) for n in shape])
+        mode = "mirror" if legacy else "reflect"
+        calls = (
+            ("affine_transform", lambda d: et.affine_transform(
+                x, mat, off, order=order, mode=mode, device=d)),
+            ("zoom", lambda d: et.zoom(x, 1.3, order=order, mode=mode,
+                                       device=d)),
+            ("rotate", lambda d: et.rotate(x, 17.0, axes=(1, 0),
+                                           order=order, mode=mode,
+                                           device=d)),
+            ("shift", lambda d: et.shift(x, off, order=order, mode=mode,
+                                         device=d)),
+            ("map_coordinates", lambda d: et.map_coordinates(
+                x, coords, order=order,
+                mode="mirror" if legacy else "grid-wrap", device=d)))
+        for name, call in calls:
+            before = sum(r["writeback"] for r in routes)
+            got = call("cuda")
+            torch.cuda.synchronize()
+            took = sum(r["writeback"] for r in routes) - before
+            want = call("cpu")
+            got, want = got.cpu(), torch.as_tensor(want)
+            what = f"{name} {idt} {shape} order={order} " \
+                   f"{'legacy' if legacy else 'modern'} mode"
+            if got.dtype != want.dtype or got.shape != want.shape or \
+                    not torch.equal(got, want):
+                diff = (got.long() - want.long()).abs() \
+                    if got.shape == want.shape else None
+                raise AssertionError(
+                    f"{what}: differs from the CPU run "
+                    f"({got.dtype} {tuple(got.shape)} vs {want.dtype} "
+                    f"{tuple(want.shape)}; "
+                    + ("" if diff is None else
+                       f"{int((diff > 0).sum())} of {diff.numel()} values, "
+                       f"max |diff| {int(diff.max())}") + ")")
+            axes = 2 if name == "rotate" else nd
+            if took != (axes if order > 1 else 0):
+                raise AssertionError(f"{what}: {took} prefilter launches on "
+                                     f"the fixed-order route, not {axes}")
+            n += 1
+    print(f"affine_transform, zoom, rotate, shift and map_coordinates with "
+          f"uint8 and int16 inputs, orders 0, 1 and 3, a legacy and a "
+          f"modern mode, 2-D and 3-D: {n} calls equal the CPU run bit for "
+          f"bit, each prefilter axis at order 3 on the fixed-order route")
 
 
 def _check_k9t_routes(rs, worst):
@@ -1447,20 +1653,97 @@ def _check_morph_kernels(rs, dev=None):
           f"run")
 
 
-def _check_k3(rb, g, bargs, in_sp, dtype, what):
-    """K3 against its plain version. Atomics add in a run-dependent order,
+def _k3_plans(rb, *plan_args):
+    """K3's plans for ``_bwd_plan(*plan_args)``: the tile route (None where
+    one voxel's box exceeds the budget) and the direct route, forced."""
+    try:
+        tile = rb._bwd_plan(*plan_args, route="tile")
+    except ValueError:
+        tile = None
+    return tile, rb._bwd_plan(*plan_args, route="direct")
+
+
+def _check_k3(rb, g, bargs, in_sp, dtype, what, tally=None):
+    """K3 against its plain version through the wrapper (the plan's route)
+    and on both routes forced: the tile route (each block's box in shared
+    memory where it fits, the direct branch where not) and every block on
+    the direct branch. Atomics add in a run-dependent order,
     so float32 is held to rtol=1e-5 and atol=1e-5 * S elementwise, where S
     (the plain transpose of |g|) is the sum of the absolute terms that
     land on the element (B-spline weights are >= 0 up to rounding);
-    float64 to 1e-10."""
+    float64 to 1e-10. ``tally`` adds the blocks of the tile route that fit
+    their box and that do not (:func:`_bwd_boxes`). Returns the largest
+    error and the outputs."""
     import torch
-    got = rb.resample_transpose(g, *bargs, in_sp)
+    from elasticdeform_tpu_torch.ops.resample import sample_coordinates
+    displ = bargs[0]
+    args = (tuple(in_sp), tuple(displ.shape[2:]), g.shape[-1], bargs[3],
+            g.dtype)
+    plans = [p for p in _k3_plans(rb, *args) if p is not None]
+    outs = [rb.resample_transpose(g, *bargs, in_sp)] + \
+        [rb._launch_k3(g, *bargs, in_sp, p) for p in plans]
     want = rb.resample_transpose_plain(g, *bargs, in_sp)
     terms = rb.resample_transpose_plain(g.abs(), *bargs, in_sp)
     torch.cuda.synchronize()
+    if tally is not None and plans[0].route == "tile":
+        cc = torch.stack(sample_coordinates(*bargs[:3]), 1)
+        _tally_boxes(tally, _bwd_boxes(cc, in_sp, bargs[3], bargs[4],
+                                       plans[0], g.shape[-1]), plans[0])
     rtol, _ = _tol(dtype, 1.0)
-    return _assert_close(got, want, rtol, rtol * terms.double().abs(),
-                         what)
+    err = max(_assert_close(got, want, rtol, rtol * terms.double().abs(),
+                            f"{what} ({route})")
+              for got, route in zip(outs, ["plan"] + [p.route
+                                                      for p in plans]))
+    return err, outs
+
+
+def _bwd_boxes(coords, in_shape, order, mode, plan, channels=1):
+    """K3/K3c's box per block (sample, tile) on ``plan``, at ``coords``
+    ``(B, naxis, *out)`` as the kernel folds them: the elements of the
+    box (``channels`` each), -1 where a coordinate is not finite or far
+    outside (the direct branch), 0 where no voxel is inside (constant
+    mode). A block fits where 0 < box <= ``plan.cap``."""
+    import torch
+    import torch.nn.functional as F
+    from elasticdeform_tpu_torch.ops import bspline, modes
+    B, naxis = coords.shape[:2]
+    view, tile = plan.view, plan.tile
+    pads = []
+    for n, t in zip(view[:0:-1], tile[::-1]):
+        pads += [0, -n % t]
+    grid = (B * view[0], *(-(-n // t) for n, t in zip(view[1:], tile)))
+    big = float(2 ** 30)
+    size, bad, ok = None, None, None
+    for h in range(naxis):
+        m, inside = modes.map_coordinate(coords[:, h], in_shape[h], mode)
+        ok = inside if ok is None else ok & inside
+    ok = ok.reshape(B * view[0], *view[1:])
+    for h in range(naxis):
+        m, _ = modes.map_coordinate(coords[:, h], in_shape[h], mode)
+        m = m.reshape(B * view[0], *view[1:])
+        start = bspline.filter_start(m, order).double()
+        far = ok & ~(m.abs() < 2 ** 29)
+        lo = F.pad(torch.where(ok, start, big), pads, value=big)
+        hi = F.pad(torch.where(ok, start, -big), pads, value=-big)
+        far = F.pad(far, pads, value=False)
+        shape = (grid[0], grid[1], tile[0], grid[2], tile[1], grid[3],
+                 tile[2])
+        lo = lo.reshape(shape).amin((2, 4, 6))
+        hi = hi.reshape(shape).amax((2, 4, 6))
+        far = far.reshape(shape).any(6).any(4).any(2)
+        ext = (hi - lo + order + 1).clamp(min=0)
+        size = ext * channels if size is None else size * ext
+        bad = far if bad is None else bad | far
+    size = torch.where(size.isfinite(), size, 0.0)
+    return torch.where(bad, -1.0, size).reshape(-1)
+
+
+def _tally_boxes(tally, boxes, plan):
+    """Add ``boxes``' blocks that fit ``plan``'s cap (the tile branch) and
+    that do not (the direct branch) to ``tally``."""
+    fit = int(((boxes > 0) & (boxes <= plan.cap)).sum())
+    tally["tile"] += fit
+    tally["direct"] += int((boxes != 0).sum()) - fit
 
 
 def _k5_scale(coeffs, g):
@@ -1974,8 +2257,8 @@ def _reset_counts():
 
 def _route_counts():
     """K2's, K4's, K6's and K7's launches per route (``{"tile": ..,
-    "lines": ..}``, K2 also ``"writeback"``) and K9T's (``{"tile": ..,
-    "nd": ..}``)."""
+    "lines": ..}``, K2 also ``"writeback"``), K9T's (``{"tile": ..,
+    "nd": ..}``) and K3's and K3c's (``{"tile": .., "direct": ..}``)."""
     return {k: dict(w.routes) for k, ws in _path_wrappers().items()
             for w in (ws,) if hasattr(w, "routes")}
 
@@ -2005,17 +2288,21 @@ def phase_main_path():
                 routes[k][r] += v
     print(f"main path launches per config: {json.dumps(launches)}")
     print(f"main path launches per route: {json.dumps(routes)}")
-    print("K2's and K6's launches per route and config: " + json.dumps(
-        {name: {k: r[k] for k in ("spline_prefilter", "spline_prefilter_bc")
-                if sum(r[k].values())} for name, r in cfg_routes.items()}))
+    print("K2's, K6's, K3's and K3c's launches per route and config: " +
+          json.dumps({name: {k: r[k] for k in (
+              "spline_prefilter", "spline_prefilter_bc", "resample_bwd",
+              "resample_coords_bwd") if sum(r[k].values())}
+              for name, r in cfg_routes.items()}))
     # no config has an integer input with the prefilter on, so none takes
-    # K2's writeback route; c8 and c9 run K6 on its tile route only
+    # K2's writeback route (K6's fixed-order one neither); c8 and c9 run K6
+    # on its tile route only
     for name, r in cfg_routes.items():
         if r["spline_prefilter"]["writeback"]:
             raise AssertionError(f"{name} took K2's writeback route: "
                                  f"{r['spline_prefilter']}")
         k6 = r["spline_prefilter_bc"]
-        if name in ("c8", "c9") and (k6["lines"] or not k6["tile"]):
+        if k6["writeback"] or name in ("c8", "c9") and (k6["lines"] or
+                                                       not k6["tile"]):
             raise AssertionError(f"{name} must run K6 on its tile route "
                                  f"only: {k6}")
     if min(total.values()) <= 0:
@@ -2534,6 +2821,86 @@ def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
     return out
 
 
+# K3/K3c's plans that phase 4 times beside the wrapper's: each route, the
+# other tile the model named, a larger box
+_K3_VARIANTS = (("direct", dict(route="direct")),
+                ("tile 8x8x8", dict(route="tile")),
+                ("tile 4x8x16", dict(route="tile", tile=(4, 8, 16))),
+                ("budget 24 KB", dict(route="tile", budget=24576)))
+
+
+def _k3_times(label, run, coords, in_shape, order, mode, plan_args, card,
+              k3_lines, library_ms=None):
+    """Phase 4's K3 or K3c at one shape: ``run(plan)`` launches it on a
+    plan (``_launch_k3`` or ``_launch_k3c``, no counts), ``plan_args`` are
+    ``_bwd_plan``'s. Times the wrapper's plan and each of
+    :data:`_K3_VARIANTS` (CUDA events, median of 10), the tile route's box
+    per block at ``coords`` (:func:`_bwd_boxes`: share that fits, median,
+    p90 and p99 in KB), its shared-memory adds (the taps of the blocks that
+    fit) and an upper bound of its device-memory atomics (their box
+    elements, plus the taps of the blocks that do not fit); prints one line
+    and appends it to ``k3_lines`` for the rates beside P3's
+    (:func:`_print_k3_lines`). Returns the numbers."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    plan = rb._bwd_plan(*plan_args)
+    tile = rb._bwd_plan(*plan_args, route="tile")
+    out = {"route": plan.route, "tile": list(tile.tile), "smem": tile.smem,
+           "ms": _time_ms(lambda: run(plan)),
+           "blocks_per_sm": rb.bwd_occupancy(plan_args[4], order,
+                                             len(in_shape), plan),
+           "tile_blocks_per_sm": rb.bwd_occupancy(plan_args[4], order,
+                                                  len(in_shape), tile)}
+    for name, kw in _K3_VARIANTS:
+        p = rb._bwd_plan(*plan_args, **kw)
+        out[f"{name} ms"] = _time_ms(lambda p=p: run(p))
+    boxes = _bwd_boxes(coords, in_shape, order, mode, tile, plan_args[2])
+    taps = (order + 1) ** len(in_shape) * plan_args[2]
+    fit = (boxes > 0) & (boxes <= tile.cap)
+    kb = boxes[boxes > 0].double() * (4 if plan_args[4] == torch.float32
+                                      else 8) / 1024
+    q = torch.quantile(kb.float().cpu(), torch.tensor([0.5, 0.9, 0.99]))
+    # every voxel of c5, c7 and c8 is inside and every tile full
+    n_vox = coords.shape[0] * math.prod(coords.shape[2:])
+    share = float(fit.float().mean())
+    out.update({"fit_share": share, "box_kb_median": float(q[0]),
+                "box_kb_p90": float(q[1]), "box_kb_p99": float(q[2]),
+                "shared_adds": n_vox * taps * share,
+                "device_atomics_at_most": float(boxes[fit].double().sum())
+                + n_vox * taps * (1 - share)})
+    lib = "" if library_ms is None else \
+        f"; grid_sampler_3d_backward input half {library_ms:.4f} ms"
+    print(f"{label}: the plan's {plan.route} route {out['ms']:.4f} ms "
+          f"({out['blocks_per_sm']} blocks per SM); " + ", ".join(
+              f"{n} {out[f'{n} ms']:.4f} ms" for n, _ in _K3_VARIANTS) +
+          f"; the tile route ({'x'.join(map(str, tile.tile))}, "
+          f"{tile.smem} B box budget, {out['tile_blocks_per_sm']} blocks per "
+          f"SM): blocks whose box fits {100 * share:.2f}%, box median "
+          f"{out['box_kb_median']:.1f} KB, p90 {out['box_kb_p90']:.1f}, p99 "
+          f"{out['box_kb_p99']:.1f}{lib} [{card}]")
+    k3_lines.append((label, out))
+    return out
+
+
+def _print_k3_lines(k3_lines, probe_times, card):
+    """One line each for K3 at c5 (orders 3, 2 and 1) and K3c at c7 and
+    c8: the tile route's shared-memory adds and device-memory atomics (at
+    most) per second, and the direct route's device-memory atomics per
+    second, beside P3's measured rate of float32 atomics into L2 (probe
+    scatrate)."""
+    ms, _, _, _, rows = probe_times["scatrate"]
+    p3 = rows * 128 / ms / 1e6
+    for label, o in k3_lines:
+        t, d = o["tile 8x8x8 ms"], o["direct ms"]
+        taps = o["shared_adds"] / o["fit_share"] if o["fit_share"] else 0.0
+        print(f"{label}: tile route {o['shared_adds'] / t / 1e6:.1f} G "
+              f"shared adds/s and at most "
+              f"{o['device_atomics_at_most'] / t / 1e6:.1f} G device-memory "
+              f"atomics/s ({o['device_atomics_at_most'] / 1e6:.1f} M); "
+              f"direct route {taps / d / 1e6:.1f} G device-memory atomics/s "
+              f"({taps / 1e6:.1f} M); P3's rate {p3:.1f} G/s [{card}]")
+
+
 def _launcher(kernel, bc):
     """``run(x, order, axis, plan)`` of ``kernel`` (K2, K4, K6 or K7) under
     ``bc``, through the private launchers (no counts)."""
@@ -2667,12 +3034,13 @@ def _times_writeback(rs, card):
     return out
 
 
-def _times_resampler(row, card, k1_lines):
+def _times_resampler(row, card, k1_lines, k3_lines):
     """Phase 4 for the general resampler: K1c, K3c and K5c at the c7 shapes
     (order 1, nearest) beside grid_sample; K6 and K7 at the c8 shapes
     beside the tensordot with filter_matrix_bc; K1c and K3c at the c8
     shapes (order 3, on the ring-padded array). K1c's two shapes go into
-    ``k1_lines`` (:func:`_print_k1_lines`)."""
+    ``k1_lines`` (:func:`_print_k1_lines`), K3c's into ``k3_lines``
+    (:func:`_print_k3_lines`)."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
@@ -2712,12 +3080,17 @@ def _times_resampler(row, card, k1_lines):
         rb.resample_coords_transpose_plain(g, coords, *a, S), 1e-5,
         1e-5 * rb.resample_coords_transpose_plain(
             g.abs(), coords, *a, S).double(), "K3c at c7 shapes")
+    k3c = _k3_times("K3c resample_coords_bwd at c7 shapes (order 1, "
+                    "nearest)",
+                    lambda plan: rb._launch_k3c(g, coords, *a, S, plan),
+                    coords, S, *a, (S, S, 1, 1, g.dtype), card, k3_lines,
+                    o1["bwd"][1])
     row("resample_coords_bwd", "resample_bwd.cu",
-        "elasticdeform_tpu/ops/deform.py:608", o1["bwd"][0],
+        "elasticdeform_tpu/ops/deform.py:608", k3c["ms"],
         _time_ms(lambda: rb.resample_coords_transpose_plain(g, coords, *a, S),
                  reps=3, warmup=1),
         _bound(vox * (1 + naxis + 1) * 4, _k1_ops(B, n_out, naxis, 1, 1)),
-        o1["bwd"][1], k3c_err, at="c7")
+        o1["bwd"][1], k3c_err, at="c7", extra=k3c)
     box = _tap_box_share(coords, S, *a)
     print(f"K5c's 256-voxel blocks at c7 shapes (order 1, nearest) whose "
           f"tap box fits 16 KB unfolded: {100 * box[0]:.2f}%, median box "
@@ -2791,7 +3164,10 @@ def _times_resampler(row, card, k1_lines):
                      "nearest)", k1, numel * 4 ** 3,
                      _time_ms(lambda: rsm.resample_coords(
                          coeffs, c8c, 3, 0, 0.0, torch.bfloat16)), None))
-    k3 = _time_ms(lambda: rb.resample_coords_transpose(gy, c8c, 3, 0, P))
+    k3 = _k3_times("K3c resample_coords_bwd at c8 shapes (order 3, "
+                   "nearest)",
+                   lambda plan: rb._launch_k3c(gy, c8c, 3, 0, P, plan), c8c,
+                   P, 3, 0, (P, S, 1, 3, gy.dtype), card, k3_lines)["ms"]
     b1 = _bound((math.prod(P) + 4 * numel) * 4, _k1_ops(1, numel, 3, 3, 1))
     b3 = _bound((4 * numel + math.prod(P)) * 4, _k1_ops(1, numel, 3, 3, 1))
     print(f"resample_coords_fwd at c8 shapes (order 3): {k1:.4f} ms, bound "
@@ -3144,6 +3520,37 @@ def _k6_digest(rs):
     return h.hexdigest()
 
 
+def _times_ab_k3(rs, reps):
+    """K3 at c5 (64 x 64^3 float32, order 3, mirror, per-sample 3^3 grids
+    of sigma 6, and at order 1, nearest) and K3c at c7 (4 x 160 x 192 x
+    224 float32, order 1, nearest, a smooth field of ~4 voxels), through
+    the public wrappers only, in ms."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    from elasticdeform_tpu_torch.ops.displacement import dense_displacement
+    dev = torch.device("cuda")
+    S = (64, 64, 64)
+    gy = torch.as_tensor(rs.rand(64, *S, 1).astype(np.float32), device=dev)
+    grid = torch.as_tensor((rs.randn(64, 3, 3, 3, 3) * 6).astype(np.float32),
+                           device=dev)
+    displ = dense_displacement(grid, S, S, (0, 0, 0))
+    out = {f"K3_c5_order{o}": _time_ms(
+        lambda o=o, m=m: rb.resample_transpose(gy, displ, None, (0, 0, 0), o,
+                                               m, S), reps)
+        for o, m in ((3, 3), (1, 0))}
+    del gy, grid, displ
+    S = (160, 192, 224)
+    g = torch.as_tensor(rs.randn(4, *S, 1).astype(np.float32), device=dev)
+    iota = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S],
+        indexing="ij"))
+    coords = (iota + torch.as_tensor(_smooth_field(rs, 4, S, 4.0),
+                                     device=dev)).contiguous()
+    out["K3c_c7"] = _time_ms(
+        lambda: rb.resample_coords_transpose(g, coords, 1, 0, S), reps)
+    return out
+
+
 def times_ab(card, reps=REPS):
     """K2 over c5's three axes (64 x 64^3 float32, order 3) beside the
     ``tensordot`` chain, K6 over c8's three axes (1 x 160 x 192 x 224
@@ -3151,11 +3558,11 @@ def times_ab(card, reps=REPS):
     ``tensordot`` chain, K2 with the uint8 writeback over c2's 200 x 300
     (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
     origin (1, 0, -1), constant mode) beside ``conv_transpose3d`` (TF32
-    off), and every config c1-c17 whole, in ms (CUDA events, median of
-    ``reps``); and the digest of K6's outputs over a sweep
-    (:func:`_k6_digest`). It calls only the package's public wrappers and
-    configs, so it also times an older tree's package, one process per
-    tree, in one call to the card. Prints one line ``ab: {json}`` and
+    off), K3 and K3c (:func:`_times_ab_k3`), and every config c1-c17
+    whole, in ms (CUDA events, median of ``reps``); and the digest of K6's
+    outputs over a sweep (:func:`_k6_digest`). It calls only the package's
+    public wrappers and configs, so it also times an older tree's package,
+    one process per tree, in one call to the card. Prints one line ``ab: {json}`` and
     returns it."""
     import torch
     import torch.nn.functional as F
@@ -3220,6 +3627,7 @@ def times_ab(card, reps=REPS):
     out["K2_writeback_c2"] = _time_ms(wb, reps)
     out["K6_digest"] = _k6_digest(rs)
     del v, xi
+    out.update(_times_ab_k3(rs, reps))
     for cfg in _configs():
         out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
     print(f"ab: {json.dumps(out)} [{card}]")
@@ -3370,20 +3778,28 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
 
     # K3: the scatter of gy back onto the coefficients (reads gy and the
     # displacement, writes d_coeffs once; the zero fill that its atomics
-    # need is the design's cost, not the function's)
-    k3_err = _check_k3(rb, gy, args, S, torch.float32, "K3 at c5 shapes")
-    k3_ms = _time_ms(lambda: rb.resample_transpose(gy, *args, S))
+    # need is the design's cost, not the function's), on each route and
+    # tile, at orders 3 and 1 (the order-1 line beside grid_sample's input
+    # half)
+    k3_err, _ = _check_k3(rb, gy, args, S, torch.float32, "K3 at c5 shapes")
     k3_bytes = (B * n_out * (C + 3) + numel) * 4
+    k3_lines = []
+    k3 = {}
+    for o, a in ((order, args), (2, (displ, None, (0, 0, 0), 2, 3)),
+                 (1, a1)):
+        k3[o] = _k3_times(
+            f"K3 resample_bwd at c5 shapes (order {o}, "
+            f"{'mirror' if a[4] == 3 else 'nearest'})",
+            lambda plan, a=a: rb._launch_k3(gy, *a, S, plan),
+            iota + displ, S, o, a[4], (S, S, C, o, gy.dtype), card,
+            k3_lines, o1["bwd"][1] if o == 1 else None)
     row("resample_bwd", "resample_bwd.cu",
-        "elasticdeform_tpu/ops/windows.py:1354", k3_ms,
+        "elasticdeform_tpu/ops/windows.py:1354", k3[order]["ms"],
         _time_ms(lambda: rb.resample_transpose_plain(gy, *args, S),
                  warmup=1),
         _bound(k3_bytes, _k1_ops(B, n_out, 3, order, C)), o1["bwd"][1],
-        k3_err, extra={"order1_ms": o1["bwd"][0]})
-    adds = B * n_out * (order + 1) ** 3 * C
-    print(f"resample_bwd scatter-add rate at c5 shapes: {adds} atomic adds "
-          f"in {k3_ms:.4f} ms = {adds / k3_ms / 1e6:.2f} G adds/s, "
-          f"{k3_bytes / k3_ms / 1e6:.2f} GB/s of compulsory bytes [{card}]")
+        k3_err, extra={"order1_ms": k3[1]["ms"], **k3[order],
+                       "order2": k3[2], "order1": k3[1]})
 
     # K5: the gradient with respect to the dense displacement
     k5_err = _assert_close(
@@ -3403,11 +3819,12 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
                _k5_ops(B, n_out, 3, order, C)), o1["grad"][1], k5_err,
         extra={"order1_ms": o1["grad"][0], "box_16k_share": box[0]})
     del x, gy, coeffs, displ, iota
-    _times_resampler(row, card, k1_lines)
+    _times_resampler(row, card, k1_lines, k3_lines)
     _times_filters(row, card)
     _times_morphology(row, card)
     probe_times = _times_probes(row, card, probe_data, errs)
     _print_k1_lines(k1_lines, probe_times, card)
+    _print_k3_lines(k3_lines, probe_times, card)
     for w, v in save.items():
         w.launches = v
     for k, by_route in save_routes.items():

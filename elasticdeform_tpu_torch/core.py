@@ -469,8 +469,11 @@ def _modern_map_coordinates(X, coordinates, *, order, mode, cval, prefilter,
     if npad:
         Y = _ring_pad(Y, axes, npad, pad_mode, cval)
     if needs_filter:
+        # an integer output rounds the filtered values: filter in one fixed
+        # order on every device
+        fixed = out_dtype.kind in "biu"
         for a in axes:
-            Y = _d.Prefilter1d.apply(Y.contiguous(), order, a, bc)
+            Y = _d.Prefilter1d.apply(Y.contiguous(), order, a, bc, fixed)
     Y = _ring_pad(Y, axes, ring, pad_mode, cval)
 
     cc = coordinates.to(comp)

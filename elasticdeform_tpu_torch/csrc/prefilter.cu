@@ -103,7 +103,11 @@
 // from device memory. Every row sum is independent, so the rows of a line
 // split into runs (Params::row_groups, picked by ops/prefilter.py:
 // _row_groups), each run by its own block or thread: with few lines, one
-// thread's n * n chain steps would leave most of the card idle.
+// thread's n * n chain steps would leave most of the card idle. With
+// int_bits 0 the route stores the row sums uncast: the fixed-order float
+// prefilter of a call whose output is an integer (the general resampler,
+// ops/deform.py; K6's boundary conditions through filter_matrix_bc), which
+// rounds at the end and so must also sum in one order on both devices.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -142,6 +146,13 @@ template <typename T>
 __device__ __forceinline__ T cast_int_c(T v, T lo, T span) {
   const T tr = trunc(v);
   return tr - floor((tr - lo) / span) * span;
+}
+
+// The writeback route's store: cast_int_c, or with no integer bits the sum
+// as it is.
+template <typename T>
+__device__ __forceinline__ T wb_out(T v, int bits, T lo, T span) {
+  return bits ? cast_int_c(v, lo, span) : v;
 }
 
 // The transposed passes and spreads of K4 and K7. Each loop loads kChunk
@@ -563,9 +574,9 @@ __device__ __forceinline__ double wb_step(double m, double v, double acc) {
 // K2's writeback route on one line x at stride s (shared memory on the
 // tile form, device memory on the lines form): for a = a0 .. a1-1 the row
 // sum of p.mat (n x n, row-major, in T) with k ascending from 0, then
-// cast_int_c, stored to dst[a * ds]. Four rows at a time share each load
-// of x[k] and run four independent chains; each row's own chain is the
-// same.
+// cast_int_c (none with p.int_bits 0), stored to dst[a * ds]. Four rows
+// at a time share each load of x[k] and run four independent chains; each
+// row's own chain is the same.
 template <typename T, typename I>
 __device__ __forceinline__ void writeback_rows(const T* x, const I n,
                                                const I s, T* dst,
@@ -589,16 +600,16 @@ __device__ __forceinline__ void writeback_rows(const T* x, const I n,
       c2 = wb_step(__ldg(r2 + k), v, c2);
       c3 = wb_step(__ldg(r3 + k), v, c3);
     }
-    dst[a * ds] = cast_int_c(c0, lo, span);
-    dst[(a + 1) * ds] = cast_int_c(c1, lo, span);
-    dst[(a + 2) * ds] = cast_int_c(c2, lo, span);
-    dst[(a + 3) * ds] = cast_int_c(c3, lo, span);
+    dst[a * ds] = wb_out(c0, p.int_bits, lo, span);
+    dst[(a + 1) * ds] = wb_out(c1, p.int_bits, lo, span);
+    dst[(a + 2) * ds] = wb_out(c2, p.int_bits, lo, span);
+    dst[(a + 3) * ds] = wb_out(c3, p.int_bits, lo, span);
   }
   for (; a < a1; ++a) {
     const T* row = mat + (int64_t)a * n;
     T acc = T(0);
     for (I k = 0; k < n; ++k) acc = wb_step(__ldg(row + k), x[k * s], acc);
-    dst[a * ds] = cast_int_c(acc, lo, span);
+    dst[a * ds] = wb_out(acc, p.int_bits, lo, span);
   }
 }
 
@@ -1108,9 +1119,10 @@ int ed_spline_prefilter_tile(
                           static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// K2's writeback route: each output the row sum of mat (filter_matrix(n)
-// as n x n row-major T on the card) in the fixed order above, truncated
-// and wrapped to int_bits bits from int_lo (iinfo.min), the rows of each
+// K2's writeback route: each output the row sum of mat (filter_matrix(n),
+// or filter_matrix_bc(n) for K6's, as n x n row-major T on the card) in
+// the fixed order above, truncated and wrapped to int_bits bits from
+// int_lo (iinfo.min), or with int_bits 0 stored as it is, the rows of each
 // line split into row_groups runs. width 0: the lines form (a thread per
 // line and run, blocks of 256); else the tile form with the plan's
 // geometry, as for ed_spline_prefilter_tile, row_groups blocks on each
@@ -1122,7 +1134,7 @@ int ed_spline_prefilter_writeback(
     long long blocks, void* stream) {
   if (outer * inner == 0 || n == 0) return (int)cudaSuccess;
   Params p;
-  if (!mat || int_bits < 1 || int_bits > 64 || row_groups < 1 ||
+  if (!mat || int_bits < 0 || int_bits > 64 || row_groups < 1 ||
       !make_params(&p, outer, n, inner, 0, nullptr, nullptr, nullptr,
                    nullptr, 1.0))
     return (int)cudaErrorInvalidValue;

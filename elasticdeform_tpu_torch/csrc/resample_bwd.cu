@@ -1,4 +1,4 @@
-// The adjoints of K1 (resample.cu), one thread per (sample, output voxel):
+// The adjoints of K1 (resample.cu):
 //
 // K3 resample_bwd: the transpose of K1 with respect to the coefficients, a
 // scatter. For each output voxel j inside the constant-mode mask and each
@@ -6,23 +6,59 @@
 //   d_coeffs[b, fold(start + t), c] += g[b, j, c] * prod_h w_h[t_h]
 // with K1's coordinates, mode fold, tap fold and weights
 // (resample_common.cuh). K1 reads the UNPADDED coefficients at the mirror
-// fold of each tap index, so K3 adds straight into the folded index: no
-// padded buffer and no separate un-pad fold. That equals the JAX package's
-// scatter into the mirror-padded table followed by the fold of the pad
-// (elasticdeform_tpu/ops/windows.py:1354 resample_windows_transpose, :1174
-// _scatter_fold, :1135 _scatter_group, :1488 window_unpad_axis; an XLA
-// scatter on the TPU, no Pallas kernel); the adjoint identity against K1
-// checks it. Taps of one voxel fold onto one element on short axes and
-// neighbouring voxels share elements: atomicAdd (float64 is native on
-// sm_90) handles both, so the sums land in a run-dependent order, and the
-// float32 result agrees with the plain twin
-// (ops/resample_bwd.py:resample_transpose_plain) only to the rounding of a
-// reordered sum. The caller zero-fills d_coeffs. Bound on the H100: bytes;
-// K3 reads g and the dense displacement (C + naxis values per voxel) and
-// writes d_coeffs once (its zero fill is this design's extra cost). Design:
-// the first, simple form. Neighbouring threads take neighbouring output
-// voxels, so the g and displacement reads coalesce; the atomics resolve in
-// L2. Offsets are int64.
+// fold of each tap index, so K3 adds into the folded index. That equals
+// the JAX package's scatter into the mirror-padded table followed by the
+// fold of the pad (elasticdeform_tpu/ops/windows.py:1354
+// resample_windows_transpose, :1174 _scatter_fold, :1135 _scatter_group,
+// :1488 window_unpad_axis; an XLA scatter on the TPU, no Pallas kernel);
+// the adjoint identity against K1 checks it. The caller zero-fills
+// d_coeffs. Bound on the H100: bytes; K3 reads g and the dense
+// displacement (C + naxis values per voxel) and writes d_coeffs once.
+//
+// Design. The first form made one float32 atomicAdd into device memory
+// per tap and channel (1.07 G at 64 x 64^3, order 3), at 76-79% of the
+// card's L2 atomic rate: only fewer device-memory atomics could help. A
+// block now owns a tile of the output (up to 8 x 8 x 8 voxels of the three
+// innermost output axes, one voxel a thread; the outer axes and the batch
+// walk the grid) and:
+// 1. computes each voxel's coordinates, mode fold and first tap per axis
+//    (kept in registers);
+// 2. reduces the tile's least and greatest first tap per axis (a voxel
+//    outside in constant mode does not count);
+// 3. if the box of their taps, prod_h (hi - lo + order + 1) x C elements,
+//    fits the plan's budget, zero-fills it in shared memory;
+// 4. adds each tap's g * w at its UNFOLDED box position start + t - lo,
+//    with shared-memory atomics (the weights recomputed from the fold);
+// 5. flushes: each non-zero box element is mirror-folded per axis to its
+//    element of d_coeffs and added there with one device-memory atomic.
+//    Tiles overlap in their boxes, so the flush adds; an element left at
+//    zero adds nothing and is skipped.
+// That is the JAX package's scatter into a padded table and fold of the
+// pad, one tile at a time. A block whose box does not fit, or whose
+// coordinates are not finite or not of a sane size (a NaN must not size a
+// box), takes the direct branch of the same kernel: one device-memory
+// atomic per tap and channel at the folded offsets (tap_offsets). A plan
+// with no budget sends every block there (the wrapper's "direct" route).
+// On the H100 a shared-memory float atomicAdd is a compare-and-swap loop
+// (ATOMS.CAST.SPIN) that adds at about the rate of a device-memory atomic
+// (PERF.md section 6): the box pays only where a voxel's taps overlap its
+// neighbours' many times, so the plan keeps orders 0 and 1 on the direct
+// route (ops/resample_bwd.py:BWD_TILE_ORDER). Variants measured at c5
+// (order 3; this form 5.6 ms, the direct branch 8.2) and not kept:
+// swapping a run of taps with explicit compare-and-swap, several in
+// flight, 26.7 ms; two or four boxes a block (fewer warps on each) 5.6;
+// a __match_any_sync pre-reduction of the lanes that add at one box
+// offset (rare: only voxels with one first tap share an offset), 14.6;
+// a gather in place of the shared atomics, the voxels sorted by their
+// first taps and each line of the box summed by one thread, 21.0, or
+// each box element by one thread, 15.1.
+// Like K1 and K5: the rank is a template parameter (tables in registers,
+// outer axes picked by selects), offsets within a sample are int32 where
+// fits_32 allows, the grid's y walks the batch (no 64-bit division per
+// voxel), and channels are walked one at a time. The sums land in a
+// run-dependent order (shared and device atomics), so the float32 result
+// agrees with the plain twin (ops/resample_bwd.py:resample_transpose_plain)
+// only to the rounding of a reordered sum.
 //
 // K5 resample_coord_grad: the gradient of <K1(coeffs), g> with respect to
 // the dense displacement. Per voxel and axis h (cc = A j + offset + displ,
@@ -77,7 +113,9 @@
 // K3c resample_coords_bwd and K5c resample_coords_grad are K3 and K5 with
 // the coordinate source of resample_common.cuh: caller-given coordinates
 // (B, naxis, n_out) in place of the displacement, so K5c's result is the
-// gradient with respect to those coordinates. They replace the backward
+// gradient with respect to those coordinates; K3c tiles the coordinates'
+// own output shape, which the wrapper passes as the view of BwdTile (a
+// flat point list is tiled in runs of 512). They replace the backward
 // of the JAX package's map_coordinates (elasticdeform_tpu/ops/deform.py:608
 // map_coordinates_gradient_apply, and the autodiff of :533 / :573, which
 // reach _scatter_fold and the d_cc branch of _windows_op_bwd at the
@@ -87,54 +125,293 @@
 
 #include "resample_common.cuh"
 
-#define ED_CCH 4
-
 namespace {
 
-template <typename T, int ORDER, bool COORDS>
-__global__ void __launch_bounds__(256)
+// K3/K3c's launch geometry: the output viewed as (outer, a, b, c), c
+// innermost (the wrapper folds the output's leading axes into outer; K3's
+// view is its output shape with leading 1s); a block owns a tile of
+// 2^lg[0] x 2^lg[1] x 2^lg[2] voxels of (a, b, c) at one outer index of
+// one sample, one voxel a thread. cap: the box elements (channels
+// included) a block may stage in shared memory, cap * sizeof(T) bytes of
+// dynamic shared memory; 0 sends every block to the direct branch.
+struct BwdTile {
+  int64_t view[4];
+  int lg[3];
+  int cap;
+};
+
+// The threads of a K3 block, one per voxel of its tile: 512 for float32
+// with 32-bit offsets, 256 for the rest (their tables take twice the
+// registers; at 512 threads a thread gets at most 128).
+template <typename T, typename I>
+struct BwdThreads {
+  static constexpr int value = sizeof(T) > 4 || sizeof(I) > 4 ? 256 : 512;
+};
+
+// The blocks per SM that K3's launch bounds ask for (ptxas's register
+// budget, 65536 / (threads * blocks)); see BwdThreads. Float32 with 32-bit
+// offsets takes two (64 registers) up to 8 taps a voxel, but for rank 2
+// at order 1, which spilled 8 bytes at 64; the rest one (128 registers
+// at 512 threads, 255 at 256).
+template <typename T, int NT, int NAXIS, typename I>
+struct BwdBlocks {
+  static constexpr int taps = voxel_taps(NT, NAXIS);
+  static constexpr int value =
+      sizeof(T) > 4 || sizeof(I) > 4           ? 1
+      : taps <= 8 && !(NAXIS == 2 && NT == 2)  ? 2
+                                               : 1;
+};
+
+// One voxel's taps land here: g_c * wt added at dst[o + c] for each
+// channel c (g_0 held in a register, the others read per tap), with
+// atomicAdd; dst is a box in shared memory (offsets of type int) or the
+// sample's d_coeffs (offsets of type I, a reduction the thread does not
+// wait on).
+template <typename T, typename O>
+struct TapSink {
+  T* dst;
+  const T* gv;
+  T g0;
+  O C;
+  __device__ __forceinline__ void add(const O o, const T wt) const {
+    atomicAdd(dst + o, g0 * wt);
+    for (O c = 1; c < C; ++c) atomicAdd(dst + o + c, __ldg(gv + c) * wt);
+  }
+};
+
+template <typename T, int NT, int NAXIS, int H, typename O, typename S>
+__device__ __forceinline__ void scatter_axis(const S& sink, T wpre, O base,
+                                             const T (&w)[NAXIS][NT],
+                                             const O (&off)[NAXIS][NT]);
+
+// Tap t of axis H, whose weight product over axes 0..H is wt and whose
+// offset is o: at the innermost axis the sink takes it; above, the taps of
+// the next axis.
+template <typename T, int NT, int NAXIS, int H, typename O, typename S>
+__device__ __forceinline__ void scatter_tap(const S& sink, const T wt,
+                                            const O o,
+                                            const T (&w)[NAXIS][NT],
+                                            const O (&off)[NAXIS][NT]) {
+  if constexpr (H == NAXIS - 1)
+    sink.add(o, wt);
+  else
+    scatter_axis<T, NT, NAXIS, H + 1, O, S>(sink, wt, o, w, off);
+}
+
+// The taps of axes H..NAXIS-1 of one voxel, axis H slowest: `wpre` is the
+// weight product over axes 0..H-1 (formed left to right, as K1 forms it)
+// and `base` their offset. The innermost axes unroll, an outer axis loops
+// and picks its table entries by selects (unrolled_axes).
+template <typename T, int NT, int NAXIS, int H, typename O, typename S>
+__device__ __forceinline__ void scatter_axis(const S& sink, const T wpre,
+                                             const O base,
+                                             const T (&w)[NAXIS][NT],
+                                             const O (&off)[NAXIS][NT]) {
+  if constexpr (H >= NAXIS - unrolled_axes(NT, NAXIS)) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      scatter_tap<T, NT, NAXIS, H, O, S>(
+          sink, H == 0 ? w[H][t] : wpre * w[H][t], base + off[H][t], w, off);
+  } else {
+#pragma unroll 1
+    for (int t = 0; t < NT; ++t) {
+      const T wh = pick(w[H], t);
+      scatter_tap<T, NT, NAXIS, H, O, S>(sink, H == 0 ? wh : wpre * wh,
+                                         base + pick(off[H], t), w, off);
+    }
+  }
+}
+
+template <typename V>
+__device__ __forceinline__ V warp_min(V v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const V u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u < v ? u : v;
+  }
+  return v;
+}
+
+template <typename V>
+__device__ __forceinline__ V warp_max(V v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const V u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+// K3/K3c: one block per tile of one sample (BwdTile; the grid's y walks
+// the batch), one voxel a thread, the steps of the design above.
+template <typename T, int ORDER, int NAXIS, typename I>
+__global__ void __launch_bounds__(
+    (BwdThreads<T, I>::value), (BwdBlocks<T, ORDER + 1, NAXIS, I>::value))
 resample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ displ,
                     const T* __restrict__ affine, T* __restrict__ d_coeffs,
-                    const Params p) {
+                    const Params p, const BwdTile tl, const bool coords) {
   constexpr int NT = ORDER + 1;
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= p.batch * p.n_out) return;
-  const int64_t b = gid / p.n_out;
-  const int64_t v = gid - b * p.n_out;
+  constexpr int THREADS = BwdThreads<T, I>::value;
+  constexpr int WARPS = THREADS / 32;
+  extern __shared__ __align__(16) unsigned char ed_bwd_smem[];
+  __shared__ I s_lo[WARPS][NAXIS], s_hi[WARPS][NAXIS];
+  __shared__ int s_bad[WARPS];
+  T* const box = reinterpret_cast<T*>(ed_bwd_smem);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const I C = (I)p.channels;
 
-  T w[ED_MAXD][NT];
-  int64_t off[ED_MAXD][NT];
-  int ntap[ED_MAXD];
-  if (!tap_tables<T, ORDER, COORDS>(p, displ, affine, b, v, w, off, ntap))
-    return;  // constant mode outside: g is zeroed there
+  // the tile's origin: blockIdx.x unravelled over (outer, a, b, c) tiles
+  const int lg0 = tl.lg[0], lg1 = tl.lg[1], lg2 = tl.lg[2];
+  const int64_t nt0 = ((tl.view[1] - 1) >> lg0) + 1;
+  const int64_t nt1 = ((tl.view[2] - 1) >> lg1) + 1;
+  const int64_t nt2 = ((tl.view[3] - 1) >> lg2) + 1;
+  int64_t q = blockIdx.x;
+  const int64_t q2 = q % nt2;
+  q /= nt2;
+  const int64_t q1 = q % nt1;
+  q /= nt1;
+  const I outer = (I)(q / nt0);
+  // this thread's voxel: its output position and flat index in a sample
+  const I y2 = (I)(q2 << lg2) + (tid & ((1 << lg2) - 1));
+  const I y1 = (I)(q1 << lg1) + ((tid >> lg2) & ((1 << lg1) - 1));
+  const I y0 = (I)((q % nt0) << lg0) + (tid >> (lg1 + lg2));
+  const bool valid = (tid >> (lg0 + lg1 + lg2)) == 0 &&
+                     y0 < (I)tl.view[1] && y1 < (I)tl.view[2] &&
+                     y2 < (I)tl.view[3];
+  const I v = ((outer * (I)tl.view[1] + y0) * (I)tl.view[2] + y1) *
+                  (I)tl.view[3] + y2;
 
-  const int64_t C = p.channels;
-  const T* src = g + gid * C;
-  T* dst = d_coeffs + b * p.n_in * C;
-  for (int64_t c0 = 0; c0 < C; c0 += ED_CCH) {
-    T gk[ED_CCH];
+  for (int64_t b = blockIdx.y; b < p.batch; b += gridDim.y) {
+    // 1. coordinates, mode folds and first taps
+    T m[NAXIS];
+    I st[NAXIS];
+    bool ok = false, bad = false;
+    if (valid) {
+      T cc[NAXIS];
+      if (coords) {
+        voxel_coords<T, NAXIS, I>(p, displ, affine, true, b, v, cc);
+      } else {
+        // K3's output index: the view's last NAXIS axes (outer is axis 0
+        // of a 4-D output)
+        const I y[4] = {outer, y0, y1, y2};
+        I j[NAXIS];
 #pragma unroll
-    for (int k = 0; k < ED_CCH; ++k) gk[k] = c0 + k < C ? src[c0 + k] : T(0);
-    for (int t0 = 0; t0 < ntap[0]; ++t0) {
-      for (int t1 = 0; t1 < ntap[1]; ++t1) {
-        const T w01 = w[0][t0] * w[1][t1];
-        const int64_t o01 = off[0][t0] + off[1][t1];
-#pragma unroll
-        for (int t2 = 0; t2 < NT; ++t2) {
-          if (t2 >= ntap[2]) break;
-          const T w012 = w01 * w[2][t2];
-          const int64_t o012 = o01 + off[2][t2];
-#pragma unroll
-          for (int t3 = 0; t3 < NT; ++t3) {
-            const T wt = w012 * w[3][t3];
-            T* q = dst + (o012 + off[3][t3]) * C + c0;
-#pragma unroll
-            for (int k = 0; k < ED_CCH; ++k)
-              if (c0 + k < C) atomicAdd(q + k, gk[k] * wt);
-          }
-        }
+        for (int h = 0; h < NAXIS; ++h) j[h] = y[h + 4 - NAXIS];
+        displaced_coords<T, NAXIS, I>(p, displ, affine, b, v, j, cc);
       }
+      ok = true;
+#pragma unroll
+      for (int h = 0; h < NAXIS; ++h) {
+        m[h] = map_coord(cc[h], p.in_shape[h], p.mode, &ok);
+        st[h] = first_tap<T, ORDER, I>(m[h]);
+        // not finite, or far outside its axis: no box (the direct branch
+        // takes the taps as K1 reads them)
+        bad |= !(fabs(m[h]) < T(1 << 29));
+      }
+      bad &= ok;
     }
+
+    // 2. the tile's least and greatest first tap per axis
+    I lo[NAXIS], hi[NAXIS];
+#pragma unroll
+    for (int h = 0; h < NAXIS; ++h) {
+      lo[h] = warp_min(ok ? st[h] : (I)(1 << 30));
+      hi[h] = warp_max(ok ? st[h] : (I)(-(1 << 30)));
+    }
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+#pragma unroll
+      for (int h = 0; h < NAXIS; ++h) {
+        s_lo[warp][h] = lo[h];
+        s_hi[warp][h] = hi[h];
+      }
+      s_bad[warp] = bad;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+#pragma unroll
+      for (int h = 0; h < NAXIS; ++h) {
+        lo[h] = s_lo[w][h] < lo[h] ? s_lo[w][h] : lo[h];
+        hi[h] = s_hi[w][h] > hi[h] ? s_hi[w][h] : hi[h];
+      }
+      bad |= s_bad[w] != 0;
+    }
+
+    // 3. the box, prod_h (hi - lo + NT) x C elements, if it fits the cap
+    int ext[NAXIS];
+    int64_t size = p.channels;
+    bool fits = !bad && lo[0] <= hi[0];
+#pragma unroll
+    for (int h = NAXIS - 1; h >= 0; --h) {
+      const int64_t e = (int64_t)hi[h] - (int64_t)lo[h] + NT;
+      fits &= e <= tl.cap;
+      ext[h] = (int)(e < tl.cap ? e : tl.cap);
+      size *= ext[h];
+      fits &= size <= tl.cap;
+      size = size < tl.cap ? size : tl.cap;
+    }
+    const T* gv = g + b * p.n_out * p.channels + v * C;
+    T* const dst = d_coeffs + b * p.n_in * p.channels;
+
+    if (fits) {
+      const int n_box = (int)size;
+      for (int e = tid; e < n_box; e += THREADS) box[e] = T(0);
+      __syncthreads();
+      // 4. the taps at their unfolded box positions, shared-memory atomics
+      if (ok) {
+        int bstride = (int)C;
+        T w[NAXIS][NT];
+        int boff[NAXIS][NT];
+#pragma unroll
+        for (int h = NAXIS - 1; h >= 0; --h) {
+          spline_weights<T, ORDER>(m[h], w[h]);
+          const int s0 = (int)(st[h] - lo[h]);
+#pragma unroll
+          for (int t = 0; t < NT; ++t) boff[h][t] = (s0 + t) * bstride;
+          bstride *= ext[h];
+        }
+        const TapSink<T, int> sink{box, gv, gv[0], (int)C};
+        scatter_axis<T, NT, NAXIS, 0, int>(sink, T(1), 0, w, boff);
+      }
+      __syncthreads();
+      // 5. the flush: each non-zero box element mirror-folded per axis to
+      // its element of d_coeffs, one device-memory atomic each
+      for (int e = tid; e < n_box; e += THREADS) {
+        const T val = box[e];
+        if (val == T(0)) continue;
+        int rem = e;
+        I o = 0;
+        if (C > 1) {
+          o = (I)(rem % (int)C);
+          rem /= (int)C;
+        }
+#pragma unroll
+        for (int h = NAXIS - 1; h >= 0; --h) {
+          int k = rem;
+          if (h > 0) {
+            k = rem % ext[h];
+            rem /= ext[h];
+          }
+          const I n = (I)p.in_shape[h];
+          const I at = lo[h] + (I)k;
+          const I f = at >= 0 && at < n ? at : mirror_fold<I>(at, n);
+          o += f * (I)(p.in_stride[h] * p.channels);
+        }
+        atomicAdd(dst + o, val);
+      }
+    } else if (ok) {
+      // the direct branch: one device-memory atomic per tap and channel
+      T w[NAXIS][NT];
+#pragma unroll
+      for (int h = 0; h < NAXIS; ++h) spline_weights<T, ORDER>(m[h], w[h]);
+      I off[NAXIS][NT];
+      tap_offsets<NT, NAXIS, I>(p, st, off);
+      const TapSink<T, I> sink{dst, gv, gv[0], C};
+      scatter_axis<T, NT, NAXIS, 0, I>(sink, T(1), I(0), w, off);
+    }
+    __syncthreads();  // the box and the reduction's slots are reused
   }
 }
 
@@ -295,33 +572,99 @@ coord_grad_kernel(const T* __restrict__ coeffs, const T* __restrict__ g,
                                          p, coords, b, (I)v);
 }
 
-template <typename T, int ORDER, bool COORDS>
-cudaError_t launch_bwd(const void* g, const void* displ, const void* affine,
-                       void* d_coeffs, const Params& p, cudaStream_t stream) {
-  const int64_t total = p.batch * p.n_out;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  resample_bwd_kernel<T, ORDER, COORDS>
-      <<<(unsigned)blocks, threads, 0, stream>>>(
-          static_cast<const T*>(g), static_cast<const T*>(displ),
-          static_cast<const T*>(affine), static_cast<T*>(d_coeffs), p);
-  return cudaGetLastError();
+// K3/K3c's instantiation for a dtype, order, rank and index width, as a
+// function pointer (the launch and the occupancy query take it).
+template <typename T, int ORDER, typename I>
+const void* bwd_kernel_rank(int naxis) {
+  switch (naxis) {
+    case 1: return (const void*)&resample_bwd_kernel<T, ORDER, 1, I>;
+    case 2: return (const void*)&resample_bwd_kernel<T, ORDER, 2, I>;
+    case 3: return (const void*)&resample_bwd_kernel<T, ORDER, 3, I>;
+    case 4: return (const void*)&resample_bwd_kernel<T, ORDER, 4, I>;
+  }
+  return nullptr;
 }
 
-template <typename T, bool COORDS>
-cudaError_t dispatch_bwd(int order, const void* g, const void* displ,
-                         const void* affine, void* d_coeffs, const Params& p,
-                         cudaStream_t s) {
+template <typename T, typename I>
+const void* bwd_kernel_order(int order, int naxis) {
   switch (order) {
-    case 0: return launch_bwd<T, 0, COORDS>(g, displ, affine, d_coeffs, p, s);
-    case 1: return launch_bwd<T, 1, COORDS>(g, displ, affine, d_coeffs, p, s);
-    case 2: return launch_bwd<T, 2, COORDS>(g, displ, affine, d_coeffs, p, s);
-    case 3: return launch_bwd<T, 3, COORDS>(g, displ, affine, d_coeffs, p, s);
-    case 4: return launch_bwd<T, 4, COORDS>(g, displ, affine, d_coeffs, p, s);
-    case 5: return launch_bwd<T, 5, COORDS>(g, displ, affine, d_coeffs, p, s);
+    case 0: return bwd_kernel_rank<T, 0, I>(naxis);
+    case 1: return bwd_kernel_rank<T, 1, I>(naxis);
+    case 2: return bwd_kernel_rank<T, 2, I>(naxis);
+    case 3: return bwd_kernel_rank<T, 3, I>(naxis);
+    case 4: return bwd_kernel_rank<T, 4, I>(naxis);
+    case 5: return bwd_kernel_rank<T, 5, I>(naxis);
   }
-  return cudaErrorInvalidValue;
+  return nullptr;
+}
+
+// The threads of K3's block for a dtype and index width (BwdThreads).
+int bwd_threads(int dtype, bool wide) {
+  return dtype == 0 && !wide ? BwdThreads<float, int32_t>::value
+                             : BwdThreads<double, int32_t>::value;
+}
+
+const void* bwd_kernel(int dtype, int order, int naxis, bool wide) {
+  if (dtype == 0)
+    return wide ? bwd_kernel_order<float, int64_t>(order, naxis)
+                : bwd_kernel_order<float, int32_t>(order, naxis);
+  if (dtype == 1)
+    return wide ? bwd_kernel_order<double, int64_t>(order, naxis)
+                : bwd_kernel_order<double, int32_t>(order, naxis);
+  return nullptr;
+}
+
+// Host side: the tile from the C entry points' arguments; false if they
+// are out of range (a view that is not n_out voxels, a tile over 512
+// voxels, a grid of 2^31 blocks).
+bool make_tile(BwdTile* tl, const Params& p, const long long* view,
+               const int* lg, int cap) {
+  int64_t n = 1;
+  for (int k = 0; k < 4; ++k) {
+    if (view[k] < 1) return false;
+    tl->view[k] = view[k];
+    n *= view[k];
+  }
+  if (n != p.n_out || cap < 0) return false;
+  for (int k = 0; k < 3; ++k) {
+    if (lg[k] < 0) return false;
+    tl->lg[k] = lg[k];
+  }
+  if (lg[0] + lg[1] + lg[2] > 9) return false;  // at most 512 threads
+  int64_t blocks = view[0];
+  for (int k = 0; k < 3; ++k) blocks *= ((view[k + 1] - 1) >> lg[k]) + 1;
+  tl->cap = cap;
+  return blocks < ((int64_t)1 << 31);
+}
+
+// The zero fill of d_coeffs is the caller's; the kernel adds into it.
+cudaError_t launch_bwd(int dtype, int order, bool wide, const void* g,
+                       const void* displ, const void* affine, void* d_coeffs,
+                       const Params& p, const BwdTile& tl, bool coords,
+                       cudaStream_t stream) {
+  if (p.channels < 1 || (!wide && !fits_32(p))) return cudaErrorInvalidValue;
+  const void* fn = bwd_kernel(dtype, order, p.naxis, wide);
+  const int threads = bwd_threads(dtype, wide);
+  if (fn == nullptr || (1 << (tl.lg[0] + tl.lg[1] + tl.lg[2])) > threads)
+    return cudaErrorInvalidValue;
+  if (p.batch * p.n_out == 0) return cudaSuccess;
+  int64_t blocks = tl.view[0];
+  for (int k = 0; k < 3; ++k) blocks *= ((tl.view[k + 1] - 1) >> tl.lg[k]) + 1;
+  const size_t smem = (size_t)tl.cap * (dtype == 0 ? 4 : 8);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((unsigned)blocks,
+                  (unsigned)(p.batch < 65535 ? p.batch : 65535));
+  Params pc = p;
+  BwdTile tc = tl;
+  bool cf = coords;
+  void* args[] = {(void*)&g,        (void*)&displ, (void*)&affine,
+                  (void*)&d_coeffs, (void*)&pc,    (void*)&tc,
+                  (void*)&cf};
+  return cudaLaunchKernel(fn, grid, dim3(threads), args, smem, stream);
 }
 
 struct GradArgs {
@@ -388,28 +731,47 @@ cudaError_t dispatch_coord_grad(int order, bool wide, bool coords,
 
 extern "C" {
 
-// dtype: 0 float32, 1 float64. Shapes, offsets: naxis int64 each.
+// K3. dtype: 0 float32, 1 float64. Shapes, offsets: naxis int64 each.
 // affine: null, or (naxis, naxis+1) per sample at affine_stride elements
 // apart (0 = one affine shared by the batch). d_coeffs (B, *in_shape, C)
-// must be zero-filled. Returns cudaGetLastError().
+// must be zero-filled. view: the output shape with leading 1s to 4 axes;
+// lg: the tile's log2 extents over view's last three axes (at most the
+// block's threads, BwdThreads); cap: the box elements a block may stage
+// in shared memory (0: every block on the direct branch). wide: 64-bit offsets within a sample
+// (required once a sample reaches 2^31 elements). Returns
+// cudaGetLastError().
 int ed_resample_bwd(int dtype, const void* g, const void* displ,
                     const void* affine, void* d_coeffs, int naxis, int order,
                     int mode, long long batch, long long channels,
                     const long long* in_shape, const long long* out_shape,
                     const long long* offsets, long long affine_stride,
-                    void* stream) {
+                    const long long* view, const int* lg, int cap,
+                    void* stream, int wide) {
   Params p;
+  BwdTile tl;
   if (!make_params(&p, naxis, mode, batch, channels, in_shape, out_shape,
-                   offsets, affine_stride, 0.0))
+                   offsets, affine_stride, 0.0) ||
+      !make_tile(&tl, p, view, lg, cap))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0   ? dispatch_bwd<float, false>(order, g, displ, affine,
-                                                d_coeffs, p, s)
-      : dtype == 1 ? dispatch_bwd<double, false>(order, g, displ, affine,
-                                                 d_coeffs, p, s)
-                   : cudaErrorInvalidValue;
-  return (int)err;
+  // K3 reads its output index off the view: the output shape itself
+  for (int k = 0; k < 4; ++k)
+    if (view[k] != (k < 4 - naxis ? 1 : out_shape[k - 4 + naxis]))
+      return (int)cudaErrorInvalidValue;
+  return (int)launch_bwd(dtype, order, wide != 0, g, displ, affine, d_coeffs,
+                         p, tl, false, static_cast<cudaStream_t>(stream));
+}
+
+// K3's blocks per SM with `smem` bytes of dynamic shared memory, from
+// CUDA's occupancy calculator; -1 if the arguments name no instantiation.
+int ed_resample_bwd_blocks_per_sm(int dtype, int order, int naxis, int wide,
+                                  int smem) {
+  const void* fn = bwd_kernel(dtype, order, naxis, wide != 0);
+  int n = -1;
+  if (fn == nullptr || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &n, fn, bwd_threads(dtype, wide != 0),
+                           (size_t)smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 // As ed_resample_bwd; coeffs (B, *in_shape, C), g (B, *out_shape, C),
@@ -438,24 +800,24 @@ int ed_resample_coord_grad(int dtype, const void* coeffs, const void* g,
 }
 
 // K3c: the transpose of K1c; g (B, n_out, C), coords (B, naxis, n_out),
-// d_coeffs (B, *in_shape, C) zero-filled. Returns cudaGetLastError().
+// d_coeffs (B, *in_shape, C) zero-filled; view (the coordinates' output
+// shape folded to 4 axes, n_out voxels), lg, cap and wide as for K3.
+// Returns cudaGetLastError().
 int ed_resample_coords_bwd(int dtype, const void* g, const void* coords,
                            void* d_coeffs, int naxis, int order, int mode,
                            long long batch, long long channels,
                            const long long* in_shape, long long n_out,
-                           void* stream) {
+                           const long long* view, const int* lg, int cap,
+                           void* stream, int wide) {
   Params p;
+  BwdTile tl;
   if (!make_params_coords(&p, naxis, mode, batch, channels, in_shape, n_out,
-                          0.0))
+                          0.0) ||
+      !make_tile(&tl, p, view, lg, cap))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0   ? dispatch_bwd<float, true>(order, g, coords, nullptr,
-                                               d_coeffs, p, s)
-      : dtype == 1 ? dispatch_bwd<double, true>(order, g, coords, nullptr,
-                                                d_coeffs, p, s)
-                   : cudaErrorInvalidValue;
-  return (int)err;
+  return (int)launch_bwd(dtype, order, wide != 0, g, coords, nullptr,
+                         d_coeffs, p, tl, true,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K5c: the gradient of <K1c(coeffs), g> with respect to coords; d_coords

@@ -3,9 +3,10 @@
 // derivative, the integer mirror fold of the taps, and the B-spline weights
 // and their derivatives, each with the operations, in the order, of its
 // plain PyTorch twin (ops/resample.py, ops/modes.py, ops/bspline.py), so
-// that a kernel built with --fmad=false rounds as its twin does. The
-// rank-specialised kernels (K1, K5) take their coordinates and tap offsets
-// from voxel_coords and tap_offsets, in the index type that fits_32 allows.
+// that a kernel built with --fmad=false rounds as its twin does. Every
+// kernel is rank-specialised and takes its coordinates, first taps and tap
+// offsets from voxel_coords (or displaced_coords), first_tap and
+// tap_offsets, in the index type that fits_32 allows.
 //
 // Layouts: coefficients (B, *in_shape, C) with the channels last, the dense
 // displacement (B, naxis, *out_shape), the affine (naxis, naxis+1) per
@@ -332,34 +333,18 @@ __device__ __forceinline__ V pick(const V (&a)[N], const int t) {
   return r;
 }
 
-// The NAXIS sample coordinates of output voxel v of sample b, in the
-// twin's operations (ops/resample.py sample_coordinates): read from `displ`
-// as they are when `coords` (K1c, K5c: (B, naxis, n_out)); else
-// affine(j) + offset + displ, with j unravelled from v in the index type I.
+// The NAXIS sample coordinates of output voxel v of sample b, whose output
+// index is j, in the twin's operations (ops/resample.py
+// sample_coordinates): affine(j) + offset + displ.
 template <typename T, int NAXIS, typename I>
-__device__ __forceinline__ void voxel_coords(const Params& p,
-                                             const T* __restrict__ displ,
-                                             const T* __restrict__ affine,
-                                             const bool coords,
-                                             const int64_t b, const I v,
-                                             T (&cc)[NAXIS]) {
+__device__ __forceinline__ void displaced_coords(const Params& p,
+                                                 const T* __restrict__ displ,
+                                                 const T* __restrict__ affine,
+                                                 const int64_t b, const I v,
+                                                 const I (&j)[NAXIS],
+                                                 T (&cc)[NAXIS]) {
   const I n_out = (I)p.n_out;
   const T* cs = displ + b * NAXIS * p.n_out;
-  if (coords) {
-#pragma unroll
-    for (int h = 0; h < NAXIS; ++h) cc[h] = cs[h * n_out + v];
-    return;
-  }
-  I j[NAXIS];
-  I rem = v;
-#pragma unroll
-  for (int h = NAXIS - 1; h > 0; --h) {
-    const I n = (I)p.out_shape[h];
-    const I q = rem / n;
-    j[h] = rem - q * n;
-    rem = q;
-  }
-  j[0] = rem;
   const T* A = affine ? affine + b * p.affine_stride : nullptr;
 #pragma unroll
   for (int h = 0; h < NAXIS; ++h) {
@@ -376,6 +361,36 @@ __device__ __forceinline__ void voxel_coords(const Params& p,
     c = c + T(p.offset[h]);
     cc[h] = c + cs[h * n_out + v];
   }
+}
+
+// The NAXIS sample coordinates of output voxel v of sample b: read from
+// `displ` as they are when `coords` (K1c, K3c, K5c: (B, naxis, n_out));
+// else displaced_coords, with j unravelled from v in the index type I.
+template <typename T, int NAXIS, typename I>
+__device__ __forceinline__ void voxel_coords(const Params& p,
+                                             const T* __restrict__ displ,
+                                             const T* __restrict__ affine,
+                                             const bool coords,
+                                             const int64_t b, const I v,
+                                             T (&cc)[NAXIS]) {
+  if (coords) {
+    const I n_out = (I)p.n_out;
+    const T* cs = displ + b * NAXIS * p.n_out;
+#pragma unroll
+    for (int h = 0; h < NAXIS; ++h) cc[h] = cs[h * n_out + v];
+    return;
+  }
+  I j[NAXIS];
+  I rem = v;
+#pragma unroll
+  for (int h = NAXIS - 1; h > 0; --h) {
+    const I n = (I)p.out_shape[h];
+    const I q = rem / n;
+    j[h] = rem - q * n;
+    rem = q;
+  }
+  j[0] = rem;
+  displaced_coords<T, NAXIS, I>(p, displ, affine, b, v, j, cc);
 }
 
 // The first tap of the (ORDER+1)-wide window at the folded coordinate m
@@ -406,93 +421,6 @@ __device__ __forceinline__ void tap_offsets(const Params& p,
         off[h][t] = mirror_fold<I>(start[h] + t, n) * stride;
     }
   }
-}
-
-// Output voxel v of a sample as its ED_MAXD-slot index; axis h < naxis in
-// slot h here (the tap tables below put axis h in slot ED_MAXD-naxis+h).
-__device__ __forceinline__ void voxel_index(const Params& p, int64_t v,
-                                            int64_t* j) {
-  int64_t rem = v;
-#pragma unroll
-  for (int h = ED_MAXD - 1; h >= 0; --h) {
-    if (h < p.naxis) {
-      j[h] = rem % p.out_shape[h];
-      rem /= p.out_shape[h];
-    } else {
-      j[h] = 0;
-    }
-  }
-}
-
-// ops/resample.py sample_coordinates for axis h of voxel v of sample b:
-// affine(j) + offset + displ, in the twin's order.
-template <typename T>
-__device__ __forceinline__ T sample_coordinate(const Params& p, const T* A,
-                                               const T* displ,
-                                               const int64_t* j, int64_t b,
-                                               int64_t v, int h) {
-  const int naxis = p.naxis;
-  T cc;
-  if (A) {
-    const T* row = A + h * (naxis + 1);
-    T acc = row[naxis];
-    for (int l = 0; l < naxis; ++l) acc = acc + row[l] * T(j[l]);
-    cc = acc;
-  } else {
-    cc = T(j[h]);
-  }
-  cc = cc + T(p.offset[h]);
-  return cc + displ[(b * naxis + h) * p.n_out + v];
-}
-
-// The tap tables of one voxel for K3 and K3c (resample_bwd_kernel, which
-// keeps the first design): the naxis real axes sit at the END of the
-// ED_MAXD slots (slot ED_MAXD - naxis + h holds axis h); leading unused
-// slots take one tap of weight 1 and offset 0. Multiplying by 1 is exact,
-// so a left-to-right weight product over the slots equals the twin's over
-// the real axes. off[s][t] is the element offset (in voxels) of tap t,
-// folded by the integer mirror fold into the UNPADDED array. With COORDS,
-// displ holds the sample coordinates themselves (B, naxis, n_out), read as
-// they are. Returns false where constant mode falls outside.
-template <typename T, int ORDER, bool COORDS>
-__device__ __forceinline__ bool tap_tables(
-    const Params& p, const T* displ, const T* affine, int64_t b, int64_t v,
-    T (&w)[ED_MAXD][ORDER + 1], int64_t (&off)[ED_MAXD][ORDER + 1],
-    int (&ntap)[ED_MAXD]) {
-  constexpr int NT = ORDER + 1;
-  const int lead = ED_MAXD - p.naxis;
-  int64_t j[ED_MAXD];
-  if constexpr (!COORDS) voxel_index(p, v, j);
-  bool inside = true;
-  const T* A = affine ? affine + b * p.affine_stride : nullptr;
-#pragma unroll
-  for (int s = 0; s < ED_MAXD; ++s) {
-    const int h = s - lead;
-    if (h < 0) {
-      ntap[s] = 1;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        w[s][t] = T(1);
-        off[s][t] = 0;
-      }
-      continue;
-    }
-    ntap[s] = NT;
-    T cc;
-    if constexpr (COORDS)
-      cc = displ[(b * p.naxis + h) * p.n_out + v];
-    else
-      cc = sample_coordinate(p, A, displ, j, b, v, h);
-    const T m = map_coord(cc, p.in_shape[h], p.mode, &inside);
-    const T fs = (ORDER & 1) ? floor(m) - T(ORDER / 2)
-                             : floor(m + T(0.5)) - T(ORDER / 2);
-    const int64_t start = (int64_t)fs;
-    spline_weights<T, ORDER>(m, w[s]);
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-      off[s][t] = mirror_fold(start + t, p.in_shape[h]) * p.in_stride[h];
-  }
-  return inside;
 }
 
 }  // namespace

@@ -295,14 +295,17 @@ class Prefilter1d(torch.autograd.Function):
     """The spline prefilter of a contiguous tensor along ``axis`` with the
     boundary condition ``bc`` (``'mirror'``: K2, ``'reflect'`` or
     ``'wrap'``: K6) as an autograd function; the backward is its exact
-    transpose (K4 or K7). Orders 0 and 1 are not passed here."""
+    transpose (K4 or K7). Orders 0 and 1 are not passed here.
+    ``fixed_order``: the filter's sums in one order on every device (K2's
+    writeback route with no cast), for a call whose output is an integer,
+    so that the card rounds to the CPU's integers."""
 
     @staticmethod
-    def forward(ctx, x, order, axis, bc):
+    def forward(ctx, x, order, axis, bc, fixed_order=False):
         ctx.order, ctx.axis, ctx.bc = order, axis, bc
         if bc == "mirror":
-            return spline_filter1d(x, order, axis)
-        return spline_filter1d_bc(x, order, axis, bc)
+            return spline_filter1d(x, order, axis, fixed_order=fixed_order)
+        return spline_filter1d_bc(x, order, axis, bc, fixed_order)
 
     @staticmethod
     @once_differentiable
@@ -312,7 +315,7 @@ class Prefilter1d(torch.autograd.Function):
             d = spline_filter1d_transpose(g, ctx.order, ctx.axis)
         else:
             d = spline_filter1d_bc_transpose(g, ctx.order, ctx.axis, ctx.bc)
-        return d, None, None, None
+        return d, None, None, None, None
 
 
 def _map_output(y: torch.Tensor, ispec: InputSpec, spatial):
@@ -328,15 +331,17 @@ def map_coordinates_apply_batched(x: torch.Tensor, coords: torch.Tensor,
                                   spec: DeformSpec) -> torch.Tensor:
     """Resample ``x`` ``(B, *shape)`` at per-sample coordinates ``(B,
     naxis, *out_spatial)``: the mirror prefilter in the compute dtype with
-    no integer writeback, K1c, the cast (the JAX package's
+    no integer writeback (in one fixed order where the output is an
+    integer), K1c, the cast (the JAX package's
     ``map_coordinates_apply_batched``). Differentiable with respect to
     ``x`` and ``coords``."""
     cdt = getattr(torch, spec.compute_dtype)
     ispec = spec.inputs[0]
     xt = _to_spatial_channels(x, ispec).to(cdt).contiguous()
     if spec.prefilter and ispec.order > 1:
+        fixed = np.dtype(ispec.dtype).kind in "biu"
         for d in range(len(ispec.axis)):
-            xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror")
+            xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror", fixed)
     y = ResampleAt.apply(xt, coords.to(cdt).contiguous(), ispec.order,
                          ispec.mode, ispec.cval, _table(spec))
     return _map_output(cast_output(y, ispec.dtype), ispec, spec.out_spatial)

@@ -34,7 +34,10 @@ K2 takes its ``"writeback"`` route instead: no recursion, but the row sums
 of the filter matrix in one fixed order, then the truncating cast after the
 axis (:func:`_row_sums`, which its plain version runs too), so that the
 card and the CPU truncate to the same integers. It has a tile form and a
-lines form, on the same plan.
+lines form, on the same plan. With ``fixed_order`` (a call of the general
+resampler whose output is an integer, which rounds after the resample) K2
+and K6 take that route without the cast: the row sums of ``filter_matrix``
+or ``filter_matrix_bc`` in the same fixed order on both devices.
 
 The float64 numpy helpers (poles, the reference recursion, the filter
 matrices) are this package's own copies of the JAX package's.
@@ -195,11 +198,14 @@ def _apply_matrix(x: torch.Tensor, mat: np.ndarray, axis: int):
 
 
 @functools.lru_cache(maxsize=64)
-def _filter_table(n: int, order: int, dtype, device) -> torch.Tensor:
-    """``filter_matrix(n, order)`` in ``dtype`` on ``device``, uploaded
+def _filter_table(n: int, order: int, dtype, device,
+                  bc: str = "mirror") -> torch.Tensor:
+    """``filter_matrix(n, order)`` (``bc`` ``'mirror'``) or
+    ``filter_matrix_bc(n, order, bc)`` in ``dtype`` on ``device``, uploaded
     once: the table of K2's writeback route and of its twin."""
-    return torch.as_tensor(filter_matrix(n, order), dtype=dtype,
-                           device=device)
+    mat = filter_matrix(n, order) if bc == "mirror" else \
+        filter_matrix_bc(n, order, bc)
+    return torch.as_tensor(mat, dtype=dtype, device=device)
 
 
 def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
@@ -239,19 +245,20 @@ def _row_sums(x: torch.Tensor, mat: torch.Tensor, axis: int):
 
 
 def spline_filter1d_plain(x: torch.Tensor, order: int, axis: int,
-                          int_dtype=None) -> torch.Tensor:
+                          int_dtype=None,
+                          fixed_order: bool = False) -> torch.Tensor:
     """Plain version of K2: the float64 filter matrix applied in the
-    tensor's dtype (``tensordot``); with ``int_dtype``, the plain version of
-    its writeback route: the matrix's row sums in the route's order
-    (:func:`_row_sums`), then the reference's integer writeback
-    :func:`cast_int_c`."""
+    tensor's dtype (``tensordot``); with ``int_dtype`` or ``fixed_order``,
+    the plain version of its writeback route: the matrix's row sums in the
+    route's order (:func:`_row_sums`), then with ``int_dtype`` the
+    reference's integer writeback :func:`cast_int_c`."""
     if order <= 1:
         return x
     n = x.shape[axis]
-    if int_dtype is None:
+    if int_dtype is None and not fixed_order:
         return _apply_matrix(x, filter_matrix(n, order), axis)
-    mat = _filter_table(n, order, x.dtype, x.device)
-    return cast_int_c(_row_sums(x, mat, axis), int_dtype)
+    y = _row_sums(x, _filter_table(n, order, x.dtype, x.device), axis)
+    return y if int_dtype is None else cast_int_c(y, int_dtype)
 
 
 def spline_filter1d_transpose_plain(x: torch.Tensor, order: int,
@@ -265,12 +272,18 @@ def spline_filter1d_transpose_plain(x: torch.Tensor, order: int,
 
 
 def spline_filter1d_bc_plain(x: torch.Tensor, order: int, axis: int,
-                            bc: str) -> torch.Tensor:
+                            bc: str,
+                            fixed_order: bool = False) -> torch.Tensor:
     """Plain version of K6: ``filter_matrix_bc(n, order, bc)`` applied in
-    the tensor's dtype."""
+    the tensor's dtype; with ``fixed_order``, its row sums in the order of
+    K2's writeback route (:func:`_row_sums`)."""
     if order <= 1:
         return x
-    return _apply_matrix(x, filter_matrix_bc(x.shape[axis], order, bc), axis)
+    n = x.shape[axis]
+    if fixed_order:
+        return _row_sums(x, _filter_table(n, order, x.dtype, x.device, bc),
+                         axis)
+    return _apply_matrix(x, filter_matrix_bc(n, order, bc), axis)
 
 
 def spline_filter1d_bc_transpose_plain(x: torch.Tensor, order: int,
@@ -492,29 +505,42 @@ def _row_groups(plan: TilePlan, n: int, lines: int, sms: int) -> int:
     return max(1, min(-(-want // max(units, 1)), -(-n // 4)))
 
 
+def _launch_rows(x: torch.Tensor, order: int, axis: int, bc: str,
+                 plan: TilePlan, int_dtype=None) -> torch.Tensor:
+    """K2's writeback route on ``plan`` (its tile form on a tile plan, its
+    lines form on a lines plan): the row sums of ``filter_matrix`` (``bc``
+    ``'mirror'``) or ``filter_matrix_bc``, then ``int_dtype``'s writeback
+    or, with None, no cast. Counts nothing."""
+    outer, n, inner = _lines(x, axis)
+    out = torch.empty_like(x)
+    lib = _lib()
+    bits, lo = _int_writeback(int_dtype)
+    mat = _filter_table(n, order, x.dtype, x.device, bc)
+    groups = _row_groups(plan, n, outer * inner, _sm_count(x.device))
+    err = lib.ed_spline_prefilter_writeback(
+        0 if x.dtype == torch.float32 else 1, x.data_ptr(), out.data_ptr(),
+        mat.data_ptr(), outer, n, inner, bits, lo, groups, plan.width,
+        int(plan.packed), plan.lines, plan.stride, plan.smem, plan.blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, lib, "ed_prefilter_error_string",
+                 "spline_prefilter writeback")
+    return out
+
+
 def _launch_filter(x: torch.Tensor, order: int, axis: int, plan: TilePlan,
-                   int_dtype=None) -> torch.Tensor:
+                   int_dtype=None, fixed_order: bool = False) -> torch.Tensor:
     """K2 on a CUDA tensor along ``axis`` on the route and tile ``plan``
-    names; with ``int_dtype``, K2's writeback route instead (its tile form
-    on a tile plan, its lines form on a lines plan) with that integer's
-    writeback. Counts nothing (the public wrapper counts)."""
+    names; with ``int_dtype`` or ``fixed_order``, K2's writeback route
+    instead (:func:`_launch_rows`). Counts nothing (the public wrapper
+    counts)."""
     check_kernel_tensor(x, "spline_prefilter")
+    if int_dtype is not None or fixed_order:
+        return _launch_rows(x, order, axis, "mirror", plan, int_dtype)
     outer, n, inner = _lines(x, axis)
     dt = 0 if x.dtype == torch.float32 else 1
     stream = torch.cuda.current_stream(x.device).cuda_stream
     out = torch.empty_like(x)
     lib = _lib()
-    if int_dtype is not None:
-        bits, lo = _int_writeback(int_dtype)
-        mat = _filter_table(n, order, x.dtype, x.device)
-        groups = _row_groups(plan, n, outer * inner, _sm_count(x.device))
-        err = lib.ed_spline_prefilter_writeback(
-            dt, x.data_ptr(), out.data_ptr(), mat.data_ptr(), outer, n, inner,
-            bits, lo, groups, plan.width, int(plan.packed), plan.lines,
-            plan.stride, plan.smem, plan.blocks, stream)
-        _build.check(err, lib, "ed_prefilter_error_string",
-                     "spline_prefilter writeback")
-        return out
     poles, horizons, pn1, denom, gain = _kernel_params(n, order)
     npoles = len(spline_poles(order))
     if plan.route == "tile":
@@ -582,9 +608,14 @@ def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
 
 
 def _launch_bc_filter(x: torch.Tensor, order: int, axis: int, bc: str,
-                      plan: TilePlan) -> torch.Tensor:
+                      plan: TilePlan,
+                      fixed_order: bool = False) -> torch.Tensor:
     """K6 under ``bc`` (``'reflect'`` or ``'wrap'``) on ``plan``:
-    :func:`_launch_poles`."""
+    :func:`_launch_poles`; with ``fixed_order``, K2's writeback route on
+    ``filter_matrix_bc`` with no cast (:func:`_launch_rows`)."""
+    if fixed_order:
+        check_kernel_tensor(x, "spline_prefilter_bc")
+        return _launch_rows(x, order, axis, bc, plan)
     return _launch_poles(x, order, axis, bc, plan, False)
 
 
@@ -603,28 +634,29 @@ def tile_blocks_per_sm(dtype, kernel: str, bc: str, plan: TilePlan) -> int:
 
 
 def spline_filter1d(x: torch.Tensor, order: int, axis: int,
-                    int_dtype=None) -> torch.Tensor:
+                    int_dtype=None, fixed_order: bool = False) -> torch.Tensor:
     """Spline prefilter of ``x`` along ``axis`` (mirror boundary).
 
     ``int_dtype`` (a numpy integer or bool dtype) adds the reference's
-    per-axis integer writeback after the filter, on K2's writeback route.
+    per-axis integer writeback after the filter, on K2's writeback route;
+    ``fixed_order`` takes that route's fixed-order sums without the cast.
     Orders 0 and 1 need no filter and return ``x`` as it is. A CPU tensor
     takes :func:`spline_filter1d_plain`; a CUDA tensor launches K2
     (contiguous float32 or float64 only) on the route of :func:`_tile_plan`,
-    or with ``int_dtype`` on its writeback route, and adds one to
-    ``spline_filter1d.launches`` and to that route's count in
+    or with ``int_dtype`` or ``fixed_order`` on its writeback route, and
+    adds one to ``spline_filter1d.launches`` and to that route's count in
     ``spline_filter1d.routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
-        return spline_filter1d_plain(x, order, axis, int_dtype)
+        return spline_filter1d_plain(x, order, axis, int_dtype, fixed_order)
     check_kernel_tensor(x, "spline_filter1d")
     plan = _plan_for(x, axis)
-    out = _launch_filter(x, order, axis, plan, int_dtype)
+    out = _launch_filter(x, order, axis, plan, int_dtype, fixed_order)
     spline_filter1d.launches += 1
-    spline_filter1d.routes["writeback" if int_dtype is not None
-                           else plan.route] += 1
+    spline_filter1d.routes["writeback" if int_dtype is not None or
+                           fixed_order else plan.route] += 1
     return out
 
 
@@ -660,29 +692,31 @@ spline_filter1d_transpose.routes = {"tile": 0, "lines": 0}
 
 
 def spline_filter1d_bc(x: torch.Tensor, order: int, axis: int,
-                       bc: str) -> torch.Tensor:
+                       bc: str, fixed_order: bool = False) -> torch.Tensor:
     """Spline prefilter of ``x`` along ``axis`` under the boundary condition
     ``bc``, ``'reflect'`` or ``'wrap'`` (the mirror one is
     :func:`spline_filter1d`). Orders 0 and 1 return ``x`` as it is. A CPU
     tensor takes :func:`spline_filter1d_bc_plain`; a CUDA tensor launches K6
-    (contiguous float32 or float64 only) on the route of :func:`_tile_plan`
-    and adds one to ``spline_filter1d_bc.launches`` and to its route's
-    count in ``spline_filter1d_bc.routes``.
+    (contiguous float32 or float64 only) on the route of :func:`_tile_plan`,
+    or with ``fixed_order`` K2's writeback route on ``filter_matrix_bc``
+    with no cast, and adds one to ``spline_filter1d_bc.launches`` and to
+    its route's count in ``spline_filter1d_bc.routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
-        return spline_filter1d_bc_plain(x, order, axis, bc)
+        return spline_filter1d_bc_plain(x, order, axis, bc, fixed_order)
     check_kernel_tensor(x, "spline_prefilter_bc")
     plan = _plan_for(x, axis)
-    out = _launch_bc_filter(x, order, axis, bc, plan)
+    out = _launch_bc_filter(x, order, axis, bc, plan, fixed_order)
     spline_filter1d_bc.launches += 1
-    spline_filter1d_bc.routes[plan.route] += 1
+    spline_filter1d_bc.routes["writeback" if fixed_order
+                              else plan.route] += 1
     return out
 
 
 spline_filter1d_bc.launches = 0
-spline_filter1d_bc.routes = {"tile": 0, "lines": 0}
+spline_filter1d_bc.routes = {"tile": 0, "lines": 0, "writeback": 0}
 
 
 def spline_filter1d_bc_transpose(x: torch.Tensor, order: int, axis: int,

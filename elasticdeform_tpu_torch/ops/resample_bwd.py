@@ -29,6 +29,16 @@ with respect to those coordinates; their plain versions are
 :func:`resample_coords_transpose_plain` and
 :func:`resample_coords_grad_plain`.
 
+K3 and K3c run on the plan of :func:`_bwd_plan`: a block owns a tile of
+the output (:data:`BWD_TILE`, 8 x 8 x 8 voxels of a 3-D output), sums its
+taps into a box of the coefficients in shared memory and flushes the box
+with one device-memory atomic per element; a block whose box exceeds the
+budget (:data:`BWD_BUDGET` bytes) or whose coordinates are not finite adds
+each tap to the coefficients directly. The plan's ``"tile"`` route launches
+with the budget, its ``"direct"`` route with none (every block direct:
+orders below :data:`BWD_TILE_ORDER`, a channel count whose single-voxel box
+exceeds the budget, or forced); ``.routes`` counts the launches of each.
+
 Layouts are those of :mod:`~elasticdeform_tpu_torch.ops.resample`. On a CPU
 tensor each wrapper takes its plain version; on a CUDA tensor it launches
 its kernel or raises, and adds one to its ``.launches`` counter. The
@@ -38,7 +48,9 @@ TypeError at the entry points.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -59,6 +71,118 @@ def _zero_outside(t: torch.Tensor, inside) -> torch.Tensor:
         return t
     return torch.where(inside, t, torch.zeros((), dtype=t.dtype,
                                                device=t.device))
+
+
+# K3/K3c's tile of output voxels, one a thread: up to 512 for float32 with
+# 32-bit offsets, up to 256 for the rest (``BwdThreads`` in
+# ``csrc/resample_bwd.cu``)
+BWD_MAX_TILE = 512
+# the tile of a 3-D (or higher) output, and of a 2-D and a 1-D one, over
+# the output's three innermost axes (a, b, c), c innermost; halved on its
+# outermost axis above 1 where the block has 256 threads
+BWD_TILE = (8, 8, 8)
+BWD_TILES_BY_RANK = {0: (1, 1, 512), 1: (1, 1, 512), 2: (1, 16, 32)}
+# the shared-memory bytes of a block's box
+BWD_BUDGET = 16384
+# the least order the plan puts on the tile route: a shared-memory float
+# add is a compare-and-swap loop on the H100 that runs about as fast as a
+# device-memory atomic, so the box pays where a voxel's taps overlap its
+# neighbours' many times (order 3: 5.6 ms against 8.3 at c5, 2.1 against
+# 2.4 at c8) and not at order 1 (1.11 against 1.13 at c5, 1.40 against
+# 1.09 at c7; PERF.md section 6)
+BWD_TILE_ORDER = 2
+
+BwdPlan = collections.namedtuple(
+    "BwdPlan", "route view tile cap smem blocks wide")
+BwdPlan.__doc__ = """K3/K3c's launch: ``route`` "tile" (a box of up to
+``cap`` elements, ``smem`` bytes, per block) or "direct" (cap 0); the
+output ``view`` ``(outer, a, b, c)``; the ``tile`` over ``(a, b, c)``;
+the grid's ``blocks`` per sample; ``wide``: 64-bit offsets."""
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def bwd_view(out_shape) -> tuple:
+    """The output ``(outer, a, b, c)`` that K3/K3c tile: the three
+    innermost axes, the rest folded into ``outer``, 1s in front of a
+    shorter shape."""
+    out_shape = tuple(int(n) for n in out_shape)
+    inner = out_shape[-3:] if len(out_shape) >= 3 else out_shape
+    return ((math.prod(out_shape[:-3]),) + (1,) * (3 - len(inner))
+            + tuple(inner))
+
+
+def bwd_threads(dtype, wide: bool) -> int:
+    """The threads of a K3/K3c block, one per voxel of its tile."""
+    return BWD_MAX_TILE if dtype == torch.float32 and not wide \
+        else BWD_MAX_TILE // 2
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(in_shape, out_shape, channels: int, order: int, dtype,
+              route=None, budget: int = BWD_BUDGET, tile=None) -> BwdPlan:
+    """The launch of K3 (``out_shape`` the displacement's spatial shape)
+    or K3c (the coordinates' output shape) scattering into coefficients of
+    spatial ``in_shape`` with ``channels`` channels. The tile is
+    :data:`BWD_TILE` on a 3-D output (:data:`BWD_TILES_BY_RANK` below),
+    halved to the block's threads (:func:`bwd_threads`), or ``tile``; an
+    axis shorter than its tile extent takes the next power of two, and the
+    voxels it frees go to the innermost axes that are longer. The route
+    is "tile", with a box of ``budget`` bytes, from order
+    :data:`BWD_TILE_ORDER` up, unless one voxel's taps (``(order + 1)^naxis
+    x channels`` elements) exceed it; else "direct". ``route`` forces
+    either (``chip_smoke.py`` and the tests hold both branches this way);
+    a forced "tile" that cannot fit raises ValueError. Offsets are 64-bit
+    where a sample reaches 2^31 elements (``wide_indices``). Cached: the
+    wrappers ask at every launch."""
+    if route not in (None, "tile", "direct"):
+        raise ValueError(f"route must be 'tile' or 'direct', got {route!r}")
+    in_shape = tuple(int(n) for n in in_shape)
+    naxis = len(in_shape)
+    view = bwd_view(out_shape)
+    wide = wide_indices(math.prod(in_shape), math.prod(view), channels,
+                        naxis)
+    threads = bwd_threads(dtype, wide)
+    if tile is None:
+        want = list(BWD_TILES_BY_RANK.get(len(tuple(out_shape)), BWD_TILE))
+        while math.prod(want) > threads:
+            a = next(k for k, d in enumerate(want) if d > 1)
+            want[a] //= 2
+        want = tuple(want)
+    else:
+        want = tuple(tile)
+    if any(d < 1 or d & (d - 1) for d in want) or \
+            math.prod(want) > threads:
+        raise ValueError(f"a tile is three powers of two of at most "
+                         f"{threads} voxels, got {want}")
+    need = [_pow2_at_least(n) for n in view[1:]]
+    dims = [min(d, n) for d, n in zip(want, need)]
+    for a in (2, 1, 0):
+        while math.prod(dims) < math.prod(want) and dims[a] < need[a]:
+            dims[a] *= 2
+    blocks = view[0] * math.prod(-(-n // d) for n, d in zip(view[1:], dims))
+    if blocks >= 2 ** 31:
+        raise ValueError(f"K3: {blocks} blocks a sample, over 2^31")
+    item = 4 if dtype == torch.float32 else 8
+    cap = int(budget) // item
+    fits = channels * (order + 1) ** naxis <= cap
+    if route == "tile" and not fits:
+        raise ValueError(f"K3's box of one voxel, {channels} x "
+                         f"{order + 1}^{naxis} elements, exceeds {budget} "
+                         f"bytes")
+    if route == "direct" or not fits or \
+            route is None and order < BWD_TILE_ORDER:
+        return BwdPlan("direct", view, tuple(dims), 0, 0, blocks, wide)
+    return BwdPlan("tile", view, tuple(dims), cap, cap * item, blocks, wide)
+
+
+def _tile_args(plan: BwdPlan):
+    """The plan as the C entry points take it: view, log2 tile, cap."""
+    return ((ctypes.c_longlong * 4)(*plan.view),
+            (ctypes.c_int * 3)(*[d.bit_length() - 1 for d in plan.tile]),
+            plan.cap)
 
 
 def resample_linear_transpose(g: torch.Tensor, mapped, inside, order: int,
@@ -177,41 +301,48 @@ def _lib():
     lib = _build.library("resample_bwd")
     if lib.ed_resample_bwd.argtypes is None:
         ll_p = ctypes.POINTER(ctypes.c_longlong)
+        int_p = ctypes.POINTER(ctypes.c_int)
         shape_args = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_longlong, ctypes.c_longlong, ll_p, ll_p, ll_p,
-                      ctypes.c_longlong, ctypes.c_void_p]
+                      ctypes.c_longlong]
+        tile_args = [ll_p, int_p, ctypes.c_int]
         fn = lib.ed_resample_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + shape_args
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + shape_args
+                       + tile_args + [ctypes.c_void_p, ctypes.c_int])
         fn = lib.ed_resample_coord_grad
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + shape_args
-                       + [ctypes.c_int])
+                       + [ctypes.c_void_p, ctypes.c_int])
         coords_args = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong, ll_p,
-                       ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_longlong]
         fn = lib.ed_resample_coords_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + coords_args
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + coords_args
+                       + tile_args + [ctypes.c_void_p, ctypes.c_int])
         fn = lib.ed_resample_coords_grad
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + coords_args
-                       + [ctypes.c_int])
+                       + [ctypes.c_void_p, ctypes.c_int])
+        fn = lib.ed_resample_bwd_blocks_per_sm
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 5
     return lib
 
 
-def resample_transpose(g: torch.Tensor, displ: torch.Tensor, affine, offsets,
-                       order: int, mode: int, in_spatial) -> torch.Tensor:
-    """The transpose of
-    :func:`~elasticdeform_tpu_torch.ops.resample.resample` with respect to
-    the coefficients: maps ``g`` ``(B, *out_spatial, C)`` to ``(B,
-    *in_spatial, C)``. ``cval`` does not enter: the gradient path is
-    linear. A CPU tensor takes :func:`resample_transpose_plain`; a CUDA
-    tensor launches K3 and adds one to ``resample_transpose.launches``.
-    """
-    if g.device.type == "cpu":
-        return resample_transpose_plain(g, displ, affine, offsets, order,
-                                        mode, in_spatial)
+def bwd_occupancy(dtype, order: int, naxis: int, plan: BwdPlan) -> int:
+    """K3's blocks per SM on ``plan`` from CUDA's occupancy calculator
+    (its launch bounds and the box's shared bytes)."""
+    return _lib().ed_resample_bwd_blocks_per_sm(
+        0 if dtype == torch.float32 else 1, order, naxis, int(plan.wide),
+        plan.smem)
+
+
+def _launch_k3(g, displ, affine, offsets, order, mode, in_spatial,
+               plan: BwdPlan) -> torch.Tensor:
+    """K3 on ``plan`` (no counts): ``g`` ``(B, *out_spatial, C)`` to ``(B,
+    *in_spatial, C)``."""
     affine = check_resample_args("resample_transpose", g, displ, affine)
     if tuple(g.shape[1:-1]) != tuple(displ.shape[2:]):
         raise ValueError("resample_transpose: g must be (B, *out_spatial, C) "
@@ -225,14 +356,37 @@ def resample_transpose(g: torch.Tensor, displ: torch.Tensor, affine, offsets,
     err = lib.ed_resample_bwd(
         0 if g.dtype == torch.float32 else 1, g.data_ptr(), displ.data_ptr(),
         a_ptr, out.data_ptr(), naxis, order, mode, B, C, in_shape,
-        out_shape, offs, a_stride,
-        torch.cuda.current_stream(g.device).cuda_stream)
+        out_shape, offs, a_stride, *_tile_args(plan),
+        torch.cuda.current_stream(g.device).cuda_stream, int(plan.wide))
     _build.check(err, lib, "ed_resample_bwd_error_string", "resample_bwd")
+    return out
+
+
+def resample_transpose(g: torch.Tensor, displ: torch.Tensor, affine, offsets,
+                       order: int, mode: int, in_spatial) -> torch.Tensor:
+    """The transpose of
+    :func:`~elasticdeform_tpu_torch.ops.resample.resample` with respect to
+    the coefficients: maps ``g`` ``(B, *out_spatial, C)`` to ``(B,
+    *in_spatial, C)``. ``cval`` does not enter: the gradient path is
+    linear. A CPU tensor takes :func:`resample_transpose_plain`; a CUDA
+    tensor launches K3 on the plan of :func:`_bwd_plan` and adds one to
+    ``resample_transpose.launches`` and to its route's count in
+    ``resample_transpose.routes``.
+    """
+    if g.device.type == "cpu":
+        return resample_transpose_plain(g, displ, affine, offsets, order,
+                                        mode, in_spatial)
+    plan = _bwd_plan(tuple(in_spatial), tuple(displ.shape[2:]), g.shape[-1],
+                     order, g.dtype)
+    out = _launch_k3(g, displ, affine, offsets, order, mode, in_spatial,
+                     plan)
     resample_transpose.launches += 1
+    resample_transpose.routes[plan.route] += 1
     return out
 
 
 resample_transpose.launches = 0
+resample_transpose.routes = {"tile": 0, "direct": 0}
 
 
 def resample_coord_grad(coeffs: torch.Tensor, g: torch.Tensor,
@@ -276,19 +430,10 @@ def resample_coord_grad(coeffs: torch.Tensor, g: torch.Tensor,
 resample_coord_grad.launches = 0
 
 
-def resample_coords_transpose(g: torch.Tensor, coords: torch.Tensor,
-                              order: int, mode: int,
-                              in_spatial) -> torch.Tensor:
-    """The transpose of
-    :func:`~elasticdeform_tpu_torch.ops.resample.resample_coords` with
-    respect to the coefficients: ``g`` ``(B, *out_spatial, C)`` to ``(B,
-    *in_spatial, C)``. A CPU tensor takes
-    :func:`resample_coords_transpose_plain`; a CUDA tensor launches K3c and
-    adds one to ``resample_coords_transpose.launches``.
-    """
-    if g.device.type == "cpu":
-        return resample_coords_transpose_plain(g, coords, order, mode,
-                                               in_spatial)
+def _launch_k3c(g, coords, order, mode, in_spatial,
+                plan: BwdPlan) -> torch.Tensor:
+    """K3c on ``plan`` (no counts): ``g`` ``(B, *out_spatial, C)`` at
+    ``coords`` ``(B, naxis, *out_spatial)`` to ``(B, *in_spatial, C)``."""
     C = g.shape[-1]
     # the kernel adds into this zero fill
     out = torch.zeros((g.shape[0], *in_spatial, C), dtype=g.dtype,
@@ -305,14 +450,38 @@ def resample_coords_transpose(g: torch.Tensor, coords: torch.Tensor,
     err = lib.ed_resample_coords_bwd(
         0 if g.dtype == torch.float32 else 1, g.data_ptr(),
         coords.data_ptr(), out.data_ptr(), naxis, order, mode, B, C,
-        in_shape, n_out, torch.cuda.current_stream(g.device).cuda_stream)
+        in_shape, n_out, *_tile_args(plan),
+        torch.cuda.current_stream(g.device).cuda_stream, int(plan.wide))
     _build.check(err, lib, "ed_resample_bwd_error_string",
                  "resample_coords_bwd")
+    return out
+
+
+def resample_coords_transpose(g: torch.Tensor, coords: torch.Tensor,
+                              order: int, mode: int,
+                              in_spatial) -> torch.Tensor:
+    """The transpose of
+    :func:`~elasticdeform_tpu_torch.ops.resample.resample_coords` with
+    respect to the coefficients: ``g`` ``(B, *out_spatial, C)`` to ``(B,
+    *in_spatial, C)``. A CPU tensor takes
+    :func:`resample_coords_transpose_plain`; a CUDA tensor launches K3c on
+    the plan of :func:`_bwd_plan` (tiled in ``coords``' output shape) and
+    adds one to ``resample_coords_transpose.launches`` and to its route's
+    count in ``resample_coords_transpose.routes``.
+    """
+    if g.device.type == "cpu":
+        return resample_coords_transpose_plain(g, coords, order, mode,
+                                               in_spatial)
+    plan = _bwd_plan(tuple(in_spatial), tuple(coords.shape[2:]),
+                     g.shape[-1], order, g.dtype)
+    out = _launch_k3c(g, coords, order, mode, in_spatial, plan)
     resample_coords_transpose.launches += 1
+    resample_coords_transpose.routes[plan.route] += 1
     return out
 
 
 resample_coords_transpose.launches = 0
+resample_coords_transpose.routes = {"tile": 0, "direct": 0}
 
 
 def resample_coords_grad(coeffs: torch.Tensor, g: torch.Tensor,
