@@ -15,9 +15,11 @@ Phases (any failure raises, and the exit code is not 0):
    K1/K1c's, K5/K5c's and K3/K3c's (per dtype, index width, rank and
    order), and holds K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's
    writeback route in float64 too, K1/K1c and K5/K5c at orders 1 and 3 in
-   float32, and every K3/K3c instantiation to no stack frame and no spills;
-   then prints the atomic instructions of K3/K3c at rank 3 (``cuobjdump
-   -sass``: native shared-memory adds or compare-and-swap loops);
+   float32, and every K3/K3c instantiation and K13's four tile
+   instantiations and its pack and unpack kernels to no stack frame and no
+   spills; then prints the atomic instructions of K3/K3c at rank 3
+   (``cuobjdump -sass``: native shared-memory adds or compare-and-swap
+   loops);
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
    K3 (its transpose, a scatter, on the plan's tile route and with every
    block forced onto its direct branch, the blocks of each branch counted
@@ -46,7 +48,10 @@ Phases (any failure raises, and the exit code is not 0):
    bit for bit with their twins, then ``affine_transform``, ``zoom``,
    ``rotate``, ``shift`` and ``map_coordinates`` on uint8 and int16 inputs
    at orders 0, 1 and 3, a legacy and a modern mode, 2-D and 3-D, bit for
-   bit with the same call on the CPU; K9T on both routes (a shared-memory
+   bit with the same call on the CPU; ``spline_filter`` and
+   ``spline_filter1d`` into uint8 and int16 output arrays at orders 2-5 in
+   every mode name, 1-D to 3-D and a 512x512 image, bit for bit with the
+   CPU run, each axis on the fixed-order route; K9T on both routes (a shared-memory
    halo box and one thread per output) at c14's shapes in every mode, 2-D,
    rank-4 and sparse kernels, every column, per element to the twin and to
    each other; K8 and
@@ -62,7 +67,13 @@ Phases (any failure raises, and the exit code is not 0):
    (footprint min/max) over flat and non-flat 2-D to 4-D footprints with
    saturating integer casts, K12 (rank selection) over 2-343 taps on both
    routes, and K13 (binary sweep) over random, even and empty structures,
-   borders, masks, its changed flag and the fixpoint; K1 and K1c reading a
+   borders, masks and its changed flag on the plan's route and each route
+   forced (tile and nd; the nd route alone at 4 axes and an innermost reach
+   of 33), its driver at 3 iterations and to the fixpoint on the tile and
+   nd routes against the CPU run, and its
+   multi-sweep launches (k 1-8, 1-D to 3-D, innermost lengths 1-224,
+   innermost reach up to 32) against k twin sweeps and the last sweep's
+   flag; K1 and K1c reading a
    narrow (bfloat16 or float32) coefficient table, bit for bit; K1 and K1c
    with 64-bit offsets (forced through the C entry points) bit for bit
    with the 32-bit ones, and K1 with no affine and zero offsets bit for bit
@@ -93,7 +104,8 @@ Phases (any failure raises, and the exit code is not 0):
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16, and c17's K13 sweeps per
-   call; K2's, K4's, K6's, K7's, K3's and K3c's launches split by route,
+   call, 4, 80 and 168, all on the tile route, with its pack and unpack
+   launches; K2's, K4's, K6's, K7's, K3's and K3c's launches split by route,
    the tile route taken, c8's and c9's K6 only there, no config on K2's
    writeback route);
    then the probes' path: every Pallas probe through the port's
@@ -118,17 +130,22 @@ Phases (any failure raises, and the exit code is not 0):
    shared-memory adds and the device-memory atomics per second beside P3's
    rate; K8-K9T at
    the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
-   ``max_pool3d``, K12 at the c15 shapes, K13 at the c17 shapes beside
-   ``max_pool3d``; K2 per axis at c5 as K4 (route, W, blocks per SM,
+   ``max_pool3d``, K12 at the c15 shapes, K13's single sweep at the c17
+   shapes on each route beside ``max_pool3d`` and c17's hole filling per
+   call and per sweep on the packed state, on bool bytes and on the nd
+   route beside the call's byte bound; K2 per axis at c5 as K4 (route, W, blocks per SM,
    waves, every width, the lines route), K9T at c14 per column and on
    its nd route; one line per probe, its calls timed back to back: ms,
    M rows/s, GB/s of the rows
    moved, from L2 or HBM, beside the byte bound, the twin and the library
    call, ``index_select``, ``gather``, ``embedding_bag`` or ``index_add_``;
-   the library-only probes' rates), and each config (Mvox/s).
+   P2's host microseconds per call, device microseconds per call from the
+   profiler and one launch between events, beside its library call's; the
+   library-only probes' rates), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel (K2,
-K4, K6, K7, K9T, K3 and K3c with their launches per route); the last line
+K4, K6, K7, K9T, K3, K3c and K13 with their launches per route; K13 also
+its sweeps and its pack and unpack launches); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
@@ -347,6 +364,35 @@ def _check_tile_ptxas(log):
                              f"or K6 or K2's writeback route): {bad}")
 
 
+# K13's tile route (dilation, bool bytes in and out) and its pack kernels
+_K13_TILE = re.compile(r"binary_tile_kernelILb([01])ELb([01])E")
+_K13_PACK = re.compile(r"binary_(un)?pack_kernel")
+
+
+def _check_k13_ptxas(log):
+    """Print K13's four tile instantiations (erosion or dilation, packed
+    words or bool bytes) and its pack and unpack kernels; fail unless all
+    six are found, or if one has a stack frame or spills."""
+    found, bad = 0, []
+    for fn, v in sorted(_ptxas_kernels(log).items()):
+        m = _K13_TILE.search(fn)
+        if m:
+            label = (f"K13 tile {'dilation' if m.group(1) == '1' else 'erosion'}"
+                     f" {'bytes' if m.group(2) == '1' else 'packed words'}")
+        elif _K13_PACK.search(fn):
+            label = f"K13 {'unpack' if 'unpack' in fn else 'pack'}"
+        else:
+            continue
+        print(f"  ptxas {label}: {v[0]} registers, {v[1]} bytes stack frame, "
+              f"{v[2]}/{v[3]} bytes spill stores/loads")
+        found += 1
+        if any(v[1:4]):
+            bad.append(fn)
+    if found != 6 or bad:
+        raise AssertionError(f"K13: {found} of 6 tile and pack kernels found; "
+                             f"with a stack frame or spills: {bad}")
+
+
 def _check_k9t_ptxas(log):
     """Print each K9T tile instantiation's registers, stack and spills per
     dtype, column C and fold flag; fail unless all 16 are found and none in
@@ -477,6 +523,7 @@ def phase_build():
                              "register checks cannot run")
     _check_tile_ptxas(_build.build_logs["prefilter"])
     _check_k9t_ptxas(_build.build_logs["filters"])
+    _check_k13_ptxas(_build.build_logs["morphology"])
     for name, label, pattern, orders, count, every in (
             ("resample", "K1/K1c", _K1_NAME, "012345", 96, False),
             ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80, False),
@@ -650,6 +697,7 @@ def phase_kernels():
     _check_tile_routes(rs, worst)
     _check_int_deform(rs)
     _check_int_resampler(rs)
+    _check_int_spline_filter(rs)
     _check_k9t_routes(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_kernels(rs)
@@ -1225,6 +1273,73 @@ def _check_int_resampler(rs):
           f"bit, each prefilter axis at order 3 on the fixed-order route")
 
 
+_INT_SPLINE_SHAPES = ((2,), (9,), (64,), (5, 8), (33, 2), (3, 9, 17),
+                      (64, 3, 5))
+
+
+def _runs_image(rs, shape, idt):
+    """An integer image of constant runs (2-40 samples) at a few levels:
+    the filter maps a run onto values on or next to integers, which a
+    truncating cast sees."""
+    levels = (0, 50, 100, 150) if idt == "uint8" else \
+        (-3000, -100, 0, 700, 2500)
+    flat = np.empty(math.prod(shape), dtype=idt)
+    i = 0
+    while i < flat.size:
+        n = int(rs.randint(2, 41))
+        flat[i:i + n] = levels[rs.randint(len(levels))]
+        i += n
+    return flat.reshape(shape)
+
+
+def _check_int_spline_filter(rs):
+    """Fault 5: ``spline_filter`` and ``spline_filter1d`` into a uint8 or
+    int16 ``output=`` array, orders 2-5, every mode name (mirror, reflect,
+    wrap and their aliases), 1-D to 3-D images of constant runs with axes
+    of 2-64 and one 512 x 512 image: each output equal to the same call
+    with ``device="cpu"`` bit for bit, each filtered axis on the
+    fixed-order route (its count)."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch import core as tc
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    routes = (pf.spline_filter1d.routes, pf.spline_filter1d_bc.routes)
+    cases = list(itertools.product(_INT_SPLINE_SHAPES, ("uint8", "int16"),
+                                   (2, 3, 4, 5), sorted(tc._SPLINE_BC)))
+    cases += [((512, 512), "uint8", order, mode) for order, mode in
+              zip((2, 3, 4, 5), ("mirror", "reflect", "grid-wrap",
+                                 "nearest"))]
+    n = 0
+    for shape, idt, order, mode in cases:
+        x = _runs_image(rs, shape, idt)
+        axis = int(rs.randint(len(shape)))
+        for name, call, axes in (
+                ("spline_filter1d", lambda d: et.spline_filter1d(
+                    x, order=order, axis=axis, mode=mode,
+                    output=np.empty(shape, idt), device=d), 1),
+                ("spline_filter", lambda d: et.spline_filter(
+                    x, order=order, mode=mode, output=np.empty(shape, idt),
+                    device=d), len(shape))):
+            before = sum(r["writeback"] for r in routes)
+            got = call("cuda")
+            torch.cuda.synchronize()
+            took = sum(r["writeback"] for r in routes) - before
+            want = call("cpu")
+            what = f"{name} {idt} {shape} order={order} mode={mode}"
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{what}: {int((got != want).sum())} of {want.size} "
+                    f"values differ from the CPU run")
+            if took != axes:
+                raise AssertionError(f"{what}: {took} prefilter launches on "
+                                     f"the fixed-order route, not {axes}")
+            n += 1
+    print(f"spline_filter and spline_filter1d into uint8 and int16 output "
+          f"arrays, orders 2-5, every mode name, 1-D to 3-D (axes 2-64) and "
+          f"a 512x512 image: {n} calls equal the CPU run bit for bit, each "
+          f"filtered axis on the fixed-order route")
+
+
 def _check_k9t_routes(rs, worst):
     """K9T on both routes: the tile route at every column (C 1/2/4/8) held
     per element to the twin and to the nd route (1e-5 of the sum of the
@@ -1610,7 +1725,8 @@ def _check_morph_kernels(rs, dev=None):
     n = 0
     for shape, kshape in (((16, 17), (3, 3)), ((16, 17), (2, 3)),
                           ((16, 17), (1, 4)), ((9, 10, 11), (3, 3, 3)),
-                          ((9, 10, 11), (2, 2, 3)), ((16, 17), (0, 0))):
+                          ((9, 10, 11), (2, 2, 3)), ((16, 17), (0, 0)),
+                          ((3, 4, 5, 6), (3, 1, 1, 3)), ((5, 100), (1, 67))):
         for border in (False, True):
             for use_mask in (False, True):
                 for dilation in (False, True):
@@ -1622,35 +1738,113 @@ def _check_morph_kernels(rs, dev=None):
                     x = torch.as_tensor(rs.rand(*shape) > 0.5).to(dev)
                     mask = torch.as_tensor(rs.rand(*shape) > 0.3).to(dev) \
                         if use_mask else None
-                    flags = [torch.zeros(1, dtype=torch.int32, device=dev)
-                             for _ in range(2)]
-                    got = mo.binary_step(x, st, centers, border, dilation,
-                                         mask, flags[0])
+                    what = (f"K13 shape={shape} structure="
+                            f"{st.astype(int).tolist()} border={border} "
+                            f"mask={use_mask} dilation={dilation}")
+                    sten = mo._Stencil(shape, st, centers)
+                    tiled = sten.plan(1, True).route == "tile"
+                    if tiled != (len(shape) <= 3 and kshape != (1, 67)):
+                        raise AssertionError(f"{what}: the plan took the "
+                                             f"{'tile' if tiled else 'nd'} "
+                                             "route")
+                    want_flag = torch.zeros(1, dtype=torch.int32, device=dev)
                     want = mo.binary_step_plain(x, st, centers, border,
-                                                dilation, mask, flags[1])
-                    torch.cuda.synchronize()
-                    what = (f"K13 structure={st.astype(int).tolist()} "
-                            f"border={border} mask={use_mask} "
-                            f"dilation={dilation}")
-                    _same(got, want, what)
-                    _same(flags[0], flags[1], f"{what} changed flag")
+                                                dilation, mask, want_flag)
+                    # the plan's route, and each route forced
+                    for route in (None, "tile", "nd") if tiled else \
+                            (None, "nd"):
+                        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                        got = mo.binary_step(x, st, centers, border,
+                                             dilation, mask, flag,
+                                             route=route)
+                        torch.cuda.synchronize()
+                        _same(got, want, f"{what} route={route}")
+                        _same(flag, want_flag, f"{what} route={route} "
+                              "changed flag")
                     # binary_erosion_dilation, three sweeps and to the
-                    # fixpoint, against the CPU run; the centre tap keeps
-                    # each sweep monotone, so the fixpoint is reached
+                    # fixpoint, against the CPU run, on the plan's route and
+                    # the nd route; the centre tap keeps each sweep
+                    # monotone, so the fixpoint is reached
                     st[tuple(k // 2 for k in st.shape)] |= kshape != (0, 0)
                     for its in (3, 0):
-                        got = mo.binary_erosion_dilation(
-                            x, st, its, mask, border, 0, dilation)
                         want = mo.binary_erosion_dilation(
                             x.cpu(), st, its,
                             None if mask is None else mask.cpu(), border, 0,
                             dilation)
-                        torch.cuda.synchronize()
-                        _same(got.cpu(), want, f"{what} iterations={its}")
+                        for route in (None, "nd"):
+                            got = mo.binary_erosion_dilation(
+                                x, st, its, mask, border, 0, dilation,
+                                route=route)
+                            torch.cuda.synchronize()
+                            _same(got.cpu(), want, f"{what} iterations="
+                                  f"{its} route={route}")
                     n += 1
-    print(f"K13 binary_step bit for bit with its plain twin in {n} cases, "
-          f"each also at 3 iterations and to the fixpoint against the CPU "
-          f"run")
+    print(f"K13 binary_step bit for bit with its plain twin in {n} cases "
+          f"on the plan's route and each route forced (the nd route alone "
+          f"at 4 axes and an innermost reach of 33), each also at 3 "
+          f"iterations and to the fixpoint against the CPU run (the plan's "
+          f"route and the nd route)")
+    _check_k13_sweeps(rs, dev)
+
+
+def _check_k13_sweeps(rs, dev):
+    """K13's multi-sweep launches, ``k`` = 1-8, on random structures up to
+    the tile route's reach (up to 4 on the outer axes, 32 on the innermost),
+    with and without a mask and border, 1-D to 3-D, innermost lengths 1,
+    31, 32, 33 and 224, and arrays smaller than one tile: each launch on the
+    packed state and on bool bytes bit for bit with ``k`` twin sweeps and
+    the flag of the last, and with ``k`` sweeps of the nd route."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    n = 0
+    for inner, ndim, k in itertools.product((1, 31, 32, 33, 224), (1, 2, 3),
+                                            range(1, 9)):
+        shape = tuple(int(rs.randint(2, 12)) for _ in range(ndim - 1)) + (
+            inner,)
+        kx = int(rs.choice((1, 2, 3, 5, 9, 65)))
+        kshape = tuple(int(rs.randint(1, 6)) for _ in range(ndim - 1)) + (kx,)
+        st = rs.rand(*kshape) > 0.4
+        centers = [int(rs.randint(0, s)) for s in kshape]
+        if kx == 65:
+            centers[-1] = 32
+        border, dilation = bool(rs.rand() < 0.5), bool(rs.rand() < 0.5)
+        x = torch.as_tensor(rs.rand(*shape) > 0.5).to(dev)
+        mask = torch.as_tensor(rs.rand(*shape) > 0.3).to(dev) \
+            if rs.rand() < 0.5 else None
+        sten = mo._Stencil(shape, st, centers)
+        what = (f"K13 sweeps k={k} shape={shape} structure {kshape} centres "
+                f"{centers} border={border} dilation={dilation} "
+                f"mask={mask is not None}")
+        want_flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        want = mo.binary_sweeps_plain(x, st, centers, border, dilation, mask,
+                                      k, want_flag)
+        words = mo.pack_bits(x, border)
+        gate = None if mask is None else mo.pack_bits(mask, False)
+        for label, run in (
+                ("packed", lambda f: mo.unpack_bits(mo.binary_sweeps(
+                    words, st, centers, border, dilation, gate, k, f, sten),
+                    inner)),
+                ("bytes", lambda f: mo.binary_sweeps(
+                    x, st, centers, border, dilation, mask, k, f, sten)),
+                ("nd", lambda f: _nd_sweeps(mo, x, st, centers, border,
+                                            dilation, mask, k, f, sten))):
+            flag = torch.zeros(1, dtype=torch.int32, device=dev)
+            got = run(flag)
+            torch.cuda.synchronize()
+            _same(got, want, f"{what} {label}")
+            _same(flag, want_flag, f"{what} {label} changed flag")
+        n += 1
+    print(f"K13 multi-sweep launches bit for bit with k twin sweeps and the "
+          f"last sweep's flag in {n} cases (k 1-8, 1-D to 3-D, innermost "
+          f"1/31/32/33/224, innermost reach up to 32), on the packed state, "
+          f"on bool bytes and against k sweeps of the nd route")
+
+
+def _nd_sweeps(mo, x, st, centers, border, dilation, mask, k, flag, sten):
+    for s in range(k):
+        x = mo.binary_step(x, st, centers, border, dilation, mask,
+                           flag if s == k - 1 else None, sten, "nd")
+    return x
 
 
 def _k3_plans(rb, *plan_args):
@@ -2019,7 +2213,8 @@ def _configs(seed=0):
     # c17: clean-up of a bool segmentation with enclosed holes: opening with
     # a 3^3 cube, two iterations (four K13 sweeps), hole filling and
     # propagation of a seed inside the mask (K13 to the fixpoint); the K13
-    # launches of each call are kept in ``sweeps``
+    # sweeps, launches per route and pack and unpack launches of each call
+    # are kept in ``sweeps``
     M17, seed17 = _segmentation(rs, S7)
     dev17 = {}
     sweeps17 = {}
@@ -2036,9 +2231,10 @@ def _configs(seed=0):
                                                             device=device)),
                 ("propagation", lambda: et.binary_propagation(
                     sd, mask=m, device=device))):
-            before = mo.binary_step.launches
+            before = _k13_counts()
             out.append(call())
-            sweeps17[name] = mo.binary_step.launches - before
+            sweeps17[name] = {k: v - before[k]
+                              for k, v in _k13_counts().items()}
         return out
 
     cfg17 = _Config("c17", c17, 3 * math.prod(S7), [None, None, None])
@@ -2180,6 +2376,13 @@ _EXACT_LAUNCHES = {
             "binary_step": 0},
     "c16": {"min_max_filter1d": 6, "min_max_filter": 3, "rank_filter": 0,
             "binary_step": 0}}
+# c17's K13 sweeps per call (the fixpoints' counts of the seeded
+# segmentation, as every PR since PR 5 measured them) and its (pack, unpack)
+# launches: the opening packs and unpacks its erosion and its dilation, each
+# fixpoint packs its input and its mask
+_C17_SWEEPS = {"opening": 4, "fill_holes": 80, "propagation": 168}
+_C17_PACKS = {"opening": (2, 2), "fill_holes": (2, 1),
+              "propagation": (2, 1)}
 _DEFORM_KERNELS = ("resample_fwd", "resample_bwd", "resample_coord_grad")
 _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c4": ("resample_coord_grad",),
@@ -2247,12 +2450,30 @@ def _counts():
     return {k: sum(w.launches for w in ws) for k, ws in _wrappers().items()}
 
 
+def _k13_counts():
+    """K13's counters: sweeps, launches per route, pack and unpack
+    launches (a tree before the tile route ran one sweep a launch on the
+    nd route, with nothing to pack: :func:`times_ab` runs c17 there too)."""
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    n = mo.binary_step.launches
+    routes = getattr(mo.binary_step, "routes", {"tile": 0, "nd": n})
+    return {"sweeps": getattr(mo.binary_step, "sweeps", n),
+            **{f"{r}_launches": v for r, v in routes.items()},
+            "pack_launches": getattr(getattr(mo, "pack_bits", None),
+                                     "launches", 0),
+            "unpack_launches": getattr(getattr(mo, "unpack_bits", None),
+                                       "launches", 0)}
+
+
 def _reset_counts():
+    from elasticdeform_tpu_torch.ops import morphology as mo
     for ws in _wrappers().values():
         for w in ws:
             w.launches = 0
             for route in getattr(w, "routes", {}):
                 w.routes[route] = 0
+    mo.binary_step.sweeps = mo.pack_bits.launches = 0
+    mo.unpack_bits.launches = 0
 
 
 def _route_counts():
@@ -2271,12 +2492,15 @@ def phase_main_path():
     outs, launches, cfg_routes = {}, {}, {}
     total = dict.fromkeys(PATH_KERNELS, 0)
     routes = {k: dict.fromkeys(v, 0) for k, v in _route_counts().items()}
+    k13 = dict.fromkeys(_k13_counts(), 0)
     for cfg in configs:
         _reset_counts()
         outs[cfg.name] = cfg.run("cuda")
         torch.cuda.synchronize()
         launches[cfg.name] = _counts()
         cfg_routes[cfg.name] = _route_counts()
+        for k, v in _k13_counts().items():
+            k13[k] += v
         for k in PATH_KERNELS:
             total[k] += launches[cfg.name][k]
         for k, by_route in cfg_routes[cfg.name].items():
@@ -2329,11 +2553,20 @@ def phase_main_path():
         sweeps = getattr(cfg, "sweeps", None)
         if sweeps is None:
             continue
-        print(f"{cfg.name} K13 sweeps per call: {json.dumps(sweeps)}")
-        if sweeps["opening"] != 4 or min(sweeps.values()) < 1:
-            raise AssertionError(f"{cfg.name}: the opening must take 4 K13 "
-                                 "sweeps and each fixpoint at least one, got "
-                                 f"{sweeps}")
+        print(f"{cfg.name} K13 sweeps, launches per route and pack/unpack "
+              f"launches per call: {json.dumps(sweeps)}")
+        got = {name: c["sweeps"] for name, c in sweeps.items()}
+        if got != _C17_SWEEPS:
+            raise AssertionError(f"{cfg.name}: K13 sweeps per call {got}, "
+                                 f"not {_C17_SWEEPS}")
+        for name, c in sweeps.items():
+            if c["nd_launches"] or not c["tile_launches"] or \
+                    (c["pack_launches"], c["unpack_launches"]) != \
+                    _C17_PACKS[name]:
+                raise AssertionError(
+                    f"{cfg.name} {name}: K13 must run on its tile route, "
+                    f"packing each input and mask once and unpacking each "
+                    f"result once {_C17_PACKS[name]}: {c}")
 
     for cfg in configs:
         t0 = time.perf_counter()
@@ -2372,7 +2605,7 @@ def phase_main_path():
             print(f"{what}: {tuple(got.shape)} {got.dtype} matches the CPU "
                   f"run (max abs err {err:.3e}, rtol={rtol}, "
                   f"atol={atol_scale:g}*max|ref|)")
-    return total, launches, routes
+    return total, launches, routes, k13
 
 
 # ---------------------------------------------------------------------------
@@ -2588,6 +2821,36 @@ def phase_probe_path(d, kernel_outs):
     return launches
 
 
+def _split_us(fn, n=200, profiled=20):
+    """``(host, device, one launch)`` microseconds per call of ``fn``:
+    the host's, ``n`` calls on ``time.perf_counter`` with no sync (the
+    enqueue); the device's, the profiler's device time of ``profiled`` calls
+    (every kernel, memset and copy they ran); and one call between two CUDA
+    events after a sync (the launch's latency and the device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    host = _host_us(fn, n)
+    one = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        one.append(start.elapsed_time(end) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages()) / profiled
+    return host, device, statistics.median(one)
+
+
 def _rows_bytes(table, *index_sets):
     """Bytes of the distinct table rows that the index tensors touch."""
     import torch
@@ -2690,6 +2953,21 @@ def _times_probes(row, card, d, errs):
               f"{bound[0]:.4f} ms by bytes ({nbytes} B); plain "
               f"{plain_ms:.4f} ms, library {lib_s} [{card}]")
         times[label] = (ms, plain_ms, lib_ms, bound, moved)
+    # P2's host and device time per call, beside its library call's
+    split = {}
+    for label, (_, _, _, lib, _) in spec.items():
+        _, kernel, _, call, _, _ = cases[label]
+        if kernel != "row_gather":
+            continue
+        k, lb = _split_us(call), _split_us(lib)
+        split[label] = {"host_us": k[0], "device_us": k[1],
+                        "one_launch_us": k[2], "library_host_us": lb[0],
+                        "library_device_us": lb[1],
+                        "library_one_launch_us": lb[2]}
+        print(f"P2 {label}: host {k[0]:.2f} us per call (no sync), device "
+              f"{k[1]:.2f} us per call (profiler), one launch between "
+              f"events {k[2]:.2f} us; library: host {lb[0]:.2f}, device "
+              f"{lb[1]:.2f}, one launch {lb[2]:.2f} us [{card}]")
     # the library-only probes of the same files
     gen = torch.Generator(device=_PROBE_DEVICE).manual_seed(0)
     idx_x = torch.randint(0, td.shape[0], (1 << 20,), generator=gen,
@@ -2716,6 +2994,7 @@ def _times_probes(row, card, d, errs):
             extra.update({f"{k}_ms": times[k][0] for k in (
                 "dynload", "dyngather", "pl_dg", "pl_loop_gather",
                 "gather2.pl_dg")})
+            extra["split_us"] = split
         row(kernel, "probes.cu", replaces, ms, plain_ms, bound, lib_ms,
             errs.get(kernel, 0.0), at=label, extra=extra)
     return times
@@ -3329,15 +3608,17 @@ def _times_filters(row, card):
                               "column_ms": cols})
 
 
-def _times_morphology(row, card):
+def _times_morphology(row, card, k13=None):
     """Phase 4 for the morphology tier: K10 as the three passes of c16's
     5^3 dilation (int16, 512x512x300) beside ``max_pool3d`` (stride 1) on the
     reflect-padded float32 volume; K11 as the ball erosion of c16's
     top-hat, and its non-flat 3^3 float64 route; K12 at c15's shapes on its
     three filters (network 27 and 33 taps, select 125); K13 as one 3^3
-    erosion sweep of c17's mask beside ``max_pool3d`` with a 3^3 window, and
-    c17's hole filling per sweep. Every kernel is held to its twin bit for
-    bit at these shapes."""
+    erosion sweep of c17's mask on each route beside ``max_pool3d`` with a
+    3^3 window, and c17's hole filling per call and per sweep on the packed
+    state, on bool bytes and on the nd route, with its launches per call
+    (``k13``: phase 3's K13 counters, kept in its row). Every kernel is
+    held to its twin bit for bit at these shapes."""
     import torch
     import torch.nn.functional as F
     from elasticdeform_tpu_torch.ops import filters as ft
@@ -3431,25 +3712,87 @@ def _times_morphology(row, card):
     m = torch.as_tensor(m, device=dev)
     numel = m.numel()
     cen = [1, 1, 1]
-    _same(mo.binary_step(m, ones3, cen, False, False),
-          mo.binary_step_plain(m, ones3, cen, False, False),
-          "K13 at c17 shapes")
+    # the single sweep: bool bytes in and out, the tile route with k = 1
+    # (packed in shared memory), beside the nd route and max_pool3d
+    for route in (None, "nd"):
+        _same(mo.binary_step(m, ones3, cen, False, False, route=route),
+              mo.binary_step_plain(m, ones3, cen, False, False),
+              f"K13 at c17 shapes, route {route}")
+    sten = mo._Stencil(S, ones3, cen)
+    plan1 = sten.plan(1, True)
+    one_ms = _time_ms(lambda: mo.binary_step(m, ones3, cen, False, False,
+                                             stencil=sten))
+    one_nd = _time_ms(lambda: mo.binary_step(m, ones3, cen, False, False,
+                                             stencil=sten, route="nd"))
+    print(f"binary_step one 3^3 erosion sweep at c17 shapes: tile route "
+          f"{one_ms:.4f} ms (tile {plan1.tile}, box {plan1.box}, "
+          f"{plan1.smem} B shared, {plan1.blocks} blocks), nd route "
+          f"{one_nd:.4f} ms [{card}]")
+    # the fixpoint of c17's hole filling: per call (its input, mask and
+    # output the call's bytes, counted once) and per sweep, on the packed
+    # state (binary_erosion_dilation's), on bool bytes packed at every launch
+    # (the design alternative) and on the nd route (one sweep a launch)
+    zeros, fill_mask = torch.zeros_like(m), ~m
+    cross, cross_c = mo._binary_stencil(mo.generate_binary_structure(3, 1),
+                                        0, True)
+    cross_sten = mo._Stencil(S, cross, cross_c)
+    bytes_plan = cross_sten.plan(8, True)
+
+    def fill_bytes():
+        """The design alternative: the fixpoint's schedule on bool bytes,
+        packed in shared memory by ballots at every launch."""
+        x = zeros
+        changed = torch.zeros(1, dtype=torch.int32, device=dev)
+        while True:
+            changed.zero_()
+            left = mo.SWEEPS_PER_CHECK
+            while left:
+                k = min(left, bytes_plan.k)
+                x = mo.binary_sweeps(x, cross, cross_c, True, True,
+                                     fill_mask, k,
+                                     changed if k == left else None,
+                                     cross_sten, bytes_plan)
+                left -= k
+            if not int(changed.item()):
+                return x
+
+    def fill(route=None):
+        return mo.binary_erosion_dilation(zeros, None, -1, fill_mask, 1, 0,
+                                          True, route=route)
+    ref = fill(route="nd")
+    fills = {}
+    for label, run in (("packed", fill), ("bytes", fill_bytes),
+                       ("nd", lambda: fill("nd"))):
+        _same(run(), ref, f"K13 fill_holes {label}")
+        _reset_counts()
+        ms = _time_ms(run, reps=5, warmup=1)
+        c = _k13_counts()
+        calls = 5 + 1
+        sweeps = c["sweeps"] // calls
+        fills[label] = {"ms": ms, "sweeps": sweeps,
+                        "ms_per_sweep": ms / sweeps,
+                        "launches": {k: v // calls for k, v in c.items()
+                                     if k != "sweeps"}}
+        print(f"binary_step fill_holes at c17 shapes, {label}: {ms:.4f} ms "
+              f"per call, {sweeps} sweeps, {ms / sweeps:.5f} ms per sweep, "
+              f"launches per call {json.dumps(fills[label]['launches'])} "
+              f"[{card}]")
+    plan8 = sten.plan(8, False)
+    call_bound = _bound(3 * numel, 0)
+    print(f"binary_step fill_holes bound: the call's bytes once (input, "
+          f"mask, output: {3 * numel} B) {call_bound[0]:.4f} ms; the "
+          f"packed plan for 8 sweeps: tile {plan8.tile}, k {plan8.k}, box "
+          f"{plan8.box}, {plan8.smem} B shared, {plan8.blocks} blocks "
+          f"[{card}]")
     mf = m.float()[None, None]
-    before = mo.binary_step.launches
-    fill_ms = _time_ms(lambda: mo.binary_erosion_dilation(
-        torch.zeros_like(m), None, -1, ~m, 1, 0, True), reps=3, warmup=1)
-    sweeps = (mo.binary_step.launches - before) // 4
-    print(f"binary_step fill_holes at c17 shapes: {sweeps} sweeps, "
-          f"{fill_ms:.4f} ms, {fill_ms / sweeps:.4f} ms per sweep [{card}]")
     row("binary_step", "morphology.cu",
-        "elasticdeform_tpu/ops/morphology.py:452",
-        _time_ms(lambda: mo.binary_step(m, ones3, cen, False, False)),
+        "elasticdeform_tpu/ops/morphology.py:452", one_ms,
         _time_ms(lambda: mo.binary_step_plain(m, ones3, cen, False, False)),
         _bound(2 * numel, numel * 27),
         _time_ms(lambda: F.max_pool3d(mf, 3, stride=1, padding=1)), 0.0,
-        at="c17", extra={"fill_holes_sweeps": sweeps,
-                         "fill_holes_ms": fill_ms,
-                         "fill_holes_ms_per_sweep": fill_ms / sweeps})
+        at="c17", extra={"nd_route_ms": one_nd, "fill_holes": fills,
+                         "fill_holes_call_bound_ms": call_bound[0],
+                         **(k13 or {})})
 
 
 def _print_k1_lines(k1_lines, probe_times, card):
@@ -3551,6 +3894,69 @@ def _times_ab_k3(rs, reps):
     return out
 
 
+def _host_us(fn, n=200):
+    """Microseconds of the host per call of ``fn``, ``n`` calls on
+    ``time.perf_counter`` with no sync (the enqueue)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _times_ab_p2_k13(reps):
+    """P2 at ``probe_dyngather`` and ``probe_dyngather2``'s four runs
+    (calls back to back, ms, and the host's and the device's microseconds
+    per call, :func:`_split_us`), K13's
+    single 3^3 erosion sweep of a c17-shaped segmentation (160 x 192 x 224
+    bool, back to back) and its hole filling and propagation (one call to
+    the sync, host clock), through the public wrappers only."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    from elasticdeform_tpu_torch.ops import probes as po
+    from elasticdeform_tpu_torch.probes import probe_dyngather2 as dg2
+    from elasticdeform_tpu_torch.probes import probe_pallas as pp
+    gt, gi = pp.dyngather_data("cuda")
+    cases = {"dyngather": lambda: po.row_gather(gt, gi)}
+    for label, contract, n_rows, chunk, shape in _DG2_RUNS:
+        t, i, _ = dg2.gather_data(n_rows, chunk, shape, "cuda")
+        fn = po.row_gather if contract == "take" else po.row_gather_element
+        cases[f"dyngather2 {label}"] = lambda fn=fn, t=t, i=i: fn(t, i)
+    out = {}
+    for label, fn in cases.items():
+        out[f"P2 {label}"] = _loop_ms(fn, reps=reps)
+        host, device, _ = _split_us(fn)
+        out[f"P2 {label} host_us"] = host
+        out[f"P2 {label} device_us"] = device
+    m, sd = _segmentation(np.random.RandomState(17), (160, 192, 224))
+    m = torch.as_tensor(m, device="cuda")
+    sd = torch.as_tensor(sd, device="cuda")
+    ones3 = np.ones((3, 3, 3), dtype=bool)
+    out["K13 sweep"] = _loop_ms(lambda: mo.binary_step(
+        m, ones3, [1, 1, 1], False, False), n=10, reps=reps)
+
+    def wall(fn):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+    out["K13 fill_holes"] = wall(lambda: et.binary_fill_holes(
+        m, device="cuda"))
+    out["K13 propagation"] = wall(lambda: et.binary_propagation(
+        sd, mask=m, device="cuda"))
+    return out
+
+
 def times_ab(card, reps=REPS):
     """K2 over c5's three axes (64 x 64^3 float32, order 3) beside the
     ``tensordot`` chain, K6 over c8's three axes (1 x 160 x 192 x 224
@@ -3558,7 +3964,8 @@ def times_ab(card, reps=REPS):
     ``tensordot`` chain, K2 with the uint8 writeback over c2's 200 x 300
     (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
     origin (1, 0, -1), constant mode) beside ``conv_transpose3d`` (TF32
-    off), K3 and K3c (:func:`_times_ab_k3`), and every config c1-c17
+    off), K3 and K3c (:func:`_times_ab_k3`), P2 and K13
+    (:func:`_times_ab_p2_k13`), and every config c1-c17
     whole, in ms (CUDA events, median of ``reps``); and the digest of K6's
     outputs over a sweep (:func:`_k6_digest`). It calls only the package's
     public wrappers and configs, so it also times an older tree's package,
@@ -3628,17 +4035,20 @@ def times_ab(card, reps=REPS):
     out["K6_digest"] = _k6_digest(rs)
     del v, xi
     out.update(_times_ab_k3(rs, reps))
+    out.update(_times_ab_p2_k13(reps))
     for cfg in _configs():
         out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
     print(f"ab: {json.dumps(out)} [{card}]")
     return out
 
 
-def phase_times(card, total_launches, errs, probe_data, routes=None):
+def phase_times(card, total_launches, errs, probe_data, routes=None,
+                k13=None):
     """Phase 4: kernel, plain and library times at the c5 shapes (and the
     other tiers' shapes, the probes' default sizes), and the configs'
     throughput. ``routes``: phase 3's launches per route of the kernels
-    that have routes, kept in their rows."""
+    that have routes, kept in their rows; ``k13``: phase 3's K13 sweeps
+    and pack and unpack launches, kept in its row."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     from elasticdeform_tpu_torch.ops import resample as rsm
@@ -3660,6 +4070,11 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
 
     def row(name, source, replaces, ms, plain_ms, bound, library_ms, err,
             at="c5", extra=None):
+        # "route" names the build route (CUDA C++); a kernel's own plan
+        # route (K3's tile or direct) is kept as "plan_route"
+        extra = dict(extra or {})
+        if "route" in extra:
+            extra["plan_route"] = extra.pop("route")
         rows.append({"name": name, "route": "cuda",
                      "source": f"elasticdeform_tpu_torch/csrc/{source}",
                      "replaces": replaces,
@@ -3821,7 +4236,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
     del x, gy, coeffs, displ, iota
     _times_resampler(row, card, k1_lines, k3_lines)
     _times_filters(row, card)
-    _times_morphology(row, card)
+    _times_morphology(row, card, k13)
     probe_times = _times_probes(row, card, probe_data, errs)
     _print_k1_lines(k1_lines, probe_times, card)
     _print_k3_lines(k3_lines, probe_times, card)
@@ -3834,10 +4249,39 @@ def phase_times(card, total_launches, errs, probe_data, routes=None):
         ms = _time_ms(lambda run=cfg.run: run("cuda"))
         print(f"{cfg.name}: {ms:.3f} ms per call, "
               f"{cfg.n_vox / ms / 1e3:.2f} Mvox/s (output voxels) [{card}]")
+        _profile_config(cfg, card)
         if cfg.name == "c6":
             times_c6(card, cfg)
     order_of = {k: i for i, k in enumerate(KERNELS)}
     return sorted(rows, key=lambda r: order_of[r["name"]])
+
+
+def _profile_config(cfg, card):
+    """One call of a config under ``torch.profiler``: the host's wall time
+    to the sync, the device's busy time (the self device time of every
+    kernel, copy and memset; one stream, so they do not overlap), its idle
+    share, and the three kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cfg.run("cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            dev.append((t / 1e3, e.count, e.key))
+    busy = sum(t for t, _, _ in dev)
+    top = "; ".join(f"{k[:60]} {t:.3f} ms x{n}"
+                    for t, n, k in sorted(dev, reverse=True)[:3])
+    print(f"{cfg.name} profiled: wall {wall:.3f} ms (profiler on), device "
+          f"busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.1f}%;"
+          f" top: {top} [{card}]")
 
 
 def main() -> int:
@@ -3858,11 +4302,11 @@ def main() -> int:
     probe_data = _probe_data()
     probe_errs, probe_outs = _check_probe_kernels(probe_data)
     errs.update(probe_errs)
-    total, _, routes = phase_main_path()
+    total, _, routes, k13 = phase_main_path()
     probe_launches = phase_probe_path(probe_data, probe_outs)
     del probe_outs
     total.update({k: probe_launches[k] for k in PROBE_KERNELS})
-    kernels = phase_times(smi, total, errs, probe_data, routes)
+    kernels = phase_times(smi, total, errs, probe_data, routes, k13)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

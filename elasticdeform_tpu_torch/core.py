@@ -824,13 +824,17 @@ def _finish(res: torch.Tensor, dtype, out_array):
     return res
 
 
-def spline_filter1d(X, *, order=3, axis=-1, mode='mirror', output=None,
-                    device=None):
-    """B-spline prefilter along one axis (``scipy.ndimage.spline_filter1d``)
-    with the boundary condition of ``mode`` (any of the eight scipy names:
-    mirror on K2, reflect and wrap on K6). ``output`` follows scipy's
-    contract; ``None`` keeps a floating input's dtype (integers give
-    float64). Differentiable; orders 0 and 1 return the input cast."""
+def _integer_array(out_array) -> bool:
+    """True for an ``output=`` array that truncates (integer or bool): its
+    filter then sums in one order on every device (``fixed_order``), so that
+    the card stores the CPU's integers."""
+    return out_array is not None and out_array.dtype.kind in "biu"
+
+
+def _spline_filter1d(X, order, axis, mode, output, device, fixed):
+    """:func:`spline_filter1d`; ``fixed``: the filter's sums in one order
+    whatever ``output`` is (an integer ``output=`` array of
+    :func:`spline_filter`, which truncates the last pass)."""
     (order,) = _n.normalize_order(order, [X])
     try:
         bc = _SPLINE_BC[mode]
@@ -842,15 +846,27 @@ def spline_filter1d(X, *, order=3, axis=-1, mode='mirror', output=None,
     Xf = _to_device(X, _device(device)).to(torch_dtype(dtype))
     if order > 1:
         Xf = _d.Prefilter1d.apply(Xf.contiguous(), order, axis % Xf.dim(),
-                                  bc)
+                                  bc, fixed or _integer_array(out_array))
     return _finish(Xf, dtype, out_array)
+
+
+def spline_filter1d(X, *, order=3, axis=-1, mode='mirror', output=None,
+                    device=None):
+    """B-spline prefilter along one axis (``scipy.ndimage.spline_filter1d``)
+    with the boundary condition of ``mode`` (any of the eight scipy names:
+    mirror on K2, reflect and wrap on K6). ``output`` follows scipy's
+    contract; ``None`` keeps a floating input's dtype (integers give
+    float64). An integer or bool ``output`` array, which truncates, takes
+    the filter's fixed-order sums, so that every device stores the same
+    integers. Differentiable; orders 0 and 1 return the input cast."""
+    return _spline_filter1d(X, order, axis, mode, output, device, False)
 
 
 def spline_filter(X, *, order=3, axis=None, mode='mirror', output=None,
                   device=None):
     """B-spline prefilter over several axes (``scipy.ndimage.spline_filter``):
     :func:`spline_filter1d` along each of ``axis`` (default all) in
-    turn."""
+    turn, with fixed-order sums for an integer or bool ``output`` array."""
     ndim = len(X.shape)
     if axis is None:
         axis = tuple(range(ndim))
@@ -858,7 +874,8 @@ def spline_filter(X, *, order=3, axis=None, mode='mirror', output=None,
         axis = (axis,)
     dtype, out_array = _resolve_output(X, output)
     for d in axis:
-        X = spline_filter1d(X, order=order, axis=d, mode=mode, device=device)
+        X = _spline_filter1d(X, order, d, mode, None, device,
+                             _integer_array(out_array))
     if dtype.kind != "f":
         dtype = numpy_dtype(X.dtype)
     return _finish(_to_device(X, _device(device)), dtype, out_array)

@@ -29,10 +29,30 @@
 // while_loop: one AND (erosion) or OR (dilation) sweep of a boolean array over
 // the structure's taps, border_value beyond the edge, mask-gated (a voxel
 // outside the mask keeps its value); it sets *changed when a voxel changed.
-// It is K11's kernel on bool (AND is min, OR is max, border_value the cval)
-// with the gate, the flag and an exit at the first deciding tap. The caller
-// iterates it (Jacobi: each sweep reads the previous array) and reads the
-// flag every few sweeps: a fixpoint is absorbing.
+// The caller iterates it (Jacobi: each sweep reads the previous array) and
+// reads the flag every few sweeps: a fixpoint is absorbing. Two routes:
+//
+//   tile  (1-3 axes, a reach of at most 32 voxels along the innermost axis):
+//         binary_tile_kernel. The state is bit-packed, 32 voxels of a line to
+//         a uint32 word (bit j of word w is voxel 32 w + j; the pad bits past
+//         a line's end hold border_value and never change). A block owns a
+//         tile of words and runs k sweeps on a shared-memory box: the tile
+//         plus k reaches on each side (clamped to the array; beyond it every
+//         read is border_value), staged once, then ping-ponged between two
+//         buffers, the computed region shrinking by one reach a sweep until
+//         the last sweep computes the tile alone. A tap is a funnel shift of
+//         a row's three neighbouring words, then an AND or OR; the gate (mask
+//         AND the line's valid bits) keeps the rest. The flag is set when the
+//         last sweep changed a voxel of the tile, which is what a caller that
+//         zeroes it before that sweep reads. The state comes either as packed
+//         words (binary_pack_kernel packs once, binary_unpack_kernel unpacks
+//         at the end; the fixpoint driver's route) or as bool bytes, packed in
+//         shared memory by warp ballots and unpacked on the way out (the
+//         public single sweep). At 160x192x224 the packed state is 860 KB
+//         and lives in L2: a sweep costs bit operations, not bytes.
+//   nd    (4-8 axes, or a reach the box cannot hold): K11's kernel on bool
+//         (AND is min, OR is max, border_value the cval) with the gate, the
+//         flag and an exit at the first deciding tap, one sweep a launch.
 //
 // Min and max propagate NaN and order -0 below +0 as jnp.minimum /
 // jnp.maximum do: the comparison is written out, never fminf / fmaxf, which
@@ -45,20 +65,30 @@
 // by bytes (each input read once, each output written once over 3.35 TB/s);
 // K12 by the comparisons a selection of that rank needs per voxel
 // (quickselect's expected count, about 3.4 per tap for a median) at the
-// card's operation rate, or by bytes, whichever is larger. Selections copy
-// values, so every kernel agrees with its plain twin (ops/morphology.py) bit
-// for bit.
+// card's operation rate, or by bytes, whichever is larger. K13's tile route
+// is bound by the bytes of the whole call (the input, mask and output read or
+// written once), not per sweep: its sweeps run out of shared memory and L2.
+// Selections copy values, so every kernel agrees with its plain twin
+// (ops/morphology.py) bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <type_traits>
+
+#include "cp_async.cuh"
 
 #define ED_MORPH_MAXR 8
 #define ED_THREADS 256
 #define ED_MAX_WIRES 64
+#define ED_BIN_THREADS 1024
+#define ED_PACK_THREADS 256
+#define ED_BIN_MAX_TAPS 1024
+#define ED_BIN_MAX_SWEEPS 8
+#define ED_SMEM_LIMIT 232448
 
 namespace {
 
@@ -411,6 +441,272 @@ rank_select_kernel(const T* __restrict__ x, T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
+// K13's tile route
+
+// the array as (nz, ny, nx) voxels, nw words a line; a block's output tile
+// of tz x ty voxels x tw words, gz x gy x gw tiles; one sweep's reach rz,
+// ry voxels and rw words (0 or 1); k sweeps a launch; the box's largest
+// extents bz, by, bw (words), which lay out shared memory
+struct BinTile {
+  int nz, ny, nx, nw;
+  int tz, ty, tw;
+  int gz, gy, gw;
+  int rz, ry, rw;
+  int k, nrows, ntaps;
+  int bz, by, bw;
+};
+
+// n / d for n < 2^31 by a multiply (the magic number of PyTorch's
+// IntDivider): the region loops divide every index twice
+struct FastDiv {
+  unsigned d, m, s;
+};
+
+__device__ __forceinline__ FastDiv make_div(unsigned d) {
+  unsigned s = 0;
+  while (s < 32 && (1u << s) < d) ++s;
+  const unsigned long long one = 1;
+  FastDiv f;
+  f.d = d;
+  f.s = s;
+  f.m = (unsigned)(((one << 32) * ((one << s) - d)) / d + 1);
+  return f;
+}
+
+__device__ __forceinline__ unsigned div_by(unsigned n, const FastDiv& f) {
+  const unsigned t = __umulhi(n, f.m);
+  return (unsigned)(((unsigned long long)t + n) >> f.s);
+}
+
+// [lo, hi) of an axis of n: the tile [t0, t1) widened by `reach` on each
+// side, clamped to the array
+__device__ __forceinline__ void widen(int t0, int t1, int reach, int n,
+                                      int* lo, int* hi) {
+  *lo = t0 - reach < 0 ? 0 : t0 - reach;
+  *hi = t1 + reach > n ? n : t1 + reach;
+}
+
+// k <= ED_BIN_MAX_SWEEPS sweeps of a block's tile, by 1024 threads (a
+// sweep's words wait on shared-memory loads, so a block brings 32 warps;
+// the bound leaves them 64 registers, and at 32 the kernel spilled). taps: nrows row codes, then ntaps dx values. A row code holds
+// the row's offsets oz, oy as signed bytes (bits 24-31, 16-23), its tap
+// count (bits 1-8) and whether a tap has dx != 0 (bit 0); its taps' dx
+// follow in order, so a row's words are loaded once. BYTES: in, out and
+// mask are bool bytes of (nz, ny, nx); else in and out are packed words of
+// (nz, ny, nw) and mask packed words with zero pad bits. mask may be NULL.
+template <bool DIL, bool BYTES>
+__global__ void __launch_bounds__(ED_BIN_THREADS, 1)
+binary_tile_kernel(const void* __restrict__ in, void* __restrict__ out,
+                   const void* __restrict__ mask,
+                   const int* __restrict__ taps, const BinTile p,
+                   const unsigned border, int* changed) {
+  extern __shared__ unsigned ed_bin_smem[];
+  // the region loops' divisors: the box, each sweep's region, the tile
+  __shared__ FastDiv divs[ED_BIN_MAX_SWEEPS + 2][2];
+  const int cap = p.bz * p.by * p.bw;
+  unsigned* cur = ed_bin_smem;
+  unsigned* nxt = cur + cap;
+  unsigned* gate = nxt + cap;
+  int* rowtab = reinterpret_cast<int*>(gate + cap);
+  const int* dxs = rowtab + p.nrows;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  int b = blockIdx.x;
+  const int tiw = b % p.gw;
+  b /= p.gw;
+  const int tiy = b % p.gy;
+  const int tiz = b / p.gy;
+  const int z0 = tiz * p.tz, z1 = min(z0 + p.tz, p.nz);
+  const int y0 = tiy * p.ty, y1 = min(y0 + p.ty, p.ny);
+  const int w0 = tiw * p.tw, w1 = min(w0 + p.tw, p.nw);
+  int Z0, Z1, Y0, Y1, W0, W1;
+  widen(z0, z1, p.k * p.rz, p.nz, &Z0, &Z1);
+  widen(y0, y1, p.k * p.ry, p.ny, &Y0, &Y1);
+  widen(w0, w1, p.k * p.rw, p.nw, &W0, &W1);
+  const int BZ = Z1 - Z0, BY = Y1 - Y0, BW = W1 - W0;
+  const int nbox = BZ * BY * BW;
+  const unsigned bdd = border ? ~0u : 0u;
+  const unsigned last = (p.nx & 31) ? (1u << (p.nx & 31)) - 1u : ~0u;
+
+  if (threadIdx.x < p.k + 2) {
+    // slot 0 the box, slot 1 + s sweep s's region (the tile widened by the
+    // reaches of the sweeps after it), slot k + 1 the tile
+    const int j = threadIdx.x;
+    const int left = j == 0 ? p.k : j <= p.k ? p.k - j : 0;
+    int lo, hi, ylo, yhi;
+    widen(w0, w1, left * p.rw, p.nw, &lo, &hi);
+    widen(y0, y1, left * p.ry, p.ny, &ylo, &yhi);
+    divs[j][0] = make_div(hi - lo);
+    divs[j][1] = make_div(yhi - ylo);
+  }
+  for (int t = threadIdx.x; t < p.nrows + p.ntaps; t += blockDim.x)
+    rowtab[t] = taps[t];
+  __syncthreads();
+  const FastDiv box_w = divs[0][0], box_y = divs[0][1];
+  if constexpr (BYTES) {
+    // a warp a word: lane j reads voxel 32 w + j, a ballot packs the word
+    const uint8_t* xb = static_cast<const uint8_t*>(in);
+    const uint8_t* mb = static_cast<const uint8_t*>(mask);
+    for (int i = warp; i < nbox; i += nwarps) {
+      const unsigned q = div_by(i, box_w);
+      const int w = i - (int)q * BW;
+      const unsigned zq = div_by(q, box_y);
+      const int y = (int)q - (int)zq * BY;
+      const int64_t line = (int64_t)(Z0 + (int)zq) * p.ny + Y0 + y;
+      const int x = (W0 + w) * 32 + lane;
+      const bool inside = x < p.nx;
+      const int64_t at = line * p.nx + x;
+      const unsigned word =
+          __ballot_sync(0xffffffffu, inside ? xb[at] != 0 : border != 0);
+      const unsigned g = __ballot_sync(
+          0xffffffffu, inside && (mb == nullptr || mb[at] != 0));
+      if (lane == 0) {
+        cur[i] = word;
+        gate[i] = g;
+      }
+    }
+  } else {
+    const unsigned* xw = static_cast<const unsigned*>(in);
+    const unsigned* mw = static_cast<const unsigned*>(mask);
+    for (int i = threadIdx.x; i < nbox; i += blockDim.x) {
+      const unsigned q = div_by(i, box_w);
+      const int w = i - (int)q * BW;
+      const unsigned zq = div_by(q, box_y);
+      const int y = (int)q - (int)zq * BY;
+      const int64_t at =
+          ((int64_t)(Z0 + (int)zq) * p.ny + Y0 + y) * p.nw + W0 + w;
+      stage_async(cur + i, xw + at);
+      const unsigned valid = W0 + w == p.nw - 1 ? last : ~0u;
+      gate[i] = mw == nullptr ? valid : mw[at];
+    }
+    stage_wait();
+  }
+  __syncthreads();
+
+  bool flag = false;
+  for (int s = 0; s < p.k; ++s) {
+    // this sweep computes the tile widened by the reaches of the sweeps
+    // still to come; its reads lie in the last sweep's region or outside
+    // the array
+    const int left = p.k - 1 - s;
+    int rz0, rz1, ry0, ry1, rw0, rw1;
+    widen(z0, z1, left * p.rz, p.nz, &rz0, &rz1);
+    widen(y0, y1, left * p.ry, p.ny, &ry0, &ry1);
+    widen(w0, w1, left * p.rw, p.nw, &rw0, &rw1);
+    const int RY = ry1 - ry0, RW = rw1 - rw0;
+    const int n = (rz1 - rz0) * RY * RW;
+    const FastDiv reg_w = divs[1 + s][0], reg_y = divs[1 + s][1];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const unsigned q = div_by(i, reg_w);
+      const int bw = (int)(i - q * RW) + rw0 - W0;
+      const unsigned zq = div_by(q, reg_y);
+      const int by = (int)(q - zq * RY) + ry0 - Y0;
+      const int bz = (int)zq + rz0 - Z0;
+      unsigned acc = DIL ? 0u : ~0u;
+      for (int j = 0, t = 0; j < p.nrows; ++j) {
+        const int rc = rowtab[j];
+        const int zz = bz + (int)(signed char)(rc >> 24);
+        const int yy = by + (int)(signed char)(rc >> 16);
+        // outside the box is outside the array
+        const unsigned* row = zz < 0 || zz >= BZ || yy < 0 || yy >= BY
+                                  ? nullptr
+                                  : cur + (zz * BY + yy) * BW;
+        const unsigned c = row != nullptr ? row[bw] : bdd;
+        unsigned l = bdd, r = bdd;
+        if (rc & 1) {
+          l = row != nullptr && bw > 0 ? row[bw - 1] : bdd;
+          r = row != nullptr && bw + 1 < BW ? row[bw + 1] : bdd;
+        }
+        const int end = t + ((rc >> 1) & 0xFF);
+        for (; t < end; ++t) {
+          const int dx = dxs[t];
+          const unsigned v = dx >= 0 ? __funnelshift_rc(c, r, dx)
+                                     : __funnelshift_rc(l, c, 32 + dx);
+          acc = DIL ? (acc | v) : (acc & v);
+        }
+        if (acc == (DIL ? ~0u : 0u)) break;  // the word is decided
+      }
+      const int at = (bz * BY + by) * BW + bw;
+      const unsigned old = cur[at], g = gate[at];
+      const unsigned now = (acc & g) | (old & ~g);
+      nxt[at] = now;
+      if (left == 0 && now != old) flag = true;
+    }
+    __syncthreads();
+    unsigned* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+
+  // the tile out of the last sweep's buffer
+  const int TY = y1 - y0, TW = w1 - w0;
+  const int ntile = (z1 - z0) * TY * TW;
+  const FastDiv tile_w = divs[p.k + 1][0], tile_y = divs[p.k + 1][1];
+  if constexpr (BYTES) {
+    uint8_t* ob = static_cast<uint8_t*>(out);
+    for (int i = warp; i < ntile; i += nwarps) {
+      const unsigned q = div_by(i, tile_w);
+      const int w = (int)(i - q * TW) + w0;
+      const unsigned zq = div_by(q, tile_y);
+      const int y = (int)(q - zq * TY) + y0;
+      const int z = (int)zq + z0;
+      const int x = w * 32 + lane;
+      if (x < p.nx) {
+        const unsigned word = cur[((z - Z0) * BY + y - Y0) * BW + w - W0];
+        ob[((int64_t)z * p.ny + y) * p.nx + x] = (word >> lane) & 1u;
+      }
+    }
+  } else {
+    unsigned* ow = static_cast<unsigned*>(out);
+    for (int i = threadIdx.x; i < ntile; i += blockDim.x) {
+      const unsigned q = div_by(i, tile_w);
+      const int w = (int)(i - q * TW) + w0;
+      const unsigned zq = div_by(q, tile_y);
+      const int y = (int)(q - zq * TY) + y0;
+      const int z = (int)zq + z0;
+      ow[((int64_t)z * p.ny + y) * p.nw + w] =
+          cur[((z - Z0) * BY + y - Y0) * BW + w - W0];
+    }
+  }
+  if (changed != nullptr && __any_sync(0xffffffffu, flag) && lane == 0)
+    atomicOr(changed, 1);
+}
+
+// bool bytes of `lines` lines of nx voxels into packed words (nw a line),
+// a warp a word; the pad bits past a line's end take `border`
+__global__ void __launch_bounds__(ED_PACK_THREADS)
+binary_pack_kernel(const uint8_t* __restrict__ x, unsigned* __restrict__ words,
+                   int64_t nwords, int nx, int nw, int border) {
+  const int lane = threadIdx.x & 31;
+  const int64_t step = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       i < nwords; i += step) {
+    const int64_t line = i / nw;
+    const int xx = (int)(i - line * nw) * 32 + lane;
+    const bool v = xx < nx ? x[line * nx + xx] != 0 : border != 0;
+    const unsigned word = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) words[i] = word;
+  }
+}
+
+// the inverse: packed words back to bool bytes
+__global__ void __launch_bounds__(ED_PACK_THREADS)
+binary_unpack_kernel(const unsigned* __restrict__ words,
+                     uint8_t* __restrict__ x, int64_t nwords, int nx,
+                     int nw) {
+  const int lane = threadIdx.x & 31;
+  const int64_t step = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       i < nwords; i += step) {
+    const int64_t line = i / nw;
+    const int xx = (int)(i - line * nw) * 32 + lane;
+    if (xx < nx) x[line * nx + xx] = (words[i] >> lane) & 1u;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 bool blocks_for(int64_t total, unsigned* blocks) {
@@ -522,6 +818,36 @@ Nd make_nd(int ndim, const long long* shape, const int* lo, const int* hi,
 bool bad_nd(int ndim, int taps, int mode) {
   return ndim < 1 || ndim > ED_MORPH_MAXR || taps < 0 || mode < 0 ||
          mode > 4;
+}
+
+// raise a kernel's dynamic shared memory limit once to what a launch needs
+template <typename K>
+cudaError_t allow_smem(K kernel, int* allowed, int bytes) {
+  if (bytes <= 48 * 1024 || bytes <= *allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *allowed = bytes;
+  return err;
+}
+
+template <bool DIL, bool BYTES>
+cudaError_t launch_tile(const void* x, void* out, const void* mask,
+                        const int* taps, const BinTile& p, unsigned border,
+                        int* changed, int smem, cudaStream_t s) {
+  static int allowed = 0;
+  const cudaError_t err =
+      allow_smem(binary_tile_kernel<DIL, BYTES>, &allowed, smem);
+  if (err != cudaSuccess) return err;
+  binary_tile_kernel<DIL, BYTES>
+      <<<(unsigned)p.gz * p.gy * p.gw, ED_BIN_THREADS, smem, s>>>(
+          x, out, mask, taps, p, border, changed);
+  return cudaGetLastError();
+}
+
+unsigned word_blocks(int64_t nwords) {
+  // a warp a word, at most 16 blocks of 8 warps on each of 132 SMs
+  const int64_t want = (nwords + 7) / 8;
+  return (unsigned)(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
 }
 
 }  // namespace
@@ -672,6 +998,88 @@ int ed_binary_step(const void* x, void* out, const void* mask, const void* off,
     min_max_nd_kernel<bool, bool, true, false, true>
         <<<blocks, ED_THREADS, 0, s>>>(xi, o, of, de, nullptr, p,
                                        border != 0, m, ch);
+  return (int)cudaGetLastError();
+}
+
+// K13's tile route: k <= 8 sweeps of an (nz, ny, nx) array (a shorter
+// array with leading axes of 1), tiles of tz x ty voxels x tw words, one
+// sweep's reach rz, ry voxels and rx <= 32 voxels along the innermost axis.
+// taps (device, nrows + ntaps ints): the structure's nrows row codes (oz,
+// oy as signed bytes in bits 24-31 and 16-23, the row's tap count in bits
+// 1-8, bit 0 set where a tap has dx != 0), then its ntaps dx values, row
+// by row. bytes_io: x, out and mask are bool bytes;
+// else x and out are packed int32 words of (nz, ny, ceil(nx / 32)) whose
+// pad bits hold border, mask packed words with zero pad bits. mask and
+// changed may be NULL; x and out must not overlap.
+int ed_binary_tile(const void* x, void* out, const void* mask,
+                   const void* taps, void* changed, int bytes_io, int nz,
+                   int ny, int nx, int tz, int ty, int tw, int rz, int ry,
+                   int rx, int k, int nrows, int ntaps, int border,
+                   int dilation, void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1 || tz < 1 || ty < 1 || tw < 1 || rz < 0 ||
+      ry < 0 || rx < 0 || rx > 32 || rz > 127 || ry > 127 || k < 1 ||
+      k > ED_BIN_MAX_SWEEPS || ntaps < 0 || ntaps > ED_BIN_MAX_TAPS ||
+      nrows < 0 || nrows > ntaps || (nrows == 0) != (ntaps == 0) ||
+      (ntaps > 0 && taps == nullptr))
+    return (int)cudaErrorInvalidValue;
+  BinTile p;
+  p.nz = nz;
+  p.ny = ny;
+  p.nx = nx;
+  p.nw = (nx + 31) / 32;
+  p.tz = tz;
+  p.ty = ty;
+  p.tw = tw;
+  p.gz = (nz + tz - 1) / tz;
+  p.gy = (ny + ty - 1) / ty;
+  p.gw = (p.nw + tw - 1) / tw;
+  p.rz = rz;
+  p.ry = ry;
+  p.rw = rx > 0 ? 1 : 0;
+  p.k = k;
+  p.nrows = nrows;
+  p.ntaps = ntaps;
+  p.bz = std::min(nz, tz + 2 * k * rz);
+  p.by = std::min(ny, ty + 2 * k * ry);
+  p.bw = std::min(p.nw, tw + 2 * k * p.rw);
+  const int64_t blocks = (int64_t)p.gz * p.gy * p.gw;
+  const int64_t smem =
+      (3 * (int64_t)p.bz * p.by * p.bw + nrows + ntaps) * 4;
+  if (blocks > INT32_MAX || smem > ED_SMEM_LIMIT)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tp = static_cast<const int*>(taps);
+  int* ch = static_cast<int*>(changed);
+  const unsigned bd = border ? 1u : 0u;
+  const int sm = (int)smem;
+  if (dilation)
+    return (int)(bytes_io ? launch_tile<true, true>(x, out, mask, tp, p, bd,
+                                                    ch, sm, s)
+                          : launch_tile<true, false>(x, out, mask, tp, p, bd,
+                                                     ch, sm, s));
+  return (int)(bytes_io ? launch_tile<false, true>(x, out, mask, tp, p, bd,
+                                                   ch, sm, s)
+                        : launch_tile<false, false>(x, out, mask, tp, p, bd,
+                                                    ch, sm, s));
+}
+
+// bool bytes (lines, nx) into packed int32 words (lines, ceil(nx / 32)),
+// the pad bits set to border (pack = 1), or back (pack = 0)
+int ed_binary_pack(void* bytes, void* words, long long lines, int nx,
+                   int border, int pack, void* stream) {
+  if (lines < 0 || nx < 1) return (int)cudaErrorInvalidValue;
+  const int nw = (nx + 31) / 32;
+  const int64_t nwords = (int64_t)lines * nw;
+  if (nwords == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pack)
+    binary_pack_kernel<<<word_blocks(nwords), ED_PACK_THREADS, 0, s>>>(
+        static_cast<const uint8_t*>(bytes), static_cast<unsigned*>(words),
+        nwords, nx, nw, border);
+  else
+    binary_unpack_kernel<<<word_blocks(nwords), ED_PACK_THREADS, 0, s>>>(
+        static_cast<const unsigned*>(words), static_cast<uint8_t*>(bytes),
+        nwords, nx, nw);
   return (int)cudaGetLastError();
 }
 

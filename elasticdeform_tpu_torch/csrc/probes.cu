@@ -13,7 +13,8 @@
 //   has no counterpart on the card). Bound: launch latency.
 //
 // P2 row_gather: a warp gathers rows, one float4 per lane (a 512-byte row
-//   is one coalesced warp load), with eight rows in flight. Modes:
+//   is one coalesced warp load), with eight rows in flight (four in the
+//   element mode). Modes:
 //   copy     out[k - keep_from] = table[idx[k]] for k >= keep_from; every
 //            row k < keep_from is read too (volatile loads), which is
 //            tools/probe_gather.py:113 probe_pl_dg, whose grid steps all
@@ -71,6 +72,7 @@ constexpr int kThreads = 256;             // P2 / P3 blocks: 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWindow = 8;             // rows per window in sum mode
 constexpr int kInFlight = 8;              // P2 row loads in flight per warp
+constexpr int kElemInFlight = 4;          // the same in element mode
 constexpr int kRing = 16;                 // P4 row slots per warp
 constexpr int kAsyncWarps = 4;            // P4 warps per block
 
@@ -145,21 +147,42 @@ gather_copy_kernel(const float4* __restrict__ table,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// As the copy mode, up to kElemInFlight rows a warp a step (a warp a row
+// up to grid_for's 16,896 warps, then several): every row's indices, then
+// every element load, then the stores. Four rows, not eight: a row holds
+// its indices and values in eight registers a lane, and the launch bound
+// keeps 64 registers a thread, four blocks an SM.
+__global__ void __launch_bounds__(kThreads, 4)
 gather_element_kernel(const float* __restrict__ table,
                       const int* __restrict__ idx2d, float* __restrict__ out,
                       int64_t n_idx) {
   const int lane = threadIdx.x & 31;
-  for (int64_t k = warp_id(); k < n_idx; k += warp_count()) {
-    const int4 r = __ldg(reinterpret_cast<const int4*>(idx2d + k * kLanes) +
-                         lane);
-    const int l = 4 * lane;
-    float4 v;
-    v.x = __ldg(table + (int64_t)r.x * kLanes + l);
-    v.y = __ldg(table + (int64_t)r.y * kLanes + l + 1);
-    v.z = __ldg(table + (int64_t)r.z * kLanes + l + 2);
-    v.w = __ldg(table + (int64_t)r.w * kLanes + l + 3);
-    reinterpret_cast<float4*>(out)[k * kVec + lane] = v;
+  const int l = 4 * lane;
+  const int64_t step = warp_count();
+  for (int64_t k0 = warp_id(); k0 < n_idx; k0 += step * kElemInFlight) {
+    int4 r[kElemInFlight];
+#pragma unroll
+    for (int u = 0; u < kElemInFlight; ++u) {
+      const int64_t k = k0 + u * step;
+      if (k < n_idx)
+        r[u] = __ldg(reinterpret_cast<const int4*>(idx2d + k * kLanes) +
+                     lane);
+    }
+    float4 v[kElemInFlight];
+#pragma unroll
+    for (int u = 0; u < kElemInFlight; ++u) {
+      if (k0 + u * step < n_idx) {
+        v[u].x = __ldg(table + (int64_t)r[u].x * kLanes + l);
+        v[u].y = __ldg(table + (int64_t)r[u].y * kLanes + l + 1);
+        v[u].z = __ldg(table + (int64_t)r[u].z * kLanes + l + 2);
+        v[u].w = __ldg(table + (int64_t)r[u].w * kLanes + l + 3);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kElemInFlight; ++u) {
+      const int64_t k = k0 + u * step;
+      if (k < n_idx) reinterpret_cast<float4*>(out)[k * kVec + lane] = v[u];
+    }
   }
 }
 

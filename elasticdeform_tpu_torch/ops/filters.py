@@ -418,8 +418,10 @@ def _on(a: np.ndarray, like: torch.Tensor, dtype=None) -> torch.Tensor:
         device=like.device, dtype=like.dtype if dtype is None else dtype)
 
 
-def _stream(x: torch.Tensor):
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _stream(x: torch.Tensor) -> int:
+    """The raw current stream of ``x``'s card (no Stream object built: the
+    morphology driver launches K13 dozens of times a call)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def correlate1d(x: torch.Tensor, weights, axis: int, mode: str, cval,

@@ -18,10 +18,15 @@ Counterpart of the JAX package's ``ops/morphology.py`` (less
   above it a selection in the stable sort's order (NaN last, -0 equal to
   +0, equal values in tap order). The cap is kept for that NaN result,
   which differs between the two routes.
-* :func:`binary_step` (K13, K11's kernel on bool): one AND (erosion) or OR
-  (dilation) sweep over a structure's taps, ``border_value`` beyond the
-  edge, mask-gated; :func:`binary_erosion_dilation` iterates it a fixed
-  number of times or to the fixpoint.
+* :func:`binary_step` (K13): one AND (erosion) or OR (dilation) sweep over
+  a structure's taps, ``border_value`` beyond the edge, mask-gated, on bool
+  bytes; :func:`binary_sweeps` runs ``k`` of them in one launch on the
+  bit-packed state of :func:`pack_bits`; :func:`binary_erosion_dilation`
+  runs a fixed number of sweeps or sweeps to the fixpoint. Two routes,
+  which :func:`_binary_plan` picks: ``"tile"`` (1-3 axes, a reach of at most
+  32 voxels along the innermost axis, a box that fits shared memory: a
+  block runs its sweeps on a tile of 32-voxel words and its halo) and
+  ``"nd"`` (K11's kernel on bool, one sweep a launch, for the rest).
 
 Min and max order -0 below +0, as ``jnp.minimum`` and ``jnp.maximum`` do.
 
@@ -38,8 +43,11 @@ back. There is no gradient: the JAX package has no backward of its own here.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import itertools
+import math
 
 import numpy as np
 import torch
@@ -57,8 +65,25 @@ from elasticdeform_tpu_torch.ops.resample import numpy_dtype
 RANK_NETWORK_MAX_TAPS = 64
 # K11, K12 and K13's fixed limit on the input's axes (ED_MORPH_MAXR)
 MAX_ND_AXES = 8
-# sweeps between two reads of the fixpoint's "changed" flag
+# sweeps between two reads of the fixpoint's "changed" flag, and the most
+# sweeps one tile launch runs
 SWEEPS_PER_CHECK = 8
+# K13's tile route (csrc ED_BIN_*): threads a block, taps, the per-axis
+# reach its tap encoding holds, a block's shared memory on the H100, and the
+# card's SMs
+BIN_THREADS = 1024
+BIN_MAX_TAPS = 1024
+BIN_MAX_REACH = 127
+BIN_SMEM_LIMIT = 232448
+_SMS = 132
+# the tile plan's cost model, in word-row visits of one SM (a row's three
+# words loaded and its taps shifted in, about 8 lane instructions): a launch
+# with its host call costs about 8 us, some 200 K such visits; a staged box
+# word costs 2 (packed) or 24 (a warp's ballot over 32 bytes), a written
+# tile word 1 or 16
+_LAUNCH_WORK = 200_000
+_STAGE_WORK = {False: 2, True: 24}
+_WRITE_WORK = {False: 1, True: 16}
 
 _DTYPE_CODES = {torch.bool: 0, torch.uint8: 1, torch.int8: 2,
                 torch.uint16: 3, torch.int16: 4, torch.uint32: 5,
@@ -444,6 +469,180 @@ def binary_step_plain(x: torch.Tensor, structure, centers, border: bool,
     return out
 
 
+def binary_sweeps_plain(x: torch.Tensor, structure, centers, border: bool,
+                        dilation: bool, mask=None, k: int = 1, changed=None
+                        ) -> torch.Tensor:
+    """Plain version of a ``k``-sweep launch of K13's tile route: ``k``
+    calls of :func:`binary_step_plain` on bool ``x``, ``changed`` set by the
+    last one."""
+    for s in range(k):
+        x = binary_step_plain(x, structure, centers, border, dilation, mask,
+                              changed if s == k - 1 else None)
+    return x
+
+
+def pack_bits_plain(x: torch.Tensor, border: bool) -> torch.Tensor:
+    """Plain version of :func:`pack_bits`: bit ``j`` of word ``w`` is
+    voxel ``32 w + j`` of the last axis, the pad bits ``border``; int32
+    words of ``x.shape[:-1] + (ceil(n / 32),)``."""
+    n = x.shape[-1]
+    nw = -(-n // 32)
+    v = x.to(torch.int64)
+    if nw * 32 > n:
+        v = torch.cat([v, torch.full(x.shape[:-1] + (nw * 32 - n,),
+                                     int(bool(border)), dtype=torch.int64,
+                                     device=x.device)], -1)
+    bit = torch.arange(32, dtype=torch.int64, device=x.device)
+    words = (v.reshape(*x.shape[:-1], nw, 32) << bit).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)
+
+
+def unpack_bits_plain(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of :func:`unpack_bits`: the bool voxels of packed
+    words, the last axis cut to ``n``."""
+    bit = torch.arange(32, dtype=torch.int64, device=words.device)
+    v = (words.to(torch.int64)[..., None] >> bit) & 1
+    return v.reshape(*words.shape[:-1], -1)[..., :n].to(
+        torch.bool).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K13's plan
+
+_BinPlan = collections.namedtuple("_BinPlan",
+                                  "route tile k box smem blocks")
+_ND_PLAN = _BinPlan("nd", None, 1, None, 0, 0)
+
+
+@functools.lru_cache(maxsize=512)
+def _binary_plan(shape3, reach, ntaps, rows, want, bytes_io, route=None,
+                 budget=BIN_SMEM_LIMIT):
+    """K13's route for ``want`` sweeps a launch of an array of ``shape3``
+    voxels (three axes, leading ones added) under a structure of ``ntaps``
+    taps in ``rows`` rows (distinct offsets on the two outer axes) and
+    per-axis ``reach``. ``"tile"``: the tile (voxels, voxels, words), the
+    sweeps a launch ``k <= min(want, 8)``, the box (words per axis) and its shared
+    bytes (the state twice, the gate, the row table) within ``budget``, chosen
+    by the least modelled cost of ``want`` sweeps in launches of ``k`` and
+    the rest: per launch a constant, plus the busiest SM's staging, sweeps
+    (each row visit of each word of each sweep's region, in whole passes of
+    the block's threads) and writes. ``"nd"`` where
+    the reach along the innermost axis passes 32, an outer reach passes
+    :data:`BIN_MAX_REACH`, the taps pass :data:`BIN_MAX_TAPS` or no box
+    fits. ``route`` forces one (``"tile"`` raises where none fits)."""
+    nz, ny, nx = shape3
+    nw = -(-nx // 32)
+    rz, ry, rx = reach
+    fits = (rx <= 32 and max(rz, ry) <= BIN_MAX_REACH
+            and ntaps <= BIN_MAX_TAPS)
+    best = None
+    if route != "nd" and fits:
+        n3, r3 = (nz, ny, nw), (rz, ry, 1 if rx else 0)
+        tws = (nw,) if nw <= 32 else (8, 16, 32)
+        tys = sorted({min(ny, t) for t in (1, 2, 4, 8, 16, 32, 64)})
+        tzs = sorted({min(nz, t) for t in (1, 2, 4, 8, 16, 32)})
+
+        def region(tile, left):
+            return math.prod(min(n, t + 2 * left * r)
+                             for n, t, r in zip(n3, tile, r3))
+
+        def launch(tile, k, box):
+            """the modelled cost of one launch of ``k`` sweeps"""
+            blocks = math.prod(-(-n // t) for n, t in zip(n3, tile))
+            # a sweep takes its threads' slowest pass over the region
+            work = (_STAGE_WORK[bytes_io] * math.prod(box)
+                    + _WRITE_WORK[bytes_io] * math.prod(tile)
+                    + (rows + 1) * sum(
+                        -(-region(tile, left) // BIN_THREADS) * BIN_THREADS
+                        for left in range(k)))
+            return blocks, _LAUNCH_WORK + -(-blocks // _SMS) * work
+        for k in range(1, min(int(want), SWEEPS_PER_CHECK) + 1):
+            for tile in itertools.product(tzs, tys, tws):
+                box = tuple(min(n, t + 2 * k * r)
+                            for n, t, r in zip(n3, tile, r3))
+                smem = (3 * math.prod(box) + rows + ntaps) * 4
+                if smem > budget:
+                    continue
+                # ``want`` sweeps: launches of k, then the rest
+                blocks, cost = launch(tile, k, box)
+                full, rest = divmod(int(want), k)
+                cost *= full
+                if rest:
+                    cost += launch(tile, rest, box)[1]
+                key = (cost, -k, tile)
+                if best is None or key < best[0]:
+                    best = (key, _BinPlan("tile", tile, k, box, smem,
+                                          blocks))
+    if best is None:
+        if route == "tile":
+            raise ValueError("binary_step: the tile route cannot take this "
+                             "structure")
+        return _ND_PLAN
+    return best[1]
+
+
+class _Stencil:
+    """A structure's taps on an array of ``shape``, for both of K13's
+    routes: the tile route's tap offsets (leading axes of 1 added to reach
+    three, sorted by row), its table of rows and dx values, rows and
+    per-axis reach; the nd route's :class:`_Geometry`, built on first
+    use."""
+
+    def __init__(self, shape, structure, centers):
+        self.shape = tuple(int(n) for n in shape)
+        self.structure = np.asarray(structure, dtype=bool)
+        self.centers = list(centers)
+        ndim = len(self.shape)
+        off = np.argwhere(self.structure) - np.asarray(self.centers,
+                                                       dtype=np.int64)
+        self.ntaps = len(off)
+        self.tiled = ndim <= 3
+        self._taps, self._geometry = {}, None
+        if not self.tiled:
+            return
+        off3 = np.zeros((self.ntaps, 3), dtype=np.int64)
+        off3[:, 3 - ndim:] = off.reshape(self.ntaps, ndim)
+        off3 = off3[np.lexsort((off3[:, 2], off3[:, 1], off3[:, 0]))]
+        self.shape3 = (1,) * (3 - ndim) + self.shape
+        self.reach = tuple(int(r) for r in (np.abs(off3).max(0)
+                                            if self.ntaps else (0, 0, 0)))
+        self.offsets = off3
+        rows = {}
+        for oz, oy, dx in off3.tolist():
+            rows.setdefault((oz, oy), []).append(dx)
+        self.rows = len(rows)
+        # the kernel's table: a code per row (oz, oy as signed bytes in bits
+        # 24-31 and 16-23, its tap count in bits 1-8, bit 0 where a tap has
+        # dx != 0), then every row's dx values in order
+        codes = [(oz & 0xFF) << 24 | (oy & 0xFF) << 16 | len(dxs) << 1
+                 | any(dxs) for (oz, oy), dxs in rows.items()]
+        self.table = np.asarray(codes + [dx for dxs in rows.values()
+                                         for dx in dxs],
+                                dtype=np.int64).astype(np.uint32).view(
+            np.int32)
+
+    def plan(self, want, bytes_io, route=None, budget=BIN_SMEM_LIMIT):
+        if not self.tiled:
+            if route == "tile":
+                raise ValueError("binary_step: the tile route takes 1 to 3 "
+                                 "axes")
+            return _ND_PLAN
+        return _binary_plan(self.shape3, self.reach, self.ntaps, self.rows,
+                            int(want), bool(bytes_io), route, budget)
+
+    def taps_on(self, device):
+        if device not in self._taps:
+            self._taps[device] = torch.as_tensor(self.table).to(device)
+        return self._taps[device]
+
+    def geometry(self, x: torch.Tensor):
+        if self._geometry is None:
+            self._geometry = _Geometry(x, self.structure, self.centers,
+                                       "binary_step")
+        return self._geometry
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers (K10, K11, K12, K13)
 
@@ -467,6 +666,12 @@ def _lib():
         fn = lib.ed_binary_step
         fn.restype = i
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i, lp, ip, ip, i, i, i, vp]
+        fn = lib.ed_binary_tile
+        fn.restype = i
+        fn.argtypes = [vp, vp, vp, vp, vp] + [i] * 15 + [vp]
+        fn = lib.ed_binary_pack
+        fn.restype = i
+        fn.argtypes = [vp, vp, ll, i, i, i, vp]
     return lib
 
 
@@ -610,17 +815,44 @@ def rank_filter(x: torch.Tensor, footprint, centers, mode: str, cval,
 rank_filter.launches = 0
 
 
+def _launch_tile(src: torch.Tensor, out: torch.Tensor, mask, sten, plan,
+                 k: int, border: bool, dilation: bool, changed) -> None:
+    """One launch of K13's tile route, ``k`` sweeps (``k <= plan.k``):
+    bool bytes in and out where ``src`` is bool, else packed words."""
+    nz, ny, nx = sten.shape3
+    rz, ry, rx = sten.reach
+    lib = _lib()
+    err = lib.ed_binary_tile(
+        src.data_ptr(), out.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        sten.taps_on(src.device).data_ptr() if sten.ntaps else None,
+        None if changed is None else changed.data_ptr(),
+        int(src.dtype == torch.bool), nz, ny, nx, *plan.tile, rz, ry, rx,
+        int(k), sten.rows, sten.ntaps, int(bool(border)),
+        int(bool(dilation)), _stream(src))
+    _build.check(err, lib, "ed_morphology_error_string", "binary_step")
+
+
+def _count_sweeps(route: str, k: int) -> None:
+    binary_step.launches += 1
+    binary_step.sweeps += k
+    binary_step.routes[route] += 1
+
+
 def binary_step(x: torch.Tensor, structure, centers, border: bool,
-                dilation: bool, mask=None, changed=None, geometry=None
-                ) -> torch.Tensor:
+                dilation: bool, mask=None, changed=None, stencil=None,
+                route=None) -> torch.Tensor:
     """One binary erosion or dilation sweep of the bool tensor ``x`` over
     the taps of ``structure`` (bool numpy, ``x``'s rank, centre
     ``centers``), ``border`` beyond the edge; ``mask`` (bool, ``x``'s shape)
     gates which voxels may change; ``changed`` (int32, one element) is set
-    to 1 where one did. ``geometry``: the structure's tap tables on ``x``,
-    built once for many sweeps, or None to build them. A CPU tensor takes
-    :func:`binary_step_plain`; a CUDA tensor launches K13 and adds one to
-    ``binary_step.launches``."""
+    to 1 where one did. ``stencil``: the structure's :class:`_Stencil` on
+    ``x``'s shape, built once for many sweeps, or None to build it;
+    ``route`` forces ``"tile"`` or ``"nd"``. A CPU tensor takes
+    :func:`binary_step_plain`; a CUDA tensor launches K13 on the route
+    :func:`_binary_plan` picks for one sweep on bool bytes (the tile route
+    packs them in shared memory) and adds one to ``binary_step.launches``,
+    ``binary_step.sweeps`` and ``binary_step.routes[route]``."""
     if x.device.type == "cpu":
         return binary_step_plain(x, structure, centers, border, dilation,
                                  mask, changed)
@@ -628,19 +860,110 @@ def binary_step(x: torch.Tensor, structure, centers, border: bool,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    geo = geometry or _Geometry(x, structure, centers, "binary_step")
-    lib = _lib()
-    err = lib.ed_binary_step(
-        x.data_ptr(), out.data_ptr(),
-        None if mask is None else mask.data_ptr(), geo.off.data_ptr(),
-        geo.delta.data_ptr(), None if changed is None else changed.data_ptr(),
-        *geo.args, int(bool(border)), int(bool(dilation)), _stream(x))
-    _build.check(err, lib, "ed_morphology_error_string", "binary_step")
-    binary_step.launches += 1
+    sten = stencil or _Stencil(x.shape, structure, centers)
+    plan = sten.plan(1, True, route)
+    if plan.route == "tile":
+        _launch_tile(x, out, mask, sten, plan, 1, border, dilation, changed)
+    else:
+        geo = sten.geometry(x)
+        lib = _lib()
+        err = lib.ed_binary_step(
+            x.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(), geo.off.data_ptr(),
+            geo.delta.data_ptr(),
+            None if changed is None else changed.data_ptr(), *geo.args,
+            int(bool(border)), int(bool(dilation)), _stream(x))
+        _build.check(err, lib, "ed_morphology_error_string", "binary_step")
+    _count_sweeps(plan.route, 1)
     return out
 
 
 binary_step.launches = 0
+binary_step.sweeps = 0
+binary_step.routes = {"tile": 0, "nd": 0}
+
+
+def binary_sweeps(state: torch.Tensor, structure, centers, border: bool,
+                  dilation: bool, mask=None, k: int = 1, changed=None,
+                  stencil=None, plan=None) -> torch.Tensor:
+    """``k`` sweeps in one launch of K13's tile route. ``state``: the
+    packed int32 words of :func:`pack_bits` (``mask`` too, packed with
+    zero pad bits), or the bool array itself (``mask`` bool); ``stencil``
+    (required for packed words) the structure's :class:`_Stencil` on the
+    bool array's shape; ``plan`` a tile plan whose ``k`` is at least ``k``
+    (by default :func:`_binary_plan`'s for ``k``). ``changed`` is set where
+    the last sweep changed a voxel. A CPU tensor takes
+    :func:`binary_sweeps_plain` (on packed words: unpacked, swept and packed
+    again); a CUDA tensor launches the kernel and adds one to
+    ``binary_step.launches`` and ``binary_step.routes["tile"]`` and ``k``
+    to ``binary_step.sweeps``."""
+    packed = state.dtype != torch.bool
+    if stencil is None:
+        if packed:
+            raise ValueError("binary_sweeps: packed words need the stencil")
+        stencil = _Stencil(state.shape, structure, centers)
+    if state.device.type == "cpu":
+        n = stencil.shape[-1]
+        x = unpack_bits_plain(state, n) if packed else state
+        m = unpack_bits_plain(mask, n) if packed and mask is not None \
+            else mask
+        y = binary_sweeps_plain(x, structure, centers, border, dilation, m,
+                                k, changed)
+        return pack_bits_plain(y, border) if packed else y
+    _check(state, "binary_sweeps")
+    plan = plan or stencil.plan(k, not packed, "tile")
+    if plan.route != "tile" or not 1 <= k <= plan.k:
+        raise ValueError(f"binary_sweeps: a tile plan of at least {k} "
+                         f"sweeps is needed, got {plan}")
+    out = torch.empty_like(state)
+    _launch_tile(state, out, mask, stencil, plan, k, border, dilation,
+                 changed)
+    _count_sweeps("tile", k)
+    return out
+
+
+def pack_bits(x: torch.Tensor, border: bool) -> torch.Tensor:
+    """The contiguous bool ``x`` packed along its last axis, 32 voxels to
+    an int32 word (bit ``j`` of word ``w`` is voxel ``32 w + j``), the pad
+    bits past the axis's end set to ``border``. A CPU tensor takes
+    :func:`pack_bits_plain`; a CUDA tensor launches K13's pack kernel and
+    adds one to ``pack_bits.launches``."""
+    if x.device.type == "cpu":
+        return pack_bits_plain(x, border)
+    _check(x, "pack_bits")
+    n = x.shape[-1]
+    words = torch.empty(x.shape[:-1] + (-(-n // 32),), dtype=torch.int32,
+                        device=x.device)
+    lib = _lib()
+    err = lib.ed_binary_pack(x.data_ptr(), words.data_ptr(), x.numel() // n,
+                             n, int(bool(border)), 1, _stream(x))
+    _build.check(err, lib, "ed_morphology_error_string", "pack_bits")
+    pack_bits.launches += 1
+    return words
+
+
+pack_bits.launches = 0
+
+
+def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """The bool voxels of the packed ``words``, the last axis ``n`` long.
+    A CPU tensor takes :func:`unpack_bits_plain`; a CUDA tensor launches
+    K13's unpack kernel and adds one to ``unpack_bits.launches``."""
+    if words.device.type == "cpu":
+        return unpack_bits_plain(words, n)
+    _check(words, "unpack_bits")
+    out = torch.empty(words.shape[:-1] + (n,), dtype=torch.bool,
+                      device=words.device)
+    lib = _lib()
+    err = lib.ed_binary_pack(out.data_ptr(), words.data_ptr(),
+                             words.numel() // words.shape[-1], n, 0, 0,
+                             _stream(words))
+    _build.check(err, lib, "ed_morphology_error_string", "unpack_bits")
+    unpack_bits.launches += 1
+    return out
+
+
+unpack_bits.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -775,11 +1098,16 @@ def apply_rank_filter(x: torch.Tensor, rank, size, footprint, mode, cval,
 
 
 def binary_erosion_dilation(x: torch.Tensor, structure, iterations, mask,
-                            border_value, origin, dilation: bool
-                            ) -> torch.Tensor:
+                            border_value, origin, dilation: bool,
+                            route=None) -> torch.Tensor:
     """``binary_erosion`` / ``binary_dilation``: K13 sweeps, ``iterations``
-    of them, or to the fixpoint for ``iterations <= 0`` (the flag read every
-    :data:`SWEEPS_PER_CHECK` sweeps), each gated by ``mask``."""
+    of them, or to the fixpoint for ``iterations <= 0`` (the flag of every
+    :data:`SWEEPS_PER_CHECK`-th sweep read), each gated by ``mask``. On the
+    tile route the sweeps run up to the plan's ``k`` a launch on the packed
+    state (:func:`pack_bits` once, :func:`binary_sweeps`, :func:`unpack_bits`
+    once); on the nd route one :func:`binary_step` a sweep. ``route``
+    forces one. Every device runs the same schedule (a CPU tensor through
+    the plain versions)."""
     x = (x != 0).contiguous()
     if structure is None:
         structure = generate_binary_structure(x.dim(), 1)
@@ -790,24 +1118,45 @@ def binary_erosion_dilation(x: torch.Tensor, structure, iterations, mask,
     border = bool(border_value)
     if mask is not None:
         mask = torch.broadcast_to(mask != 0, x.shape).contiguous()
-    geo = None
-    if x.device.type != "cpu" and x.numel():
-        geo = _Geometry(x, structure, centers, "binary_step")
-
-    def step(v, changed=None):
-        return binary_step(v, structure, centers, border, dilation, mask,
-                           changed, geo)
-
     iterations = int(iterations)
+    if x.numel() == 0:
+        return x.clone()
+    sten = _Stencil(x.shape, structure, centers)
+    want = SWEEPS_PER_CHECK if iterations < 1 else \
+        min(iterations, SWEEPS_PER_CHECK)
+    plan = sten.plan(want, False, route)
+    if plan.route == "tile":
+        state = pack_bits(x, border)
+        gate = None if mask is None else pack_bits(mask, False)
+
+        def sweep(n, changed=None):
+            nonlocal state
+            while n > 0:
+                k = min(n, plan.k)
+                state = binary_sweeps(state, structure, centers, border,
+                                      dilation, gate, k,
+                                      changed if k == n else None, sten,
+                                      plan)
+                n -= k
+    else:
+        state = x
+
+        def sweep(n, changed=None):
+            nonlocal state
+            for s in range(n):
+                state = binary_step(state, structure, centers, border,
+                                    dilation, mask,
+                                    changed if s == n - 1 else None, sten,
+                                    "nd")
     if iterations >= 1:
-        for _ in range(iterations):
-            x = step(x)
-        return x
-    changed = torch.zeros(1, dtype=torch.int32, device=x.device)
-    while True:
-        for _ in range(SWEEPS_PER_CHECK - 1):
-            x = step(x)
-        changed.zero_()
-        x = step(x, changed)
-        if not int(changed.item()):
-            return x
+        sweep(iterations)
+    else:
+        changed = torch.zeros(1, dtype=torch.int32, device=x.device)
+        while True:
+            changed.zero_()
+            sweep(SWEEPS_PER_CHECK, changed)
+            if not int(changed.item()):
+                break
+    if plan.route == "tile":
+        return unpack_bits(state, x.shape[-1])
+    return state

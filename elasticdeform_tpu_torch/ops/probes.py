@@ -43,33 +43,45 @@ _SUM_BLOCKS = 132 * 8
 _ASYNC_BLOCKS = 132 * 6
 
 
-def _lib():
-    lib = _build.library("probes")
-    if lib.ed_smem_probe.argtypes is None:
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name, args in (
-                ("ed_smem_probe", [vp, vp, ll, vp]),
-                ("ed_smem_limit", [ctypes.POINTER(i)]),
-                ("ed_row_gather_copy", [vp, vp, vp, ll, ll, vp]),
-                ("ed_row_gather_element", [vp, vp, vp, ll, vp]),
-                ("ed_row_gather_sum", [vp, vp, vp, vp, ll, ll, ll, i, i, i,
-                                       vp]),
-                ("ed_row_scatter_add", [vp, vp, vp, ll, vp]),
-                ("ed_row_gather_async", [vp, vp, vp, vp, ll, ll, i, vp])):
+# the C entry points and their argument types; bound once, on first use
+_SIGNATURES = (
+    ("ed_smem_probe", ("p", "p", "l", "p")),
+    ("ed_smem_limit", ("ip",)),
+    ("ed_row_gather_copy", ("p", "p", "p", "l", "l", "p")),
+    ("ed_row_gather_element", ("p", "p", "p", "l", "p")),
+    ("ed_row_gather_sum", ("p", "p", "p", "p", "l", "l", "l", "i", "i", "i",
+                           "p")),
+    ("ed_row_scatter_add", ("p", "p", "p", "l", "p")),
+    ("ed_row_gather_async", ("p", "p", "p", "p", "l", "l", "i", "p")))
+_entries: dict = {}
+
+
+def _bind() -> dict:
+    """``{name: ctypes function}`` of ``csrc/probes.cu``, built and bound
+    at the first call, then a dictionary lookup: a probe of a few
+    microseconds is timed with its host call."""
+    if not _entries:
+        lib = _build.library("probes")
+        types = {"p": ctypes.c_void_p, "l": ctypes.c_longlong,
+                 "i": ctypes.c_int, "ip": ctypes.POINTER(ctypes.c_int)}
+        for name, args in _SIGNATURES:
             fn = getattr(lib, name)
-            fn.restype = i
-            fn.argtypes = args
-    return lib
+            fn.restype = ctypes.c_int
+            fn.argtypes = [types[a] for a in args]
+            _entries[name] = fn
+        _entries["lib"] = lib
+    return _entries
 
 
 def _launch(name: str, what: str, *args) -> None:
-    lib = _lib()
-    _build.check(getattr(lib, name)(*args), lib, "ed_probes_error_string",
-                 what)
+    err = (_entries or _bind())[name](*args)
+    if err:
+        _build.check(err, _entries["lib"], "ed_probes_error_string", what)
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    """The raw current stream of ``t``'s card (no Stream object built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _check_table(table: torch.Tensor, what: str) -> None:
@@ -88,7 +100,7 @@ def _check_index(idx: torch.Tensor, table: torch.Tensor, what: str) -> None:
 
 def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{what}: expected a CPU or CUDA tensor, got "
                              f"{t.device}")
         if not t.is_contiguous():
@@ -182,8 +194,7 @@ def row_gather_element(table: torch.Tensor,
     if table.device.type == "cpu":
         return row_gather_element_plain(table, idx2d)
     _check_cuda("row_gather_element", table, idx2d)
-    out = torch.empty(tuple(idx2d.shape), dtype=table.dtype,
-                      device=table.device)
+    out = torch.empty_like(idx2d, dtype=table.dtype)
     _launch("ed_row_gather_element", "row_gather_element", table.data_ptr(),
             idx2d.data_ptr(), out.data_ptr(), idx2d.shape[0], _stream(table))
     row_gather_element.launches += 1

@@ -305,6 +305,98 @@ def test_wrappers_check_their_arguments():
         t_dg2.gather("nope", 64, 32, device=CPU)
 
 
+_META = torch.device("meta")
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda t, i: op.row_gather_element(t, i[:, :64].contiguous()),
+     "idx2d must be"),
+    (lambda t, i: op.row_gather_element(t, i.long()), "int32"),
+    (lambda t, i: op.row_gather_element(t.double(), i), "float32"),
+    (lambda t, i: op.row_gather_element(t, i.to(_META)), "share a device"),
+    (lambda t, i: op.row_gather_element(t.to(_META), i.to(_META)),
+     "expected a CPU or CUDA tensor, got meta"),
+    (lambda t, i: op.row_gather(t.to(_META), i[:, 0].contiguous().to(
+        _META)), "expected a CPU or CUDA tensor, got meta"),
+    (lambda t, i: op.row_gather(t, i[:, 0].contiguous(), keep_from=-1),
+     "keep_from"),
+])
+def test_lean_wrappers_keep_their_checks(call, match):
+    """The P2 wrappers check their arguments before any CUDA call, with the
+    same errors (a tensor on neither the CPU nor a card reaches the card
+    branch's check)."""
+    table = torch.zeros((16, 128))
+    idx = torch.zeros((8, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        call(table, idx)
+
+
+def _c_signatures():
+    """``{name: argument kinds}`` of the extern "C" entry points of
+    ``csrc/probes.cu``: ``p`` pointer, ``l`` long long, ``i`` int, ``ip``
+    int pointer."""
+    import re
+    src = (Path(op.__file__).resolve().parent.parent / "csrc" /
+           "probes.cu").read_text()
+    out = {}
+    for name, params in re.findall(r"\nint (ed_\w+)\(([^)]*)\)", src):
+        kinds = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            kinds.append("ip" if p.startswith("int*") else
+                         "p" if "*" in p else
+                         "l" if p.startswith("long long") else "i")
+        out[name] = tuple(kinds)
+    return out
+
+
+def test_bound_signatures_match_the_c_entry_points():
+    """The argument types bound once for every entry point are the C
+    declarations' (a pointer passed as a 32-bit int would be cut)."""
+    assert dict(op._SIGNATURES) == _c_signatures()
+
+
+@pytest.mark.parametrize("n_idx", [1, 7, 1024, 5000, 32768, 100000])
+def test_element_kernel_schedule_covers_every_row_once(n_idx):
+    """A model of ``gather_element_kernel``'s schedule (``grid_for``'s
+    warps, ``kElemInFlight`` = 4 rows a warp a step): every row is gathered
+    and stored exactly once, the rows a warp has in flight are distinct,
+    and up to 4 * 16896 rows every warp has all its rows in flight at
+    once."""
+    blocks = min(max(-(-n_idx // 8), 1), 132 * 16)
+    step = blocks * 8
+    seen = np.zeros(n_idx, dtype=np.int64)
+    for w in range(step):
+        for k0 in range(w, n_idx, step * 4):
+            rows = [k0 + u * step for u in range(4) if k0 + u * step < n_idx]
+            assert len(set(rows)) == len(rows)
+            seen[rows] += 1
+    assert (seen == 1).all()
+    if n_idx <= 4 * 132 * 16 * 8:
+        assert step * 4 >= n_idx
+
+
+def test_element_mode_model_is_the_twin():
+    """The element kernel's arithmetic, row by row in its schedule (every
+    lane's four indices, then the loads), against the plain twin on a
+    random, not broadcast, index."""
+    rs = np.random.RandomState(9)
+    table = rs.rand(300, 128).astype(np.float32)
+    idx2d = rs.randint(0, 300, (77, 128)).astype(np.int32)
+    out = np.full((77, 128), np.nan, dtype=np.float32)
+    step = 3 * 8
+    for w in range(step):
+        for k0 in range(w, 77, step * 4):
+            for u in range(4):
+                k = k0 + u * step
+                if k < 77:
+                    lanes = np.arange(128)
+                    out[k] = table[idx2d[k], lanes]
+    want = op.row_gather_element_plain(torch.from_numpy(table),
+                                       torch.from_numpy(idx2d))
+    _same_bits(out, _np(want))
+
+
 def test_element_mode_reads_each_lanes_index():
     """The element contract does not assume a broadcast index."""
     rs = np.random.RandomState(4)
