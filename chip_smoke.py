@@ -13,7 +13,10 @@ Phases (any failure raises, and the exit code is not 0):
    instantiation's (both routes, every tile width, K2's writeback route),
    K9T's tile instantiations (per dtype, column and fold flag) and
    K1/K1c's, K5/K5c's and K3/K3c's (per dtype, index width, rank and
-   order), and holds K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's
+   order), K8T's tile instantiations (per dtype and width) and K12's
+   select tile (per dtype and column, which with K8T's
+   must have no stack frame and no spills), and holds K2/K4/K6/K7 and
+   K9T's tile in float32, K6 and K2's
    writeback route in float64 too, K1/K1c and K5/K5c at orders 1 and 3 in
    float32, and every K3/K3c instantiation and K13's four tile
    instantiations and its pack and unpack kernels to no stack frame and no
@@ -51,7 +54,19 @@ Phases (any failure raises, and the exit code is not 0):
    bit with the same call on the CPU; ``spline_filter`` and
    ``spline_filter1d`` into uint8 and int16 output arrays at orders 2-5 in
    every mode name, 1-D to 3-D and a 512x512 image, bit for bit with the
-   CPU run, each axis on the fixed-order route; K9T on both routes (a shared-memory
+   CPU run, each axis on the fixed-order route; the filter tier's integer
+   ``output=`` (``correlate`` and ``convolve`` through K9 into uint8,
+   int16 and int32, ``correlate1d`` on K8's direct route,
+   ``gaussian_filter`` of a float32 input into int16, ``uniform_filter``,
+   ``sobel`` and ``prewitt``) in every mode, 1-D to 3-D and a 512x512
+   image, bit for bit with the CPU run; K8T on both routes (shared-memory
+   line tiles, one thread per output) over every mode and width, lines of 1
+   to the tile cap, 1-41 taps and c11's axes, the tile route bit for bit
+   with the lines route and both per element to the twin; K12's select
+   route on both routes (a shared-memory halo box, one thread per voxel) bit
+   for bit with the twin in the eleven dtypes over 65-343 taps, three ranks,
+   every mode, 1-D to 3-D and a batch axis;
+   K9T on both routes (a shared-memory
    halo box and one thread per output) at c14's shapes in every mode, 2-D,
    rank-4 and sparse kernels, every column, per element to the twin and to
    each other; K8 and
@@ -105,9 +120,10 @@ Phases (any failure raises, and the exit code is not 0):
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16, and c17's K13 sweeps per
    call, 4, 80 and 168, all on the tile route, with its pack and unpack
-   launches; K2's, K4's, K6's, K7's, K3's and K3c's launches split by route,
-   the tile route taken, c8's and c9's K6 only there, no config on K2's
-   writeback route);
+   launches; K2's, K4's, K6's, K7's, K3's, K3c's, K8T's and K12's launches
+   split by route, the tile route taken, c8's and c9's K6 only there, c11's
+   K8T and c15's 5^3 median on the tile route, no config on K2's writeback
+   route);
    then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
@@ -129,8 +145,13 @@ Phases (any failure raises, and the exit code is not 0):
    and ``grid_sample`` at order 1; one line each for K3 and K3c there: the
    shared-memory adds and the device-memory atomics per second beside P3's
    rate; K8-K9T at
-   the c11, c13 and c14 shapes; K10 and K11 at the c16 shapes beside
-   ``max_pool3d``, K12 at the c15 shapes, K13's single sweep at the c17
+   the c11, c13 and c14 shapes (K8T per axis with its route, width,
+   shared bytes and waves, every width, a packed tile's direct stores and
+   the lines route, beside ``tensordot`` with M^T per axis); K10 and K11 at
+   the c16 shapes beside ``max_pool3d``, K12 at the c15 shapes on each
+   route (the select route's tile and nd routes)
+   beside ``torch.kthvalue`` over the unfold windows of the padded volume
+   (3^3 and 5^3), K13's single sweep at the c17
    shapes on each route beside ``max_pool3d`` and c17's hole filling per
    call and per sweep on the packed state, on bool bytes and on the nd
    route beside the call's byte bound; K2 per axis at c5 as K4 (route, W, blocks per SM,
@@ -144,14 +165,16 @@ Phases (any failure raises, and the exit code is not 0):
    library-only probes' rates), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel (K2,
-K4, K6, K7, K9T, K3, K3c and K13 with their launches per route; K13 also
+K4, K6, K7, K8T, K9T, K3, K3c, K12 and K13 with their launches per route;
+K13 also
 its sweeps and its pack and unpack launches); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
 
-``times_ab(card)`` times K2 at c5, K6 at c8 and c9, K2's integer writeback
-at c2, K9T at c14, K3 at c5 (orders 3 and 1), K3c at c7 and every config
+``times_ab(card)`` times K2 at c5, K8T at c11, K12's 5^3 median at c15,
+K6 at c8 and c9, K2's integer writeback at c2, K9T at c14, K3 at c5
+(orders 3 and 1), K3c at c7 and every config
 through the public wrappers only, and
 prints a digest of K6's output bits, so that a copy of this file put into
 an older tree times (and checks) that tree's package in the same call to
@@ -415,6 +438,35 @@ def _check_k9t_ptxas(log):
                              f"float32 with a stack frame or spills: {bad}")
 
 
+# K8T's tile route (dtype, width W) and K12's select route on a halo box
+# (dtype, column C)
+_K8T_TILE = re.compile(r"correlate1d_transpose_tile_kernelI([fd])Li(\d+)E")
+_K12_TILE = re.compile(r"rank_select_tile_kernelI([bhatsjimlfd])Li(\d)E")
+_MANGLED = {"b": "bool", "h": "uint8", "a": "int8", "t": "uint16",
+            "s": "int16", "j": "uint32", "i": "int32", "m": "uint64",
+            "l": "int64", "f": "float32", "d": "float64"}
+
+
+def _check_tile_table(label, log, pattern, count, name):
+    """Print each instantiation of a tile kernel (``name`` formats its
+    match groups) with its registers, stack and spills; fail unless all
+    ``count`` are found and none has a stack frame or spills."""
+    found, bad = 0, []
+    for fn, v in sorted(_ptxas_kernels(log).items()):
+        m = pattern.search(fn)
+        if not m or fn.startswith("_ZZ"):
+            continue
+        print(f"  ptxas {label} {name(*m.groups())}: {v[0]} registers, "
+              f"{v[1]} bytes stack frame, {v[2]}/{v[3]} bytes spill "
+              f"stores/loads")
+        found += 1
+        if any(v[1:4]):
+            bad.append(fn)
+    if found != count or bad:
+        raise AssertionError(f"{label}: {found} of {count} instantiations "
+                             f"found; with a stack frame or spills: {bad}")
+
+
 def _check_rank_table(label, log, pattern, orders, count, every=False):
     """Print the registers, stack and spills of a rank-specialised kernel's
     instantiations (K5/K5c, K1/K1c or K3/K3c) per dtype, index type and
@@ -523,7 +575,13 @@ def phase_build():
                              "register checks cannot run")
     _check_tile_ptxas(_build.build_logs["prefilter"])
     _check_k9t_ptxas(_build.build_logs["filters"])
+    _check_tile_table(
+        "K8T tile", _build.build_logs["filters"], _K8T_TILE, 6,
+        lambda dt, w: f"{_MANGLED[dt]} W={w}")
     _check_k13_ptxas(_build.build_logs["morphology"])
+    _check_tile_table(
+        "K12 select tile", _build.build_logs["morphology"], _K12_TILE, 22,
+        lambda dt, c: f"{_MANGLED[dt]} C={c}")
     for name, label, pattern, orders, count, every in (
             ("resample", "K1/K1c", _K1_NAME, "012345", 96, False),
             ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80, False),
@@ -698,9 +756,12 @@ def phase_kernels():
     _check_int_deform(rs)
     _check_int_resampler(rs)
     _check_int_spline_filter(rs)
+    _check_int_filters(rs)
     _check_k9t_routes(rs, worst)
+    _check_k8t_routes(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_kernels(rs)
+    _check_k12_routes(rs, torch.device("cuda"))
     return worst
 
 
@@ -1340,6 +1401,98 @@ def _check_int_spline_filter(rs):
           f"filtered axis on the fixed-order route")
 
 
+_INT_FILTER_SHAPES = ((2,), (40,), (5, 8), (33, 9), (3, 9, 17),
+                      (12, 5, 33))
+
+
+def _int_filter_calls(rs, shape, idt):
+    """The filter tier's calls into integer ``output=`` arrays on an
+    ``idt`` image of ``shape`` (``_check_int_filters``): ``(label, call,
+    {kernel: launches on the card})``, each call taking ``(mode, device)``.
+    The N-D kernels hold small positive sevenths, so a constant run sums to
+    a value on or next to an integer; ``correlate1d`` takes a kernel that
+    is neither symmetric nor antisymmetric (K8's direct route)."""
+    import elasticdeform_tpu_torch as et
+    x = _runs_image(rs, shape, idt)
+    nd = len(shape)
+    kshape = tuple(int(k) for k in rs.randint(2, 5, nd))
+    w = rs.randint(1, 5, kshape) / 7.0
+    origin = [int(rs.randint(-(k // 2), (k - 1) // 2 + 1)) for k in kshape]
+    w1 = np.array([0.3, 1.1, -0.2, 0.5, 0.4])
+    axis = int(rs.randint(nd))
+    xf = (rs.randn(*shape) * 300).astype(np.float32)
+    outs = ("uint8", "int16", "int32")
+    calls = []
+    for odt in outs:
+        calls += [
+            (f"correlate {odt}", lambda m, d, odt=odt: et.correlate(
+                x, w, mode=m, cval=2.5, origin=origin,
+                output=np.empty(shape, odt), device=d),
+             {"correlate_nd": 1}),
+            (f"convolve {odt}", lambda m, d, odt=odt: et.convolve(
+                x, w, mode=m, cval=2.5, origin=origin,
+                output=np.empty(shape, odt), device=d),
+             {"correlate_nd": 1})]
+    odt = outs[int(rs.randint(3))]
+    calls += [
+        (f"correlate1d {odt} axis={axis}", lambda m, d: et.correlate1d(
+            x, w1, axis, mode=m, cval=2.5, output=np.empty(shape, odt),
+            device=d), {"correlate1d": 1}),
+        ("gaussian_filter float32 -> int16", lambda m, d: et.gaussian_filter(
+            xf, 1.3, mode=m, cval=2.5, output=np.empty(shape, "int16"),
+            device=d), {"correlate1d": nd}),
+        (f"uniform_filter {odt}", lambda m, d: et.uniform_filter(
+            x, 3, mode=m, cval=2.5, output=np.empty(shape, odt), device=d),
+         {"correlate1d": nd}),
+        (f"sobel {odt} axis={axis}", lambda m, d: et.sobel(
+            x, axis, mode=m, cval=2.5, output=np.empty(shape, odt),
+            device=d), {"correlate1d": nd}),
+        (f"prewitt {odt} axis={axis}", lambda m, d: et.prewitt(
+            x, axis, mode=m, cval=2.5, output=np.empty(shape, odt),
+            device=d), {"correlate1d": nd})]
+    return calls
+
+
+def _check_int_filters(rs):
+    """Step 0 of the filter tier's integer outputs: ``correlate`` and
+    ``convolve`` (K9) into uint8, int16 and int32 ``output=`` arrays,
+    ``correlate1d`` on K8's direct route, ``gaussian_filter`` of a float32
+    input into int16, ``uniform_filter``, ``sobel`` and ``prewitt`` into
+    integer arrays, in every filter mode (N-D calls also the ``grid-*``
+    aliases), 1-D to 3-D images of constant runs and one 512 x 512 image:
+    each output equal to the same call with ``device="cpu"`` bit for bit,
+    each card call with the launches it needs."""
+    import torch
+    images = [(shape, idt) for shape in _INT_FILTER_SHAPES
+              for idt in ("uint8", "int16")] + [((512, 512), "int16")]
+    n = 0
+    for shape, idt in images:
+        for label, call, need in _int_filter_calls(rs, shape, idt):
+            modes = MODES + (("grid-mirror", "grid-wrap", "grid-constant")
+                             if label.startswith(("correlate ", "convolve"))
+                             else ())
+            for mode in modes:
+                before = _counts()
+                got = call(mode, "cuda")
+                torch.cuda.synchronize()
+                took = {k: _counts()[k] - before[k] for k in need}
+                want = call(mode, "cpu")
+                what = f"{label} {idt} {shape} mode={mode}"
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"{what}: {int((got != want).sum())} of {want.size} "
+                        f"values differ from the CPU run")
+                if took != need:
+                    raise AssertionError(f"{what}: launches {took}, not "
+                                         f"{need}")
+                n += 1
+    print(f"correlate and convolve (K9) into uint8/int16/int32, correlate1d "
+          f"on K8's direct route, gaussian_filter float32 -> int16, "
+          f"uniform_filter, sobel and prewitt into integer arrays, every "
+          f"mode, 1-D to 3-D and a 512x512 image: {n} calls equal the CPU "
+          f"run bit for bit")
+
+
 def _check_k9t_routes(rs, worst):
     """K9T on both routes: the tile route at every column (C 1/2/4/8) held
     per element to the twin and to the nd route (1e-5 of the sum of the
@@ -1414,6 +1567,170 @@ def _check_k9t_routes(rs, worst):
           f"within 1e-5 of the sum of their absolute terms of the twin and "
           f"the nd route ({exact} equal to the nd route); the K9/K9T adjoint "
           f"identity holds in float64")
+
+
+def _check_k8t_routes(rs, worst):
+    """K8T on both routes: the tile route at every width (W 32/64/128) bit
+    for bit with the lines route and within 1e-5 of the sum of the absolute
+    terms of the twin (float32; 1e-10 float64), the wrapper on the plan's
+    route and its count; over the five modes, lines of 1, 2, 9, 100, 224 and
+    the tile cap (and one past it, which takes the lines route), inner 1, 3,
+    33, 64 and 100 (packed tiles, column tiles with a partial last one),
+    1-41 taps (longer than some lines) at the first, middle and last
+    centre, float32 and float64; c11's three axes in every mode; the K8/K8T
+    adjoint identity in float64 to 1e-10; a repeated call uploads nothing
+    (its tables come from the cache)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    dev = torch.device("cuda")
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        cap = pf.tile_cap(dtype)
+        for n, inner in ((1, 64), (2, 3), (9, 1), (9, 33), (100, 100),
+                         (224, 1), (cap, 1), (cap, 64), (cap + 1, 3)):
+            outer = max(1, min(6, 40000 // (n * inner)))
+            cases.append(((outer, n, inner), 1, dtype))
+    c11 = (3, 160, 192, 224)
+    cases += [(c11, a, torch.float32) for a in (1, 2, 3)]
+    n = exact = 0
+    for (shape, axis, dtype), mode in itertools.product(cases, MODES):
+        big = math.prod(shape) > 10 ** 6
+        g = torch.as_tensor(rs.randn(*shape), dtype=dtype, device=dev)
+        x = torch.as_tensor(rs.rand(*shape), dtype=dtype, device=dev)
+        outer, ln, inner = pf._lines(g, axis)
+        kernels = ((17, 8),) if big else ((1, 0), (4, 0), (4, 3), (17, 8),
+                                          (41, 20), (41, 40))
+        for L, c in kernels:
+            w = ft.gaussian_weights(2.0, 0, 4.0, None) if L == 17 else \
+                rs.randn(L)
+            what = f"K8T {dtype} {mode} shape={shape} axis={axis} taps={L} " \
+                f"centre={c}"
+            want = ft.correlate1d_transpose_plain(g, w, axis, mode, c)
+            terms = ft.correlate1d_transpose_plain(g.abs(), np.abs(w), axis,
+                                                   mode, c)
+            tol = _terms_tol(dtype, terms)
+            e = ft._k8t_edges(ln, L, c, mode)
+            plan = ft._line_transpose_plan(outer, ln, inner, dtype, L,
+                                           len(e.table))
+            # past the cap the lines route; at the cap a column tile leaves
+            # no room for the taps and the table, so either
+            if (ln > pf.tile_cap(dtype)) != (plan.route == "lines") and \
+                    (ln <= 224 or ln > pf.tile_cap(dtype)):
+                raise AssertionError(f"{what}: plan {plan}")
+            before = dict(ft.correlate1d_transpose.routes)
+            got = ft.correlate1d_transpose(g, w, axis, mode, c)
+            if ft.correlate1d_transpose.routes[plan.route] != \
+                    before[plan.route] + 1:
+                raise AssertionError(f"{what}: the wrapper did not count a "
+                                     f"{plan.route} launch")
+            lines = ft._launch_line_transpose(g, w, axis, mode, c,
+                                              ft.LinePlan("lines"))
+            torch.cuda.synchronize()
+            worst["correlate1d_transpose"] = max(
+                worst["correlate1d_transpose"],
+                _assert_close(got, want, *tol, f"{what} vs plain"),
+                _assert_close(lines, want, *tol, f"{what} lines vs plain"))
+            exact += int(torch.equal(_bits(got), _bits(want)))
+            if plan.route == "tile":
+                for W in pf.TILE_WIDTHS:
+                    t = ft._launch_line_transpose(
+                        g, w, axis, mode, c, ft._line_transpose_plan(
+                            outer, ln, inner, dtype, L, len(e.table),
+                            width=W))
+                    torch.cuda.synchronize()
+                    if not torch.equal(_bits(t), _bits(lines)):
+                        raise AssertionError(
+                            f"{what} W={W}: the tile route differs from the "
+                            f"lines route in "
+                            f"{int((_bits(t) != _bits(lines)).sum())} "
+                            "values")
+                    n += 1
+            if dtype == torch.float64 and not big:
+                _check_adjoint(ft.correlate1d(x, w, axis, mode, 0.0, c), g,
+                               x, got, f"K8/K8T {what}")
+            del want, terms, got, lines
+    # a repeated call uploads nothing: its tables come from the cache
+    g = torch.as_tensor(rs.randn(3, 40, 50), dtype=torch.float32, device=dev)
+    w = rs.randn(9)
+    ft.correlate1d_transpose(g, w, 1, "mirror", 4)
+    misses = ft._k8t_tables.cache_info().misses
+    ft.correlate1d_transpose(g, w, 1, "mirror", 4)
+    if ft._k8t_tables.cache_info().misses != misses:
+        raise AssertionError("K8T uploaded its tables again at a repeated "
+                             "call")
+    print(f"K8T tile route (W {'/'.join(map(str, pf.TILE_WIDTHS))}) bit for "
+          f"bit with the lines route in {n} launches, lines 1 to the tile "
+          f"cap, inner 1-100, 1-41 taps, c11's axes, every mode; both within "
+          f"1e-5 of the sum of their absolute terms of the twin ({exact} "
+          f"equal to it); the K8/K8T adjoint identity holds in float64")
+
+
+def _check_k12_routes(rs, dev):
+    """K12's select route on both routes: the tile route bit for bit with
+    the nd route and the twin (a zero's sign too, NaN where NaN) and the
+    wrapper on the tile route and its count, in the eleven dtypes (floats
+    with NaN, infinities and zeros of both signs, integers over their range
+    or a pool of ties), 65-343 taps (5^3 and 7^3 boxes, balls of radius 3,
+    sparse footprints, a 9x9 plane, a 67-tap line), ranks 1, middle and
+    k - 2, the five modes with a raw-dtype ``cval``, 1-D to 3-D and a batch
+    axis; a repeated call uploads nothing (its tables come from the caches)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    g3 = np.indices((7, 7, 7)) - 3
+    ball3 = (g3 ** 2).sum(0) <= 9
+    shapes = {3: [(9, 10, 35), (4, 33, 40)], 2: [(23, 37)], 1: [(150,)]}
+    n = 0
+    for i, dtype in enumerate(_morph_dtypes()):
+        for j, fp in enumerate((np.ones((5, 5, 5), bool),
+                                np.ones((7, 7, 7), bool), ball3,
+                                rs.rand(5, 6, 4) > 0.3,
+                                np.ones((9, 9), bool), np.ones(67, bool),
+                                np.ones((1, 5, 5, 5), bool))):
+            k = int(fp.sum())
+            if fp.ndim == 4:
+                shape = (2, 5, 9, 40)
+            else:
+                opts = shapes[fp.ndim]
+                shape = opts[(i + j) % len(opts)]
+            x = _rand_volume(rs, shape, dtype, dev)
+            for rank in (1, k // 2, k - 2):
+                mode = MODES[n % 5]
+                centers = [int(rs.randint(0, s)) for s in fp.shape]
+                cval = _cval_for(rs, dtype)
+                args = (x, fp, centers, mode, cval, rank)
+                what = f"K12 {dtype} {mode} shape={shape} taps={k} " \
+                    f"rank={rank} centres={centers}"
+                plan = mo._rank_plan(shape, fp.shape, dtype, k)
+                if plan.route != "tile":
+                    raise AssertionError(f"{what}: plan {plan}")
+                before = dict(mo.rank_filter.routes)
+                got = mo.rank_filter(*args)
+                if mo.rank_filter.routes["tile"] != before["tile"] + 1:
+                    raise AssertionError(f"{what}: the wrapper did not count "
+                                         "a tile launch")
+                nd = mo._launch_rank(*args, mo._rank_plan(
+                    shape, fp.shape, dtype, k, route="nd"))
+                want = mo.rank_filter_plain(*args)
+                torch.cuda.synchronize()
+                _same(got, want, f"{what} tile route vs plain")
+                _same(nd, want, f"{what} nd route vs plain")
+                n += 1
+    # a repeated call uploads nothing: its tables come from the caches
+    x = _rand_volume(rs, (9, 10, 35), torch.float32, dev)
+    caches = (mo._rank_tile_tables, mo._cached_geometry, mo._network_pairs)
+    for k, rank in ((125, 62), (27, 13)):
+        fp = np.ones((5, 5, 5) if k == 125 else (3, 3, 3), bool)
+        centers = [s // 2 for s in fp.shape]
+        mo.rank_filter(x, fp, centers, "reflect", 0.0, rank)
+        misses = [c.cache_info().misses for c in caches]
+        mo.rank_filter(x, fp, centers, "reflect", 0.0, rank)
+        if [c.cache_info().misses for c in caches] != misses:
+            raise AssertionError(f"K12 ({k} taps) uploaded its tables again "
+                                 "at a repeated call")
+    print(f"K12 select route: the tile route bit for bit with the nd route "
+          f"and the twin in {n} cases (eleven dtypes, 65-343 taps, ranks 1, "
+          f"middle and k - 2, every mode, 1-D to 3-D and a batch axis)")
 
 
 def _terms_tol(dtype, terms):
@@ -2376,6 +2693,11 @@ _EXACT_LAUNCHES = {
             "binary_step": 0},
     "c16": {"min_max_filter1d": 6, "min_max_filter": 3, "rank_filter": 0,
             "binary_step": 0}}
+# the launches per route of c11's K8T (one per spatial axis) and c15's K12
+# (3^3 median and the 33-tap percentile on the network route, the 5^3
+# median on the select route's tile)
+_TILE_ROUTES = (("c11", "correlate1d_transpose", {"tile": 3, "lines": 0}),
+                ("c15", "rank_filter", {"network": 2, "tile": 1, "nd": 0}))
 # c17's K13 sweeps per call (the fixpoints' counts of the seeded
 # segmentation, as every PR since PR 5 measured them) and its (pack, unpack)
 # launches: the opening packs and unpacks its erosion and its dilation, each
@@ -2512,11 +2834,16 @@ def phase_main_path():
                 routes[k][r] += v
     print(f"main path launches per config: {json.dumps(launches)}")
     print(f"main path launches per route: {json.dumps(routes)}")
-    print("K2's, K6's, K3's and K3c's launches per route and config: " +
-          json.dumps({name: {k: r[k] for k in (
+    print("K2's, K6's, K3's, K3c's, K8T's and K12's launches per route and "
+          "config: " + json.dumps({name: {k: r[k] for k in (
               "spline_prefilter", "spline_prefilter_bc", "resample_bwd",
-              "resample_coords_bwd") if sum(r[k].values())}
-              for name, r in cfg_routes.items()}))
+              "resample_coords_bwd", "correlate1d_transpose", "rank_filter")
+              if sum(r[k].values())} for name, r in cfg_routes.items()}))
+    # c11's three K8T launches and c15's 5^3 median take the tile route
+    for name, k, want in _TILE_ROUTES:
+        if cfg_routes[name][k] != want:
+            raise AssertionError(f"{name}: {k}'s launches per route "
+                                 f"{cfg_routes[name][k]}, not {want}")
     # no config has an integer input with the prefilter on, so none takes
     # K2's writeback route (K6's fixed-order one neither); c8 and c9 run K6
     # on its tile route only
@@ -3466,6 +3793,7 @@ def _times_filters(row, card):
     import torch
     import torch.nn.functional as F
     from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import prefilter as pf
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rs = np.random.RandomState(11)
@@ -3534,15 +3862,61 @@ def _times_filters(row, card):
                         "K8T at c11 shapes")
     del terms
     per_axis = [_time_ms(lambda a=a: k8t(g, a)) for a in (1, 2, 3)]
-    print(f"correlate1d_transpose per-axis ms at c11 shapes, axes 1/2/3: "
-          f"{per_axis} [{card}]")
+    lib_axis = [_time_ms(lambda a=a: mat(g, a, True)) for a in (1, 2, 3)]
+    lines_plan = ft.LinePlan("lines")
+    lines_axis = [_time_ms(lambda a=a: ft._launch_line_transpose(
+        g, w, a, "reflect", c, lines_plan)) for a in (1, 2, 3)]
+    plans = []
+    for a in (1, 2, 3):
+        outer, n, inner = pf._lines(g, a)
+        e = ft._k8t_edges(n, L, c, "reflect")
+        plans.append(ft._line_transpose_plan(outer, n, inner, g.dtype, L,
+                                             len(e.table)))
+        if not torch.equal(_bits(k8t(g, a)), _bits(ft._launch_line_transpose(
+                g, w, a, "reflect", c, lines_plan))):
+            raise AssertionError(f"K8T at c11 shapes, axis {a}: the tile "
+                                 "route differs from the lines route")
+    axis_bound = _bound(2 * numel * 4, numel * 2 * L)[0]
+    widths = []
+    for a, p, ms, lib_ms, lines_ms in zip((1, 2, 3), plans, per_axis,
+                                          lib_axis, lines_axis):
+        t = p.tile
+        outer, n, inner = pf._lines(g, a)
+        e = ft._k8t_edges(n, L, c, "reflect")
+        every = {}
+        for W in pf.TILE_WIDTHS:
+            q = ft._line_transpose_plan(outer, n, inner, g.dtype, L,
+                                        len(e.table), width=W)
+            every[W] = _time_ms(lambda q=q, a=a: ft._launch_line_transpose(
+                g, w, a, "reflect", c, q))
+        if p.gather:
+            # the alternative: each thread stores its outputs directly
+            direct = p._replace(gather=False, smem=p.smem - t.smem)
+            every["direct stores"] = _time_ms(
+                lambda a=a: ft._launch_line_transpose(g, w, a, "reflect", c,
+                                                      direct))
+        widths.append(every)
+        print(f"correlate1d_transpose at c11 shapes, axis {a}: {p.route} "
+              f"route W={t.width} {'packed' if t.packed else 'columns'}"
+              f"{', outputs gathered' if p.gather else ''}, {p.smem} B "
+              f"shared, {t.blocks} blocks, {ft.k8t_waves(p, 132)} waves; "
+              f"{ms:.4f} ms (every width {json.dumps(every)}, lines route "
+              f"{lines_ms:.4f}, tensordot with M^T {lib_ms:.4f}, bound "
+              f"{axis_bound:.4f} by bytes) [{card}]")
     row("correlate1d_transpose", "filters.cu",
         "elasticdeform_tpu/ops/filters.py:125",
         _time_ms(chain(k8t, (3, 2, 1))),
         _time_ms(chain(lambda y, a: ft.correlate1d_transpose_plain(
             y, w, a, "reflect", c), (3, 2, 1))), bound,
         _time_ms(chain(lambda y, a: mat(y, a, True), (3, 2, 1))), err,
-        at="c11", extra={"axis_ms": per_axis})
+        at="c11", extra={"axis_ms": per_axis, "axis_tensordot_ms": lib_axis,
+                         "lines_route_axis_ms": lines_axis,
+                         "lines_route_ms": _time_ms(chain(
+                             lambda y, a: ft._launch_line_transpose(
+                                 y, w, a, "reflect", c, lines_plan),
+                             (3, 2, 1))),
+                         "widths": [p.tile.width for p in plans],
+                         "width_ms": widths})
     del f, g, mats
 
     # K8 on c13's paired route: float64, sigma 1 (9 taps), mirror
@@ -3689,23 +4063,59 @@ def _times_morphology(row, card, k13=None):
         c = [k // 2 for k in fp.shape]
         k = int(fp.sum())
         args = (x, fp, c, "reflect", 0.0, rank)
-        _same(mo.rank_filter(*args), mo.rank_filter_plain(*args),
-              f"K12 {label} at c15 shapes")
-        routes[label] = (_time_ms(lambda a=args: mo.rank_filter(*a)),
-                         _time_ms(lambda a=args: mo.rank_filter_plain(*a),
+        want = mo.rank_filter_plain(*args)
+        _same(mo.rank_filter(*args), want, f"K12 {label} at c15 shapes")
+        plan = mo._rank_plan(S, fp.shape, x.dtype, k)
+        r = {"route": plan.route, "taps": k,
+             "ms": _time_ms(lambda a=args: mo.rank_filter(*a)),
+             "plain_ms": _time_ms(lambda a=args: mo.rank_filter_plain(*a),
                                   reps=3, warmup=1),
-                         _bound(2 * numel * 4,
-                                numel * _select_comparisons(k, rank)), k)
-        ms, plain, b, _ = routes[label]
+             "bound": _bound(2 * numel * 4,
+                             numel * _select_comparisons(k, rank))}
+        if plan.route == "tile":
+            nd_plan = mo._rank_plan(S, fp.shape, x.dtype, k, route="nd")
+            _same(mo._launch_rank(*args, nd_plan), want,
+                  f"K12 {label} at c15 shapes, nd route")
+            r["nd_route_ms"] = _time_ms(
+                lambda a=args: mo._launch_rank(*a, nd_plan), reps=3)
+            r.update(box=plan.box, smem=plan.smem, blocks=plan.blocks)
+        if all(n == 3 or n == 5 for n in fp.shape) and fp.all():
+            # the library yardstick: kthvalue over the unfold windows of
+            # the padded volume (built once, not timed); values compared on
+            # this finite volume (kthvalue has its own NaN rule)
+            xp = x
+            for a in range(3):
+                xp = ft.pad_axis(xp, a, c[a], c[a], "reflect", 0.0)
+            win = xp.unfold(0, fp.shape[0], 1).unfold(
+                1, fp.shape[1], 1).unfold(2, fp.shape[2], 1).reshape(
+                *S, k).contiguous()
+            del xp
+            if not torch.equal(torch.kthvalue(win, rank + 1, dim=-1).values,
+                               want):
+                raise AssertionError(f"K12 {label}: kthvalue's values differ "
+                                     "from the twin")
+            r["kthvalue_ms"] = _time_ms(
+                lambda: torch.kthvalue(win, rank + 1, dim=-1), reps=5)
+            del win
+        routes[label] = r
         print(f"rank_filter {label} ({k} taps, rank {rank}) at c15 shapes: "
-              f"{ms:.4f} ms (plain {plain:.4f} ms, bound {b[0]:.4f} ms by "
-              f"{b[1]}) [{card}]")
-    ms, plain, b, _ = routes["median3"]
+              f"{r['route']} route {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]}"
+              + (f", kthvalue over unfold windows {r['kthvalue_ms']:.4f} ms"
+                 if "kthvalue_ms" in r else "")
+              + (f", nd route {r['nd_route_ms']:.4f} ms, box {r['box']}, "
+                 f"{r['smem']} B shared, {r['blocks']} blocks"
+                 if "nd_route_ms" in r else "")
+              + f") [{card}]")
+        del want
+    r = routes["median3"]
     row("rank_filter", "morphology.cu",
-        "elasticdeform_tpu/ops/morphology.py:302", ms, plain, b, None, 0.0,
-        at="c15", extra={label: {"ms": r[0], "plain_ms": r[1],
-                                 "bound_ms": r[2][0], "taps": r[3]}
-                         for label, r in routes.items()})
+        "elasticdeform_tpu/ops/morphology.py:302", r["ms"], r["plain_ms"],
+        r["bound"], r["kthvalue_ms"], 0.0, at="c15",
+        extra={label: {**{k: v for k, v in q.items() if k != "bound"},
+                       "bound_ms": q["bound"][0]}
+               for label, q in routes.items()})
     del x
 
     m, _ = _segmentation(rs, S)
@@ -3959,7 +4369,9 @@ def _times_ab_p2_k13(reps):
 
 def times_ab(card, reps=REPS):
     """K2 over c5's three axes (64 x 64^3 float32, order 3) beside the
-    ``tensordot`` chain, K6 over c8's three axes (1 x 160 x 192 x 224
+    ``tensordot`` chain, K8T over c11's three axes (3 x 160 x 192 x 224
+    float32, 17 taps, reflect), K12's 5^3 median at c15's 160 x 192 x 224
+    float32, K6 over c8's three axes (1 x 160 x 192 x 224
     float32, reflect, order 3) and c9's input (96^3, wrap) beside the
     ``tensordot`` chain, K2 with the uint8 writeback over c2's 200 x 300
     (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
@@ -4032,6 +4444,22 @@ def times_ab(card, reps=REPS):
             y = pf.spline_filter1d(y, 3, a, np.uint8)
         return y
     out["K2_writeback_c2"] = _time_ms(wb, reps)
+    f11 = torch.as_tensor(rs.rand(3, 160, 192, 224).astype(np.float32),
+                          device=dev)
+    w11 = ft.gaussian_weights(2.0, 0, 4.0, None)
+
+    def k8t():
+        y = f11
+        for a in (3, 2, 1):
+            y = ft.correlate1d_transpose(y, w11, a, "reflect", 8)
+        return y
+    out["K8T_c11"] = _time_ms(k8t, reps)
+    del f11
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    x15 = torch.as_tensor(_mri_like(rs, (160, 192, 224)), device=dev)
+    out["K12_select_c15"] = _time_ms(lambda: mo.rank_filter(
+        x15, np.ones((5, 5, 5), bool), [2, 2, 2], "reflect", 0.0, 62), reps)
+    del x15
     out["K6_digest"] = _k6_digest(rs)
     del v, xi
     out.update(_times_ab_k3(rs, reps))
@@ -4256,6 +4684,70 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
     return sorted(rows, key=lambda r: order_of[r["name"]])
 
 
+def _device_kernels(prof, calls):
+    """``{name: (device ms, launches)}`` per call of the device's own
+    events (kernels, copies, memsets) in a ``torch.profiler`` trace of
+    ``calls`` calls. The host operators that launched them carry the same
+    device time as their self time, so they are left out."""
+    import torch
+    kern = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+        if t > 0 and getattr(e, "device_type",
+                             None) != torch.autograd.DeviceType.CPU:
+            kern[e.key] = (t / 1e3 / calls, e.count / calls)
+    return kern
+
+
+def profile_ab(card, names=("c14",), reps=REPS, calls=10):
+    """Each config of ``names`` whole (CUDA events, median of ``reps``), then
+    ``calls`` calls of it under ``torch.profiler``: per kernel its device
+    time and launches per call, and the host's wall time per call; and K9
+    and K9T alone at c14's shapes (a 5^3 kernel at origin (1, 0, -1) on
+    160 x 192 x 224 float32, constant mode; a 3^3 kernel over a batch of
+    two, reflect), CUDA events. Like :func:`times_ab` it calls only the
+    package's public wrappers and configs, so it also profiles an older
+    tree's package, one process per tree, in one call to the card. Prints
+    one line ``profile_ab: {json}`` and returns it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from elasticdeform_tpu_torch.ops import filters as ft
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(5)
+    out = {}
+    for cfg in _configs():
+        if cfg.name not in names:
+            continue
+        out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                cfg.run("cuda")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / calls
+        kern = _device_kernels(prof, calls)
+        out[f"{cfg.name} profiled"] = {
+            "wall_ms_per_call": wall,
+            "device_ms_per_call": sum(t for t, _ in kern.values()),
+            "kernels": {k[:90]: v for k, v in kern.items()}}
+    S = (160, 192, 224)
+    x = torch.as_tensor(rs.rand(*S).astype(np.float32), device=dev)
+    b = torch.as_tensor(rs.rand(2, *S).astype(np.float32), device=dev)
+    w5, w3 = rs.randn(5, 5, 5), rs.randn(1, 3, 3, 3)
+    out["K9_c14_5^3"] = _time_ms(
+        lambda: ft.correlate_nd(x, w5, (3, 2, 1), "constant", 0.5), reps)
+    out["K9_c14_3^3_batch2"] = _time_ms(
+        lambda: ft.correlate_nd(b, w3, (0, 1, 1, 1), "reflect", 0.0), reps)
+    out["K9T_c14"] = _time_ms(
+        lambda: ft.correlate_nd_transpose(x, w5, (3, 2, 1), "constant"),
+        reps)
+    print(f"profile_ab: {json.dumps(out)} [{card}]")
+    return out
+
+
 def _profile_config(cfg, card):
     """One call of a config under ``torch.profiler``: the host's wall time
     to the sync, the device's busy time (the self device time of every
@@ -4270,14 +4762,9 @@ def _profile_config(cfg, card):
         cfg.run("cuda")
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0)
-        if t > 0:
-            dev.append((t / 1e3, e.count, e.key))
+    dev = [(t, n, k) for k, (t, n) in _device_kernels(prof, 1).items()]
     busy = sum(t for t, _, _ in dev)
-    top = "; ".join(f"{k[:60]} {t:.3f} ms x{n}"
+    top = "; ".join(f"{k[:60]} {t:.3f} ms x{n:g}"
                     for t, n, k in sorted(dev, reverse=True)[:3])
     print(f"{cfg.name} profiled: wall {wall:.3f} ms (profiler on), device "
           f"busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.1f}%;"

@@ -22,7 +22,18 @@
 // P(p) = sum_k w[k] g[p + c - k] over the k that land inside, then each pad
 // folded back: x_bar[j] = P(j) + sum of P(p) over the pads p that fold onto j
 // (a host-built per-position list; constant mode drops the pads). A gather:
-// no atomics. Twin: correlate1d_transpose_plain.
+// no atomics. Twin: correlate1d_transpose_plain. Two routes, picked on the
+// host by ops/filters.py:_line_transpose_plan:
+// * tile (lines that fit a tile beside the taps and the edge table, fewer
+//   than 2^31 elements): a block stages W whole lines of g with cp.async
+//   (line_tile.cuh, K4's tile and width choice), the taps and the edge table
+//   in shared memory, then walks its lines' outputs from there: no tap, fold
+//   list or index division touches device memory. The positions [a, b) of a
+//   line are plain (fold list [j], every tap inside: the lines route's
+//   interior branch); the 2(L - 1) or so others take their fold lists from
+//   the table (ops/filters.py:_k8t_edges). Each output runs the lines
+//   route's code in its order, so the two routes agree bit for bit.
+// * lines (the rest): one thread per output, fold lists in device memory.
 //
 // K9 replaces ops/filters.py:317 apply_correlate (all three of its branches:
 // the stacked banded matrices, the unrolled slice sum, the VALID convolution):
@@ -82,10 +93,14 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "line_tile.cuh"
 
 #define ED_FILTER_MAXR 8
 #define ED_ROW_TILE 256
 #define ED_THREADS 256
+// K8T's tile route: threads a block, and outputs a thread computes at once
+#define ED_K8T_THREADS 256
+#define ED_K8T_WINDOW 4
 // K9T's tile route: a block of ED_TILE_Y x ED_TILE_X threads
 #define ED_TILE_Y 8
 #define ED_TILE_X 32
@@ -245,6 +260,163 @@ correlate1d_transpose_kernel(const T* __restrict__ g, T* __restrict__ out,
     acc = l == beg ? part : acc + part;
   }
   out[e] = acc;
+}
+
+// K8T's tile route: the positions [a, b) of a line are plain (fold list
+// [j], every tap inside the line: the lines route's interior branch); the
+// others, j < a and then j >= b, are the table's rows, whose fold lists it
+// holds as CSR arrays (rows + 1 offsets, then npos positions), built on the
+// host (ops/filters.py:_k8t_edges) and staged in shared memory.
+struct K8tEdges {
+  int a, b, rows, npos;
+  int gather;  // packed tiles: the outputs gather in a second shared tile
+};
+
+// P(top - c) at an interior position: acc = g[top] w_0, then acc +
+// g[top - k] w_k, from the line x at stride s
+template <typename T>
+__device__ __forceinline__ T k8t_interior(const T* x, int s, int top,
+                                          const T* w, int L) {
+  const T* v = x + top * s;
+  T acc = v[0] * w[0];
+  for (int k = 1; k < L; ++k) acc = acc + v[-k * s] * w[k];
+  return acc;
+}
+
+// x_bar[j] of the line x (at stride s in shared memory) in the lines
+// route's order and with its branches: the interior sum, or the parts of
+// j's fold list in order, each part from 0 over the taps landing inside
+template <typename T>
+__device__ __forceinline__ T k8t_output(const T* x, int s, int j, int n,
+                                        int L, int c, const T* w,
+                                        const K8tEdges& e, const int* eptr,
+                                        const int* epos) {
+  const int top = j + c;
+  if (j >= e.a && j < e.b) return k8t_interior(x, s, top, w, L);
+  const int row = j < e.a ? j : e.a + (j - e.b);
+  const int beg = eptr[row], end = eptr[row + 1];
+  if (end - beg == 1 && top - (L - 1) >= 0 && top < n)
+    return k8t_interior(x, s, top, w, L);
+  T acc = T(0);
+  for (int l = beg; l < end; ++l) {
+    const int pq = epos[l] + c;
+    // the k with 0 <= pq - k < n, ascending
+    const int k0 = pq - (n - 1) > 0 ? pq - (n - 1) : 0;
+    const int k1 = pq < L - 1 ? pq : L - 1;
+    T part = T(0);
+    for (int k = k0; k <= k1; ++k) part = part + x[(pq - k) * s] * w[k];
+    acc = l == beg ? part : acc + part;
+  }
+  return acc;
+}
+
+// Q interior outputs at tops top0 .. top0 + Q - 1 of the line x (stride s)
+// from a register window sliding down the line: one shared-memory load a
+// tap for all Q, each output still acc = g[top] w_0, then acc + g[top - k]
+// w_k, k ascending (k8t_interior's order)
+template <typename T, int Q>
+__device__ __forceinline__ void k8t_window(T (&acc)[Q], const T* x, int s,
+                                           int top0, const T* w, int L) {
+  T v[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) v[q] = x[(top0 + q) * s];
+  const T w0 = w[0];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) acc[q] = v[q] * w0;
+  const T* down = x + top0 * s;
+  for (int k = 1; k < L; ++k) {
+#pragma unroll
+    for (int q = Q - 1; q > 0; --q) v[q] = v[q - 1];
+    v[0] = down[-k * s];
+    const T wk = w[k];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[q] = acc[q] + v[q] * wk;
+  }
+}
+
+// K8T, tile route: block b stages tile b's W lines of g (line_tile.cuh),
+// the taps and the edge table in shared memory with all ED_K8T_THREADS
+// threads, then computes every output of its lines from there: thread (w,
+// r) walks segment r of line w (R = ED_K8T_THREADS / W threads a line), Q
+// outputs at a time from a register window on the plain run, one at a time
+// at the edges. A warp's threads take consecutive lines at one position,
+// so their branches agree and their shared-memory loads fall in distinct
+// banks (the tile's strides). On column tiles (inner >= W) their stores
+// are consecutive too; on packed ones (whole outers, inner < W) they lie a
+// line apart, so where a second tile fits (gather) the outputs gather there
+// and the block stores them as one run. At most 4 blocks' worth of
+// registers per SM are asked for (64 a thread).
+template <typename T, int W>
+__global__ void __launch_bounds__(ED_K8T_THREADS, 4)
+correlate1d_transpose_tile_kernel(const T* __restrict__ g,
+                                  T* __restrict__ out,
+                                  const T* __restrict__ w,
+                                  const int* __restrict__ table,
+                                  const Line p, const Tile t,
+                                  const K8tEdges e) {
+  constexpr int R = ED_K8T_THREADS / W;
+  constexpr int Q = ED_K8T_WINDOW;
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  T* tile = reinterpret_cast<T*>(ed_smem);
+  const int n = (int)p.n;
+  const int tid = threadIdx.x;
+  const int lw = tid % W, lr = tid / W;
+  const TileSpan sp = tile_span<W>(t, blockIdx.x, p.outer, p.n, p.inner, lw);
+  // packed, the outputs may gather in a second tile, stored as one run
+  const int cells = (t.packed ? t.lines / (int)p.inner : n) * t.stride;
+  T* obuf = tile + cells;
+  T* tw = tile + (e.gather ? 2 : 1) * cells;
+  int* eptr = reinterpret_cast<int*>(tw + p.taps);
+  const int* epos = eptr + e.rows + 1;
+  stage_tile<T, W, R>(tile, g, t, sp, n, p.inner, lw, lr);
+  for (int k = tid; k < p.taps; k += ED_K8T_THREADS) tw[k] = w[k];
+  for (int k = tid; k < e.rows + 1 + e.npos; k += ED_K8T_THREADS)
+    eptr[k] = table[k];
+  stage_wait();
+  __syncthreads();
+  if (lw < sp.width) {
+    // line lw: element k at x[k * s] in the tile, output k at dst[k * ds]
+    const T* x;
+    T* dst;
+    int s;
+    int64_t ds;
+    if (t.packed) {
+      const int inner = (int)p.inner, ol = lw / inner, ri = lw - ol * inner;
+      x = tile + ol * t.stride + ri;
+      dst = e.gather ? obuf + ol * t.stride + ri
+                     : out + sp.first + (int64_t)ol * n * inner + ri;
+      s = inner;
+      ds = inner;
+    } else {
+      x = tile + lw;
+      dst = out + sp.first;
+      s = t.stride;
+      ds = p.inner;
+    }
+    const int L = p.taps, c = p.center;
+    const int seg = (n + R - 1) / R;
+    int j = lr * seg;
+    const int j1 = j + seg < n ? j + seg : n;
+    const int b = j1 < e.b ? j1 : e.b;
+    while (j < j1) {
+      if (j >= e.a && j + Q <= b) {
+        T acc[Q];
+        k8t_window<T, Q>(acc, x, s, j + c, tw, L);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) dst[(j + q) * ds] = acc[q];
+        j += Q;
+      } else {
+        dst[j * ds] = k8t_output(x, s, j, n, L, c, tw, e, eptr, epos);
+        ++j;
+      }
+    }
+  }
+  if (e.gather) {
+    __syncthreads();
+    T* o = out + sp.first;
+    packed_walk<ED_K8T_THREADS>(t, n * (int)p.inner, sp.outers, tid,
+                                [&](int q, int sh) { o[q] = obuf[sh]; });
+  }
 }
 
 struct Nd {
@@ -604,6 +776,47 @@ cudaError_t launch_line_transpose(const void* g, void* out, const void* w,
   return cudaGetLastError();
 }
 
+// the shared memory a block may use on the H100 (227 KB)
+constexpr int kSmemLimit = 232448;
+
+template <typename T, int W>
+cudaError_t launch_k8t_tile_w(const void* g, void* out, const void* w,
+                              const int* table, const Line& p, const Tile& t,
+                              const K8tEdges& e, int smem, unsigned blocks,
+                              cudaStream_t s) {
+  auto kern = correlate1d_transpose_tile_kernel<T, W>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch is refused unless the kernel asks for it
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<blocks, ED_K8T_THREADS, (size_t)smem, s>>>(
+      static_cast<const T*>(g), static_cast<T*>(out),
+      static_cast<const T*>(w), table, p, t, e);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_k8t_tile(int width, const void* g, void* out,
+                            const void* w, const int* table, const Line& p,
+                            const Tile& t, const K8tEdges& e, int smem,
+                            unsigned blocks, cudaStream_t s) {
+  switch (width) {
+    case 32:
+      return launch_k8t_tile_w<T, 32>(g, out, w, table, p, t, e, smem,
+                                      blocks, s);
+    case 64:
+      return launch_k8t_tile_w<T, 64>(g, out, w, table, p, t, e, smem,
+                                      blocks, s);
+    case 128:
+      return launch_k8t_tile_w<T, 128>(g, out, w, table, p, t, e, smem,
+                                       blocks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_nd(bool transpose, const void* x, void* out, const void* w,
                       const int* off, const int64_t* delta, const int* ptr,
@@ -621,9 +834,6 @@ cudaError_t launch_nd(bool transpose, const void* x, void* out, const void* w,
         static_cast<const T*>(w), off, delta, p);
   return cudaGetLastError();
 }
-
-// the shared memory a block may use on the H100 (227 KB)
-constexpr int kSmemLimit = 232448;
 
 template <typename T, int C, bool FOLD>
 cudaError_t launch_nd_tile_c(const void* g, void* out, const void* w,
@@ -730,6 +940,59 @@ int ed_correlate1d_transpose(int dtype, const void* g, void* out,
       dtype == 0   ? launch_line_transpose<float>(g, out, w, pt, ps, p, s)
       : dtype == 1 ? launch_line_transpose<double>(g, out, w, pt, ps, p, s)
                    : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K8T on the tile route, with the plan of
+// ops/filters.py:_line_transpose_plan: width W threads and lines a block,
+// packed (inner < W), lines of a full tile, shared row stride, the tile's
+// own shared bytes (tile_smem), blocks (ops/prefilter.py:_tile_plan's
+// geometry), and smem, the block's shared bytes: the tile (twice with
+// gather, a packed tile whose outputs gather in a second one), the taps in
+// g's dtype and the edge table's rows + 1 + npos int32 entries. w (taps) and
+// table (device, int32): the plain range [a, b) and the fold lists of the
+// other rows (ops/filters.py:_k8t_edges). A plan that does not fit the
+// shape is refused with cudaErrorInvalidValue. g and out must not overlap.
+// Returns cudaGetLastError().
+int ed_correlate1d_transpose_tile(
+    int dtype, const void* g, void* out, const void* w, const void* table,
+    long long outer, long long n, long long inner, int taps, int center,
+    int a, int b, int rows, int npos, int gather, int width, int packed,
+    int lines, int stride, int tile_smem, int smem, long long blocks,
+    void* stream) {
+  if (outer * n * inner == 0) return (int)cudaSuccess;
+  const int itemsize = dtype == 0 ? 4 : dtype == 1 ? 8 : 0;
+  Tile t;
+  if (itemsize == 0 || taps < 1 || center < 0 || center >= taps || a < 0 ||
+      a > b || b > n || rows != n - (b - a) || npos < rows ||
+      (gather && !packed) ||
+      outer * n * inner > INT32_MAX ||
+      !make_tile(&t, itemsize, outer, n, inner, width, packed, lines, stride,
+                 tile_smem, blocks, kSmemLimit) ||
+      (int64_t)smem != (gather ? 2 : 1) * (int64_t)tile_smem +
+                           (int64_t)taps * itemsize +
+                           4 * ((int64_t)rows + 1 + npos) ||
+      smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  const Line p = make_line(outer, n, inner, taps, center, F_CONSTANT, 0, 0.0);
+  if (t.packed) {
+    // the block's threads walk the packed run together
+    t.dol = (int)(ED_K8T_THREADS / (n * inner));
+    t.dr = (int)(ED_K8T_THREADS % (n * inner));
+  }
+  K8tEdges e;
+  e.a = a;
+  e.b = b;
+  e.rows = rows;
+  e.npos = npos;
+  e.gather = gather;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(table);
+  cudaError_t err =
+      dtype == 0 ? launch_k8t_tile<float>(width, g, out, w, tb, p, t, e, smem,
+                                          (unsigned)blocks, s)
+                 : launch_k8t_tile<double>(width, g, out, w, tb, p, t, e,
+                                           smem, (unsigned)blocks, s);
   return (int)err;
 }
 

@@ -20,10 +20,15 @@
 // rank-th smallest footprint tap. Up to 64 taps it runs the same pruned
 // Batcher comparator list (_rank_network, built on the host) over wires padded
 // at the type's largest value, each comparator a NaN-propagating min/max pair,
-// so a window holding a NaN gives NaN; above 64 taps a per-thread radix
-// select over order-preserving keys orders NaN last and -0 as +0, and picks
-// among equal keys in tap order, as the stable sort does. The cap is kept
-// because it decides the NaN result.
+// so a window holding a NaN gives NaN; above 64 taps a radix select over
+// order-preserving keys orders NaN last and -0 as +0, and picks among equal
+// keys in tap order, as the stable sort does. The cap is kept because it
+// decides the NaN result. The select takes one of two routes, picked on the
+// host by ops/morphology.py:_rank_plan: tile (extent > 1 on at most three
+// axes, a box within the shared-memory budget: rank_select_tile_kernel
+// stages a tile's halo box of keys and values once and selects from shared
+// memory, several key bits a pass) and nd (rank_select_kernel, one thread
+// per voxel reading device memory at every bit, for the rest).
 //
 // K13 replaces morphology.py:452-515, _binary_step under fori_loop /
 // while_loop: one AND (erosion) or OR (dilation) sweep of a boolean array over
@@ -89,32 +94,40 @@
 #define ED_BIN_MAX_TAPS 1024
 #define ED_BIN_MAX_SWEEPS 8
 #define ED_SMEM_LIMIT 232448
+// K12's select route on a halo box: blocks of ED_RANK_TY x ED_RANK_TX
+// threads, each with a column of C voxels along tile axis 0; key bits
+// resolved a pass (the fastest of 1-4 at c15's shapes on an H100)
+#define ED_RANK_TY 8
+#define ED_RANK_TX 32
+#define ED_RANK_BITS 2
 
 namespace {
 
 enum { F_NEAREST = 0, F_WRAP = 1, F_REFLECT = 2, F_MIRROR = 3, F_CONSTANT = 4 };
 
 // index j folded into [0, n) by the filter mode (ops/filters.py
-// _fold_index); -1 for a sample beyond the edge in constant mode
-__device__ __forceinline__ int64_t fold(int64_t j, int64_t n, int mode) {
+// _fold_index); -1 for a sample beyond the edge in constant mode. I is
+// int64_t, or int where j and 2n lie within int32 (the tile route's box)
+template <typename I>
+__device__ __forceinline__ I fold(I j, I n, int mode) {
   if (j >= 0 && j < n) return j;
   switch (mode) {
     case F_NEAREST:
       return j < 0 ? 0 : n - 1;
     case F_WRAP: {
-      const int64_t m = j % n;
+      const I m = j % n;
       return m < 0 ? m + n : m;
     }
     case F_REFLECT: {
-      const int64_t per = 2 * n;
-      int64_t m = j % per;
+      const I per = 2 * n;
+      I m = j % per;
       if (m < 0) m += per;
       return m < n ? m : per - 1 - m;
     }
     case F_MIRROR: {
       if (n == 1) return 0;
-      const int64_t per = 2 * n - 2;
-      int64_t m = j % per;
+      const I per = 2 * n - 2;
+      I m = j % per;
       if (m < 0) m += per;
       return m < n ? m : per - m;
     }
@@ -217,7 +230,7 @@ min_max_1d_kernel(const T* __restrict__ x, T* __restrict__ out, const Line p,
     for (int k = 1; k < p.size; ++k) acc = pick<MIN>(acc, base[k * s]);
   } else {
     for (int k = 0; k < p.size; ++k) {
-      const int64_t f = fold(j0 + k, p.n, p.mode);
+      const int64_t f = fold<int64_t>(j0 + k, p.n, p.mode);
       const T v = f < 0 ? cval : line[f * s];
       acc = k == 0 ? v : pick<MIN>(acc, v);
     }
@@ -270,7 +283,8 @@ __device__ __forceinline__ int64_t tap_address(
 #pragma unroll
   for (int d = 0; d < ED_MORPH_MAXR; ++d) {
     if (d < p.ndim) {
-      const int64_t f = fold(idx[d] + off[t * p.ndim + d], p.n[d], p.mode);
+      const int64_t f =
+          fold<int64_t>(idx[d] + off[t * p.ndim + d], p.n[d], p.mode);
       if (f < 0) return -1;
       a += f * p.stride[d];
     }
@@ -438,6 +452,239 @@ rank_select_kernel(const T* __restrict__ x, T* __restrict__ out,
       return;
     }
   }
+}
+
+// the highest set bit of v != 0
+__device__ __forceinline__ int top_bit(uint32_t v) {
+  return 31 - __clz((int)v);
+}
+__device__ __forceinline__ int top_bit(uint64_t v) {
+  return 63 - __clzll((long long)v);
+}
+
+// The select route's tile geometry (ops/morphology.py:_rank_plan): three
+// tile axes, each an axis of the footprint, a batch axis or an extent of 1,
+// and the batch axes the grid walks.
+struct RankTile {
+  int n[3];      // extents of the tile axes
+  int st[3];     // their element strides within a sample
+  int c[3];      // the footprint's centre along each (0 on a batch axis)
+  int box[3];    // the halo box: tile extent + footprint extent - 1
+  int tiles[3];  // tiles along each axis
+  int taps, rank, mode;
+  int nb;                       // batch axes walked by the grid
+  int bn[ED_MORPH_MAXR];        // their extents
+  int64_t bst[ED_MORPH_MAXR];   // and strides
+};
+
+// K12's select route on a halo box: block (batch, tile) stages the tile's
+// box of keys (Key<T>::of, once per element) and raw values, the array
+// folded at its edges or cval in constant mode, exactly as tap_value reads
+// them, and the footprint's taps as int32 offsets into the box in raster
+// order; thread (y, x) then selects the rank-th smallest key of each of its
+// C voxels (c, y, x) from shared memory only. A first pass takes the AND
+// and OR of a voxel's keys: their common leading bits are the answer's, and
+// equal keys everywhere leave only the pick. Each further pass resolves the
+// next ED_RANK_BITS bits: it counts, among the taps whose key matches the
+// prefix so far, each value of the digit, in 8-bit fields packed in one
+// register (c += 1 << 8 * digit; the top digit's count is what the others
+// leave)
+// and flushed to wide counters every 255 taps; the rank's digit joins the
+// prefix. A voxel stops when one key is left or the key is whole. What is
+// left of the rank then picks among the taps of the winning key (or of the
+// one key left) in tap order, as the stable sort and rank_select_kernel
+// do, so a zero keeps its sign and a NaN its bits.
+template <typename T, int C>
+__global__ void __launch_bounds__(ED_RANK_TY * ED_RANK_TX, 2)
+rank_select_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
+                        const int* __restrict__ toff_g, const RankTile p,
+                        const T cval) {
+  typedef typename Key<T>::K K;
+  typedef typename std::conditional<sizeof(K) == 8, uint64_t, uint32_t>::type
+      U;
+  constexpr int B = ED_RANK_BITS;
+  constexpr int ND = 1 << B;  // digit values, an 8-bit count each
+  static_assert(ND <= 4, "the digit counts fill one 32-bit register");
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  const int P1 = p.box[2], P0 = p.box[1] * p.box[2];
+  const int cells = p.box[0] * P0;
+  K* keys = reinterpret_cast<K*>(ed_smem);
+  T* raw = reinterpret_cast<T*>(ed_smem + (size_t)cells * sizeof(K));
+  int* toff = reinterpret_cast<int*>(
+      ed_smem + ((2 * (size_t)cells * sizeof(K) + 3) & ~(size_t)3));
+  // the block's tile (q0, q1, q2) and batch index, without 64-bit division
+  unsigned rest = blockIdx.x;
+  const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
+  unsigned bi = rest / per;
+  rest -= bi * per;
+  const int q2 = (int)(rest % (unsigned)p.tiles[2]);
+  rest /= (unsigned)p.tiles[2];
+  const int q1 = (int)(rest % (unsigned)p.tiles[1]);
+  const int q0 = (int)(rest / (unsigned)p.tiles[1]);
+  int64_t base = 0;
+#pragma unroll
+  for (int a = ED_MORPH_MAXR - 1; a >= 0; --a) {
+    if (a < p.nb) {
+      const unsigned e = bi % (unsigned)p.bn[a];
+      bi /= (unsigned)p.bn[a];
+      base += (int64_t)e * p.bst[a];
+    }
+  }
+  const T* xs = x + base;
+  const int s0 = q0 * C, s1 = q1 * ED_RANK_TY, s2 = q2 * ED_RANK_TX;
+  // box element (b0, b1, b2) holds array element (s - c + b), folded; a
+  // warp a row, its lanes along tile axis 2
+  const int rows = p.box[0] * p.box[1];
+  for (int r = threadIdx.y; r < rows; r += ED_RANK_TY) {
+    const int b0 = r / p.box[1];
+    const int f0 = fold<int>(s0 - p.c[0] + b0, p.n[0], p.mode);
+    const int f1 =
+        fold<int>(s1 - p.c[1] + r - b0 * p.box[1], p.n[1], p.mode);
+    const bool row_in = f0 >= 0 && f1 >= 0;
+    const T* src = xs + (row_in ? f0 * p.st[0] + f1 * p.st[1] : 0);
+    for (int b2 = threadIdx.x; b2 < P1; b2 += ED_RANK_TX) {
+      const int f2 = fold<int>(s2 - p.c[2] + b2, p.n[2], p.mode);
+      const T v = row_in && f2 >= 0 ? src[f2 * p.st[2]] : cval;
+      keys[r * P1 + b2] = Key<T>::of(v);
+      raw[r * P1 + b2] = v;
+    }
+  }
+  const int tid = threadIdx.y * ED_RANK_TX + threadIdx.x;
+  for (int t = tid; t < p.taps; t += ED_RANK_TY * ED_RANK_TX)
+    toff[t] = toff_g[t];
+  __syncthreads();
+
+  const int at = threadIdx.y * P1 + threadIdx.x;  // voxel c at at + c * P0
+  // the common leading bits of each voxel's keys
+  U lo_and[C], hi_or[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lo_and[c] = ~(U)0;
+    hi_or[c] = 0;
+  }
+  for (int t = 0; t < p.taps; ++t) {
+    const K* kp = keys + at + toff[t];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const U k = kp[c * P0];
+      lo_and[c] &= k;
+      hi_or[c] |= k;
+    }
+  }
+  // per voxel: the key's bits from `lo` up are `prefix`; m keys match it,
+  // and the answer is the r-th of them (from 0)
+  U prefix[C];
+  int r[C], m[C], lo[C];
+  bool live[C];
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const U diff = lo_and[c] ^ hi_or[c];
+    r[c] = p.rank;
+    m[c] = p.taps;
+    if (diff == 0) {
+      prefix[c] = lo_and[c];
+      lo[c] = 0;
+      live[c] = false;
+    } else {
+      const int hb = top_bit(diff);
+      const U above = hb + 1 < 8 * (int)sizeof(U) ? ~(U)0 << (hb + 1) : 0;
+      prefix[c] = lo_and[c] & above;
+      lo[c] = hb + 1;
+      live[c] = true;
+      any = true;
+    }
+  }
+  while (any) {
+    // this pass's digit: bits [ls, lo) of a key whose bits from lo up
+    // match the prefix (x = key ^ prefix: x >> hs <= 1)
+    int hs[C], ls[C];
+    unsigned wide[C][ND - 1];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      hs[c] = lo[c] > 0 ? lo[c] - 1 : 0;
+      ls[c] = lo[c] > B ? lo[c] - B : 0;
+#pragma unroll
+      for (int f = 0; f < ND - 1; ++f) wide[c][f] = 0;
+    }
+    for (int t0 = 0; t0 < p.taps; t0 += 255) {
+      const int t1 = t0 + 255 < p.taps ? t0 + 255 : p.taps;
+      unsigned cnt[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) cnt[c] = 0;
+      for (int t = t0; t < t1; ++t) {
+        const K* kp = keys + at + toff[t];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const U xk = (U)kp[c * P0] ^ prefix[c];
+          const unsigned d = (unsigned)(xk >> ls[c]) & (ND - 1);
+          const bool match = (xk >> hs[c]) <= 1;
+          cnt[c] += match ? 1u << (d << 3) : 0u;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int f = 0; f < ND - 1; ++f)
+          wide[c][f] += (cnt[c] >> (f << 3)) & 255u;
+    }
+    any = false;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (!live[c]) continue;
+      int d = ND - 1, below = 0, mm = 0;
+#pragma unroll
+      for (int f = 0; f < ND - 1; ++f) {
+        if (d == ND - 1) {
+          if (r[c] < below + (int)wide[c][f]) {
+            d = f;
+            mm = (int)wide[c][f];
+          } else {
+            below += (int)wide[c][f];
+          }
+        }
+      }
+      if (d == ND - 1) mm = m[c] - below;
+      r[c] -= below;
+      m[c] = mm;
+      prefix[c] |= (U)d << ls[c];
+      lo[c] = ls[c];
+      live[c] = mm > 1 && ls[c] > 0;
+      any = any || live[c];
+    }
+  }
+  // the pick: the r-th tap, in tap order, whose key matches the prefix in
+  // its bits from lo up
+  U mask[C];
+  T res[C];
+  int left = C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    mask[c] = lo[c] > 0 ? ((U)1 << lo[c]) - 1 : 0;
+    live[c] = true;
+    res[c] = cval;
+  }
+  for (int t = 0; t < p.taps && left > 0; ++t) {
+    const int o = at + toff[t];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (live[c] && ((U)keys[o + c * P0] ^ prefix[c]) <= mask[c]) {
+        if (r[c] == 0) {
+          res[c] = raw[o + c * P0];
+          live[c] = false;
+          --left;
+        } else {
+          --r[c];
+        }
+      }
+    }
+  }
+  const int j1 = s1 + threadIdx.y, j2 = s2 + threadIdx.x;
+  if (j1 >= p.n[1] || j2 >= p.n[2]) return;
+  T* os = out + base + j1 * p.st[1] + j2 * p.st[2];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (s0 + c < p.n[0]) os[(s0 + c) * p.st[0]] = res[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -830,6 +1077,34 @@ cudaError_t allow_smem(K kernel, int* allowed, int bytes) {
   return err;
 }
 
+template <typename T, int C>
+cudaError_t launch_rank_tile_c(const void* x, void* out, const int* toff,
+                               const RankTile& p, long long cval_bits,
+                               int smem, unsigned blocks, cudaStream_t s) {
+  static int allowed = 0;
+  auto kern = rank_select_tile_kernel<T, C>;
+  const cudaError_t err = allow_smem(kern, &allowed, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, dim3(ED_RANK_TX, ED_RANK_TY), (size_t)smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), toff, p,
+      from_bits<T>(cval_bits));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rank_tile(int column, const void* x, void* out,
+                             const int* toff, const RankTile& p,
+                             long long cval_bits, int smem, unsigned blocks,
+                             cudaStream_t s) {
+  if (column == 1)
+    return launch_rank_tile_c<T, 1>(x, out, toff, p, cval_bits, smem, blocks,
+                                    s);
+  if (column == 4)
+    return launch_rank_tile_c<T, 4>(x, out, toff, p, cval_bits, smem, blocks,
+                                    s);
+  return cudaErrorInvalidValue;
+}
+
 template <bool DIL, bool BYTES>
 cudaError_t launch_tile(const void* x, void* out, const void* mask,
                         const int* taps, const BinTile& p, unsigned border,
@@ -969,6 +1244,64 @@ int ed_rank_filter(int dtype, const void* x, void* out, const void* off,
   const uint8_t* pr = static_cast<const uint8_t*>(pairs);
   ED_DISPATCH(dtype, launch_rank<T>(x, out, of, de, pr, npairs, wires, rank,
                                     p, cval_bits, pad_bits, s))
+}
+
+// K12's select route on a halo box, with the plan of
+// ops/morphology.py:_rank_plan. Host arrays: per tile axis (3) its extent
+// n3, element stride st3, footprint extent k3 and centre c3; the nb batch
+// axes the grid walks, extents bn and strides bst. Device: toff[taps], each
+// tap's offset into the box, in raster order. column: C, the voxels a
+// thread keeps along tile axis 0 (1 or 4); smem: the plan's shared bytes,
+// at least the box's keys and values and the taps; blocks: the tiles times
+// the batch. cval_bits: cval in x's type. A plan that does not fit the
+// shapes is refused with cudaErrorInvalidValue. x and out must not overlap.
+// Returns cudaGetLastError().
+int ed_rank_select_tile(int dtype, int column, const void* x, void* out,
+                        const void* toff, const int* n3,
+                        const long long* st3, const int* k3, const int* c3,
+                        int nb, const long long* bn, const long long* bst,
+                        int taps, int rank, int mode, long long cval_bits,
+                        int smem, long long blocks, void* stream) {
+  static const int itemsize[11] = {1, 1, 1, 2, 2, 4, 4, 8, 8, 4, 8};
+  if (dtype < 0 || dtype > 10 || taps < 1 || rank < 0 || rank >= taps ||
+      mode < 0 || mode > 4 || nb < 0 || nb > ED_MORPH_MAXR ||
+      (column != 1 && column != 4))
+    return (int)cudaErrorInvalidValue;
+  const int tile[3] = {column, ED_RANK_TY, ED_RANK_TX};
+  RankTile p;
+  p.taps = taps;
+  p.rank = rank;
+  p.mode = mode;
+  p.nb = nb;
+  int64_t span = 0, count = 1, cells = 1;
+  for (int d = 0; d < 3; ++d) {
+    if (n3[d] < 1 || st3[d] < 0 || k3[d] < 1 || c3[d] < 0 || c3[d] >= k3[d])
+      return (int)cudaErrorInvalidValue;
+    p.n[d] = n3[d];
+    p.st[d] = n3[d] > 1 ? (int)st3[d] : 0;  // (within int32: span below)
+    p.c[d] = c3[d];
+    p.box[d] = tile[d] + k3[d] - 1;
+    p.tiles[d] = (n3[d] + tile[d] - 1) / tile[d];
+    span += (int64_t)(n3[d] - 1) * st3[d];
+    count *= p.tiles[d];
+    cells *= p.box[d];
+  }
+  for (int a = 0; a < ED_MORPH_MAXR; ++a) {
+    p.bn[a] = a < nb ? (int)bn[a] : 1;
+    p.bst[a] = a < nb ? bst[a] : 0;
+    if (a < nb && (bn[a] < 1 || bn[a] > INT32_MAX))
+      return (int)cudaErrorInvalidValue;
+    count *= p.bn[a];
+  }
+  const int64_t need =
+      ((2 * cells * itemsize[dtype] + 3) & ~(int64_t)3) + 4 * (int64_t)taps;
+  if (span > INT32_MAX || cells > INT32_MAX || count != blocks ||
+      blocks > INT32_MAX || smem < need || smem > ED_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* to = static_cast<const int*>(toff);
+  ED_DISPATCH(dtype, launch_rank_tile<T>(column, x, out, to, p, cval_bits,
+                                         smem, (unsigned)blocks, s))
 }
 
 // K13 on contiguous bool tensors, geometry as ed_min_max_filter (taps may be

@@ -59,8 +59,9 @@
 // K2, K4, K6 and K7 take one of two routes, picked on the host by
 // ops/prefilter.py:_tile_plan from (outer, n, inner, dtype):
 //
-// * tile (every line that fits): a block stages W whole lines (W = 32, 64
-//   or 128) in shared memory, runs the recursion there with thread w on
+// * tile (every line that fits; the tile's geometry and staging are in
+//   line_tile.cuh, shared with K8T): a block stages W whole lines (W = 32,
+//   64 or 128) in shared memory, runs the recursion there with thread w on
 //   line w, and stores the lines back: one read and one write of each
 //   element in device memory. When inner >= W, a tile is W consecutive i
 //   of one o: row k is W contiguous elements, kept as row k of the shared
@@ -114,6 +115,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "line_tile.cuh"
 
 #define ED_MAXPOLES 2
 
@@ -705,38 +707,6 @@ prefilter_bc_transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
   for (int64_t k = 0; k < n; ++k) x[k * s] = x[k * s] * gain;
 }
 
-// The tile route's geometry (ops/prefilter.py:_tile_plan).
-struct Tile {
-  int packed;     // 1: inner < W, a tile is whole outers, one run of memory
-  int lines;      // lines of a full tile: W, or inner * floor(W / inner)
-  // shared-memory stride in elements: of a row k (odd), or, packed, of an
-  // outer's run of n * inner elements (congruent to inner modulo 32)
-  int stride;
-  int64_t col_tiles;  // not packed: tiles per outer, ceil(inner / W)
-  // packed: a thread walks the run in steps of W elements, W = dol outers
-  // + dr elements, as (outer, offset in its run) with a carry
-  int dol, dr;
-};
-
-// Calls f(global offset from base, shared offset) for each element of a
-// packed tile that thread w moves: elements w, w + W, ... of the run of
-// `outers` whole outers, (outer, offset in its run) carried without
-// divisions.
-template <int W, typename F>
-__device__ __forceinline__ void packed_walk(const Tile& t, int run,
-                                            int outers, int w, F f) {
-  const int elems = outers * run;
-  int ol = w / run;
-  int r = w - ol * run;
-  for (int e = w; e < elems; e += W) {
-    f(e, ol * t.stride + r);
-    r += t.dr;
-    const int wrap = r >= run;
-    r -= wrap ? run : 0;
-    ol += t.dol + wrap;
-  }
-}
-
 // K2 (KIND TILE_K2), K4 (TILE_K4), K6 (TILE_K6_REFLECT or TILE_K6_WRAP)
 // and K7 (BC_REFLECT or BC_WRAP), tile route: stage W lines in shared
 // memory, run the stages there and store them: K2 and K6 raw (their stages
@@ -765,35 +735,11 @@ prefilter_tile_kernel(const T* __restrict__ in, T* __restrict__ out,
                        KIND == TILE_K6_WRAP;
   const bool filter = n > 1 && p.npoles > 0 && !raw;
   const T gain = T(p.gain);
-  // packed: the run of `outers` whole outers from offset `first`; column:
-  // line w of the tile's `width` lines starts at offset `first`
+  const TileSpan sp = tile_span<W>(t, tile_id, p.outer, p.n, p.inner, w);
+  const int64_t first = sp.first;
+  const int outers = sp.outers, width = sp.width;
   const int inner = t.packed ? (int)p.inner : 0;
-  int64_t first;
-  int outers = 0, width;
-  if (t.packed) {
-    const int64_t g = t.lines / inner;
-    const int64_t o0 = tile_id * g;
-    const int64_t left = p.outer - o0;
-    outers = (int)(left < g ? left : g);
-    width = outers * inner;
-    first = o0 * p.n * inner;
-  } else {
-    const int64_t o = tile_id / t.col_tiles;
-    const int64_t c0 = (tile_id - o * t.col_tiles) * W;
-    const int64_t left = p.inner - c0;
-    width = (int)(left < W ? left : W);
-    first = o * p.n * p.inner + c0 + w;
-  }
-
-  if (t.packed) {
-    const T* src = in + first;
-    packed_walk<W>(t, n * inner, outers, w,
-                   [&](int e, int sh) { stage_async(tile + sh, src + e); });
-  } else if (w < width) {
-    const T* src = in + first;
-    for (int k = 0; k < n; ++k, src += p.inner)
-      stage_async(tile + k * t.stride + w, src);
-  }
+  stage_tile<T, W>(tile, in, t, sp, n, p.inner, w);
   stage_wait();
   __syncthreads();
   // line w: element k at x[k * s]
@@ -975,36 +921,6 @@ cudaError_t launch_tile(int dtype, int kind, int width, const void* in,
   return cudaErrorInvalidValue;
 }
 
-// Checks a tile plan against the shape and fills in what the kernel walks
-// by; false when the plan does not fit the shape or the card.
-bool make_tile(Tile* t, int itemsize, int64_t outer, int64_t n,
-               int64_t inner, int width, int packed, int lines, int stride,
-               int smem, int64_t blocks) {
-  if (width != 32 && width != 64 && width != 128) return false;
-  if (n < 1 || outer < 1 || inner < 1 || smem > kSmemLimit) return false;
-  t->packed = packed;
-  t->lines = lines;
-  t->stride = stride;
-  t->col_tiles = (inner + width - 1) / width;
-  int64_t want;
-  if (packed) {
-    const int64_t run = n * inner, g = width / inner;
-    if (inner >= width || lines != inner * g || stride < run ||
-        stride % 32 != inner % 32 || g * stride * itemsize != smem)
-      return false;
-    t->dol = (int)(width / run);
-    t->dr = (int)(width % run);
-    want = (outer + g - 1) / g;
-  } else {
-    if (inner < width || lines != width || stride < lines ||
-        stride % 2 == 0 || (int64_t)stride * n * itemsize != smem)
-      return false;
-    t->dol = t->dr = 0;
-    want = outer * t->col_tiles;
-  }
-  return blocks == want && blocks <= 0x7fffffffLL;
-}
-
 bool make_params(Params* p, long long outer, long long n, long long inner,
                  int npoles, const double* poles, const int* horizons,
                  const double* pn1, const double* denom, double gain) {
@@ -1113,7 +1029,7 @@ int ed_spline_prefilter_tile(
       !make_params(&p, outer, n, inner, npoles, poles, horizons, pn1, denom,
                    gain) ||
       !make_tile(&t, itemsize, outer, n, inner, width, packed, lines, stride,
-                 smem, blocks))
+                 smem, blocks, kSmemLimit))
     return (int)cudaErrorInvalidValue;
   return (int)launch_tile(dtype, kind, width, in, out, p, t, smem, blocks,
                           static_cast<cudaStream_t>(stream), nullptr);
@@ -1149,7 +1065,7 @@ int ed_spline_prefilter_writeback(
                               : cudaErrorInvalidValue);
   Tile t;
   if (!make_tile(&t, dtype == 0 ? 4 : 8, outer, n, inner, width, packed,
-                 lines, stride, smem, blocks) ||
+                 lines, stride, smem, blocks, kSmemLimit) ||
       blocks * row_groups > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   return (int)launch_tile(dtype, TILE_K2_WRITEBACK, width, in, out, p, t,

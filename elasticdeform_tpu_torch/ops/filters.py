@@ -14,7 +14,12 @@ correlation a stack of such matrices; here they are stencils:
 * :func:`correlate1d_transpose` is the wrapper of kernel K8T, the
   transpose: the correlation with the flipped taps into the padded extent,
   then each pad folded back onto the line (constant-mode pads dropped).
-  Plain version :func:`correlate1d_transpose_plain`.
+  Plain version :func:`correlate1d_transpose_plain`. Two routes, which
+  :func:`_line_transpose_plan` picks: ``"tile"`` stages W whole lines in
+  shared memory (K4's line tile, ``prefilter._tile_plan``) with the taps
+  and an edge table of fold lists (:func:`_k8t_edges`), ``"lines"`` runs
+  one thread per output in device memory (lines past the tile, tensors of
+  2^31 elements or more); both sum in one order, bit for bit.
 * :func:`correlate_nd` (K9) and :func:`correlate_nd_transpose` (K9T): the
   same for an N-D kernel, over its nonzero taps in raster order, with the
   fold on every axis. Axes where the kernel has extent 1 are batch axes;
@@ -27,12 +32,14 @@ correlation a stack of such matrices; here they are stencils:
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches its kernel (contiguous float32 or float64) or raises, and adds one
-to its ``.launches`` counter (K9T also to its route's count in
-``.routes``). :class:`Correlate1d` and :class:`CorrelateNd`
-are the autograd functions (gradient to ``x`` only: the taps and ``cval``
-are host constants, as in the JAX package). The ``apply_*`` functions are
-the JAX package's, on tensors; the numpy helpers (kernels, folds, dense
-filter matrices for the tests) are this package's own copies.
+to its ``.launches`` counter (K8T and K9T also to their route's count in
+``.routes``); the taps, fold lists and tables go to the card once per
+kernel, shape and device (``_k8t_tables``, ``_nd_tile_tables``).
+:class:`Correlate1d` and :class:`CorrelateNd` are the autograd functions
+(gradient to ``x`` only: the taps and ``cval`` are host constants, as in the
+JAX package). The ``apply_*`` functions are the JAX package's, on tensors;
+the numpy helpers (kernels, folds, dense filter matrices for the tests) are
+this package's own copies.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from elasticdeform_tpu_torch.ops import _build
+from elasticdeform_tpu_torch.ops import prefilter as _pf
 from elasticdeform_tpu_torch.ops.prefilter import SMEM_LIMIT, _lines
 from elasticdeform_tpu_torch.ops.resample import check_kernel_tensor
 
@@ -394,6 +402,9 @@ def _lib():
         fn = lib.ed_correlate1d_transpose
         fn.restype = i
         fn.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, ll, i, i, vp]
+        fn = lib.ed_correlate1d_transpose_tile
+        fn.restype = i
+        fn.argtypes = [i, vp, vp, vp, vp, ll, ll, ll] + [i] * 13 + [ll, vp]
         fn = lib.ed_correlate_nd
         fn.restype = i
         fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, i,
@@ -454,36 +465,197 @@ def correlate1d(x: torch.Tensor, weights, axis: int, mode: str, cval,
 correlate1d.launches = 0
 
 
-def correlate1d_transpose(g: torch.Tensor, weights, axis: int, mode: str,
-                          center: int) -> torch.Tensor:
-    """The exact transpose of :func:`correlate1d` (either order) along
-    ``axis``. A CPU tensor takes :func:`correlate1d_transpose_plain`; a
-    CUDA tensor launches K8T and adds one to
-    ``correlate1d_transpose.launches``."""
-    axis = axis % g.dim()
-    if g.device.type == "cpu":
-        return correlate1d_transpose_plain(g, weights, axis, mode, center)
-    check_kernel_tensor(g, "correlate1d_transpose")
+class K8tEdges(NamedTuple):
+    """K8T's tile-route view of a line's fold lists: positions ``[a, b)``
+    are plain (fold list ``[j]``, every tap inside the line: the lines
+    route's interior branch); the ``rows`` others, ``j < a`` then ``j >=
+    b``, keep their fold lists in ``table``, int32 CSR arrays (``rows + 1``
+    offsets, then ``npos`` positions)."""
+    a: int
+    b: int
+    rows: int
+    npos: int
+    table: np.ndarray
+
+
+@functools.lru_cache(maxsize=None)
+def _k8t_edges(n: int, taps: int, center: int, mode: str) -> K8tEdges:
+    """The edge table of K8T's tile route on a line of ``n`` with ``taps``
+    taps, tap ``center`` on the output: ``[a, b)`` is the longest run of
+    plain positions (in the filter tier's modes about ``taps - 1`` rows are
+    left, near the two ends)."""
+    ptr, pos = fold_lists(n, center, taps - 1 - center, mode)
+    j = np.arange(n)
+    plain = (np.diff(ptr) == 1) & (j + center - (taps - 1) >= 0) & \
+        (j + center < n)
+    a = b = 0
+    start = None
+    for i, ok in enumerate(list(plain) + [False]):
+        if ok and start is None:
+            start = i
+        elif not ok and start is not None:
+            if i - start > b - a:
+                a, b = start, i
+            start = None
+    rows = list(range(a)) + list(range(b, n))
+    eptr = np.zeros(len(rows) + 1, dtype=np.int32)
+    epos = [pos[ptr[r]:ptr[r + 1]] for r in rows]
+    eptr[1:] = np.cumsum([len(e) for e in epos])
+    epos = np.concatenate(epos) if epos else np.zeros(0, np.int32)
+    table = np.concatenate([eptr, epos]).astype(np.int32)
+    return K8tEdges(a, b, len(rows), len(epos), table)
+
+
+class LinePlan(NamedTuple):
+    """How K8T runs on an ``(outer, n, inner)`` view: ``route`` ``"tile"``
+    or ``"lines"``; for a tile, the line tile ``tile`` (a
+    :class:`~elasticdeform_tpu_torch.ops.prefilter.TilePlan` of
+    ``_tile_plan``) and ``smem``, the block's shared bytes: the tile, the
+    taps and the edge table; ``gather``: a packed tile's outputs gather in
+    a second tile in shared memory (where it fits), stored as one run."""
+    route: str
+    tile: _pf.TilePlan | None = None
+    smem: int = 0
+    gather: bool = False
+
+
+@functools.lru_cache(maxsize=1024)
+def _line_transpose_plan(outer: int, n: int, inner: int, dtype, taps: int,
+                         table: int, width=None, route=None,
+                         sms: int = 132) -> LinePlan:
+    """The launch of K8T on an ``(outer, n, inner)`` view of a ``dtype``
+    tensor with ``taps`` taps and an edge table of ``table`` int32 entries:
+    the tile route for lines up to :func:`~elasticdeform_tpu_torch.ops.
+    prefilter.tile_cap` whose tile, taps and table fit
+    :data:`SMEM_LIMIT`, in a tensor of fewer than 2^31 elements, else the
+    lines route. The tile is K4's (``_tile_plan``), at the width of
+    ``TILE_WIDTHS`` whose blocks, at this plan's shared bytes, fill the
+    fewest rounds of ``sms`` SMs (:func:`k8t_waves`; the first among
+    equals). ``width`` and ``route`` force a choice;
+    a forced tile that does not fit raises ValueError. Cached: the wrapper
+    asks for a plan at every launch."""
+    if route not in (None, "tile", "lines"):
+        raise ValueError(f"route must be 'tile' or 'lines', got {route!r}")
+    item = _pf._ITEMSIZE[dtype]
+    extra = taps * item + 4 * table
+    fits = n <= _pf.tile_cap(dtype) and outer * n * inner < 2 ** 31
+    if route == "lines" or (route is None and not fits):
+        return LinePlan("lines")
+    if not fits:
+        raise ValueError(f"K8T's tile route does not take lines of {n} "
+                         f"({dtype}) in a tensor of {outer * n * inner} "
+                         "elements")
+    plans = []
+    for w in (_pf.TILE_WIDTHS if width is None else (width,)):
+        try:
+            tile = _pf._tile_plan(outer, n, inner, dtype, w)
+        except ValueError:
+            continue
+        # a packed tile gathers its outputs in a second tile where it fits
+        for gather in ((True, False) if tile.packed else (False,)):
+            plan = LinePlan("tile", tile, tile.smem * (1 + gather) + extra,
+                            gather)
+            if plan.smem <= SMEM_LIMIT:
+                plans.append(plan)
+                break
+    if not plans:
+        if route is None:
+            return LinePlan("lines")
+        raise ValueError(f"K8T's tile route: a tile of lines of {n}, "
+                         f"{taps} taps and {table} table entries do not fit "
+                         f"{SMEM_LIMIT} bytes")
+    return min(plans, key=lambda p: k8t_waves(p, sms))
+
+
+# K8T's tile route (csrc/filters.cu ED_K8T_THREADS): threads a block, and
+# blocks an SM holds by their registers (launch bounds of 64 a thread)
+K8T_THREADS = 256
+_K8T_BLOCKS = 4
+
+
+def k8t_waves(plan: LinePlan, sms: int) -> int:
+    """How many rounds of blocks K8T's tile plan takes on ``sms`` SMs: as
+    many blocks an SM as its shared memory takes, at most four."""
+    per_sm = min(_pf._SM_SMEM // (plan.smem + 1024), _K8T_BLOCKS)
+    return -(-plan.tile.blocks // (sms * per_sm))
+
+
+@functools.lru_cache(maxsize=64)
+def _k8t_tables(wkey: bytes, mode: str, n: int, center: int, dtype,
+                device):
+    """K8T's arguments, uploaded once per taps, mode, line length, centre,
+    dtype and device: the taps, the fold lists (``ptr``, ``pos``: the lines
+    route) and the edge table (the tile route) on ``device``, and the
+    :class:`K8tEdges`."""
+    w = np.frombuffer(wkey, dtype=np.float64).copy()
+    edges = _k8t_edges(n, len(w), center, mode)
+    ptr, pos = fold_lists(n, center, len(w) - 1 - center, mode)
+
+    def up(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
+                                                           dtype=dt)
+    return (up(w, dtype), up(ptr, torch.int32), up(pos, torch.int32),
+            up(edges.table, torch.int32), edges)
+
+
+def _launch_line_transpose(g: torch.Tensor, weights, axis: int, mode: str,
+                           center: int, plan: LinePlan) -> torch.Tensor:
+    """K8T on a CUDA tensor on the route ``plan`` names. Counts nothing
+    (the public wrapper counts)."""
+    what = "correlate1d_transpose"
+    check_kernel_tensor(g, what)
     out = torch.empty_like(g)
     if g.numel() == 0:
         return out
     outer, n, inner = _lines(g, axis)
-    L = len(weights)
-    ptr, pos = fold_lists(n, int(center), L - 1 - int(center), mode)
-    w = _on(weights, g)
-    ptr_d, pos_d = _on(ptr, g, torch.int32), _on(pos, g, torch.int32)
+    w = np.ascontiguousarray(weights, dtype=np.float64)
+    w_d, ptr_d, pos_d, table_d, e = _k8t_tables(w.tobytes(), mode, n,
+                                                int(center), g.dtype,
+                                                g.device)
     lib = _lib()
-    err = lib.ed_correlate1d_transpose(
-        _DTYPE_CODES[g.dtype], g.data_ptr(), out.data_ptr(), w.data_ptr(),
-        ptr_d.data_ptr(), pos_d.data_ptr(), outer, n, inner, L, int(center),
-        _stream(g))
-    _build.check(err, lib, "ed_filters_error_string",
-                 "correlate1d_transpose")
+    if plan.route == "lines":
+        err = lib.ed_correlate1d_transpose(
+            _DTYPE_CODES[g.dtype], g.data_ptr(), out.data_ptr(),
+            w_d.data_ptr(), ptr_d.data_ptr(), pos_d.data_ptr(), outer, n,
+            inner, len(w), int(center), _stream(g))
+    else:
+        t = plan.tile
+        err = lib.ed_correlate1d_transpose_tile(
+            _DTYPE_CODES[g.dtype], g.data_ptr(), out.data_ptr(),
+            w_d.data_ptr(), table_d.data_ptr(), outer, n, inner, len(w),
+            int(center), e.a, e.b, e.rows, e.npos, int(plan.gather),
+            t.width, int(t.packed),
+            t.lines, t.stride, t.smem, plan.smem, t.blocks, _stream(g))
+    _build.check(err, lib, "ed_filters_error_string", what)
+    return out
+
+
+def correlate1d_transpose(g: torch.Tensor, weights, axis: int, mode: str,
+                          center: int) -> torch.Tensor:
+    """The exact transpose of :func:`correlate1d` (either order) along
+    ``axis``. A CPU tensor takes :func:`correlate1d_transpose_plain`; a
+    CUDA tensor launches K8T on the route of :func:`_line_transpose_plan`
+    and adds one to ``correlate1d_transpose.launches`` and to its route's
+    count in ``correlate1d_transpose.routes``."""
+    axis = axis % g.dim()
+    if g.device.type == "cpu":
+        return correlate1d_transpose_plain(g, weights, axis, mode, center)
+    check_kernel_tensor(g, "correlate1d_transpose")
+    if g.numel() == 0:
+        return torch.empty_like(g)
+    outer, n, inner = _lines(g, axis)
+    L = len(weights)
+    e = _k8t_edges(n, L, int(center), mode)
+    plan = _line_transpose_plan(outer, n, inner, g.dtype, L, len(e.table),
+                                sms=_pf._sm_count(g.device))
+    out = _launch_line_transpose(g, weights, axis, mode, center, plan)
     correlate1d_transpose.launches += 1
+    correlate1d_transpose.routes[plan.route] += 1
     return out
 
 
 correlate1d_transpose.launches = 0
+correlate1d_transpose.routes = {"tile": 0, "lines": 0}
 
 
 def nd_geometry(shape, kshape):
@@ -570,6 +742,81 @@ TILE_COLUMNS = (8, 4, 2, 1)
 ND_COLUMN = 8
 
 
+def _contiguous_strides(shape):
+    return [math.prod(shape[d + 1:]) for d in range(len(shape))]
+
+
+class HaloTile(NamedTuple):
+    """The geometry of a tile route whose blocks stage their output tile's
+    halo box (K9T's, and K12's select route in ``ops/morphology.py``) on a
+    tensor of ``shape`` under a kernel of ``kshape``: :func:`nd_geometry`'s
+    ``merged`` shape, ``group`` and ``batch``, the ``merged`` axes'
+    ``strides``, and ``axes``, the count of axes where the kernel has
+    extent > 1. The rest only where ``axes`` is 1 to 3: the merged axis on
+    each of the three tile axes, -1 for an extent of 1 (the kernel's axes,
+    and for fewer than three the innermost batch axes, in memory order);
+    the batch axes the grid walks; per tile axis its extent ``n3``, element
+    stride ``st3`` and the kernel's extent ``k3``; ``span``, the elements a
+    sample's tile axes span."""
+    merged: tuple
+    group: tuple
+    batch: tuple
+    strides: tuple
+    axes: int
+    tile_axes: tuple = ()
+    grid_axes: tuple = ()
+    n3: tuple = ()
+    st3: tuple = ()
+    k3: tuple = ()
+    span: int = 0
+
+    def box(self, tile):
+        """The halo box of a ``tile`` (three extents)."""
+        return tuple(t + k - 1 for t, k in zip(tile, self.k3))
+
+    def blocks(self, tile):
+        """The tiles of extent ``tile`` times the walked batch."""
+        return (math.prod(-(-n // t) for n, t in zip(self.n3, tile))
+                * math.prod(self.merged[d] for d in self.grid_axes))
+
+    def kernel_axes(self):
+        """``(tile axis, kernel axis)`` of each tile axis on one of the
+        kernel's axes."""
+        return [(a, self.group.index(d)) for a, d in enumerate(self.tile_axes)
+                if d >= 0 and not self.batch[d]]
+
+    def grid_host(self):
+        """The grid's batch axes as the C entry points take them: their
+        count, extents and strides."""
+        ll, nb = ctypes.c_longlong, len(self.grid_axes)
+        return (nb, (ll * max(nb, 1))(*[self.merged[d]
+                                        for d in self.grid_axes]),
+                (ll * max(nb, 1))(*[self.strides[d] for d in self.grid_axes]))
+
+
+@functools.lru_cache(maxsize=1024)
+def halo_tile(shape, kshape) -> HaloTile:
+    """The :class:`HaloTile` of a kernel of ``kshape`` on ``shape``."""
+    merged, group, batch = nd_geometry(tuple(int(n) for n in shape),
+                                       tuple(int(k) for k in kshape))
+    strides = _contiguous_strides(merged)
+    spatial = [d for d, b in enumerate(batch) if not b]
+    head = (tuple(merged), tuple(group), tuple(batch), tuple(strides),
+            len(spatial))
+    if not 1 <= len(spatial) <= 3:
+        return HaloTile(*head)
+    extra = [d for d, b in enumerate(batch) if b][::-1][:3 - len(spatial)]
+    axes = sorted(spatial + extra)
+    tile_axes = (-1,) * (3 - len(axes)) + tuple(axes)
+    n3 = tuple(merged[d] if d >= 0 else 1 for d in tile_axes)
+    st3 = tuple(strides[d] if d >= 0 else 0 for d in tile_axes)
+    k3 = tuple(1 if d < 0 or batch[d] else int(kshape[group.index(d)])
+               for d in tile_axes)
+    return HaloTile(*head, tile_axes,
+                    tuple(d for d in range(len(merged)) if d not in axes),
+                    n3, st3, k3, sum((n - 1) * st for n, st in zip(n3, st3)))
+
+
 class NdPlan(NamedTuple):
     """How K9T runs on a tensor of ``shape`` with a kernel of ``kshape``:
     ``route`` ``"tile"`` or ``"nd"``. For a tile: the merged axis (of
@@ -587,10 +834,6 @@ class NdPlan(NamedTuple):
     box: tuple = ()
     smem: int = 0
     blocks: int = 0
-
-
-def _contiguous_strides(shape):
-    return [math.prod(shape[d + 1:]) for d in range(len(shape))]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -620,83 +863,59 @@ def _nd_transpose_plan(shape, kshape, dtype, column=None, route=None,
             raise ValueError(f"K9T's tile route does not take {why}")
         return NdPlan("nd")
 
-    shape, kshape = tuple(int(n) for n in shape), tuple(int(k)
-                                                       for k in kshape)
-    merged, group, batch = nd_geometry(shape, kshape)
-    spatial = [d for d, b in enumerate(batch) if not b]
     if not finite:
         return refuse("non-finite weights")
-    if not 1 <= len(spatial) <= 3:
-        return refuse(f"a kernel with extent > 1 on {len(spatial)} axes")
-    extra = [d for d, b in enumerate(batch) if b][::-1][:3 - len(spatial)]
-    axes = sorted(spatial + extra)
-    tile_axes = (-1,) * (3 - len(axes)) + tuple(axes)
-    grid_axes = tuple(d for d in range(len(merged)) if d not in axes)
-    strides = _contiguous_strides(merged)
-    n3 = [merged[a] if a >= 0 else 1 for a in tile_axes]
-    k3 = [1 if a < 0 or batch[a] else kshape[group.index(a)]
-          for a in tile_axes]
-    if sum((n - 1) * strides[a] for n, a in zip(n3, tile_axes)
-           if a >= 0) >= 2 ** 31:
+    geo = halo_tile(shape, kshape)
+    if not 1 <= geo.axes <= 3:
+        return refuse(f"a kernel with extent > 1 on {geo.axes} axes")
+    if geo.span >= 2 ** 31:
         return refuse("a sample of 2^31 elements or more")
     item = 4 if dtype == torch.float32 else 8
     taps = math.prod(kshape)
+    n0 = geo.n3[0]
     if column is None:
-        want = 1 if n3[0] <= 1 else min(ND_COLUMN,
-                                         1 << (n3[0] - 1).bit_length())
+        want = 1 if n0 <= 1 else min(ND_COLUMN, 1 << (n0 - 1).bit_length())
         columns = [c for c in TILE_COLUMNS if c <= want]
     else:
         columns = [column]
     for c in columns:
-        box = (c + k3[0] - 1, ND_TILE[0] + k3[1] - 1, ND_TILE[1] + k3[2] - 1)
+        box = geo.box((c,) + ND_TILE)
         smem = math.prod(box) * item + taps * (item + 4)
         if smem <= SMEM_LIMIT:
             break
     else:
         return refuse(f"a box and {taps} taps over {SMEM_LIMIT} bytes")
-    tiles = (-(-n3[0] // c), -(-n3[1] // ND_TILE[0]),
-             -(-n3[2] // ND_TILE[1]))
-    blocks = math.prod(tiles) * math.prod(merged[a] for a in grid_axes)
+    blocks = geo.blocks((c,) + ND_TILE)
     if blocks >= 2 ** 31:
         return refuse(f"{blocks} blocks")
-    return NdPlan("tile", tile_axes, grid_axes, c, box, smem, blocks)
+    return NdPlan("tile", geo.tile_axes, geo.grid_axes, c, box, smem,
+                  blocks)
 
 
 @functools.lru_cache(maxsize=16)
-def _nd_tile_tables(wkey, kshape, centers, mode, shape, plan, device, dtype):
-    """K9T's tile-route arguments for ``plan``, built and uploaded once per
-    kernel, shapes and device: the taps' weights and offsets along the
-    three tile axes and the fold lists on ``device``, and the host arrays
-    of ``ed_correlate_nd_transpose_tile``."""
+def _nd_tile_tables(wkey, kshape, centers, mode, shape, device, dtype):
+    """K9T's tile-route arguments, built and uploaded once per kernel,
+    shape and device: the taps' weights and offsets along the three tile
+    axes and the fold lists on ``device``, and the host arrays of
+    ``ed_correlate_nd_transpose_tile``."""
     w = np.frombuffer(wkey, dtype=np.float64).reshape(kshape)
     taps = _nd_taps(w)
-    merged, group, batch = nd_geometry(shape, kshape)
-    strides = _contiguous_strides(merged)
+    geo = halo_tile(shape, kshape)
     off = np.zeros((len(taps), 3), dtype=np.int32)
-    n3, st3, k3, hi3, base3 = [1] * 3, [0] * 3, [1] * 3, [0] * 3, [-1] * 3
+    hi3, base3 = [0] * 3, [-1] * 3
     ptrs, poss = [np.zeros(1, np.int32)], [np.zeros(1, np.int32)]
-    for a, d in enumerate(plan.tile_axes):
-        if d < 0:
-            continue
-        n3[a], st3[a] = merged[d], strides[d]
-        if batch[d]:
-            continue
-        ax = group.index(d)
+    for a, ax in geo.kernel_axes():
         k, c = kshape[ax], int(centers[ax])
-        k3[a], hi3[a] = k, k - 1 - c
+        hi3[a] = k - 1 - c
         off[:, a] = [int(t[ax]) - c for t in taps]
         if mode != "constant":
-            ptr, pos = fold_lists(merged[d], c, k - 1 - c, mode)
+            ptr, pos = fold_lists(geo.n3[a], c, k - 1 - c, mode)
             base3[a] = sum(len(p) for p in ptrs)
             ptrs.append(ptr + sum(len(p) for p in poss))
             poss.append(pos)
     i, ll = ctypes.c_int, ctypes.c_longlong
-    nb = len(plan.grid_axes)
-    host = ((i * 3)(*n3), (ll * 3)(*st3), (i * 3)(*k3), (i * 3)(*hi3),
-            (i * 3)(*base3), nb,
-            (ll * max(nb, 1))(*[merged[d] for d in plan.grid_axes]),
-            (ll * max(nb, 1))(*[strides[d] for d in plan.grid_axes]),
-            len(taps))
+    host = ((i * 3)(*geo.n3), (ll * 3)(*geo.st3), (i * 3)(*geo.k3),
+            (i * 3)(*hi3), (i * 3)(*base3), *geo.grid_host(), len(taps))
 
     def up(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
@@ -721,7 +940,7 @@ def _launch_nd_transpose(g: torch.Tensor, weights, centers, mode: str,
         return _launch_nd(g, w, centers, mode, 0.0, True)
     (w_d, off_d, ptr_d, pos_d), host = _nd_tile_tables(
         w.tobytes(), w.shape, tuple(int(c) for c in centers), mode,
-        tuple(g.shape), plan, g.device, g.dtype)
+        tuple(g.shape), g.device, g.dtype)
     out = torch.empty_like(g)
     lib = _lib()
     err = lib.ed_correlate_nd_transpose_tile(

@@ -17,7 +17,11 @@ Counterpart of the JAX package's ``ops/morphology.py`` (less
   network (NaN-propagating min/max, so a window holding a NaN gives NaN),
   above it a selection in the stable sort's order (NaN last, -0 equal to
   +0, equal values in tap order). The cap is kept for that NaN result,
-  which differs between the two routes.
+  which differs between the two. The selection takes one of two routes,
+  which :func:`_rank_plan` picks: ``"tile"`` (extent > 1 on at most three
+  axes, a box that fits shared memory: a block stages its tile's halo box
+  of keys and values once and selects from there, several key bits a
+  pass) and ``"nd"`` (one thread per voxel in device memory, the rest).
 * :func:`binary_step` (K13): one AND (erosion) or OR (dilation) sweep over
   a structure's taps, ``border_value`` beyond the edge, mask-gated, on bool
   bytes; :func:`binary_sweeps` runs ``k`` of them in one launch on the
@@ -32,12 +36,15 @@ Min and max order -0 below +0, as ``jnp.minimum`` and ``jnp.maximum`` do.
 
 On a CPU tensor each wrapper takes its plain version (``*_plain``: the JAX
 package's algorithm over slices of the padded array); on a CUDA tensor it
-launches its kernel or raises, and adds one to its ``.launches`` counter.
-Every result is a selection, or one subtraction per tap, so the kernels agree
-with their plain versions, and the plain versions with the JAX package, bit
-for bit. PyTorch lacks most operations on uint16, uint32 and uint64; the
-plain versions work on uint16 and uint32 widened to the next signed type and
-on uint64 with its top bit flipped into int64, which keep the order, and map
+launches its kernel or raises, and adds one to its ``.launches`` counter
+(K12 and K13 also to their route's count in ``.routes``); footprint offsets,
+comparator pairs and tile tables go to the card once per footprint, shape
+and device (``_geometry``, ``_network_pairs``, ``_rank_tile_tables``). Every
+result is a selection, or one subtraction per tap, so the kernels agree with
+their plain versions, and the plain versions with the JAX package, bit for
+bit. PyTorch lacks most operations on uint16, uint32 and uint64; the plain
+versions work on uint16 and uint32 widened to the next signed type and on
+uint64 with its top bit flipped into int64, which keep the order, and map
 back. There is no gradient: the JAX package has no backward of its own here.
 """
 
@@ -55,9 +62,9 @@ import torch
 from elasticdeform_tpu_torch.ops import _build
 from elasticdeform_tpu_torch.ops.filters import (
     _MODE_CODES, _expand_to_ndim, _normalize_axes, _on, _stream, check_mode,
-    normalize_sequence, pad_axis,
+    halo_tile, normalize_sequence, pad_axis,
 )
-from elasticdeform_tpu_torch.ops.prefilter import _lines
+from elasticdeform_tpu_torch.ops.prefilter import SMEM_LIMIT, _lines
 from elasticdeform_tpu_torch.ops.resample import numpy_dtype
 
 # footprints up to this many taps select through the comparator network,
@@ -84,6 +91,13 @@ _SMS = 132
 _LAUNCH_WORK = 200_000
 _STAGE_WORK = {False: 2, True: 24}
 _WRITE_WORK = {False: 1, True: 16}
+
+# K12's select route on a halo box (csrc ED_RANK_*): a block of 8 x 32
+# threads, each with a column of RANK_COLUMN voxels along tile axis 0 (1
+# where that axis has extent 1); the kernel resolves ED_RANK_BITS = 2 key
+# bits a pass
+RANK_TILE = (8, 32)
+RANK_COLUMN = 4
 
 _DTYPE_CODES = {torch.bool: 0, torch.uint8: 1, torch.int8: 2,
                 torch.uint16: 3, torch.int16: 4, torch.uint32: 5,
@@ -638,7 +652,7 @@ class _Stencil:
 
     def geometry(self, x: torch.Tensor):
         if self._geometry is None:
-            self._geometry = _Geometry(x, self.structure, self.centers,
+            self._geometry = _geometry(x, self.structure, self.centers,
                                        "binary_step")
         return self._geometry
 
@@ -663,6 +677,10 @@ def _lib():
         fn.restype = i
         fn.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, lp, ip, ip, i, i,
                        ll, ll, vp]
+        fn = lib.ed_rank_select_tile
+        fn.restype = i
+        fn.argtypes = [i, i, vp, vp, vp, ip, lp, ip, ip, i, lp, lp, i, i, i,
+                       ll, i, ll, vp]
         fn = lib.ed_binary_step
         fn.restype = i
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i, lp, ip, ip, i, i, i, vp]
@@ -689,30 +707,134 @@ def _check(x: torch.Tensor, what: str) -> None:
 
 
 class _Geometry:
-    """The host arrays of an N-D footprint on ``x``: per tap its offsets
-    from the centre (``off``, int32) and linear offset (``delta``), the
-    least and greatest offset per axis."""
+    """The host arrays of an N-D footprint on an array of ``shape`` on
+    ``device``: per tap its offsets from the centre (``off``, int32) and
+    linear offset (``delta``), on the device, and the least and greatest
+    offset per axis."""
 
-    def __init__(self, x: torch.Tensor, footprint, centers, what: str):
-        ndim = x.dim()
+    def __init__(self, shape, device, footprint, centers, what: str):
+        ndim = len(shape)
         if not 1 <= ndim <= MAX_ND_AXES:
             raise ValueError(f"{what}: the CUDA kernel takes 1 to "
                              f"{MAX_ND_AXES} axes, got {ndim}")
         taps = np.argwhere(np.asarray(footprint, dtype=bool))
         off = (taps - np.asarray(centers, dtype=np.int64)).astype(np.int32)
         off = off.reshape(len(taps), ndim)
-        strides = np.cumprod([1] + list(x.shape[::-1]))[:-1][::-1]
+        strides = np.cumprod([1] + list(shape[::-1]))[:-1][::-1]
         self.taps = len(taps)
-        self.off = _on(off, x, torch.int32)
-        self.delta = _on(off.astype(np.int64) @ np.asarray(strides, np.int64),
-                         x, torch.int64)
+        self.off = torch.as_tensor(np.ascontiguousarray(off)).to(device)
+        self.delta = torch.as_tensor(np.ascontiguousarray(
+            off.astype(np.int64) @ np.asarray(strides, np.int64))).to(device)
         zeros = np.zeros(ndim, dtype=np.int32)
         lo = off.min(axis=0) if self.taps else zeros
         hi = off.max(axis=0) if self.taps else zeros
         i = ctypes.c_int
-        self.args = (ndim, (ctypes.c_longlong * ndim)(*x.shape),
+        self.args = (ndim, (ctypes.c_longlong * ndim)(*shape),
                      (i * ndim)(*lo.tolist()), (i * ndim)(*hi.tolist()),
                      self.taps)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_geometry(shape, fkey, fshape, centers, device, what):
+    return _Geometry(shape, device, np.frombuffer(fkey, dtype=bool).reshape(
+        fshape), centers, what)
+
+
+def _geometry(x: torch.Tensor, footprint, centers, what: str) -> _Geometry:
+    """The :class:`_Geometry` of ``footprint`` on ``x``, built and uploaded
+    once per footprint, centres, shape and device."""
+    fp = np.ascontiguousarray(footprint, dtype=bool)
+    return _cached_geometry(tuple(int(n) for n in x.shape), fp.tobytes(),
+                            fp.shape, tuple(int(c) for c in centers),
+                            x.device, what)
+
+
+@functools.lru_cache(maxsize=64)
+def _network_pairs(taps: int, rank: int, device):
+    """``(wires, comparators, pairs on device)`` of the network route,
+    uploaded once per tap count, rank and device."""
+    wires, comparators = _rank_network(taps, rank)
+    pairs = torch.as_tensor(np.asarray(comparators, dtype=np.uint8).reshape(
+        -1, 2)).to(device) if comparators else None
+    return wires, len(comparators), pairs
+
+
+class RankPlan(collections.namedtuple(
+        "RankPlan", "route tile_axes grid_axes column box smem blocks",
+        defaults=((), (), 0, (), 0, 0))):
+    """How K12 runs on a footprint of ``kshape`` over an array of
+    ``shape``: ``route`` ``"network"`` (up to
+    :data:`RANK_NETWORK_MAX_TAPS` taps), ``"tile"`` or ``"nd"`` (the select
+    route above). For a tile: the tile and grid axes of
+    :func:`~elasticdeform_tpu_torch.ops.filters.halo_tile`; the ``column``
+    C of voxels a thread keeps along tile axis 0; the halo ``box`` (the
+    tile ``(C, 8, 32)`` grown by the footprint's extent - 1); ``smem``, the
+    shared bytes of the box's keys and values and the taps' offsets;
+    ``blocks``, the tiles times the walked batch."""
+
+
+@functools.lru_cache(maxsize=1024)
+def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
+    """K12's route on a ``dtype`` array of ``shape`` under a footprint of
+    ``kshape`` with ``taps`` taps: the network route up to
+    :data:`RANK_NETWORK_MAX_TAPS` taps (its NaN rule is the JAX package's
+    there, so no other route may take them); above, the tile route when the
+    footprint has extent > 1 on at most three axes, the box fits
+    :data:`SMEM_LIMIT` bytes, a sample's tile axes span fewer than 2^31
+    elements and the grid fewer than 2^31 blocks, else the nd route.
+    ``route`` forces a choice (a forced tile that does not fit raises
+    ValueError). Cached: the wrapper asks at every launch."""
+    if taps <= RANK_NETWORK_MAX_TAPS:
+        if route not in (None, "network"):
+            raise ValueError(f"K12 takes {taps} taps on its network route "
+                             f"only, not {route!r}")
+        return RankPlan("network")
+    if route == "nd":
+        return RankPlan("nd")
+    if route not in (None, "tile"):
+        raise ValueError(f"route must be 'tile' or 'nd', got {route!r}")
+
+    def refuse(why):
+        if route == "tile":
+            raise ValueError(f"K12's tile route does not take {why}")
+        return RankPlan("nd")
+
+    geo = halo_tile(shape, kshape)
+    if not 1 <= geo.axes <= 3:
+        return refuse(f"a footprint with extent > 1 on {geo.axes} axes")
+    if geo.span >= 2 ** 31:
+        return refuse("a sample of 2^31 elements or more")
+    tile = (1 if geo.n3[0] == 1 else RANK_COLUMN,) + RANK_TILE
+    box = geo.box(tile)
+    smem = -(-2 * math.prod(box) * dtype.itemsize // 4) * 4 + 4 * taps
+    if smem > SMEM_LIMIT:
+        return refuse(f"a box of {box} and {taps} taps: {smem} bytes, over "
+                      f"{SMEM_LIMIT}")
+    blocks = geo.blocks(tile)
+    if blocks >= 2 ** 31:
+        return refuse(f"{blocks} blocks")
+    return RankPlan("tile", geo.tile_axes, geo.grid_axes, tile[0], box, smem,
+                    blocks)
+
+
+@functools.lru_cache(maxsize=64)
+def _rank_tile_tables(fkey, fshape, centers, shape, plan, device):
+    """The tile route's arguments for ``plan``, built and uploaded once per
+    footprint, shapes and device: each tap's offset into the box (raster
+    order) on ``device``, and the host arrays of ``ed_rank_select_tile``."""
+    taps = np.argwhere(np.frombuffer(fkey, dtype=bool).reshape(fshape))
+    geo = halo_tile(shape, fshape)
+    idx = np.zeros((len(taps), 3), dtype=np.int64)
+    c3 = [0] * 3
+    for a, ax in geo.kernel_axes():
+        c3[a] = int(centers[ax])
+        idx[:, a] = taps[:, ax]
+    P1, P0 = plan.box[2], plan.box[1] * plan.box[2]
+    toff = (idx @ np.array([P0, P1, 1], dtype=np.int64)).astype(np.int32)
+    i, ll = ctypes.c_int, ctypes.c_longlong
+    host = ((i * 3)(*geo.n3), (ll * 3)(*geo.st3), (i * 3)(*geo.k3),
+            (i * 3)(*c3), *geo.grid_host(), len(taps))
+    return torch.as_tensor(toff).to(device), host
 
 
 def min_max_filter1d(x: torch.Tensor, size: int, axis: int, mode: str, cval,
@@ -757,7 +879,7 @@ def min_max_filter(x: torch.Tensor, footprint, structure, centers, mode: str,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    geo = _Geometry(x, footprint, centers, "min_max_filter")
+    geo = _geometry(x, footprint, centers, "min_max_filter")
     nonflat = structure is not None
     work = x.dtype if not nonflat or x.dtype.is_floating_point else \
         torch.float64
@@ -780,39 +902,68 @@ def min_max_filter(x: torch.Tensor, footprint, structure, centers, mode: str,
 min_max_filter.launches = 0
 
 
-def rank_filter(x: torch.Tensor, footprint, centers, mode: str, cval,
-                rank: int) -> torch.Tensor:
-    """The ``rank``-th smallest of the taps of ``footprint`` (as
-    :func:`min_max_filter`; ``cval`` in ``x``'s type). A CPU tensor takes
-    :func:`rank_filter_plain`; a CUDA tensor launches K12 (the network
-    route up to :data:`RANK_NETWORK_MAX_TAPS` taps, the select route above)
-    and adds one to ``rank_filter.launches``."""
-    if x.device.type == "cpu":
-        return rank_filter_plain(x, footprint, centers, mode, cval, rank)
+def _launch_rank(x: torch.Tensor, footprint, centers, mode: str, cval,
+                 rank: int, plan: RankPlan) -> torch.Tensor:
+    """K12 on a CUDA tensor on the route ``plan`` names. Counts nothing
+    (the public wrapper counts)."""
     _check(x, "rank_filter")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    geo = _Geometry(x, footprint, centers, "rank_filter")
-    pairs, npairs, wires = None, 0, 0
-    if geo.taps <= RANK_NETWORK_MAX_TAPS:
-        wires, comparators = _rank_network(geo.taps, rank)
-        npairs = len(comparators)
-        pairs = _on(np.asarray(comparators, dtype=np.uint8).reshape(-1, 2),
-                    x, torch.uint8)
     lib = _lib()
-    err = lib.ed_rank_filter(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(),
-        geo.off.data_ptr(), geo.delta.data_ptr(),
-        None if npairs == 0 else pairs.data_ptr(), npairs,
-        wires, int(rank), *geo.args, _MODE_CODES[mode], _bits(cval, x.dtype),
-        _bits(_pad_max_value(x.dtype), x.dtype), _stream(x))
+    if plan.route == "tile":
+        fp = np.ascontiguousarray(footprint, dtype=bool)
+        toff, host = _rank_tile_tables(
+            fp.tobytes(), fp.shape, tuple(int(c) for c in centers),
+            tuple(int(n) for n in x.shape), plan, x.device)
+        err = lib.ed_rank_select_tile(
+            _DTYPE_CODES[x.dtype], plan.column, x.data_ptr(),
+            out.data_ptr(), toff.data_ptr(), *host, int(rank),
+            _MODE_CODES[mode], _bits(cval, x.dtype), plan.smem, plan.blocks,
+            _stream(x))
+    else:
+        geo = _geometry(x, footprint, centers, "rank_filter")
+        pairs, npairs, wires = None, 0, 0
+        if plan.route == "network":
+            wires, npairs, pairs = _network_pairs(geo.taps, int(rank),
+                                                  x.device)
+        err = lib.ed_rank_filter(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(),
+            geo.off.data_ptr(), geo.delta.data_ptr(),
+            None if npairs == 0 else pairs.data_ptr(), npairs, wires,
+            int(rank), *geo.args, _MODE_CODES[mode], _bits(cval, x.dtype),
+            _bits(_pad_max_value(x.dtype), x.dtype), _stream(x))
     _build.check(err, lib, "ed_morphology_error_string", "rank_filter")
+    return out
+
+
+def rank_filter(x: torch.Tensor, footprint, centers, mode: str, cval,
+                rank: int) -> torch.Tensor:
+    """The ``rank``-th smallest of the taps of ``footprint`` (as
+    :func:`min_max_filter`; ``cval`` in ``x``'s type). A CPU tensor takes
+    :func:`rank_filter_plain`; a CUDA tensor launches K12 on the route of
+    :func:`_rank_plan` (the network route up to
+    :data:`RANK_NETWORK_MAX_TAPS` taps, the tile or nd select route above)
+    and adds one to ``rank_filter.launches`` and to its route's count in
+    ``rank_filter.routes``."""
+    if x.device.type == "cpu":
+        return rank_filter_plain(x, footprint, centers, mode, cval, rank)
+    _check(x, "rank_filter")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    fp = np.asarray(footprint, dtype=bool)
+    if not 1 <= x.dim() <= MAX_ND_AXES:
+        raise ValueError(f"rank_filter: the CUDA kernel takes 1 to "
+                         f"{MAX_ND_AXES} axes, got {x.dim()}")
+    plan = _rank_plan(tuple(x.shape), fp.shape, x.dtype, int(fp.sum()))
+    out = _launch_rank(x, fp, centers, mode, cval, rank, plan)
     rank_filter.launches += 1
+    rank_filter.routes[plan.route] += 1
     return out
 
 
 rank_filter.launches = 0
+rank_filter.routes = {"network": 0, "tile": 0, "nd": 0}
 
 
 def _launch_tile(src: torch.Tensor, out: torch.Tensor, mask, sten, plan,
