@@ -13,9 +13,11 @@ Phases (any failure raises, and the exit code is not 0):
    instantiation's (both routes, every tile width, K2's writeback route),
    K9T's tile instantiations (per dtype, column and fold flag) and
    K1/K1c's, K5/K5c's and K3/K3c's (per dtype, index width, rank and
-   order), K8T's tile instantiations (per dtype and width) and K12's
-   select tile (per dtype and column, which with K8T's
-   must have no stack frame and no spills), and holds K2/K4/K6/K7 and
+   order), K8T's tile instantiations (per dtype and width), K12's
+   select tile (per dtype and column), K9's tile (per dtype and column) and
+   K11's (per dtype, work type, min or max, flat or non-flat and column),
+   which with K8T's must have no stack frame and no spills, and holds
+   K2/K4/K6/K7 and
    K9T's tile in float32, K6 and K2's
    writeback route in float64 too, K1/K1c and K5/K5c at orders 1 and 3 in
    float32, and every K3/K3c instantiation and K13's four tile
@@ -65,7 +67,16 @@ Phases (any failure raises, and the exit code is not 0):
    with the lines route and both per element to the twin; K12's select
    route on both routes (a shared-memory halo box, one thread per voxel) bit
    for bit with the twin in the eleven dtypes over 65-343 taps, three ranks,
-   every mode, 1-D to 3-D and a batch axis;
+   every mode, 1-D to 3-D and a batch axis; K9 on both routes (a
+   shared-memory halo box of the folded input or cval, one thread per
+   output) bit for bit with the twin and each other at c14's shapes in every
+   mode, every column, 1-D to rank-4 and sparse kernels; K11 on both routes
+   bit for bit with the twin in the eleven dtypes, flat and non-flat, min
+   and max, every mode; the morphology tier's ``output=`` (grey erosion,
+   dilation, opening, closing, top-hats, gradient, Laplace, minimum and
+   maximum filters, box, footprint and non-flat structure) from int16,
+   uint8 and float32 inputs holding infinities and NaN into uint8, int16,
+   int32 and float32 arrays, bit for bit with the CPU run;
    K9T on both routes (a shared-memory
    halo box and one thread per output) at c14's shapes in every mode, 2-D,
    rank-4 and sparse kernels, every column, per element to the twin and to
@@ -120,10 +131,10 @@ Phases (any failure raises, and the exit code is not 0):
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16, and c17's K13 sweeps per
    call, 4, 80 and 168, all on the tile route, with its pack and unpack
-   launches; K2's, K4's, K6's, K7's, K3's, K3c's, K8T's and K12's launches
-   split by route, the tile route taken, c8's and c9's K6 only there, c11's
-   K8T and c15's 5^3 median on the tile route, no config on K2's writeback
-   route);
+   launches; K2's, K4's, K6's, K7's, K3's, K3c's, K8T's, K9's, K9T's,
+   K11's and K12's launches split by route, the tile route taken, c8's and
+   c9's K6 only there, c11's K8T, c14's K9 and K9T, c15's 5^3 median and
+   c16's K11 on the tile route, no config on K2's writeback route);
    then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
@@ -155,8 +166,10 @@ Phases (any failure raises, and the exit code is not 0):
    shapes on each route beside ``max_pool3d`` and c17's hole filling per
    call and per sweep on the packed state, on bool bytes and on the nd
    route beside the call's byte bound; K2 per axis at c5 as K4 (route, W, blocks per SM,
-   waves, every width, the lines route), K9T at c14 per column and on
-   its nd route; one line per probe, its calls timed back to back: ms,
+   waves, every width, the lines route), K9 and K9T at c14 per column and
+   on the nd route (K9 also for c14's 3^3 convolve), K11 at c16 on each
+   route (the ball erosion, the non-flat 3^3 dilation and a flat 5^3 box
+   beside ``max_pool3d``); one line per probe, its calls timed back to back: ms,
    M rows/s, GB/s of the rows
    moved, from L2 or HBM, beside the byte bound, the twin and the library
    call, ``index_select``, ``gather``, ``embedding_bag`` or ``index_add_``;
@@ -165,7 +178,8 @@ Phases (any failure raises, and the exit code is not 0):
    library-only probes' rates), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel (K2,
-K4, K6, K7, K8T, K9T, K3, K3c, K12 and K13 with their launches per route;
+K4, K6, K7, K8T, K9, K9T, K3, K3c, K11, K12 and K13 with their launches
+per route;
 K13 also
 its sweeps and its pack and unpack launches); the last line
 is
@@ -173,7 +187,8 @@ is
 CUDA device is present or when the package is missing.
 
 ``times_ab(card)`` times K2 at c5, K8T at c11, K12's 5^3 median at c15,
-K6 at c8 and c9, K2's integer writeback at c2, K9T at c14, K3 at c5
+K6 at c8 and c9, K2's integer writeback at c2, K9T and K9 at c14, K11 at
+c16, K3 at c5
 (orders 3 and 1), K3c at c7 and every config
 through the public wrappers only, and
 prints a digest of K6's output bits, so that a copy of this file put into
@@ -438,10 +453,14 @@ def _check_k9t_ptxas(log):
                              f"float32 with a stack frame or spills: {bad}")
 
 
-# K8T's tile route (dtype, width W) and K12's select route on a halo box
-# (dtype, column C)
+# K8T's tile route (dtype, width W), K12's select route on a halo box
+# (dtype, column C), K9's tile route (dtype, column C) and K11's (dtype, work
+# type, minimum, non-flat, column C)
 _K8T_TILE = re.compile(r"correlate1d_transpose_tile_kernelI([fd])Li(\d+)E")
 _K12_TILE = re.compile(r"rank_select_tile_kernelI([bhatsjimlfd])Li(\d)E")
+_K9_TILE = re.compile(r"correlate_nd_tile_kernelI([fd])Li(\d)E")
+_K11_TILE = re.compile(r"min_max_tile_kernelI([bhatsjimlfd])([bhatsjimlfd])"
+                       r"Lb([01])ELb([01])ELi(\d)E")
 _MANGLED = {"b": "bool", "h": "uint8", "a": "int8", "t": "uint16",
             "s": "int16", "j": "uint32", "i": "int32", "m": "uint64",
             "l": "int64", "f": "float32", "d": "float64"}
@@ -540,13 +559,13 @@ def _k3_sass(path):
 def phase_build():
     """Build every source; print each one's nvcc time, its kernels' worst
     register, stack and spill figures, every other kernel with a stack
-    frame or spills, K2/K4/K6/K7's and K9T's tile instantiations and the
-    K1/K1c, K5/K5c and K3/K3c tables, from the ptxas report kept beside
-    each library (built in this run or before; a missing report fails).
-    K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's writeback route in
-    float64 too, K1/K1c and K5/K5c at orders 1 and 3 in float32, and every
-    K3/K3c instantiation must keep their state in registers: no stack
-    frame, no spills. Then K3/K3c's atomic instructions (:func:`_k3_sass`),
+    frame or spills, K2/K4/K6/K7's, K9T's, K8T's, K12's, K9's and K11's tile
+    instantiations and the K1/K1c, K5/K5c and K3/K3c tables, from the ptxas
+    report kept beside each library (built in this run or before; a missing
+    report fails). K2/K4/K6/K7 and K9T's tile in float32, K6 and K2's
+    writeback route in float64 too, K1/K1c and K5/K5c at orders 1 and 3 in
+    float32, and every K3/K3c, K8T, K12, K9 and K11 tile instantiation must
+    keep their state in registers: no stack frame, no spills. Then K3/K3c's atomic instructions (:func:`_k3_sass`),
     which it returns."""
     from elasticdeform_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -582,6 +601,14 @@ def phase_build():
     _check_tile_table(
         "K12 select tile", _build.build_logs["morphology"], _K12_TILE, 22,
         lambda dt, c: f"{_MANGLED[dt]} C={c}")
+    _check_tile_table(
+        "K9 tile", _build.build_logs["filters"], _K9_TILE, 8,
+        lambda dt, c: f"{_MANGLED[dt]} C={c}")
+    _check_tile_table(
+        "K11 tile", _build.build_logs["morphology"], _K11_TILE, 88,
+        lambda dt, w, mn, nf, c: f"{_MANGLED[dt]} work {_MANGLED[w]} "
+        f"{'min' if mn == '1' else 'max'} "
+        f"{'non-flat' if nf == '1' else 'flat'} C={c}")
     for name, label, pattern, orders, count, every in (
             ("resample", "K1/K1c", _K1_NAME, "012345", 96, False),
             ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80, False),
@@ -757,10 +784,13 @@ def phase_kernels():
     _check_int_resampler(rs)
     _check_int_spline_filter(rs)
     _check_int_filters(rs)
+    _check_k9_routes(rs)
     _check_k9t_routes(rs, worst)
     _check_k8t_routes(rs, worst)
     _check_filter_kernels(rs, worst)
+    _check_morph_outputs(rs)
     _check_morph_kernels(rs)
+    _check_k11_routes(rs, torch.device("cuda"))
     _check_k12_routes(rs, torch.device("cuda"))
     return worst
 
@@ -1461,10 +1491,13 @@ def _check_int_filters(rs):
     integer arrays, in every filter mode (N-D calls also the ``grid-*``
     aliases), 1-D to 3-D images of constant runs and one 512 x 512 image:
     each output equal to the same call with ``device="cpu"`` bit for bit,
-    each card call with the launches it needs."""
+    each card call with the launches it needs, K9's all on its tile
+    route."""
     import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
     images = [(shape, idt) for shape in _INT_FILTER_SHAPES
               for idt in ("uint8", "int16")] + [((512, 512), "int16")]
+    k9 = dict(ft.correlate_nd.routes)
     n = 0
     for shape, idt in images:
         for label, call, need in _int_filter_calls(rs, shape, idt):
@@ -1486,7 +1519,11 @@ def _check_int_filters(rs):
                     raise AssertionError(f"{what}: launches {took}, not "
                                          f"{need}")
                 n += 1
-    print(f"correlate and convolve (K9) into uint8/int16/int32, correlate1d "
+    k9 = {r: v - k9[r] for r, v in ft.correlate_nd.routes.items()}
+    if k9["nd"] or not k9["tile"]:
+        raise AssertionError(f"K9 must take its tile route here: {k9}")
+    print(f"correlate and convolve (K9, {k9['tile']} launches on its tile "
+          f"route) into uint8/int16/int32, correlate1d "
           f"on K8's direct route, gaussian_filter float32 -> int16, "
           f"uniform_filter, sobel and prewitt into integer arrays, every "
           f"mode, 1-D to 3-D and a 512x512 image: {n} calls equal the CPU "
@@ -1532,7 +1569,7 @@ def _check_k9t_routes(rs, worst):
         terms = ft.correlate_nd_transpose_plain(g.abs(), np.abs(w), centers,
                                                 mode)
         rtol, atol = _terms_tol(dtype, terms)
-        plan = ft._nd_transpose_plan(tuple(shape), w.shape, dtype)
+        plan = ft._nd_plan(tuple(shape), w.shape, dtype)
         if plan.route != "tile":
             raise AssertionError(f"{what}: plan {plan}, not the tile route")
         before = dict(ft.correlate_nd_transpose.routes)
@@ -1541,7 +1578,7 @@ def _check_k9t_routes(rs, worst):
             raise AssertionError(f"{what}: the wrapper did not count a tile "
                                  "launch")
         nd = ft._launch_nd_transpose(g, w, centers, mode,
-                                     ft._nd_transpose_plan(shape, w.shape,
+                                     ft._nd_plan(shape, w.shape,
                                                            dtype, route="nd"))
         torch.cuda.synchronize()
         worst["correlate_nd_transpose"] = max(
@@ -1550,7 +1587,7 @@ def _check_k9t_routes(rs, worst):
             _assert_close(got, nd, rtol, atol, f"{what} vs the nd route"))
         exact += int(torch.equal(got, nd))
         for c in ft.TILE_COLUMNS:
-            tp = ft._nd_transpose_plan(shape, w.shape, dtype, column=c,
+            tp = ft._nd_plan(shape, w.shape, dtype, column=c,
                                        route="tile")
             t = ft._launch_nd_transpose(g, w, centers, mode, tp)
             torch.cuda.synchronize()
@@ -1718,7 +1755,7 @@ def _check_k12_routes(rs, dev):
                 n += 1
     # a repeated call uploads nothing: its tables come from the caches
     x = _rand_volume(rs, (9, 10, 35), torch.float32, dev)
-    caches = (mo._rank_tile_tables, mo._cached_geometry, mo._network_pairs)
+    caches = (mo._tile_tables, mo._cached_geometry, mo._network_pairs)
     for k, rank in ((125, 62), (27, 13)):
         fp = np.ones((5, 5, 5) if k == 125 else (3, 3, 3), bool)
         centers = [s // 2 for s in fp.shape]
@@ -1731,6 +1768,234 @@ def _check_k12_routes(rs, dev):
     print(f"K12 select route: the tile route bit for bit with the nd route "
           f"and the twin in {n} cases (eleven dtypes, 65-343 taps, ranks 1, "
           f"middle and k - 2, every mode, 1-D to 3-D and a batch axis)")
+
+
+def _check_k9_routes(rs):
+    """K9 on both routes: the tile route at the plan's column and at every
+    column (C 1/2/4/8) bit for bit with the nd route and the twin, and the
+    wrapper on the tile route and its count; at c14's shapes (160x192x224,
+    a 5^3 kernel at origin (1, 0, -1), constant with cval 0.5; a 3^3 kernel
+    on a (2, 160, 192, 224) batch) in every mode, float32 (float64 once);
+    a 2-D and a rank-4 batch-merged case, a sparse 3x2x4 kernel at extreme
+    origins, kernels longer than an axis, float64 too; a repeated call
+    uploads nothing (its tables come from the caches)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
+    dev = torch.device("cuda")
+    w5 = rs.randn(5, 5, 5)
+    w3 = rs.randn(1, 3, 3, 3)
+    sparse = rs.randn(3, 2, 4) * (rs.rand(3, 2, 4) > 0.5)
+    sparse[0, 0, 0] = 0.0       # a zero first tap: not a tap
+    sparse[2, 1, 3] = 1.5
+    cases = [((160, 192, 224), w5, (3, 2, 1)),
+             ((2, 160, 192, 224), w3, (0, 1, 1, 1)),
+             ((37, 300), rs.randn(5, 3), (2, 1)),
+             ((2, 9, 10, 11), rs.randn(1, 3, 3, 3), (0, 2, 0, 1)),
+             ((9, 10, 11), sparse, (0, 1, 3)),
+             ((9, 10, 11), sparse, (2, 0, 0)),
+             ((5, 3, 40), rs.randn(7, 1, 5), (6, 0, 0)),
+             ((3, 4, 9), rs.randn(5, 6, 3), (2, 5, 1)),
+             ((70,), rs.randn(9), (8,))]
+    n = launches = 0
+    for (shape, w, centers), dtype, mode in itertools.product(
+            cases, (torch.float32, torch.float64), MODES):
+        big = math.prod(shape) > 10 ** 6
+        if big and dtype == torch.float64 and mode != "mirror":
+            continue    # c14's shapes: float32 in every mode, float64 once
+        x = torch.as_tensor(rs.randn(*shape) * 50, dtype=dtype, device=dev)
+        what = f"K9 {dtype} {mode} shape={shape} kernel={w.shape} " \
+            f"centres={centers}"
+        want = ft.correlate_nd_plain(x, w, centers, mode, 0.5)
+        plan = ft._nd_plan(tuple(shape), w.shape, dtype)
+        if plan.route != "tile":
+            raise AssertionError(f"{what}: plan {plan}, not the tile route")
+        before = dict(ft.correlate_nd.routes)
+        got = ft.correlate_nd(x, w, centers, mode, 0.5)
+        if ft.correlate_nd.routes["tile"] != before["tile"] + 1:
+            raise AssertionError(f"{what}: the wrapper did not count a tile "
+                                 "launch")
+        nd = ft._launch_correlate_nd(x, w, centers, mode, 0.5,
+                                     ft._nd_plan(shape, w.shape, dtype,
+                                                 route="nd"))
+        torch.cuda.synchronize()
+        for label, t in (("the tile route", got), ("the nd route", nd)):
+            if not torch.equal(_bits(t), _bits(want)):
+                raise AssertionError(
+                    f"{what}: {label} differs from the twin in "
+                    f"{int((_bits(t) != _bits(want)).sum())} values, max "
+                    f"abs err {float((t - want).abs().max()):.3e}")
+        launches += 2
+        for c in ft.TILE_COLUMNS:
+            tp = ft._nd_plan(shape, w.shape, dtype, column=c, route="tile")
+            t = ft._launch_correlate_nd(x, w, centers, mode, 0.5, tp)
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(t), _bits(nd)):
+                raise AssertionError(
+                    f"{what} C={c}: the tile route differs from the nd "
+                    f"route in {int((_bits(t) != _bits(nd)).sum())} values")
+            launches += 1
+        n += 1
+        del x, want, got, nd
+    # a repeated call uploads nothing: its tables come from the caches
+    x = torch.as_tensor(rs.randn(9, 10, 11), device=dev)
+    for route in ("tile", "nd"):
+        plan = ft._nd_plan(x.shape, sparse.shape, x.dtype, route=route)
+        ft._launch_correlate_nd(x, sparse, (1, 1, 2), "wrap", 0.0, plan)
+        misses = [f.cache_info().misses for f in (ft._nd_tile_tables,
+                                                  ft._nd_tables)]
+        ft._launch_correlate_nd(x, sparse, (1, 1, 2), "wrap", 0.0, plan)
+        if [f.cache_info().misses for f in (ft._nd_tile_tables,
+                                            ft._nd_tables)] != misses:
+            raise AssertionError(f"K9 ({route} route) uploaded its tables "
+                                 "again at a repeated call")
+    print(f"K9 tile route (C {'/'.join(map(str, ft.TILE_COLUMNS))}) and nd "
+          f"route bit for bit with the twin and each other in {n} cases, "
+          f"{launches} launches (c14's shapes in every mode, 2-D, rank 4, "
+          f"1-D, sparse and long kernels, float32 and float64); repeated "
+          f"calls upload nothing")
+
+
+def _check_k11_routes(rs, dev):
+    """K11 on both routes: the tile route bit for bit with the nd route and
+    the twin (a zero's sign too, NaN where NaN) and the wrapper on the tile
+    route and its count, in the eleven dtypes (floats with NaN, infinities
+    and zeros of both signs, integers over their range or a pool of ties),
+    flat and non-flat (the non-flat integers and bool in float64 work,
+    saturating), minimum and maximum, a ball of radius 2 (c16's 33 taps), a
+    sparse 3-D footprint, a 2-D cross, a 1-D comb and a footprint over a
+    batch axis, every mode with a ``cval`` in the work type; a repeated
+    call uploads nothing."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    cross = np.zeros((5, 3), bool)
+    cross[2] = cross[:, 1] = True
+    footprints = ((_ball(2), (11, 9, 35)),
+                  (rs.rand(3, 4, 5) > 0.4, (4, 10, 33)),
+                  (cross, (13, 40)),
+                  (np.array([1, 0, 1, 1, 0, 0, 1], bool), (70,)),
+                  (_ball(1)[None], (2, 5, 9, 33)))
+    n = 0
+    for i, dtype in enumerate(_morph_dtypes()):
+        for j, (fp, shape) in enumerate(footprints):
+            x = _rand_volume(rs, shape, dtype, dev)
+            for nonflat, minimum in itertools.product((False, True),
+                                                      (True, False)):
+                mode = MODES[(n + i) % 5]
+                work = mo._work_dtype(dtype, nonflat)
+                st = np.round(rs.randn(*fp.shape) * 50, 1) if nonflat \
+                    else None
+                centers = [int(rs.randint(0, k)) for k in fp.shape]
+                args = (x, fp, st, centers, mode, _cval_for(rs, work),
+                        minimum)
+                what = f"K11 {dtype} {mode} shape={shape} taps=" \
+                    f"{int(fp.sum())} nonflat={nonflat} min={minimum} " \
+                    f"centres={centers}"
+                plan = mo._min_max_plan(shape, fp.shape, work,
+                                        int(fp.sum()), nonflat)
+                if plan.route != "tile":
+                    raise AssertionError(f"{what}: plan {plan}")
+                before = dict(mo.min_max_filter.routes)
+                got = mo.min_max_filter(*args)
+                if mo.min_max_filter.routes["tile"] != before["tile"] + 1:
+                    raise AssertionError(f"{what}: the wrapper did not count "
+                                         "a tile launch")
+                nd = mo._launch_min_max(*args, mo._min_max_plan(
+                    shape, fp.shape, work, int(fp.sum()), nonflat,
+                    route="nd"))
+                want = mo.min_max_filter_plain(*args)
+                torch.cuda.synchronize()
+                _same(got, want, f"{what} tile route vs plain")
+                _same(nd, want, f"{what} nd route vs plain")
+                n += 1
+    # a repeated call uploads nothing: its tables come from the caches
+    x = _rand_volume(rs, (9, 10, 35), torch.int16, dev)
+    caches = (mo._tile_tables, mo._structure_values, mo._cached_geometry)
+    s3 = -30.0 * ((np.indices((3, 3, 3)) - 1) ** 2).sum(0)
+    for route in ("tile", "nd"):
+        plan = mo._min_max_plan(x.shape, (3, 3, 3), torch.float64, 27, True,
+                                route=route)
+        args = (x, np.ones((3, 3, 3), bool), s3, [1, 1, 1], "reflect", 0.0,
+                False, plan)
+        mo._launch_min_max(*args)
+        misses = [c.cache_info().misses for c in caches]
+        mo._launch_min_max(*args)
+        if [c.cache_info().misses for c in caches] != misses:
+            raise AssertionError(f"K11 ({route} route) uploaded its tables "
+                                 "again at a repeated call")
+    print(f"K11 tile route bit for bit with the nd route and the twin in {n} "
+          f"cases (eleven dtypes, flat and non-flat, min and max, 7-33 taps "
+          f"in 1-D to 3-D and over a batch axis, every mode); repeated calls "
+          f"upload nothing")
+
+
+# step 0 of the morphology tier's outputs: (function, keywords) per
+# structure kind; minimum_filter and maximum_filter take no structure
+_MORPH_OUTPUT_CALLS = ("minimum_filter", "maximum_filter", "grey_erosion",
+                       "grey_dilation", "grey_opening", "grey_closing",
+                       "white_tophat", "black_tophat",
+                       "morphological_gradient", "morphological_laplace")
+
+
+def _check_morph_outputs(rs):
+    """Step 0 of the morphology tier's outputs: ``grey_erosion``,
+    ``grey_dilation``, ``grey_opening``, ``grey_closing``, the top-hats,
+    ``morphological_gradient`` and ``morphological_laplace`` with a box
+    (K10), a flat footprint (K11) and a non-flat structure (K11, float64
+    work for integers), ``minimum_filter`` and ``maximum_filter`` with the
+    box and the footprint, from int16, uint8 and float32 inputs (the float32
+    ones holding +-inf, NaN, 1e30 and zeros of both signs) into uint8,
+    int16, int32 and float32 ``output=`` arrays, in every mode, 2-D and 3-D:
+    each output equal to the same call with ``device="cpu"`` bit for bit
+    (NaN where NaN: a NaN that arithmetic makes has another payload on each
+    device).
+    Prints the card's and the CPU's own float -> int64 conversion of inf,
+    NaN and 1e30, which ``core._finish_filter`` no longer leaves to the
+    device."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    edge = torch.tensor([np.inf, -np.inf, np.nan, 1e30])
+    raw = {d: edge.to(d).to(torch.int64).cpu().tolist()
+           for d in ("cpu", "cuda")}
+    cross = np.zeros((3, 3, 3), bool)
+    cross[1, 1] = cross[1, :, 1] = cross[:, 1, 1] = True
+    s3 = -30.0 * ((np.indices((3, 3, 3)) - 1) ** 2).sum(0)
+    kinds = (("box", dict(size=3)), ("footprint", dict(footprint=cross)),
+             ("non-flat", dict(structure=s3)))
+    n = 0
+    for idt, shape in itertools.product(("int16", "uint8", "float32"),
+                                        ((6, 9, 35), (33, 40))):
+        if idt == "float32":
+            x = (rs.randn(*shape) * 300).astype(np.float32)
+            for value, share in ((np.inf, 0.03), (-np.inf, 0.03),
+                                 (np.nan, 0.02), (1e30, 0.02), (0.0, 0.05),
+                                 (-0.0, 0.05)):
+                x[rs.rand(*shape) < share] = value
+        else:
+            info = np.iinfo(idt)
+            x = rs.randint(info.min, int(info.max) + 1, shape).astype(idt)
+        for name, (kind, kw), odt, mode in itertools.product(
+                _MORPH_OUTPUT_CALLS, kinds, ("uint8", "int16", "int32",
+                                             "float32"), MODES):
+            if name.endswith("_filter") and kind == "non-flat":
+                continue
+            kw = {k: (v[1] if k != "size" and len(shape) == 2 else v)
+                  for k, v in kw.items()}
+            fn = getattr(et, name)
+            got = fn(x, mode=mode, cval=2.5, output=np.empty(shape, odt),
+                     device="cuda", **kw)
+            want = fn(x, mode=mode, cval=2.5, output=np.empty(shape, odt),
+                      device="cpu", **kw)
+            _same(torch.as_tensor(got), torch.as_tensor(want),
+                  f"{name} {kind} {idt} -> {odt} {shape} mode={mode} vs "
+                  f"the CPU run")
+            n += 1
+    print(f"morphology output= (grey erosion, dilation, opening, closing, "
+          f"top-hats, gradient, Laplace, minimum and maximum filters; box, "
+          f"footprint and non-flat structure) from int16, uint8 and float32 "
+          f"(+-inf, NaN, 1e30, +-0) into uint8/int16/int32/float32 arrays, "
+          f"every mode, 2-D and 3-D: {n} calls equal the CPU run bit for "
+          f"bit; the devices' own float -> int64 of [inf, -inf, nan, 1e30]: "
+          f"cpu {raw['cpu']}, cuda {raw['cuda']}")
 
 
 def _terms_tol(dtype, terms):
@@ -2693,11 +2958,16 @@ _EXACT_LAUNCHES = {
             "binary_step": 0},
     "c16": {"min_max_filter1d": 6, "min_max_filter": 3, "rank_filter": 0,
             "binary_step": 0}}
-# the launches per route of c11's K8T (one per spatial axis) and c15's K12
-# (3^3 median and the 33-tap percentile on the network route, the 5^3
-# median on the select route's tile)
+# the launches per route of c11's K8T (one per spatial axis), c14's K9
+# (correlate and convolve) and K9T, c15's K12 (3^3 median and the 33-tap
+# percentile on the network route, the 5^3 median on the select route's
+# tile) and c16's K11 (the top-hat's erosion and dilation, the non-flat
+# dilation)
 _TILE_ROUTES = (("c11", "correlate1d_transpose", {"tile": 3, "lines": 0}),
-                ("c15", "rank_filter", {"network": 2, "tile": 1, "nd": 0}))
+                ("c14", "correlate_nd", {"tile": 2, "nd": 0}),
+                ("c14", "correlate_nd_transpose", {"tile": 1, "nd": 0}),
+                ("c15", "rank_filter", {"network": 2, "tile": 1, "nd": 0}),
+                ("c16", "min_max_filter", {"tile": 3, "nd": 0}))
 # c17's K13 sweeps per call (the fixpoints' counts of the seeded
 # segmentation, as every PR since PR 5 measured them) and its (pack, unpack)
 # launches: the opening packs and unpacks its erosion and its dilation, each
@@ -2834,12 +3104,15 @@ def phase_main_path():
                 routes[k][r] += v
     print(f"main path launches per config: {json.dumps(launches)}")
     print(f"main path launches per route: {json.dumps(routes)}")
-    print("K2's, K6's, K3's, K3c's, K8T's and K12's launches per route and "
-          "config: " + json.dumps({name: {k: r[k] for k in (
-              "spline_prefilter", "spline_prefilter_bc", "resample_bwd",
-              "resample_coords_bwd", "correlate1d_transpose", "rank_filter")
-              if sum(r[k].values())} for name, r in cfg_routes.items()}))
-    # c11's three K8T launches and c15's 5^3 median take the tile route
+    shown = ("spline_prefilter", "spline_prefilter_bc", "resample_bwd",
+             "resample_coords_bwd", "correlate1d_transpose", "correlate_nd",
+             "correlate_nd_transpose", "min_max_filter", "rank_filter")
+    print("K2's, K6's, K3's, K3c's, K8T's, K9's, K9T's, K11's and K12's "
+          "launches per route and config: " + json.dumps(
+              {name: {k: r[k] for k in shown if sum(r[k].values())}
+               for name, r in cfg_routes.items()}))
+    # c11's three K8T launches, c14's K9 and K9T, c15's 5^3 median and c16's
+    # K11 take the tile route
     for name, k, want in _TILE_ROUTES:
         if cfg_routes[name][k] != want:
             raise AssertionError(f"{name}: {k}'s launches per route "
@@ -3788,8 +4061,9 @@ def _times_filters(row, card):
     and ``conv3d`` with an (L,1,1), (1,L,1), (1,1,L) kernel under zero
     padding; K8 in float64 on the paired route at c13's shapes; K9 and K9T
     at c14's shapes (5^3 kernel, constant) beside ``conv3d`` and
-    ``conv_transpose3d`` (zero padding). cuDNN's TF32 is off for the
-    yardsticks."""
+    ``conv_transpose3d`` (zero padding), K9 on each route and at every
+    column, also for c14's 3^3 convolve of a batch of two. cuDNN's TF32 is
+    off for the yardsticks."""
     import torch
     import torch.nn.functional as F
     from elasticdeform_tpu_torch.ops import filters as ft
@@ -3942,11 +4216,53 @@ def _times_filters(row, card):
     err = _assert_close(ft.correlate_nd(x, w5, cen, "constant", 0.5),
                         ft.correlate_nd_plain(x, w5, cen, "constant", 0.5),
                         *_tol(torch.float32, scale), "K9 at c14 shapes")
+    k9 = {}
+    for label, y, w, c, mode, cval in (
+            ("5^3", x, w5, cen, "constant", 0.5),
+            ("3^3 batch 2", torch.as_tensor(rs.rand(2, *S).astype(
+                np.float32), device=dev), rs.randn(1, 3, 3, 3), (0, 1, 1, 1),
+             "reflect", 0.0)):
+        plan = ft._nd_plan(tuple(y.shape), w.shape, y.dtype)
+        nd = ft._nd_plan(tuple(y.shape), w.shape, y.dtype, route="nd")
+        if not torch.equal(_bits(ft.correlate_nd(y, w, c, mode, cval)),
+                           _bits(ft._launch_correlate_nd(y, w, c, mode, cval,
+                                                         nd))):
+            raise AssertionError(f"K9 {label} at c14 shapes: the tile route "
+                                 "differs from the nd route")
+        cols = {q: _time_ms(lambda q=q: ft._launch_correlate_nd(
+            y, w, c, mode, cval, ft._nd_plan(tuple(y.shape), w.shape,
+                                             y.dtype, column=q,
+                                             route="tile")))
+                for q in ft.TILE_COLUMNS}
+        k9[label] = {
+            "ms": _time_ms(lambda: ft.correlate_nd(y, w, c, mode, cval)),
+            "nd_route_ms": _time_ms(lambda: ft._launch_correlate_nd(
+                y, w, c, mode, cval, nd)),
+            "column": plan.column, "column_ms": cols,
+            "conv3d_ms": _time_ms(lambda: F.conv3d(
+                y.reshape(-1, 1, *S), torch.as_tensor(
+                    w.reshape(1, 1, *w.shape[-3:]), dtype=y.dtype,
+                    device=dev), padding=tuple(k // 2 for k in
+                                               w.shape[-3:]))),
+            "bound": _bound(2 * y.numel() * 4,
+                            y.numel() * 2 * int(np.count_nonzero(w)))}
+        r = k9[label]
+        print(f"correlate_nd {label} at c14 shapes: {plan.route} route, C="
+              f"{plan.column}, box {plan.box}, {plan.smem} bytes shared, "
+              f"{plan.blocks} blocks; {r['ms']:.4f} ms, per column "
+              f"{', '.join(f'C={q} {v:.4f}' for q, v in cols.items())}; nd "
+              f"route {r['nd_route_ms']:.4f} ms; conv3d (zero padding) "
+              f"{r['conv3d_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms by "
+              f"{r['bound'][1]} [{card}]")
+        del y
     row("correlate_nd", "filters.cu", "elasticdeform_tpu/ops/filters.py:317",
-        _time_ms(lambda: ft.correlate_nd(x, w5, cen, "constant", 0.5)),
+        k9["5^3"]["ms"],
         _time_ms(lambda: ft.correlate_nd_plain(x, w5, cen, "constant", 0.5)),
-        bound9, _time_ms(lambda: F.conv3d(x[None, None], w5t, padding=2)),
-        err, at="c14")
+        bound9, k9["5^3"]["conv3d_ms"], err, at="c14",
+        extra={"nd_route_ms": k9["5^3"]["nd_route_ms"],
+               "column": k9["5^3"]["column"],
+               "column_ms": k9["5^3"]["column_ms"],
+               "batch_3^3": k9["3^3 batch 2"]})
     terms = ft.correlate_nd_transpose_plain(x.abs(), np.abs(w5), cen,
                                             "constant")
     err = _assert_close(ft.correlate_nd_transpose(x, w5, cen, "constant"),
@@ -3954,13 +4270,13 @@ def _times_filters(row, card):
                                                         "constant"),
                         *_terms_tol(torch.float32, terms), "K9T at c14 shapes")
     del terms
-    plan = ft._nd_transpose_plan(x.shape, w5.shape, x.dtype)
-    nd_plan = ft._nd_transpose_plan(x.shape, w5.shape, x.dtype, route="nd")
+    plan = ft._nd_plan(x.shape, w5.shape, x.dtype)
+    nd_plan = ft._nd_plan(x.shape, w5.shape, x.dtype, route="nd")
     nd_ms = _time_ms(lambda: ft._launch_nd_transpose(x, w5, cen, "constant",
                                                      nd_plan))
     cols = {}
     for c in ft.TILE_COLUMNS:
-        p = ft._nd_transpose_plan(x.shape, w5.shape, x.dtype, column=c,
+        p = ft._nd_plan(x.shape, w5.shape, x.dtype, column=c,
                                   route="tile")
         cols[c] = _time_ms(lambda p=p: ft._launch_nd_transpose(
             x, w5, cen, "constant", p))
@@ -3985,8 +4301,9 @@ def _times_filters(row, card):
 def _times_morphology(row, card, k13=None):
     """Phase 4 for the morphology tier: K10 as the three passes of c16's
     5^3 dilation (int16, 512x512x300) beside ``max_pool3d`` (stride 1) on the
-    reflect-padded float32 volume; K11 as the ball erosion of c16's
-    top-hat, and its non-flat 3^3 float64 route; K12 at c15's shapes on its
+    reflect-padded float32 volume; K11 on each route as the ball erosion of
+    c16's top-hat, its non-flat 3^3 float64 dilation and a flat 5^3 box
+    beside the same ``max_pool3d``; K12 at c15's shapes on its
     three filters (network 27 and 33 taps, select 125); K13 as one 3^3
     erosion sweep of c17's mask on each route beside ``max_pool3d`` with a
     3^3 window, and c17's hole filling per call and per sweep on the packed
@@ -4029,28 +4346,68 @@ def _times_morphology(row, card, k13=None):
         _bound(3 * 2 * numel * 2, 3 * numel * 4),
         _time_ms(lambda: F.max_pool3d(vp, 5, stride=1)), 0.0, at="c16",
         extra={"axis_ms": per_axis})
-    del vp
 
-    ball = _ball(2)
-    cen = [2, 2, 2]
-    _same(mo.min_max_filter(v, ball, None, cen, "reflect", 0, True),
-          mo.min_max_filter_plain(v, ball, None, cen, "reflect", 0, True),
-          "K11 at c16 shapes")
+    # K11 on each route: c16's top-hat erosion (a ball of radius 2, 33
+    # taps), its non-flat 3^3 dilation of the first 256 slices (float64
+    # work) and a flat 5^3 box, the function max_pool3d computes (on the
+    # padded float32 volume, values compared)
     g3 = np.indices((3, 3, 3)) - 1
     s3 = -30.0 * (g3 ** 2).sum(0)
     ones3 = np.ones((3, 3, 3), dtype=bool)
-    nonflat = _time_ms(lambda: mo.min_max_filter(
-        v, ones3, s3, [1, 1, 1], "reflect", 0.0, False))
-    print(f"min_max_filter non-flat 3^3 (float64 work, saturating cast) at "
-          f"c16 shapes: {nonflat:.4f} ms [{card}]")
+    k11 = {}
+    for label, y, fp, st, cen, minimum in (
+            ("ball2 erosion", v, _ball(2), None, [2, 2, 2], True),
+            ("non-flat 3^3 dilation", v[:256], ones3, s3, [1, 1, 1], False),
+            ("box 5^3 dilation", v, np.ones((5, 5, 5), bool), None,
+             [2, 2, 2], False)):
+        nonflat = st is not None
+        work = mo._work_dtype(y.dtype, nonflat)
+        args = (y, fp, st, cen, "reflect", 0.0 if nonflat else 0, minimum)
+        plan = mo._min_max_plan(tuple(y.shape), fp.shape, work,
+                                int(fp.sum()), nonflat)
+        nd = mo._min_max_plan(tuple(y.shape), fp.shape, work, int(fp.sum()),
+                              nonflat, route="nd")
+        got = mo.min_max_filter(*args)
+        _same(got, mo._launch_min_max(*args, nd),
+              f"K11 {label} at c16 shapes, tile route vs nd route")
+        r = {"route": plan.route, "taps": int(fp.sum()), "box": plan.box,
+             "smem": plan.smem, "blocks": plan.blocks,
+             "ms": _time_ms(lambda a=args: mo.min_max_filter(*a)),
+             "nd_route_ms": _time_ms(
+                 lambda a=args: mo._launch_min_max(*a, nd), reps=3),
+             "bound": _bound(2 * y.numel() * 2,
+                             y.numel() * int(fp.sum()))}
+        _same(got, mo.min_max_filter_plain(*args),
+              f"K11 {label} at c16 shapes vs plain")
+        if fp.shape == (5, 5, 5) and fp.all():
+            lib = F.max_pool3d(vp, 5, stride=1)[0, 0]
+            r["max_pool3d_differs"] = int((lib.to(torch.int16) != got).sum())
+            del lib
+            r["max_pool3d_ms"] = _time_ms(lambda: F.max_pool3d(vp, 5,
+                                                               stride=1))
+        k11[label] = r
+        print(f"min_max_filter {label} ({r['taps']} taps) at c16 shapes "
+              f"{tuple(y.shape)} int16, {work} work: {r['route']} route "
+              f"{r['ms']:.4f} ms (box {r['box']}, {r['smem']} B shared, "
+              f"{r['blocks']} blocks), nd route {r['nd_route_ms']:.4f} ms, "
+              f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}"
+              + (f", max_pool3d {r['max_pool3d_ms']:.4f} ms (values "
+                 f"differing from K11's: {r['max_pool3d_differs']})"
+                 if "max_pool3d_ms" in r else "") + f" [{card}]")
+        del got
+    del vp
+    ball, cen = _ball(2), [2, 2, 2]
+    r = k11["ball2 erosion"]
     row("min_max_filter", "morphology.cu",
-        "elasticdeform_tpu/ops/morphology.py:196",
-        _time_ms(lambda: mo.min_max_filter(v, ball, None, cen, "reflect", 0,
-                                           True)),
+        "elasticdeform_tpu/ops/morphology.py:196", r["ms"],
         _time_ms(lambda: mo.min_max_filter_plain(v, ball, None, cen,
                                                  "reflect", 0, True)),
-        _bound(2 * numel * 2, numel * int(ball.sum())), None, 0.0, at="c16",
-        extra={"nonflat_ms": nonflat})
+        r["bound"], k11["box 5^3 dilation"]["max_pool3d_ms"], 0.0, at="c16",
+        extra={"library": "max_pool3d 5^3 stride 1 on the padded float32 "
+               "volume, beside K11 on a flat 5^3 box (box_5^3)",
+               "nd_route_ms": r["nd_route_ms"],
+               "nonflat_3^3": k11["non-flat 3^3 dilation"],
+               "box_5^3": k11["box 5^3 dilation"]})
     del v
 
     S = (160, 192, 224)
@@ -4367,6 +4724,40 @@ def _times_ab_p2_k13(reps):
     return out
 
 
+def _times_ab_k9_k11(rs, reps):
+    """K9 at c14's two calls (a 5^3 kernel at origin (1, 0, -1) on 160 x
+    192 x 224 float32, constant, cval 0.5; a 3^3 kernel over a batch of
+    two, reflect) and K11 at c16's three (512 x 512 x 300 int16: a ball of
+    radius 2, erosion and dilation; the non-flat 3^3 dilation of 256
+    slices), through the public wrappers only, in ms."""
+    from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    import torch
+    S = (160, 192, 224)
+    x = torch.as_tensor(rs.rand(*S).astype(np.float32), device="cuda")
+    b = torch.as_tensor(rs.rand(2, *S).astype(np.float32), device="cuda")
+    w5, w3 = rs.randn(5, 5, 5), rs.randn(1, 3, 3, 3)
+    out = {"K9_c14_5^3": _time_ms(lambda: ft.correlate_nd(
+        x, w5, (3, 2, 1), "constant", 0.5), reps),
+        "K9_c14_3^3_batch2": _time_ms(lambda: ft.correlate_nd(
+            b, w3, (0, 1, 1, 1), "reflect", 0.0), reps)}
+    del x, b
+    v = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)).astype(
+        np.int16), device="cuda")
+    s3 = -30.0 * ((np.indices((3, 3, 3)) - 1) ** 2).sum(0)
+    ball = _ball(2)
+    for label, fn in (
+            ("K11_c16_ball_erosion", lambda: mo.min_max_filter(
+                v, ball, None, [2, 2, 2], "reflect", 0, True)),
+            ("K11_c16_ball_dilation", lambda: mo.min_max_filter(
+                v, ball, None, [2, 2, 2], "reflect", 0, False)),
+            ("K11_c16_nonflat_3^3", lambda: mo.min_max_filter(
+                v[:256], np.ones((3, 3, 3), bool), s3, [1, 1, 1], "reflect",
+                0.0, False))):
+        out[label] = _time_ms(fn, reps)
+    return out
+
+
 def times_ab(card, reps=REPS):
     """K2 over c5's three axes (64 x 64^3 float32, order 3) beside the
     ``tensordot`` chain, K8T over c11's three axes (3 x 160 x 192 x 224
@@ -4376,7 +4767,8 @@ def times_ab(card, reps=REPS):
     ``tensordot`` chain, K2 with the uint8 writeback over c2's 200 x 300
     (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
     origin (1, 0, -1), constant mode) beside ``conv_transpose3d`` (TF32
-    off), K3 and K3c (:func:`_times_ab_k3`), P2 and K13
+    off), K9 at c14 and K11 at c16 (:func:`_times_ab_k9_k11`), K3 and K3c
+    (:func:`_times_ab_k3`), P2 and K13
     (:func:`_times_ab_p2_k13`), and every config c1-c17
     whole, in ms (CUDA events, median of ``reps``); and the digest of K6's
     outputs over a sweep (:func:`_k6_digest`). It calls only the package's
@@ -4460,6 +4852,7 @@ def times_ab(card, reps=REPS):
     out["K12_select_c15"] = _time_ms(lambda: mo.rank_filter(
         x15, np.ones((5, 5, 5), bool), [2, 2, 2], "reflect", 0.0, 62), reps)
     del x15
+    out.update(_times_ab_k9_k11(rs, reps))
     out["K6_digest"] = _k6_digest(rs)
     del v, xi
     out.update(_times_ab_k3(rs, reps))
@@ -4700,7 +5093,7 @@ def _device_kernels(prof, calls):
     return kern
 
 
-def profile_ab(card, names=("c14",), reps=REPS, calls=10):
+def profile_ab(card, names=("c14", "c16"), reps=REPS, calls=10):
     """Each config of ``names`` whole (CUDA events, median of ``reps``), then
     ``calls`` calls of it under ``torch.profiler``: per kernel its device
     time and launches per call, and the host's wall time per call; and K9
@@ -4709,7 +5102,8 @@ def profile_ab(card, names=("c14",), reps=REPS, calls=10):
     two, reflect), CUDA events. Like :func:`times_ab` it calls only the
     package's public wrappers and configs, so it also profiles an older
     tree's package, one process per tree, in one call to the card. Prints
-    one line ``profile_ab: {json}`` and returns it."""
+    one line ``profile_ab: {json}`` and returns it. K11 alone at c16's
+    calls too (:func:`_times_ab_k9_k11`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from elasticdeform_tpu_torch.ops import filters as ft
@@ -4733,17 +5127,11 @@ def profile_ab(card, names=("c14",), reps=REPS, calls=10):
             "wall_ms_per_call": wall,
             "device_ms_per_call": sum(t for t, _ in kern.values()),
             "kernels": {k[:90]: v for k, v in kern.items()}}
-    S = (160, 192, 224)
-    x = torch.as_tensor(rs.rand(*S).astype(np.float32), device=dev)
-    b = torch.as_tensor(rs.rand(2, *S).astype(np.float32), device=dev)
-    w5, w3 = rs.randn(5, 5, 5), rs.randn(1, 3, 3, 3)
-    out["K9_c14_5^3"] = _time_ms(
-        lambda: ft.correlate_nd(x, w5, (3, 2, 1), "constant", 0.5), reps)
-    out["K9_c14_3^3_batch2"] = _time_ms(
-        lambda: ft.correlate_nd(b, w3, (0, 1, 1, 1), "reflect", 0.0), reps)
-    out["K9T_c14"] = _time_ms(
-        lambda: ft.correlate_nd_transpose(x, w5, (3, 2, 1), "constant"),
-        reps)
+    out.update(_times_ab_k9_k11(rs, reps))
+    x = torch.as_tensor(rs.rand(160, 192, 224).astype(np.float32), device=dev)
+    w5 = rs.randn(5, 5, 5)
+    out["K9T_c14"] = _time_ms(lambda: ft.correlate_nd_transpose(
+        x, w5, (3, 2, 1), "constant"), reps)
     print(f"profile_ab: {json.dumps(out)} [{card}]")
     return out
 

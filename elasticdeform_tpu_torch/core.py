@@ -900,14 +900,35 @@ def _truncating_dtype(dtype) -> bool:
     return np.dtype(dtype).kind in "biu"
 
 
+def _trunc_int64(res: torch.Tensor) -> torch.Tensor:
+    """``res`` truncated toward zero into int64 as XLA converts (the JAX
+    package's ``astype``): NaN to 0, values past the range saturated. A
+    plain ``.to(torch.int64)`` leaves those to the device (the CPU gives
+    int64's least value for +inf, the card its greatest). One reduction
+    (and a sync) finds whether any value needs that; the common case then
+    costs no more passes than the plain cast."""
+    t = torch.trunc(res)
+    if t.numel() == 0:
+        return t.to(torch.int64)
+    lo, hi = torch.aminmax(t)                # NaN propagates into both
+    if bool((lo >= -2.0 ** 63) & (hi < 2.0 ** 63)):
+        return t.to(torch.int64)
+    big = t >= 2.0 ** 63
+    # the largest value of t's dtype below 2^63
+    top = 2.0 ** 63 * (1 - torch.finfo(t.dtype).eps / 2)
+    m = t.nan_to_num_(0.0).clamp_(-2.0 ** 63, top).to(torch.int64)
+    return m.masked_fill_(big, torch.iinfo(torch.int64).max)
+
+
 def _finish_filter(res: torch.Tensor, dtype, out_array=None):
     """A filter result cast to the output dtype as SciPy's C cast does:
     integers truncate toward zero, then wrap modulo 2^bits (through int64,
-    as the JAX package under x64); bool is ``trunc != 0``."""
+    as the JAX package under x64, NaN and values past int64 as XLA converts
+    them: :func:`_trunc_int64`); bool is ``trunc != 0``."""
     dtype = np.dtype(dtype)
     if res.dtype != torch_dtype(dtype) and res.is_floating_point():
         if dtype.kind in "iu":
-            res = torch.trunc(res).to(torch.int64)
+            res = _trunc_int64(res)
         elif dtype.kind == "b":
             res = torch.trunc(res)
     return _finish(res, dtype, out_array)

@@ -1,6 +1,6 @@
 // Asynchronous copies of one element from device memory into shared
 // memory (cp.async), shared by the shared-memory tiles of K2/K4/K7
-// (prefilter.cu) and K9T (filters.cu). Without __CUDA_ARCH__ (a host
+// (prefilter.cu), K9 and K9T (filters.cu). Without __CUDA_ARCH__ (a host
 // compile of the sources) they are plain copies.
 #pragma once
 

@@ -58,8 +58,14 @@
 // float32 stay below that for L < ~40); a 5^3 kernel (c14) is bound by its
 // operations.
 //
-// K9T takes one of two routes, picked on the host by
-// ops/filters.py:_nd_transpose_plan from the shapes:
+// K9 and K9T take one of two routes each, picked on the host by
+// ops/filters.py:_nd_plan from the shapes. K9's tile route
+// (correlate_nd_tile_kernel) has K9T's geometry, block and tap column
+// below; its box starts at the tile plus each axis' least tap offset and
+// holds the element the nd route reads there, folded by the mode, or cval
+// where constant mode leaves the array (stage_box_folded): so it adds the
+// same terms in the same order as the nd route, bit for bit, with no fold
+// in the tap loop. K9's nd route is correlate_nd_kernel. K9T's routes:
 // * tile (at most 3 axes where the kernel has extent > 1, a box that fits
 //   shared memory, each sample within int32): a block owns a tile of
 //   C x 8 x 32 outputs over three tile axes (the kernel's axes; ranks 1-2
@@ -101,7 +107,7 @@
 // K8T's tile route: threads a block, and outputs a thread computes at once
 #define ED_K8T_THREADS 256
 #define ED_K8T_WINDOW 4
-// K9T's tile route: a block of ED_TILE_Y x ED_TILE_X threads
+// K9's and K9T's tile routes: a block of ED_TILE_Y x ED_TILE_X threads
 #define ED_TILE_Y 8
 #define ED_TILE_X 32
 
@@ -561,28 +567,54 @@ correlate_nd_transpose_kernel(const T* __restrict__ g, T* __restrict__ out,
   out[e] = acc;
 }
 
-// K9T's tile route geometry (ops/filters.py:_nd_transpose_plan): three
+// K9's and K9T's tile route geometry (ops/filters.py:_nd_plan): three
 // tile axes, each an axis of the kernel, a batch axis or an extent of 1,
 // and the batch axes the grid walks.
 struct NdTile {
   int n[3];         // extents of the tile axes
   int st[3];        // their element strides within a sample
-  int hi[3];        // greatest tap offset (0 on a batch axis)
+  int lo[3], hi[3]; // least and greatest tap offset (0 on a batch axis)
   int box[3];       // the halo box: tile extent + kernel extent - 1
   int tiles[3];     // tiles along each axis
-  int ptr_base[3];  // the axis' fold lists in ptr; -1 the identity
+  int ptr_base[3];  // K9T: the axis' fold lists in ptr; -1 the identity
   int taps;
   int nb;                        // batch axes walked by the grid
   int bn[ED_FILTER_MAXR];        // their extents
   int64_t bst[ED_FILTER_MAXR];   // and strides
 };
 
+// The sample offset of block blockIdx.x's batch index, and its tile's first
+// output (s0, s1, s2), without 64-bit division: the tile the fastest, the
+// last tile axis the fastest of those, then the batch axes, the last
+// fastest.
+template <int C>
+__device__ __forceinline__ int64_t tile_block(const NdTile& p, int* s0,
+                                              int* s1, int* s2) {
+  unsigned rest = blockIdx.x;
+  const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
+  unsigned bi = rest / per;
+  rest -= bi * per;
+  *s2 = (int)(rest % (unsigned)p.tiles[2]) * ED_TILE_X;
+  rest /= (unsigned)p.tiles[2];
+  *s1 = (int)(rest % (unsigned)p.tiles[1]) * ED_TILE_Y;
+  *s0 = (int)(rest / (unsigned)p.tiles[1]) * C;
+  int64_t base = 0;
+#pragma unroll
+  for (int a = ED_FILTER_MAXR - 1; a >= 0; --a) {
+    if (a < p.nb) {
+      const unsigned e = bi % (unsigned)p.bn[a];
+      bi /= (unsigned)p.bn[a];
+      base += (int64_t)e * p.bst[a];
+    }
+  }
+  return base;
+}
+
 // Stages the box of gs whose first element is (o0, o1, o2) in the tile
 // axes' indices into shared memory, row-major (row (b0, b1) at
 // (b0 * box[1] + b1) * box[2]): warp `warp` of `warps` takes rows warp,
 // warp + warps, ..., its lanes consecutive elements of a row, so that the
 // copies coalesce along tile axis 2. Elements outside the array are zeros.
-// (K9 can take it up with a source that folds the index, and cval.)
 template <typename T>
 __device__ __forceinline__ void stage_box(T* box, const T* gs,
                                           const NdTile& p, int o0, int o1,
@@ -604,9 +636,39 @@ __device__ __forceinline__ void stage_box(T* box, const T* gs,
   }
 }
 
+// K9's box: as stage_box, each element the array element it stands for
+// folded by the filter mode on every axis, as the nd route reads it, or
+// cval in constant mode where one axis falls outside (the thread then
+// stores cval itself). (One stager for both, K9T's in constant mode with
+// cval 0, made K9T 13% slower at c14 on an H100: stage_box's zero fill is
+// part of the copy.)
+template <typename T>
+__device__ __forceinline__ void stage_box_folded(T* box, const T* xs,
+                                                 const NdTile& p, int o0,
+                                                 int o1, int o2, int mode,
+                                                 T cval, int warp, int warps,
+                                                 int lane) {
+  const int rows = p.box[0] * p.box[1];
+  for (int r = warp; r < rows; r += warps) {
+    const int b0 = r / p.box[1];
+    const int64_t f0 = fold(o0 + b0, p.n[0], mode);
+    const int64_t f1 = fold(o1 + r - b0 * p.box[1], p.n[1], mode);
+    const bool row_in = f0 >= 0 && f1 >= 0;
+    const T* src = xs + (row_in ? (int)f0 * p.st[0] + (int)f1 * p.st[1] : 0);
+    T* dst = box + r * p.box[2];
+    for (int b2 = lane; b2 < p.box[2]; b2 += 32) {
+      const int64_t f2 = fold(o2 + b2, p.n[2], mode);
+      if (row_in && f2 >= 0)
+        stage_async(dst + b2, src + (int)f2 * p.st[2]);
+      else
+        dst[b2] = cval;
+    }
+  }
+}
+
 // The tap loop for a register column of C outputs, output c's box element
 // at col + c * P0 + toff[t] for tap t: acc = v_0 w_0, then acc + v_t w_t,
-// the taps in raster order. (K9 can take it up with its own offsets.)
+// the taps in raster order (K9T's and K9's).
 template <typename T, int C>
 __device__ __forceinline__ void tap_column(T (&acc)[C], const T* col, int P0,
                                            const T* tw, const int* toff,
@@ -690,26 +752,9 @@ correlate_nd_transpose_tile_kernel(const T* __restrict__ g,
   const int P1 = p.box[2], P0 = p.box[1] * p.box[2];
   T* tw = box + p.box[0] * P0;
   int* toff = reinterpret_cast<int*>(tw + p.taps);
-  // the block's tile (q0, q1, q2) and batch index, without 64-bit division
-  unsigned rest = blockIdx.x;
-  const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
-  unsigned bi = rest / per;
-  rest -= bi * per;
-  const int q2 = (int)(rest % (unsigned)p.tiles[2]);
-  rest /= (unsigned)p.tiles[2];
-  const int q1 = (int)(rest % (unsigned)p.tiles[1]);
-  const int q0 = (int)(rest / (unsigned)p.tiles[1]);
-  int64_t base = 0;
-#pragma unroll
-  for (int a = ED_FILTER_MAXR - 1; a >= 0; --a) {
-    if (a < p.nb) {
-      const unsigned e = bi % (unsigned)p.bn[a];
-      bi /= (unsigned)p.bn[a];
-      base += (int64_t)e * p.bst[a];
-    }
-  }
+  int s0, s1, s2;
+  const int64_t base = tile_block<C>(p, &s0, &s1, &s2);
   const T* gs = g + base;
-  const int s0 = q0 * C, s1 = q1 * ED_TILE_Y, s2 = q2 * ED_TILE_X;
   const int tid = threadIdx.y * ED_TILE_X + threadIdx.x;
   // output j reads g[j - off_t]: the box starts hi before the tile
   stage_box(box, gs, p, s0 - p.hi[0], s1 - p.hi[1], s2 - p.hi[2],
@@ -737,6 +782,47 @@ correlate_nd_transpose_tile_kernel(const T* __restrict__ g,
       os[j0 * p.st[0]] = v;
     }
   }
+}
+
+// K9, tile route: block (batch, tile) stages its halo box of x, folded by
+// the mode or cval (stage_box_folded), and the nonzero taps, then thread
+// (y, x) sums outputs (c, y, x) of the tile, c < C, from shared memory in
+// the nd route's raster order (tap_column). off holds each tap's offset
+// along the three tile axes (0 on a batch axis). At most 4 blocks' worth of
+// registers per SM are asked for (64 registers a thread), as K9T's.
+template <typename T, int C>
+__global__ void __launch_bounds__(ED_TILE_Y * ED_TILE_X, 4)
+correlate_nd_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         const T* __restrict__ w, const int* __restrict__ off,
+                         const NdTile p, const int mode, const T cval) {
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  T* box = reinterpret_cast<T*>(ed_smem);
+  const int P1 = p.box[2], P0 = p.box[1] * p.box[2];
+  T* tw = box + p.box[0] * P0;
+  int* toff = reinterpret_cast<int*>(tw + p.taps);
+  int s0, s1, s2;
+  const int64_t base = tile_block<C>(p, &s0, &s1, &s2);
+  const int tid = threadIdx.y * ED_TILE_X + threadIdx.x;
+  // output j reads x[j + off_t]: the box starts lo (at most 0) from the tile
+  stage_box_folded(box, x + base, p, s0 + p.lo[0], s1 + p.lo[1],
+                   s2 + p.lo[2], mode, cval, (int)threadIdx.y, ED_TILE_Y,
+                   (int)threadIdx.x);
+  for (int t = tid; t < p.taps; t += ED_TILE_Y * ED_TILE_X) {
+    tw[t] = w[t];
+    toff[t] = (off[3 * t] - p.lo[0]) * P0 + (off[3 * t + 1] - p.lo[1]) * P1 +
+              (off[3 * t + 2] - p.lo[2]);
+  }
+  stage_wait();
+  __syncthreads();
+  T acc[C];
+  tap_column<T, C>(acc, box + threadIdx.y * P1 + threadIdx.x, P0, tw, toff,
+                   p.taps);
+  const int j1 = s1 + threadIdx.y, j2 = s2 + threadIdx.x;
+  if (j1 >= p.n[1] || j2 >= p.n[2]) return;
+  T* os = out + base + j1 * p.st[1] + j2 * p.st[2];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (s0 + c < p.n[0]) os[(s0 + c) * p.st[0]] = acc[c];
 }
 
 template <typename T>
@@ -885,6 +971,90 @@ cudaError_t launch_nd_tile(bool fold, int column, const void* g, void* out,
                                           p, smem, blocks, s)
               : launch_nd_tile_f<T, false>(column, g, out, w, off, ptr, pos,
                                            p, smem, blocks, s);
+}
+
+template <typename T, int C>
+cudaError_t launch_k9_tile_c(const void* x, void* out, const void* w,
+                             const int* off, const NdTile& p, int mode,
+                             double cval, int smem, unsigned blocks,
+                             cudaStream_t s) {
+  auto kern = correlate_nd_tile_kernel<T, C>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch is refused unless the kernel asks for it
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<blocks, dim3(ED_TILE_X, ED_TILE_Y), (size_t)smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out),
+      static_cast<const T*>(w), off, p, mode, T(cval));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_k9_tile(int column, const void* x, void* out,
+                           const void* w, const int* off, const NdTile& p,
+                           int mode, double cval, int smem, unsigned blocks,
+                           cudaStream_t s) {
+  switch (column) {
+    case 1:
+      return launch_k9_tile_c<T, 1>(x, out, w, off, p, mode, cval, smem,
+                                    blocks, s);
+    case 2:
+      return launch_k9_tile_c<T, 2>(x, out, w, off, p, mode, cval, smem,
+                                    blocks, s);
+    case 4:
+      return launch_k9_tile_c<T, 4>(x, out, w, off, p, mode, cval, smem,
+                                    blocks, s);
+    case 8:
+      return launch_k9_tile_c<T, 8>(x, out, w, off, p, mode, cval, smem,
+                                    blocks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The tile geometry of K9's and K9T's tile routes from the plan's host
+// arrays (ed_correlate_nd_transpose_tile); false where the plan does not
+// fit the shapes: a sample past int32, more blocks than a grid takes, a box
+// and the taps past smem or the card's shared memory.
+bool make_nd_tile(NdTile* p, int dtype, int column, const int* n3,
+                  const long long* st3, const int* k3, const int* hi3,
+                  const int* ptr_base3, int nb, const long long* bn,
+                  const long long* bst, int taps, int smem,
+                  long long blocks) {
+  const int tile[3] = {column, ED_TILE_Y, ED_TILE_X};
+  const int itemsize = dtype == 0 ? 4 : dtype == 1 ? 8 : 0;
+  if (itemsize == 0 || taps < 1 || nb < 0 || nb > ED_FILTER_MAXR ||
+      (column != 1 && column != 2 && column != 4 && column != 8))
+    return false;
+  p->taps = taps;
+  p->nb = nb;
+  int64_t span = 0, count = 1, box = 1;
+  for (int d = 0; d < 3; ++d) {
+    if (n3[d] < 1 || st3[d] < 0 || k3[d] < 1 || hi3[d] < 0 ||
+        hi3[d] >= k3[d])
+      return false;
+    p->n[d] = n3[d];
+    p->st[d] = n3[d] > 1 ? (int)st3[d] : 0;  // (within int32: span below)
+    p->hi[d] = hi3[d];
+    p->lo[d] = hi3[d] - (k3[d] - 1);
+    p->box[d] = tile[d] + k3[d] - 1;
+    p->tiles[d] = (n3[d] + tile[d] - 1) / tile[d];
+    p->ptr_base[d] = ptr_base3[d];
+    span += (int64_t)(n3[d] - 1) * st3[d];
+    count *= p->tiles[d];
+    box *= p->box[d];
+  }
+  for (int a = 0; a < ED_FILTER_MAXR; ++a) {
+    p->bn[a] = a < nb ? (int)bn[a] : 1;
+    p->bst[a] = a < nb ? bst[a] : 0;
+    if (a < nb && (bn[a] < 1 || bn[a] > INT32_MAX)) return false;
+    count *= p->bn[a];
+  }
+  const int64_t need = box * itemsize + (int64_t)taps * (itemsize + 4);
+  return span <= INT32_MAX && count == blocks && blocks <= INT32_MAX &&
+         smem >= need && smem <= kSmemLimit;
 }
 
 Line make_line(long long outer, long long n, long long inner, int taps,
@@ -1038,7 +1208,7 @@ int ed_correlate_nd(int dtype, int transpose, const void* x, void* out,
   return (int)err;
 }
 
-// K9T on the tile route, with the plan of ops/filters.py:_nd_transpose_plan.
+// K9T on the tile route, with the plan of ops/filters.py:_nd_plan.
 // Host arrays: per tile axis (3) its extent n3, element stride st3, kernel
 // extent k3, greatest tap offset hi3 and fold-list base ptr_base3 (-1 the
 // identity); the nb batch axes the grid walks, extents bn and strides bst.
@@ -1055,42 +1225,12 @@ int ed_correlate_nd_transpose_tile(
     const int* k3, const int* hi3, const int* ptr_base3, int nb,
     const long long* bn, const long long* bst, int taps, int column,
     int smem, long long blocks, void* stream) {
-  const int tile[3] = {column, ED_TILE_Y, ED_TILE_X};
-  const int itemsize = dtype == 0 ? 4 : dtype == 1 ? 8 : 0;
-  if (itemsize == 0 || taps < 1 || nb < 0 || nb > ED_FILTER_MAXR ||
-      (column != 1 && column != 2 && column != 4 && column != 8))
-    return (int)cudaErrorInvalidValue;
   NdTile p;
-  p.taps = taps;
-  p.nb = nb;
-  int64_t span = 0, count = 1, box = 1;
-  bool fold = false;
-  for (int d = 0; d < 3; ++d) {
-    if (n3[d] < 1 || st3[d] < 0 || k3[d] < 1 || hi3[d] < 0 ||
-        hi3[d] >= k3[d])
-      return (int)cudaErrorInvalidValue;
-    p.n[d] = n3[d];
-    p.st[d] = n3[d] > 1 ? (int)st3[d] : 0;  // (within int32: span below)
-    p.hi[d] = hi3[d];
-    p.box[d] = tile[d] + k3[d] - 1;
-    p.tiles[d] = (n3[d] + tile[d] - 1) / tile[d];
-    p.ptr_base[d] = ptr_base3[d];
-    fold = fold || ptr_base3[d] >= 0;
-    span += (int64_t)(n3[d] - 1) * st3[d];
-    count *= p.tiles[d];
-    box *= p.box[d];
-  }
-  for (int a = 0; a < ED_FILTER_MAXR; ++a) {
-    p.bn[a] = a < nb ? (int)bn[a] : 1;
-    p.bst[a] = a < nb ? bst[a] : 0;
-    if (a < nb && (bn[a] < 1 || bn[a] > INT32_MAX))
-      return (int)cudaErrorInvalidValue;
-    count *= p.bn[a];
-  }
-  const int64_t need = box * itemsize + (int64_t)taps * (itemsize + 4);
-  if (span > INT32_MAX || count != blocks || blocks > INT32_MAX ||
-      smem < need || smem > kSmemLimit)
+  if (!make_nd_tile(&p, dtype, column, n3, st3, k3, hi3, ptr_base3, nb, bn,
+                    bst, taps, smem, blocks))
     return (int)cudaErrorInvalidValue;
+  const bool fold =
+      ptr_base3[0] >= 0 || ptr_base3[1] >= 0 || ptr_base3[2] >= 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* of = static_cast<const int*>(off);
   const int* pt = static_cast<const int*>(ptr);
@@ -1100,6 +1240,35 @@ int ed_correlate_nd_transpose_tile(
                                          p, smem, (unsigned)blocks, s)
                  : launch_nd_tile<double>(fold, column, g, out, w, of, pt, ps,
                                           p, smem, (unsigned)blocks, s);
+  return (int)err;
+}
+
+// K9 on the tile route, with the plan of ops/filters.py:_nd_plan: the
+// host and device arrays of ed_correlate_nd_transpose_tile less the fold
+// lists (off: each tap's offset along the tile axes, from the output to the
+// element it reads; hi3: the greatest per tile axis), the mode (0-4, as
+// ed_correlate_nd) and cval. A plan that does not fit the shapes is
+// refused with cudaErrorInvalidValue. x and out must not overlap. Returns
+// cudaGetLastError().
+int ed_correlate_nd_tile(int dtype, const void* x, void* out, const void* w,
+                         const void* off, const int* n3, const long long* st3,
+                         const int* k3, const int* hi3, int nb,
+                         const long long* bn, const long long* bst, int taps,
+                         int mode, double cval, int column, int smem,
+                         long long blocks, void* stream) {
+  const int identity[3] = {-1, -1, -1};
+  NdTile p;
+  if (mode < 0 || mode > 4 ||
+      !make_nd_tile(&p, dtype, column, n3, st3, k3, hi3, identity, nb, bn,
+                    bst, taps, smem, blocks))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* of = static_cast<const int*>(off);
+  cudaError_t err =
+      dtype == 0 ? launch_k9_tile<float>(column, x, out, w, of, p, mode, cval,
+                                         smem, (unsigned)blocks, s)
+                 : launch_k9_tile<double>(column, x, out, w, of, p, mode,
+                                          cval, smem, (unsigned)blocks, s);
   return (int)err;
 }
 

@@ -14,7 +14,13 @@
 // of x - s[t] (erosion) or x + s[t] (dilation) in the work type, which is x's
 // for floats and float64 for integers and bool; the float64 result is then
 // cast as XLA casts it: NaN to 0, truncated, saturated at the type's range
-// (bool: != 0).
+// (bool: != 0). Two routes, picked on the host by
+// ops/morphology.py:_min_max_plan: tile (extent > 1 on at most three axes,
+// a box within the shared-memory budget: min_max_tile_kernel stages a
+// tile's halo box in the work type once, on K12's select tile's geometry,
+// and reduces from shared memory) and nd (min_max_nd_kernel, one thread per
+// voxel reading device memory at every tap, for the rest); both take the
+// taps in raster order, so they agree bit for bit.
 //
 // K12 replaces morphology.py:302-321 _rank_select and :373 jnp.sort: the
 // rank-th smallest footprint tap. Up to 64 taps it runs the same pruned
@@ -100,6 +106,11 @@
 #define ED_RANK_TY 8
 #define ED_RANK_TX 32
 #define ED_RANK_BITS 2
+// K11's tile route: the same blocks, a column of ED_MINMAX_COLUMN voxels a
+// thread (1 where tile axis 0 has extent 1)
+#define ED_MINMAX_COLUMN 8
+// the box rows a warp of K11's and K12's tiles loads before it stores
+#define ED_STAGE_ROWS 4
 
 namespace {
 
@@ -462,9 +473,10 @@ __device__ __forceinline__ int top_bit(uint64_t v) {
   return 63 - __clzll((long long)v);
 }
 
-// The select route's tile geometry (ops/morphology.py:_rank_plan): three
-// tile axes, each an axis of the footprint, a batch axis or an extent of 1,
-// and the batch axes the grid walks.
+// The halo-box tile geometry of K11's tile route and K12's select tile
+// (ops/morphology.py:_min_max_plan, _rank_plan): three tile axes, each an
+// axis of the footprint, a batch axis or an extent of 1, and the batch axes
+// the grid walks.
 struct RankTile {
   int n[3];      // extents of the tile axes
   int st[3];     // their element strides within a sample
@@ -476,6 +488,74 @@ struct RankTile {
   int bn[ED_MORPH_MAXR];        // their extents
   int64_t bst[ED_MORPH_MAXR];   // and strides
 };
+
+// The sample offset of block blockIdx.x's batch index, and its tile's first
+// voxel (s0, s1, s2) for a C x ED_RANK_TY x ED_RANK_TX tile, without 64-bit
+// division: the tile the fastest, the last tile axis the fastest of those,
+// then the batch axes, the last fastest.
+template <int C>
+__device__ __forceinline__ int64_t tile_block(const RankTile& p, int* s0,
+                                              int* s1, int* s2) {
+  unsigned rest = blockIdx.x;
+  const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
+  unsigned bi = rest / per;
+  rest -= bi * per;
+  *s2 = (int)(rest % (unsigned)p.tiles[2]) * ED_RANK_TX;
+  rest /= (unsigned)p.tiles[2];
+  *s1 = (int)(rest % (unsigned)p.tiles[1]) * ED_RANK_TY;
+  *s0 = (int)(rest / (unsigned)p.tiles[1]) * C;
+  int64_t base = 0;
+#pragma unroll
+  for (int a = ED_MORPH_MAXR - 1; a >= 0; --a) {
+    if (a < p.nb) {
+      const unsigned e = bi % (unsigned)p.bn[a];
+      bi /= (unsigned)p.bn[a];
+      base += (int64_t)e * p.bst[a];
+    }
+  }
+  return base;
+}
+
+// Visits the halo box of the tile at (s0, s1, s2): box element (b0, b1, b2),
+// row-major at i = (b0 * box[1] + b1) * box[2] + b2, stands for array
+// element s - c + b, folded by the mode on each axis as tap_value folds it.
+// Calls put(i, v, true) with that element of xs, or put(i, T(0), false)
+// where constant mode leaves the array. A warp takes ED_STAGE_ROWS rows at
+// a time, its lanes along tile axis 2, and loads an element of each before
+// it stores any: a load a thread at a time left the staging waiting on
+// device memory's latency.
+template <typename T, typename F>
+__device__ __forceinline__ void visit_box(const RankTile& p, const T* xs,
+                                          int s0, int s1, int s2, F put) {
+  constexpr int U = ED_STAGE_ROWS;
+  const int rows = p.box[0] * p.box[1];
+  const int P1 = p.box[2];
+  for (int r0 = threadIdx.y; r0 < rows; r0 += U * ED_RANK_TY) {
+    int src[U];
+    bool row_in[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * ED_RANK_TY;
+      const int b0 = r / p.box[1];
+      const int f0 = fold<int>(s0 - p.c[0] + b0, p.n[0], p.mode);
+      const int f1 =
+          fold<int>(s1 - p.c[1] + r - b0 * p.box[1], p.n[1], p.mode);
+      row_in[u] = r < rows && f0 >= 0 && f1 >= 0;
+      src[u] = row_in[u] ? f0 * p.st[0] + f1 * p.st[1] : 0;
+    }
+    for (int b2 = threadIdx.x; b2 < P1; b2 += ED_RANK_TX) {
+      const int f2 = fold<int>(s2 - p.c[2] + b2, p.n[2], p.mode);
+      T v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[u] = row_in[u] && f2 >= 0 ? xs[src[u] + f2 * p.st[2]] : T(0);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (r0 + u * ED_RANK_TY < rows)
+          put((r0 + u * ED_RANK_TY) * P1 + b2, v[u], row_in[u] && f2 >= 0);
+    }
+  }
+}
 
 // K12's select route on a halo box: block (batch, tile) stages the tile's
 // box of keys (Key<T>::of, once per element) and raw values, the array
@@ -512,43 +592,13 @@ rank_select_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
   T* raw = reinterpret_cast<T*>(ed_smem + (size_t)cells * sizeof(K));
   int* toff = reinterpret_cast<int*>(
       ed_smem + ((2 * (size_t)cells * sizeof(K) + 3) & ~(size_t)3));
-  // the block's tile (q0, q1, q2) and batch index, without 64-bit division
-  unsigned rest = blockIdx.x;
-  const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
-  unsigned bi = rest / per;
-  rest -= bi * per;
-  const int q2 = (int)(rest % (unsigned)p.tiles[2]);
-  rest /= (unsigned)p.tiles[2];
-  const int q1 = (int)(rest % (unsigned)p.tiles[1]);
-  const int q0 = (int)(rest / (unsigned)p.tiles[1]);
-  int64_t base = 0;
-#pragma unroll
-  for (int a = ED_MORPH_MAXR - 1; a >= 0; --a) {
-    if (a < p.nb) {
-      const unsigned e = bi % (unsigned)p.bn[a];
-      bi /= (unsigned)p.bn[a];
-      base += (int64_t)e * p.bst[a];
-    }
-  }
-  const T* xs = x + base;
-  const int s0 = q0 * C, s1 = q1 * ED_RANK_TY, s2 = q2 * ED_RANK_TX;
-  // box element (b0, b1, b2) holds array element (s - c + b), folded; a
-  // warp a row, its lanes along tile axis 2
-  const int rows = p.box[0] * p.box[1];
-  for (int r = threadIdx.y; r < rows; r += ED_RANK_TY) {
-    const int b0 = r / p.box[1];
-    const int f0 = fold<int>(s0 - p.c[0] + b0, p.n[0], p.mode);
-    const int f1 =
-        fold<int>(s1 - p.c[1] + r - b0 * p.box[1], p.n[1], p.mode);
-    const bool row_in = f0 >= 0 && f1 >= 0;
-    const T* src = xs + (row_in ? f0 * p.st[0] + f1 * p.st[1] : 0);
-    for (int b2 = threadIdx.x; b2 < P1; b2 += ED_RANK_TX) {
-      const int f2 = fold<int>(s2 - p.c[2] + b2, p.n[2], p.mode);
-      const T v = row_in && f2 >= 0 ? src[f2 * p.st[2]] : cval;
-      keys[r * P1 + b2] = Key<T>::of(v);
-      raw[r * P1 + b2] = v;
-    }
-  }
+  int s0, s1, s2;
+  const int64_t base = tile_block<C>(p, &s0, &s1, &s2);
+  visit_box(p, x + base, s0, s1, s2, [&](int i, T v, bool in) {
+    v = in ? v : cval;
+    keys[i] = Key<T>::of(v);
+    raw[i] = v;
+  });
   const int tid = threadIdx.y * ED_RANK_TX + threadIdx.x;
   for (int t = tid; t < p.taps; t += ED_RANK_TY * ED_RANK_TX)
     toff[t] = toff_g[t];
@@ -685,6 +735,72 @@ rank_select_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
 #pragma unroll
   for (int c = 0; c < C; ++c)
     if (s0 + c < p.n[0]) os[(s0 + c) * p.st[0]] = res[c];
+}
+
+// K11's tile route: block (batch, tile) stages the tile's halo box in the
+// work type W, each element the array element tap_value reads there (W(x),
+// folded) or cval in constant mode (visit_box), and the footprint's taps as
+// int32 offsets into the box in raster order, with the structure's values
+// when NONFLAT; thread (y, x) then reduces each of its C voxels (c, y, x)
+// over the taps from shared memory with min_max_nd_kernel's code and order:
+// v = box value (- or + s[t] when NONFLAT), acc = v_0, then pick(acc, v_t).
+// So the two routes agree bit for bit, a NaN's bits and a zero's sign too.
+// At most 4 blocks' worth of registers per SM are asked for (64 a thread).
+template <typename T, typename W, bool MIN, bool NONFLAT, int C>
+__global__ void __launch_bounds__(ED_RANK_TY * ED_RANK_TX, 4)
+min_max_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
+                    const int* __restrict__ toff_g,
+                    const W* __restrict__ sval_g, const RankTile p,
+                    const W cval) {
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  const int P1 = p.box[2], P0 = p.box[1] * p.box[2];
+  const int cells = p.box[0] * P0;
+  // the box, the structure's values (NONFLAT), then the offsets
+  W* box = reinterpret_cast<W*>(ed_smem);
+  W* sv = box + cells;
+  int* toff = reinterpret_cast<int*>(
+      ed_smem + ((((size_t)cells + (NONFLAT ? p.taps : 0)) * sizeof(W) + 3) &
+                 ~(size_t)3));
+  int s0, s1, s2;
+  const int64_t base = tile_block<C>(p, &s0, &s1, &s2);
+  visit_box(p, x + base, s0, s1, s2,
+            [&](int i, T v, bool in) { box[i] = in ? W(v) : cval; });
+  const int tid = threadIdx.y * ED_RANK_TX + threadIdx.x;
+  for (int t = tid; t < p.taps; t += ED_RANK_TY * ED_RANK_TX) {
+    toff[t] = toff_g[t];
+    if constexpr (NONFLAT) sv[t] = sval_g[t];
+  }
+  __syncthreads();
+  const W* col = box + threadIdx.y * P1 + threadIdx.x;  // voxel c: + c * P0
+  W acc[C];
+  {
+    const W* v = col + toff[0];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      W a = v[c * P0];
+      if constexpr (NONFLAT) a = MIN ? a - sv[0] : a + sv[0];
+      acc[c] = a;
+    }
+  }
+  // unrolled twice: further unrolling took a 1- or 2-byte work type from
+  // 40 to 71-79 registers and fewer blocks an SM (at c16's ball, 1.18 ms
+  // against 1.53-1.60 on an H100)
+#pragma unroll 2
+  for (int t = 1; t < p.taps; ++t) {
+    const W* v = col + toff[t];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      W a = v[c * P0];
+      if constexpr (NONFLAT) a = MIN ? a - sv[t] : a + sv[t];
+      acc[c] = pick<MIN>(acc[c], a);
+    }
+  }
+  const int j1 = s1 + threadIdx.y, j2 = s2 + threadIdx.x;
+  if (j1 >= p.n[1] || j2 >= p.n[2]) return;
+  T* os = out + base + j1 * p.st[1] + j2 * p.st[2];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (s0 + c < p.n[0]) os[(s0 + c) * p.st[0]] = finish<T, W>(acc[c]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1105,6 +1221,101 @@ cudaError_t launch_rank_tile(int column, const void* x, void* out,
   return cudaErrorInvalidValue;
 }
 
+template <typename T, typename W, bool MIN, bool NONFLAT, int C>
+cudaError_t launch_min_max_tile_k(const void* x, void* out, const int* toff,
+                                  const void* sval, const RankTile& p,
+                                  long long cval_bits, int smem,
+                                  unsigned blocks, cudaStream_t s) {
+  static int allowed = 0;
+  auto kern = min_max_tile_kernel<T, W, MIN, NONFLAT, C>;
+  const cudaError_t err = allow_smem(kern, &allowed, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, dim3(ED_RANK_TX, ED_RANK_TY), (size_t)smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), toff,
+      static_cast<const W*>(sval), p, from_bits<W>(cval_bits));
+  return cudaGetLastError();
+}
+
+template <typename T, typename W, bool NONFLAT>
+cudaError_t launch_min_max_tile_w(bool minimum, int column, const void* x,
+                                  void* out, const int* toff,
+                                  const void* sval, const RankTile& p,
+                                  long long cval_bits, int smem,
+                                  unsigned blocks, cudaStream_t s) {
+  constexpr int C = ED_MINMAX_COLUMN;
+  if (column == 1)
+    return minimum ? launch_min_max_tile_k<T, W, true, NONFLAT, 1>(
+                         x, out, toff, sval, p, cval_bits, smem, blocks, s)
+                   : launch_min_max_tile_k<T, W, false, NONFLAT, 1>(
+                         x, out, toff, sval, p, cval_bits, smem, blocks, s);
+  if (column == C)
+    return minimum ? launch_min_max_tile_k<T, W, true, NONFLAT, C>(
+                         x, out, toff, sval, p, cval_bits, smem, blocks, s)
+                   : launch_min_max_tile_k<T, W, false, NONFLAT, C>(
+                         x, out, toff, sval, p, cval_bits, smem, blocks, s);
+  return cudaErrorInvalidValue;
+}
+
+// K11's tile route; the work type W as launch_nd takes it
+template <typename T>
+cudaError_t launch_min_max_tile(bool minimum, bool nonflat, int column,
+                                const void* x, void* out, const int* toff,
+                                const void* sval, const RankTile& p,
+                                long long cval_bits, int smem,
+                                unsigned blocks, cudaStream_t s) {
+  if (!nonflat)
+    return launch_min_max_tile_w<T, T, false>(minimum, column, x, out, toff,
+                                              sval, p, cval_bits, smem,
+                                              blocks, s);
+  if constexpr (std::is_floating_point<T>::value)
+    return launch_min_max_tile_w<T, T, true>(minimum, column, x, out, toff,
+                                             sval, p, cval_bits, smem, blocks,
+                                             s);
+  else
+    return launch_min_max_tile_w<T, double, true>(minimum, column, x, out,
+                                                  toff, sval, p, cval_bits,
+                                                  smem, blocks, s);
+}
+
+// The halo-box tile geometry of K11's tile route and K12's select tile from
+// the plan's host arrays (ed_rank_select_tile); the box's cells in *cells;
+// false where the plan does not fit the shapes (a sample or a box past
+// int32, more blocks than a grid takes).
+bool make_rank_tile(RankTile* p, int column, const int* n3,
+                    const long long* st3, const int* k3, const int* c3,
+                    int nb, const long long* bn, const long long* bst,
+                    int taps, int mode, long long blocks, int64_t* cells) {
+  if (taps < 1 || mode < 0 || mode > 4 || nb < 0 || nb > ED_MORPH_MAXR)
+    return false;
+  const int tile[3] = {column, ED_RANK_TY, ED_RANK_TX};
+  p->taps = taps;
+  p->rank = 0;
+  p->mode = mode;
+  p->nb = nb;
+  int64_t span = 0, count = 1;
+  *cells = 1;
+  for (int d = 0; d < 3; ++d) {
+    if (n3[d] < 1 || st3[d] < 0 || k3[d] < 1 || c3[d] < 0 || c3[d] >= k3[d])
+      return false;
+    p->n[d] = n3[d];
+    p->st[d] = n3[d] > 1 ? (int)st3[d] : 0;  // (within int32: span below)
+    p->c[d] = c3[d];
+    p->box[d] = tile[d] + k3[d] - 1;
+    p->tiles[d] = (n3[d] + tile[d] - 1) / tile[d];
+    span += (int64_t)(n3[d] - 1) * st3[d];
+    count *= p->tiles[d];
+    *cells *= p->box[d];
+  }
+  for (int a = 0; a < ED_MORPH_MAXR; ++a) {
+    p->bn[a] = a < nb ? (int)bn[a] : 1;
+    p->bst[a] = a < nb ? bst[a] : 0;
+    if (a < nb && (bn[a] < 1 || bn[a] > INT32_MAX)) return false;
+    count *= p->bn[a];
+  }
+  return span <= INT32_MAX && *cells <= INT32_MAX && count == blocks &&
+         blocks <= INT32_MAX;
+}
+
 template <bool DIL, bool BYTES>
 cudaError_t launch_tile(const void* x, void* out, const void* mask,
                         const int* taps, const BinTile& p, unsigned border,
@@ -1129,6 +1340,7 @@ unsigned word_blocks(int64_t nwords) {
 
 // the eleven element types: 0 bool, 1 uint8, 2 int8, 3 uint16, 4 int16,
 // 5 uint32, 6 int32, 7 uint64, 8 int64, 9 float32, 10 float64
+static const int kItemsize[11] = {1, 1, 1, 2, 2, 4, 4, 8, 8, 4, 8};
 #define ED_DISPATCH(dtype, ...)          \
   switch (dtype) {                       \
     case 0: {                            \
@@ -1262,46 +1474,57 @@ int ed_rank_select_tile(int dtype, int column, const void* x, void* out,
                         int nb, const long long* bn, const long long* bst,
                         int taps, int rank, int mode, long long cval_bits,
                         int smem, long long blocks, void* stream) {
-  static const int itemsize[11] = {1, 1, 1, 2, 2, 4, 4, 8, 8, 4, 8};
-  if (dtype < 0 || dtype > 10 || taps < 1 || rank < 0 || rank >= taps ||
-      mode < 0 || mode > 4 || nb < 0 || nb > ED_MORPH_MAXR ||
-      (column != 1 && column != 4))
-    return (int)cudaErrorInvalidValue;
-  const int tile[3] = {column, ED_RANK_TY, ED_RANK_TX};
   RankTile p;
-  p.taps = taps;
-  p.rank = rank;
-  p.mode = mode;
-  p.nb = nb;
-  int64_t span = 0, count = 1, cells = 1;
-  for (int d = 0; d < 3; ++d) {
-    if (n3[d] < 1 || st3[d] < 0 || k3[d] < 1 || c3[d] < 0 || c3[d] >= k3[d])
-      return (int)cudaErrorInvalidValue;
-    p.n[d] = n3[d];
-    p.st[d] = n3[d] > 1 ? (int)st3[d] : 0;  // (within int32: span below)
-    p.c[d] = c3[d];
-    p.box[d] = tile[d] + k3[d] - 1;
-    p.tiles[d] = (n3[d] + tile[d] - 1) / tile[d];
-    span += (int64_t)(n3[d] - 1) * st3[d];
-    count *= p.tiles[d];
-    cells *= p.box[d];
-  }
-  for (int a = 0; a < ED_MORPH_MAXR; ++a) {
-    p.bn[a] = a < nb ? (int)bn[a] : 1;
-    p.bst[a] = a < nb ? bst[a] : 0;
-    if (a < nb && (bn[a] < 1 || bn[a] > INT32_MAX))
-      return (int)cudaErrorInvalidValue;
-    count *= p.bn[a];
-  }
-  const int64_t need =
-      ((2 * cells * itemsize[dtype] + 3) & ~(int64_t)3) + 4 * (int64_t)taps;
-  if (span > INT32_MAX || cells > INT32_MAX || count != blocks ||
-      blocks > INT32_MAX || smem < need || smem > ED_SMEM_LIMIT)
+  int64_t cells;
+  if (dtype < 0 || dtype > 10 || rank < 0 || rank >= taps ||
+      (column != 1 && column != 4) ||
+      !make_rank_tile(&p, column, n3, st3, k3, c3, nb, bn, bst, taps, mode,
+                      blocks, &cells))
     return (int)cudaErrorInvalidValue;
+  p.rank = rank;
+  const int64_t need = ((2 * cells * kItemsize[dtype] + 3) & ~(int64_t)3) +
+                       4 * (int64_t)taps;
+  if (smem < need || smem > ED_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* to = static_cast<const int*>(toff);
   ED_DISPATCH(dtype, launch_rank_tile<T>(column, x, out, to, p, cval_bits,
                                          smem, (unsigned)blocks, s))
+}
+
+// K11 on its tile route, with the plan of ops/morphology.py:_min_max_plan:
+// the host arrays of ed_rank_select_tile; device: toff[taps], each tap's
+// offset into the box in raster order, and sval[taps] as ed_min_max_filter
+// takes it when nonflat. column: C, 1 or ED_MINMAX_COLUMN; smem: the plan's
+// shared bytes, at least the box in the work type, the structure's values
+// and the offsets; cval_bits: cval in the work type. A plan that does not
+// fit the shapes is refused with cudaErrorInvalidValue. x and out must not
+// overlap. Returns cudaGetLastError().
+int ed_min_max_tile(int dtype, int minimum, int nonflat, int column,
+                    const void* x, void* out, const void* toff,
+                    const void* sval, const int* n3, const long long* st3,
+                    const int* k3, const int* c3, int nb, const long long* bn,
+                    const long long* bst, int taps, int mode,
+                    long long cval_bits, int smem, long long blocks,
+                    void* stream) {
+  RankTile p;
+  int64_t cells;
+  if (dtype < 0 || dtype > 10 || (nonflat && sval == nullptr) ||
+      (column != 1 && column != ED_MINMAX_COLUMN) ||
+      !make_rank_tile(&p, column, n3, st3, k3, c3, nb, bn, bst, taps, mode,
+                      blocks, &cells))
+    return (int)cudaErrorInvalidValue;
+  // the work type: float64 for a non-flat structure on integers and bool
+  const int work = nonflat && dtype < 9 ? 8 : kItemsize[dtype];
+  const int64_t need =
+      (((cells + (nonflat ? taps : 0)) * work + 3) & ~(int64_t)3) +
+      4 * (int64_t)taps;
+  if (smem < need || smem > ED_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* to = static_cast<const int*>(toff);
+  ED_DISPATCH(dtype, launch_min_max_tile<T>(minimum != 0, nonflat != 0,
+                                            column, x, out, to, sval, p,
+                                            cval_bits, smem, (unsigned)blocks,
+                                            s))
 }
 
 // K13 on contiguous bool tensors, geometry as ed_min_max_filter (taps may be

@@ -24,17 +24,20 @@ correlation a stack of such matrices; here they are stencils:
   same for an N-D kernel, over its nonzero taps in raster order, with the
   fold on every axis. Axes where the kernel has extent 1 are batch axes;
   runs of them are merged before the launch, and the kernels take at most
-  :data:`MAX_ND_AXES` axes after that. K9T takes one of two routes, which
-  :func:`_nd_transpose_plan` picks from the shapes: ``"tile"`` stages each
-  block's halo box of the cotangent in shared memory (at most three axes
-  where the kernel has extent > 1), ``"nd"`` runs one thread per output in
-  device memory (everything else).
+  :data:`MAX_ND_AXES` axes after that. Each takes one of two routes, which
+  :func:`_nd_plan` picks from the shapes: ``"tile"`` stages each block's
+  halo box in shared memory (at most three axes where the kernel has extent
+  > 1; K9's box holds the input folded by the mode or ``cval``, K9T's the
+  cotangent), ``"nd"`` runs one thread per output in device memory
+  (everything else). K9's two routes add the same terms in one order, bit
+  for bit.
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches its kernel (contiguous float32 or float64) or raises, and adds one
-to its ``.launches`` counter (K8T and K9T also to their route's count in
-``.routes``); the taps, fold lists and tables go to the card once per
-kernel, shape and device (``_k8t_tables``, ``_nd_tile_tables``).
+to its ``.launches`` counter (K8T, K9 and K9T also to their route's count
+in ``.routes``); the taps, fold lists and tables go to the card once per
+kernel, shape and device (``_k8t_tables``, ``_nd_tables``,
+``_nd_tile_tables``).
 :class:`Correlate1d` and :class:`CorrelateNd` are the autograd functions
 (gradient to ``x`` only: the taps and ``cval`` are host constants, as in the
 JAX package). The ``apply_*`` functions are the JAX package's, on tensors;
@@ -416,6 +419,10 @@ def _lib():
         pi, pl = ctypes.POINTER(i), ctypes.POINTER(ll)
         fn.argtypes = [i, vp, vp, vp, vp, vp, vp, pi, pl, pi, pi, pi, i, pl,
                        pl, i, i, i, ll, vp]
+        fn = lib.ed_correlate_nd_tile
+        fn.restype = i
+        fn.argtypes = [i, vp, vp, vp, vp, pi, pl, pi, pi, i, pl, pl, i, i,
+                       ctypes.c_double, i, i, ll, vp]
     return lib
 
 
@@ -673,25 +680,16 @@ def nd_geometry(shape, kshape):
     return merged, group, batch
 
 
-def _launch_nd(x: torch.Tensor, weights, centers, mode: str, cval,
-               transpose: bool):
-    """K9, or with ``transpose`` K9T on its nd route; None, with no launch,
-    for an empty tensor or an all-zero kernel. Counts nothing (the public
-    wrappers count)."""
-    what = "correlate_nd_transpose" if transpose else "correlate_nd"
-    check_kernel_tensor(x, what)
-    w = np.asarray(weights, dtype=np.float64)
-    merged, group, batch = nd_geometry(x.shape, w.shape)
+@functools.lru_cache(maxsize=16)
+def _nd_tables(wkey, kshape, centers, mode, shape, transpose, device, dtype):
+    """The nd route's arguments, built and uploaded once per kernel, mode,
+    shape, direction and device: the taps' weights, per-axis and linear
+    offsets and K9T's fold lists on ``device``, and the host arrays of
+    ``ed_correlate_nd``."""
+    w = np.frombuffer(wkey, dtype=np.float64).reshape(kshape)
+    merged, group, batch = nd_geometry(shape, kshape)
     rank = len(merged)
-    if rank > MAX_ND_AXES:
-        raise ValueError(
-            f"{what}: after merging the axes where the kernel has extent 1 "
-            f"the correlation has {rank} axes; the CUDA kernel takes at most "
-            f"{MAX_ND_AXES}")
     taps = _nd_taps(w)
-    if x.numel() == 0 or not taps:
-        return None
-    out = torch.empty_like(x)
     off = np.zeros((len(taps), rank), dtype=np.int32)
     for t, tap in enumerate(taps):
         for d, k in enumerate(tap):
@@ -714,26 +712,51 @@ def _launch_nd(x: torch.Tensor, weights, centers, mode: str, cval,
             ptrs.append(ptr + sum(len(p) for p in poss))
             poss.append(pos)
             base += len(ptr)
-    ptr_d = _on(np.concatenate(ptrs), x, torch.int32)
-    pos_d = _on(np.concatenate(poss), x, torch.int32)
-    w_d = _on(np.array([w[t] for t in taps]), x)
-    off_d = _on(off, x, torch.int32)
-    delta_d = _on(delta, x, torch.int64)
+
+    def up(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,
+                                                           dtype=dt)
+    dev = (up(np.array([w[t] for t in taps]), dtype), up(off, torch.int32),
+           up(delta, torch.int64), up(np.concatenate(ptrs), torch.int32),
+           up(np.concatenate(poss), torch.int32))
     i = ctypes.c_int
+    host = (rank, (ctypes.c_longlong * rank)(*merged),
+            (i * rank)(*lo.tolist()), (i * rank)(*hi.tolist()),
+            (i * rank)(*ptr_base), len(taps))
+    return dev, host
+
+
+def _launch_nd(x: torch.Tensor, weights, centers, mode: str, cval,
+               transpose: bool):
+    """K9, or with ``transpose`` K9T on its nd route; None, with no launch,
+    for an empty tensor or an all-zero kernel. Counts nothing (the public
+    wrappers count)."""
+    what = "correlate_nd_transpose" if transpose else "correlate_nd"
+    check_kernel_tensor(x, what)
+    w = np.ascontiguousarray(weights, dtype=np.float64)
+    rank = len(nd_geometry(x.shape, w.shape)[0])
+    if rank > MAX_ND_AXES:
+        raise ValueError(
+            f"{what}: after merging the axes where the kernel has extent 1 "
+            f"the correlation has {rank} axes; the CUDA kernel takes at most "
+            f"{MAX_ND_AXES}")
+    if x.numel() == 0 or not w.any():
+        return None
+    dev, host = _nd_tables(w.tobytes(), w.shape,
+                           tuple(int(c) for c in centers), mode,
+                           tuple(x.shape), bool(transpose), x.device, x.dtype)
+    out = torch.empty_like(x)
     lib = _lib()
     err = lib.ed_correlate_nd(
         _DTYPE_CODES[x.dtype], int(transpose), x.data_ptr(), out.data_ptr(),
-        w_d.data_ptr(), off_d.data_ptr(), delta_d.data_ptr(),
-        ptr_d.data_ptr(), pos_d.data_ptr(), rank,
-        (ctypes.c_longlong * rank)(*merged), (i * rank)(*lo.tolist()),
-        (i * rank)(*hi.tolist()), (i * rank)(*ptr_base), len(taps),
-        _MODE_CODES[mode], float(cval), _stream(x))
+        *[a.data_ptr() for a in dev], *host, _MODE_CODES[mode], float(cval),
+        _stream(x))
     _build.check(err, lib, "ed_filters_error_string", what)
     return out
 
 
-# K9T's tile route (csrc/filters.cu): a block of 8 x 32 threads, each with
-# a column of C outputs along tile axis 0, C one of TILE_COLUMNS
+# K9's and K9T's tile route (csrc/filters.cu): a block of 8 x 32 threads,
+# each with a column of C outputs along tile axis 0, C one of TILE_COLUMNS
 ND_TILE = (8, 32)
 TILE_COLUMNS = (8, 4, 2, 1)
 # the column a plan takes where tile axis 0 is long enough and the box
@@ -748,7 +771,8 @@ def _contiguous_strides(shape):
 
 class HaloTile(NamedTuple):
     """The geometry of a tile route whose blocks stage their output tile's
-    halo box (K9T's, and K12's select route in ``ops/morphology.py``) on a
+    halo box (K9's and K9T's, and K11's and K12's in
+    ``ops/morphology.py``) on a
     tensor of ``shape`` under a kernel of ``kshape``: :func:`nd_geometry`'s
     ``merged`` shape, ``group`` and ``batch``, the ``merged`` axes'
     ``strides``, and ``axes``, the count of axes where the kernel has
@@ -818,7 +842,8 @@ def halo_tile(shape, kshape) -> HaloTile:
 
 
 class NdPlan(NamedTuple):
-    """How K9T runs on a tensor of ``shape`` with a kernel of ``kshape``:
+    """How K9 or K9T runs on a tensor of ``shape`` with a kernel of
+    ``kshape``:
     ``route`` ``"tile"`` or ``"nd"``. For a tile: the merged axis (of
     :func:`nd_geometry`) on each of the three tile axes, -1 for an extent
     of 1 (the kernel's axes, and for fewer than three the innermost batch
@@ -837,14 +862,16 @@ class NdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _nd_transpose_plan(shape, kshape, dtype, column=None, route=None,
-                       finite: bool = True) -> NdPlan:
-    """The launch of K9T on a ``dtype`` tensor of ``shape`` with a kernel
-    of ``kshape``: the tile route when the kernel has extent > 1 on one to
-    three axes, a tile's box fits :data:`SMEM_LIMIT`, a sample's tile axes
-    span fewer than 2^31 elements, the grid fewer than 2^31 blocks and the
-    weights are ``finite`` (a staged zero times an infinite weight would be
-    NaN where the nd route adds no term); else the nd route. The column is
+def _nd_plan(shape, kshape, dtype, column=None, route=None,
+             finite: bool = True) -> NdPlan:
+    """The launch of K9 or K9T on a ``dtype`` tensor of ``shape`` with a
+    kernel of ``kshape`` (both kernels share the tile, box and shared
+    bytes): the tile route when the kernel has extent > 1 on one to three
+    axes, a tile's box fits :data:`SMEM_LIMIT`, a sample's tile axes span
+    fewer than 2^31 elements, the grid fewer than 2^31 blocks and the
+    weights are ``finite`` (in K9T a staged zero times an infinite weight
+    would be NaN where the nd route adds no term; K9 keeps the rule); else
+    the nd route. The column is
     :data:`ND_COLUMN`, less where tile axis 0 is shorter (the next power of
     two) or has extent 1 (1), and halved until the box fits. ``column``
     and ``route`` force a choice (``chip_smoke.py`` times every column);
@@ -860,7 +887,8 @@ def _nd_transpose_plan(shape, kshape, dtype, column=None, route=None,
 
     def refuse(why):
         if route == "tile":
-            raise ValueError(f"K9T's tile route does not take {why}")
+            raise ValueError(f"K9's and K9T's tile route does not take "
+                             f"{why}")
         return NdPlan("nd")
 
     if not finite:
@@ -894,10 +922,11 @@ def _nd_transpose_plan(shape, kshape, dtype, column=None, route=None,
 
 @functools.lru_cache(maxsize=16)
 def _nd_tile_tables(wkey, kshape, centers, mode, shape, device, dtype):
-    """K9T's tile-route arguments, built and uploaded once per kernel,
-    shape and device: the taps' weights and offsets along the three tile
-    axes and the fold lists on ``device``, and the host arrays of
-    ``ed_correlate_nd_transpose_tile``."""
+    """K9's and K9T's tile-route arguments, built and uploaded once per
+    kernel, mode, shape and device: the taps' weights and offsets along the
+    three tile axes and K9T's fold lists on ``device``, and the host arrays
+    of ``ed_correlate_nd_transpose_tile`` (K9 takes them less the fold
+    lists' bases)."""
     w = np.frombuffer(wkey, dtype=np.float64).reshape(kshape)
     taps = _nd_taps(w)
     geo = halo_tile(shape, kshape)
@@ -951,30 +980,64 @@ def _launch_nd_transpose(g: torch.Tensor, weights, centers, mode: str,
     return out
 
 
+def _launch_correlate_nd(x: torch.Tensor, weights, centers, mode: str,
+                         cval, plan: NdPlan):
+    """K9 on a CUDA tensor on the route ``plan`` names; None, with no
+    launch, for an empty tensor or an all-zero kernel. Counts nothing (the
+    public wrapper counts)."""
+    if plan.route == "nd":
+        return _launch_nd(x, weights, centers, mode, cval, False)
+    what = "correlate_nd"
+    check_kernel_tensor(x, what)
+    w = np.ascontiguousarray(weights, dtype=np.float64)
+    if x.numel() == 0 or not w.any():
+        return None
+    (w_d, off_d, _, _), host = _nd_tile_tables(
+        w.tobytes(), w.shape, tuple(int(c) for c in centers), mode,
+        tuple(x.shape), x.device, x.dtype)
+    n3, st3, k3, hi3, _, *grid = host
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.ed_correlate_nd_tile(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), w_d.data_ptr(),
+        off_d.data_ptr(), n3, st3, k3, hi3, *grid, _MODE_CODES[mode],
+        float(cval), plan.column, plan.smem, plan.blocks, _stream(x))
+    _build.check(err, lib, "ed_filters_error_string", what)
+    return out
+
+
 def correlate_nd(x: torch.Tensor, weights, centers, mode: str,
                  cval) -> torch.Tensor:
     """N-D correlation of ``x`` with ``weights`` (float64 numpy, ``x``'s
     rank), tap ``centers[d]`` on the output along axis d, filter mode
     ``mode`` on every axis. A CPU tensor takes :func:`correlate_nd_plain`;
-    a CUDA tensor launches K9 and adds one to ``correlate_nd.launches``
-    (an all-zero kernel or an empty tensor gives zeros with no launch)."""
+    a CUDA tensor launches K9 on the route of :func:`_nd_plan` and adds one
+    to ``correlate_nd.launches`` and to its route's count in
+    ``correlate_nd.routes`` (an all-zero kernel or an empty tensor gives
+    zeros with no launch)."""
     if x.device.type == "cpu":
         return correlate_nd_plain(x, weights, centers, mode, cval)
-    out = _launch_nd(x, weights, centers, mode, cval, False)
+    check_kernel_tensor(x, "correlate_nd")
+    w = np.asarray(weights, dtype=np.float64)
+    plan = _nd_plan(tuple(x.shape), w.shape, x.dtype,
+                    finite=bool(np.isfinite(w).all()))
+    out = _launch_correlate_nd(x, w, centers, mode, cval, plan)
     if out is None:
         return torch.zeros_like(x)
     correlate_nd.launches += 1
+    correlate_nd.routes[plan.route] += 1
     return out
 
 
 correlate_nd.launches = 0
+correlate_nd.routes = {"tile": 0, "nd": 0}
 
 
 def correlate_nd_transpose(g: torch.Tensor, weights, centers,
                            mode: str) -> torch.Tensor:
     """The exact transpose of :func:`correlate_nd`. A CPU tensor takes
     :func:`correlate_nd_transpose_plain`; a CUDA tensor launches K9T on
-    the route of :func:`_nd_transpose_plan` and adds one to
+    the route of :func:`_nd_plan` and adds one to
     ``correlate_nd_transpose.launches`` and to its route's count in
     ``correlate_nd_transpose.routes`` (an all-zero kernel or an empty
     tensor gives zeros with no launch)."""
@@ -984,8 +1047,8 @@ def correlate_nd_transpose(g: torch.Tensor, weights, centers,
     w = np.asarray(weights, dtype=np.float64)
     if g.numel() == 0 or not w.any():
         return torch.zeros_like(g)
-    plan = _nd_transpose_plan(tuple(g.shape), w.shape, g.dtype,
-                              finite=bool(np.isfinite(w).all()))
+    plan = _nd_plan(tuple(g.shape), w.shape, g.dtype,
+                    finite=bool(np.isfinite(w).all()))
     out = _launch_nd_transpose(g, w, centers, mode, plan)
     correlate_nd_transpose.launches += 1
     correlate_nd_transpose.routes[plan.route] += 1

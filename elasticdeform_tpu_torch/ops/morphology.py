@@ -11,7 +11,12 @@ Counterpart of the JAX package's ``ops/morphology.py`` (less
 * :func:`min_max_filter` (K11): the min or max over an N-D footprint's taps,
   for a non-flat structure of ``x - s`` (erosion) or ``x + s`` (dilation) in
   the work type (float64 for integers and bool), whose result is truncated,
-  saturated at the type's range and cast, as XLA casts it.
+  saturated at the type's range and cast, as XLA casts it. Two routes, which
+  :func:`_min_max_plan` picks: ``"tile"`` (extent > 1 on at most three
+  axes, a box that fits shared memory: a block stages its tile's halo box
+  in the work type once and reduces from there, K12's select tile's
+  geometry) and ``"nd"`` (one thread per voxel in device memory, the
+  rest); both reduce the taps in raster order, bit for bit.
 * :func:`rank_filter` (K12): the ``rank``-th smallest footprint tap; up to
   :data:`RANK_NETWORK_MAX_TAPS` taps through the JAX package's pruned Batcher
   network (NaN-propagating min/max, so a window holding a NaN gives NaN),
@@ -37,9 +42,10 @@ Min and max order -0 below +0, as ``jnp.minimum`` and ``jnp.maximum`` do.
 On a CPU tensor each wrapper takes its plain version (``*_plain``: the JAX
 package's algorithm over slices of the padded array); on a CUDA tensor it
 launches its kernel or raises, and adds one to its ``.launches`` counter
-(K12 and K13 also to their route's count in ``.routes``); footprint offsets,
-comparator pairs and tile tables go to the card once per footprint, shape
-and device (``_geometry``, ``_network_pairs``, ``_rank_tile_tables``). Every
+(K11, K12 and K13 also to their route's count in ``.routes``); footprint
+offsets, structure values, comparator pairs and tile tables go to the card
+once per footprint, shape and device (``_geometry``, ``_structure_values``,
+``_network_pairs``, ``_tile_tables``). Every
 result is a selection, or one subtraction per tap, so the kernels agree with
 their plain versions, and the plain versions with the JAX package, bit for
 bit. PyTorch lacks most operations on uint16, uint32 and uint64; the plain
@@ -98,6 +104,9 @@ _WRITE_WORK = {False: 1, True: 16}
 # bits a pass
 RANK_TILE = (8, 32)
 RANK_COLUMN = 4
+# K11's tile route (csrc ED_MINMAX_COLUMN): the same blocks, each thread
+# with a column of MINMAX_COLUMN voxels (1 where tile axis 0 has extent 1)
+MINMAX_COLUMN = 8
 
 _DTYPE_CODES = {torch.bool: 0, torch.uint8: 1, torch.int8: 2,
                 torch.uint16: 3, torch.int16: 4, torch.uint32: 5,
@@ -681,6 +690,10 @@ def _lib():
         fn.restype = i
         fn.argtypes = [i, i, vp, vp, vp, ip, lp, ip, ip, i, lp, lp, i, i, i,
                        ll, i, ll, vp]
+        fn = lib.ed_min_max_tile
+        fn.restype = i
+        fn.argtypes = [i, i, i, i, vp, vp, vp, vp, ip, lp, ip, ip, i, lp, lp,
+                       i, i, ll, i, ll, vp]
         fn = lib.ed_binary_step
         fn.restype = i
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i, lp, ip, ip, i, i, i, vp]
@@ -762,33 +775,28 @@ def _network_pairs(taps: int, rank: int, device):
 class RankPlan(collections.namedtuple(
         "RankPlan", "route tile_axes grid_axes column box smem blocks",
         defaults=((), (), 0, (), 0, 0))):
-    """How K12 runs on a footprint of ``kshape`` over an array of
-    ``shape``: ``route`` ``"network"`` (up to
-    :data:`RANK_NETWORK_MAX_TAPS` taps), ``"tile"`` or ``"nd"`` (the select
-    route above). For a tile: the tile and grid axes of
+    """How K12 (or K11) runs on a footprint of ``kshape`` over an array of
+    ``shape``: ``route`` ``"network"`` (K12 up to
+    :data:`RANK_NETWORK_MAX_TAPS` taps), ``"tile"`` or ``"nd"`` (K11, and
+    K12's select route above). For a tile: the tile and grid axes of
     :func:`~elasticdeform_tpu_torch.ops.filters.halo_tile`; the ``column``
     C of voxels a thread keeps along tile axis 0; the halo ``box`` (the
     tile ``(C, 8, 32)`` grown by the footprint's extent - 1); ``smem``, the
-    shared bytes of the box's keys and values and the taps' offsets;
+    shared bytes of the box (K12: keys and values; K11: the work type, and
+    the structure's values when non-flat) and the taps' offsets;
     ``blocks``, the tiles times the walked batch."""
 
 
-@functools.lru_cache(maxsize=1024)
-def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
-    """K12's route on a ``dtype`` array of ``shape`` under a footprint of
-    ``kshape`` with ``taps`` taps: the network route up to
-    :data:`RANK_NETWORK_MAX_TAPS` taps (its NaN rule is the JAX package's
-    there, so no other route may take them); above, the tile route when the
-    footprint has extent > 1 on at most three axes, the box fits
-    :data:`SMEM_LIMIT` bytes, a sample's tile axes span fewer than 2^31
-    elements and the grid fewer than 2^31 blocks, else the nd route.
-    ``route`` forces a choice (a forced tile that does not fit raises
-    ValueError). Cached: the wrapper asks at every launch."""
-    if taps <= RANK_NETWORK_MAX_TAPS:
-        if route not in (None, "network"):
-            raise ValueError(f"K12 takes {taps} taps on its network route "
-                             f"only, not {route!r}")
-        return RankPlan("network")
+def _halo_plan(what, shape, kshape, column, box_bytes, taps: int,
+               route) -> RankPlan:
+    """The halo-box tile plan of K11 or K12 (``what``) on an array of
+    ``shape`` under a footprint of ``kshape`` with ``taps`` taps: the tile
+    route when the footprint has extent > 1 on one to three axes, the
+    box's ``box_bytes(cells)`` bytes, rounded up to 4, and the taps' int32
+    offsets fit :data:`SMEM_LIMIT`, a sample's tile axes span fewer than
+    2^31 elements and the grid fewer than 2^31 blocks, else the nd route;
+    the ``column``, 1 where tile axis 0 has extent 1. ``route`` forces a
+    choice (a forced tile that does not fit raises ValueError)."""
     if route == "nd":
         return RankPlan("nd")
     if route not in (None, "tile"):
@@ -796,7 +804,7 @@ def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
 
     def refuse(why):
         if route == "tile":
-            raise ValueError(f"K12's tile route does not take {why}")
+            raise ValueError(f"{what}'s tile route does not take {why}")
         return RankPlan("nd")
 
     geo = halo_tile(shape, kshape)
@@ -804,9 +812,9 @@ def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
         return refuse(f"a footprint with extent > 1 on {geo.axes} axes")
     if geo.span >= 2 ** 31:
         return refuse("a sample of 2^31 elements or more")
-    tile = (1 if geo.n3[0] == 1 else RANK_COLUMN,) + RANK_TILE
+    tile = (1 if geo.n3[0] == 1 else column,) + RANK_TILE
     box = geo.box(tile)
-    smem = -(-2 * math.prod(box) * dtype.itemsize // 4) * 4 + 4 * taps
+    smem = -(-box_bytes(math.prod(box)) // 4) * 4 + 4 * taps
     if smem > SMEM_LIMIT:
         return refuse(f"a box of {box} and {taps} taps: {smem} bytes, over "
                       f"{SMEM_LIMIT}")
@@ -817,11 +825,44 @@ def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
                     blocks)
 
 
+@functools.lru_cache(maxsize=1024)
+def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
+    """K12's route on a ``dtype`` array of ``shape`` under a footprint of
+    ``kshape`` with ``taps`` taps: the network route up to
+    :data:`RANK_NETWORK_MAX_TAPS` taps (its NaN rule is the JAX package's
+    there, so no other route may take them); above, :func:`_halo_plan`'s
+    tile route (a box of keys and values, :data:`RANK_COLUMN`) or the nd
+    route. ``route`` forces a choice (a forced tile that does not fit
+    raises ValueError). Cached: the wrapper asks at every launch."""
+    if taps <= RANK_NETWORK_MAX_TAPS:
+        if route not in (None, "network"):
+            raise ValueError(f"K12 takes {taps} taps on its network route "
+                             f"only, not {route!r}")
+        return RankPlan("network")
+    return _halo_plan("K12", shape, kshape, RANK_COLUMN,
+                      lambda cells: 2 * cells * dtype.itemsize, taps, route)
+
+
+@functools.lru_cache(maxsize=1024)
+def _min_max_plan(shape, kshape, work, taps: int, nonflat: bool,
+                  route=None) -> RankPlan:
+    """K11's route on an array of ``shape`` under a footprint of ``kshape``
+    with ``taps`` taps, reduced in the ``work`` dtype: :func:`_halo_plan`'s
+    tile route (a box in the work type, a ``nonflat`` structure's values
+    beside it, :data:`MINMAX_COLUMN`) or the nd route. ``route`` forces a
+    choice. Cached: the wrapper asks at every launch."""
+    return _halo_plan(
+        "K11", shape, kshape, MINMAX_COLUMN,
+        lambda cells: (cells + (taps if nonflat else 0)) * work.itemsize,
+        taps, route)
+
+
 @functools.lru_cache(maxsize=64)
-def _rank_tile_tables(fkey, fshape, centers, shape, plan, device):
-    """The tile route's arguments for ``plan``, built and uploaded once per
-    footprint, shapes and device: each tap's offset into the box (raster
-    order) on ``device``, and the host arrays of ``ed_rank_select_tile``."""
+def _tile_tables(fkey, fshape, centers, shape, plan, device):
+    """K11's and K12's tile route arguments for ``plan``, built and
+    uploaded once per footprint, shapes and device: each tap's offset into
+    the box (raster order) on ``device``, and the host arrays of
+    ``ed_rank_select_tile`` and ``ed_min_max_tile``."""
     taps = np.argwhere(np.frombuffer(fkey, dtype=bool).reshape(fshape))
     geo = halo_tile(shape, fshape)
     idx = np.zeros((len(taps), 3), dtype=np.int64)
@@ -864,6 +905,61 @@ def min_max_filter1d(x: torch.Tensor, size: int, axis: int, mode: str, cval,
 min_max_filter1d.launches = 0
 
 
+def _work_dtype(dtype: torch.dtype, nonflat: bool) -> torch.dtype:
+    """K11's work type: ``dtype``, or float64 for a non-flat structure on
+    integers and bool."""
+    return dtype if not nonflat or dtype.is_floating_point else torch.float64
+
+
+@functools.lru_cache(maxsize=64)
+def _structure_values(skey, fkey, fshape, work, device):
+    """A non-flat structure's values at the footprint's taps (raster
+    order) in the ``work`` dtype on ``device``, uploaded once per
+    structure, footprint, work type and device."""
+    s = np.frombuffer(skey, dtype=np.float64).reshape(fshape)
+    fp = np.frombuffer(fkey, dtype=bool).reshape(fshape)
+    return torch.as_tensor(np.ascontiguousarray(s[fp])).to(device=device,
+                                                           dtype=work)
+
+
+def _launch_min_max(x: torch.Tensor, footprint, structure, centers,
+                    mode: str, cval, minimum: bool,
+                    plan: RankPlan) -> torch.Tensor:
+    """K11 on a CUDA tensor on the route ``plan`` names. Counts nothing
+    (the public wrapper counts)."""
+    _check(x, "min_max_filter")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fp = np.ascontiguousarray(footprint, dtype=bool)
+    nonflat = structure is not None
+    work = _work_dtype(x.dtype, nonflat)
+    sval = None
+    if nonflat:
+        sval = _structure_values(
+            np.ascontiguousarray(structure, dtype=np.float64).tobytes(),
+            fp.tobytes(), fp.shape, work, x.device)
+    sptr = None if sval is None else sval.data_ptr()
+    lib = _lib()
+    if plan.route == "tile":
+        toff, host = _tile_tables(
+            fp.tobytes(), fp.shape, tuple(int(c) for c in centers),
+            tuple(int(n) for n in x.shape), plan, x.device)
+        err = lib.ed_min_max_tile(
+            _DTYPE_CODES[x.dtype], int(minimum), int(nonflat), plan.column,
+            x.data_ptr(), out.data_ptr(), toff.data_ptr(), sptr, *host,
+            _MODE_CODES[mode], _bits(cval, work), plan.smem, plan.blocks,
+            _stream(x))
+    else:
+        geo = _geometry(x, fp, centers, "min_max_filter")
+        err = lib.ed_min_max_filter(
+            _DTYPE_CODES[x.dtype], int(minimum), int(nonflat), x.data_ptr(),
+            out.data_ptr(), geo.off.data_ptr(), geo.delta.data_ptr(), sptr,
+            *geo.args, _MODE_CODES[mode], _bits(cval, work), _stream(x))
+    _build.check(err, lib, "ed_morphology_error_string", "min_max_filter")
+    return out
+
+
 def min_max_filter(x: torch.Tensor, footprint, structure, centers, mode: str,
                    cval, minimum: bool) -> torch.Tensor:
     """The min or max over the taps of ``footprint`` (bool numpy, ``x``'s
@@ -871,35 +967,32 @@ def min_max_filter(x: torch.Tensor, footprint, structure, centers, mode: str,
     (float64 numpy of the footprint's shape, or None for flat) applied in
     the work type: ``x``'s for floats, float64 otherwise, which ``cval`` is
     in. A CPU tensor takes :func:`min_max_filter_plain`; a CUDA tensor
-    launches K11 and adds one to ``min_max_filter.launches``."""
+    launches K11 on the route of :func:`_min_max_plan` and adds one to
+    ``min_max_filter.launches`` and to its route's count in
+    ``min_max_filter.routes``."""
     if x.device.type == "cpu":
         return min_max_filter_plain(x, footprint, structure, centers, mode,
                                     cval, minimum)
     _check(x, "min_max_filter")
-    out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
-    geo = _geometry(x, footprint, centers, "min_max_filter")
+        return torch.empty_like(x)
+    if not 1 <= x.dim() <= MAX_ND_AXES:
+        raise ValueError(f"min_max_filter: the CUDA kernel takes 1 to "
+                         f"{MAX_ND_AXES} axes, got {x.dim()}")
+    fp = np.asarray(footprint, dtype=bool)
     nonflat = structure is not None
-    work = x.dtype if not nonflat or x.dtype.is_floating_point else \
-        torch.float64
-    sval = None
-    if nonflat:
-        s = np.asarray(structure, dtype=np.float64)[np.asarray(footprint,
-                                                               dtype=bool)]
-        sval = _on(s, x, work)
-    lib = _lib()
-    err = lib.ed_min_max_filter(
-        _DTYPE_CODES[x.dtype], int(minimum), int(nonflat), x.data_ptr(),
-        out.data_ptr(), geo.off.data_ptr(), geo.delta.data_ptr(),
-        None if sval is None else sval.data_ptr(), *geo.args,
-        _MODE_CODES[mode], _bits(cval, work), _stream(x))
-    _build.check(err, lib, "ed_morphology_error_string", "min_max_filter")
+    plan = _min_max_plan(tuple(x.shape), fp.shape,
+                         _work_dtype(x.dtype, nonflat), int(fp.sum()),
+                         nonflat)
+    out = _launch_min_max(x, fp, structure, centers, mode, cval, minimum,
+                          plan)
     min_max_filter.launches += 1
+    min_max_filter.routes[plan.route] += 1
     return out
 
 
 min_max_filter.launches = 0
+min_max_filter.routes = {"tile": 0, "nd": 0}
 
 
 def _launch_rank(x: torch.Tensor, footprint, centers, mode: str, cval,
@@ -913,7 +1006,7 @@ def _launch_rank(x: torch.Tensor, footprint, centers, mode: str, cval,
     lib = _lib()
     if plan.route == "tile":
         fp = np.ascontiguousarray(footprint, dtype=bool)
-        toff, host = _rank_tile_tables(
+        toff, host = _tile_tables(
             fp.tobytes(), fp.shape, tuple(int(c) for c in centers),
             tuple(int(n) for n in x.shape), plan, x.device)
         err = lib.ed_rank_select_tile(

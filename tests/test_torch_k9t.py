@@ -3,7 +3,7 @@
 The card runs K9T (``correlate_nd_transpose``) either on the tile route, a
 block staging its tile's halo box of the cotangent in shared memory, or on
 the nd route, one thread per output in device memory;
-``ops/filters.py``'s ``_nd_transpose_plan`` picks the route from the
+``ops/filters.py``'s ``_nd_plan`` picks the route from the
 shapes. On the CPU:
 
 * a numpy model of the tile route's index arithmetic (``csrc/filters.cu``
@@ -152,7 +152,7 @@ def _case(shape, kshape, seed, origin):
 def test_tile_model_is_the_twin_and_the_jax_vjp(case, mode, origin):
     shape, kshape = CASES[case]
     g, w, centers = _case(shape, kshape, case, origin)
-    plan = tf._nd_transpose_plan(shape, kshape, torch.float64)
+    plan = tf._nd_plan(shape, kshape, torch.float64)
     assert plan.route == "tile"
     got = _tile_model(g, w, centers, mode, plan)
     twin = tf.correlate_nd_transpose_plain(torch.as_tensor(g), w, centers,
@@ -172,7 +172,7 @@ def test_tile_model_is_the_twin_and_the_jax_vjp(case, mode, origin):
 def test_every_column_is_the_twin(column, mode):
     shape, kshape = (11, 6, 37), (3, 2, 4)
     g, w, centers = _case(shape, kshape, column, "mid")
-    plan = tf._nd_transpose_plan(shape, kshape, torch.float64,
+    plan = tf._nd_plan(shape, kshape, torch.float64,
                                  column=column, route="tile")
     assert plan.column == column
     twin = tf.correlate_nd_transpose_plain(torch.as_tensor(g), w, centers,
@@ -183,14 +183,14 @@ def test_every_column_is_the_twin(column, mode):
 
 def test_plan_at_c14():
     for dtype in (torch.float32, torch.float64):
-        plan = tf._nd_transpose_plan((160, 192, 224), (5, 5, 5), dtype)
+        plan = tf._nd_plan((160, 192, 224), (5, 5, 5), dtype)
         c = tf.ND_COLUMN
         item = 4 if dtype == torch.float32 else 8
         assert plan == tf.NdPlan(
             "tile", (0, 1, 2), (), c, (c + 4, 12, 36),
             (c + 4) * 12 * 36 * item + 125 * (item + 4),
             -(-160 // c) * 24 * 7)
-        conv = tf._nd_transpose_plan((2, 160, 192, 224), (1, 3, 3, 3), dtype)
+        conv = tf._nd_plan((2, 160, 192, 224), (1, 3, 3, 3), dtype)
         assert conv.route == "tile" and conv.tile_axes == (1, 2, 3)
         assert conv.grid_axes == (0,)
         assert conv.blocks == 2 * -(-160 // c) * 24 * 7
@@ -198,16 +198,16 @@ def test_plan_at_c14():
 
 def test_plan_fills_short_ranks_with_batch_axes():
     # one kernel axis: the two innermost batch axes join the tile
-    plan = tf._nd_transpose_plan((4, 5, 6, 7), (1, 3, 1, 1), torch.float32)
+    plan = tf._nd_plan((4, 5, 6, 7), (1, 3, 1, 1), torch.float32)
     merged, _, batch = tf.nd_geometry((4, 5, 6, 7), (1, 3, 1, 1))
     assert merged == [4, 5, 42] and batch == [True, False, True]
     assert plan.tile_axes == (0, 1, 2) and plan.grid_axes == ()
     assert plan.box == (plan.column, 10, 32)
     # two kernel axes, no batch: a leading extent of 1 and C = 1
-    plan = tf._nd_transpose_plan((40, 50), (3, 3), torch.float32)
+    plan = tf._nd_plan((40, 50), (3, 3), torch.float32)
     assert plan.tile_axes == (-1, 0, 1) and plan.column == 1
     # a short tile axis 0 takes the next power of two
-    plan = tf._nd_transpose_plan((3, 40, 50), (3, 3, 3), torch.float32)
+    plan = tf._nd_plan((3, 40, 50), (3, 3, 3), torch.float32)
     assert plan.column == min(4, tf.ND_COLUMN)
 
 
@@ -215,30 +215,30 @@ def test_plan_routes_the_rest_to_nd():
     f32, f64 = torch.float32, torch.float64
     nd = tf.NdPlan("nd")
     # four kernel axes, or none
-    assert tf._nd_transpose_plan((3, 4, 5, 6), (2, 3, 2, 3), f32) == nd
-    assert tf._nd_transpose_plan((3, 4, 5), (1, 1, 1), f32) == nd
+    assert tf._nd_plan((3, 4, 5, 6), (2, 3, 2, 3), f32) == nd
+    assert tf._nd_plan((3, 4, 5), (1, 1, 1), f32) == nd
     # non-finite weights
-    assert tf._nd_transpose_plan((9, 9), (3, 3), f32, finite=False) == nd
+    assert tf._nd_plan((9, 9), (3, 3), f32, finite=False) == nd
     # a box that fits in float32 but not in float64
-    assert tf._nd_transpose_plan((300, 300), (120, 120), f32).route == "tile"
-    assert tf._nd_transpose_plan((300, 300), (120, 120), f64) == nd
+    assert tf._nd_plan((300, 300), (120, 120), f32).route == "tile"
+    assert tf._nd_plan((300, 300), (120, 120), f64) == nd
     # a huge kernel
-    assert tf._nd_transpose_plan((99, 99, 99), (64, 64, 64), f32) == nd
+    assert tf._nd_plan((99, 99, 99), (64, 64, 64), f32) == nd
     # a sample of 2^31 elements, a grid of 2^31 blocks
-    assert tf._nd_transpose_plan((2 ** 16, 2 ** 16), (3, 3), f32) == nd
-    assert tf._nd_transpose_plan((2 ** 31, 4, 4, 4), (1, 3, 3, 3),
+    assert tf._nd_plan((2 ** 16, 2 ** 16), (3, 3), f32) == nd
+    assert tf._nd_plan((2 ** 31, 4, 4, 4), (1, 3, 3, 3),
                                  f32) == nd
-    assert tf._nd_transpose_plan((2 ** 31 - 1, 4, 4, 4), (1, 3, 3, 3),
+    assert tf._nd_plan((2 ** 31 - 1, 4, 4, 4), (1, 3, 3, 3),
                                  f32).route == "tile"
-    assert tf._nd_transpose_plan((9, 9), (3, 3), f32, route="nd") == nd
+    assert tf._nd_plan((9, 9), (3, 3), f32, route="nd") == nd
     with pytest.raises(ValueError):
-        tf._nd_transpose_plan((99, 99, 99), (64, 64, 64), f32, route="tile")
+        tf._nd_plan((99, 99, 99), (64, 64, 64), f32, route="tile")
     with pytest.raises(ValueError):
-        tf._nd_transpose_plan((2 ** 16, 2 ** 16), (3, 3), f32, route="tile")
+        tf._nd_plan((2 ** 16, 2 ** 16), (3, 3), f32, route="tile")
     with pytest.raises(ValueError):
-        tf._nd_transpose_plan((9, 9), (3, 3), f32, column=3)
+        tf._nd_plan((9, 9), (3, 3), f32, column=3)
     with pytest.raises(ValueError):
-        tf._nd_transpose_plan((9, 9), (3, 3), f32, route="rows")
+        tf._nd_plan((9, 9), (3, 3), f32, route="rows")
 
 
 def test_cpu_tensors_count_no_route():
@@ -269,8 +269,8 @@ def test_both_routes_match_plain(cuda_device, dtype, mode):
         terms = tf.correlate_nd_transpose_plain(gt.abs(), np.abs(w), centers,
                                                 mode)
         rtol = 1e-5 if dtype == torch.float32 else 1e-10
-        for plan in (tf._nd_transpose_plan(shape, kshape, dtype),
-                     tf._nd_transpose_plan(shape, kshape, dtype,
+        for plan in (tf._nd_plan(shape, kshape, dtype),
+                     tf._nd_plan(shape, kshape, dtype,
                                            route="nd")):
             got = tf._launch_nd_transpose(gt, w, centers, mode, plan)
             err = (got.double() - want.double()).abs()
