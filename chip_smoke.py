@@ -314,10 +314,15 @@ def phase_device():
 
 
 # the rank-specialised kernels' instantiations (dtype, order, rank, index
-# type): K5/K5c in resample_bwd.cu, K1/K1c in resample.cu
-_K5_NAME = re.compile(r"coord_grad_kernelI([fd])Li(\d)ELi(\d)E([il])E")
+# type): K5/K5c in resample_bwd.cu (order 1 in coord_grad_pair_kernel,
+# which has no order parameter), K1/K1c in resample.cu, K3/K3c's tile
+# route and its direct route
+_K5_NAME = re.compile(
+    r"coord_grad_(?:pair_)?kernelI([fd])(?:Li(\d)E)?Li(\d)E([il])E")
 _K1_NAME = re.compile(r"resample_fwd_kernelI([fd])Li(\d)ELi(\d)E([il])E")
 _K3_NAME = re.compile(r"resample_bwd_kernelI([fd])Li(\d)ELi(\d)E([il])E")
+_K3D_NAME = re.compile(
+    r"resample_direct_kernelI([fd])Li(\d)ELi(\d)E([il])E")
 
 
 def _ptxas_kernels(log):
@@ -496,7 +501,9 @@ def _check_rank_table(label, log, pattern, orders, count, every=False):
     for fn, v in _ptxas_kernels(log).items():
         m = pattern.search(fn)
         if m:
-            found[m.groups()] = v
+            # K5's order-1 kernel names no order
+            dt, order, rank, ix = m.groups()
+            found[dt, order or "1", rank, ix] = v
     for (dt, dname), (ix, width), rank in itertools.product(
             (("f", "float32"), ("d", "float64")),
             (("i", "int32"), ("l", "int64")), "1234"):
@@ -522,8 +529,10 @@ def _k3_sass(path):
     instantiations at rank 3 and orders 1 and 3 (32-bit offsets), from
     ``cuobjdump -sass`` of the built library: whether the shared-memory
     adds are native (ATOMS.ADD) or compare-and-swap loops (ATOMS.CAS*),
-    and the device-memory ones (RED/ATOMG). Returns ``{dtype: {opcode:
-    count}}`` at order 3; prints "not available" without cuobjdump."""
+    and the device-memory ones (RED/ATOMG); the direct route's kernel at
+    orders 0 and 1 too (its vector reductions, RED...F32x4 or the like).
+    Returns ``{dtype: {opcode: count}}`` of the tile route at order 3;
+    prints "not available" without cuobjdump."""
     import os
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -537,8 +546,12 @@ def _k3_sass(path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             k = _K3_NAME.search(m.group(1))
+            d = _K3D_NAME.search(m.group(1))
             cur = k.groups() if k and k.group(3) == "3" and \
                 k.group(4) == "i" and k.group(2) in "13" else None
+            if d and d.group(3) == "3" and d.group(4) == "i" and \
+                    d.group(2) in "01":
+                cur = d.groups() + ("direct",)
             if cur:
                 found[cur] = {}
             continue
@@ -547,11 +560,13 @@ def _k3_sass(path):
                                  line):
                 found[cur][op] = found[cur].get(op, 0) + 1
     out = {}
-    for (dt, order, _, _), ops in sorted(found.items()):
+    for key, ops in sorted(found.items()):
+        dt, order = key[:2]
         name = "float32" if dt == "f" else "float64"
-        print(f"  sass K3/K3c {name} rank 3 order {order}: " + ", ".join(
-            f"{op} x{n}" for op, n in sorted(ops.items())))
-        if order == "3":
+        route = "direct route" if len(key) > 4 else "tile route"
+        print(f"  sass K3/K3c {route} {name} rank 3 order {order}: " +
+              ", ".join(f"{op} x{n}" for op, n in sorted(ops.items())))
+        if order == "3" and len(key) == 4:
             out[name] = ops
     return out
 
@@ -584,7 +599,8 @@ def phase_build():
               f"{sum(v[4] for v in kern.values()) / 1e3:.1f} s in all")
         for fn, v in kern.items():
             if not (_K5_NAME.search(fn) or _K1_NAME.search(fn) or
-                    _K3_NAME.search(fn)) and (v[1] or v[2]):
+                    _K3_NAME.search(fn) or _K3D_NAME.search(fn)) and \
+                    (v[1] or v[2]):
                 print(f"  ptxas {name}: {fn}: {v[0]} registers, {v[1]} "
                       f"bytes stack frame, {v[2]}/{v[3]} bytes spill "
                       f"stores/loads")
@@ -612,14 +628,16 @@ def phase_build():
     for name, label, pattern, orders, count, every in (
             ("resample", "K1/K1c", _K1_NAME, "012345", 96, False),
             ("resample_bwd", "K5/K5c", _K5_NAME, "12345", 80, False),
-            ("resample_bwd", "K3/K3c", _K3_NAME, "012345", 96, True)):
+            ("resample_bwd", "K3/K3c", _K3_NAME, "012345", 96, True),
+            ("resample_bwd", "K3/K3c direct", _K3D_NAME, "012345", 96,
+             True)):
         _check_rank_table(label, _build.build_logs[name], pattern, orders,
                           count, every)
     if {"resample", "resample_bwd"} <= _build.build_seconds.keys():
         print(f"  nvcc: resample.cu {_build.build_seconds['resample']:.1f} "
               f"s (K1/K1c, 96 instantiations), resample_bwd.cu "
-              f"{_build.build_seconds['resample_bwd']:.1f} s (K3/K3c 96, "
-              f"K5/K5c 80) in the same build")
+              f"{_build.build_seconds['resample_bwd']:.1f} s (K3/K3c 96 "
+              f"tile and 96 direct, K5/K5c 80) in the same build")
     return _k3_sass(paths["resample_bwd"])
 
 
@@ -776,12 +794,14 @@ def phase_kernels():
           f"err {worst['spline_prefilter_transpose']:.3e}; the K2/K4 adjoint "
           f"identity holds in float64 ({n // 2} cases)")
     _check_coords_kernels(rs, worst)
+    _check_direct_routes(rs, worst)
     _check_narrow_table(rs)
     _check_k1_widths(rs)
     _check_bc_prefilter(rs, worst)
     _check_tile_routes(rs, worst)
     _check_int_deform(rs)
     _check_int_resampler(rs)
+    _check_int_cast(rs)
     _check_int_spline_filter(rs)
     _check_int_filters(rs)
     _check_k9_routes(rs)
@@ -868,35 +888,227 @@ def _check_coords_kernels(rs, worst):
           f"box, {tally['direct']} took the direct branch")
 
 
+# the direct route's geometries that phase 2 holds against the twin and
+# phase 4 times, in the package's build (one voxel a lane, no merge; the
+# others are ab_bounds'): (label, voxels a lane, lanes along a row, the
+# whole output as one row, vec, neighbouring lanes merged at order 1)
+_DIRECT_GEOMS = (("flat", 1, 32, True, 0, False),
+                 ("rows", 1, 32, False, 0, False),
+                 ("16 lanes a row", 1, 16, False, 0, False),
+                 ("8 lanes a row", 1, 8, False, 0, False))
+
+
+def _smooth_coords(rs, B, in_sp, out_sp, dtype, dev, reach=2.0):
+    """Coordinates that run smoothly over each input axis from ``reach``
+    voxels below it to ``reach`` above, with a wobble of a quarter voxel:
+    the direct route's lanes merge, and fold at both edges."""
+    import torch
+    axes = np.meshgrid(*[np.linspace(0, 1, n) for n in out_sp],
+                       indexing="ij")
+    cc = np.empty((B, len(in_sp), *out_sp))
+    for b in range(B):
+        for h, n in enumerate(in_sp):
+            cc[b, h] = -reach + axes[h] * (n - 1 + 2 * reach) + 0.25 * \
+                np.sin(7.0 * sum(axes) + rs.uniform(0, 6))
+    return torch.as_tensor(cc, dtype=dtype, device=dev)
+
+
+def _check_direct_routes(rs, worst):
+    """K3c and K3 on the direct route, each geometry of
+    :data:`_DIRECT_GEOMS`, against their twins per element to 1e-5 of the
+    sum of the absolute terms (float64 1e-10): the sweep's 1-D to 4-D
+    shapes and a (9, 7, 12) -> (10, 8, 30) volume, orders 0 and 1 (and 3,
+    where nothing merges), one and two channels, the five modes, at
+    smooth coordinates (lanes merge; windows fold at both edges) and, in
+    two geometries, at coordinates up to 3x the extent outside (few
+    merge); K3 at affine(j) +
+    offset + displ with per-sample affines."""
+    import torch
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    dev = torch.device("cuda")
+    n = 0
+    shapes = SWEEP_SHAPES + ((3, (9, 7, 12), (10, 8, 30)),)
+    for (naxis, in_sp, out_sp), dtype, C, order, mode in itertools.product(
+            shapes, (torch.float32, torch.float64), (1, 2), (0, 1, 3),
+            range(5)):
+        B = 2
+        for smooth in (True, False):
+            if smooth:
+                coords = _smooth_coords(rs, B, in_sp, out_sp, dtype, dev)
+            else:
+                ext = max(in_sp)
+                coords = torch.as_tensor(rs.uniform(
+                    -3 * ext, 4 * ext, (B, naxis, *out_sp)), dtype=dtype,
+                    device=dev)
+            g = torch.as_tensor(rs.randn(B, *out_sp, C), dtype=dtype,
+                                device=dev)
+            want = rb.resample_coords_transpose_plain(g, coords, order, mode,
+                                                      in_sp)
+            terms = rb.resample_coords_transpose_plain(g.abs(), coords, order,
+                                                       mode, in_sp)
+            rtol, _ = _tol(dtype, 1.0)
+            for label, v, lanes, flat, vec, merge in (
+                    _DIRECT_GEOMS if smooth else _DIRECT_GEOMS[::4]):
+                plan = rb._bwd_plan(in_sp, out_sp, C, order, dtype,
+                                    route="direct", voxels=v, lanes=lanes,
+                                    flat=flat, vec=vec, merge=merge)
+                got = rb._launch_k3c(g, coords, order, mode, in_sp, plan)
+                torch.cuda.synchronize()
+                worst["resample_coords_bwd"] = max(
+                    worst["resample_coords_bwd"], _assert_close(
+                        got, want, rtol, rtol * terms.double().abs(),
+                        f"K3c direct {label} naxis={naxis} C={C} {dtype} "
+                        f"order={order} mode={MODES[mode]} "
+                        f"smooth={smooth}"))
+                n += 1
+        # K3: the coordinates from the output index, stepped voxel by voxel
+        A = np.zeros((B, naxis, naxis + 1))
+        A[:, :, :naxis] = np.eye(naxis) + rs.randn(B, naxis, naxis) * 0.05
+        A[:, :, naxis] = rs.randn(B, naxis)
+        affine = torch.as_tensor(A, dtype=dtype, device=dev)
+        displ = torch.as_tensor(rs.randn(B, naxis, *out_sp) * 0.4,
+                                dtype=dtype, device=dev)
+        offsets = tuple(int(o) for o in rs.randint(0, 3, naxis))
+        bargs = (displ, affine, offsets, order, mode)
+        want = rb.resample_transpose_plain(g, *bargs, in_sp)
+        terms = rb.resample_transpose_plain(g.abs(), *bargs, in_sp)
+        for label, v, lanes, flat, vec, merge in _DIRECT_GEOMS[::3]:
+            plan = rb._bwd_plan(in_sp, out_sp, C, order, dtype,
+                                route="direct", voxels=v, lanes=lanes,
+                                flat=flat, vec=vec, merge=merge)
+            got = rb._launch_k3(g, *bargs, in_sp, plan)
+            torch.cuda.synchronize()
+            worst["resample_bwd"] = max(worst["resample_bwd"], _assert_close(
+                got, want, rtol, rtol * terms.double().abs(),
+                f"K3 direct {label} naxis={naxis} C={C} {dtype} "
+                f"order={order} mode={MODES[mode]}"))
+            n += 1
+    print(f"K3/K3c's direct route in {len(_DIRECT_GEOMS)} geometries "
+          f"(lanes a row, the whole output or rows) vs plain: {n} cases "
+          f"pass")
+
+
+def _int_cast_image(rs, shape, idt):
+    """Integers of ``idt`` with a share at the type's greatest and least
+    values."""
+    info = np.iinfo(idt)
+    lo, hi = max(int(info.min), -3000), min(int(info.max), 3000)
+    x = rs.randint(lo, hi + 1, shape).astype(idt)
+    x.reshape(-1)[rs.rand(x.size) < 0.2] = info.max
+    x.reshape(-1)[rs.rand(x.size) < 0.1] = info.min
+    return x
+
+
+def _check_int_cast(rs):
+    """Fault 7 on the card: the resamplers' integer outputs with NaN
+    ``cval``, a NaN in the grid or among the coordinates, and inputs at
+    their types' edges, int8-int64 and uint8-uint32: ``deform`` and
+    ``deform_grid`` (orders 1 and 3, constant mode with a NaN ``cval``;
+    mirror with a NaN grid), ``map_coordinates`` (orders 0, 1 and 3, a NaN
+    ``cval`` and one NaN coordinate), ``affine_transform`` and ``shift``
+    (order 1, NaN ``cval``): each equal to the same call with
+    ``device="cpu"`` bit for bit."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    n = 0
+    for idt in ("int8", "int16", "int32", "int64", "uint8", "uint16",
+                "uint32"):
+        x = _int_cast_image(rs, (20, 24), idt)
+        line = _int_cast_image(rs, (30,), idt)
+        grid = rs.randn(2, 3, 3) * 3
+        nan_grid = grid.copy()
+        nan_grid[0, 1, 1] = np.nan
+        coords = rs.uniform(-2, 31, (1, 26))
+        coords[0, 7] = np.nan
+        coords[0, -1] = float(np.argmax(line == np.iinfo(idt).max))
+        mat = np.array([[0.95, 0.2], [-0.2, 1.05]])
+        calls = []
+        for order in (1, 3):
+            for api in ("deform", "deform_grid"):
+                calls += [
+                    (f"{api} cval=nan order={order}",
+                     lambda d, api=api, o=order: getattr(et, api)(
+                         x, grid, order=o, mode="constant", cval=np.nan,
+                         device=d)),
+                    (f"{api} nan grid order={order}",
+                     lambda d, api=api, o=order: getattr(et, api)(
+                         x, nan_grid, order=o, mode="mirror", device=d))]
+        for order in (0, 1, 3):
+            calls.append((f"map_coordinates order={order}",
+                          lambda d, o=order: et.map_coordinates(
+                              line, coords, order=o, mode="constant",
+                              cval=np.nan, device=d)))
+        calls += [("affine_transform", lambda d: et.affine_transform(
+            x, mat, [2.5, -3.0], order=1, mode="constant", cval=np.nan,
+            device=d)),
+            ("shift", lambda d: et.shift(x, [2.5, -3.25], order=1,
+                                         mode="constant", cval=np.nan,
+                                         device=d))]
+        for name, call in calls:
+            got = call("cuda")
+            torch.cuda.synchronize()
+            want = call("cpu")
+            got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+            want = want.numpy() if isinstance(want, torch.Tensor) else want
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{name} {idt}: {int((got != want).sum())} of "
+                    f"{want.size} values differ from the CPU run")
+            n += 1
+    print(f"fault 7: deform, deform_grid, map_coordinates, affine_transform "
+          f"and shift on int8-int64 and uint8-uint32 inputs with NaN cval, "
+          f"NaN grids and coordinates and each type's edges: {n} calls "
+          f"equal the CPU run bit for bit")
+
+
 def _check_k3c_nan(rs):
-    """K3c at coordinates with a NaN and one far outside (1e20), in the
-    five modes: a block holding either takes the direct branch, so the
-    tile route's output equals the direct route's (NaN where NaN, the rest
-    per element to 1e-5 of the sum of the absolute terms, float64 1e-10)."""
+    """K3c at coordinates with a NaN, a NaN outside in constant mode (on one
+    axis, outside on another) and one far outside (1e20), in the five
+    modes, orders 1 and 3: a block holding either takes the direct branch,
+    so the tile route's output equals the direct route's, each of
+    :data:`_DIRECT_GEOMS` (NaN where NaN, which is where the twin puts it,
+    the rest per element to 1e-5 of the sum of the absolute terms,
+    float64 1e-10)."""
     import torch
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
     in_sp, out_sp = (12, 10, 9), (9, 8, 10)
-    for mode, dtype in itertools.product(range(5), (torch.float32,
-                                                     torch.float64)):
+    n = 0
+    for mode, dtype, order in itertools.product(
+            range(5), (torch.float32, torch.float64), (1, 3)):
         cc = rs.uniform(-2, 12, (1, 3, *out_sp))
         cc[0, 1, 4, 3, 5] = np.nan
+        cc[0, 0, 2, 2, 2], cc[0, 1, 2, 2, 2] = -1.5, np.nan
         cc[0, 2, 0, 0, 0] = 1e20
         coords = torch.as_tensor(cc, dtype=dtype, device="cuda")
         g = torch.as_tensor(rs.randn(1, *out_sp, 1), dtype=dtype,
                             device="cuda")
-        got, want = (rb._launch_k3c(g, coords, 3, mode, in_sp, rb._bwd_plan(
-            in_sp, out_sp, 1, 3, dtype, route=r)) for r in ("tile",
-                                                             "direct"))
-        terms = rb._launch_k3c(g.abs(), coords, 3, mode, in_sp,
-                               rb._bwd_plan(in_sp, out_sp, 1, 3, dtype,
-                                            route="direct"))
-        what = f"K3c with a NaN coordinate, mode={MODES[mode]} {dtype}"
-        if not torch.equal(got.isnan(), want.isnan()):
-            raise AssertionError(f"{what}: NaN elsewhere on the tile route")
-        fin = ~want.isnan()
+        plans = [rb._bwd_plan(in_sp, out_sp, 1, order, dtype, route="tile")]
+        plans += [rb._bwd_plan(in_sp, out_sp, 1, order, dtype,
+                               route="direct", voxels=v, lanes=lanes,
+                               flat=flat, vec=vec, merge=merge)
+                  for _, v, lanes, flat, vec, merge in _DIRECT_GEOMS]
+        got = [rb._launch_k3c(g, coords, order, mode, in_sp, p)
+               for p in plans]
+        twin = rb.resample_coords_transpose_plain(g, coords, order, mode,
+                                                  in_sp)
+        terms = rb._launch_k3c(g.abs(), coords, order, mode, in_sp,
+                               plans[1])
+        what = (f"K3c with a NaN coordinate, mode={MODES[mode]} {dtype} "
+                f"order={order}")
         rtol, _ = _tol(dtype, 1.0)
-        _assert_close(got[fin], want[fin], rtol,
-                      rtol * terms[fin].double().abs(), what)
+        for out, plan in zip(got, plans):
+            if not torch.equal(out.isnan(), twin.isnan()):
+                raise AssertionError(f"{what}: NaN elsewhere than the twin "
+                                     f"puts it on {plan}")
+            fin = ~twin.isnan()
+            _assert_close(out[fin], got[0][fin], rtol,
+                          rtol * terms[fin].double().abs(),
+                          f"{what} ({plan.route}, {plan.lanes} lanes, "
+                          f"merge {plan.merge})")
+            n += 1
+    print(f"K3c with NaN and far-outside coordinates: {n} launches on the "
+          f"tile route and the direct route's geometries agree, NaN where "
+          f"the twin puts it")
 
 
 def _check_narrow_table(rs):
@@ -3700,6 +3912,127 @@ def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
     return out
 
 
+def _fold_t(i, n):
+    """The kernels' integer mirror fold of tap indices ``i`` (a tensor) into
+    ``[0, n)``, C's truncating ``%``."""
+    import torch
+    if n <= 1:
+        return torch.zeros_like(i)
+    s2 = 2 * n - 2
+    m = torch.fmod(i, s2)
+    m = torch.where(m < 0, m + s2, m)
+    return torch.where(m >= n, s2 - m, m)
+
+
+def _direct_atomics(coords, in_shape, order, mode, plan):
+    """The device-memory atomics of K3c's direct route on ``plan`` at
+    ``coords`` ``(B, naxis, *out)``, float32 with one channel, counted by a
+    model of its merge (``tests/test_torch_k3.py``'s ``_direct_model``,
+    vectorised): each lane of ``plan.voxels`` voxels along a row falls into
+    runs of equal outer first taps; a run whose innermost first taps lie
+    within 4 of each other, in a window no wider than its taps, issues one
+    window of ``span`` atomics per row of outer taps (as float4 or float2
+    chunks where ``plan.vec`` and the window lies inside its axis), the
+    rest one atomic per tap; a lane with a coordinate not finite or far
+    outside adds every tap. At order 1 with one voxel a lane, each voxel
+    adds its own taps but hands a tap to its right neighbour in the warp
+    where that is the neighbour's first (``lane_merge``). Returns
+    ``(atomics, taps)``."""
+    import torch
+    import torch.nn.functional as F
+    from elasticdeform_tpu_torch.ops import bspline, modes
+    B, naxis = coords.shape[:2]
+    nt, V, row = order + 1, plan.voxels, plan.row
+    n_out = math.prod(coords.shape[2:])
+    rows, padded = n_out // row, -(-plan.row // V) * V
+    n_in = math.prod(in_shape)
+    strides = [math.prod(in_shape[h + 1:]) for h in range(naxis)]
+
+    def lanes(t, fill):
+        t = t.reshape(B, rows, row)
+        if padded > row:
+            t = F.pad(t, (0, padded - row), value=fill)
+        return t.reshape(B, rows, padded // V, V)
+    ok, bad, nan, st = None, None, None, []
+    for h in range(naxis):
+        m, inside = modes.map_coordinate(coords[:, h].reshape(B, n_out),
+                                         in_shape[h], mode)
+        ok = inside if ok is None else ok & inside
+        far = ~(m.abs() < 2 ** 29)
+        bad = far if bad is None else bad | far
+        nan = m.isnan() if nan is None else nan | m.isnan()
+        s = bspline.filter_start(m, order).nan_to_num(0.0)
+        st.append(lanes(s.clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(torch.int64),
+                        0))
+    # from order 1 a NaN coordinate outside adds its NaN weights too
+    ok = ok | nan if order > 0 else ok
+    taps = nt ** naxis
+    if V == 1 and order == 1 and plan.merge:
+        # lanes merge with their left neighbour (lane_merge): its second
+        # innermost tap and this lane's first, where one element
+        take = ok & ~bad
+        s_full = [bspline.filter_start(modes.map_coordinate(
+            coords[:, h].reshape(B, n_out), in_shape[h], mode)[0],
+            order).nan_to_num(0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(
+                torch.int64) for h in range(naxis)]
+        col = torch.arange(n_out, device=coords.device) % row
+        left = (col % plan.lanes != 0)[None] & take & \
+            torch.roll(take, 1, 1)
+        joins = 0
+        for t in itertools.product(range(nt), repeat=naxis - 1):
+            base = sum(_fold_t(s_full[h] + t[h], in_shape[h]) * strides[h]
+                       for h in range(naxis - 1)) if naxis > 1 else 0
+            a0 = base + _fold_t(s_full[-1], in_shape[-1])
+            a1 = base + _fold_t(s_full[-1] + 1, in_shape[-1])
+            joins += int((left & (torch.roll(a1, 1, 1) == a0)).sum())
+        direct = int((ok & ~take).sum()) * taps
+        return (int(take.sum()) * 2 * nt ** (naxis - 1) - joins + direct,
+                int(ok.sum()) * taps)
+    inl = lanes(ok.to(torch.int8), 0).bool()
+    lane_bad = (lanes((bad & ok).to(torch.int8), 0).bool()).any(-1)
+    n_in_lane = inl.sum(-1)
+    atomics = (torch.where(lane_bad, n_in_lane, 0) * taps).sum()
+    # runs of equal outer first taps among the voxels inside
+    run = torch.full(inl.shape, -1, dtype=torch.int64, device=coords.device)
+    nruns = torch.zeros(inl.shape[:-1], dtype=torch.int64,
+                        device=coords.device)
+    last = [torch.zeros_like(nruns) for _ in range(naxis - 1)]
+    for k in range(V):
+        same = nruns > 0
+        for h in range(naxis - 1):
+            same &= st[h][..., k] == last[h]
+            last[h] = torch.where(inl[..., k], st[h][..., k], last[h])
+        nruns = nruns + (inl[..., k] & ~same).long()
+        run[..., k] = torch.where(inl[..., k], nruns - 1, -1)
+    big = 2 ** 40
+    combos = list(itertools.product(range(nt), repeat=naxis - 1))
+    b_idx = torch.arange(B, device=coords.device).view(B, 1, 1) * n_in
+    for r in range(V):
+        mem = (run == r) & ~lane_bad[..., None]
+        cnt = mem.sum(-1)
+        lo = torch.where(mem, st[-1], big).amin(-1)
+        hi = torch.where(mem, st[-1], -big).amax(-1)
+        span = hi - lo + nt
+        merged = (cnt > 0) & (span - nt <= 4) & (span <= cnt * nt)
+        atomics += (torch.where((cnt > 0) & ~merged, cnt, 0) * taps).sum()
+        inner = lo >= 0
+        inner &= lo + span <= in_shape[-1]
+        for t in combos:
+            at = b_idx + lo
+            for h in range(naxis - 1):
+                sr = torch.where(mem, st[h], -big).amax(-1)
+                at = at + _fold_t(sr + t[h], in_shape[h]) * strides[h]
+            n_at = span
+            if plan.vec:
+                mis = torch.remainder(at, plan.vec)
+                chunks = (mis + span + plan.vec - 1) // plan.vec
+                fits = inner & (at - mis >= 0) & \
+                    (at - mis + chunks * plan.vec <= B * n_in)
+                n_at = torch.where(fits, chunks, span)
+            atomics += torch.where(merged, n_at, 0).sum()
+    return int(atomics), int(inl.sum()) * taps
+
+
 # K3/K3c's plans that phase 4 times beside the wrapper's: each route, the
 # other tile the model named, a larger box
 _K3_VARIANTS = (("direct", dict(route="direct")),
@@ -3719,7 +4052,10 @@ def _k3_times(label, run, coords, in_shape, order, mode, plan_args, card,
     fit) and an upper bound of its device-memory atomics (their box
     elements, plus the taps of the blocks that do not fit); prints one line
     and appends it to ``k3_lines`` for the rates beside P3's
-    (:func:`_print_k3_lines`). Returns the numbers."""
+    (:func:`_print_k3_lines`). At orders 0 and 1 also the direct route in
+    each geometry of :data:`_DIRECT_GEOMS` (one channel): its ms and the
+    atomics it issues, counted by :func:`_direct_atomics` on these
+    coordinates. Returns the numbers."""
     import torch
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
     plan = rb._bwd_plan(*plan_args)
@@ -3733,6 +4069,10 @@ def _k3_times(label, run, coords, in_shape, order, mode, plan_args, card,
     for name, kw in _K3_VARIANTS:
         p = rb._bwd_plan(*plan_args, **kw)
         out[f"{name} ms"] = _time_ms(lambda p=p: run(p))
+    # the tile kernel with no box: every block on its direct branch, the
+    # direct route before it had a kernel of its own
+    out["tile kernel, no box ms"] = _time_ms(lambda: run(tile._replace(
+        cap=0, smem=0)))
     boxes = _bwd_boxes(coords, in_shape, order, mode, tile, plan_args[2])
     taps = (order + 1) ** len(in_shape) * plan_args[2]
     fit = (boxes > 0) & (boxes <= tile.cap)
@@ -3747,11 +4087,31 @@ def _k3_times(label, run, coords, in_shape, order, mode, plan_args, card,
                 "shared_adds": n_vox * taps * share,
                 "device_atomics_at_most": float(boxes[fit].double().sum())
                 + n_vox * taps * (1 - share)})
+    out["library_ms"] = library_ms
+    if order < 2 and plan_args[2] == 1:
+        out["direct"] = {}
+        for name, v, lanes, flat, vec, merge in _DIRECT_GEOMS:
+            p = rb._bwd_plan(*plan_args, route="direct", voxels=v,
+                             lanes=lanes, flat=flat, vec=vec, merge=merge)
+            at, taps = _direct_atomics(coords, in_shape, order, mode, p)
+            out["direct"][name] = {
+                "ms": _time_ms(lambda p=p: run(p)), "atomics": at,
+                "taps": taps, "blocks_per_sm": rb.bwd_occupancy(
+                    plan_args[4], order, len(in_shape), p)}
+        print(f"{label}, the direct route per geometry (ms, device atomics "
+              f"per voxel by the merge's model): " + "; ".join(
+                  f"{k} {d['ms']:.4f} ms {d['atomics'] / n_vox:.3f}"
+                  for k, d in out["direct"].items()) +
+              f" (unmerged {taps / n_vox:.0f} a voxel; "
+              f"{out['direct'][_DIRECT_GEOMS[0][0]]['blocks_per_sm']} "
+              f"blocks per SM) [{card}]")
     lib = "" if library_ms is None else \
         f"; grid_sampler_3d_backward input half {library_ms:.4f} ms"
     print(f"{label}: the plan's {plan.route} route {out['ms']:.4f} ms "
           f"({out['blocks_per_sm']} blocks per SM); " + ", ".join(
               f"{n} {out[f'{n} ms']:.4f} ms" for n, _ in _K3_VARIANTS) +
+          f", the tile kernel with no box (the older direct route) "
+          f"{out['tile kernel, no box ms']:.4f} ms" +
           f"; the tile route ({'x'.join(map(str, tile.tile))}, "
           f"{tile.smem} B box budget, {out['tile_blocks_per_sm']} blocks per "
           f"SM): blocks whose box fits {100 * share:.2f}%, box median "
@@ -3776,8 +4136,18 @@ def _print_k3_lines(k3_lines, probe_times, card):
               f"shared adds/s and at most "
               f"{o['device_atomics_at_most'] / t / 1e6:.1f} G device-memory "
               f"atomics/s ({o['device_atomics_at_most'] / 1e6:.1f} M); "
-              f"direct route {taps / d / 1e6:.1f} G device-memory atomics/s "
+              f"direct route {taps / d / 1e6:.1f} G taps/s "
               f"({taps / 1e6:.1f} M); P3's rate {p3:.1f} G/s [{card}]")
+        if "direct" in o:
+            lib = o["library_ms"]
+            lib_rate = "" if lib is None else \
+                f"; the library's taps {taps / lib / 1e6:.1f} G/s"
+            print(f"{label}, the direct route's device atomics per geometry "
+                  f"(G/s, M issued): " + "; ".join(
+                      f"{k} {g['atomics'] / g['ms'] / 1e6:.1f} "
+                      f"({g['atomics'] / 1e6:.1f})"
+                      for k, g in o["direct"].items()) +
+                  f"; P3's rate {p3:.1f} G/s{lib_rate} [{card}]")
 
 
 def _launcher(kernel, bc):
@@ -4630,17 +5000,36 @@ def _k6_digest(rs):
     return h.hexdigest()
 
 
+def _grid_halves(coeffs, coords, g, reps):
+    """``grid_sampler_3d_backward``'s input and grid halves (order 1,
+    border padding, align_corners) on ``coeffs`` ``(B, D, H, W, 1)`` at
+    ``coords`` ``(B, 3, D, H, W)`` with cotangent ``g``, in ms: the
+    yardsticks of K3/K3c and K5/K5c at order 1."""
+    import torch
+    spatial = coeffs.shape[1:-1]
+    inp = coeffs.movedim(-1, 1).contiguous()
+    grid = torch.stack([coords[:, h] * (2.0 / (spatial[h] - 1)) - 1.0
+                        for h in (2, 1, 0)], -1).contiguous()
+    gy = g.movedim(-1, 1).contiguous()
+    return [_time_ms(lambda m=m: torch.ops.aten.grid_sampler_3d_backward(
+        gy, inp, grid, 0, 1, True, m), reps)
+        for m in ([True, False], [False, True])]
+
+
 def _times_ab_k3(rs, reps):
     """K3 at c5 (64 x 64^3 float32, order 3, mirror, per-sample 3^3 grids
     of sigma 6, and at order 1, nearest) and K3c at c7 (4 x 160 x 192 x
-    224 float32, order 1, nearest, a smooth field of ~4 voxels), through
-    the public wrappers only, in ms."""
+    224 float32, order 1, nearest, a smooth field of ~4 voxels), K5 at c5
+    (orders 1 and 3) and K5c at c7, through the public wrappers only, in
+    ms; beside them ``grid_sampler_3d_backward``'s input and grid halves
+    at c5's and c7's order-1 shapes (:func:`_grid_halves`)."""
     import torch
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
     from elasticdeform_tpu_torch.ops.displacement import dense_displacement
     dev = torch.device("cuda")
     S = (64, 64, 64)
     gy = torch.as_tensor(rs.rand(64, *S, 1).astype(np.float32), device=dev)
+    x = torch.as_tensor(rs.rand(64, *S, 1).astype(np.float32), device=dev)
     grid = torch.as_tensor((rs.randn(64, 3, 3, 3, 3) * 6).astype(np.float32),
                            device=dev)
     displ = dense_displacement(grid, S, S, (0, 0, 0))
@@ -4648,16 +5037,184 @@ def _times_ab_k3(rs, reps):
         lambda o=o, m=m: rb.resample_transpose(gy, displ, None, (0, 0, 0), o,
                                                m, S), reps)
         for o, m in ((3, 3), (1, 0))}
-    del gy, grid, displ
+    out.update({f"K5_c5_order{o}": _time_ms(
+        lambda o=o, m=m: rb.resample_coord_grad(x, gy, displ, None,
+                                                (0, 0, 0), o, m), reps)
+        for o, m in ((3, 3), (1, 0))})
+    iota = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S],
+        indexing="ij"))
+    out["grid_sampler_bwd_c5_input"], out["grid_sampler_bwd_c5_grid"] = \
+        _grid_halves(x, iota + displ, gy, reps)
+    del gy, x, grid, displ, iota
     S = (160, 192, 224)
     g = torch.as_tensor(rs.randn(4, *S, 1).astype(np.float32), device=dev)
+    x = torch.as_tensor(rs.rand(4, *S, 1).astype(np.float32), device=dev)
     iota = torch.stack(torch.meshgrid(
         *[torch.arange(n, dtype=torch.float32, device=dev) for n in S],
         indexing="ij"))
     coords = (iota + torch.as_tensor(_smooth_field(rs, 4, S, 4.0),
                                      device=dev)).contiguous()
+    del iota
     out["K3c_c7"] = _time_ms(
         lambda: rb.resample_coords_transpose(g, coords, 1, 0, S), reps)
+    out["K5c_c7"] = _time_ms(
+        lambda: rb.resample_coords_grad(x, g, coords, 1, 0), reps)
+    out["grid_sampler_bwd_c7_input"], out["grid_sampler_bwd_c7_grid"] = \
+        _grid_halves(x, coords, g, reps)
+    return out
+
+
+# the variants of resample_bwd.cu that ab_bounds builds and times: (label,
+# the macros, the direct plans it times K3 and K3c on as (label, plan
+# arguments)). The direct route's launch bounds (threads x blocks per SM),
+# its lanes merged (ED_DIRECT_LANE_MERGE), its voxels a lane
+# (ED_DIRECT_VMAX 4: a lane's window merge, scalar or vector reductions)
+# and K5's order-1 form (two voxels a thread or one) and its blocks per SM
+_AB_VARIANTS = (
+    ("package build: direct 256x4, K5 pair 4", (),
+     (("one voxel a lane", {}),)),
+    ("lane merge: direct 256x4, K5 pair 4", ("-DED_DIRECT_LANE_MERGE=1",),
+     (("lanes merged", {"merge": True}), ("no merge", {}))),
+    ("lane merge: direct 256x2, K5 pair 4", ("-DED_DIRECT_LANE_MERGE=1",
+                                             "-DED_DIRECT_BLOCKS=2"),
+     (("lanes merged", {"merge": True}), ("no merge", {}))),
+    ("direct 256x2, K5 single 5 (the older K5)", (
+        "-DED_DIRECT_BLOCKS=2", "-DED_K5_PAIR=0", "-DED_K5_BLOCKS1=5"),
+     (("one voxel a lane", {}),)),
+    ("VMAX 4: direct 256x2, K5 pair 4", ("-DED_DIRECT_VMAX=4",
+                                         "-DED_DIRECT_BLOCKS=2"),
+     (("V=4 scalar", {"voxels": 4}), ("V=4 float4", {"voxels": 4, "vec": 4}),
+      ("V=4 float2", {"voxels": 4, "vec": 2}), ("V=2 scalar", {"voxels": 2}),
+      ("V=2 float4", {"voxels": 2, "vec": 4}), ("V=1", {}))))
+
+
+def ab_bounds(card, reps=REPS):
+    """Builds ``csrc/resample_bwd.cu`` once per variant of
+    :data:`_AB_VARIANTS` (nvcc with the package's flags and the variant's
+    macros, into ``build/ab/``, all at once), then, each variant's library
+    loaded in turn in place of the package's: its registers, stack and
+    spills (ptxas) for the direct kernel and K5's order-1 kernel (float32,
+    rank 3, 32-bit offsets), the direct kernel's blocks per SM, and in ms
+    K3c at c7 and K3 at c5 (order 1) on each of the variant's direct plans
+    (with the device atomics they issue, :func:`_direct_atomics`), K5 at
+    c5 at order 1 and K5c at c7, each held to its twin (K5c bit for bit);
+    beside them ``grid_sampler_3d_backward``'s halves. Prints one line
+    ``ab_bounds: {json}`` and returns it."""
+    import ctypes
+    import torch
+    from elasticdeform_tpu_torch.ops import _build
+    from elasticdeform_tpu_torch.ops import resample_bwd as rb
+    from elasticdeform_tpu_torch.ops.displacement import dense_displacement
+    root = _build.BUILD_ROOT.parent / "ab"
+    procs = []
+    for i, (_, flags, _) in enumerate(_AB_VARIANTS):
+        d = root / str(i)
+        d.mkdir(parents=True, exist_ok=True)
+        log = open(d / "nvcc.log", "w")
+        procs.append((d / "libresample_bwd.so", d / "nvcc.log",
+                      subprocess.Popen(
+                          [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
+                           str(_build.CSRC), "-o",
+                           str(d / "libresample_bwd.so"),
+                           str(_build.CSRC / "resample_bwd.cu")],
+                          stdout=log, stderr=subprocess.STDOUT)))
+    t0 = time.perf_counter()
+    for _, log, p in procs:
+        if p.wait() != 0:
+            raise AssertionError(f"nvcc failed:\n{open(log).read()[-3000:]}")
+    print(f"ab_bounds: {len(procs)} variants built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(16)
+    S5 = (64, 64, 64)
+    x5 = torch.as_tensor(rs.rand(64, *S5, 1).astype(np.float32), device=dev)
+    g5 = torch.as_tensor(rs.rand(64, *S5, 1).astype(np.float32), device=dev)
+    grid = torch.as_tensor((rs.randn(64, 3, 3, 3, 3) * 6).astype(np.float32),
+                           device=dev)
+    displ = dense_displacement(grid, S5, S5, (0, 0, 0))
+    a5 = (displ, None, (0, 0, 0), 1, 0)
+    iota = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S5],
+        indexing="ij"))
+    c5 = iota + displ
+    out = {}
+    out["grid_sampler_bwd_c5_input"], out["grid_sampler_bwd_c5_grid"] = \
+        _grid_halves(x5, c5, g5, reps)
+    del iota
+    S7 = (160, 192, 224)
+    x7 = torch.as_tensor(rs.rand(4, *S7, 1).astype(np.float32), device=dev)
+    g7 = torch.as_tensor(rs.randn(4, *S7, 1).astype(np.float32), device=dev)
+    iota = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S7],
+        indexing="ij"))
+    c7 = (iota + torch.as_tensor(_smooth_field(rs, 4, S7, 4.0),
+                                 device=dev)).contiguous()
+    del iota
+    out["grid_sampler_bwd_c7_input"], out["grid_sampler_bwd_c7_grid"] = \
+        _grid_halves(x7, c7, g7, reps)
+    want = {"K3_c5_order1": rb.resample_transpose_plain(g5, *a5, S5),
+            "K3c_c7": rb.resample_coords_transpose_plain(g7, c7, 1, 0, S7),
+            "K5_c5_order1": rb.resample_coord_grad_plain(x5, g5, *a5),
+            "K5c_c7": rb.resample_coords_grad_plain(x7, g7, c7, 1, 0)}
+    terms = {"K3_c5_order1": rb.resample_transpose_plain(g5.abs(), *a5, S5),
+             "K3c_c7": rb.resample_coords_transpose_plain(g7.abs(), c7, 1, 0,
+                                                          S7)}
+    saved = _build.library("resample_bwd")
+    try:
+        for (label, _, plans), (path, log, _) in zip(_AB_VARIANTS, procs):
+            _build._libs["resample_bwd"] = ctypes.CDLL(str(path))
+            regs = {}
+            for fn, v in _ptxas_kernels(open(log).read()).items():
+                for name, pat in (("direct", _K3D_NAME), ("K5", _K5_NAME)):
+                    m = pat.search(fn)
+                    if m and m.groups()[0] == "f" and m.group(3) == "3" and \
+                            m.group(4) == "i" and (m.group(2) or "1") in "01":
+                        regs[f"{name} order {m.group(2) or '1'}"] = v[:4]
+            row = {"registers": regs}
+            calls = {"K5_c5_order1": lambda: rb.resample_coord_grad(
+                         x5, g5, *a5),
+                     "K5c_c7": lambda: rb.resample_coords_grad(
+                         x7, g7, c7, 1, 0)}
+            for name, kw in plans:
+                p5 = rb._bwd_plan(S5, S5, 1, 1, torch.float32,
+                                  route="direct", **kw)
+                p7 = rb._bwd_plan(S7, S7, 1, 1, torch.float32,
+                                  route="direct", **kw)
+                calls[f"K3_c5_order1 {name}"] = \
+                    lambda p5=p5: rb._launch_k3(g5, *a5, S5, p5)
+                calls[f"K3c_c7 {name}"] = \
+                    lambda p7=p7: rb._launch_k3c(g7, c7, 1, 0, S7, p7)
+                row[f"atomics_c5 {name}"] = _direct_atomics(
+                    c5, S5, 1, 0, p5)[0]
+                row[f"atomics_c7 {name}"] = _direct_atomics(
+                    c7, S7, 1, 0, p7)[0]
+                row[f"blocks_per_sm {name}"] = rb.bwd_occupancy(
+                    torch.float32, 1, 3, p7)
+            for k, fn in calls.items():
+                got = fn()
+                torch.cuda.synchronize()
+                key = k.split(" ")[0]
+                if key == "K5c_c7":
+                    row[f"{k} bit for bit"] = torch.equal(got, want[key])
+                elif key == "K5_c5_order1":
+                    _assert_close(got, want[key], *_tol(torch.float32,
+                                                        _k5_scale(x5, g5)),
+                                  f"{label}: {k}")
+                else:
+                    _assert_close(got, want[key], 1e-5,
+                                  1e-5 * terms[key].double(),
+                                  f"{label}: {k}")
+                row[k] = _time_ms(fn, reps)
+            out[label] = row
+            print(f"ab_bounds {label}: " + ", ".join(
+                f"{k} {row[k]:.4f} ms" for k in calls) +
+                f"; registers {regs} [{card}]")
+            if not row["K5c_c7 bit for bit"]:
+                raise AssertionError(f"{label}: K5c not bit for bit")
+    finally:
+        _build._libs["resample_bwd"] = saved
+    print(f"ab_bounds: {json.dumps(out)} [{card}]")
     return out
 
 
@@ -4768,7 +5325,8 @@ def times_ab(card, reps=REPS):
     (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
     origin (1, 0, -1), constant mode) beside ``conv_transpose3d`` (TF32
     off), K9 at c14 and K11 at c16 (:func:`_times_ab_k9_k11`), K3 and K3c
-    (:func:`_times_ab_k3`), P2 and K13
+    (:func:`_times_ab_k3`: with K5 and K5c and ``grid_sampler_3d_backward``'s
+    halves), P2 and K13
     (:func:`_times_ab_p2_k13`), and every config c1-c17
     whole, in ms (CUDA events, median of ``reps``); and the digest of K6's
     outputs over a sweep (:func:`_k6_digest`). It calls only the package's
@@ -5061,6 +5619,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
     probe_times = _times_probes(row, card, probe_data, errs)
     _print_k1_lines(k1_lines, probe_times, card)
     _print_k3_lines(k3_lines, probe_times, card)
+    _times_displacement(card)
     for w, v in save.items():
         w.launches = v
     for k, by_route in save_routes.items():
@@ -5075,6 +5634,44 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
             times_c6(card, cfg)
     order_of = {k: i for i, k in enumerate(KERNELS)}
     return sorted(rows, key=lambda r: order_of[r["name"]])
+
+
+def _times_displacement(card):
+    """The dense displacement (``ops/displacement.py::dense_displacement``,
+    a ``tensordot`` per axis of the control grid: no kernel of the port) at
+    c5's and c6's shapes (64 and 8 samples of a 3 x 3 x 3 grid to 64^3
+    float32), its ms beside its byte bound (the field written once), and
+    its calls over one run of every config (phase 4 runs them on the card;
+    a config that takes a dense field, as c7 does, makes none)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import deform as dfm
+    from elasticdeform_tpu_torch.ops.displacement import dense_displacement
+    rs = np.random.RandomState(6)
+    S = (64, 64, 64)
+    for label, B in (("c5", 64), ("c6", 8)):
+        grid = torch.as_tensor((rs.randn(B, 3, 3, 3, 3) * 6).astype(
+            np.float32), device="cuda")
+        ms = _time_ms(lambda: dense_displacement(grid, S, S, (0, 0, 0)))
+        bound = _bound(B * 3 * math.prod(S) * 4, 0)
+        print(f"dense displacement at {label} shapes ({B} x 3^3 grids to "
+              f"64^3 float32): {ms:.4f} ms, bound {bound[0]:.4f} ms by "
+              f"{bound[1]} [{card}]")
+    calls = {}
+    real = dfm.dense_displacement
+
+    def counted(*a, **k):
+        calls[name] = calls.get(name, 0) + 1
+        return real(*a, **k)
+    dfm.dense_displacement = counted
+    try:
+        for cfg in _configs():
+            name = cfg.name
+            cfg.run("cuda")
+    finally:
+        dfm.dense_displacement = real
+    torch.cuda.synchronize()
+    print(f"dense displacement calls per config run: {calls}; "
+          f"{sum(calls.values())} in all [{card}]")
 
 
 def _device_kernels(prof, calls):

@@ -394,11 +394,14 @@ __device__ __forceinline__ void voxel_coords(const Params& p,
 }
 
 // The first tap of the (ORDER+1)-wide window at the folded coordinate m
-// (ops/bspline.py filter_start), in the index type I.
+// (ops/bspline.py filter_start), in the index type I; 0 for a NaN, as
+// XLA's conversion and the twins give it (the card's own conversion of a
+// float64 NaN does not).
 template <typename T, int ORDER, typename I>
 __device__ __forceinline__ I first_tap(const T m) {
-  return (I)((ORDER & 1) ? floor(m) - T(ORDER / 2)
-                         : floor(m + T(0.5)) - T(ORDER / 2));
+  const T f = (ORDER & 1) ? floor(m) - T(ORDER / 2)
+                          : floor(m + T(0.5)) - T(ORDER / 2);
+  return (I)(f == f ? f : T(0));
 }
 
 // The element offsets (channels included) of each axis's NT taps from

@@ -177,7 +177,11 @@ def tap_geometry(spatial, mapped, order: int):
     weights = []
     for h in range(naxis):
         cc = mapped[h]
-        start = filter_start(cc, order).to(torch.int64) + pad
+        # a NaN coordinate's first tap is 0, as the kernels' float -> int
+        # conversion and XLA's give it (PyTorch's CPU gives int64's least
+        # value); the mode fold leaves no other value out of range
+        start = filter_start(cc, order).nan_to_num_(0.0).to(torch.int64) \
+            + pad
         base = base + start * strides[h]
         weights.append([w.reshape(n_out) for w in spline_weights(cc, order)])
     return pad, padded, base.reshape(n_out), strides, weights
@@ -490,7 +494,13 @@ def cast_output(t: torch.Tensor, dtype) -> torch.Tensor:
     """Cast the float result to ``dtype`` (numpy) with the reference's
     rules (reference deform.c:287-306): floats plain; unsigned ints
     ``t>0 ? t+0.5 : 0``, signed ints half away from zero, both clamped and
-    truncated; bool by a C truncating cast, nonzero -> True."""
+    truncated; bool by a C truncating cast, nonzero -> True. The float ->
+    integer conversion is XLA's (the JAX package's ``astype``) on every
+    device: NaN gives 0, and a value at or above the type's top, where
+    that top is not exact in ``t``'s dtype (int64; int32 and uint32 under
+    float32), its greatest value. A plain ``.to()`` leaves both to the
+    device. Elementwise: no reduction and no sync; an unsigned type whose
+    top is exact (c2's uint8) costs what it did."""
     dtype = np.dtype(dtype)
     if dtype.kind == "b":
         return torch.trunc(t) != 0
@@ -498,9 +508,20 @@ def cast_output(t: torch.Tensor, dtype) -> torch.Tensor:
         return t.to(torch_dtype(dtype))
     info = np.iinfo(dtype)
     if dtype.kind == "u":
+        # NaN > 0 is False: NaN goes to 0 here
         r = torch.where(t > 0, t + 0.5, torch.zeros((), dtype=t.dtype,
                                                     device=t.device))
     else:
-        r = torch.where(t > 0, t + 0.5, t - 0.5)
-    r = torch.clamp(r, info.min, info.max)
-    return torch.trunc(r).to(torch_dtype(dtype))
+        r = torch.where(t > 0, t + 0.5, t - 0.5).nan_to_num_(0.0)
+    fdt = numpy_dtype(t.dtype)
+    top = fdt.type(info.max)            # the float the bound rounds to
+    if int(top) <= info.max:
+        return torch.trunc(torch.clamp(r, float(info.min), float(top))).to(
+            torch_dtype(dtype))
+    big = r >= float(top)
+    below = float(np.nextafter(top, fdt.type(0)))
+    out = torch.trunc(r.clamp_(float(info.min), below)).to(torch_dtype(dtype))
+    # torch.where, not masked_fill: PyTorch's CPU has no masked_fill on
+    # uint32 and uint64
+    return torch.where(big, torch.tensor(int(info.max), dtype=out.dtype,
+                                         device=out.device), out)
