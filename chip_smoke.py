@@ -530,7 +530,7 @@ def _k3_sass(path):
     ``cuobjdump -sass`` of the built library: whether the shared-memory
     adds are native (ATOMS.ADD) or compare-and-swap loops (ATOMS.CAS*),
     and the device-memory ones (RED/ATOMG); the direct route's kernel at
-    orders 0 and 1 too (its vector reductions, RED...F32x4 or the like).
+    orders 0 and 1 too (one RED per tap).
     Returns ``{dtype: {opcode: count}}`` of the tile route at order 3;
     prints "not available" without cuobjdump."""
     import os
@@ -888,20 +888,10 @@ def _check_coords_kernels(rs, worst):
           f"box, {tally['direct']} took the direct branch")
 
 
-# the direct route's geometries that phase 2 holds against the twin and
-# phase 4 times, in the package's build (one voxel a lane, no merge; the
-# others are ab_bounds'): (label, voxels a lane, lanes along a row, the
-# whole output as one row, vec, neighbouring lanes merged at order 1)
-_DIRECT_GEOMS = (("flat", 1, 32, True, 0, False),
-                 ("rows", 1, 32, False, 0, False),
-                 ("16 lanes a row", 1, 16, False, 0, False),
-                 ("8 lanes a row", 1, 8, False, 0, False))
-
-
 def _smooth_coords(rs, B, in_sp, out_sp, dtype, dev, reach=2.0):
     """Coordinates that run smoothly over each input axis from ``reach``
     voxels below it to ``reach`` above, with a wobble of a quarter voxel:
-    the direct route's lanes merge, and fold at both edges."""
+    the direct route's taps fold at both edges."""
     import torch
     axes = np.meshgrid(*[np.linspace(0, 1, n) for n in out_sp],
                        indexing="ij")
@@ -914,15 +904,13 @@ def _smooth_coords(rs, B, in_sp, out_sp, dtype, dev, reach=2.0):
 
 
 def _check_direct_routes(rs, worst):
-    """K3c and K3 on the direct route, each geometry of
-    :data:`_DIRECT_GEOMS`, against their twins per element to 1e-5 of the
-    sum of the absolute terms (float64 1e-10): the sweep's 1-D to 4-D
-    shapes and a (9, 7, 12) -> (10, 8, 30) volume, orders 0 and 1 (and 3,
-    where nothing merges), one and two channels, the five modes, at
-    smooth coordinates (lanes merge; windows fold at both edges) and, in
-    two geometries, at coordinates up to 3x the extent outside (few
-    merge); K3 at affine(j) +
-    offset + displ with per-sample affines."""
+    """K3c and K3 on the direct route (``resample_direct_kernel``, one
+    thread a voxel) against their twins per element to 1e-5 of the sum of
+    the absolute terms (float64 1e-10): the sweep's 1-D to 4-D shapes and
+    a (9, 7, 12) -> (10, 8, 30) volume, orders 0, 1 and 3, one and two
+    channels, the five modes, at smooth coordinates (taps folded at both
+    edges) and at coordinates up to 3x the extent outside; K3 at
+    affine(j) + offset + displ with per-sample affines."""
     import torch
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
     dev = torch.device("cuda")
@@ -947,20 +935,16 @@ def _check_direct_routes(rs, worst):
             terms = rb.resample_coords_transpose_plain(g.abs(), coords, order,
                                                        mode, in_sp)
             rtol, _ = _tol(dtype, 1.0)
-            for label, v, lanes, flat, vec, merge in (
-                    _DIRECT_GEOMS if smooth else _DIRECT_GEOMS[::4]):
-                plan = rb._bwd_plan(in_sp, out_sp, C, order, dtype,
-                                    route="direct", voxels=v, lanes=lanes,
-                                    flat=flat, vec=vec, merge=merge)
-                got = rb._launch_k3c(g, coords, order, mode, in_sp, plan)
-                torch.cuda.synchronize()
-                worst["resample_coords_bwd"] = max(
-                    worst["resample_coords_bwd"], _assert_close(
-                        got, want, rtol, rtol * terms.double().abs(),
-                        f"K3c direct {label} naxis={naxis} C={C} {dtype} "
-                        f"order={order} mode={MODES[mode]} "
-                        f"smooth={smooth}"))
-                n += 1
+            plan = rb._bwd_plan(in_sp, out_sp, C, order, dtype,
+                                route="direct")
+            got = rb._launch_k3c(g, coords, order, mode, in_sp, plan)
+            torch.cuda.synchronize()
+            worst["resample_coords_bwd"] = max(
+                worst["resample_coords_bwd"], _assert_close(
+                    got, want, rtol, rtol * terms.double().abs(),
+                    f"K3c direct naxis={naxis} C={C} {dtype} "
+                    f"order={order} mode={MODES[mode]} smooth={smooth}"))
+            n += 1
         # K3: the coordinates from the output index, stepped voxel by voxel
         A = np.zeros((B, naxis, naxis + 1))
         A[:, :, :naxis] = np.eye(naxis) + rs.randn(B, naxis, naxis) * 0.05
@@ -972,20 +956,15 @@ def _check_direct_routes(rs, worst):
         bargs = (displ, affine, offsets, order, mode)
         want = rb.resample_transpose_plain(g, *bargs, in_sp)
         terms = rb.resample_transpose_plain(g.abs(), *bargs, in_sp)
-        for label, v, lanes, flat, vec, merge in _DIRECT_GEOMS[::3]:
-            plan = rb._bwd_plan(in_sp, out_sp, C, order, dtype,
-                                route="direct", voxels=v, lanes=lanes,
-                                flat=flat, vec=vec, merge=merge)
-            got = rb._launch_k3(g, *bargs, in_sp, plan)
-            torch.cuda.synchronize()
-            worst["resample_bwd"] = max(worst["resample_bwd"], _assert_close(
-                got, want, rtol, rtol * terms.double().abs(),
-                f"K3 direct {label} naxis={naxis} C={C} {dtype} "
-                f"order={order} mode={MODES[mode]}"))
-            n += 1
-    print(f"K3/K3c's direct route in {len(_DIRECT_GEOMS)} geometries "
-          f"(lanes a row, the whole output or rows) vs plain: {n} cases "
-          f"pass")
+        plan = rb._bwd_plan(in_sp, out_sp, C, order, dtype, route="direct")
+        got = rb._launch_k3(g, *bargs, in_sp, plan)
+        torch.cuda.synchronize()
+        worst["resample_bwd"] = max(worst["resample_bwd"], _assert_close(
+            got, want, rtol, rtol * terms.double().abs(),
+            f"K3 direct naxis={naxis} C={C} {dtype} order={order} "
+            f"mode={MODES[mode]}"))
+        n += 1
+    print(f"K3/K3c's direct route vs plain: {n} cases pass")
 
 
 def _int_cast_image(rs, shape, idt):
@@ -1055,20 +1034,51 @@ def _check_int_cast(rs):
                     f"{name} {idt}: {int((got != want).sum())} of "
                     f"{want.size} values differ from the CPU run")
             n += 1
+    # cast_output alone, with CUDA's sync check raising on any sync: NaN,
+    # infinities, each type's edges and the floats around 2^63
+    from elasticdeform_tpu_torch.ops.resample import cast_output
+    edges = [np.nan, np.inf, -np.inf, 1e30, -1e30, 2.0 ** 63, -2.0 ** 63,
+             2.0 ** 63 - 1024, 2.0 ** 64, 2.0 ** 31, 2.0 ** 32, -0.5, 0.49,
+             254.5]
+    n_cast = 0
+    for fdt, idt in itertools.product(
+            (torch.float32, torch.float64),
+            ("int8", "int16", "int32", "int64", "uint8", "uint16",
+             "uint32", "uint64")):
+        info = np.iinfo(idt)
+        lo, hi = float(info.min), float(info.max)
+        vals = np.concatenate([edges, [lo, hi, lo - 0.6, hi + 0.6],
+                               rs.uniform(-1.2, 1.2, 200) * hi])
+        t = torch.as_tensor(vals, dtype=fdt)
+        tc = t.cuda()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = cast_output(tc, idt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = cast_output(t, idt)
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+            raise AssertionError(
+                f"cast_output {fdt} -> {idt}: "
+                f"{int((got.cpu() != want).sum())} values differ from the "
+                f"CPU run")
+        n_cast += 1
     print(f"fault 7: deform, deform_grid, map_coordinates, affine_transform "
           f"and shift on int8-int64 and uint8-uint32 inputs with NaN cval, "
           f"NaN grids and coordinates and each type's edges: {n} calls "
-          f"equal the CPU run bit for bit")
+          f"equal the CPU run bit for bit; cast_output alone on {n_cast} "
+          f"float/integer pairs equal to the CPU run with no host sync "
+          f"(set_sync_debug_mode('error'))")
 
 
 def _check_k3c_nan(rs):
     """K3c at coordinates with a NaN, a NaN outside in constant mode (on one
     axis, outside on another) and one far outside (1e20), in the five
     modes, orders 1 and 3: a block holding either takes the direct branch,
-    so the tile route's output equals the direct route's, each of
-    :data:`_DIRECT_GEOMS` (NaN where NaN, which is where the twin puts it,
-    the rest per element to 1e-5 of the sum of the absolute terms,
-    float64 1e-10)."""
+    so the tile route's output equals the direct route's (NaN where NaN,
+    which is where the twin puts it, the rest per element to 1e-5 of the
+    sum of the absolute terms, float64 1e-10)."""
     import torch
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
     in_sp, out_sp = (12, 10, 9), (9, 8, 10)
@@ -1082,11 +1092,8 @@ def _check_k3c_nan(rs):
         coords = torch.as_tensor(cc, dtype=dtype, device="cuda")
         g = torch.as_tensor(rs.randn(1, *out_sp, 1), dtype=dtype,
                             device="cuda")
-        plans = [rb._bwd_plan(in_sp, out_sp, 1, order, dtype, route="tile")]
-        plans += [rb._bwd_plan(in_sp, out_sp, 1, order, dtype,
-                               route="direct", voxels=v, lanes=lanes,
-                               flat=flat, vec=vec, merge=merge)
-                  for _, v, lanes, flat, vec, merge in _DIRECT_GEOMS]
+        plans = [rb._bwd_plan(in_sp, out_sp, 1, order, dtype, route=r)
+                 for r in ("tile", "direct")]
         got = [rb._launch_k3c(g, coords, order, mode, in_sp, p)
                for p in plans]
         twin = rb.resample_coords_transpose_plain(g, coords, order, mode,
@@ -1103,12 +1110,11 @@ def _check_k3c_nan(rs):
             fin = ~twin.isnan()
             _assert_close(out[fin], got[0][fin], rtol,
                           rtol * terms[fin].double().abs(),
-                          f"{what} ({plan.route}, {plan.lanes} lanes, "
-                          f"merge {plan.merge})")
+                          f"{what} ({plan.route})")
             n += 1
     print(f"K3c with NaN and far-outside coordinates: {n} launches on the "
-          f"tile route and the direct route's geometries agree, NaN where "
-          f"the twin puts it")
+          f"tile route and the direct route agree, NaN where the twin puts "
+          f"it")
 
 
 def _check_narrow_table(rs):
@@ -3912,127 +3918,6 @@ def _grid_sample_yardstick(coeffs, coords, g, fwd, bwd, grad, label, at,
     return out
 
 
-def _fold_t(i, n):
-    """The kernels' integer mirror fold of tap indices ``i`` (a tensor) into
-    ``[0, n)``, C's truncating ``%``."""
-    import torch
-    if n <= 1:
-        return torch.zeros_like(i)
-    s2 = 2 * n - 2
-    m = torch.fmod(i, s2)
-    m = torch.where(m < 0, m + s2, m)
-    return torch.where(m >= n, s2 - m, m)
-
-
-def _direct_atomics(coords, in_shape, order, mode, plan):
-    """The device-memory atomics of K3c's direct route on ``plan`` at
-    ``coords`` ``(B, naxis, *out)``, float32 with one channel, counted by a
-    model of its merge (``tests/test_torch_k3.py``'s ``_direct_model``,
-    vectorised): each lane of ``plan.voxels`` voxels along a row falls into
-    runs of equal outer first taps; a run whose innermost first taps lie
-    within 4 of each other, in a window no wider than its taps, issues one
-    window of ``span`` atomics per row of outer taps (as float4 or float2
-    chunks where ``plan.vec`` and the window lies inside its axis), the
-    rest one atomic per tap; a lane with a coordinate not finite or far
-    outside adds every tap. At order 1 with one voxel a lane, each voxel
-    adds its own taps but hands a tap to its right neighbour in the warp
-    where that is the neighbour's first (``lane_merge``). Returns
-    ``(atomics, taps)``."""
-    import torch
-    import torch.nn.functional as F
-    from elasticdeform_tpu_torch.ops import bspline, modes
-    B, naxis = coords.shape[:2]
-    nt, V, row = order + 1, plan.voxels, plan.row
-    n_out = math.prod(coords.shape[2:])
-    rows, padded = n_out // row, -(-plan.row // V) * V
-    n_in = math.prod(in_shape)
-    strides = [math.prod(in_shape[h + 1:]) for h in range(naxis)]
-
-    def lanes(t, fill):
-        t = t.reshape(B, rows, row)
-        if padded > row:
-            t = F.pad(t, (0, padded - row), value=fill)
-        return t.reshape(B, rows, padded // V, V)
-    ok, bad, nan, st = None, None, None, []
-    for h in range(naxis):
-        m, inside = modes.map_coordinate(coords[:, h].reshape(B, n_out),
-                                         in_shape[h], mode)
-        ok = inside if ok is None else ok & inside
-        far = ~(m.abs() < 2 ** 29)
-        bad = far if bad is None else bad | far
-        nan = m.isnan() if nan is None else nan | m.isnan()
-        s = bspline.filter_start(m, order).nan_to_num(0.0)
-        st.append(lanes(s.clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(torch.int64),
-                        0))
-    # from order 1 a NaN coordinate outside adds its NaN weights too
-    ok = ok | nan if order > 0 else ok
-    taps = nt ** naxis
-    if V == 1 and order == 1 and plan.merge:
-        # lanes merge with their left neighbour (lane_merge): its second
-        # innermost tap and this lane's first, where one element
-        take = ok & ~bad
-        s_full = [bspline.filter_start(modes.map_coordinate(
-            coords[:, h].reshape(B, n_out), in_shape[h], mode)[0],
-            order).nan_to_num(0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(
-                torch.int64) for h in range(naxis)]
-        col = torch.arange(n_out, device=coords.device) % row
-        left = (col % plan.lanes != 0)[None] & take & \
-            torch.roll(take, 1, 1)
-        joins = 0
-        for t in itertools.product(range(nt), repeat=naxis - 1):
-            base = sum(_fold_t(s_full[h] + t[h], in_shape[h]) * strides[h]
-                       for h in range(naxis - 1)) if naxis > 1 else 0
-            a0 = base + _fold_t(s_full[-1], in_shape[-1])
-            a1 = base + _fold_t(s_full[-1] + 1, in_shape[-1])
-            joins += int((left & (torch.roll(a1, 1, 1) == a0)).sum())
-        direct = int((ok & ~take).sum()) * taps
-        return (int(take.sum()) * 2 * nt ** (naxis - 1) - joins + direct,
-                int(ok.sum()) * taps)
-    inl = lanes(ok.to(torch.int8), 0).bool()
-    lane_bad = (lanes((bad & ok).to(torch.int8), 0).bool()).any(-1)
-    n_in_lane = inl.sum(-1)
-    atomics = (torch.where(lane_bad, n_in_lane, 0) * taps).sum()
-    # runs of equal outer first taps among the voxels inside
-    run = torch.full(inl.shape, -1, dtype=torch.int64, device=coords.device)
-    nruns = torch.zeros(inl.shape[:-1], dtype=torch.int64,
-                        device=coords.device)
-    last = [torch.zeros_like(nruns) for _ in range(naxis - 1)]
-    for k in range(V):
-        same = nruns > 0
-        for h in range(naxis - 1):
-            same &= st[h][..., k] == last[h]
-            last[h] = torch.where(inl[..., k], st[h][..., k], last[h])
-        nruns = nruns + (inl[..., k] & ~same).long()
-        run[..., k] = torch.where(inl[..., k], nruns - 1, -1)
-    big = 2 ** 40
-    combos = list(itertools.product(range(nt), repeat=naxis - 1))
-    b_idx = torch.arange(B, device=coords.device).view(B, 1, 1) * n_in
-    for r in range(V):
-        mem = (run == r) & ~lane_bad[..., None]
-        cnt = mem.sum(-1)
-        lo = torch.where(mem, st[-1], big).amin(-1)
-        hi = torch.where(mem, st[-1], -big).amax(-1)
-        span = hi - lo + nt
-        merged = (cnt > 0) & (span - nt <= 4) & (span <= cnt * nt)
-        atomics += (torch.where((cnt > 0) & ~merged, cnt, 0) * taps).sum()
-        inner = lo >= 0
-        inner &= lo + span <= in_shape[-1]
-        for t in combos:
-            at = b_idx + lo
-            for h in range(naxis - 1):
-                sr = torch.where(mem, st[h], -big).amax(-1)
-                at = at + _fold_t(sr + t[h], in_shape[h]) * strides[h]
-            n_at = span
-            if plan.vec:
-                mis = torch.remainder(at, plan.vec)
-                chunks = (mis + span + plan.vec - 1) // plan.vec
-                fits = inner & (at - mis >= 0) & \
-                    (at - mis + chunks * plan.vec <= B * n_in)
-                n_at = torch.where(fits, chunks, span)
-            atomics += torch.where(merged, n_at, 0).sum()
-    return int(atomics), int(inl.sum()) * taps
-
-
 # K3/K3c's plans that phase 4 times beside the wrapper's: each route, the
 # other tile the model named, a larger box
 _K3_VARIANTS = (("direct", dict(route="direct")),
@@ -4052,10 +3937,7 @@ def _k3_times(label, run, coords, in_shape, order, mode, plan_args, card,
     fit) and an upper bound of its device-memory atomics (their box
     elements, plus the taps of the blocks that do not fit); prints one line
     and appends it to ``k3_lines`` for the rates beside P3's
-    (:func:`_print_k3_lines`). At orders 0 and 1 also the direct route in
-    each geometry of :data:`_DIRECT_GEOMS` (one channel): its ms and the
-    atomics it issues, counted by :func:`_direct_atomics` on these
-    coordinates. Returns the numbers."""
+    (:func:`_print_k3_lines`). Returns the numbers."""
     import torch
     from elasticdeform_tpu_torch.ops import resample_bwd as rb
     plan = rb._bwd_plan(*plan_args)
@@ -4088,23 +3970,6 @@ def _k3_times(label, run, coords, in_shape, order, mode, plan_args, card,
                 "device_atomics_at_most": float(boxes[fit].double().sum())
                 + n_vox * taps * (1 - share)})
     out["library_ms"] = library_ms
-    if order < 2 and plan_args[2] == 1:
-        out["direct"] = {}
-        for name, v, lanes, flat, vec, merge in _DIRECT_GEOMS:
-            p = rb._bwd_plan(*plan_args, route="direct", voxels=v,
-                             lanes=lanes, flat=flat, vec=vec, merge=merge)
-            at, taps = _direct_atomics(coords, in_shape, order, mode, p)
-            out["direct"][name] = {
-                "ms": _time_ms(lambda p=p: run(p)), "atomics": at,
-                "taps": taps, "blocks_per_sm": rb.bwd_occupancy(
-                    plan_args[4], order, len(in_shape), p)}
-        print(f"{label}, the direct route per geometry (ms, device atomics "
-              f"per voxel by the merge's model): " + "; ".join(
-                  f"{k} {d['ms']:.4f} ms {d['atomics'] / n_vox:.3f}"
-                  for k, d in out["direct"].items()) +
-              f" (unmerged {taps / n_vox:.0f} a voxel; "
-              f"{out['direct'][_DIRECT_GEOMS[0][0]]['blocks_per_sm']} "
-              f"blocks per SM) [{card}]")
     lib = "" if library_ms is None else \
         f"; grid_sampler_3d_backward input half {library_ms:.4f} ms"
     print(f"{label}: the plan's {plan.route} route {out['ms']:.4f} ms "
@@ -4125,8 +3990,9 @@ def _print_k3_lines(k3_lines, probe_times, card):
     """One line each for K3 at c5 (orders 3, 2 and 1) and K3c at c7 and
     c8: the tile route's shared-memory adds and device-memory atomics (at
     most) per second, and the direct route's device-memory atomics per
-    second, beside P3's measured rate of float32 atomics into L2 (probe
-    scatrate)."""
+    second (one a tap), beside P3's measured rate of float32 atomics into
+    L2 (probe scatrate) and the taps a second of
+    ``grid_sampler_3d_backward``'s input half where it was timed."""
     ms, _, _, _, rows = probe_times["scatrate"]
     p3 = rows * 128 / ms / 1e6
     for label, o in k3_lines:
@@ -4136,18 +4002,12 @@ def _print_k3_lines(k3_lines, probe_times, card):
               f"shared adds/s and at most "
               f"{o['device_atomics_at_most'] / t / 1e6:.1f} G device-memory "
               f"atomics/s ({o['device_atomics_at_most'] / 1e6:.1f} M); "
-              f"direct route {taps / d / 1e6:.1f} G taps/s "
-              f"({taps / 1e6:.1f} M); P3's rate {p3:.1f} G/s [{card}]")
-        if "direct" in o:
-            lib = o["library_ms"]
-            lib_rate = "" if lib is None else \
-                f"; the library's taps {taps / lib / 1e6:.1f} G/s"
-            print(f"{label}, the direct route's device atomics per geometry "
-                  f"(G/s, M issued): " + "; ".join(
-                      f"{k} {g['atomics'] / g['ms'] / 1e6:.1f} "
-                      f"({g['atomics'] / 1e6:.1f})"
-                      for k, g in o["direct"].items()) +
-                  f"; P3's rate {p3:.1f} G/s{lib_rate} [{card}]")
+              f"direct route {taps / d / 1e6:.1f} G device-memory "
+              f"atomics/s ({taps / 1e6:.1f} M, one a tap); P3's rate "
+              f"{p3:.1f} G/s" + ("" if o["library_ms"] is None else
+                                f"; the library's taps "
+                                f"{taps / o['library_ms'] / 1e6:.1f} G/s") +
+              f" [{card}]")
 
 
 def _launcher(kernel, bc):
@@ -5062,159 +4922,6 @@ def _times_ab_k3(rs, reps):
         lambda: rb.resample_coords_grad(x, g, coords, 1, 0), reps)
     out["grid_sampler_bwd_c7_input"], out["grid_sampler_bwd_c7_grid"] = \
         _grid_halves(x, coords, g, reps)
-    return out
-
-
-# the variants of resample_bwd.cu that ab_bounds builds and times: (label,
-# the macros, the direct plans it times K3 and K3c on as (label, plan
-# arguments)). The direct route's launch bounds (threads x blocks per SM),
-# its lanes merged (ED_DIRECT_LANE_MERGE), its voxels a lane
-# (ED_DIRECT_VMAX 4: a lane's window merge, scalar or vector reductions)
-# and K5's order-1 form (two voxels a thread or one) and its blocks per SM
-_AB_VARIANTS = (
-    ("package build: direct 256x4, K5 pair 4", (),
-     (("one voxel a lane", {}),)),
-    ("lane merge: direct 256x4, K5 pair 4", ("-DED_DIRECT_LANE_MERGE=1",),
-     (("lanes merged", {"merge": True}), ("no merge", {}))),
-    ("lane merge: direct 256x2, K5 pair 4", ("-DED_DIRECT_LANE_MERGE=1",
-                                             "-DED_DIRECT_BLOCKS=2"),
-     (("lanes merged", {"merge": True}), ("no merge", {}))),
-    ("direct 256x2, K5 single 5 (the older K5)", (
-        "-DED_DIRECT_BLOCKS=2", "-DED_K5_PAIR=0", "-DED_K5_BLOCKS1=5"),
-     (("one voxel a lane", {}),)),
-    ("VMAX 4: direct 256x2, K5 pair 4", ("-DED_DIRECT_VMAX=4",
-                                         "-DED_DIRECT_BLOCKS=2"),
-     (("V=4 scalar", {"voxels": 4}), ("V=4 float4", {"voxels": 4, "vec": 4}),
-      ("V=4 float2", {"voxels": 4, "vec": 2}), ("V=2 scalar", {"voxels": 2}),
-      ("V=2 float4", {"voxels": 2, "vec": 4}), ("V=1", {}))))
-
-
-def ab_bounds(card, reps=REPS):
-    """Builds ``csrc/resample_bwd.cu`` once per variant of
-    :data:`_AB_VARIANTS` (nvcc with the package's flags and the variant's
-    macros, into ``build/ab/``, all at once), then, each variant's library
-    loaded in turn in place of the package's: its registers, stack and
-    spills (ptxas) for the direct kernel and K5's order-1 kernel (float32,
-    rank 3, 32-bit offsets), the direct kernel's blocks per SM, and in ms
-    K3c at c7 and K3 at c5 (order 1) on each of the variant's direct plans
-    (with the device atomics they issue, :func:`_direct_atomics`), K5 at
-    c5 at order 1 and K5c at c7, each held to its twin (K5c bit for bit);
-    beside them ``grid_sampler_3d_backward``'s halves. Prints one line
-    ``ab_bounds: {json}`` and returns it."""
-    import ctypes
-    import torch
-    from elasticdeform_tpu_torch.ops import _build
-    from elasticdeform_tpu_torch.ops import resample_bwd as rb
-    from elasticdeform_tpu_torch.ops.displacement import dense_displacement
-    root = _build.BUILD_ROOT.parent / "ab"
-    procs = []
-    for i, (_, flags, _) in enumerate(_AB_VARIANTS):
-        d = root / str(i)
-        d.mkdir(parents=True, exist_ok=True)
-        log = open(d / "nvcc.log", "w")
-        procs.append((d / "libresample_bwd.so", d / "nvcc.log",
-                      subprocess.Popen(
-                          [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
-                           str(_build.CSRC), "-o",
-                           str(d / "libresample_bwd.so"),
-                           str(_build.CSRC / "resample_bwd.cu")],
-                          stdout=log, stderr=subprocess.STDOUT)))
-    t0 = time.perf_counter()
-    for _, log, p in procs:
-        if p.wait() != 0:
-            raise AssertionError(f"nvcc failed:\n{open(log).read()[-3000:]}")
-    print(f"ab_bounds: {len(procs)} variants built in "
-          f"{time.perf_counter() - t0:.1f} s")
-    dev = torch.device("cuda")
-    rs = np.random.RandomState(16)
-    S5 = (64, 64, 64)
-    x5 = torch.as_tensor(rs.rand(64, *S5, 1).astype(np.float32), device=dev)
-    g5 = torch.as_tensor(rs.rand(64, *S5, 1).astype(np.float32), device=dev)
-    grid = torch.as_tensor((rs.randn(64, 3, 3, 3, 3) * 6).astype(np.float32),
-                           device=dev)
-    displ = dense_displacement(grid, S5, S5, (0, 0, 0))
-    a5 = (displ, None, (0, 0, 0), 1, 0)
-    iota = torch.stack(torch.meshgrid(
-        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S5],
-        indexing="ij"))
-    c5 = iota + displ
-    out = {}
-    out["grid_sampler_bwd_c5_input"], out["grid_sampler_bwd_c5_grid"] = \
-        _grid_halves(x5, c5, g5, reps)
-    del iota
-    S7 = (160, 192, 224)
-    x7 = torch.as_tensor(rs.rand(4, *S7, 1).astype(np.float32), device=dev)
-    g7 = torch.as_tensor(rs.randn(4, *S7, 1).astype(np.float32), device=dev)
-    iota = torch.stack(torch.meshgrid(
-        *[torch.arange(n, dtype=torch.float32, device=dev) for n in S7],
-        indexing="ij"))
-    c7 = (iota + torch.as_tensor(_smooth_field(rs, 4, S7, 4.0),
-                                 device=dev)).contiguous()
-    del iota
-    out["grid_sampler_bwd_c7_input"], out["grid_sampler_bwd_c7_grid"] = \
-        _grid_halves(x7, c7, g7, reps)
-    want = {"K3_c5_order1": rb.resample_transpose_plain(g5, *a5, S5),
-            "K3c_c7": rb.resample_coords_transpose_plain(g7, c7, 1, 0, S7),
-            "K5_c5_order1": rb.resample_coord_grad_plain(x5, g5, *a5),
-            "K5c_c7": rb.resample_coords_grad_plain(x7, g7, c7, 1, 0)}
-    terms = {"K3_c5_order1": rb.resample_transpose_plain(g5.abs(), *a5, S5),
-             "K3c_c7": rb.resample_coords_transpose_plain(g7.abs(), c7, 1, 0,
-                                                          S7)}
-    saved = _build.library("resample_bwd")
-    try:
-        for (label, _, plans), (path, log, _) in zip(_AB_VARIANTS, procs):
-            _build._libs["resample_bwd"] = ctypes.CDLL(str(path))
-            regs = {}
-            for fn, v in _ptxas_kernels(open(log).read()).items():
-                for name, pat in (("direct", _K3D_NAME), ("K5", _K5_NAME)):
-                    m = pat.search(fn)
-                    if m and m.groups()[0] == "f" and m.group(3) == "3" and \
-                            m.group(4) == "i" and (m.group(2) or "1") in "01":
-                        regs[f"{name} order {m.group(2) or '1'}"] = v[:4]
-            row = {"registers": regs}
-            calls = {"K5_c5_order1": lambda: rb.resample_coord_grad(
-                         x5, g5, *a5),
-                     "K5c_c7": lambda: rb.resample_coords_grad(
-                         x7, g7, c7, 1, 0)}
-            for name, kw in plans:
-                p5 = rb._bwd_plan(S5, S5, 1, 1, torch.float32,
-                                  route="direct", **kw)
-                p7 = rb._bwd_plan(S7, S7, 1, 1, torch.float32,
-                                  route="direct", **kw)
-                calls[f"K3_c5_order1 {name}"] = \
-                    lambda p5=p5: rb._launch_k3(g5, *a5, S5, p5)
-                calls[f"K3c_c7 {name}"] = \
-                    lambda p7=p7: rb._launch_k3c(g7, c7, 1, 0, S7, p7)
-                row[f"atomics_c5 {name}"] = _direct_atomics(
-                    c5, S5, 1, 0, p5)[0]
-                row[f"atomics_c7 {name}"] = _direct_atomics(
-                    c7, S7, 1, 0, p7)[0]
-                row[f"blocks_per_sm {name}"] = rb.bwd_occupancy(
-                    torch.float32, 1, 3, p7)
-            for k, fn in calls.items():
-                got = fn()
-                torch.cuda.synchronize()
-                key = k.split(" ")[0]
-                if key == "K5c_c7":
-                    row[f"{k} bit for bit"] = torch.equal(got, want[key])
-                elif key == "K5_c5_order1":
-                    _assert_close(got, want[key], *_tol(torch.float32,
-                                                        _k5_scale(x5, g5)),
-                                  f"{label}: {k}")
-                else:
-                    _assert_close(got, want[key], 1e-5,
-                                  1e-5 * terms[key].double(),
-                                  f"{label}: {k}")
-                row[k] = _time_ms(fn, reps)
-            out[label] = row
-            print(f"ab_bounds {label}: " + ", ".join(
-                f"{k} {row[k]:.4f} ms" for k in calls) +
-                f"; registers {regs} [{card}]")
-            if not row["K5c_c7 bit for bit"]:
-                raise AssertionError(f"{label}: K5c not bit for bit")
-    finally:
-        _build._libs["resample_bwd"] = saved
-    print(f"ab_bounds: {json.dumps(out)} [{card}]")
     return out
 
 

@@ -43,9 +43,8 @@
 // (PERF.md section 6): the box pays only where a voxel's taps overlap its
 // neighbours' many times, so the plan keeps orders 0 and 1 on the direct
 // route (ops/resample_bwd.py:BWD_TILE_ORDER), a kernel of its own
-// (resample_direct_kernel, below) that merges neighbouring voxels' taps in
-// registers before its atomics. Variants measured at c5
-// (order 3; this form 5.6 ms, the direct branch 8.2) and not kept:
+// (resample_direct_kernel, below), one thread a voxel. Variants measured
+// at c5 (order 3; this form 5.6 ms, the direct branch 8.2) and not kept:
 // swapping a run of taps with explicit compare-and-swap, several in
 // flight, 26.7 ms; two or four boxes a block (fewer warps on each) 5.6;
 // a __match_any_sync pre-reduction of the lanes that add at one box
@@ -422,51 +421,19 @@ resample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ displ,
 
 // K3/K3c's direct route (the plan's "direct": orders 0 and 1, and the
 // channel counts whose one-voxel box exceeds the budget). A kernel of its
-// own, with no box, no tile reduction and no __syncthreads. The output is
-// viewed as `rows` rows of `row_len` voxels (the wrapper gives the whole
-// output as one row, or its innermost axis); a warp has 2^lg_lanes lanes
-// along a row and 32 / 2^lg_lanes rows, one voxel a lane, so each tap's
-// atomics and the coordinate and g reads of a warp fall in a row's
-// consecutive elements, as grid_sampler_3d_backward's do (the tile route's
-// warp of 8 x 4 voxels spread them over four rows: 184-202 G atomics/s at
-// c7 against the library's 270; PERF.md section 6). Each voxel adds its
-// taps as the tile route's direct branch does (direct_voxel), so NaN and
-// infinities land where they did. Merging the taps before the atomics was
-// measured and is not in the package's build: built with
-// ED_DIRECT_LANE_MERGE, neighbouring lanes at order 1 hand the tap they
-// share over by a warp shuffle (lane_merge: about one atomic a voxel and
-// row of outer taps, not two), which made c7 slower.
-// Built with ED_DIRECT_VMAX of 2 to 4 (ab_bounds in chip_smoke.py), a lane
-// takes v consecutive voxels and merge_voxels sums each run of them with
-// equal outer first taps into a register window of the innermost axis
-// (one atomic per window element and row of outer taps, as float2 / float4
-// reductions where vec): fewer atomics, but each atomic instruction then
-// spreads over 4 x 32 elements and the window's registers spilled; it lost
-// to one voxel a lane at every v, scalar or vector (PERF.md section 6).
-struct DirectGeom {
-  int64_t rows;
-  int64_t row_len;
-  int v;
-  int lg_lanes;
-  int vec;
-  int merge;  // one voxel a lane at order 1: merge with the neighbours
-};
-
-// the direct kernel's launch bounds, chosen by an A/B on the card
-// (DirectBlocks below)
-#ifndef ED_DIRECT_THREADS
-#define ED_DIRECT_THREADS 256
-#endif
-#ifndef ED_DIRECT_BLOCKS
-#define ED_DIRECT_BLOCKS 4
-#endif
-// the most voxels a lane (its registers are sized for them): one, as the
-// A/B on the card chose (PERF.md section 6); 2 to 4 build the window merge
-// of merge_voxels for a lane's own voxels
-#ifndef ED_DIRECT_VMAX
-#define ED_DIRECT_VMAX 1
-#endif
-constexpr int DIRECT_VMAX = ED_DIRECT_VMAX;
+// own, with no box, no tile reduction and no __syncthreads: one thread per
+// output voxel in raster order, so a warp's 32 lanes take 32 consecutive
+// voxels along the output's innermost axis and each tap's atomics and the
+// coordinate and g reads fall in one row's consecutive elements, as
+// grid_sampler_3d_backward's do (the tile route's warp of 8 x 4 voxels
+// spread them over four rows: 184-202 G atomics/s at c7 against the
+// library's 270; PERF.md section 6). Each voxel adds its taps as the tile
+// route's direct branch does (direct_voxel), so NaN and infinities land
+// where they did. Merging neighbouring voxels' taps before the atomics
+// (across lanes by a warp shuffle, or a lane's 2-4 voxels in a register
+// window with float2 / float4 reductions) cut the atomics but lost on the
+// card at c7 and is not kept (PERF.md section 6).
+constexpr int DIRECT_THREADS = 256;
 
 // The taps t[0..NAXIS-2] (axis 0 slowest) of combination q of the outer
 // axes' taps; unrolled, so with q a constant every t is one too (a call of
@@ -482,25 +449,18 @@ __device__ __forceinline__ void outer_taps(int q, int* t) {
 }
 
 // The direct kernel's blocks per SM (its register budget, 65536 /
-// (ED_DIRECT_THREADS * blocks)): ED_DIRECT_BLOCKS for float32 with 32-bit
-// offsets up to 8 taps a voxel or ranks 1-3 up to order 4; two (128
-// registers) for float32's other tables, which spilled at 64; one for
-// float64 and 64-bit offsets (their tables are twice as wide; not the hot
-// path).
+// (DIRECT_THREADS * blocks)), chosen by an A/B on the card: four (64
+// registers, no spill) for float32 with 32-bit offsets up to 8 taps a
+// voxel or ranks 1-3 up to order 4; two (128 registers) for float32's
+// other tables, which spilled at 64; one for float64 and 64-bit offsets
+// (their tables are twice as wide; not the hot path).
 template <typename T, int NT, int NAXIS, typename I>
 struct DirectBlocks {
   static constexpr int value =
-      sizeof(T) > 4 || sizeof(I) > 4 ? 1
+      sizeof(T) > 4 || sizeof(I) > 4                       ? 1
       : voxel_taps(NT, NAXIS) > 8 && (NAXIS > 3 || NT > 5) ? 2
-                                                           : ED_DIRECT_BLOCKS;
+                                                           : 4;
 };
-
-// Neighbouring lanes merged at order 1 (lane_merge; the plan's `merge`):
-// not in the package's build, where plain row warps ran K3c at c7 in 0.67
-// ms against the merge's 0.89 (PERF.md section 6); ab_bounds builds it
-#ifndef ED_DIRECT_LANE_MERGE
-#define ED_DIRECT_LANE_MERGE 0
-#endif
 
 // The output index j of flat voxel v (K3), in the index type I.
 template <int NAXIS, typename I>
@@ -516,35 +476,9 @@ __device__ __forceinline__ void unravel(const Params& p, I v,
   j[0] = v;
 }
 
-// j to the next voxel in raster order.
-template <int NAXIS, typename I>
-__device__ __forceinline__ void step(const Params& p, I (&j)[NAXIS]) {
-  ++j[NAXIS - 1];
-#pragma unroll
-  for (int h = NAXIS - 1; h > 0; --h)
-    if (j[h] == (I)p.out_shape[h]) {
-      j[h] = 0;
-      ++j[h - 1];
-    }
-}
-
-// The coordinates of voxel v (output index j for K3).
-template <typename T, int NAXIS, typename I>
-__device__ __forceinline__ void direct_coords(const Params& p,
-                                              const T* __restrict__ displ,
-                                              const T* __restrict__ affine,
-                                              const bool coords,
-                                              const int64_t b, const I v,
-                                              const I (&j)[NAXIS],
-                                              T (&cc)[NAXIS]) {
-  if (coords)
-    voxel_coords<T, NAXIS, I>(p, displ, affine, true, b, v, cc);
-  else
-    displaced_coords<T, NAXIS, I>(p, displ, affine, b, v, j, cc);
-}
-
 // One voxel's taps, one device-memory atomic per tap and channel: the
-// tile route's direct branch, operation for operation.
+// tile route's direct branch, operation for operation. The coordinates of
+// voxel v: K3c's given ones, or K3's at output index j.
 template <typename T, int ORDER, int NAXIS, typename I>
 __device__ __forceinline__ void direct_voxel(
     const T* __restrict__ g, const T* __restrict__ displ,
@@ -552,7 +486,10 @@ __device__ __forceinline__ void direct_voxel(
     const bool coords, const int64_t b, const I v, const I (&j)[NAXIS]) {
   constexpr int NT = ORDER + 1;
   T cc[NAXIS];
-  direct_coords<T, NAXIS, I>(p, displ, affine, coords, b, v, j, cc);
+  if (coords)
+    voxel_coords<T, NAXIS, I>(p, displ, affine, true, b, v, cc);
+  else
+    displaced_coords<T, NAXIS, I>(p, displ, affine, b, v, j, cc);
   T m[NAXIS];
   I st[NAXIS];
   bool ok = true, nan = false;
@@ -576,375 +513,28 @@ __device__ __forceinline__ void direct_voxel(
   scatter_axis<T, NT, NAXIS, 0, I>(sink, T(1), I(0), w, off);
 }
 
-// w[k] for a runtime k < N, by selects (zero past the end)
-template <typename T, int N>
-__device__ __forceinline__ T window_at(const T (&w)[N], const int k) {
-  T r = T(0);
-#pragma unroll
-  for (int i = 0; i < N; ++i) r = k == i ? w[i] : r;
-  return r;
-}
-
-// The reduction of n (2 or 4) window values from win[s] on, at a (aligned
-// to n floats): Hopper's vector atomicAdd, float32 in global memory (CUDA
-// 12.1 on; scalar atomics before).
-template <int N>
-__device__ __forceinline__ void red_vec(float* a, const float (&win)[N],
-                                        const int s, const int n) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
-    (__CUDACC_VER_MAJOR__ > 12 ||                      \
-     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
-  if (n == 4) {
-    atomicAdd(reinterpret_cast<float4*>(a),
-              make_float4(window_at(win, s), window_at(win, s + 1),
-                          window_at(win, s + 2), window_at(win, s + 3)));
-  } else {
-    atomicAdd(reinterpret_cast<float2*>(a),
-              make_float2(window_at(win, s), window_at(win, s + 1)));
-  }
-#else
-  for (int u = 0; u < n; ++u) atomicAdd(a + u, window_at(win, s + u));
-#endif
-}
-
-template <int N>
-__device__ __forceinline__ void red_vec(double*, const double (&)[N], int,
-                                        int) {}
-
-// Adds the taps of voxels v0 .. v0 + nv - 1 (K3: output index j0 for v0),
-// merged where they merge; false, with nothing added, where a voxel inside
-// is not finite or far outside or its g is not finite (the caller then
-// adds each voxel's own taps). Orders 0 and 1. The voxels inside fall into
-// runs of equal outer first taps (a coordinate crosses a tap along a row
-// now and then); a run whose innermost first taps lie within DIRECT_VMAX of
-// each other, in a window no wider than its taps, is merged, and each
-// voxel of another run adds its own taps.
-template <typename T, int ORDER, int NAXIS, typename I>
-__device__ __forceinline__ bool merge_voxels(
-    const T* __restrict__ g, const T* __restrict__ displ,
-    const T* __restrict__ affine, T* __restrict__ dst, const Params& p,
-    const DirectGeom& dg, const bool coords, const int64_t b, const I v0,
-    const I (&j0)[NAXIS], const int nv, const T* lo_end,
-    const T* hi_end) {
-  constexpr int NT = ORDER + 1;
-  constexpr int VM = DIRECT_VMAX;
-  constexpr int W = VM + NT;  // the window: first taps up to VM apart
-  constexpr int NO = NAXIS - 1 > 0 ? NAXIS - 1 : 1;  // outer axes (>= 1)
-  const I C = (I)p.channels;
-  T wo[VM][NO][NT];  // outer weights
-  T wi[VM][NT];      // innermost weights
-  T g0[VM];          // g of channel 0
-  I so[VM][NO];      // outer first taps
-  I si[VM];          // innermost first taps
-  int run[VM];       // the run of equal outer first taps
-  bool in[VM];
-  int nruns = 0;
-  I last[NO];
-  I j[NAXIS];
-#pragma unroll
-  for (int h = 0; h < NAXIS; ++h) j[h] = j0[h];
-#pragma unroll
-  for (int k = 0; k < VM; ++k) {
-    in[k] = false;
-    si[k] = 0;
-    g0[k] = T(0);
-    run[k] = -1;
-    if (k < nv) {
-      T cc[NAXIS];
-      direct_coords<T, NAXIS, I>(p, displ, affine, coords, b, v0 + k, j, cc);
-      if (!coords) step<NAXIS, I>(p, j);
-      T m[NAXIS];
-      I st[NAXIS];
-      bool ok = true, bad = false;
-#pragma unroll
-      for (int h = 0; h < NAXIS; ++h) {
-        m[h] = map_coord(cc[h], p.in_shape[h], p.mode, &ok);
-        st[h] = first_tap<T, ORDER, I>(m[h]);
-        bad |= !(fabs(m[h]) < T(1 << 29));
-      }
-      // a NaN coordinate outside in constant mode adds NaN too from order
-      // 1: the lane takes direct_voxel
-      if (bad && (ok || ORDER > 0)) return false;
-      if (ok) {
-        const T* gv = g + b * p.n_out * p.channels + (v0 + k) * C;
-        // x - x is 0 only for a finite x: a NaN or an infinity in g must
-        // not spread over the window
-        for (I c = 0; c < C; ++c)
-          if (!(gv[c] - gv[c] == T(0))) return false;
-        g0[k] = gv[0];
-        bool same = nruns > 0;
-#pragma unroll
-        for (int h = 0; h < NAXIS - 1; ++h) {
-          same &= st[h] == last[h];
-          so[k][h] = last[h] = st[h];
-          spline_weights<T, ORDER>(m[h], wo[k][h]);
-        }
-        nruns += same ? 0 : 1;
-        run[k] = nruns - 1;
-        spline_weights<T, ORDER>(m[NAXIS - 1], wi[k]);
-        si[k] = st[NAXIS - 1];
-        in[k] = true;
-      }
-    }
-  }
-  const I n_in = (I)p.in_shape[NAXIS - 1];
-#pragma unroll 1
-  for (int r = 0; r < nruns; ++r) {
-    // the run's voxels, their outer first taps and their window
-    int nm = 0;
-    I lo = 0, hi = 0, sr[NO];
-#pragma unroll
-    for (int k = 0; k < VM; ++k)
-      if (run[k] == r) {
-        lo = nm == 0 || si[k] < lo ? si[k] : lo;
-        hi = nm == 0 || si[k] > hi ? si[k] : hi;
-#pragma unroll
-        for (int h = 0; h < NAXIS - 1; ++h) sr[h] = so[k][h];
-        ++nm;
-      }
-    // a window no wider than the taps it merges (order 0's first taps may
-    // lie apart): never more atomics than one per tap
-    if (hi - lo > (I)VM || (int)(hi - lo) + NT > nm * NT) {
-#pragma unroll
-      for (int k = 0; k < VM; ++k)
-        if (run[k] == r) {
-          I jk[NAXIS];
-#pragma unroll
-          for (int h = 0; h < NAXIS; ++h) jk[h] = j0[h];
-          if (!coords)
-            for (int s = 0; s < k; ++s) step<NAXIS, I>(p, jk);
-          direct_voxel<T, ORDER, NAXIS, I>(g, displ, affine, dst, p, coords,
-                                           b, v0 + (I)k, jk);
-        }
-      continue;
-    }
-    const int span = (int)(hi - lo) + NT;
-    // each member's innermost weights at their window positions
-    T ww[VM][W];
-#pragma unroll
-    for (int k = 0; k < VM; ++k) {
-      const int d = (int)(si[k] - lo);
-#pragma unroll
-      for (int e = 0; e < W; ++e) {
-        T x = T(0);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) x = e == d + t ? wi[k][t] : x;
-        ww[k][e] = run[k] == r ? x : T(0);
-      }
-    }
-    // the outer taps' offsets (tap_offsets: folded only over an edge) and
-    // the window's, folded element by element only over an edge
-    I offo[NO][NT];
-    if constexpr (NAXIS > 1) tap_offsets<NT, NO, I>(p, sr, offo);
-    I offi[W];
-    if (lo >= 0 && lo + W <= n_in) {
-#pragma unroll
-      for (int e = 0; e < W; ++e) offi[e] = (lo + e) * C;
-    } else {
-#pragma unroll
-      for (int e = 0; e < W; ++e) offi[e] = mirror_fold<I>(lo + e, n_in) * C;
-    }
-    const bool vec = dg.vec > 1 && C == 1 && sizeof(T) == 4 && lo >= 0 &&
-                     lo + span <= n_in;
-    constexpr int NCOMB = voxel_taps(NT, NAXIS - 1);
-#pragma unroll
-    for (int q = 0; q < NCOMB; ++q) {
-      // outer tap t_h of combination q, axis 0 slowest; each voxel's
-      // weight product over the outer axes, formed left to right as K1
-      // forms it
-      T wp[VM];
-      I base = 0;
-#pragma unroll
-      for (int k = 0; k < VM; ++k) wp[k] = T(1);
-      int tq[NO];
-      outer_taps<NT, NAXIS>(q, tq);
-#pragma unroll
-      for (int h = 0; h < NAXIS - 1; ++h) {
-        const int t = tq[h];
-        base += offo[h][t];
-#pragma unroll
-        for (int k = 0; k < VM; ++k)
-          wp[k] = h == 0 ? wo[k][h][t] : wp[k] * wo[k][h][t];
-      }
-      for (I c = 0; c < C; ++c) {
-        T win[W];
-#pragma unroll
-        for (int e = 0; e < W; ++e) win[e] = T(0);
-#pragma unroll
-        for (int k = 0; k < VM; ++k) {
-          if (run[k] != r) continue;
-          const T gk = c == 0 ? g0[k]
-                              : __ldg(g + b * p.n_out * p.channels +
-                                      (v0 + k) * C + c);
-          const T gw = NAXIS > 1 ? gk * wp[k] : gk;
-#pragma unroll
-          for (int e = 0; e < W; ++e) win[e] = win[e] + gw * ww[k][e];
-        }
-        T* const a = dst + base + c;
-        if (vec) {
-          // aligned chunks of dg.vec floats covering the window; the
-          // padding adds zeros to the elements around it
-          const int n = dg.vec;
-          T* const at = a + offi[0];
-          const int mis =
-              (int)((reinterpret_cast<uintptr_t>(at) / sizeof(T)) & (n - 1));
-          if (at - mis >= lo_end &&
-              at - mis + ((mis + span + n - 1) / n) * n <= hi_end) {
-            for (int s = -mis; s < span; s += n) red_vec(at + s, win, s, n);
-            continue;
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < W; ++e)
-          if (e < span) atomicAdd(a + offi[e], win[e]);
-      }
-    }
-  }
-  return true;
-}
-
-// Order 1, one voxel a lane (dg.v == 1): the taps of neighbouring lanes
-// merged by a warp shuffle. Where a voxel's first innermost tap is the same
-// element as its left neighbour's second (consecutive first taps, the same
-// outer taps), the neighbour hands that tap's term over and this lane adds
-// it to its own: one atomic where there were two, and each atomic
-// instruction still covers the warp's consecutive elements. A voxel whose
-// coordinate is not finite or far outside, or whose g is not finite, adds
-// its own taps (direct_voxel) and merges with no neighbour. Every active
-// lane of the warp calls this (the shuffles); `has_left`: the lane to the
-// left is active and in the same row.
-template <typename T, int NAXIS, typename I>
-__device__ __forceinline__ void lane_merge(
-    const T* __restrict__ g, const T* __restrict__ displ,
-    const T* __restrict__ affine, T* __restrict__ dst, const Params& p,
-    const bool coords, const int64_t b, const I v, const I (&j)[NAXIS],
-    const unsigned mask, const bool has_left, const bool has_right) {
-  constexpr int NT = 2;
-  const I C = (I)p.channels;
-  T cc[NAXIS];
-  direct_coords<T, NAXIS, I>(p, displ, affine, coords, b, v, j, cc);
-  T m[NAXIS];
-  I st[NAXIS];
-  bool ok = true, bad = false;
-#pragma unroll
-  for (int h = 0; h < NAXIS; ++h) {
-    m[h] = map_coord(cc[h], p.in_shape[h], p.mode, &ok);
-    st[h] = first_tap<T, 1, I>(m[h]);
-    bad |= !(fabs(m[h]) < T(1 << 29));
-  }
-  const T* gv = g + b * p.n_out * p.channels + v * C;
-  // x - x is 0 only for a finite x: a NaN or an infinity in g must not
-  // reach a neighbour's tap
-  for (I c = 0; c < C; ++c) bad |= !(gv[c] - gv[c] == T(0));
-  const bool take = ok && !bad;
-  T w[NAXIS][NT];
-#pragma unroll
-  for (int h = 0; h < NAXIS; ++h) spline_weights<T, 1>(m[h], w[h]);
-  I off[NAXIS][NT];
-  tap_offsets<NT, NAXIS, I>(p, st, off);
-  constexpr int NCOMB = voxel_taps(NT, NAXIS - 1);
-  // a loop, its table entries picked by selects: unrolled, the shuffles'
-  // values of every combination stayed live and spilled
-#pragma unroll 1
-  for (int q = 0; q < NCOMB; ++q) {
-    // outer tap t_h of combination q, axis 0 slowest; the weight product
-    // over the outer axes formed left to right as K1 forms it
-    T wp = T(1);
-    I base = 0;
-    int tq[NAXIS - 1 > 0 ? NAXIS - 1 : 1];
-    outer_taps<NT, NAXIS>(q, tq);
-#pragma unroll
-    for (int h = 0; h < NAXIS - 1; ++h) {
-      const int t = tq[h];
-      base += pick(off[h], t);
-      wp = h == 0 ? pick(w[h], t) : wp * pick(w[h], t);
-    }
-    const I a0 = base + off[NAXIS - 1][0];
-    const I a1 = base + off[NAXIS - 1][1];
-    for (I c = 0; c < C; ++c) {
-      const T gw = take ? (NAXIS > 1 ? __ldg(gv + c) * wp : __ldg(gv + c))
-                        : T(0);
-      T v0 = gw * w[NAXIS - 1][0];
-      const T v1 = gw * w[NAXIS - 1][1];
-      // the left neighbour's second tap, where it is this lane's first
-      const I pa = __shfl_up_sync(mask, a1, 1);
-      const T pv = __shfl_up_sync(mask, v1, 1);
-      const bool pt = __shfl_up_sync(mask, take, 1);
-      const bool joined = take && has_left && pt && pa == a0;
-      v0 = joined ? v0 + pv : v0;
-      const bool given = __shfl_down_sync(mask, joined, 1) && has_right;
-      if (take) {
-        atomicAdd(dst + a0 + c, v0);
-        if (!given) atomicAdd(dst + a1 + c, v1);
-      }
-    }
-  }
-  if (!take)
-    direct_voxel<T, 1, NAXIS, I>(g, displ, affine, dst, p, coords, b, v, j);
-}
-
-// K3/K3c's direct route: DirectGeom's warp layout; the grid's y walks the
-// batch.
+// K3/K3c's direct route: one thread per voxel of a sample; the grid's y
+// walks the batch.
 template <typename T, int ORDER, int NAXIS, typename I>
 __global__ void __launch_bounds__(
-    ED_DIRECT_THREADS, (DirectBlocks<T, ORDER + 1, NAXIS, I>::value))
+    DIRECT_THREADS, (DirectBlocks<T, ORDER + 1, NAXIS, I>::value))
 resample_direct_kernel(const T* __restrict__ g, const T* __restrict__ displ,
                        const T* __restrict__ affine, T* __restrict__ d_coeffs,
-                       const Params p, const DirectGeom dg,
-                       const bool coords) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp =
-      ((int64_t)blockIdx.x * ED_DIRECT_THREADS + threadIdx.x) >> 5;
-  const int lanes = 1 << dg.lg_lanes;
-  const int64_t seg = (int64_t)lanes * dg.v;  // a warp's voxels along a row
-  const int64_t chunks = (dg.row_len + seg - 1) / seg;
-  const int64_t row =
-      (warp / chunks) * (32 >> dg.lg_lanes) + (lane >> dg.lg_lanes);
-  const int64_t col =
-      (warp % chunks) * seg + (int64_t)(lane & (lanes - 1)) * dg.v;
-  if (row >= dg.rows || col >= dg.row_len) return;
-  const int nv = (int)(dg.row_len - col < dg.v ? dg.row_len - col : dg.v);
-  const I v0 = (I)(row * dg.row_len + col);
-  I j0[NAXIS];
+                       const Params p, const bool coords) {
+  const int64_t t = (int64_t)blockIdx.x * DIRECT_THREADS + threadIdx.x;
+  if (t >= p.n_out) return;
+  const I v = (I)t;
+  I j[NAXIS];
   if (coords) {
 #pragma unroll
-    for (int h = 0; h < NAXIS; ++h) j0[h] = 0;
+    for (int h = 0; h < NAXIS; ++h) j[h] = 0;
   } else {
-    unravel<NAXIS, I>(p, v0, j0);
+    unravel<NAXIS, I>(p, v, j);
   }
-  for (int64_t b = blockIdx.y; b < p.batch; b += gridDim.y) {
-    T* const dst = d_coeffs + b * p.n_in * p.channels;
-    if constexpr (ORDER == 1 && ED_DIRECT_LANE_MERGE) {
-      if (dg.v == 1 && dg.merge) {
-        // one voxel a lane: its neighbours in the warp's row
-        const unsigned mask = __activemask();
-        const bool has_left = (lane & (lanes - 1)) != 0 &&
-                              ((mask >> (lane - 1)) & 1u);
-        const bool has_right = ((lane + 1) & (lanes - 1)) != 0 &&
-                               ((mask >> (lane + 1)) & 1u);
-        lane_merge<T, NAXIS, I>(g, displ, affine, dst, p, coords, b, v0,
-                                j0, mask, has_left, has_right);
-        continue;
-      }
-    }
-    // a lane's window (builds with ED_DIRECT_VMAX above 1; with one voxel
-    // a lane its window is that voxel's taps, which direct_voxel adds)
-    if constexpr (ORDER <= 1 && DIRECT_VMAX > 1) {
-      if (dg.v > 1 &&
-          merge_voxels<T, ORDER, NAXIS, I>(
-              g, displ, affine, dst, p, dg, coords, b, v0, j0, nv, d_coeffs,
-              d_coeffs + p.batch * p.n_in * p.channels))
-        continue;
-    }
-    I j[NAXIS];
-#pragma unroll
-    for (int h = 0; h < NAXIS; ++h) j[h] = j0[h];
-    for (int k = 0; k < nv; ++k) {
-      direct_voxel<T, ORDER, NAXIS, I>(g, displ, affine, dst, p, coords, b,
-                                       v0 + (I)k, j);
-      if (!coords) step<NAXIS, I>(p, j);
-    }
-  }
+  for (int64_t b = blockIdx.y; b < p.batch; b += gridDim.y)
+    direct_voxel<T, ORDER, NAXIS, I>(g, displ, affine,
+                                     d_coeffs + b * p.n_in * p.channels, p,
+                                     coords, b, v, j);
 }
 
 // K5/K5c: the partial sums of one voxel. v[0] carries no derivative
@@ -1079,29 +669,23 @@ __device__ __forceinline__ void coord_grad_voxel(
 // blocks and spilled; given one block, it spent up to twice the registers
 // and the kernels ran far slower. float64 and 64-bit offsets take one
 // block: their tables are twice as wide, and they are not the hot path.
-// ED_K5_BLOCKS1: the blocks of order 1 up to 8 taps (ranks 1-3), chosen
-// by an A/B on the card; two voxels a thread (ED_K5_PAIR) at rank 4 take
-// two (they spilled at four).
-#ifndef ED_K5_BLOCKS1
-#define ED_K5_BLOCKS1 4
-#endif
-// K5/K5c at order 1: two voxels a thread (coord_grad_pair_kernel), or one
-#ifndef ED_K5_PAIR
-#define ED_K5_PAIR 1
-#endif
+// Order 1 runs two voxels a thread (coord_grad_pair_kernel): four blocks
+// up to 8 taps (ranks 1-3), chosen by an A/B on the card (five spilled),
+// two at rank 4 (four spilled).
 template <typename T, int NT, int NAXIS, typename I>
 struct CoordGradBlocks {
   static constexpr int taps = voxel_taps(NT, NAXIS);
   static constexpr int value = sizeof(T) > 4 || sizeof(I) > 4 ? 1
-                               : NT == 2 && taps <= 8          ? ED_K5_BLOCKS1
-                               : NT == 2 && ED_K5_PAIR         ? 2
+                               : NT == 2 && taps <= 8          ? 4
+                               : NT == 2                       ? 2
                                : taps <= 8                     ? 5
                                : taps <= 16                    ? 4
                                : taps <= 64                    ? 3
                                                                : 2;
 };
 
-// One thread per output voxel of a sample; the grid's y walks the batch.
+// Orders 2-5: one thread per output voxel of a sample; the grid's y walks
+// the batch.
 template <typename T, int ORDER, int NAXIS, typename I>
 __global__ void __launch_bounds__(
     256, (CoordGradBlocks<T, ORDER + 1, NAXIS, I>::value))
@@ -1116,8 +700,8 @@ coord_grad_kernel(const T* __restrict__ coeffs, const T* __restrict__ g,
                                          p, coords, b, (I)v);
 }
 
-// K5/K5c at order 1 with a channel: two consecutive voxels a thread
-// (ED_K5_PAIR), the second reusing the coefficients of the first's taps
+// K5/K5c at order 1 with a channel: two consecutive voxels a thread, the
+// second reusing the coefficients of the first's taps
 // that it shares. Along the innermost axis neighbouring voxels usually
 // share their outer first taps and half their innermost taps (first taps
 // one apart) or all of them (equal first taps), so a pair loads 12 or 8
@@ -1413,50 +997,31 @@ struct DirectLaunch {
   const void* affine;
   void* d_coeffs;
   Params p;
-  DirectGeom dg;
   bool coords;
   dim3 grid;
   cudaStream_t stream;
   template <typename T, int ORDER, int NAXIS, typename I>
   cudaError_t run() {
     resample_direct_kernel<T, ORDER, NAXIS, I>
-        <<<grid, ED_DIRECT_THREADS, 0, stream>>>(
+        <<<grid, DIRECT_THREADS, 0, stream>>>(
             static_cast<const T*>(g), static_cast<const T*>(displ),
-            static_cast<const T*>(affine), static_cast<T*>(d_coeffs), p, dg,
+            static_cast<const T*>(affine), static_cast<T*>(d_coeffs), p,
             coords);
     return cudaGetLastError();
   }
 };
 
-// Host side: the direct route's geometry from the C entry points'
-// arguments; false if out of range (rows * row_len not n_out, v outside
-// 1..DIRECT_VMAX, lanes not 8, 16 or 32, vec not 0, 2 or 4, a grid of 2^31
-// blocks). *blocks: the grid's blocks per sample.
-bool make_direct(DirectGeom* dg, int64_t* blocks, const Params& p,
-                 long long rows, long long row_len, int v, int lg_lanes,
-                 int vec, int merge) {
-  if (rows < 1 || row_len < 1 || rows * row_len != p.n_out || v < 1 ||
-      v > DIRECT_VMAX || (merge && !ED_DIRECT_LANE_MERGE) || lg_lanes < 3 ||
-      lg_lanes > 5 ||
-      (vec != 0 && vec != 2 && vec != 4))
-    return false;
-  *dg = DirectGeom{rows, row_len, v, lg_lanes, vec, merge != 0};
-  const int64_t seg = ((int64_t)1 << lg_lanes) * v;
-  const int64_t per = 32 >> lg_lanes;  // rows a warp
-  const int64_t warps = ((rows + per - 1) / per) * ((row_len + seg - 1) / seg);
-  *blocks = (warps * 32 + ED_DIRECT_THREADS - 1) / ED_DIRECT_THREADS;
-  return *blocks < ((int64_t)1 << 31);
-}
-
-// The zero fill of d_coeffs is the caller's; the kernel adds into it.
+// The zero fill of d_coeffs is the caller's; the kernel adds into it. One
+// thread a voxel: a grid of 2^31 blocks or more is refused.
 cudaError_t launch_direct(int dtype, int order, bool wide, const void* g,
                           const void* displ, const void* affine,
-                          void* d_coeffs, const Params& p,
-                          const DirectGeom& dg, int64_t blocks, bool coords,
+                          void* d_coeffs, const Params& p, bool coords,
                           cudaStream_t stream) {
   if (p.channels < 1 || (!wide && !fits_32(p))) return cudaErrorInvalidValue;
+  const int64_t blocks = (p.n_out + DIRECT_THREADS - 1) / DIRECT_THREADS;
+  if (blocks >= ((int64_t)1 << 31)) return cudaErrorInvalidValue;
   if (p.batch * p.n_out == 0) return cudaSuccess;
-  DirectLaunch f{g, displ, affine, d_coeffs, p, dg, coords,
+  DirectLaunch f{g, displ, affine, d_coeffs, p, coords,
                  dim3((unsigned)blocks,
                       (unsigned)(p.batch < 65535 ? p.batch : 65535)),
                  stream};
@@ -1476,10 +1041,10 @@ template <typename T, int ORDER, int NAXIS, typename I>
 cudaError_t launch_coord_grad(const GradArgs& a, const Params& p,
                               bool coords, cudaStream_t stream) {
   const int threads = 256;
-  const int64_t per = ORDER == 1 && ED_K5_PAIR ? 2 * threads : threads;
+  const int64_t per = ORDER == 1 ? 2 * threads : threads;
   const dim3 grid((unsigned)((p.n_out + per - 1) / per),
                   (unsigned)(p.batch < 65535 ? p.batch : 65535));
-  if constexpr (ORDER == 1 && ED_K5_PAIR) {
+  if constexpr (ORDER == 1) {
     coord_grad_pair_kernel<T, NAXIS, I><<<grid, threads, 0, stream>>>(
         static_cast<const T*>(a.coeffs), static_cast<const T*>(a.g),
         static_cast<const T*>(a.displ), static_cast<const T*>(a.affine),
@@ -1566,53 +1131,38 @@ int ed_resample_bwd(int dtype, const void* g, const void* displ,
                          p, tl, false, static_cast<cudaStream_t>(stream));
 }
 
-// K3 on the direct route: as ed_resample_bwd, the output viewed as rows
-// rows of row_len voxels (rows * row_len = prod(out_shape)), v voxels a
-// lane (1 to ED_DIRECT_VMAX), 2^lg_lanes lanes of a warp along a row
-// (3-5), vec 0 (scalar atomics), 2 or 4 (float2 / float4 reductions of a
-// lane's window where they fit), merge: one voxel a lane at order 1 merges
-// with its neighbours (lane_merge).
+// K3 on the direct route (one thread a voxel, no box): as
+// ed_resample_bwd without the tile's arguments.
 int ed_resample_bwd_direct(int dtype, const void* g, const void* displ,
                            const void* affine, void* d_coeffs, int naxis,
                            int order, int mode, long long batch,
                            long long channels, const long long* in_shape,
                            const long long* out_shape,
                            const long long* offsets, long long affine_stride,
-                           long long rows, long long row_len, int v,
-                           int lg_lanes, int vec, int merge, void* stream,
-                           int wide) {
+                           void* stream, int wide) {
   Params p;
-  DirectGeom dg;
-  int64_t blocks;
   if (!make_params(&p, naxis, mode, batch, channels, in_shape, out_shape,
-                   offsets, affine_stride, 0.0) ||
-      !make_direct(&dg, &blocks, p, rows, row_len, v, lg_lanes, vec, merge))
+                   offsets, affine_stride, 0.0))
     return (int)cudaErrorInvalidValue;
   return (int)launch_direct(dtype, order, wide != 0, g, displ, affine,
-                            d_coeffs, p, dg, blocks, false,
+                            d_coeffs, p, false,
                             static_cast<cudaStream_t>(stream));
 }
 
-// K3c on the direct route: as ed_resample_coords_bwd, with the geometry of
-// ed_resample_bwd_direct.
+// K3c on the direct route: as ed_resample_coords_bwd without the tile's
+// arguments.
 int ed_resample_coords_bwd_direct(int dtype, const void* g,
                                   const void* coords, void* d_coeffs,
                                   int naxis, int order, int mode,
                                   long long batch, long long channels,
                                   const long long* in_shape, long long n_out,
-                                  long long rows, long long row_len, int v,
-                                  int lg_lanes, int vec, int merge,
-                                  void* stream,
-                                  int wide) {
+                                  void* stream, int wide) {
   Params p;
-  DirectGeom dg;
-  int64_t blocks;
   if (!make_params_coords(&p, naxis, mode, batch, channels, in_shape, n_out,
-                          0.0) ||
-      !make_direct(&dg, &blocks, p, rows, row_len, v, lg_lanes, vec, merge))
+                          0.0))
     return (int)cudaErrorInvalidValue;
   return (int)launch_direct(dtype, order, wide != 0, g, coords, nullptr,
-                            d_coeffs, p, dg, blocks, true,
+                            d_coeffs, p, true,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -1625,7 +1175,7 @@ int ed_resample_direct_blocks_per_sm(int dtype, int order, int naxis,
                                    (const void*)nullptr);
   int n = -1;
   if (fn == nullptr || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &n, fn, ED_DIRECT_THREADS, 0) != cudaSuccess)
+                           &n, fn, DIRECT_THREADS, 0) != cudaSuccess)
     return -1;
   return n;
 }

@@ -521,7 +521,11 @@ def cast_output(t: torch.Tensor, dtype) -> torch.Tensor:
     big = r >= float(top)
     below = float(np.nextafter(top, fdt.type(0)))
     out = torch.trunc(r.clamp_(float(info.min), below)).to(torch_dtype(dtype))
-    # torch.where, not masked_fill: PyTorch's CPU has no masked_fill on
-    # uint32 and uint64
-    return torch.where(big, torch.tensor(int(info.max), dtype=out.dtype,
-                                         device=out.device), out)
+    # the top put in by a where on the signed type of the same width (the
+    # card's where has no uint16-uint64, PyTorch's CPU no masked_fill on
+    # uint32/uint64), an unsigned top being all ones, -1; the top a Python
+    # scalar, which fills on the device (a tensor from the host is copied
+    # with a sync)
+    signed = torch_dtype(np.dtype(f"i{dtype.itemsize}"))
+    top_bits = int(info.max) if dtype.kind == "i" else -1
+    return torch.where(big, top_bits, out.view(signed)).view(out.dtype)

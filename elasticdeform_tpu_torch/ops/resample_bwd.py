@@ -37,9 +37,9 @@ whose box exceeds the budget (:data:`BWD_BUDGET` bytes) or whose
 coordinates are not finite adds each tap to the coefficients directly. Its
 ``"direct"`` route (orders below :data:`BWD_TILE_ORDER`, a channel count
 whose single-voxel box exceeds the budget, or forced) launches a kernel of
-its own: the output as rows (the whole output as one, or its innermost
-axis), a warp's lanes along a row, one voxel a lane, each adding its own
-taps. ``.routes`` counts the launches of each route.
+its own, one thread per output voxel in raster order (a warp's lanes along
+the output's innermost axis), each adding its own taps. ``.routes`` counts
+the launches of each route.
 
 Layouts are those of :mod:`~elasticdeform_tpu_torch.ops.resample`. On a CPU
 tensor each wrapper takes its plain version; on a CUDA tensor it launches
@@ -93,34 +93,17 @@ BWD_BUDGET = 16384
 # 2.4 at c8) and not at order 1 (1.11 against 1.13 at c5, 1.40 against
 # 1.09 at c7; PERF.md section 6)
 BWD_TILE_ORDER = 2
-# the direct route's geometry (``resample_direct_kernel``): threads a block
-# (``ED_DIRECT_THREADS``), voxels a lane (1; 2-4 only in a build with
-# ``ED_DIRECT_VMAX`` raised, where a lane's voxels merge in a register
-# window, as float2 / float4 reductions with ``vec`` 2 or 4), lanes of a
-# warp along a row (32, 16 or 8), the whole output as one row (else its
-# innermost axis); ``merge`` (neighbouring lanes merged at order 1) only
-# in a build with ``ED_DIRECT_LANE_MERGE``; chosen by an A/B on the card
-# (PERF.md section 6)
+# the direct route's threads a block, one a voxel (``DIRECT_THREADS`` in
+# ``csrc/resample_bwd.cu``)
 DIRECT_THREADS = 256
-DIRECT_VOXELS = 1
-DIRECT_LANES = 32
-DIRECT_FLAT = True
 
 BwdPlan = collections.namedtuple(
-    "BwdPlan",
-    "route view tile cap smem blocks wide voxels lanes row vec merge",
-    defaults=(1, 32, 0, 0, False))
+    "BwdPlan", "route view tile cap smem blocks wide")
 BwdPlan.__doc__ = """K3/K3c's launch: ``route`` "tile" (a box of up to
-``cap`` elements, ``smem`` bytes, per block) or "direct" (cap 0); the
-output ``view`` ``(outer, a, b, c)``; the ``tile`` over ``(a, b, c)`` (the
-tile route's; the direct route does not use it); the grid's ``blocks`` per
-sample; ``wide``: 64-bit offsets. The direct route's warp: ``voxels``
-consecutive voxels a lane, ``lanes`` lanes along a row of ``row`` voxels
-(the output's innermost axis, or all of it) and ``32 // lanes`` rows;
-``vec`` 0, 2 or 4, the width of a lane's window's reductions; ``merge``:
-at order 1 with one voxel a lane, neighbouring lanes merge their shared
-taps (``vec`` and ``merge`` need the builds that ``chip_smoke.py``'s
-``ab_bounds`` makes)."""
+``cap`` elements, ``smem`` bytes, per block) or "direct" (cap 0, one
+thread a voxel); the output ``view`` ``(outer, a, b, c)``; the ``tile``
+over ``(a, b, c)`` (the tile route's; the direct route does not use it);
+the grid's ``blocks`` per sample; ``wide``: 64-bit offsets."""
 
 
 def _pow2_at_least(n: int) -> int:
@@ -143,17 +126,9 @@ def bwd_threads(dtype, wide: bool) -> int:
         else BWD_MAX_TILE // 2
 
 
-def _direct_blocks(n_out: int, row: int, voxels: int, lanes: int) -> int:
-    """The direct kernel's blocks a sample (``make_direct``)."""
-    per = 32 // lanes
-    warps = -(-(n_out // row) // per) * -(-row // (lanes * voxels))
-    return -(-warps * 32 // DIRECT_THREADS)
-
-
 @functools.lru_cache(maxsize=1024)
 def _bwd_plan(in_shape, out_shape, channels: int, order: int, dtype,
-              route=None, budget: int = BWD_BUDGET, tile=None, voxels=None,
-              lanes=None, flat=None, vec=0, merge=False) -> BwdPlan:
+              route=None, budget: int = BWD_BUDGET, tile=None) -> BwdPlan:
     """The launch of K3 (``out_shape`` the displacement's spatial shape)
     or K3c (the coordinates' output shape) scattering into coefficients of
     spatial ``in_shape`` with ``channels`` channels. The tile is
@@ -166,10 +141,9 @@ def _bwd_plan(in_shape, out_shape, channels: int, order: int, dtype,
     x channels`` elements) exceed it; else "direct". ``route`` forces
     either (``chip_smoke.py`` and the tests hold both branches this way);
     a forced "tile" that cannot fit raises ValueError. The direct route
-    takes :data:`DIRECT_VOXELS` voxels a lane, :data:`DIRECT_LANES` and
-    :data:`DIRECT_FLAT`, or ``voxels``, ``lanes``, ``flat`` (and ``vec``,
-    ``merge``). Offsets are 64-bit where a sample reaches 2^31 elements
-    (``wide_indices``). Cached: the wrappers ask at every launch."""
+    runs :data:`DIRECT_THREADS` voxels a block. Offsets are 64-bit where a
+    sample reaches 2^31 elements (``wide_indices``). Cached: the wrappers
+    ask at every launch."""
     if route not in (None, "tile", "direct"):
         raise ValueError(f"route must be 'tile' or 'direct', got {route!r}")
     in_shape = tuple(int(n) for n in in_shape)
@@ -207,30 +181,18 @@ def _bwd_plan(in_shape, out_shape, channels: int, order: int, dtype,
                          f"bytes")
     if route == "direct" or not fits or \
             route is None and order < BWD_TILE_ORDER:
-        v = int(voxels or DIRECT_VOXELS)
-        lanes = int(lanes or DIRECT_LANES)
-        n_out = math.prod(view)
-        row = n_out if (DIRECT_FLAT if flat is None else flat) else view[3]
-        if not 1 <= v <= 4 or lanes not in (8, 16, 32) or \
-                vec not in (0, 2, 4):
-            raise ValueError(f"a direct plan takes 1-4 voxels a lane, 8, "
-                             f"16 or 32 lanes a row and vec 0, 2 or 4, got "
-                             f"{v}, {lanes}, {vec}")
-        blocks = _direct_blocks(n_out, row, v, lanes)
+        blocks = -(-math.prod(view) // DIRECT_THREADS)
         if blocks >= 2 ** 31:
             raise ValueError(f"K3: {blocks} blocks a sample, over 2^31")
-        return BwdPlan("direct", view, tuple(dims), 0, 0, blocks, wide, v,
-                       lanes, row, int(vec), bool(merge))
+        return BwdPlan("direct", view, tuple(dims), 0, 0, blocks, wide)
     return BwdPlan("tile", view, tuple(dims), cap, cap * item, blocks, wide)
 
 
 def _tile_args(plan: BwdPlan):
     """The plan as the C entry points take it: view, log2 tile, cap on the
-    tile route; rows, row length, voxels a lane, log2 lanes, vec, merge on
-    the direct route."""
+    tile route; nothing on the direct route."""
     if plan.route == "direct":
-        return (math.prod(plan.view) // plan.row, plan.row, plan.voxels,
-                plan.lanes.bit_length() - 1, plan.vec, int(plan.merge))
+        return ()
     return ((ctypes.c_longlong * 4)(*plan.view),
             (ctypes.c_int * 3)(*[d.bit_length() - 1 for d in plan.tile]),
             plan.cap)
@@ -357,8 +319,6 @@ def _lib():
                       ctypes.c_longlong, ctypes.c_longlong, ll_p, ll_p, ll_p,
                       ctypes.c_longlong]
         tile_args = [ll_p, int_p, ctypes.c_int]
-        direct_args = [ctypes.c_longlong, ctypes.c_longlong] + \
-            [ctypes.c_int] * 4
         fn = lib.ed_resample_bwd
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + shape_args
@@ -366,7 +326,7 @@ def _lib():
         fn = lib.ed_resample_bwd_direct
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + shape_args
-                       + direct_args + [ctypes.c_void_p, ctypes.c_int])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn = lib.ed_resample_coord_grad
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + shape_args
@@ -381,7 +341,7 @@ def _lib():
         fn = lib.ed_resample_coords_bwd_direct
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + coords_args
-                       + direct_args + [ctypes.c_void_p, ctypes.c_int])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn = lib.ed_resample_coords_grad
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + coords_args

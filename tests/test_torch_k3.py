@@ -24,19 +24,14 @@ branch). Here:
   multiples of the tile, axes shorter than the tap window, coordinates 25
   voxels outside and a NaN coordinate;
 * a numpy model of the direct route's kernel (``resample_direct_kernel``):
-  runs of ``voxels`` consecutive voxels along each row, their taps merged
-  per outer-tap row into a window of the innermost axis at orders 0 and 1
-  where the kernel merges them (each run of voxels inside with equal outer
-  first taps, the innermost ones within 4 of each other and a window no
-  wider than the taps it merges; the lane's coordinates finite and sane
-  and its g finite), each voxel's own taps where not; held against the twins
-  in float64 at 1e-12 of the sum of the absolute terms over orders 0 and
-  1, ranks 1-3, the five modes (constant with voxels outside), one and
-  three channels, 1-4 voxels a lane, rows of the whole output or of its
-  innermost axis, NaN coordinates and windows folded at both edges; the
-  atomics it counts (scalar, and float4 reductions) never exceed one per
-  tap and channel;
-* the plan's tiles, routes, direct geometry and refusals.
+  one thread a voxel in raster order, each adding its own taps (nothing
+  in constant mode outside, except from order 1 a NaN coordinate's NaN
+  weights, its first tap 0); held against the twins in float64 at 1e-12
+  of the sum of the absolute terms over orders 0 and 1, ranks 1-3, the
+  five modes (constant with voxels outside), one and three channels, NaN
+  coordinates and taps folded at both edges, with one atomic per tap and
+  channel of the voxels that add;
+* the plan's tiles, routes, direct grid and refusals.
 
 The ``cuda`` test holds both routes against the twin, and skips without
 a card.
@@ -351,12 +346,12 @@ def test_plan_at_c5_c7_and_c8():
     c5 = rb._bwd_plan((64, 64, 64), (64, 64, 64), 1, 3, f32)
     assert c5 == rb.BwdPlan("tile", (1, 64, 64, 64), (8, 8, 8), 4096,
                             16384, 512, False)
-    # order 1 takes the direct route unless the tile is forced: the whole
-    # output as one row, one voxel a lane, 32 lanes a row
+    # order 1 takes the direct route unless the tile is forced: one thread
+    # a voxel, 256 a block
     c7 = rb._bwd_plan((160, 192, 224), (160, 192, 224), 1, 1, f32)
     n7 = 160 * 192 * 224
     assert c7 == rb.BwdPlan("direct", (1, 160, 192, 224), (8, 8, 8), 0, 0,
-                            n7 // 256, False, 1, 32, n7, 0, False)
+                            n7 // 256, False)
     assert rb._bwd_plan((160, 192, 224), (160, 192, 224), 1, 1, f32,
                         route="tile").cap == 4096
     assert rb._bwd_plan((9,) * 3, (9,) * 3, 1, 0, f32).route == "direct"
@@ -484,18 +479,13 @@ def test_both_branches_match_plain(cuda_device, dtype, mode):
             assert bool((err <= rtol * terms.double()).all()), plan
 
 
-def _direct_model(g, cc, in_shape, order, mode, plan, item=8):
-    """numpy float64 model of K3/K3c's direct route on ``plan``: ``g``
-    ``(B, *out, C)`` at sample coordinates ``cc`` ``(B, naxis, *out)``.
-    At order 1 with one voxel a lane and ``plan.merge`` the kernel merges
-    across lanes instead: a voxel's first innermost tap takes its left neighbour's
-    second where the two are one element (within a row's run of
-    ``plan.lanes`` lanes). Returns the result and the counts: the
-    device-memory atomics the kernel issues (float4 or float2 reductions
-    counted as one, where ``plan.vec`` and the kernel take them; ``item``
-    the bytes of an element, whose alignment decides), the atomics of one
-    per tap and channel, and the voxels inside whose taps were merged and
-    that added their own."""
+def _direct_model(g, cc, in_shape, order, mode):
+    """numpy float64 model of K3/K3c's direct route: ``g`` ``(B, *out,
+    C)`` at sample coordinates ``cc`` ``(B, naxis, *out)``, one thread a
+    voxel in raster order, each adding its own taps at their folded
+    offsets. Returns the result and the counts: the device-memory atomics
+    the kernel issues (one per tap and channel of a voxel that adds) and
+    the voxels that add."""
     g = np.asarray(g, dtype=np.float64)
     B, C, naxis = g.shape[0], g.shape[-1], len(in_shape)
     nt = order + 1
@@ -507,14 +497,15 @@ def _direct_model(g, cc, in_shape, order, mode, plan, item=8):
     ok = ok.reshape(B, n_out)
     gf = g.reshape(B, n_out, C)
     out = np.zeros((B, *in_shape, C))
-    n_in = int(np.prod(in_shape))
     taps = list(itertools.product(range(nt), repeat=naxis))
-    combos = list(itertools.product(range(nt), repeat=naxis - 1))
-    vec = plan.vec if C == 1 and item == 4 else 0
-    stats = {"atomics": 0, "unmerged": 0, "merged": 0, "direct": 0}
-    n_in = int(np.prod(in_shape))
-
-    def direct(b, v):
+    stats = {"atomics": 0, "voxels": 0}
+    for b, v in itertools.product(range(B), range(n_out)):
+        # constant mode outside adds nothing, but from order 1 a NaN
+        # coordinate adds its NaN weights
+        if not (ok[b, v] or order > 0 and
+                any(np.isnan(ms[h][b, v]) for h in range(naxis))):
+            continue
+        stats["voxels"] += 1
         for t in taps:
             w = weights[0][t[0]][b, v]
             for h in range(1, naxis):
@@ -522,122 +513,7 @@ def _direct_model(g, cc, in_shape, order, mode, plan, item=8):
             idx = tuple(_fold(starts[h][b, v] + t[h], in_shape[h])
                         for h in range(naxis))
             out[b][idx] += gf[b, v] * w
-        stats["atomics"] += nt ** naxis * C
-
-    def lane_merges(b, vs):
-        for v in vs:
-            if any(not abs(ms[h][b, v]) < 2 ** 29 for h in range(naxis)):
-                return False
-            if not np.isfinite(gf[b, v]).all():
-                return False
-        return True
-
-    def runs(b, vs):
-        """The lane's voxels inside, in runs of equal outer first taps."""
-        out_runs = []
-        for v in vs:
-            key = tuple(int(starts[h][b, v]) for h in range(naxis - 1))
-            if out_runs and out_runs[-1][0] == key:
-                out_runs[-1][1].append(v)
-            else:
-                out_runs.append((key, [v]))
-        return [r for _, r in out_runs]
-
-    def merge(b, run):
-        inner = [int(starts[-1][b, v]) for v in run]
-        lo, n = min(inner), in_shape[-1]
-        span = max(inner) - lo + nt
-        # a window no wider than the taps it merges
-        if span - nt > 4 or span > len(run) * nt:
-            for v in run:
-                direct(b, v)
-            return False
-        flat = lo >= 0 and lo + span <= n
-        for t in combos:
-            win = np.zeros((span, C))
-            for v, s0 in zip(run, inner):
-                gw = gf[b, v]
-                for h in range(naxis - 1):
-                    gw = gw * weights[h][t[h]][b, v]
-                for k in range(nt):
-                    win[s0 - lo + k] += gw * weights[-1][k][b, v]
-            outer = tuple(_fold(starts[h][b, run[0]] + t[h], in_shape[h])
-                          for h in range(naxis - 1))
-            for e in range(span):
-                out[b][outer + (int(_fold(lo + e, n)),)] += win[e]
-            at = b * n_in + lo
-            for h in range(naxis - 1):
-                at += int(outer[h]) * int(np.prod(in_shape[h + 1:]))
-            mis = at % vec if vec else 0
-            chunks = -(-(mis + span) // vec) if vec else 0
-            if vec and flat and at - mis >= 0 and \
-                    at - mis + chunks * vec <= B * n_in:
-                stats["atomics"] += chunks
-            else:
-                stats["atomics"] += span * C
-        return True
-
-    def lane_merge(b, seg):
-        """One voxel a lane at order 1: each voxel's taps, a voxel's first
-        innermost tap merged with its left neighbour's second where they
-        are one element (warp shuffles in the kernel)."""
-        take = [ok[b, v] and lane_merges(b, [v]) for v in seg]
-        for v, tk in zip(seg, take):
-            if not tk and (ok[b, v] or any(np.isnan(ms[h][b, v])
-                                           for h in range(naxis))):
-                stats["direct"] += 1
-                direct(b, v)
-            stats["unmerged"] += (ok[b, v] or not tk and any(
-                np.isnan(ms[h][b, v]) for h in range(naxis))) * taps_n * C
-        for i, (v, tk) in enumerate(zip(seg, take)):
-            if not tk:
-                continue
-            stats["merged"] += 1
-            for t in taps:
-                w = weights[0][t[0]][b, v]
-                for h in range(1, naxis):
-                    w = w * weights[h][t[h]][b, v]
-                idx = tuple(_fold(starts[h][b, v] + t[h], in_shape[h])
-                            for h in range(naxis))
-                out[b][idx] += gf[b, v] * w
-            for t in combos:
-                def element(u, k):
-                    return tuple(int(_fold(starts[h][b, u] + t[h],
-                                           in_shape[h]))
-                                 for h in range(naxis - 1)) + \
-                        (int(_fold(starts[-1][b, u] + k, in_shape[-1])),)
-                stats["atomics"] += 2 * C
-                # handed over to the right neighbour: one atomic fewer
-                if i + 1 < len(seg) and take[i + 1] and \
-                        element(v, 1) == element(seg[i + 1], 0):
-                    stats["atomics"] -= C
-
-    taps_n = nt ** naxis
-    row, V = plan.row, plan.voxels
-    if V == 1 and order == 1 and plan.merge:
-        for b in range(B):
-            for r in range(n_out // row):
-                for c0 in range(0, row, plan.lanes):
-                    lane_merge(b, [r * row + c for c in
-                                   range(c0, min(c0 + plan.lanes, row))])
-        return out, stats
-    for b in range(B):
-        for r in range(n_out // row):
-            for c0 in range(0, row, V):
-                vs = [r * row + c0 + k for k in range(min(V, row - c0))]
-                # from order 1 a NaN coordinate adds its NaN weights
-                # outside too
-                ins = [v for v in vs if ok[b, v] or order > 0 and
-                       any(np.isnan(ms[h][b, v]) for h in range(naxis))]
-                stats["unmerged"] += len(ins) * nt ** naxis * C
-                if order > 1 or not lane_merges(b, ins):
-                    stats["direct"] += len(ins)
-                    for v in ins:
-                        direct(b, v)
-                    continue
-                for run in runs(b, ins):
-                    stats["merged" if merge(b, run) else "direct"] += \
-                        len(run)
+            stats["atomics"] += C
     return out, stats
 
 
@@ -671,40 +547,27 @@ def _twin_terms(g, cc, order, mode, in_shape):
 @pytest.mark.parametrize("mode", range(5))
 @pytest.mark.parametrize("case", range(len(DIRECT_SHAPES)))
 def test_direct_model_is_the_twin(case, mode):
-    """The direct route's model at smooth coordinates (merged lanes, folds
-    at both edges) and at random ones (few merge), orders 0 and 1, one and
-    three channels, 1-4 voxels a lane, rows of the whole output and of its
-    innermost axis: the twin's sums, and no more atomics than one per tap
-    and channel."""
+    """The direct route's model at smooth coordinates (taps folded at both
+    edges) and at random ones (up to 25 voxels outside), orders 0 and 1,
+    one and three channels: the twin's sums, with one atomic per tap and
+    channel of the voxels that add."""
     in_shape, out_shape = DIRECT_SHAPES[case]
-    merged = 0
-    # (voxels a lane, the whole output as one row, lanes merged)
-    geometries = ((4, True, False), (3, False, False), (2, True, False),
-                  (1, False, True), (1, True, False))
-    for i, (order, C, smooth) in enumerate(itertools.product(
-            (0, 1), (1, 3), (True, False))):
+    for order, C, smooth in itertools.product((0, 1), (1, 3), (True, False)):
         rs = np.random.RandomState(100 * case + 10 * mode + 4 * order + C)
         cc, g = (_smooth_draws(rs, in_shape, out_shape, C) if smooth else
                  _draws(rs, len(in_shape), in_shape, out_shape, C))
         want, terms = _twin_terms(g, cc, order, mode, in_shape)
-        for voxels, flat, merge in (geometries[i % 5],
-                                    geometries[(i + 2) % 5]):
-            plan = rb._bwd_plan(in_shape, out_shape, C, order, torch.float32,
-                                route="direct", voxels=voxels, flat=flat,
-                                merge=merge)
-            got, st = _direct_model(g, cc, in_shape, order, mode, plan,
-                                    item=4)
-            _close(got, want, terms, (order, C, smooth, voxels, flat, merge))
-            assert st["atomics"] <= st["unmerged"]
-            merged += st["merged"]
-    assert merged > 0
+        got, st = _direct_model(g, cc, in_shape, order, mode)
+        _close(got, want, terms, (order, C, smooth))
+        assert st["atomics"] == st["voxels"] * (order + 1) ** len(
+            in_shape) * C
 
 
 @pytest.mark.parametrize("mode", range(5))
 def test_direct_model_with_affine_is_the_twin(mode):
     """K3's direct route at ``affine(j) + offset + displ`` (its output
-    index stepped voxel by voxel along a lane, across rows in a flat plan)
-    against ``resample_transpose_plain``."""
+    index unravelled from the thread's voxel) against
+    ``resample_transpose_plain``."""
     in_shape, out_shape = (11, 13, 9), (10, 12, 9)
     rs = np.random.RandomState(40 + mode)
     B, naxis = 2, 3
@@ -715,128 +578,66 @@ def test_direct_model_with_affine_is_the_twin(mode):
     displ = torch.as_tensor(rs.standard_normal((B, naxis, *out_shape)) * 0.3)
     offsets = (1, 0, 2)
     cc = torch.stack(sample_coordinates(displ, affine, offsets), 1).numpy()
-    for order, C, flat in itertools.product((0, 1), (1, 3), (True, False)):
+    for order, C in itertools.product((0, 1), (1, 3)):
         g = rs.standard_normal((B, *out_shape, C))
         gt = torch.as_tensor(g)
         want = rb.resample_transpose_plain(gt, displ, affine, offsets, order,
                                            mode, in_shape).numpy()
         terms = rb.resample_transpose_plain(gt.abs(), displ, affine, offsets,
                                             order, mode, in_shape).numpy()
-        for merge in (False, True):
-            plan = rb._bwd_plan(in_shape, out_shape, C, order, torch.float64,
-                                flat=flat, merge=merge)
-            assert plan.route == "direct"
-            got, st = _direct_model(g, cc, in_shape, order, mode, plan)
-            _close(got, want, terms, (order, C, flat, merge))
-            # each voxel's taps, or fewer where neighbouring lanes merge
-            assert st["atomics"] <= st["unmerged"]
-            assert (st["atomics"] < st["unmerged"]) == (merge and order == 1)
+        assert rb._bwd_plan(in_shape, out_shape, C, order,
+                            torch.float64).route == "direct"
+        got, _ = _direct_model(g, cc, in_shape, order, mode)
+        _close(got, want, terms, (order, C))
 
 
 @pytest.mark.parametrize("mode", range(5))
 def test_direct_model_nan_coordinate(mode):
-    """A NaN coordinate or a NaN in g stops its lane's merge; its taps land
-    where the twin puts them (a NaN coordinate's first tap is 0), NaN where
-    NaN, the rest equal to the twin's sums."""
+    """NaN coordinates (one inside, one outside on another axis) and a NaN
+    in g: their taps land where the twin puts them (a NaN coordinate's
+    first tap is 0), NaN where NaN, the rest equal to the twin's sums."""
     in_shape, out_shape = (6, 5, 20), (9, 8, 24)
     rs = np.random.RandomState(mode)
     cc, g = _smooth_draws(rs, in_shape, out_shape, 1)
     cc[0, 1, 4, 3, 5] = np.nan
     cc[1, 2, 2, 2, 9] = np.nan
+    cc[1, 0, 3, 3, 3], cc[1, 1, 3, 3, 3] = -1.5, np.nan
     g[1, 4, 4, 10, 0] = np.nan
     want, terms = _twin_terms(g, cc, 1, mode, in_shape)
     fin = ~np.isnan(want)
-    # one voxel a lane, its lanes merged or not (the three voxels alone),
-    # and a lane of four (their lanes' twelve)
-    for voxels, merge, alone in ((1, True, 3), (1, False, 3), (4, False, 12)):
-        plan = rb._bwd_plan(in_shape, out_shape, 1, 1, torch.float64,
-                            voxels=voxels, merge=merge)
-        got, st = _direct_model(g, cc, in_shape, 1, mode, plan)
-        assert st["direct"] >= alone and st["merged"] > 0
-        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-        _close(got[fin], want[fin], terms[fin])
-
-
-def test_direct_atomics_at_c7_like_coordinates():
-    """Order 1, one channel, 3-D, the identity plus a smooth field of about
-    a voxel (c7's registration warp in small): four voxels a lane merge
-    into about 5 atomics a voxel, not 8 (a run of equal outer taps is cut
-    where a coordinate crosses a tap), and float4 reductions cut that to
-    about 2.3; one voxel a lane, merged with its neighbours, about 4.4."""
-    in_shape = out_shape = (12, 10, 64)
-    rs = np.random.RandomState(7)
-    iota = np.stack(np.meshgrid(*[np.arange(n) for n in out_shape],
-                                indexing="ij"))
-    axes = np.meshgrid(*[np.linspace(0, 1, n) for n in out_shape],
-                       indexing="ij")
-    field = np.stack([np.sin(3 * axes[0] + 2 * axes[1] + 5 * axes[2] + p)
-                      for p in rs.uniform(0, 6, 3)])
-    cc = (iota + field)[None]
-    g = rs.standard_normal((1, *out_shape, 1))
-    want, terms = _twin_terms(g, cc, 1, 0, in_shape)
-    n = np.prod(out_shape)
-    per = {}
-    for vec, V, merge in ((0, 1, False), (0, 1, True), (0, 2, False),
-                          (0, 4, False), (4, 4, False), (2, 4, False)):
-        plan = rb._bwd_plan(in_shape, out_shape, 1, 1, torch.float32,
-                            voxels=V, vec=vec, merge=merge)
-        got, st = _direct_model(g, cc, in_shape, 1, 0, plan, item=4)
-        _close(got, want, terms, (vec, V, merge))
-        per[vec, V] = st["atomics"] / n if not merge else per.get((vec, V))
-        if merge:
-            per["merged"] = st["atomics"] / n
-        assert st["unmerged"] == 8 * n
-    # one voxel a lane: every tap; neighbouring lanes merged, about 4.4
-    assert per[0, 1] == 8
-    assert 4.0 <= per["merged"] <= 4.8
-    assert 5.0 <= per[0, 4] <= 5.6
-    assert per[4, 4] < 2.6 and per[2, 4] < 3.6
+    got, st = _direct_model(g, cc, in_shape, 1, mode)
+    assert st["voxels"] > 0
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    _close(got[fin], want[fin], terms[fin])
 
 
 def test_direct_plan():
-    """The direct route's geometry: one voxel a lane, 32 lanes along one
-    row of the whole output, scalar atomics, no merge; the overrides (a
-    lane's window of 2-4 voxels and its vector reductions, neighbouring
-    lanes merged, which the builds of ``ab_bounds`` take) and their
-    refusals; the blocks a sample."""
+    """The direct route's grid: one thread a voxel, DIRECT_THREADS a block,
+    whatever the order, channels or dtype; the tile route keeps its grid;
+    the C entry point takes no tile arguments."""
     f32, f64 = torch.float32, torch.float64
     p = rb._bwd_plan((9,) * 3, (10, 12, 40), 1, 0, f32)
-    assert (p.route, p.voxels, p.lanes, p.row, p.vec, p.merge) == \
-        ("direct", 1, 32, 4800, 0, False)
-    assert p.blocks == -(-4800 // 256)
-    assert rb._bwd_plan((9,) * 3, (10, 12, 40), 3, 1, f64) == \
-        rb._bwd_plan((9,) * 3, (10, 12, 40), 3, 1, f64, voxels=1, lanes=32,
-                     flat=True, vec=0, merge=False)
+    assert (p.route, p.cap, p.smem) == ("direct", 0, 0)
+    assert p.blocks == -(-4800 // rb.DIRECT_THREADS) == 19
+    assert rb._bwd_plan((9,) * 3, (10, 12, 40), 3, 1, f64).blocks == 19
     hi = rb._bwd_plan((9,) * 3, (10, 12, 40), 1, 3, f32, route="direct")
-    assert (hi.voxels, hi.vec, hi.row) == (1, 0, 4800)
+    assert (hi.route, hi.blocks) == ("direct", 19)
     # a channel count whose one-voxel box exceeds the budget, order 3
     big = rb._bwd_plan((9,) * 3, (9,) * 3, 65, 3, f32)
-    assert (big.route, big.voxels, big.vec) == ("direct", 1, 0)
-    rows = rb._bwd_plan((9,) * 3, (10, 12, 40), 1, 1, f32, flat=False,
-                        lanes=8, voxels=2, vec=2, merge=True)
-    assert (rows.row, rows.lanes, rows.voxels, rows.vec, rows.merge) == \
-        (40, 8, 2, 2, True)
-    # 120 rows, 4 a warp; 40 voxels a row in segments of 16: 3 a row
-    assert rows.blocks == -(-(30 * 3 * 32) // 256)
-    assert rb._bwd_plan((9,), (1100,), 1, 1, f32, lanes=16).row == 1100
-    for bad in (dict(voxels=5), dict(lanes=4), dict(vec=3)):
-        with pytest.raises(ValueError):
-            rb._bwd_plan((9,) * 3, (9,) * 3, 1, 1, f32, **bad)
-    # the tile route keeps its geometry and takes none of these
+    assert (big.route, big.blocks) == ("direct", 3)
+    assert rb._bwd_plan((9,), (1100,), 1, 1, f32).blocks == 5
     t = rb._bwd_plan((9,) * 3, (9,) * 3, 1, 3, f32)
-    assert (t.route, t.voxels, t.row, t.vec, t.merge) == \
-        ("tile", 1, 0, 0, False)
-    assert rb._tile_args(rows) == (120, 40, 2, 3, 2, 1)
-    assert rb._tile_args(p) == (1, 4800, 1, 5, 0, 0)
+    assert (t.route, t.blocks) == ("tile", 8)
+    assert rb._tile_args(p) == ()
+    assert len(rb._tile_args(t)) == 3
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", range(5))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_direct_route_matches_plain(cuda_device, dtype, mode):
-    """The direct kernel of the package's build in three geometries (lanes
-    a row, the whole output or rows) against the twin at smooth
-    coordinates, orders 0 and 1, one and three channels."""
+    """The direct kernel against the twin at smooth coordinates, orders 0
+    and 1, one and three channels."""
     rtol = 1e-5 if dtype == torch.float32 else 1e-10
     for case, order, C in itertools.product(range(len(DIRECT_SHAPES)),
                                             (0, 1), (1, 3)):
@@ -849,9 +650,8 @@ def test_direct_route_matches_plain(cuda_device, dtype, mode):
                                                   in_shape)
         terms = rb.resample_coords_transpose_plain(gt.abs(), ct, order, mode,
                                                    in_shape)
-        for lanes, flat in ((32, True), (8, False), (16, True)):
-            plan = rb._bwd_plan(in_shape, out_shape, C, order, dtype,
-                                route="direct", lanes=lanes, flat=flat)
-            got = rb._launch_k3c(gt, ct, order, mode, in_shape, plan)
-            err = (got.double() - want.double()).abs()
-            assert bool((err <= rtol * terms.double()).all()), plan
+        plan = rb._bwd_plan(in_shape, out_shape, C, order, dtype,
+                            route="direct")
+        got = rb._launch_k3c(gt, ct, order, mode, in_shape, plan)
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= rtol * terms.double()).all()), plan
