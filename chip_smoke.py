@@ -13,10 +13,11 @@ Phases (any failure raises, and the exit code is not 0):
    instantiation's (both routes, every tile width, K2's writeback route),
    K9T's tile instantiations (per dtype, column and fold flag) and
    K1/K1c's, K5/K5c's and K3/K3c's (per dtype, index width, rank and
-   order), K8T's tile instantiations (per dtype and width), K12's
-   select tile (per dtype and column), K9's tile (per dtype and column) and
-   K11's (per dtype, work type, min or max, flat or non-flat and column),
-   which with K8T's must have no stack frame and no spills, and holds
+   order), K8T's and K8's tile instantiations (per dtype and width), K12's
+   select tile (per dtype and column) and network tile (per dtype and wire
+   count), K9's tile (per dtype and column) and K11's (per dtype, work
+   type, min or max, flat or non-flat and column), which must have no
+   stack frame and no spills, and holds
    K2/K4/K6/K7 and
    K9T's tile in float32, K6 and K2's
    writeback route in float64 too, K1/K1c and K5/K5c at orders 1 and 3 in
@@ -61,7 +62,15 @@ Phases (any failure raises, and the exit code is not 0):
    int16 and int32, ``correlate1d`` on K8's direct route,
    ``gaussian_filter`` of a float32 input into int16, ``uniform_filter``,
    ``sobel`` and ``prewitt``) in every mode, 1-D to 3-D and a 512x512
-   image, bit for bit with the CPU run; K8T on both routes (shared-memory
+   image, bit for bit with the CPU run; K8 on both routes (a shared-memory
+   line tile, one thread per output) over every mode and width, lines of 1
+   to the tile cap, 1-41 taps, both orders, c11's, c12's and c13's axes,
+   inputs holding NaN and infinities and a NaN or infinite cval, the tile
+   route bit for bit with the lines route and both against the twin, NaN
+   where NaN (note R12); K12's network route on both routes (a
+   shared-memory halo box with the wires in registers, one thread per
+   voxel) bit for bit with the twin in the eleven dtypes over 3-64 taps,
+   five ranks, every mode and every column; K8T on both routes (shared-memory
    line tiles, one thread per output) over every mode and width, lines of 1
    to the tile cap, 1-41 taps and c11's axes, the tile route bit for bit
    with the lines route and both per element to the twin; K12's select
@@ -87,7 +96,10 @@ Phases (any failure raises, and the exit code is not 0):
    and K9T (the N-D correlation and its transpose) over the five modes and
    the grid aliases, 2-D to 4-D kernels with batch axes and origins; the
    K1/K3, K1c/K3c, K2/K4, K6/K7, K8/K8T and K9/K9T adjoint identities in
-   float64; and, bit for bit in all eleven dtypes (bool, the eight integer
+   float64; K8 and K9 (and K9's two routes, bit for bit) on inputs
+   holding NaN and infinities with a finite, NaN or infinite cval, NaN and
+   infinities where the twins have them; and, bit for bit in all eleven
+   dtypes (bool, the eight integer
    types, float32 and float64 with NaN and infinities), K10 (1-D min/max)
    over sizes 1-15 at every centre, the five modes and every axis, K11
    (footprint min/max) over flat and non-flat 2-D to 4-D footprints with
@@ -133,8 +145,9 @@ Phases (any failure raises, and the exit code is not 0):
    call, 4, 80 and 168, all on the tile route, with its pack and unpack
    launches; K2's, K4's, K6's, K7's, K3's, K3c's, K8T's, K9's, K9T's,
    K11's and K12's launches split by route, the tile route taken, c8's and
-   c9's K6 only there, c11's K8T, c14's K9 and K9T, c15's 5^3 median and
-   c16's K11 on the tile route, no config on K2's writeback route);
+   c9's K6 only there, c11-c13's K8, c11's K8T, c14's K9 and K9T, c15's
+   5^3 median and c16's K11 on the tile route, c15's two network filters
+   on the network tile, no config on K2's writeback route);
    then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
@@ -156,13 +169,16 @@ Phases (any failure raises, and the exit code is not 0):
    and ``grid_sample`` at order 1; one line each for K3 and K3c there: the
    shared-memory adds and the device-memory atomics per second beside P3's
    rate; K8-K9T at
-   the c11, c13 and c14 shapes (K8T per axis with its route, width,
-   shared bytes and waves, every width, a packed tile's direct stores and
-   the lines route, beside ``tensordot`` with M^T per axis); K10 and K11 at
+   the c11, c13 and c14 shapes (K8 and K8T per axis with their route,
+   width, shared bytes and waves, every width and the lines route, beside
+   ``tensordot`` with M or M^T per axis, K8T also with a packed tile's
+   direct stores; K8 on c13's float64 paired passes the same); K10 and K11 at
    the c16 shapes beside ``max_pool3d``, K12 at the c15 shapes on each
-   route (the select route's tile and nd routes)
+   route (the network tile at every column and the old network kernel, the
+   select route's tile and nd routes)
    beside ``torch.kthvalue`` over the unfold windows of the padded volume
-   (3^3 and 5^3), K13's single sweep at the c17
+   (3^3 and 5^3, and the ball's 33 taps gathered from 5^3 windows), K13's
+   single sweep at the c17
    shapes on each route beside ``max_pool3d`` and c17's hole filling per
    call and per sweep on the packed state, on bool bytes and on the nd
    route beside the call's byte bound; K2 per axis at c5 as K4 (route, W, blocks per SM,
@@ -178,7 +194,7 @@ Phases (any failure raises, and the exit code is not 0):
    library-only probes' rates), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel (K2,
-K4, K6, K7, K8T, K9, K9T, K3, K3c, K11, K12 and K13 with their launches
+K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K11, K12 and K13 with their launches
 per route;
 K13 also
 its sweeps and its pack and unpack launches); the last line
@@ -186,14 +202,17 @@ is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
 
-``times_ab(card)`` times K2 at c5, K8T at c11, K12's 5^3 median at c15,
+``times_ab(card)`` times K2 at c5, K8T and K8 at c11, K8 on c13's paired
+passes, K12's 5^3 median, 3^3 median and 33-tap percentile at c15,
 K6 at c8 and c9, K2's integer writeback at c2, K9T and K9 at c14, K11 at
 c16, K3 at c5
 (orders 3 and 1), K3c at c7 and every config
 through the public wrappers only, and
 prints a digest of K6's output bits, so that a copy of this file put into
 an older tree times (and checks) that tree's package in the same call to
-the card.
+the card. ``ab_variants(card)`` builds K12's network tile and K8's tile
+with the build-time variants of ``_AB_VARIANTS`` and times each beside the
+default build.
 """
 
 from __future__ import annotations
@@ -466,6 +485,9 @@ _K12_TILE = re.compile(r"rank_select_tile_kernelI([bhatsjimlfd])Li(\d)E")
 _K9_TILE = re.compile(r"correlate_nd_tile_kernelI([fd])Li(\d)E")
 _K11_TILE = re.compile(r"min_max_tile_kernelI([bhatsjimlfd])([bhatsjimlfd])"
                        r"Lb([01])ELb([01])ELi(\d)E")
+# K8's tile route (dtype, width W) and K12's network tile (dtype, wires)
+_K8_TILE = re.compile(r"correlate1d_tile_kernelI([fd])Li(\d+)E")
+_K12_NET = re.compile(r"rank_network_tile_kernelI([bhatsjimlfd])Li(\d+)E")
 _MANGLED = {"b": "bool", "h": "uint8", "a": "int8", "t": "uint16",
             "s": "int16", "j": "uint32", "i": "int32", "m": "uint64",
             "l": "int64", "f": "float32", "d": "float64"}
@@ -613,6 +635,12 @@ def phase_build():
     _check_tile_table(
         "K8T tile", _build.build_logs["filters"], _K8T_TILE, 6,
         lambda dt, w: f"{_MANGLED[dt]} W={w}")
+    _check_tile_table(
+        "K8 tile", _build.build_logs["filters"], _K8_TILE, 6,
+        lambda dt, w: f"{_MANGLED[dt]} W={w}")
+    _check_tile_table(
+        "K12 network tile", _build.build_logs["morphology"], _K12_NET, 55,
+        lambda dt, n: f"{_MANGLED[dt]} {n} wires")
     _check_k13_ptxas(_build.build_logs["morphology"])
     _check_tile_table(
         "K12 select tile", _build.build_logs["morphology"], _K12_TILE, 22,
@@ -807,11 +835,13 @@ def phase_kernels():
     _check_k9_routes(rs)
     _check_k9t_routes(rs, worst)
     _check_k8t_routes(rs, worst)
+    _check_k8_routes(rs, worst)
     _check_filter_kernels(rs, worst)
     _check_morph_outputs(rs)
     _check_morph_kernels(rs)
     _check_k11_routes(rs, torch.device("cuda"))
     _check_k12_routes(rs, torch.device("cuda"))
+    _check_k12_network_routes(rs, torch.device("cuda"))
     return worst
 
 
@@ -1866,7 +1896,7 @@ def _check_k8t_routes(rs, worst):
                                                    mode, c)
             tol = _terms_tol(dtype, terms)
             e = ft._k8t_edges(ln, L, c, mode)
-            plan = ft._line_transpose_plan(outer, ln, inner, dtype, L,
+            plan = ft._line_plan(outer, ln, inner, dtype, L,
                                            len(e.table))
             # past the cap the lines route; at the cap a column tile leaves
             # no room for the taps and the table, so either
@@ -1890,7 +1920,7 @@ def _check_k8t_routes(rs, worst):
             if plan.route == "tile":
                 for W in pf.TILE_WIDTHS:
                     t = ft._launch_line_transpose(
-                        g, w, axis, mode, c, ft._line_transpose_plan(
+                        g, w, axis, mode, c, ft._line_plan(
                             outer, ln, inner, dtype, L, len(e.table),
                             width=W))
                     torch.cuda.synchronize()
@@ -1919,6 +1949,234 @@ def _check_k8t_routes(rs, worst):
           f"cap, inner 1-100, 1-41 taps, c11's axes, every mode; both within "
           f"1e-5 of the sum of their absolute terms of the twin ({exact} "
           f"equal to it); the K8/K8T adjoint identity holds in float64")
+
+
+def _nonfinite(rs, shape, dtype, dev, scale=50.0):
+    """Seeded values of a float ``dtype`` with about 3% NaN and 2% each of
+    +inf and -inf (note R12's draws)."""
+    import torch
+    a = rs.randn(*shape) * scale
+    a[rs.rand(*shape) < 0.03] = np.nan
+    a[rs.rand(*shape) < 0.02] = np.inf
+    a[rs.rand(*shape) < 0.02] = -np.inf
+    return torch.as_tensor(a, dtype=dtype, device=dev)
+
+
+def _close_nonfinite(got, want, rtol, atol, what):
+    """NaN where ``want`` has NaN, the same infinities, and the finite
+    positions within ``atol + rtol |want|``; returns their largest
+    difference."""
+    import torch
+    nan, inf = torch.isnan(want), torch.isinf(want)
+    if not torch.equal(torch.isnan(got), nan) or \
+            not torch.equal(torch.isinf(got), inf) or \
+            not torch.equal(got[inf], want[inf]):
+        raise AssertionError(
+            f"{what}: NaN or infinities differ from the twin's: "
+            f"{int((torch.isnan(got) != nan).sum())} NaN, "
+            f"{int((torch.isinf(got) != inf).sum())} inf")
+    fin = torch.isfinite(want)
+    return _assert_close(got[fin], want[fin], rtol, atol, what)
+
+
+def _check_k8_routes(rs, worst):
+    """K8 on both routes: the tile route at every width (W 32/64/128) bit
+    for bit with the lines route (a zero's sign too, NaN where NaN), both
+    against the twin (NaN and infinities where the twin has them, finite
+    values at float32 rtol=1e-5, atol=1e-5*S, float64 1e-10, S = max of
+    the finite |x| times sum|w|), the wrapper on the plan's route and its
+    count; over the five modes, lines of 1, 2, 9, 100, 224 and the tile cap
+    (and one past it, which takes the lines route), inner 1, 3, 33, 64 and
+    100, 1-41 taps at the first, middle and last centre, the direct order
+    and the paired order (symmetric and antisymmetric taps), float32 and
+    float64, finite inputs and inputs holding NaN and infinities, cval 1.5,
+    NaN, +inf or -inf; c11's and c12's three axes in every mode and c13's
+    float64 paired passes (mirror); a repeated call uploads nothing (its
+    taps and table come from the cache)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    dev = torch.device("cuda")
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        cap = pf.tile_cap(dtype)
+        for n, inner in ((1, 64), (2, 3), (9, 1), (9, 33), (100, 100),
+                         (224, 1), (cap, 1), (cap, 64), (cap + 1, 3)):
+            outer = max(1, min(6, 40000 // (n * inner)))
+            cases.append(((outer, n, inner), 1, dtype, MODES))
+    cases += [((3, 160, 192, 224), a, torch.float32, MODES)
+              for a in (1, 2, 3)]
+    cases += [((160, 192, 224), a, torch.float32, ("nearest",))
+              for a in (0, 1, 2)]
+    cases += [((512, 512, 300), a, torch.float64, ("mirror",))
+              for a in (0, 1, 2)]
+    n = exact = 0
+    for shape, axis, dtype, modes in cases:
+        big = math.prod(shape) > 10 ** 6
+        for mode in modes:
+            finite = n % 2 == 0
+            x = torch.as_tensor(rs.randn(*shape) * 50, dtype=dtype,
+                                device=dev) if finite else \
+                _nonfinite(rs, shape, dtype, dev)
+            outer, ln, inner = pf._lines(x, axis)
+            kernels = ((9, 4, 1),) if shape[0] == 512 else \
+                ((17, 8, 0), (13, 6, 1)) if big else \
+                ((1, 0, 0), (4, 0, 0), (4, 3, 0), (17, 8, 0), (9, 4, 1),
+                 (9, 4, -1), (41, 20, 0), (41, 40, 0))
+            for L, c, pair in kernels:
+                w = rs.randn(L)
+                if pair:
+                    w = w + w[::-1] if pair > 0 else w - w[::-1]
+                    w[L // 2] = 0.3 if pair > 0 else 0.0
+                cval = (1.5, np.nan, np.inf, -np.inf)[n % 4]
+                what = (f"K8 {dtype} {mode} shape={shape} axis={axis} "
+                        f"taps={L} centre={c} pair={pair} cval={cval} "
+                        f"{'finite' if finite else 'non-finite'}")
+                fin = x[torch.isfinite(x)]
+                scale = (float(fin.abs().max()) if fin.numel() else 1.0) * \
+                    float(np.abs(w).sum())
+                e = ft._k8_edges(ln, L, c, mode)
+                plan = ft._line_plan(outer, ln, inner, dtype, L,
+                                     len(e.table))
+                if (ln > pf.tile_cap(dtype)) != (plan.route == "lines") and \
+                        (ln <= 224 or ln > pf.tile_cap(dtype)):
+                    raise AssertionError(f"{what}: plan {plan}")
+                before = dict(ft.correlate1d.routes)
+                got = ft.correlate1d(x, w, axis, mode, cval, c, pair)
+                if ft.correlate1d.routes[plan.route] != \
+                        before[plan.route] + 1:
+                    raise AssertionError(f"{what}: the wrapper did not "
+                                         f"count a {plan.route} launch")
+                lines = ft._launch_line(x, w, axis, mode, cval, c, pair,
+                                        ft.LinePlan("lines"))
+                want = ft.correlate1d_plain(x, w, axis, mode, cval, c, pair)
+                torch.cuda.synchronize()
+                _same(got, lines, f"{what}: the plan's route vs the lines "
+                      "route")
+                worst["correlate1d"] = max(
+                    worst["correlate1d"], _close_nonfinite(
+                        got, want, *_tol(dtype, scale), f"{what} vs plain"))
+                nan = torch.isnan(want)
+                exact += int(torch.equal(
+                    _bits(torch.where(nan, torch.zeros_like(got), got)),
+                    _bits(torch.where(nan, torch.zeros_like(want), want))))
+                if plan.route == "tile" and not big:
+                    for W in pf.TILE_WIDTHS:
+                        t = ft._launch_line(
+                            x, w, axis, mode, cval, c, pair, ft._line_plan(
+                                outer, ln, inner, dtype, L, len(e.table),
+                                width=W))
+                        torch.cuda.synchronize()
+                        _same(t, lines, f"{what} W={W}: the tile route vs "
+                              "the lines route")
+                        n += 1
+                n += 1
+                del got, lines, want
+            del x
+    # a repeated call uploads nothing: its taps and table come from the cache
+    x = torch.as_tensor(rs.randn(3, 40, 50), dtype=torch.float32, device=dev)
+    w = rs.randn(9)
+    ft.correlate1d(x, w, 1, "mirror", 0.0, 4)
+    misses = ft._k8_tables.cache_info().misses
+    ft.correlate1d(x, w, 1, "mirror", 0.0, 4)
+    ft._launch_line(x, w, 1, "mirror", 0.0, 4, 0, ft.LinePlan("lines"))
+    if ft._k8_tables.cache_info().misses != misses:
+        raise AssertionError("K8 uploaded its taps again at a repeated call")
+    print(f"K8 tile route (W {'/'.join(map(str, pf.TILE_WIDTHS))}) bit for "
+          f"bit with the lines route in {n} launches (NaN where NaN), lines 1 "
+          f"to the tile cap, inner 1-100, 1-41 taps, both orders, c11's, "
+          f"c12's and c13's axes, every mode, inputs with NaN and "
+          f"infinities, cval 1.5 / NaN / +-inf; both against the twin, NaN "
+          f"and infinities where it has them ({exact} cases bit for bit); a "
+          f"repeated call uploads nothing")
+
+
+def _check_k12_network_routes(rs, dev):
+    """K12's network route on both routes: the network tile at every column
+    (C 1/2/4) bit for bit with the old network kernel and the twin (a
+    zero's sign too, NaN where NaN) and the wrapper on the network tile and
+    its count, in the eleven dtypes (floats with NaN, infinities and zeros
+    of both signs, integers over their range or a pool of ties), 3-64 taps
+    (every wire count of the tile: a 3-tap line, 2x2, 2x2x2, 4x4, a 5x5
+    plane, 3^3, a ball of radius 2, 4^3, a sparse footprint, a batch
+    axis), ranks 0, 1, middle, k - 2 and k - 1, the five modes with a
+    raw-dtype ``cval``, 1-D to 3-D; c15's 3^3 median and 33-tap percentile
+    at its shape; a repeated call uploads nothing (its tables come from the
+    caches)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    fps = (np.ones(3, bool), np.ones((2, 2), bool), np.ones((2, 2, 2), bool),
+           np.ones((4, 4), bool), np.ones((5, 5), bool),
+           np.ones((3, 3, 3), bool), _ball(2), np.ones((4, 4, 4), bool),
+           rs.rand(3, 4, 5) > 0.4, np.ones((1, 3, 3, 3), bool))
+    shapes = {1: (150,), 2: (23, 37), 3: (9, 10, 35), 4: (2, 5, 9, 40)}
+    n = launches = 0
+    for i, dtype in enumerate(_morph_dtypes()):
+        for j, fp in enumerate(fps):
+            k = int(fp.sum())
+            shape = shapes[fp.ndim]
+            x = _rand_volume(rs, shape, dtype, dev)
+            for rank in sorted({0, 1, k // 2, k - 2, k - 1}):
+                mode = MODES[n % 5]
+                centers = [int(rs.randint(0, q)) for q in fp.shape]
+                cval = _cval_for(rs, dtype)
+                args = (x, fp, centers, mode, cval, rank)
+                what = f"K12 network {dtype} {mode} shape={shape} taps={k} " \
+                    f"rank={rank} centres={centers}"
+                plan = mo._rank_plan(shape, fp.shape, dtype, k)
+                if plan.route != "network_tile":
+                    raise AssertionError(f"{what}: plan {plan}")
+                before = dict(mo.rank_filter.routes)
+                got = mo.rank_filter(*args)
+                if mo.rank_filter.routes["network_tile"] != \
+                        before["network_tile"] + 1:
+                    raise AssertionError(f"{what}: the wrapper did not count "
+                                         "a network_tile launch")
+                old = mo._launch_rank(*args, mo._rank_plan(
+                    shape, fp.shape, dtype, k, route="network"))
+                want = mo.rank_filter_plain(*args)
+                torch.cuda.synchronize()
+                _same(got, want, f"{what} network tile vs plain")
+                _same(old, want, f"{what} network route vs plain")
+                for col in (1, 2, 4):
+                    t = mo._launch_rank(*args, mo._rank_plan(
+                        shape, fp.shape, dtype, k, column=col))
+                    torch.cuda.synchronize()
+                    _same(t, old, f"{what} C={col} vs the network route")
+                    launches += 1
+                n += 1
+    # c15's two network filters at its shape, with NaN and zeros of both
+    # signs
+    S = (160, 192, 224)
+    x = _rand_volume(rs, S, torch.float32, dev)
+    for fp, rank in ((np.ones((3, 3, 3), bool), 13), (_ball(2), 6)):
+        k = int(fp.sum())
+        c = [q // 2 for q in fp.shape]
+        args = (x, fp, c, "reflect", 0.0, rank)
+        got = mo.rank_filter(*args)
+        _same(got, mo._launch_rank(*args, mo._rank_plan(
+            S, fp.shape, x.dtype, k, route="network")),
+            f"K12 network tile at c15's shape, {k} taps, vs the network "
+            "route")
+        _same(got, mo.rank_filter_plain(*args),
+              f"K12 network tile at c15's shape, {k} taps, vs plain")
+        n += 1
+    # a repeated call uploads nothing: its tables come from the caches
+    x = _rand_volume(rs, (9, 10, 35), torch.float32, dev)
+    caches = (mo._tile_tables, mo._network_mask)
+    fp = np.ones((3, 3, 3), bool)
+    mo.rank_filter(x, fp, [1, 1, 1], "reflect", 0.0, 13)
+    misses = [f.cache_info().misses for f in caches]
+    mo.rank_filter(x, fp, [1, 1, 1], "reflect", 0.0, 13)
+    if [f.cache_info().misses for f in caches] != misses:
+        raise AssertionError("K12's network tile uploaded its tables again "
+                             "at a repeated call")
+    print(f"K12 network route: the network tile (C 1/2/4, {launches} forced "
+          f"launches) bit for bit with the old network kernel and the twin in "
+          f"{n} cases (eleven dtypes with NaN, infinities and zeros of both "
+          f"signs, 3-64 taps, ranks 0, 1, middle, k - 2, k - 1, every mode, "
+          f"1-D to 3-D and a batch axis, c15's two filters at its shape); a "
+          f"repeated call uploads nothing")
 
 
 def _check_k12_routes(rs, dev):
@@ -2054,6 +2312,28 @@ def _check_k9_routes(rs):
             launches += 1
         n += 1
         del x, want, got, nd
+    # note R12: inputs holding NaN and infinities, a NaN or infinite cval;
+    # both routes and the twin NaN where NaN, bit for bit elsewhere
+    for (shape, w, centers), dtype, mode in itertools.product(
+            cases, (torch.float32, torch.float64), MODES):
+        if math.prod(shape) > 10 ** 6 and (dtype == torch.float64 or
+                                           mode != "constant"):
+            continue    # c14's shapes: float32 in constant mode
+        x = _nonfinite(rs, shape, dtype, dev)
+        cval = (np.nan, np.inf, -np.inf)[n % 3]
+        what = f"K9 {dtype} {mode} cval={cval} shape={shape} " \
+            f"kernel={w.shape}, non-finite"
+        got = ft.correlate_nd(x, w, centers, mode, cval)
+        nd = ft._launch_correlate_nd(x, w, centers, mode, cval,
+                                     ft._nd_plan(shape, w.shape, dtype,
+                                                 route="nd"))
+        want = ft.correlate_nd_plain(x, w, centers, mode, cval)
+        torch.cuda.synchronize()
+        _same(got, want, f"{what}: the tile route vs the twin")
+        _same(nd, want, f"{what}: the nd route vs the twin")
+        launches += 2
+        n += 1
+        del x, got, nd, want
     # a repeated call uploads nothing: its tables come from the caches
     x = torch.as_tensor(rs.randn(9, 10, 11), device=dev)
     for route in ("tile", "nd"):
@@ -2069,8 +2349,9 @@ def _check_k9_routes(rs):
     print(f"K9 tile route (C {'/'.join(map(str, ft.TILE_COLUMNS))}) and nd "
           f"route bit for bit with the twin and each other in {n} cases, "
           f"{launches} launches (c14's shapes in every mode, 2-D, rank 4, "
-          f"1-D, sparse and long kernels, float32 and float64); repeated "
-          f"calls upload nothing")
+          f"1-D, sparse and long kernels, float32 and float64; inputs "
+          f"holding NaN and infinities with a NaN or infinite cval, NaN where "
+          f"NaN); repeated calls upload nothing")
 
 
 def _check_k11_routes(rs, dev):
@@ -2345,6 +2626,45 @@ def _check_filter_kernels(rs, worst):
           f"correlate_nd_transpose within "
           f"{worst['correlate_nd_transpose']:.3e}; the K9/K9T adjoint "
           f"identity holds in float64 ({n // 2} cases)")
+
+    # note R12: inputs holding NaN and infinities, and a NaN or infinite
+    # cval; K8 and K9 give NaN and infinities where their twins do (SciPy's
+    # rule: a non-finite value reaches only the outputs whose taps read it)
+    n = 0
+    for dtype, mode, cval in itertools.product(
+            (torch.float32, torch.float64), modes,
+            (1.5, np.nan, np.inf, -np.inf)):
+        for shape in ((37, 300), (7, 33, 9)):
+            x = _nonfinite(rs, shape, dtype, dev)
+            fin = x[torch.isfinite(x)]
+            for axis, L in itertools.product(range(len(shape)), (1, 4, 17)):
+                w = rs.randn(L)
+                scale = float(fin.abs().max()) * float(np.abs(w).sum())
+                for c in sorted({0, L // 2, L - 1}):
+                    got = ft.correlate1d(x, w, axis, mode, cval, c)
+                    want = ft.correlate1d_plain(x, w, axis, mode, cval, c)
+                    torch.cuda.synchronize()
+                    worst["correlate1d"] = max(
+                        worst["correlate1d"], _close_nonfinite(
+                            got, want, *_tol(dtype, scale),
+                            f"K8 {dtype} {mode} cval={cval} shape={shape} "
+                            f"axis={axis} taps={L} centre={c}, non-finite"))
+                    n += 1
+            w = rs.randn(*((3, 4) if len(shape) == 2 else (3, 2, 5)))
+            centers = tuple(int(rs.randint(0, k)) for k in w.shape)
+            got = ft.correlate_nd(x, w, centers, mode, cval)
+            want = ft.correlate_nd_plain(x, w, centers, mode, cval)
+            torch.cuda.synchronize()
+            scale = float(fin.abs().max()) * float(np.abs(w).sum())
+            worst["correlate_nd"] = max(
+                worst["correlate_nd"], _close_nonfinite(
+                    got, want, *_tol(dtype, scale),
+                    f"K9 {dtype} {mode} cval={cval} shape={shape} "
+                    f"kernel={w.shape}, non-finite"))
+            n += 1
+    print(f"K8 and K9 on inputs holding NaN and infinities and with cval "
+          f"1.5, NaN, +inf or -inf: {n} cases give NaN and infinities where "
+          f"their twins do, the finite values within the tolerances above")
 
 
 # morphology dtypes, in the kernels' order
@@ -3176,15 +3496,19 @@ _EXACT_LAUNCHES = {
             "binary_step": 0},
     "c16": {"min_max_filter1d": 6, "min_max_filter": 3, "rank_filter": 0,
             "binary_step": 0}}
-# the launches per route of c11's K8T (one per spatial axis), c14's K9
-# (correlate and convolve) and K9T, c15's K12 (3^3 median and the 33-tap
-# percentile on the network route, the 5^3 median on the select route's
-# tile) and c16's K11 (the top-hat's erosion and dilation, the non-flat
-# dilation)
-_TILE_ROUTES = (("c11", "correlate1d_transpose", {"tile": 3, "lines": 0}),
+# the launches per route of c11's K8 and K8T (one each per spatial axis),
+# c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
+# (3^3 median and the 33-tap percentile on the network tile, the 5^3
+# median on the select route's tile) and c16's K11 (the top-hat's erosion
+# and dilation, the non-flat dilation)
+_TILE_ROUTES = (("c11", "correlate1d", {"tile": 3, "lines": 0}),
+                ("c11", "correlate1d_transpose", {"tile": 3, "lines": 0}),
+                ("c12", "correlate1d", {"tile": 18, "lines": 0}),
+                ("c13", "correlate1d", {"tile": 6, "lines": 0}),
                 ("c14", "correlate_nd", {"tile": 2, "nd": 0}),
                 ("c14", "correlate_nd_transpose", {"tile": 1, "nd": 0}),
-                ("c15", "rank_filter", {"network": 2, "tile": 1, "nd": 0}),
+                ("c15", "rank_filter", {"network_tile": 2, "network": 0,
+                                        "tile": 1, "nd": 0}),
                 ("c16", "min_max_filter", {"tile": 3, "nd": 0}))
 # c17's K13 sweeps per call (the fixpoints' counts of the seeded
 # segmentation, as every PR since PR 5 measured them) and its (pack, unpack)
@@ -3323,14 +3647,16 @@ def phase_main_path():
     print(f"main path launches per config: {json.dumps(launches)}")
     print(f"main path launches per route: {json.dumps(routes)}")
     shown = ("spline_prefilter", "spline_prefilter_bc", "resample_bwd",
-             "resample_coords_bwd", "correlate1d_transpose", "correlate_nd",
-             "correlate_nd_transpose", "min_max_filter", "rank_filter")
-    print("K2's, K6's, K3's, K3c's, K8T's, K9's, K9T's, K11's and K12's "
-          "launches per route and config: " + json.dumps(
+             "resample_coords_bwd", "correlate1d", "correlate1d_transpose",
+             "correlate_nd", "correlate_nd_transpose", "min_max_filter",
+             "rank_filter")
+    print("K2's, K6's, K3's, K3c's, K8's, K8T's, K9's, K9T's, K11's and "
+          "K12's launches per route and config: " + json.dumps(
               {name: {k: r[k] for k in shown if sum(r[k].values())}
                for name, r in cfg_routes.items()}))
-    # c11's three K8T launches, c14's K9 and K9T, c15's 5^3 median and c16's
-    # K11 take the tile route
+    # c11-c13's K8 launches, c11's three K8T launches, c14's K9 and K9T,
+    # c15's network filters and 5^3 median and c16's K11 take the tile
+    # routes
     for name, k, want in _TILE_ROUTES:
         if cfg_routes[name][k] != want:
             raise AssertionError(f"{name}: {k}'s launches per route "
@@ -4284,12 +4610,77 @@ def _times_resampler(row, card, k1_lines, k3_lines):
           f"bound {b3[0]:.4f} ms by {b3[1]} [{card}]")
 
 
+def _k8_axes(label, x, w, c, mode, cval, pair, axes, card, mats=None):
+    """K8 per axis of ``x`` (``w``, centre ``c``, ``mode``, ``pair``): the
+    plan's route, width, shared bytes and waves, its ms, every width's, the
+    lines route's and, with ``mats``, the banded ``tensordot`` with that
+    axis' matrix, beside the axis' byte bound; the tile route held to the
+    lines route bit for bit first. Returns the per-axis lists."""
+    import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    L = len(w)
+    lines_plan = ft.LinePlan("lines")
+    out = {"axis_ms": [], "lines_route_axis_ms": [], "axis_tensordot_ms": [],
+           "widths": [], "width_ms": []}
+    item = x.element_size()
+    axis_bound = _bound(2 * x.numel() * item, x.numel() * 2 * L,
+                        FP32_FLOPS if item == 4 else FP64_FLOPS)
+    for a in axes:
+        outer, n, inner = pf._lines(x, a)
+        e = ft._k8_edges(n, L, c, mode)
+        p = ft._line_plan(outer, n, inner, x.dtype, L, len(e.table))
+        if not torch.equal(_bits(ft.correlate1d(x, w, a, mode, cval, c, pair)),
+                           _bits(ft._launch_line(x, w, a, mode, cval, c,
+                                                 pair, lines_plan))):
+            raise AssertionError(f"K8 at {label} shapes, axis {a}: the tile "
+                                 "route differs from the lines route")
+        ms = _time_ms(lambda a=a: ft.correlate1d(x, w, a, mode, cval, c,
+                                                 pair))
+        lines_ms = _time_ms(lambda a=a: ft._launch_line(
+            x, w, a, mode, cval, c, pair, lines_plan))
+        every = {}
+        for W in pf.TILE_WIDTHS:
+            try:
+                q = ft._line_plan(outer, n, inner, x.dtype, L, len(e.table),
+                                  width=W)
+            except ValueError:
+                continue
+            every[W] = _time_ms(lambda q=q, a=a: ft._launch_line(
+                x, w, a, mode, cval, c, pair, q))
+        lib_ms = None
+        if mats is not None:
+            m = mats[a]
+            lib_ms = _time_ms(lambda a=a, m=m: torch.movedim(
+                torch.tensordot(m, x, dims=([1], [a])), 0, a))
+        out["axis_ms"].append(ms)
+        out["lines_route_axis_ms"].append(lines_ms)
+        out["axis_tensordot_ms"].append(lib_ms)
+        out["widths"].append(p.tile.width if p.route == "tile" else None)
+        out["width_ms"].append(every)
+        t = p.tile
+        print(f"correlate1d at {label} shapes {tuple(x.shape)} {x.dtype}, "
+              f"{L} taps, {'paired' if pair else 'direct'} order, axis {a}: "
+              f"{p.route} route"
+              + (f" W={t.width} {'packed' if t.packed else 'columns'}"
+                 f"{', outputs gathered' if p.gather else ''}, {p.smem} B "
+                 f"shared, {t.blocks} blocks, {ft.line_waves(p, 132)} waves"
+                 if p.route == "tile" else "")
+              + f"; {ms:.4f} ms (every width {json.dumps(every)}, lines "
+              f"route {lines_ms:.4f}"
+              + (f", tensordot {lib_ms:.4f}" if lib_ms is not None else "")
+              + f", bound {axis_bound[0]:.4f} by {axis_bound[1]}) [{card}]")
+    out["axis_bound_ms"] = axis_bound[0]
+    return out
+
+
 def _times_filters(row, card):
     """Phase 4 for the filter tier: K8 and K8T along the three spatial axes
     of c11's field (sigma 2, 17 taps, reflect) beside the JAX package's
     formulation (a banded-matrix ``tensordot`` per axis, the library time)
     and ``conv3d`` with an (L,1,1), (1,L,1), (1,1,L) kernel under zero
-    padding; K8 in float64 on the paired route at c13's shapes; K9 and K9T
+    padding, K8 per axis on each route and at every width (:func:`_k8_axes`);
+    K8 in float64 on the paired route at c13's shapes, the same; K9 and K9T
     at c14's shapes (5^3 kernel, constant) beside ``conv3d`` and
     ``conv_transpose3d`` (zero padding), K9 on each route and at every
     column, also for c14's 3^3 convolve of a batch of two. cuDNN's TF32 is
@@ -4345,17 +4736,28 @@ def _times_filters(row, card):
                         chain(lambda y, a: ft.correlate1d_plain(
                             y, w, a, "reflect", 0.0, c), (1, 2, 3))(),
                         *_tol(torch.float32, scale), "K8 at c11 shapes")
-    per_axis = [_time_ms(lambda a=a: k8(f, a)) for a in (1, 2, 3)]
+    k8_axes = _k8_axes("c11", f, w, c, "reflect", 0.0, 0, (1, 2, 3), card,
+                       mats)
     conv_ms = _time_ms(conv_chain)
-    print(f"correlate1d per-axis ms at (3, 160, 192, 224) f32, 17 taps, "
-          f"axes 1/2/3: {per_axis}; conv3d (zero padding) chain "
+    lines_plan = ft.LinePlan("lines")
+    print(f"correlate1d conv3d (zero padding) chain at c11 shapes "
           f"{conv_ms:.4f} ms [{card}]")
+    # K8 on c13's paired route: float64, sigma 1 (9 taps), mirror
+    v = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)),
+                        dtype=torch.float64, device=dev)
+    w1 = ft.gaussian_weights(1.0, 0, 4.0, None)
+    k13 = _k8_axes("c13", v, w1, 4, "mirror", 0.0, 1, (0, 1, 2), card)
+    del v
     row("correlate1d", "filters.cu", "elasticdeform_tpu/ops/filters.py:125",
         _time_ms(chain(k8, (1, 2, 3))),
         _time_ms(chain(lambda y, a: ft.correlate1d_plain(
             y, w, a, "reflect", 0.0, c), (1, 2, 3))), bound,
-        _time_ms(chain(mat, (1, 2, 3))), err, at="c11",
-        extra={"conv3d_ms": conv_ms, "axis_ms": per_axis})
+        _time_ms(chain(lambda y, a: mat(y, a), (1, 2, 3))), err, at="c11",
+        extra={"conv3d_ms": conv_ms, **k8_axes,
+               "lines_route_ms": _time_ms(chain(
+                   lambda y, a: ft._launch_line(y, w, a, "reflect", 0.0, c,
+                                                0, lines_plan), (1, 2, 3))),
+               "c13_paired_float64": k13})
     g = f
     terms = chain(lambda y, a: ft.correlate1d_transpose_plain(
         y.abs(), np.abs(w), a, "reflect", c), (3, 2, 1))()
@@ -4374,7 +4776,7 @@ def _times_filters(row, card):
     for a in (1, 2, 3):
         outer, n, inner = pf._lines(g, a)
         e = ft._k8t_edges(n, L, c, "reflect")
-        plans.append(ft._line_transpose_plan(outer, n, inner, g.dtype, L,
+        plans.append(ft._line_plan(outer, n, inner, g.dtype, L,
                                              len(e.table)))
         if not torch.equal(_bits(k8t(g, a)), _bits(ft._launch_line_transpose(
                 g, w, a, "reflect", c, lines_plan))):
@@ -4389,7 +4791,7 @@ def _times_filters(row, card):
         e = ft._k8t_edges(n, L, c, "reflect")
         every = {}
         for W in pf.TILE_WIDTHS:
-            q = ft._line_transpose_plan(outer, n, inner, g.dtype, L,
+            q = ft._line_plan(outer, n, inner, g.dtype, L,
                                         len(e.table), width=W)
             every[W] = _time_ms(lambda q=q, a=a: ft._launch_line_transpose(
                 g, w, a, "reflect", c, q))
@@ -4403,7 +4805,7 @@ def _times_filters(row, card):
         print(f"correlate1d_transpose at c11 shapes, axis {a}: {p.route} "
               f"route W={t.width} {'packed' if t.packed else 'columns'}"
               f"{', outputs gathered' if p.gather else ''}, {p.smem} B "
-              f"shared, {t.blocks} blocks, {ft.k8t_waves(p, 132)} waves; "
+              f"shared, {t.blocks} blocks, {ft.line_waves(p, 132)} waves; "
               f"{ms:.4f} ms (every width {json.dumps(every)}, lines route "
               f"{lines_ms:.4f}, tensordot with M^T {lib_ms:.4f}, bound "
               f"{axis_bound:.4f} by bytes) [{card}]")
@@ -4422,18 +4824,6 @@ def _times_filters(row, card):
                          "widths": [p.tile.width for p in plans],
                          "width_ms": widths})
     del f, g, mats
-
-    # K8 on c13's paired route: float64, sigma 1 (9 taps), mirror
-    v = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)),
-                        dtype=torch.float64, device=dev)
-    w1 = ft.gaussian_weights(1.0, 0, 4.0, None)
-    k13 = [_time_ms(lambda a=a: ft.correlate1d(v, w1, a, "mirror", 0.0, 4, 1))
-           for a in (0, 1, 2)]
-    b13 = _bound(2 * v.numel() * 8, v.numel() * 2 * len(w1), FP64_FLOPS)
-    print(f"correlate1d float64 paired route at (512, 512, 300), 9 taps, "
-          f"per-axis ms 0/1/2: {k13}; bound per axis {b13[0]:.4f} ms by "
-          f"{b13[1]} [{card}]")
-    del v
 
     # K9 and K9T at c14's shapes
     x = torch.as_tensor(rs.rand(*S).astype(np.float32), device=dev)
@@ -4666,17 +5056,39 @@ def _times_morphology(row, card, k13=None):
             r["nd_route_ms"] = _time_ms(
                 lambda a=args: mo._launch_rank(*a, nd_plan), reps=3)
             r.update(box=plan.box, smem=plan.smem, blocks=plan.blocks)
-        if all(n == 3 or n == 5 for n in fp.shape) and fp.all():
-            # the library yardstick: kthvalue over the unfold windows of
-            # the padded volume (built once, not timed); values compared on
-            # this finite volume (kthvalue has its own NaN rule)
+        if plan.route == "network_tile":
+            # the old kernel (the network route) and every column
+            net = mo._rank_plan(S, fp.shape, x.dtype, k, route="network")
+            _same(mo._launch_rank(*args, net), want,
+                  f"K12 {label} at c15 shapes, network route")
+            r["network_route_ms"] = _time_ms(
+                lambda a=args: mo._launch_rank(*a, net), reps=5)
+            cols = {}
+            for q in (1, 2, 4):
+                cp = mo._rank_plan(S, fp.shape, x.dtype, k, column=q)
+                cols[q] = _time_ms(lambda a=args, cp=cp:
+                                   mo._launch_rank(*a, cp))
+            r.update(column=plan.column, column_ms=cols, box=plan.box,
+                     smem=plan.smem, blocks=plan.blocks,
+                     comparators=len(mo._rank_network(k, rank)[1]),
+                     live=int(sum(bin(int(u)).count("1")
+                                  for u in mo._network_live(k, rank))))
+        if fp.all() or k == 33:
+            # the library yardstick: kthvalue over the windows of the padded
+            # volume (the unfold windows, the ball's 33 taps gathered from
+            # them; built once, not timed); values compared on this finite
+            # volume (kthvalue has its own NaN rule)
             xp = x
             for a in range(3):
                 xp = ft.pad_axis(xp, a, c[a], c[a], "reflect", 0.0)
             win = xp.unfold(0, fp.shape[0], 1).unfold(
                 1, fp.shape[1], 1).unfold(2, fp.shape[2], 1).reshape(
-                *S, k).contiguous()
+                *S, fp.size)
             del xp
+            if not fp.all():
+                win = win[..., torch.as_tensor(np.flatnonzero(fp),
+                                               device=dev)]
+            win = win.contiguous()
             if not torch.equal(torch.kthvalue(win, rank + 1, dim=-1).values,
                                want):
                 raise AssertionError(f"K12 {label}: kthvalue's values differ "
@@ -4694,6 +5106,11 @@ def _times_morphology(row, card, k13=None):
               + (f", nd route {r['nd_route_ms']:.4f} ms, box {r['box']}, "
                  f"{r['smem']} B shared, {r['blocks']} blocks"
                  if "nd_route_ms" in r else "")
+              + (f", network route {r['network_route_ms']:.4f} ms, C="
+                 f"{r['column']} (per column {json.dumps(r['column_ms'])}), "
+                 f"box {r['box']}, {r['smem']} B shared, {r['blocks']} "
+                 f"blocks, {r['live']} of {r['comparators']} pruned "
+                 f"comparators live" if "network_route_ms" in r else "")
               + f") [{card}]")
         del want
     r = routes["median3"]
@@ -5024,9 +5441,11 @@ def _times_ab_k9_k11(rs, reps):
 
 def times_ab(card, reps=REPS):
     """K2 over c5's three axes (64 x 64^3 float32, order 3) beside the
-    ``tensordot`` chain, K8T over c11's three axes (3 x 160 x 192 x 224
-    float32, 17 taps, reflect), K12's 5^3 median at c15's 160 x 192 x 224
-    float32, K6 over c8's three axes (1 x 160 x 192 x 224
+    ``tensordot`` chain, K8T and K8 over c11's three axes (3 x 160 x 192 x
+    224 float32, 17 taps, reflect), K8 on c13's paired passes (512 x 512 x
+    300 float64, 9 taps, mirror) per axis, K12's 5^3 median, 3^3 median and
+    33-tap ball percentile at c15's 160 x 192 x 224 float32, K6 over c8's
+    three axes (1 x 160 x 192 x 224
     float32, reflect, order 3) and c9's input (96^3, wrap) beside the
     ``tensordot`` chain, K2 with the uint8 writeback over c2's 200 x 300
     (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
@@ -5111,11 +5530,30 @@ def times_ab(card, reps=REPS):
             y = ft.correlate1d_transpose(y, w11, a, "reflect", 8)
         return y
     out["K8T_c11"] = _time_ms(k8t, reps)
+
+    def k8():
+        y = f11
+        for a in (1, 2, 3):
+            y = ft.correlate1d(y, w11, a, "reflect", 0.0, 8)
+        return y
+    out["K8_c11"] = _time_ms(k8, reps)
     del f11
+    v13 = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)),
+                          dtype=torch.float64, device=dev)
+    w13 = ft.gaussian_weights(1.0, 0, 4.0, None)
+    for a in (0, 1, 2):
+        out[f"K8_c13_paired_axis{a}"] = _time_ms(
+            lambda a=a: ft.correlate1d(v13, w13, a, "mirror", 0.0, 4, 1),
+            reps)
+    del v13
     from elasticdeform_tpu_torch.ops import morphology as mo
     x15 = torch.as_tensor(_mri_like(rs, (160, 192, 224)), device=dev)
     out["K12_select_c15"] = _time_ms(lambda: mo.rank_filter(
         x15, np.ones((5, 5, 5), bool), [2, 2, 2], "reflect", 0.0, 62), reps)
+    out["K12_network_c15_median3"] = _time_ms(lambda: mo.rank_filter(
+        x15, np.ones((3, 3, 3), bool), [1, 1, 1], "reflect", 0.0, 13), reps)
+    out["K12_network_c15_ball33"] = _time_ms(lambda: mo.rank_filter(
+        x15, _ball(2), [2, 2, 2], "reflect", 0.0, 6), reps)
     del x15
     out.update(_times_ab_k9_k11(rs, reps))
     out["K6_digest"] = _k6_digest(rs)
@@ -5379,6 +5817,95 @@ def _times_displacement(card):
     torch.cuda.synchronize()
     print(f"dense displacement calls per config run: {calls}; "
           f"{sum(calls.values())} in all [{card}]")
+
+
+# build-time variants of K12's network tile and K8's tile (``-D`` macros
+# of their sources): K12's network tile running only the live mask's
+# comparators, on value wires with nan_min / nan_max, or with more
+# registers planned beside its wires; K8's tile with a window of 2 or 8
+# outputs
+_AB_VARIANTS = (("morphology", "live mask", ("-DED_NET_PRUNE=1",)),
+                ("morphology", "value wires", ("-DED_NET_KEYS=0",)),
+                ("morphology", "net slack 72", ("-DED_NET_SLACK=72",)),
+                ("filters", "K8 window 2", ("-DED_K8_WINDOW=2",)),
+                ("filters", "K8 window 8", ("-DED_K8_WINDOW=8",)))
+
+
+def _ab_times(rs, reps):
+    """K12's network tile at c15's two network filters (per column C) and
+    K8 over c11's axes and c13's paired passes, through the port's
+    wrappers, in ms (CUDA events, median of ``reps``)."""
+    import torch
+    from elasticdeform_tpu_torch.ops import filters as ft
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    S = (160, 192, 224)
+    out = {}
+    x = torch.as_tensor(_mri_like(rs, S), device="cuda")
+    for label, fp, rank in (("median3", np.ones((3, 3, 3), bool), 13),
+                            ("ball33", _ball(2), 6)):
+        k = int(fp.sum())
+        c = [q // 2 for q in fp.shape]
+        for q in (1, 2, 4):
+            plan = mo._rank_plan(S, fp.shape, x.dtype, k, column=q)
+            out[f"K12_{label}_C{q}"] = _time_ms(
+                lambda p=plan: mo._launch_rank(x, fp, c, "reflect", 0.0,
+                                               rank, p), reps)
+    del x
+    f = torch.as_tensor(rs.rand(3, *S).astype(np.float32), device="cuda")
+    w = ft.gaussian_weights(2.0, 0, 4.0, None)
+    for a in (1, 2, 3):
+        out[f"K8_c11_axis{a}"] = _time_ms(
+            lambda a=a: ft.correlate1d(f, w, a, "reflect", 0.0, 8), reps)
+    del f
+    v = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)),
+                        dtype=torch.float64, device="cuda")
+    w1 = ft.gaussian_weights(1.0, 0, 4.0, None)
+    for a in (0, 1, 2):
+        out[f"K8_c13_axis{a}"] = _time_ms(
+            lambda a=a: ft.correlate1d(v, w1, a, "mirror", 0.0, 4, 1), reps)
+    return out
+
+
+def ab_variants(card, reps=REPS):
+    """The A/B of the build-time variants (:data:`_AB_VARIANTS`): each
+    source built once per variant with the package's nvcc flags plus its
+    macros, all at once, into ``build/ab/``; then the default build and
+    each variant in turn (default, variants, default) swapped in as the
+    package's library and timed by :func:`_ab_times`, with each variant's
+    ptxas figures for the changed kernels. Prints one line ``ab_variants:
+    {json}`` and returns it."""
+    import ctypes
+    import pathlib
+    from elasticdeform_tpu_torch.ops import _build
+    out_dir = pathlib.Path("build") / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, (src, label, flags) in enumerate(_AB_VARIANTS):
+        so = out_dir / f"lib{src}_{i}.so"
+        procs.append((src, label, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags,
+             "-I", str(_build.CSRC), "-o", str(so),
+             str(_build.CSRC / f"{src}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    base = {src: _build.library(src) for src in ("morphology", "filters")}
+    rs = np.random.RandomState(17)
+    out = {"default": _ab_times(rs, reps)}
+    for src, label, so, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"ab_variants: {label} did not build:\n{log}")
+        pat = _K12_NET if src == "morphology" else _K8_TILE
+        regs = {f"{_MANGLED[m.group(1)]} {m.group(2)}": v[:4]
+                for fn, v in _ptxas_kernels(log).items()
+                for m in (pat.search(fn),)
+                if m and not fn.startswith("_ZZ") and m.group(1) == "f"}
+        _build._libs[src] = ctypes.CDLL(str(so))
+        out[label] = _ab_times(rs, reps)
+        out[label]["ptxas_float32"] = dict(sorted(regs.items()))
+        _build._libs[src] = base[src]
+    out["default again"] = _ab_times(rs, reps)
+    print(f"ab_variants: {json.dumps(out)} [{card}]")
+    return out
 
 
 def _device_kernels(prof, calls):

@@ -15,7 +15,19 @@
 // chosen per launch: the direct one, acc = x_0 w_0, then acc + x_k w_k; and
 // the paired one, acc = x_s w_s, then acc + (x_{s-i} +- x_{s+i}) w_{s-i} for
 // i = s..1, s = L/2. Plain twin: ops/filters.py correlate1d_plain, the same
-// order over slices of the padded line.
+// order over slices of the padded line. Two routes, picked on the host by
+// ops/filters.py:_line_plan (K8T's plan):
+// * tile (lines that fit a tile beside the taps and the pad table, fewer
+//   than 2^31 elements): correlate1d_tile_kernel stages W whole lines with
+//   cp.async on K8T's line tile (line_tile.cuh), the taps and the L - 1
+//   folded pad indices in shared memory, then walks its lines' outputs from
+//   there (tile_outputs): Q outputs a step from register windows on a
+//   line's plain run, one at a time near its ends; each output in tap_sum's
+//   order with the lines route's samples, so the two agree bit for bit.
+// * lines (the rest): correlate1d_kernel, one thread per output, or
+//   correlate1d_rows_kernel on the innermost axis.
+// A non-finite sample or cval reaches only the outputs whose taps read it,
+// as in SciPy (note R12 of ROADMAP.md).
 //
 // K8T replaces the transpose JAX gets by autodiff of that tensordot: the
 // correlation with the flipped taps into the padded extent [-c, n + L-1-c),
@@ -47,11 +59,12 @@
 // correlate_nd_plain and correlate_nd_transpose_plain. K9T's JAX reference
 // is the autodiff of ops/filters.py:317 apply_correlate with respect to X.
 //
-// Layout and bound on the H100: one thread per output element, neighbouring
-// threads on neighbouring addresses (the innermost index), so every tap's
-// loads coalesce on any axis; the taps' reuse is served by L1. When the
-// filtered axis is innermost (inner == 1), K8 has each block load a tile of
-// 256 outputs plus its L-1 halo, folded, into shared memory. Interior
+// Layout and bound on the H100 of the lines and nd routes: one thread per
+// output element, neighbouring threads on neighbouring addresses (the
+// innermost index), so every tap's loads coalesce on any axis; the taps'
+// reuse is served by L1. When the filtered axis is innermost (inner == 1),
+// K8's lines route has each block load a tile of 256 outputs plus its L-1
+// halo, folded, into shared memory. Interior
 // elements (every tap inside the array) take a path with no fold. Each
 // kernel's least time is its bytes, 2 * numel * sizeof(T) over 3.35 TB/s,
 // for the tap counts of the filter tier (L FMAs per element at 67 TFLOP/s in
@@ -104,9 +117,13 @@
 #define ED_FILTER_MAXR 8
 #define ED_ROW_TILE 256
 #define ED_THREADS 256
-// K8T's tile route: threads a block, and outputs a thread computes at once
+// K8T's and K8's tile routes: threads a block, and outputs a thread
+// computes at once (K8's may be set at build time for an A/B)
 #define ED_K8T_THREADS 256
 #define ED_K8T_WINDOW 4
+#ifndef ED_K8_WINDOW
+#define ED_K8_WINDOW 4
+#endif
 // K9's and K9T's tile routes: a block of ED_TILE_Y x ED_TILE_X threads
 #define ED_TILE_Y 8
 #define ED_TILE_X 32
@@ -340,18 +357,78 @@ __device__ __forceinline__ void k8t_window(T (&acc)[Q], const T* x, int s,
   }
 }
 
+// The outputs of a line tile's lines (K8's and K8T's tile routes), once
+// the tile is staged: thread (w, r) walks segment r of line w (R =
+// ED_K8T_THREADS / W threads a line), Q outputs at a time from a register
+// window (window(acc, x, s, j): outputs j .. j + Q - 1) on the plain run
+// [a, b), one at a time elsewhere (single(x, s, j)). Line w's element k
+// lies at x[k * s] in the tile. A warp's threads take consecutive lines at
+// one position, so their branches agree and their shared-memory loads fall
+// in distinct banks (the tile's strides). On column tiles (inner >= W)
+// their stores are consecutive too; on packed ones (whole outers, inner <
+// W) they lie a line apart, so where a second tile fits (gather, at obuf)
+// the outputs gather there and the block stores them as one run.
+template <typename T, int W, int Q, typename Win, typename One>
+__device__ __forceinline__ void tile_outputs(T* __restrict__ out,
+                                             const T* tile, T* obuf,
+                                             const Tile& t,
+                                             const TileSpan& sp, int n,
+                                             int64_t inner, int a, int b,
+                                             bool gather, Win window,
+                                             One single) {
+  constexpr int R = ED_K8T_THREADS / W;
+  const int tid = threadIdx.x;
+  const int lw = tid % W, lr = tid / W;
+  if (lw < sp.width) {
+    // line lw: element k at x[k * s] in the tile, output k at dst[k * ds]
+    const T* x;
+    T* dst;
+    int s;
+    int64_t ds;
+    if (t.packed) {
+      const int in = (int)inner, ol = lw / in, ri = lw - ol * in;
+      x = tile + ol * t.stride + ri;
+      dst = gather ? obuf + ol * t.stride + ri
+                   : out + sp.first + (int64_t)ol * n * in + ri;
+      s = in;
+      ds = in;
+    } else {
+      x = tile + lw;
+      dst = out + sp.first;
+      s = t.stride;
+      ds = inner;
+    }
+    const int seg = (n + R - 1) / R;
+    int j = lr * seg;
+    const int j1 = j + seg < n ? j + seg : n;
+    const int b1 = j1 < b ? j1 : b;
+    while (j < j1) {
+      if (j >= a && j + Q <= b1) {
+        T acc[Q];
+        window(acc, x, s, j);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) dst[(j + q) * ds] = acc[q];
+        j += Q;
+      } else {
+        dst[j * ds] = single(x, s, j);
+        ++j;
+      }
+    }
+  }
+  if (gather) {
+    __syncthreads();
+    T* o = out + sp.first;
+    packed_walk<ED_K8T_THREADS>(t, n * (int)inner, sp.outers, tid,
+                                [&](int q, int sh) { o[q] = obuf[sh]; });
+  }
+}
+
 // K8T, tile route: block b stages tile b's W lines of g (line_tile.cuh),
 // the taps and the edge table in shared memory with all ED_K8T_THREADS
-// threads, then computes every output of its lines from there: thread (w,
-// r) walks segment r of line w (R = ED_K8T_THREADS / W threads a line), Q
-// outputs at a time from a register window on the plain run, one at a time
-// at the edges. A warp's threads take consecutive lines at one position,
-// so their branches agree and their shared-memory loads fall in distinct
-// banks (the tile's strides). On column tiles (inner >= W) their stores
-// are consecutive too; on packed ones (whole outers, inner < W) they lie a
-// line apart, so where a second tile fits (gather) the outputs gather there
-// and the block stores them as one run. At most 4 blocks' worth of
-// registers per SM are asked for (64 a thread).
+// threads, then computes every output of its lines from there
+// (tile_outputs): Q outputs at a time from a register window on the plain
+// run, one at a time at the edges. At most 4 blocks' worth of registers
+// per SM are asked for (64 a thread).
 template <typename T, int W>
 __global__ void __launch_bounds__(ED_K8T_THREADS, 4)
 correlate1d_transpose_tile_kernel(const T* __restrict__ g,
@@ -380,49 +457,135 @@ correlate1d_transpose_tile_kernel(const T* __restrict__ g,
     eptr[k] = table[k];
   stage_wait();
   __syncthreads();
-  if (lw < sp.width) {
-    // line lw: element k at x[k * s] in the tile, output k at dst[k * ds]
-    const T* x;
-    T* dst;
-    int s;
-    int64_t ds;
-    if (t.packed) {
-      const int inner = (int)p.inner, ol = lw / inner, ri = lw - ol * inner;
-      x = tile + ol * t.stride + ri;
-      dst = e.gather ? obuf + ol * t.stride + ri
-                     : out + sp.first + (int64_t)ol * n * inner + ri;
-      s = inner;
-      ds = inner;
-    } else {
-      x = tile + lw;
-      dst = out + sp.first;
-      s = t.stride;
-      ds = p.inner;
-    }
-    const int L = p.taps, c = p.center;
-    const int seg = (n + R - 1) / R;
-    int j = lr * seg;
-    const int j1 = j + seg < n ? j + seg : n;
-    const int b = j1 < e.b ? j1 : e.b;
-    while (j < j1) {
-      if (j >= e.a && j + Q <= b) {
-        T acc[Q];
+  const int L = p.taps, c = p.center;
+  tile_outputs<T, W, Q>(
+      out, tile, obuf, t, sp, n, p.inner, e.a, e.b, e.gather != 0,
+      [&](T(&acc)[Q], const T* x, int s, int j) {
         k8t_window<T, Q>(acc, x, s, j + c, tw, L);
+      },
+      [&](const T* x, int s, int j) {
+        return k8t_output(x, s, j, n, L, c, tw, e, eptr, epos);
+      });
+}
+
+// K8's tile route: outputs [a, b) of a line read only samples inside it
+// (i - c >= 0, i - c + L <= n: the lines route's interior branch); the
+// others read the samples the pads of the padded line [-c, n + L-1-c) fold
+// onto, from a table of L - 1 int32 entries (the c left pads, then the L-1-c
+// right ones), each the sample index folded by the mode or -1 for cval
+// (ops/filters.py:_k8_edges), staged in shared memory
+struct K8Edges {
+  int a, b;
+  int gather;  // packed tiles: the outputs gather in a second shared tile
+};
+
+// Q interior outputs of the line x (stride s) whose first taps read
+// samples j0 .. j0 + Q - 1, from register windows sliding along the line,
+// one shared-memory load a tap (direct order) or two a pair (paired order)
+// for all Q, each output still in tap_sum's order: acc = x_0 w_0, then acc
+// + x_k w_k; or acc = x_s w_s, then acc + (x_{s-i} +- x_{s+i}) w_{s-i} for
+// i = s..1
+template <typename T, int Q>
+__device__ __forceinline__ void k8_window(T (&acc)[Q], const T* x, int s,
+                                          int j0, const T* w, int L,
+                                          int pair) {
+  if (pair == 0) {
+    T v[Q];
 #pragma unroll
-        for (int q = 0; q < Q; ++q) dst[(j + q) * ds] = acc[q];
-        j += Q;
-      } else {
-        dst[j * ds] = k8t_output(x, s, j, n, L, c, tw, e, eptr, epos);
-        ++j;
-      }
+    for (int q = 0; q < Q; ++q) v[q] = x[(j0 + q) * s];
+    const T w0 = w[0];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[q] = v[q] * w0;
+    for (int k = 1; k < L; ++k) {
+#pragma unroll
+      for (int q = 0; q < Q - 1; ++q) v[q] = v[q + 1];
+      v[Q - 1] = x[(j0 + Q - 1 + k) * s];
+      const T wk = w[k];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) acc[q] = acc[q] + v[q] * wk;
+    }
+    return;
+  }
+  const int s1 = L / 2;
+  const T ws = w[s1];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) acc[q] = x[(j0 + s1 + q) * s] * ws;
+  // lft[q] = x_{j0+q+k}, rgt[q] = x_{j0+q+2 s1-k} at pair k = s1 - i
+  T lft[Q], rgt[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    lft[q] = x[(j0 + q) * s];
+    rgt[q] = x[(j0 + 2 * s1 + q) * s];
+  }
+  for (int k = 0; k < s1; ++k) {
+    const T wk = w[k];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const T tq = pair > 0 ? lft[q] + rgt[q] : lft[q] - rgt[q];
+      acc[q] = acc[q] + tq * wk;
+    }
+    if (k + 1 < s1) {
+#pragma unroll
+      for (int q = 0; q < Q - 1; ++q) lft[q] = lft[q + 1];
+      lft[Q - 1] = x[(j0 + Q + k) * s];
+#pragma unroll
+      for (int q = Q - 1; q > 0; --q) rgt[q] = rgt[q - 1];
+      rgt[0] = x[(j0 + 2 * s1 - k - 1) * s];
     }
   }
-  if (e.gather) {
-    __syncthreads();
-    T* o = out + sp.first;
-    packed_walk<ED_K8T_THREADS>(t, n * (int)p.inner, sp.outers, tid,
-                                [&](int q, int sh) { o[q] = obuf[sh]; });
-  }
+}
+
+// K8, tile route: block b stages tile b's W lines of x (line_tile.cuh),
+// the taps and the edge table in shared memory with all ED_K8T_THREADS
+// threads, then computes every output of its lines from there
+// (tile_outputs, K8T's walk): Q = ED_K8_WINDOW outputs at a time from
+// register windows on the plain run, one at a time at the edges, each in
+// the lines route's order (tap_sum) and with its samples, so the two
+// routes agree bit for bit, NaN and infinities included. At most 4 blocks'
+// worth of registers per SM are asked for in float32 (64 a thread), 3 in
+// float64 (85: at 64 the paired window spilled on the H100; the plan's
+// wave count, line_waves, assumes up to 4).
+template <typename T, int W>
+__global__ void __launch_bounds__(ED_K8T_THREADS, sizeof(T) == 8 ? 3 : 4)
+correlate1d_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
+                        const T* __restrict__ w,
+                        const int* __restrict__ table, const Line p,
+                        const Tile t, const K8Edges e) {
+  constexpr int R = ED_K8T_THREADS / W;
+  constexpr int Q = ED_K8_WINDOW;
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  T* tile = reinterpret_cast<T*>(ed_smem);
+  const int n = (int)p.n;
+  const int tid = threadIdx.x;
+  const int lw = tid % W, lr = tid / W;
+  const TileSpan sp = tile_span<W>(t, blockIdx.x, p.outer, p.n, p.inner, lw);
+  const int cells = (t.packed ? t.lines / (int)p.inner : n) * t.stride;
+  T* obuf = tile + cells;
+  T* tw = tile + (e.gather ? 2 : 1) * cells;
+  int* pads = reinterpret_cast<int*>(tw + p.taps);
+  stage_tile<T, W, R>(tile, x, t, sp, n, p.inner, lw, lr);
+  for (int k = tid; k < p.taps; k += ED_K8T_THREADS) tw[k] = w[k];
+  for (int k = tid; k < p.taps - 1; k += ED_K8T_THREADS) pads[k] = table[k];
+  stage_wait();
+  __syncthreads();
+  const int L = p.taps, c = p.center, pair = p.pair;
+  const T cval = T(p.cval);
+  tile_outputs<T, W, Q>(
+      out, tile, obuf, t, sp, n, p.inner, e.a, e.b, e.gather != 0,
+      [&](T(&acc)[Q], const T* xl, int s, int j) {
+        k8_window<T, Q>(acc, xl, s, j - c, tw, L, pair);
+      },
+      [&](const T* xl, int s, int j) {
+        if (j >= e.a && j < e.b) {
+          const T* base = xl + (j - c) * s;
+          return tap_sum<T>(tw, L, pair, [&](int k) { return base[k * s]; });
+        }
+        return tap_sum<T>(tw, L, pair, [&](int k) {
+          const int i = j - c + k;
+          const int f = i < 0 ? pads[i + c] : i >= n ? pads[c + i - n] : i;
+          return f < 0 ? cval : xl[f * s];
+        });
+      });
 }
 
 struct Nd {
@@ -883,6 +1046,44 @@ cudaError_t launch_k8t_tile_w(const void* g, void* out, const void* w,
   return cudaGetLastError();
 }
 
+template <typename T, int W>
+cudaError_t launch_k8_tile_w(const void* x, void* out, const void* w,
+                             const int* table, const Line& p, const Tile& t,
+                             const K8Edges& e, int smem, unsigned blocks,
+                             cudaStream_t s) {
+  auto kern = correlate1d_tile_kernel<T, W>;
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch is refused unless the kernel asks for it
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<blocks, ED_K8T_THREADS, (size_t)smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out),
+      static_cast<const T*>(w), table, p, t, e);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_k8_tile(int width, const void* x, void* out,
+                           const void* w, const int* table, const Line& p,
+                           const Tile& t, const K8Edges& e, int smem,
+                           unsigned blocks, cudaStream_t s) {
+  switch (width) {
+    case 32:
+      return launch_k8_tile_w<T, 32>(x, out, w, table, p, t, e, smem,
+                                     blocks, s);
+    case 64:
+      return launch_k8_tile_w<T, 64>(x, out, w, table, p, t, e, smem,
+                                     blocks, s);
+    case 128:
+      return launch_k8_tile_w<T, 128>(x, out, w, table, p, t, e, smem,
+                                      blocks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_k8t_tile(int width, const void* g, void* out,
                             const void* w, const int* table, const Line& p,
@@ -1091,6 +1292,60 @@ int ed_correlate1d(int dtype, const void* x, void* out, const void* w,
   cudaError_t err = dtype == 0   ? launch_line<float>(x, out, w, p, s)
                     : dtype == 1 ? launch_line<double>(x, out, w, p, s)
                                  : cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K8 on the tile route, with the plan of ops/filters.py:_line_plan: the
+// arguments of ed_correlate1d, then a and b (the plain run [a, b) of a
+// line, empty or [center, n - (taps - 1) + center)), gather (a packed
+// tile's outputs gather in a second tile), width W, packed (inner < W),
+// lines of a full tile, shared row stride, the tile's own shared bytes
+// (tile_smem), blocks (ops/prefilter.py:_tile_plan's geometry) and smem,
+// the block's shared bytes: the tile (twice with gather), the taps in x's
+// dtype and the pad table's taps - 1 int32 entries. table (device): the
+// sample index each pad of the padded line [-center, n + taps-1-center)
+// folds onto, or -1 for cval (ops/filters.py:_k8_edges). A plan that does
+// not fit the shape is refused with cudaErrorInvalidValue. x and out must
+// not overlap. Returns cudaGetLastError().
+int ed_correlate1d_tile(int dtype, const void* x, void* out, const void* w,
+                        const void* table, long long outer, long long n,
+                        long long inner, int taps, int center, int mode,
+                        int pair, double cval, int a, int b, int gather,
+                        int width, int packed, int lines, int stride,
+                        int tile_smem, int smem, long long blocks,
+                        void* stream) {
+  if (outer * n * inner == 0) return (int)cudaSuccess;
+  const int itemsize = dtype == 0 ? 4 : dtype == 1 ? 8 : 0;
+  Tile t;
+  if (itemsize == 0 || taps < 1 || center < 0 || center >= taps ||
+      mode < 0 || mode > 4 ||
+      (pair != 0 && (taps % 2 == 0 || pair < -1 || pair > 1)) ||
+      !(a == b ? a == 0 : a == center && b == n - (taps - 1) + center) ||
+      (gather && !packed) || outer * n * inner > INT32_MAX ||
+      !make_tile(&t, itemsize, outer, n, inner, width, packed, lines, stride,
+                 tile_smem, blocks, kSmemLimit) ||
+      (int64_t)smem != (gather ? 2 : 1) * (int64_t)tile_smem +
+                           (int64_t)taps * itemsize +
+                           4 * (int64_t)(taps - 1) ||
+      smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  const Line p = make_line(outer, n, inner, taps, center, mode, pair, cval);
+  if (t.packed) {
+    // the block's threads walk the packed run together
+    t.dol = (int)(ED_K8T_THREADS / (n * inner));
+    t.dr = (int)(ED_K8T_THREADS % (n * inner));
+  }
+  K8Edges e;
+  e.a = a;
+  e.b = b;
+  e.gather = gather;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(table);
+  cudaError_t err =
+      dtype == 0 ? launch_k8_tile<float>(width, x, out, w, tb, p, t, e, smem,
+                                         (unsigned)blocks, s)
+                 : launch_k8_tile<double>(width, x, out, w, tb, p, t, e,
+                                          smem, (unsigned)blocks, s);
   return (int)err;
 }
 

@@ -23,18 +23,23 @@
 // taps in raster order, so they agree bit for bit.
 //
 // K12 replaces morphology.py:302-321 _rank_select and :373 jnp.sort: the
-// rank-th smallest footprint tap. Up to 64 taps it runs the same pruned
-// Batcher comparator list (_rank_network, built on the host) over wires padded
-// at the type's largest value, each comparator a NaN-propagating min/max pair,
-// so a window holding a NaN gives NaN; above 64 taps a radix select over
-// order-preserving keys orders NaN last and -0 as +0, and picks among equal
-// keys in tap order, as the stable sort does. The cap is kept because it
-// decides the NaN result. The select takes one of two routes, picked on the
-// host by ops/morphology.py:_rank_plan: tile (extent > 1 on at most three
-// axes, a box within the shared-memory budget: rank_select_tile_kernel
-// stages a tile's halo box of keys and values once and selects from shared
-// memory, several key bits a pass) and nd (rank_select_kernel, one thread
-// per voxel reading device memory at every bit, for the rest).
+// rank-th smallest footprint tap. Up to 64 taps it runs a Batcher comparator
+// network over wires padded at the type's largest value, each comparator a
+// NaN-propagating min/max pair, so a window holding a NaN gives NaN; above
+// 64 taps a radix select over order-preserving keys orders NaN last and -0
+// as +0, and picks among equal keys in tap order, as the stable sort does.
+// The cap is kept because it decides the NaN result. Each takes one of two
+// routes, picked on the host by ops/morphology.py:_rank_plan. The network:
+// network_tile (3-64 taps, extent > 1 on at most three axes, a box within
+// the shared-memory budget: rank_network_tile_kernel stages a tile's halo
+// box of values once, each thread runs the whole comparator list at
+// compile-time wire indices on integer keys held in registers) and network
+// (rank_network_kernel, the pruned list of _rank_network read from device
+// memory, wires in local memory, one thread per voxel, for the rest). The
+// select: tile (rank_select_tile_kernel stages a tile's halo box of keys
+// and values once and selects from shared memory, several key bits a pass)
+// and nd (rank_select_kernel, one thread per voxel reading device memory at
+// every bit, for the rest).
 //
 // K13 replaces morphology.py:452-515, _binary_step under fori_loop /
 // while_loop: one AND (erosion) or OR (dilation) sweep of a boolean array over
@@ -89,6 +94,7 @@
 
 #include <algorithm>
 #include <type_traits>
+#include <utility>
 
 #include "cp_async.cuh"
 
@@ -111,6 +117,25 @@
 #define ED_MINMAX_COLUMN 8
 // the box rows a warp of K11's and K12's tiles loads before it stores
 #define ED_STAGE_ROWS 4
+// K12's network tile: the comparators of 64 wires; ED_NET_PRUNE 1 runs only
+// the comparators of the live mask, each behind a test of its bit (an A/B
+// variant, chip_smoke.py::ab_variants: slower at c15's shapes on an H100
+// than the whole list, 0.78 against 0.42 ms for the 3^3 median, 1.84
+// against 0.95 for the 33-tap ball); ED_NET_SLACK, the registers beside
+// the wires that NetBlocks plans for
+#define ED_NET_MAX_PAIRS 543
+#ifndef ED_NET_PRUNE
+#define ED_NET_PRUNE 0
+#endif
+#ifndef ED_NET_SLACK
+#define ED_NET_SLACK 40
+#endif
+// ED_NET_KEYS 0: the wires hold the values and each comparator is nan_min
+// and nan_max (an A/B variant: 1.52 ms against 0.42 for the 3^3 median,
+// 5.55 against 0.95 for the 33-tap ball at c15's shapes on an H100)
+#ifndef ED_NET_KEYS
+#define ED_NET_KEYS 1
+#endif
 
 namespace {
 
@@ -493,9 +518,8 @@ struct RankTile {
 // voxel (s0, s1, s2) for a C x ED_RANK_TY x ED_RANK_TX tile, without 64-bit
 // division: the tile the fastest, the last tile axis the fastest of those,
 // then the batch axes, the last fastest.
-template <int C>
-__device__ __forceinline__ int64_t tile_block(const RankTile& p, int* s0,
-                                              int* s1, int* s2) {
+__device__ __forceinline__ int64_t tile_block(const RankTile& p, int C,
+                                              int* s0, int* s1, int* s2) {
   unsigned rest = blockIdx.x;
   const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
   unsigned bi = rest / per;
@@ -593,7 +617,7 @@ rank_select_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
   int* toff = reinterpret_cast<int*>(
       ed_smem + ((2 * (size_t)cells * sizeof(K) + 3) & ~(size_t)3));
   int s0, s1, s2;
-  const int64_t base = tile_block<C>(p, &s0, &s1, &s2);
+  const int64_t base = tile_block(p, C, &s0, &s1, &s2);
   visit_box(p, x + base, s0, s1, s2, [&](int i, T v, bool in) {
     v = in ? v : cval;
     keys[i] = Key<T>::of(v);
@@ -737,6 +761,249 @@ rank_select_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
     if (s0 + c < p.n[0]) os[(s0 + c) * p.st[0]] = res[c];
 }
 
+// K12's network route on a halo box. Batcher's odd-even mergesort
+// comparators of N wires (N a power of two up to ED_MAX_WIRES), built at
+// compile time by the recursion of ops/morphology.py:_batcher_pairs, in its
+// order: comparator k sends the min of wires i[k], j[k] to i[k] and the max
+// to j[k].
+struct BatcherNet {
+  int count;
+  unsigned char i[ED_NET_MAX_PAIRS], j[ED_NET_MAX_PAIRS];
+};
+
+__host__ __device__ constexpr void batcher_merge(BatcherNet& net, int lo,
+                                                 int m, int r) {
+  const int step = r * 2;
+  if (step < m) {
+    batcher_merge(net, lo, m, step);
+    batcher_merge(net, lo + r, m, step);
+    for (int i = lo + r; i < lo + m - r; i += step) {
+      net.i[net.count] = (unsigned char)i;
+      net.j[net.count] = (unsigned char)(i + r);
+      ++net.count;
+    }
+  } else {
+    net.i[net.count] = (unsigned char)lo;
+    net.j[net.count] = (unsigned char)(lo + r);
+    ++net.count;
+  }
+}
+
+__host__ __device__ constexpr void batcher_sort(BatcherNet& net, int lo,
+                                                int hi) {
+  if (hi - lo >= 1) {
+    const int mid = lo + (hi - lo) / 2;
+    batcher_sort(net, lo, mid);
+    batcher_sort(net, mid + 1, hi);
+    batcher_merge(net, lo, hi - lo + 1, 1);
+  }
+}
+
+__host__ __device__ constexpr BatcherNet batcher_net(int n) {
+  BatcherNet net{};
+  batcher_sort(net, 0, n - 1);
+  return net;
+}
+
+template <int N>
+struct Batcher {
+  static constexpr BatcherNet net = batcher_net(N);
+  static constexpr int pairs = net.count;
+  static constexpr int words = (pairs + 31) / 32;  // of the live mask
+};
+static_assert(Batcher<64>::pairs == ED_NET_MAX_PAIRS, "64 wires, 543 pairs");
+
+// comparator k's wires (device code reads the table's scalars only through
+// a constexpr function called in a constant expression)
+template <int N>
+__host__ __device__ constexpr int net_lo(int k) {
+  return Batcher<N>::net.i[k];
+}
+template <int N>
+__host__ __device__ constexpr int net_hi(int k) {
+  return Batcher<N>::net.j[k];
+}
+
+// The network tile's wires hold integer keys in the order nan_min /
+// nan_max give the values, so that a comparator is one integer min and one
+// max: the value itself for integers and bool (in 32 bits or the type's
+// own 64), and for floats the bits as a signed integer with the magnitude
+// bits flipped under a set sign bit (-inf < ... < -0 < +0 < ... < +inf).
+// The map is one to one, so the selected key gives back the value's bits.
+// A NaN tap is flagged apart: nan_min / nan_max send a NaN to the result
+// through any correct selection network, so the result is then NaN.
+template <typename T>
+struct NetKey {
+  typedef typename std::conditional<
+      (sizeof(T) < 4), int,
+      typename std::conditional<std::is_signed<T>::value, int64_t,
+                                uint64_t>::type>::type Wide;
+  typedef typename std::conditional<sizeof(T) == 4, T, Wide>::type K;
+  __device__ static K of(T v) { return (K)v; }
+  __device__ static T back(K k) { return (T)k; }
+  __device__ static bool nan(T) { return false; }
+};
+#if !ED_NET_KEYS
+// the A/B variant: the wires hold the values, each comparator nan_min and
+// nan_max
+template <typename T>
+struct NetVal {
+  typedef T K;
+  __device__ static K of(T v) { return v; }
+  __device__ static T back(K k) { return k; }
+  __device__ static bool nan(T) { return false; }
+};
+#endif
+template <>
+struct NetKey<float> {
+  typedef int K;
+  __device__ static K of(float v) {
+    const int b = __float_as_int(v);
+    return b ^ ((b >> 31) & 0x7fffffff);
+  }
+  __device__ static float back(K k) {
+    return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+  }
+  __device__ static bool nan(float v) { return v != v; }
+};
+template <>
+struct NetKey<double> {
+  typedef long long K;
+  __device__ static K of(double v) {
+    const long long b = __double_as_longlong(v);
+    return b ^ ((b >> 63) & 0x7fffffffffffffffll);
+  }
+  __device__ static double back(K k) {
+    return __longlong_as_double(k ^ ((k >> 63) & 0x7fffffffffffffffll));
+  }
+  __device__ static bool nan(double v) { return v != v; }
+};
+
+// comparator K of N wires (with ED_NET_PRUNE, only where bit K of the live
+// mask is set: the mask is the same for every thread, so the branch is
+// warp-uniform)
+template <typename K, int N, int C>
+__device__ __forceinline__ void net_step(K (&w)[N],
+                                         const unsigned* __restrict__ live) {
+  constexpr int i = net_lo<N>(C), j = net_hi<N>(C);
+#if ED_NET_PRUNE
+  if (!((live[C >> 5] >> (C & 31)) & 1u)) return;
+#endif
+  const K a = w[i], b = w[j];
+#if ED_NET_KEYS
+  w[i] = b < a ? b : a;
+  w[j] = b < a ? a : b;
+#else
+  w[i] = nan_min(a, b);
+  w[j] = nan_max(a, b);
+#endif
+}
+
+template <typename K, int N, size_t... C>
+__device__ __forceinline__ void run_net(K (&w)[N],
+                                        const unsigned* __restrict__ live,
+                                        std::index_sequence<C...>) {
+  (net_step<K, N, (int)C>(w, live), ...);
+}
+
+// wire `rank` of w into w[0], by halves: a select tree of compile-time
+// indices (a chain of tests of t == rank let the compiler index the wires
+// at run time, which put them in local memory)
+template <typename K, int N, int H>
+__device__ __forceinline__ void take_half(K (&w)[N], int rank) {
+  if constexpr (H >= 1) {
+    const bool upper = (rank & H) != 0;
+#pragma unroll
+    for (int t = 0; t < H; ++t) w[t] = upper ? w[t + H] : w[t];
+    take_half<K, N, H / 2>(w, rank);
+  }
+}
+
+// Blocks an SM that the network tile asks registers for: its N wires (two
+// registers each for 8-byte types) and about ED_NET_SLACK more, twice that
+// at 64 wires (which keep more comparators in flight: at 2 blocks, 128
+// registers, their 4-byte types spilled on the H100), at most 4
+template <typename T, int N>
+struct NetBlocks {
+  static constexpr int need =
+      N * (sizeof(T) == 8 ? 2 : 1) + ED_NET_SLACK * (N == 64 ? 2 : 1);
+  static constexpr int fit = 65536 / (ED_RANK_TY * ED_RANK_TX * need);
+  static constexpr int value = fit < 1 ? 1 : fit > 4 ? 4 : fit;
+};
+
+// K12's network route on a halo box: block (batch, tile) stages the tile's
+// box of values once (folded at the array's edges, or cval in constant
+// mode: visit_box, as the select tile stages it), the taps' int32 offsets
+// into the box (raster order, padded to N with 0) and, for the
+// ED_NET_PRUNE variant, the live mask (ops/morphology.py:_network_live: the
+// backward cone of wire rank, less the comparators whose max wire is a pad
+// wire, which swap nothing unless a NaN is about, and then the result is
+// NaN either way). Thread (y, x) then takes each voxel (c, y, x) of its
+// column of C in turn: its taps from shared memory into N wires of keys
+// held in registers (every index a compile-time constant), the pad wires
+// at the type's largest value, Batcher's comparators, wire `rank` out by
+// halves, NaN where a tap is NaN. Any correct selection network gives
+// rank_network_kernel's result bit for bit: nan_min / nan_max order the
+// values totally, -0 below +0, and send a NaN to the result.
+template <typename T, int N>
+__global__ void __launch_bounds__(ED_RANK_TY * ED_RANK_TX,
+                                  NetBlocks<T, N>::value)
+rank_network_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         const int* __restrict__ toff_g,
+                         const unsigned* __restrict__ live_g,
+                         const RankTile p, int column, const T cval,
+                         const T pad) {
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  const int P1 = p.box[2], P0 = p.box[1] * p.box[2];
+  const int cells = p.box[0] * P0;
+  T* box = reinterpret_cast<T*>(ed_smem);
+  int* toff = reinterpret_cast<int*>(
+      ed_smem + (((size_t)cells * sizeof(T) + 3) & ~(size_t)3));
+  unsigned* live = reinterpret_cast<unsigned*>(toff + N);
+  int s0, s1, s2;
+  const int64_t base = tile_block(p, column, &s0, &s1, &s2);
+  visit_box(p, x + base, s0, s1, s2,
+            [&](int i, T v, bool in) { box[i] = in ? v : cval; });
+  const int tid = threadIdx.y * ED_RANK_TX + threadIdx.x;
+  for (int t = tid; t < N; t += ED_RANK_TY * ED_RANK_TX)
+    toff[t] = t < p.taps ? toff_g[t] : 0;
+  for (int k = tid; k < Batcher<N>::words; k += ED_RANK_TY * ED_RANK_TX)
+    live[k] = live_g[k];
+  __syncthreads();
+  const int j1 = s1 + threadIdx.y, j2 = s2 + threadIdx.x;
+  if (j1 >= p.n[1] || j2 >= p.n[2]) return;
+  const T* col = box + threadIdx.y * P1 + threadIdx.x;  // voxel c: + c * P0
+  T* os = out + base + j1 * p.st[1] + j2 * p.st[2];
+  const int cn = p.n[0] - s0 < column ? p.n[0] - s0 : column;
+#if ED_NET_KEYS
+  typedef NetKey<T> NK;
+#else
+  typedef NetVal<T> NK;
+#endif
+  typedef typename NK::K K;
+  const K kpad = NK::of(pad);
+#pragma unroll 1
+  for (int c = 0; c < cn; ++c) {
+    const T* v = col + c * P0;
+    K w[N];
+    bool nan = false;
+    // (a pad wire's offset is 0: it loads box element 0 and drops it)
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      const T a = v[toff[t]];
+      const bool tap = t < p.taps;
+      nan = nan || (tap && NK::nan(a));
+      w[t] = tap ? NK::of(a) : kpad;
+    }
+    run_net<K, N>(w, live,
+                  std::make_index_sequence<(size_t)Batcher<N>::pairs>{});
+    take_half<K, N, N / 2>(w, p.rank);
+    T r = NK::back(w[0]);
+    if constexpr (std::is_floating_point<T>::value) r = nan ? T(NAN) : r;
+    os[(s0 + c) * p.st[0]] = r;
+  }
+}
+
 // K11's tile route: block (batch, tile) stages the tile's halo box in the
 // work type W, each element the array element tap_value reads there (W(x),
 // folded) or cval in constant mode (visit_box), and the footprint's taps as
@@ -762,7 +1029,7 @@ min_max_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
       ed_smem + ((((size_t)cells + (NONFLAT ? p.taps : 0)) * sizeof(W) + 3) &
                  ~(size_t)3));
   int s0, s1, s2;
-  const int64_t base = tile_block<C>(p, &s0, &s1, &s2);
+  const int64_t base = tile_block(p, C, &s0, &s1, &s2);
   visit_box(p, x + base, s0, s1, s2,
             [&](int i, T v, bool in) { box[i] = in ? W(v) : cval; });
   const int tid = threadIdx.y * ED_RANK_TX + threadIdx.x;
@@ -1221,6 +1488,68 @@ cudaError_t launch_rank_tile(int column, const void* x, void* out,
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int N>
+cudaError_t launch_net_tile_n(const void* x, void* out, const int* toff,
+                              const unsigned* live, const RankTile& p,
+                              int column, long long cval_bits,
+                              long long pad_bits, int smem, unsigned blocks,
+                              cudaStream_t s) {
+  static int allowed = 0;
+  auto kern = rank_network_tile_kernel<T, N>;
+  const cudaError_t err = allow_smem(kern, &allowed, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, dim3(ED_RANK_TX, ED_RANK_TY), (size_t)smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), toff, live, p, column,
+      from_bits<T>(cval_bits), from_bits<T>(pad_bits));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_net_tile(int wires, const void* x, void* out,
+                            const int* toff, const unsigned* live,
+                            const RankTile& p, int column,
+                            long long cval_bits, long long pad_bits,
+                            int smem, unsigned blocks, cudaStream_t s) {
+  switch (wires) {
+    case 4:
+      return launch_net_tile_n<T, 4>(x, out, toff, live, p, column,
+                                     cval_bits, pad_bits, smem, blocks, s);
+    case 8:
+      return launch_net_tile_n<T, 8>(x, out, toff, live, p, column,
+                                     cval_bits, pad_bits, smem, blocks, s);
+    case 16:
+      return launch_net_tile_n<T, 16>(x, out, toff, live, p, column,
+                                      cval_bits, pad_bits, smem, blocks, s);
+    case 32:
+      return launch_net_tile_n<T, 32>(x, out, toff, live, p, column,
+                                      cval_bits, pad_bits, smem, blocks, s);
+    case 64:
+      return launch_net_tile_n<T, 64>(x, out, toff, live, p, column,
+                                      cval_bits, pad_bits, smem, blocks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// the live mask's 32-bit words for N wires (0 where N is not a wire count
+// of the network tile)
+int net_words(int wires) {
+  switch (wires) {
+    case 4:
+      return Batcher<4>::words;
+    case 8:
+      return Batcher<8>::words;
+    case 16:
+      return Batcher<16>::words;
+    case 32:
+      return Batcher<32>::words;
+    case 64:
+      return Batcher<64>::words;
+    default:
+      return 0;
+  }
+}
+
 template <typename T, typename W, bool MIN, bool NONFLAT, int C>
 cudaError_t launch_min_max_tile_k(const void* x, void* out, const int* toff,
                                   const void* sval, const RankTile& p,
@@ -1489,6 +1818,45 @@ int ed_rank_select_tile(int dtype, int column, const void* x, void* out,
   const int* to = static_cast<const int*>(toff);
   ED_DISPATCH(dtype, launch_rank_tile<T>(column, x, out, to, p, cval_bits,
                                          smem, (unsigned)blocks, s))
+}
+
+// K12's network route on a halo box, with the plan of
+// ops/morphology.py:_rank_plan ("network_tile"): the host arrays of
+// ed_rank_select_tile; wires N (4, 8, 16, 32 or 64, taps <= N < 2 taps)
+// and column C (1, 2 or 4); device: toff[taps], each tap's offset into the
+// box in raster order, and live, the comparators' live mask (bit k of word
+// k / 32 for comparator k of _batcher_pairs(N), ops/morphology.py
+// _network_live); smem: the plan's shared bytes, at least the box's values,
+// N offsets and the mask's words. cval_bits: cval in x's type; pad_bits:
+// the pad wires' value, the type's largest. A plan that does not fit the
+// shapes is refused with cudaErrorInvalidValue. x and out must not
+// overlap. Returns cudaGetLastError().
+int ed_rank_network_tile(int dtype, int wires, int column, const void* x,
+                         void* out, const void* toff, const void* live,
+                         const int* n3, const long long* st3, const int* k3,
+                         const int* c3, int nb, const long long* bn,
+                         const long long* bst, int taps, int rank, int mode,
+                         long long cval_bits, long long pad_bits, int smem,
+                         long long blocks, void* stream) {
+  RankTile p;
+  int64_t cells;
+  const int words = net_words(wires);
+  if (dtype < 0 || dtype > 10 || words == 0 || taps > wires ||
+      2 * taps <= wires || rank < 0 || rank >= taps ||
+      (column != 1 && column != 2 && column != 4) || live == nullptr ||
+      !make_rank_tile(&p, column, n3, st3, k3, c3, nb, bn, bst, taps, mode,
+                      blocks, &cells))
+    return (int)cudaErrorInvalidValue;
+  p.rank = rank;
+  const int64_t need = ((cells * kItemsize[dtype] + 3) & ~(int64_t)3) +
+                       4 * (int64_t)(wires + words);
+  if (smem < need || smem > ED_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* to = static_cast<const int*>(toff);
+  const unsigned* lv = static_cast<const unsigned*>(live);
+  ED_DISPATCH(dtype, launch_net_tile<T>(wires, x, out, to, lv, p, column,
+                                        cval_bits, pad_bits, smem,
+                                        (unsigned)blocks, s))
 }
 
 // K11 on its tile route, with the plan of ops/morphology.py:_min_max_plan:

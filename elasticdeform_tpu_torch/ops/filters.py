@@ -10,12 +10,19 @@ correlation a stack of such matrices; here they are stencils:
   direct tap order or, for integer outputs, SciPy's paired order
   (``pair`` = 1 symmetric, -1 antisymmetric; the JAX package's
   ``apply_paired1d``). Its plain version :func:`correlate1d_plain` sums the
-  same taps over slices of :func:`pad_axis`.
+  same taps over slices of :func:`pad_axis`. Two routes, which
+  :func:`_line_plan` picks (K8T's plan): ``"tile"`` stages W whole lines
+  on K8T's line tile with the taps and a table of the pads' folds
+  (:func:`_k8_edges`), ``"lines"`` is the old kernel (lines past the tile,
+  tensors of 2^31 elements or more); both sum in one order, bit for bit. A
+  NaN or an infinity, in the input or as ``cval``, reaches only the outputs
+  whose taps read it, as in SciPy (note R12 of ``ROADMAP.md``; the JAX
+  package's dense matrix spreads it over the line).
 * :func:`correlate1d_transpose` is the wrapper of kernel K8T, the
   transpose: the correlation with the flipped taps into the padded extent,
   then each pad folded back onto the line (constant-mode pads dropped).
   Plain version :func:`correlate1d_transpose_plain`. Two routes, which
-  :func:`_line_transpose_plan` picks: ``"tile"`` stages W whole lines in
+  :func:`_line_plan` picks: ``"tile"`` stages W whole lines in
   shared memory (K4's line tile, ``prefilter._tile_plan``) with the taps
   and an edge table of fold lists (:func:`_k8t_edges`), ``"lines"`` runs
   one thread per output in device memory (lines past the tile, tensors of
@@ -34,9 +41,9 @@ correlation a stack of such matrices; here they are stencils:
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches its kernel (contiguous float32 or float64) or raises, and adds one
-to its ``.launches`` counter (K8T, K9 and K9T also to their route's count
-in ``.routes``); the taps, fold lists and tables go to the card once per
-kernel, shape and device (``_k8t_tables``, ``_nd_tables``,
+to its ``.launches`` counter and to its route's count in ``.routes``; the
+taps, fold lists and tables go to the card once per kernel, shape and
+device (``_k8_tables``, ``_k8t_tables``, ``_nd_tables``,
 ``_nd_tile_tables``).
 :class:`Correlate1d` and :class:`CorrelateNd` are the autograd functions
 (gradient to ``x`` only: the taps and ``cval`` are host constants, as in the
@@ -402,6 +409,10 @@ def _lib():
         fn.restype = i
         fn.argtypes = [i, vp, vp, vp, ll, ll, ll, i, i, i, i,
                        ctypes.c_double, vp]
+        fn = lib.ed_correlate1d_tile
+        fn.restype = i
+        fn.argtypes = [i, vp, vp, vp, vp, ll, ll, ll, i, i, i, i,
+                       ctypes.c_double] + [i] * 9 + [ll, vp]
         fn = lib.ed_correlate1d_transpose
         fn.restype = i
         fn.argtypes = [i, vp, vp, vp, vp, vp, ll, ll, ll, i, i, vp]
@@ -429,47 +440,10 @@ def _lib():
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
-def _on(a: np.ndarray, like: torch.Tensor, dtype=None) -> torch.Tensor:
-    """A host array as a tensor on ``like``'s device (``dtype``, default
-    ``like``'s)."""
-    return torch.as_tensor(np.ascontiguousarray(a)).to(
-        device=like.device, dtype=like.dtype if dtype is None else dtype)
-
-
 def _stream(x: torch.Tensor) -> int:
     """The raw current stream of ``x``'s card (no Stream object built: the
     morphology driver launches K13 dozens of times a call)."""
     return torch._C._cuda_getCurrentRawStream(x.device.index)
-
-
-def correlate1d(x: torch.Tensor, weights, axis: int, mode: str, cval,
-                center: int, pair: int = 0) -> torch.Tensor:
-    """Correlation of ``x`` along ``axis`` with the taps ``weights``
-    (float64 numpy), tap ``center`` on the output, filter mode ``mode``
-    (``cval`` beyond the edge in constant mode), in the direct or, with
-    ``pair``, SciPy's paired order. A CPU tensor takes
-    :func:`correlate1d_plain`; a CUDA tensor launches K8 (contiguous
-    float32 or float64) and adds one to ``correlate1d.launches``."""
-    axis = axis % x.dim()
-    if x.device.type == "cpu":
-        return correlate1d_plain(x, weights, axis, mode, cval, center, pair)
-    check_kernel_tensor(x, "correlate1d")
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    outer, n, inner = _lines(x, axis)
-    w = _on(weights, x)
-    lib = _lib()
-    err = lib.ed_correlate1d(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), w.data_ptr(),
-        outer, n, inner, len(weights), int(center), _MODE_CODES[mode],
-        int(pair), float(cval), _stream(x))
-    _build.check(err, lib, "ed_filters_error_string", "correlate1d")
-    correlate1d.launches += 1
-    return out
-
-
-correlate1d.launches = 0
 
 
 class K8tEdges(NamedTuple):
@@ -514,8 +488,8 @@ def _k8t_edges(n: int, taps: int, center: int, mode: str) -> K8tEdges:
 
 
 class LinePlan(NamedTuple):
-    """How K8T runs on an ``(outer, n, inner)`` view: ``route`` ``"tile"``
-    or ``"lines"``; for a tile, the line tile ``tile`` (a
+    """How K8 or K8T runs on an ``(outer, n, inner)`` view: ``route``
+    ``"tile"`` or ``"lines"``; for a tile, the line tile ``tile`` (a
     :class:`~elasticdeform_tpu_torch.ops.prefilter.TilePlan` of
     ``_tile_plan``) and ``smem``, the block's shared bytes: the tile, the
     taps and the edge table; ``gather``: a packed tile's outputs gather in
@@ -527,20 +501,21 @@ class LinePlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _line_transpose_plan(outer: int, n: int, inner: int, dtype, taps: int,
-                         table: int, width=None, route=None,
-                         sms: int = 132) -> LinePlan:
-    """The launch of K8T on an ``(outer, n, inner)`` view of a ``dtype``
-    tensor with ``taps`` taps and an edge table of ``table`` int32 entries:
-    the tile route for lines up to :func:`~elasticdeform_tpu_torch.ops.
-    prefilter.tile_cap` whose tile, taps and table fit
-    :data:`SMEM_LIMIT`, in a tensor of fewer than 2^31 elements, else the
-    lines route. The tile is K4's (``_tile_plan``), at the width of
-    ``TILE_WIDTHS`` whose blocks, at this plan's shared bytes, fill the
-    fewest rounds of ``sms`` SMs (:func:`k8t_waves`; the first among
-    equals). ``width`` and ``route`` force a choice;
-    a forced tile that does not fit raises ValueError. Cached: the wrapper
-    asks for a plan at every launch."""
+def _line_plan(outer: int, n: int, inner: int, dtype, taps: int,
+               table: int, width=None, route=None,
+               sms: int = 132) -> LinePlan:
+    """The launch of K8 or K8T on an ``(outer, n, inner)`` view of a
+    ``dtype`` tensor with ``taps`` taps and an edge table of ``table`` int32
+    entries (:func:`_k8_edges`, :func:`_k8t_edges`): the tile route for
+    lines up to :func:`~elasticdeform_tpu_torch.ops.prefilter.tile_cap`
+    whose tile, taps and table fit :data:`SMEM_LIMIT`, in a tensor of fewer
+    than 2^31 elements, else the lines route. The tile is K4's
+    (``_tile_plan``), at the width of ``TILE_WIDTHS`` whose blocks, at this
+    plan's shared bytes, fill the fewest rounds of ``sms`` SMs
+    (:func:`line_waves`; the first among equals), among the widths whose
+    packed tile gathers its outputs where one does. ``width`` and ``route``
+    force a choice; a forced tile that does not fit raises ValueError.
+    Cached: the wrappers ask for a plan at every launch."""
     if route not in (None, "tile", "lines"):
         raise ValueError(f"route must be 'tile' or 'lines', got {route!r}")
     item = _pf._ITEMSIZE[dtype]
@@ -549,7 +524,7 @@ def _line_transpose_plan(outer: int, n: int, inner: int, dtype, taps: int,
     if route == "lines" or (route is None and not fits):
         return LinePlan("lines")
     if not fits:
-        raise ValueError(f"K8T's tile route does not take lines of {n} "
+        raise ValueError(f"the line tile does not take lines of {n} "
                          f"({dtype}) in a tensor of {outer * n * inner} "
                          "elements")
     plans = []
@@ -568,23 +543,127 @@ def _line_transpose_plan(outer: int, n: int, inner: int, dtype, taps: int,
     if not plans:
         if route is None:
             return LinePlan("lines")
-        raise ValueError(f"K8T's tile route: a tile of lines of {n}, "
+        raise ValueError(f"the line tile: a tile of lines of {n}, "
                          f"{taps} taps and {table} table entries do not fit "
                          f"{SMEM_LIMIT} bytes")
-    return min(plans, key=lambda p: k8t_waves(p, sms))
+    # a packed tile that stores its outputs directly writes a line apart in
+    # each lane (K8 at c13's innermost float64 axis on an H100: 1.79 ms at
+    # W = 64 storing directly, 0.76 at W = 32 gathered): where a width
+    # gathers, take one
+    gathered = [p for p in plans if p.gather]
+    return min(gathered or plans, key=lambda p: line_waves(p, sms))
 
 
-# K8T's tile route (csrc/filters.cu ED_K8T_THREADS): threads a block, and
-# blocks an SM holds by their registers (launch bounds of 64 a thread)
-K8T_THREADS = 256
-_K8T_BLOCKS = 4
+# K8's and K8T's tile routes (csrc/filters.cu ED_K8T_THREADS): threads a
+# block, and blocks an SM holds by their registers (launch bounds of 64 a
+# thread)
+LINE_THREADS = 256
+_LINE_BLOCKS = 4
 
 
-def k8t_waves(plan: LinePlan, sms: int) -> int:
-    """How many rounds of blocks K8T's tile plan takes on ``sms`` SMs: as
-    many blocks an SM as its shared memory takes, at most four."""
-    per_sm = min(_pf._SM_SMEM // (plan.smem + 1024), _K8T_BLOCKS)
+def line_waves(plan: LinePlan, sms: int) -> int:
+    """How many rounds of blocks K8's or K8T's tile plan takes on ``sms``
+    SMs: as many blocks an SM as its shared memory takes, at most four."""
+    per_sm = min(_pf._SM_SMEM // (plan.smem + 1024), _LINE_BLOCKS)
     return -(-plan.tile.blocks // (sms * per_sm))
+
+
+class K8Edges(NamedTuple):
+    """K8's tile-route view of a line: outputs ``[a, b)`` read only samples
+    inside it (the lines route's interior branch); the others read the
+    samples that the pads of the padded line ``[-center, n + taps-1-center)``
+    fold onto, ``table``: int32, the ``center`` left pads, then the ``taps
+    - 1 - center`` right ones, each the sample index folded by the mode, or
+    -1 where constant mode reads ``cval``."""
+    a: int
+    b: int
+    table: np.ndarray
+
+
+@functools.lru_cache(maxsize=None)
+def _k8_edges(n: int, taps: int, center: int, mode: str) -> K8Edges:
+    """The pad table of K8's tile route on a line of ``n`` with ``taps``
+    taps, tap ``center`` on the output, and its plain run ``[a, b) =
+    [center, n - taps + 1 + center)`` where that is not empty (else no
+    plain output)."""
+    a, b = center, n - (taps - 1) + center
+    if a >= b:
+        a = b = 0
+    pads = list(range(-center, 0)) + list(range(n, n + taps - 1 - center))
+    table = [-1 if mode == "constant" else _fold_index(j, n, mode)
+             for j in pads]
+    return K8Edges(a, b, np.asarray(table, dtype=np.int32))
+
+
+@functools.lru_cache(maxsize=64)
+def _k8_tables(wkey: bytes, mode: str, n: int, center: int, dtype, device):
+    """K8's arguments, uploaded once per taps, mode, line length, centre,
+    dtype and device: the taps and the edge table (the tile route) on
+    ``device``, and the :class:`K8Edges`."""
+    w = np.frombuffer(wkey, dtype=np.float64)
+    edges = _k8_edges(n, len(w), center, mode)
+    return (torch.as_tensor(w.copy()).to(device=device, dtype=dtype),
+            torch.as_tensor(edges.table).to(device), edges)
+
+
+def _launch_line(x: torch.Tensor, weights, axis: int, mode: str, cval,
+                 center: int, pair: int, plan: LinePlan) -> torch.Tensor:
+    """K8 on a CUDA tensor on the route ``plan`` names. Counts nothing
+    (the public wrapper counts)."""
+    check_kernel_tensor(x, "correlate1d")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    outer, n, inner = _lines(x, axis)
+    w = np.ascontiguousarray(weights, dtype=np.float64)
+    w_d, table_d, e = _k8_tables(w.tobytes(), mode, n, int(center), x.dtype,
+                                 x.device)
+    lib = _lib()
+    args = (len(w), int(center), _MODE_CODES[mode], int(pair), float(cval))
+    if plan.route == "lines":
+        err = lib.ed_correlate1d(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(),
+            w_d.data_ptr(), outer, n, inner, *args, _stream(x))
+    else:
+        t = plan.tile
+        err = lib.ed_correlate1d_tile(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(),
+            w_d.data_ptr(), table_d.data_ptr(), outer, n, inner, *args, e.a,
+            e.b, int(plan.gather), t.width, int(t.packed), t.lines, t.stride,
+            t.smem, plan.smem, t.blocks, _stream(x))
+    _build.check(err, lib, "ed_filters_error_string", "correlate1d")
+    return out
+
+
+def correlate1d(x: torch.Tensor, weights, axis: int, mode: str, cval,
+                center: int, pair: int = 0) -> torch.Tensor:
+    """Correlation of ``x`` along ``axis`` with the taps ``weights``
+    (float64 numpy), tap ``center`` on the output, filter mode ``mode``
+    (``cval`` beyond the edge in constant mode), in the direct or, with
+    ``pair``, SciPy's paired order. A CPU tensor takes
+    :func:`correlate1d_plain`; a CUDA tensor launches K8 (contiguous
+    float32 or float64) on the route of :func:`_line_plan` and adds one to
+    ``correlate1d.launches`` and to its route's count in
+    ``correlate1d.routes``."""
+    axis = axis % x.dim()
+    if x.device.type == "cpu":
+        return correlate1d_plain(x, weights, axis, mode, cval, center, pair)
+    check_kernel_tensor(x, "correlate1d")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    outer, n, inner = _lines(x, axis)
+    L = len(weights)
+    e = _k8_edges(n, L, int(center), mode)
+    plan = _line_plan(outer, n, inner, x.dtype, L, len(e.table),
+                      sms=_pf._sm_count(x.device))
+    out = _launch_line(x, weights, axis, mode, cval, center, pair, plan)
+    correlate1d.launches += 1
+    correlate1d.routes[plan.route] += 1
+    return out
+
+
+correlate1d.launches = 0
+correlate1d.routes = {"tile": 0, "lines": 0}
 
 
 @functools.lru_cache(maxsize=64)
@@ -641,7 +720,7 @@ def correlate1d_transpose(g: torch.Tensor, weights, axis: int, mode: str,
                           center: int) -> torch.Tensor:
     """The exact transpose of :func:`correlate1d` (either order) along
     ``axis``. A CPU tensor takes :func:`correlate1d_transpose_plain`; a
-    CUDA tensor launches K8T on the route of :func:`_line_transpose_plan`
+    CUDA tensor launches K8T on the route of :func:`_line_plan`
     and adds one to ``correlate1d_transpose.launches`` and to its route's
     count in ``correlate1d_transpose.routes``."""
     axis = axis % g.dim()
@@ -653,7 +732,7 @@ def correlate1d_transpose(g: torch.Tensor, weights, axis: int, mode: str,
     outer, n, inner = _lines(g, axis)
     L = len(weights)
     e = _k8t_edges(n, L, int(center), mode)
-    plan = _line_transpose_plan(outer, n, inner, g.dtype, L, len(e.table),
+    plan = _line_plan(outer, n, inner, g.dtype, L, len(e.table),
                                 sms=_pf._sm_count(g.device))
     out = _launch_line_transpose(g, weights, axis, mode, center, plan)
     correlate1d_transpose.launches += 1

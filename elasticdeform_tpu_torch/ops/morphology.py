@@ -18,15 +18,19 @@ Counterpart of the JAX package's ``ops/morphology.py`` (less
   geometry) and ``"nd"`` (one thread per voxel in device memory, the
   rest); both reduce the taps in raster order, bit for bit.
 * :func:`rank_filter` (K12): the ``rank``-th smallest footprint tap; up to
-  :data:`RANK_NETWORK_MAX_TAPS` taps through the JAX package's pruned Batcher
-  network (NaN-propagating min/max, so a window holding a NaN gives NaN),
-  above it a selection in the stable sort's order (NaN last, -0 equal to
-  +0, equal values in tap order). The cap is kept for that NaN result,
-  which differs between the two. The selection takes one of two routes,
-  which :func:`_rank_plan` picks: ``"tile"`` (extent > 1 on at most three
-  axes, a box that fits shared memory: a block stages its tile's halo box
-  of keys and values once and selects from there, several key bits a
-  pass) and ``"nd"`` (one thread per voxel in device memory, the rest).
+  :data:`RANK_NETWORK_MAX_TAPS` taps through a Batcher comparator network
+  (NaN-propagating min/max, so a window holding a NaN gives NaN; the JAX
+  package's pruned network), above it a selection in the stable sort's
+  order (NaN last, -0 equal to +0, equal values in tap order). The cap is
+  kept for that NaN result, which differs between the two. Each takes one
+  of two routes, which :func:`_rank_plan` picks. The network:
+  ``"network_tile"`` (3-64 taps, extent > 1 on at most three axes, a box
+  that fits shared memory: a block stages its tile's halo box of values
+  once, each thread runs the network on its voxels' taps in registers) and
+  ``"network"`` (the old kernel, one thread per voxel in device memory,
+  the rest). The selection: ``"tile"`` (a block stages its tile's halo box
+  of keys and values once and selects from there, several key bits a pass)
+  and ``"nd"`` (one thread per voxel in device memory, the rest).
 * :func:`binary_step` (K13): one AND (erosion) or OR (dilation) sweep over
   a structure's taps, ``border_value`` beyond the edge, mask-gated, on bool
   bytes; :func:`binary_sweeps` runs ``k`` of them in one launch on the
@@ -43,9 +47,10 @@ On a CPU tensor each wrapper takes its plain version (``*_plain``: the JAX
 package's algorithm over slices of the padded array); on a CUDA tensor it
 launches its kernel or raises, and adds one to its ``.launches`` counter
 (K11, K12 and K13 also to their route's count in ``.routes``); footprint
-offsets, structure values, comparator pairs and tile tables go to the card
-once per footprint, shape and device (``_geometry``, ``_structure_values``,
-``_network_pairs``, ``_tile_tables``). Every
+offsets, structure values, comparator pairs, live masks and tile tables go
+to the card once per footprint, shape and device (``_geometry``,
+``_structure_values``, ``_network_pairs``, ``_network_mask``,
+``_tile_tables``). Every
 result is a selection, or one subtraction per tap, so the kernels agree with
 their plain versions, and the plain versions with the JAX package, bit for
 bit. PyTorch lacks most operations on uint16, uint32 and uint64; the plain
@@ -67,7 +72,7 @@ import torch
 
 from elasticdeform_tpu_torch.ops import _build
 from elasticdeform_tpu_torch.ops.filters import (
-    _MODE_CODES, _expand_to_ndim, _normalize_axes, _on, _stream, check_mode,
+    _MODE_CODES, _expand_to_ndim, _normalize_axes, _stream, check_mode,
     halo_tile, normalize_sequence, pad_axis,
 )
 from elasticdeform_tpu_torch.ops.prefilter import SMEM_LIMIT, _lines
@@ -107,6 +112,12 @@ RANK_COLUMN = 4
 # K11's tile route (csrc ED_MINMAX_COLUMN): the same blocks, each thread
 # with a column of MINMAX_COLUMN voxels (1 where tile axis 0 has extent 1)
 MINMAX_COLUMN = 8
+# K12's network route on a halo box (rank_network_tile_kernel): the same
+# blocks, each thread with a column of NETWORK_COLUMN voxels taken in turn
+# (1 where tile axis 0 has extent 1), and the wire counts it is built for
+# (two or fewer taps stay on the old kernel)
+NETWORK_COLUMN = 4
+NETWORK_TILE_WIRES = (4, 8, 16, 32, 64)
 
 _DTYPE_CODES = {torch.bool: 0, torch.uint8: 1, torch.int8: 2,
                 torch.uint16: 3, torch.int16: 4, torch.uint32: 5,
@@ -267,6 +278,43 @@ def _rank_network(k, rank):
             live.add(i)
             live.add(j)
     return n, tuple(reversed(kept))
+
+
+@functools.lru_cache(maxsize=None)
+def _network_cone(k, rank):
+    """Per comparator of ``_batcher_pairs(wires)`` (the order of
+    :func:`_rank_network`'s list), whether it lies in the backward cone of
+    sorted position ``rank``: the comparators :func:`_rank_network` keeps,
+    by index (a pair of wires can recur in the list)."""
+    wires, _ = _rank_network(k, rank)
+    pairs = _batcher_pairs(wires) if wires > 1 else ()
+    live = {int(rank)}
+    cone = [False] * len(pairs)
+    for c in range(len(pairs) - 1, -1, -1):
+        i, j = pairs[c]
+        if i in live or j in live:
+            cone[c] = True
+            live.update((i, j))
+    return tuple(cone)
+
+
+@functools.lru_cache(maxsize=None)
+def _network_live(k, rank):
+    """The live mask of K12's network tile for ``k`` taps and ``rank``:
+    bit ``c % 32`` of word ``c // 32`` (uint32) set for comparator ``c`` of
+    ``_batcher_pairs(wires)`` when it is in the cone (:func:`_network_cone`)
+    and its max wire is a tap (``j < k``). A comparator whose max wire is a
+    pad wire is a no-op on windows without NaN (the pad wires hold the
+    type's largest value and keep it), and a window holding a NaN gives NaN
+    through any correct selection network, so skipping it keeps every
+    result bit for bit."""
+    wires, _ = _rank_network(k, rank)
+    pairs = _batcher_pairs(wires)
+    words = np.zeros(-(-len(pairs) // 32), dtype=np.uint32)
+    for c, (keep, (_, j)) in enumerate(zip(_network_cone(k, rank), pairs)):
+        if keep and j < k:
+            words[c // 32] |= np.uint32(1 << (c % 32))
+    return words
 
 
 def _pad_max_value(dtype: torch.dtype):
@@ -690,6 +738,10 @@ def _lib():
         fn.restype = i
         fn.argtypes = [i, i, vp, vp, vp, ip, lp, ip, ip, i, lp, lp, i, i, i,
                        ll, i, ll, vp]
+        fn = lib.ed_rank_network_tile
+        fn.restype = i
+        fn.argtypes = [i, i, i, vp, vp, vp, vp, ip, lp, ip, ip, i, lp, lp, i,
+                       i, i, ll, ll, i, ll, vp]
         fn = lib.ed_min_max_tile
         fn.restype = i
         fn.argtypes = [i, i, i, i, vp, vp, vp, vp, ip, lp, ip, ip, i, lp, lp,
@@ -763,6 +815,14 @@ def _geometry(x: torch.Tensor, footprint, centers, what: str) -> _Geometry:
 
 
 @functools.lru_cache(maxsize=64)
+def _network_mask(taps: int, rank: int, device):
+    """:func:`_network_live`'s words on ``device``, uploaded once per tap
+    count, rank and device (the network tile's)."""
+    return torch.as_tensor(_network_live(taps, rank).view(np.int32)).to(
+        device)
+
+
+@functools.lru_cache(maxsize=64)
 def _network_pairs(taps: int, rank: int, device):
     """``(wires, comparators, pairs on device)`` of the network route,
     uploaded once per tap count, rank and device."""
@@ -776,36 +836,42 @@ class RankPlan(collections.namedtuple(
         "RankPlan", "route tile_axes grid_axes column box smem blocks",
         defaults=((), (), 0, (), 0, 0))):
     """How K12 (or K11) runs on a footprint of ``kshape`` over an array of
-    ``shape``: ``route`` ``"network"`` (K12 up to
+    ``shape``: ``route`` ``"network_tile"`` or ``"network"`` (K12 up to
     :data:`RANK_NETWORK_MAX_TAPS` taps), ``"tile"`` or ``"nd"`` (K11, and
-    K12's select route above). For a tile: the tile and grid axes of
+    K12's select route above). For a tile (``"network_tile"`` or
+    ``"tile"``): the tile and grid axes of
     :func:`~elasticdeform_tpu_torch.ops.filters.halo_tile`; the ``column``
     C of voxels a thread keeps along tile axis 0; the halo ``box`` (the
     tile ``(C, 8, 32)`` grown by the footprint's extent - 1); ``smem``, the
-    shared bytes of the box (K12: keys and values; K11: the work type, and
-    the structure's values when non-flat) and the taps' offsets;
+    shared bytes of the box (K12's network: values, then the wires' offsets
+    and the live mask; its select route: keys and values; K11: the work
+    type, and the structure's values when non-flat) and the taps' offsets;
     ``blocks``, the tiles times the walked batch."""
 
 
 def _halo_plan(what, shape, kshape, column, box_bytes, taps: int,
-               route) -> RankPlan:
+               route, names=("tile", "nd")) -> RankPlan:
     """The halo-box tile plan of K11 or K12 (``what``) on an array of
     ``shape`` under a footprint of ``kshape`` with ``taps`` taps: the tile
-    route when the footprint has extent > 1 on one to three axes, the
-    box's ``box_bytes(cells)`` bytes, rounded up to 4, and the taps' int32
-    offsets fit :data:`SMEM_LIMIT`, a sample's tile axes span fewer than
-    2^31 elements and the grid fewer than 2^31 blocks, else the nd route;
-    the ``column``, 1 where tile axis 0 has extent 1. ``route`` forces a
-    choice (a forced tile that does not fit raises ValueError)."""
-    if route == "nd":
-        return RankPlan("nd")
-    if route not in (None, "tile"):
-        raise ValueError(f"route must be 'tile' or 'nd', got {route!r}")
+    route (``names[0]``) when the footprint has extent > 1 on one to three
+    axes, the box's ``box_bytes(cells)`` bytes, rounded up to 4, and the
+    taps' int32 offsets fit :data:`SMEM_LIMIT`, a sample's tile axes span
+    fewer than 2^31 elements and the grid fewer than 2^31 blocks, else the
+    other route (``names[1]``); the ``column``, 1 where tile axis 0 has
+    extent 1. ``route`` forces a choice (a forced tile that does not fit
+    raises ValueError)."""
+    tile_route, other = names
+    if route == other:
+        return RankPlan(other)
+    if route not in (None, tile_route):
+        raise ValueError(f"route must be {tile_route!r} or {other!r}, got "
+                         f"{route!r}")
 
     def refuse(why):
-        if route == "tile":
-            raise ValueError(f"{what}'s tile route does not take {why}")
-        return RankPlan("nd")
+        if route == tile_route:
+            raise ValueError(f"{what}'s {tile_route} route does not take "
+                             f"{why}")
+        return RankPlan(other)
 
     geo = halo_tile(shape, kshape)
     if not 1 <= geo.axes <= 3:
@@ -821,24 +887,39 @@ def _halo_plan(what, shape, kshape, column, box_bytes, taps: int,
     blocks = geo.blocks(tile)
     if blocks >= 2 ** 31:
         return refuse(f"{blocks} blocks")
-    return RankPlan("tile", geo.tile_axes, geo.grid_axes, tile[0], box, smem,
-                    blocks)
+    return RankPlan(tile_route, geo.tile_axes, geo.grid_axes, tile[0], box,
+                    smem, blocks)
 
 
 @functools.lru_cache(maxsize=1024)
-def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
+def _rank_plan(shape, kshape, dtype, taps: int, route=None,
+               column=NETWORK_COLUMN) -> RankPlan:
     """K12's route on a ``dtype`` array of ``shape`` under a footprint of
-    ``kshape`` with ``taps`` taps: the network route up to
-    :data:`RANK_NETWORK_MAX_TAPS` taps (its NaN rule is the JAX package's
-    there, so no other route may take them); above, :func:`_halo_plan`'s
-    tile route (a box of keys and values, :data:`RANK_COLUMN`) or the nd
-    route. ``route`` forces a choice (a forced tile that does not fit
-    raises ValueError). Cached: the wrapper asks at every launch."""
+    ``kshape`` with ``taps`` taps. Up to :data:`RANK_NETWORK_MAX_TAPS` taps
+    the comparator network (its NaN rule is the JAX package's there, so no
+    other route may take them): :func:`_halo_plan`'s ``"network_tile"``
+    (a box of values, then the wires' offsets and the live mask, a
+    ``column`` of voxels a thread, :data:`NETWORK_COLUMN`) for three to 64
+    taps, else ``"network"``, the old kernel (two taps or fewer, and what
+    the box does not take). Above, :func:`_halo_plan`'s select tile (a box
+    of keys and values, :data:`RANK_COLUMN`) or the nd route. ``route``
+    forces a choice (a forced tile that does not fit raises ValueError).
+    Cached: the wrapper asks at every launch."""
     if taps <= RANK_NETWORK_MAX_TAPS:
-        if route not in (None, "network"):
-            raise ValueError(f"K12 takes {taps} taps on its network route "
+        if route not in (None, "network_tile", "network"):
+            raise ValueError(f"K12 takes {taps} taps on its network routes "
                              f"only, not {route!r}")
-        return RankPlan("network")
+        wires, _ = _rank_network(taps, 0)
+        if wires not in NETWORK_TILE_WIRES:
+            if route == "network_tile":
+                raise ValueError(f"K12's network_tile route does not take "
+                                 f"{taps} taps")
+            return RankPlan("network")
+        words = -(-len(_batcher_pairs(wires)) // 32)
+        return _halo_plan(
+            "K12", shape, kshape, column,
+            lambda cells: cells * dtype.itemsize + 4 * (wires - taps + words),
+            taps, route, ("network_tile", "network"))
     return _halo_plan("K12", shape, kshape, RANK_COLUMN,
                       lambda cells: 2 * cells * dtype.itemsize, taps, route)
 
@@ -1004,16 +1085,27 @@ def _launch_rank(x: torch.Tensor, footprint, centers, mode: str, cval,
     if x.numel() == 0:
         return out
     lib = _lib()
-    if plan.route == "tile":
+    if plan.route in ("tile", "network_tile"):
         fp = np.ascontiguousarray(footprint, dtype=bool)
         toff, host = _tile_tables(
             fp.tobytes(), fp.shape, tuple(int(c) for c in centers),
             tuple(int(n) for n in x.shape), plan, x.device)
-        err = lib.ed_rank_select_tile(
-            _DTYPE_CODES[x.dtype], plan.column, x.data_ptr(),
-            out.data_ptr(), toff.data_ptr(), *host, int(rank),
-            _MODE_CODES[mode], _bits(cval, x.dtype), plan.smem, plan.blocks,
-            _stream(x))
+        if plan.route == "tile":
+            err = lib.ed_rank_select_tile(
+                _DTYPE_CODES[x.dtype], plan.column, x.data_ptr(),
+                out.data_ptr(), toff.data_ptr(), *host, int(rank),
+                _MODE_CODES[mode], _bits(cval, x.dtype), plan.smem,
+                plan.blocks, _stream(x))
+        else:
+            taps = host[-1]
+            wires, _ = _rank_network(taps, int(rank))
+            err = lib.ed_rank_network_tile(
+                _DTYPE_CODES[x.dtype], wires, plan.column, x.data_ptr(),
+                out.data_ptr(), toff.data_ptr(),
+                _network_mask(taps, int(rank), x.device).data_ptr(), *host,
+                int(rank), _MODE_CODES[mode], _bits(cval, x.dtype),
+                _bits(_pad_max_value(x.dtype), x.dtype), plan.smem,
+                plan.blocks, _stream(x))
     else:
         geo = _geometry(x, footprint, centers, "rank_filter")
         pairs, npairs, wires = None, 0, 0
@@ -1056,7 +1148,7 @@ def rank_filter(x: torch.Tensor, footprint, centers, mode: str, cval,
 
 
 rank_filter.launches = 0
-rank_filter.routes = {"network": 0, "tile": 0, "nd": 0}
+rank_filter.routes = {"network_tile": 0, "network": 0, "tile": 0, "nd": 0}
 
 
 def _launch_tile(src: torch.Tensor, out: torch.Tensor, mask, sten, plan,

@@ -311,9 +311,9 @@ def test_plan_at_c15():
             "tile", (0, 1, 2), (), 4, (8, 12, 36),
             2 * 8 * 12 * 36 * 4 + 125 * 4, (shape[0] // 4) * 24 * 7)
     assert tm._rank_plan((160, 192, 224), (3, 3, 3), f32, 27).route == \
-        "network"
+        "network_tile"
     assert tm._rank_plan((160, 192, 224), (5, 5, 5), f32, 33).route == \
-        "network"
+        "network_tile"
 
 
 def test_plan_shapes_and_refusals():
@@ -354,7 +354,7 @@ def test_cpu_tensors_count_no_route():
     before, routes = fn.launches, dict(fn.routes)
     fn(x, np.ones((9, 9), bool), [4, 4], "reflect", 0.0, 40)
     assert fn.launches == before and fn.routes == routes
-    assert set(routes) == {"network", "tile", "nd"}
+    assert set(routes) == {"network_tile", "network", "tile", "nd"}
 
 
 @pytest.fixture

@@ -4,7 +4,7 @@ The card runs K8T (``correlate1d_transpose``) either on the tile route, a
 block staging W whole lines of the cotangent in shared memory (K4's line
 tile) with the taps and an edge table of fold lists, or on the lines route,
 one thread per output in device memory; ``ops/filters.py``'s
-``_line_transpose_plan`` picks the route from the shapes. On the CPU:
+``_line_plan`` picks the route from the shapes. On the CPU:
 
 * a numpy model of the tile route (``csrc/filters.cu``
   ``correlate1d_transpose_tile_kernel``), block by block and thread by
@@ -194,7 +194,7 @@ def test_tile_model_is_the_twin_and_the_jax_vjp(case, mode):
     outer, n, inner = pf._lines(torch.as_tensor(g), axis)
     e = tf._k8t_edges(n, len(w), c, mode)
     for W in pf.TILE_WIDTHS:
-        plan = tf._line_transpose_plan(outer, n, inner, torch.float64,
+        plan = tf._line_plan(outer, n, inner, torch.float64,
                                        len(w), len(e.table), width=W)
         assert plan.route == "tile" and plan.tile.width == W
         got = _tile_model(g, w, axis, mode, c, plan)
@@ -218,7 +218,7 @@ def test_gaussian_tile_model_is_the_jax_vjp(mode):
     for axis in (1, 2, 3):
         outer, n, inner = pf._lines(torch.as_tensor(g), axis)
         e = tf._k8t_edges(n, len(w), len(w) // 2, mode)
-        plan = tf._line_transpose_plan(outer, n, inner, torch.float64,
+        plan = tf._line_plan(outer, n, inner, torch.float64,
                                        len(w), len(e.table))
         got = _tile_model(g, w, axis, mode, len(w) // 2, plan)
         _, vjp = jax.vjp(lambda a: ej.gaussian_filter1d(a, 2.0, axis,
@@ -259,18 +259,18 @@ def test_plan_at_c11():
         outer, n, inner = (int(np.prod(shape[:axis])), shape[axis],
                            int(np.prod(shape[axis + 1:])))
         e = tf._k8t_edges(n, 17, 8, "reflect")
-        plan = tf._line_transpose_plan(outer, n, inner, f32, 17,
+        plan = tf._line_plan(outer, n, inner, f32, 17,
                                        len(e.table))
         assert plan.route == "tile"
         assert plan.gather == (axis == 3)
         assert plan.smem == plan.tile.smem * (2 if axis == 3 else 1) + \
             17 * 4 + 4 * len(e.table)
         assert plan.tile.packed == (axis == 3)
-        waves = tf.k8t_waves(plan, 132)
+        waves = tf.line_waves(plan, 132)
         for W in pf.TILE_WIDTHS:
-            other = tf._line_transpose_plan(outer, n, inner, f32, 17,
+            other = tf._line_plan(outer, n, inner, f32, 17,
                                             len(e.table), width=W)
-            assert tf.k8t_waves(other, 132) >= waves
+            assert tf.line_waves(other, 132) >= waves
 
 
 def test_plan_routes_the_rest_to_lines():
@@ -278,24 +278,24 @@ def test_plan_routes_the_rest_to_lines():
     lines = tf.LinePlan("lines")
     cap = pf.tile_cap(f32)
     # a packed tile at the cap stores its outputs directly: two do not fit
-    at_cap = tf._line_transpose_plan(4, cap, 1, f32, 5, 20)
+    at_cap = tf._line_plan(4, cap, 1, f32, 5, 20)
     assert at_cap.route == "tile" and not at_cap.gather
-    assert tf._line_transpose_plan(4, 200, 1, f32, 5, 20).gather
-    assert tf._line_transpose_plan(4, cap + 1, 1, f32, 5, 20) == lines
-    assert tf._line_transpose_plan(4, pf.tile_cap(f64) + 1, 1, f64, 5,
+    assert tf._line_plan(4, 200, 1, f32, 5, 20).gather
+    assert tf._line_plan(4, cap + 1, 1, f32, 5, 20) == lines
+    assert tf._line_plan(4, pf.tile_cap(f64) + 1, 1, f64, 5,
                                    20) == lines
     # 2^31 elements
-    assert tf._line_transpose_plan(2 ** 21, 1024, 1, f32, 5, 20) == lines
-    assert tf._line_transpose_plan(2 ** 21 - 1, 1024, 1, f32, 5,
+    assert tf._line_plan(2 ** 21, 1024, 1, f32, 5, 20) == lines
+    assert tf._line_plan(2 ** 21 - 1, 1024, 1, f32, 5,
                                    20).route == "tile"
     # a tile at the cap leaves no room for a long kernel's taps and table
-    assert tf._line_transpose_plan(4, cap, 1, f32, 4001, 9000) == lines
-    assert tf._line_transpose_plan(4, 9, 1, f32, 5, 20,
+    assert tf._line_plan(4, cap, 1, f32, 4001, 9000) == lines
+    assert tf._line_plan(4, 9, 1, f32, 5, 20,
                                    route="lines") == lines
     with pytest.raises(ValueError):
-        tf._line_transpose_plan(4, cap + 1, 1, f32, 5, 20, route="tile")
+        tf._line_plan(4, cap + 1, 1, f32, 5, 20, route="tile")
     with pytest.raises(ValueError):
-        tf._line_transpose_plan(4, 9, 1, f32, 5, 20, route="rows")
+        tf._line_plan(4, 9, 1, f32, 5, 20, route="rows")
 
 
 def test_cpu_tensors_count_no_route():
@@ -330,7 +330,7 @@ def test_both_routes_match_plain(cuda_device, dtype, mode):
         lines = tf._launch_line_transpose(gt, w, axis, mode, c,
                                           tf.LinePlan("lines"))
         for W in pf.TILE_WIDTHS:
-            plan = tf._line_transpose_plan(outer, n, inner, dtype, len(w),
+            plan = tf._line_plan(outer, n, inner, dtype, len(w),
                                            len(e.table), width=W)
             got = tf._launch_line_transpose(gt, w, axis, mode, c, plan)
             assert torch.equal(got, lines), plan
