@@ -210,9 +210,7 @@ c16, K3 at c5
 through the public wrappers only, and
 prints a digest of K6's output bits, so that a copy of this file put into
 an older tree times (and checks) that tree's package in the same call to
-the card. ``ab_variants(card)`` builds K12's network tile and K8's tile
-with the build-time variants of ``_AB_VARIANTS`` and times each beside the
-default build.
+the card.
 """
 
 from __future__ import annotations
@@ -2037,7 +2035,8 @@ def _check_k8_routes(rs, worst):
                     float(np.abs(w).sum())
                 e = ft._k8_edges(ln, L, c, mode)
                 plan = ft._line_plan(outer, ln, inner, dtype, L,
-                                     len(e.table))
+                                     len(e.table),
+                                     sm_blocks=ft.k8_sm_blocks(dtype))
                 if (ln > pf.tile_cap(dtype)) != (plan.route == "lines") and \
                         (ln <= 224 or ln > pf.tile_cap(dtype)):
                     raise AssertionError(f"{what}: plan {plan}")
@@ -2065,7 +2064,7 @@ def _check_k8_routes(rs, worst):
                         t = ft._launch_line(
                             x, w, axis, mode, cval, c, pair, ft._line_plan(
                                 outer, ln, inner, dtype, L, len(e.table),
-                                width=W))
+                                width=W, sm_blocks=ft.k8_sm_blocks(dtype)))
                         torch.cuda.synchronize()
                         _same(t, lines, f"{what} W={W}: the tile route vs "
                               "the lines route")
@@ -2110,7 +2109,7 @@ def _check_k12_network_routes(rs, dev):
            np.ones((3, 3, 3), bool), _ball(2), np.ones((4, 4, 4), bool),
            rs.rand(3, 4, 5) > 0.4, np.ones((1, 3, 3, 3), bool))
     shapes = {1: (150,), 2: (23, 37), 3: (9, 10, 35), 4: (2, 5, 9, 40)}
-    n = launches = 0
+    n = 0
     for i, dtype in enumerate(_morph_dtypes()):
         for j, fp in enumerate(fps):
             k = int(fp.sum())
@@ -2138,12 +2137,6 @@ def _check_k12_network_routes(rs, dev):
                 torch.cuda.synchronize()
                 _same(got, want, f"{what} network tile vs plain")
                 _same(old, want, f"{what} network route vs plain")
-                for col in (1, 2, 4):
-                    t = mo._launch_rank(*args, mo._rank_plan(
-                        shape, fp.shape, dtype, k, column=col))
-                    torch.cuda.synchronize()
-                    _same(t, old, f"{what} C={col} vs the network route")
-                    launches += 1
                 n += 1
     # c15's two network filters at its shape, with NaN and zeros of both
     # signs
@@ -2163,7 +2156,7 @@ def _check_k12_network_routes(rs, dev):
         n += 1
     # a repeated call uploads nothing: its tables come from the caches
     x = _rand_volume(rs, (9, 10, 35), torch.float32, dev)
-    caches = (mo._tile_tables, mo._network_mask)
+    caches = (mo._tile_tables,)
     fp = np.ones((3, 3, 3), bool)
     mo.rank_filter(x, fp, [1, 1, 1], "reflect", 0.0, 13)
     misses = [f.cache_info().misses for f in caches]
@@ -2171,10 +2164,9 @@ def _check_k12_network_routes(rs, dev):
     if [f.cache_info().misses for f in caches] != misses:
         raise AssertionError("K12's network tile uploaded its tables again "
                              "at a repeated call")
-    print(f"K12 network route: the network tile (C 1/2/4, {launches} forced "
-          f"launches) bit for bit with the old network kernel and the twin in "
-          f"{n} cases (eleven dtypes with NaN, infinities and zeros of both "
-          f"signs, 3-64 taps, ranks 0, 1, middle, k - 2, k - 1, every mode, "
+    print(f"K12 network route: the network tile bit for bit with the old "
+          f"network kernel and the twin in {n} cases (eleven dtypes with "
+          f"NaN, infinities and zeros of both signs, 3-64 taps, ranks 0, 1, middle, k - 2, k - 1, every mode, "
           f"1-D to 3-D and a batch axis, c15's two filters at its shape); a "
           f"repeated call uploads nothing")
 
@@ -4629,7 +4621,9 @@ def _k8_axes(label, x, w, c, mode, cval, pair, axes, card, mats=None):
     for a in axes:
         outer, n, inner = pf._lines(x, a)
         e = ft._k8_edges(n, L, c, mode)
-        p = ft._line_plan(outer, n, inner, x.dtype, L, len(e.table))
+        blocks = ft.k8_sm_blocks(x.dtype)
+        p = ft._line_plan(outer, n, inner, x.dtype, L, len(e.table),
+                          sm_blocks=blocks)
         if not torch.equal(_bits(ft.correlate1d(x, w, a, mode, cval, c, pair)),
                            _bits(ft._launch_line(x, w, a, mode, cval, c,
                                                  pair, lines_plan))):
@@ -4643,7 +4637,7 @@ def _k8_axes(label, x, w, c, mode, cval, pair, axes, card, mats=None):
         for W in pf.TILE_WIDTHS:
             try:
                 q = ft._line_plan(outer, n, inner, x.dtype, L, len(e.table),
-                                  width=W)
+                                  width=W, sm_blocks=blocks)
             except ValueError:
                 continue
             every[W] = _time_ms(lambda q=q, a=a: ft._launch_line(
@@ -5057,22 +5051,17 @@ def _times_morphology(row, card, k13=None):
                 lambda a=args: mo._launch_rank(*a, nd_plan), reps=3)
             r.update(box=plan.box, smem=plan.smem, blocks=plan.blocks)
         if plan.route == "network_tile":
-            # the old kernel (the network route) and every column
+            # the old kernel (the network route)
             net = mo._rank_plan(S, fp.shape, x.dtype, k, route="network")
             _same(mo._launch_rank(*args, net), want,
                   f"K12 {label} at c15 shapes, network route")
             r["network_route_ms"] = _time_ms(
                 lambda a=args: mo._launch_rank(*a, net), reps=5)
-            cols = {}
-            for q in (1, 2, 4):
-                cp = mo._rank_plan(S, fp.shape, x.dtype, k, column=q)
-                cols[q] = _time_ms(lambda a=args, cp=cp:
-                                   mo._launch_rank(*a, cp))
-            r.update(column=plan.column, column_ms=cols, box=plan.box,
-                     smem=plan.smem, blocks=plan.blocks,
-                     comparators=len(mo._rank_network(k, rank)[1]),
-                     live=int(sum(bin(int(u)).count("1")
-                                  for u in mo._network_live(k, rank))))
+            wires = mo._rank_network(k, rank)[0]
+            r.update(column=plan.column, box=plan.box, smem=plan.smem,
+                     blocks=plan.blocks,
+                     comparators=len(mo._batcher_pairs(wires)),
+                     pruned=len(mo._rank_network(k, rank)[1]))
         if fp.all() or k == 33:
             # the library yardstick: kthvalue over the windows of the padded
             # volume (the unfold windows, the ball's 33 taps gathered from
@@ -5107,10 +5096,10 @@ def _times_morphology(row, card, k13=None):
                  f"{r['smem']} B shared, {r['blocks']} blocks"
                  if "nd_route_ms" in r else "")
               + (f", network route {r['network_route_ms']:.4f} ms, C="
-                 f"{r['column']} (per column {json.dumps(r['column_ms'])}), "
-                 f"box {r['box']}, {r['smem']} B shared, {r['blocks']} "
-                 f"blocks, {r['live']} of {r['comparators']} pruned "
-                 f"comparators live" if "network_route_ms" in r else "")
+                 f"{r['column']}, box {r['box']}, {r['smem']} B shared, "
+                 f"{r['blocks']} blocks, {r['comparators']} comparators "
+                 f"run ({r['pruned']} on the old route)"
+                 if "network_route_ms" in r else "")
               + f") [{card}]")
         del want
     r = routes["median3"]
@@ -5817,95 +5806,6 @@ def _times_displacement(card):
     torch.cuda.synchronize()
     print(f"dense displacement calls per config run: {calls}; "
           f"{sum(calls.values())} in all [{card}]")
-
-
-# build-time variants of K12's network tile and K8's tile (``-D`` macros
-# of their sources): K12's network tile running only the live mask's
-# comparators, on value wires with nan_min / nan_max, or with more
-# registers planned beside its wires; K8's tile with a window of 2 or 8
-# outputs
-_AB_VARIANTS = (("morphology", "live mask", ("-DED_NET_PRUNE=1",)),
-                ("morphology", "value wires", ("-DED_NET_KEYS=0",)),
-                ("morphology", "net slack 72", ("-DED_NET_SLACK=72",)),
-                ("filters", "K8 window 2", ("-DED_K8_WINDOW=2",)),
-                ("filters", "K8 window 8", ("-DED_K8_WINDOW=8",)))
-
-
-def _ab_times(rs, reps):
-    """K12's network tile at c15's two network filters (per column C) and
-    K8 over c11's axes and c13's paired passes, through the port's
-    wrappers, in ms (CUDA events, median of ``reps``)."""
-    import torch
-    from elasticdeform_tpu_torch.ops import filters as ft
-    from elasticdeform_tpu_torch.ops import morphology as mo
-    S = (160, 192, 224)
-    out = {}
-    x = torch.as_tensor(_mri_like(rs, S), device="cuda")
-    for label, fp, rank in (("median3", np.ones((3, 3, 3), bool), 13),
-                            ("ball33", _ball(2), 6)):
-        k = int(fp.sum())
-        c = [q // 2 for q in fp.shape]
-        for q in (1, 2, 4):
-            plan = mo._rank_plan(S, fp.shape, x.dtype, k, column=q)
-            out[f"K12_{label}_C{q}"] = _time_ms(
-                lambda p=plan: mo._launch_rank(x, fp, c, "reflect", 0.0,
-                                               rank, p), reps)
-    del x
-    f = torch.as_tensor(rs.rand(3, *S).astype(np.float32), device="cuda")
-    w = ft.gaussian_weights(2.0, 0, 4.0, None)
-    for a in (1, 2, 3):
-        out[f"K8_c11_axis{a}"] = _time_ms(
-            lambda a=a: ft.correlate1d(f, w, a, "reflect", 0.0, 8), reps)
-    del f
-    v = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)),
-                        dtype=torch.float64, device="cuda")
-    w1 = ft.gaussian_weights(1.0, 0, 4.0, None)
-    for a in (0, 1, 2):
-        out[f"K8_c13_axis{a}"] = _time_ms(
-            lambda a=a: ft.correlate1d(v, w1, a, "mirror", 0.0, 4, 1), reps)
-    return out
-
-
-def ab_variants(card, reps=REPS):
-    """The A/B of the build-time variants (:data:`_AB_VARIANTS`): each
-    source built once per variant with the package's nvcc flags plus its
-    macros, all at once, into ``build/ab/``; then the default build and
-    each variant in turn (default, variants, default) swapped in as the
-    package's library and timed by :func:`_ab_times`, with each variant's
-    ptxas figures for the changed kernels. Prints one line ``ab_variants:
-    {json}`` and returns it."""
-    import ctypes
-    import pathlib
-    from elasticdeform_tpu_torch.ops import _build
-    out_dir = pathlib.Path("build") / "ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for i, (src, label, flags) in enumerate(_AB_VARIANTS):
-        so = out_dir / f"lib{src}_{i}.so"
-        procs.append((src, label, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags,
-             "-I", str(_build.CSRC), "-o", str(so),
-             str(_build.CSRC / f"{src}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    base = {src: _build.library(src) for src in ("morphology", "filters")}
-    rs = np.random.RandomState(17)
-    out = {"default": _ab_times(rs, reps)}
-    for src, label, so, proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"ab_variants: {label} did not build:\n{log}")
-        pat = _K12_NET if src == "morphology" else _K8_TILE
-        regs = {f"{_MANGLED[m.group(1)]} {m.group(2)}": v[:4]
-                for fn, v in _ptxas_kernels(log).items()
-                for m in (pat.search(fn),)
-                if m and not fn.startswith("_ZZ") and m.group(1) == "f"}
-        _build._libs[src] = ctypes.CDLL(str(so))
-        out[label] = _ab_times(rs, reps)
-        out[label]["ptxas_float32"] = dict(sorted(regs.items()))
-        _build._libs[src] = base[src]
-    out["default again"] = _ab_times(rs, reps)
-    print(f"ab_variants: {json.dumps(out)} [{card}]")
-    return out
 
 
 def _device_kernels(prof, calls):

@@ -118,12 +118,10 @@
 #define ED_ROW_TILE 256
 #define ED_THREADS 256
 // K8T's and K8's tile routes: threads a block, and outputs a thread
-// computes at once (K8's may be set at build time for an A/B)
+// computes at once
 #define ED_K8T_THREADS 256
 #define ED_K8T_WINDOW 4
-#ifndef ED_K8_WINDOW
 #define ED_K8_WINDOW 4
-#endif
 // K9's and K9T's tile routes: a block of ED_TILE_Y x ED_TILE_X threads
 #define ED_TILE_Y 8
 #define ED_TILE_X 32

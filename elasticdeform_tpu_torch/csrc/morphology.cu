@@ -117,25 +117,10 @@
 #define ED_MINMAX_COLUMN 8
 // the box rows a warp of K11's and K12's tiles loads before it stores
 #define ED_STAGE_ROWS 4
-// K12's network tile: the comparators of 64 wires; ED_NET_PRUNE 1 runs only
-// the comparators of the live mask, each behind a test of its bit (an A/B
-// variant, chip_smoke.py::ab_variants: slower at c15's shapes on an H100
-// than the whole list, 0.78 against 0.42 ms for the 3^3 median, 1.84
-// against 0.95 for the 33-tap ball); ED_NET_SLACK, the registers beside
-// the wires that NetBlocks plans for
+// K12's network tile: the comparators of 64 wires, and the voxels a thread
+// keeps along tile axis 0 (1 where tile axis 0 has extent 1)
 #define ED_NET_MAX_PAIRS 543
-#ifndef ED_NET_PRUNE
-#define ED_NET_PRUNE 0
-#endif
-#ifndef ED_NET_SLACK
-#define ED_NET_SLACK 40
-#endif
-// ED_NET_KEYS 0: the wires hold the values and each comparator is nan_min
-// and nan_max (an A/B variant: 1.52 ms against 0.42 for the 3^3 median,
-// 5.55 against 0.95 for the 33-tap ball at c15's shapes on an H100)
-#ifndef ED_NET_KEYS
-#define ED_NET_KEYS 1
-#endif
+#define ED_NET_COLUMN 4
 
 namespace {
 
@@ -809,7 +794,6 @@ template <int N>
 struct Batcher {
   static constexpr BatcherNet net = batcher_net(N);
   static constexpr int pairs = net.count;
-  static constexpr int words = (pairs + 31) / 32;  // of the live mask
 };
 static_assert(Batcher<64>::pairs == ED_NET_MAX_PAIRS, "64 wires, 543 pairs");
 
@@ -843,17 +827,6 @@ struct NetKey {
   __device__ static T back(K k) { return (T)k; }
   __device__ static bool nan(T) { return false; }
 };
-#if !ED_NET_KEYS
-// the A/B variant: the wires hold the values, each comparator nan_min and
-// nan_max
-template <typename T>
-struct NetVal {
-  typedef T K;
-  __device__ static K of(T v) { return v; }
-  __device__ static T back(K k) { return k; }
-  __device__ static bool nan(T) { return false; }
-};
-#endif
 template <>
 struct NetKey<float> {
   typedef int K;
@@ -879,31 +852,18 @@ struct NetKey<double> {
   __device__ static bool nan(double v) { return v != v; }
 };
 
-// comparator K of N wires (with ED_NET_PRUNE, only where bit K of the live
-// mask is set: the mask is the same for every thread, so the branch is
-// warp-uniform)
+// comparator C of N wires: one integer min and one max of the keys
 template <typename K, int N, int C>
-__device__ __forceinline__ void net_step(K (&w)[N],
-                                         const unsigned* __restrict__ live) {
+__device__ __forceinline__ void net_step(K (&w)[N]) {
   constexpr int i = net_lo<N>(C), j = net_hi<N>(C);
-#if ED_NET_PRUNE
-  if (!((live[C >> 5] >> (C & 31)) & 1u)) return;
-#endif
   const K a = w[i], b = w[j];
-#if ED_NET_KEYS
   w[i] = b < a ? b : a;
   w[j] = b < a ? a : b;
-#else
-  w[i] = nan_min(a, b);
-  w[j] = nan_max(a, b);
-#endif
 }
 
 template <typename K, int N, size_t... C>
-__device__ __forceinline__ void run_net(K (&w)[N],
-                                        const unsigned* __restrict__ live,
-                                        std::index_sequence<C...>) {
-  (net_step<K, N, (int)C>(w, live), ...);
+__device__ __forceinline__ void run_net(K (&w)[N], std::index_sequence<C...>) {
+  (net_step<K, N, (int)C>(w), ...);
 }
 
 // wire `rank` of w into w[0], by halves: a select tree of compile-time
@@ -920,13 +880,14 @@ __device__ __forceinline__ void take_half(K (&w)[N], int rank) {
 }
 
 // Blocks an SM that the network tile asks registers for: its N wires (two
-// registers each for 8-byte types) and about ED_NET_SLACK more, twice that
-// at 64 wires (which keep more comparators in flight: at 2 blocks, 128
+// registers each for 8-byte types) and about 40 more, twice that at 64
+// wires (which keep more comparators in flight: at 2 blocks, 128
 // registers, their 4-byte types spilled on the H100), at most 4
 template <typename T, int N>
 struct NetBlocks {
+  static constexpr int slack = 40;
   static constexpr int need =
-      N * (sizeof(T) == 8 ? 2 : 1) + ED_NET_SLACK * (N == 64 ? 2 : 1);
+      N * (sizeof(T) == 8 ? 2 : 1) + slack * (N == 64 ? 2 : 1);
   static constexpr int fit = 65536 / (ED_RANK_TY * ED_RANK_TX * need);
   static constexpr int value = fit < 1 ? 1 : fit > 4 ? 4 : fit;
 };
@@ -934,15 +895,12 @@ struct NetBlocks {
 // K12's network route on a halo box: block (batch, tile) stages the tile's
 // box of values once (folded at the array's edges, or cval in constant
 // mode: visit_box, as the select tile stages it), the taps' int32 offsets
-// into the box (raster order, padded to N with 0) and, for the
-// ED_NET_PRUNE variant, the live mask (ops/morphology.py:_network_live: the
-// backward cone of wire rank, less the comparators whose max wire is a pad
-// wire, which swap nothing unless a NaN is about, and then the result is
-// NaN either way). Thread (y, x) then takes each voxel (c, y, x) of its
-// column of C in turn: its taps from shared memory into N wires of keys
-// held in registers (every index a compile-time constant), the pad wires
-// at the type's largest value, Batcher's comparators, wire `rank` out by
-// halves, NaN where a tap is NaN. Any correct selection network gives
+// into the box (raster order, padded to N with 0). Thread (y, x) then takes
+// each voxel (c, y, x) of its column of C in turn: its taps from shared
+// memory into N wires of keys held in registers (every index a
+// compile-time constant), the pad wires at the type's largest value,
+// Batcher's whole comparator list, wire `rank` out by halves, NaN where a
+// tap is NaN. Any correct selection network gives
 // rank_network_kernel's result bit for bit: nan_min / nan_max order the
 // values totally, -0 below +0, and send a NaN to the result.
 template <typename T, int N>
@@ -950,7 +908,6 @@ __global__ void __launch_bounds__(ED_RANK_TY * ED_RANK_TX,
                                   NetBlocks<T, N>::value)
 rank_network_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
                          const int* __restrict__ toff_g,
-                         const unsigned* __restrict__ live_g,
                          const RankTile p, int column, const T cval,
                          const T pad) {
   extern __shared__ __align__(16) unsigned char ed_smem[];
@@ -959,7 +916,6 @@ rank_network_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
   T* box = reinterpret_cast<T*>(ed_smem);
   int* toff = reinterpret_cast<int*>(
       ed_smem + (((size_t)cells * sizeof(T) + 3) & ~(size_t)3));
-  unsigned* live = reinterpret_cast<unsigned*>(toff + N);
   int s0, s1, s2;
   const int64_t base = tile_block(p, column, &s0, &s1, &s2);
   visit_box(p, x + base, s0, s1, s2,
@@ -967,19 +923,13 @@ rank_network_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
   const int tid = threadIdx.y * ED_RANK_TX + threadIdx.x;
   for (int t = tid; t < N; t += ED_RANK_TY * ED_RANK_TX)
     toff[t] = t < p.taps ? toff_g[t] : 0;
-  for (int k = tid; k < Batcher<N>::words; k += ED_RANK_TY * ED_RANK_TX)
-    live[k] = live_g[k];
   __syncthreads();
   const int j1 = s1 + threadIdx.y, j2 = s2 + threadIdx.x;
   if (j1 >= p.n[1] || j2 >= p.n[2]) return;
   const T* col = box + threadIdx.y * P1 + threadIdx.x;  // voxel c: + c * P0
   T* os = out + base + j1 * p.st[1] + j2 * p.st[2];
   const int cn = p.n[0] - s0 < column ? p.n[0] - s0 : column;
-#if ED_NET_KEYS
   typedef NetKey<T> NK;
-#else
-  typedef NetVal<T> NK;
-#endif
   typedef typename NK::K K;
   const K kpad = NK::of(pad);
 #pragma unroll 1
@@ -995,8 +945,7 @@ rank_network_tile_kernel(const T* __restrict__ x, T* __restrict__ out,
       nan = nan || (tap && NK::nan(a));
       w[t] = tap ? NK::of(a) : kpad;
     }
-    run_net<K, N>(w, live,
-                  std::make_index_sequence<(size_t)Batcher<N>::pairs>{});
+    run_net<K, N>(w, std::make_index_sequence<(size_t)Batcher<N>::pairs>{});
     take_half<K, N, N / 2>(w, p.rank);
     T r = NK::back(w[0]);
     if constexpr (std::is_floating_point<T>::value) r = nan ? T(NAN) : r;
@@ -1490,63 +1439,42 @@ cudaError_t launch_rank_tile(int column, const void* x, void* out,
 
 template <typename T, int N>
 cudaError_t launch_net_tile_n(const void* x, void* out, const int* toff,
-                              const unsigned* live, const RankTile& p,
-                              int column, long long cval_bits,
-                              long long pad_bits, int smem, unsigned blocks,
-                              cudaStream_t s) {
+                              const RankTile& p, int column,
+                              long long cval_bits, long long pad_bits,
+                              int smem, unsigned blocks, cudaStream_t s) {
   static int allowed = 0;
   auto kern = rank_network_tile_kernel<T, N>;
   const cudaError_t err = allow_smem(kern, &allowed, smem);
   if (err != cudaSuccess) return err;
   kern<<<blocks, dim3(ED_RANK_TX, ED_RANK_TY), (size_t)smem, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), toff, live, p, column,
+      static_cast<const T*>(x), static_cast<T*>(out), toff, p, column,
       from_bits<T>(cval_bits), from_bits<T>(pad_bits));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_net_tile(int wires, const void* x, void* out,
-                            const int* toff, const unsigned* live,
-                            const RankTile& p, int column,
+                            const int* toff, const RankTile& p, int column,
                             long long cval_bits, long long pad_bits,
                             int smem, unsigned blocks, cudaStream_t s) {
   switch (wires) {
     case 4:
-      return launch_net_tile_n<T, 4>(x, out, toff, live, p, column,
-                                     cval_bits, pad_bits, smem, blocks, s);
+      return launch_net_tile_n<T, 4>(x, out, toff, p, column, cval_bits,
+                                     pad_bits, smem, blocks, s);
     case 8:
-      return launch_net_tile_n<T, 8>(x, out, toff, live, p, column,
-                                     cval_bits, pad_bits, smem, blocks, s);
+      return launch_net_tile_n<T, 8>(x, out, toff, p, column, cval_bits,
+                                     pad_bits, smem, blocks, s);
     case 16:
-      return launch_net_tile_n<T, 16>(x, out, toff, live, p, column,
-                                      cval_bits, pad_bits, smem, blocks, s);
+      return launch_net_tile_n<T, 16>(x, out, toff, p, column, cval_bits,
+                                      pad_bits, smem, blocks, s);
     case 32:
-      return launch_net_tile_n<T, 32>(x, out, toff, live, p, column,
-                                      cval_bits, pad_bits, smem, blocks, s);
+      return launch_net_tile_n<T, 32>(x, out, toff, p, column, cval_bits,
+                                      pad_bits, smem, blocks, s);
     case 64:
-      return launch_net_tile_n<T, 64>(x, out, toff, live, p, column,
-                                      cval_bits, pad_bits, smem, blocks, s);
+      return launch_net_tile_n<T, 64>(x, out, toff, p, column, cval_bits,
+                                      pad_bits, smem, blocks, s);
     default:
       return cudaErrorInvalidValue;
-  }
-}
-
-// the live mask's 32-bit words for N wires (0 where N is not a wire count
-// of the network tile)
-int net_words(int wires) {
-  switch (wires) {
-    case 4:
-      return Batcher<4>::words;
-    case 8:
-      return Batcher<8>::words;
-    case 16:
-      return Batcher<16>::words;
-    case 32:
-      return Batcher<32>::words;
-    case 64:
-      return Batcher<64>::words;
-    default:
-      return 0;
   }
 }
 
@@ -1823,16 +1751,14 @@ int ed_rank_select_tile(int dtype, int column, const void* x, void* out,
 // K12's network route on a halo box, with the plan of
 // ops/morphology.py:_rank_plan ("network_tile"): the host arrays of
 // ed_rank_select_tile; wires N (4, 8, 16, 32 or 64, taps <= N < 2 taps)
-// and column C (1, 2 or 4); device: toff[taps], each tap's offset into the
-// box in raster order, and live, the comparators' live mask (bit k of word
-// k / 32 for comparator k of _batcher_pairs(N), ops/morphology.py
-// _network_live); smem: the plan's shared bytes, at least the box's values,
-// N offsets and the mask's words. cval_bits: cval in x's type; pad_bits:
+// and column C (1 or ED_NET_COLUMN); device: toff[taps], each tap's offset
+// into the box in raster order; smem: the plan's shared bytes, at least the
+// box's values and N offsets. cval_bits: cval in x's type; pad_bits:
 // the pad wires' value, the type's largest. A plan that does not fit the
 // shapes is refused with cudaErrorInvalidValue. x and out must not
 // overlap. Returns cudaGetLastError().
 int ed_rank_network_tile(int dtype, int wires, int column, const void* x,
-                         void* out, const void* toff, const void* live,
+                         void* out, const void* toff,
                          const int* n3, const long long* st3, const int* k3,
                          const int* c3, int nb, const long long* bn,
                          const long long* bst, int taps, int rank, int mode,
@@ -1840,21 +1766,21 @@ int ed_rank_network_tile(int dtype, int wires, int column, const void* x,
                          long long blocks, void* stream) {
   RankTile p;
   int64_t cells;
-  const int words = net_words(wires);
-  if (dtype < 0 || dtype > 10 || words == 0 || taps > wires ||
-      2 * taps <= wires || rank < 0 || rank >= taps ||
-      (column != 1 && column != 2 && column != 4) || live == nullptr ||
+  if (dtype < 0 || dtype > 10 ||
+      (wires != 4 && wires != 8 && wires != 16 && wires != 32 &&
+       wires != 64) ||
+      taps > wires || 2 * taps <= wires || rank < 0 || rank >= taps ||
+      (column != 1 && column != ED_NET_COLUMN) ||
       !make_rank_tile(&p, column, n3, st3, k3, c3, nb, bn, bst, taps, mode,
                       blocks, &cells))
     return (int)cudaErrorInvalidValue;
   p.rank = rank;
   const int64_t need = ((cells * kItemsize[dtype] + 3) & ~(int64_t)3) +
-                       4 * (int64_t)(wires + words);
+                       4 * (int64_t)wires;
   if (smem < need || smem > ED_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* to = static_cast<const int*>(toff);
-  const unsigned* lv = static_cast<const unsigned*>(live);
-  ED_DISPATCH(dtype, launch_net_tile<T>(wires, x, out, to, lv, p, column,
+  ED_DISPATCH(dtype, launch_net_tile<T>(wires, x, out, to, p, column,
                                         cval_bits, pad_bits, smem,
                                         (unsigned)blocks, s))
 }

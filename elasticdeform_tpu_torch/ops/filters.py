@@ -487,23 +487,37 @@ def _k8t_edges(n: int, taps: int, center: int, mode: str) -> K8tEdges:
     return K8tEdges(a, b, len(rows), len(epos), table)
 
 
+# K8's and K8T's tile routes (csrc/filters.cu ED_K8T_THREADS): threads a
+# block, and blocks an SM their kernels' registers allow (launch bounds of
+# 64 a thread; K8's float64 window takes 85, so 3 blocks)
+LINE_THREADS = 256
+LINE_BLOCKS = 4
+
+
+def k8_sm_blocks(dtype) -> int:
+    """The blocks an SM that K8's tile kernel allows in ``dtype``."""
+    return 3 if dtype == torch.float64 else LINE_BLOCKS
+
+
 class LinePlan(NamedTuple):
     """How K8 or K8T runs on an ``(outer, n, inner)`` view: ``route``
     ``"tile"`` or ``"lines"``; for a tile, the line tile ``tile`` (a
     :class:`~elasticdeform_tpu_torch.ops.prefilter.TilePlan` of
     ``_tile_plan``) and ``smem``, the block's shared bytes: the tile, the
     taps and the edge table; ``gather``: a packed tile's outputs gather in
-    a second tile in shared memory (where it fits), stored as one run."""
+    a second tile in shared memory (where it fits), stored as one run;
+    ``sm_blocks``: the blocks an SM the kernel's registers allow."""
     route: str
     tile: _pf.TilePlan | None = None
     smem: int = 0
     gather: bool = False
+    sm_blocks: int = LINE_BLOCKS
 
 
 @functools.lru_cache(maxsize=1024)
 def _line_plan(outer: int, n: int, inner: int, dtype, taps: int,
-               table: int, width=None, route=None,
-               sms: int = 132) -> LinePlan:
+               table: int, width=None, route=None, sms: int = 132,
+               sm_blocks: int = LINE_BLOCKS) -> LinePlan:
     """The launch of K8 or K8T on an ``(outer, n, inner)`` view of a
     ``dtype`` tensor with ``taps`` taps and an edge table of ``table`` int32
     entries (:func:`_k8_edges`, :func:`_k8t_edges`): the tile route for
@@ -511,9 +525,11 @@ def _line_plan(outer: int, n: int, inner: int, dtype, taps: int,
     whose tile, taps and table fit :data:`SMEM_LIMIT`, in a tensor of fewer
     than 2^31 elements, else the lines route. The tile is K4's
     (``_tile_plan``), at the width of ``TILE_WIDTHS`` whose blocks, at this
-    plan's shared bytes, fill the fewest rounds of ``sms`` SMs
-    (:func:`line_waves`; the first among equals), among the widths whose
-    packed tile gathers its outputs where one does. ``width`` and ``route``
+    plan's shared bytes and at most ``sm_blocks`` blocks an SM (K8T's
+    :data:`LINE_BLOCKS`, K8's :func:`k8_sm_blocks`), fill the fewest rounds
+    of ``sms`` SMs (:func:`line_waves`; the first among equals), among the
+    widths whose packed tile gathers its outputs where one does. ``width``
+    and ``route``
     force a choice; a forced tile that does not fit raises ValueError.
     Cached: the wrappers ask for a plan at every launch."""
     if route not in (None, "tile", "lines"):
@@ -536,7 +552,7 @@ def _line_plan(outer: int, n: int, inner: int, dtype, taps: int,
         # a packed tile gathers its outputs in a second tile where it fits
         for gather in ((True, False) if tile.packed else (False,)):
             plan = LinePlan("tile", tile, tile.smem * (1 + gather) + extra,
-                            gather)
+                            gather, sm_blocks)
             if plan.smem <= SMEM_LIMIT:
                 plans.append(plan)
                 break
@@ -554,17 +570,11 @@ def _line_plan(outer: int, n: int, inner: int, dtype, taps: int,
     return min(gathered or plans, key=lambda p: line_waves(p, sms))
 
 
-# K8's and K8T's tile routes (csrc/filters.cu ED_K8T_THREADS): threads a
-# block, and blocks an SM holds by their registers (launch bounds of 64 a
-# thread)
-LINE_THREADS = 256
-_LINE_BLOCKS = 4
-
-
 def line_waves(plan: LinePlan, sms: int) -> int:
     """How many rounds of blocks K8's or K8T's tile plan takes on ``sms``
-    SMs: as many blocks an SM as its shared memory takes, at most four."""
-    per_sm = min(_pf._SM_SMEM // (plan.smem + 1024), _LINE_BLOCKS)
+    SMs: as many blocks an SM as its shared memory takes, at most the
+    plan's ``sm_blocks``."""
+    per_sm = min(_pf._SM_SMEM // (plan.smem + 1024), plan.sm_blocks)
     return -(-plan.tile.blocks // (sms * per_sm))
 
 
@@ -655,7 +665,8 @@ def correlate1d(x: torch.Tensor, weights, axis: int, mode: str, cval,
     L = len(weights)
     e = _k8_edges(n, L, int(center), mode)
     plan = _line_plan(outer, n, inner, x.dtype, L, len(e.table),
-                      sms=_pf._sm_count(x.device))
+                      sms=_pf._sm_count(x.device),
+                      sm_blocks=k8_sm_blocks(x.dtype))
     out = _launch_line(x, weights, axis, mode, cval, center, pair, plan)
     correlate1d.launches += 1
     correlate1d.routes[plan.route] += 1

@@ -47,10 +47,9 @@ On a CPU tensor each wrapper takes its plain version (``*_plain``: the JAX
 package's algorithm over slices of the padded array); on a CUDA tensor it
 launches its kernel or raises, and adds one to its ``.launches`` counter
 (K11, K12 and K13 also to their route's count in ``.routes``); footprint
-offsets, structure values, comparator pairs, live masks and tile tables go
-to the card once per footprint, shape and device (``_geometry``,
-``_structure_values``, ``_network_pairs``, ``_network_mask``,
-``_tile_tables``). Every
+offsets, structure values, comparator pairs and tile tables go to the card
+once per footprint, shape and device (``_geometry``, ``_structure_values``,
+``_network_pairs``, ``_tile_tables``). Every
 result is a selection, or one subtraction per tap, so the kernels agree with
 their plain versions, and the plain versions with the JAX package, bit for
 bit. PyTorch lacks most operations on uint16, uint32 and uint64; the plain
@@ -112,8 +111,9 @@ RANK_COLUMN = 4
 # K11's tile route (csrc ED_MINMAX_COLUMN): the same blocks, each thread
 # with a column of MINMAX_COLUMN voxels (1 where tile axis 0 has extent 1)
 MINMAX_COLUMN = 8
-# K12's network route on a halo box (rank_network_tile_kernel): the same
-# blocks, each thread with a column of NETWORK_COLUMN voxels taken in turn
+# K12's network route on a halo box (rank_network_tile_kernel, csrc
+# ED_NET_COLUMN): the same blocks, each thread with a column of
+# NETWORK_COLUMN voxels taken in turn
 # (1 where tile axis 0 has extent 1), and the wire counts it is built for
 # (two or fewer taps stay on the old kernel)
 NETWORK_COLUMN = 4
@@ -278,43 +278,6 @@ def _rank_network(k, rank):
             live.add(i)
             live.add(j)
     return n, tuple(reversed(kept))
-
-
-@functools.lru_cache(maxsize=None)
-def _network_cone(k, rank):
-    """Per comparator of ``_batcher_pairs(wires)`` (the order of
-    :func:`_rank_network`'s list), whether it lies in the backward cone of
-    sorted position ``rank``: the comparators :func:`_rank_network` keeps,
-    by index (a pair of wires can recur in the list)."""
-    wires, _ = _rank_network(k, rank)
-    pairs = _batcher_pairs(wires) if wires > 1 else ()
-    live = {int(rank)}
-    cone = [False] * len(pairs)
-    for c in range(len(pairs) - 1, -1, -1):
-        i, j = pairs[c]
-        if i in live or j in live:
-            cone[c] = True
-            live.update((i, j))
-    return tuple(cone)
-
-
-@functools.lru_cache(maxsize=None)
-def _network_live(k, rank):
-    """The live mask of K12's network tile for ``k`` taps and ``rank``:
-    bit ``c % 32`` of word ``c // 32`` (uint32) set for comparator ``c`` of
-    ``_batcher_pairs(wires)`` when it is in the cone (:func:`_network_cone`)
-    and its max wire is a tap (``j < k``). A comparator whose max wire is a
-    pad wire is a no-op on windows without NaN (the pad wires hold the
-    type's largest value and keep it), and a window holding a NaN gives NaN
-    through any correct selection network, so skipping it keeps every
-    result bit for bit."""
-    wires, _ = _rank_network(k, rank)
-    pairs = _batcher_pairs(wires)
-    words = np.zeros(-(-len(pairs) // 32), dtype=np.uint32)
-    for c, (keep, (_, j)) in enumerate(zip(_network_cone(k, rank), pairs)):
-        if keep and j < k:
-            words[c // 32] |= np.uint32(1 << (c % 32))
-    return words
 
 
 def _pad_max_value(dtype: torch.dtype):
@@ -740,8 +703,8 @@ def _lib():
                        ll, i, ll, vp]
         fn = lib.ed_rank_network_tile
         fn.restype = i
-        fn.argtypes = [i, i, i, vp, vp, vp, vp, ip, lp, ip, ip, i, lp, lp, i,
-                       i, i, ll, ll, i, ll, vp]
+        fn.argtypes = [i, i, i, vp, vp, vp, ip, lp, ip, ip, i, lp, lp, i, i,
+                       i, ll, ll, i, ll, vp]
         fn = lib.ed_min_max_tile
         fn.restype = i
         fn.argtypes = [i, i, i, i, vp, vp, vp, vp, ip, lp, ip, ip, i, lp, lp,
@@ -815,14 +778,6 @@ def _geometry(x: torch.Tensor, footprint, centers, what: str) -> _Geometry:
 
 
 @functools.lru_cache(maxsize=64)
-def _network_mask(taps: int, rank: int, device):
-    """:func:`_network_live`'s words on ``device``, uploaded once per tap
-    count, rank and device (the network tile's)."""
-    return torch.as_tensor(_network_live(taps, rank).view(np.int32)).to(
-        device)
-
-
-@functools.lru_cache(maxsize=64)
 def _network_pairs(taps: int, rank: int, device):
     """``(wires, comparators, pairs on device)`` of the network route,
     uploaded once per tap count, rank and device."""
@@ -843,8 +798,8 @@ class RankPlan(collections.namedtuple(
     :func:`~elasticdeform_tpu_torch.ops.filters.halo_tile`; the ``column``
     C of voxels a thread keeps along tile axis 0; the halo ``box`` (the
     tile ``(C, 8, 32)`` grown by the footprint's extent - 1); ``smem``, the
-    shared bytes of the box (K12's network: values, then the wires' offsets
-    and the live mask; its select route: keys and values; K11: the work
+    shared bytes of the box (K12's network: values, then the wires'
+    offsets; its select route: keys and values; K11: the work
     type, and the structure's values when non-flat) and the taps' offsets;
     ``blocks``, the tiles times the walked batch."""
 
@@ -892,14 +847,13 @@ def _halo_plan(what, shape, kshape, column, box_bytes, taps: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def _rank_plan(shape, kshape, dtype, taps: int, route=None,
-               column=NETWORK_COLUMN) -> RankPlan:
+def _rank_plan(shape, kshape, dtype, taps: int, route=None) -> RankPlan:
     """K12's route on a ``dtype`` array of ``shape`` under a footprint of
     ``kshape`` with ``taps`` taps. Up to :data:`RANK_NETWORK_MAX_TAPS` taps
     the comparator network (its NaN rule is the JAX package's there, so no
     other route may take them): :func:`_halo_plan`'s ``"network_tile"``
-    (a box of values, then the wires' offsets and the live mask, a
-    ``column`` of voxels a thread, :data:`NETWORK_COLUMN`) for three to 64
+    (a box of values, then the wires' offsets, :data:`NETWORK_COLUMN`
+    voxels a thread) for three to 64
     taps, else ``"network"``, the old kernel (two taps or fewer, and what
     the box does not take). Above, :func:`_halo_plan`'s select tile (a box
     of keys and values, :data:`RANK_COLUMN`) or the nd route. ``route``
@@ -915,10 +869,9 @@ def _rank_plan(shape, kshape, dtype, taps: int, route=None,
                 raise ValueError(f"K12's network_tile route does not take "
                                  f"{taps} taps")
             return RankPlan("network")
-        words = -(-len(_batcher_pairs(wires)) // 32)
         return _halo_plan(
-            "K12", shape, kshape, column,
-            lambda cells: cells * dtype.itemsize + 4 * (wires - taps + words),
+            "K12", shape, kshape, NETWORK_COLUMN,
+            lambda cells: cells * dtype.itemsize + 4 * (wires - taps),
             taps, route, ("network_tile", "network"))
     return _halo_plan("K12", shape, kshape, RANK_COLUMN,
                       lambda cells: 2 * cells * dtype.itemsize, taps, route)
@@ -1101,9 +1054,8 @@ def _launch_rank(x: torch.Tensor, footprint, centers, mode: str, cval,
             wires, _ = _rank_network(taps, int(rank))
             err = lib.ed_rank_network_tile(
                 _DTYPE_CODES[x.dtype], wires, plan.column, x.data_ptr(),
-                out.data_ptr(), toff.data_ptr(),
-                _network_mask(taps, int(rank), x.device).data_ptr(), *host,
-                int(rank), _MODE_CODES[mode], _bits(cval, x.dtype),
+                out.data_ptr(), toff.data_ptr(), *host, int(rank),
+                _MODE_CODES[mode], _bits(cval, x.dtype),
                 _bits(_pad_max_value(x.dtype), x.dtype), plan.smem,
                 plan.blocks, _stream(x))
     else:

@@ -109,21 +109,38 @@ def test_nonfinite_cval_on_finite_input(name, cval):
     assert np.isfinite(got).any() and not np.isfinite(got).all()
 
 
+# the calls that pass along every axis they filter: one non-finite sample
+# turns the JAX package's whole result into NaN after three passes, so the
+# comparison with it takes two axes, leaving a free axis across which no
+# pass carries a non-finite value
+JAX_AXES = {"gaussian_filter": (0, 1), "gaussian_laplace": (0, 1),
+            "sobel": (1, 2), "prewitt": (0, 1)}
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", sorted(CALLS))
 def test_port_is_jax_where_jax_is_finite(name, mode):
     """The existing oracle still binds: wherever the JAX package's result
     is finite (no non-finite value reached it there), the port equals it
-    (float64, ``rtol=1e-12``)."""
+    (float64, ``rtol=1e-12``). The non-finite samples lie in the last three
+    slices along a free axis (axis 2, or the one outside ``JAX_AXES``), so
+    that more than a quarter of the JAX result stays finite."""
     make, kw = CALLS[name]
     args = make(np.random.RandomState(len(name)))
+    free = 2
+    if name in JAX_AXES:
+        kw = dict(kw, axes=JAX_AXES[name])
+        free, = set(range(3)) - set(JAX_AXES[name])
     x = _volume(4, np.float64, (9, 8, 7))
-    x[:, :, :4] = np.random.RandomState(6).standard_normal((9, 8, 4))
+    head = (slice(None),) * free + (slice(0, x.shape[free] - 3),)
+    x[head] = np.random.RandomState(6).standard_normal(x[head].shape)
+    assert not np.isfinite(x).all()
     kw = dict(kw, mode=mode, cval=0.4)
     got = _port(name, x, args, kw)
     want = np.asarray(getattr(ej, name)(x, *args, **kw))
     fin = np.isfinite(want)
-    scale = float(np.abs(want[fin]).max()) if fin.any() else 0.0
+    assert fin.mean() > 0.25
+    scale = float(np.abs(want[fin]).max())
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12,
                                atol=1e-12 * scale)
 

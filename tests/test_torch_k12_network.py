@@ -12,12 +12,11 @@ thread per voxel reading device memory; ``ops/morphology.py``'s
   comparator list (``batcher_merge`` / ``batcher_sort``) against
   ``_batcher_pairs``, 2 to 64 wires, and its pair count against the
   source's ``ED_NET_MAX_PAIRS``;
-* the live mask (``_network_live``, the build's ``ED_NET_PRUNE`` variant):
-  the backward cone equals ``_rank_network``'s pruned list for every tap
-  count up to 64 and every rank, less the comparators whose max wire is a
-  pad wire;
+* the whole list against the old kernel's pruned one: for every tap count
+  up to 64 and every rank, ``_rank_network``'s list is the backward cone of
+  wire ``rank`` in the whole list, and the two give the same wire ``rank``;
 * a numpy model of the kernel's arithmetic (integer keys in nan_min /
-  nan_max's order, a NaN flag, the full and the masked network, wire
+  nan_max's order, a NaN flag, the whole list or the pruned one, wire
   ``rank`` taken by halves) against ``rank_filter_plain`` and the JAX
   package's ``rank_filter`` / ``median_filter`` / ``percentile_filter``
   bit for bit (NaN where NaN, a zero's sign), over float32 with NaN,
@@ -85,24 +84,39 @@ def test_constexpr_list_is_batcher_pairs(n):
     assert len(tm._batcher_pairs(64)) == MAX_PAIRS
 
 
+def _cone(pairs, rank):
+    """The comparators of ``pairs`` in the backward cone of wire ``rank``,
+    in their order: those that can change it."""
+    live, kept = {rank}, []
+    for i, j in reversed(pairs):
+        if i in live or j in live:
+            kept.append((i, j))
+            live.update((i, j))
+    return tuple(reversed(kept))
+
+
 @pytest.mark.parametrize("k", range(1, 65))
-def test_live_mask_is_the_pruned_list(k):
-    """For every rank: the cone's comparators are ``_rank_network``'s, in
-    its order, and the mask's bits are the cone's less those whose max
-    wire is a pad wire (index >= k)."""
+def test_whole_list_selects_what_the_pruned_list_does(k):
+    """For every rank: ``_rank_network``'s list (the old kernel's) is the
+    whole list's backward cone of wire ``rank``, and on random keys with
+    pad wires at the largest the two lists leave the same wire ``rank``
+    (the network tile runs the whole list)."""
+    rs = np.random.RandomState(k)
     for rank in range(k):
         wires, kept = tm._rank_network(k, rank)
         pairs = tm._batcher_pairs(wires) if wires > 1 else ()
-        cone = tm._network_cone(k, rank)
-        assert tuple(p for p, c in zip(pairs, cone) if c) == kept
-        if wires < 4:
-            continue
-        words = tm._network_live(k, rank)
-        assert words.dtype == np.uint32 and len(words) == -(-len(pairs) // 32)
-        bits = [(int(words[c // 32]) >> (c % 32)) & 1
-                for c in range(len(pairs))]
-        assert bits == [int(c and j < k) for c, (_, j) in zip(cone, pairs)]
-        assert sum(bits) <= len(kept)
+        assert _cone(pairs, rank) == kept
+        w0 = np.concatenate([rs.randint(-5, 5, (40, k)),
+                             np.full((40, wires - k), 99)], 1)
+        got = []
+        for net in (pairs, kept):
+            w = w0.copy()
+            for i, j in net:
+                a, b = w[:, i].copy(), w[:, j].copy()
+                w[:, i], w[:, j] = np.minimum(a, b), np.maximum(a, b)
+            got.append(w[:, rank])
+        np.testing.assert_array_equal(got[0], got[1])
+        np.testing.assert_array_equal(got[0], np.sort(w0, 1)[:, rank])
 
 
 def _keys(v):
@@ -141,22 +155,19 @@ def _tap_stack(x, fp, centers, mode, cval):
                      for tap in taps], -1).reshape(-1, len(taps))
 
 
-def _network_model(x, fp, centers, mode, cval, rank, masked):
+def _network_model(x, fp, centers, mode, cval, rank, pruned):
     """The network tile's arithmetic per voxel: keys, pad wires at the
-    type's largest value, the full comparator list or the live mask's,
-    integer min and max, wire ``rank`` by halves, NaN where a tap is
-    NaN."""
+    type's largest value, the whole comparator list (or, ``pruned``, the
+    old kernel's), integer min and max, wire ``rank`` by halves, NaN where
+    a tap is NaN."""
     dtype = x.dtype
     stack = _tap_stack(x, fp, centers, mode, cval)
     k = stack.shape[1]
-    wires, _ = tm._rank_network(k, rank)
+    wires, kept = tm._rank_network(k, rank)
     pad = np.asarray(tm._pad_max_value(torch.as_tensor(x).dtype), dtype)
     w = _keys(np.concatenate(
         [stack, np.broadcast_to(pad, (len(stack), wires - k))], 1))
-    live = tm._network_live(k, rank)
-    for c, (i, j) in enumerate(tm._batcher_pairs(wires)):
-        if masked and not (int(live[c // 32]) >> (c % 32)) & 1:
-            continue
+    for i, j in kept if pruned else tm._batcher_pairs(wires):
         a, b = w[:, i].copy(), w[:, j].copy()
         w[:, i], w[:, j] = np.minimum(a, b), np.maximum(a, b)
     half = wires // 2
@@ -230,8 +241,8 @@ def test_network_model_is_the_twin_and_the_jax_package(name, dtype, mode):
                        if dtype.kind != "b" else 1.0, xt.dtype)
     for rank in sorted({1, k // 2, k - 2}):
         twin = tm.rank_filter_plain(xt, fp, centers, mode, cval, rank).numpy()
-        for masked in (False, True):
-            _same(_network_model(x, fp, centers, mode, cval, rank, masked),
+        for pruned in (False, True):
+            _same(_network_model(x, fp, centers, mode, cval, rank, pruned),
                   twin)
         if k // 2 == rank and k % 2:
             want = ej.median_filter(x, footprint=fp, mode=mode, cval=cval,
@@ -246,7 +257,7 @@ def test_network_model_is_the_twin_and_the_jax_package(name, dtype, mode):
     rank = int(pct / 100.0 * k)
     rank = min(max(rank, 0), k - 1)
     if 0 < rank < k - 1:
-        _same(_network_model(x, fp, centers, mode, cval, rank, True),
+        _same(_network_model(x, fp, centers, mode, cval, rank, False),
               np.asarray(want))
 
 
@@ -272,20 +283,21 @@ def test_plan_at_c15_and_wires():
     for fs, k in (((3, 3, 3), 27), ((5, 5, 5), 33)):
         plan = tm._rank_plan(S, fs, f32, k)
         wires, _ = tm._rank_network(k, 0)
-        words = -(-len(tm._batcher_pairs(wires)) // 32)
         box = (tm.NETWORK_COLUMN + fs[0] - 1, 8 + fs[1] - 1, 32 + fs[2] - 1)
         assert plan == tm.RankPlan(
             "network_tile", (0, 1, 2), (), tm.NETWORK_COLUMN, box,
-            4 * int(np.prod(box)) + 4 * (wires + words),
+            4 * int(np.prod(box)) + 4 * wires,
             (S[0] // 4) * 24 * 7)
-    # every wire count of the tile, and its column
+    # every wire count of the tile; a column of one where tile axis 0 has
+    # extent 1
     for k, wires in ((3, 4), (5, 8), (9, 16), (17, 32), (64, 64)):
         assert tm._rank_network(k, 0)[0] == wires
         plan = tm._rank_plan((40, 50), (1, k), f64, k)
         assert plan.route == "network_tile" and plan.column == 1
-        for c in (1, 2, 4):
-            assert tm._rank_plan((9, 40, 50), (3, 3, 3), f32, 27,
-                                 column=c).column == c
+    assert tm._rank_plan((9, 40, 50), (3, 3, 3), f32, 27).column == \
+        tm.NETWORK_COLUMN
+    assert tm.NETWORK_COLUMN == int(re.search(
+        r"#define ED_NET_COLUMN (\d+)", _SRC).group(1))
 
 
 def test_plan_routes_and_refusals():

@@ -251,7 +251,8 @@ def _plan(shape, axis, dtype, L, c, mode, **kw):
     outer, n, inner = (int(np.prod(shape[:axis])), shape[axis],
                        int(np.prod(shape[axis + 1:])))
     e = tf._k8_edges(n, L, c, mode)
-    return tf._line_plan(outer, n, inner, dtype, L, len(e.table), **kw)
+    return tf._line_plan(outer, n, inner, dtype, L, len(e.table),
+                         sm_blocks=tf.k8_sm_blocks(dtype), **kw)
 
 
 def test_plans_at_c11_c12_c13():
@@ -278,6 +279,20 @@ def test_plans_at_c11_c12_c13():
     # c11's packed axis: two blocks an SM at W = 64, as K8T's
     plan = _plan((3, 160, 192, 224), 3, f32, 17, 8, "reflect")
     assert plan.tile.width == 64 and tf.line_waves(plan, 132) == 6
+
+
+@pytest.mark.parametrize("dtype,blocks", [(torch.float32, 4),
+                                          (torch.float64, 3)])
+def test_waves_count_the_kernels_blocks_an_sm(dtype, blocks):
+    """K8's float64 tile kernel is launch-bounded to 3 blocks an SM (K8T's
+    and K8's float32 to 4): where shared memory would take more, the plan's
+    waves count the kernel's."""
+    plan = _plan((16, 65536), 0, dtype, 9, 4, "reflect")
+    assert plan.route == "tile" and plan.sm_blocks == blocks
+    assert pf._SM_SMEM // (plan.smem + 1024) > blocks
+    assert tf.line_waves(plan, 132) == -(-plan.tile.blocks // (132 * blocks))
+    k8t = tf._line_plan(1, 16, 65536, dtype, 9, 16)
+    assert k8t.sm_blocks == tf.LINE_BLOCKS == 4
 
 
 def test_plan_refusals():
