@@ -11,7 +11,8 @@ Phases (any failure raises, and the exit code is not 0):
    CUDA kernels from ``elasticdeform_tpu_torch/csrc`` with nvcc, prints
    each source's build time and ptxas figures and each K2/K4/K6/K7
    instantiation's (both routes, every tile width, K2's writeback route),
-   K9T's tile instantiations (per dtype, column and fold flag) and
+   K9T's tile instantiations (per dtype, column and fold flag), K2's
+   writeback product (per dtype), K10's box (per dtype, min or max) and
    K1/K1c's, K5/K5c's and K3/K3c's (per dtype, index width, rank and
    order), K8T's and K8's tile instantiations (per dtype and width), K12's
    select tile (per dtype and column) and network tile (per dtype and wire
@@ -38,6 +39,12 @@ Phases (any failure raises, and the exit code is not 0):
    point list; K2 (prefilter) over orders 2-5 and axis lengths 9/64/200 at
    every axis position, plus the uint8/int16 writeback (K2's writeback
    route) in float32 and float64 on lines of 2-9, 33 and 40, bit for bit;
+   K2's writeback route in its product form against its rows route and
+   ``_row_sums``, bit for bit, in float32 and float64, the int8-int64 and
+   uint8-uint32 writebacks and the fixed-order sums, the mirror, reflect
+   and wrap tables, its chunk skip on (integer inputs) and off (inputs
+   with NaN and infinities), c2's and c18's axes, packed and strided,
+   lines at the tile cap and past it;
    K4 (the
    transposed prefilter) over orders 2-5 and lengths 1/2/9/64/200 at every
    axis position; K6 and K7 (the reflect/wrap prefilter and its transpose)
@@ -101,7 +108,10 @@ Phases (any failure raises, and the exit code is not 0):
    infinities where the twins have them; and, bit for bit in all eleven
    dtypes (bool, the eight integer
    types, float32 and float64 with NaN and infinities), K10 (1-D min/max)
-   over sizes 1-15 at every centre, the five modes and every axis, K11
+   over sizes 1-15 at every centre, the five modes and every axis, and its
+   box route (every pass of a separable box in one launch) against its
+   lines route over boxes of 1-3 axes on 1-D to 5-D inputs, sizes 2-25,
+   per-axis modes and centres (4 axes on the lines route), K11
    (footprint min/max) over flat and non-flat 2-D to 4-D footprints with
    saturating integer casts, K12 (rank selection) over 2-343 taps on both
    routes, and K13 (binary sweep) over random, even and empty structures,
@@ -138,16 +148,20 @@ Phases (any failure raises, and the exit code is not 0):
    float32 MRI-like volume, bit for bit), c16 (grey opening, white top-hat
    and a non-flat dilation of c13's int16 CT volume, bit for bit) and c17
    (binary opening, hole filling and propagation of a 160x192x224 bool
-   segmentation), each compared with the port's own ``device="cpu"`` run;
+   segmentation), and c18 (``deform_grid`` of a 96^3 int16 CT volume at
+   order 3, bit for bit), each compared with the port's own ``device="cpu"``
+   run;
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
-   do not need it (exact counts for c11-c16, and c17's K13 sweeps per
+   do not need it (exact counts for c11-c16 and c18, and c17's K13 sweeps
+   per
    call, 4, 80 and 168, all on the tile route, with its pack and unpack
    launches; K2's, K4's, K6's, K7's, K3's, K3c's, K8T's, K9's, K9T's,
-   K11's and K12's launches split by route, the tile route taken, c8's and
-   c9's K6 only there, c11-c13's K8, c11's K8T, c14's K9 and K9T, c15's
-   5^3 median and c16's K11 on the tile route, c15's two network filters
-   on the network tile, no config on K2's writeback route);
+   K10's, K11's and K12's launches split by route, the tile route taken
+   (K10: its box route), c8's and c9's K6 only there, c11-c13's K8, c11's
+   K8T, c14's K9 and K9T, c15's 5^3 median and c16's K11 on the tile
+   route, c16's K10 in two box launches, c15's two network filters on the
+   network tile, c18 alone on K2's writeback route, in its product form);
    then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
@@ -156,8 +170,10 @@ Phases (any failure raises, and the exit code is not 0):
    its plain version and library yardstick (K1-K5 at the c5 shapes, K4,
    K6 and K7 also per axis with their route, tile width, blocks per SM and
    waves, every width, the lines route, the tile's copy alone and a plain
-   device copy; K2's writeback route at c2's 200x300 and on a 128^3 int16
-   volume beside its operation bound; also
+   device copy; K2's writeback route at c2's 200x300 and on a 128^3
+   int16 volume in its product form, without the chunk skip and on the
+   rows route, beside ``tensordot`` and its operation bound (a row of its
+   own in the JSON line); also
    at order 1 beside ``grid_sample``; K1c, K3c, K5c at the c7 shapes beside
    ``grid_sample``; the share of K5's and K5c's blocks whose tap box would
    fit 16 KB of shared memory; K6, K7 and again K1c, K3c at the c8 shapes;
@@ -172,8 +188,10 @@ Phases (any failure raises, and the exit code is not 0):
    the c11, c13 and c14 shapes (K8 and K8T per axis with their route,
    width, shared bytes and waves, every width and the lines route, beside
    ``tensordot`` with M or M^T per axis, K8T also with a packed tile's
-   direct stores; K8 on c13's float64 paired passes the same); K10 and K11 at
-   the c16 shapes beside ``max_pool3d``, K12 at the c15 shapes on each
+   direct stores; K8 on c13's float64 paired passes the same); K10 (c16's
+   5^3 dilation on the box route and on the lines route, per axis, and
+   c16's opening both ways) and K11 at the c16 shapes beside
+   ``max_pool3d``, K12 at the c15 shapes on each
    route (the network tile at every column and the old network kernel, the
    select route's tile and nd routes)
    beside ``torch.kthvalue`` over the unfold windows of the padded volume
@@ -194,8 +212,8 @@ Phases (any failure raises, and the exit code is not 0):
    library-only probes' rates), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel (K2,
-K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K11, K12 and K13 with their launches
-per route;
+its writeback route, K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K10, K11, K12
+and K13 with their launches per route;
 K13 also
 its sweeps and its pack and unpack launches); the last line
 is
@@ -204,8 +222,8 @@ CUDA device is present or when the package is missing.
 
 ``times_ab(card)`` times K2 at c5, K8T and K8 at c11, K8 on c13's paired
 passes, K12's 5^3 median, 3^3 median and 33-tap percentile at c15,
-K6 at c8 and c9, K2's integer writeback at c2, K9T and K9 at c14, K11 at
-c16, K3 at c5
+K6 at c8 and c9, K2's integer writeback at c2 and c18, K9T and K9 at c14,
+K10's 5^3 erosion and dilation and K11 at c16, K3 at c5
 (orders 3 and 1), K3c at c7 and every config
 through the public wrappers only, and
 prints a digest of K6's output bits, so that a copy of this file put into
@@ -483,6 +501,9 @@ _K12_TILE = re.compile(r"rank_select_tile_kernelI([bhatsjimlfd])Li(\d)E")
 _K9_TILE = re.compile(r"correlate_nd_tile_kernelI([fd])Li(\d)E")
 _K11_TILE = re.compile(r"min_max_tile_kernelI([bhatsjimlfd])([bhatsjimlfd])"
                        r"Lb([01])ELb([01])ELi(\d)E")
+# K2's writeback product (dtype) and K10's box route (dtype, min or max)
+_K2_PRODUCT = re.compile(r"writeback_product_kernelI([fd])E")
+_K10_BOX = re.compile(r"min_max_box_kernelI([bhatsjimlfd])Lb([01])E")
 # K8's tile route (dtype, width W) and K12's network tile (dtype, wires)
 _K8_TILE = re.compile(r"correlate1d_tile_kernelI([fd])Li(\d+)E")
 _K12_NET = re.compile(r"rank_network_tile_kernelI([bhatsjimlfd])Li(\d+)E")
@@ -646,6 +667,12 @@ def phase_build():
     _check_tile_table(
         "K9 tile", _build.build_logs["filters"], _K9_TILE, 8,
         lambda dt, c: f"{_MANGLED[dt]} C={c}")
+    _check_tile_table(
+        "K2 writeback product", _build.build_logs["prefilter"], _K2_PRODUCT,
+        2, lambda dt: _MANGLED[dt])
+    _check_tile_table(
+        "K10 box", _build.build_logs["morphology"], _K10_BOX, 22,
+        lambda dt, mn: f"{_MANGLED[dt]} {'min' if mn == '1' else 'max'}")
     _check_tile_table(
         "K11 tile", _build.build_logs["morphology"], _K11_TILE, 88,
         lambda dt, w, mn, nf, c: f"{_MANGLED[dt]} work {_MANGLED[w]} "
@@ -825,6 +852,7 @@ def phase_kernels():
     _check_k1_widths(rs)
     _check_bc_prefilter(rs, worst)
     _check_tile_routes(rs, worst)
+    _check_k2_product(rs)
     _check_int_deform(rs)
     _check_int_resampler(rs)
     _check_int_cast(rs)
@@ -837,6 +865,7 @@ def phase_kernels():
     _check_filter_kernels(rs, worst)
     _check_morph_outputs(rs)
     _check_morph_kernels(rs)
+    _check_k10_box(rs, torch.device("cuda"))
     _check_k11_routes(rs, torch.device("cuda"))
     _check_k12_routes(rs, torch.device("cuda"))
     _check_k12_network_routes(rs, torch.device("cuda"))
@@ -1449,6 +1478,96 @@ def _check_tile_routes(rs, worst):
           f"{n_cases} cases pass against their twins; {n_bits} tile launches "
           f"(W {'/'.join(map(str, pf.TILE_WIDTHS))}) equal the lines route "
           f"bit for bit; the adjoint identities hold in float64")
+
+
+# K2's writeback product checks: views (outer, n, inner) of c2's and 128^3's
+# axes, packed (inner < 64) and strided, partial bands and tiles, lines
+# at the tile cap and past it
+_K2_PRODUCT_VIEWS = ((1, 200, 300), (200, 300, 1), (1, 128, 16384),
+                     (128, 128, 128), (16384, 128, 1), (3, 5, 1), (2, 33, 3),
+                     (5, 64, 63), (3, 65, 64), (2, 100, 65), (7, 31, 2),
+                     (4, 1, 7), (3, 880, 1), (2, 881, 5), (2, 1761, 1),
+                     (1, 1760, 3))
+_K2_PRODUCT_INTS = (np.int8, np.uint8, np.int16, np.uint16, np.int32,
+                    np.uint32, np.int64)
+
+
+def _check_k2_product(rs):
+    """K2's writeback route in its product form (``writeback_product_kernel``)
+    against its rows route (``writeback_rows``, in the tile or lines form
+    of the view's plan) and the twin ``_row_sums``, bit for bit: float32 and
+    float64; the int8-int64 and uint8-uint32 writebacks and ``int_bits`` 0
+    (the fixed-order sums); the mirror table and ``filter_matrix_bc``'s
+    reflect and wrap; the chunk skip on (integer inputs, up to int32's
+    edges for the wide types) and off (inputs holding NaN and infinities,
+    NaN where the twin puts it); every view of :data:`_K2_PRODUCT_VIEWS`.
+    The wrapper must take the product form and count it."""
+    import torch
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    from elasticdeform_tpu_torch.ops.resample import cast_int_c
+    dev = torch.device("cuda")
+    kinds = ([("mirror", None, True), ("mirror", None, False),
+              ("reflect", None, True), ("wrap", None, False)] +
+             [("mirror", t, True) for t in _K2_PRODUCT_INTS])
+    n_cases = n_skip = 0
+    for (outer, n, inner), dtype in itertools.product(
+            _K2_PRODUCT_VIEWS, (torch.float32, torch.float64)):
+        big = outer * n * inner > 10 ** 6 or n > 800
+        for i, (bc, idt, finite) in enumerate(kinds):
+            if big and i % 3 != (n + inner) % 3:
+                continue    # large views: a third of the kinds each
+            order = (2, 3, 4, 5)[(i + n) % 4]
+            if finite:
+                info = np.iinfo(idt or np.int16)
+                lo, hi = max(info.min, -2 ** 31), min(info.max, 2 ** 31 - 1)
+                a = rs.randint(lo, hi, (outer, n, inner), dtype=np.int64)
+                a.reshape(-1)[:2] = (lo, hi)
+            else:
+                a = rs.rand(outer, n, inner) * 2000 - 1000
+                a.reshape(-1)[rs.randint(a.size, size=3)] = (np.nan, np.inf,
+                                                              -np.inf)
+            x = torch.as_tensor(a, dtype=dtype, device=dev)
+            what = (f"K2 writeback product {dtype} {bc} order={order} "
+                    f"(outer, n, inner)={(outer, n, inner)} int="
+                    f"{None if idt is None else np.dtype(idt)} "
+                    f"finite={finite}")
+            plan = pf._writeback_plan(outer, n, inner, dtype,
+                                      sms=pf._sm_count(dev))
+            if plan.route != "product":
+                raise AssertionError(f"{what}: plan {plan}")
+            got = pf._launch_writeback(x, order, 1, bc, plan, idt, finite)
+            rows = pf._launch_writeback(x, order, 1, bc, plan.rows, idt)
+            want = pf._row_sums(x, pf._filter_table(n, order, dtype, dev, bc),
+                                1)
+            if idt is not None:
+                want = cast_int_c(want, idt)
+            torch.cuda.synchronize()
+            for other, label in ((want, "_row_sums"), (rows, "rows route")):
+                if not (torch.equal(torch.isnan(got), torch.isnan(other)) and
+                        torch.equal(_bits(torch.nan_to_num(got)),
+                                    _bits(torch.nan_to_num(other)))):
+                    raise AssertionError(
+                        f"{what}: {int((got != other).sum())} values differ "
+                        f"from the {label}")
+            n_cases += 1
+            n_skip += finite
+    # the wrapper: an integer writeback and the fixed-order sums take the
+    # product form and count it
+    x = torch.as_tensor(rs.randint(0, 256, (1, 200, 300, 1)),
+                        dtype=torch.float64, device=dev)
+    before = dict(pf.spline_filter1d.writeback_routes)
+    for a in (1, 2):
+        pf.spline_filter1d(x, 3, a, np.uint8)
+    pf.spline_filter1d_bc(x, 3, 1, "reflect", True)
+    if pf.spline_filter1d.writeback_routes["product"] != before["product"] + 2:
+        raise AssertionError("K2's wrapper did not count its writeback "
+                             "launches on the product form")
+    print(f"K2 writeback product bit for bit with its rows route and "
+          f"_row_sums in {n_cases} cases ({n_skip} with the chunk skip; "
+          f"float32 and float64, int8-int64 / uint8-uint32 writebacks and "
+          f"the fixed-order sums, mirror / reflect / wrap tables, "
+          f"{len(_K2_PRODUCT_VIEWS)} views up to the tile cap and past it); "
+          f"the wrapper counts the product form")
 
 
 # the integer deform check's inputs: 1-D to 3-D, axes of 2, 3, 5, 8, 9,
@@ -2346,6 +2465,70 @@ def _check_k9_routes(rs):
           f"NaN); repeated calls upload nothing")
 
 
+# K10's box checks: (shape, ((axis, size), ...)) in the passes' order
+_K10_BOX_CASES = (((37,), ((0, 3),)), ((5, 41), ((1, 4), (0, 2))),
+                  ((9, 7, 40), ((0, 5), (1, 3), (2, 2))),
+                  ((9, 7, 40), ((2, 7), (0, 2))),
+                  ((3, 6, 5, 33), ((1, 3), (3, 9))), ((4, 70), ((1, 5),)),
+                  ((6, 5, 4), ((0, 9), (2, 3), (1, 2))),
+                  ((2, 3, 17, 19), ((2, 4), (3, 6), (0, 2))),
+                  ((50, 3), ((0, 8),)), ((3, 4, 2, 5, 6), ((1, 3), (4, 2))),
+                  ((33, 2, 3), ((1, 2), (0, 6))), ((20, 3), ((0, 25),)),
+                  ((40, 37, 70), ((0, 5), (1, 5), (2, 5))),
+                  ((2, 33, 150), ((2, 3), (1, 4))),
+                  ((20, 45, 3, 66), ((3, 5), (0, 2), (1, 3))),
+                  ((11, 12, 13, 14), ((0, 2), (1, 2), (2, 2), (3, 2))))
+
+
+def _check_k10_box(rs, dev):
+    """K10's box route (every pass of a separable box in one launch) bit
+    for bit with its lines route (one launch a pass) and the twin (a zero's
+    sign too, NaN where NaN), through the wrapper and its count, in the
+    eleven dtypes (floats with NaN, infinities and zeros of both signs,
+    integers over their range or a pool of ties), min and max, boxes of
+    one to three axes on 1-D to 5-D inputs (batch axes merged and walked by
+    the grid), sizes 2-9 and one longer than its axis, per-axis modes and
+    centres, a ``cval`` of the type (floats also NaN, -0, +0, inf); a box
+    over four axes runs on the lines route, a launch a pass."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    n = 0
+    for dtype, (shape, sizes), minimum in itertools.product(
+            _morph_dtypes(), _K10_BOX_CASES, (True, False)):
+        x = _rand_volume(rs, shape, dtype, dev)
+        passes = [(ax, size, int(rs.randint(size)), MODES[rs.randint(5)])
+                  for ax, size in sizes]
+        cval = _cval_for(rs, dtype)
+        if dtype.is_floating_point and rs.rand() < 0.4:
+            cval = (float("nan"), -0.0, 0.0, float("inf"))[rs.randint(4)]
+        kshape = [1] * len(shape)
+        for ax, size in sizes:
+            kshape[ax] = size
+        plan = mo._box_plan(shape, tuple(kshape), dtype)
+        want_route = "lines" if len(sizes) > 3 else "box"
+        what = (f"K10 box {dtype} shape={shape} passes={passes} min="
+                f"{minimum} cval={cval} plan={plan}")
+        if plan.route != want_route:
+            raise AssertionError(f"{what}: not on the {want_route} route")
+        before = dict(mo.min_max_filter1d.routes)
+        got = mo.min_max_box(x, passes, cval, minimum)
+        count = 1 if want_route == "box" else len(passes)
+        if mo.min_max_filter1d.routes[want_route] != \
+                before[want_route] + count:
+            raise AssertionError(f"{what}: the wrapper did not count "
+                                 f"{count} launches on its route")
+        lines = mo._launch_box(x, passes, cval, minimum, mo.BoxPlan("lines"))
+        want = mo.min_max_box_plain(x, passes, cval, minimum)
+        torch.cuda.synchronize()
+        _same(got, want, f"{what} vs the twin")
+        _same(lines, want, f"{what}: lines route vs the twin")
+        n += 1
+    print(f"K10 box route bit for bit with its lines route and the twin in "
+          f"{n} cases (eleven dtypes, min and max, boxes of 1-3 axes on "
+          f"1-D to 5-D inputs, sizes 2-25, per-axis modes and centres; 4 "
+          f"axes on the lines route)")
+
+
 def _check_k11_routes(rs, dev):
     """K11 on both routes: the tile route bit for bit with the nd route and
     the twin (a zero's sign too, NaN where NaN) and the wrapper on the tile
@@ -3094,7 +3277,8 @@ def _on(cache, device, *arrays):
 
 
 def _configs(seed=0):
-    """The BASELINE configs: c1, c2, c3 and c3's gradient, c4, c5, c6."""
+    """The BASELINE configs c1, c2, c3 and c3's gradient, c4, c5, c6, and
+    c7-c18."""
     import torch
     import elasticdeform_tpu_torch as et
     rs = np.random.RandomState(seed)
@@ -3352,6 +3536,19 @@ def _configs(seed=0):
     cfg17 = _Config("c17", c17, 3 * math.prod(S7), [None, None, None])
     cfg17.sweeps = sweeps17
 
+    # c18: deform_grid of an int16 CT volume at the reference's default
+    # order 3, mirror, with a float32 3x3x3 grid (sigma 4): 3-D U-Net
+    # pipelines augment int16 CT volumes without a float copy. The integer
+    # input puts K2 on its writeback route (the product form), a launch per
+    # axis, then K1. At 128^3 the CPU run took 32.7 s on the card's host,
+    # so the config runs 96^3 (phase 4 times K2's writeback at 128^3)
+    X18 = rs.randint(-1000, 3001, (96, 96, 96)).astype(np.int16)
+    d18 = (rs.randn(3, 3, 3, 3) * 4).astype(np.float32)
+
+    def c18(device, n=None):
+        return [et.deform_grid(X18, d18, order=3, mode="mirror",
+                               device=device)]
+
     return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
             _Config("c2", c2, 200 * 300, [F32, F32]),
             _Config("c3", c3, 96 ** 3, [F32]),
@@ -3369,7 +3566,8 @@ def _configs(seed=0):
             _Config("c14", c14, 3 * math.prod(S7), [F32, F32, F32]),
             _Config("c15", c15, (2 * 160 + 80) * 192 * 224, [EXACT] * 3),
             _Config("c16", c16, (2 * 512 + 256) * 512 * 300, [None] * 3),
-            cfg17]
+            cfg17,
+            _Config("c18", c18, 96 ** 3, [None])]
 
 
 def _mri_like(rs, shape):
@@ -3467,7 +3665,8 @@ _MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
                 "c14": ("correlate_nd", "correlate_nd_transpose"),
                 "c15": ("rank_filter",),
                 "c16": ("min_max_filter1d", "min_max_filter"),
-                "c17": ("binary_step",)}
+                "c17": ("binary_step",),
+                "c18": ("spline_prefilter", "resample_fwd")}
 # exact launch counts of the filter configs: c11 one K8 and one K8T per
 # spatial axis; c12 three passes for each of the three LoG and three
 # gradient terms; c13 three gaussian passes and sobel's three; c14 K9 for
@@ -3481,13 +3680,17 @@ _EXACT_LAUNCHES = {
             "correlate_nd_transpose": 0},
     "c14": {"correlate1d": 0, "correlate1d_transpose": 0, "correlate_nd": 2,
             "correlate_nd_transpose": 1},
-    # c15: one K12 per filter; c16: K10 on three axes for the erosion and
-    # the dilation of the opening, K11 for the top-hat's erosion and
-    # dilation and for the non-flat dilation
+    # c15: one K12 per filter; c16: K10's box route for the erosion and
+    # the dilation of the opening (a launch each, its three passes
+    # inside), K11 for the top-hat's erosion and dilation and for the
+    # non-flat dilation; c18: K2's writeback route a launch per axis, K1
+    # once
     "c15": {"min_max_filter1d": 0, "min_max_filter": 0, "rank_filter": 3,
             "binary_step": 0},
-    "c16": {"min_max_filter1d": 6, "min_max_filter": 3, "rank_filter": 0,
-            "binary_step": 0}}
+    "c16": {"min_max_filter1d": 2, "min_max_filter": 3, "rank_filter": 0,
+            "binary_step": 0},
+    "c18": {"spline_prefilter": 3, "resample_fwd": 1,
+            "spline_prefilter_transpose": 0, "resample_bwd": 0}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
 # (3^3 median and the 33-tap percentile on the network tile, the 5^3
@@ -3501,7 +3704,10 @@ _TILE_ROUTES = (("c11", "correlate1d", {"tile": 3, "lines": 0}),
                 ("c14", "correlate_nd_transpose", {"tile": 1, "nd": 0}),
                 ("c15", "rank_filter", {"network_tile": 2, "network": 0,
                                         "tile": 1, "nd": 0}),
-                ("c16", "min_max_filter", {"tile": 3, "nd": 0}))
+                ("c16", "min_max_filter", {"tile": 3, "nd": 0}),
+                ("c16", "min_max_filter1d", {"box": 2, "lines": 0}),
+                ("c18", "spline_prefilter", {"tile": 0, "lines": 0,
+                                             "writeback": 3}))
 # c17's K13 sweeps per call (the fixpoints' counts of the seeded
 # segmentation, as every PR since PR 5 measured them) and its (pack, unpack)
 # launches: the opening packs and unpacks its erosion and its dilation, each
@@ -3527,8 +3733,12 @@ _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
 # the resampler's configs run no filter or morphology kernel, the filter
 # and morphology configs nothing outside their tier; c17 only K13 (its sweep
 # counts are checked per call)
+_MUST_NOT_LAUNCH["c18"] = ("spline_prefilter_transpose", "spline_prefilter_bc",
+                           "spline_prefilter_bc_transpose",
+                           "resample_coords_fwd", "resample_coords_bwd",
+                           "resample_coords_grad") + _DEFORM_KERNELS[1:]
 for _name in ("c1", "c2", "c3", "c3_grad", "c4", "c5", "c6", "c7", "c8",
-              "c9", "c10"):
+              "c9", "c10", "c18"):
     _MUST_NOT_LAUNCH[_name] = _MUST_NOT_LAUNCH.get(_name, ()) + \
         FILTER_KERNELS + MORPH_KERNELS + PROBE_KERNELS
 for _name, _tier in (("c11", FILTER_KERNELS), ("c12", FILTER_KERNELS),
@@ -3591,13 +3801,26 @@ def _k13_counts():
                                        "launches", 0)}
 
 
+def _writeback_counts():
+    """K2's and K6's writeback launches per form (``{"product": ..,
+    "rows": ..}``; a tree without the product form counts all as rows)."""
+    from elasticdeform_tpu_torch.ops import prefilter as pf
+    out = {}
+    for name, w in (("spline_prefilter", pf.spline_filter1d),
+                    ("spline_prefilter_bc", pf.spline_filter1d_bc)):
+        out[name] = dict(getattr(w, "writeback_routes", {
+            "product": 0, "rows": w.routes["writeback"]}))
+    return out
+
+
 def _reset_counts():
     from elasticdeform_tpu_torch.ops import morphology as mo
     for ws in _wrappers().values():
         for w in ws:
             w.launches = 0
-            for route in getattr(w, "routes", {}):
-                w.routes[route] = 0
+            for attr in ("routes", "writeback_routes"):
+                for route in getattr(w, attr, {}):
+                    getattr(w, attr)[route] = 0
     mo.binary_step.sweeps = mo.pack_bits.launches = 0
     mo.unpack_bits.launches = 0
 
@@ -3619,12 +3842,14 @@ def phase_main_path():
     total = dict.fromkeys(PATH_KERNELS, 0)
     routes = {k: dict.fromkeys(v, 0) for k, v in _route_counts().items()}
     k13 = dict.fromkeys(_k13_counts(), 0)
+    writeback = {}
     for cfg in configs:
         _reset_counts()
         outs[cfg.name] = cfg.run("cuda")
         torch.cuda.synchronize()
         launches[cfg.name] = _counts()
         cfg_routes[cfg.name] = _route_counts()
+        writeback[cfg.name] = _writeback_counts()
         for k, v in _k13_counts().items():
             k13[k] += v
         for k in PATH_KERNELS:
@@ -3640,10 +3865,10 @@ def phase_main_path():
     print(f"main path launches per route: {json.dumps(routes)}")
     shown = ("spline_prefilter", "spline_prefilter_bc", "resample_bwd",
              "resample_coords_bwd", "correlate1d", "correlate1d_transpose",
-             "correlate_nd", "correlate_nd_transpose", "min_max_filter",
-             "rank_filter")
-    print("K2's, K6's, K3's, K3c's, K8's, K8T's, K9's, K9T's, K11's and "
-          "K12's launches per route and config: " + json.dumps(
+             "correlate_nd", "correlate_nd_transpose", "min_max_filter1d",
+             "min_max_filter", "rank_filter")
+    print("K2's, K6's, K3's, K3c's, K8's, K8T's, K9's, K9T's, K10's, K11's "
+          "and K12's launches per route and config: " + json.dumps(
               {name: {k: r[k] for k in shown if sum(r[k].values())}
                for name, r in cfg_routes.items()}))
     # c11-c13's K8 launches, c11's three K8T launches, c14's K9 and K9T,
@@ -3653,11 +3878,16 @@ def phase_main_path():
         if cfg_routes[name][k] != want:
             raise AssertionError(f"{name}: {k}'s launches per route "
                                  f"{cfg_routes[name][k]}, not {want}")
-    # no config has an integer input with the prefilter on, so none takes
-    # K2's writeback route (K6's fixed-order one neither); c8 and c9 run K6
-    # on its tile route only
+    # c18 alone has an integer input with the prefilter on: it takes K2's
+    # writeback route, on the product form (no config takes K6's
+    # fixed-order route); c8 and c9 run K6 on its tile route only
+    print(f"K2's and K6's writeback launches per form and config: "
+          f"{json.dumps({k: v for k, v in writeback.items() if any(sum(f.values()) for f in v.values())})}")
+    if writeback["c18"]["spline_prefilter"] != {"product": 3, "rows": 0}:
+        raise AssertionError(f"c18 must run K2's writeback route on its "
+                             f"product form: {writeback['c18']}")
     for name, r in cfg_routes.items():
-        if r["spline_prefilter"]["writeback"]:
+        if r["spline_prefilter"]["writeback"] and name != "c18":
             raise AssertionError(f"{name} took K2's writeback route: "
                                  f"{r['spline_prefilter']}")
         k6 = r["spline_prefilter_bc"]
@@ -3668,8 +3898,9 @@ def phase_main_path():
     if min(total.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {total}")
     for k, by_route in routes.items():
-        if by_route["tile"] <= 0:
-            raise AssertionError(f"{k} never ran on its tile route: "
+        main = "box" if k == "min_max_filter1d" else "tile"
+        if by_route[main] <= 0:
+            raise AssertionError(f"{k} never ran on its {main} route: "
                                  f"{by_route}")
     for name, kernels in _MUST_LAUNCH.items():
         for k in kernels:
@@ -4402,11 +4633,15 @@ def _tile_axes(name, x, order, bc, card, kernel):
 def _times_writeback(rs, card):
     """K2's writeback route (an integer input with the prefilter on, order
     3) over every deformed axis at c2's 200 x 300 (uint8, float64 compute,
-    as ``deform_grid`` with c2's float64 grid) and on a 128^3 int16 volume
-    (float32 compute, as ``deform`` with a float32 grid): its time, held to
-    its twin bit for bit, beside the twin's, the recursion's (K2 without
-    the writeback) and ``tensordot``'s on the same input, and its bound:
-    ``numel * n`` multiply-adds per axis at the float64 or float32 rate."""
+    as ``deform_grid`` with c2's float64 grid) and on a 128^3 int16
+    volume (float32 compute, as ``deform_grid`` with a float32 grid, c18's
+    kind at the size before its cut): the
+    wrapper's time (the product form, chunk skip on), held to its twin bit
+    for bit, beside the product form without the skip, the rows route
+    (``writeback_rows``), the twin, K2's recursion without the writeback and
+    ``tensordot`` on the same input, and its bound: ``numel * n``
+    multiply-adds per axis at the float64 or float32 rate (each term
+    counted, skipped or not)."""
     import torch
     from elasticdeform_tpu_torch.ops import prefilter as pf
     dev = torch.device("cuda")
@@ -4416,7 +4651,7 @@ def _times_writeback(rs, card):
              torch.float64),
             ("128^3 int16 float32", (1, 128, 128, 128, 1), np.int16,
              torch.float32)):
-        lo, hi = (0, 256) if idt is np.uint8 else (-3000, 3000)
+        lo, hi = (0, 256) if idt is np.uint8 else (-1000, 3001)
         x = torch.as_tensor(rs.randint(lo, hi, shape), dtype=dtype,
                             device=dev)
         axes = tuple(range(1, len(shape) - 1))
@@ -4431,6 +4666,15 @@ def _times_writeback(rs, card):
                 return y
             return run
 
+        def form(route, finite):
+            def fn(y, o, a, int_dtype):
+                plan = pf._writeback_plan(*pf._lines(y, a), y.dtype,
+                                          route=route,
+                                          sms=pf._sm_count(y.device))
+                return pf._launch_writeback(y, o, a, "mirror", plan,
+                                            int_dtype, finite)
+            return fn
+
         def lib(x=x, axes=axes, mats=mats):
             y = x
             for a, m in zip(axes, mats):
@@ -4438,15 +4682,24 @@ def _times_writeback(rs, card):
                                   a)
             return y
         got = chain(pf.spline_filter1d)()
-        if not torch.equal(_bits(got), _bits(chain(
-                pf.spline_filter1d_plain)().contiguous())):
-            raise AssertionError(f"K2 writeback at {label}: differs from "
-                                 "the plain twin")
+        want = chain(pf.spline_filter1d_plain)().contiguous()
+        for other, what in ((got, "the wrapper"),
+                            (chain(form("product", False))(),
+                             "the product form without the skip"),
+                            (chain(form("rows", True))(), "the rows route")):
+            if not torch.equal(_bits(other), _bits(want)):
+                raise AssertionError(f"K2 writeback at {label}: {what} "
+                                     "differs from the plain twin")
         numel = x.numel()
         ops = sum(2 * numel * shape[a] for a in axes)
         bound = _bound(2 * len(axes) * numel * x.element_size(), ops,
                        FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS)
         res = {"ms": _time_ms(chain(pf.spline_filter1d)),
+               "no_skip_ms": _time_ms(chain(form("product", False))),
+               "rows_ms": _time_ms(chain(form("rows", True))),
+               "device_ms": _device_ms(chain(pf.spline_filter1d)),
+               "rows_device_ms": _device_ms(chain(form("rows", True))),
+               "library_device_ms": _device_ms(lib),
                "plain_ms": _time_ms(chain(pf.spline_filter1d_plain), reps=3,
                                     warmup=1),
                "recursion_ms": _time_ms(chain(pf.spline_filter1d, None)),
@@ -4454,10 +4707,15 @@ def _times_writeback(rs, card):
                "bound_by": bound[1]}
         out[label] = res
         print(f"K2 writeback route at {label}, order 3, {len(axes)} axes: "
-              f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms; K2's "
-              f"recursion without the writeback {res['recursion_ms']:.4f} "
-              f"ms; tensordot {res['library_ms']:.4f} ms; bound "
-              f"{bound[0]:.4f} ms by {bound[1]}) [{card}]")
+              f"product form {res['ms']:.4f} ms (without the chunk skip "
+              f"{res['no_skip_ms']:.4f} ms; the rows route "
+              f"{res['rows_ms']:.4f} ms; plain {res['plain_ms']:.4f} ms; "
+              f"K2's recursion without the writeback "
+              f"{res['recursion_ms']:.4f} ms; tensordot "
+              f"{res['library_ms']:.4f} ms; bound {bound[0]:.4f} ms by "
+              f"{bound[1]}); on the device {res['device_ms']:.4f} ms, the "
+              f"rows route {res['rows_device_ms']:.4f} ms, tensordot "
+              f"{res['library_device_ms']:.4f} ms [{card}]")
     return out
 
 
@@ -4935,31 +5193,58 @@ def _times_morphology(row, card, k13=None):
         np.int16), device=dev)
     numel = v.numel()
 
-    def dilate(fn):
-        def run():
-            y = v
-            for a in (0, 1, 2):
-                y = fn(y, 5, a, "reflect", 0, 2, False)
-            return y
-        return run
+    # K10: c16's 5^3 dilation, its three passes in one launch on the box
+    # route, and on the lines route (a launch a pass,
+    # min_max_1d_kernel); the opening, an erosion and a dilation, both ways
+    passes = [(a, 5, 2, "reflect") for a in (0, 1, 2)]
+    lines = mo.BoxPlan("lines")
+    box_plan = mo._box_plan(tuple(v.shape), (5, 5, 5), v.dtype)
 
-    _same(dilate(mo.min_max_filter1d)(), dilate(mo.min_max_filter1d_plain)(),
-          "K10 at c16 shapes")
+    def dilate():
+        return mo.min_max_box(v, passes, 0, False)
+
+    def opening(plan):
+        def run():
+            y = mo._launch_box(v, passes, 0, True, plan)
+            return mo._launch_box(y, passes, 0, False, plan)
+        return run
+    got = dilate()
+    _same(got, mo.min_max_box_plain(v, passes, 0, False),
+          "K10's box at c16 shapes vs the twin")
+    _same(got, mo._launch_box(v, passes, 0, False, lines),
+          "K10's box at c16 shapes vs the lines route")
+    _same(opening(box_plan)(), opening(lines)(),
+          "K10's opening at c16 shapes, box vs lines route")
     vp = v.float()
     for a in (0, 1, 2):
         vp = ft.pad_axis(vp, a, 2, 2, "reflect", 0.0)
     vp = vp[None, None].contiguous()
     per_axis = [_time_ms(lambda a=a: mo.min_max_filter1d(
         v, 5, a, "reflect", 0, 2, False)) for a in (0, 1, 2)]
-    print(f"min_max_filter1d per-axis ms at (512, 512, 300) int16, size 5: "
-          f"{per_axis} [{card}]")
+    lines_axis = [_time_ms(lambda a=a: mo._launch_lines(
+        v, 5, a, "reflect", 0, 2, False)) for a in (0, 1, 2)]
+    k10 = {"lines_route_ms": _time_ms(
+        lambda: mo._launch_box(v, passes, 0, False, lines)),
+           "opening_ms": _time_ms(opening(box_plan)),
+           "opening_lines_ms": _time_ms(opening(lines)),
+           "axis_ms": per_axis, "lines_axis_ms": lines_axis,
+           "device_ms": _device_ms(dilate),
+           "lines_device_ms": _device_ms(
+               lambda: mo._launch_box(v, passes, 0, False, lines)),
+           "plan": box_plan._asdict(),
+           "per_pass_bound_ms": _bound(3 * 2 * numel * 2, 3 * numel * 4)[0]}
+    print(f"K10 at (512, 512, 300) int16, size 5: one axis on the box route "
+          f"{per_axis} ms, on the lines route {lines_axis} ms; the opening "
+          f"(two boxes) {k10['opening_ms']:.4f} ms, on the lines route (six "
+          f"passes) {k10['opening_lines_ms']:.4f} ms; the dilation on the "
+          f"device {k10['device_ms']:.4f} ms, on the lines route "
+          f"{k10['lines_device_ms']:.4f} ms; plan {box_plan} [{card}]")
     row("min_max_filter1d", "morphology.cu",
-        "elasticdeform_tpu/ops/morphology.py:119",
-        _time_ms(dilate(mo.min_max_filter1d)),
-        _time_ms(dilate(mo.min_max_filter1d_plain)),
-        _bound(3 * 2 * numel * 2, 3 * numel * 4),
+        "elasticdeform_tpu/ops/morphology.py:119", _time_ms(dilate),
+        _time_ms(lambda: mo.min_max_box_plain(v, passes, 0, False)),
+        _bound(2 * numel * 2, 3 * numel * 4),
         _time_ms(lambda: F.max_pool3d(vp, 5, stride=1)), 0.0, at="c16",
-        extra={"axis_ms": per_axis})
+        extra=k10)
 
     # K11 on each route: c16's top-hat erosion (a ball of radius 2, 33
     # taps), its non-flat 3^3 dilation of the first 256 slices (float64
@@ -5509,6 +5794,24 @@ def times_ab(card, reps=REPS):
             y = pf.spline_filter1d(y, 3, a, np.uint8)
         return y
     out["K2_writeback_c2"] = _time_ms(wb, reps)
+    x18 = torch.as_tensor(rs.randint(-1000, 3001, (1, 128, 128, 128, 1)),
+                          dtype=torch.float32, device=dev)
+
+    def wb18():
+        y = x18
+        for a in (1, 2, 3):
+            y = pf.spline_filter1d(y, 3, a, np.int16)
+        return y
+    out["K2_writeback_c18"] = _time_ms(wb18, reps)
+    del x18
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    v16 = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)).astype(
+        np.int16), device=dev)
+    for name, minimum in (("K10_c16_erosion", True),
+                          ("K10_c16_dilation", False)):
+        out[name] = _time_ms(lambda minimum=minimum: mo.apply_min_max_filter(
+            v16, 5, None, None, "reflect", 0.0, 0, minimum), reps)
+    del v16
     f11 = torch.as_tensor(rs.rand(3, 160, 192, 224).astype(np.float32),
                           device=dev)
     w11 = ft.gaussian_weights(2.0, 0, 4.0, None)
@@ -5535,7 +5838,6 @@ def times_ab(card, reps=REPS):
             lambda a=a: ft.correlate1d(v13, w13, a, "mirror", 0.0, 4, 1),
             reps)
     del v13
-    from elasticdeform_tpu_torch.ops import morphology as mo
     x15 = torch.as_tensor(_mri_like(rs, (160, 192, 224)), device=dev)
     out["K12_select_c15"] = _time_ms(lambda: mo.rank_filter(
         x15, np.ones((5, 5, 5), bool), [2, 2, 2], "reflect", 0.0, 62), reps)
@@ -5640,7 +5942,24 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
         _time_ms(chain(pf.spline_filter1d_plain, (1, 2, 3))), filter_bound,
         _time_ms(chain(None, (1, 2, 3), fwd_mats)), k2_err,
         extra={"lines_route_ms": _time_ms(chain(k2_lines, (1, 2, 3))),
-               **axes, "writeback": _times_writeback(rs, card)})
+               **axes})
+    # K2's writeback route, a kernel of its own (writeback_product_kernel),
+    # on a 128^3 int16 volume (c18's kind, at the size before its cut); its
+    # launches are phase 3's on that route
+    wb = _times_writeback(rs, card)
+    c18 = wb["128^3 int16 float32"]
+    rows.append({"name": "spline_prefilter_writeback", "route": "cuda",
+                 "source": "elasticdeform_tpu_torch/csrc/prefilter.cu",
+                 "replaces": "elasticdeform_tpu/ops/deform.py:197",
+                 "launches": (routes or {}).get("spline_prefilter", {}).get(
+                     "writeback", 0),
+                 "max_abs_err": 0.0, "ms": c18["ms"],
+                 "plain_ms": c18["plain_ms"], "bound_ms": c18["bound_ms"],
+                 "bound_by": c18["bound_by"],
+                 "library_ms": c18["library_ms"],
+                 "shapes": "128^3 int16 (c18's kind)",
+                 "rows_route_ms": c18["rows_ms"],
+                 "no_skip_ms": c18["no_skip_ms"], "at": wb})
     coeffs = chain(pf.spline_filter1d, (1, 2, 3))()
 
     # (the transposed matrices in the order the axes are applied, 3, 2, 1)
@@ -5767,6 +6086,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
         if cfg.name == "c6":
             times_c6(card, cfg)
     order_of = {k: i for i, k in enumerate(KERNELS)}
+    order_of["spline_prefilter_writeback"] = order_of["spline_prefilter"]
     return sorted(rows, key=lambda r: order_of[r["name"]])
 
 
@@ -5865,6 +6185,23 @@ def profile_ab(card, names=("c14", "c16"), reps=REPS, calls=10):
         x, w5, (3, 2, 1), "constant"), reps)
     print(f"profile_ab: {json.dumps(out)} [{card}]")
     return out
+
+
+def _device_ms(fn, calls=10):
+    """The device's busy time per call of ``fn`` (every kernel, copy and
+    memset it runs, :func:`_device_kernels`) over ``calls`` calls under
+    ``torch.profiler``, after one warm-up call: unlike CUDA events around a
+    call, it leaves out the host's time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(t for t, _ in _device_kernels(prof, calls).values())
 
 
 def _profile_config(cfg, card):

@@ -67,6 +67,7 @@ no gradient: a tensor that requires grad raises.
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -470,10 +471,15 @@ def _modern_map_coordinates(X, coordinates, *, order, mode, cval, prefilter,
         Y = _ring_pad(Y, axes, npad, pad_mode, cval)
     if needs_filter:
         # an integer output rounds the filtered values: filter in one fixed
-        # order on every device
+        # order on every device; an integer input is finite, and so is its
+        # padded copy unless a constant pad of a non-finite cval was added
         fixed = out_dtype.kind in "biu"
-        for a in axes:
-            Y = _d.Prefilter1d.apply(Y.contiguous(), order, a, bc, fixed)
+        finite = fixed and (not npad or pad_mode != 'constant' or
+                            math.isfinite(float(torch.tensor(cval,
+                                                             dtype=comp))))
+        with _d.finite_input(finite):
+            for a in axes:
+                Y = _d.Prefilter1d.apply(Y.contiguous(), order, a, bc, fixed)
     Y = _ring_pad(Y, axes, ring, pad_mode, cval)
 
     cc = coordinates.to(comp)

@@ -1,6 +1,7 @@
 // Asynchronous copies of one element from device memory into shared
-// memory (cp.async), shared by the shared-memory tiles of K2/K4/K7
-// (prefilter.cu), K9 and K9T (filters.cu). Without __CUDA_ARCH__ (a host
+// memory (cp.async), shared by the shared-memory tiles of K2/K4/K7 and K2's
+// writeback product (prefilter.cu), K9 and K9T (filters.cu) and K10's box
+// (morphology.cu). Without __CUDA_ARCH__ (a host
 // compile of the sources) they are plain copies.
 #pragma once
 
@@ -38,6 +39,21 @@ __device__ __forceinline__ void stage_async_zfill(T* dst, const T* src,
 __device__ __forceinline__ void stage_wait() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// closes this thread's group of copies in flight (a double buffer's stage)
+__device__ __forceinline__ void stage_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void stage_wait_group() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 #endif
 }
 

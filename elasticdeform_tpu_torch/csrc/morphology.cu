@@ -8,6 +8,13 @@
 // `size` samples along one axis, out[i] = reduce_k x[fold(i + k - c)], of a
 // contiguous tensor viewed as (outer, n, inner), the five filter modes folded
 // here (no padded copy), cval for a constant-mode sample beyond the edge.
+// min_max_filter (:176-192) runs it once per axis of a separable box. Two
+// routes, picked on the host by ops/morphology.py:_box_plan: box (every
+// pass of a box with extent > 1 on one to three axes in one launch:
+// min_max_box_kernel stages a tile's halo box once, each axis folded by its
+// own mode, and runs the passes in shared memory, so a box reads the array
+// once and writes it once) and lines (min_max_1d_kernel, a launch a pass,
+// for the rest); both take each window in the same order, bit for bit.
 //
 // K11 replaces morphology.py:196-230, the tap loop of min_max_filter: the min
 // or max over an N-D footprint's taps (raster order), for a non-flat structure
@@ -78,7 +85,8 @@
 // threads on neighbouring addresses (the innermost index), so every tap's
 // loads coalesce; the taps' reuse is served by L1. Interior elements (every
 // tap inside the array) take a path with no fold. K10, K11 and K13 are bound
-// by bytes (each input read once, each output written once over 3.35 TB/s);
+// by bytes (each input read once, each output written once over 3.35 TB/s;
+// K10's box route once for the whole box, its lines route once a pass);
 // K12 by the comparisons a selection of that rank needs per voxel
 // (quickselect's expected count, about 3.4 per tap for a median) at the
 // card's operation rate, or by bytes, whichever is larger. K13's tile route
@@ -1041,7 +1049,7 @@ struct FastDiv {
   unsigned d, m, s;
 };
 
-__device__ __forceinline__ FastDiv make_div(unsigned d) {
+__host__ __device__ __forceinline__ FastDiv make_div(unsigned d) {
   unsigned s = 0;
   while (s < 32 && (1u << s) < d) ++s;
   const unsigned long long one = 1;
@@ -1286,6 +1294,317 @@ binary_unpack_kernel(const unsigned* __restrict__ words,
 }
 
 // ---------------------------------------------------------------------------
+// K10's box route: every pass of a separable box in one launch
+
+// The geometry of ops/morphology.py:_box_plan: three tile axes (the box's
+// axes, batch axes or extents of 1, as halo_tile orders them), the batch
+// axes the grid walks, and the passes in their order (_box_tables).
+struct MinMaxBox {
+  int n[3];      // extents of the tile axes
+  int st[3];     // their element strides within a sample
+  int c[3];      // the box's centre along each (0 off the box)
+  int mode[3];   // its filter mode
+  int tile[3];   // the output tile
+  int box[3];    // the staged box: tile + k - 1
+  int tiles[3];  // tiles along each axis
+  int p2;        // shared row stride in elements: box[2], padded
+  int granules;  // 16-byte granules a staged row may span
+  FastDiv dg, d1;  // by granules, by box[1]
+  int npass;
+  // the passes in order, each over the region its
+  // predecessors left (make_box): the window k; lines of ned positions
+  // along the pass's axis at stride sd, nf x ns of them at strides sf
+  // (the fast axis: 2, or 1 for a pass along 2) and ss
+  struct Pass {
+    int k, nf, ns, ned, sf, ss, sd;
+    int af, as, ad;  // the tile axes of the fast, slow and pass axes
+    FastDiv df, ds;
+  } pass[3];
+  int nb;                      // batch axes walked by the grid
+  int bn[ED_MORPH_MAXR];       // their extents
+  int64_t bst[ED_MORPH_MAXR];  // and strides
+};
+
+// box output positions computed by a thread in turn along a pass's axis;
+// the blocks an SM holds (ops/morphology.py:BOX_SMEM_AIM), which leaves a
+// thread 85 registers (with only the threads bounded, ptxas took 64 and
+// spilled the 2-byte types)
+#define ED_BOX_SEGMENT 8
+#define ED_BOX_BLOCKS 3
+
+// Stages block's box: element (b0, b1, b2) at ((b0 * box[1] + b1) * p2 +
+// b2) is x at the tile's origin - c + b, folded along each axis by that
+// axis's mode, or cval where a constant axis leaves the array. A row of the
+// box (fixed b0, b1) is one run of memory where tile axis 2 is contiguous
+// and the row lies inside the array along it: such a row is read in
+// aligned 16-byte loads (the bytes around the run lie in the same aligned
+// granules of the tensor's memory, so every load stays inside it), four
+// in flight a thread, and scattered into shared memory; the other rows
+// (the edges along axis 2, constant rows, a strided axis 2) fold element by
+// element.
+template <typename T>
+__device__ __forceinline__ void stage_minmax_box(const MinMaxBox& p,
+                                                 const T* __restrict__ xs,
+                                                 int s0, int s1, int s2,
+                                                 T* box, const T cval) {
+  constexpr int EPG = 16 / (int)sizeof(T);  // elements of a granule
+  constexpr int U = 4;
+  const int len = p.box[2];  // a row of the box
+  const int G = p.granules;
+  const int rows = p.box[0] * p.box[1];
+  const int total = rows * G;
+  const FastDiv dg = p.dg, d1 = p.d1;
+  const int j2 = s2 - p.c[2];
+  const bool unit = p.st[2] == 1 && j2 >= 0 && j2 + len <= p.n[2];
+  for (int it0 = threadIdx.x; it0 < total; it0 += U * ED_THREADS) {
+    uint4 v[U];
+    int dst[U], from[U], head[U], q[U];
+    bool cst[U], fast[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int it = it0 + u * ED_THREADS;
+      const int r = (int)div_by((unsigned)(it < total ? it : 0), dg);
+      q[u] = it - r * G;
+      const int b0 = (int)div_by((unsigned)r, d1);
+      const int b1 = r - b0 * p.box[1];
+      const int f0 = fold<int>(s0 - p.c[0] + b0, p.n[0], p.mode[0]);
+      const int f1 = fold<int>(s1 - p.c[1] + b1, p.n[1], p.mode[1]);
+      cst[u] = f0 < 0 || f1 < 0;
+      from[u] = cst[u] ? 0 : f0 * p.st[0] + f1 * p.st[1];
+      dst[u] = it < total ? r * p.p2 : -1;
+      fast[u] = unit && !cst[u];
+      head[u] = 0;
+      if (fast[u]) {
+        const uintptr_t a = (uintptr_t)(xs + from[u] + j2);
+        head[u] = (int)(a & 15) / (int)sizeof(T);
+        const bool in = dst[u] >= 0 &&
+                        16 * q[u] < (int)(a & 15) + len * (int)sizeof(T);
+        if (in) v[u] = __ldg(reinterpret_cast<const uint4*>(a - (a & 15)) +
+                             q[u]);
+        else dst[u] = -1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (dst[u] < 0) continue;
+      T* row = box + dst[u];
+      if (fast[u]) {
+        const int b2f = q[u] * EPG - head[u];  // of the granule's byte 0
+        if (sizeof(T) < 4 && b2f >= 0 && b2f + EPG <= len &&
+            (reinterpret_cast<uintptr_t>(row + b2f) & 3) == 0) {
+          // a whole granule at a 4-byte boundary: four 4-byte stores for
+          // its 8 or 16 elements
+          unsigned* d = reinterpret_cast<unsigned*>(row + b2f);
+          d[0] = v[u].x;
+          d[1] = v[u].y;
+          d[2] = v[u].z;
+          d[3] = v[u].w;
+          continue;
+        }
+        T e[EPG];
+        memcpy(e, &v[u], 16);
+#pragma unroll
+        for (int i = 0; i < EPG; ++i) {
+          const int b2 = b2f + i;
+          if (b2 >= 0 && b2 < len) row[b2] = e[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < EPG; ++i) {
+          const int b2 = q[u] * EPG + i;
+          if (b2 >= len) break;
+          const int f2 = cst[u] ? -1 : fold<int>(j2 + b2, p.n[2], p.mode[2]);
+          row[b2] = f2 < 0 ? cval : xs[from[u] + f2 * p.st[2]];
+        }
+      }
+    }
+  }
+}
+
+// Where a pass of K10's box route stores its outputs: position (f, sl, j)
+// of its lines (fast, slow, along the pass's axis) at dst[f * gf + sl * gs
+// + j * gd], where f < lf, sl < ls and j < ld: the next buffer of the box,
+// or, for the last pass, the tile's elements inside the array in device
+// memory.
+template <typename T>
+struct BoxDst {
+  T* dst;
+  int gf, gs, gd, lf, ls, ld;
+};
+
+// One pass q of K10's box route along a tile axis with a window of K
+// (compile time), in the box's layout: `in` holds q.nf x q.ns lines of
+// q.ned positions (MinMaxBox::Pass; consecutive threads take neighbouring
+// lines along the fast axis), and q.ned - K + 1 positions of each line go
+// to `o`. A thread takes a segment of ED_BOX_SEGMENT outputs of a line and
+// slides a register window over it, so each staged element is read once a
+// segment; an output is acc = w[j], then pick(acc, w[j + t]) for t = 1 ..
+// K-1, min_max_1d_kernel's order.
+template <typename T, bool MIN, int K>
+__device__ __forceinline__ void box_pass(const T* __restrict__ in,
+                                         const BoxDst<T>& o,
+                                         const MinMaxBox::Pass& q) {
+  constexpr int S = ED_BOX_SEGMENT;
+  const int nf = q.nf, ns = q.ns, sf = q.sf, ss = q.ss, sd = q.sd;
+  const int m = q.ned - K + 1;
+  const int total = nf * ns * ((m + S - 1) / S);
+  const FastDiv df = q.df, ds = q.ds;
+  for (int it = threadIdx.x; it < total; it += ED_THREADS) {
+    const int r1 = (int)div_by((unsigned)it, df);
+    const int f = it - r1 * nf;
+    const int seg = (int)div_by((unsigned)r1, ds);
+    const int sl = r1 - seg * ns;
+    const int j0 = seg * S;
+    if (f >= o.lf || sl >= o.ls) continue;
+    const T* src = in + f * sf + sl * ss + j0 * sd;
+    T* dst = o.dst + f * o.gf + sl * o.gs + j0 * o.gd;
+    const int mu = (m < o.ld ? m : o.ld) - j0;  // outputs of the segment
+    T w[K];
+#pragma unroll
+    for (int t = 0; t < K - 1; ++t) w[t] = src[t * sd];
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      if (u >= mu) break;
+      w[(u + K - 1) % K] = src[(u + K - 1) * sd];
+      T acc = w[u % K];
+#pragma unroll
+      for (int t = 1; t < K; ++t) acc = pick<MIN>(acc, w[(u + t) % K]);
+      dst[u * o.gd] = acc;
+    }
+  }
+}
+
+// the same for a window longer than the register window takes: each
+// output reads its K inputs from shared memory
+template <typename T, bool MIN>
+__device__ __forceinline__ void box_pass_any(const T* __restrict__ in,
+                                             const BoxDst<T>& o,
+                                             const MinMaxBox::Pass& q) {
+  const int nf = q.nf, ns = q.ns, sf = q.sf, ss = q.ss, sd = q.sd, K = q.k;
+  const int m = q.ned - K + 1;
+  const int total = nf * ns * m;
+  const FastDiv df = q.df, ds = q.ds;
+  for (int it = threadIdx.x; it < total; it += ED_THREADS) {
+    const int r1 = (int)div_by((unsigned)it, df);
+    const int f = it - r1 * nf;
+    const int j = (int)div_by((unsigned)r1, ds);
+    const int sl = r1 - j * ns;
+    if (f >= o.lf || sl >= o.ls || j >= o.ld) continue;
+    const int off = f * sf + sl * ss + j * sd;
+    T acc = in[off];
+    for (int t = 1; t < K; ++t) acc = pick<MIN>(acc, in[off + t * sd]);
+    o.dst[f * o.gf + sl * o.gs + j * o.gd] = acc;
+  }
+}
+
+// v[a] of (v0, v1, v2) for a tile axis a, without indexing a local array
+__device__ __forceinline__ int of_axis(int a, int v0, int v1, int v2) {
+  return a == 0 ? v0 : a == 1 ? v1 : v2;
+}
+
+// K10's box route: block (batch, tile) stages the tile's box once
+// (stage_minmax_box), runs the passes in order between two shared
+// buffers, each pass shrinking the box along its axis to the tile, and
+// stores the tile (the last pass itself where it runs along axis 0 or 1,
+// its threads along the contiguous axis 2): one read of the box and one
+// write of the tile in device memory for the whole box, where the lines
+// route reads and writes the array once a pass. Every staged value is the
+// one the sequential passes would have read there (each axis folds on its
+// own, and a constant axis's cval stays cval through every pass), and each
+// pass takes its window in min_max_1d_kernel's order; floats keep the
+// caller's order of passes (a window of NaNs gives its first), integers
+// and bool take axis 2's pass first (ops/morphology.py:_box_tables), which
+// changes no min or max of theirs. So the routes agree bit for bit.
+template <typename T, bool MIN>
+__global__ void __launch_bounds__(ED_THREADS, ED_BOX_BLOCKS)
+min_max_box_kernel(const T* __restrict__ x, T* __restrict__ out,
+                   const MinMaxBox p, const T cval) {
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  const int cells = p.box[0] * p.box[1] * p.p2;
+  T* buf = reinterpret_cast<T*>(ed_smem);
+  unsigned rest = blockIdx.x;
+  const unsigned per = (unsigned)(p.tiles[0] * p.tiles[1] * p.tiles[2]);
+  unsigned bi = rest / per;
+  rest -= bi * per;
+  const int s2 = (int)(rest % (unsigned)p.tiles[2]) * p.tile[2];
+  rest /= (unsigned)p.tiles[2];
+  const int s1 = (int)(rest % (unsigned)p.tiles[1]) * p.tile[1];
+  const int s0 = (int)(rest / (unsigned)p.tiles[1]) * p.tile[0];
+  int64_t base = 0;
+#pragma unroll
+  for (int a = ED_MORPH_MAXR - 1; a >= 0; --a) {
+    if (a < p.nb) {
+      const unsigned i = bi % (unsigned)p.bn[a];
+      bi /= (unsigned)p.bn[a];
+      base += (int64_t)i * p.bst[a];
+    }
+  }
+  stage_minmax_box(p, x + base, s0, s1, s2, buf, cval);
+  __syncthreads();
+  // the tile's first element in device memory, and how many of its
+  // positions along each axis lie inside the array
+  T* tile = out + base + (int64_t)s0 * p.st[0] + (int64_t)s1 * p.st[1] +
+            (int64_t)s2 * p.st[2];
+  const int l0 = p.n[0] - s0 < p.tile[0] ? p.n[0] - s0 : p.tile[0];
+  const int l1 = p.n[1] - s1 < p.tile[1] ? p.n[1] - s1 : p.tile[1];
+  const int l2 = p.n[2] - s2 < p.tile[2] ? p.n[2] - s2 : p.tile[2];
+  const int st0 = p.box[1] * p.p2, st1 = p.p2;
+  int cur = 0;
+  bool stored = false;
+  for (int q = 0; q < p.npass; ++q) {
+    // a copy at a constant index: no kernel parameter indexed at run time
+    const MinMaxBox::Pass bp = q == 0 ? p.pass[0] : q == 1 ? p.pass[1]
+                                                           : p.pass[2];
+    const T* in = buf + cur * cells;
+    BoxDst<T> o{buf + (cur ^ 1) * cells, bp.sf, bp.ss, bp.sd, bp.nf, bp.ns,
+                bp.ned};
+    // the last pass along axis 0 or 1 stores the tile itself: its threads
+    // run along axis 2, so the stores coalesce
+    if (q == p.npass - 1 && bp.ad != 2) {
+      o = BoxDst<T>{tile, of_axis(bp.af, p.st[0], p.st[1], p.st[2]),
+                    of_axis(bp.as, p.st[0], p.st[1], p.st[2]),
+                    of_axis(bp.ad, p.st[0], p.st[1], p.st[2]),
+                    of_axis(bp.af, l0, l1, l2), of_axis(bp.as, l0, l1, l2),
+                    of_axis(bp.ad, l0, l1, l2)};
+      stored = true;
+    }
+    switch (bp.k) {
+      case 2: box_pass<T, MIN, 2>(in, o, bp); break;
+      case 3: box_pass<T, MIN, 3>(in, o, bp); break;
+      case 4: box_pass<T, MIN, 4>(in, o, bp); break;
+      case 5: box_pass<T, MIN, 5>(in, o, bp); break;
+      case 6: box_pass<T, MIN, 6>(in, o, bp); break;
+      case 7: box_pass<T, MIN, 7>(in, o, bp); break;
+      case 8: box_pass<T, MIN, 8>(in, o, bp); break;
+      default: box_pass_any<T, MIN>(in, o, bp);
+    }
+    cur ^= 1;
+    if (!stored) __syncthreads();
+  }
+  if (stored) return;
+  // else the tile from shared memory, a warp a row, its lanes along axis 2
+  const T* res = buf + cur * cells;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int b0 = 0, b1 = warp;
+  while (b1 >= p.tile[1]) {
+    b1 -= p.tile[1];
+    ++b0;
+  }
+  for (; b0 < l0; ) {
+    if (b1 < l1) {
+      T* o = tile + b0 * p.st[0] + b1 * p.st[1];
+      const T* src = res + b0 * st0 + b1 * st1;
+      for (int b2 = lane; b2 < l2; b2 += 32) o[b2 * p.st[2]] = src[b2];
+    }
+    b1 += ED_THREADS / 32;
+    while (b1 >= p.tile[1]) {
+      b1 -= p.tile[1];
+      ++b0;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 bool blocks_for(int64_t total, unsigned* blocks) {
@@ -1407,6 +1726,111 @@ cudaError_t allow_smem(K kernel, int* allowed, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) *allowed = bytes;
   return err;
+}
+
+template <typename T, bool MIN>
+cudaError_t launch_box_k(const void* x, void* out, const MinMaxBox& p,
+                         long long cval_bits, int smem, unsigned blocks,
+                         cudaStream_t s) {
+  static int allowed = 0;
+  auto kern = min_max_box_kernel<T, MIN>;
+  const cudaError_t err = allow_smem(kern, &allowed, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, ED_THREADS, (size_t)smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), p,
+      from_bits<T>(cval_bits));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_box(bool minimum, const void* x, void* out,
+                       const MinMaxBox& p, long long cval_bits, int smem,
+                       unsigned blocks, cudaStream_t s) {
+  return minimum ? launch_box_k<T, true>(x, out, p, cval_bits, smem, blocks, s)
+                 : launch_box_k<T, false>(x, out, p, cval_bits, smem, blocks,
+                                          s);
+}
+
+// The shared row stride of K10's box: the box's row of `len` elements of
+// `item` bytes padded to an odd number of 32-bit words (8-byte elements:
+// an odd number of elements), so that neighbouring rows start on other
+// banks (ops/morphology.py:_box_row_stride).
+int box_row_stride(int len, int item) {
+  int p2 = len;
+  while (item <= 4 ? (p2 * item % 4 != 0 || p2 * item / 4 % 2 == 0)
+                   : p2 % 2 == 0)
+    ++p2;
+  return p2;
+}
+
+// K10's box geometry from the plan's host arrays; false where it does not
+// fit the shapes (a sample past int32, a box over the shared memory,
+// another grid than the tiles times the batch).
+bool make_box(MinMaxBox* p, int item, const int* n3, const long long* st3,
+              const int* k3, const int* c3, const int* mode3,
+              const int* tile3, int npass, const int* pass, int nb,
+              const long long* bn, const long long* bst, int smem,
+              long long blocks) {
+  if (npass < 1 || npass > 3 || nb < 0 || nb > ED_MORPH_MAXR) return false;
+  int64_t span = 0, count = 1;
+  bool seen[3] = {false, false, false};
+  for (int q = 0; q < npass; ++q) {
+    if (pass[q] < 0 || pass[q] > 2 || seen[pass[q]] || k3[pass[q]] < 2)
+      return false;
+    seen[pass[q]] = true;
+  }
+  p->npass = npass;
+  p->nb = nb;
+  for (int d = 0; d < 3; ++d) {
+    if (n3[d] < 1 || st3[d] < 0 || k3[d] < 1 || c3[d] < 0 ||
+        c3[d] >= k3[d] || mode3[d] < 0 || mode3[d] > 4 || tile3[d] < 1 ||
+        (k3[d] > 1) != seen[d])
+      return false;
+    p->n[d] = n3[d];
+    p->st[d] = n3[d] > 1 ? (int)st3[d] : 0;  // (within int32: span below)
+    p->c[d] = c3[d];
+    p->mode[d] = mode3[d];
+    p->tile[d] = tile3[d];
+    p->box[d] = tile3[d] + k3[d] - 1;
+    p->tiles[d] = (n3[d] + tile3[d] - 1) / tile3[d];
+    span += (int64_t)(n3[d] - 1) * st3[d];
+    count *= p->tiles[d];
+  }
+  for (int a = 0; a < ED_MORPH_MAXR; ++a) {
+    p->bn[a] = a < nb ? (int)bn[a] : 1;
+    p->bst[a] = a < nb ? bst[a] : 0;
+    if (a < nb && (bn[a] < 1 || bn[a] > INT32_MAX)) return false;
+    count *= p->bn[a];
+  }
+  p->p2 = box_row_stride(p->box[2], item);
+  p->granules = (15 + p->box[2] * item + 15) / 16;
+  p->dg = make_div((unsigned)p->granules);
+  p->d1 = make_div((unsigned)p->box[1]);
+  // each pass over the region its predecessors left: lines along its axis
+  // d, the fast axis 2 (1 for a pass along 2), the slow one 1 (0 for a
+  // pass along 1 or 2)
+  int e[3] = {p->box[0], p->box[1], p->box[2]};
+  const int st[3] = {p->box[1] * p->p2, p->p2, 1};
+  for (int q = 0; q < npass; ++q) {
+    const int d = pass[q], fa = d == 2 ? 1 : 2, sa = d == 0 ? 1 : 0;
+    MinMaxBox::Pass& bp = p->pass[q];
+    bp.k = k3[d];
+    bp.nf = e[fa];
+    bp.ns = e[sa];
+    bp.ned = e[d];
+    bp.sf = st[fa];
+    bp.ss = st[sa];
+    bp.sd = st[d];
+    bp.af = fa;
+    bp.as = sa;
+    bp.ad = d;
+    bp.df = make_div((unsigned)bp.nf);
+    bp.ds = make_div((unsigned)bp.ns);
+    e[d] = p->tile[d];
+  }
+  const int64_t need = 2 * (int64_t)p->box[0] * p->box[1] * p->p2 * item;
+  return span <= INT32_MAX && need == smem && smem <= ED_SMEM_LIMIT &&
+         count == blocks && blocks <= INT32_MAX;
 }
 
 template <typename T, int C>
@@ -1669,6 +2093,32 @@ int ed_min_max_filter1d(int dtype, int minimum, const void* x, void* out,
   p.mode = mode;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ED_DISPATCH(dtype, launch_1d<T>(minimum != 0, x, out, p, cval_bits, s))
+}
+
+// K10's box route (ops/morphology.py:_box_plan): every pass of a separable
+// box in one launch. Host arrays: per tile axis its extent n3, stride st3,
+// the box's extent k3 (1 off the box), centre c3 and mode mode3 (0-4, as
+// ed_min_max_filter1d), the output tile tile3; the passes' tile axes in
+// order (npass of them, each with k3 > 1); the batch axes the grid walks
+// (nb, bn, bst). cval_bits: cval in x's type. smem: two buffers of the
+// box at its padded row stride; blocks: the tiles times the batch. A plan
+// that does not fit the shapes is refused with cudaErrorInvalidValue. x
+// and out must not overlap. Returns cudaGetLastError().
+int ed_min_max_box(int dtype, int minimum, const void* x, void* out,
+                   const int* n3, const long long* st3, const int* k3,
+                   const int* c3, const int* mode3, const int* tile3,
+                   int npass, const int* pass, int nb, const long long* bn,
+                   const long long* bst, long long cval_bits, int smem,
+                   long long blocks, void* stream) {
+  MinMaxBox p;
+  if (dtype < 0 || dtype > 10 ||
+      !make_box(&p, kItemsize[dtype], n3, st3, k3, c3, mode3, tile3, npass,
+                pass, nb, bn, bst, smem, blocks))
+    return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ED_DISPATCH(dtype, launch_box<T>(minimum != 0, x, out, p, cval_bits, smem,
+                                   (unsigned)blocks, s))
 }
 
 // K11 on a contiguous tensor of ndim <= 8 axes with shape[ndim] (host).

@@ -109,6 +109,12 @@
 // prefilter of a call whose output is an integer (the general resampler,
 // ops/deform.py; K6's boundary conditions through filter_matrix_bc), which
 // rounds at the end and so must also sum in one order on both devices.
+// The route runs in a product form (writeback_product_kernel,
+// below): a block computes a band of rows of a tile of lines as a
+// register-blocked product from shared-memory chunks of M^T and of the
+// lines, each sum still the same chain; ops/prefilter.py:_writeback_plan
+// keeps the rows route above (writeback_rows) for views the product form
+// does not take.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -645,6 +651,209 @@ prefilter_writeback_kernel(const T* __restrict__ in, T* __restrict__ out,
   writeback_rows<T, int64_t>(in + base, p.n, s, out + base, s, a0, a1, p);
 }
 
+// K2's writeback route, product form: Y = M X on a block of
+// WB_ROWS output rows (a band) x WB_LINES lines, the lines grouped as the
+// tile route groups them (WB_LINES consecutive i of one o, or, packed,
+// floor(WB_LINES / inner) whole outers). The block walks k in chunks of
+// WbChunk<T>::K: each chunk's columns of M (from M^T, so a chunk is
+// contiguous rows) and rows of the lines are staged in shared memory by
+// cp.async, double-buffered, zero-filled past the line's end (0 * 0 leaves
+// a sum as it is). Thread (ty, tx) keeps a 4 x 4 register tile of sums,
+// rows ty*4 .. +3 and lines tx*4 .. +3, and reads each chunk element's
+// operands with 16-byte shared loads: 8 loads for 16 multiply-adds, where
+// writeback_rows needs 5 loads (one of them of M from L1/L2) for 4. Every
+// sum is still one chain over k ascending (fmaf, or __dmul_rn then
+// __dadd_rn), so the product form equals writeback_rows and _row_sums bit
+// for bit. Tensor cores (DMMA, wgmma) sum inside an instruction in an
+// order of their own, which the integer writeback cannot take, so they are
+// not used. With chunk runs (runs != null: the calls whose input is
+// finite, ops/prefilter.py:writeback_chunk_runs), a band takes only the
+// chunks of its two runs, skipping those where its rows of the table are
+// exactly zero: fmaf(0, v, acc) and acc + 0 * v are acc for a finite v,
+// and a sum that starts at +0 never becomes -0. The block's sums go through shared memory (cast there) and are
+// stored a row of a band at a time along the lines, or, packed, along
+// each outer's contiguous run: coalesced on every axis.
+constexpr int WB_THREADS = 256;
+constexpr int WB_ROWS = 64;    // a band: 16 thread rows x 4 sums
+constexpr int WB_LINES = 64;   // 16 thread columns x 4 sums
+constexpr int WB_XSTRIDE = WB_LINES + 4;  // a staged row of lines (16 B)
+constexpr int WB_YSTRIDE = WB_LINES + 1;  // a row of the block's sums
+
+template <typename T> struct WbChunk;
+template <> struct WbChunk<float> { static constexpr int K = 32; };
+template <> struct WbChunk<double> { static constexpr int K = 16; };
+
+// the product form's geometry (ops/prefilter.py:_writeback_plan)
+struct WbGeom {
+  int64_t outer, n, inner;
+  int packed;          // inner < WB_LINES: a block's lines are whole outers
+  int64_t col_tiles;   // not packed: line tiles per outer
+  int outers;          // packed: outers a tile, floor(WB_LINES / inner)
+  int bands;           // ceil(n / WB_ROWS)
+  int nchunks;         // ceil(n / K)
+  int int_bits;
+  double int_lo;
+};
+
+// the shared bytes of the product form: two chunks of M and of the lines;
+// the block's sums reuse them
+template <typename T>
+constexpr int wb_smem() {
+  return 2 * WbChunk<T>::K * (WB_ROWS + WB_XSTRIDE) * (int)sizeof(T);
+}
+
+// v[0..3] = p[0..3], 16-byte aligned, in 16-byte shared loads
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WB_THREADS, 2)
+writeback_product_kernel(const T* __restrict__ in, T* __restrict__ out,
+                         const T* __restrict__ mat_t,
+                         const int4* __restrict__ runs, const WbGeom g) {
+  constexpr int K = WbChunk<T>::K;
+  constexpr int NX = K * WB_LINES / WB_THREADS;  // staged lines a thread
+  constexpr int NM = K * WB_ROWS / WB_THREADS;   // staged table a thread
+  extern __shared__ __align__(16) unsigned char ed_smem[];
+  T* ms = reinterpret_cast<T*>(ed_smem);          // [2][K][WB_ROWS]
+  T* xs = ms + 2 * K * WB_ROWS;                   // [2][K][WB_XSTRIDE]
+  T* ys = ms;                                     // [WB_ROWS][WB_YSTRIDE]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int64_t tile = blockIdx.x / g.bands;
+  const int band = (int)(blockIdx.x - tile * g.bands);
+  const int a0 = band * WB_ROWS;
+  const int64_t n = g.n, inner = g.inner;
+  // the tile's lines: line w's element k at in + first + off(w) + k*inner
+  int64_t first;
+  int width, outers = 0;
+  if (g.packed) {
+    const int64_t o0 = tile * g.outers;
+    outers = (int)(g.outer - o0 < g.outers ? g.outer - o0 : g.outers);
+    width = outers * (int)inner;
+    first = o0 * n * inner;
+  } else {
+    const int64_t o = tile / g.col_tiles;
+    const int64_t c0 = (tile - o * g.col_tiles) * WB_LINES;
+    width = (int)(inner - c0 < WB_LINES ? inner - c0 : WB_LINES);
+    first = o * n * inner + c0;
+  }
+  // this thread's share of a chunk of lines: element j at shared offset
+  // xoff[j] (row kk = xoff / WB_XSTRIDE; -1: none) from in + first +
+  // k0 * inner + xrel[j] (the plan keeps a tile's span within int32)
+  int xrel[NX], xoff[NX];
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const int e = tid + j * WB_THREADS;
+    if (g.packed) {
+      const int run = K * (int)inner;
+      const int ol = e / run, r = e - ol * run;
+      const int kk = r / (int)inner, i = r - kk * (int)inner;
+      xoff[j] = ol < outers ? kk * WB_XSTRIDE + ol * (int)inner + i : -1;
+      xrel[j] = (int)(ol * n * inner) + r;
+    } else {
+      const int kk = e / WB_LINES, w = e % WB_LINES;
+      xoff[j] = w < width ? kk * WB_XSTRIDE + w : -1;
+      xrel[j] = kk * (int)inner + w;
+    }
+  }
+  // the band's chunks: [r.x, r.y), then [r.z, r.w)
+  const int4 r = runs ? runs[band] : make_int4(0, g.nchunks, 0, 0);
+  const int count = r.y - r.x + r.w - r.z;
+  auto chunk = [&](int q) {
+    return q < r.y - r.x ? r.x + q : r.z + q - (r.y - r.x);
+  };
+  auto stage = [&](int c, int buf) {
+    const int k0 = c * K;
+    const T* src = in + first + (int64_t)k0 * inner;
+    T* xb = xs + buf * K * WB_XSTRIDE;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      if (xoff[j] < 0) continue;
+      const bool ok = k0 + xoff[j] / WB_XSTRIDE < n;
+      stage_async_zfill(xb + xoff[j], ok ? src + xrel[j] : in, ok);
+    }
+    T* mb = ms + buf * K * WB_ROWS;
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+      const int e = tid + j * WB_THREADS;
+      const int kk = e / WB_ROWS, a = e % WB_ROWS;
+      const bool ok = k0 + kk < n && a0 + a < n;
+      stage_async_zfill(mb + e, ok ? mat_t + (k0 + kk) * n + a0 + a : mat_t,
+                        ok);
+    }
+    stage_commit();
+  };
+
+  T acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) acc[r][l] = T(0);
+  if (count > 0) stage(chunk(0), 0);
+  for (int q = 0; q < count; ++q) {
+    const int buf = q & 1;
+    if (q + 1 < count) {
+      stage(chunk(q + 1), buf ^ 1);
+      stage_wait_group<1>();
+    } else {
+      stage_wait_group<0>();
+    }
+    __syncthreads();
+    const T* mrow = ms + buf * K * WB_ROWS + ty * 4;
+    const T* xrow = xs + buf * K * WB_XSTRIDE + tx * 4;
+#pragma unroll 4
+    for (int kk = 0; kk < K; ++kk) {
+      T m[4], v[4];
+      load4(mrow + kk * WB_ROWS, m);
+      load4(xrow + kk * WB_XSTRIDE, v);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int l = 0; l < 4; ++l) acc[r][l] = wb_step(m[r], v[l], acc[r][l]);
+    }
+    __syncthreads();
+  }
+  // the sums, cast, through shared memory
+  const T lo = T(g.int_lo);
+  const T span = T(ldexp(1.0, g.int_bits));
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+      ys[(ty * 4 + r) * WB_YSTRIDE + tx * 4 + l] =
+          wb_out(acc[r][l], g.int_bits, lo, span);
+  __syncthreads();
+  T* dst = out + first + (int64_t)a0 * inner;
+  const int rows = n - a0 < WB_ROWS ? (int)(n - a0) : WB_ROWS;
+  if (g.packed) {
+    const int run = rows * (int)inner;
+    for (int e = tid; e < outers * run; e += WB_THREADS) {
+      const int ol = e / run, r = e - ol * run;
+      const int kk = r / (int)inner, i = r - kk * (int)inner;
+      dst[ol * n * inner + r] = ys[kk * WB_YSTRIDE + ol * (int)inner + i];
+    }
+  } else {
+    for (int e = tid; e < rows * WB_LINES; e += WB_THREADS) {
+      const int kk = e / WB_LINES, w = e % WB_LINES;
+      if (w < width) dst[kk * inner + w] = ys[kk * WB_YSTRIDE + w];
+    }
+  }
+}
+
 // K7's stages after the copy: the exact transpose of prefilter_bc_kernel,
 // equal with the gain (applied last by the caller) to
 // filter_matrix_bc(n, order, bc).T: per pole in reverse order, the
@@ -825,6 +1034,48 @@ cudaError_t launch_writeback(const void* in, void* out, const Params& p,
   prefilter_writeback_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const T*>(in), static_cast<T*>(out), p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_product(const void* in, void* out, const void* mat_t,
+                           const int4* runs, const WbGeom& g,
+                           int64_t blocks, cudaStream_t stream) {
+  writeback_product_kernel<T>
+      <<<(unsigned)blocks, WB_THREADS, wb_smem<T>(), stream>>>(
+          static_cast<const T*>(in), static_cast<T*>(out),
+          static_cast<const T*>(mat_t), runs, g);
+  return cudaGetLastError();
+}
+
+// The product form's geometry from the shape, as
+// ops/prefilter.py:_writeback_plan computes it; false where a block's span
+// of lines leaves int32 or the grid holds 2^31 blocks or more.
+bool make_wb_geom(WbGeom* g, int chunk, long long outer, long long n,
+                  long long inner, int int_bits, double int_lo,
+                  long long blocks) {
+  if (outer < 1 || n < 1 || inner < 1 || n > 0x7fffffffLL) return false;
+  g->outer = outer;
+  g->n = n;
+  g->inner = inner;
+  g->packed = inner < WB_LINES;
+  g->bands = (int)((n + WB_ROWS - 1) / WB_ROWS);
+  g->nchunks = (int)((n + chunk - 1) / chunk);
+  g->int_bits = int_bits;
+  g->int_lo = int_lo;
+  int64_t tiles, span;
+  if (g->packed) {
+    g->outers = (int)(WB_LINES / inner);
+    g->col_tiles = 0;
+    tiles = (outer + g->outers - 1) / g->outers;
+    span = (int64_t)g->outers * n * inner;
+  } else {
+    g->outers = 0;
+    g->col_tiles = (inner + WB_LINES - 1) / WB_LINES;
+    tiles = outer * g->col_tiles;
+    span = (int64_t)chunk * inner + WB_LINES;
+  }
+  return span <= 0x7fffffffLL && blocks == tiles * g->bands &&
+         blocks <= 0x7fffffffLL;
 }
 
 template <typename T, bool TRANSPOSE>
@@ -1070,6 +1321,35 @@ int ed_spline_prefilter_writeback(
     return (int)cudaErrorInvalidValue;
   return (int)launch_tile(dtype, TILE_K2_WRITEBACK, width, in, out, p, t,
                           smem, blocks * row_groups, s, nullptr);
+}
+
+// K2's writeback route in its product form (writeback_product_kernel):
+// each output the row sum of the n x n table whose transpose mat_t is (in
+// T on the card: filter_matrix(n), or filter_matrix_bc(n) for K6's), in
+// the fixed order above, then the cast of ed_spline_prefilter_writeback.
+// runs: null (every chunk of k), or per band of WB_ROWS rows four ints,
+// its two runs of chunks [x, y) and [z, w) in ascending order (chunks of
+// 32 k in float32, 16 in float64, 16-byte aligned): a band skips the rest,
+// where its rows of the table are exactly zero (finite inputs only).
+// blocks: the plan's, line tiles times bands. in and out must not
+// overlap. Returns cudaGetLastError().
+int ed_spline_prefilter_writeback_product(
+    int dtype, const void* in, void* out, const void* mat_t,
+    const void* runs, long long outer, long long n, long long inner,
+    int int_bits, double int_lo, long long blocks, void* stream) {
+  if (outer * inner == 0 || n == 0) return (int)cudaSuccess;
+  WbGeom g;
+  const int chunk = dtype == 0 ? WbChunk<float>::K : WbChunk<double>::K;
+  if (!mat_t || (dtype != 0 && dtype != 1) || int_bits < 0 ||
+      int_bits > 64 ||
+      !make_wb_geom(&g, chunk, outer, n, inner, int_bits, int_lo, blocks))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int4* c = static_cast<const int4*>(runs);
+  return (int)(dtype == 0
+                   ? launch_product<float>(in, out, mat_t, c, g, blocks, s)
+                   : launch_product<double>(in, out, mat_t, c, g, blocks,
+                                            s));
 }
 
 // Blocks of the tile kernel (dtype; kind as for ed_spline_prefilter_tile,

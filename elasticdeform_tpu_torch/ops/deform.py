@@ -37,6 +37,8 @@ K7).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Tuple
@@ -291,6 +293,20 @@ class ResampleAt(torch.autograd.Function):
         return d_coeffs, d_coords, None, None, None, None
 
 
+_FINITE_INPUT = contextvars.ContextVar("finite_input", default=False)
+
+
+@contextlib.contextmanager
+def finite_input(finite: bool = True):
+    """Within the block, :class:`Prefilter1d` takes its input as finite
+    (``finite``): the general resampler's filter of an integer input."""
+    token = _FINITE_INPUT.set(finite)
+    try:
+        yield
+    finally:
+        _FINITE_INPUT.reset(token)
+
+
 class Prefilter1d(torch.autograd.Function):
     """The spline prefilter of a contiguous tensor along ``axis`` with the
     boundary condition ``bc`` (``'mirror'``: K2, ``'reflect'`` or
@@ -298,14 +314,20 @@ class Prefilter1d(torch.autograd.Function):
     transpose (K4 or K7). Orders 0 and 1 are not passed here.
     ``fixed_order``: the filter's sums in one order on every device (K2's
     writeback route with no cast), for a call whose output is an integer,
-    so that the card rounds to the CPU's integers."""
+    so that the card rounds to the CPU's integers. Inside
+    :func:`finite_input`, ``x`` holds finite values only (it came from an
+    integer array), so that route may skip the filter table's exact
+    zeros."""
 
     @staticmethod
     def forward(ctx, x, order, axis, bc, fixed_order=False):
         ctx.order, ctx.axis, ctx.bc = order, axis, bc
+        finite = _FINITE_INPUT.get()
         if bc == "mirror":
-            return spline_filter1d(x, order, axis, fixed_order=fixed_order)
-        return spline_filter1d_bc(x, order, axis, bc, fixed_order)
+            return spline_filter1d(x, order, axis, fixed_order=fixed_order,
+                                   finite=finite)
+        return spline_filter1d_bc(x, order, axis, bc, fixed_order,
+                                  finite=finite)
 
     @staticmethod
     @once_differentiable
@@ -339,9 +361,12 @@ def map_coordinates_apply_batched(x: torch.Tensor, coords: torch.Tensor,
     ispec = spec.inputs[0]
     xt = _to_spatial_channels(x, ispec).to(cdt).contiguous()
     if spec.prefilter and ispec.order > 1:
+        # an integer input (so an integer output) is finite
         fixed = np.dtype(ispec.dtype).kind in "biu"
-        for d in range(len(ispec.axis)):
-            xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror", fixed)
+        with finite_input(fixed):
+            for d in range(len(ispec.axis)):
+                xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror",
+                                       fixed)
     y = ResampleAt.apply(xt, coords.to(cdt).contiguous(), ispec.order,
                          ispec.mode, ispec.cval, _table(spec))
     return _map_output(cast_output(y, ispec.dtype), ispec, spec.out_spatial)

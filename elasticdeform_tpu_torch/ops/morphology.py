@@ -4,10 +4,15 @@ rank, median and percentile filters, grey and binary morphology.
 Counterpart of the JAX package's ``ops/morphology.py`` (less
 ``watershed_ift``). Four kernels carry it (``csrc/morphology.cu``):
 
-* :func:`min_max_filter1d` is the wrapper of K10: the min or max of ``size``
-  samples along one axis, the filter mode folded in the kernel. The separable
-  (box) footprints of :func:`apply_min_max_filter` run one K10 per axis, as
-  the JAX package runs one ``lax.reduce_window``.
+* :func:`min_max_box` is the wrapper of K10 (:func:`min_max_filter1d` its
+  one-axis form): the min or max over a separable box, a 1-D pass per axis
+  as the JAX package runs one ``lax.reduce_window`` per axis, each axis's
+  mode folded in the kernel. Two routes, which :func:`_box_plan` picks:
+  ``"box"`` (a box with extent > 1 on one to three axes whose box fits
+  shared memory: one launch, a block staging its tile's halo box once and
+  running every pass there) and ``"lines"`` (a launch a pass, the rest);
+  both take each window in the same order, bit for bit. Its counters are
+  ``min_max_filter1d.launches`` and ``.routes``.
 * :func:`min_max_filter` (K11): the min or max over an N-D footprint's taps,
   for a non-flat structure of ``x - s`` (erosion) or ``x + s`` (dilation) in
   the work type (float64 for integers and bool), whose result is truncated,
@@ -118,6 +123,11 @@ MINMAX_COLUMN = 8
 # (two or fewer taps stay on the old kernel)
 NETWORK_COLUMN = 4
 NETWORK_TILE_WIRES = (4, 8, 16, 32, 64)
+# K10's box route (csrc ED_BOX_SEGMENT): 256 threads a block; the output
+# tile's extents it chooses among, per tile axis; the shared bytes a block
+# aims at (two buffers of the box), so that three blocks share an SM
+BOX_TILE_EXTENTS = ((1, 2, 4, 8, 16), (1, 2, 4, 8, 16, 32), (32, 64))
+BOX_SMEM_AIM = 76 * 1024
 
 _DTYPE_CODES = {torch.bool: 0, torch.uint8: 1, torch.int8: 2,
                 torch.uint16: 3, torch.int16: 4, torch.uint32: 5,
@@ -689,6 +699,10 @@ def _lib():
         fn = lib.ed_min_max_filter1d
         fn.restype = i
         fn.argtypes = [i, i, vp, vp, ll, ll, ll, i, i, i, ll, vp]
+        fn = lib.ed_min_max_box
+        fn.restype = i
+        fn.argtypes = [i, i, vp, vp, ip, lp, ip, ip, ip, ip, i, ip, i, lp, lp,
+                       ll, i, ll, vp]
         fn = lib.ed_min_max_filter
         fn.restype = i
         fn.argtypes = [i, i, i, vp, vp, vp, vp, vp, i, lp, ip, ip, i, i, ll,
@@ -912,17 +926,116 @@ def _tile_tables(fkey, fshape, centers, shape, plan, device):
     return torch.as_tensor(toff).to(device), host
 
 
-def min_max_filter1d(x: torch.Tensor, size: int, axis: int, mode: str, cval,
-                     center: int, minimum: bool) -> torch.Tensor:
-    """The min (``minimum``) or max of ``size`` samples of ``x`` along
-    ``axis``, sample ``center`` on the output, filter mode ``mode``, ``cval``
-    (in ``x``'s type, see :func:`raw_cval`) beyond the edge in constant mode.
-    A CPU tensor takes :func:`min_max_filter1d_plain`; a CUDA tensor
-    launches K10 and adds one to ``min_max_filter1d.launches``."""
-    axis = axis % x.dim()
-    if x.device.type == "cpu":
-        return min_max_filter1d_plain(x, size, axis, mode, cval, center,
-                                      minimum)
+class BoxPlan(collections.namedtuple(
+        "BoxPlan", "route tile_axes grid_axes tile box p2 smem blocks",
+        defaults=((), (), (), (), 0, 0, 0))):
+    """How K10 runs a separable box of extents ``kshape`` over an array of
+    ``shape``: ``route`` ``"box"`` (every pass in one launch) or
+    ``"lines"`` (a launch a pass). For the box: the tile and grid axes of
+    :func:`~elasticdeform_tpu_torch.ops.filters.halo_tile`; the output
+    ``tile`` and the staged ``box`` (the tile grown by the box's extent -
+    1), three extents each; ``p2``, the box's row stride in shared memory
+    (:func:`_box_row_stride`); ``smem``, two buffers of the box;
+    ``blocks``, the tiles times the walked batch."""
+
+
+def _box_row_stride(length: int, item: int) -> int:
+    """The shared row stride of K10's box (csrc ``box_row_stride``): a row
+    of ``length`` elements of ``item`` bytes padded to an odd number of
+    32-bit words (of 8-byte elements for 8-byte types), so that
+    neighbouring rows start on other banks."""
+    p2 = length
+    while (p2 * item % 4 or p2 * item // 4 % 2 == 0) if item <= 4 \
+            else p2 % 2 == 0:
+        p2 += 1
+    return p2
+
+
+@functools.lru_cache(maxsize=1024)
+def _box_plan(shape, kshape, dtype, route=None) -> BoxPlan:
+    """K10's route for a separable box of extents ``kshape`` (1 off the
+    box; one to three axes of extent > 1 after merging, or the lines route)
+    on a ``dtype`` array of ``shape``. The box route's tile is the one of
+    :data:`BOX_TILE_EXTENTS` (clipped to the array) that stages the fewest
+    box elements per output within :data:`BOX_SMEM_AIM` bytes, or within
+    :data:`SMEM_LIMIT` where none fits the aim, the larger tile among
+    equals; a sample's tile axes must span fewer than 2^31 elements and
+    the grid fewer than 2^31 blocks. ``route`` forces a choice (a forced
+    box that does not fit raises ValueError). Cached: the wrappers ask at
+    every launch."""
+    if route == "lines":
+        return BoxPlan("lines")
+    if route not in (None, "box"):
+        raise ValueError(f"route must be 'box' or 'lines', got {route!r}")
+
+    def refuse(why):
+        if route == "box":
+            raise ValueError(f"K10's box route does not take {why}")
+        return BoxPlan("lines")
+
+    geo = halo_tile(shape, kshape)
+    if not 1 <= geo.axes <= 3:
+        return refuse(f"a box with extent > 1 on {geo.axes} axes")
+    if geo.span >= 2 ** 31:
+        return refuse("a sample of 2^31 elements or more")
+    item = dtype.itemsize
+    best = None
+    for tile in itertools.product(*[sorted({min(t, n) for t in ts})
+                                    for ts, n in zip(BOX_TILE_EXTENTS,
+                                                     geo.n3)]):
+        box = geo.box(tile)
+        p2 = _box_row_stride(box[2], item)
+        smem = 2 * box[0] * box[1] * p2 * item
+        if smem > SMEM_LIMIT:
+            continue
+        key = (smem > BOX_SMEM_AIM, math.prod(box) / math.prod(tile),
+               -math.prod(tile))
+        if best is None or key < best[0]:
+            best = (key, tile, box, p2, smem)
+    if best is None:
+        return refuse(f"a box of extents {geo.k3}: no tile fits "
+                      f"{SMEM_LIMIT} bytes")
+    _, tile, box, p2, smem = best
+    blocks = geo.blocks(tile)
+    if blocks >= 2 ** 31:
+        return refuse(f"{blocks} blocks")
+    return BoxPlan("box", geo.tile_axes, geo.grid_axes, tile, box, p2, smem,
+                   blocks)
+
+
+@functools.lru_cache(maxsize=256)
+def _box_tables(shape, passes, plan, floating: bool):
+    """``ed_min_max_box``'s host arrays for ``plan`` and the ``passes``
+    ``((axis, size, centre, mode), ...)``: per tile axis its extent,
+    stride, the box's extent, centre and mode (nearest off the box), the
+    tile; the passes' tile axes in order; the grid's batch axes. A box of a
+    ``floating`` type keeps the caller's order (a window holding NaNs takes
+    the first, as the sequential passes do); on integers and bool the min
+    and max of a box do not depend on the order, and the pass along tile
+    axis 2 runs first, so that the last pass, along axis 0 or 1, stores the
+    tile with its threads along the contiguous axis."""
+    kshape = [1] * len(shape)
+    for axis, size, _, _ in passes:
+        kshape[axis] = size
+    geo = halo_tile(shape, tuple(kshape))
+    k3, c3, m3 = [1] * 3, [0] * 3, [_MODE_CODES["nearest"]] * 3
+    order = []
+    for axis, size, center, mode in passes:
+        a = geo.tile_axes.index(geo.group[axis])
+        k3[a], c3[a], m3[a] = size, center, _MODE_CODES[mode]
+        order.append(a)
+    if not floating:
+        order.sort(key=lambda a: a != 2)
+    i, ll = ctypes.c_int, ctypes.c_longlong
+    return ((i * 3)(*geo.n3), (ll * 3)(*geo.st3), (i * 3)(*k3),
+            (i * 3)(*c3), (i * 3)(*m3), (i * 3)(*plan.tile), len(order),
+            (i * 3)(*order), *geo.grid_host())
+
+
+def _launch_lines(x: torch.Tensor, size: int, axis: int, mode: str, cval,
+                  center: int, minimum: bool) -> torch.Tensor:
+    """K10's lines route, one pass along ``axis`` (``min_max_1d_kernel``).
+    Counts nothing."""
     _check(x, "min_max_filter1d")
     out = torch.empty_like(x)
     outer, n, inner = _lines(x, axis)
@@ -932,11 +1045,95 @@ def min_max_filter1d(x: torch.Tensor, size: int, axis: int, mode: str, cval,
         outer, n, inner, int(size), int(center), _MODE_CODES[mode],
         _bits(cval, x.dtype), _stream(x))
     _build.check(err, lib, "ed_morphology_error_string", "min_max_filter1d")
+    return out
+
+
+def _launch_box(x: torch.Tensor, passes, cval, minimum: bool,
+                plan: BoxPlan) -> torch.Tensor:
+    """K10 on the route ``plan`` names: the box route in one launch, or the
+    lines route a launch a pass. Counts nothing."""
+    if plan.route == "lines":
+        for axis, size, center, mode in passes:
+            x = _launch_lines(x, size, axis, mode, cval, center, minimum)
+        return x
+    _check(x, "min_max_filter1d")
+    out = torch.empty_like(x)
+    host = _box_tables(tuple(int(n) for n in x.shape), tuple(passes), plan,
+                       x.dtype.is_floating_point)
+    lib = _lib()
+    err = lib.ed_min_max_box(
+        _DTYPE_CODES[x.dtype], int(minimum), x.data_ptr(), out.data_ptr(),
+        *host, _bits(cval, x.dtype), plan.smem, plan.blocks, _stream(x))
+    _build.check(err, lib, "ed_morphology_error_string", "min_max_filter1d")
+    return out
+
+
+def min_max_box_plain(x: torch.Tensor, passes, cval,
+                      minimum: bool) -> torch.Tensor:
+    """Plain version of K10's box: :func:`min_max_filter1d_plain` once per
+    pass ``(axis, size, centre, mode)``, in order."""
+    for axis, size, center, mode in passes:
+        x = min_max_filter1d_plain(x, size, axis, mode, cval, center,
+                                   minimum)
+    return x
+
+
+def min_max_box(x: torch.Tensor, passes, cval,
+                minimum: bool) -> torch.Tensor:
+    """The min (``minimum``) or max over a separable box: a 1-D pass per
+    ``(axis, size, centre, mode)`` of ``passes`` in order (sizes > 1,
+    distinct axes), ``cval`` (in ``x``'s type, see :func:`raw_cval`) beyond
+    the edge of a constant-mode axis. A CPU tensor takes
+    :func:`min_max_box_plain`; a CUDA tensor launches K10 on the route of
+    :func:`_box_plan`: the box route once, or the lines route once per
+    pass, adding each launch to ``min_max_filter1d.launches`` and to its
+    route's count in ``min_max_filter1d.routes``."""
+    passes = tuple((int(a) % x.dim(), int(s), int(c), m)
+                   for a, s, c, m in passes)
+    if len({p[0] for p in passes}) != len(passes) or \
+            min(p[1] for p in passes) < 2:
+        raise ValueError(f"min_max_box takes distinct axes and sizes of 2 "
+                         f"or more, got {passes}")
+    if x.device.type == "cpu":
+        return min_max_box_plain(x, passes, cval, minimum)
+    _check(x, "min_max_filter1d")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    kshape = [1] * x.dim()
+    for axis, size, _, _ in passes:
+        kshape[axis] = size
+    plan = _box_plan(tuple(x.shape), tuple(kshape), x.dtype)
+    out = _launch_box(x, passes, cval, minimum, plan)
+    launches = 1 if plan.route == "box" else len(passes)
+    min_max_filter1d.launches += launches
+    min_max_filter1d.routes[plan.route] += launches
+    return out
+
+
+def min_max_filter1d(x: torch.Tensor, size: int, axis: int, mode: str, cval,
+                     center: int, minimum: bool) -> torch.Tensor:
+    """The min (``minimum``) or max of ``size`` samples of ``x`` along
+    ``axis``, sample ``center`` on the output, filter mode ``mode``, ``cval``
+    (in ``x``'s type, see :func:`raw_cval`) beyond the edge in constant mode.
+    A CPU tensor takes :func:`min_max_filter1d_plain`; a CUDA tensor
+    launches K10 (:func:`min_max_box` with one pass; a size of 1 on the
+    lines route) and adds one to ``min_max_filter1d.launches`` and to its
+    route's count in ``min_max_filter1d.routes``."""
+    axis = axis % x.dim()
+    if x.device.type == "cpu":
+        return min_max_filter1d_plain(x, size, axis, mode, cval, center,
+                                      minimum)
+    _check(x, "min_max_filter1d")
+    if int(size) > 1:
+        return min_max_box(x, [(axis, size, center, mode)], cval, minimum)
+    out = _launch_lines(x, size, axis, mode, cval, center, minimum)
     min_max_filter1d.launches += 1
+    min_max_filter1d.routes["lines"] += 1
     return out
 
 
 min_max_filter1d.launches = 0
+min_max_filter1d.routes = {"box": 0, "lines": 0}
 
 
 def _work_dtype(dtype: torch.dtype, nonflat: bool) -> torch.dtype:
@@ -1269,18 +1466,24 @@ def _pads(footprint_shape, centers):
     return [(c, k - 1 - c) for c, k in zip(centers, footprint_shape)]
 
 
-def apply_min_max_filter1d(x: torch.Tensor, size, axis: int, mode, cval,
-                           origin, minimum: bool) -> torch.Tensor:
-    """SciPy ``minimum_filter1d`` / ``maximum_filter1d`` (K10)."""
+def _box_pass(x: torch.Tensor, size, axis: int, mode, cval, origin):
+    """A pass of K10, ``(axis, size, centre, mode)``, and its ``cval`` in
+    ``x``'s type (:func:`_pad_value`), checked as SciPy checks them."""
     size = int(size)
     if size < 1:
         raise RuntimeError("incorrect filter size")
-    axis = axis % x.dim()
     mode = check_mode(mode)
     c = size // 2 + int(origin)
     if not 0 <= c < size:
         raise ValueError("invalid origin")
-    cv = _pad_value(cval, x.dtype, mode, [(c, size - 1 - c)])
+    return ((axis % x.dim(), size, c, mode),
+            _pad_value(cval, x.dtype, mode, [(c, size - 1 - c)]))
+
+
+def apply_min_max_filter1d(x: torch.Tensor, size, axis: int, mode, cval,
+                           origin, minimum: bool) -> torch.Tensor:
+    """SciPy ``minimum_filter1d`` / ``maximum_filter1d`` (K10)."""
+    (axis, size, c, mode), cv = _box_pass(x, size, axis, mode, cval, origin)
     return min_max_filter1d(x.contiguous(), size, axis, mode, cv, c, minimum)
 
 
@@ -1296,11 +1499,16 @@ def apply_min_max_filter(x: torch.Tensor, size, footprint, structure, mode,
     origins = normalize_sequence(origin, len(axes), "origin")
     modes = normalize_sequence(mode, len(axes), "mode")
     if separable:
+        passes, cv = [], 0
         for ax, s, o, md in zip(axes, sizes, origins, modes):
             if int(s) > 1:
-                x = apply_min_max_filter1d(x, int(s), ax, md, cval, o,
-                                           minimum)
-        return x
+                p, v = _box_pass(x, s, ax, md, cval, o)
+                passes.append(p)
+                # every constant axis converts cval alike; no other reads it
+                cv = v if p[3] == "constant" else cv
+        if not passes:
+            return x
+        return min_max_box(x.contiguous(), passes, cv, minimum)
     if len({check_mode(m) for m in modes}) != 1:
         raise RuntimeError("A sequence of modes is not supported for "
                            "non-separable footprints")

@@ -33,8 +33,13 @@ With an integer writeback (``int_dtype``, an integer input to ``deform``)
 K2 takes its ``"writeback"`` route instead: no recursion, but the row sums
 of the filter matrix in one fixed order, then the truncating cast after the
 axis (:func:`_row_sums`, which its plain version runs too), so that the
-card and the CPU truncate to the same integers. It has a tile form and a
-lines form, on the same plan. With ``fixed_order`` (a call of the general
+card and the CPU truncate to the same integers. It runs in a product form
+(:func:`_writeback_plan`: a register-blocked product of bands of rows by
+tiles of lines, the same chains; where the input came from an integer
+array, a band skips the chunks of its table that are exactly zero), or on
+the rows route (a tile form and a lines form, on the tile plan)
+for views the product form does not take. With ``fixed_order`` (a call of
+the general
 resampler whose output is an integer, which rounds after the resample) K2
 and K6 take that route without the cast: the row sums of ``filter_matrix``
 or ``filter_matrix_bc`` in the same fixed order on both devices.
@@ -352,6 +357,13 @@ def _lib():
             ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_void_p]
+        fn = lib.ed_spline_prefilter_writeback_product
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
+            ctypes.c_longlong, ctypes.c_void_p]
         fn = lib.ed_prefilter_tile_blocks_per_sm
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4
@@ -483,6 +495,7 @@ _TILE_KINDS = {("K4", "mirror"): 0, ("K7", "reflect"): 1, ("K7", "wrap"): 2,
                ("K2 writeback", "mirror"): 6}
 
 
+@functools.lru_cache(maxsize=None)
 def _int_writeback(int_dtype):
     """``(bits, iinfo.min)`` of K2's integer writeback; ``(0, 0.0)`` for
     none."""
@@ -503,6 +516,146 @@ def _row_groups(plan: TilePlan, n: int, lines: int, sms: int) -> int:
     units = plan.blocks if plan.route == "tile" else lines
     want = 4 * sms * (1 if plan.route == "tile" else 256)
     return max(1, min(-(-want // max(units, 1)), -(-n // 4)))
+
+
+# K2's writeback route in its product form (csrc WB_ROWS, WB_LINES,
+# WbChunk): a block computes a band of WB_ROWS output rows of WB_LINES
+# lines, walking k in chunks of WB_CHUNK elements
+WB_ROWS = 64
+WB_LINES = 64
+WB_CHUNK = {torch.float32: 32, torch.float64: 16}
+
+
+class WritebackPlan(NamedTuple):
+    """How K2's writeback route runs on an ``(outer, n, inner)`` view:
+    ``route`` ``"product"`` (the register-blocked product of a band of
+    :data:`WB_ROWS` rows by a tile of :data:`WB_LINES` lines, ``packed``
+    when ``inner < WB_LINES``: a tile is ``WB_LINES // inner`` whole
+    outers; ``tiles`` of lines times ``bands`` of rows make the ``blocks``)
+    or ``"rows"`` (``writeback_rows``: a thread's rows four at a time, in
+    the tile or lines form of ``rows``, the :func:`_tile_plan` of the
+    view)."""
+    route: str
+    packed: bool
+    tiles: int
+    bands: int
+    blocks: int
+    rows: TilePlan
+
+
+@functools.lru_cache(maxsize=1024)
+def _writeback_plan(outer: int, n: int, inner: int, dtype, route=None,
+                    sms: int = 132) -> WritebackPlan:
+    """K2's writeback route on an ``(outer, n, inner)`` view of a
+    ``dtype`` tensor: the product form, unless a tile's span of lines
+    leaves int32 or the grid would hold 2^31 blocks or more, where the
+    rows route takes it. ``route`` forces a choice (``chip_smoke.py`` holds
+    and times both); a forced product that does not fit raises
+    ValueError. Cached: the wrappers ask at every launch."""
+    rows = _tile_plan(outer, n, inner, dtype, sms=sms)
+    if route not in (None, "product", "rows"):
+        raise ValueError(f"route must be 'product' or 'rows', got {route!r}")
+    if route == "rows":
+        return WritebackPlan("rows", False, 0, 0, rows.blocks, rows)
+    packed = inner < WB_LINES
+    if packed:
+        per = WB_LINES // inner
+        tiles = -(-outer // per)
+        span = per * n * inner
+    else:
+        tiles = outer * -(-inner // WB_LINES)
+        span = WB_CHUNK[dtype] * inner + WB_LINES
+    bands = -(-n // WB_ROWS)
+    blocks = tiles * bands
+    if span >= 2 ** 31 or blocks >= 2 ** 31 or n >= 2 ** 31:
+        if route == "product":
+            raise ValueError(f"the product form does not take a view of "
+                             f"{(outer, n, inner)}")
+        return WritebackPlan("rows", False, 0, 0, rows.blocks, rows)
+    return WritebackPlan("product", packed, tiles, bands, blocks, rows)
+
+
+def _writeback_plan_for(x: torch.Tensor, axis: int) -> WritebackPlan:
+    """The writeback plan for a CUDA tensor, sized to its card's SMs."""
+    return _writeback_plan(*_lines(x, axis), x.dtype, sms=_sm_count(x.device))
+
+
+def writeback_chunk_runs(mat: np.ndarray, chunk: int):
+    """The product form's chunk runs of an ``n x n`` table ``mat`` (in the
+    kernel's dtype): per band of :data:`WB_ROWS` rows, the chunks of
+    ``chunk`` columns where the band holds a nonzero entry as two runs
+    ``[x, y)`` and ``[z, w)``, ascending (a band's nonzero chunks lie
+    around its diagonal and, under wrap, in a corner), ``(bands, 4)``
+    int32. A band skips the other chunks: their terms are ``0 * x``, which
+    leave a sum of finite terms as it is. None where no band skips a chunk
+    or a band's chunks take more than two runs: the kernel then takes every
+    chunk."""
+    n = mat.shape[0]
+    bands, chunks = -(-n // WB_ROWS), -(-n // chunk)
+    runs = np.zeros((bands, 4), dtype=np.int32)
+    skips = False
+    for b in range(bands):
+        band = mat[b * WB_ROWS:(b + 1) * WB_ROWS]
+        live = [bool(np.any(band[:, c * chunk:(c + 1) * chunk] != 0))
+                for c in range(chunks)]
+        edges = [c for c in range(chunks + 1)
+                 if (c < chunks and live[c]) != (c > 0 and live[c - 1])]
+        if len(edges) > 4:
+            return None
+        edges += [edges[-1] if edges else 0] * (4 - len(edges))
+        runs[b] = edges
+        skips = skips or not all(live)
+    return runs if skips else None
+
+
+@functools.lru_cache(maxsize=64)
+def _writeback_tables(n: int, order: int, dtype, device, bc: str = "mirror"):
+    """The product form's tables on ``device``, uploaded once: the
+    transposed table of :func:`_filter_table` (``M^T``, row-major, in
+    ``dtype``) and its chunk runs (:func:`writeback_chunk_runs`, or None:
+    every chunk)."""
+    mat = _filter_table(n, order, dtype, torch.device("cpu"), bc)
+    runs = writeback_chunk_runs(mat.numpy(), WB_CHUNK[dtype])
+    return (mat.t().contiguous().to(device),
+            None if runs is None else torch.as_tensor(runs).to(device))
+
+
+def _launch_product(x: torch.Tensor, order: int, axis: int, bc: str,
+                    plan: WritebackPlan, int_dtype=None,
+                    finite: bool = False) -> torch.Tensor:
+    """K2's writeback route in its product form on ``plan``: the row sums
+    of ``filter_matrix`` (``bc`` ``'mirror'``) or ``filter_matrix_bc``,
+    then ``int_dtype``'s writeback or, with None, no cast; ``finite`` (an
+    input known to be finite: it came from an integer array) lets each band
+    skip the chunks where its rows of the table are exactly zero (its
+    chunk runs). Counts nothing."""
+    outer, n, inner = _lines(x, axis)
+    out = torch.empty_like(x)
+    lib = _lib()
+    bits, lo = _int_writeback(int_dtype)
+    mat_t, runs = _writeback_tables(n, order, x.dtype, x.device, bc)
+    err = lib.ed_spline_prefilter_writeback_product(
+        0 if x.dtype == torch.float32 else 1, x.data_ptr(), out.data_ptr(),
+        mat_t.data_ptr(), runs.data_ptr() if finite and runs is not None
+        else None, outer, n, inner, bits, lo, plan.blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, lib, "ed_prefilter_error_string",
+                 "spline_prefilter writeback product")
+    return out
+
+
+def _launch_writeback(x: torch.Tensor, order: int, axis: int, bc: str,
+                      plan, int_dtype=None,
+                      finite: bool = False) -> torch.Tensor:
+    """K2's writeback route on ``plan``: a :class:`WritebackPlan` (its
+    product form, or its rows route), or a :class:`TilePlan`, which runs
+    the rows route in that plan's tile or lines form. Counts nothing."""
+    if isinstance(plan, WritebackPlan):
+        if plan.route == "product":
+            return _launch_product(x, order, axis, bc, plan, int_dtype,
+                                   finite)
+        plan = plan.rows
+    return _launch_rows(x, order, axis, bc, plan, int_dtype)
 
 
 def _launch_rows(x: torch.Tensor, order: int, axis: int, bc: str,
@@ -527,15 +680,17 @@ def _launch_rows(x: torch.Tensor, order: int, axis: int, bc: str,
     return out
 
 
-def _launch_filter(x: torch.Tensor, order: int, axis: int, plan: TilePlan,
-                   int_dtype=None, fixed_order: bool = False) -> torch.Tensor:
+def _launch_filter(x: torch.Tensor, order: int, axis: int, plan,
+                   int_dtype=None, fixed_order: bool = False,
+                   finite: bool = False) -> torch.Tensor:
     """K2 on a CUDA tensor along ``axis`` on the route and tile ``plan``
     names; with ``int_dtype`` or ``fixed_order``, K2's writeback route
-    instead (:func:`_launch_rows`). Counts nothing (the public wrapper
-    counts)."""
+    instead (:func:`_launch_writeback`, ``finite`` as there). Counts
+    nothing (the public wrapper counts)."""
     check_kernel_tensor(x, "spline_prefilter")
     if int_dtype is not None or fixed_order:
-        return _launch_rows(x, order, axis, "mirror", plan, int_dtype)
+        return _launch_writeback(x, order, axis, "mirror", plan, int_dtype,
+                                 finite)
     outer, n, inner = _lines(x, axis)
     dt = 0 if x.dtype == torch.float32 else 1
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -608,14 +763,14 @@ def _launch_transpose(x: torch.Tensor, order: int, axis: int, bc: str,
 
 
 def _launch_bc_filter(x: torch.Tensor, order: int, axis: int, bc: str,
-                      plan: TilePlan,
-                      fixed_order: bool = False) -> torch.Tensor:
+                      plan, fixed_order: bool = False,
+                      finite: bool = False) -> torch.Tensor:
     """K6 under ``bc`` (``'reflect'`` or ``'wrap'``) on ``plan``:
     :func:`_launch_poles`; with ``fixed_order``, K2's writeback route on
-    ``filter_matrix_bc`` with no cast (:func:`_launch_rows`)."""
+    ``filter_matrix_bc`` with no cast (:func:`_launch_writeback`)."""
     if fixed_order:
         check_kernel_tensor(x, "spline_prefilter_bc")
-        return _launch_rows(x, order, axis, bc, plan)
+        return _launch_writeback(x, order, axis, bc, plan, None, finite)
     return _launch_poles(x, order, axis, bc, plan, False)
 
 
@@ -634,34 +789,47 @@ def tile_blocks_per_sm(dtype, kernel: str, bc: str, plan: TilePlan) -> int:
 
 
 def spline_filter1d(x: torch.Tensor, order: int, axis: int,
-                    int_dtype=None, fixed_order: bool = False) -> torch.Tensor:
+                    int_dtype=None, fixed_order: bool = False,
+                    finite: bool = False) -> torch.Tensor:
     """Spline prefilter of ``x`` along ``axis`` (mirror boundary).
 
     ``int_dtype`` (a numpy integer or bool dtype) adds the reference's
     per-axis integer writeback after the filter, on K2's writeback route;
-    ``fixed_order`` takes that route's fixed-order sums without the cast.
+    ``fixed_order`` takes that route's fixed-order sums without the cast;
+    ``finite`` says that ``x`` came from an integer array, so the route may
+    skip the table's exact zeros (an integer writeback implies it).
     Orders 0 and 1 need no filter and return ``x`` as it is. A CPU tensor
     takes :func:`spline_filter1d_plain`; a CUDA tensor launches K2
     (contiguous float32 or float64 only) on the route of :func:`_tile_plan`,
-    or with ``int_dtype`` or ``fixed_order`` on its writeback route, and
-    adds one to ``spline_filter1d.launches`` and to that route's count in
-    ``spline_filter1d.routes``.
+    or with ``int_dtype`` or ``fixed_order`` on its writeback route (the
+    form :func:`_writeback_plan` picks), and adds one to
+    ``spline_filter1d.launches``, to that route's count in
+    ``spline_filter1d.routes`` and, on the writeback route, to its form's
+    count in ``spline_filter1d.writeback_routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
         return spline_filter1d_plain(x, order, axis, int_dtype, fixed_order)
     check_kernel_tensor(x, "spline_filter1d")
-    plan = _plan_for(x, axis)
-    out = _launch_filter(x, order, axis, plan, int_dtype, fixed_order)
+    if int_dtype is not None or fixed_order:
+        plan = _writeback_plan_for(x, axis)
+        out = _launch_filter(x, order, axis, plan, int_dtype, True,
+                             finite or int_dtype is not None)
+        spline_filter1d.writeback_routes[plan.route] += 1
+        route = "writeback"
+    else:
+        plan = _plan_for(x, axis)
+        out = _launch_filter(x, order, axis, plan)
+        route = plan.route
     spline_filter1d.launches += 1
-    spline_filter1d.routes["writeback" if int_dtype is not None or
-                           fixed_order else plan.route] += 1
+    spline_filter1d.routes[route] += 1
     return out
 
 
 spline_filter1d.launches = 0
 spline_filter1d.routes = {"tile": 0, "lines": 0, "writeback": 0}
+spline_filter1d.writeback_routes = {"product": 0, "rows": 0}
 
 
 def spline_filter1d_transpose(x: torch.Tensor, order: int,
@@ -692,31 +860,41 @@ spline_filter1d_transpose.routes = {"tile": 0, "lines": 0}
 
 
 def spline_filter1d_bc(x: torch.Tensor, order: int, axis: int,
-                       bc: str, fixed_order: bool = False) -> torch.Tensor:
+                       bc: str, fixed_order: bool = False,
+                       finite: bool = False) -> torch.Tensor:
     """Spline prefilter of ``x`` along ``axis`` under the boundary condition
     ``bc``, ``'reflect'`` or ``'wrap'`` (the mirror one is
     :func:`spline_filter1d`). Orders 0 and 1 return ``x`` as it is. A CPU
     tensor takes :func:`spline_filter1d_bc_plain`; a CUDA tensor launches K6
     (contiguous float32 or float64 only) on the route of :func:`_tile_plan`,
     or with ``fixed_order`` K2's writeback route on ``filter_matrix_bc``
-    with no cast, and adds one to ``spline_filter1d_bc.launches`` and to
-    its route's count in ``spline_filter1d_bc.routes``.
+    with no cast (``finite`` as for :func:`spline_filter1d`), and adds one
+    to ``spline_filter1d_bc.launches``, to its route's count in
+    ``spline_filter1d_bc.routes`` and, on the writeback route, to its
+    form's count in ``spline_filter1d_bc.writeback_routes``.
     """
     if order <= 1:
         return x
     if x.device.type == "cpu":
         return spline_filter1d_bc_plain(x, order, axis, bc, fixed_order)
     check_kernel_tensor(x, "spline_prefilter_bc")
-    plan = _plan_for(x, axis)
-    out = _launch_bc_filter(x, order, axis, bc, plan, fixed_order)
+    if fixed_order:
+        plan = _writeback_plan_for(x, axis)
+        out = _launch_bc_filter(x, order, axis, bc, plan, True, finite)
+        spline_filter1d_bc.writeback_routes[plan.route] += 1
+        route = "writeback"
+    else:
+        plan = _plan_for(x, axis)
+        out = _launch_bc_filter(x, order, axis, bc, plan)
+        route = plan.route
     spline_filter1d_bc.launches += 1
-    spline_filter1d_bc.routes["writeback" if fixed_order
-                              else plan.route] += 1
+    spline_filter1d_bc.routes[route] += 1
     return out
 
 
 spline_filter1d_bc.launches = 0
 spline_filter1d_bc.routes = {"tile": 0, "lines": 0, "writeback": 0}
+spline_filter1d_bc.writeback_routes = {"product": 0, "rows": 0}
 
 
 def spline_filter1d_bc_transpose(x: torch.Tensor, order: int, axis: int,

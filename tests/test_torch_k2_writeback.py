@@ -23,8 +23,23 @@ then a rounded add, float32 one fused multiply-add per term. On the CPU:
   chain), and the remainder columns of a column count that is not a
   multiple of 8.
 
-The ``cuda`` test holds the route's tile and lines forms to the twin bit
-for bit and skips without a card.
+The route's product form (``writeback_product_kernel``) runs the same
+chains in register tiles and, where the input is known to be finite (it
+came from an integer array), skips the chunks of k where a band's rows of
+the table are exactly zero. On the CPU:
+
+* a model of the skipping sums (each band's chunk runs, in order) against
+  the twin bit for bit, float32 ``filter_matrix`` and
+  ``filter_matrix_bc`` tables at n from 80 to 1760, integer inputs up to
+  int32's edges; on NaN or an infinity the skip would change the result,
+  which is why a float input keeps every term;
+* the chunk runs' host builder, the product form's plan, and which
+  calls declare their input finite (the general resampler's integer
+  inputs, unless a constant pad of a non-finite ``cval`` was added) and
+  which do not (``spline_filter`` into an integer output).
+
+The ``cuda`` tests hold the route's tile and lines forms and its product
+form, skip on and off, to the twin bit for bit and skip without a card.
 """
 
 import itertools
@@ -307,3 +322,176 @@ def test_writeback_route_is_the_twin(cuda_device, dtype, int_dtype):
         for plan in plans:
             assert torch.equal(tp._launch_filter(x, order, 1, plan,
                                                  int_dtype), want)
+
+
+def _skipping_sums(x, mat, runs, chunk):
+    """The product form's sums with the chunk skip, modelled: row a of band
+    b takes k of the chunks of its runs ``[x, y)`` and ``[z, w)`` only, in
+    order, as the chain of :func:`tp._row_sums` (float32 ``_fma32``,
+    float64 a rounded multiply, then a rounded add); ``x`` is
+    ``(n, lines)``; ``runs`` None takes every chunk."""
+    n = mat.shape[0]
+    rows = torch.arange(n) // tp.WB_ROWS
+    live = torch.ones(-(-n // tp.WB_ROWS), -(-n // chunk), dtype=torch.bool)
+    if runs is not None:
+        live[:] = False
+        for b, (a0, a1, b0, b1) in enumerate(runs):
+            live[b, a0:a1] = live[b, b0:b1] = True
+    y = torch.zeros_like(x)
+    for k in range(n):
+        on = live[rows, k // chunk][:, None]
+        col = mat[:, k][:, None]
+        step = (tp._fma32(col, x[k], y) if x.dtype == torch.float32
+                else y + col * x[k])
+        y = torch.where(on, step, y)
+    return y
+
+
+@pytest.mark.parametrize("bc", ["mirror", "reflect", "wrap"])
+@pytest.mark.parametrize("n", [80, 128, 200, 300, 512, 1760])
+def test_chunk_skip_is_the_twin_on_integer_inputs(n, bc):
+    """float32 tables are exactly zero far from the diagonal (and their
+    mirror and wrap images); skipping the chunks a band sees only as zeros
+    leaves every sum of integer inputs, up to int32's edges, bit for bit
+    as the twin's."""
+    rs = np.random.RandomState(n)
+    mat = tp._filter_table(n, 3, torch.float32, torch.device("cpu"), bc)
+    runs = tp.writeback_chunk_runs(mat.numpy(), tp.WB_CHUNK[torch.float32])
+    a = rs.randint(-2 ** 31, 2 ** 31, (n, 3), dtype=np.int64)
+    a[:2, 0] = (-2 ** 31, 2 ** 31 - 1)
+    x = torch.as_tensor(a, dtype=torch.float32)
+    want = tp._row_sums(x, mat, 0)
+    got = _skipping_sums(x, mat, runs, tp.WB_CHUNK[torch.float32])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # from there on some band skips a chunk (wrap's corners reach every
+    # chunk of a band below 300); below, no runs: every chunk
+    assert (runs is None) == (n < (300 if bc == "wrap" else 200))
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_a_non_finite_input_keeps_every_term(value):
+    """0 * NaN and 0 * inf are NaN: with one non-finite sample the twin
+    puts NaN on every row whose table entry there is zero, which the skip
+    would leave out; so a float input never takes the skip."""
+    n = 300
+    mat = tp._filter_table(n, 3, torch.float32, torch.device("cpu"),
+                           "mirror")
+    runs = tp.writeback_chunk_runs(mat.numpy(), tp.WB_CHUNK[torch.float32])
+    x = torch.zeros(n, 1, dtype=torch.float32)
+    x[n - 1, 0] = value
+    want = tp._row_sums(x, mat, 0)
+    got = _skipping_sums(x, mat, runs, tp.WB_CHUNK[torch.float32])
+    zero = mat[:, n - 1] == 0
+    assert torch.isnan(want[zero]).all()
+    assert torch.isnan(got).sum() < torch.isnan(want).sum()
+    assert not torch.isnan(got[:tp.WB_ROWS]).any()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chunk_runs_cover_the_nonzero_chunks(dtype):
+    """Per band of WB_ROWS rows, two ascending runs of chunks that hold
+    exactly the chunks with a nonzero entry; None where nothing is skipped
+    (float64 filter tables have no zero) or a band needs three runs."""
+    rs = np.random.RandomState(4)
+    chunk = 16
+    for n in (1, 5, 64, 65, 150, 300):
+        for _ in range(4):
+            m = np.zeros((n, n))
+            for b in range(-(-n // tp.WB_ROWS)):
+                for lo, hi in sorted(rs.randint(0, n + 1, (2, 2)).tolist()):
+                    m[b * tp.WB_ROWS, lo:hi] = 1.0
+            runs = tp.writeback_chunk_runs(m.astype(dtype), chunk)
+            live = [[bool(np.any(m[b * tp.WB_ROWS:(b + 1) * tp.WB_ROWS,
+                                   c * chunk:(c + 1) * chunk]))
+                     for c in range(-(-n // chunk))]
+                    for b in range(-(-n // tp.WB_ROWS))]
+            if all(all(band) for band in live):
+                assert runs is None
+                continue
+            if runs is None:    # some band takes three runs
+                assert any(sum(1 for c in range(len(band)) if band[c] and
+                               (c == 0 or not band[c - 1])) > 2
+                           for band in live)
+                continue
+            assert runs.shape == (len(live), 4) and runs.dtype == np.int32
+            for (x0, x1, z0, z1), band in zip(runs, live):
+                assert 0 <= x0 <= x1 <= z0 <= z1 <= len(band)
+                got = [x0 <= c < x1 or z0 <= c < z1 for c in range(len(band))]
+                assert got == band
+    for bc in ("mirror", "reflect", "wrap"):
+        runs = tp.writeback_chunk_runs(
+            tp.filter_matrix_bc(300, 3, bc).astype(dtype), chunk)
+        assert (runs is None) == (dtype == np.float64)
+
+
+def test_writeback_plan():
+    """The product form's blocks: line tiles of WB_LINES lines (packed
+    outers below that) times bands of WB_ROWS rows; a tile whose span
+    leaves int32 goes to the rows route, as does a forced ``"rows"``."""
+    f32 = torch.float32
+    p = tp._writeback_plan(1, 200, 300, torch.float64)
+    assert (p.route, p.packed, p.tiles, p.bands, p.blocks) == \
+        ("product", False, 5, 4, 20)
+    p = tp._writeback_plan(200, 300, 1, torch.float64)
+    assert (p.route, p.packed, p.tiles, p.bands) == ("product", True, 4, 5)
+    p = tp._writeback_plan(128, 128, 128, f32)
+    assert (p.packed, p.tiles, p.bands, p.blocks) == (False, 256, 2, 512)
+    p = tp._writeback_plan(7, 31, 3, f32)
+    assert (p.packed, p.tiles, p.blocks) == (True, 1, 1)
+    assert p.rows == tp._tile_plan(7, 31, 3, f32)
+    wide = tp._writeback_plan(1, 2, 2 ** 27, f32)
+    assert wide.route == "rows" and wide.rows.route == "tile"
+    with pytest.raises(ValueError):
+        tp._writeback_plan(1, 2, 2 ** 27, f32, route="product")
+    forced = tp._writeback_plan(1, 200, 300, f32, route="rows")
+    assert forced.route == "rows" and forced.rows == tp._tile_plan(1, 200,
+                                                                    300, f32)
+
+
+def _spy(monkeypatch):
+    from elasticdeform_tpu_torch.ops import deform as td
+    seen = []
+    for name in ("spline_filter1d", "spline_filter1d_bc"):
+        real = getattr(td, name)
+
+        def spy(*args, _real=real, finite=False, **kw):
+            seen.append(finite)
+            return _real(*args, **kw)
+        monkeypatch.setattr(td, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["mirror", "constant", "reflect",
+                                  "grid-wrap", "grid-constant", "nearest"])
+def test_integer_resampler_inputs_declare_finite(mode, monkeypatch):
+    """The general resampler's integer inputs filter with ``finite`` on
+    (the skip), float inputs with it off, in the legacy modes and the
+    modern ones; a constant pad of a NaN or infinite ``cval`` (the modern
+    ``grid-constant``) turns it off."""
+    import elasticdeform_tpu_torch as et
+    seen = _spy(monkeypatch)
+    rs = np.random.RandomState(2)
+    xi = rs.randint(0, 200, (9, 11)).astype(np.int16)
+    et.zoom(xi, 1.3, order=3, mode=mode, device="cpu")
+    assert seen and all(seen)
+    seen.clear()
+    et.zoom(xi.astype(np.float32), 1.3, order=3, mode=mode, device="cpu")
+    assert seen and not any(seen)
+    for cval, finite in ((np.nan, False), (np.inf, False), (7.0, True)):
+        seen.clear()
+        et.shift(xi, 0.5, order=3, mode=mode, cval=cval, device="cpu")
+        assert seen and all(f is (finite or mode != "grid-constant")
+                            for f in seen)
+
+
+def test_spline_filter_into_an_integer_output_keeps_every_term(monkeypatch):
+    """``spline_filter`` of a float input into an integer ``output=``
+    array sums in the fixed order with every term: its input may hold NaN
+    or an infinity."""
+    import elasticdeform_tpu_torch as et
+    seen = _spy(monkeypatch)
+    x = np.random.RandomState(3).rand(9, 10).astype(np.float32) * 100
+    x[2, 3] = np.nan
+    out = np.zeros((9, 10), np.int16)
+    et.spline_filter(x, order=3, output=out, device="cpu")
+    assert seen and not any(seen)
