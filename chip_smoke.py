@@ -2477,6 +2477,7 @@ _K10_BOX_CASES = (((37,), ((0, 3),)), ((5, 41), ((1, 4), (0, 2))),
                   ((40, 37, 70), ((0, 5), (1, 5), (2, 5))),
                   ((2, 33, 150), ((2, 3), (1, 4))),
                   ((20, 45, 3, 66), ((3, 5), (0, 2), (1, 3))),
+                  ((6, 40, 100), ((1, 3),)), ((3, 5, 200), ((2, 5),)),
                   ((11, 12, 13, 14), ((0, 2), (1, 2), (2, 2), (3, 2))))
 
 
@@ -4630,6 +4631,44 @@ def _tile_axes(name, x, order, bc, card, kernel):
     return res
 
 
+def _k10_one_pass_times(v, card):
+    """K10 on one axis (``minimum_filter1d`` / ``maximum_filter1d``) where
+    the box route's edge tiles weigh most: c16's volume ``v`` along its
+    contiguous axis at size 3, and batches whose contiguous axis of 96 or
+    160 is not a multiple of 64 (1-byte and 2-byte types), along the axis
+    above it. The wrapper (the plan's route) beside the lines route, each
+    held to the other bit for bit; the plan's tile."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    gen = torch.Generator(device=v.device).manual_seed(7)
+    cases = [("c16 axis 2 size 3", v, 2, 3)]
+    for shape, dtype in (((64, 128, 128, 96), torch.uint8),
+                         ((64, 128, 128, 160), torch.int16)):
+        x = torch.randint(0, 120, shape, generator=gen, device=v.device,
+                          dtype=torch.int16).to(dtype)
+        cases.append((f"{shape} {str(dtype)[6:]} axis 2 size 5", x, 2, 5))
+    out = {}
+    for label, x, axis, size in cases:
+        kshape = [1] * x.dim()
+        kshape[axis] = size
+        plan = mo._box_plan(tuple(x.shape), tuple(kshape), x.dtype)
+
+        def box(x=x, axis=axis, size=size):
+            return mo.min_max_filter1d(x, size, axis, "reflect", 0,
+                                       size // 2, True)
+
+        def lines(x=x, axis=axis, size=size):
+            return mo._launch_lines(x, size, axis, "reflect", 0, size // 2,
+                                    True)
+        _same(box(), lines(), f"K10 one pass at {label}, box vs lines")
+        out[label] = {"route": plan.route, "tile": plan.tile,
+                      "ms": _time_ms(box), "lines_ms": _time_ms(lines)}
+        print(f"K10 one pass at {label}: the plan's {plan.route} route, "
+              f"tile {plan.tile}, {out[label]['ms']:.4f} ms; the lines route "
+              f"{out[label]['lines_ms']:.4f} ms [{card}]")
+    return out
+
+
 def _times_writeback(rs, card):
     """K2's writeback route (an integer input with the prefilter on, order
     3) over every deformed axis at c2's 200 x 300 (uint8, float64 compute,
@@ -4666,12 +4705,16 @@ def _times_writeback(rs, card):
                 return y
             return run
 
-        def form(route, finite):
+        def form(rows, finite):
+            # the wrapper's plan (the product form at these shapes), or
+            # its rows route's plan
             def fn(y, o, a, int_dtype):
-                plan = pf._writeback_plan(*pf._lines(y, a), y.dtype,
-                                          route=route,
-                                          sms=pf._sm_count(y.device))
-                return pf._launch_writeback(y, o, a, "mirror", plan,
+                plan = pf._writeback_plan_for(y, a)
+                if plan.route != "product":
+                    raise AssertionError(f"K2 writeback at {label}: plan "
+                                         f"{plan}")
+                return pf._launch_writeback(y, o, a, "mirror",
+                                            plan.rows if rows else plan,
                                             int_dtype, finite)
             return fn
 
@@ -4684,9 +4727,9 @@ def _times_writeback(rs, card):
         got = chain(pf.spline_filter1d)()
         want = chain(pf.spline_filter1d_plain)().contiguous()
         for other, what in ((got, "the wrapper"),
-                            (chain(form("product", False))(),
+                            (chain(form(False, False))(),
                              "the product form without the skip"),
-                            (chain(form("rows", True))(), "the rows route")):
+                            (chain(form(True, True))(), "the rows route")):
             if not torch.equal(_bits(other), _bits(want)):
                 raise AssertionError(f"K2 writeback at {label}: {what} "
                                      "differs from the plain twin")
@@ -4695,10 +4738,10 @@ def _times_writeback(rs, card):
         bound = _bound(2 * len(axes) * numel * x.element_size(), ops,
                        FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS)
         res = {"ms": _time_ms(chain(pf.spline_filter1d)),
-               "no_skip_ms": _time_ms(chain(form("product", False))),
-               "rows_ms": _time_ms(chain(form("rows", True))),
+               "no_skip_ms": _time_ms(chain(form(False, False))),
+               "rows_ms": _time_ms(chain(form(True, True))),
                "device_ms": _device_ms(chain(pf.spline_filter1d)),
-               "rows_device_ms": _device_ms(chain(form("rows", True))),
+               "rows_device_ms": _device_ms(chain(form(True, True))),
                "library_device_ms": _device_ms(lib),
                "plain_ms": _time_ms(chain(pf.spline_filter1d_plain), reps=3,
                                     warmup=1),
@@ -5223,6 +5266,7 @@ def _times_morphology(row, card, k13=None):
         v, 5, a, "reflect", 0, 2, False)) for a in (0, 1, 2)]
     lines_axis = [_time_ms(lambda a=a: mo._launch_lines(
         v, 5, a, "reflect", 0, 2, False)) for a in (0, 1, 2)]
+    one_pass = _k10_one_pass_times(v, card)
     k10 = {"lines_route_ms": _time_ms(
         lambda: mo._launch_box(v, passes, 0, False, lines)),
            "opening_ms": _time_ms(opening(box_plan)),
@@ -5231,7 +5275,7 @@ def _times_morphology(row, card, k13=None):
            "device_ms": _device_ms(dilate),
            "lines_device_ms": _device_ms(
                lambda: mo._launch_box(v, passes, 0, False, lines)),
-           "plan": box_plan._asdict(),
+           "plan": box_plan._asdict(), "one_pass": one_pass,
            "per_pass_bound_ms": _bound(3 * 2 * numel * 2, 3 * numel * 4)[0]}
     print(f"K10 at (512, 512, 300) int16, size 5: one axis on the box route "
           f"{per_axis} ms, on the lines route {lines_axis} ms; the opening "
@@ -5679,6 +5723,37 @@ def _times_ab_p2_k13(reps):
     return out
 
 
+def _times_ab_k10(rs, reps):
+    """K10 for :func:`times_ab`: c16's 5^3 erosion and dilation (512 x 512
+    x 300 int16, reflect), one pass of size 5 along each of its axes and
+    of size 3 along its contiguous one, and one pass of size 5 along the
+    axis above a contiguous axis of 96 (64 x 128 x 128 x 96 uint8) and of
+    160 (int16), all through the public wrappers."""
+    import torch
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    dev = torch.device("cuda")
+    out = {}
+    v16 = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)).astype(
+        np.int16), device=dev)
+    for name, minimum in (("K10_c16_erosion", True),
+                          ("K10_c16_dilation", False)):
+        out[name] = _time_ms(lambda minimum=minimum: mo.apply_min_max_filter(
+            v16, 5, None, None, "reflect", 0.0, 0, minimum), reps)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = [(f"K10_c16_axis{a}", v16, a, 5) for a in (0, 1, 2)]
+    cases.append(("K10_c16_axis2_size3", v16, 2, 3))
+    for shape, dtype in (((64, 128, 128, 96), torch.uint8),
+                         ((64, 128, 128, 160), torch.int16)):
+        x = torch.randint(0, 120, shape, generator=gen, device=dev,
+                          dtype=torch.int16).to(dtype)
+        cases.append((f"K10_{shape[-1]}_{str(dtype)[6:]}_axis2", x, 2, 5))
+    for name, x, axis, size in cases:
+        out[name] = _time_ms(lambda x=x, axis=axis, size=size:
+                             mo.min_max_filter1d(x, size, axis, "reflect", 0,
+                                                 size // 2, True), reps)
+    return out
+
+
 def _times_ab_k9_k11(rs, reps):
     """K9 at c14's two calls (a 5^3 kernel at origin (1, 0, -1) on 160 x
     192 x 224 float32, constant, cval 0.5; a 3^3 kernel over a batch of
@@ -5724,7 +5799,8 @@ def times_ab(card, reps=REPS):
     ``tensordot`` chain, K2 with the uint8 writeback over c2's 200 x 300
     (float64), K9T at c14's shapes (160x192x224 float32, a 5^3 kernel at
     origin (1, 0, -1), constant mode) beside ``conv_transpose3d`` (TF32
-    off), K9 at c14 and K11 at c16 (:func:`_times_ab_k9_k11`), K3 and K3c
+    off), K9 at c14 and K11 at c16 (:func:`_times_ab_k9_k11`), K10
+    (:func:`_times_ab_k10`), K3 and K3c
     (:func:`_times_ab_k3`: with K5 and K5c and ``grid_sampler_3d_backward``'s
     halves), P2 and K13
     (:func:`_times_ab_p2_k13`), and every config c1-c17
@@ -5804,14 +5880,7 @@ def times_ab(card, reps=REPS):
         return y
     out["K2_writeback_c18"] = _time_ms(wb18, reps)
     del x18
-    from elasticdeform_tpu_torch.ops import morphology as mo
-    v16 = torch.as_tensor(rs.randint(-1024, 3072, (512, 512, 300)).astype(
-        np.int16), device=dev)
-    for name, minimum in (("K10_c16_erosion", True),
-                          ("K10_c16_dilation", False)):
-        out[name] = _time_ms(lambda minimum=minimum: mo.apply_min_max_filter(
-            v16, 5, None, None, "reflect", 0.0, 0, minimum), reps)
-    del v16
+    out.update(_times_ab_k10(rs, reps))
     f11 = torch.as_tensor(rs.rand(3, 160, 192, 224).astype(np.float32),
                           device=dev)
     w11 = ft.gaussian_weights(2.0, 0, 4.0, None)

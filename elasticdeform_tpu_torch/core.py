@@ -477,9 +477,9 @@ def _modern_map_coordinates(X, coordinates, *, order, mode, cval, prefilter,
         finite = fixed and (not npad or pad_mode != 'constant' or
                             math.isfinite(float(torch.tensor(cval,
                                                              dtype=comp))))
-        with _d.finite_input(finite):
-            for a in axes:
-                Y = _d.Prefilter1d.apply(Y.contiguous(), order, a, bc, fixed)
+        for a in axes:
+            Y = _d.Prefilter1d.apply(Y.contiguous(), order, a, bc, fixed,
+                                     finite)
     Y = _ring_pad(Y, axes, ring, pad_mode, cval)
 
     cc = coordinates.to(comp)

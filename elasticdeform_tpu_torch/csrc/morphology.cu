@@ -1334,14 +1334,15 @@ struct MinMaxBox {
 
 // Stages block's box: element (b0, b1, b2) at ((b0 * box[1] + b1) * p2 +
 // b2) is x at the tile's origin - c + b, folded along each axis by that
-// axis's mode, or cval where a constant axis leaves the array. A row of the
-// box (fixed b0, b1) is one run of memory where tile axis 2 is contiguous
-// and the row lies inside the array along it: such a row is read in
-// aligned 16-byte loads (the bytes around the run lie in the same aligned
-// granules of the tensor's memory, so every load stays inside it), four
-// in flight a thread, and scattered into shared memory; the other rows
-// (the edges along axis 2, constant rows, a strided axis 2) fold element by
-// element.
+// axis's mode, or cval where a constant axis leaves the array. Where tile
+// axis 2 is contiguous, the part [lo, hi) of a row of the box (fixed b0,
+// b1) inside the array along axis 2 is one run of memory, read in aligned
+// 16-byte loads (the bytes around the run lie in the same aligned granules
+// of the tensor's memory, so every load stays inside it), four in flight a
+// thread, and scattered into shared memory; the row's positions beyond
+// the array's edge along axis 2 fold element by element in a loop of their
+// own (only edge blocks run it), as do constant rows and the rows of a
+// strided axis 2.
 template <typename T>
 __device__ __forceinline__ void stage_minmax_box(const MinMaxBox& p,
                                                  const T* __restrict__ xs,
@@ -1355,7 +1356,8 @@ __device__ __forceinline__ void stage_minmax_box(const MinMaxBox& p,
   const int total = rows * G;
   const FastDiv dg = p.dg, d1 = p.d1;
   const int j2 = s2 - p.c[2];
-  const bool unit = p.st[2] == 1 && j2 >= 0 && j2 + len <= p.n[2];
+  const int lo = max(0, -j2), hi = min(len, p.n[2] - j2);
+  const bool unit = p.st[2] == 1 && lo < hi;
   for (int it0 = threadIdx.x; it0 < total; it0 += U * ED_THREADS) {
     uint4 v[U];
     int dst[U], from[U], head[U], q[U];
@@ -1375,13 +1377,15 @@ __device__ __forceinline__ void stage_minmax_box(const MinMaxBox& p,
       fast[u] = unit && !cst[u];
       head[u] = 0;
       if (fast[u]) {
-        const uintptr_t a = (uintptr_t)(xs + from[u] + j2);
+        // the row's position 0, which may lie before the array
+        const uintptr_t a = (uintptr_t)(xs + from[u]) +
+                            (uintptr_t)((intptr_t)j2 * (intptr_t)sizeof(T));
         head[u] = (int)(a & 15) / (int)sizeof(T);
-        const bool in = dst[u] >= 0 &&
-                        16 * q[u] < (int)(a & 15) + len * (int)sizeof(T);
-        if (in) v[u] = __ldg(reinterpret_cast<const uint4*>(a - (a & 15)) +
-                             q[u]);
-        else dst[u] = -1;
+        const int b2f = q[u] * EPG - head[u];
+        if (dst[u] >= 0 && b2f < hi && b2f + EPG > lo)
+          v[u] = __ldg(reinterpret_cast<const uint4*>(a - (a & 15)) + q[u]);
+        else
+          dst[u] = -1;
       }
     }
 #pragma unroll
@@ -1390,7 +1394,7 @@ __device__ __forceinline__ void stage_minmax_box(const MinMaxBox& p,
       T* row = box + dst[u];
       if (fast[u]) {
         const int b2f = q[u] * EPG - head[u];  // of the granule's byte 0
-        if (sizeof(T) < 4 && b2f >= 0 && b2f + EPG <= len &&
+        if (sizeof(T) < 4 && b2f >= lo && b2f + EPG <= hi &&
             (reinterpret_cast<uintptr_t>(row + b2f) & 3) == 0) {
           // a whole granule at a 4-byte boundary: four 4-byte stores for
           // its 8 or 16 elements
@@ -1406,7 +1410,7 @@ __device__ __forceinline__ void stage_minmax_box(const MinMaxBox& p,
 #pragma unroll
         for (int i = 0; i < EPG; ++i) {
           const int b2 = b2f + i;
-          if (b2 >= 0 && b2 < len) row[b2] = e[i];
+          if (b2 >= lo && b2 < hi) row[b2] = e[i];
         }
       } else {
 #pragma unroll
@@ -1418,6 +1422,22 @@ __device__ __forceinline__ void stage_minmax_box(const MinMaxBox& p,
         }
       }
     }
+  }
+  if (!unit || (lo == 0 && hi == len)) return;
+  // the loaded rows' positions past the array's edge along axis 2, folded
+  const int edge = lo + len - hi;
+  for (int it = threadIdx.x; it < rows * edge; it += ED_THREADS) {
+    const int r = it / edge;
+    const int e = it - r * edge;
+    const int b2 = e < lo ? e : hi + e - lo;
+    const int b0 = (int)div_by((unsigned)r, d1);
+    const int f0 = fold<int>(s0 - p.c[0] + b0, p.n[0], p.mode[0]);
+    const int f1 = fold<int>(s1 - p.c[1] + r - b0 * p.box[1], p.n[1],
+                             p.mode[1]);
+    if (f0 < 0 || f1 < 0) continue;  // a constant row, staged above
+    const int f2 = fold<int>(j2 + b2, p.n[2], p.mode[2]);
+    box[r * p.p2 + b2] =
+        f2 < 0 ? cval : xs[f0 * p.st[0] + f1 * p.st[1] + f2];
   }
 }
 

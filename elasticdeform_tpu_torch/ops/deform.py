@@ -37,8 +37,6 @@ K7).
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 import math
 from typing import Tuple
@@ -293,20 +291,6 @@ class ResampleAt(torch.autograd.Function):
         return d_coeffs, d_coords, None, None, None, None
 
 
-_FINITE_INPUT = contextvars.ContextVar("finite_input", default=False)
-
-
-@contextlib.contextmanager
-def finite_input(finite: bool = True):
-    """Within the block, :class:`Prefilter1d` takes its input as finite
-    (``finite``): the general resampler's filter of an integer input."""
-    token = _FINITE_INPUT.set(finite)
-    try:
-        yield
-    finally:
-        _FINITE_INPUT.reset(token)
-
-
 class Prefilter1d(torch.autograd.Function):
     """The spline prefilter of a contiguous tensor along ``axis`` with the
     boundary condition ``bc`` (``'mirror'``: K2, ``'reflect'`` or
@@ -314,15 +298,13 @@ class Prefilter1d(torch.autograd.Function):
     transpose (K4 or K7). Orders 0 and 1 are not passed here.
     ``fixed_order``: the filter's sums in one order on every device (K2's
     writeback route with no cast), for a call whose output is an integer,
-    so that the card rounds to the CPU's integers. Inside
-    :func:`finite_input`, ``x`` holds finite values only (it came from an
-    integer array), so that route may skip the filter table's exact
-    zeros."""
+    so that the card rounds to the CPU's integers. ``finite``: ``x`` holds
+    finite values only (it came from an integer array), so that route may
+    skip the filter table's exact zeros."""
 
     @staticmethod
-    def forward(ctx, x, order, axis, bc, fixed_order=False):
+    def forward(ctx, x, order, axis, bc, fixed_order=False, finite=False):
         ctx.order, ctx.axis, ctx.bc = order, axis, bc
-        finite = _FINITE_INPUT.get()
         if bc == "mirror":
             return spline_filter1d(x, order, axis, fixed_order=fixed_order,
                                    finite=finite)
@@ -337,7 +319,7 @@ class Prefilter1d(torch.autograd.Function):
             d = spline_filter1d_transpose(g, ctx.order, ctx.axis)
         else:
             d = spline_filter1d_bc_transpose(g, ctx.order, ctx.axis, ctx.bc)
-        return d, None, None, None, None
+        return d, None, None, None, None, None
 
 
 def _map_output(y: torch.Tensor, ispec: InputSpec, spatial):
@@ -363,10 +345,9 @@ def map_coordinates_apply_batched(x: torch.Tensor, coords: torch.Tensor,
     if spec.prefilter and ispec.order > 1:
         # an integer input (so an integer output) is finite
         fixed = np.dtype(ispec.dtype).kind in "biu"
-        with finite_input(fixed):
-            for d in range(len(ispec.axis)):
-                xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror",
-                                       fixed)
+        for d in range(len(ispec.axis)):
+            xt = Prefilter1d.apply(xt, ispec.order, d + 1, "mirror", fixed,
+                                   fixed)
     y = ResampleAt.apply(xt, coords.to(cdt).contiguous(), ispec.order,
                          ispec.mode, ispec.cval, _table(spec))
     return _map_output(cast_output(y, ispec.dtype), ispec, spec.out_spatial)

@@ -952,32 +952,22 @@ def _box_row_stride(length: int, item: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _box_plan(shape, kshape, dtype, route=None) -> BoxPlan:
+def _box_plan(shape, kshape, dtype) -> BoxPlan:
     """K10's route for a separable box of extents ``kshape`` (1 off the
     box; one to three axes of extent > 1 after merging, or the lines route)
     on a ``dtype`` array of ``shape``. The box route's tile is the one of
     :data:`BOX_TILE_EXTENTS` (clipped to the array) that stages the fewest
     box elements per output within :data:`BOX_SMEM_AIM` bytes, or within
     :data:`SMEM_LIMIT` where none fits the aim, the larger tile among
-    equals; a sample's tile axes must span fewer than 2^31 elements and
-    the grid fewer than 2^31 blocks. ``route`` forces a choice (a forced
-    box that does not fit raises ValueError). Cached: the wrappers ask at
-    every launch."""
-    if route == "lines":
-        return BoxPlan("lines")
-    if route not in (None, "box"):
-        raise ValueError(f"route must be 'box' or 'lines', got {route!r}")
-
-    def refuse(why):
-        if route == "box":
-            raise ValueError(f"K10's box route does not take {why}")
-        return BoxPlan("lines")
-
+    equals; the elements count the last tile of each axis whole, so that a
+    tile that leaves a part of a tile past the array's edge (an inner axis
+    of 96 on tiles of 64) loses to one that does not. A sample's tile axes
+    must span fewer than 2^31 elements and the grid fewer than 2^31 blocks.
+    Cached: the wrappers ask at every launch."""
+    lines = BoxPlan("lines")
     geo = halo_tile(shape, kshape)
-    if not 1 <= geo.axes <= 3:
-        return refuse(f"a box with extent > 1 on {geo.axes} axes")
-    if geo.span >= 2 ** 31:
-        return refuse("a sample of 2^31 elements or more")
+    if not 1 <= geo.axes <= 3 or geo.span >= 2 ** 31:
+        return lines
     item = dtype.itemsize
     best = None
     for tile in itertools.product(*[sorted({min(t, n) for t in ts})
@@ -988,17 +978,18 @@ def _box_plan(shape, kshape, dtype, route=None) -> BoxPlan:
         smem = 2 * box[0] * box[1] * p2 * item
         if smem > SMEM_LIMIT:
             continue
-        key = (smem > BOX_SMEM_AIM, math.prod(box) / math.prod(tile),
+        staged = math.prod(-(-n // t) * b
+                           for n, t, b in zip(geo.n3, tile, box))
+        key = (smem > BOX_SMEM_AIM, staged / math.prod(geo.n3),
                -math.prod(tile))
         if best is None or key < best[0]:
             best = (key, tile, box, p2, smem)
     if best is None:
-        return refuse(f"a box of extents {geo.k3}: no tile fits "
-                      f"{SMEM_LIMIT} bytes")
+        return lines
     _, tile, box, p2, smem = best
     blocks = geo.blocks(tile)
     if blocks >= 2 ** 31:
-        return refuse(f"{blocks} blocks")
+        return lines
     return BoxPlan("box", geo.tile_axes, geo.grid_axes, tile, box, p2, smem,
                    blocks)
 

@@ -544,19 +544,14 @@ class WritebackPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _writeback_plan(outer: int, n: int, inner: int, dtype, route=None,
+def _writeback_plan(outer: int, n: int, inner: int, dtype,
                     sms: int = 132) -> WritebackPlan:
     """K2's writeback route on an ``(outer, n, inner)`` view of a
     ``dtype`` tensor: the product form, unless a tile's span of lines
     leaves int32 or the grid would hold 2^31 blocks or more, where the
-    rows route takes it. ``route`` forces a choice (``chip_smoke.py`` holds
-    and times both); a forced product that does not fit raises
-    ValueError. Cached: the wrappers ask at every launch."""
+    rows route takes it (its plan is ``rows`` either way). Cached: the
+    wrappers ask at every launch."""
     rows = _tile_plan(outer, n, inner, dtype, sms=sms)
-    if route not in (None, "product", "rows"):
-        raise ValueError(f"route must be 'product' or 'rows', got {route!r}")
-    if route == "rows":
-        return WritebackPlan("rows", False, 0, 0, rows.blocks, rows)
     packed = inner < WB_LINES
     if packed:
         per = WB_LINES // inner
@@ -568,9 +563,6 @@ def _writeback_plan(outer: int, n: int, inner: int, dtype, route=None,
     bands = -(-n // WB_ROWS)
     blocks = tiles * bands
     if span >= 2 ** 31 or blocks >= 2 ** 31 or n >= 2 ** 31:
-        if route == "product":
-            raise ValueError(f"the product form does not take a view of "
-                             f"{(outer, n, inner)}")
         return WritebackPlan("rows", False, 0, 0, rows.blocks, rows)
     return WritebackPlan("product", packed, tiles, bands, blocks, rows)
 

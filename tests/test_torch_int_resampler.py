@@ -96,8 +96,8 @@ def test_recursion_order_moves_an_integer_output(seed, monkeypatch):
     kw = dict(order=3, mode="reflect", device="cpu")
     fixed = et.affine_transform(x, mat, off, **kw)
     monkeypatch.setattr(td.Prefilter1d, "apply",
-                        lambda y, order, axis, bc, fixed_order=False:
-                        _recursion_bc(y, order, axis, bc))
+                        lambda y, order, axis, bc, fixed_order=False,
+                        finite=False: _recursion_bc(y, order, axis, bc))
     moved = et.affine_transform(x, mat, off, **kw)
     diff = (fixed.long() - moved.long()).abs()
     assert 1 <= int((diff > 0).sum()) <= 2 and int(diff.max()) == 1
@@ -128,9 +128,9 @@ def test_integer_outputs_ask_for_the_fixed_order(dtype, mode, monkeypatch):
     seen = []
     apply = td.Prefilter1d.apply
 
-    def spy(y, order, axis, bc, fixed_order=False):
+    def spy(y, order, axis, bc, fixed_order=False, finite=False):
         seen.append(fixed_order)
-        return apply(y, order, axis, bc, fixed_order)
+        return apply(y, order, axis, bc, fixed_order, finite)
     monkeypatch.setattr(td.Prefilter1d, "apply", spy)
     x = (np.random.RandomState(1).rand(12, 14) * 200).astype(dtype)
     for name, call in _calls(x, mode):

@@ -292,13 +292,35 @@ def test_plan_routes_and_refusals():
     assert tm._box_plan((3, 4, 5, 6), (2, 2, 2, 2), i16) == lines
     assert tm._box_plan((2 ** 16, 2 ** 15 + 1), (3, 1), i16) == lines
     assert tm._box_plan((200, 200, 200), (60, 60, 60), f64) == lines
-    assert tm._box_plan((40, 50), (3, 3), i16, route="lines") == lines
-    for args in (((3, 4, 5, 6), (2, 2, 2, 2), i16),
-                 ((200, 200, 200), (60, 60, 60), f64)):
-        with pytest.raises(ValueError):
-            tm._box_plan(*args, route="box")
-    with pytest.raises(ValueError):
-        tm._box_plan((40, 50), (3, 3), i16, route="tile")
+
+
+@pytest.mark.parametrize("shape, kshape, dtype, tile", [
+    ((64, 128, 128, 96), (1, 1, 5, 1), torch.uint8, (16, 32, 32)),
+    ((64, 128, 128, 160), (1, 1, 5, 1), torch.int16, (8, 32, 32)),
+    ((512, 512, 300), (1, 1, 5), torch.int16, (1, 32, 64)),
+    ((512, 512, 300), (1, 1, 3), torch.int16, (1, 32, 64)),
+    ((2048, 2048), (1, 5), torch.uint8, (1, 32, 64)),
+])
+def test_plan_counts_the_last_tile_whole(shape, kshape, dtype, tile):
+    """The plan counts a tile that hangs past the array's edge as staged
+    whole: a contiguous axis of 96 or 160 takes tiles of 32, which cover
+    it, and not 64; where every tile leaves a part (300), the wider one."""
+    plan = tm._box_plan(shape, kshape, dtype)
+    assert plan.route == "box" and plan.tile == tile
+
+
+@pytest.mark.parametrize("size", [3, 5])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_one_pass_at_c16_takes_the_box_route(axis, size):
+    """``minimum_filter1d`` / ``maximum_filter1d`` along any axis of c16's
+    int16 volume run on the box route: on the card it was faster than the
+    lines route along each axis, the contiguous one too (``PERF.md``
+    §6)."""
+    kshape = [1, 1, 1]
+    kshape[axis] = size
+    plan = tm._box_plan((512, 512, 300), tuple(kshape), torch.int16)
+    assert plan.route == "box"
+    assert plan.smem <= tm.BOX_SMEM_AIM
 
 
 @pytest.mark.parametrize("item", [1, 2, 4, 8])

@@ -427,7 +427,8 @@ def test_chunk_runs_cover_the_nonzero_chunks(dtype):
 def test_writeback_plan():
     """The product form's blocks: line tiles of WB_LINES lines (packed
     outers below that) times bands of WB_ROWS rows; a tile whose span
-    leaves int32 goes to the rows route, as does a forced ``"rows"``."""
+    leaves int32 goes to the rows route; either way ``rows`` holds the
+    rows route's plan of the view."""
     f32 = torch.float32
     p = tp._writeback_plan(1, 200, 300, torch.float64)
     assert (p.route, p.packed, p.tiles, p.bands, p.blocks) == \
@@ -441,11 +442,9 @@ def test_writeback_plan():
     assert p.rows == tp._tile_plan(7, 31, 3, f32)
     wide = tp._writeback_plan(1, 2, 2 ** 27, f32)
     assert wide.route == "rows" and wide.rows.route == "tile"
-    with pytest.raises(ValueError):
-        tp._writeback_plan(1, 2, 2 ** 27, f32, route="product")
-    forced = tp._writeback_plan(1, 200, 300, f32, route="rows")
-    assert forced.route == "rows" and forced.rows == tp._tile_plan(1, 200,
-                                                                    300, f32)
+    assert wide.rows == tp._tile_plan(1, 2, 2 ** 27, f32)
+    assert tp._writeback_plan(1, 200, 300, f32).rows == \
+        tp._tile_plan(1, 200, 300, f32)
 
 
 def _spy(monkeypatch):
