@@ -24,9 +24,10 @@ Phases (any failure raises, and the exit code is not 0):
    writeback route in float64 too, K1/K1c and K5/K5c at orders 1 and 3 in
    float32, and every K3/K3c instantiation and K13's four tile
    instantiations and its pack and unpack kernels to no stack frame and no
-   spills; then prints the atomic instructions of K3/K3c at rank 3
-   (``cuobjdump -sass``: native shared-memory adds or compare-and-swap
-   loops);
+   spills; prints the registers, stack frame, spills and shared bytes of
+   K14-K17's six kernels (``csrc/distance.cu``); then prints the atomic
+   instructions of K3/K3c at rank 3 (``cuobjdump -sass``: native
+   shared-memory adds or compare-and-swap loops);
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
    K3 (its transpose, a scatter, on the plan's tile route and with every
    block forced onto its direct branch, the blocks of each branch counted
@@ -130,7 +131,16 @@ Phases (any failure raises, and the exit code is not 0):
    48-227 KiB, 228 KiB raising the CUDA error, P2 (row gather: copy,
    element and sum modes) bit for bit and its sums repeating bit for bit,
    P3 (row scatter-add) per element to the sum of its terms, integer
-   counts exactly, P4 (bulk-copy row gather) as P2's sums;
+   counts exactly, P4 (bulk-copy row gather) as P2's sums; and, bit for
+   bit, K14 (the EDT's nearest-background scan) with and without feature
+   planes, K15 (its min-plus pass) at every rung of the ladder on lines of
+   13-97 (dense only, a band of 16, both bands) with the certificate, K16
+   (the chamfer sweep) with and without indices and K17 (the watershed
+   sweep) on uint8 and uint16 images, random and plateaus, over the cross,
+   full and a custom structure, with the changed flag, each on 1-D to 4-D
+   shapes and with sampling 0.7 and (1.5, 1, ...), dense and sparse
+   background, none and all; and the public transforms against the CPU
+   run;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
@@ -148,9 +158,13 @@ Phases (any failure raises, and the exit code is not 0):
    float32 MRI-like volume, bit for bit), c16 (grey opening, white top-hat
    and a non-flat dilation of c13's int16 CT volume, bit for bit) and c17
    (binary opening, hole filling and propagation of a 160x192x224 bool
-   segmentation), and c18 (``deform_grid`` of a 96^3 int16 CT volume at
-   order 3, bit for bit), each compared with the port's own ``device="cpu"``
-   run;
+   segmentation), c18 (``deform_grid`` of a 96^3 int16 CT volume at
+   order 3, bit for bit) and c19 (``distance_transform_edt`` with indices
+   at sampling (1.5, 1, 1) and ``distance_transform_cdt`` with indices of
+   80 slices of c17's segmentation, ``watershed_ift`` of a uint8 gradient
+   of 32 slices of c15's volume with 28 markers, bit for bit, with exact
+   K15 rungs and K16 and K17 sweeps per call), each compared with the
+   port's own ``device="cpu"`` run;
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
    do not need it (exact counts for c11-c16 and c18, and c17's K13 sweeps
@@ -165,7 +179,7 @@ Phases (any failure raises, and the exit code is not 0):
    then the probes' path: every Pallas probe through the port's
    public functions (``elasticdeform_tpu_torch.probes``) at the JAX probes'
    default sizes, counters set to 0 before and read after (exact counts of
-   P1-P4, none of K1-K13), each output equal to phase 2's kernel output;
+   P1-P4, none of K1-K17), each output equal to phase 2's kernel output;
 4. times: CUDA events, median of 10 runs after warm-up, for each kernel,
    its plain version and library yardstick (K1-K5 at the c5 shapes, K4,
    K6 and K7 also per axis with their route, tile width, blocks per SM and
@@ -203,7 +217,11 @@ Phases (any failure raises, and the exit code is not 0):
    waves, every width, the lines route), K9 and K9T at c14 per column and
    on the nd route (K9 also for c14's 3^3 convolve), K11 at c16 on each
    route (the ball erosion, the non-flat 3^3 dilation and a flat 5^3 box
-   beside ``max_pool3d``); one line per probe, its calls timed back to back: ms,
+   beside ``max_pool3d``); K14-K17 at c19's shapes with their device ms
+   (K14 beside two ``torch.cummax`` scans, K15 as c19's two passes and per
+   rung and axis, K16 and K17 per sweep and per call, K16's sweep beside
+   ``-max_pool3d(-d)``, a chessboard sweep without indices); one line per
+   probe, its calls timed back to back: ms,
    M rows/s, GB/s of the rows
    moved, from L2 or HBM, beside the byte bound, the twin and the library
    call, ``index_select``, ``gather``, ``embedding_bag`` or ``index_add_``;
@@ -215,10 +233,16 @@ The line before the last is a JSON object with one entry per kernel (K2,
 its writeback route, K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K10, K11, K12
 and K13 with their launches per route;
 K13 also
-its sweeps and its pack and unpack launches); the last line
+its sweeps and its pack and unpack launches; K14-K17 at c19's shapes, K15
+with its kept rungs and each rung's time, K16 and K17 per sweep with their
+call's time and sweeps); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
+
+``python3 chip_smoke.py distance`` runs the distance slice alone (the
+build of ``csrc/distance.cu``, its phase 2 checks, c19 and its phase 4
+times) and prints no result line.
 
 ``times_ab(card)`` times K2 at c5, K8T and K8 at c11, K8 on c13's paired
 passes, K12's 5^3 median, 3^3 median and 33-tap percentile at c15,
@@ -257,13 +281,17 @@ KERNELS = ("resample_fwd", "spline_prefilter", "resample_bwd",
            "resample_coords_fwd", "resample_coords_bwd",
            "resample_coords_grad", "correlate1d", "correlate1d_transpose",
            "correlate_nd", "correlate_nd_transpose", "min_max_filter1d",
-           "min_max_filter", "rank_filter", "binary_step", "smem_probe",
-           "row_gather", "row_scatter_add", "row_gather_async")
+           "min_max_filter", "rank_filter", "binary_step",
+           "nearest_background", "minplus_pass", "chamfer_sweep",
+           "watershed_sweep", "smem_probe", "row_gather", "row_scatter_add",
+           "row_gather_async")
 FILTER_KERNELS = KERNELS[10:14]
 MORPH_KERNELS = KERNELS[14:18]
-PROBE_KERNELS = KERNELS[18:]
-# the kernels of the deform, resampler, filter and morphology path (phase 3)
-PATH_KERNELS = KERNELS[:18]
+DIST_KERNELS = KERNELS[18:22]
+PROBE_KERNELS = KERNELS[22:]
+# the kernels of the deform, resampler, filter, morphology and distance
+# path (phase 3)
+PATH_KERNELS = KERNELS[:22]
 
 
 # the resample kernels' sweep (phase 2): (naxis, input shape, output shape)
@@ -471,6 +499,30 @@ def _check_k13_ptxas(log):
                              f"with a stack frame or spills: {bad}")
 
 
+# K14-K17's kernels in csrc/distance.cu: (label, mangled name part)
+_DIST_PTXAS = (("K14 nearest_bg_kernel", "nearest_bg_kernel"),
+               ("K15 band", "minplus_kernelILb0E"),
+               ("K15 dense", "minplus_kernelILb1E"),
+               ("K16 chamfer_sweep_kernel", "chamfer_sweep_kernel"),
+               ("K17 uint8", "watershed_sweep_kernelIhE"),
+               ("K17 uint16", "watershed_sweep_kernelItE"))
+
+
+def _check_distance_ptxas(log):
+    """Print K14-K17's registers, stack frame, spills and shared bytes; fail
+    unless each of their six kernels is found once."""
+    kern = _ptxas_kernels(log)
+    for label, part in _DIST_PTXAS:
+        hits = [v for fn, v in kern.items() if part in fn]
+        if len(hits) != 1:
+            raise AssertionError(f"{label}: {len(hits)} kernels named "
+                                 f"{part} in the ptxas report, not 1")
+        v = hits[0]
+        print(f"  ptxas {label}: {v[0]} registers, {v[1]} bytes stack "
+              f"frame, {v[2]}/{v[3]} bytes spill stores/loads, {v[5]} bytes "
+              "static shared")
+
+
 def _check_k9t_ptxas(log):
     """Print each K9T tile instantiation's registers, stack and spills per
     dtype, column C and fold flag; fail unless all 16 are found and none in
@@ -661,6 +713,7 @@ def phase_build():
         "K12 network tile", _build.build_logs["morphology"], _K12_NET, 55,
         lambda dt, n: f"{_MANGLED[dt]} {n} wires")
     _check_k13_ptxas(_build.build_logs["morphology"])
+    _check_distance_ptxas(_build.build_logs["distance"])
     _check_tile_table(
         "K12 select tile", _build.build_logs["morphology"], _K12_TILE, 22,
         lambda dt, c: f"{_MANGLED[dt]} C={c}")
@@ -869,6 +922,7 @@ def phase_kernels():
     _check_k11_routes(rs, torch.device("cuda"))
     _check_k12_routes(rs, torch.device("cuda"))
     _check_k12_network_routes(rs, torch.device("cuda"))
+    _check_distance_kernels(rs)
     return worst
 
 
@@ -3083,6 +3137,159 @@ def _check_morph_kernels(rs, dev=None):
     _check_k13_sweeps(rs, dev)
 
 
+def _dist_masks(rs, shape):
+    """Masks for K14/K15: background shares 30% and 2%, none, all, and
+    background at row 0 of axis 0 every 30 voxels along the last axis (a
+    band of 16 fails there, one of 64 certifies)."""
+    stripes = np.ones(shape, dtype=bool)
+    stripes[(0,) * (len(shape) - 1) + (slice(0, None, 30),)] = False
+    return (("bg 30%", rs.rand(*shape) > 0.3), ("bg 2%", rs.rand(*shape)
+                                                 > 0.02),
+            ("no background", np.ones(shape, bool)),
+            ("all background", np.zeros(shape, bool)),
+            ("stripes of 30", stripes))
+
+
+def _check_distance_kernels(rs):
+    """K14-K17 against their plain twins on the card, bit for bit, on odd
+    small shapes of 1-4 axes: K14 with and without the feature planes; K15
+    at each rung of the ladder the driver would try along each later axis
+    (lines of 13, 17, 40 and 70-97: n <= 17 dense only, 18-65 a band of
+    16, >= 66 both bands) with and without the planes, the certificate
+    equal; sampling 0.7 and (1.5, 1, ...); masks with dense and sparse
+    background, none and all; K16 with and without indices and K17 on
+    uint8 and uint16 images (random, and plateaus where ties go by the step
+    count and the label), negative markers, over the cross, full and a
+    custom structure, six sweeps each, the changed flag equal; then the
+    public transforms against the port's CPU run. Fails unless every K15
+    rung ran."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import distance as ds
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    dev = torch.device("cuda")
+    n = dict.fromkeys(("K14", "K15", "K16", "K17", "calls"), 0)
+    rungs0 = dict(ds.minplus_rung.rungs)
+    for shape in ((13,), (5, 17), (3, 40), (7, 70), (3, 5, 19), (2, 9, 67),
+                  (3, 4, 5, 21), (2, 3, 4, 97)):
+        nd = len(shape)
+        for label, m in _dist_masks(rs, shape):
+            mc = torch.as_tensor(m, device=dev)
+            for samp in ((0.7,) * nd, (1.5,) + (1.0,) * (nd - 1)):
+                what = f"{shape} {label} sampling {samp}"
+                for want in (False, True):
+                    a = ds.nearest_background(mc, samp[0], want)
+                    b = ds.nearest_background_plain(mc, samp[0], want)
+                    _same(a[0], b[0], f"K14 f {what}")
+                    if want:
+                        _same(a[1], b[1], f"K14 planes {what}")
+                    n["K14"] += 1
+                f, ix = b
+                for ax in range(1, nd):
+                    size = shape[ax]
+                    for W in [w for w in ds.EDT_LADDER
+                              if 0 < w < size - 1] + [0]:
+                        for idx in (None, ix):
+                            a = ds.minplus_rung(f, idx, ax, samp[ax], W)
+                            if W:
+                                b = ds.banded_plain(f, idx, ax, samp[ax], W)
+                                ok = bool((b[0] <= (samp[ax] * W) ** 2)
+                                          .all())
+                            else:
+                                b = ds.matrix_plain(f, idx, ax, samp[ax])
+                                ok = True
+                            w = f"K15 W={W} axis {ax} {what}"
+                            _same(a[0], b[0], w)
+                            if idx is not None:
+                                _same(a[1], b[1], f"{w} planes")
+                            if a[2] != ok:
+                                raise AssertionError(f"{w}: certificate "
+                                                     f"{a[2]}, twin {ok}")
+                            n["K15"] += 1
+                    f, ix = ds.minplus_pass(f, ix, ax, samp[ax])
+            got = et.distance_transform_edt(m, sampling=samp[::-1],
+                                            return_indices=True, device=dev)
+            want = et.distance_transform_edt(m, sampling=samp[::-1],
+                                             return_indices=True,
+                                             device="cpu")
+            _same(got[0].cpu(), want[0], f"EDT {shape} {label}")
+            _same(got[1].cpu(), want[1], f"EDT indices {shape} {label}")
+            n["calls"] += 1
+    ran = {k: v - rungs0.get(k, 0) for k, v in ds.minplus_rung.rungs.items()}
+    if min(ran[k] for k in ("w16", "w64", "dense")) <= 0:
+        raise AssertionError(f"K15: a rung never ran in phase 2: {ran}")
+
+    for shape in ((31,), (9, 13), (5, 7, 9), (3, 4, 5, 6)):
+        nd = len(shape)
+        structures = (("cross", mo.generate_binary_structure(nd, 1)),
+                      ("full", mo.generate_binary_structure(nd, nd)),
+                      ("custom", rs.rand(*(3,) * nd) > 0.5))
+        m = rs.rand(*shape) > 0.15
+        for sname, st in structures:
+            taps = mo.relax_taps(st, shape)
+            d = torch.where(torch.as_tensor(m, device=dev), mo.RELAX_BIG,
+                            0).to(torch.int32)
+            ix = torch.arange(d.numel(), dtype=torch.int32,
+                              device=dev).reshape(shape)
+            for sweep in range(6):
+                for with_ix in (False, True):
+                    flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                             for _ in range(2)]
+                    x = ix if with_ix else None
+                    a = ds.chamfer_sweep(d, x, taps, flags[0])
+                    b = ds.chamfer_sweep_plain(d, x, taps.offs, flags[1])
+                    what = f"K16 {shape} {sname} sweep {sweep}"
+                    _same(a[0], b[0], what)
+                    if with_ix:
+                        _same(a[1], b[1], f"{what} indices")
+                    if int(flags[0]) != int(flags[1]):
+                        raise AssertionError(f"{what}: flag differs")
+                    n["K16"] += 1
+                d, ix = a
+            got = et.distance_transform_cdt(m, metric=st, return_indices=True,
+                                            device=dev)
+            want = et.distance_transform_cdt(m, metric=st,
+                                             return_indices=True,
+                                             device="cpu")
+            for g, w in zip(got, want):
+                _same(g.cpu(), w, f"CDT {shape} {sname}")
+            for dtype, hi in ((torch.uint8, 256), (torch.uint16, 65536)):
+                for iname, img in (("random", rs.randint(0, hi, shape)),
+                                   ("plateaus", rs.randint(0, 3, shape))):
+                    img = torch.as_tensor(img, device=dev).to(dtype)
+                    mk = np.zeros(d.numel(), np.int32)
+                    mk[rs.choice(mk.size, 4, replace=False)] = [3, -1, 7, 2]
+                    mk = torch.as_tensor(mk.reshape(shape), device=dev)
+                    seeded = mk != 0
+                    state = (torch.where(seeded, img.to(torch.int32),
+                                         mo.RELAX_BIG).to(torch.int32),
+                             torch.where(seeded, 0, mo.RELAX_BIG).to(
+                                 torch.int32), mk)
+                    for sweep in range(6):
+                        flags = [torch.zeros(1, dtype=torch.int32,
+                                             device=dev) for _ in range(2)]
+                        a = mo.watershed_sweep(img, *state, taps, flags[0])
+                        b = mo.watershed_sweep_plain(img, *state, taps.offs,
+                                                     flags[1])
+                        what = (f"K17 {shape} {sname} {dtype} {iname} sweep "
+                                f"{sweep}")
+                        for g, w, part in zip(a, b, "csl"):
+                            _same(g, w, f"{what} {part}")
+                        if int(flags[0]) != int(flags[1]):
+                            raise AssertionError(f"{what}: flag differs")
+                        n["K17"] += 1
+                        state = a
+                    got = et.watershed_ift(img, mk, structure=st, device=dev)
+                    want = et.watershed_ift(img.cpu(), mk.cpu(), structure=st,
+                                            device="cpu")
+                    _same(got.cpu(), want, f"watershed {shape} {sname} "
+                          f"{dtype} {iname}")
+                    n["calls"] += 1
+    print(f"K14-K17 vs plain on the card, bit for bit: {json.dumps(n)} "
+          f"cases (K15's launches per rung {json.dumps(ran)}); the public "
+          "transforms equal the CPU run")
+
+
 def _check_k13_sweeps(rs, dev):
     """K13's multi-sweep launches, ``k`` = 1-8, on random structures up to
     the tile route's reach (up to 4 on the outer axes, 32 on the innermost),
@@ -3550,6 +3757,52 @@ def _configs(seed=0):
         return [et.deform_grid(X18, d18, order=3, mode="mirror",
                                device=device)]
 
+    # c19: the distance transforms of c17's segmentation (the EDT with
+    # c7's anisotropic voxels, 1.5 along axis 0, and its feature indices;
+    # the taxicab chamfer distance with its indices) and marker-controlled
+    # watershed of c15's MRI-like volume, as organ and brain segmentation
+    # pipelines run it: a uint8 gradient magnitude, -1 on the outer faces,
+    # labels 1-27 at single voxels of a 3x3x3 lattice inside the ellipsoid.
+    # The transforms run on the central C19_SLICES slices, the watershed
+    # on the central C19_WS_SLICES (cut in PERF.md section 4); the per-call
+    # K15 rungs, K16 and K17 sweeps are kept in ``calls``
+    lo19 = (S7[0] - C19_SLICES) // 2
+    M19 = M17[lo19:lo19 + C19_SLICES]
+    lo19 = (S7[0] - C19_WS_SLICES) // 2
+    G19 = _gradient_u8(X15[lo19:lo19 + C19_WS_SLICES])
+    MK19 = _watershed_markers(rs, G19.shape)
+    dev19 = {}
+    calls19 = {}
+    seconds19 = {}
+
+    def c19(device, n=None):
+        m, img, mk = _on(dev19, device, M19, G19, MK19)
+        out = []
+        for name, call in (
+                ("edt", lambda: et.distance_transform_edt(
+                    m, sampling=(1.5, 1.0, 1.0), return_indices=True,
+                    device=device)),
+                ("cdt", lambda: et.distance_transform_cdt(
+                    m, metric="taxicab", return_indices=True,
+                    device=device)),
+                ("watershed", lambda: [et.watershed_ift(img, mk,
+                                                        device=device)])):
+            before = _dist_counts()
+            t0 = time.perf_counter()
+            out.extend(call())
+            if device == "cpu":
+                seconds19[name] = time.perf_counter() - t0
+            calls19[name] = {k: v - before[k]
+                             for k, v in _dist_counts().items()}
+        if device == "cpu":
+            print(f"c19 CPU run per call, s: {json.dumps(seconds19)}")
+        return out
+
+    cfg19 = _Config("c19", c19, 2 * M19.size + G19.size,
+                    ["exact", None, None, None, None])
+    cfg19.calls = calls19
+    cfg19.inputs = (M19, G19, MK19)
+
     return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
             _Config("c2", c2, 200 * 300, [F32, F32]),
             _Config("c3", c3, 96 ** 3, [F32]),
@@ -3568,7 +3821,42 @@ def _configs(seed=0):
             _Config("c15", c15, (2 * 160 + 80) * 192 * 224, [EXACT] * 3),
             _Config("c16", c16, (2 * 512 + 256) * 512 * 300, [None] * 3),
             cfg17,
-            _Config("c18", c18, 96 ** 3, [None])]
+            _Config("c18", c18, 96 ** 3, [None]),
+            cfg19]
+
+
+# c19's central slices of the 160: its CPU run took 6.1 s on the card's
+# host at 80 slices, 18.6 s at 112 (the EDT 2.5 s and 12.6 s) and
+# 19.6-24.8 s on the whole volume
+C19_SLICES = 80
+C19_WS_SLICES = 32
+
+
+def _gradient_u8(vol):
+    """The gradient magnitude of a float volume (central differences,
+    ``np.gradient``) scaled so its 99th percentile is 255, as uint8."""
+    g = np.sqrt(sum(a.astype(np.float64) ** 2 for a in np.gradient(
+        vol.astype(np.float64))))
+    return np.clip(g * (255.0 / np.quantile(g, 0.99)), 0, 255).astype(
+        np.uint8)
+
+
+def _watershed_markers(rs, shape):
+    """int32 markers: -1 on the outer faces, labels 1-27 at single voxels
+    of a 3 x 3 x 3 lattice at 30-70% of each axis (inside c15's ellipsoid),
+    each jittered by up to 2 voxels from the seed."""
+    mk = np.zeros(shape, dtype=np.int32)
+    for ax in range(3):
+        idx = [slice(None)] * 3
+        for edge in (0, -1):
+            idx[ax] = edge
+            mk[tuple(idx)] = -1
+    for label, frac in enumerate(itertools.product((0.3, 0.5, 0.7),
+                                                   repeat=3), 1):
+        pos = [int(f * (n - 1)) + int(rs.randint(-2, 3))
+               for f, n in zip(frac, shape)]
+        mk[tuple(pos)] = label
+    return mk
 
 
 def _mri_like(rs, shape):
@@ -3667,7 +3955,8 @@ _MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
                 "c15": ("rank_filter",),
                 "c16": ("min_max_filter1d", "min_max_filter"),
                 "c17": ("binary_step",),
-                "c18": ("spline_prefilter", "resample_fwd")}
+                "c18": ("spline_prefilter", "resample_fwd"),
+                "c19": DIST_KERNELS}
 # exact launch counts of the filter configs: c11 one K8 and one K8T per
 # spatial axis; c12 three passes for each of the three LoG and three
 # gradient terms; c13 three gaussian passes and sobel's three; c14 K9 for
@@ -3691,7 +3980,10 @@ _EXACT_LAUNCHES = {
     "c16": {"min_max_filter1d": 2, "min_max_filter": 3, "rank_filter": 0,
             "binary_step": 0},
     "c18": {"spline_prefilter": 3, "resample_fwd": 1,
-            "spline_prefilter_transpose": 0, "resample_bwd": 0}}
+            "spline_prefilter_transpose": 0, "resample_bwd": 0},
+    # c19: K14 once, K15's five rungs (_C19_CALLS), K16's and K17's sweeps
+    "c19": {"nearest_background": 1, "minplus_pass": 5, "chamfer_sweep": 48,
+            "watershed_sweep": 128}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
 # (3^3 median and the 33-tap percentile on the network tile, the 5^3
@@ -3716,6 +4008,15 @@ _TILE_ROUTES = (("c11", "correlate1d", {"tile": 3, "lines": 0}),
 _C17_SWEEPS = {"opening": 4, "fill_holes": 80, "propagation": 168}
 _C17_PACKS = {"opening": (2, 2), "fill_holes": (2, 1),
               "propagation": (2, 1)}
+# c19's launches per call: the EDT's K14 launch and K15 rungs (two passes,
+# each climbing the ladder until a band certifies or the dense tier runs),
+# the CDT's K16 sweeps and the watershed's K17 sweeps (multiples of
+# SWEEPS_PER_CHECK), as the runs on the card counted them (the same on 80
+# slices and on the whole volume)
+_C19_CALLS = {"edt": {"nearest_background": 1, "minplus_w16": 2,
+                      "minplus_w64": 2, "minplus_dense": 1},
+              "cdt": {"chamfer_sweeps": 48},
+              "watershed": {"watershed_sweeps": 128}}
 _DEFORM_KERNELS = ("resample_fwd", "resample_bwd", "resample_coord_grad")
 _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c4": ("resample_coord_grad",),
@@ -3741,11 +4042,11 @@ _MUST_NOT_LAUNCH["c18"] = ("spline_prefilter_transpose", "spline_prefilter_bc",
 for _name in ("c1", "c2", "c3", "c3_grad", "c4", "c5", "c6", "c7", "c8",
               "c9", "c10", "c18"):
     _MUST_NOT_LAUNCH[_name] = _MUST_NOT_LAUNCH.get(_name, ()) + \
-        FILTER_KERNELS + MORPH_KERNELS + PROBE_KERNELS
+        FILTER_KERNELS + MORPH_KERNELS + DIST_KERNELS + PROBE_KERNELS
 for _name, _tier in (("c11", FILTER_KERNELS), ("c12", FILTER_KERNELS),
                      ("c13", FILTER_KERNELS), ("c14", FILTER_KERNELS),
                      ("c15", MORPH_KERNELS), ("c16", MORPH_KERNELS),
-                     ("c17", ("binary_step",))):
+                     ("c17", ("binary_step",)), ("c19", DIST_KERNELS)):
     _MUST_NOT_LAUNCH[_name] = tuple(k for k in KERNELS if k not in _tier)
 
 
@@ -3758,6 +4059,7 @@ def _wrappers():
 
 
 def _path_wrappers():
+    from elasticdeform_tpu_torch.ops import distance as ds
     from elasticdeform_tpu_torch.ops import filters as ft
     from elasticdeform_tpu_torch.ops import morphology as mo
     from elasticdeform_tpu_torch.ops import prefilter as pf
@@ -3780,7 +4082,11 @@ def _path_wrappers():
             "min_max_filter1d": mo.min_max_filter1d,
             "min_max_filter": mo.min_max_filter,
             "rank_filter": mo.rank_filter,
-            "binary_step": mo.binary_step}
+            "binary_step": mo.binary_step,
+            "nearest_background": ds.nearest_background,
+            "minplus_pass": ds.minplus_rung,
+            "chamfer_sweep": ds.chamfer_sweep,
+            "watershed_sweep": mo.watershed_sweep}
 
 
 def _counts():
@@ -3802,6 +4108,17 @@ def _k13_counts():
                                        "launches", 0)}
 
 
+def _dist_counts():
+    """K14-K17's launches and K15's per rung (``w16``, ``w64``,
+    ``dense``); K16's and K17's launches are their sweeps."""
+    from elasticdeform_tpu_torch.ops import distance as ds
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    return {"nearest_background": ds.nearest_background.launches,
+            **{f"minplus_{k}": v for k, v in ds.minplus_rung.rungs.items()},
+            "chamfer_sweeps": ds.chamfer_sweep.launches,
+            "watershed_sweeps": mo.watershed_sweep.launches}
+
+
 def _writeback_counts():
     """K2's and K6's writeback launches per form (``{"product": ..,
     "rows": ..}``; a tree without the product form counts all as rows)."""
@@ -3819,7 +4136,7 @@ def _reset_counts():
     for ws in _wrappers().values():
         for w in ws:
             w.launches = 0
-            for attr in ("routes", "writeback_routes"):
+            for attr in ("routes", "writeback_routes", "rungs"):
                 for route in getattr(w, attr, {}):
                     getattr(w, attr)[route] = 0
     mo.binary_step.sweeps = mo.pack_bits.launches = 0
@@ -3834,16 +4151,13 @@ def _route_counts():
             for w in (ws,) if hasattr(w, "routes")}
 
 
-def phase_main_path():
-    """Phase 3: the public entry points on the card, counted, then each
-    output against the port's CPU run."""
+def _run_on_card(configs):
+    """Each config on the card, its launch counters set to 0 just before
+    and read just after: ``(outputs, launches, launches per route, K2's and
+    K6's writeback launches per form)``, per config; each config also
+    keeps its K13 counts (``k13``)."""
     import torch
-    configs = _configs()
-    outs, launches, cfg_routes = {}, {}, {}
-    total = dict.fromkeys(PATH_KERNELS, 0)
-    routes = {k: dict.fromkeys(v, 0) for k, v in _route_counts().items()}
-    k13 = dict.fromkeys(_k13_counts(), 0)
-    writeback = {}
+    outs, launches, cfg_routes, writeback = {}, {}, {}, {}
     for cfg in configs:
         _reset_counts()
         outs[cfg.name] = cfg.run("cuda")
@@ -3851,15 +4165,86 @@ def phase_main_path():
         launches[cfg.name] = _counts()
         cfg_routes[cfg.name] = _route_counts()
         writeback[cfg.name] = _writeback_counts()
-        for k, v in _k13_counts().items():
-            k13[k] += v
-        for k in PATH_KERNELS:
-            total[k] += launches[cfg.name][k]
+        cfg.k13 = _k13_counts()
         for k, by_route in cfg_routes[cfg.name].items():
             if sum(by_route.values()) != launches[cfg.name][k]:
                 raise AssertionError(f"{cfg.name}: {k}'s route counts "
                                      f"{by_route} do not add up to its "
                                      f"{launches[cfg.name][k]} launches")
+    return outs, launches, cfg_routes, writeback
+
+
+def _check_c19(configs):
+    """c19's K15 rungs and K16 and K17 sweeps per call, printed and held
+    to :data:`_C19_CALLS`."""
+    for cfg in configs:
+        if cfg.name != "c19":
+            continue
+        print(f"c19 K14 launches, K15 launches per rung and K16 and K17 "
+              f"sweeps per call: {json.dumps(cfg.calls)}")
+        got = {name: {k: v for k, v in c.items() if v}
+               for name, c in cfg.calls.items()}
+        if got != _C19_CALLS:
+            raise AssertionError(f"c19: launches per call {got}, not "
+                                 f"{_C19_CALLS}")
+
+
+def _against_cpu(configs, outs):
+    """Each config's outputs against the port's ``device="cpu"`` run."""
+    import torch
+    for cfg in configs:
+        t0 = time.perf_counter()
+        ref = cfg.run("cpu", cfg.nsub)
+        print(f"{cfg.name}: CPU run {time.perf_counter() - t0:.1f} s")
+        assert len(ref) == len(outs[cfg.name]) == len(cfg.tols)
+        for i, (got, want, tol) in enumerate(zip(outs[cfg.name], ref,
+                                                 cfg.tols)):
+            what = f"{cfg.name} output {i}"
+            got = torch.as_tensor(got).cpu()
+            want = torch.as_tensor(want)
+            got = got[:cfg.nsub] if cfg.nsub else got
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(
+                    f"{what}: got {tuple(got.shape)} {got.dtype}, CPU run "
+                    f"gives {tuple(want.shape)} {want.dtype}")
+            if not bool(torch.isfinite(got.double()).all()):
+                raise AssertionError(f"{what}: non-finite output")
+            if tol == "exact":
+                _same(got, want, f"{what} vs CPU")
+                print(f"{what}: {tuple(got.shape)} {got.dtype} equals the "
+                      "CPU run bit for bit")
+                continue
+            if not got.dtype.is_floating_point:
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{what}: {int((got != want).sum())} integer values "
+                        "differ from the CPU run")
+                print(f"{what}: {tuple(got.shape)} {got.dtype} equals the "
+                      "CPU run")
+                continue
+            rtol, atol_scale = tol
+            scale = float(want.abs().max())
+            err = _assert_close(got, want, rtol, atol_scale * scale,
+                                f"{what} vs CPU")
+            print(f"{what}: {tuple(got.shape)} {got.dtype} matches the CPU "
+                  f"run (max abs err {err:.3e}, rtol={rtol}, "
+                  f"atol={atol_scale:g}*max|ref|)")
+
+
+def phase_main_path():
+    """Phase 3: the public entry points on the card, counted, then each
+    output against the port's CPU run."""
+    configs = _configs()
+    outs, launches, cfg_routes, writeback = _run_on_card(configs)
+    total = dict.fromkeys(PATH_KERNELS, 0)
+    routes = {k: dict.fromkeys(v, 0) for k, v in _route_counts().items()}
+    k13 = dict.fromkeys(_k13_counts(), 0)
+    for cfg in configs:
+        for k, v in cfg.k13.items():
+            k13[k] += v
+        for k in PATH_KERNELS:
+            total[k] += launches[cfg.name][k]
+        for k, by_route in cfg_routes[cfg.name].items():
             for r, v in by_route.items():
                 routes[k][r] += v
     print(f"main path launches per config: {json.dumps(launches)}")
@@ -3936,43 +4321,8 @@ def phase_main_path():
                     f"packing each input and mask once and unpacking each "
                     f"result once {_C17_PACKS[name]}: {c}")
 
-    for cfg in configs:
-        t0 = time.perf_counter()
-        ref = cfg.run("cpu", cfg.nsub)
-        print(f"{cfg.name}: CPU run {time.perf_counter() - t0:.1f} s")
-        assert len(ref) == len(outs[cfg.name]) == len(cfg.tols)
-        for i, (got, want, tol) in enumerate(zip(outs[cfg.name], ref,
-                                                 cfg.tols)):
-            what = f"{cfg.name} output {i}"
-            got = torch.as_tensor(got).cpu()
-            want = torch.as_tensor(want)
-            got = got[:cfg.nsub] if cfg.nsub else got
-            if got.shape != want.shape or got.dtype != want.dtype:
-                raise AssertionError(
-                    f"{what}: got {tuple(got.shape)} {got.dtype}, CPU run "
-                    f"gives {tuple(want.shape)} {want.dtype}")
-            if not bool(torch.isfinite(got.double()).all()):
-                raise AssertionError(f"{what}: non-finite output")
-            if tol == "exact":
-                _same(got, want, f"{what} vs CPU")
-                print(f"{what}: {tuple(got.shape)} {got.dtype} equals the "
-                      "CPU run bit for bit")
-                continue
-            if not got.dtype.is_floating_point:
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"{what}: {int((got != want).sum())} integer values "
-                        "differ from the CPU run")
-                print(f"{what}: {tuple(got.shape)} {got.dtype} equals the "
-                      "CPU run")
-                continue
-            rtol, atol_scale = tol
-            scale = float(want.abs().max())
-            err = _assert_close(got, want, rtol, atol_scale * scale,
-                                f"{what} vs CPU")
-            print(f"{what}: {tuple(got.shape)} {got.dtype} matches the CPU "
-                  f"run (max abs err {err:.3e}, rtol={rtol}, "
-                  f"atol={atol_scale:g}*max|ref|)")
+    _check_c19(configs)
+    _against_cpu(configs, outs)
     return total, launches, routes, k13
 
 
@@ -5213,6 +5563,132 @@ def _times_filters(row, card):
                               "column_ms": cols})
 
 
+def _times_distance(row, card, cfg19):
+    """Phase 4 of K14-K17 at c19's shapes and inputs: each kernel's ms,
+    device ms, its plain twin's ms on the card, its byte (and operation)
+    bound, and the library call where one computes the same function: K14
+    with the feature planes beside two ``torch.cummax`` scans (the JAX
+    package's formulation); K15 as c19's two passes (each rung it tries,
+    the certificate's read included) and per rung and axis; K16 and K17 per
+    sweep on c19's start state and per call, K16's sweep beside a
+    chessboard sweep without indices, ``-max_pool3d(-d)``."""
+    import torch
+    import torch.nn.functional as F
+    from elasticdeform_tpu_torch.ops import distance as ds
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    dev = torch.device("cuda")
+    m, img, mk = (torch.as_tensor(a, device=dev) for a in cfg19.inputs)
+    N = m.numel()
+    samp = (1.5, 1.0, 1.0)
+    plane_bytes = 3 * 4 * N
+
+    # K14: the mask in, f and the three feature planes out
+    idx = torch.arange(m.shape[0], dtype=torch.int32, device=dev).view(
+        -1, 1, 1)
+    bg = ~m
+    left_in = torch.where(bg, idx, -1)
+    right_in = torch.where(bg.flip(0), idx, -1)
+    k14 = lambda: ds.nearest_background(m, samp[0], True)  # noqa: E731
+    row("nearest_background", "distance.cu",
+        "elasticdeform_tpu/ops/distance.py:98", _time_ms(k14),
+        _time_ms(lambda: ds.nearest_background_plain(m, samp[0], True)),
+        _bound(N * (1 + 8) + plane_bytes, 0), _time_ms(
+            lambda: (torch.cummax(left_in, 0), torch.cummax(right_in, 0))),
+        0.0, at=f"c19 {tuple(m.shape)} bool, sampling 1.5",
+        extra={"device_ms": _device_ms(k14)})
+
+    # K15: c19's two passes, f and the planes in and out each pass
+    f0, ix0 = k14()
+    tried = {}
+
+    def passes(plain=False):
+        f, ix = f0, ix0
+        for ax in (1, 2):
+            for W in [w for w in ds.EDT_LADDER
+                      if 0 < w < f.shape[ax] - 1] + [0]:
+                if plain:
+                    out, planes = (ds.banded_plain(f, ix, ax, samp[ax], W)
+                                   if W else
+                                   ds.matrix_plain(f, ix, ax, samp[ax]))
+                    ok = not W or bool((out <= (samp[ax] * W) ** 2).all())
+                else:
+                    out, planes, ok = ds.minplus_rung(f, ix, ax, samp[ax], W)
+                tried[ax] = W
+                if ok:
+                    break
+            f, ix = out, planes
+        return f, ix
+
+    passes()
+    per_rung = {}
+    f, ix = f0, ix0
+    ops = 0
+    for ax in (1, 2):
+        n = f.shape[ax]
+        for W in [w for w in ds.EDT_LADDER if 0 < w < n - 1] + [0]:
+            per_rung[f"axis {ax} {f'W={W}' if W else 'dense'}"] = _time_ms(
+                lambda W=W, f=f, ix=ix, ax=ax: ds.minplus_rung(
+                    f, ix, ax, samp[ax], W))
+        W = tried[ax]
+        # the kept rung's adds and comparisons per voxel
+        ops += 2 * (2 * W if W else n) * N
+        f, ix, _ = ds.minplus_rung(f, ix, ax, samp[ax], W)
+    row("minplus_pass", "distance.cu",
+        "elasticdeform_tpu/ops/distance.py:193", _time_ms(passes),
+        _time_ms(lambda: passes(True), reps=3, warmup=1),
+        _bound(2 * 2 * (8 * N + plane_bytes), ops, FP64_FLOPS), None, 0.0,
+        at="c19 axes 1 and 2, sampling 1.0",
+        extra={"rung_kept": {f"axis {a}": w for a, w in tried.items()},
+               "per_rung_ms": per_rung, "device_ms": _device_ms(passes)})
+
+    # K16: one sweep reads d and ix and writes them; a call reads the mask
+    # and writes d and ix
+    cross = mo.generate_binary_structure(3, 1)
+    taps = mo.relax_taps(cross, m.shape)
+    d0 = torch.where(m, mo.RELAX_BIG, 0).to(torch.int32)
+    ix0 = torch.arange(N, dtype=torch.int32, device=dev).reshape(m.shape)
+    neg = -d0.to(torch.float32)[None]
+    sweep = lambda: ds.chamfer_sweep(d0, ix0, taps)  # noqa: E731
+    call = lambda: ds.cdt_core(m, cross, True)  # noqa: E731
+    before = ds.chamfer_sweep.launches
+    call()
+    sweeps = ds.chamfer_sweep.launches - before
+    call_ms = _time_ms(call, reps=5, warmup=1)
+    row("chamfer_sweep", "distance.cu",
+        "elasticdeform_tpu/ops/distance.py:343", _time_ms(sweep),
+        _time_ms(lambda: ds.chamfer_sweep_plain(d0, ix0, taps.offs)),
+        _bound(4 * 4 * N, 0), _time_ms(
+            lambda: F.max_pool3d(neg, 3, 1, 1)), 0.0,
+        at="c19 one taxicab sweep with indices (library: a chessboard "
+           "sweep without indices)",
+        extra={"device_ms": _device_ms(sweep), "call_ms": call_ms,
+               "call_bound_ms": _bound(N * (1 + 8), 0)[0],
+               "sweeps_per_call": sweeps})
+
+    # K17: one sweep reads the image and the triples and writes the
+    # triples; a call reads the image and the markers and writes labels
+    taps = mo.relax_taps(cross, img.shape)
+    seeded = mk != 0
+    state = (torch.where(seeded, img.to(torch.int32), mo.RELAX_BIG).to(
+        torch.int32), torch.where(seeded, 0, mo.RELAX_BIG).to(torch.int32),
+        mk)
+    Nw = img.numel()
+    sweep = lambda: mo.watershed_sweep(img, *state, taps)  # noqa: E731
+    call = lambda: mo.watershed_ift(img, mk)  # noqa: E731
+    before = mo.watershed_sweep.launches
+    call()
+    sweeps = mo.watershed_sweep.launches - before
+    call_ms = _time_ms(call, reps=5, warmup=1)
+    row("watershed_sweep", "distance.cu",
+        "elasticdeform_tpu/ops/morphology.py:571", _time_ms(sweep),
+        _time_ms(lambda: mo.watershed_sweep_plain(img, *state, taps.offs)),
+        _bound(Nw * (1 + 2 * 3 * 4), 0), None, 0.0,
+        at=f"c19 one sweep of the watershed, {tuple(img.shape)} uint8",
+        extra={"device_ms": _device_ms(sweep), "call_ms": call_ms,
+               "call_bound_ms": _bound(Nw * (1 + 4 + 4), 0)[0],
+               "sweeps_per_call": sweeps})
+
+
 def _times_morphology(row, card, k13=None):
     """Phase 4 for the morphology tier: K10 as the three passes of c16's
     5^3 dilation (int16, 512x512x300) beside ``max_pool3d`` (stride 1) on the
@@ -5920,7 +6396,10 @@ def times_ab(card, reps=REPS):
     del v, xi
     out.update(_times_ab_k3(rs, reps))
     out.update(_times_ab_p2_k13(reps))
+    import elasticdeform_tpu_torch as et
     for cfg in _configs():
+        if cfg.name == "c19" and not hasattr(et, "watershed_ift"):
+            continue   # a tree before the distance transforms
         out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
     print(f"ab: {json.dumps(out)} [{card}]")
     return out
@@ -6138,6 +6617,8 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
     _times_resampler(row, card, k1_lines, k3_lines)
     _times_filters(row, card)
     _times_morphology(row, card, k13)
+    configs = _configs()
+    _times_distance(row, card, next(c for c in configs if c.name == "c19"))
     probe_times = _times_probes(row, card, probe_data, errs)
     _print_k1_lines(k1_lines, probe_times, card)
     _print_k3_lines(k3_lines, probe_times, card)
@@ -6147,7 +6628,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
     for k, by_route in save_routes.items():
         _path_wrappers()[k].routes.update(by_route)
 
-    for cfg in _configs():
+    for cfg in configs:
         ms = _time_ms(lambda run=cfg.run: run("cuda"))
         print(f"{cfg.name}: {ms:.3f} ms per call, "
               f"{cfg.n_vox / ms / 1e3:.2f} Mvox/s (output voxels) [{card}]")
@@ -6296,6 +6777,49 @@ def _profile_config(cfg, card):
           f" top: {top} [{card}]")
 
 
+def distance_only() -> int:
+    """``python3 chip_smoke.py distance``: the distance slice alone, for a
+    short run on the card: the card, ``csrc/distance.cu``'s build and ptxas
+    figures, K14-K17 against their twins (phase 2's checks), c19 on the
+    card with its launches against its CPU run (phase 3's), and K14-K17's
+    and c19's times and c19's profile (phase 4's). Prints no result
+    line."""
+    from elasticdeform_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _, smi = phase_device()
+    _build.build_all(("distance",))
+    secs = _build.build_seconds.get("distance")
+    print("build: distance.cu " + ("built before" if secs is None else
+                                   f"in {secs:.1f} s"))
+    _check_distance_ptxas(_build.build_logs["distance"])
+    _check_distance_kernels(np.random.RandomState(1))
+    configs = [c for c in _configs() if c.name == "c19"]
+    outs, launches, _, _ = _run_on_card(configs)
+    got = {k: launches["c19"][k] for k in DIST_KERNELS}
+    print(f"c19 launches: {json.dumps(got)}")
+    if got != _EXACT_LAUNCHES["c19"]:
+        raise AssertionError(f"c19 launched {got}, not "
+                             f"{_EXACT_LAUNCHES['c19']}")
+    _check_c19(configs)
+    _against_cpu(configs, outs)
+    errs = dict.fromkeys(KERNELS, 0.0)
+
+    def row(name, source, replaces, ms, plain_ms, bound, library_ms, err,
+            at, extra):
+        print(f"{name} at {at}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"library {library_ms}, bound {bound[0]:.4f} ms by "
+              f"{bound[1]}, launches on c19 {launches['c19'][name]}, err "
+              f"{max(err, errs[name])}) {json.dumps(extra)} [{smi}]")
+    _times_distance(row, smi, configs[0])
+    cfg = configs[0]
+    ms = _time_ms(lambda: cfg.run("cuda"))
+    print(f"c19: {ms:.3f} ms per call, {cfg.n_vox / ms / 1e3:.2f} Mvox/s "
+          f"(output voxels) [{smi}]")
+    _profile_config(cfg, smi)
+    print(f"chip_smoke distance: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6307,6 +6831,8 @@ def main() -> int:
         print(f"chip_smoke: the package is missing ({e}); run from the "
               "root of the repository", file=sys.stderr)
         return 3
+    if sys.argv[1:] == ["distance"]:
+        return distance_only()
     t0 = time.perf_counter()
     name, smi = phase_device()
     phase_build()

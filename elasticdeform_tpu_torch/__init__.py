@@ -28,7 +28,8 @@ tensor API (torch tensors in and out):
     morphological_laplace, white_tophat, black_tophat, binary_erosion,
     binary_dilation, binary_opening, binary_closing, binary_propagation,
     binary_fill_holes, binary_hit_or_miss, generic_filter, generic_filter1d,
-    vectorized_filter (no gradient); generate_binary_structure,
+    vectorized_filter, watershed_ift (no gradient); distance_transform_edt,
+    distance_transform_cdt, distance_transform_bf; generate_binary_structure,
     iterate_structure (numpy)
 
 Every entry point takes ``device=None``, which means ``"cuda"``; the CPU
@@ -42,8 +43,10 @@ transpose K7 (``csrc/prefilter.cu``); the filter tier runs the 1-D
 correlation K8 and its transpose K8T, the N-D correlation K9 and its
 transpose K9T (``csrc/filters.cu``); the morphology tier runs the 1-D
 min/max K10, the footprint min/max K11, the rank selection K12 and the
-binary sweep K13 (``csrc/morphology.cu``); all are built with ``nvcc`` at
-first use. On the CPU their plain PyTorch versions run.
+binary sweep K13 (``csrc/morphology.cu``); the distance transforms the
+nearest-background scan K14, the min-plus pass K15 and the chamfer sweep
+K16, the watershed its sweep K17 (``csrc/distance.cu``); all are built with
+``nvcc`` at first use. On the CPU their plain PyTorch versions run.
 """
 
 from elasticdeform_tpu_torch.api import (
@@ -54,7 +57,8 @@ from elasticdeform_tpu_torch.core import (
     binary_fill_holes, binary_hit_or_miss, binary_opening, binary_propagation,
     black_tophat, convolve, convolve1d, correlate, correlate1d, deform,
     deform_batch, deform_batch_gradient, deform_field, deform_field_batch,
-    deform_gradient, gaussian_filter,
+    deform_gradient, distance_transform_bf, distance_transform_cdt,
+    distance_transform_edt, gaussian_filter,
     gaussian_filter1d, gaussian_gradient_magnitude, gaussian_laplace,
     generic_filter, generic_filter1d, generic_gradient_magnitude,
     generic_laplace, geometric_transform, grey_closing, grey_dilation,
@@ -64,7 +68,7 @@ from elasticdeform_tpu_torch.core import (
     morphological_gradient, morphological_laplace, percentile_filter,
     prewitt, rank_filter, rotate, shift, sobel, spline_filter,
     spline_filter1d, uniform_filter, uniform_filter1d, vectorized_filter,
-    white_tophat, zoom,
+    watershed_ift, white_tophat, zoom,
 )
 from elasticdeform_tpu_torch.ops.morphology import (
     generate_binary_structure, iterate_structure,
@@ -90,5 +94,7 @@ __all__ = ["deform_grid", "deform_random_grid", "deform_grid_gradient",
            "black_tophat", "binary_erosion", "binary_dilation",
            "binary_opening", "binary_closing", "binary_propagation",
            "binary_fill_holes", "binary_hit_or_miss", "generic_filter",
-           "generic_filter1d", "vectorized_filter",
-           "generate_binary_structure", "iterate_structure", "__version__"]
+           "generic_filter1d", "vectorized_filter", "watershed_ift",
+           "distance_transform_bf", "distance_transform_cdt",
+           "distance_transform_edt", "generate_binary_structure",
+           "iterate_structure", "__version__"]

@@ -63,6 +63,14 @@ The morphology tier (the JAX package's ``core.py:1576-1923`` and
 morphology and the generic filters, with the same keywords plus ``device``,
 on kernels K10-K13 (:mod:`~elasticdeform_tpu_torch.ops.morphology`). It has
 no gradient: a tensor that requires grad raises.
+
+The distance transforms (the JAX package's ``ops/distance.py``):
+:func:`distance_transform_edt` (kernels K14 and K15),
+:func:`distance_transform_cdt` and :func:`distance_transform_bf` (K16, or
+the EDT), and :func:`watershed_ift` (K17, the JAX package's
+``ops/morphology.py:522-597``), with the same arguments plus ``device``;
+the kernels are in ``csrc/distance.cu``
+(:mod:`~elasticdeform_tpu_torch.ops.distance`).
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ from torch.autograd.function import once_differentiable
 
 from elasticdeform_tpu_torch import _normalize as _n
 from elasticdeform_tpu_torch.ops import deform as _d
+from elasticdeform_tpu_torch.ops import distance as _dist
 from elasticdeform_tpu_torch.ops import filters as _f
 from elasticdeform_tpu_torch.ops import modes as _modes
 from elasticdeform_tpu_torch.ops import morphology as _m
@@ -1760,3 +1769,64 @@ def vectorized_filter(X, function, *, size=None, footprint=None,
         work = work.reshape(tuple(work.shape[:x.dim()]) + (-1,))
         return function(raw(torch.index_select(work, -1, sel)), axis=-1)
     return function(raw(work), axis=tuple(range(-n_axes, 0)))
+
+
+# ---------------------------------------------------------------------------
+# the distance transforms and the watershed (the JAX package's
+# ops/distance.py and ops/morphology.py:522-597)
+
+
+def _distance_input(X, device) -> torch.Tensor:
+    return _to_device(X, _device(device)).detach()
+
+
+def distance_transform_edt(input, sampling=None, return_distances=True,
+                           return_indices=False, distances=None,
+                           indices=None, *, device=None):
+    """Exact Euclidean distance transform
+    (``scipy.ndimage.distance_transform_edt``): each nonzero voxel's float64
+    distance to the nearest zero voxel under ``sampling``, and with
+    ``return_indices`` that voxel's ``(ndim, *shape)`` int32 coordinates,
+    ties broken as the JAX package breaks them. Kernel K14 runs the first
+    axis, K15 the rungs of each later one. Supplied numpy ``distances`` /
+    ``indices`` arrays are filled in place and left out of the return, as
+    SciPy does."""
+    return _dist.distance_transform_edt(
+        _distance_input(input, device), sampling, return_distances,
+        return_indices, distances, indices)
+
+
+def distance_transform_cdt(input, metric="chessboard", return_distances=True,
+                           return_indices=False, distances=None,
+                           indices=None, *, device=None):
+    """Chamfer distance transform (``scipy.ndimage.distance_transform_cdt``):
+    int32 distances for the ``'cityblock'``/``'taxicab'`` or
+    ``'chessboard'`` metric or a 3^ndim structure, K16 sweeps to the
+    fixpoint; indices, ``distances`` and ``indices`` as
+    :func:`distance_transform_edt`."""
+    return _dist.distance_transform_cdt(
+        _distance_input(input, device), metric, return_distances,
+        return_indices, distances, indices)
+
+
+def distance_transform_bf(input, metric="euclidean", sampling=None,
+                          return_distances=True, return_indices=False,
+                          distances=None, indices=None, *, device=None):
+    """Brute-force distance transform
+    (``scipy.ndimage.distance_transform_bf``): ``'euclidean'`` (or 1) as
+    :func:`distance_transform_edt`; ``'cityblock'``/``'taxicab'`` (2) and
+    ``'chessboard'`` (3) as :func:`distance_transform_cdt`, uint32."""
+    return _dist.distance_transform_bf(
+        _distance_input(input, device), metric, sampling, return_distances,
+        return_indices, distances, indices)
+
+
+def watershed_ift(input, markers, structure=None, *, device=None):
+    """Watershed by image foresting transform (``scipy.ndimage.watershed_ift``
+    as the JAX package computes it): each voxel of the uint8 or uint16
+    ``input`` joins the marker of its cheapest path, lexicographically
+    (greatest intensity, length, label); negative markers flood too. K17
+    sweeps to the fixpoint; the cross structure by default. Returns the
+    labels in the markers' dtype."""
+    return _m.watershed_ift(_distance_input(input, device),
+                            _distance_input(markers, device), structure)

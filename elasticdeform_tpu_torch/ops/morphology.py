@@ -1,8 +1,9 @@
 """The ndimage order-statistic and morphology tier: minimum/maximum filters,
-rank, median and percentile filters, grey and binary morphology.
+rank, median and percentile filters, grey and binary morphology, and the
+watershed.
 
-Counterpart of the JAX package's ``ops/morphology.py`` (less
-``watershed_ift``). Four kernels carry it (``csrc/morphology.cu``):
+Counterpart of the JAX package's ``ops/morphology.py``. Four kernels carry
+it (``csrc/morphology.cu``), and ``watershed_ift`` a fifth:
 
 * :func:`min_max_box` is the wrapper of K10 (:func:`min_max_filter1d` its
   one-axis form): the min or max over a separable box, a 1-D pass per axis
@@ -45,6 +46,11 @@ Counterpart of the JAX package's ``ops/morphology.py`` (less
   32 voxels along the innermost axis, a box that fits shared memory: a
   block runs its sweeps on a tile of 32-voxel words and its halo) and
   ``"nd"`` (K11's kernel on bool, one sweep a launch, for the rest).
+* :func:`watershed_sweep` (K17, ``csrc/distance.cu``): one Jacobi sweep
+  of :func:`watershed_ift`'s (cost, steps, label) triples, run to the
+  fixpoint by :func:`relax_to_fixpoint`, which also drives the chamfer
+  distance's sweeps (K16, :mod:`~elasticdeform_tpu_torch.ops.distance`)
+  over the same :class:`RelaxTaps` tables.
 
 Min and max order -0 below +0, as ``jnp.minimum`` and ``jnp.maximum`` do.
 
@@ -73,6 +79,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from elasticdeform_tpu_torch.ops import _build
 from elasticdeform_tpu_torch.ops.filters import (
@@ -1647,3 +1654,225 @@ def binary_erosion_dilation(x: torch.Tensor, structure, iterations, mask,
     if plan.route == "tile":
         return unpack_bits(state, x.shape[-1])
     return state
+
+
+# ---------------------------------------------------------------------------
+# Jacobi relaxations to the fixpoint: the chamfer distance (K16,
+# ops/distance.py) and the watershed (K17, here), both in csrc/distance.cu
+
+# the reference's "unreached" cost, step count and distance
+RELAX_BIG = int(np.iinfo(np.int32).max // 4)
+
+
+class RelaxTaps:
+    """A 3^ndim structure's neighbours on an array of ``shape``: ``offs``,
+    the offsets in the raster order of ``np.nonzero`` with the centre
+    dropped (the order the plain twins and the JAX package visit them in),
+    and :meth:`on`, the kernels' int32 ``(taps, 2)`` table of a linear
+    offset and an edge word (bit ``k`` the tap steps down along axis ``k``,
+    bit ``8 + k`` up), uploaded once per device."""
+
+    def __init__(self, structure, shape):
+        self.shape = tuple(int(n) for n in shape)
+        self.offs = [tuple(int(t) - 1 for t in off)
+                     for off in zip(*np.nonzero(structure))]
+        self.offs = [o for o in self.offs if o != (0,) * len(self.shape)]
+        strides = np.cumprod([1] + list(self.shape[::-1]))[:-1][::-1]
+        self.table = np.asarray(
+            [[int(np.dot(o, strides)),
+              sum((1 << k) * (t < 0) + (1 << (8 + k)) * (t > 0)
+                  for k, t in enumerate(o))] for o in self.offs],
+            dtype=np.int32).reshape(-1, 2)
+        self._dev = {}
+
+    def on(self, device) -> torch.Tensor:
+        t = self._dev.get(device)
+        if t is None:
+            t = self._dev[device] = torch.as_tensor(self.table).to(device)
+        return t
+
+    def c_args(self, device):
+        """The table's pointer, its tap count, the rank and the extents as
+        the C entry points take them."""
+        ndim = len(self.shape)
+        return (self.on(device).data_ptr(), len(self.offs), ndim,
+                (ctypes.c_longlong * ndim)(*self.shape))
+
+
+@functools.lru_cache(maxsize=32)
+def _relax_taps(key, fshape, shape):
+    return RelaxTaps(np.frombuffer(key, dtype=bool).reshape(fshape), shape)
+
+
+def relax_taps(structure, shape) -> RelaxTaps:
+    """The :class:`RelaxTaps` of ``structure`` (bool, 3^ndim) on ``shape``,
+    built once per structure and shape."""
+    st = np.ascontiguousarray(structure, dtype=bool)
+    return _relax_taps(st.tobytes(), st.shape, tuple(int(n) for n in shape))
+
+
+def relax_to_fixpoint(sweep, state, device):
+    """Jacobi sweeps ``state = sweep(state, changed)`` to the fixpoint, in
+    groups of :data:`SWEEPS_PER_CHECK`, the flag of each group's last sweep
+    read once (K13's schedule): a sweep that changes nothing is a fixpoint,
+    and sweeps past it change nothing, so the result is the reference's,
+    which stops at the first such sweep. Returns ``(state, sweeps)``."""
+    changed = torch.zeros(1, dtype=torch.int32, device=device)
+    sweeps = 0
+    while True:
+        changed.zero_()
+        for k in range(SWEEPS_PER_CHECK):
+            state = sweep(state, changed if k == SWEEPS_PER_CHECK - 1
+                          else None)
+        sweeps += SWEEPS_PER_CHECK
+        if not int(changed.item()):
+            return state, sweeps
+
+
+def relax_check(x: torch.Tensor, what: str) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of fewer than 2^31
+    elements (the kernels of csrc/distance.cu index with 32 bits)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got "
+                         f"{x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: the kernel takes a contiguous tensor")
+    if x.numel() >= 2 ** 31 or not 1 <= x.dim() <= MAX_ND_AXES:
+        raise ValueError(f"{what}: the CUDA kernel takes 1 to {MAX_ND_AXES} "
+                         f"axes and fewer than 2^31 elements, got "
+                         f"{tuple(x.shape)}")
+
+
+def relax_pad(t: torch.Tensor, value) -> torch.Tensor:
+    """``t`` padded by one voxel of ``value`` on every side, as the
+    plain sweeps read their neighbours."""
+    return F.pad(t, [1, 1] * t.dim(), value=value)
+
+
+def tap_view(padded: torch.Tensor, off, shape) -> torch.Tensor:
+    """The view of a :func:`relax_pad` array at neighbour offset ``off``."""
+    return padded[tuple(slice(1 + o, 1 + o + n) for o, n in zip(off, shape))]
+
+
+def _signed(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with the unsigned types uint16 and uint32 widened to the next
+    signed type and uint64 viewed as int64: its value, or for uint64 its
+    bits, which ``!= 0`` and a cast to int32 read alike."""
+    if x.dtype in _WIDEN:
+        return x.to(_WIDEN[x.dtype])
+    if x.dtype == torch.uint64:
+        return x.view(torch.int64)
+    return x
+
+
+def nonzero_mask(x: torch.Tensor) -> torch.Tensor:
+    """``x != 0`` for every dtype."""
+    return _signed(x) != 0
+
+
+def watershed_sweep_plain(img: torch.Tensor, c: torch.Tensor,
+                          s: torch.Tensor, l: torch.Tensor, offs,
+                          changed=None):
+    """One Jacobi sweep of ``watershed_ift`` (the JAX package's
+    ``ops/morphology.py:571-592``) over the padded triples: a labelled
+    neighbour offers ``(max(c, x), s + 1, l)``; the lexicographically
+    smallest triple wins, strictly. ``changed`` (int32, one element) is set
+    to 1 where a voxel changed."""
+    cp, sp, lp = (relax_pad(c, RELAX_BIG), relax_pad(s, RELAX_BIG),
+                  relax_pad(l, 0))
+    xi = img.to(torch.int32)
+    nc, ns, nl = c, s, l
+    for off in offs:
+        cc = torch.maximum(tap_view(cp, off, c.shape), xi)
+        cs = tap_view(sp, off, c.shape) + 1
+        cl = tap_view(lp, off, c.shape)
+        same_c = cc == nc
+        better = (cl != 0) & ((cc < nc) | (same_c & (cs < ns))
+                              | (same_c & (cs == ns) & (cl < nl)))
+        nc = torch.where(better, cc, nc)
+        ns = torch.where(better, cs, ns)
+        nl = torch.where(better, cl, nl)
+    if changed is not None and bool(((nc != c) | (ns != s) | (nl != l))
+                                    .any()):
+        changed.fill_(1)
+    return nc, ns, nl
+
+
+def _watershed_lib():
+    lib = _build.library("distance")
+    fn = lib.ed_watershed_sweep
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.restype = i
+        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i,
+                       ctypes.POINTER(ctypes.c_longlong), vp, vp]
+    return lib
+
+
+def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                    l: torch.Tensor, taps: RelaxTaps, changed=None):
+    """One Jacobi sweep of the watershed's triples ``(c, s, l)`` (int32,
+    ``img``'s shape; ``img`` uint8 or uint16) over ``taps``; ``changed`` as
+    :func:`watershed_sweep_plain`. A CPU tensor takes
+    :func:`watershed_sweep_plain`; a CUDA tensor launches K17 into new
+    buffers (the triples in and out never alias) and adds one to
+    ``watershed_sweep.launches``."""
+    if img.device.type == "cpu":
+        return watershed_sweep_plain(img, c, s, l, taps.offs, changed)
+    for t, what in ((img, "image"), (c, "cost"), (s, "steps"), (l, "label")):
+        relax_check(t, f"watershed_sweep {what}")
+    out = [torch.empty_like(c) for _ in range(3)]
+    lib = _watershed_lib()
+    err = lib.ed_watershed_sweep(
+        img.data_ptr(), img.element_size(), c.data_ptr(), s.data_ptr(),
+        l.data_ptr(), *[t.data_ptr() for t in out], *taps.c_args(img.device),
+        None if changed is None else changed.data_ptr(), _stream(img))
+    _build.check(err, lib, "ed_distance_error_string", "watershed_sweep")
+    watershed_sweep.launches += 1
+    return tuple(out)
+
+
+watershed_sweep.launches = 0
+
+
+def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
+    """``watershed_ift`` (the JAX package's ``ops/morphology.py:522-597``):
+    every voxel joins the marker of its lexicographically cheapest path
+    (the path's greatest intensity, its length, the label), negative markers
+    flooding too; K17 sweeps to the fixpoint (:func:`relax_to_fixpoint`),
+    the cross structure by default. ``x``: uint8 or uint16; the result has
+    the markers' dtype, their values cast through int32 as ``astype``
+    casts them."""
+    if x.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError("only 8 and 16 unsigned inputs are supported")
+    if tuple(markers.shape) != tuple(x.shape):
+        raise RuntimeError("input and markers must have equal shapes")
+    ndim = x.dim()
+    if structure is None:
+        structure = generate_binary_structure(ndim, 1)
+    structure = np.asarray(structure, dtype=bool)
+    if structure.shape != (3,) * ndim:
+        raise RuntimeError("structure dimensions must be equal to 3")
+    x = x.contiguous()
+    if x.numel() == 0:
+        return markers.clone()
+    taps = relax_taps(structure, x.shape)
+    seeded = nonzero_mask(markers)
+    c = torch.where(seeded, x.to(torch.int32), RELAX_BIG).to(torch.int32)
+    s = torch.where(seeded, 0, RELAX_BIG).to(torch.int32)
+    lab = torch.where(seeded, _signed(markers).to(torch.int32), 0).to(
+        torch.int32)
+    (_, _, lab), _ = relax_to_fixpoint(
+        lambda st, ch: watershed_sweep(x, *st, taps, ch),
+        (c.contiguous(), s.contiguous(), lab.contiguous()), x.device)
+    return _label_cast(lab, markers.dtype)
+
+
+def _label_cast(lab: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int32 labels as ``astype(dtype)`` converts them (the unsigned types
+    through int64)."""
+    if dtype in (torch.uint16, torch.uint32):
+        return lab.to(torch.int64).to(dtype)
+    if dtype == torch.uint64:
+        return lab.to(torch.int64).view(torch.uint64)
+    return lab.to(dtype)

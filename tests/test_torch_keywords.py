@@ -29,12 +29,11 @@ import elasticdeform_tpu_torch.api as et_api
 from elasticdeform_tpu_torch import core as et_core
 
 # exported by the JAX package, still queued in the port (ROADMAP.md Queue
-# 1: items 6, 8, 11a, 11b)
+# 1: items 6, 8, 11b)
 QUEUED = {
     "bending_energy", "center_of_mass", "compose_displacement_fields",
     "deform_random", "deform_random_diffeo", "displacement_field",
-    "displacement_field_jacobian", "distance_transform_bf",
-    "distance_transform_cdt", "distance_transform_edt", "extrema",
+    "displacement_field_jacobian", "extrema",
     "find_objects", "fourier_ellipsoid", "fourier_gaussian", "fourier_shift",
     "fourier_uniform", "histogram", "integrate_velocity_field",
     "invert_displacement_field", "jacobian_determinant",
@@ -42,7 +41,7 @@ QUEUED = {
     "maximum", "maximum_position", "mean", "median", "membrane_energy",
     "minimum", "minimum_position", "random_displacement",
     "refine_displacement_grid", "standard_deviation", "sum", "sum_labels",
-    "value_indices", "variance", "watershed_ift",
+    "value_indices", "variance",
 }
 
 CPU = {"device": "cpu"}
