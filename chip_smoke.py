@@ -162,7 +162,7 @@ Phases (any failure raises, and the exit code is not 0):
    order 3, bit for bit) and c19 (``distance_transform_edt`` with indices
    at sampling (1.5, 1, 1) and ``distance_transform_cdt`` with indices of
    80 slices of c17's segmentation, ``watershed_ift`` of a uint8 gradient
-   of 32 slices of c15's volume with 28 markers, bit for bit, with exact
+   of 48 slices of c15's volume with 28 markers, bit for bit, with exact
    K15 rungs and K16 and K17 sweeps per call), each compared with the
    port's own ``device="cpu"`` run;
    the launch counters, set to 0 before each config and read after it, must
@@ -239,10 +239,6 @@ call's time and sweeps); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
-
-``python3 chip_smoke.py distance`` runs the distance slice alone (the
-build of ``csrc/distance.cu``, its phase 2 checks, c19 and its phase 4
-times) and prints no result line.
 
 ``times_ab(card)`` times K2 at c5, K8T and K8 at c11, K8 on c13's paired
 passes, K12's 5^3 median, 3^3 median and 33-tap percentile at c15,
@@ -3268,8 +3264,8 @@ def _check_distance_kernels(rs):
                     for sweep in range(6):
                         flags = [torch.zeros(1, dtype=torch.int32,
                                              device=dev) for _ in range(2)]
-                        a = mo.watershed_sweep(img, *state, taps, flags[0])
-                        b = mo.watershed_sweep_plain(img, *state, taps.offs,
+                        a = ds.watershed_sweep(img, *state, taps, flags[0])
+                        b = ds.watershed_sweep_plain(img, *state, taps.offs,
                                                      flags[1])
                         what = (f"K17 {shape} {sname} {dtype} {iname} sweep "
                                 f"{sweep}")
@@ -3825,11 +3821,12 @@ def _configs(seed=0):
             cfg19]
 
 
-# c19's central slices of the 160: its CPU run took 6.1 s on the card's
-# host at 80 slices, 18.6 s at 112 (the EDT 2.5 s and 12.6 s) and
-# 19.6-24.8 s on the whole volume
+# c19's central slices of the 160, cut to keep its CPU run under 15 s on
+# the card's host: the transforms to 80 (the run took 19.6-24.8 s on the
+# whole volume, 18.6 s at 112), the watershed to 48 (with the transforms at
+# 80, 10.1-10.2 s at 48 and 21.8-23.6 s at 64; c19_cut.py)
 C19_SLICES = 80
-C19_WS_SLICES = 32
+C19_WS_SLICES = 48
 
 
 def _gradient_u8(vol):
@@ -3983,7 +3980,7 @@ _EXACT_LAUNCHES = {
             "spline_prefilter_transpose": 0, "resample_bwd": 0},
     # c19: K14 once, K15's five rungs (_C19_CALLS), K16's and K17's sweeps
     "c19": {"nearest_background": 1, "minplus_pass": 5, "chamfer_sweep": 48,
-            "watershed_sweep": 128}}
+            "watershed_sweep": 192}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
 # (3^3 median and the 33-tap percentile on the network tile, the 5^3
@@ -4011,12 +4008,13 @@ _C17_PACKS = {"opening": (2, 2), "fill_holes": (2, 1),
 # c19's launches per call: the EDT's K14 launch and K15 rungs (two passes,
 # each climbing the ladder until a band certifies or the dense tier runs),
 # the CDT's K16 sweeps and the watershed's K17 sweeps (multiples of
-# SWEEPS_PER_CHECK), as the runs on the card counted them (the same on 80
-# slices and on the whole volume)
+# SWEEPS_PER_CHECK), as the runs on the card counted them (the
+# transforms' the same on 80 slices and on the whole volume; the
+# watershed's on 48 slices as c19_cut.py counted them on the CPU)
 _C19_CALLS = {"edt": {"nearest_background": 1, "minplus_w16": 2,
                       "minplus_w64": 2, "minplus_dense": 1},
               "cdt": {"chamfer_sweeps": 48},
-              "watershed": {"watershed_sweeps": 128}}
+              "watershed": {"watershed_sweeps": 192}}
 _DEFORM_KERNELS = ("resample_fwd", "resample_bwd", "resample_coord_grad")
 _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c4": ("resample_coord_grad",),
@@ -4086,7 +4084,7 @@ def _path_wrappers():
             "nearest_background": ds.nearest_background,
             "minplus_pass": ds.minplus_rung,
             "chamfer_sweep": ds.chamfer_sweep,
-            "watershed_sweep": mo.watershed_sweep}
+            "watershed_sweep": ds.watershed_sweep}
 
 
 def _counts():
@@ -4112,11 +4110,10 @@ def _dist_counts():
     """K14-K17's launches and K15's per rung (``w16``, ``w64``,
     ``dense``); K16's and K17's launches are their sweeps."""
     from elasticdeform_tpu_torch.ops import distance as ds
-    from elasticdeform_tpu_torch.ops import morphology as mo
     return {"nearest_background": ds.nearest_background.launches,
             **{f"minplus_{k}": v for k, v in ds.minplus_rung.rungs.items()},
             "chamfer_sweeps": ds.chamfer_sweep.launches,
-            "watershed_sweeps": mo.watershed_sweep.launches}
+            "watershed_sweeps": ds.watershed_sweep.launches}
 
 
 def _writeback_counts():
@@ -4149,29 +4146,6 @@ def _route_counts():
     "nd": ..}``) and K3's and K3c's (``{"tile": .., "direct": ..}``)."""
     return {k: dict(w.routes) for k, ws in _path_wrappers().items()
             for w in (ws,) if hasattr(w, "routes")}
-
-
-def _run_on_card(configs):
-    """Each config on the card, its launch counters set to 0 just before
-    and read just after: ``(outputs, launches, launches per route, K2's and
-    K6's writeback launches per form)``, per config; each config also
-    keeps its K13 counts (``k13``)."""
-    import torch
-    outs, launches, cfg_routes, writeback = {}, {}, {}, {}
-    for cfg in configs:
-        _reset_counts()
-        outs[cfg.name] = cfg.run("cuda")
-        torch.cuda.synchronize()
-        launches[cfg.name] = _counts()
-        cfg_routes[cfg.name] = _route_counts()
-        writeback[cfg.name] = _writeback_counts()
-        cfg.k13 = _k13_counts()
-        for k, by_route in cfg_routes[cfg.name].items():
-            if sum(by_route.values()) != launches[cfg.name][k]:
-                raise AssertionError(f"{cfg.name}: {k}'s route counts "
-                                     f"{by_route} do not add up to its "
-                                     f"{launches[cfg.name][k]} launches")
-    return outs, launches, cfg_routes, writeback
 
 
 def _check_c19(configs):
@@ -4234,17 +4208,29 @@ def _against_cpu(configs, outs):
 def phase_main_path():
     """Phase 3: the public entry points on the card, counted, then each
     output against the port's CPU run."""
+    import torch
     configs = _configs()
-    outs, launches, cfg_routes, writeback = _run_on_card(configs)
+    outs, launches, cfg_routes = {}, {}, {}
     total = dict.fromkeys(PATH_KERNELS, 0)
     routes = {k: dict.fromkeys(v, 0) for k, v in _route_counts().items()}
     k13 = dict.fromkeys(_k13_counts(), 0)
+    writeback = {}
     for cfg in configs:
-        for k, v in cfg.k13.items():
+        _reset_counts()
+        outs[cfg.name] = cfg.run("cuda")
+        torch.cuda.synchronize()
+        launches[cfg.name] = _counts()
+        cfg_routes[cfg.name] = _route_counts()
+        writeback[cfg.name] = _writeback_counts()
+        for k, v in _k13_counts().items():
             k13[k] += v
         for k in PATH_KERNELS:
             total[k] += launches[cfg.name][k]
         for k, by_route in cfg_routes[cfg.name].items():
+            if sum(by_route.values()) != launches[cfg.name][k]:
+                raise AssertionError(f"{cfg.name}: {k}'s route counts "
+                                     f"{by_route} do not add up to its "
+                                     f"{launches[cfg.name][k]} launches")
             for r, v in by_route.items():
                 routes[k][r] += v
     print(f"main path launches per config: {json.dumps(launches)}")
@@ -5673,15 +5659,15 @@ def _times_distance(row, card, cfg19):
         torch.int32), torch.where(seeded, 0, mo.RELAX_BIG).to(torch.int32),
         mk)
     Nw = img.numel()
-    sweep = lambda: mo.watershed_sweep(img, *state, taps)  # noqa: E731
+    sweep = lambda: ds.watershed_sweep(img, *state, taps)  # noqa: E731
     call = lambda: mo.watershed_ift(img, mk)  # noqa: E731
-    before = mo.watershed_sweep.launches
+    before = ds.watershed_sweep.launches
     call()
-    sweeps = mo.watershed_sweep.launches - before
+    sweeps = ds.watershed_sweep.launches - before
     call_ms = _time_ms(call, reps=5, warmup=1)
     row("watershed_sweep", "distance.cu",
         "elasticdeform_tpu/ops/morphology.py:571", _time_ms(sweep),
-        _time_ms(lambda: mo.watershed_sweep_plain(img, *state, taps.offs)),
+        _time_ms(lambda: ds.watershed_sweep_plain(img, *state, taps.offs)),
         _bound(Nw * (1 + 2 * 3 * 4), 0), None, 0.0,
         at=f"c19 one sweep of the watershed, {tuple(img.shape)} uint8",
         extra={"device_ms": _device_ms(sweep), "call_ms": call_ms,
@@ -6777,49 +6763,6 @@ def _profile_config(cfg, card):
           f" top: {top} [{card}]")
 
 
-def distance_only() -> int:
-    """``python3 chip_smoke.py distance``: the distance slice alone, for a
-    short run on the card: the card, ``csrc/distance.cu``'s build and ptxas
-    figures, K14-K17 against their twins (phase 2's checks), c19 on the
-    card with its launches against its CPU run (phase 3's), and K14-K17's
-    and c19's times and c19's profile (phase 4's). Prints no result
-    line."""
-    from elasticdeform_tpu_torch.ops import _build
-    t0 = time.perf_counter()
-    _, smi = phase_device()
-    _build.build_all(("distance",))
-    secs = _build.build_seconds.get("distance")
-    print("build: distance.cu " + ("built before" if secs is None else
-                                   f"in {secs:.1f} s"))
-    _check_distance_ptxas(_build.build_logs["distance"])
-    _check_distance_kernels(np.random.RandomState(1))
-    configs = [c for c in _configs() if c.name == "c19"]
-    outs, launches, _, _ = _run_on_card(configs)
-    got = {k: launches["c19"][k] for k in DIST_KERNELS}
-    print(f"c19 launches: {json.dumps(got)}")
-    if got != _EXACT_LAUNCHES["c19"]:
-        raise AssertionError(f"c19 launched {got}, not "
-                             f"{_EXACT_LAUNCHES['c19']}")
-    _check_c19(configs)
-    _against_cpu(configs, outs)
-    errs = dict.fromkeys(KERNELS, 0.0)
-
-    def row(name, source, replaces, ms, plain_ms, bound, library_ms, err,
-            at, extra):
-        print(f"{name} at {at}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"library {library_ms}, bound {bound[0]:.4f} ms by "
-              f"{bound[1]}, launches on c19 {launches['c19'][name]}, err "
-              f"{max(err, errs[name])}) {json.dumps(extra)} [{smi}]")
-    _times_distance(row, smi, configs[0])
-    cfg = configs[0]
-    ms = _time_ms(lambda: cfg.run("cuda"))
-    print(f"c19: {ms:.3f} ms per call, {cfg.n_vox / ms / 1e3:.2f} Mvox/s "
-          f"(output voxels) [{smi}]")
-    _profile_config(cfg, smi)
-    print(f"chip_smoke distance: {time.perf_counter() - t0:.1f} s")
-    return 0
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6831,8 +6774,6 @@ def main() -> int:
         print(f"chip_smoke: the package is missing ({e}); run from the "
               "root of the repository", file=sys.stderr)
         return 3
-    if sys.argv[1:] == ["distance"]:
-        return distance_only()
     t0 = time.perf_counter()
     name, smi = phase_device()
     phase_build()

@@ -3,10 +3,9 @@
 Each source in ``csrc/`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` (Hopper) at first CUDA use into
 ``build/elasticdeform_tpu_torch/<hash>/`` beside the package. The hash
-covers the sources and the flags, so an edited source builds anew.
-:func:`build_all` builds all sources at once, one ``nvcc`` process each;
-:func:`library` builds only its own. Nothing here runs when the package is
-imported.
+covers the sources and the flags, so an edited source builds anew. All
+sources build at once, one ``nvcc`` process each. Nothing here runs when
+the package is imported.
 """
 
 from __future__ import annotations
@@ -57,18 +56,18 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every source of ``names`` not yet built, all in parallel;
-    return ``{name: path}``. Raises RuntimeError with nvcc's output on
-    failure. nvcc's output is kept beside each library (``lib<name>.log``),
-    so ``build_logs`` holds every source's, whether built now or before."""
+def build_all() -> dict:
+    """Compile every source not yet built, all in parallel; return
+    ``{name: path}``. Raises RuntimeError with nvcc's output on failure.
+    nvcc's output is kept beside each library (``lib<name>.log``), so
+    ``build_logs`` holds every source's, whether built now or before."""
     out_dir = BUILD_ROOT / _digest()
     out_dir.mkdir(parents=True, exist_ok=True)
-    paths = {name: out_dir / f"lib{name}.so" for name in names}
-    logs = {name: out_dir / f"lib{name}.log" for name in names}
+    paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    logs = {name: out_dir / f"lib{name}.log" for name in SOURCES}
     todo = [name for name, p in paths.items()
             if not (p.exists() and logs[name].exists())]
-    for name in names:
+    for name in SOURCES:
         if name not in todo and name not in build_logs:
             build_logs[name] = logs[name].read_text()
     if not todo:
@@ -114,7 +113,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            lib = ctypes.CDLL(str(build_all()[name]))
             _libs[name] = lib
         return lib
 

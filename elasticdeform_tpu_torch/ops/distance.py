@@ -1,9 +1,10 @@
 """The distance transforms: ``distance_transform_edt``, ``_cdt`` and
-``_bf``.
+``_bf``, and the watershed's sweep.
 
 Counterpart of the JAX package's ``ops/distance.py``; ``watershed_ift``,
 which relaxes the same way, is in :mod:`~elasticdeform_tpu_torch.ops.
-morphology`. Three kernels carry it (``csrc/distance.cu``):
+morphology` and sweeps by K17 here. Four kernels carry them
+(``csrc/distance.cu``):
 
 * :func:`nearest_background` (K14): the exact EDT's first pass, the
   distance along axis 0 to the nearest background voxel of each line, and
@@ -18,6 +19,8 @@ morphology`. Three kernels carry it (``csrc/distance.cu``):
 * :func:`chamfer_sweep` (K16): one Jacobi sweep of the chamfer relaxation
   (``cdt_core``), run to the fixpoint by
   :func:`~elasticdeform_tpu_torch.ops.morphology.relax_to_fixpoint`.
+* :func:`watershed_sweep` (K17): one Jacobi sweep of ``watershed_ift``'s
+  (cost, steps, label) triples, run to the fixpoint the same way.
 
 The EDT works in float64, as the JAX package does under x64 and as SciPy
 returns it. On a CPU tensor each wrapper takes its plain version
@@ -68,6 +71,9 @@ def _lib():
         fn = lib.ed_chamfer_sweep
         fn.restype = i
         fn.argtypes = [vp, vp, vp, vp, vp, i, i, lp, vp, vp]
+        fn = lib.ed_watershed_sweep
+        fn.restype = i
+        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i, lp, vp, vp]
     return lib
 
 
@@ -453,9 +459,67 @@ def cdt_core(fg: torch.Tensor, structure, want_idx: bool):
     if fg.numel() == 0:
         return d, ix
     taps = relax_taps(structure, shape)
-    (d, ix), _ = relax_to_fixpoint(
+    d, ix = relax_to_fixpoint(
         lambda st, ch: chamfer_sweep(*st, taps, ch), (d, ix), fg.device)
     return d, ix
+
+
+# ---------------------------------------------------------------------------
+# K17: the watershed's sweep
+
+
+def watershed_sweep_plain(img: torch.Tensor, c: torch.Tensor,
+                          s: torch.Tensor, l: torch.Tensor, offs,
+                          changed=None):
+    """One Jacobi sweep of ``watershed_ift`` (the JAX package's
+    ``ops/morphology.py:571-592``) over the padded triples: a labelled
+    neighbour offers ``(max(c, x), s + 1, l)``; the lexicographically
+    smallest triple wins, strictly. ``changed`` (int32, one element) is set
+    to 1 where a voxel changed."""
+    cp, sp, lp = (relax_pad(c, RELAX_BIG), relax_pad(s, RELAX_BIG),
+                  relax_pad(l, 0))
+    xi = img.to(torch.int32)
+    nc, ns, nl = c, s, l
+    for off in offs:
+        cc = torch.maximum(tap_view(cp, off, c.shape), xi)
+        cs = tap_view(sp, off, c.shape) + 1
+        cl = tap_view(lp, off, c.shape)
+        same_c = cc == nc
+        better = (cl != 0) & ((cc < nc) | (same_c & (cs < ns))
+                              | (same_c & (cs == ns) & (cl < nl)))
+        nc = torch.where(better, cc, nc)
+        ns = torch.where(better, cs, ns)
+        nl = torch.where(better, cl, nl)
+    if changed is not None and bool(((nc != c) | (ns != s) | (nl != l))
+                                    .any()):
+        changed.fill_(1)
+    return nc, ns, nl
+
+
+def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                    l: torch.Tensor, taps: RelaxTaps, changed=None):
+    """One Jacobi sweep of the watershed's triples ``(c, s, l)`` (int32,
+    ``img``'s shape; ``img`` uint8 or uint16) over ``taps``; ``changed`` as
+    :func:`watershed_sweep_plain`. A CPU tensor takes
+    :func:`watershed_sweep_plain`; a CUDA tensor launches K17 into new
+    buffers (the triples in and out never alias) and adds one to
+    ``watershed_sweep.launches``."""
+    if img.device.type == "cpu":
+        return watershed_sweep_plain(img, c, s, l, taps.offs, changed)
+    for t, what in ((img, "image"), (c, "cost"), (s, "steps"), (l, "label")):
+        relax_check(t, f"watershed_sweep {what}")
+    out = [torch.empty_like(c) for _ in range(3)]
+    lib = _lib()
+    err = lib.ed_watershed_sweep(
+        img.data_ptr(), img.element_size(), c.data_ptr(), s.data_ptr(),
+        l.data_ptr(), *[t.data_ptr() for t in out], *taps.c_args(img.device),
+        None if changed is None else changed.data_ptr(), _stream(img))
+    _build.check(err, lib, "ed_distance_error_string", "watershed_sweep")
+    watershed_sweep.launches += 1
+    return tuple(out)
+
+
+watershed_sweep.launches = 0
 
 
 def _unravel(ix: torch.Tensor, shape) -> torch.Tensor:

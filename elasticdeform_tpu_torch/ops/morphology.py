@@ -46,11 +46,12 @@ it (``csrc/morphology.cu``), and ``watershed_ift`` a fifth:
   32 voxels along the innermost axis, a box that fits shared memory: a
   block runs its sweeps on a tile of 32-voxel words and its halo) and
   ``"nd"`` (K11's kernel on bool, one sweep a launch, for the rest).
-* :func:`watershed_sweep` (K17, ``csrc/distance.cu``): one Jacobi sweep
-  of :func:`watershed_ift`'s (cost, steps, label) triples, run to the
-  fixpoint by :func:`relax_to_fixpoint`, which also drives the chamfer
-  distance's sweeps (K16, :mod:`~elasticdeform_tpu_torch.ops.distance`)
-  over the same :class:`RelaxTaps` tables.
+* :func:`watershed_ift`: K17's Jacobi sweeps of the (cost, steps, label)
+  triples (:func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweep`,
+  beside K14-K16 in :mod:`~elasticdeform_tpu_torch.ops.distance`), run to
+  the fixpoint by :func:`relax_to_fixpoint` over :class:`RelaxTaps` tables,
+  as the chamfer distance's K16 sweeps are; :func:`sweep_to_fixpoint` reads
+  the changed flag once a group of sweeps for them and for K13.
 
 Min and max order -0 below +0, as ``jnp.minimum`` and ``jnp.maximum`` do.
 
@@ -1645,12 +1646,8 @@ def binary_erosion_dilation(x: torch.Tensor, structure, iterations, mask,
     if iterations >= 1:
         sweep(iterations)
     else:
-        changed = torch.zeros(1, dtype=torch.int32, device=x.device)
-        while True:
-            changed.zero_()
-            sweep(SWEEPS_PER_CHECK, changed)
-            if not int(changed.item()):
-                break
+        sweep_to_fixpoint(lambda changed: sweep(SWEEPS_PER_CHECK, changed),
+                          x.device)
     if plan.route == "tile":
         return unpack_bits(state, x.shape[-1])
     return state
@@ -1711,22 +1708,32 @@ def relax_taps(structure, shape) -> RelaxTaps:
     return _relax_taps(st.tobytes(), st.shape, tuple(int(n) for n in shape))
 
 
-def relax_to_fixpoint(sweep, state, device):
-    """Jacobi sweeps ``state = sweep(state, changed)`` to the fixpoint, in
-    groups of :data:`SWEEPS_PER_CHECK`, the flag of each group's last sweep
-    read once (K13's schedule): a sweep that changes nothing is a fixpoint,
-    and sweeps past it change nothing, so the result is the reference's,
-    which stops at the first such sweep. Returns ``(state, sweeps)``."""
+def sweep_to_fixpoint(group, device) -> None:
+    """Run ``group(changed)``, :data:`SWEEPS_PER_CHECK` sweeps whose last
+    sets the int32 flag ``changed`` where it changed a voxel, until a group
+    changes nothing, the flag zeroed before each group and read once after
+    it (K13's schedule, and K16's and K17's)."""
     changed = torch.zeros(1, dtype=torch.int32, device=device)
-    sweeps = 0
     while True:
         changed.zero_()
+        group(changed)
+        if not int(changed.item()):
+            return
+
+
+def relax_to_fixpoint(sweep, state, device):
+    """Jacobi sweeps ``state = sweep(state, changed)`` to the fixpoint by
+    :func:`sweep_to_fixpoint`, the flag passed to each group's last sweep:
+    a sweep that changes nothing is a fixpoint, and sweeps past it change
+    nothing, so the result is the reference's, which stops at the first
+    such sweep. Returns the last state."""
+    def group(changed):
+        nonlocal state
         for k in range(SWEEPS_PER_CHECK):
             state = sweep(state, changed if k == SWEEPS_PER_CHECK - 1
                           else None)
-        sweeps += SWEEPS_PER_CHECK
-        if not int(changed.item()):
-            return state, sweeps
+    sweep_to_fixpoint(group, device)
+    return state
 
 
 def relax_check(x: torch.Tensor, what: str) -> None:
@@ -1754,95 +1761,22 @@ def tap_view(padded: torch.Tensor, off, shape) -> torch.Tensor:
     return padded[tuple(slice(1 + o, 1 + o + n) for o, n in zip(off, shape))]
 
 
-def _signed(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with the unsigned types uint16 and uint32 widened to the next
-    signed type and uint64 viewed as int64: its value, or for uint64 its
-    bits, which ``!= 0`` and a cast to int32 read alike."""
-    if x.dtype in _WIDEN:
-        return x.to(_WIDEN[x.dtype])
-    if x.dtype == torch.uint64:
-        return x.view(torch.int64)
-    return x
-
-
 def nonzero_mask(x: torch.Tensor) -> torch.Tensor:
     """``x != 0`` for every dtype."""
-    return _signed(x) != 0
-
-
-def watershed_sweep_plain(img: torch.Tensor, c: torch.Tensor,
-                          s: torch.Tensor, l: torch.Tensor, offs,
-                          changed=None):
-    """One Jacobi sweep of ``watershed_ift`` (the JAX package's
-    ``ops/morphology.py:571-592``) over the padded triples: a labelled
-    neighbour offers ``(max(c, x), s + 1, l)``; the lexicographically
-    smallest triple wins, strictly. ``changed`` (int32, one element) is set
-    to 1 where a voxel changed."""
-    cp, sp, lp = (relax_pad(c, RELAX_BIG), relax_pad(s, RELAX_BIG),
-                  relax_pad(l, 0))
-    xi = img.to(torch.int32)
-    nc, ns, nl = c, s, l
-    for off in offs:
-        cc = torch.maximum(tap_view(cp, off, c.shape), xi)
-        cs = tap_view(sp, off, c.shape) + 1
-        cl = tap_view(lp, off, c.shape)
-        same_c = cc == nc
-        better = (cl != 0) & ((cc < nc) | (same_c & (cs < ns))
-                              | (same_c & (cs == ns) & (cl < nl)))
-        nc = torch.where(better, cc, nc)
-        ns = torch.where(better, cs, ns)
-        nl = torch.where(better, cl, nl)
-    if changed is not None and bool(((nc != c) | (ns != s) | (nl != l))
-                                    .any()):
-        changed.fill_(1)
-    return nc, ns, nl
-
-
-def _watershed_lib():
-    lib = _build.library("distance")
-    fn = lib.ed_watershed_sweep
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.restype = i
-        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), vp, vp]
-    return lib
-
-
-def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
-                    l: torch.Tensor, taps: RelaxTaps, changed=None):
-    """One Jacobi sweep of the watershed's triples ``(c, s, l)`` (int32,
-    ``img``'s shape; ``img`` uint8 or uint16) over ``taps``; ``changed`` as
-    :func:`watershed_sweep_plain`. A CPU tensor takes
-    :func:`watershed_sweep_plain`; a CUDA tensor launches K17 into new
-    buffers (the triples in and out never alias) and adds one to
-    ``watershed_sweep.launches``."""
-    if img.device.type == "cpu":
-        return watershed_sweep_plain(img, c, s, l, taps.offs, changed)
-    for t, what in ((img, "image"), (c, "cost"), (s, "steps"), (l, "label")):
-        relax_check(t, f"watershed_sweep {what}")
-    out = [torch.empty_like(c) for _ in range(3)]
-    lib = _watershed_lib()
-    err = lib.ed_watershed_sweep(
-        img.data_ptr(), img.element_size(), c.data_ptr(), s.data_ptr(),
-        l.data_ptr(), *[t.data_ptr() for t in out], *taps.c_args(img.device),
-        None if changed is None else changed.data_ptr(), _stream(img))
-    _build.check(err, lib, "ed_distance_error_string", "watershed_sweep")
-    watershed_sweep.launches += 1
-    return tuple(out)
-
-
-watershed_sweep.launches = 0
+    return _plain(x) != _plain_scalar(0, x.dtype)
 
 
 def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
     """``watershed_ift`` (the JAX package's ``ops/morphology.py:522-597``):
     every voxel joins the marker of its lexicographically cheapest path
     (the path's greatest intensity, its length, the label), negative markers
-    flooding too; K17 sweeps to the fixpoint (:func:`relax_to_fixpoint`),
-    the cross structure by default. ``x``: uint8 or uint16; the result has
+    flooding too; K17 sweeps to the fixpoint (:func:`relax_to_fixpoint` of
+    :func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweep`), the
+    cross structure by default. ``x``: uint8 or uint16; the result has
     the markers' dtype, their values cast through int32 as ``astype``
     casts them."""
+    # ops/distance.py imports this module
+    from elasticdeform_tpu_torch.ops.distance import watershed_sweep
     if x.dtype not in (torch.uint8, torch.uint16):
         raise TypeError("only 8 and 16 unsigned inputs are supported")
     if tuple(markers.shape) != tuple(x.shape):
@@ -1860,9 +1794,9 @@ def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
     seeded = nonzero_mask(markers)
     c = torch.where(seeded, x.to(torch.int32), RELAX_BIG).to(torch.int32)
     s = torch.where(seeded, 0, RELAX_BIG).to(torch.int32)
-    lab = torch.where(seeded, _signed(markers).to(torch.int32), 0).to(
+    lab = torch.where(seeded, _plain(markers).to(torch.int32), 0).to(
         torch.int32)
-    (_, _, lab), _ = relax_to_fixpoint(
+    _, _, lab = relax_to_fixpoint(
         lambda st, ch: watershed_sweep(x, *st, taps, ch),
         (c.contiguous(), s.contiguous(), lab.contiguous()), x.device)
     return _label_cast(lab, markers.dtype)

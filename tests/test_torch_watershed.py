@@ -18,6 +18,7 @@ import torch
 import elasticdeform_tpu as ej
 
 import elasticdeform_tpu_torch as et
+from elasticdeform_tpu_torch.ops import distance as ds
 from elasticdeform_tpu_torch.ops import morphology as mo
 
 CPU = {"device": "cpu"}
@@ -99,14 +100,21 @@ def test_sweeps_past_the_fixpoint_change_nothing():
     seeded = mk != 0
     state = (torch.where(seeded, img.to(torch.int32), mo.RELAX_BIG).int(),
              torch.where(seeded, 0, mo.RELAX_BIG).int(), mk.clone())
-    state, sweeps = mo.relax_to_fixpoint(
-        lambda st, ch: mo.watershed_sweep(img, *st, taps, ch), state,
-        img.device)
-    assert sweeps % mo.SWEEPS_PER_CHECK == 0
+    sweeps = []
+
+    def sweep(st, changed):
+        sweeps.append(changed is not None)
+        return ds.watershed_sweep(img, *st, taps, changed)
+
+    state = mo.relax_to_fixpoint(sweep, state, img.device)
+    # the flag rides on the last sweep of each group of eight
+    assert len(sweeps) % mo.SWEEPS_PER_CHECK == 0
+    assert sweeps == ([False] * (mo.SWEEPS_PER_CHECK - 1) + [True]) * (
+        len(sweeps) // mo.SWEEPS_PER_CHECK)
     changed = torch.zeros(1, dtype=torch.int32)
     again = state
     for _ in range(3):
-        again = mo.watershed_sweep(img, *again, taps, changed)
+        again = ds.watershed_sweep(img, *again, taps, changed)
     assert int(changed) == 0
     assert all(torch.equal(a, b) for a, b in zip(again, state))
     assert np.array_equal(state[2].numpy(), np.asarray(ej.watershed_ift(
