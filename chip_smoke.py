@@ -502,11 +502,17 @@ _DIST_PTXAS = (("K14 nearest_bg_kernel", "nearest_bg_kernel"),
                ("K16 chamfer_sweep_kernel", "chamfer_sweep_kernel"),
                ("K17 uint8", "watershed_sweep_kernelIhE"),
                ("K17 uint16", "watershed_sweep_kernelItE"))
+# K16's and K17's tile route: (with indices or not / image type, the tap
+# count it is unrolled for, 0 for any), five tap counts each
+_K16_TILE = re.compile(r"chamfer_tile_kernelILb([01])ELi(\d+)E")
+_K17_TILE = re.compile(r"watershed_tile_kernelI([ht])Li(\d+)E")
 
 
 def _check_distance_ptxas(log):
-    """Print K14-K17's registers, stack frame, spills and shared bytes; fail
-    unless each of their six kernels is found once."""
+    """Print K14-K17's registers, stack frame, spills and static shared
+    bytes (the tile route's boxes are dynamic shared memory, sized per
+    launch); fail unless each of their six sweep-route kernels is found
+    once and each tile route's ten instantiations are found."""
     kern = _ptxas_kernels(log)
     for label, part in _DIST_PTXAS:
         hits = [v for fn, v in kern.items() if part in fn]
@@ -517,6 +523,25 @@ def _check_distance_ptxas(log):
         print(f"  ptxas {label}: {v[0]} registers, {v[1]} bytes stack "
               f"frame, {v[2]}/{v[3]} bytes spill stores/loads, {v[5]} bytes "
               "static shared")
+    for label, pattern, what in (
+            ("K16 tile", _K16_TILE,
+             lambda a: "indices" if a == "1" else "no indices"),
+            ("K17 tile", _K17_TILE,
+             lambda a: "uint8" if a == "h" else "uint16")):
+        found = 0
+        for fn, v in sorted(kern.items()):
+            m = pattern.search(fn)
+            if not m or fn.startswith("_ZZ"):
+                continue
+            nt = m.group(2)
+            print(f"  ptxas {label} {what(m.group(1))}, "
+                  f"{nt if nt != '0' else 'any'} taps: {v[0]} registers, "
+                  f"{v[1]} bytes stack frame, {v[2]}/{v[3]} bytes spill "
+                  f"stores/loads, {v[5]} bytes static shared")
+            found += 1
+        if found != 10:
+            raise AssertionError(f"{label}: {found} of 10 instantiations "
+                                 "found")
 
 
 def _check_k9t_ptxas(log):
@@ -919,6 +944,7 @@ def phase_kernels():
     _check_k12_routes(rs, torch.device("cuda"))
     _check_k12_network_routes(rs, torch.device("cuda"))
     _check_distance_kernels(rs)
+    _check_relax_tiles(rs)
     return worst
 
 
@@ -3156,7 +3182,8 @@ def _check_distance_kernels(rs):
     background, none and all; K16 with and without indices and K17 on
     uint8 and uint16 images (random, and plateaus where ties go by the step
     count and the label), negative markers, over the cross, full and a
-    custom structure, six sweeps each, the changed flag equal; then the
+    custom structure, six sweeps each on the sweep route and one sweep a
+    launch of the tile route (1-3 axes), the changed flag equal; then the
     public transforms against the port's CPU run. Fails unless every K15
     rung ran."""
     import torch
@@ -3227,21 +3254,23 @@ def _check_distance_kernels(rs):
                             0).to(torch.int32)
             ix = torch.arange(d.numel(), dtype=torch.int32,
                               device=dev).reshape(shape)
-            for sweep in range(6):
-                for with_ix in (False, True):
-                    flags = [torch.zeros(1, dtype=torch.int32, device=dev)
-                             for _ in range(2)]
-                    x = ix if with_ix else None
-                    a = ds.chamfer_sweep(d, x, taps, flags[0])
-                    b = ds.chamfer_sweep_plain(d, x, taps.offs, flags[1])
-                    what = f"K16 {shape} {sname} sweep {sweep}"
-                    _same(a[0], b[0], what)
-                    if with_ix:
-                        _same(a[1], b[1], f"{what} indices")
-                    if int(flags[0]) != int(flags[1]):
-                        raise AssertionError(f"{what}: flag differs")
-                    n["K16"] += 1
-                d, ix = a
+            routes = ("sweep", "tile") if taps.tiled else ("sweep",)
+            for sweep, with_ix, route in itertools.product(
+                    range(6), (False, True), routes):
+                flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                         for _ in range(2)]
+                x = ix if with_ix else None
+                a = ds.chamfer_sweep(d, x, taps, flags[0], route=route)
+                b = ds.chamfer_sweep_plain(d, x, taps.offs, flags[1])
+                what = f"K16 {route} {shape} {sname} sweep {sweep}"
+                _same(a[0], b[0], what)
+                if with_ix:
+                    _same(a[1], b[1], f"{what} indices")
+                if int(flags[0]) != int(flags[1]):
+                    raise AssertionError(f"{what}: flag differs")
+                n["K16"] += 1
+                if with_ix and route == "sweep":
+                    d, ix = a
             got = et.distance_transform_cdt(m, metric=st, return_indices=True,
                                             device=dev)
             want = et.distance_transform_cdt(m, metric=st,
@@ -3261,20 +3290,22 @@ def _check_distance_kernels(rs):
                                          mo.RELAX_BIG).to(torch.int32),
                              torch.where(seeded, 0, mo.RELAX_BIG).to(
                                  torch.int32), mk)
-                    for sweep in range(6):
+                    for sweep, route in itertools.product(range(6), routes):
                         flags = [torch.zeros(1, dtype=torch.int32,
                                              device=dev) for _ in range(2)]
-                        a = ds.watershed_sweep(img, *state, taps, flags[0])
+                        a = ds.watershed_sweep(img, *state, taps, flags[0],
+                                               route=route)
                         b = ds.watershed_sweep_plain(img, *state, taps.offs,
                                                      flags[1])
-                        what = (f"K17 {shape} {sname} {dtype} {iname} sweep "
-                                f"{sweep}")
+                        what = (f"K17 {route} {shape} {sname} {dtype} "
+                                f"{iname} sweep {sweep}")
                         for g, w, part in zip(a, b, "csl"):
                             _same(g, w, f"{what} {part}")
                         if int(flags[0]) != int(flags[1]):
                             raise AssertionError(f"{what}: flag differs")
                         n["K17"] += 1
-                        state = a
+                        if route == "sweep":
+                            state = a
                     got = et.watershed_ift(img, mk, structure=st, device=dev)
                     want = et.watershed_ift(img.cpu(), mk.cpu(), structure=st,
                                             device="cpu")
@@ -3284,6 +3315,112 @@ def _check_distance_kernels(rs):
     print(f"K14-K17 vs plain on the card, bit for bit: {json.dumps(n)} "
           f"cases (K15's launches per rung {json.dumps(ran)}); the public "
           "transforms equal the CPU run")
+
+
+# odd shapes whose tiles split the box (phase 2's tile-route sweep of K16
+# and K17) and the tiles forced beside each plan's: ragged, one voxel thick
+_RELAX_SHAPES = ((37,), (9, 13), (5, 7, 9), (11, 6, 35), (3, 20, 70))
+_RELAX_TILES = ((2, 3, 8), (1, 1, 5), (3, 5, 16))
+
+
+def _check_relax_tiles(rs):
+    """K16's and K17's tile route, one launch of ``k`` = 1-8 sweeps, bit for
+    bit against ``k`` sweeps of the plain twins on the card and the flag of
+    the last: 1-D to 3-D odd shapes, the cross, full and a custom
+    structure, the plan's tile for ``k`` and three forced ragged tiles, K16
+    with and without indices, K17 on uint8 and uint16 images (random, and
+    plateaus where ties go by the step count and the label) with negative
+    markers, each from a state a few sweeps into the relaxation."""
+    import torch
+    from elasticdeform_tpu_torch.ops import distance as ds
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    dev = torch.device("cuda")
+    n = {"K16": 0, "K17": 0}
+    for shape in _RELAX_SHAPES:
+        nd = len(shape)
+        for sname, st in (("cross", mo.generate_binary_structure(nd, 1)),
+                          ("full", mo.generate_binary_structure(nd, nd)),
+                          ("custom", rs.rand(*(3,) * nd) > 0.5)):
+            taps = mo.relax_taps(st, shape)
+            m = torch.as_tensor(rs.rand(*shape) > 0.1, device=dev)
+            d0 = torch.where(m, mo.RELAX_BIG, 0).to(torch.int32)
+            ix0 = torch.arange(d0.numel(), dtype=torch.int32,
+                               device=dev).reshape(shape)
+            imgs = []
+            for dtype, hi in ((torch.uint8, 256), (torch.uint16, 65536)):
+                for iname, top in (("random", hi), ("plateaus", 3)):
+                    img = torch.as_tensor(rs.randint(0, top, shape),
+                                          device=dev).to(dtype)
+                    mk = np.zeros(math.prod(shape), np.int32)
+                    mk[rs.choice(mk.size, 4, replace=False)] = [3, -1, 7, -2]
+                    mk = torch.as_tensor(mk.reshape(shape), device=dev)
+                    seeded = mk != 0
+                    imgs.append((f"{dtype} {iname}", img, (
+                        torch.where(seeded, img.to(torch.int32),
+                                    mo.RELAX_BIG).to(torch.int32),
+                        torch.where(seeded, 0, mo.RELAX_BIG).to(torch.int32),
+                        mk)))
+            for k in range(1, mo.SWEEPS_PER_CHECK + 1):
+                # a state k sweeps into the relaxation
+                d, ix = ds.chamfer_sweep_plain(d0, ix0, taps.offs)
+                for _ in range(k - 1):
+                    d, ix = ds.chamfer_sweep_plain(d, ix, taps.offs)
+                for with_ix in (False, True):
+                    x = ix if with_ix else None
+                    words = 2 if with_ix else 1
+                    plans = [taps.plan(words, 0, k, "tile", k)] + [
+                        taps.plan(words, 0, k, "tile", k, t)
+                        for t in _RELAX_TILES]
+                    want_flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                    b = (d, x)
+                    for j in range(k):
+                        b = ds.chamfer_sweep_plain(
+                            *b, taps.offs, want_flag if j == k - 1 else None)
+                    for plan in plans:
+                        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                        a = ds.chamfer_sweep(d, x, taps, flag, k=k,
+                                             plan=plan)
+                        what = (f"K16 tile {shape} {sname} k={k} "
+                                f"tile={plan.tile} indices={with_ix}")
+                        _same(a[0], b[0], what)
+                        if with_ix:
+                            _same(a[1], b[1], f"{what} indices")
+                        if int(flag) != int(want_flag):
+                            raise AssertionError(f"{what}: flag "
+                                                 f"{int(flag)}, twin "
+                                                 f"{int(want_flag)}")
+                        n["K16"] += 1
+                for iname, img, state0 in imgs:
+                    state = state0
+                    for _ in range(k):
+                        state = ds.watershed_sweep_plain(img, *state,
+                                                         taps.offs)
+                    want = state
+                    want_flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                    for j in range(k):
+                        want = ds.watershed_sweep_plain(
+                            img, *want, taps.offs,
+                            want_flag if j == k - 1 else None)
+                    nbytes = img.element_size()
+                    plans = [taps.plan(3, nbytes, k, "tile", k)] + [
+                        taps.plan(3, nbytes, k, "tile", k, t)
+                        for t in _RELAX_TILES]
+                    for plan in plans:
+                        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                        a = ds.watershed_sweep(img, *state, taps, flag, k=k,
+                                               plan=plan)
+                        what = (f"K17 tile {shape} {sname} {iname} k={k} "
+                                f"tile={plan.tile}")
+                        for g, w, part in zip(a, want, "csl"):
+                            _same(g, w, f"{what} {part}")
+                        if int(flag) != int(want_flag):
+                            raise AssertionError(f"{what}: flag "
+                                                 f"{int(flag)}, twin "
+                                                 f"{int(want_flag)}")
+                        n["K17"] += 1
+    print(f"K16 and K17 tile route, one launch of k = 1-8 sweeps vs k plain "
+          f"sweeps on the card, bit for bit, the flag equal: "
+          f"{json.dumps(n)} launches")
 
 
 def _check_k13_sweeps(rs, dev):
@@ -3978,9 +4115,9 @@ _EXACT_LAUNCHES = {
             "binary_step": 0},
     "c18": {"spline_prefilter": 3, "resample_fwd": 1,
             "spline_prefilter_transpose": 0, "resample_bwd": 0},
-    # c19: K14 once, K15's five rungs (_C19_CALLS), K16's and K17's sweeps
-    "c19": {"nearest_background": 1, "minplus_pass": 5, "chamfer_sweep": 48,
-            "watershed_sweep": 192}}
+    # c19: K14 once, K15's five rungs (_C19_CALLS; K16's and K17's
+    # launches, which their plans set, are held there per route)
+    "c19": {"nearest_background": 1, "minplus_pass": 5}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
 # (3^3 median and the 33-tap percentile on the network tile, the 5^3
@@ -4010,7 +4147,8 @@ _C17_PACKS = {"opening": (2, 2), "fill_holes": (2, 1),
 # the CDT's K16 sweeps and the watershed's K17 sweeps (multiples of
 # SWEEPS_PER_CHECK), as the runs on the card counted them (the
 # transforms' the same on 80 slices and on the whole volume; the
-# watershed's on 48 slices as c19_cut.py counted them on the CPU)
+# watershed's on 48 slices as c19_cut.py counted them on the CPU); K16's
+# and K17's launches per route follow from their plans (_c19_calls)
 _C19_CALLS = {"edt": {"nearest_background": 1, "minplus_w16": 2,
                       "minplus_w64": 2, "minplus_dense": 1},
               "cdt": {"chamfer_sweeps": 48},
@@ -4107,13 +4245,39 @@ def _k13_counts():
 
 
 def _dist_counts():
-    """K14-K17's launches and K15's per rung (``w16``, ``w64``,
-    ``dense``); K16's and K17's launches are their sweeps."""
+    """K14-K17's launches, K15's per rung (``w16``, ``w64``, ``dense``),
+    K16's and K17's sweeps and their launches per route (a tree before the
+    tile route ran one sweep a launch on the sweep route: :func:`times_ab`
+    runs c19 there too)."""
     from elasticdeform_tpu_torch.ops import distance as ds
-    return {"nearest_background": ds.nearest_background.launches,
-            **{f"minplus_{k}": v for k, v in ds.minplus_rung.rungs.items()},
-            "chamfer_sweeps": ds.chamfer_sweep.launches,
-            "watershed_sweeps": ds.watershed_sweep.launches}
+    out = {"nearest_background": ds.nearest_background.launches,
+           **{f"minplus_{k}": v for k, v in ds.minplus_rung.rungs.items()}}
+    for name, w in (("chamfer", ds.chamfer_sweep),
+                    ("watershed", ds.watershed_sweep)):
+        out[f"{name}_sweeps"] = getattr(w, "sweeps", w.launches)
+        for r, v in getattr(w, "routes", {"sweep": w.launches}).items():
+            out[f"{name}_{r}_launches"] = v
+    return out
+
+
+def _c19_calls(cfg):
+    """c19's launches per call: :data:`_C19_CALLS`, and K16's and K17's
+    launches on the tile route, a group of eight sweeps in launches of
+    their plans' ``k`` and the rest."""
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    m, img, _ = cfg.inputs
+    cross3 = mo.generate_binary_structure(3, 1)
+    out = {name: dict(c) for name, c in _C19_CALLS.items()}
+    for name, shape, words, nbytes in (("chamfer", m.shape, 2, 0),
+                                       ("watershed", img.shape, 3,
+                                        img.itemsize)):
+        plan = mo.relax_taps(cross3, shape).plan(words, nbytes,
+                                                 mo.SWEEPS_PER_CHECK)
+        call = "cdt" if name == "chamfer" else "watershed"
+        groups = out[call][f"{name}_sweeps"] // mo.SWEEPS_PER_CHECK
+        out[call][f"{name}_{plan.route}_launches"] = groups * -(
+            -mo.SWEEPS_PER_CHECK // plan.k)
+    return out
 
 
 def _writeback_counts():
@@ -4138,6 +4302,8 @@ def _reset_counts():
                     getattr(w, attr)[route] = 0
     mo.binary_step.sweeps = mo.pack_bits.launches = 0
     mo.unpack_bits.launches = 0
+    from elasticdeform_tpu_torch.ops import distance as ds
+    ds.chamfer_sweep.sweeps = ds.watershed_sweep.sweeps = 0
 
 
 def _route_counts():
@@ -4149,18 +4315,27 @@ def _route_counts():
 
 
 def _check_c19(configs):
-    """c19's K15 rungs and K16 and K17 sweeps per call, printed and held
-    to :data:`_C19_CALLS`."""
+    """c19's K15 rungs, K16 and K17 sweeps and their launches per route per
+    call, printed and held to :func:`_c19_calls`; K16 and K17 must run in
+    fewer launches than sweeps."""
     for cfg in configs:
         if cfg.name != "c19":
             continue
-        print(f"c19 K14 launches, K15 launches per rung and K16 and K17 "
-              f"sweeps per call: {json.dumps(cfg.calls)}")
+        print(f"c19 K14 launches, K15 launches per rung, K16 and K17 "
+              f"sweeps and launches per route per call: "
+              f"{json.dumps(cfg.calls)}")
         got = {name: {k: v for k, v in c.items() if v}
                for name, c in cfg.calls.items()}
-        if got != _C19_CALLS:
+        want = _c19_calls(cfg)
+        if got != want:
             raise AssertionError(f"c19: launches per call {got}, not "
-                                 f"{_C19_CALLS}")
+                                 f"{want}")
+        for call, name in (("cdt", "chamfer"), ("watershed", "watershed")):
+            c = got[call]
+            if c.get(f"{name}_tile_launches", 0) >= c[f"{name}_sweeps"]:
+                raise AssertionError(f"c19 {call}: {c}, not fewer "
+                                     "launches than sweeps on the tile "
+                                     "route")
 
 
 def _against_cpu(configs, outs):
@@ -5627,52 +5802,141 @@ def _times_distance(row, card, cfg19):
         extra={"rung_kept": {f"axis {a}": w for a, w in tried.items()},
                "per_rung_ms": per_rung, "device_ms": _device_ms(passes)})
 
-    # K16: one sweep reads d and ix and writes them; a call reads the mask
-    # and writes d and ix
+    # K16 and K17 on the plan's route and k (one launch of k sweeps reads
+    # the state and writes it), on the sweep route, per call, and the A/B
+    # over k and tiles that confirms the plan
     cross = mo.generate_binary_structure(3, 1)
     taps = mo.relax_taps(cross, m.shape)
-    d0 = torch.where(m, mo.RELAX_BIG, 0).to(torch.int32)
-    ix0 = torch.arange(N, dtype=torch.int32, device=dev).reshape(m.shape)
-    neg = -d0.to(torch.float32)[None]
-    sweep = lambda: ds.chamfer_sweep(d0, ix0, taps)  # noqa: E731
-    call = lambda: ds.cdt_core(m, cross, True)  # noqa: E731
-    before = ds.chamfer_sweep.launches
-    call()
-    sweeps = ds.chamfer_sweep.launches - before
-    call_ms = _time_ms(call, reps=5, warmup=1)
-    row("chamfer_sweep", "distance.cu",
-        "elasticdeform_tpu/ops/distance.py:343", _time_ms(sweep),
-        _time_ms(lambda: ds.chamfer_sweep_plain(d0, ix0, taps.offs)),
-        _bound(4 * 4 * N, 0), _time_ms(
-            lambda: F.max_pool3d(neg, 3, 1, 1)), 0.0,
-        at="c19 one taxicab sweep with indices (library: a chessboard "
-           "sweep without indices)",
-        extra={"device_ms": _device_ms(sweep), "call_ms": call_ms,
-               "call_bound_ms": _bound(N * (1 + 8), 0)[0],
-               "sweeps_per_call": sweeps})
 
-    # K17: one sweep reads the image and the triples and writes the
-    # triples; a call reads the image and the markers and writes labels
+    def cdt_state():
+        return (torch.where(m, mo.RELAX_BIG, 0).to(torch.int32),
+                torch.arange(N, dtype=torch.int32, device=dev).reshape(
+                    m.shape))
+    neg = -cdt_state()[0].to(torch.float32)[None]
+    _times_relax(
+        row, "chamfer_sweep", taps, 2, 0, cdt_state,
+        lambda plan: ds.chamfer_sweeper(*cdt_state(), taps, plan),
+        lambda st: ds.chamfer_sweep_plain(*st, taps.offs),
+        lambda: ds.cdt_core(m, cross, True), 16 * N, N * (1 + 8),
+        _time_ms(lambda: F.max_pool3d(neg, 3, 1, 1)),
+        "elasticdeform_tpu/ops/distance.py:343",
+        f"c19 taxicab with indices, {tuple(m.shape)} (library: a "
+        "chessboard sweep without indices, -max_pool3d(-d))")
+
     taps = mo.relax_taps(cross, img.shape)
-    seeded = mk != 0
-    state = (torch.where(seeded, img.to(torch.int32), mo.RELAX_BIG).to(
-        torch.int32), torch.where(seeded, 0, mo.RELAX_BIG).to(torch.int32),
-        mk)
     Nw = img.numel()
-    sweep = lambda: ds.watershed_sweep(img, *state, taps)  # noqa: E731
-    call = lambda: mo.watershed_ift(img, mk)  # noqa: E731
-    before = ds.watershed_sweep.launches
-    call()
-    sweeps = ds.watershed_sweep.launches - before
-    call_ms = _time_ms(call, reps=5, warmup=1)
-    row("watershed_sweep", "distance.cu",
-        "elasticdeform_tpu/ops/morphology.py:571", _time_ms(sweep),
-        _time_ms(lambda: ds.watershed_sweep_plain(img, *state, taps.offs)),
-        _bound(Nw * (1 + 2 * 3 * 4), 0), None, 0.0,
-        at=f"c19 one sweep of the watershed, {tuple(img.shape)} uint8",
-        extra={"device_ms": _device_ms(sweep), "call_ms": call_ms,
-               "call_bound_ms": _bound(Nw * (1 + 4 + 4), 0)[0],
-               "sweeps_per_call": sweeps})
+
+    def ws_state():
+        seeded = mk != 0
+        return (torch.where(seeded, img.to(torch.int32), mo.RELAX_BIG).to(
+            torch.int32), torch.where(seeded, 0, mo.RELAX_BIG).to(
+            torch.int32), mk.clone())
+    _times_relax(
+        row, "watershed_sweep", taps, 3, 1, ws_state,
+        lambda plan: ds.watershed_sweeper(img, taps, plan),
+        lambda st: ds.watershed_sweep_plain(img, *st, taps.offs),
+        lambda: mo.watershed_ift(img, mk), 25 * Nw, Nw * (1 + 4 + 4), None,
+        "elasticdeform_tpu/ops/morphology.py:571",
+        f"c19 watershed of {tuple(img.shape)} uint8")
+
+
+# the tiles the A/B of K16's and K17's tile route tries at each k beside
+# the plan's (those that fit the shared memory)
+_RELAX_AB_TILES = ((2, 16, 32), (4, 8, 32), (4, 16, 32), (8, 8, 16),
+                   (8, 8, 32), (8, 16, 16), (8, 16, 32), (16, 8, 32),
+                   (16, 16, 16), (32, 8, 32))
+
+
+def _times_relax(row, name, taps, words, nbytes, start, sweeper_on, plain,
+                 call, launch_bytes, call_bytes, library_ms, replaces, at):
+    """Phase 4's row of K16 (``name`` ``"chamfer_sweep"``) or K17
+    (``"watershed_sweep"``) at c19, a state of ``words`` int32 words a
+    voxel and an image of ``nbytes``: one launch of the plan's ``k`` sweeps
+    of c19's start state (``start()``) in ms and on the device
+    (``torch.profiler``), per sweep, beside ``k`` sweeps of the twin
+    (``plain(state)``, one sweep), the launch's byte bound
+    (``launch_bytes``: the state read and written once) and ``library_ms``;
+    a call (``call``, the public path) in ms and on the device beside its
+    byte bound (``call_bytes``), its sweeps and launches per route; the
+    sweep route per sweep and per call; and the A/B of the tile route over
+    ``k`` = 1, 2, 4, 8 and the tiles of :data:`_RELAX_AB_TILES` beside each
+    ``k``'s plan: one launch and a call (the driver on that plan,
+    ``sweeper_on(plan)``) in ms, each call's result held to the public
+    call's bit for bit."""
+    import torch
+    from elasticdeform_tpu_torch.ops import distance as ds
+    from elasticdeform_tpu_torch.ops import morphology as mo
+    wrapper = getattr(ds, name)
+    dev = torch.device("cuda")
+    plan = taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK)
+    sweep_plan = taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK, "sweep")
+    state = start()
+
+    def lean(p):
+        """one launch of ``p.k`` sweeps into buffers allocated once"""
+        sweeps = sweeper_on(p)
+        out = tuple(None if t is None else torch.empty_like(t)
+                    for t in state)
+        return lambda: sweeps(state, p.k, None, out)
+
+    def driven(p):
+        return lambda: mo.relax_to_fixpoint(sweeper_on(p), start(), dev,
+                                            p.k)
+
+    def twin(k):
+        st = state
+        for _ in range(k):
+            st = plain(st)
+        return st
+
+    def result(out):
+        # the labels of the watershed's triples, the CDT's (d, ix)
+        return out[2] if len(out) == 3 else out
+    launch = lean(plan)
+    ms = _time_ms(launch)
+    dev_ms = _device_ms(launch)
+    routes0, sweeps0 = dict(wrapper.routes), wrapper.sweeps
+    want = call()
+    torch.cuda.synchronize()
+    per_call = {r: v - routes0[r] for r, v in wrapper.routes.items()}
+    sweeps = wrapper.sweeps - sweeps0
+    want = want if isinstance(want, tuple) else (want,)
+    ab = {}
+    for k in (1, 2, 4, 8):
+        tiles = [taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK, "tile",
+                           k).tile]
+        tiles += [t for t in _RELAX_AB_TILES if t not in tiles]
+        for t in tiles:
+            try:
+                p = taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK, "tile", k,
+                              t)
+            except ValueError:
+                continue
+            got = result(driven(p)())
+            got = got if isinstance(got, tuple) else (got,)
+            for g, w in zip(got, want):
+                _same(g.to(w.dtype), w, f"{name} A/B k={k} tile={t}")
+            ab[f"k={k} {t}"] = {
+                "launch_ms": _time_ms(lean(p), reps=5, warmup=1),
+                "call_ms": _time_ms(driven(p), reps=3, warmup=1),
+                "smem": p.smem, "blocks": p.blocks}
+    best = min(ab, key=lambda v: ab[v]["call_ms"])
+    row(name, "distance.cu", replaces, ms, _time_ms(lambda: twin(plan.k)),
+        _bound(launch_bytes, 0), library_ms, 0.0, at=at,
+        extra={"plan": {"route": plan.route, "k": plan.k,
+                        "tile": plan.tile, "box": plan.box,
+                        "smem": plan.smem, "blocks": plan.blocks},
+               "per_sweep_ms": ms / plan.k, "device_ms": dev_ms,
+               "device_ms_per_sweep": dev_ms / plan.k,
+               "call_ms": _time_ms(call, reps=5, warmup=1),
+               "call_device_ms": _device_ms(call, calls=3),
+               "call_bound_ms": _bound(call_bytes, 0)[0],
+               "sweeps_per_call": sweeps, "launches_per_call": per_call,
+               "sweep_route_ms": _time_ms(lean(sweep_plan)),
+               "sweep_route_device_ms": _device_ms(lean(sweep_plan)),
+               "sweep_route_call_ms": _time_ms(driven(sweep_plan), reps=3,
+                                               warmup=1),
+               "ab_best": best, "ab": ab})
 
 
 def _times_morphology(row, card, k13=None):
@@ -6265,8 +6529,8 @@ def times_ab(card, reps=REPS):
     (:func:`_times_ab_k10`), K3 and K3c
     (:func:`_times_ab_k3`: with K5 and K5c and ``grid_sampler_3d_backward``'s
     halves), P2 and K13
-    (:func:`_times_ab_p2_k13`), and every config c1-c17
-    whole, in ms (CUDA events, median of ``reps``); and the digest of K6's
+    (:func:`_times_ab_p2_k13`), and every config c1-c19
+    whole, K16's and K17's calls at c19 (:func:`_times_ab_relax`), in ms (CUDA events, median of ``reps``); and the digest of K6's
     outputs over a sweep (:func:`_k6_digest`). It calls only the package's
     public wrappers and configs, so it also times an older tree's package,
     one process per tree, in one call to the card. Prints one line ``ab: {json}`` and
@@ -6387,7 +6651,27 @@ def times_ab(card, reps=REPS):
         if cfg.name == "c19" and not hasattr(et, "watershed_ift"):
             continue   # a tree before the distance transforms
         out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
+        if cfg.name == "c19":
+            out.update(_times_ab_relax(cfg, reps))
     print(f"ab: {json.dumps(out)} [{card}]")
+    return out
+
+
+def _times_ab_relax(cfg19, reps):
+    """K16's and K17's calls at c19 through the public API: the taxicab CDT
+    with indices of c19's mask and the watershed of its gradient, ms (CUDA
+    events) and device ms (``torch.profiler``) per call."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    m, img, mk = (torch.as_tensor(a, device="cuda") for a in cfg19.inputs)
+    out = {}
+    for label, fn in (
+            ("K16_call_c19", lambda: et.distance_transform_cdt(
+                m, metric="taxicab", return_indices=True, device="cuda")),
+            ("K17_call_c19", lambda: et.watershed_ift(img, mk,
+                                                      device="cuda"))):
+        out[label] = _time_ms(fn, reps)
+        out[f"{label}_device"] = _device_ms(fn, calls=3)
     return out
 
 

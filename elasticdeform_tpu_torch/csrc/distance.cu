@@ -31,36 +31,75 @@
 // K16 replaces distance.py:343-379, a Jacobi sweep of cdt_core: d <- min(d,
 // d(u) + 1) over the structure's neighbours u in raster order (the centre
 // dropped), a strict <, carrying the winner's raveled index; K17 replaces
-// morphology.py:571-592, a Jacobi sweep of watershed_ift: a labelled
+// morphology.py:571-596, a Jacobi sweep of watershed_ift: a labelled
 // neighbour u offers (max(c(u), x), s(u) + 1, l(u)), and the
 // lexicographically smallest triple wins, strictly. Both read only the
 // previous sweep's state and write a second buffer, so the fixpoint and the
 // indices are those of the reference's sweeps; a neighbour beyond the edge
 // takes no part (the reference's pad never wins). *changed is set when a
-// voxel of the sweep changed; the host zeroes it before the 8th sweep of a
-// group and reads it after (the schedule of K13's driver). One thread a
-// voxel in raster order; per voxel a bit mask of the axes where it sits on
-// the low and the high edge; a tap is a linear offset and the masks of the
-// axes it steps down and up along, so it is skipped where it would leave
-// the array. No shared memory: the neighbours' reuse is served by L1 and
-// L2.
+// voxel of the (last) sweep changed; the host zeroes it before the 8th sweep
+// of a group and reads it after (the schedule of K13's driver). Two routes:
+//
+//   tile  (1-3 axes, leading axes of 1 added): chamfer_tile_kernel and
+//         watershed_tile_kernel run k <= 8 sweeps in one launch. A block
+//         owns a tile and stages its halo box, the tile widened by k
+//         reaches on each axis and clamped to the array, into shared memory
+//         once with cp.async (K17's image beside its state, once); sweep j
+//         computes the tile widened by the k - 1 - j reaches still to come,
+//         reading one buffer and writing the other, so it reads only sweep
+//         j - 1's values (or the staged ones), and only the tile goes back
+//         to device memory. A region voxel on the box's edge is on the
+//         array's edge (an unclamped box reaches one reach past every
+//         region), so a voxel's edge bits come from its box coordinates,
+//         with no division chain. The flag is the last sweep's, over the
+//         tile; tiles partition the array, so the blocks' votes make the
+//         flag of the sweep. The result is k sweeps of the plain twin bit
+//         for bit (no Gauss-Seidel, no block-local fixpoint: watershed order
+//         and the carried indices depend on the sweep history).
+//   sweep (more than three axes, or no box within the shared memory):
+//         chamfer_sweep_kernel and watershed_sweep_kernel, one sweep a
+//         launch, one thread a voxel in raster order; per voxel a bit mask
+//         of the axes where it sits on the low and the high edge (a chain of
+//         divisions); a tap is a linear offset and the masks of the axes it
+//         steps down and up along, so it is skipped where it would leave the
+//         array. No shared memory: the neighbours' reuse is served by L1
+//         and L2.
 //
 // Bound on the H100, each input read once and each output written once
 // over 3.35 TB/s: K14 the mask and f (and the feature planes); K15 g, the
-// feature planes in and out and f out, per pass; K16 and K17 the call's
-// input and result, not per sweep, so their sweeps (about one per voxel of
-// the longest path) stand far above it: a sweep reads the state and its
-// neighbours and writes the state. Every kernel copies values or adds and
-// compares in the order of its plain twin, built without contraction
-// (--fmad=false), so it agrees with ops/distance.py and
-// ops/morphology.py's twins bit for bit.
+// feature planes in and out and f out, per pass. A launch of K16 or K17
+// reads the state (K16 d and ix, 8 bytes a voxel; K17 the image and the
+// triples, 13) and writes it (8; 12): at c19 0.0164 and 0.0154 ms a launch
+// on the sweep route. A call's bound is its input and result alone (the
+// mask, d and ix; the image, markers and labels), 0.0092 and 0.0055 ms,
+// while a call runs 48 and 192 sweeps (about one per voxel of the longest
+// path). The tile route pays the state's bytes once for k sweeps, and the
+// box's re-staged halo; its sweeps read their neighbours from shared memory
+// (K17 at most 4 + 3 per tap words a voxel, K16 2 + 1), so the shared
+// memory's bandwidth and the box's wider regions bound it, which the plan
+// (ops/distance.py::relax_plan) weighs against the launches saved. Every
+// kernel copies values or adds and compares in the order of its plain twin,
+// built without contraction (--fmad=false), so it agrees with
+// ops/distance.py and ops/morphology.py's twins bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+#include "tile_index.cuh"
+
 #define ED_DIST_MAXD 8
 #define ED_DIST_THREADS 256
 #define ED_DIST_BLOCKS 4096
+// K16's and K17's tile route: threads a block and the blocks an SM the
+// registers are sized for (64 a thread; the boxes' shared memory may allow
+// fewer), sweeps a launch, taps of a 3^3 structure (the centre dropped), a
+// block's shared memory on the H100
+#define ED_RELAX_THREADS 256
+#define ED_RELAX_BLOCKS 4
+#define ED_RELAX_MAXK 8
+#define ED_RELAX_MAXTAPS 26
+#define ED_SMEM_LIMIT 232448
 
 namespace {
 
@@ -268,6 +307,377 @@ watershed_sweep_kernel(const X* __restrict__ img, const int* __restrict__ c,
   if (changed) block_flag(changed, any);
 }
 
+// ---------------------------------------------------------------------------
+// K16 and K17's tile route
+
+// a launch of the tile route: the array as (nz, ny, nx) (leading axes of 1
+// added), the tile, the tiles per axis, a sweep's reach per axis (0 or 1),
+// the sweeps k, the largest box's voxels (the buffers' stride), whether a
+// tap steps along z alone (its neighbour then comes from a thread's
+// registers) and the taps as codes (oz + 1) * 9 + (oy + 1) * 3 + (ox + 1)
+// in raster order
+struct RelaxTile {
+  int nz, ny, nx;
+  int tz, ty, tx;
+  int gz, gy, gx;
+  int rz, ry, rx;
+  int k, cap, zreg, ntaps;
+  int code[ED_RELAX_MAXTAPS];
+};
+
+// a block's tile [z0, z1) x [y0, y1) x [x0, x1) and its box, origin (Z0,
+// Y0, X0) and extents (BZ, BY, BX)
+struct RelaxBox {
+  int z0, z1, y0, y1, x0, x1;
+  int Z0, Y0, X0, BZ, BY, BX;
+};
+
+// a tap's mask: bits 0-2 it steps down along z, y, x, bits 8-10 up (it is
+// skipped where a voxel's edge bits meet them); ED_ZPREV / ED_ZNEXT it steps
+// along z alone, down or up, and reads a thread's registers
+#define ED_ZPREV (1u << 16)
+#define ED_ZNEXT (1u << 17)
+
+// the block's tile and box; its taps as box offsets and masks; the
+// divisors of each sweep's region rows (slot j) and of the box's rows and
+// planes (slots k, k + 1)
+__device__ __forceinline__ RelaxBox relax_setup(const RelaxTile& p,
+                                               int* toff, unsigned* tmask,
+                                               FastDiv* divs) {
+  RelaxBox b;
+  int t = blockIdx.x;
+  const int tix = t % p.gx;
+  t /= p.gx;
+  const int tiy = t % p.gy;
+  const int tiz = t / p.gy;
+  b.z0 = tiz * p.tz;
+  b.z1 = min(b.z0 + p.tz, p.nz);
+  b.y0 = tiy * p.ty;
+  b.y1 = min(b.y0 + p.ty, p.ny);
+  b.x0 = tix * p.tx;
+  b.x1 = min(b.x0 + p.tx, p.nx);
+  int Z1, Y1, X1;
+  widen(b.z0, b.z1, p.k * p.rz, p.nz, &b.Z0, &Z1);
+  widen(b.y0, b.y1, p.k * p.ry, p.ny, &b.Y0, &Y1);
+  widen(b.x0, b.x1, p.k * p.rx, p.nx, &b.X0, &X1);
+  b.BZ = Z1 - b.Z0;
+  b.BY = Y1 - b.Y0;
+  b.BX = X1 - b.X0;
+  for (int j = threadIdx.x; j < p.ntaps; j += blockDim.x) {
+    const int code = p.code[j];
+    const int oz = code / 9 - 1, oy = code / 3 % 3 - 1, ox = code % 3 - 1;
+    toff[j] = (oz * b.BY + oy) * b.BX + ox;
+    tmask[j] = (unsigned)(oz < 0) | (unsigned)(oy < 0) << 1 |
+               (unsigned)(ox < 0) << 2 | (unsigned)(oz > 0) << 8 |
+               (unsigned)(oy > 0) << 9 | (unsigned)(ox > 0) << 10 |
+               (oy == 0 && ox == 0 ? (oz < 0 ? ED_ZPREV : ED_ZNEXT) : 0u);
+  }
+  for (int j = threadIdx.x; j < p.k + 2; j += blockDim.x) {
+    int lo, hi;
+    if (j < p.k) {
+      widen(b.x0, b.x1, (p.k - 1 - j) * p.rx, p.nx, &lo, &hi);
+      divs[j] = make_div(hi - lo);
+    } else {
+      divs[j] = make_div(j == p.k ? b.BX : b.BY);
+    }
+  }
+  return b;
+}
+
+// a sweep's region: the tile widened by `left` reaches and clamped to the
+// array, in box coordinates: planes [bz0, bz1), rows [by0, by0 + RY),
+// columns [bx0, bx0 + RX)
+struct RelaxRegion {
+  int bz0, bz1, by0, bx0, RY, RX;
+};
+
+__device__ __forceinline__ RelaxRegion relax_region(const RelaxTile& p,
+                                                   const RelaxBox& b,
+                                                   int left) {
+  RelaxRegion r;
+  int z0, z1, y0, y1, x0, x1;
+  widen(b.z0, b.z1, left * p.rz, p.nz, &z0, &z1);
+  widen(b.y0, b.y1, left * p.ry, p.ny, &y0, &y1);
+  widen(b.x0, b.x1, left * p.rx, p.nx, &x0, &x1);
+  r.bz0 = z0 - b.Z0;
+  r.bz1 = z1 - b.Z0;
+  r.by0 = y0 - b.Y0;
+  r.bx0 = x0 - b.X0;
+  r.RY = y1 - y0;
+  r.RX = x1 - x0;
+  return r;
+}
+
+// the array index of the box voxel (bz, by, bx)
+__device__ __forceinline__ unsigned array_index(const RelaxTile& p,
+                                                const RelaxBox& b, int bz,
+                                                int by, int bx) {
+  return ((unsigned)(b.Z0 + bz) * (unsigned)p.ny + (unsigned)(b.Y0 + by)) *
+             (unsigned)p.nx + (unsigned)(b.X0 + bx);
+}
+
+// the array index of the i-th voxel of the block's box (its index in the
+// box is i)
+__device__ __forceinline__ unsigned box_voxel(const RelaxTile& p,
+                                              const RelaxBox& b, int i,
+                                              const FastDiv& dx,
+                                              const FastDiv& dy) {
+  const unsigned q = div_by((unsigned)i, dx);
+  const int x = i - (int)(q * (unsigned)b.BX);
+  const unsigned zq = div_by(q, dy);
+  const int y = (int)(q - zq * (unsigned)b.BY);
+  return array_index(p, b, (int)zq, y, x);
+}
+
+// A sweep's thread owns a column of its region along z, (by, bx) fixed,
+// and walks its planes: the voxel's own state and its neighbours up and
+// down z ride in registers from plane to plane, the other taps read the
+// box. The last sweep writes the tile to device memory. NT > 0 fixes the
+// tap count at compile time (the cross and the full structure of 2 and 3
+// axes), so the tap loop unrolls and, up to 8 taps, each tap's offset and
+// mask sit in registers; NT = 0 loops over p.ntaps.
+template <int NT>
+struct TapRegs {
+  static constexpr bool kRegs = NT > 0 && NT <= 8;
+  int off[kRegs ? NT : 1];
+  unsigned msk[kRegs ? NT : 1];
+  __device__ __forceinline__ void load(const int* toff,
+                                       const unsigned* tmask) {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        off[t] = toff[t];
+        msk[t] = tmask[t];
+      }
+    }
+  }
+  __device__ __forceinline__ int o(const int* toff, int t) const {
+    if constexpr (kRegs) return off[t];
+    return toff[t];
+  }
+  __device__ __forceinline__ unsigned m(const unsigned* tmask, int t) const {
+    if constexpr (kRegs) return msk[t];
+    return tmask[t];
+  }
+};
+
+// K16: k sweeps of the chamfer relaxation on the block's box. Shared
+// memory: d, then (IX) ix, then the second buffer's d and ix, each p.cap
+// ints.
+template <bool IX, int NT>
+__global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
+chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
+                    int* __restrict__ d_out, int* __restrict__ ix_out,
+                    const RelaxTile p, int* changed) {
+  extern __shared__ int ed_relax_smem[];
+  __shared__ int toff[ED_RELAX_MAXTAPS];
+  __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
+  __shared__ FastDiv divs[ED_RELAX_MAXK + 2];
+  const RelaxBox b = relax_setup(p, toff, tmask, divs);
+  // buffer j at ed_relax_smem + j * words * p.cap (a pointer array indexed
+  // at run time would live on the stack)
+  const int words = IX ? 2 : 1;
+  __syncthreads();
+  {
+    const int nbox = b.BZ * b.BY * b.BX;
+    const FastDiv dx = divs[p.k], dy = divs[p.k + 1];
+    for (int i = threadIdx.x; i < nbox; i += blockDim.x) {
+      const unsigned g = box_voxel(p, b, i, dx, dy);
+      stage_async(ed_relax_smem + i, d + g);
+      if (IX) stage_async(ed_relax_smem + p.cap + i, ix + g);
+    }
+    stage_wait();
+  }
+  TapRegs<NT> tr;
+  tr.load(toff, tmask);
+  __syncthreads();
+
+  const int plane = b.BY * b.BX;
+  const unsigned gplane = (unsigned)p.ny * (unsigned)p.nx;
+  bool flag = false;
+  for (int s = 0; s < p.k; ++s) {
+    const int left = p.k - 1 - s;
+    const RelaxRegion r = relax_region(p, b, left);
+    const int* di = ed_relax_smem + (s & 1) * words * p.cap;
+    const int* xi = di + p.cap;
+    int* dn = ed_relax_smem + ((s & 1) ^ 1) * words * p.cap;
+    int* xn = dn + p.cap;
+    const FastDiv dr = divs[s];
+    const int npos = r.RY * r.RX;
+    for (int pos = threadIdx.x; pos < npos; pos += blockDim.x) {
+      const unsigned yq = div_by((unsigned)pos, dr);
+      const int bx = pos - (int)(yq * (unsigned)r.RX) + r.bx0;
+      const int by = (int)yq + r.by0;
+      const unsigned eyx = (unsigned)(by == 0) << 1 |
+                           (unsigned)(bx == 0) << 2 |
+                           (unsigned)(by == b.BY - 1) << 9 |
+                           (unsigned)(bx == b.BX - 1) << 10;
+      int at = (r.bz0 * b.BY + by) * b.BX + bx;
+      unsigned g = array_index(p, b, r.bz0, by, bx);
+      int dp = 0, dc = di[at], dq = 0;
+      if (p.zreg && r.bz0 > 0) dp = di[at - plane];
+      for (int bz = r.bz0; bz < r.bz1; ++bz, at += plane, g += gplane) {
+        if (bz + 1 < b.BZ) dq = di[at + plane];
+        const unsigned edges =
+            eyx | (unsigned)(bz == 0) | (unsigned)(bz == b.BZ - 1) << 8;
+        int best = dc;
+        int bu = -1;
+#pragma unroll(NT > 0 ? NT : 1)
+        for (int t = 0; t < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++t) {
+          if (NT == 0 && t >= p.ntaps) break;
+          const unsigned m = tr.m(tmask, t);
+          if (m & edges) continue;
+          const int u = at + tr.o(toff, t);
+          const int c =
+              (m & ED_ZPREV ? dp : m & ED_ZNEXT ? dq : di[u]) + 1;
+          if (c < best) {
+            best = c;
+            bu = u;
+          }
+        }
+        const int bix = IX ? xi[bu < 0 ? at : bu] : 0;
+        if (left == 0) {
+          d_out[g] = best;
+          if (IX) ix_out[g] = bix;
+          if (best != dc) flag = true;
+        } else {
+          dn[at] = best;
+          if (IX) xn[at] = bix;
+        }
+        dp = dc;
+        dc = dq;
+      }
+    }
+    if (left) __syncthreads();
+  }
+  if (changed) block_flag(changed, flag);
+}
+
+// K17: k sweeps of the watershed relaxation on the block's box. Shared
+// memory: (c, s) pairs (p.cap int2), then l (p.cap ints; p.cap is even, so
+// the pairs stay 8-byte aligned), then the second buffer's; the image is
+// read from device memory (a byte or two a voxel, cached).
+template <typename X, int NT>
+__global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
+watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
+                      const int* __restrict__ s, const int* __restrict__ l,
+                      int* __restrict__ c_out, int* __restrict__ s_out,
+                      int* __restrict__ l_out, const RelaxTile p,
+                      int* changed) {
+  extern __shared__ int ed_relax_smem[];
+  __shared__ int toff[ED_RELAX_MAXTAPS];
+  __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
+  __shared__ FastDiv divs[ED_RELAX_MAXK + 2];
+  const RelaxBox b = relax_setup(p, toff, tmask, divs);
+  // buffer j: pairs at ed_relax_smem + 3 j p.cap, labels 2 p.cap ints on
+  __syncthreads();
+  {
+    const int nbox = b.BZ * b.BY * b.BX;
+    const FastDiv dx = divs[p.k], dy = divs[p.k + 1];
+    int2* cs = reinterpret_cast<int2*>(ed_relax_smem);
+    int* ls = ed_relax_smem + 2 * p.cap;
+    for (int i = threadIdx.x; i < nbox; i += blockDim.x) {
+      const unsigned g = box_voxel(p, b, i, dx, dy);
+      stage_async(&cs[i].x, c + g);
+      stage_async(&cs[i].y, s + g);
+      stage_async(ls + i, l + g);
+    }
+    stage_wait();
+  }
+  TapRegs<NT> tr;
+  tr.load(toff, tmask);
+  __syncthreads();
+
+  const int plane = b.BY * b.BX;
+  const unsigned gplane = (unsigned)p.ny * (unsigned)p.nx;
+  bool flag = false;
+  for (int sw = 0; sw < p.k; ++sw) {
+    const int left = p.k - 1 - sw;
+    const RelaxRegion r = relax_region(p, b, left);
+    const int2* ci = reinterpret_cast<const int2*>(ed_relax_smem +
+                                                    3 * (sw & 1) * p.cap);
+    const int* li = ed_relax_smem + 3 * (sw & 1) * p.cap + 2 * p.cap;
+    int2* cn = reinterpret_cast<int2*>(ed_relax_smem +
+                                       3 * ((sw & 1) ^ 1) * p.cap);
+    int* ln = ed_relax_smem + 3 * ((sw & 1) ^ 1) * p.cap + 2 * p.cap;
+    const FastDiv dr = divs[sw];
+    const int npos = r.RY * r.RX;
+    for (int pos = threadIdx.x; pos < npos; pos += blockDim.x) {
+      const unsigned yq = div_by((unsigned)pos, dr);
+      const int bx = pos - (int)(yq * (unsigned)r.RX) + r.bx0;
+      const int by = (int)yq + r.by0;
+      const unsigned eyx = (unsigned)(by == 0) << 1 |
+                           (unsigned)(bx == 0) << 2 |
+                           (unsigned)(by == b.BY - 1) << 9 |
+                           (unsigned)(bx == b.BX - 1) << 10;
+      int at = (r.bz0 * b.BY + by) * b.BX + bx;
+      unsigned g = array_index(p, b, r.bz0, by, bx);
+      // the column's (cost, steps) and label one plane down (p), here (h)
+      // and up (q)
+      int2 pv = make_int2(0, 0), qv = make_int2(0, 0);
+      int pl = 0, ql = 0;
+      int2 hv = ci[at];
+      int hl = li[at];
+      if (p.zreg && r.bz0 > 0) {
+        pv = ci[at - plane];
+        pl = li[at - plane];
+      }
+      for (int bz = r.bz0; bz < r.bz1; ++bz, at += plane, g += gplane) {
+        if (bz + 1 < b.BZ) {
+          qv = ci[at + plane];
+          ql = li[at + plane];
+        }
+        const unsigned edges =
+            eyx | (unsigned)(bz == 0) | (unsigned)(bz == b.BZ - 1) << 8;
+        const int x = (int)__ldg(img + g);
+        int nc = hv.x, ns = hv.y, nl = hl;
+#pragma unroll(NT > 0 ? NT : 1)
+        for (int t = 0; t < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++t) {
+          if (NT == 0 && t >= p.ntaps) break;
+          const unsigned m = tr.m(tmask, t);
+          if (m & edges) continue;
+          int2 uv;
+          int ul;
+          if (m & ED_ZPREV) {
+            uv = pv;
+            ul = pl;
+          } else if (m & ED_ZNEXT) {
+            uv = qv;
+            ul = ql;
+          } else {
+            const int u = at + tr.o(toff, t);
+            uv = ci[u];
+            ul = li[u];
+          }
+          const int cc = uv.x > x ? uv.x : x;
+          const int cs = uv.y + 1;
+          if (ul != 0 &&
+              (cc < nc || (cc == nc && (cs < ns || (cs == ns && ul < nl))))) {
+            nc = cc;
+            ns = cs;
+            nl = ul;
+          }
+        }
+        if (left == 0) {
+          c_out[g] = nc;
+          s_out[g] = ns;
+          l_out[g] = nl;
+          if (nc != hv.x || ns != hv.y || nl != hl) flag = true;
+        } else {
+          cn[at] = make_int2(nc, ns);
+          ln[at] = nl;
+        }
+        pv = hv;
+        pl = hl;
+        hv = qv;
+        hl = ql;
+      }
+    }
+    if (left) __syncthreads();
+  }
+  if (changed) block_flag(changed, flag);
+}
+
 bool make_dims(int ndim, const long long* shape, Dims* dm,
                long long* total) {
   if (ndim < 1 || ndim > ED_DIST_MAXD) return false;
@@ -282,6 +692,116 @@ bool make_dims(int ndim, const long long* shape, Dims* dm,
   }
   *total = t;
   return true;
+}
+
+// a tile launch's geometry from the host's `args` (nz, ny, nx, tz, ty, tx,
+// k, ntaps, then the ntaps tap codes) for a state of `words` int32 words a
+// voxel; its shared bytes and blocks. False on a malformed launch.
+bool make_tile(const int* args, int words, RelaxTile* p, long long* smem,
+               long long* blocks) {
+  if (args == nullptr) return false;
+  p->nz = args[0];
+  p->ny = args[1];
+  p->nx = args[2];
+  p->tz = args[3];
+  p->ty = args[4];
+  p->tx = args[5];
+  p->k = args[6];
+  p->ntaps = args[7];
+  if (p->nz < 1 || p->ny < 1 || p->nx < 1 || p->tz < 1 || p->ty < 1 ||
+      p->tx < 1 || p->k < 1 || p->k > ED_RELAX_MAXK || p->ntaps < 0 ||
+      p->ntaps > ED_RELAX_MAXTAPS ||
+      (long long)p->nz * p->ny * p->nx >= (1LL << 31))
+    return false;
+  p->rz = p->ry = p->rx = p->zreg = 0;
+  for (int t = 0; t < ED_RELAX_MAXTAPS; ++t) {
+    const int code = t < p->ntaps ? args[8 + t] : 13;
+    if (code < 0 || code > 26 || (t < p->ntaps && code == 13)) return false;
+    p->code[t] = code;
+    p->rz |= code / 9 != 1;
+    p->ry |= code / 3 % 3 != 1;
+    p->rx |= code % 3 != 1;
+    p->zreg |= code == 4 || code == 22;
+  }
+  const long long n[3] = {p->nz, p->ny, p->nx};
+  const long long t[3] = {p->tz, p->ty, p->tx};
+  const long long r[3] = {p->rz, p->ry, p->rx};
+  long long cap = 1, g[3];
+  for (int a = 0; a < 3; ++a) {
+    const long long box = t[a] + 2LL * p->k * r[a];
+    cap *= box < n[a] ? box : n[a];
+    g[a] = (n[a] + t[a] - 1) / t[a];
+  }
+  cap += cap & 1;  // K17's (cost, steps) pairs stay 8-byte aligned
+  p->gz = (int)g[0];
+  p->gy = (int)g[1];
+  p->gx = (int)g[2];
+  p->cap = (int)cap;
+  *smem = cap * 2LL * words * 4;
+  *blocks = g[0] * g[1] * g[2];
+  return true;
+}
+
+template <bool IX, int NT>
+cudaError_t launch_chamfer_tile(const int* d, const int* ix, int* d_out,
+                                int* ix_out, const RelaxTile& p, int smem,
+                                unsigned blocks, int* changed,
+                                cudaStream_t st) {
+  static int allowed = 0;
+  const cudaError_t err =
+      allow_smem(chamfer_tile_kernel<IX, NT>, &allowed, smem);
+  if (err != cudaSuccess) return err;
+  chamfer_tile_kernel<IX, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
+      d, ix, d_out, ix_out, p, changed);
+  return cudaGetLastError();
+}
+
+template <typename X, int NT>
+cudaError_t launch_watershed_tile(const void* img, const int* c,
+                                  const int* s, const int* l, int* c_out,
+                                  int* s_out, int* l_out, const RelaxTile& p,
+                                  int smem, unsigned blocks, int* changed,
+                                  cudaStream_t st) {
+  static int allowed = 0;
+  const cudaError_t err =
+      allow_smem(watershed_tile_kernel<X, NT>, &allowed, smem);
+  if (err != cudaSuccess) return err;
+  watershed_tile_kernel<X, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
+      static_cast<const X*>(img), c, s, l, c_out, s_out, l_out, p, changed);
+  return cudaGetLastError();
+}
+
+// the tap counts with an unrolled instantiation: the cross and the full
+// structure of 2 and 3 axes (1 for the others)
+#define ED_RELAX_NT(F, n, ...)                                    \
+  ((n) == 4    ? F<4>(__VA_ARGS__)                                \
+   : (n) == 6  ? F<6>(__VA_ARGS__)                                \
+   : (n) == 8  ? F<8>(__VA_ARGS__)                                \
+   : (n) == 26 ? F<26>(__VA_ARGS__)                               \
+               : F<0>(__VA_ARGS__))
+
+template <int NT>
+cudaError_t chamfer_nt(bool with_ix, const int* d, const int* ix, int* d_out,
+                       int* ix_out, const RelaxTile& p, int smem,
+                       unsigned blocks, int* changed, cudaStream_t st) {
+  return with_ix ? launch_chamfer_tile<true, NT>(d, ix, d_out, ix_out, p,
+                                                 smem, blocks, changed, st)
+                 : launch_chamfer_tile<false, NT>(d, ix, d_out, ix_out, p,
+                                                  smem, blocks, changed, st);
+}
+
+template <int NT>
+cudaError_t watershed_nt(int img_bytes, const void* img, const int* c,
+                         const int* s, const int* l, int* c_out, int* s_out,
+                         int* l_out, const RelaxTile& p, int smem,
+                         unsigned blocks, int* changed, cudaStream_t st) {
+  return img_bytes == 1
+             ? launch_watershed_tile<uint8_t, NT>(img, c, s, l, c_out, s_out,
+                                                  l_out, p, smem, blocks,
+                                                  changed, st)
+             : launch_watershed_tile<uint16_t, NT>(img, c, s, l, c_out,
+                                                   s_out, l_out, p, smem,
+                                                   blocks, changed, st);
 }
 
 }  // namespace
@@ -375,6 +895,48 @@ int ed_watershed_sweep(const void* img, int img_bytes, const int* c,
         static_cast<const uint16_t*>(img), c, s, l, c_out, s_out, l_out, tp,
         ntaps, dm, (unsigned)total, changed);
   return (int)cudaGetLastError();
+}
+
+// K16's tile route: k sweeps (args[6]) in one launch on (nz, ny, nx) =
+// args[0:3] (the array's shape with leading axes of 1 added), tiles of
+// args[3:6], the ntaps = args[7] taps' codes (oz + 1) * 9 + (oy + 1) * 3 +
+// (ox + 1) from args[8] on, in the order the sweep visits them (host
+// memory); ix and ix_out null without indices; changed null or set where
+// the last sweep changed a voxel. The outputs must not overlap the inputs.
+// Returns cudaGetLastError(), cudaErrorInvalidConfiguration where the box
+// passes the shared memory.
+int ed_chamfer_tile(const int* d, const int* ix, int* d_out, int* ix_out,
+                    const int* args, int* changed, void* stream) {
+  RelaxTile p;
+  long long smem, blocks;
+  if ((ix == nullptr) != (ix_out == nullptr) ||
+      !make_tile(args, ix ? 2 : 1, &p, &smem, &blocks))
+    return (int)cudaErrorInvalidValue;
+  if (smem > ED_SMEM_LIMIT || blocks > INT32_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)ED_RELAX_NT(chamfer_nt, p.ntaps, ix != nullptr, d, ix, d_out,
+                          ix_out, p, (int)smem, (unsigned)blocks, changed,
+                          st);
+}
+
+// K17's tile route: k sweeps in one launch; img uint8 (img_bytes 1) or
+// uint16 (2); the int32 triples in and out; args and changed as K16's.
+int ed_watershed_tile(const void* img, int img_bytes, const int* c,
+                      const int* s, const int* l, int* c_out, int* s_out,
+                      int* l_out, const int* args, int* changed,
+                      void* stream) {
+  RelaxTile p;
+  long long smem, blocks;
+  if ((img_bytes != 1 && img_bytes != 2) ||
+      !make_tile(args, 3, &p, &smem, &blocks))
+    return (int)cudaErrorInvalidValue;
+  if (smem > ED_SMEM_LIMIT || blocks > INT32_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)ED_RELAX_NT(watershed_nt, p.ntaps, img_bytes, img, c, s, l,
+                          c_out, s_out, l_out, p, (int)smem,
+                          (unsigned)blocks, changed, st);
 }
 
 const char* ed_distance_error_string(int err) {

@@ -16,11 +16,21 @@ morphology` and sweeps by K17 here. Four kernels carry them
   JAX package's ladder, (16, 64) then dense, the same rungs in the same
   order with the same global certificate, so the indices, whose ties each
   tier breaks its own way, are the JAX package's too (note R2).
-* :func:`chamfer_sweep` (K16): one Jacobi sweep of the chamfer relaxation
-  (``cdt_core``), run to the fixpoint by
+* :func:`chamfer_sweep` (K16): ``k`` Jacobi sweeps of the chamfer
+  relaxation (``cdt_core``), run to the fixpoint by
   :func:`~elasticdeform_tpu_torch.ops.morphology.relax_to_fixpoint`.
-* :func:`watershed_sweep` (K17): one Jacobi sweep of ``watershed_ift``'s
+* :func:`watershed_sweep` (K17): ``k`` Jacobi sweeps of ``watershed_ift``'s
   (cost, steps, label) triples, run to the fixpoint the same way.
+
+K16 and K17 take two routes, which
+:func:`~elasticdeform_tpu_torch.ops.morphology.relax_plan` picks:
+``"tile"`` (1-3 axes) runs up to 8 sweeps in one launch on a block's halo
+box in shared memory; ``"sweep"`` (more axes, or no box within the shared
+memory) one sweep a launch in device memory. Each counts ``.launches``,
+``.sweeps`` and its launches per route in ``.routes``; the fixpoint drivers
+launch through :func:`chamfer_sweeper` / :func:`watershed_sweeper`, which
+check the inputs, bind the entry point and read the stream once a call and
+ping-pong between two buffer sets.
 
 The EDT works in float64, as the JAX package does under x64 and as SciPy
 returns it. On a CPU tensor each wrapper takes its plain version
@@ -44,8 +54,9 @@ import torch
 from elasticdeform_tpu_torch.ops import _build
 from elasticdeform_tpu_torch.ops.filters import _stream, normalize_sequence
 from elasticdeform_tpu_torch.ops.morphology import (
-    RELAX_BIG, RelaxTaps, generate_binary_structure, nonzero_mask,
-    relax_check, relax_pad, relax_taps, relax_to_fixpoint, tap_view,
+    RELAX_BIG, SWEEPS_PER_CHECK, RelaxPlan, RelaxTaps,
+    generate_binary_structure, nonzero_mask, relax_check, relax_pad,
+    relax_taps, relax_to_fixpoint, tap_view,
 )
 
 # the sentinel of a line with no background (float32 max / 16)
@@ -56,25 +67,40 @@ EDT_LADDER = (16, 64)
 _DENSE_CHUNK_BYTES = 8 << 20
 
 
+_SIGNATURES = (
+    ("ed_nearest_background", "vvvipddv"),
+    ("ed_minplus_pass", "vvvvililviddvv"),
+    ("ed_chamfer_sweep", "vvvvviipvv"),
+    ("ed_watershed_sweep", "vivvvvvvviipvv"),
+    ("ed_chamfer_tile", "vvvvvvv"),
+    ("ed_watershed_tile", "vivvvvvvvvv"))
+_entries: dict = {}
+
+
 def _lib():
-    lib = _build.library("distance")
-    if lib.ed_nearest_background.argtypes is None:
-        vp, ll, i, d = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_double)
-        lp = ctypes.POINTER(ll)
-        fn = lib.ed_nearest_background
-        fn.restype = i
-        fn.argtypes = [vp, vp, vp, i, lp, d, d, vp]
-        fn = lib.ed_minplus_pass
-        fn.restype = i
-        fn.argtypes = [vp, vp, vp, vp, i, ll, i, ll, vp, i, d, d, vp, vp]
-        fn = lib.ed_chamfer_sweep
-        fn.restype = i
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, lp, vp, vp]
-        fn = lib.ed_watershed_sweep
-        fn.restype = i
-        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i, lp, vp, vp]
-    return lib
+    """``csrc/distance.cu``'s library, its C entry points bound once into
+    ``_entries`` (a lookup for every later launch)."""
+    if not _entries:
+        lib = _build.library("distance")
+        types = {"v": ctypes.c_void_p, "i": ctypes.c_int,
+                 "l": ctypes.c_longlong, "d": ctypes.c_double,
+                 "p": ctypes.POINTER(ctypes.c_longlong)}
+        for name, sig in _SIGNATURES:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [types[c] for c in sig]
+            _entries[name] = fn
+        _entries["lib"] = lib
+    return _entries["lib"]
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err:
+        _build.check(err, _entries["lib"], "ed_distance_error_string", what)
 
 
 def _axis_iota(n: int, axis: int, ndim: int, device) -> torch.Tensor:
@@ -134,13 +160,13 @@ def nearest_background(fg: torch.Tensor, s0: float, want_idx: bool):
                          device=fg.device) if want_idx else None
     if fg.numel() == 0:
         return f, planes
-    lib = _lib()
-    err = lib.ed_nearest_background(
+    _lib()
+    err = _entries["ed_nearest_background"](
         fg.data_ptr(), f.data_ptr(),
-        None if planes is None else planes.data_ptr(), fg.dim(),
+        _ptr(planes), fg.dim(),
         (ctypes.c_longlong * fg.dim())(*shape), float(s0), _BIG32,
         _stream(fg))
-    _build.check(err, lib, "ed_distance_error_string", "nearest_background")
+    _check_launch(err, "nearest_background")
     nearest_background.launches += 1
     return f, planes
 
@@ -265,16 +291,16 @@ def minplus_rung(g: torch.Tensor, idx, axis: int, spacing: float, W: int):
     planes = None if idx is None else torch.empty_like(idx)
     fail = torch.zeros(1, dtype=torch.int32, device=g.device) if W else None
     thr = (float(spacing) * W) ** 2
-    lib = _lib()
-    err = lib.ed_minplus_pass(
+    _lib()
+    err = _entries["ed_minplus_pass"](
         g.data_ptr(), out.data_ptr(),
-        None if idx is None else idx.data_ptr(),
-        None if planes is None else planes.data_ptr(),
+        _ptr(idx),
+        _ptr(planes),
         0 if idx is None else idx.shape[0], g.numel(), n, inner,
         _table(float(spacing), W, n if not W else 0, g.device).data_ptr(),
-        W, thr, _BIG32, None if fail is None else fail.data_ptr(),
+        W, thr, _BIG32, _ptr(fail),
         _stream(g))
-    _build.check(err, lib, "ed_distance_error_string", "minplus_rung")
+    _check_launch(err, "minplus_rung")
     minplus_rung.launches += 1
     key = f"w{W}" if W else "dense"
     minplus_rung.rungs[key] = minplus_rung.rungs.get(key, 0) + 1
@@ -418,36 +444,93 @@ def chamfer_sweep_plain(d: torch.Tensor, ix, offs, changed=None):
     return nd, nix
 
 
-def chamfer_sweep(d: torch.Tensor, ix, taps: RelaxTaps, changed=None):
-    """One sweep of :func:`chamfer_sweep_plain` over ``taps``. A CPU tensor
-    takes the twin; a CUDA tensor launches K16 into new buffers and adds
-    one to ``chamfer_sweep.launches``."""
+def _chamfer_plan(taps: RelaxTaps, ix, k: int, route=None) -> RelaxPlan:
+    return taps.plan(1 if ix is None else 2, 0, k, route)
+
+
+def _count(wrapper, plan: RelaxPlan, k: int) -> None:
+    wrapper.launches += 1
+    wrapper.sweeps += k
+    wrapper.routes[plan.route] += 1
+
+
+def chamfer_sweeper(d: torch.Tensor, ix, taps: RelaxTaps, plan: RelaxPlan):
+    """The fixpoint driver's K16 launches for one call on ``d``'s shape and
+    device (``ix`` None or not, as every state will be): ``sweeps(state,
+    m, changed, out)``, ``m`` sweeps of ``state = (d, ix)`` into ``out``
+    (a buffer set, or None to allocate one), one launch of ``plan``'s route
+    (``m <= plan.k``). A CPU tensor runs ``m`` twin sweeps. The inputs are
+    checked, the entry point bound and the stream read once."""
     if d.device.type == "cpu":
-        return chamfer_sweep_plain(d, ix, taps.offs, changed)
+        def sweeps(state, m, changed=None, out=None):
+            return chamfer_sweep(*state, taps, changed, k=m)
+        return sweeps
     relax_check(d, "chamfer_sweep")
     if d.dtype != torch.int32 or (ix is not None and (
-            ix.dtype != torch.int32 or not ix.is_contiguous())):
+            ix.dtype != torch.int32 or not ix.is_contiguous()
+            or ix.shape != d.shape)):
         raise TypeError("chamfer_sweep: the kernel takes int32 distances "
                         "and indices")
-    nd = torch.empty_like(d)
-    nix = None if ix is None else torch.empty_like(ix)
-    lib = _lib()
-    err = lib.ed_chamfer_sweep(
-        d.data_ptr(), None if ix is None else ix.data_ptr(), nd.data_ptr(),
-        None if nix is None else nix.data_ptr(), *taps.c_args(d.device),
-        None if changed is None else changed.data_ptr(), _stream(d))
-    _build.check(err, lib, "ed_distance_error_string", "chamfer_sweep")
-    chamfer_sweep.launches += 1
-    return nd, nix
+    _lib()
+    stream = _stream(d)
+    if plan.route == "tile":
+        fn = _entries["ed_chamfer_tile"]
+
+        def launch(d, ix, nd, nix, m, changed):
+            return fn(d.data_ptr(), _ptr(ix), nd.data_ptr(),
+                      _ptr(nix), taps.tile_args(plan, m),
+                      _ptr(changed), stream)
+    else:
+        fn = _entries["ed_chamfer_sweep"]
+        cargs = taps.c_args(d.device)
+
+        def launch(d, ix, nd, nix, m, changed):
+            return fn(d.data_ptr(), _ptr(ix), nd.data_ptr(),
+                      _ptr(nix), *cargs,
+                      _ptr(changed), stream)
+
+    def sweeps(state, m, changed=None, out=None):
+        if not 1 <= m <= plan.k:
+            raise ValueError(f"chamfer_sweep: {m} sweeps a launch on "
+                             f"{plan}")
+        d, ix = state
+        if out is None:
+            out = (torch.empty_like(d),
+                   None if ix is None else torch.empty_like(ix))
+        _check_launch(launch(d, ix, *out, m, changed), "chamfer_sweep")
+        _count(chamfer_sweep, plan, m)
+        return out
+    return sweeps
+
+
+def chamfer_sweep(d: torch.Tensor, ix, taps: RelaxTaps, changed=None,
+                  k: int = 1, route=None, plan=None):
+    """``k`` sweeps of :func:`chamfer_sweep_plain` over ``taps``,
+    ``changed`` set by the last. A CPU tensor takes the twin; a CUDA tensor
+    launches K16 once into new buffers on ``plan`` (by default
+    :func:`relax_plan`'s for ``k`` sweeps; ``route`` forces ``"tile"`` or
+    ``"sweep"``, which runs one sweep a launch) and adds one to
+    ``chamfer_sweep.launches`` and ``.routes[route]`` and ``k`` to
+    ``.sweeps``."""
+    if d.device.type == "cpu":
+        for s in range(k):
+            d, ix = chamfer_sweep_plain(d, ix, taps.offs,
+                                        changed if s == k - 1 else None)
+        return d, ix
+    plan = plan or _chamfer_plan(taps, ix, k, route)
+    return chamfer_sweeper(d, ix, taps, plan)((d, ix), k, changed)
 
 
 chamfer_sweep.launches = 0
+chamfer_sweep.sweeps = 0
+chamfer_sweep.routes = {"tile": 0, "sweep": 0}
 
 
 def cdt_core(fg: torch.Tensor, structure, want_idx: bool):
     """The JAX package's ``cdt_core`` (``:343``): the chamfer distance
     (int32) of the bool ``fg`` over ``structure``'s neighbours, K16 sweeps
-    to the fixpoint, and the winners' raveled indices (int32) or None."""
+    to the fixpoint (up to the plan's ``k`` a launch), and the winners'
+    raveled indices (int32) or None."""
     ndim = fg.dim()
     shape = tuple(fg.shape)
     structure = np.asarray(structure, dtype=bool)
@@ -459,9 +542,9 @@ def cdt_core(fg: torch.Tensor, structure, want_idx: bool):
     if fg.numel() == 0:
         return d, ix
     taps = relax_taps(structure, shape)
-    d, ix = relax_to_fixpoint(
-        lambda st, ch: chamfer_sweep(*st, taps, ch), (d, ix), fg.device)
-    return d, ix
+    plan = _chamfer_plan(taps, ix, SWEEPS_PER_CHECK)
+    return relax_to_fixpoint(chamfer_sweeper(d, ix, taps, plan), (d, ix),
+                             fg.device, plan.k)
 
 
 # ---------------------------------------------------------------------------
@@ -496,30 +579,85 @@ def watershed_sweep_plain(img: torch.Tensor, c: torch.Tensor,
     return nc, ns, nl
 
 
-def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
-                    l: torch.Tensor, taps: RelaxTaps, changed=None):
-    """One Jacobi sweep of the watershed's triples ``(c, s, l)`` (int32,
-    ``img``'s shape; ``img`` uint8 or uint16) over ``taps``; ``changed`` as
-    :func:`watershed_sweep_plain`. A CPU tensor takes
-    :func:`watershed_sweep_plain`; a CUDA tensor launches K17 into new
-    buffers (the triples in and out never alias) and adds one to
-    ``watershed_sweep.launches``."""
+def watershed_sweeper(img: torch.Tensor, taps: RelaxTaps, plan: RelaxPlan):
+    """The fixpoint driver's K17 launches for one call on the uint8 or
+    uint16 ``img``: ``sweeps(state, m, changed, out)``, ``m`` sweeps of the
+    triples ``state = (c, s, l)`` into ``out`` (a buffer set, or None to
+    allocate one), one launch of ``plan``'s route (``m <= plan.k``). A CPU
+    tensor runs ``m`` twin sweeps. The image is checked, the entry point
+    bound and the stream read once; each state's triples are checked at
+    each launch."""
     if img.device.type == "cpu":
-        return watershed_sweep_plain(img, c, s, l, taps.offs, changed)
-    for t, what in ((img, "image"), (c, "cost"), (s, "steps"), (l, "label")):
-        relax_check(t, f"watershed_sweep {what}")
-    out = [torch.empty_like(c) for _ in range(3)]
-    lib = _lib()
-    err = lib.ed_watershed_sweep(
-        img.data_ptr(), img.element_size(), c.data_ptr(), s.data_ptr(),
-        l.data_ptr(), *[t.data_ptr() for t in out], *taps.c_args(img.device),
-        None if changed is None else changed.data_ptr(), _stream(img))
-    _build.check(err, lib, "ed_distance_error_string", "watershed_sweep")
-    watershed_sweep.launches += 1
-    return tuple(out)
+        def sweeps(state, m, changed=None, out=None):
+            return watershed_sweep(img, *state, taps, changed, k=m)
+        return sweeps
+    relax_check(img, "watershed_sweep image")
+    if img.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"watershed_sweep: the kernel takes a uint8 or "
+                        f"uint16 image, got {img.dtype}")
+    _lib()
+    stream = _stream(img)
+    nbytes = img.element_size()
+    if plan.route == "tile":
+        fn = _entries["ed_watershed_tile"]
+
+        def launch(c, s, l, co, so, lo, m, changed):
+            return fn(img.data_ptr(), nbytes, c.data_ptr(), s.data_ptr(),
+                      l.data_ptr(), co.data_ptr(), so.data_ptr(),
+                      lo.data_ptr(), taps.tile_args(plan, m),
+                      _ptr(changed), stream)
+    else:
+        fn = _entries["ed_watershed_sweep"]
+        cargs = taps.c_args(img.device)
+
+        def launch(c, s, l, co, so, lo, m, changed):
+            return fn(img.data_ptr(), nbytes, c.data_ptr(), s.data_ptr(),
+                      l.data_ptr(), co.data_ptr(), so.data_ptr(),
+                      lo.data_ptr(), *cargs,
+                      _ptr(changed), stream)
+
+    def sweeps(state, m, changed=None, out=None):
+        if not 1 <= m <= plan.k:
+            raise ValueError(f"watershed_sweep: {m} sweeps a launch on "
+                             f"{plan}")
+        for t in state:
+            if (t.dtype != torch.int32 or t.shape != img.shape
+                    or not t.is_contiguous() or t.device != img.device):
+                raise TypeError("watershed_sweep: the kernel takes "
+                                "contiguous int32 triples of the image's "
+                                "shape on its device")
+        if out is None:
+            out = tuple(torch.empty_like(t) for t in state)
+        _check_launch(launch(*state, *out, m, changed), "watershed_sweep")
+        _count(watershed_sweep, plan, m)
+        return out
+    return sweeps
+
+
+def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                    l: torch.Tensor, taps: RelaxTaps, changed=None,
+                    k: int = 1, route=None, plan=None):
+    """``k`` Jacobi sweeps of the watershed's triples ``(c, s, l)`` (int32,
+    ``img``'s shape; ``img`` uint8 or uint16) over ``taps``; ``changed`` as
+    :func:`watershed_sweep_plain`, set by the last sweep. A CPU tensor
+    takes :func:`watershed_sweep_plain`; a CUDA tensor launches K17 once
+    into new buffers (the triples in and out never alias) on ``plan`` (by
+    default :func:`relax_plan`'s for ``k`` sweeps; ``route`` forces
+    ``"tile"`` or ``"sweep"``, which runs one sweep a launch) and adds one
+    to ``watershed_sweep.launches`` and ``.routes[route]`` and ``k`` to
+    ``.sweeps``."""
+    if img.device.type == "cpu":
+        for j in range(k):
+            c, s, l = watershed_sweep_plain(img, c, s, l, taps.offs,
+                                            changed if j == k - 1 else None)
+        return c, s, l
+    plan = plan or taps.plan(3, img.element_size(), k, route)
+    return watershed_sweeper(img, taps, plan)((c, s, l), k, changed)
 
 
 watershed_sweep.launches = 0
+watershed_sweep.sweeps = 0
+watershed_sweep.routes = {"tile": 0, "sweep": 0}
 
 
 def _unravel(ix: torch.Tensor, shape) -> torch.Tensor:

@@ -115,6 +115,26 @@ _LAUNCH_WORK = 200_000
 _STAGE_WORK = {False: 2, True: 24}
 _WRITE_WORK = {False: 1, True: 16}
 
+# K16's and K17's tile route (csrc/distance.cu ED_RELAX_*): threads a block
+# and the blocks an SM its registers are sized for, taps of a 3^ndim
+# structure, a block's and an SM's shared memory on the H100
+RELAX_THREADS = 256
+RELAX_BLOCKS = 4
+RELAX_MAX_TAPS = 26
+RELAX_SMEM_LIMIT = 232448
+_SM_SMEM = 233472
+# the relaxation plan's cost model, in nanoseconds of one SM: a launch's
+# host call (the driver's lean launch; the card runs ahead while a launch
+# takes longer) and its gap on the card, a byte staged from or written to
+# device memory (about 40 GB/s an SM from L2), an int32 word a sweep reads
+# from shared memory (128 bytes a clock an SM, twice for the instructions
+# around it); an SM with fewer blocks than RELAX_BLOCKS hides less latency
+_RELAX_HOST_NS = 8000.0
+_RELAX_LAUNCH_NS = 2000.0
+_RELAX_BYTE_NS = 0.025
+_RELAX_WORD_NS = 0.04
+_RELAX_SOLO = 1.3
+
 # K12's select route on a halo box (csrc ED_RANK_*): a block of 8 x 32
 # threads, each with a column of RANK_COLUMN voxels along tile axis 0 (1
 # where that axis has extent 1); the kernel resolves ED_RANK_BITS = 2 key
@@ -1661,13 +1681,108 @@ def binary_erosion_dilation(x: torch.Tensor, structure, iterations, mask,
 RELAX_BIG = int(np.iinfo(np.int32).max // 4)
 
 
+RelaxPlan = collections.namedtuple("RelaxPlan",
+                                   "route tile k box smem blocks")
+_SWEEP_PLAN = RelaxPlan("sweep", None, 1, None, 0, 0)
+
+
+def _relax_words(words: int, img_bytes: int, taps: int) -> int:
+    """The shared int32 words a tile-route sweep reads for one voxel of a
+    thread's column: the next plane's state (the voxel's own, and its
+    neighbour along z, ride in registers) and each of ``taps`` other
+    taps' (K17, ``img_bytes`` > 0: a neighbour's label, cost and steps; K16
+    its distance, its index only where it wins)."""
+    return words + taps * (3 if img_bytes else 1)
+
+
+@functools.lru_cache(maxsize=256)
+def relax_plan(shape3, reach3, ntaps, zonly, words, img_bytes, want,
+               route=None, k=None, tile=None,
+               budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
+    """K16's or K17's route for ``want`` sweeps a group on an array of
+    ``shape3`` voxels (three axes, leading ones added) under ``ntaps``
+    taps of ``reach3`` (0 or 1 per axis), ``zonly`` of them along z alone,
+    a state of ``words`` int32 words a voxel and an image of ``img_bytes``
+    (K16: 1 or 2 words, no image; K17: 3 words and a 1- or 2-byte image,
+    read from device memory). ``"tile"``: the tile (z, y, x), the sweeps a
+    launch ``k <= min(want, 8)``, the largest box (tile plus ``k`` reaches
+    a side, clamped to the array), its shared bytes (the state twice)
+    within ``budget`` (the box's voxels rounded up to even), and the
+    blocks, chosen by the least modelled time of
+    ``want`` sweeps in launches of ``k`` and the rest: per launch a gap,
+    plus the longer of its host call and the busiest SM's blocks, each
+    staging its box, sweeping its regions (a thread a column along z of
+    the tile widened by the reaches still to come, in whole passes of the
+    block's threads, :func:`_relax_words` a voxel) and writing its tile.
+    ``"sweep"`` where no box fits. ``route``, ``k`` and ``tile`` force a
+    choice (``"tile"`` raises where none fits)."""
+    n3, r3 = tuple(shape3), tuple(reach3)
+    voxel = 2 * 4 * words
+
+    def shared(box):
+        """the state twice over the box, its voxels rounded up to even"""
+        cap = math.prod(box)
+        return voxel * (cap + cap % 2)
+    visit = (_relax_words(words, img_bytes, ntaps - zonly) * _RELAX_WORD_NS
+             + img_bytes * _RELAX_BYTE_NS)
+    best = None
+    if route != "sweep":
+        tzs = sorted({min(n3[0], t) for t in (1, 2, 4, 8, 16, 32)})
+        tys = sorted({min(n3[1], t) for t in (1, 2, 4, 8, 16, 32)})
+        txs = sorted({min(n3[2], t) for t in (8, 16, 32, 64, 128)})
+        tiles = [tuple(tile)] if tile else itertools.product(tzs, tys, txs)
+        ks = [int(k)] if k else range(1, min(int(want),
+                                             SWEEPS_PER_CHECK) + 1)
+
+        def launch(t, k, box):
+            """the modelled nanoseconds of one launch of ``k`` sweeps"""
+            blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
+            per_sm = min(RELAX_BLOCKS, _SM_SMEM // (shared(box) + 1024))
+            columns = 0
+            for left in range(k):
+                rz, ry, rx = (min(n, e + 2 * left * r)
+                              for n, e, r in zip(n3, t, r3))
+                columns += -(-ry * rx // RELAX_THREADS) * RELAX_THREADS * rz
+            work = (_RELAX_BYTE_NS * 4 * words * (math.prod(box)
+                                                   + math.prod(t))
+                    + visit * columns)
+            if per_sm < RELAX_BLOCKS:
+                work *= _RELAX_SOLO
+            return _RELAX_LAUNCH_NS + max(_RELAX_HOST_NS,
+                                          -(-blocks // _SMS) * work)
+        for kk in ks:
+            for t in tiles:
+                box = tuple(min(n, e + 2 * kk * r)
+                            for n, e, r in zip(n3, t, r3))
+                smem = shared(box)
+                if smem > budget:
+                    continue
+                full, rest = divmod(int(want), kk)
+                cost = full * launch(t, kk, box)
+                if rest:
+                    cost += launch(t, rest, box)
+                blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
+                key = (cost, -kk, t)
+                if best is None or key < best[0]:
+                    best = (key, RelaxPlan("tile", t, kk, box, smem, blocks))
+    if best is None:
+        if route == "tile":
+            raise ValueError("relax_plan: no tile of the tile route fits "
+                             "this array")
+        return _SWEEP_PLAN
+    return best[1]
+
+
 class RelaxTaps:
     """A 3^ndim structure's neighbours on an array of ``shape``: ``offs``,
     the offsets in the raster order of ``np.nonzero`` with the centre
-    dropped (the order the plain twins and the JAX package visit them in),
-    and :meth:`on`, the kernels' int32 ``(taps, 2)`` table of a linear
-    offset and an edge word (bit ``k`` the tap steps down along axis ``k``,
-    bit ``8 + k`` up), uploaded once per device."""
+    dropped (the order the plain twins and the JAX package visit them in);
+    for the sweep route :meth:`on`, the kernels' int32 ``(taps, 2)`` table
+    of a linear offset and an edge word (bit ``k`` the tap steps down along
+    axis ``k``, bit ``8 + k`` up), uploaded once per device; for the tile
+    route (1-3 axes, ``tiled``) ``shape3`` (leading axes of 1 added),
+    ``reach3`` (1 on an axis a tap steps along), the tap codes ``(oz + 1) *
+    9 + (oy + 1) * 3 + (ox + 1)``, :meth:`plan` and :meth:`tile_args`."""
 
     def __init__(self, structure, shape):
         self.shape = tuple(int(n) for n in shape)
@@ -1681,6 +1796,17 @@ class RelaxTaps:
                   for k, t in enumerate(o))] for o in self.offs],
             dtype=np.int32).reshape(-1, 2)
         self._dev = {}
+        ndim = len(self.shape)
+        self.tiled = 1 <= ndim <= 3
+        lead = (0,) * (3 - ndim)
+        offs3 = [lead + o for o in self.offs] if self.tiled else []
+        self.shape3 = (1,) * (3 - ndim) + self.shape if self.tiled else None
+        self.reach3 = tuple(int(any(o[a] for o in offs3)) for a in range(3))
+        self.codes = [(oz + 1) * 9 + (oy + 1) * 3 + ox + 1
+                      for oz, oy, ox in offs3]
+        # the taps along z alone, whose neighbours ride in registers
+        self.zonly = sum(code in (4, 22) for code in self.codes)
+        self._args = {}
 
     def on(self, device) -> torch.Tensor:
         t = self._dev.get(device)
@@ -1694,6 +1820,31 @@ class RelaxTaps:
         ndim = len(self.shape)
         return (self.on(device).data_ptr(), len(self.offs), ndim,
                 (ctypes.c_longlong * ndim)(*self.shape))
+
+    def plan(self, words: int, img_bytes: int, want: int, route=None,
+             k=None, tile=None, budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
+        """:func:`relax_plan` on this array; the sweep route for more than
+        three axes."""
+        if not self.tiled:
+            if route == "tile":
+                raise ValueError("relax_plan: the tile route takes 1 to 3 "
+                                 "axes")
+            return _SWEEP_PLAN
+        return relax_plan(self.shape3, self.reach3, len(self.offs),
+                          self.zonly, words, img_bytes, int(want), route, k,
+                          None if tile is None else tuple(tile), budget)
+
+    def tile_args(self, plan: RelaxPlan, k: int):
+        """The tile entry points' host array for ``k`` sweeps of ``plan``:
+        ``nz, ny, nx, tz, ty, tx, k, ntaps`` and the tap codes, built once
+        per tile and ``k``."""
+        key = (plan.tile, k)
+        args = self._args.get(key)
+        if args is None:
+            vals = (*self.shape3, *plan.tile, int(k), len(self.codes),
+                    *self.codes)
+            args = self._args[key] = (ctypes.c_int * len(vals))(*vals)
+        return args
 
 
 @functools.lru_cache(maxsize=32)
@@ -1721,17 +1872,26 @@ def sweep_to_fixpoint(group, device) -> None:
             return
 
 
-def relax_to_fixpoint(sweep, state, device):
-    """Jacobi sweeps ``state = sweep(state, changed)`` to the fixpoint by
-    :func:`sweep_to_fixpoint`, the flag passed to each group's last sweep:
-    a sweep that changes nothing is a fixpoint, and sweeps past it change
-    nothing, so the result is the reference's, which stops at the first
-    such sweep. Returns the last state."""
+def relax_to_fixpoint(sweeps, state, device, k: int = 1):
+    """Jacobi sweeps to the fixpoint by :func:`sweep_to_fixpoint`, each
+    group of :data:`SWEEPS_PER_CHECK` as calls ``state = sweeps(state, m,
+    changed, out)`` of ``m <= k`` sweeps (one launch of the tile route, or
+    one sweep), the flag passed to the group's last: a sweep that changes
+    nothing is a fixpoint, and sweeps past it change nothing, so the result
+    is the reference's, which stops at the first such sweep. ``out`` is the
+    state the call before last returned (None at first): a CUDA call
+    writes there, so a call's state ping-pongs between two buffer sets.
+    Returns the last state."""
+    spare = None
+
     def group(changed):
-        nonlocal state
-        for k in range(SWEEPS_PER_CHECK):
-            state = sweep(state, changed if k == SWEEPS_PER_CHECK - 1
-                          else None)
+        nonlocal state, spare
+        n = SWEEPS_PER_CHECK
+        while n > 0:
+            m = min(n, k)
+            new = sweeps(state, m, changed if m == n else None, spare)
+            spare, state = state, new
+            n -= m
     sweep_to_fixpoint(group, device)
     return state
 
@@ -1771,12 +1931,12 @@ def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
     every voxel joins the marker of its lexicographically cheapest path
     (the path's greatest intensity, its length, the label), negative markers
     flooding too; K17 sweeps to the fixpoint (:func:`relax_to_fixpoint` of
-    :func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweep`), the
-    cross structure by default. ``x``: uint8 or uint16; the result has
-    the markers' dtype, their values cast through int32 as ``astype``
-    casts them."""
+    :func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweeper`, up to
+    the plan's ``k`` sweeps a launch), the cross structure by default.
+    ``x``: uint8 or uint16; the result has the markers' dtype, their values
+    cast through int32 as ``astype`` casts them."""
     # ops/distance.py imports this module
-    from elasticdeform_tpu_torch.ops.distance import watershed_sweep
+    from elasticdeform_tpu_torch.ops import distance
     if x.dtype not in (torch.uint8, torch.uint16):
         raise TypeError("only 8 and 16 unsigned inputs are supported")
     if tuple(markers.shape) != tuple(x.shape):
@@ -1796,9 +1956,11 @@ def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
     s = torch.where(seeded, 0, RELAX_BIG).to(torch.int32)
     lab = torch.where(seeded, _plain(markers).to(torch.int32), 0).to(
         torch.int32)
+    plan = taps.plan(3, x.element_size(), SWEEPS_PER_CHECK)
+    sweeps = distance.watershed_sweeper(x, taps, plan)
     _, _, lab = relax_to_fixpoint(
-        lambda st, ch: watershed_sweep(x, *st, taps, ch),
-        (c.contiguous(), s.contiguous(), lab.contiguous()), x.device)
+        sweeps, (c.contiguous(), s.contiguous(), lab.contiguous()),
+        x.device, plan.k)
     return _label_cast(lab, markers.dtype)
 
 

@@ -102,7 +102,8 @@ def test_sweeps_past_the_fixpoint_change_nothing():
              torch.where(seeded, 0, mo.RELAX_BIG).int(), mk.clone())
     sweeps = []
 
-    def sweep(st, changed):
+    def sweep(st, m, changed, out):
+        assert m == 1
         sweeps.append(changed is not None)
         return ds.watershed_sweep(img, *st, taps, changed)
 
