@@ -3323,6 +3323,26 @@ _RELAX_SHAPES = ((37,), (9, 13), (5, 7, 9), (11, 6, 35), (3, 20, 70))
 _RELAX_TILES = ((2, 3, 8), (1, 1, 5), (3, 5, 16))
 
 
+def _relax_plans(taps, words, nbytes, k):
+    """The tile plans of ``k`` sweeps phase 2 holds to the twins: the
+    plan's own and those of :data:`_RELAX_TILES` whose rings fit."""
+    plans = [taps.plan(words, nbytes, k, "tile", k)]
+    for t in _RELAX_TILES:
+        try:
+            plans.append(taps.plan(words, nbytes, k, "tile", k, t))
+        except ValueError:
+            pass
+    return plans
+
+
+def _named(what, call):
+    """``call()``, its failure re-raised with ``what`` (the case) in front."""
+    try:
+        return call()
+    except Exception as e:
+        raise type(e)(f"{what}: {e}") from e
+
+
 def _check_relax_tiles(rs):
     """K16's and K17's tile route, one launch of ``k`` = 1-8 sweeps, bit for
     bit against ``k`` sweeps of the plain twins on the card and the flag of
@@ -3368,9 +3388,7 @@ def _check_relax_tiles(rs):
                 for with_ix in (False, True):
                     x = ix if with_ix else None
                     words = 2 if with_ix else 1
-                    plans = [taps.plan(words, 0, k, "tile", k)] + [
-                        taps.plan(words, 0, k, "tile", k, t)
-                        for t in _RELAX_TILES]
+                    plans = _relax_plans(taps, words, 0, k)
                     want_flag = torch.zeros(1, dtype=torch.int32, device=dev)
                     b = (d, x)
                     for j in range(k):
@@ -3378,10 +3396,10 @@ def _check_relax_tiles(rs):
                             *b, taps.offs, want_flag if j == k - 1 else None)
                     for plan in plans:
                         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                        a = ds.chamfer_sweep(d, x, taps, flag, k=k,
-                                             plan=plan)
                         what = (f"K16 tile {shape} {sname} k={k} "
                                 f"tile={plan.tile} indices={with_ix}")
+                        a = _named(what, lambda: ds.chamfer_sweep(
+                            d, x, taps, flag, k=k, plan=plan))
                         _same(a[0], b[0], what)
                         if with_ix:
                             _same(a[1], b[1], f"{what} indices")
@@ -3402,15 +3420,13 @@ def _check_relax_tiles(rs):
                             img, *want, taps.offs,
                             want_flag if j == k - 1 else None)
                     nbytes = img.element_size()
-                    plans = [taps.plan(3, nbytes, k, "tile", k)] + [
-                        taps.plan(3, nbytes, k, "tile", k, t)
-                        for t in _RELAX_TILES]
+                    plans = _relax_plans(taps, 3, nbytes, k)
                     for plan in plans:
                         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                        a = ds.watershed_sweep(img, *state, taps, flag, k=k,
-                                               plan=plan)
                         what = (f"K17 tile {shape} {sname} {iname} k={k} "
                                 f"tile={plan.tile}")
+                        a = _named(what, lambda: ds.watershed_sweep(
+                            img, *state, taps, flag, k=k, plan=plan))
                         for g, w, part in zip(a, want, "csl"):
                             _same(g, w, f"{what} {part}")
                         if int(flag) != int(want_flag):
@@ -5841,10 +5857,10 @@ def _times_distance(row, card, cfg19):
 
 
 # the tiles the A/B of K16's and K17's tile route tries at each k beside
-# the plan's (those that fit the shared memory)
-_RELAX_AB_TILES = ((2, 16, 32), (4, 8, 32), (4, 16, 32), (8, 8, 16),
-                   (8, 8, 32), (8, 16, 16), (8, 16, 32), (16, 8, 32),
-                   (16, 16, 16), (32, 8, 32))
+# the plan's (those that fit the shared memory): a block's chunk of planes
+# by its rows and columns
+_RELAX_AB_TILES = tuple((z,) + yx for z in (8, 16, 32, 80)
+                        for yx in ((8, 32), (16, 32), (32, 32), (16, 64)))
 
 
 def _times_relax(row, name, taps, words, nbytes, start, sweeper_on, plain,

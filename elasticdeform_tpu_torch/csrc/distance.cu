@@ -42,20 +42,26 @@
 //
 //   tile  (1-3 axes, leading axes of 1 added): chamfer_tile_kernel and
 //         watershed_tile_kernel run k <= 8 sweeps in one launch. A block
-//         owns a tile and stages its halo box, the tile widened by k
-//         reaches on each axis and clamped to the array, into shared memory
-//         once with cp.async (K17's image beside its state, once); sweep j
-//         computes the tile widened by the k - 1 - j reaches still to come,
-//         reading one buffer and writing the other, so it reads only sweep
-//         j - 1's values (or the staged ones), and only the tile goes back
-//         to device memory. A region voxel on the box's edge is on the
-//         array's edge (an unclamped box reaches one reach past every
-//         region), so a voxel's edge bits come from its box coordinates,
-//         with no division chain. The flag is the last sweep's, over the
-//         tile; tiles partition the array, so the blocks' votes make the
-//         flag of the sweep. The result is k sweeps of the plain twin bit
-//         for bit (no Gauss-Seidel, no block-local fixpoint: watershed order
-//         and the carried indices depend on the sweep history).
+//         owns a tile (a chunk of planes by rows by columns) and streams
+//         through its planes: its box plane is the tile's rows and columns
+//         widened by k reaches and clamped to the array; at step t it
+//         stages plane t of the box (the state, with cp.async) into level
+//         0's ring of four planes in shared memory, and sweep j computes
+//         plane t - 2j of its region (the tile widened by the k - j reaches
+//         of the sweeps after it) from level j - 1's planes t - 2j - 1 ..
+//         t - 2j + 1, which earlier steps made, into level j's ring, so one
+//         barrier a step orders them and each sweep reads only the sweep
+//         before it. The last sweep writes the tile to device memory. Along
+//         z nothing is staged twice but a chunk's k planes each side; the
+//         rows and columns pay the widened regions. A region voxel on the
+//         box plane's edge is on the array's edge (the box holds every
+//         region one reach past it, or is clamped there), so a voxel's edge
+//         bits come from its coordinates, with no division chain. The flag
+//         is the last sweep's, over the tile; tiles partition the array, so
+//         the blocks' votes make the flag of the sweep. The result is k
+//         sweeps of the plain twin bit for bit (no Gauss-Seidel, no
+//         block-local fixpoint: watershed order and the carried indices
+//         depend on the sweep history).
 //   sweep (more than three axes, or no box within the shared memory):
 //         chamfer_sweep_kernel and watershed_sweep_kernel, one sweep a
 //         launch, one thread a voxel in raster order; per voxel a bit mask
@@ -74,16 +80,19 @@
 // mask, d and ix; the image, markers and labels), 0.0092 and 0.0055 ms,
 // while a call runs 48 and 192 sweeps (about one per voxel of the longest
 // path). The tile route pays the state's bytes once for k sweeps, and the
-// box's re-staged halo; its sweeps read their neighbours from shared memory
-// (K17 at most 4 + 3 per tap words a voxel, K16 2 + 1), so the shared
-// memory's bandwidth and the box's wider regions bound it, which the plan
-// (ops/distance.py::relax_plan) weighs against the launches saved. Every
+// rows' and columns' re-staged halo; its sweeps read their neighbours from
+// shared memory (K17 3 words a voxel and 3 a tap, K16 1 and 1), so the
+// shared memory's bandwidth, the steps' barriers and the wider regions
+// bound it, which the plan (ops/morphology.py::relax_plan) weighs against
+// the launches saved. Every
 // kernel copies values or adds and compares in the order of its plain twin,
 // built without contraction (--fmad=false), so it agrees with
 // ops/distance.py and ops/morphology.py's twins bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "cp_async.cuh"
 #include "tile_index.cuh"
@@ -100,6 +109,8 @@
 #define ED_RELAX_MAXK 8
 #define ED_RELAX_MAXTAPS 26
 #define ED_SMEM_LIMIT 232448
+// a block's static shared memory (taps, levels) comes out of the same 227 KB
+#define ED_RELAX_STATIC 1024
 
 namespace {
 
@@ -311,131 +322,83 @@ watershed_sweep_kernel(const X* __restrict__ img, const int* __restrict__ c,
 // K16 and K17's tile route
 
 // a launch of the tile route: the array as (nz, ny, nx) (leading axes of 1
-// added), the tile, the tiles per axis, a sweep's reach per axis (0 or 1),
-// the sweeps k, the largest box's voxels (the buffers' stride), whether a
-// tap steps along z alone (its neighbour then comes from a thread's
-// registers) and the taps as codes (oz + 1) * 9 + (oy + 1) * 3 + (ox + 1)
-// in raster order
+// added); a block's tile of tz planes, ty rows and tx columns; the tiles
+// per axis; a sweep's reach per axis (0 or 1); the sweeps k; a ring slot's
+// stride (the largest box plane, rounded up to even); the taps as codes
+// (oz + 1) * 9 + (oy + 1) * 3 + (ox + 1) in raster order
 struct RelaxTile {
   int nz, ny, nx;
   int tz, ty, tx;
   int gz, gy, gx;
   int rz, ry, rx;
-  int k, cap, zreg, ntaps;
+  int k, cap, ntaps;
   int code[ED_RELAX_MAXTAPS];
 };
 
-// a block's tile [z0, z1) x [y0, y1) x [x0, x1) and its box, origin (Z0,
-// Y0, X0) and extents (BZ, BY, BX)
-struct RelaxBox {
-  int z0, z1, y0, y1, x0, x1;
-  int Z0, Y0, X0, BZ, BY, BX;
+// a level's region: sweep j (level j >= 1) computes the tile widened by the
+// k - j reaches of the sweeps after it, level 0 is the staged box: planes
+// [z0, z1) of the array, rows [by0, by0 + RY) and columns [bx0, bx0 + RX)
+// of the box plane, n = RY * RX of them a plane, RX also as a divisor
+struct RelaxLevel {
+  int z0, z1, by0, bx0, RY, RX, n;
+  FastDiv dx;
 };
 
-// a tap's mask: bits 0-2 it steps down along z, y, x, bits 8-10 up (it is
-// skipped where a voxel's edge bits meet them); ED_ZPREV / ED_ZNEXT it steps
-// along z alone, down or up, and reads a thread's registers
-#define ED_ZPREV (1u << 16)
-#define ED_ZNEXT (1u << 17)
+// a block's box plane: rows [Y0, Y0 + BY), columns [X0, X0 + BX)
+struct RelaxBox {
+  int Y0, X0, BY, BX;
+};
 
-// the block's tile and box; its taps as box offsets and masks; the
-// divisors of each sweep's region rows (slot j) and of the box's rows and
-// planes (slots k, k + 1)
+// the block's box; its taps as offsets in a box plane and masks (bits 0-2
+// the tap steps down along z, y, x, bits 8-10 up); its levels' regions
 __device__ __forceinline__ RelaxBox relax_setup(const RelaxTile& p,
                                                int* toff, unsigned* tmask,
-                                               FastDiv* divs) {
-  RelaxBox b;
+                                               RelaxLevel* lv) {
   int t = blockIdx.x;
   const int tix = t % p.gx;
   t /= p.gx;
   const int tiy = t % p.gy;
   const int tiz = t / p.gy;
-  b.z0 = tiz * p.tz;
-  b.z1 = min(b.z0 + p.tz, p.nz);
-  b.y0 = tiy * p.ty;
-  b.y1 = min(b.y0 + p.ty, p.ny);
-  b.x0 = tix * p.tx;
-  b.x1 = min(b.x0 + p.tx, p.nx);
-  int Z1, Y1, X1;
-  widen(b.z0, b.z1, p.k * p.rz, p.nz, &b.Z0, &Z1);
-  widen(b.y0, b.y1, p.k * p.ry, p.ny, &b.Y0, &Y1);
-  widen(b.x0, b.x1, p.k * p.rx, p.nx, &b.X0, &X1);
-  b.BZ = Z1 - b.Z0;
+  const int z0 = tiz * p.tz, z1 = min(z0 + p.tz, p.nz);
+  const int y0 = tiy * p.ty, y1 = min(y0 + p.ty, p.ny);
+  const int x0 = tix * p.tx, x1 = min(x0 + p.tx, p.nx);
+  RelaxBox b;
+  int Y1, X1;
+  widen(y0, y1, p.k * p.ry, p.ny, &b.Y0, &Y1);
+  widen(x0, x1, p.k * p.rx, p.nx, &b.X0, &X1);
   b.BY = Y1 - b.Y0;
   b.BX = X1 - b.X0;
   for (int j = threadIdx.x; j < p.ntaps; j += blockDim.x) {
     const int code = p.code[j];
     const int oz = code / 9 - 1, oy = code / 3 % 3 - 1, ox = code % 3 - 1;
-    toff[j] = (oz * b.BY + oy) * b.BX + ox;
+    toff[j] = oy * b.BX + ox;
     tmask[j] = (unsigned)(oz < 0) | (unsigned)(oy < 0) << 1 |
                (unsigned)(ox < 0) << 2 | (unsigned)(oz > 0) << 8 |
-               (unsigned)(oy > 0) << 9 | (unsigned)(ox > 0) << 10 |
-               (oy == 0 && ox == 0 ? (oz < 0 ? ED_ZPREV : ED_ZNEXT) : 0u);
+               (unsigned)(oy > 0) << 9 | (unsigned)(ox > 0) << 10;
   }
-  for (int j = threadIdx.x; j < p.k + 2; j += blockDim.x) {
-    int lo, hi;
-    if (j < p.k) {
-      widen(b.x0, b.x1, (p.k - 1 - j) * p.rx, p.nx, &lo, &hi);
-      divs[j] = make_div(hi - lo);
-    } else {
-      divs[j] = make_div(j == p.k ? b.BX : b.BY);
-    }
+  for (int j = threadIdx.x; j <= p.k; j += blockDim.x) {
+    const int left = p.k - j;
+    RelaxLevel L;
+    int zlo, zhi, ylo, yhi, xlo, xhi;
+    widen(z0, z1, left * p.rz, p.nz, &zlo, &zhi);
+    widen(y0, y1, left * p.ry, p.ny, &ylo, &yhi);
+    widen(x0, x1, left * p.rx, p.nx, &xlo, &xhi);
+    L.z0 = zlo;
+    L.z1 = zhi;
+    L.by0 = ylo - b.Y0;
+    L.bx0 = xlo - b.X0;
+    L.RY = yhi - ylo;
+    L.RX = xhi - xlo;
+    L.n = L.RY * L.RX;
+    L.dx = make_div(L.RX);
+    lv[j] = L;
   }
   return b;
 }
 
-// a sweep's region: the tile widened by `left` reaches and clamped to the
-// array, in box coordinates: planes [bz0, bz1), rows [by0, by0 + RY),
-// columns [bx0, bx0 + RX)
-struct RelaxRegion {
-  int bz0, bz1, by0, bx0, RY, RX;
-};
-
-__device__ __forceinline__ RelaxRegion relax_region(const RelaxTile& p,
-                                                   const RelaxBox& b,
-                                                   int left) {
-  RelaxRegion r;
-  int z0, z1, y0, y1, x0, x1;
-  widen(b.z0, b.z1, left * p.rz, p.nz, &z0, &z1);
-  widen(b.y0, b.y1, left * p.ry, p.ny, &y0, &y1);
-  widen(b.x0, b.x1, left * p.rx, p.nx, &x0, &x1);
-  r.bz0 = z0 - b.Z0;
-  r.bz1 = z1 - b.Z0;
-  r.by0 = y0 - b.Y0;
-  r.bx0 = x0 - b.X0;
-  r.RY = y1 - y0;
-  r.RX = x1 - x0;
-  return r;
-}
-
-// the array index of the box voxel (bz, by, bx)
-__device__ __forceinline__ unsigned array_index(const RelaxTile& p,
-                                                const RelaxBox& b, int bz,
-                                                int by, int bx) {
-  return ((unsigned)(b.Z0 + bz) * (unsigned)p.ny + (unsigned)(b.Y0 + by)) *
-             (unsigned)p.nx + (unsigned)(b.X0 + bx);
-}
-
-// the array index of the i-th voxel of the block's box (its index in the
-// box is i)
-__device__ __forceinline__ unsigned box_voxel(const RelaxTile& p,
-                                              const RelaxBox& b, int i,
-                                              const FastDiv& dx,
-                                              const FastDiv& dy) {
-  const unsigned q = div_by((unsigned)i, dx);
-  const int x = i - (int)(q * (unsigned)b.BX);
-  const unsigned zq = div_by(q, dy);
-  const int y = (int)(q - zq * (unsigned)b.BY);
-  return array_index(p, b, (int)zq, y, x);
-}
-
-// A sweep's thread owns a column of its region along z, (by, bx) fixed,
-// and walks its planes: the voxel's own state and its neighbours up and
-// down z ride in registers from plane to plane, the other taps read the
-// box. The last sweep writes the tile to device memory. NT > 0 fixes the
-// tap count at compile time (the cross and the full structure of 2 and 3
-// axes), so the tap loop unrolls and, up to 8 taps, each tap's offset and
-// mask sit in registers; NT = 0 loops over p.ntaps.
+// NT > 0 fixes the tap count at compile time (the cross and the full
+// structure of 2 and 3 axes), so the tap loop unrolls and, up to 8 taps,
+// each tap's offset and mask sit in registers; NT = 0 loops over p.ntaps.
 template <int NT>
 struct TapRegs {
   static constexpr bool kRegs = NT > 0 && NT <= 8;
@@ -461,9 +424,61 @@ struct TapRegs {
   }
 };
 
-// K16: k sweeps of the chamfer relaxation on the block's box. Shared
-// memory: d, then (IX) ix, then the second buffer's d and ix, each p.cap
-// ints.
+// The sweeps stream through the block's planes: at step t, level 0 stages
+// plane t of the box and sweep j computes plane t - 2j of its region from
+// level j - 1's planes t - 2j - 1 .. t - 2j + 1, which earlier steps made,
+// so one barrier a step orders them; each level keeps a ring of four planes
+// (three read while the fourth is written). The last sweep writes the tile
+// to device memory. A step's items (a level and a voxel of its plane)
+// are shared out over the block's threads.
+
+// the level (0 when none) and the voxel of a step's i-th item; *pz its
+// plane
+__device__ __forceinline__ int step_item(const RelaxTile& p,
+                                         const RelaxLevel* lv, int t, int i,
+                                         int* pos, int* pz) {
+  for (int j = 1; j <= p.k; ++j) {
+    const int z = t - 2 * j;
+    if (z < lv[j].z0 || z >= lv[j].z1) continue;
+    if (i < lv[j].n) {
+      *pos = i;
+      *pz = z;
+      return j;
+    }
+    i -= lv[j].n;
+  }
+  return 0;
+}
+
+// the box-plane index and edge bits (bits 0-2 on the low edge of z, y, x,
+// bits 8-10 on the high edge) of voxel `pos` of level L's plane pz. The box
+// plane holds every region one reach past it, or reaches the array's edge
+// there, so the box's edge is the array's.
+__device__ __forceinline__ int level_voxel(const RelaxTile& p,
+                                           const RelaxBox& b,
+                                           const RelaxLevel& L, int pos,
+                                           int pz, int* by, int* bx,
+                                           unsigned* edges) {
+  const unsigned yq = div_by((unsigned)pos, L.dx);
+  *by = L.by0 + (int)yq;
+  *bx = L.bx0 + pos - (int)(yq * (unsigned)L.RX);
+  *edges = (unsigned)(pz == 0) | (unsigned)(*by == 0) << 1 |
+           (unsigned)(*bx == 0) << 2 | (unsigned)(pz == p.nz - 1) << 8 |
+           (unsigned)(*by == b.BY - 1) << 9 |
+           (unsigned)(*bx == b.BX - 1) << 10;
+  return *by * b.BX + *bx;
+}
+
+__device__ __forceinline__ unsigned plane_index(const RelaxTile& p,
+                                                const RelaxBox& b, int pz,
+                                                int by, int bx) {
+  return ((unsigned)pz * (unsigned)p.ny + (unsigned)(b.Y0 + by)) *
+             (unsigned)p.nx + (unsigned)(b.X0 + bx);
+}
+
+// K16: k sweeps of the chamfer relaxation streamed through the block's
+// planes. Shared memory: the levels' rings of d (4 k p.cap ints), then
+// (IX) of ix.
 template <bool IX, int NT>
 __global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
 chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
@@ -472,91 +487,75 @@ chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
   extern __shared__ int ed_relax_smem[];
   __shared__ int toff[ED_RELAX_MAXTAPS];
   __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
-  __shared__ FastDiv divs[ED_RELAX_MAXK + 2];
-  const RelaxBox b = relax_setup(p, toff, tmask, divs);
-  // buffer j at ed_relax_smem + j * words * p.cap (a pointer array indexed
-  // at run time would live on the stack)
-  const int words = IX ? 2 : 1;
+  __shared__ RelaxLevel lv[ED_RELAX_MAXK + 1];
+  const RelaxBox b = relax_setup(p, toff, tmask, lv);
+  int* ds = ed_relax_smem;
+  int* xs = ed_relax_smem + 4 * p.k * p.cap;
   __syncthreads();
-  {
-    const int nbox = b.BZ * b.BY * b.BX;
-    const FastDiv dx = divs[p.k], dy = divs[p.k + 1];
-    for (int i = threadIdx.x; i < nbox; i += blockDim.x) {
-      const unsigned g = box_voxel(p, b, i, dx, dy);
-      stage_async(ed_relax_smem + i, d + g);
-      if (IX) stage_async(ed_relax_smem + p.cap + i, ix + g);
-    }
-    stage_wait();
-  }
   TapRegs<NT> tr;
   tr.load(toff, tmask);
-  __syncthreads();
-
-  const int plane = b.BY * b.BX;
-  const unsigned gplane = (unsigned)p.ny * (unsigned)p.nx;
+  const RelaxLevel L0 = lv[0];
+  const int t_end = lv[p.k].z1 - 1 + 2 * p.k;
   bool flag = false;
-  for (int s = 0; s < p.k; ++s) {
-    const int left = p.k - 1 - s;
-    const RelaxRegion r = relax_region(p, b, left);
-    const int* di = ed_relax_smem + (s & 1) * words * p.cap;
-    const int* xi = di + p.cap;
-    int* dn = ed_relax_smem + ((s & 1) ^ 1) * words * p.cap;
-    int* xn = dn + p.cap;
-    const FastDiv dr = divs[s];
-    const int npos = r.RY * r.RX;
-    for (int pos = threadIdx.x; pos < npos; pos += blockDim.x) {
-      const unsigned yq = div_by((unsigned)pos, dr);
-      const int bx = pos - (int)(yq * (unsigned)r.RX) + r.bx0;
-      const int by = (int)yq + r.by0;
-      const unsigned eyx = (unsigned)(by == 0) << 1 |
-                           (unsigned)(bx == 0) << 2 |
-                           (unsigned)(by == b.BY - 1) << 9 |
-                           (unsigned)(bx == b.BX - 1) << 10;
-      int at = (r.bz0 * b.BY + by) * b.BX + bx;
-      unsigned g = array_index(p, b, r.bz0, by, bx);
-      int dp = 0, dc = di[at], dq = 0;
-      if (p.zreg && r.bz0 > 0) dp = di[at - plane];
-      for (int bz = r.bz0; bz < r.bz1; ++bz, at += plane, g += gplane) {
-        if (bz + 1 < b.BZ) dq = di[at + plane];
-        const unsigned edges =
-            eyx | (unsigned)(bz == 0) | (unsigned)(bz == b.BZ - 1) << 8;
-        int best = dc;
-        int bu = -1;
-#pragma unroll(NT > 0 ? NT : 1)
-        for (int t = 0; t < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++t) {
-          if (NT == 0 && t >= p.ntaps) break;
-          const unsigned m = tr.m(tmask, t);
-          if (m & edges) continue;
-          const int u = at + tr.o(toff, t);
-          const int c =
-              (m & ED_ZPREV ? dp : m & ED_ZNEXT ? dq : di[u]) + 1;
-          if (c < best) {
-            best = c;
-            bu = u;
-          }
-        }
-        const int bix = IX ? xi[bu < 0 ? at : bu] : 0;
-        if (left == 0) {
-          d_out[g] = best;
-          if (IX) ix_out[g] = bix;
-          if (best != dc) flag = true;
-        } else {
-          dn[at] = best;
-          if (IX) xn[at] = bix;
-        }
-        dp = dc;
-        dc = dq;
+  for (int t = L0.z0; t <= t_end; ++t) {
+    if (t < L0.z1) {
+      const int slot = (t & 3) * p.cap;
+      for (int i = threadIdx.x; i < L0.n; i += blockDim.x) {
+        const unsigned yq = div_by((unsigned)i, L0.dx);
+        const unsigned g =
+            plane_index(p, b, t, (int)yq, i - (int)(yq * (unsigned)b.BX));
+        stage_async(ds + slot + i, d + g);
+        if (IX) stage_async(xs + slot + i, ix + g);
       }
     }
-    if (left) __syncthreads();
+    for (int i = threadIdx.x;; i += blockDim.x) {
+      int pos, pz;
+      const int j = step_item(p, lv, t, i, &pos, &pz);
+      if (j == 0) break;
+      int by, bx;
+      unsigned edges;
+      const int at = level_voxel(p, b, lv[j], pos, pz, &by, &bx, &edges);
+      // level j - 1's planes pz - 1, pz, pz + 1
+      const int src = (j - 1) * 4 * p.cap;
+      const int sm = src + ((pz - 1) & 3) * p.cap + at;
+      const int s0 = src + (pz & 3) * p.cap + at;
+      const int sp = src + ((pz + 1) & 3) * p.cap + at;
+      const int d0 = ds[s0];
+      int best = d0, bu = s0;
+#pragma unroll(NT > 0 && NT <= 8 ? NT : 1)
+      for (int tp = 0; tp < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++tp) {
+        if (NT == 0 && tp >= p.ntaps) break;
+        const unsigned m = tr.m(tmask, tp);
+        if (m & edges) continue;
+        const int u = (m & 1u ? sm : m & 256u ? sp : s0) + tr.o(toff, tp);
+        const int c = ds[u] + 1;
+        if (c < best) {
+          best = c;
+          bu = u;
+        }
+      }
+      if (j == p.k) {
+        const unsigned g = plane_index(p, b, pz, by, bx);
+        d_out[g] = best;
+        if (IX) ix_out[g] = xs[bu];
+        if (best != d0) flag = true;
+      } else {
+        const int dst = j * 4 * p.cap + (pz & 3) * p.cap + at;
+        ds[dst] = best;
+        if (IX) xs[dst] = xs[bu];
+      }
+    }
+    stage_wait();
+    __syncthreads();
   }
   if (changed) block_flag(changed, flag);
 }
 
-// K17: k sweeps of the watershed relaxation on the block's box. Shared
-// memory: (c, s) pairs (p.cap int2), then l (p.cap ints; p.cap is even, so
-// the pairs stay 8-byte aligned), then the second buffer's; the image is
-// read from device memory (a byte or two a voxel, cached).
+// K17: k sweeps of the watershed relaxation streamed through the block's
+// planes. Shared memory: the levels' rings of (c, s) pairs (4 k p.cap
+// int2; p.cap is even, so they stay 8-byte aligned), then of l (4 k p.cap
+// ints); the image is read from device memory (a byte or two a voxel,
+// cached).
 template <typename X, int NT>
 __global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
 watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
@@ -567,113 +566,74 @@ watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
   extern __shared__ int ed_relax_smem[];
   __shared__ int toff[ED_RELAX_MAXTAPS];
   __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
-  __shared__ FastDiv divs[ED_RELAX_MAXK + 2];
-  const RelaxBox b = relax_setup(p, toff, tmask, divs);
-  // buffer j: pairs at ed_relax_smem + 3 j p.cap, labels 2 p.cap ints on
+  __shared__ RelaxLevel lv[ED_RELAX_MAXK + 1];
+  const RelaxBox b = relax_setup(p, toff, tmask, lv);
+  int2* cs = reinterpret_cast<int2*>(ed_relax_smem);
+  int* ls = ed_relax_smem + 8 * p.k * p.cap;
   __syncthreads();
-  {
-    const int nbox = b.BZ * b.BY * b.BX;
-    const FastDiv dx = divs[p.k], dy = divs[p.k + 1];
-    int2* cs = reinterpret_cast<int2*>(ed_relax_smem);
-    int* ls = ed_relax_smem + 2 * p.cap;
-    for (int i = threadIdx.x; i < nbox; i += blockDim.x) {
-      const unsigned g = box_voxel(p, b, i, dx, dy);
-      stage_async(&cs[i].x, c + g);
-      stage_async(&cs[i].y, s + g);
-      stage_async(ls + i, l + g);
-    }
-    stage_wait();
-  }
   TapRegs<NT> tr;
   tr.load(toff, tmask);
-  __syncthreads();
-
-  const int plane = b.BY * b.BX;
-  const unsigned gplane = (unsigned)p.ny * (unsigned)p.nx;
+  const RelaxLevel L0 = lv[0];
+  const int t_end = lv[p.k].z1 - 1 + 2 * p.k;
   bool flag = false;
-  for (int sw = 0; sw < p.k; ++sw) {
-    const int left = p.k - 1 - sw;
-    const RelaxRegion r = relax_region(p, b, left);
-    const int2* ci = reinterpret_cast<const int2*>(ed_relax_smem +
-                                                    3 * (sw & 1) * p.cap);
-    const int* li = ed_relax_smem + 3 * (sw & 1) * p.cap + 2 * p.cap;
-    int2* cn = reinterpret_cast<int2*>(ed_relax_smem +
-                                       3 * ((sw & 1) ^ 1) * p.cap);
-    int* ln = ed_relax_smem + 3 * ((sw & 1) ^ 1) * p.cap + 2 * p.cap;
-    const FastDiv dr = divs[sw];
-    const int npos = r.RY * r.RX;
-    for (int pos = threadIdx.x; pos < npos; pos += blockDim.x) {
-      const unsigned yq = div_by((unsigned)pos, dr);
-      const int bx = pos - (int)(yq * (unsigned)r.RX) + r.bx0;
-      const int by = (int)yq + r.by0;
-      const unsigned eyx = (unsigned)(by == 0) << 1 |
-                           (unsigned)(bx == 0) << 2 |
-                           (unsigned)(by == b.BY - 1) << 9 |
-                           (unsigned)(bx == b.BX - 1) << 10;
-      int at = (r.bz0 * b.BY + by) * b.BX + bx;
-      unsigned g = array_index(p, b, r.bz0, by, bx);
-      // the column's (cost, steps) and label one plane down (p), here (h)
-      // and up (q)
-      int2 pv = make_int2(0, 0), qv = make_int2(0, 0);
-      int pl = 0, ql = 0;
-      int2 hv = ci[at];
-      int hl = li[at];
-      if (p.zreg && r.bz0 > 0) {
-        pv = ci[at - plane];
-        pl = li[at - plane];
-      }
-      for (int bz = r.bz0; bz < r.bz1; ++bz, at += plane, g += gplane) {
-        if (bz + 1 < b.BZ) {
-          qv = ci[at + plane];
-          ql = li[at + plane];
-        }
-        const unsigned edges =
-            eyx | (unsigned)(bz == 0) | (unsigned)(bz == b.BZ - 1) << 8;
-        const int x = (int)__ldg(img + g);
-        int nc = hv.x, ns = hv.y, nl = hl;
-#pragma unroll(NT > 0 ? NT : 1)
-        for (int t = 0; t < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++t) {
-          if (NT == 0 && t >= p.ntaps) break;
-          const unsigned m = tr.m(tmask, t);
-          if (m & edges) continue;
-          int2 uv;
-          int ul;
-          if (m & ED_ZPREV) {
-            uv = pv;
-            ul = pl;
-          } else if (m & ED_ZNEXT) {
-            uv = qv;
-            ul = ql;
-          } else {
-            const int u = at + tr.o(toff, t);
-            uv = ci[u];
-            ul = li[u];
-          }
-          const int cc = uv.x > x ? uv.x : x;
-          const int cs = uv.y + 1;
-          if (ul != 0 &&
-              (cc < nc || (cc == nc && (cs < ns || (cs == ns && ul < nl))))) {
-            nc = cc;
-            ns = cs;
-            nl = ul;
-          }
-        }
-        if (left == 0) {
-          c_out[g] = nc;
-          s_out[g] = ns;
-          l_out[g] = nl;
-          if (nc != hv.x || ns != hv.y || nl != hl) flag = true;
-        } else {
-          cn[at] = make_int2(nc, ns);
-          ln[at] = nl;
-        }
-        pv = hv;
-        pl = hl;
-        hv = qv;
-        hl = ql;
+  for (int t = L0.z0; t <= t_end; ++t) {
+    if (t < L0.z1) {
+      const int slot = (t & 3) * p.cap;
+      for (int i = threadIdx.x; i < L0.n; i += blockDim.x) {
+        const unsigned yq = div_by((unsigned)i, L0.dx);
+        const unsigned g =
+            plane_index(p, b, t, (int)yq, i - (int)(yq * (unsigned)b.BX));
+        stage_async(&cs[slot + i].x, c + g);
+        stage_async(&cs[slot + i].y, s + g);
+        stage_async(ls + slot + i, l + g);
       }
     }
-    if (left) __syncthreads();
+    for (int i = threadIdx.x;; i += blockDim.x) {
+      int pos, pz;
+      const int j = step_item(p, lv, t, i, &pos, &pz);
+      if (j == 0) break;
+      int by, bx;
+      unsigned edges;
+      const int at = level_voxel(p, b, lv[j], pos, pz, &by, &bx, &edges);
+      const int src = (j - 1) * 4 * p.cap;
+      const int sm = src + ((pz - 1) & 3) * p.cap + at;
+      const int s0 = src + (pz & 3) * p.cap + at;
+      const int sp = src + ((pz + 1) & 3) * p.cap + at;
+      const unsigned g = plane_index(p, b, pz, by, bx);
+      const int x = (int)__ldg(img + g);
+      const int2 hv = cs[s0];
+      const int hl = ls[s0];
+      int nc = hv.x, ns = hv.y, nl = hl;
+#pragma unroll(NT > 0 && NT <= 8 ? NT : 1)
+      for (int tp = 0; tp < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++tp) {
+        if (NT == 0 && tp >= p.ntaps) break;
+        const unsigned m = tr.m(tmask, tp);
+        if (m & edges) continue;
+        const int u = (m & 1u ? sm : m & 256u ? sp : s0) + tr.o(toff, tp);
+        const int2 uv = cs[u];
+        const int ul = ls[u];
+        const int cc = uv.x > x ? uv.x : x;
+        const int cs1 = uv.y + 1;
+        if (ul != 0 && (cc < nc || (cc == nc && (cs1 < ns ||
+                                                 (cs1 == ns && ul < nl))))) {
+          nc = cc;
+          ns = cs1;
+          nl = ul;
+        }
+      }
+      if (j == p.k) {
+        c_out[g] = nc;
+        s_out[g] = ns;
+        l_out[g] = nl;
+        if (nc != hv.x || ns != hv.y || nl != hl) flag = true;
+      } else {
+        const int dst = j * 4 * p.cap + (pz & 3) * p.cap + at;
+        cs[dst] = make_int2(nc, ns);
+        ls[dst] = nl;
+      }
+    }
+    stage_wait();
+    __syncthreads();
   }
   if (changed) block_flag(changed, flag);
 }
@@ -696,7 +656,8 @@ bool make_dims(int ndim, const long long* shape, Dims* dm,
 
 // a tile launch's geometry from the host's `args` (nz, ny, nx, tz, ty, tx,
 // k, ntaps, then the ntaps tap codes) for a state of `words` int32 words a
-// voxel; its shared bytes and blocks. False on a malformed launch.
+// voxel; its shared bytes (the levels' rings) and blocks. False on a
+// malformed launch.
 bool make_tile(const int* args, int words, RelaxTile* p, long long* smem,
                long long* blocks) {
   if (args == nullptr) return false;
@@ -713,7 +674,7 @@ bool make_tile(const int* args, int words, RelaxTile* p, long long* smem,
       p->ntaps > ED_RELAX_MAXTAPS ||
       (long long)p->nz * p->ny * p->nx >= (1LL << 31))
     return false;
-  p->rz = p->ry = p->rx = p->zreg = 0;
+  p->rz = p->ry = p->rx = 0;
   for (int t = 0; t < ED_RELAX_MAXTAPS; ++t) {
     const int code = t < p->ntaps ? args[8 + t] : 13;
     if (code < 0 || code > 26 || (t < p->ntaps && code == 13)) return false;
@@ -721,24 +682,17 @@ bool make_tile(const int* args, int words, RelaxTile* p, long long* smem,
     p->rz |= code / 9 != 1;
     p->ry |= code / 3 % 3 != 1;
     p->rx |= code % 3 != 1;
-    p->zreg |= code == 4 || code == 22;
   }
-  const long long n[3] = {p->nz, p->ny, p->nx};
-  const long long t[3] = {p->tz, p->ty, p->tx};
-  const long long r[3] = {p->rz, p->ry, p->rx};
-  long long cap = 1, g[3];
-  for (int a = 0; a < 3; ++a) {
-    const long long box = t[a] + 2LL * p->k * r[a];
-    cap *= box < n[a] ? box : n[a];
-    g[a] = (n[a] + t[a] - 1) / t[a];
-  }
+  const long long by = std::min<long long>(p->ny, p->ty + 2LL * p->k * p->ry);
+  const long long bx = std::min<long long>(p->nx, p->tx + 2LL * p->k * p->rx);
+  long long cap = by * bx;
   cap += cap & 1;  // K17's (cost, steps) pairs stay 8-byte aligned
-  p->gz = (int)g[0];
-  p->gy = (int)g[1];
-  p->gx = (int)g[2];
   p->cap = (int)cap;
-  *smem = cap * 2LL * words * 4;
-  *blocks = g[0] * g[1] * g[2];
+  p->gz = (int)((p->nz + (long long)p->tz - 1) / p->tz);
+  p->gy = (int)((p->ny + (long long)p->ty - 1) / p->ty);
+  p->gx = (int)((p->nx + (long long)p->tx - 1) / p->tx);
+  *smem = 16LL * p->k * cap * words;
+  *blocks = (long long)p->gz * p->gy * p->gx;
   return true;
 }
 
@@ -748,8 +702,10 @@ cudaError_t launch_chamfer_tile(const int* d, const int* ix, int* d_out,
                                 unsigned blocks, int* changed,
                                 cudaStream_t st) {
   static int allowed = 0;
-  const cudaError_t err =
-      allow_smem(chamfer_tile_kernel<IX, NT>, &allowed, smem);
+  // the allowance covers the static shared memory too: a launch whose
+  // dynamic bytes alone fit the default 48 KB may not with it
+  const cudaError_t err = allow_smem(chamfer_tile_kernel<IX, NT>, &allowed,
+                                     smem + ED_RELAX_STATIC);
   if (err != cudaSuccess) return err;
   chamfer_tile_kernel<IX, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
       d, ix, d_out, ix_out, p, changed);
@@ -763,8 +719,8 @@ cudaError_t launch_watershed_tile(const void* img, const int* c,
                                   int smem, unsigned blocks, int* changed,
                                   cudaStream_t st) {
   static int allowed = 0;
-  const cudaError_t err =
-      allow_smem(watershed_tile_kernel<X, NT>, &allowed, smem);
+  const cudaError_t err = allow_smem(watershed_tile_kernel<X, NT>, &allowed,
+                                     smem + ED_RELAX_STATIC);
   if (err != cudaSuccess) return err;
   watershed_tile_kernel<X, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
       static_cast<const X*>(img), c, s, l, c_out, s_out, l_out, p, changed);
@@ -912,7 +868,7 @@ int ed_chamfer_tile(const int* d, const int* ix, int* d_out, int* ix_out,
   if ((ix == nullptr) != (ix_out == nullptr) ||
       !make_tile(args, ix ? 2 : 1, &p, &smem, &blocks))
     return (int)cudaErrorInvalidValue;
-  if (smem > ED_SMEM_LIMIT || blocks > INT32_MAX)
+  if (smem > ED_SMEM_LIMIT - ED_RELAX_STATIC || blocks > INT32_MAX)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)ED_RELAX_NT(chamfer_nt, p.ntaps, ix != nullptr, d, ix, d_out,
@@ -931,7 +887,7 @@ int ed_watershed_tile(const void* img, int img_bytes, const int* c,
   if ((img_bytes != 1 && img_bytes != 2) ||
       !make_tile(args, 3, &p, &smem, &blocks))
     return (int)cudaErrorInvalidValue;
-  if (smem > ED_SMEM_LIMIT || blocks > INT32_MAX)
+  if (smem > ED_SMEM_LIMIT - ED_RELAX_STATIC || blocks > INT32_MAX)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)ED_RELAX_NT(watershed_nt, p.ntaps, img_bytes, img, c, s, l,

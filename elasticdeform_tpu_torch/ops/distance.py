@@ -24,9 +24,10 @@ morphology` and sweeps by K17 here. Four kernels carry them
 
 K16 and K17 take two routes, which
 :func:`~elasticdeform_tpu_torch.ops.morphology.relax_plan` picks:
-``"tile"`` (1-3 axes) runs up to 8 sweeps in one launch on a block's halo
-box in shared memory; ``"sweep"`` (more axes, or no box within the shared
-memory) one sweep a launch in device memory. Each counts ``.launches``,
+``"tile"`` (1-3 axes) runs up to 8 sweeps in one launch, a block streaming
+through its tile's planes with a ring of planes in shared memory for each
+sweep; ``"sweep"`` (more axes, or no tile within the shared memory) one
+sweep a launch in device memory. Each counts ``.launches``,
 ``.sweeps`` and its launches per route in ``.routes``; the fixpoint drivers
 launch through :func:`chamfer_sweeper` / :func:`watershed_sweeper`, which
 check the inputs, bind the entry point and read the stream once a call and

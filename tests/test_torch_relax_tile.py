@@ -2,17 +2,20 @@
 
 On the card the tile route (``chamfer_tile_kernel`` and
 ``watershed_tile_kernel`` in ``csrc/distance.cu``) runs ``k`` Jacobi sweeps
-a launch on a block's halo box in shared memory; ``ops/morphology.py``'s
+a launch, a block streaming through its tile's planes with a ring of
+planes in shared memory for each sweep; ``ops/morphology.py``'s
 ``relax_plan`` picks the tile and ``k``, and ``relax_to_fixpoint`` drives
 it. On the CPU:
 
-* a numpy model of the kernels, block by block (the box staged once, the
-  tile widened by ``k`` reaches and clamped to the array; sweep ``j``
-  computing the tile widened by the reaches still to come, reading one
-  buffer and writing the other, a voxel's edges from its box coordinates;
-  the flag of the last sweep over the tile; every buffer element a sweep
-  does not write holding junk), equals ``k`` sweeps of the plain twins bit
-  for bit, the flag included: K16 with and without indices, K17 on uint8
+* a numpy model of the kernels, block by block and step by step (the box
+  plane, the tile's rows and columns widened by ``k`` reaches and clamped
+  to the array; at step ``t`` plane ``t`` staged into a ring of four slots
+  and sweep ``j`` computing plane ``t - 2j`` of the tile widened by the
+  reaches still to come from sweep ``j - 1``'s ring, each slot read
+  checked to hold the plane wanted; a voxel's edges from its coordinates;
+  the flag of the last sweep over the tile; every slot element junk until
+  written), equals ``k`` sweeps of the plain twins bit for bit, the flag
+  included: K16 with and without indices, K17 on uint8
   and uint16 images, random and plateaus (ties by the step count, then
   the label), negative markers, over the cross, full and custom structures
   on 1-3 axes with ragged tiles, ``k`` = 1-8;
@@ -48,72 +51,102 @@ def _widen(t0, t1, reach, n):
 def _tile_model(state, img, taps, k, tile):
     """The tile kernels' ``k`` sweeps of ``state`` (K16: ``(d, ix)``, ``ix``
     None or not, ``img`` None; K17: ``(c, s, l)`` and its image), block by
-    block over tiles of ``tile`` (z, y, x): ``(state, flag)``."""
+    block over tiles of ``tile`` (z, y, x), as the kernels stream them: a
+    block's box plane is the tile's rows and columns widened by ``k``
+    reaches (clamped); at step ``t`` level 0 stages plane ``t`` into its
+    ring of four plane slots and sweep ``j`` computes plane ``t - 2j`` of
+    its region (the tile widened by the ``k - j`` reaches after it) from
+    level ``j - 1``'s slots, a voxel's edges from its box-plane
+    coordinates and the array's planes; the last sweep writes the tile.
+    Every slot element holds junk until written, and each slot read is
+    checked to hold the plane the sweep wants. Returns ``(state, flag)``."""
     n3, r3 = taps.shape3, taps.reach3
     offs3 = [(0,) * (3 - len(taps.shape)) + o for o in taps.offs]
     arrs = [None if a is None else a.numpy().reshape(n3) for a in state]
     x3 = None if img is None else img.numpy().astype(np.int32).reshape(n3)
     outs = [None if a is None else np.zeros_like(a) for a in arrs]
+    live = [i for i, a in enumerate(arrs) if a is not None]
+    nz = n3[0]
     flag = False
     for idx in np.ndindex(*[-(-n // t) for n, t in zip(n3, tile)]):
         t0 = [i * t for i, t in zip(idx, tile)]
         t1 = [min(a + t, n) for a, t, n in zip(t0, tile, n3)]
-        box = [_widen(a, b, k * r, n) for a, b, r, n in zip(t0, t1, r3, n3)]
-        bsl = tuple(slice(a, b) for a, b in box)
-        B = [b - a for a, b in box]
-        cur = [None if a is None else a[bsl].copy() for a in arrs]
-        xb = None if x3 is None else x3[bsl]
-        for s in range(k):
-            left = k - 1 - s
-            reg = [_widen(a, b, left * r, n) for a, b, r, n in
-                   zip(t0, t1, r3, n3)]
-            rel = [(a - bo[0], b - bo[0]) for (a, b), bo in zip(reg, box)]
-            rsl = tuple(slice(a, b) for a, b in rel)
-            grid = np.meshgrid(*[np.arange(a, b) for a, b in rel],
-                               indexing="ij")
-            own = [None if a is None else a[rsl] for a in cur]
-            new = [None if a is None else a.copy() for a in own]
-            for off in offs3:
-                # the tap is skipped where the voxel sits on the box's edge
-                # along an axis it steps along
-                ok = np.ones(grid[0].shape, bool)
-                for g, o, b in zip(grid, off, B):
-                    ok &= ~((o < 0) & (g == 0)) & ~((o > 0) & (g == b - 1))
-                u = tuple(np.clip(g + o, 0, b - 1)
-                          for g, o, b in zip(grid, off, B))
-                if xb is None:
-                    d, ix = cur
-                    cand = d[u] + np.int32(1)
-                    take = ok & (cand < new[0])
-                    new[0] = np.where(take, cand, new[0])
-                    if ix is not None:
-                        new[1] = np.where(take, ix[u], new[1])
+        (Y0, Y1), (X0, X1) = (_widen(t0[a], t1[a], k * r3[a], n3[a])
+                              for a in (1, 2))
+        BY, BX = Y1 - Y0, X1 - X0
+        levels = [[_widen(t0[a], t1[a], (k - j) * r3[a], n3[a])
+                   for a in range(3)] for j in range(k + 1)]
+        # ring[j][slot] = (plane held, arrays of (BY, BX) per state part)
+        ring = [[(None, [np.full((BY, BX), JUNK, np.int32) for _ in arrs])
+                 for _ in range(4)] for _ in range(k)]
+        t_end = levels[k][0][1] - 1 + 2 * k
+        for t in range(levels[0][0][0], t_end + 1):
+            writes = []
+            if t < levels[0][0][1]:
+                parts = [np.full((BY, BX), JUNK, np.int32) for _ in arrs]
+                for i in live:
+                    parts[i][...] = arrs[i][t, Y0:Y1, X0:X1]
+                writes.append((0, t, parts))
+            for j in range(1, k + 1):
+                pz = t - 2 * j
+                (z0, z1), (y0, y1), (x0, x1) = levels[j]
+                if not z0 <= pz < z1:
+                    continue
+                by, bx = np.meshgrid(np.arange(y0, y1) - Y0,
+                                     np.arange(x0, x1) - X0, indexing="ij")
+                held, parts = ring[j - 1][pz % 4]
+                assert held == pz
+                own = [None if i not in live else parts[i][by, bx]
+                       for i in range(len(arrs))]
+                cur = [None if o is None else o.copy() for o in own]
+                for oz, oy, ox in offs3:
+                    # the tap is skipped where the voxel sits on the edge of
+                    # the array's planes or of the box plane
+                    ok = np.full(by.shape, not (oz < 0 and pz == 0
+                                                or oz > 0 and pz == nz - 1))
+                    for o, g, n in ((oy, by, BY), (ox, bx, BX)):
+                        if o < 0:
+                            ok &= g != 0
+                        elif o > 0:
+                            ok &= g != n - 1
+                    held, nb_parts = ring[j - 1][(pz + oz) % 4]
+                    assert not ok.any() or held == pz + oz
+                    u = (np.clip(by + oy, 0, BY - 1), np.clip(bx + ox, 0,
+                                                              BX - 1))
+                    nb = [None if i not in live else nb_parts[i][u]
+                          for i in range(len(arrs))]
+                    if x3 is None:
+                        cand = nb[0] + np.int32(1)
+                        take = ok & (cand < cur[0])
+                        cur[0] = np.where(take, cand, cur[0])
+                        if cur[1] is not None:
+                            cur[1] = np.where(take, nb[1], cur[1])
+                    else:
+                        xv = x3[pz, y0:y1, x0:x1]
+                        cc = np.maximum(nb[0], xv)
+                        cs = nb[1] + np.int32(1)
+                        nc, ns, nl = cur
+                        same = cc == nc
+                        better = ok & (nb[2] != 0) & (
+                            (cc < nc) | (same & (cs < ns))
+                            | (same & (cs == ns) & (nb[2] < nl)))
+                        cur = [np.where(better, cc, nc),
+                               np.where(better, cs, ns),
+                               np.where(better, nb[2], nl)]
+                if j == k:
+                    for i in live:
+                        outs[i][pz, y0:y1, x0:x1] = cur[i]
+                    if any(bool((cur[i] != own[i]).any()) for i in live):
+                        flag = True
                 else:
-                    c, sv, lv = cur
-                    cl = lv[u]
-                    cc = np.maximum(c[u], xb[rsl])
-                    cs = sv[u] + np.int32(1)
-                    nc, ns, nl = new
-                    same = cc == nc
-                    better = ok & (cl != 0) & (
-                        (cc < nc) | (same & (cs < ns))
-                        | (same & (cs == ns) & (cl < nl)))
-                    new = [np.where(better, cc, nc), np.where(better, cs, ns),
-                           np.where(better, cl, nl)]
-            if left == 0 and any(bool((a != b).any()) for a, b in
-                                 zip(new, own) if a is not None):
-                flag = True
-            nxt = [None if a is None else np.full_like(a, JUNK) for a in cur]
-            for a, b in zip(nxt, new):
-                if a is not None:
-                    a[rsl] = b
-            cur = nxt
-        tsl = tuple(slice(a, b) for a, b in zip(t0, t1))
-        trel = tuple(slice(a - bo[0], b - bo[0]) for a, b, bo in
-                     zip(t0, t1, box))
-        for o, a in zip(outs, cur):
-            if o is not None:
-                o[tsl] = a[trel]
+                    new = [np.full((BY, BX), JUNK, np.int32) for _ in arrs]
+                    for i in live:
+                        new[i][by, bx] = cur[i]
+                if j < k:
+                    writes.append((j, pz, new))
+            # the step's barrier: the planes written become readable
+            for j, pz, parts in writes:
+                ring[j][pz % 4] = (pz, parts)
     shape = tuple(taps.shape)
     return [None if o is None else torch.from_numpy(o.reshape(shape))
             for o in outs], flag
@@ -131,7 +164,7 @@ def _case(seed, ndim, name):
     rs = np.random.RandomState(seed)
     shape = tuple(int(rs.randint(2, 10)) for _ in range(ndim))
     st = _structure(rs, name, ndim)
-    tile = tuple(int(rs.randint(1, 5)) for _ in range(3))
+    tile = tuple(int(rs.randint(2, 6)) for _ in range(3))
     return rs, shape, mo.relax_taps(st, shape), tile
 
 
@@ -197,19 +230,20 @@ def test_plan_box_covers_the_reaches(words, img_bytes):
         shape3 = tuple(int(n) for n in rs.randint(1, 300, 3))
         reach3 = tuple(int(r) for r in rs.randint(0, 2, 3))
         want = int(rs.randint(1, 9))
-        p = mo.relax_plan(shape3, reach3, 6, 2, words, img_bytes, want)
+        p = mo.relax_plan(shape3, reach3, 6, words, img_bytes, want)
         assert p.route == "tile" and 1 <= p.k <= want
         assert p.box == tuple(min(n, t + 2 * p.k * r) for n, t, r in
                               zip(shape3, p.tile, reach3))
-        # the state twice over the box's voxels rounded up to even; the
-        # image stays in device memory
-        cap = math.prod(p.box)
-        assert p.smem == 8 * words * (cap + cap % 2)
+        # four planes of the box plane (its voxels rounded up to even) for
+        # the staged state and each sweep but the last; the image stays in
+        # device memory
+        cap = p.box[1] * p.box[2]
+        assert p.smem == 16 * p.k * words * (cap + cap % 2)
         assert p.smem <= mo.RELAX_SMEM_LIMIT
         assert p.blocks == math.prod(-(-n // t) for n, t in
                                      zip(shape3, p.tile))
         for k in (1, 2, 4, 8):
-            q = mo.relax_plan(shape3, reach3, 6, 2, words, img_bytes, 8,
+            q = mo.relax_plan(shape3, reach3, 6, words, img_bytes, 8,
                               route="tile", k=k)
             assert q.k == k and q.smem <= mo.RELAX_SMEM_LIMIT
 
@@ -221,12 +255,10 @@ def test_plan_routes():
                                                          1)):
         taps = mo.relax_taps(cross, shape)
         assert taps.reach3 == (1, 1, 1) and len(taps.codes) == 6
-        assert taps.zonly == 2
         assert taps.plan(words, img, 8).route == "tile"
     # leading axes of 1 and the reach along them
     taps = mo.relax_taps(mo.generate_binary_structure(2, 2), (5, 7))
     assert taps.shape3 == (1, 5, 7) and taps.reach3 == (0, 1, 1)
-    assert taps.zonly == 0
     assert sorted(taps.codes) == sorted(
         (oy + 1) * 3 + ox + 1 + 9 for oy in (-1, 0, 1) for ox in (-1, 0, 1)
         if oy or ox)
@@ -264,10 +296,10 @@ def _forced_k(monkeypatch, k):
     """Every relaxation plan on the CPU with ``k`` sweeps a launch."""
     plan = mo.relax_plan
 
-    def forced(shape3, reach3, ntaps, zonly, words, img_bytes, want,
-               route=None, kk=None, tile=None, budget=mo.RELAX_SMEM_LIMIT):
-        return plan(shape3, reach3, ntaps, zonly, words, img_bytes, want,
-                    "tile", k, None, budget)
+    def forced(shape3, reach3, ntaps, words, img_bytes, want, route=None,
+               kk=None, tile=None, budget=mo.RELAX_SMEM_LIMIT):
+        return plan(shape3, reach3, ntaps, words, img_bytes, want, "tile", k,
+                    None, budget)
     monkeypatch.setattr(mo, "relax_plan", forced)
 
 
