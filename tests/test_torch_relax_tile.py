@@ -230,20 +230,21 @@ def test_plan_box_covers_the_reaches(words, img_bytes):
         shape3 = tuple(int(n) for n in rs.randint(1, 300, 3))
         reach3 = tuple(int(r) for r in rs.randint(0, 2, 3))
         want = int(rs.randint(1, 9))
-        p = mo.relax_plan(shape3, reach3, 6, words, img_bytes, want)
+        p = mo.relax_plan(shape3, reach3, 6, 5, words, img_bytes, want)
         assert p.route == "tile" and 1 <= p.k <= want
         assert p.box == tuple(min(n, t + 2 * p.k * r) for n, t, r in
                               zip(shape3, p.tile, reach3))
-        # four planes of the box plane (its voxels rounded up to even) for
-        # the staged state and each sweep but the last; the image stays in
-        # device memory
-        cap = p.box[1] * p.box[2]
-        assert p.smem == 16 * p.k * words * (cap + cap % 2)
+        # four planes of the box plane (its rows padded by 4 columns each
+        # side, in whole quads) for the staged state and each sweep but
+        # the last; the image stays in device memory
+        pitch = mo.relax_pitch(p.box[2])
+        assert pitch % 4 == 0 and p.box[2] + 8 <= pitch < p.box[2] + 12
+        assert p.smem == 16 * p.k * words * p.box[1] * pitch
         assert p.smem <= mo.RELAX_SMEM_LIMIT
         assert p.blocks == math.prod(-(-n // t) for n, t in
                                      zip(shape3, p.tile))
         for k in (1, 2, 4, 8):
-            q = mo.relax_plan(shape3, reach3, 6, words, img_bytes, 8,
+            q = mo.relax_plan(shape3, reach3, 6, 5, words, img_bytes, 8,
                               route="tile", k=k)
             assert q.k == k and q.smem <= mo.RELAX_SMEM_LIMIT
 
@@ -255,10 +256,12 @@ def test_plan_routes():
                                                          1)):
         taps = mo.relax_taps(cross, shape)
         assert taps.reach3 == (1, 1, 1) and len(taps.codes) == 6
+        assert taps.rows == 5
         assert taps.plan(words, img, 8).route == "tile"
     # leading axes of 1 and the reach along them
     taps = mo.relax_taps(mo.generate_binary_structure(2, 2), (5, 7))
     assert taps.shape3 == (1, 5, 7) and taps.reach3 == (0, 1, 1)
+    assert taps.rows == 3
     assert sorted(taps.codes) == sorted(
         (oy + 1) * 3 + ox + 1 + 9 for oy in (-1, 0, 1) for ox in (-1, 0, 1)
         if oy or ox)
@@ -296,10 +299,10 @@ def _forced_k(monkeypatch, k):
     """Every relaxation plan on the CPU with ``k`` sweeps a launch."""
     plan = mo.relax_plan
 
-    def forced(shape3, reach3, ntaps, words, img_bytes, want, route=None,
-               kk=None, tile=None, budget=mo.RELAX_SMEM_LIMIT):
-        return plan(shape3, reach3, ntaps, words, img_bytes, want, "tile", k,
-                    None, budget)
+    def forced(shape3, reach3, ntaps, nrows, words, img_bytes, want,
+               route=None, kk=None, tile=None, budget=mo.RELAX_SMEM_LIMIT):
+        return plan(shape3, reach3, ntaps, nrows, words, img_bytes, want,
+                    "tile", k, None, budget)
     monkeypatch.setattr(mo, "relax_plan", forced)
 
 
