@@ -502,16 +502,17 @@ _DIST_PTXAS = (("K14 nearest_bg_kernel", "nearest_bg_kernel"),
                ("K16 chamfer_sweep_kernel", "chamfer_sweep_kernel"),
                ("K17 uint8", "watershed_sweep_kernelIhE"),
                ("K17 uint16", "watershed_sweep_kernelItE"))
-# K16's and K17's tile route: with indices or not, the image's type
-_K16_TILE = re.compile(r"chamfer_tile_kernelILb([01])E")
-_K17_TILE = re.compile(r"watershed_tile_kernelI([ht])E")
+# K16's and K17's tile route: (with indices or not / image type, the tap
+# count it is unrolled for, 0 for any), five tap counts each
+_K16_TILE = re.compile(r"chamfer_tile_kernelILb([01])ELi(\d+)E")
+_K17_TILE = re.compile(r"watershed_tile_kernelI([ht])Li(\d+)E")
 
 
 def _check_distance_ptxas(log):
     """Print K14-K17's registers, stack frame, spills and static shared
     bytes (the tile route's boxes are dynamic shared memory, sized per
     launch); fail unless each of their six sweep-route kernels is found
-    once and each tile route's two instantiations are found."""
+    once and each tile route's ten instantiations are found."""
     kern = _ptxas_kernels(log)
     for label, part in _DIST_PTXAS:
         hits = [v for fn, v in kern.items() if part in fn]
@@ -532,12 +533,14 @@ def _check_distance_ptxas(log):
             m = pattern.search(fn)
             if not m or fn.startswith("_ZZ"):
                 continue
-            print(f"  ptxas {label} {what(m.group(1))}: {v[0]} registers, "
+            nt = m.group(2)
+            print(f"  ptxas {label} {what(m.group(1))}, "
+                  f"{nt if nt != '0' else 'any'} taps: {v[0]} registers, "
                   f"{v[1]} bytes stack frame, {v[2]}/{v[3]} bytes spill "
                   f"stores/loads, {v[5]} bytes static shared")
             found += 1
-        if found != 2:
-            raise AssertionError(f"{label}: {found} of 2 instantiations "
+        if found != 10:
+            raise AssertionError(f"{label}: {found} of 10 instantiations "
                                  "found")
 
 

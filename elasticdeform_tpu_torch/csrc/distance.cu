@@ -104,8 +104,13 @@
 // registers are sized for (64 a thread; the boxes' shared memory may allow
 // fewer), sweeps a launch, taps of a 3^3 structure (the centre dropped), a
 // block's shared memory on the H100
+#ifndef ED_RELAX_THREADS
 #define ED_RELAX_THREADS 256
-#define ED_RELAX_BLOCKS 3
+#define ED_RELAX_BLOCKS 4
+#endif
+#ifndef ED_RELAX_AHEAD
+#define ED_RELAX_AHEAD 1
+#endif
 #define ED_RELAX_MAXK 8
 #define ED_RELAX_MAXTAPS 26
 #define ED_SMEM_LIMIT 232448
@@ -323,28 +328,25 @@ watershed_sweep_kernel(const X* __restrict__ img, const int* __restrict__ c,
 
 // a launch of the tile route: the array as (nz, ny, nx) (leading axes of 1
 // added); a block's tile of tz planes, ty rows and tx columns; the tiles
-// per axis; a sweep's reach per axis (0 or 1); the sweeps k; a ring row's
-// pitch and a ring plane's ints (the largest box plane: its columns
-// behind 4 and before 4 pad columns, rounded up to whole quads); and the
-// structure's rows: each (oz, oy) with taps, in raster order, as (oz + 1)
-// * 3 + (oy + 1) with the ox it holds in bits 4-6 (-1, 0, +1)
+// per axis; a sweep's reach per axis (0 or 1); the sweeps k; a ring slot's
+// stride (the largest box plane, rounded up to even); the taps as codes
+// (oz + 1) * 9 + (oy + 1) * 3 + (ox + 1) in raster order
 struct RelaxTile {
   int nz, ny, nx;
   int tz, ty, tx;
   int gz, gy, gx;
   int rz, ry, rx;
-  int k, pitch, cap, nrows;
-  int row[9];
+  int k, cap, ntaps;
+  int code[ED_RELAX_MAXTAPS];
 };
 
 // a level's region: sweep j (level j >= 1) computes the tile widened by the
 // k - j reaches of the sweeps after it, level 0 is the staged box: planes
-// [z0, z1), rows [by0, by0 + RY) and columns [bx0, bx1) of the box plane,
-// walked as QX quads a row from quad q0 (quad q holds columns 4q - 4 ..
-// 4q - 1), n = RY * QX of them a plane, QX also as a divisor
+// [z0, z1) of the array, rows [by0, by0 + RY) and columns [bx0, bx0 + RX)
+// of the box plane, n = RY * RX of them a plane, RX also as a divisor
 struct RelaxLevel {
-  int z0, z1, by0, RY, bx0, bx1, q0, QX, n;
-  FastDiv dq;
+  int z0, z1, by0, bx0, RY, RX, n;
+  FastDiv dx;
 };
 
 // a block's box plane: rows [Y0, Y0 + BY), columns [X0, X0 + BX)
@@ -352,9 +354,10 @@ struct RelaxBox {
   int Y0, X0, BY, BX;
 };
 
-// the block's box and its levels' regions (level 0 walked voxel by voxel:
-// its n is the box plane's voxels, dq divides by BX)
+// the block's box; its taps as offsets in a box plane and masks (bits 0-2
+// the tap steps down along z, y, x, bits 8-10 up); its levels' regions
 __device__ __forceinline__ RelaxBox relax_setup(const RelaxTile& p,
+                                               int* toff, unsigned* tmask,
                                                RelaxLevel* lv) {
   int t = blockIdx.x;
   const int tix = t % p.gx;
@@ -370,49 +373,86 @@ __device__ __forceinline__ RelaxBox relax_setup(const RelaxTile& p,
   widen(x0, x1, p.k * p.rx, p.nx, &b.X0, &X1);
   b.BY = Y1 - b.Y0;
   b.BX = X1 - b.X0;
+  for (int j = threadIdx.x; j < p.ntaps; j += blockDim.x) {
+    const int code = p.code[j];
+    const int oz = code / 9 - 1, oy = code / 3 % 3 - 1, ox = code % 3 - 1;
+    toff[j] = oy * b.BX + ox;
+    tmask[j] = (unsigned)(oz < 0) | (unsigned)(oy < 0) << 1 |
+               (unsigned)(ox < 0) << 2 | (unsigned)(oz > 0) << 8 |
+               (unsigned)(oy > 0) << 9 | (unsigned)(ox > 0) << 10;
+  }
   for (int j = threadIdx.x; j <= p.k; j += blockDim.x) {
     const int left = p.k - j;
     RelaxLevel L;
-    int ylo, yhi, xlo, xhi;
-    widen(z0, z1, left * p.rz, p.nz, &L.z0, &L.z1);
+    int zlo, zhi, ylo, yhi, xlo, xhi;
+    widen(z0, z1, left * p.rz, p.nz, &zlo, &zhi);
     widen(y0, y1, left * p.ry, p.ny, &ylo, &yhi);
     widen(x0, x1, left * p.rx, p.nx, &xlo, &xhi);
+    L.z0 = zlo;
+    L.z1 = zhi;
     L.by0 = ylo - b.Y0;
-    L.RY = yhi - ylo;
     L.bx0 = xlo - b.X0;
-    L.bx1 = xhi - b.X0;
-    L.q0 = (L.bx0 + 4) >> 2;
-    L.QX = ((L.bx1 + 3) >> 2) - L.q0 + 1;
-    L.n = j ? L.RY * L.QX : b.BY * b.BX;
-    L.dq = make_div(j ? L.QX : b.BX);
+    L.RY = yhi - ylo;
+    L.RX = xhi - xlo;
+    L.n = L.RY * L.RX;
+    L.dx = make_div(L.RX);
     lv[j] = L;
   }
   return b;
 }
 
+// NT > 0 fixes the tap count at compile time (the cross and the full
+// structure of 2 and 3 axes), so the tap loop unrolls and, up to 8 taps,
+// each tap's offset and mask sit in registers; NT = 0 loops over p.ntaps.
+template <int NT>
+struct TapRegs {
+  static constexpr bool kRegs = NT > 0 && NT <= 8;
+  int off[kRegs ? NT : 1];
+  unsigned msk[kRegs ? NT : 1];
+  __device__ __forceinline__ void load(const int* toff,
+                                       const unsigned* tmask) {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        off[t] = toff[t];
+        msk[t] = tmask[t];
+      }
+    }
+  }
+  __device__ __forceinline__ int o(const int* toff, int t) const {
+    if constexpr (kRegs) return off[t];
+    return toff[t];
+  }
+  __device__ __forceinline__ unsigned m(const unsigned* tmask, int t) const {
+    if constexpr (kRegs) return msk[t];
+    return tmask[t];
+  }
+};
+
 // The sweeps stream through the block's planes: at step t, level 0 stages
 // plane t of the box and sweep j computes plane t - 2j of its region from
 // level j - 1's planes t - 2j - 1 .. t - 2j + 1, which earlier steps made,
 // so one barrier a step orders them; each level keeps a ring of four planes
-// (three read while the fourth is written), each plane `words` arrays of
-// BY rows of p.pitch ints, a voxel at column bx + 4. A step's items (a
-// level and a quad of four voxels of a row of its plane) are shared out
-// over the block's threads; a thread reads a row of the structure as one
-// aligned 16-byte load a state array, and the voxels left and right of the
-// quad where the row has taps along x. A quad's voxels outside the
-// level's region are computed from junk and never reach a voxel inside:
-// they are not stored to device memory, and the next level reads only
-// inside.
+// (three read while the fourth is written). The last sweep writes the tile
+// to device memory. A step's items (a level and a voxel of its plane)
+// are shared out over the block's threads.
 
-// the level (0 when none) and the quad of a step's i-th item; *pz its plane
+// the ring slot of level j's plane pz: level 0 keeps eight (it stages a
+// plane a step ahead of the one its readers wait for), each sweep four
+__device__ __forceinline__ int ring_slot(int j, int pz) {
+  return j == 0 ? (pz & 7) : 4 + 4 * j + (pz & 3);
+}
+
+// the level (0 when none) and the voxel of a step's i-th item; *pz its
+// plane
 __device__ __forceinline__ int step_item(const RelaxTile& p,
                                          const RelaxLevel* lv, int t, int i,
-                                         int* item, int* pz) {
+                                         int* pos, int* pz) {
   for (int j = 1; j <= p.k; ++j) {
     const int z = t - 2 * j;
     if (z < lv[j].z0 || z >= lv[j].z1) continue;
     if (i < lv[j].n) {
-      *item = i;
+      *pos = i;
       *pz = z;
       return j;
     }
@@ -421,10 +461,23 @@ __device__ __forceinline__ int step_item(const RelaxTile& p,
   return 0;
 }
 
-// a ring plane's first int: level L's slot for plane pz, state array a
-__device__ __forceinline__ int ring(const RelaxTile& p, int words, int L,
-                                   int pz, int a) {
-  return ((L * 4 + (pz & 3)) * words + a) * p.cap;
+// the box-plane index and edge bits (bits 0-2 on the low edge of z, y, x,
+// bits 8-10 on the high edge) of voxel `pos` of level L's plane pz. The box
+// plane holds every region one reach past it, or reaches the array's edge
+// there, so the box's edge is the array's.
+__device__ __forceinline__ int level_voxel(const RelaxTile& p,
+                                           const RelaxBox& b,
+                                           const RelaxLevel& L, int pos,
+                                           int pz, int* by, int* bx,
+                                           unsigned* edges) {
+  const unsigned yq = div_by((unsigned)pos, L.dx);
+  *by = L.by0 + (int)yq;
+  *bx = L.bx0 + pos - (int)(yq * (unsigned)L.RX);
+  *edges = (unsigned)(pz == 0) | (unsigned)(*by == 0) << 1 |
+           (unsigned)(*bx == 0) << 2 | (unsigned)(pz == p.nz - 1) << 8 |
+           (unsigned)(*by == b.BY - 1) << 9 |
+           (unsigned)(*bx == b.BX - 1) << 10;
+  return *by * b.BX + *bx;
 }
 
 __device__ __forceinline__ unsigned plane_index(const RelaxTile& p,
@@ -434,241 +487,173 @@ __device__ __forceinline__ unsigned plane_index(const RelaxTile& p,
              (unsigned)p.nx + (unsigned)(b.X0 + bx);
 }
 
-// stage plane t of the box into level 0's ring: `words` arrays from `src`
-__device__ __forceinline__ void stage_plane(const RelaxTile& p,
-                                           const RelaxBox& b,
-                                           const RelaxLevel& L0, int words,
-                                           int t, const int* const* src,
-                                           int* smem) {
-  for (int i = threadIdx.x; i < L0.n; i += blockDim.x) {
-    const unsigned yq = div_by((unsigned)i, L0.dq);
-    const int by = (int)yq, bx = i - (int)(yq * (unsigned)b.BX);
-    const unsigned g = plane_index(p, b, t, by, bx);
-    const int at = by * p.pitch + bx + 4;
-    for (int a = 0; a < words; ++a)
-      stage_async(smem + ring(p, words, 0, t, a) + at, src[a] + g);
-  }
-}
-
-// a structure row's decoded offsets, and whether it is off the array for
-// a quad of plane pz, box row by
-__device__ __forceinline__ bool row_off(const RelaxTile& p, const RelaxBox& b,
-                                        int code, int pz, int by, int* oz,
-                                        int* oy) {
-  *oz = (code & 15) / 3 - 1;
-  *oy = (code & 15) % 3 - 1;
-  return (*oz < 0 && pz == 0) || (*oz > 0 && pz == p.nz - 1) ||
-         (*oy < 0 && by == 0) || (*oy > 0 && by == b.BY - 1);
-}
-
 // K16: k sweeps of the chamfer relaxation streamed through the block's
-// planes; state arrays d and (IX) ix.
-template <bool IX>
+// planes. Shared memory: the levels' rings of d (4 k p.cap ints), then
+// (IX) of ix.
+template <bool IX, int NT>
 __global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
 chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
                     int* __restrict__ d_out, int* __restrict__ ix_out,
                     const RelaxTile p, int* changed) {
-  extern __shared__ int4 ed_relax_smem4[];
-  int* smem = reinterpret_cast<int*>(ed_relax_smem4);
+  extern __shared__ int ed_relax_smem[];
+  __shared__ int toff[ED_RELAX_MAXTAPS];
+  __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
   __shared__ RelaxLevel lv[ED_RELAX_MAXK + 1];
-  const RelaxBox b = relax_setup(p, lv);
-  const int words = IX ? 2 : 1;
-  const int* const src[2] = {d, ix};
+  const RelaxBox b = relax_setup(p, toff, tmask, lv);
+  int* ds = ed_relax_smem;
+  int* xs = ed_relax_smem + (4 * p.k + 4) * p.cap;
   __syncthreads();
+  TapRegs<NT> tr;
+  tr.load(toff, tmask);
   const RelaxLevel L0 = lv[0];
   const int t_end = lv[p.k].z1 - 1 + 2 * p.k;
   bool flag = false;
-  for (int t = L0.z0; t <= t_end; ++t) {
-    if (t < L0.z1) stage_plane(p, b, L0, words, t, src, smem);
-    for (int i = threadIdx.x;; i += blockDim.x) {
-      int item, pz;
-      const int j = step_item(p, lv, t, i, &item, &pz);
-      if (j == 0) break;
-      const RelaxLevel& L = lv[j];
-      const unsigned rq = div_by((unsigned)item, L.dq);
-      const int by = L.by0 + (int)rq;
-      const int qq = L.q0 + item - (int)(rq * (unsigned)L.QX);
-      const int col = 4 * qq;  // the quad's first int in a ring row
-      const int bx0 = col - 4;  // the quad's first box column
-      const int own = ring(p, words, j - 1, pz, 0) + by * p.pitch + col;
-      const int4 d0 = *reinterpret_cast<const int4*>(smem + own);
-      int best[4] = {d0.x, d0.y, d0.z, d0.w};
-      int bu[4] = {-1, -1, -1, -1};
-      for (int r = 0; r < p.nrows; ++r) {
-        const int code = p.row[r];
-        int oz, oy;
-        if (row_off(p, b, code, pz, by, &oz, &oy)) continue;
-        const int base =
-            ring(p, words, j - 1, pz + oz, 0) + (by + oy) * p.pitch + col;
-        int w[6];
-        const int4 q = *reinterpret_cast<const int4*>(smem + base);
-        w[1] = q.x;
-        w[2] = q.y;
-        w[3] = q.z;
-        w[4] = q.w;
-        w[0] = code & 16 ? smem[base - 1] : 0;
-        w[5] = code & 64 ? smem[base + 4] : 0;
-#pragma unroll
-        for (int ox = -1; ox <= 1; ++ox) {
-          if (!(code & (16 << (ox + 1)))) continue;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int bx = bx0 + e;
-            if ((ox < 0 && bx == 0) || (ox > 0 && bx == b.BX - 1)) continue;
-            // unsigned: a voxel outside the region may add to junk
-            const int c = (int)((unsigned)w[e + 1 + ox] + 1u);
-            if (c < best[e]) {
-              best[e] = c;
-              bu[e] = base + e + ox;
-            }
-          }
-        }
-      }
-      const int d0v[4] = {d0.x, d0.y, d0.z, d0.w};
-      if (j == p.k) {
-        const unsigned g = plane_index(p, b, pz, by, bx0);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (bx0 + e < L.bx0 || bx0 + e >= L.bx1) continue;
-          d_out[g + e] = best[e];
-          if (IX) ix_out[g + e] = smem[(bu[e] < 0 ? own + e : bu[e]) + p.cap];
-          if (best[e] != d0v[e]) flag = true;
-        }
-      } else {
-        const int dst = ring(p, words, j, pz, 0) + by * p.pitch + col;
-        *reinterpret_cast<int4*>(smem + dst) =
-            make_int4(best[0], best[1], best[2], best[3]);
-        if (IX) {
-          int xv[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            xv[e] = smem[(bu[e] < 0 ? own + e : bu[e]) + p.cap];
-          *reinterpret_cast<int4*>(smem + dst + p.cap) =
-              make_int4(xv[0], xv[1], xv[2], xv[3]);
-        }
+  // plane z of the box into level 0's ring, a group of copies
+  auto stage = [&](int z) {
+    if (z < L0.z1) {
+      const int slot = ring_slot(0, z) * p.cap;
+      for (int i = threadIdx.x; i < L0.n; i += blockDim.x) {
+        const unsigned yq = div_by((unsigned)i, L0.dx);
+        const unsigned g =
+            plane_index(p, b, z, (int)yq, i - (int)(yq * (unsigned)b.BX));
+        stage_async(ds + slot + i, d + g);
+        if (IX) stage_async(xs + slot + i, ix + g);
       }
     }
-    stage_wait();
+    stage_commit();
+  };
+  for (int a = 0; a < ED_RELAX_AHEAD; ++a) stage(L0.z0 + a);
+  for (int t = L0.z0; t <= t_end; ++t) {
+    stage(t + ED_RELAX_AHEAD);
+    for (int i = threadIdx.x;; i += blockDim.x) {
+      int pos, pz;
+      const int j = step_item(p, lv, t, i, &pos, &pz);
+      if (j == 0) break;
+      int by, bx;
+      unsigned edges;
+      const int at = level_voxel(p, b, lv[j], pos, pz, &by, &bx, &edges);
+      // level j - 1's planes pz - 1, pz, pz + 1
+      const int sm = ring_slot(j - 1, pz - 1) * p.cap + at;
+      const int s0 = ring_slot(j - 1, pz) * p.cap + at;
+      const int sp = ring_slot(j - 1, pz + 1) * p.cap + at;
+      const int d0 = ds[s0];
+      int best = d0, bu = s0;
+#pragma unroll(NT > 0 && NT <= 8 ? NT : 1)
+      for (int tp = 0; tp < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++tp) {
+        if (NT == 0 && tp >= p.ntaps) break;
+        const unsigned m = tr.m(tmask, tp);
+        if (m & edges) continue;
+        const int u = (m & 1u ? sm : m & 256u ? sp : s0) + tr.o(toff, tp);
+        const int c = ds[u] + 1;
+        if (c < best) {
+          best = c;
+          bu = u;
+        }
+      }
+      if (j == p.k) {
+        const unsigned g = plane_index(p, b, pz, by, bx);
+        d_out[g] = best;
+        if (IX) ix_out[g] = xs[bu];
+        if (best != d0) flag = true;
+      } else {
+        const int dst = ring_slot(j, pz) * p.cap + at;
+        ds[dst] = best;
+        if (IX) xs[dst] = xs[bu];
+      }
+    }
+    // plane t is in (the planes after it may still be on their way)
+    stage_wait_group<ED_RELAX_AHEAD>();
     __syncthreads();
   }
   if (changed) block_flag(changed, flag);
 }
 
 // K17: k sweeps of the watershed relaxation streamed through the block's
-// planes; state arrays c, s, l; the image is read from device memory (a
-// byte or two a voxel, cached).
-template <typename X>
+// planes. Shared memory: the levels' rings of (c, s) pairs (4 k p.cap
+// int2; p.cap is even, so they stay 8-byte aligned), then of l (4 k p.cap
+// ints); the image is read from device memory (a byte or two a voxel,
+// cached).
+template <typename X, int NT>
 __global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
 watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
                       const int* __restrict__ s, const int* __restrict__ l,
                       int* __restrict__ c_out, int* __restrict__ s_out,
                       int* __restrict__ l_out, const RelaxTile p,
                       int* changed) {
-  extern __shared__ int4 ed_relax_smem4[];
-  int* smem = reinterpret_cast<int*>(ed_relax_smem4);
+  extern __shared__ int ed_relax_smem[];
+  __shared__ int toff[ED_RELAX_MAXTAPS];
+  __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
   __shared__ RelaxLevel lv[ED_RELAX_MAXK + 1];
-  const RelaxBox b = relax_setup(p, lv);
-  const int* const src[3] = {c, s, l};
+  const RelaxBox b = relax_setup(p, toff, tmask, lv);
+  int2* cs = reinterpret_cast<int2*>(ed_relax_smem);
+  int* ls = ed_relax_smem + 2 * (4 * p.k + 4) * p.cap;
   __syncthreads();
+  TapRegs<NT> tr;
+  tr.load(toff, tmask);
   const RelaxLevel L0 = lv[0];
   const int t_end = lv[p.k].z1 - 1 + 2 * p.k;
   bool flag = false;
+  auto stage = [&](int z) {
+    if (z < L0.z1) {
+      const int slot = ring_slot(0, z) * p.cap;
+      for (int i = threadIdx.x; i < L0.n; i += blockDim.x) {
+        const unsigned yq = div_by((unsigned)i, L0.dx);
+        const unsigned g =
+            plane_index(p, b, z, (int)yq, i - (int)(yq * (unsigned)b.BX));
+        stage_async(&cs[slot + i].x, c + g);
+        stage_async(&cs[slot + i].y, s + g);
+        stage_async(ls + slot + i, l + g);
+      }
+    }
+    stage_commit();
+  };
+  for (int a = 0; a < ED_RELAX_AHEAD; ++a) stage(L0.z0 + a);
   for (int t = L0.z0; t <= t_end; ++t) {
-    if (t < L0.z1) stage_plane(p, b, L0, 3, t, src, smem);
+    stage(t + ED_RELAX_AHEAD);
     for (int i = threadIdx.x;; i += blockDim.x) {
-      int item, pz;
-      const int j = step_item(p, lv, t, i, &item, &pz);
+      int pos, pz;
+      const int j = step_item(p, lv, t, i, &pos, &pz);
       if (j == 0) break;
-      const RelaxLevel& L = lv[j];
-      const unsigned rq = div_by((unsigned)item, L.dq);
-      const int by = L.by0 + (int)rq;
-      const int qq = L.q0 + item - (int)(rq * (unsigned)L.QX);
-      const int col = 4 * qq;
-      const int bx0 = col - 4;  // the quad's first box column
-      const int own = ring(p, 3, j - 1, pz, 0) + by * p.pitch + col;
-      const int4 c0 = *reinterpret_cast<const int4*>(smem + own);
-      const int4 s0 = *reinterpret_cast<const int4*>(smem + own + p.cap);
-      const int4 l0 = *reinterpret_cast<const int4*>(smem + own + 2 * p.cap);
-      int nc[4] = {c0.x, c0.y, c0.z, c0.w};
-      int ns[4] = {s0.x, s0.y, s0.z, s0.w};
-      int nl[4] = {l0.x, l0.y, l0.z, l0.w};
-      const unsigned g = plane_index(p, b, pz, by, bx0);
-      int x[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[e] = bx0 + e >= L.bx0 && bx0 + e < L.bx1 ? (int)__ldg(img + g + e)
-                                                   : 0;
-      for (int r = 0; r < p.nrows; ++r) {
-        const int code = p.row[r];
-        int oz, oy;
-        if (row_off(p, b, code, pz, by, &oz, &oy)) continue;
-        const int base =
-            ring(p, 3, j - 1, pz + oz, 0) + (by + oy) * p.pitch + col;
-        int wc[6], ws[6], wl[6];
-        {
-          const int4 qc = *reinterpret_cast<const int4*>(smem + base);
-          const int4 qs =
-              *reinterpret_cast<const int4*>(smem + base + p.cap);
-          const int4 ql =
-              *reinterpret_cast<const int4*>(smem + base + 2 * p.cap);
-          wc[1] = qc.x, wc[2] = qc.y, wc[3] = qc.z, wc[4] = qc.w;
-          ws[1] = qs.x, ws[2] = qs.y, ws[3] = qs.z, ws[4] = qs.w;
-          wl[1] = ql.x, wl[2] = ql.y, wl[3] = ql.z, wl[4] = ql.w;
-        }
-        wc[0] = ws[0] = wl[0] = wc[5] = ws[5] = wl[5] = 0;
-        if (code & 16) {
-          wc[0] = smem[base - 1];
-          ws[0] = smem[base - 1 + p.cap];
-          wl[0] = smem[base - 1 + 2 * p.cap];
-        }
-        if (code & 64) {
-          wc[5] = smem[base + 4];
-          ws[5] = smem[base + 4 + p.cap];
-          wl[5] = smem[base + 4 + 2 * p.cap];
-        }
-#pragma unroll
-        for (int ox = -1; ox <= 1; ++ox) {
-          if (!(code & (16 << (ox + 1)))) continue;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int bx = bx0 + e;
-            if ((ox < 0 && bx == 0) || (ox > 0 && bx == b.BX - 1)) continue;
-            const int ul = wl[e + 1 + ox];
-            const int cc = wc[e + 1 + ox] > x[e] ? wc[e + 1 + ox] : x[e];
-            const int cs = (int)((unsigned)ws[e + 1 + ox] + 1u);
-            if (ul != 0 &&
-                (cc < nc[e] ||
-                 (cc == nc[e] && (cs < ns[e] || (cs == ns[e] && ul < nl[e]))))) {
-              nc[e] = cc;
-              ns[e] = cs;
-              nl[e] = ul;
-            }
-          }
+      int by, bx;
+      unsigned edges;
+      const int at = level_voxel(p, b, lv[j], pos, pz, &by, &bx, &edges);
+      const int sm = ring_slot(j - 1, pz - 1) * p.cap + at;
+      const int s0 = ring_slot(j - 1, pz) * p.cap + at;
+      const int sp = ring_slot(j - 1, pz + 1) * p.cap + at;
+      const unsigned g = plane_index(p, b, pz, by, bx);
+      const int x = (int)__ldg(img + g);
+      const int2 hv = cs[s0];
+      const int hl = ls[s0];
+      int nc = hv.x, ns = hv.y, nl = hl;
+#pragma unroll(NT > 0 && NT <= 8 ? NT : 1)
+      for (int tp = 0; tp < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++tp) {
+        if (NT == 0 && tp >= p.ntaps) break;
+        const unsigned m = tr.m(tmask, tp);
+        if (m & edges) continue;
+        const int u = (m & 1u ? sm : m & 256u ? sp : s0) + tr.o(toff, tp);
+        const int2 uv = cs[u];
+        const int ul = ls[u];
+        const int cc = uv.x > x ? uv.x : x;
+        const int cs1 = uv.y + 1;
+        if (ul != 0 && (cc < nc || (cc == nc && (cs1 < ns ||
+                                                 (cs1 == ns && ul < nl))))) {
+          nc = cc;
+          ns = cs1;
+          nl = ul;
         }
       }
       if (j == p.k) {
-        const int oc[4] = {c0.x, c0.y, c0.z, c0.w};
-        const int os[4] = {s0.x, s0.y, s0.z, s0.w};
-        const int ol[4] = {l0.x, l0.y, l0.z, l0.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (bx0 + e < L.bx0 || bx0 + e >= L.bx1) continue;
-          c_out[g + e] = nc[e];
-          s_out[g + e] = ns[e];
-          l_out[g + e] = nl[e];
-          if (nc[e] != oc[e] || ns[e] != os[e] || nl[e] != ol[e]) flag = true;
-        }
+        c_out[g] = nc;
+        s_out[g] = ns;
+        l_out[g] = nl;
+        if (nc != hv.x || ns != hv.y || nl != hl) flag = true;
       } else {
-        const int dst = ring(p, 3, j, pz, 0) + by * p.pitch + col;
-        *reinterpret_cast<int4*>(smem + dst) =
-            make_int4(nc[0], nc[1], nc[2], nc[3]);
-        *reinterpret_cast<int4*>(smem + dst + p.cap) =
-            make_int4(ns[0], ns[1], ns[2], ns[3]);
-        *reinterpret_cast<int4*>(smem + dst + 2 * p.cap) =
-            make_int4(nl[0], nl[1], nl[2], nl[3]);
+        const int dst = ring_slot(j, pz) * p.cap + at;
+        cs[dst] = make_int2(nc, ns);
+        ls[dst] = nl;
       }
     }
-    stage_wait();
+    stage_wait_group<ED_RELAX_AHEAD>();
     __syncthreads();
   }
   if (changed) block_flag(changed, flag);
@@ -691,9 +676,9 @@ bool make_dims(int ndim, const long long* shape, Dims* dm,
 }
 
 // a tile launch's geometry from the host's `args` (nz, ny, nx, tz, ty, tx,
-// k, ntaps, then the ntaps tap codes (oz + 1) * 9 + (oy + 1) * 3 + (ox + 1)
-// in raster order) for a state of `words` int32 arrays; its shared bytes
-// (the levels' rings) and blocks. False on a malformed launch.
+// k, ntaps, then the ntaps tap codes) for a state of `words` int32 words a
+// voxel; its shared bytes (the levels' rings) and blocks. False on a
+// malformed launch.
 bool make_tile(const int* args, int words, RelaxTile* p, long long* smem,
                long long* blocks) {
   if (args == nullptr) return false;
@@ -704,46 +689,35 @@ bool make_tile(const int* args, int words, RelaxTile* p, long long* smem,
   p->ty = args[4];
   p->tx = args[5];
   p->k = args[6];
-  const int ntaps = args[7];
+  p->ntaps = args[7];
   if (p->nz < 1 || p->ny < 1 || p->nx < 1 || p->tz < 1 || p->ty < 1 ||
-      p->tx < 1 || p->k < 1 || p->k > ED_RELAX_MAXK || ntaps < 0 ||
-      ntaps > ED_RELAX_MAXTAPS ||
+      p->tx < 1 || p->k < 1 || p->k > ED_RELAX_MAXK || p->ntaps < 0 ||
+      p->ntaps > ED_RELAX_MAXTAPS ||
       (long long)p->nz * p->ny * p->nx >= (1LL << 31))
     return false;
   p->rz = p->ry = p->rx = 0;
-  p->nrows = 0;
-  for (int t = 0; t < ntaps; ++t) {
-    const int code = args[8 + t];
-    if (code < 0 || code > 26 || code == 13) return false;
+  for (int t = 0; t < ED_RELAX_MAXTAPS; ++t) {
+    const int code = t < p->ntaps ? args[8 + t] : 13;
+    if (code < 0 || code > 26 || (t < p->ntaps && code == 13)) return false;
+    p->code[t] = code;
     p->rz |= code / 9 != 1;
     p->ry |= code / 3 % 3 != 1;
     p->rx |= code % 3 != 1;
-    // a row's taps are consecutive in raster order, ox ascending
-    const int key = code / 3, bit = 16 << (code % 3);
-    if (p->nrows && (p->row[p->nrows - 1] & 15) == key) {
-      if ((p->row[p->nrows - 1] & ~15) >= bit) return false;
-      p->row[p->nrows - 1] |= bit;
-    } else {
-      for (int r = 0; r < p->nrows; ++r)
-        if ((p->row[r] & 15) >= key) return false;
-      p->row[p->nrows++] = key | bit;
-    }
   }
   const long long by = std::min<long long>(p->ny, p->ty + 2LL * p->k * p->ry);
   const long long bx = std::min<long long>(p->nx, p->tx + 2LL * p->k * p->rx);
-  const long long pitch = (bx + 8 + 3) / 4 * 4;
-  if (by * pitch >= (1LL << 24)) return false;
-  p->pitch = (int)pitch;
-  p->cap = (int)(by * pitch);
+  long long cap = by * bx;
+  cap += cap & 1;  // K17's (cost, steps) pairs stay 8-byte aligned
+  p->cap = (int)cap;
   p->gz = (int)((p->nz + (long long)p->tz - 1) / p->tz);
   p->gy = (int)((p->ny + (long long)p->ty - 1) / p->ty);
   p->gx = (int)((p->nx + (long long)p->tx - 1) / p->tx);
-  *smem = 16LL * p->k * words * p->cap;
+  *smem = 16LL * (p->k + 1) * cap * words;
   *blocks = (long long)p->gz * p->gy * p->gx;
   return true;
 }
 
-template <bool IX>
+template <bool IX, int NT>
 cudaError_t launch_chamfer_tile(const int* d, const int* ix, int* d_out,
                                 int* ix_out, const RelaxTile& p, int smem,
                                 unsigned blocks, int* changed,
@@ -751,27 +725,60 @@ cudaError_t launch_chamfer_tile(const int* d, const int* ix, int* d_out,
   static int allowed = 0;
   // the allowance covers the static shared memory too: a launch whose
   // dynamic bytes alone fit the default 48 KB may not with it
-  const cudaError_t err = allow_smem(chamfer_tile_kernel<IX>, &allowed,
+  const cudaError_t err = allow_smem(chamfer_tile_kernel<IX, NT>, &allowed,
                                      smem + ED_RELAX_STATIC);
   if (err != cudaSuccess) return err;
-  chamfer_tile_kernel<IX><<<blocks, ED_RELAX_THREADS, smem, st>>>(
+  chamfer_tile_kernel<IX, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
       d, ix, d_out, ix_out, p, changed);
   return cudaGetLastError();
 }
 
-template <typename X>
+template <typename X, int NT>
 cudaError_t launch_watershed_tile(const void* img, const int* c,
                                   const int* s, const int* l, int* c_out,
                                   int* s_out, int* l_out, const RelaxTile& p,
                                   int smem, unsigned blocks, int* changed,
                                   cudaStream_t st) {
   static int allowed = 0;
-  const cudaError_t err = allow_smem(watershed_tile_kernel<X>, &allowed,
+  const cudaError_t err = allow_smem(watershed_tile_kernel<X, NT>, &allowed,
                                      smem + ED_RELAX_STATIC);
   if (err != cudaSuccess) return err;
-  watershed_tile_kernel<X><<<blocks, ED_RELAX_THREADS, smem, st>>>(
+  watershed_tile_kernel<X, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
       static_cast<const X*>(img), c, s, l, c_out, s_out, l_out, p, changed);
   return cudaGetLastError();
+}
+
+// the tap counts with an unrolled instantiation: the cross and the full
+// structure of 2 and 3 axes (1 for the others)
+#define ED_RELAX_NT(F, n, ...)                                    \
+  ((n) == 4    ? F<4>(__VA_ARGS__)                                \
+   : (n) == 6  ? F<6>(__VA_ARGS__)                                \
+   : (n) == 8  ? F<8>(__VA_ARGS__)                                \
+   : (n) == 26 ? F<26>(__VA_ARGS__)                               \
+               : F<0>(__VA_ARGS__))
+
+template <int NT>
+cudaError_t chamfer_nt(bool with_ix, const int* d, const int* ix, int* d_out,
+                       int* ix_out, const RelaxTile& p, int smem,
+                       unsigned blocks, int* changed, cudaStream_t st) {
+  return with_ix ? launch_chamfer_tile<true, NT>(d, ix, d_out, ix_out, p,
+                                                 smem, blocks, changed, st)
+                 : launch_chamfer_tile<false, NT>(d, ix, d_out, ix_out, p,
+                                                  smem, blocks, changed, st);
+}
+
+template <int NT>
+cudaError_t watershed_nt(int img_bytes, const void* img, const int* c,
+                         const int* s, const int* l, int* c_out, int* s_out,
+                         int* l_out, const RelaxTile& p, int smem,
+                         unsigned blocks, int* changed, cudaStream_t st) {
+  return img_bytes == 1
+             ? launch_watershed_tile<uint8_t, NT>(img, c, s, l, c_out, s_out,
+                                                  l_out, p, smem, blocks,
+                                                  changed, st)
+             : launch_watershed_tile<uint16_t, NT>(img, c, s, l, c_out,
+                                                   s_out, l_out, p, smem,
+                                                   blocks, changed, st);
 }
 
 }  // namespace
@@ -885,12 +892,9 @@ int ed_chamfer_tile(const int* d, const int* ix, int* d_out, int* ix_out,
   if (smem > ED_SMEM_LIMIT - ED_RELAX_STATIC || blocks > INT32_MAX)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(ix ? launch_chamfer_tile<true>(d, ix, d_out, ix_out, p,
-                                              (int)smem, (unsigned)blocks,
-                                              changed, st)
-                  : launch_chamfer_tile<false>(d, ix, d_out, ix_out, p,
-                                               (int)smem, (unsigned)blocks,
-                                               changed, st));
+  return (int)ED_RELAX_NT(chamfer_nt, p.ntaps, ix != nullptr, d, ix, d_out,
+                          ix_out, p, (int)smem, (unsigned)blocks, changed,
+                          st);
 }
 
 // K17's tile route: k sweeps in one launch; img uint8 (img_bytes 1) or
@@ -907,13 +911,9 @@ int ed_watershed_tile(const void* img, int img_bytes, const int* c,
   if (smem > ED_SMEM_LIMIT - ED_RELAX_STATIC || blocks > INT32_MAX)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(img_bytes == 1
-                   ? launch_watershed_tile<uint8_t>(
-                         img, c, s, l, c_out, s_out, l_out, p, (int)smem,
-                         (unsigned)blocks, changed, st)
-                   : launch_watershed_tile<uint16_t>(
-                         img, c, s, l, c_out, s_out, l_out, p, (int)smem,
-                         (unsigned)blocks, changed, st));
+  return (int)ED_RELAX_NT(watershed_nt, p.ntaps, img_bytes, img, c, s, l,
+                          c_out, s_out, l_out, p, (int)smem,
+                          (unsigned)blocks, changed, st);
 }
 
 const char* ed_distance_error_string(int err) {

@@ -120,22 +120,21 @@ _WRITE_WORK = {False: 1, True: 16}
 # structure, a block's dynamic shared memory on the H100 (227 KB less the
 # kernel's static kilobyte) and an SM's
 RELAX_THREADS = 256
-RELAX_BLOCKS = 3
+RELAX_BLOCKS = 4
 RELAX_MAX_TAPS = 26
 RELAX_SMEM_LIMIT = 232448 - 1024
 _SM_SMEM = 233472
 # the relaxation plan's cost model, in nanoseconds of one SM: a launch's
 # host call (the driver's lean launch; the card runs ahead while a launch
 # takes longer) and its gap on the card, a byte staged from or written to
-# device memory (about 40 GB/s an SM from L2), a quad's row load (an
-# aligned 16-byte load of each state array), a quad's tap (four voxels'
-# compares), a block's step (its barrier and the staged plane's wait); an
+# device memory (about 40 GB/s an SM from L2), an int32 word a sweep reads
+# from shared memory (128 bytes a clock an SM, twice for the instructions
+# around it), a block's step (its barrier and the staged plane's wait); an
 # SM with fewer blocks than RELAX_BLOCKS hides less latency
 _RELAX_HOST_NS = 8000.0
 _RELAX_LAUNCH_NS = 2000.0
 _RELAX_BYTE_NS = 0.025
-_RELAX_ROW_NS = 0.06
-_RELAX_TAP_NS = 0.1
+_RELAX_WORD_NS = 0.04
 _RELAX_STEP_NS = 500.0
 _RELAX_SOLO = 1.3
 
@@ -1690,45 +1689,48 @@ RelaxPlan = collections.namedtuple("RelaxPlan",
 _SWEEP_PLAN = RelaxPlan("sweep", None, 1, None, 0, 0)
 
 
-def relax_pitch(columns: int) -> int:
-    """A ring row's ints in K16's and K17's tile route: the box plane's
-    ``columns`` behind and before 4 pad columns, in whole quads."""
-    return -(-(columns + 8) // 4) * 4
+def _relax_words(words: int, img_bytes: int, ntaps: int) -> int:
+    """The shared int32 words a tile-route sweep reads for one voxel: its
+    own state and each tap's (K17, ``img_bytes`` > 0: a neighbour's cost,
+    steps and label; K16 its distance, its index only where it wins)."""
+    return words + ntaps * (3 if img_bytes else 1)
 
 
 @functools.lru_cache(maxsize=256)
-def relax_plan(shape3, reach3, ntaps, nrows, words, img_bytes, want,
-               route=None, k=None, tile=None,
-               budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
+def relax_plan(shape3, reach3, ntaps, words, img_bytes, want, route=None,
+               k=None, tile=None, budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
     """K16's or K17's route for ``want`` sweeps a group on an array of
     ``shape3`` voxels (three axes, leading ones added) under ``ntaps`` taps
-    in ``nrows`` rows (distinct offsets on the two outer axes) of
-    ``reach3`` (0 or 1 per axis), ``words`` int32 state arrays and an image
-    of ``img_bytes`` (K16: 1 or 2 arrays, no image; K17: 3 arrays and a 1-
-    or 2-byte image, read from device memory). ``"tile"``: the tile (z,
-    y, x: a block's chunk of planes and its rows and columns), the sweeps a
-    launch ``k <= min(want, 8)``, the box a block stages (the tile plus
-    ``k`` reaches a side, clamped to the array), the shared bytes of its
-    levels' rings (four box planes of :func:`relax_pitch` rows for the
-    staged state and each sweep but the last) within ``budget``, and the
+    of ``reach3`` (0 or 1 per axis), a state of ``words`` int32 words a
+    voxel and an image of ``img_bytes`` (K16: 1 or 2 words, no image; K17:
+    3 words and a 1- or 2-byte image, read from device memory).
+    ``"tile"``: the tile (z, y, x: a block's chunk of planes and its rows
+    and columns), the sweeps a launch ``k <= min(want, 8)``, the box a
+    block stages (the tile plus ``k`` reaches a side, clamped to the
+    array), the shared bytes of its levels' rings (eight box planes for the
+    staged state, a plane staged a step ahead, and four for each sweep but
+    the last; their voxels rounded up to even) within ``budget``, and the
     blocks, chosen by the least modelled time of ``want`` sweeps in
-    launches of ``k`` and the rest: per launch a gap, plus the longer of
-    its host call and the busiest SM's blocks, each staging its box,
-    sweeping its levels' regions in quads of four voxels of a row (a row
-    load a structure row and state array, a tap's compares), stepping
-    through its planes and writing its tile. ``"sweep"`` where no box
-    fits. ``route``, ``k`` and ``tile`` force a choice (``"tile"`` raises
-    where none fits)."""
+    launches of ``k`` and the rest: per launch a
+    gap, plus the longer of its host call and the busiest SM's blocks,
+    each staging its box, sweeping its levels' regions (the tile widened
+    by the reaches of the sweeps after it, :func:`_relax_words` a voxel),
+    stepping through its planes and writing its tile. ``"sweep"`` where no
+    box fits. ``route``, ``k`` and ``tile`` force a choice (``"tile"``
+    raises where none fits)."""
     n3, r3 = tuple(shape3), tuple(reach3)
-    quad = (_RELAX_ROW_NS * words * (nrows + 1) + _RELAX_TAP_NS * ntaps
-            + 4 * img_bytes * _RELAX_BYTE_NS)
+    visit = (_relax_words(words, img_bytes, ntaps) * _RELAX_WORD_NS
+             + img_bytes * _RELAX_BYTE_NS)
 
     def grown(t, left):
         return tuple(min(n, e + 2 * left * r) for n, e, r in zip(n3, t, r3))
 
     def shared(t, k):
+        """the levels' rings: 8 box planes staged, 4 for each sweep but the
+        last, their voxels rounded up to even"""
         _, by, bx = grown(t, k)
-        return 16 * k * words * by * relax_pitch(bx)
+        cap = by * bx
+        return 16 * (k + 1) * words * (cap + cap % 2)
     best = None
     if route != "sweep":
         tzs = sorted({min(n3[0], t) for t in (4, 8, 16, 32, 64)})
@@ -1743,11 +1745,10 @@ def relax_plan(shape3, reach3, ntaps, nrows, words, img_bytes, want,
             blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
             per_sm = min(RELAX_BLOCKS, _SM_SMEM // (smem + 1024))
             box = grown(t, k)
-            quads = sum(z * y * (-(-x // 4) + 1) for z, y, x in
-                        (grown(t, k - j) for j in range(1, k + 1)))
+            items = sum(math.prod(grown(t, k - j)) for j in range(1, k + 1))
             work = (_RELAX_BYTE_NS * 4 * words * (math.prod(box)
                                                    + math.prod(t))
-                    + quad * quads + _RELAX_STEP_NS * (box[0] + 2 * k))
+                    + visit * items + _RELAX_STEP_NS * (box[0] + 2 * k))
             if per_sm < RELAX_BLOCKS:
                 work *= _RELAX_SOLO
             return _RELAX_LAUNCH_NS + max(_RELAX_HOST_NS,
@@ -1783,8 +1784,7 @@ class RelaxTaps:
     axis ``k``, bit ``8 + k`` up), uploaded once per device; for the tile
     route (1-3 axes, ``tiled``) ``shape3`` (leading axes of 1 added),
     ``reach3`` (1 on an axis a tap steps along), the tap codes ``(oz + 1) *
-    9 + (oy + 1) * 3 + (ox + 1)``, their ``rows`` (distinct ``(oz, oy)``),
-    :meth:`plan` and :meth:`tile_args`."""
+    9 + (oy + 1) * 3 + (ox + 1)``, :meth:`plan` and :meth:`tile_args`."""
 
     def __init__(self, structure, shape):
         self.shape = tuple(int(n) for n in shape)
@@ -1806,8 +1806,6 @@ class RelaxTaps:
         self.reach3 = tuple(int(any(o[a] for o in offs3)) for a in range(3))
         self.codes = [(oz + 1) * 9 + (oy + 1) * 3 + ox + 1
                       for oz, oy, ox in offs3]
-        # the distinct (oz, oy) rows, each read as one quad load a thread
-        self.rows = len({code // 3 for code in self.codes})
         self._args = {}
 
     def on(self, device) -> torch.Tensor:
@@ -1832,8 +1830,8 @@ class RelaxTaps:
                 raise ValueError("relax_plan: the tile route takes 1 to 3 "
                                  "axes")
             return _SWEEP_PLAN
-        return relax_plan(self.shape3, self.reach3, len(self.offs),
-                          self.rows, words, img_bytes, int(want), route, k,
+        return relax_plan(self.shape3, self.reach3, len(self.offs), words,
+                          img_bytes, int(want), route, k,
                           None if tile is None else tuple(tile), budget)
 
     def tile_args(self, plan: RelaxPlan, k: int):

@@ -9,9 +9,9 @@ it. On the CPU:
 
 * a numpy model of the kernels, block by block and step by step (the box
   plane, the tile's rows and columns widened by ``k`` reaches and clamped
-  to the array; at step ``t`` plane ``t`` staged into a ring of four slots
-  and sweep ``j`` computing plane ``t - 2j`` of the tile widened by the
-  reaches still to come from sweep ``j - 1``'s ring, each slot read
+  to the array; plane ``t + 1`` staged at step ``t`` into a ring of eight
+  slots and sweep ``j`` computing plane ``t - 2j`` of the tile widened by
+  the reaches still to come from sweep ``j - 1``'s ring of four, each slot read
   checked to hold the plane wanted; a voxel's edges from its coordinates;
   the flag of the last sweep over the tile; every slot element junk until
   written), equals ``k`` sweeps of the plain twins bit for bit, the flag
@@ -53,10 +53,10 @@ def _tile_model(state, img, taps, k, tile):
     None or not, ``img`` None; K17: ``(c, s, l)`` and its image), block by
     block over tiles of ``tile`` (z, y, x), as the kernels stream them: a
     block's box plane is the tile's rows and columns widened by ``k``
-    reaches (clamped); at step ``t`` level 0 stages plane ``t`` into its
-    ring of four plane slots and sweep ``j`` computes plane ``t - 2j`` of
-    its region (the tile widened by the ``k - j`` reaches after it) from
-    level ``j - 1``'s slots, a voxel's edges from its box-plane
+    reaches (clamped); level 0 stages plane ``t + 1`` at step ``t`` into its
+    ring of eight plane slots, readable after step ``t + 1``, and sweep
+    ``j`` computes plane ``t - 2j`` of its region (the tile widened by the
+    ``k - j`` reaches after it) from level ``j - 1``'s slots (four each), a voxel's edges from its box-plane
     coordinates and the array's planes; the last sweep writes the tile.
     Every slot element holds junk until written, and each slot read is
     checked to hold the plane the sweep wants. Returns ``(state, flag)``."""
@@ -76,17 +76,33 @@ def _tile_model(state, img, taps, k, tile):
         BY, BX = Y1 - Y0, X1 - X0
         levels = [[_widen(t0[a], t1[a], (k - j) * r3[a], n3[a])
                    for a in range(3)] for j in range(k + 1)]
-        # ring[j][slot] = (plane held, arrays of (BY, BX) per state part)
+        # ring[j][slot] = (plane held, arrays of (BY, BX) per state part):
+        # level 0 keeps eight slots, each sweep four
         ring = [[(None, [np.full((BY, BX), JUNK, np.int32) for _ in arrs])
-                 for _ in range(4)] for _ in range(k)]
+                 for _ in range(8 if j == 0 else 4)] for j in range(k)]
         t_end = levels[k][0][1] - 1 + 2 * k
-        for t in range(levels[0][0][0], t_end + 1):
+
+        def staged(z):
+            parts = [np.full((BY, BX), JUNK, np.int32) for _ in arrs]
+            for i in live:
+                parts[i][...] = arrs[i][z, Y0:Y1, X0:X1]
+            return parts
+        # plane z is staged a step ahead (at step z - 1) and may still be in
+        # flight until the barrier that ends step z
+        pending = {}
+        zs = levels[0][0][0]
+        if zs < levels[0][0][1]:
+            pending[zs] = staged(zs)
+        for t in range(zs, t_end + 1):
             writes = []
-            if t < levels[0][0][1]:
-                parts = [np.full((BY, BX), JUNK, np.int32) for _ in arrs]
-                for i in live:
-                    parts[i][...] = arrs[i][t, Y0:Y1, X0:X1]
-                writes.append((0, t, parts))
+            if t + 1 < levels[0][0][1]:
+                nxt = (t + 1, staged(t + 1))
+            else:
+                nxt = None
+            if t in pending:
+                writes.append((0, t, pending.pop(t)))
+            if nxt is not None:
+                pending[nxt[0]] = nxt[1]
             for j in range(1, k + 1):
                 pz = t - 2 * j
                 (z0, z1), (y0, y1), (x0, x1) = levels[j]
@@ -94,7 +110,8 @@ def _tile_model(state, img, taps, k, tile):
                     continue
                 by, bx = np.meshgrid(np.arange(y0, y1) - Y0,
                                      np.arange(x0, x1) - X0, indexing="ij")
-                held, parts = ring[j - 1][pz % 4]
+                slots = 8 if j == 1 else 4
+                held, parts = ring[j - 1][pz % slots]
                 assert held == pz
                 own = [None if i not in live else parts[i][by, bx]
                        for i in range(len(arrs))]
@@ -109,7 +126,7 @@ def _tile_model(state, img, taps, k, tile):
                             ok &= g != 0
                         elif o > 0:
                             ok &= g != n - 1
-                    held, nb_parts = ring[j - 1][(pz + oz) % 4]
+                    held, nb_parts = ring[j - 1][(pz + oz) % slots]
                     assert not ok.any() or held == pz + oz
                     u = (np.clip(by + oy, 0, BY - 1), np.clip(bx + ox, 0,
                                                               BX - 1))
@@ -146,7 +163,7 @@ def _tile_model(state, img, taps, k, tile):
                     writes.append((j, pz, new))
             # the step's barrier: the planes written become readable
             for j, pz, parts in writes:
-                ring[j][pz % 4] = (pz, parts)
+                ring[j][pz % (8 if j == 0 else 4)] = (pz, parts)
     shape = tuple(taps.shape)
     return [None if o is None else torch.from_numpy(o.reshape(shape))
             for o in outs], flag
@@ -230,21 +247,20 @@ def test_plan_box_covers_the_reaches(words, img_bytes):
         shape3 = tuple(int(n) for n in rs.randint(1, 300, 3))
         reach3 = tuple(int(r) for r in rs.randint(0, 2, 3))
         want = int(rs.randint(1, 9))
-        p = mo.relax_plan(shape3, reach3, 6, 5, words, img_bytes, want)
+        p = mo.relax_plan(shape3, reach3, 6, words, img_bytes, want)
         assert p.route == "tile" and 1 <= p.k <= want
         assert p.box == tuple(min(n, t + 2 * p.k * r) for n, t, r in
                               zip(shape3, p.tile, reach3))
-        # four planes of the box plane (its rows padded by 4 columns each
-        # side, in whole quads) for the staged state and each sweep but
-        # the last; the image stays in device memory
-        pitch = mo.relax_pitch(p.box[2])
-        assert pitch % 4 == 0 and p.box[2] + 8 <= pitch < p.box[2] + 12
-        assert p.smem == 16 * p.k * words * p.box[1] * pitch
+        # eight box planes (their voxels rounded up to even) for the staged
+        # state and four for each sweep but the last; the image stays in
+        # device memory
+        cap = p.box[1] * p.box[2]
+        assert p.smem == 16 * (p.k + 1) * words * (cap + cap % 2)
         assert p.smem <= mo.RELAX_SMEM_LIMIT
         assert p.blocks == math.prod(-(-n // t) for n, t in
                                      zip(shape3, p.tile))
         for k in (1, 2, 4, 8):
-            q = mo.relax_plan(shape3, reach3, 6, 5, words, img_bytes, 8,
+            q = mo.relax_plan(shape3, reach3, 6, words, img_bytes, 8,
                               route="tile", k=k)
             assert q.k == k and q.smem <= mo.RELAX_SMEM_LIMIT
 
@@ -256,12 +272,10 @@ def test_plan_routes():
                                                          1)):
         taps = mo.relax_taps(cross, shape)
         assert taps.reach3 == (1, 1, 1) and len(taps.codes) == 6
-        assert taps.rows == 5
         assert taps.plan(words, img, 8).route == "tile"
     # leading axes of 1 and the reach along them
     taps = mo.relax_taps(mo.generate_binary_structure(2, 2), (5, 7))
     assert taps.shape3 == (1, 5, 7) and taps.reach3 == (0, 1, 1)
-    assert taps.rows == 3
     assert sorted(taps.codes) == sorted(
         (oy + 1) * 3 + ox + 1 + 9 for oy in (-1, 0, 1) for ox in (-1, 0, 1)
         if oy or ox)
@@ -299,10 +313,10 @@ def _forced_k(monkeypatch, k):
     """Every relaxation plan on the CPU with ``k`` sweeps a launch."""
     plan = mo.relax_plan
 
-    def forced(shape3, reach3, ntaps, nrows, words, img_bytes, want,
-               route=None, kk=None, tile=None, budget=mo.RELAX_SMEM_LIMIT):
-        return plan(shape3, reach3, ntaps, nrows, words, img_bytes, want,
-                    "tile", k, None, budget)
+    def forced(shape3, reach3, ntaps, words, img_bytes, want, route=None,
+               kk=None, tile=None, budget=mo.RELAX_SMEM_LIMIT):
+        return plan(shape3, reach3, ntaps, words, img_bytes, want, "tile", k,
+                    None, budget)
     monkeypatch.setattr(mo, "relax_plan", forced)
 
 
