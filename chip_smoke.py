@@ -4332,8 +4332,8 @@ def _route_counts():
 
 def _check_c19(configs):
     """c19's K15 rungs, K16 and K17 sweeps and their launches per route per
-    call, printed and held to :func:`_c19_calls`; K16 and K17 must run in
-    fewer launches than sweeps."""
+    call, printed and held to :func:`_c19_calls` (the tile route's launches
+    follow its plans' k)."""
     for cfg in configs:
         if cfg.name != "c19":
             continue
@@ -4346,12 +4346,6 @@ def _check_c19(configs):
         if got != want:
             raise AssertionError(f"c19: launches per call {got}, not "
                                  f"{want}")
-        for call, name in (("cdt", "chamfer"), ("watershed", "watershed")):
-            c = got[call]
-            if c.get(f"{name}_tile_launches", 0) >= c[f"{name}_sweeps"]:
-                raise AssertionError(f"c19 {call}: {c}, not fewer "
-                                     "launches than sweeps on the tile "
-                                     "route")
 
 
 def _against_cpu(configs, outs):
@@ -5859,8 +5853,8 @@ def _times_distance(row, card, cfg19):
 # the tiles the A/B of K16's and K17's tile route tries at each k beside
 # the plan's (those that fit the shared memory): a block's chunk of planes
 # by its rows and columns
-_RELAX_AB_TILES = tuple((z,) + yx for z in (8, 16, 32, 80)
-                        for yx in ((8, 32), (16, 32), (32, 32), (16, 64)))
+_RELAX_AB_TILES = ((8, 8, 32), (8, 16, 32), (16, 16, 32), (32, 16, 32),
+                   (16, 32, 32), (32, 32, 32), (16, 16, 64), (16, 16, 128))
 
 
 def _times_relax(row, name, taps, words, nbytes, start, sweeper_on, plain,

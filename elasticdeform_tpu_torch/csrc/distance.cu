@@ -42,26 +42,26 @@
 //
 //   tile  (1-3 axes, leading axes of 1 added): chamfer_tile_kernel and
 //         watershed_tile_kernel run k <= 8 sweeps in one launch. A block
-//         owns a tile (a chunk of planes by rows by columns) and streams
-//         through its planes: its box plane is the tile's rows and columns
-//         widened by k reaches and clamped to the array; at step t it
-//         stages plane t of the box (the state, with cp.async) into level
-//         0's ring of four planes in shared memory, and sweep j computes
-//         plane t - 2j of its region (the tile widened by the k - j reaches
-//         of the sweeps after it) from level j - 1's planes t - 2j - 1 ..
-//         t - 2j + 1, which earlier steps made, into level j's ring, so one
-//         barrier a step orders them and each sweep reads only the sweep
-//         before it. The last sweep writes the tile to device memory. Along
-//         z nothing is staged twice but a chunk's k planes each side; the
-//         rows and columns pay the widened regions. A region voxel on the
-//         box plane's edge is on the array's edge (the box holds every
-//         region one reach past it, or is clamped there), so a voxel's edge
-//         bits come from its coordinates, with no division chain. The flag
-//         is the last sweep's, over the tile; tiles partition the array, so
-//         the blocks' votes make the flag of the sweep. The result is k
-//         sweeps of the plain twin bit for bit (no Gauss-Seidel, no
-//         block-local fixpoint: watershed order and the carried indices
-//         depend on the sweep history).
+//         of 1024 threads owns a tile (a chunk of planes by rows by
+//         columns) and streams through its planes: its box plane is the
+//         tile's rows and columns widened by k reaches and clamped to the
+//         array; at step t it stages plane t + 1 of the box (the state,
+//         with cp.async) into level 0's ring of eight planes in shared
+//         memory, and sweep j computes plane t - 2j of its region (the tile
+//         widened by the k - j reaches of the sweeps after it) from level
+//         j - 1's planes t - 2j - 1 .. t - 2j + 1, which earlier steps made,
+//         into level j's ring of four, so one barrier a step orders them
+//         and each sweep reads only the sweep before it. The last sweep
+//         writes the tile to device memory. Along z nothing is staged twice
+//         but a chunk's k planes each side; the rows and columns pay the
+//         widened regions. A region voxel on the box plane's edge is on the
+//         array's edge (the box holds every region one reach past it, or is
+//         clamped there), so a voxel's edge bits come from its coordinates,
+//         with no division chain. The flag is the last sweep's, over the
+//         tile; tiles partition the array, so the blocks' votes make the
+//         flag of the sweep. The result is k sweeps of the plain twin bit
+//         for bit (no Gauss-Seidel, no block-local fixpoint: watershed
+//         order and the carried indices depend on the sweep history).
 //   sweep (more than three axes, or no box within the shared memory):
 //         chamfer_sweep_kernel and watershed_sweep_kernel, one sweep a
 //         launch, one thread a voxel in raster order; per voxel a bit mask
@@ -100,17 +100,12 @@
 #define ED_DIST_MAXD 8
 #define ED_DIST_THREADS 256
 #define ED_DIST_BLOCKS 4096
-// K16's and K17's tile route: threads a block and the blocks an SM the
-// registers are sized for (64 a thread; the boxes' shared memory may allow
-// fewer), sweeps a launch, taps of a 3^3 structure (the centre dropped), a
-// block's shared memory on the H100
-#ifndef ED_RELAX_THREADS
-#define ED_RELAX_THREADS 256
-#define ED_RELAX_BLOCKS 4
-#endif
-#ifndef ED_RELAX_AHEAD
-#define ED_RELAX_AHEAD 1
-#endif
+// K16's and K17's tile route: threads a block (one block an SM, 64
+// registers a thread: the A/B of relax_ab.py, commit 569622d, found larger
+// blocks faster for k >= 2, since a step's items are spread over more
+// threads), sweeps a launch, taps of a 3^3 structure (the centre dropped),
+// a block's shared memory on the H100
+#define ED_RELAX_THREADS 1024
 #define ED_RELAX_MAXK 8
 #define ED_RELAX_MAXTAPS 26
 #define ED_SMEM_LIMIT 232448
@@ -430,12 +425,12 @@ struct TapRegs {
 };
 
 // The sweeps stream through the block's planes: at step t, level 0 stages
-// plane t of the box and sweep j computes plane t - 2j of its region from
-// level j - 1's planes t - 2j - 1 .. t - 2j + 1, which earlier steps made,
-// so one barrier a step orders them; each level keeps a ring of four planes
-// (three read while the fourth is written). The last sweep writes the tile
-// to device memory. A step's items (a level and a voxel of its plane)
-// are shared out over the block's threads.
+// plane t + 1 of the box and sweep j computes plane t - 2j of its region
+// from level j - 1's planes t - 2j - 1 .. t - 2j + 1, which earlier steps
+// made, so one barrier a step orders them; each sweep's level keeps a ring
+// of four planes (three read while the fourth is written), level 0 eight.
+// The last sweep writes the tile to device memory. A step's items (a level
+// and a voxel of its plane) are shared out over the block's threads.
 
 // the ring slot of level j's plane pz: level 0 keeps eight (it stages a
 // plane a step ahead of the one its readers wait for), each sweep four
@@ -488,10 +483,10 @@ __device__ __forceinline__ unsigned plane_index(const RelaxTile& p,
 }
 
 // K16: k sweeps of the chamfer relaxation streamed through the block's
-// planes. Shared memory: the levels' rings of d (4 k p.cap ints), then
-// (IX) of ix.
+// planes. Shared memory: the levels' rings of d (4 k + 4 planes of p.cap
+// ints, ring_slot's order), then (IX) of ix.
 template <bool IX, int NT>
-__global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
+__global__ void __launch_bounds__(ED_RELAX_THREADS, 1)
 chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
                     int* __restrict__ d_out, int* __restrict__ ix_out,
                     const RelaxTile p, int* changed) {
@@ -522,9 +517,9 @@ chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
     }
     stage_commit();
   };
-  for (int a = 0; a < ED_RELAX_AHEAD; ++a) stage(L0.z0 + a);
+  stage(L0.z0);
   for (int t = L0.z0; t <= t_end; ++t) {
-    stage(t + ED_RELAX_AHEAD);
+    stage(t + 1);
     for (int i = threadIdx.x;; i += blockDim.x) {
       int pos, pz;
       const int j = step_item(p, lv, t, i, &pos, &pz);
@@ -561,20 +556,19 @@ chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
         if (IX) xs[dst] = xs[bu];
       }
     }
-    // plane t is in (the planes after it may still be on their way)
-    stage_wait_group<ED_RELAX_AHEAD>();
+    // plane t is in (plane t + 1 may still be on its way)
+    stage_wait_group<1>();
     __syncthreads();
   }
   if (changed) block_flag(changed, flag);
 }
 
 // K17: k sweeps of the watershed relaxation streamed through the block's
-// planes. Shared memory: the levels' rings of (c, s) pairs (4 k p.cap
-// int2; p.cap is even, so they stay 8-byte aligned), then of l (4 k p.cap
-// ints); the image is read from device memory (a byte or two a voxel,
-// cached).
+// planes. Shared memory: the levels' rings of (c, s) pairs (4 k + 4 planes
+// of p.cap int2; p.cap is even, so they stay 8-byte aligned), then of l;
+// the image is read from device memory (a byte or two a voxel, cached).
 template <typename X, int NT>
-__global__ void __launch_bounds__(ED_RELAX_THREADS, ED_RELAX_BLOCKS)
+__global__ void __launch_bounds__(ED_RELAX_THREADS, 1)
 watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
                       const int* __restrict__ s, const int* __restrict__ l,
                       int* __restrict__ c_out, int* __restrict__ s_out,
@@ -607,9 +601,9 @@ watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
     }
     stage_commit();
   };
-  for (int a = 0; a < ED_RELAX_AHEAD; ++a) stage(L0.z0 + a);
+  stage(L0.z0);
   for (int t = L0.z0; t <= t_end; ++t) {
-    stage(t + ED_RELAX_AHEAD);
+    stage(t + 1);
     for (int i = threadIdx.x;; i += blockDim.x) {
       int pos, pz;
       const int j = step_item(p, lv, t, i, &pos, &pz);
@@ -653,7 +647,7 @@ watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
         ls[dst] = nl;
       }
     }
-    stage_wait_group<ED_RELAX_AHEAD>();
+    stage_wait_group<1>();
     __syncthreads();
   }
   if (changed) block_flag(changed, flag);

@@ -116,27 +116,22 @@ _STAGE_WORK = {False: 2, True: 24}
 _WRITE_WORK = {False: 1, True: 16}
 
 # K16's and K17's tile route (csrc/distance.cu ED_RELAX_*): threads a block
-# and the blocks an SM its registers are sized for, taps of a 3^ndim
-# structure, a block's dynamic shared memory on the H100 (227 KB less the
-# kernel's static kilobyte) and an SM's
-RELAX_THREADS = 256
-RELAX_BLOCKS = 4
+# (one block an SM), taps of a 3^ndim structure, a block's dynamic shared
+# memory on the H100 (227 KB less the kernel's static kilobyte)
+RELAX_THREADS = 1024
 RELAX_MAX_TAPS = 26
 RELAX_SMEM_LIMIT = 232448 - 1024
-_SM_SMEM = 233472
-# the relaxation plan's cost model, in nanoseconds of one SM: a launch's
-# host call (the driver's lean launch; the card runs ahead while a launch
-# takes longer) and its gap on the card, a byte staged from or written to
-# device memory (about 40 GB/s an SM from L2), an int32 word a sweep reads
-# from shared memory (128 bytes a clock an SM, twice for the instructions
-# around it), a block's step (its barrier and the staged plane's wait); an
-# SM with fewer blocks than RELAX_BLOCKS hides less latency
+# the relaxation plan's cost model, in nanoseconds: a launch's host call
+# (the driver's lean launch; the card runs ahead while a launch takes
+# longer) and its gap on the card; a block's step, its barrier and its
+# items' latency (K17's items also wait for their image bytes in device
+# memory), and each item of a step in flight. Fitted to the tile route's
+# A/B at c19 on an H100 (a step of 256 to 2680 items: 0.9 to 4.3 us)
 _RELAX_HOST_NS = 8000.0
 _RELAX_LAUNCH_NS = 2000.0
-_RELAX_BYTE_NS = 0.025
-_RELAX_WORD_NS = 0.04
-_RELAX_STEP_NS = 500.0
-_RELAX_SOLO = 1.3
+_RELAX_STEP_NS = 700.0
+_RELAX_IMAGE_STEP_NS = 700.0
+_RELAX_ITEM_NS = 1.0
 
 # K12's select route on a halo box (csrc ED_RANK_*): a block of 8 x 32
 # threads, each with a column of RANK_COLUMN voxels along tile axis 0 (1
@@ -1689,38 +1684,30 @@ RelaxPlan = collections.namedtuple("RelaxPlan",
 _SWEEP_PLAN = RelaxPlan("sweep", None, 1, None, 0, 0)
 
 
-def _relax_words(words: int, img_bytes: int, ntaps: int) -> int:
-    """The shared int32 words a tile-route sweep reads for one voxel: its
-    own state and each tap's (K17, ``img_bytes`` > 0: a neighbour's cost,
-    steps and label; K16 its distance, its index only where it wins)."""
-    return words + ntaps * (3 if img_bytes else 1)
-
-
 @functools.lru_cache(maxsize=256)
-def relax_plan(shape3, reach3, ntaps, words, img_bytes, want, route=None,
-               k=None, tile=None, budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
+def relax_plan(shape3, reach3, words, img_bytes, want, route=None, k=None,
+               tile=None, budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
     """K16's or K17's route for ``want`` sweeps a group on an array of
-    ``shape3`` voxels (three axes, leading ones added) under ``ntaps`` taps
-    of ``reach3`` (0 or 1 per axis), a state of ``words`` int32 words a
-    voxel and an image of ``img_bytes`` (K16: 1 or 2 words, no image; K17:
-    3 words and a 1- or 2-byte image, read from device memory).
-    ``"tile"``: the tile (z, y, x: a block's chunk of planes and its rows
-    and columns), the sweeps a launch ``k <= min(want, 8)``, the box a
-    block stages (the tile plus ``k`` reaches a side, clamped to the
-    array), the shared bytes of its levels' rings (eight box planes for the
-    staged state, a plane staged a step ahead, and four for each sweep but
-    the last; their voxels rounded up to even) within ``budget``, and the
-    blocks, chosen by the least modelled time of ``want`` sweeps in
-    launches of ``k`` and the rest: per launch a
-    gap, plus the longer of its host call and the busiest SM's blocks,
-    each staging its box, sweeping its levels' regions (the tile widened
-    by the reaches of the sweeps after it, :func:`_relax_words` a voxel),
-    stepping through its planes and writing its tile. ``"sweep"`` where no
-    box fits. ``route``, ``k`` and ``tile`` force a choice (``"tile"``
-    raises where none fits)."""
+    ``shape3`` voxels (three axes, leading ones added) under taps of
+    ``reach3`` (0 or 1 per axis), a state of ``words`` int32 words a voxel
+    and an image of ``img_bytes`` (K16: 1 or 2 words, no image; K17: 3
+    words and a 1- or 2-byte image, read from device memory). ``"tile"``:
+    the tile (z, y, x: a block's chunk of planes and its rows and columns),
+    the sweeps a launch ``k <= min(want, 8)``, the box a block stages (the
+    tile plus ``k`` reaches a side, clamped to the array), the shared bytes
+    of its levels' rings (eight box planes for the staged state, a plane
+    staged a step ahead, and four for each sweep but the last; their voxels
+    rounded up to even) within ``budget``, and the blocks, chosen by the
+    least modelled time of ``want`` sweeps in launches of ``k`` and the
+    rest: per launch a gap, plus the longer of its host call and the
+    busiest SM's blocks, one at a time, each stepping through its staged
+    planes and the ``2k`` steps the sweeps trail them by, a step costing
+    its latency and its items (the levels' regions: the tile widened by
+    the reaches of the sweeps after it). ``"sweep"`` where no box fits.
+    ``route``, ``k`` and ``tile`` force a choice (``"tile"`` raises where
+    none fits)."""
     n3, r3 = tuple(shape3), tuple(reach3)
-    visit = (_relax_words(words, img_bytes, ntaps) * _RELAX_WORD_NS
-             + img_bytes * _RELAX_BYTE_NS)
+    step_ns = _RELAX_STEP_NS + (_RELAX_IMAGE_STEP_NS if img_bytes else 0.0)
 
     def grown(t, left):
         return tuple(min(n, e + 2 * left * r) for n, e, r in zip(n3, t, r3))
@@ -1731,48 +1718,45 @@ def relax_plan(shape3, reach3, ntaps, words, img_bytes, want, route=None,
         _, by, bx = grown(t, k)
         cap = by * bx
         return 16 * (k + 1) * words * (cap + cap % 2)
+
+    def launch(t, k):
+        """the modelled nanoseconds of one launch of ``k`` sweeps"""
+        blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
+        items = sum(y * x for _, y, x in (grown(t, k - j)
+                                          for j in range(1, k + 1)))
+        block = (grown(t, k)[0] + 2 * k) * (step_ns + _RELAX_ITEM_NS * items)
+        return _RELAX_LAUNCH_NS + max(_RELAX_HOST_NS,
+                                      -(-blocks // _SMS) * block)
     best = None
     if route != "sweep":
         tzs = sorted({min(n3[0], t) for t in (4, 8, 16, 32, 64)})
         tys = sorted({min(n3[1], t) for t in (1, 2, 4, 8, 16, 32)})
         txs = sorted({min(n3[2], t) for t in (8, 16, 32, 64, 128)})
-        tiles = [tuple(tile)] if tile else itertools.product(tzs, tys, txs)
+        tiles = [tuple(tile)] if tile else list(
+            itertools.product(tzs, tys, txs))
         ks = [int(k)] if k else range(1, min(int(want),
                                              SWEEPS_PER_CHECK) + 1)
-
-        def launch(t, k, smem):
-            """the modelled nanoseconds of one launch of ``k`` sweeps"""
-            blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
-            per_sm = min(RELAX_BLOCKS, _SM_SMEM // (smem + 1024))
-            box = grown(t, k)
-            items = sum(math.prod(grown(t, k - j)) for j in range(1, k + 1))
-            work = (_RELAX_BYTE_NS * 4 * words * (math.prod(box)
-                                                   + math.prod(t))
-                    + visit * items + _RELAX_STEP_NS * (box[0] + 2 * k))
-            if per_sm < RELAX_BLOCKS:
-                work *= _RELAX_SOLO
-            return _RELAX_LAUNCH_NS + max(_RELAX_HOST_NS,
-                                          -(-blocks // _SMS) * work)
+        plans = []
         for kk in ks:
             for t in tiles:
                 smem = shared(t, kk)
                 if smem > budget:
                     continue
                 full, rest = divmod(int(want), kk)
-                cost = full * launch(t, kk, smem)
+                cost = full * launch(t, kk)
                 if rest:
-                    cost += launch(t, rest, shared(t, rest))
+                    cost += launch(t, rest)
                 blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
-                key = (cost, -kk, t)
-                if best is None or key < best[0]:
-                    best = (key, RelaxPlan("tile", t, kk, grown(t, kk),
-                                           smem, blocks))
+                plans.append((cost, t, RelaxPlan("tile", t, kk, grown(t, kk),
+                                                 smem, blocks)))
+        if plans:
+            best = min((c, -p.k, t, p) for c, t, p in plans)
     if best is None:
         if route == "tile":
             raise ValueError("relax_plan: no tile of the tile route fits "
                              "this array")
         return _SWEEP_PLAN
-    return best[1]
+    return best[3]
 
 
 class RelaxTaps:
@@ -1830,8 +1814,8 @@ class RelaxTaps:
                 raise ValueError("relax_plan: the tile route takes 1 to 3 "
                                  "axes")
             return _SWEEP_PLAN
-        return relax_plan(self.shape3, self.reach3, len(self.offs), words,
-                          img_bytes, int(want), route, k,
+        return relax_plan(self.shape3, self.reach3, words, img_bytes,
+                          int(want), route, k,
                           None if tile is None else tuple(tile), budget)
 
     def tile_args(self, plan: RelaxPlan, k: int):

@@ -2,50 +2,60 @@
 
 Builds ``csrc/distance.cu`` alone, prints phase 1's ptxas lines for it,
 runs phase 2's K14-K17 checks (``--tiles-only``: only the tile route's
-multi-sweep launches; ``--no-checks``: none; ``--checks-only``: stop
-after them), c19 on the card against the CPU run (its launches per call
-printed, a failing check printed and passed over), and phase 4's K14-K17
-rows with the tile route's k and tile A/B, then c19's time and profile.
-Run it on a machine with the card, from the root of the repository:
+multi-sweep launches; ``--no-checks``: none; ``--checks-only``: stop after
+them), c19 on the card against the CPU run with its launches per call, and
+phase 4's K14-K17 rows with the tile route's k and tile A/B (one JSON
+object a line after ``ROW``), then c19's time and profile. Run it on a
+machine with the card, from the root of the repository:
 
     python3 relax_chip.py [--tiles-only] [--no-checks] [--checks-only]
 """
-import json, sys, time
-import numpy as np
-import chip_smoke as s
-from elasticdeform_tpu_torch.ops import _build
 
-t0 = time.perf_counter()
-name, smi = s.phase_device()
-_build.SOURCES = ("distance",)
-_build.build_all()
-print("build s", _build.build_seconds, flush=True)
-s._check_distance_ptxas(_build.build_logs["distance"])
-rs = np.random.RandomState(1)
-if "--no-checks" not in sys.argv:
-    if "--tiles-only" not in sys.argv:
-        s._check_distance_kernels(rs)
-    s._check_relax_tiles(rs)
-if "--checks-only" in sys.argv:
-    sys.exit(0)
-print("checks done", time.perf_counter() - t0, flush=True)
-cfg19 = next(c for c in s._configs() if c.name == "c19")
-import torch
-s._reset_counts()
-out = cfg19.run("cuda")
-torch.cuda.synchronize()
-try:
+import json
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke as s
+
+
+def main(argv) -> int:
+    import torch
+    from elasticdeform_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _, smi = s.phase_device()
+    _build.SOURCES = ("distance",)
+    _build.build_all()
+    print(f"build s {_build.build_seconds}", flush=True)
+    s._check_distance_ptxas(_build.build_logs["distance"])
+    rs = np.random.RandomState(1)
+    if "--no-checks" not in argv:
+        if "--tiles-only" not in argv:
+            s._check_distance_kernels(rs)
+        s._check_relax_tiles(rs)
+    if "--checks-only" in argv:
+        return 0
+    cfg19 = next(c for c in s._configs() if c.name == "c19")
+    s._reset_counts()
+    out = cfg19.run("cuda")
+    torch.cuda.synchronize()
     s._check_c19([cfg19])
-except AssertionError as e:
-    print('C19 CHECK', e, flush=True)
-s._against_cpu([cfg19], {"c19": out})
-print("c19 ok", time.perf_counter() - t0, flush=True)
-rows = []
-def row(name, source, replaces, ms, plain_ms, bound, library_ms, err, at="", extra=None):
-    rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound=bound, library_ms=library_ms, at=at, **(extra or {})))
-    print("ROW", json.dumps(rows[-1]), flush=True)
-s._times_distance(row, smi, cfg19)
-ms = s._time_ms(lambda: cfg19.run("cuda"))
-print(f"c19: {ms:.3f} ms per call [{smi}]")
-s._profile_config(cfg19, smi)
-print("total", time.perf_counter() - t0)
+    s._against_cpu([cfg19], {"c19": out})
+
+    def row(name, source, replaces, ms, plain_ms, bound, library_ms, err,
+            at="", extra=None):
+        print("ROW " + json.dumps({
+            "name": name, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "library_ms": library_ms, "at": at, **(extra or {})}),
+            flush=True)
+    s._times_distance(row, smi, cfg19)
+    ms = s._time_ms(lambda: cfg19.run("cuda"))
+    print(f"c19: {ms:.3f} ms per call [{smi}]")
+    s._profile_config(cfg19, smi)
+    print(f"relax_chip: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

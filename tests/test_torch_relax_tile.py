@@ -247,7 +247,7 @@ def test_plan_box_covers_the_reaches(words, img_bytes):
         shape3 = tuple(int(n) for n in rs.randint(1, 300, 3))
         reach3 = tuple(int(r) for r in rs.randint(0, 2, 3))
         want = int(rs.randint(1, 9))
-        p = mo.relax_plan(shape3, reach3, 6, words, img_bytes, want)
+        p = mo.relax_plan(shape3, reach3, words, img_bytes, want)
         assert p.route == "tile" and 1 <= p.k <= want
         assert p.box == tuple(min(n, t + 2 * p.k * r) for n, t, r in
                               zip(shape3, p.tile, reach3))
@@ -260,19 +260,21 @@ def test_plan_box_covers_the_reaches(words, img_bytes):
         assert p.blocks == math.prod(-(-n // t) for n, t in
                                      zip(shape3, p.tile))
         for k in (1, 2, 4, 8):
-            q = mo.relax_plan(shape3, reach3, 6, words, img_bytes, 8,
+            q = mo.relax_plan(shape3, reach3, words, img_bytes, 8,
                               route="tile", k=k)
             assert q.k == k and q.smem <= mo.RELAX_SMEM_LIMIT
 
 
 def test_plan_routes():
     cross = mo.generate_binary_structure(3, 1)
-    # c19's CDT and watershed shapes take the tile route
-    for shape, words, img in (((80, 192, 224), 2, 0), ((48, 192, 224), 3,
-                                                         1)):
+    # c19's CDT and watershed shapes take the tile route (the watershed two
+    # sweeps a launch, as the A/B on the card chose)
+    for shape, words, img, k in (((80, 192, 224), 2, 0, 1),
+                                 ((48, 192, 224), 3, 1, 2)):
         taps = mo.relax_taps(cross, shape)
         assert taps.reach3 == (1, 1, 1) and len(taps.codes) == 6
-        assert taps.plan(words, img, 8).route == "tile"
+        p = taps.plan(words, img, 8)
+        assert p.route == "tile" and p.k == k
     # leading axes of 1 and the reach along them
     taps = mo.relax_taps(mo.generate_binary_structure(2, 2), (5, 7))
     assert taps.shape3 == (1, 5, 7) and taps.reach3 == (0, 1, 1)
@@ -313,10 +315,10 @@ def _forced_k(monkeypatch, k):
     """Every relaxation plan on the CPU with ``k`` sweeps a launch."""
     plan = mo.relax_plan
 
-    def forced(shape3, reach3, ntaps, words, img_bytes, want, route=None,
-               kk=None, tile=None, budget=mo.RELAX_SMEM_LIMIT):
-        return plan(shape3, reach3, ntaps, words, img_bytes, want, "tile", k,
-                    None, budget)
+    def forced(shape3, reach3, words, img_bytes, want, route=None, kk=None,
+               tile=None, budget=mo.RELAX_SMEM_LIMIT):
+        return plan(shape3, reach3, words, img_bytes, want, "tile", k, None,
+                    budget)
     monkeypatch.setattr(mo, "relax_plan", forced)
 
 
