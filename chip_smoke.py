@@ -25,7 +25,8 @@ Phases (any failure raises, and the exit code is not 0):
    float32, and every K3/K3c instantiation and K13's four tile
    instantiations and its pack and unpack kernels to no stack frame and no
    spills; prints the registers, stack frame, spills and shared bytes of
-   K14-K17's six kernels (``csrc/distance.cu``); then prints the atomic
+   K14-K17's six one-sweep kernels and K16's and K17's 20 tile
+   instantiations (``csrc/distance.cu``); then prints the atomic
    instructions of K3/K3c at rank 3 (``cuobjdump -sass``: native
    shared-memory adds or compare-and-swap loops);
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
@@ -137,10 +138,12 @@ Phases (any failure raises, and the exit code is not 0):
    13-97 (dense only, a band of 16, both bands) with the certificate, K16
    (the chamfer sweep) with and without indices and K17 (the watershed
    sweep) on uint8 and uint16 images, random and plateaus, over the cross,
-   full and a custom structure, with the changed flag, each on 1-D to 4-D
-   shapes and with sampling 0.7 and (1.5, 1, ...), dense and sparse
-   background, none and all; and the public transforms against the CPU
-   run;
+   full and a custom structure, with the changed flag, on both routes,
+   each on 1-D to 4-D shapes and with sampling 0.7 and (1.5, 1, ...),
+   dense and sparse background, none and all; K16's and K17's tile route,
+   one launch of k = 1-8 sweeps against k plain sweeps and the last one's
+   flag (the plan's tile and forced ragged ones); and the public
+   transforms against the CPU run;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
@@ -163,7 +166,8 @@ Phases (any failure raises, and the exit code is not 0):
    at sampling (1.5, 1, 1) and ``distance_transform_cdt`` with indices of
    80 slices of c17's segmentation, ``watershed_ift`` of a uint8 gradient
    of 48 slices of c15's volume with 28 markers, bit for bit, with exact
-   K15 rungs and K16 and K17 sweeps per call), each compared with the
+   K15 rungs, K16 and K17 sweeps per call and their launches per route by
+   their plans), each compared with the
    port's own ``device="cpu"`` run;
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
@@ -219,8 +223,10 @@ Phases (any failure raises, and the exit code is not 0):
    route (the ball erosion, the non-flat 3^3 dilation and a flat 5^3 box
    beside ``max_pool3d``); K14-K17 at c19's shapes with their device ms
    (K14 beside two ``torch.cummax`` scans, K15 as c19's two passes and per
-   rung and axis, K16 and K17 per sweep and per call, K16's sweep beside
-   ``-max_pool3d(-d)``, a chessboard sweep without indices); one line per
+   rung and axis, K16 and K17 a launch of the plan's k, a sweep and a call,
+   each on the device, beside the sweep route, with the tile route's A/B
+   over k and tiles, K16's launch beside ``-max_pool3d(-d)``, a chessboard
+   sweep without indices); one line per
    probe, its calls timed back to back: ms,
    M rows/s, GB/s of the rows
    moved, from L2 or HBM, beside the byte bound, the twin and the library
@@ -234,8 +240,8 @@ its writeback route, K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K10, K11, K12
 and K13 with their launches per route;
 K13 also
 its sweeps and its pack and unpack launches; K14-K17 at c19's shapes, K15
-with its kept rungs and each rung's time, K16 and K17 per sweep with their
-call's time and sweeps); the last line
+with its kept rungs and each rung's time, K16 and K17 a launch with their
+plan, call, sweep route and A/B); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
@@ -244,7 +250,7 @@ CUDA device is present or when the package is missing.
 passes, K12's 5^3 median, 3^3 median and 33-tap percentile at c15,
 K6 at c8 and c9, K2's integer writeback at c2 and c18, K9T and K9 at c14,
 K10's 5^3 erosion and dilation and K11 at c16, K3 at c5
-(orders 3 and 1), K3c at c7 and every config
+(orders 3 and 1), K3c at c7, K16's and K17's calls at c19 and every config
 through the public wrappers only, and
 prints a digest of K6's output bits, so that a copy of this file put into
 an older tree times (and checks) that tree's package in the same call to
@@ -6540,7 +6546,8 @@ def times_ab(card, reps=REPS):
     (:func:`_times_ab_k3`: with K5 and K5c and ``grid_sampler_3d_backward``'s
     halves), P2 and K13
     (:func:`_times_ab_p2_k13`), and every config c1-c19
-    whole, K16's and K17's calls at c19 (:func:`_times_ab_relax`), in ms (CUDA events, median of ``reps``); and the digest of K6's
+    whole, K16's and K17's calls at c19 (:func:`_times_ab_relax`), in ms
+    (CUDA events, median of ``reps``); and the digest of K6's
     outputs over a sweep (:func:`_k6_digest`). It calls only the package's
     public wrappers and configs, so it also times an older tree's package,
     one process per tree, in one call to the card. Prints one line ``ab: {json}`` and

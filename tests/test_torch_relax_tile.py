@@ -56,8 +56,9 @@ def _tile_model(state, img, taps, k, tile):
     reaches (clamped); level 0 stages plane ``t + 1`` at step ``t`` into its
     ring of eight plane slots, readable after step ``t + 1``, and sweep
     ``j`` computes plane ``t - 2j`` of its region (the tile widened by the
-    ``k - j`` reaches after it) from level ``j - 1``'s slots (four each), a voxel's edges from its box-plane
-    coordinates and the array's planes; the last sweep writes the tile.
+    ``k - j`` reaches after it) from level ``j - 1``'s slots (four each), a
+    voxel's edges from its box-plane coordinates and the array's planes;
+    the last sweep writes the tile.
     Every slot element holds junk until written, and each slot read is
     checked to hold the plane the sweep wants. Returns ``(state, flag)``."""
     n3, r3 = taps.shape3, taps.reach3
