@@ -22,12 +22,12 @@ def main(argv) -> int:
     from elasticdeform_tpu_torch.ops import distance as ds
     sweep = ds.watershed_sweep
 
-    def counted(*args, k=1, **kwargs):
-        counted.n += k
-        return sweep(*args, k=k, **kwargs)
+    def counted(*args, **kwargs):
+        counted.n += 1
+        return sweep(*args, **kwargs)
 
-    # watershed_ift's CPU path looks the sweep up at each call (k sweeps a
-    # call, as the plan sets) and launches nothing
+    # watershed_ift looks the sweep up at each call; the CPU path launches
+    # nothing
     counted.launches = 0
     ds.watershed_sweep = counted
     print(f"transforms on {chip_smoke.C19_SLICES} slices")

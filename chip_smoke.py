@@ -25,8 +25,7 @@ Phases (any failure raises, and the exit code is not 0):
    float32, and every K3/K3c instantiation and K13's four tile
    instantiations and its pack and unpack kernels to no stack frame and no
    spills; prints the registers, stack frame, spills and shared bytes of
-   K14-K17's six one-sweep kernels and K16's and K17's 20 tile
-   instantiations (``csrc/distance.cu``); then prints the atomic
+   K14-K17's six kernels (``csrc/distance.cu``); then prints the atomic
    instructions of K3/K3c at rank 3 (``cuobjdump -sass``: native
    shared-memory adds or compare-and-swap loops);
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
@@ -138,12 +137,11 @@ Phases (any failure raises, and the exit code is not 0):
    13-97 (dense only, a band of 16, both bands) with the certificate, K16
    (the chamfer sweep) with and without indices and K17 (the watershed
    sweep) on uint8 and uint16 images, random and plateaus, over the cross,
-   full and a custom structure, with the changed flag, on both routes,
+   full and a custom structure, with the changed flag, one sweep a call
+   and the fixpoint driver's groups of 3 and 8 sweeps from one host call,
    each on 1-D to 4-D shapes and with sampling 0.7 and (1.5, 1, ...),
-   dense and sparse background, none and all; K16's and K17's tile route,
-   one launch of k = 1-8 sweeps against k plain sweeps and the last one's
-   flag (the plan's tile and forced ragged ones); and the public
-   transforms against the CPU run;
+   dense and sparse background, none and all; and the public transforms
+   against the CPU run;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
@@ -166,8 +164,7 @@ Phases (any failure raises, and the exit code is not 0):
    at sampling (1.5, 1, 1) and ``distance_transform_cdt`` with indices of
    80 slices of c17's segmentation, ``watershed_ift`` of a uint8 gradient
    of 48 slices of c15's volume with 28 markers, bit for bit, with exact
-   K15 rungs, K16 and K17 sweeps per call and their launches per route by
-   their plans), each compared with the
+   K15 rungs and K16 and K17 sweeps per call), each compared with the
    port's own ``device="cpu"`` run;
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
@@ -223,10 +220,10 @@ Phases (any failure raises, and the exit code is not 0):
    route (the ball erosion, the non-flat 3^3 dilation and a flat 5^3 box
    beside ``max_pool3d``); K14-K17 at c19's shapes with their device ms
    (K14 beside two ``torch.cummax`` scans, K15 as c19's two passes and per
-   rung and axis, K16 and K17 a launch of the plan's k, a sweep and a call,
-   each on the device, beside the sweep route, with the tile route's A/B
-   over k and tiles, K16's launch beside ``-max_pool3d(-d)``, a chessboard
-   sweep without indices); one line per
+   rung and axis, K16 and K17 per sweep, per group of eight sweeps from
+   one host call (the driver's, its flag read) and per call, each on the
+   device, K16's sweep beside ``-max_pool3d(-d)``, a chessboard sweep
+   without indices); one line per
    probe, its calls timed back to back: ms,
    M rows/s, GB/s of the rows
    moved, from L2 or HBM, beside the byte bound, the twin and the library
@@ -240,8 +237,8 @@ its writeback route, K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K10, K11, K12
 and K13 with their launches per route;
 K13 also
 its sweeps and its pack and unpack launches; K14-K17 at c19's shapes, K15
-with its kept rungs and each rung's time, K16 and K17 a launch with their
-plan, call, sweep route and A/B); the last line
+with its kept rungs and each rung's time, K16 and K17 per sweep with their
+call's time and sweeps); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
@@ -508,17 +505,11 @@ _DIST_PTXAS = (("K14 nearest_bg_kernel", "nearest_bg_kernel"),
                ("K16 chamfer_sweep_kernel", "chamfer_sweep_kernel"),
                ("K17 uint8", "watershed_sweep_kernelIhE"),
                ("K17 uint16", "watershed_sweep_kernelItE"))
-# K16's and K17's tile route: (with indices or not / image type, the tap
-# count it is unrolled for, 0 for any), five tap counts each
-_K16_TILE = re.compile(r"chamfer_tile_kernelILb([01])ELi(\d+)E")
-_K17_TILE = re.compile(r"watershed_tile_kernelI([ht])Li(\d+)E")
 
 
 def _check_distance_ptxas(log):
-    """Print K14-K17's registers, stack frame, spills and static shared
-    bytes (the tile route's boxes are dynamic shared memory, sized per
-    launch); fail unless each of their six sweep-route kernels is found
-    once and each tile route's ten instantiations are found."""
+    """Print K14-K17's registers, stack frame, spills and shared bytes; fail
+    unless each of their six kernels is found once."""
     kern = _ptxas_kernels(log)
     for label, part in _DIST_PTXAS:
         hits = [v for fn, v in kern.items() if part in fn]
@@ -529,25 +520,6 @@ def _check_distance_ptxas(log):
         print(f"  ptxas {label}: {v[0]} registers, {v[1]} bytes stack "
               f"frame, {v[2]}/{v[3]} bytes spill stores/loads, {v[5]} bytes "
               "static shared")
-    for label, pattern, what in (
-            ("K16 tile", _K16_TILE,
-             lambda a: "indices" if a == "1" else "no indices"),
-            ("K17 tile", _K17_TILE,
-             lambda a: "uint8" if a == "h" else "uint16")):
-        found = 0
-        for fn, v in sorted(kern.items()):
-            m = pattern.search(fn)
-            if not m or fn.startswith("_ZZ"):
-                continue
-            nt = m.group(2)
-            print(f"  ptxas {label} {what(m.group(1))}, "
-                  f"{nt if nt != '0' else 'any'} taps: {v[0]} registers, "
-                  f"{v[1]} bytes stack frame, {v[2]}/{v[3]} bytes spill "
-                  f"stores/loads, {v[5]} bytes static shared")
-            found += 1
-        if found != 10:
-            raise AssertionError(f"{label}: {found} of 10 instantiations "
-                                 "found")
 
 
 def _check_k9t_ptxas(log):
@@ -950,7 +922,6 @@ def phase_kernels():
     _check_k12_routes(rs, torch.device("cuda"))
     _check_k12_network_routes(rs, torch.device("cuda"))
     _check_distance_kernels(rs)
-    _check_relax_tiles(rs)
     return worst
 
 
@@ -3188,16 +3159,17 @@ def _check_distance_kernels(rs):
     background, none and all; K16 with and without indices and K17 on
     uint8 and uint16 images (random, and plateaus where ties go by the step
     count and the label), negative markers, over the cross, full and a
-    custom structure, six sweeps each on the sweep route and one sweep a
-    launch of the tile route (1-3 axes), the changed flag equal; then the
-    public transforms against the port's CPU run. Fails unless every K15
-    rung ran."""
+    custom structure, six sweeps each, the changed flag equal, then the
+    fixpoint driver's groups of 3 and 8 sweeps from one host call
+    (:func:`_check_sweep_group`); then the public transforms against the
+    port's CPU run. Fails unless every K15 rung ran."""
     import torch
     import elasticdeform_tpu_torch as et
     from elasticdeform_tpu_torch.ops import distance as ds
     from elasticdeform_tpu_torch.ops import morphology as mo
     dev = torch.device("cuda")
-    n = dict.fromkeys(("K14", "K15", "K16", "K17", "calls"), 0)
+    n = dict.fromkeys(("K14", "K15", "K16", "K17", "K16 groups",
+                       "K17 groups", "calls"), 0)
     rungs0 = dict(ds.minplus_rung.rungs)
     for shape in ((13,), (5, 17), (3, 40), (7, 70), (3, 5, 19), (2, 9, 67),
                   (3, 4, 5, 21), (2, 3, 4, 97)):
@@ -3260,23 +3232,29 @@ def _check_distance_kernels(rs):
                             0).to(torch.int32)
             ix = torch.arange(d.numel(), dtype=torch.int32,
                               device=dev).reshape(shape)
-            routes = ("sweep", "tile") if taps.tiled else ("sweep",)
-            for sweep, with_ix, route in itertools.product(
-                    range(6), (False, True), routes):
-                flags = [torch.zeros(1, dtype=torch.int32, device=dev)
-                         for _ in range(2)]
-                x = ix if with_ix else None
-                a = ds.chamfer_sweep(d, x, taps, flags[0], route=route)
-                b = ds.chamfer_sweep_plain(d, x, taps.offs, flags[1])
-                what = f"K16 {route} {shape} {sname} sweep {sweep}"
-                _same(a[0], b[0], what)
-                if with_ix:
-                    _same(a[1], b[1], f"{what} indices")
-                if int(flags[0]) != int(flags[1]):
-                    raise AssertionError(f"{what}: flag differs")
-                n["K16"] += 1
-                if with_ix and route == "sweep":
-                    d, ix = a
+            for sweep in range(6):
+                for with_ix in (False, True):
+                    flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                             for _ in range(2)]
+                    x = ix if with_ix else None
+                    a = ds.chamfer_sweep(d, x, taps, flags[0])
+                    b = ds.chamfer_sweep_plain(d, x, taps.offs, flags[1])
+                    what = f"K16 {shape} {sname} sweep {sweep}"
+                    _same(a[0], b[0], what)
+                    if with_ix:
+                        _same(a[1], b[1], f"{what} indices")
+                    if int(flags[0]) != int(flags[1]):
+                        raise AssertionError(f"{what}: flag differs")
+                    n["K16"] += 1
+                d, ix = a
+            for group, with_ix in itertools.product((3, 8), (False, True)):
+                state = (d.clone(), ix.clone() if with_ix else None)
+                _check_sweep_group(
+                    f"K16 {shape} {sname} indices={with_ix}",
+                    ds.chamfer_sweeper(*state, taps), state,
+                    lambda st, ch: ds.chamfer_sweep_plain(*st, taps.offs,
+                                                          ch), group)
+                n["K16 groups"] += 1
             got = et.distance_transform_cdt(m, metric=st, return_indices=True,
                                             device=dev)
             want = et.distance_transform_cdt(m, metric=st,
@@ -3296,22 +3274,28 @@ def _check_distance_kernels(rs):
                                          mo.RELAX_BIG).to(torch.int32),
                              torch.where(seeded, 0, mo.RELAX_BIG).to(
                                  torch.int32), mk)
-                    for sweep, route in itertools.product(range(6), routes):
+                    for sweep in range(6):
                         flags = [torch.zeros(1, dtype=torch.int32,
                                              device=dev) for _ in range(2)]
-                        a = ds.watershed_sweep(img, *state, taps, flags[0],
-                                               route=route)
+                        a = ds.watershed_sweep(img, *state, taps, flags[0])
                         b = ds.watershed_sweep_plain(img, *state, taps.offs,
                                                      flags[1])
-                        what = (f"K17 {route} {shape} {sname} {dtype} "
-                                f"{iname} sweep {sweep}")
+                        what = (f"K17 {shape} {sname} {dtype} {iname} sweep "
+                                f"{sweep}")
                         for g, w, part in zip(a, b, "csl"):
                             _same(g, w, f"{what} {part}")
                         if int(flags[0]) != int(flags[1]):
                             raise AssertionError(f"{what}: flag differs")
                         n["K17"] += 1
-                        if route == "sweep":
-                            state = a
+                        state = a
+                    for group in (3, 8):
+                        st0 = tuple(t.clone() for t in state)
+                        _check_sweep_group(
+                            f"K17 {shape} {sname} {dtype} {iname}",
+                            ds.watershed_sweeper(img, taps), st0,
+                            lambda st, ch: ds.watershed_sweep_plain(
+                                img, *st, taps.offs, ch), group)
+                        n["K17 groups"] += 1
                     got = et.watershed_ift(img, mk, structure=st, device=dev)
                     want = et.watershed_ift(img.cpu(), mk.cpu(), structure=st,
                                             device="cpu")
@@ -3323,126 +3307,40 @@ def _check_distance_kernels(rs):
           "transforms equal the CPU run")
 
 
-# odd shapes whose tiles split the box (phase 2's tile-route sweep of K16
-# and K17) and the tiles forced beside each plan's: ragged, one voxel thick
-_RELAX_SHAPES = ((37,), (9, 13), (5, 7, 9), (11, 6, 35), (3, 20, 70))
-_RELAX_TILES = ((2, 3, 8), (1, 1, 5), (3, 5, 16))
-
-
-def _relax_plans(taps, words, nbytes, k):
-    """The tile plans of ``k`` sweeps phase 2 holds to the twins: the
-    plan's own and those of :data:`_RELAX_TILES` whose rings fit."""
-    plans = [taps.plan(words, nbytes, k, "tile", k)]
-    for t in _RELAX_TILES:
-        try:
-            plans.append(taps.plan(words, nbytes, k, "tile", k, t))
-        except ValueError:
-            pass
-    return plans
-
-
-def _named(what, call):
-    """``call()``, its failure re-raised with ``what`` (the case) in front."""
-    try:
-        return call()
-    except Exception as e:
-        raise type(e)(f"{what}: {e}") from e
-
-
-def _check_relax_tiles(rs):
-    """K16's and K17's tile route, one launch of ``k`` = 1-8 sweeps, bit for
-    bit against ``k`` sweeps of the plain twins on the card and the flag of
-    the last: 1-D to 3-D odd shapes, the cross, full and a custom
-    structure, the plan's tile for ``k`` and three forced ragged tiles, K16
-    with and without indices, K17 on uint8 and uint16 images (random, and
-    plateaus where ties go by the step count and the label) with negative
-    markers, each from a state a few sweeps into the relaxation."""
+def _check_sweep_group(what, sweeper, state, plain, group):
+    """One call of ``sweeper`` (K16's or K17's, the fixpoint driver's) for
+    ``group`` sweeps of ``state`` from one host call against ``group``
+    sweeps of the twin ``plain(state, changed)``, bit for bit, the flag it
+    returns the twin's last sweep's, the result in ``state``'s own buffers
+    for an even ``group`` and in the sweeper's second set for an odd one;
+    then a call from the twin's fixpoint must return the flag unset (the
+    sweeper zeroes its flag before each group)."""
     import torch
-    from elasticdeform_tpu_torch.ops import distance as ds
-    from elasticdeform_tpu_torch.ops import morphology as mo
-    dev = torch.device("cuda")
-    n = {"K16": 0, "K17": 0}
-    for shape in _RELAX_SHAPES:
-        nd = len(shape)
-        for sname, st in (("cross", mo.generate_binary_structure(nd, 1)),
-                          ("full", mo.generate_binary_structure(nd, nd)),
-                          ("custom", rs.rand(*(3,) * nd) > 0.5)):
-            taps = mo.relax_taps(st, shape)
-            m = torch.as_tensor(rs.rand(*shape) > 0.1, device=dev)
-            d0 = torch.where(m, mo.RELAX_BIG, 0).to(torch.int32)
-            ix0 = torch.arange(d0.numel(), dtype=torch.int32,
-                               device=dev).reshape(shape)
-            imgs = []
-            for dtype, hi in ((torch.uint8, 256), (torch.uint16, 65536)):
-                for iname, top in (("random", hi), ("plateaus", 3)):
-                    img = torch.as_tensor(rs.randint(0, top, shape),
-                                          device=dev).to(dtype)
-                    mk = np.zeros(math.prod(shape), np.int32)
-                    mk[rs.choice(mk.size, 4, replace=False)] = [3, -1, 7, -2]
-                    mk = torch.as_tensor(mk.reshape(shape), device=dev)
-                    seeded = mk != 0
-                    imgs.append((f"{dtype} {iname}", img, (
-                        torch.where(seeded, img.to(torch.int32),
-                                    mo.RELAX_BIG).to(torch.int32),
-                        torch.where(seeded, 0, mo.RELAX_BIG).to(torch.int32),
-                        mk)))
-            for k in range(1, mo.SWEEPS_PER_CHECK + 1):
-                # a state k sweeps into the relaxation
-                d, ix = ds.chamfer_sweep_plain(d0, ix0, taps.offs)
-                for _ in range(k - 1):
-                    d, ix = ds.chamfer_sweep_plain(d, ix, taps.offs)
-                for with_ix in (False, True):
-                    x = ix if with_ix else None
-                    words = 2 if with_ix else 1
-                    plans = _relax_plans(taps, words, 0, k)
-                    want_flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                    b = (d, x)
-                    for j in range(k):
-                        b = ds.chamfer_sweep_plain(
-                            *b, taps.offs, want_flag if j == k - 1 else None)
-                    for plan in plans:
-                        flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                        what = (f"K16 tile {shape} {sname} k={k} "
-                                f"tile={plan.tile} indices={with_ix}")
-                        a = _named(what, lambda: ds.chamfer_sweep(
-                            d, x, taps, flag, k=k, plan=plan))
-                        _same(a[0], b[0], what)
-                        if with_ix:
-                            _same(a[1], b[1], f"{what} indices")
-                        if int(flag) != int(want_flag):
-                            raise AssertionError(f"{what}: flag "
-                                                 f"{int(flag)}, twin "
-                                                 f"{int(want_flag)}")
-                        n["K16"] += 1
-                for iname, img, state0 in imgs:
-                    state = state0
-                    for _ in range(k):
-                        state = ds.watershed_sweep_plain(img, *state,
-                                                         taps.offs)
-                    want = state
-                    want_flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                    for j in range(k):
-                        want = ds.watershed_sweep_plain(
-                            img, *want, taps.offs,
-                            want_flag if j == k - 1 else None)
-                    nbytes = img.element_size()
-                    plans = _relax_plans(taps, 3, nbytes, k)
-                    for plan in plans:
-                        flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                        what = (f"K17 tile {shape} {sname} {iname} k={k} "
-                                f"tile={plan.tile}")
-                        a = _named(what, lambda: ds.watershed_sweep(
-                            img, *state, taps, flag, k=k, plan=plan))
-                        for g, w, part in zip(a, want, "csl"):
-                            _same(g, w, f"{what} {part}")
-                        if int(flag) != int(want_flag):
-                            raise AssertionError(f"{what}: flag "
-                                                 f"{int(flag)}, twin "
-                                                 f"{int(want_flag)}")
-                        n["K17"] += 1
-    print(f"K16 and K17 tile route, one launch of k = 1-8 sweeps vs k plain "
-          f"sweeps on the card, bit for bit, the flag equal: "
-          f"{json.dumps(n)} launches")
+    dev = state[0].device
+    want, want_flag = state, torch.zeros(1, dtype=torch.int32, device=dev)
+    for j in range(group):
+        want = plain(want, want_flag if j == group - 1 else None)
+    got, changed = sweeper(state, group)
+    what = f"{what} group of {group}"
+    if (got[0].data_ptr() == state[0].data_ptr()) != (group % 2 == 0):
+        raise AssertionError(f"{what}: the result is in the wrong buffers")
+    for g, w in zip(got, want):
+        if w is not None:
+            _same(g, w, what)
+    if changed != bool(want_flag):
+        raise AssertionError(f"{what}: flag {changed}, twin "
+                             f"{int(want_flag)}")
+    # from the twin's fixpoint the flag, zeroed by the sweeper, stays 0
+    while True:
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        nxt = plain(want, flag)
+        if not int(flag):
+            break
+        want = nxt
+    _, changed = sweeper(tuple(None if t is None else t.clone()
+                               for t in want), group)
+    if changed:
+        raise AssertionError(f"{what}: the flag is set at a fixpoint")
 
 
 def _check_k13_sweeps(rs, dev):
@@ -4137,9 +4035,9 @@ _EXACT_LAUNCHES = {
             "binary_step": 0},
     "c18": {"spline_prefilter": 3, "resample_fwd": 1,
             "spline_prefilter_transpose": 0, "resample_bwd": 0},
-    # c19: K14 once, K15's five rungs (_C19_CALLS; K16's and K17's
-    # launches, which their plans set, are held there per route)
-    "c19": {"nearest_background": 1, "minplus_pass": 5}}
+    # c19: K14 once, K15's five rungs (_C19_CALLS), K16's and K17's sweeps
+    "c19": {"nearest_background": 1, "minplus_pass": 5, "chamfer_sweep": 48,
+            "watershed_sweep": 192}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
 # (3^3 median and the 33-tap percentile on the network tile, the 5^3
@@ -4169,8 +4067,7 @@ _C17_PACKS = {"opening": (2, 2), "fill_holes": (2, 1),
 # the CDT's K16 sweeps and the watershed's K17 sweeps (multiples of
 # SWEEPS_PER_CHECK), as the runs on the card counted them (the
 # transforms' the same on 80 slices and on the whole volume; the
-# watershed's on 48 slices as c19_cut.py counted them on the CPU); K16's
-# and K17's launches per route follow from their plans (_c19_calls)
+# watershed's on 48 slices as c19_cut.py counted them on the CPU)
 _C19_CALLS = {"edt": {"nearest_background": 1, "minplus_w16": 2,
                       "minplus_w64": 2, "minplus_dense": 1},
               "cdt": {"chamfer_sweeps": 48},
@@ -4267,39 +4164,13 @@ def _k13_counts():
 
 
 def _dist_counts():
-    """K14-K17's launches, K15's per rung (``w16``, ``w64``, ``dense``),
-    K16's and K17's sweeps and their launches per route (a tree before the
-    tile route ran one sweep a launch on the sweep route: :func:`times_ab`
-    runs c19 there too)."""
+    """K14-K17's launches and K15's per rung (``w16``, ``w64``,
+    ``dense``); K16's and K17's launches are their sweeps."""
     from elasticdeform_tpu_torch.ops import distance as ds
-    out = {"nearest_background": ds.nearest_background.launches,
-           **{f"minplus_{k}": v for k, v in ds.minplus_rung.rungs.items()}}
-    for name, w in (("chamfer", ds.chamfer_sweep),
-                    ("watershed", ds.watershed_sweep)):
-        out[f"{name}_sweeps"] = getattr(w, "sweeps", w.launches)
-        for r, v in getattr(w, "routes", {"sweep": w.launches}).items():
-            out[f"{name}_{r}_launches"] = v
-    return out
-
-
-def _c19_calls(cfg):
-    """c19's launches per call: :data:`_C19_CALLS`, and K16's and K17's
-    launches on the tile route, a group of eight sweeps in launches of
-    their plans' ``k`` and the rest."""
-    from elasticdeform_tpu_torch.ops import morphology as mo
-    m, img, _ = cfg.inputs
-    cross3 = mo.generate_binary_structure(3, 1)
-    out = {name: dict(c) for name, c in _C19_CALLS.items()}
-    for name, shape, words, nbytes in (("chamfer", m.shape, 2, 0),
-                                       ("watershed", img.shape, 3,
-                                        img.itemsize)):
-        plan = mo.relax_taps(cross3, shape).plan(words, nbytes,
-                                                 mo.SWEEPS_PER_CHECK)
-        call = "cdt" if name == "chamfer" else "watershed"
-        groups = out[call][f"{name}_sweeps"] // mo.SWEEPS_PER_CHECK
-        out[call][f"{name}_{plan.route}_launches"] = groups * -(
-            -mo.SWEEPS_PER_CHECK // plan.k)
-    return out
+    return {"nearest_background": ds.nearest_background.launches,
+            **{f"minplus_{k}": v for k, v in ds.minplus_rung.rungs.items()},
+            "chamfer_sweeps": ds.chamfer_sweep.launches,
+            "watershed_sweeps": ds.watershed_sweep.launches}
 
 
 def _writeback_counts():
@@ -4324,8 +4195,6 @@ def _reset_counts():
                     getattr(w, attr)[route] = 0
     mo.binary_step.sweeps = mo.pack_bits.launches = 0
     mo.unpack_bits.launches = 0
-    from elasticdeform_tpu_torch.ops import distance as ds
-    ds.chamfer_sweep.sweeps = ds.watershed_sweep.sweeps = 0
 
 
 def _route_counts():
@@ -4337,21 +4206,18 @@ def _route_counts():
 
 
 def _check_c19(configs):
-    """c19's K15 rungs, K16 and K17 sweeps and their launches per route per
-    call, printed and held to :func:`_c19_calls` (the tile route's launches
-    follow its plans' k)."""
+    """c19's K15 rungs and K16 and K17 sweeps per call, printed and held
+    to :data:`_C19_CALLS`."""
     for cfg in configs:
         if cfg.name != "c19":
             continue
-        print(f"c19 K14 launches, K15 launches per rung, K16 and K17 "
-              f"sweeps and launches per route per call: "
-              f"{json.dumps(cfg.calls)}")
+        print(f"c19 K14 launches, K15 launches per rung and K16 and K17 "
+              f"sweeps per call: {json.dumps(cfg.calls)}")
         got = {name: {k: v for k, v in c.items() if v}
                for name, c in cfg.calls.items()}
-        want = _c19_calls(cfg)
-        if got != want:
+        if got != _C19_CALLS:
             raise AssertionError(f"c19: launches per call {got}, not "
-                                 f"{want}")
+                                 f"{_C19_CALLS}")
 
 
 def _against_cpu(configs, outs):
@@ -5747,8 +5613,10 @@ def _times_distance(row, card, cfg19):
     with the feature planes beside two ``torch.cummax`` scans (the JAX
     package's formulation); K15 as c19's two passes (each rung it tries,
     the certificate's read included) and per rung and axis; K16 and K17 per
-    sweep on c19's start state and per call, K16's sweep beside a
-    chessboard sweep without indices, ``-max_pool3d(-d)``."""
+    sweep on c19's start state (the wrapper), per group of eight sweeps
+    from one host call, its flag read (the driver's), and per call, each on
+    the device, K16's sweep beside a chessboard sweep without indices,
+    ``-max_pool3d(-d)``."""
     import torch
     import torch.nn.functional as F
     from elasticdeform_tpu_torch.ops import distance as ds
@@ -5818,141 +5686,66 @@ def _times_distance(row, card, cfg19):
         extra={"rung_kept": {f"axis {a}": w for a, w in tried.items()},
                "per_rung_ms": per_rung, "device_ms": _device_ms(passes)})
 
-    # K16 and K17 on the plan's route and k (one launch of k sweeps reads
-    # the state and writes it), on the sweep route, per call, and the A/B
-    # over k and tiles that confirms the plan
+    # K16: one sweep reads d and ix and writes them; a call reads the mask
+    # and writes d and ix
     cross = mo.generate_binary_structure(3, 1)
     taps = mo.relax_taps(cross, m.shape)
-
-    def cdt_state():
-        return (torch.where(m, mo.RELAX_BIG, 0).to(torch.int32),
-                torch.arange(N, dtype=torch.int32, device=dev).reshape(
-                    m.shape))
-    neg = -cdt_state()[0].to(torch.float32)[None]
-    _times_relax(
-        row, "chamfer_sweep", taps, 2, 0, cdt_state,
-        lambda plan: ds.chamfer_sweeper(*cdt_state(), taps, plan),
-        lambda st: ds.chamfer_sweep_plain(*st, taps.offs),
-        lambda: ds.cdt_core(m, cross, True), 16 * N, N * (1 + 8),
-        _time_ms(lambda: F.max_pool3d(neg, 3, 1, 1)),
-        "elasticdeform_tpu/ops/distance.py:343",
-        f"c19 taxicab with indices, {tuple(m.shape)} (library: a "
-        "chessboard sweep without indices, -max_pool3d(-d))")
-
-    taps = mo.relax_taps(cross, img.shape)
-    Nw = img.numel()
-
-    def ws_state():
-        seeded = mk != 0
-        return (torch.where(seeded, img.to(torch.int32), mo.RELAX_BIG).to(
-            torch.int32), torch.where(seeded, 0, mo.RELAX_BIG).to(
-            torch.int32), mk.clone())
-    _times_relax(
-        row, "watershed_sweep", taps, 3, 1, ws_state,
-        lambda plan: ds.watershed_sweeper(img, taps, plan),
-        lambda st: ds.watershed_sweep_plain(img, *st, taps.offs),
-        lambda: mo.watershed_ift(img, mk), 25 * Nw, Nw * (1 + 4 + 4), None,
-        "elasticdeform_tpu/ops/morphology.py:571",
-        f"c19 watershed of {tuple(img.shape)} uint8")
-
-
-# the tiles the A/B of K16's and K17's tile route tries at each k beside
-# the plan's (those that fit the shared memory): a block's chunk of planes
-# by its rows and columns
-_RELAX_AB_TILES = ((8, 8, 32), (8, 16, 32), (16, 16, 32), (32, 16, 32),
-                   (16, 32, 32), (32, 32, 32), (16, 16, 64), (16, 16, 128))
-
-
-def _times_relax(row, name, taps, words, nbytes, start, sweeper_on, plain,
-                 call, launch_bytes, call_bytes, library_ms, replaces, at):
-    """Phase 4's row of K16 (``name`` ``"chamfer_sweep"``) or K17
-    (``"watershed_sweep"``) at c19, a state of ``words`` int32 words a
-    voxel and an image of ``nbytes``: one launch of the plan's ``k`` sweeps
-    of c19's start state (``start()``) in ms and on the device
-    (``torch.profiler``), per sweep, beside ``k`` sweeps of the twin
-    (``plain(state)``, one sweep), the launch's byte bound
-    (``launch_bytes``: the state read and written once) and ``library_ms``;
-    a call (``call``, the public path) in ms and on the device beside its
-    byte bound (``call_bytes``), its sweeps and launches per route; the
-    sweep route per sweep and per call; and the A/B of the tile route over
-    ``k`` = 1, 2, 4, 8 and the tiles of :data:`_RELAX_AB_TILES` beside each
-    ``k``'s plan: one launch and a call (the driver on that plan,
-    ``sweeper_on(plan)``) in ms, each call's result held to the public
-    call's bit for bit."""
-    import torch
-    from elasticdeform_tpu_torch.ops import distance as ds
-    from elasticdeform_tpu_torch.ops import morphology as mo
-    wrapper = getattr(ds, name)
-    dev = torch.device("cuda")
-    plan = taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK)
-    sweep_plan = taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK, "sweep")
-    state = start()
-
-    def lean(p):
-        """one launch of ``p.k`` sweeps into buffers allocated once"""
-        sweeps = sweeper_on(p)
-        out = tuple(None if t is None else torch.empty_like(t)
-                    for t in state)
-        return lambda: sweeps(state, p.k, None, out)
-
-    def driven(p):
-        return lambda: mo.relax_to_fixpoint(sweeper_on(p), start(), dev,
-                                            p.k)
-
-    def twin(k):
-        st = state
-        for _ in range(k):
-            st = plain(st)
-        return st
-
-    def result(out):
-        # the labels of the watershed's triples, the CDT's (d, ix)
-        return out[2] if len(out) == 3 else out
-    launch = lean(plan)
-    ms = _time_ms(launch)
-    dev_ms = _device_ms(launch)
-    routes0, sweeps0 = dict(wrapper.routes), wrapper.sweeps
-    want = call()
-    torch.cuda.synchronize()
-    per_call = {r: v - routes0[r] for r, v in wrapper.routes.items()}
-    sweeps = wrapper.sweeps - sweeps0
-    want = want if isinstance(want, tuple) else (want,)
-    ab = {}
-    for k in (1, 2, 4, 8):
-        tiles = [taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK, "tile",
-                           k).tile]
-        tiles += [t for t in _RELAX_AB_TILES if t not in tiles]
-        for t in tiles:
-            try:
-                p = taps.plan(words, nbytes, mo.SWEEPS_PER_CHECK, "tile", k,
-                              t)
-            except ValueError:
-                continue
-            got = result(driven(p)())
-            got = got if isinstance(got, tuple) else (got,)
-            for g, w in zip(got, want):
-                _same(g.to(w.dtype), w, f"{name} A/B k={k} tile={t}")
-            ab[f"k={k} {t}"] = {
-                "launch_ms": _time_ms(lean(p), reps=5, warmup=1),
-                "call_ms": _time_ms(driven(p), reps=3, warmup=1),
-                "smem": p.smem, "blocks": p.blocks}
-    best = min(ab, key=lambda v: ab[v]["call_ms"])
-    row(name, "distance.cu", replaces, ms, _time_ms(lambda: twin(plan.k)),
-        _bound(launch_bytes, 0), library_ms, 0.0, at=at,
-        extra={"plan": {"route": plan.route, "k": plan.k,
-                        "tile": plan.tile, "box": plan.box,
-                        "smem": plan.smem, "blocks": plan.blocks},
-               "per_sweep_ms": ms / plan.k, "device_ms": dev_ms,
-               "device_ms_per_sweep": dev_ms / plan.k,
-               "call_ms": _time_ms(call, reps=5, warmup=1),
+    d0 = torch.where(m, mo.RELAX_BIG, 0).to(torch.int32)
+    ix0 = torch.arange(N, dtype=torch.int32, device=dev).reshape(m.shape)
+    neg = -d0.to(torch.float32)[None]
+    sweep = lambda: ds.chamfer_sweep(d0, ix0, taps)  # noqa: E731
+    # the driver's group of eight sweeps from one host call, its flag read
+    # (on a copy, which it relaxes in place)
+    g = (d0.clone(), ix0.clone())
+    lean = ds.chamfer_sweeper(*g, taps)
+    group = lambda: lean(g, 8)  # noqa: E731
+    call = lambda: ds.cdt_core(m, cross, True)  # noqa: E731
+    before = ds.chamfer_sweep.launches
+    call()
+    sweeps = ds.chamfer_sweep.launches - before
+    call_ms = _time_ms(call, reps=5, warmup=1)
+    row("chamfer_sweep", "distance.cu",
+        "elasticdeform_tpu/ops/distance.py:343", _time_ms(sweep),
+        _time_ms(lambda: ds.chamfer_sweep_plain(d0, ix0, taps.offs)),
+        _bound(4 * 4 * N, 0), _time_ms(
+            lambda: F.max_pool3d(neg, 3, 1, 1)), 0.0,
+        at="c19 one taxicab sweep with indices (library: a chessboard "
+           "sweep without indices)",
+        extra={"device_ms": _device_ms(sweep), "call_ms": call_ms,
                "call_device_ms": _device_ms(call, calls=3),
-               "call_bound_ms": _bound(call_bytes, 0)[0],
-               "sweeps_per_call": sweeps, "launches_per_call": per_call,
-               "sweep_route_ms": _time_ms(lean(sweep_plan)),
-               "sweep_route_device_ms": _device_ms(lean(sweep_plan)),
-               "sweep_route_call_ms": _time_ms(driven(sweep_plan), reps=3,
-                                               warmup=1),
-               "ab_best": best, "ab": ab})
+               "group_of_8_ms": _time_ms(group),
+               "group_of_8_device_ms": _device_ms(group),
+               "call_bound_ms": _bound(N * (1 + 8), 0)[0],
+               "sweeps_per_call": sweeps})
+
+    # K17: one sweep reads the image and the triples and writes the
+    # triples; a call reads the image and the markers and writes labels
+    taps = mo.relax_taps(cross, img.shape)
+    seeded = mk != 0
+    state = (torch.where(seeded, img.to(torch.int32), mo.RELAX_BIG).to(
+        torch.int32), torch.where(seeded, 0, mo.RELAX_BIG).to(torch.int32),
+        mk)
+    Nw = img.numel()
+    sweep = lambda: ds.watershed_sweep(img, *state, taps)  # noqa: E731
+    g = tuple(t.clone() for t in state)
+    lean = ds.watershed_sweeper(img, taps)
+    group = lambda: lean(g, 8)  # noqa: E731
+    call = lambda: mo.watershed_ift(img, mk)  # noqa: E731
+    before = ds.watershed_sweep.launches
+    call()
+    sweeps = ds.watershed_sweep.launches - before
+    call_ms = _time_ms(call, reps=5, warmup=1)
+    row("watershed_sweep", "distance.cu",
+        "elasticdeform_tpu/ops/morphology.py:571", _time_ms(sweep),
+        _time_ms(lambda: ds.watershed_sweep_plain(img, *state, taps.offs)),
+        _bound(Nw * (1 + 2 * 3 * 4), 0), None, 0.0,
+        at=f"c19 one sweep of the watershed, {tuple(img.shape)} uint8",
+        extra={"device_ms": _device_ms(sweep), "call_ms": call_ms,
+               "call_device_ms": _device_ms(call, calls=3),
+               "group_of_8_ms": _time_ms(group),
+               "group_of_8_device_ms": _device_ms(group),
+               "call_bound_ms": _bound(Nw * (1 + 4 + 4), 0)[0],
+               "sweeps_per_call": sweeps})
 
 
 def _times_morphology(row, card, k13=None):

@@ -37,80 +37,38 @@
 // previous sweep's state and write a second buffer, so the fixpoint and the
 // indices are those of the reference's sweeps; a neighbour beyond the edge
 // takes no part (the reference's pad never wins). *changed is set when a
-// voxel of the (last) sweep changed; the host zeroes it before the 8th sweep
-// of a group and reads it after (the schedule of K13's driver). Two routes:
-//
-//   tile  (1-3 axes, leading axes of 1 added): chamfer_tile_kernel and
-//         watershed_tile_kernel run k <= 8 sweeps in one launch. A block
-//         of 1024 threads owns a tile (a chunk of planes by rows by
-//         columns) and streams through its planes: its box plane is the
-//         tile's rows and columns widened by k reaches and clamped to the
-//         array; at step t it stages plane t + 1 of the box (the state,
-//         with cp.async) into level 0's ring of eight planes in shared
-//         memory, and sweep j computes plane t - 2j of its region (the tile
-//         widened by the k - j reaches of the sweeps after it) from level
-//         j - 1's planes t - 2j - 1 .. t - 2j + 1, which earlier steps made,
-//         into level j's ring of four, so one barrier a step orders them
-//         and each sweep reads only the sweep before it. The last sweep
-//         writes the tile to device memory. Along z nothing is staged twice
-//         but a chunk's k planes each side; the rows and columns pay the
-//         widened regions. A region voxel on the box plane's edge is on the
-//         array's edge (the box holds every region one reach past it, or is
-//         clamped there), so a voxel's edge bits come from its coordinates,
-//         with no division chain. The flag is the last sweep's, over the
-//         tile; tiles partition the array, so the blocks' votes make the
-//         flag of the sweep. The result is k sweeps of the plain twin bit
-//         for bit (no Gauss-Seidel, no block-local fixpoint: watershed
-//         order and the carried indices depend on the sweep history).
-//   sweep (more than three axes, or no box within the shared memory):
-//         chamfer_sweep_kernel and watershed_sweep_kernel, one sweep a
-//         launch, one thread a voxel in raster order; per voxel a bit mask
-//         of the axes where it sits on the low and the high edge (a chain of
-//         divisions); a tap is a linear offset and the masks of the axes it
-//         steps down and up along, so it is skipped where it would leave the
-//         array. No shared memory: the neighbours' reuse is served by L1
-//         and L2.
+// voxel of the sweep changed; the host zeroes it before the 8th sweep of a
+// group and reads it after (the schedule of K13's driver). One thread a
+// voxel in raster order; per voxel a bit mask of the axes where it sits on
+// the low and the high edge; a tap is a linear offset and the masks of the
+// axes it steps down and up along, so it is skipped where it would leave
+// the array. No shared memory: the neighbours' reuse is served by L1 and
+// L2. The entry points launch a group of sweeps (the driver's eight,
+// ops/morphology.py::relax_to_fixpoint) from one host call, ping-ponging
+// between two buffer sets, zero the flag before the group and hand its
+// value to the host after it, so the host's time a sweep is one kernel
+// launch and not a Python call, and the card waits for the host once a
+// group, for one call's return and the next call's first launch.
 //
 // Bound on the H100, each input read once and each output written once
 // over 3.35 TB/s: K14 the mask and f (and the feature planes); K15 g, the
 // feature planes in and out and f out, per pass. A launch of K16 or K17
 // reads the state (K16 d and ix, 8 bytes a voxel; K17 the image and the
-// triples, 13) and writes it (8; 12): at c19 0.0164 and 0.0154 ms a launch
-// on the sweep route. A call's bound is its input and result alone (the
-// mask, d and ix; the image, markers and labels), 0.0092 and 0.0055 ms,
-// while a call runs 48 and 192 sweeps (about one per voxel of the longest
-// path). The tile route pays the state's bytes once for k sweeps, and the
-// rows' and columns' re-staged halo; its sweeps read their neighbours from
-// shared memory (K17 3 words a voxel and 3 a tap, K16 1 and 1), so the
-// shared memory's bandwidth, the steps' barriers and the wider regions
-// bound it, which the plan (ops/morphology.py::relax_plan) weighs against
-// the launches saved. Every
-// kernel copies values or adds and compares in the order of its plain twin,
-// built without contraction (--fmad=false), so it agrees with
-// ops/distance.py and ops/morphology.py's twins bit for bit.
+// triples, 13) and writes it (8; 12): at c19 0.0164 and 0.0154 ms. A
+// call's bound is its input and result alone (the mask, d and ix; the
+// image, markers and labels), 0.0092 and 0.0055 ms, while a call runs 48
+// and 192 sweeps (about one per voxel of the longest path), so the sweeps
+// stand far above it. Every kernel copies values or adds and
+// compares in the order of its plain twin, built without contraction
+// (--fmad=false), so it agrees with ops/distance.py and
+// ops/morphology.py's twins bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
-#include "cp_async.cuh"
-#include "tile_index.cuh"
-
 #define ED_DIST_MAXD 8
 #define ED_DIST_THREADS 256
 #define ED_DIST_BLOCKS 4096
-// K16's and K17's tile route: threads a block (one block an SM, 64
-// registers a thread: the A/B of relax_ab.py, commit 569622d, found larger
-// blocks faster for k >= 2, since a step's items are spread over more
-// threads), sweeps a launch, taps of a 3^3 structure (the centre dropped),
-// a block's shared memory on the H100
-#define ED_RELAX_THREADS 1024
-#define ED_RELAX_MAXK 8
-#define ED_RELAX_MAXTAPS 26
-#define ED_SMEM_LIMIT 232448
-// a block's static shared memory (taps, levels) comes out of the same 227 KB
-#define ED_RELAX_STATIC 1024
 
 namespace {
 
@@ -129,6 +87,21 @@ __device__ __forceinline__ void block_flag(int* flag, bool local) {
 unsigned grid_for(long long n) {
   long long b = (n + ED_DIST_THREADS - 1) / ED_DIST_THREADS;
   return (unsigned)(b < ED_DIST_BLOCKS ? (b > 0 ? b : 1) : ED_DIST_BLOCKS);
+}
+
+// a group of K16 or K17 sweeps whose flag the host reads: zero the device
+// flag before it (flag_begin), copy it into *flag_out after it and wait for
+// the stream (flag_end); nothing without flag_out
+cudaError_t flag_begin(int* changed, int* flag_out, cudaStream_t st) {
+  if (!flag_out) return cudaSuccess;
+  return cudaMemsetAsync(changed, 0, sizeof(int), st);
+}
+
+cudaError_t flag_end(int* changed, int* flag_out, cudaStream_t st) {
+  if (!flag_out) return cudaSuccess;
+  const cudaError_t err = cudaMemcpyAsync(
+      flag_out, changed, sizeof(int), cudaMemcpyDeviceToHost, st);
+  return err != cudaSuccess ? err : cudaStreamSynchronize(st);
 }
 
 // ---------------------------------------------------------------------------
@@ -318,341 +291,6 @@ watershed_sweep_kernel(const X* __restrict__ img, const int* __restrict__ c,
   if (changed) block_flag(changed, any);
 }
 
-// ---------------------------------------------------------------------------
-// K16 and K17's tile route
-
-// a launch of the tile route: the array as (nz, ny, nx) (leading axes of 1
-// added); a block's tile of tz planes, ty rows and tx columns; the tiles
-// per axis; a sweep's reach per axis (0 or 1); the sweeps k; a ring slot's
-// stride (the largest box plane, rounded up to even); the taps as codes
-// (oz + 1) * 9 + (oy + 1) * 3 + (ox + 1) in raster order
-struct RelaxTile {
-  int nz, ny, nx;
-  int tz, ty, tx;
-  int gz, gy, gx;
-  int rz, ry, rx;
-  int k, cap, ntaps;
-  int code[ED_RELAX_MAXTAPS];
-};
-
-// a level's region: sweep j (level j >= 1) computes the tile widened by the
-// k - j reaches of the sweeps after it, level 0 is the staged box: planes
-// [z0, z1) of the array, rows [by0, by0 + RY) and columns [bx0, bx0 + RX)
-// of the box plane, n = RY * RX of them a plane, RX also as a divisor
-struct RelaxLevel {
-  int z0, z1, by0, bx0, RY, RX, n;
-  FastDiv dx;
-};
-
-// a block's box plane: rows [Y0, Y0 + BY), columns [X0, X0 + BX)
-struct RelaxBox {
-  int Y0, X0, BY, BX;
-};
-
-// the block's box; its taps as offsets in a box plane and masks (bits 0-2
-// the tap steps down along z, y, x, bits 8-10 up); its levels' regions
-__device__ __forceinline__ RelaxBox relax_setup(const RelaxTile& p,
-                                               int* toff, unsigned* tmask,
-                                               RelaxLevel* lv) {
-  int t = blockIdx.x;
-  const int tix = t % p.gx;
-  t /= p.gx;
-  const int tiy = t % p.gy;
-  const int tiz = t / p.gy;
-  const int z0 = tiz * p.tz, z1 = min(z0 + p.tz, p.nz);
-  const int y0 = tiy * p.ty, y1 = min(y0 + p.ty, p.ny);
-  const int x0 = tix * p.tx, x1 = min(x0 + p.tx, p.nx);
-  RelaxBox b;
-  int Y1, X1;
-  widen(y0, y1, p.k * p.ry, p.ny, &b.Y0, &Y1);
-  widen(x0, x1, p.k * p.rx, p.nx, &b.X0, &X1);
-  b.BY = Y1 - b.Y0;
-  b.BX = X1 - b.X0;
-  for (int j = threadIdx.x; j < p.ntaps; j += blockDim.x) {
-    const int code = p.code[j];
-    const int oz = code / 9 - 1, oy = code / 3 % 3 - 1, ox = code % 3 - 1;
-    toff[j] = oy * b.BX + ox;
-    tmask[j] = (unsigned)(oz < 0) | (unsigned)(oy < 0) << 1 |
-               (unsigned)(ox < 0) << 2 | (unsigned)(oz > 0) << 8 |
-               (unsigned)(oy > 0) << 9 | (unsigned)(ox > 0) << 10;
-  }
-  for (int j = threadIdx.x; j <= p.k; j += blockDim.x) {
-    const int left = p.k - j;
-    RelaxLevel L;
-    int zlo, zhi, ylo, yhi, xlo, xhi;
-    widen(z0, z1, left * p.rz, p.nz, &zlo, &zhi);
-    widen(y0, y1, left * p.ry, p.ny, &ylo, &yhi);
-    widen(x0, x1, left * p.rx, p.nx, &xlo, &xhi);
-    L.z0 = zlo;
-    L.z1 = zhi;
-    L.by0 = ylo - b.Y0;
-    L.bx0 = xlo - b.X0;
-    L.RY = yhi - ylo;
-    L.RX = xhi - xlo;
-    L.n = L.RY * L.RX;
-    L.dx = make_div(L.RX);
-    lv[j] = L;
-  }
-  return b;
-}
-
-// NT > 0 fixes the tap count at compile time (the cross and the full
-// structure of 2 and 3 axes), so the tap loop unrolls and, up to 8 taps,
-// each tap's offset and mask sit in registers; NT = 0 loops over p.ntaps.
-template <int NT>
-struct TapRegs {
-  static constexpr bool kRegs = NT > 0 && NT <= 8;
-  int off[kRegs ? NT : 1];
-  unsigned msk[kRegs ? NT : 1];
-  __device__ __forceinline__ void load(const int* toff,
-                                       const unsigned* tmask) {
-    if constexpr (kRegs) {
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        off[t] = toff[t];
-        msk[t] = tmask[t];
-      }
-    }
-  }
-  __device__ __forceinline__ int o(const int* toff, int t) const {
-    if constexpr (kRegs) return off[t];
-    return toff[t];
-  }
-  __device__ __forceinline__ unsigned m(const unsigned* tmask, int t) const {
-    if constexpr (kRegs) return msk[t];
-    return tmask[t];
-  }
-};
-
-// The sweeps stream through the block's planes: at step t, level 0 stages
-// plane t + 1 of the box and sweep j computes plane t - 2j of its region
-// from level j - 1's planes t - 2j - 1 .. t - 2j + 1, which earlier steps
-// made, so one barrier a step orders them; each sweep's level keeps a ring
-// of four planes (three read while the fourth is written), level 0 eight.
-// The last sweep writes the tile to device memory. A step's items (a level
-// and a voxel of its plane) are shared out over the block's threads.
-
-// the ring slot of level j's plane pz: level 0 keeps eight (it stages a
-// plane a step ahead of the one its readers wait for), each sweep four
-__device__ __forceinline__ int ring_slot(int j, int pz) {
-  return j == 0 ? (pz & 7) : 4 + 4 * j + (pz & 3);
-}
-
-// the level (0 when none) and the voxel of a step's i-th item; *pz its
-// plane
-__device__ __forceinline__ int step_item(const RelaxTile& p,
-                                         const RelaxLevel* lv, int t, int i,
-                                         int* pos, int* pz) {
-  for (int j = 1; j <= p.k; ++j) {
-    const int z = t - 2 * j;
-    if (z < lv[j].z0 || z >= lv[j].z1) continue;
-    if (i < lv[j].n) {
-      *pos = i;
-      *pz = z;
-      return j;
-    }
-    i -= lv[j].n;
-  }
-  return 0;
-}
-
-// the box-plane index and edge bits (bits 0-2 on the low edge of z, y, x,
-// bits 8-10 on the high edge) of voxel `pos` of level L's plane pz. The box
-// plane holds every region one reach past it, or reaches the array's edge
-// there, so the box's edge is the array's.
-__device__ __forceinline__ int level_voxel(const RelaxTile& p,
-                                           const RelaxBox& b,
-                                           const RelaxLevel& L, int pos,
-                                           int pz, int* by, int* bx,
-                                           unsigned* edges) {
-  const unsigned yq = div_by((unsigned)pos, L.dx);
-  *by = L.by0 + (int)yq;
-  *bx = L.bx0 + pos - (int)(yq * (unsigned)L.RX);
-  *edges = (unsigned)(pz == 0) | (unsigned)(*by == 0) << 1 |
-           (unsigned)(*bx == 0) << 2 | (unsigned)(pz == p.nz - 1) << 8 |
-           (unsigned)(*by == b.BY - 1) << 9 |
-           (unsigned)(*bx == b.BX - 1) << 10;
-  return *by * b.BX + *bx;
-}
-
-__device__ __forceinline__ unsigned plane_index(const RelaxTile& p,
-                                                const RelaxBox& b, int pz,
-                                                int by, int bx) {
-  return ((unsigned)pz * (unsigned)p.ny + (unsigned)(b.Y0 + by)) *
-             (unsigned)p.nx + (unsigned)(b.X0 + bx);
-}
-
-// K16: k sweeps of the chamfer relaxation streamed through the block's
-// planes. Shared memory: the levels' rings of d (4 k + 4 planes of p.cap
-// ints, ring_slot's order), then (IX) of ix.
-template <bool IX, int NT>
-__global__ void __launch_bounds__(ED_RELAX_THREADS, 1)
-chamfer_tile_kernel(const int* __restrict__ d, const int* __restrict__ ix,
-                    int* __restrict__ d_out, int* __restrict__ ix_out,
-                    const RelaxTile p, int* changed) {
-  extern __shared__ int ed_relax_smem[];
-  __shared__ int toff[ED_RELAX_MAXTAPS];
-  __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
-  __shared__ RelaxLevel lv[ED_RELAX_MAXK + 1];
-  const RelaxBox b = relax_setup(p, toff, tmask, lv);
-  int* ds = ed_relax_smem;
-  int* xs = ed_relax_smem + (4 * p.k + 4) * p.cap;
-  __syncthreads();
-  TapRegs<NT> tr;
-  tr.load(toff, tmask);
-  const RelaxLevel L0 = lv[0];
-  const int t_end = lv[p.k].z1 - 1 + 2 * p.k;
-  bool flag = false;
-  // plane z of the box into level 0's ring, a group of copies
-  auto stage = [&](int z) {
-    if (z < L0.z1) {
-      const int slot = ring_slot(0, z) * p.cap;
-      for (int i = threadIdx.x; i < L0.n; i += blockDim.x) {
-        const unsigned yq = div_by((unsigned)i, L0.dx);
-        const unsigned g =
-            plane_index(p, b, z, (int)yq, i - (int)(yq * (unsigned)b.BX));
-        stage_async(ds + slot + i, d + g);
-        if (IX) stage_async(xs + slot + i, ix + g);
-      }
-    }
-    stage_commit();
-  };
-  stage(L0.z0);
-  for (int t = L0.z0; t <= t_end; ++t) {
-    stage(t + 1);
-    for (int i = threadIdx.x;; i += blockDim.x) {
-      int pos, pz;
-      const int j = step_item(p, lv, t, i, &pos, &pz);
-      if (j == 0) break;
-      int by, bx;
-      unsigned edges;
-      const int at = level_voxel(p, b, lv[j], pos, pz, &by, &bx, &edges);
-      // level j - 1's planes pz - 1, pz, pz + 1
-      const int sm = ring_slot(j - 1, pz - 1) * p.cap + at;
-      const int s0 = ring_slot(j - 1, pz) * p.cap + at;
-      const int sp = ring_slot(j - 1, pz + 1) * p.cap + at;
-      const int d0 = ds[s0];
-      int best = d0, bu = s0;
-#pragma unroll(NT > 0 && NT <= 8 ? NT : 1)
-      for (int tp = 0; tp < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++tp) {
-        if (NT == 0 && tp >= p.ntaps) break;
-        const unsigned m = tr.m(tmask, tp);
-        if (m & edges) continue;
-        const int u = (m & 1u ? sm : m & 256u ? sp : s0) + tr.o(toff, tp);
-        const int c = ds[u] + 1;
-        if (c < best) {
-          best = c;
-          bu = u;
-        }
-      }
-      if (j == p.k) {
-        const unsigned g = plane_index(p, b, pz, by, bx);
-        d_out[g] = best;
-        if (IX) ix_out[g] = xs[bu];
-        if (best != d0) flag = true;
-      } else {
-        const int dst = ring_slot(j, pz) * p.cap + at;
-        ds[dst] = best;
-        if (IX) xs[dst] = xs[bu];
-      }
-    }
-    // plane t is in (plane t + 1 may still be on its way)
-    stage_wait_group<1>();
-    __syncthreads();
-  }
-  if (changed) block_flag(changed, flag);
-}
-
-// K17: k sweeps of the watershed relaxation streamed through the block's
-// planes. Shared memory: the levels' rings of (c, s) pairs (4 k + 4 planes
-// of p.cap int2; p.cap is even, so they stay 8-byte aligned), then of l;
-// the image is read from device memory (a byte or two a voxel, cached).
-template <typename X, int NT>
-__global__ void __launch_bounds__(ED_RELAX_THREADS, 1)
-watershed_tile_kernel(const X* __restrict__ img, const int* __restrict__ c,
-                      const int* __restrict__ s, const int* __restrict__ l,
-                      int* __restrict__ c_out, int* __restrict__ s_out,
-                      int* __restrict__ l_out, const RelaxTile p,
-                      int* changed) {
-  extern __shared__ int ed_relax_smem[];
-  __shared__ int toff[ED_RELAX_MAXTAPS];
-  __shared__ unsigned tmask[ED_RELAX_MAXTAPS];
-  __shared__ RelaxLevel lv[ED_RELAX_MAXK + 1];
-  const RelaxBox b = relax_setup(p, toff, tmask, lv);
-  int2* cs = reinterpret_cast<int2*>(ed_relax_smem);
-  int* ls = ed_relax_smem + 2 * (4 * p.k + 4) * p.cap;
-  __syncthreads();
-  TapRegs<NT> tr;
-  tr.load(toff, tmask);
-  const RelaxLevel L0 = lv[0];
-  const int t_end = lv[p.k].z1 - 1 + 2 * p.k;
-  bool flag = false;
-  auto stage = [&](int z) {
-    if (z < L0.z1) {
-      const int slot = ring_slot(0, z) * p.cap;
-      for (int i = threadIdx.x; i < L0.n; i += blockDim.x) {
-        const unsigned yq = div_by((unsigned)i, L0.dx);
-        const unsigned g =
-            plane_index(p, b, z, (int)yq, i - (int)(yq * (unsigned)b.BX));
-        stage_async(&cs[slot + i].x, c + g);
-        stage_async(&cs[slot + i].y, s + g);
-        stage_async(ls + slot + i, l + g);
-      }
-    }
-    stage_commit();
-  };
-  stage(L0.z0);
-  for (int t = L0.z0; t <= t_end; ++t) {
-    stage(t + 1);
-    for (int i = threadIdx.x;; i += blockDim.x) {
-      int pos, pz;
-      const int j = step_item(p, lv, t, i, &pos, &pz);
-      if (j == 0) break;
-      int by, bx;
-      unsigned edges;
-      const int at = level_voxel(p, b, lv[j], pos, pz, &by, &bx, &edges);
-      const int sm = ring_slot(j - 1, pz - 1) * p.cap + at;
-      const int s0 = ring_slot(j - 1, pz) * p.cap + at;
-      const int sp = ring_slot(j - 1, pz + 1) * p.cap + at;
-      const unsigned g = plane_index(p, b, pz, by, bx);
-      const int x = (int)__ldg(img + g);
-      const int2 hv = cs[s0];
-      const int hl = ls[s0];
-      int nc = hv.x, ns = hv.y, nl = hl;
-#pragma unroll(NT > 0 && NT <= 8 ? NT : 1)
-      for (int tp = 0; tp < (NT > 0 ? NT : ED_RELAX_MAXTAPS); ++tp) {
-        if (NT == 0 && tp >= p.ntaps) break;
-        const unsigned m = tr.m(tmask, tp);
-        if (m & edges) continue;
-        const int u = (m & 1u ? sm : m & 256u ? sp : s0) + tr.o(toff, tp);
-        const int2 uv = cs[u];
-        const int ul = ls[u];
-        const int cc = uv.x > x ? uv.x : x;
-        const int cs1 = uv.y + 1;
-        if (ul != 0 && (cc < nc || (cc == nc && (cs1 < ns ||
-                                                 (cs1 == ns && ul < nl))))) {
-          nc = cc;
-          ns = cs1;
-          nl = ul;
-        }
-      }
-      if (j == p.k) {
-        c_out[g] = nc;
-        s_out[g] = ns;
-        l_out[g] = nl;
-        if (nc != hv.x || ns != hv.y || nl != hl) flag = true;
-      } else {
-        const int dst = ring_slot(j, pz) * p.cap + at;
-        cs[dst] = make_int2(nc, ns);
-        ls[dst] = nl;
-      }
-    }
-    stage_wait_group<1>();
-    __syncthreads();
-  }
-  if (changed) block_flag(changed, flag);
-}
-
 bool make_dims(int ndim, const long long* shape, Dims* dm,
                long long* total) {
   if (ndim < 1 || ndim > ED_DIST_MAXD) return false;
@@ -667,112 +305,6 @@ bool make_dims(int ndim, const long long* shape, Dims* dm,
   }
   *total = t;
   return true;
-}
-
-// a tile launch's geometry from the host's `args` (nz, ny, nx, tz, ty, tx,
-// k, ntaps, then the ntaps tap codes) for a state of `words` int32 words a
-// voxel; its shared bytes (the levels' rings) and blocks. False on a
-// malformed launch.
-bool make_tile(const int* args, int words, RelaxTile* p, long long* smem,
-               long long* blocks) {
-  if (args == nullptr) return false;
-  p->nz = args[0];
-  p->ny = args[1];
-  p->nx = args[2];
-  p->tz = args[3];
-  p->ty = args[4];
-  p->tx = args[5];
-  p->k = args[6];
-  p->ntaps = args[7];
-  if (p->nz < 1 || p->ny < 1 || p->nx < 1 || p->tz < 1 || p->ty < 1 ||
-      p->tx < 1 || p->k < 1 || p->k > ED_RELAX_MAXK || p->ntaps < 0 ||
-      p->ntaps > ED_RELAX_MAXTAPS ||
-      (long long)p->nz * p->ny * p->nx >= (1LL << 31))
-    return false;
-  p->rz = p->ry = p->rx = 0;
-  for (int t = 0; t < ED_RELAX_MAXTAPS; ++t) {
-    const int code = t < p->ntaps ? args[8 + t] : 13;
-    if (code < 0 || code > 26 || (t < p->ntaps && code == 13)) return false;
-    p->code[t] = code;
-    p->rz |= code / 9 != 1;
-    p->ry |= code / 3 % 3 != 1;
-    p->rx |= code % 3 != 1;
-  }
-  const long long by = std::min<long long>(p->ny, p->ty + 2LL * p->k * p->ry);
-  const long long bx = std::min<long long>(p->nx, p->tx + 2LL * p->k * p->rx);
-  long long cap = by * bx;
-  cap += cap & 1;  // K17's (cost, steps) pairs stay 8-byte aligned
-  p->cap = (int)cap;
-  p->gz = (int)((p->nz + (long long)p->tz - 1) / p->tz);
-  p->gy = (int)((p->ny + (long long)p->ty - 1) / p->ty);
-  p->gx = (int)((p->nx + (long long)p->tx - 1) / p->tx);
-  *smem = 16LL * (p->k + 1) * cap * words;
-  *blocks = (long long)p->gz * p->gy * p->gx;
-  return true;
-}
-
-template <bool IX, int NT>
-cudaError_t launch_chamfer_tile(const int* d, const int* ix, int* d_out,
-                                int* ix_out, const RelaxTile& p, int smem,
-                                unsigned blocks, int* changed,
-                                cudaStream_t st) {
-  static int allowed = 0;
-  // the allowance covers the static shared memory too: a launch whose
-  // dynamic bytes alone fit the default 48 KB may not with it
-  const cudaError_t err = allow_smem(chamfer_tile_kernel<IX, NT>, &allowed,
-                                     smem + ED_RELAX_STATIC);
-  if (err != cudaSuccess) return err;
-  chamfer_tile_kernel<IX, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
-      d, ix, d_out, ix_out, p, changed);
-  return cudaGetLastError();
-}
-
-template <typename X, int NT>
-cudaError_t launch_watershed_tile(const void* img, const int* c,
-                                  const int* s, const int* l, int* c_out,
-                                  int* s_out, int* l_out, const RelaxTile& p,
-                                  int smem, unsigned blocks, int* changed,
-                                  cudaStream_t st) {
-  static int allowed = 0;
-  const cudaError_t err = allow_smem(watershed_tile_kernel<X, NT>, &allowed,
-                                     smem + ED_RELAX_STATIC);
-  if (err != cudaSuccess) return err;
-  watershed_tile_kernel<X, NT><<<blocks, ED_RELAX_THREADS, smem, st>>>(
-      static_cast<const X*>(img), c, s, l, c_out, s_out, l_out, p, changed);
-  return cudaGetLastError();
-}
-
-// the tap counts with an unrolled instantiation: the cross and the full
-// structure of 2 and 3 axes (1 for the others)
-#define ED_RELAX_NT(F, n, ...)                                    \
-  ((n) == 4    ? F<4>(__VA_ARGS__)                                \
-   : (n) == 6  ? F<6>(__VA_ARGS__)                                \
-   : (n) == 8  ? F<8>(__VA_ARGS__)                                \
-   : (n) == 26 ? F<26>(__VA_ARGS__)                               \
-               : F<0>(__VA_ARGS__))
-
-template <int NT>
-cudaError_t chamfer_nt(bool with_ix, const int* d, const int* ix, int* d_out,
-                       int* ix_out, const RelaxTile& p, int smem,
-                       unsigned blocks, int* changed, cudaStream_t st) {
-  return with_ix ? launch_chamfer_tile<true, NT>(d, ix, d_out, ix_out, p,
-                                                 smem, blocks, changed, st)
-                 : launch_chamfer_tile<false, NT>(d, ix, d_out, ix_out, p,
-                                                  smem, blocks, changed, st);
-}
-
-template <int NT>
-cudaError_t watershed_nt(int img_bytes, const void* img, const int* c,
-                         const int* s, const int* l, int* c_out, int* s_out,
-                         int* l_out, const RelaxTile& p, int smem,
-                         unsigned blocks, int* changed, cudaStream_t st) {
-  return img_bytes == 1
-             ? launch_watershed_tile<uint8_t, NT>(img, c, s, l, c_out, s_out,
-                                                  l_out, p, smem, blocks,
-                                                  changed, st)
-             : launch_watershed_tile<uint16_t, NT>(img, c, s, l, c_out,
-                                                   s_out, l_out, p, smem,
-                                                   blocks, changed, st);
 }
 
 }  // namespace
@@ -822,92 +354,90 @@ int ed_minplus_pass(const double* g, double* out, const int* ix, int* ix_out,
   return (int)cudaGetLastError();
 }
 
-// K16: one Jacobi sweep of the chamfer relaxation on a contiguous int32
-// array of `ndim` axes; taps: ntaps (linear offset, edge word) pairs; ix and
-// ix_out null without indices; changed null or set where a voxel changed.
-// The outputs must not overlap the inputs. Returns cudaGetLastError().
-int ed_chamfer_sweep(const int* d, const int* ix, int* d_out, int* ix_out,
+// K16: `nsweeps` Jacobi sweeps of the chamfer relaxation on a contiguous
+// int32 array of `ndim` axes, launched from this one host call: sweep j
+// reads set j % 2 and writes set (j + 1) % 2, set 0 (d, ix), set 1 (d_out,
+// ix_out), so the result lies in set nsweeps % 2 (an even count overwrites
+// set 0); taps: ntaps (linear offset, edge word) pairs; ix and ix_out null
+// without indices; changed null or set where a voxel of the last sweep
+// changed. With flag_out, the host's int (changed then required), *changed
+// is zeroed before the group and copied into *flag_out after it, and the
+// call returns once the stream has run them: the fixpoint driver's read, so
+// a group is one host call and one wait. The sets must not overlap.
+// Returns the first error (a launch's cudaGetLastError(), the flag's copy
+// or the wait), or 0.
+int ed_chamfer_sweep(int* d, int* ix, int* d_out, int* ix_out,
                      const int* taps, int ntaps, int ndim,
-                     const long long* shape, int* changed, void* stream) {
+                     const long long* shape, int nsweeps, int* changed,
+                     int* flag_out, void* stream) {
   Dims dm;
   long long total;
-  if (!make_dims(ndim, shape, &dm, &total) || ntaps < 0 ||
-      (ix == nullptr) != (ix_out == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  chamfer_sweep_kernel<<<grid_for(total), ED_DIST_THREADS, 0, st>>>(
-      d, ix, d_out, ix_out, reinterpret_cast<const int2*>(taps), ntaps, dm,
-      (unsigned)total, changed);
-  return (int)cudaGetLastError();
-}
-
-// K17: one Jacobi sweep of the watershed relaxation; img uint8 (img_bytes
-// 1) or uint16 (2); the int32 triples (c, s, l) in and out; taps and
-// changed as K16's. Returns cudaGetLastError().
-int ed_watershed_sweep(const void* img, int img_bytes, const int* c,
-                       const int* s, const int* l, int* c_out, int* s_out,
-                       int* l_out, const int* taps, int ntaps, int ndim,
-                       const long long* shape, int* changed, void* stream) {
-  Dims dm;
-  long long total;
-  if (!make_dims(ndim, shape, &dm, &total) || ntaps < 0 ||
-      (img_bytes != 1 && img_bytes != 2))
+  if (!make_dims(ndim, shape, &dm, &total) || ntaps < 0 || nsweeps < 1 ||
+      (ix == nullptr) != (ix_out == nullptr) ||
+      (flag_out != nullptr && changed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int2* tp = reinterpret_cast<const int2*>(taps);
-  if (img_bytes == 1)
-    watershed_sweep_kernel<uint8_t><<<grid_for(total), ED_DIST_THREADS, 0,
-                                      st>>>(
-        static_cast<const uint8_t*>(img), c, s, l, c_out, s_out, l_out, tp,
-        ntaps, dm, (unsigned)total, changed);
-  else
-    watershed_sweep_kernel<uint16_t><<<grid_for(total), ED_DIST_THREADS, 0,
-                                       st>>>(
-        static_cast<const uint16_t*>(img), c, s, l, c_out, s_out, l_out, tp,
-        ntaps, dm, (unsigned)total, changed);
-  return (int)cudaGetLastError();
+  cudaError_t err = flag_begin(changed, flag_out, st);
+  if (err != cudaSuccess) return (int)err;
+  for (int j = 0; j < nsweeps; ++j) {
+    chamfer_sweep_kernel<<<grid_for(total), ED_DIST_THREADS, 0, st>>>(
+        d, ix, d_out, ix_out, tp, ntaps, dm, (unsigned)total,
+        j == nsweeps - 1 ? changed : nullptr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    int* t = d;
+    d = d_out;
+    d_out = t;
+    t = ix;
+    ix = ix_out;
+    ix_out = t;
+  }
+  return (int)flag_end(changed, flag_out, st);
 }
 
-// K16's tile route: k sweeps (args[6]) in one launch on (nz, ny, nx) =
-// args[0:3] (the array's shape with leading axes of 1 added), tiles of
-// args[3:6], the ntaps = args[7] taps' codes (oz + 1) * 9 + (oy + 1) * 3 +
-// (ox + 1) from args[8] on, in the order the sweep visits them (host
-// memory); ix and ix_out null without indices; changed null or set where
-// the last sweep changed a voxel. The outputs must not overlap the inputs.
-// Returns cudaGetLastError(), cudaErrorInvalidConfiguration where the box
-// passes the shared memory.
-int ed_chamfer_tile(const int* d, const int* ix, int* d_out, int* ix_out,
-                    const int* args, int* changed, void* stream) {
-  RelaxTile p;
-  long long smem, blocks;
-  if ((ix == nullptr) != (ix_out == nullptr) ||
-      !make_tile(args, ix ? 2 : 1, &p, &smem, &blocks))
+// K17: `nsweeps` Jacobi sweeps of the watershed relaxation, from one host
+// call as K16's; img uint8 (img_bytes 1) or uint16 (2); the int32 triples
+// set 0 (c, s, l) and set 1 (c_out, s_out, l_out); taps, changed and
+// flag_out as K16's. Returns the first error, or 0.
+int ed_watershed_sweep(const void* img, int img_bytes, int* c, int* s,
+                       int* l, int* c_out, int* s_out, int* l_out,
+                       const int* taps, int ntaps, int ndim,
+                       const long long* shape, int nsweeps, int* changed,
+                       int* flag_out, void* stream) {
+  Dims dm;
+  long long total;
+  if (!make_dims(ndim, shape, &dm, &total) || ntaps < 0 || nsweeps < 1 ||
+      (img_bytes != 1 && img_bytes != 2) ||
+      (flag_out != nullptr && changed == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (smem > ED_SMEM_LIMIT - ED_RELAX_STATIC || blocks > INT32_MAX)
-    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)ED_RELAX_NT(chamfer_nt, p.ntaps, ix != nullptr, d, ix, d_out,
-                          ix_out, p, (int)smem, (unsigned)blocks, changed,
-                          st);
-}
-
-// K17's tile route: k sweeps in one launch; img uint8 (img_bytes 1) or
-// uint16 (2); the int32 triples in and out; args and changed as K16's.
-int ed_watershed_tile(const void* img, int img_bytes, const int* c,
-                      const int* s, const int* l, int* c_out, int* s_out,
-                      int* l_out, const int* args, int* changed,
-                      void* stream) {
-  RelaxTile p;
-  long long smem, blocks;
-  if ((img_bytes != 1 && img_bytes != 2) ||
-      !make_tile(args, 3, &p, &smem, &blocks))
-    return (int)cudaErrorInvalidValue;
-  if (smem > ED_SMEM_LIMIT - ED_RELAX_STATIC || blocks > INT32_MAX)
-    return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)ED_RELAX_NT(watershed_nt, p.ntaps, img_bytes, img, c, s, l,
-                          c_out, s_out, l_out, p, (int)smem,
-                          (unsigned)blocks, changed, st);
+  const int2* tp = reinterpret_cast<const int2*>(taps);
+  cudaError_t err = flag_begin(changed, flag_out, st);
+  if (err != cudaSuccess) return (int)err;
+  int* in[3] = {c, s, l};
+  int* out[3] = {c_out, s_out, l_out};
+  for (int j = 0; j < nsweeps; ++j) {
+    int* flag = j == nsweeps - 1 ? changed : nullptr;
+    if (img_bytes == 1)
+      watershed_sweep_kernel<uint8_t><<<grid_for(total), ED_DIST_THREADS, 0,
+                                        st>>>(
+          static_cast<const uint8_t*>(img), in[0], in[1], in[2], out[0],
+          out[1], out[2], tp, ntaps, dm, (unsigned)total, flag);
+    else
+      watershed_sweep_kernel<uint16_t><<<grid_for(total), ED_DIST_THREADS, 0,
+                                         st>>>(
+          static_cast<const uint16_t*>(img), in[0], in[1], in[2], out[0],
+          out[1], out[2], tp, ntaps, dm, (unsigned)total, flag);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    for (int k = 0; k < 3; ++k) {
+      int* t = in[k];
+      in[k] = out[k];
+      out[k] = t;
+    }
+  }
+  return (int)flag_end(changed, flag_out, st);
 }
 
 const char* ed_distance_error_string(int err) {

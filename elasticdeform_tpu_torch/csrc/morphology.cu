@@ -105,7 +105,6 @@
 #include <utility>
 
 #include "cp_async.cuh"
-#include "tile_index.cuh"
 
 #define ED_MORPH_MAXR 8
 #define ED_THREADS 256
@@ -1044,6 +1043,36 @@ struct BinTile {
   int bz, by, bw;
 };
 
+// n / d for n < 2^31 by a multiply (the magic number of PyTorch's
+// IntDivider): the region loops divide every index twice
+struct FastDiv {
+  unsigned d, m, s;
+};
+
+__host__ __device__ __forceinline__ FastDiv make_div(unsigned d) {
+  unsigned s = 0;
+  while (s < 32 && (1u << s) < d) ++s;
+  const unsigned long long one = 1;
+  FastDiv f;
+  f.d = d;
+  f.s = s;
+  f.m = (unsigned)(((one << 32) * ((one << s) - d)) / d + 1);
+  return f;
+}
+
+__device__ __forceinline__ unsigned div_by(unsigned n, const FastDiv& f) {
+  const unsigned t = __umulhi(n, f.m);
+  return (unsigned)(((unsigned long long)t + n) >> f.s);
+}
+
+// [lo, hi) of an axis of n: the tile [t0, t1) widened by `reach` on each
+// side, clamped to the array
+__device__ __forceinline__ void widen(int t0, int t1, int reach, int n,
+                                      int* lo, int* hi) {
+  *lo = t0 - reach < 0 ? 0 : t0 - reach;
+  *hi = t1 + reach > n ? n : t1 + reach;
+}
+
 // k <= ED_BIN_MAX_SWEEPS sweeps of a block's tile, by 1024 threads (a
 // sweep's words wait on shared-memory loads, so a block brings 32 warps;
 // the bound leaves them 64 registers, and at 32 the kernel spilled). taps: nrows row codes, then ntaps dx values. A row code holds
@@ -1707,6 +1736,16 @@ Nd make_nd(int ndim, const long long* shape, const int* lo, const int* hi,
 bool bad_nd(int ndim, int taps, int mode) {
   return ndim < 1 || ndim > ED_MORPH_MAXR || taps < 0 || mode < 0 ||
          mode > 4;
+}
+
+// raise a kernel's dynamic shared memory limit once to what a launch needs
+template <typename K>
+cudaError_t allow_smem(K kernel, int* allowed, int bytes) {
+  if (bytes <= 48 * 1024 || bytes <= *allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *allowed = bytes;
+  return err;
 }
 
 template <typename T, bool MIN>

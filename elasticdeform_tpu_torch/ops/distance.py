@@ -16,22 +16,17 @@ morphology` and sweeps by K17 here. Four kernels carry them
   JAX package's ladder, (16, 64) then dense, the same rungs in the same
   order with the same global certificate, so the indices, whose ties each
   tier breaks its own way, are the JAX package's too (note R2).
-* :func:`chamfer_sweep` (K16): ``k`` Jacobi sweeps of the chamfer
-  relaxation (``cdt_core``), run to the fixpoint by
+* :func:`chamfer_sweep` (K16): one Jacobi sweep of the chamfer relaxation
+  (``cdt_core``), run to the fixpoint by
   :func:`~elasticdeform_tpu_torch.ops.morphology.relax_to_fixpoint`.
-* :func:`watershed_sweep` (K17): ``k`` Jacobi sweeps of ``watershed_ift``'s
+* :func:`watershed_sweep` (K17): one Jacobi sweep of ``watershed_ift``'s
   (cost, steps, label) triples, run to the fixpoint the same way.
 
-K16 and K17 take two routes, which
-:func:`~elasticdeform_tpu_torch.ops.morphology.relax_plan` picks:
-``"tile"`` (1-3 axes) runs up to 8 sweeps in one launch, a block streaming
-through its tile's planes with a ring of planes in shared memory for each
-sweep; ``"sweep"`` (more axes, or no tile within the shared memory) one
-sweep a launch in device memory. Each counts ``.launches``,
-``.sweeps`` and its launches per route in ``.routes``; the fixpoint drivers
-launch through :func:`chamfer_sweeper` / :func:`watershed_sweeper`, which
-check the inputs, bind the entry point and read the stream once a call and
-ping-pong between two buffer sets.
+The fixpoint drivers launch K16 and K17 through :func:`chamfer_sweeper` /
+:func:`watershed_sweeper`, which check the inputs, bind the entry point
+and read the stream once a call, and run a group of sweeps from one host
+call (the flag zeroed, the sweeps launched, ping-ponging between the
+state's buffers and a second set allocated once a call, the flag read).
 
 The EDT works in float64, as the JAX package does under x64 and as SciPy
 returns it. On a CPU tensor each wrapper takes its plain version
@@ -55,9 +50,8 @@ import torch
 from elasticdeform_tpu_torch.ops import _build
 from elasticdeform_tpu_torch.ops.filters import _stream, normalize_sequence
 from elasticdeform_tpu_torch.ops.morphology import (
-    RELAX_BIG, SWEEPS_PER_CHECK, RelaxPlan, RelaxTaps,
-    generate_binary_structure, nonzero_mask, relax_check, relax_pad,
-    relax_taps, relax_to_fixpoint, tap_view,
+    RELAX_BIG, RelaxTaps, generate_binary_structure, nonzero_mask,
+    relax_check, relax_pad, relax_taps, relax_to_fixpoint, tap_view,
 )
 
 # the sentinel of a line with no background (float32 max / 16)
@@ -71,10 +65,8 @@ _DENSE_CHUNK_BYTES = 8 << 20
 _SIGNATURES = (
     ("ed_nearest_background", "vvvipddv"),
     ("ed_minplus_pass", "vvvvililviddvv"),
-    ("ed_chamfer_sweep", "vvvvviipvv"),
-    ("ed_watershed_sweep", "vivvvvvvviipvv"),
-    ("ed_chamfer_tile", "vvvvvvv"),
-    ("ed_watershed_tile", "vivvvvvvvvv"))
+    ("ed_chamfer_sweep", "vvvvviipivvv"),
+    ("ed_watershed_sweep", "vivvvvvvviipivvv"))
 _entries: dict = {}
 
 
@@ -445,27 +437,11 @@ def chamfer_sweep_plain(d: torch.Tensor, ix, offs, changed=None):
     return nd, nix
 
 
-def _chamfer_plan(taps: RelaxTaps, ix, k: int, route=None) -> RelaxPlan:
-    return taps.plan(1 if ix is None else 2, 0, k, route)
-
-
-def _count(wrapper, plan: RelaxPlan, k: int) -> None:
-    wrapper.launches += 1
-    wrapper.sweeps += k
-    wrapper.routes[plan.route] += 1
-
-
-def chamfer_sweeper(d: torch.Tensor, ix, taps: RelaxTaps, plan: RelaxPlan):
-    """The fixpoint driver's K16 launches for one call on ``d``'s shape and
-    device (``ix`` None or not, as every state will be): ``sweeps(state,
-    m, changed, out)``, ``m`` sweeps of ``state = (d, ix)`` into ``out``
-    (a buffer set, or None to allocate one), one launch of ``plan``'s route
-    (``m <= plan.k``). A CPU tensor runs ``m`` twin sweeps. The inputs are
-    checked, the entry point bound and the stream read once."""
-    if d.device.type == "cpu":
-        def sweeps(state, m, changed=None, out=None):
-            return chamfer_sweep(*state, taps, changed, k=m)
-        return sweeps
+def _chamfer_launch(d: torch.Tensor, ix, taps: RelaxTaps):
+    """K16's inputs checked, its entry point bound and the stream read:
+    ``launch(state, out, n, changed, flag_out)``, ``n`` sweeps of ``state``
+    ping-ponging with the buffer set ``out`` (``csrc/distance.cu``'s
+    ``ed_chamfer_sweep``), counted in ``chamfer_sweep.launches``."""
     relax_check(d, "chamfer_sweep")
     if d.dtype != torch.int32 or (ix is not None and (
             ix.dtype != torch.int32 or not ix.is_contiguous()
@@ -473,65 +449,85 @@ def chamfer_sweeper(d: torch.Tensor, ix, taps: RelaxTaps, plan: RelaxPlan):
         raise TypeError("chamfer_sweep: the kernel takes int32 distances "
                         "and indices")
     _lib()
+    fn = _entries["ed_chamfer_sweep"]
+    cargs = taps.c_args(d.device)
     stream = _stream(d)
-    if plan.route == "tile":
-        fn = _entries["ed_chamfer_tile"]
 
-        def launch(d, ix, nd, nix, m, changed):
-            return fn(d.data_ptr(), _ptr(ix), nd.data_ptr(),
-                      _ptr(nix), taps.tile_args(plan, m),
-                      _ptr(changed), stream)
-    else:
-        fn = _entries["ed_chamfer_sweep"]
-        cargs = taps.c_args(d.device)
-
-        def launch(d, ix, nd, nix, m, changed):
-            return fn(d.data_ptr(), _ptr(ix), nd.data_ptr(),
-                      _ptr(nix), *cargs,
-                      _ptr(changed), stream)
-
-    def sweeps(state, m, changed=None, out=None):
-        if not 1 <= m <= plan.k:
-            raise ValueError(f"chamfer_sweep: {m} sweeps a launch on "
-                             f"{plan}")
-        d, ix = state
-        if out is None:
-            out = (torch.empty_like(d),
-                   None if ix is None else torch.empty_like(ix))
-        _check_launch(launch(d, ix, *out, m, changed), "chamfer_sweep")
-        _count(chamfer_sweep, plan, m)
-        return out
-    return sweeps
+    def launch(state, out, n, changed, flag_out):
+        _check_launch(fn(state[0].data_ptr(), _ptr(state[1]),
+                         out[0].data_ptr(), _ptr(out[1]), *cargs, n,
+                         _ptr(changed), flag_out, stream), "chamfer_sweep")
+        chamfer_sweep.launches += n
+    return launch
 
 
-def chamfer_sweep(d: torch.Tensor, ix, taps: RelaxTaps, changed=None,
-                  k: int = 1, route=None, plan=None):
-    """``k`` sweeps of :func:`chamfer_sweep_plain` over ``taps``,
-    ``changed`` set by the last. A CPU tensor takes the twin; a CUDA tensor
-    launches K16 once into new buffers on ``plan`` (by default
-    :func:`relax_plan`'s for ``k`` sweeps; ``route`` forces ``"tile"`` or
-    ``"sweep"``, which runs one sweep a launch) and adds one to
-    ``chamfer_sweep.launches`` and ``.routes[route]`` and ``k`` to
-    ``.sweeps``."""
+def _group(launch, device):
+    """The fixpoint driver's ``sweep(state, n)`` on the card: ``n`` sweeps
+    by ``launch`` from one host call, ping-ponging between ``state``'s
+    buffers and a second set allocated at the first call (the result in
+    set ``n % 2``: an even ``n`` overwrites ``state``), a flag of its own
+    zeroed before them and read after; returns the result and whether the
+    last sweep changed a voxel."""
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    host = ctypes.c_int(0)
+    spare = []
+
+    def sweep(state, n=1):
+        if not spare:
+            spare.append(tuple(None if t is None else torch.empty_like(t)
+                               for t in state))
+        out = spare[0]
+        if any(t is not None and t.data_ptr() == o.data_ptr()
+               for t, o in zip(state, out)):
+            raise ValueError("a sweeper's state must not be its own second "
+                             "buffer set")
+        launch(state, out, n, flag, ctypes.byref(host))
+        return (out if n % 2 else state), bool(host.value)
+    return sweep
+
+
+def _twin_group(one):
+    """The fixpoint driver's ``sweep(state, n)`` on the CPU: ``n`` sweeps
+    ``state = one(state, changed)``, the flag handed to the last; returns
+    the result and whether the last sweep changed a voxel."""
+    def sweep(state, n=1):
+        changed = torch.zeros(1, dtype=torch.int32)
+        for j in range(n):
+            state = one(state, changed if j == n - 1 else None)
+        return state, bool(changed)
+    return sweep
+
+
+def chamfer_sweeper(d: torch.Tensor, ix, taps: RelaxTaps):
+    """The fixpoint driver's K16 sweeps for one call on ``d``'s shape and
+    device (``ix`` None or not, as every state will be): ``sweep(state,
+    n)``, ``n`` sweeps of ``state = (d, ix)``, returning the result and
+    whether the last sweep changed a voxel. A CPU tensor takes ``n``
+    sweeps of :func:`chamfer_sweep`'s twin; a CUDA tensor runs them from
+    one host call (:func:`_group`)."""
     if d.device.type == "cpu":
-        for s in range(k):
-            d, ix = chamfer_sweep_plain(d, ix, taps.offs,
-                                        changed if s == k - 1 else None)
-        return d, ix
-    plan = plan or _chamfer_plan(taps, ix, k, route)
-    return chamfer_sweeper(d, ix, taps, plan)((d, ix), k, changed)
+        return _twin_group(lambda st, ch: chamfer_sweep(*st, taps, ch))
+    return _group(_chamfer_launch(d, ix, taps), d.device)
+
+
+def chamfer_sweep(d: torch.Tensor, ix, taps: RelaxTaps, changed=None):
+    """One sweep of :func:`chamfer_sweep_plain` over ``taps``. A CPU tensor
+    takes the twin; a CUDA tensor launches K16 into new buffers and adds
+    one to ``chamfer_sweep.launches``."""
+    if d.device.type == "cpu":
+        return chamfer_sweep_plain(d, ix, taps.offs, changed)
+    out = (torch.empty_like(d), None if ix is None else torch.empty_like(ix))
+    _chamfer_launch(d, ix, taps)((d, ix), out, 1, changed, None)
+    return out
 
 
 chamfer_sweep.launches = 0
-chamfer_sweep.sweeps = 0
-chamfer_sweep.routes = {"tile": 0, "sweep": 0}
 
 
 def cdt_core(fg: torch.Tensor, structure, want_idx: bool):
     """The JAX package's ``cdt_core`` (``:343``): the chamfer distance
     (int32) of the bool ``fg`` over ``structure``'s neighbours, K16 sweeps
-    to the fixpoint (up to the plan's ``k`` a launch), and the winners'
-    raveled indices (int32) or None."""
+    to the fixpoint, and the winners' raveled indices (int32) or None."""
     ndim = fg.dim()
     shape = tuple(fg.shape)
     structure = np.asarray(structure, dtype=bool)
@@ -543,9 +539,7 @@ def cdt_core(fg: torch.Tensor, structure, want_idx: bool):
     if fg.numel() == 0:
         return d, ix
     taps = relax_taps(structure, shape)
-    plan = _chamfer_plan(taps, ix, SWEEPS_PER_CHECK)
-    return relax_to_fixpoint(chamfer_sweeper(d, ix, taps, plan), (d, ix),
-                             fg.device, plan.k)
+    return relax_to_fixpoint(chamfer_sweeper(d, ix, taps), (d, ix))
 
 
 # ---------------------------------------------------------------------------
@@ -580,85 +574,63 @@ def watershed_sweep_plain(img: torch.Tensor, c: torch.Tensor,
     return nc, ns, nl
 
 
-def watershed_sweeper(img: torch.Tensor, taps: RelaxTaps, plan: RelaxPlan):
-    """The fixpoint driver's K17 launches for one call on the uint8 or
-    uint16 ``img``: ``sweeps(state, m, changed, out)``, ``m`` sweeps of the
-    triples ``state = (c, s, l)`` into ``out`` (a buffer set, or None to
-    allocate one), one launch of ``plan``'s route (``m <= plan.k``). A CPU
-    tensor runs ``m`` twin sweeps. The image is checked, the entry point
-    bound and the stream read once; each state's triples are checked at
-    each launch."""
-    if img.device.type == "cpu":
-        def sweeps(state, m, changed=None, out=None):
-            return watershed_sweep(img, *state, taps, changed, k=m)
-        return sweeps
+def _watershed_launch(img: torch.Tensor, taps: RelaxTaps):
+    """K17's image checked, its entry point bound and the stream read:
+    ``launch(state, out, n, changed, flag_out)`` as
+    :func:`_chamfer_launch`'s, the triples checked at each launch."""
     relax_check(img, "watershed_sweep image")
     if img.dtype not in (torch.uint8, torch.uint16):
         raise TypeError(f"watershed_sweep: the kernel takes a uint8 or "
                         f"uint16 image, got {img.dtype}")
     _lib()
+    fn = _entries["ed_watershed_sweep"]
+    cargs = taps.c_args(img.device)
     stream = _stream(img)
     nbytes = img.element_size()
-    if plan.route == "tile":
-        fn = _entries["ed_watershed_tile"]
 
-        def launch(c, s, l, co, so, lo, m, changed):
-            return fn(img.data_ptr(), nbytes, c.data_ptr(), s.data_ptr(),
-                      l.data_ptr(), co.data_ptr(), so.data_ptr(),
-                      lo.data_ptr(), taps.tile_args(plan, m),
-                      _ptr(changed), stream)
-    else:
-        fn = _entries["ed_watershed_sweep"]
-        cargs = taps.c_args(img.device)
-
-        def launch(c, s, l, co, so, lo, m, changed):
-            return fn(img.data_ptr(), nbytes, c.data_ptr(), s.data_ptr(),
-                      l.data_ptr(), co.data_ptr(), so.data_ptr(),
-                      lo.data_ptr(), *cargs,
-                      _ptr(changed), stream)
-
-    def sweeps(state, m, changed=None, out=None):
-        if not 1 <= m <= plan.k:
-            raise ValueError(f"watershed_sweep: {m} sweeps a launch on "
-                             f"{plan}")
+    def launch(state, out, n, changed, flag_out):
         for t in state:
             if (t.dtype != torch.int32 or t.shape != img.shape
                     or not t.is_contiguous() or t.device != img.device):
                 raise TypeError("watershed_sweep: the kernel takes "
                                 "contiguous int32 triples of the image's "
                                 "shape on its device")
-        if out is None:
-            out = tuple(torch.empty_like(t) for t in state)
-        _check_launch(launch(*state, *out, m, changed), "watershed_sweep")
-        _count(watershed_sweep, plan, m)
-        return out
-    return sweeps
+        _check_launch(fn(img.data_ptr(), nbytes,
+                         *[t.data_ptr() for t in (*state, *out)], *cargs,
+                         n, _ptr(changed), flag_out, stream),
+                      "watershed_sweep")
+        watershed_sweep.launches += n
+    return launch
+
+
+def watershed_sweeper(img: torch.Tensor, taps: RelaxTaps):
+    """The fixpoint driver's K17 sweeps for one call on the uint8 or uint16
+    ``img``: ``sweep(state, n)``, ``n`` sweeps of the triples ``state = (c,
+    s, l)``, returning the result and whether the last sweep changed a
+    voxel. A CPU tensor takes ``n`` sweeps of :func:`watershed_sweep`'s
+    twin; a CUDA tensor runs them from one host call (:func:`_group`)."""
+    if img.device.type == "cpu":
+        return _twin_group(
+            lambda st, ch: watershed_sweep(img, *st, taps, ch))
+    return _group(_watershed_launch(img, taps), img.device)
 
 
 def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
-                    l: torch.Tensor, taps: RelaxTaps, changed=None,
-                    k: int = 1, route=None, plan=None):
-    """``k`` Jacobi sweeps of the watershed's triples ``(c, s, l)`` (int32,
+                    l: torch.Tensor, taps: RelaxTaps, changed=None):
+    """One Jacobi sweep of the watershed's triples ``(c, s, l)`` (int32,
     ``img``'s shape; ``img`` uint8 or uint16) over ``taps``; ``changed`` as
-    :func:`watershed_sweep_plain`, set by the last sweep. A CPU tensor
-    takes :func:`watershed_sweep_plain`; a CUDA tensor launches K17 once
-    into new buffers (the triples in and out never alias) on ``plan`` (by
-    default :func:`relax_plan`'s for ``k`` sweeps; ``route`` forces
-    ``"tile"`` or ``"sweep"``, which runs one sweep a launch) and adds one
-    to ``watershed_sweep.launches`` and ``.routes[route]`` and ``k`` to
-    ``.sweeps``."""
+    :func:`watershed_sweep_plain`. A CPU tensor takes
+    :func:`watershed_sweep_plain`; a CUDA tensor launches K17 into new
+    buffers (the triples in and out never alias) and adds one to
+    ``watershed_sweep.launches``."""
     if img.device.type == "cpu":
-        for j in range(k):
-            c, s, l = watershed_sweep_plain(img, c, s, l, taps.offs,
-                                            changed if j == k - 1 else None)
-        return c, s, l
-    plan = plan or taps.plan(3, img.element_size(), k, route)
-    return watershed_sweeper(img, taps, plan)((c, s, l), k, changed)
+        return watershed_sweep_plain(img, c, s, l, taps.offs, changed)
+    out = tuple(torch.empty_like(t) for t in (c, s, l))
+    _watershed_launch(img, taps)((c, s, l), out, 1, changed, None)
+    return out
 
 
 watershed_sweep.launches = 0
-watershed_sweep.sweeps = 0
-watershed_sweep.routes = {"tile": 0, "sweep": 0}
 
 
 def _unravel(ix: torch.Tensor, shape) -> torch.Tensor:

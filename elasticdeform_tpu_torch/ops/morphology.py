@@ -50,8 +50,8 @@ it (``csrc/morphology.cu``), and ``watershed_ift`` a fifth:
   triples (:func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweep`,
   beside K14-K16 in :mod:`~elasticdeform_tpu_torch.ops.distance`), run to
   the fixpoint by :func:`relax_to_fixpoint` over :class:`RelaxTaps` tables,
-  as the chamfer distance's K16 sweeps are; :func:`sweep_to_fixpoint` reads
-  the changed flag once a group of sweeps for them and for K13.
+  as the chamfer distance's K16 sweeps are, the changed flag read once a
+  group of eight sweeps, K13's schedule (:func:`sweep_to_fixpoint`).
 
 Min and max order -0 below +0, as ``jnp.minimum`` and ``jnp.maximum`` do.
 
@@ -114,24 +114,6 @@ _SMS = 132
 _LAUNCH_WORK = 200_000
 _STAGE_WORK = {False: 2, True: 24}
 _WRITE_WORK = {False: 1, True: 16}
-
-# K16's and K17's tile route (csrc/distance.cu ED_RELAX_*): threads a block
-# (one block an SM), taps of a 3^ndim structure, a block's dynamic shared
-# memory on the H100 (227 KB less the kernel's static kilobyte)
-RELAX_THREADS = 1024
-RELAX_MAX_TAPS = 26
-RELAX_SMEM_LIMIT = 232448 - 1024
-# the relaxation plan's cost model, in nanoseconds: a launch's host call
-# (the driver's lean launch; the card runs ahead while a launch takes
-# longer) and its gap on the card; a block's step, its barrier and its
-# items' latency (K17's items also wait for their image bytes in device
-# memory), and each item of a step in flight. Fitted to the tile route's
-# A/B at c19 on an H100 (a step of 256 to 2680 items: 0.9 to 4.3 us)
-_RELAX_HOST_NS = 8000.0
-_RELAX_LAUNCH_NS = 2000.0
-_RELAX_STEP_NS = 700.0
-_RELAX_IMAGE_STEP_NS = 700.0
-_RELAX_ITEM_NS = 1.0
 
 # K12's select route on a halo box (csrc ED_RANK_*): a block of 8 x 32
 # threads, each with a column of RANK_COLUMN voxels along tile axis 0 (1
@@ -1679,96 +1661,13 @@ def binary_erosion_dilation(x: torch.Tensor, structure, iterations, mask,
 RELAX_BIG = int(np.iinfo(np.int32).max // 4)
 
 
-RelaxPlan = collections.namedtuple("RelaxPlan",
-                                   "route tile k box smem blocks")
-_SWEEP_PLAN = RelaxPlan("sweep", None, 1, None, 0, 0)
-
-
-@functools.lru_cache(maxsize=256)
-def relax_plan(shape3, reach3, words, img_bytes, want, route=None, k=None,
-               tile=None, budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
-    """K16's or K17's route for ``want`` sweeps a group on an array of
-    ``shape3`` voxels (three axes, leading ones added) under taps of
-    ``reach3`` (0 or 1 per axis), a state of ``words`` int32 words a voxel
-    and an image of ``img_bytes`` (K16: 1 or 2 words, no image; K17: 3
-    words and a 1- or 2-byte image, read from device memory). ``"tile"``:
-    the tile (z, y, x: a block's chunk of planes and its rows and columns),
-    the sweeps a launch ``k <= min(want, 8)``, the box a block stages (the
-    tile plus ``k`` reaches a side, clamped to the array), the shared bytes
-    of its levels' rings (eight box planes for the staged state, a plane
-    staged a step ahead, and four for each sweep but the last; their voxels
-    rounded up to even) within ``budget``, and the blocks, chosen by the
-    least modelled time of ``want`` sweeps in launches of ``k`` and the
-    rest: per launch a gap, plus the longer of its host call and the
-    busiest SM's blocks, one at a time, each stepping through its staged
-    planes and the ``2k`` steps the sweeps trail them by, a step costing
-    its latency and its items (the levels' regions: the tile widened by
-    the reaches of the sweeps after it). ``"sweep"`` where no box fits.
-    ``route``, ``k`` and ``tile`` force a choice (``"tile"`` raises where
-    none fits)."""
-    n3, r3 = tuple(shape3), tuple(reach3)
-    step_ns = _RELAX_STEP_NS + (_RELAX_IMAGE_STEP_NS if img_bytes else 0.0)
-
-    def grown(t, left):
-        return tuple(min(n, e + 2 * left * r) for n, e, r in zip(n3, t, r3))
-
-    def shared(t, k):
-        """the levels' rings: 8 box planes staged, 4 for each sweep but the
-        last, their voxels rounded up to even"""
-        _, by, bx = grown(t, k)
-        cap = by * bx
-        return 16 * (k + 1) * words * (cap + cap % 2)
-
-    def launch(t, k):
-        """the modelled nanoseconds of one launch of ``k`` sweeps"""
-        blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
-        items = sum(y * x for _, y, x in (grown(t, k - j)
-                                          for j in range(1, k + 1)))
-        block = (grown(t, k)[0] + 2 * k) * (step_ns + _RELAX_ITEM_NS * items)
-        return _RELAX_LAUNCH_NS + max(_RELAX_HOST_NS,
-                                      -(-blocks // _SMS) * block)
-    best = None
-    if route != "sweep":
-        tzs = sorted({min(n3[0], t) for t in (4, 8, 16, 32, 64)})
-        tys = sorted({min(n3[1], t) for t in (1, 2, 4, 8, 16, 32)})
-        txs = sorted({min(n3[2], t) for t in (8, 16, 32, 64, 128)})
-        tiles = [tuple(tile)] if tile else list(
-            itertools.product(tzs, tys, txs))
-        ks = [int(k)] if k else range(1, min(int(want),
-                                             SWEEPS_PER_CHECK) + 1)
-        plans = []
-        for kk in ks:
-            for t in tiles:
-                smem = shared(t, kk)
-                if smem > budget:
-                    continue
-                full, rest = divmod(int(want), kk)
-                cost = full * launch(t, kk)
-                if rest:
-                    cost += launch(t, rest)
-                blocks = math.prod(-(-n // e) for n, e in zip(n3, t))
-                plans.append((cost, t, RelaxPlan("tile", t, kk, grown(t, kk),
-                                                 smem, blocks)))
-        if plans:
-            best = min((c, -p.k, t, p) for c, t, p in plans)
-    if best is None:
-        if route == "tile":
-            raise ValueError("relax_plan: no tile of the tile route fits "
-                             "this array")
-        return _SWEEP_PLAN
-    return best[3]
-
-
 class RelaxTaps:
     """A 3^ndim structure's neighbours on an array of ``shape``: ``offs``,
     the offsets in the raster order of ``np.nonzero`` with the centre
-    dropped (the order the plain twins and the JAX package visit them in);
-    for the sweep route :meth:`on`, the kernels' int32 ``(taps, 2)`` table
-    of a linear offset and an edge word (bit ``k`` the tap steps down along
-    axis ``k``, bit ``8 + k`` up), uploaded once per device; for the tile
-    route (1-3 axes, ``tiled``) ``shape3`` (leading axes of 1 added),
-    ``reach3`` (1 on an axis a tap steps along), the tap codes ``(oz + 1) *
-    9 + (oy + 1) * 3 + (ox + 1)``, :meth:`plan` and :meth:`tile_args`."""
+    dropped (the order the plain twins and the JAX package visit them in),
+    and :meth:`on`, the kernels' int32 ``(taps, 2)`` table of a linear
+    offset and an edge word (bit ``k`` the tap steps down along axis ``k``,
+    bit ``8 + k`` up), uploaded once per device."""
 
     def __init__(self, structure, shape):
         self.shape = tuple(int(n) for n in shape)
@@ -1782,15 +1681,6 @@ class RelaxTaps:
                   for k, t in enumerate(o))] for o in self.offs],
             dtype=np.int32).reshape(-1, 2)
         self._dev = {}
-        ndim = len(self.shape)
-        self.tiled = 1 <= ndim <= 3
-        lead = (0,) * (3 - ndim)
-        offs3 = [lead + o for o in self.offs] if self.tiled else []
-        self.shape3 = (1,) * (3 - ndim) + self.shape if self.tiled else None
-        self.reach3 = tuple(int(any(o[a] for o in offs3)) for a in range(3))
-        self.codes = [(oz + 1) * 9 + (oy + 1) * 3 + ox + 1
-                      for oz, oy, ox in offs3]
-        self._args = {}
 
     def on(self, device) -> torch.Tensor:
         t = self._dev.get(device)
@@ -1804,31 +1694,6 @@ class RelaxTaps:
         ndim = len(self.shape)
         return (self.on(device).data_ptr(), len(self.offs), ndim,
                 (ctypes.c_longlong * ndim)(*self.shape))
-
-    def plan(self, words: int, img_bytes: int, want: int, route=None,
-             k=None, tile=None, budget=RELAX_SMEM_LIMIT) -> RelaxPlan:
-        """:func:`relax_plan` on this array; the sweep route for more than
-        three axes."""
-        if not self.tiled:
-            if route == "tile":
-                raise ValueError("relax_plan: the tile route takes 1 to 3 "
-                                 "axes")
-            return _SWEEP_PLAN
-        return relax_plan(self.shape3, self.reach3, words, img_bytes,
-                          int(want), route, k,
-                          None if tile is None else tuple(tile), budget)
-
-    def tile_args(self, plan: RelaxPlan, k: int):
-        """The tile entry points' host array for ``k`` sweeps of ``plan``:
-        ``nz, ny, nx, tz, ty, tx, k, ntaps`` and the tap codes, built once
-        per tile and ``k``."""
-        key = (plan.tile, k)
-        args = self._args.get(key)
-        if args is None:
-            vals = (*self.shape3, *plan.tile, int(k), len(self.codes),
-                    *self.codes)
-            args = self._args[key] = (ctypes.c_int * len(vals))(*vals)
-        return args
 
 
 @functools.lru_cache(maxsize=32)
@@ -1847,7 +1712,8 @@ def sweep_to_fixpoint(group, device) -> None:
     """Run ``group(changed)``, :data:`SWEEPS_PER_CHECK` sweeps whose last
     sets the int32 flag ``changed`` where it changed a voxel, until a group
     changes nothing, the flag zeroed before each group and read once after
-    it (K13's schedule, and K16's and K17's)."""
+    it (K13's schedule; :func:`relax_to_fixpoint` keeps it for K16 and K17,
+    each group's zeroing, sweeps and read one host call)."""
     changed = torch.zeros(1, dtype=torch.int32, device=device)
     while True:
         changed.zero_()
@@ -1856,28 +1722,19 @@ def sweep_to_fixpoint(group, device) -> None:
             return
 
 
-def relax_to_fixpoint(sweeps, state, device, k: int = 1):
-    """Jacobi sweeps to the fixpoint by :func:`sweep_to_fixpoint`, each
-    group of :data:`SWEEPS_PER_CHECK` as calls ``state = sweeps(state, m,
-    changed, out)`` of ``m <= k`` sweeps (one launch of the tile route, or
-    one sweep), the flag passed to the group's last: a sweep that changes
-    nothing is a fixpoint, and sweeps past it change nothing, so the result
-    is the reference's, which stops at the first such sweep. ``out`` is the
-    state the call before last returned (None at first): a CUDA call
-    writes there, so a call's state ping-pongs between two buffer sets.
+def relax_to_fixpoint(sweep, state):
+    """Jacobi sweeps to the fixpoint in groups of :data:`SWEEPS_PER_CHECK`,
+    each one call ``state, changed = sweep(state, SWEEPS_PER_CHECK)``
+    (``changed``: whether the group's last sweep changed a voxel;
+    ``ops/distance.py``'s sweepers zero the flag, run the group and read
+    the flag from one host call), until a group changes nothing: a sweep
+    that changes nothing is a fixpoint, and sweeps past it change nothing,
+    so the result is the reference's, which stops at the first such sweep.
     Returns the last state."""
-    spare = None
-
-    def group(changed):
-        nonlocal state, spare
-        n = SWEEPS_PER_CHECK
-        while n > 0:
-            m = min(n, k)
-            new = sweeps(state, m, changed if m == n else None, spare)
-            spare, state = state, new
-            n -= m
-    sweep_to_fixpoint(group, device)
-    return state
+    while True:
+        state, changed = sweep(state, SWEEPS_PER_CHECK)
+        if not changed:
+            return state
 
 
 def relax_check(x: torch.Tensor, what: str) -> None:
@@ -1915,10 +1772,10 @@ def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
     every voxel joins the marker of its lexicographically cheapest path
     (the path's greatest intensity, its length, the label), negative markers
     flooding too; K17 sweeps to the fixpoint (:func:`relax_to_fixpoint` of
-    :func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweeper`, up to
-    the plan's ``k`` sweeps a launch), the cross structure by default.
-    ``x``: uint8 or uint16; the result has the markers' dtype, their values
-    cast through int32 as ``astype`` casts them."""
+    :func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweeper`), the
+    cross structure by default. ``x``: uint8 or uint16; the result has
+    the markers' dtype, their values cast through int32 as ``astype``
+    casts them."""
     # ops/distance.py imports this module
     from elasticdeform_tpu_torch.ops import distance
     if x.dtype not in (torch.uint8, torch.uint16):
@@ -1940,11 +1797,9 @@ def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
     s = torch.where(seeded, 0, RELAX_BIG).to(torch.int32)
     lab = torch.where(seeded, _plain(markers).to(torch.int32), 0).to(
         torch.int32)
-    plan = taps.plan(3, x.element_size(), SWEEPS_PER_CHECK)
-    sweeps = distance.watershed_sweeper(x, taps, plan)
     _, _, lab = relax_to_fixpoint(
-        sweeps, (c.contiguous(), s.contiguous(), lab.contiguous()),
-        x.device, plan.k)
+        distance.watershed_sweeper(x, taps),
+        (c.contiguous(), s.contiguous(), lab.contiguous()))
     return _label_cast(lab, markers.dtype)
 
 
