@@ -45,10 +45,8 @@
 // the array. No shared memory: the neighbours' reuse is served by L1 and
 // L2. The entry points launch a group of sweeps (the driver's eight,
 // ops/morphology.py::relax_to_fixpoint) from one host call, ping-ponging
-// between two buffer sets, zero the flag before the group and hand its
-// value to the host after it, so the host's time a sweep is one kernel
-// launch and not a Python call, and the card waits for the host once a
-// group, for one call's return and the next call's first launch.
+// between two buffer sets, so the host's time a sweep is one kernel launch
+// and not a Python call, and the card runs the group back to back.
 //
 // Bound on the H100, each input read once and each output written once
 // over 3.35 TB/s: K14 the mask and f (and the feature planes); K15 g, the
@@ -87,21 +85,6 @@ __device__ __forceinline__ void block_flag(int* flag, bool local) {
 unsigned grid_for(long long n) {
   long long b = (n + ED_DIST_THREADS - 1) / ED_DIST_THREADS;
   return (unsigned)(b < ED_DIST_BLOCKS ? (b > 0 ? b : 1) : ED_DIST_BLOCKS);
-}
-
-// a group of K16 or K17 sweeps whose flag the host reads: zero the device
-// flag before it (flag_begin), copy it into *flag_out after it and wait for
-// the stream (flag_end); nothing without flag_out
-cudaError_t flag_begin(int* changed, int* flag_out, cudaStream_t st) {
-  if (!flag_out) return cudaSuccess;
-  return cudaMemsetAsync(changed, 0, sizeof(int), st);
-}
-
-cudaError_t flag_end(int* changed, int* flag_out, cudaStream_t st) {
-  if (!flag_out) return cudaSuccess;
-  const cudaError_t err = cudaMemcpyAsync(
-      flag_out, changed, sizeof(int), cudaMemcpyDeviceToHost, st);
-  return err != cudaSuccess ? err : cudaStreamSynchronize(st);
 }
 
 // ---------------------------------------------------------------------------
@@ -360,31 +343,24 @@ int ed_minplus_pass(const double* g, double* out, const int* ix, int* ix_out,
 // ix_out), so the result lies in set nsweeps % 2 (an even count overwrites
 // set 0); taps: ntaps (linear offset, edge word) pairs; ix and ix_out null
 // without indices; changed null or set where a voxel of the last sweep
-// changed. With flag_out, the host's int (changed then required), *changed
-// is zeroed before the group and copied into *flag_out after it, and the
-// call returns once the stream has run them: the fixpoint driver's read, so
-// a group is one host call and one wait. The sets must not overlap.
-// Returns the first error (a launch's cudaGetLastError(), the flag's copy
-// or the wait), or 0.
+// changed. The sets must not overlap. Returns the first launch's error
+// (cudaGetLastError()), or 0.
 int ed_chamfer_sweep(int* d, int* ix, int* d_out, int* ix_out,
                      const int* taps, int ntaps, int ndim,
                      const long long* shape, int nsweeps, int* changed,
-                     int* flag_out, void* stream) {
+                     void* stream) {
   Dims dm;
   long long total;
   if (!make_dims(ndim, shape, &dm, &total) || ntaps < 0 || nsweeps < 1 ||
-      (ix == nullptr) != (ix_out == nullptr) ||
-      (flag_out != nullptr && changed == nullptr))
+      (ix == nullptr) != (ix_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int2* tp = reinterpret_cast<const int2*>(taps);
-  cudaError_t err = flag_begin(changed, flag_out, st);
-  if (err != cudaSuccess) return (int)err;
   for (int j = 0; j < nsweeps; ++j) {
     chamfer_sweep_kernel<<<grid_for(total), ED_DIST_THREADS, 0, st>>>(
         d, ix, d_out, ix_out, tp, ntaps, dm, (unsigned)total,
         j == nsweeps - 1 ? changed : nullptr);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     int* t = d;
     d = d_out;
@@ -393,28 +369,25 @@ int ed_chamfer_sweep(int* d, int* ix, int* d_out, int* ix_out,
     ix = ix_out;
     ix_out = t;
   }
-  return (int)flag_end(changed, flag_out, st);
+  return 0;
 }
 
 // K17: `nsweeps` Jacobi sweeps of the watershed relaxation, from one host
 // call as K16's; img uint8 (img_bytes 1) or uint16 (2); the int32 triples
-// set 0 (c, s, l) and set 1 (c_out, s_out, l_out); taps, changed and
-// flag_out as K16's. Returns the first error, or 0.
+// set 0 (c, s, l) and set 1 (c_out, s_out, l_out); taps and changed as
+// K16's. Returns the first launch's error, or 0.
 int ed_watershed_sweep(const void* img, int img_bytes, int* c, int* s,
                        int* l, int* c_out, int* s_out, int* l_out,
                        const int* taps, int ntaps, int ndim,
                        const long long* shape, int nsweeps, int* changed,
-                       int* flag_out, void* stream) {
+                       void* stream) {
   Dims dm;
   long long total;
   if (!make_dims(ndim, shape, &dm, &total) || ntaps < 0 || nsweeps < 1 ||
-      (img_bytes != 1 && img_bytes != 2) ||
-      (flag_out != nullptr && changed == nullptr))
+      (img_bytes != 1 && img_bytes != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int2* tp = reinterpret_cast<const int2*>(taps);
-  cudaError_t err = flag_begin(changed, flag_out, st);
-  if (err != cudaSuccess) return (int)err;
   int* in[3] = {c, s, l};
   int* out[3] = {c_out, s_out, l_out};
   for (int j = 0; j < nsweeps; ++j) {
@@ -429,7 +402,7 @@ int ed_watershed_sweep(const void* img, int img_bytes, int* c, int* s,
                                          st>>>(
           static_cast<const uint16_t*>(img), in[0], in[1], in[2], out[0],
           out[1], out[2], tp, ntaps, dm, (unsigned)total, flag);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     for (int k = 0; k < 3; ++k) {
       int* t = in[k];
@@ -437,7 +410,7 @@ int ed_watershed_sweep(const void* img, int img_bytes, int* c, int* s,
       out[k] = t;
     }
   }
-  return (int)flag_end(changed, flag_out, st);
+  return 0;
 }
 
 const char* ed_distance_error_string(int err) {

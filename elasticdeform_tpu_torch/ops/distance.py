@@ -24,9 +24,9 @@ morphology` and sweeps by K17 here. Four kernels carry them
 
 The fixpoint drivers launch K16 and K17 through :func:`chamfer_sweeper` /
 :func:`watershed_sweeper`, which check the inputs, bind the entry point
-and read the stream once a call, and run a group of sweeps from one host
-call (the flag zeroed, the sweeps launched, ping-ponging between the
-state's buffers and a second set allocated once a call, the flag read).
+and read the stream once a call, and launch a group of sweeps from one
+host call, ping-ponging between the state's buffers and a second set
+allocated once a call.
 
 The EDT works in float64, as the JAX package does under x64 and as SciPy
 returns it. On a CPU tensor each wrapper takes its plain version
@@ -65,8 +65,8 @@ _DENSE_CHUNK_BYTES = 8 << 20
 _SIGNATURES = (
     ("ed_nearest_background", "vvvipddv"),
     ("ed_minplus_pass", "vvvvililviddvv"),
-    ("ed_chamfer_sweep", "vvvvviipivvv"),
-    ("ed_watershed_sweep", "vivvvvvvviipivvv"))
+    ("ed_chamfer_sweep", "vvvvviipivv"),
+    ("ed_watershed_sweep", "vivvvvvvviipivv"))
 _entries: dict = {}
 
 
@@ -437,11 +437,36 @@ def chamfer_sweep_plain(d: torch.Tensor, ix, offs, changed=None):
     return nd, nix
 
 
-def _chamfer_launch(d: torch.Tensor, ix, taps: RelaxTaps):
-    """K16's inputs checked, its entry point bound and the stream read:
-    ``launch(state, out, n, changed, flag_out)``, ``n`` sweeps of ``state``
-    ping-ponging with the buffer set ``out`` (``csrc/distance.cu``'s
-    ``ed_chamfer_sweep``), counted in ``chamfer_sweep.launches``."""
+def _spare(state, spare: list):
+    """The sweeper's second buffer set, allocated at its first launch;
+    ``state`` must not be it."""
+    if not spare:
+        spare.append(tuple(None if t is None else torch.empty_like(t)
+                           for t in state))
+    if any(t is not None and t.data_ptr() == o.data_ptr()
+           for t, o in zip(state, spare[0])):
+        raise ValueError("a sweeper's state must not be its own second "
+                         "buffer set")
+    return spare[0]
+
+
+def chamfer_sweeper(d: torch.Tensor, ix, taps: RelaxTaps):
+    """The fixpoint driver's K16 sweeps for one call on ``d``'s shape and
+    device (``ix`` None or not, as every state will be): ``sweep(state,
+    changed=None, n=1)``, ``n`` sweeps of ``state = (d, ix)``, ``changed``
+    set by the last, returning the result. A CPU tensor takes ``n`` sweeps
+    of :func:`chamfer_sweep`'s twin. On the card the ``n`` launches go from
+    one host call, ping-ponging between ``state``'s buffers and a second
+    set allocated at the first launch, so the result lies in one of them
+    (an even ``n`` overwrites ``state``). The inputs are checked, the entry
+    point bound and the stream read once."""
+    if d.device.type == "cpu":
+        def sweep(state, changed=None, n=1):
+            for j in range(n):
+                state = chamfer_sweep(*state, taps,
+                                      changed if j == n - 1 else None)
+            return state
+        return sweep
     relax_check(d, "chamfer_sweep")
     if d.dtype != torch.int32 or (ix is not None and (
             ix.dtype != torch.int32 or not ix.is_contiguous()
@@ -452,62 +477,17 @@ def _chamfer_launch(d: torch.Tensor, ix, taps: RelaxTaps):
     fn = _entries["ed_chamfer_sweep"]
     cargs = taps.c_args(d.device)
     stream = _stream(d)
-
-    def launch(state, out, n, changed, flag_out):
-        _check_launch(fn(state[0].data_ptr(), _ptr(state[1]),
-                         out[0].data_ptr(), _ptr(out[1]), *cargs, n,
-                         _ptr(changed), flag_out, stream), "chamfer_sweep")
-        chamfer_sweep.launches += n
-    return launch
-
-
-def _group(launch, device):
-    """The fixpoint driver's ``sweep(state, n)`` on the card: ``n`` sweeps
-    by ``launch`` from one host call, ping-ponging between ``state``'s
-    buffers and a second set allocated at the first call (the result in
-    set ``n % 2``: an even ``n`` overwrites ``state``), a flag of its own
-    zeroed before them and read after; returns the result and whether the
-    last sweep changed a voxel."""
-    flag = torch.zeros(1, dtype=torch.int32, device=device)
-    host = ctypes.c_int(0)
     spare = []
 
-    def sweep(state, n=1):
-        if not spare:
-            spare.append(tuple(None if t is None else torch.empty_like(t)
-                               for t in state))
-        out = spare[0]
-        if any(t is not None and t.data_ptr() == o.data_ptr()
-               for t, o in zip(state, out)):
-            raise ValueError("a sweeper's state must not be its own second "
-                             "buffer set")
-        launch(state, out, n, flag, ctypes.byref(host))
-        return (out if n % 2 else state), bool(host.value)
+    def sweep(state, changed=None, n=1):
+        d, ix = state
+        out = _spare(state, spare)
+        _check_launch(fn(d.data_ptr(), _ptr(ix), out[0].data_ptr(),
+                         _ptr(out[1]), *cargs, n, _ptr(changed), stream),
+                      "chamfer_sweep")
+        chamfer_sweep.launches += n
+        return out if n % 2 else state
     return sweep
-
-
-def _twin_group(one):
-    """The fixpoint driver's ``sweep(state, n)`` on the CPU: ``n`` sweeps
-    ``state = one(state, changed)``, the flag handed to the last; returns
-    the result and whether the last sweep changed a voxel."""
-    def sweep(state, n=1):
-        changed = torch.zeros(1, dtype=torch.int32)
-        for j in range(n):
-            state = one(state, changed if j == n - 1 else None)
-        return state, bool(changed)
-    return sweep
-
-
-def chamfer_sweeper(d: torch.Tensor, ix, taps: RelaxTaps):
-    """The fixpoint driver's K16 sweeps for one call on ``d``'s shape and
-    device (``ix`` None or not, as every state will be): ``sweep(state,
-    n)``, ``n`` sweeps of ``state = (d, ix)``, returning the result and
-    whether the last sweep changed a voxel. A CPU tensor takes ``n``
-    sweeps of :func:`chamfer_sweep`'s twin; a CUDA tensor runs them from
-    one host call (:func:`_group`)."""
-    if d.device.type == "cpu":
-        return _twin_group(lambda st, ch: chamfer_sweep(*st, taps, ch))
-    return _group(_chamfer_launch(d, ix, taps), d.device)
 
 
 def chamfer_sweep(d: torch.Tensor, ix, taps: RelaxTaps, changed=None):
@@ -516,9 +496,7 @@ def chamfer_sweep(d: torch.Tensor, ix, taps: RelaxTaps, changed=None):
     one to ``chamfer_sweep.launches``."""
     if d.device.type == "cpu":
         return chamfer_sweep_plain(d, ix, taps.offs, changed)
-    out = (torch.empty_like(d), None if ix is None else torch.empty_like(ix))
-    _chamfer_launch(d, ix, taps)((d, ix), out, 1, changed, None)
-    return out
+    return chamfer_sweeper(d, ix, taps)((d, ix), changed)
 
 
 chamfer_sweep.launches = 0
@@ -539,7 +517,8 @@ def cdt_core(fg: torch.Tensor, structure, want_idx: bool):
     if fg.numel() == 0:
         return d, ix
     taps = relax_taps(structure, shape)
-    return relax_to_fixpoint(chamfer_sweeper(d, ix, taps), (d, ix))
+    return relax_to_fixpoint(chamfer_sweeper(d, ix, taps), (d, ix),
+                             fg.device)
 
 
 # ---------------------------------------------------------------------------
@@ -574,10 +553,22 @@ def watershed_sweep_plain(img: torch.Tensor, c: torch.Tensor,
     return nc, ns, nl
 
 
-def _watershed_launch(img: torch.Tensor, taps: RelaxTaps):
-    """K17's image checked, its entry point bound and the stream read:
-    ``launch(state, out, n, changed, flag_out)`` as
-    :func:`_chamfer_launch`'s, the triples checked at each launch."""
+def watershed_sweeper(img: torch.Tensor, taps: RelaxTaps):
+    """The fixpoint driver's K17 sweeps for one call on the uint8 or uint16
+    ``img``: ``sweep(state, changed=None, n=1)``, ``n`` sweeps of the
+    triples ``state = (c, s, l)``, ``changed`` set by the last, returning
+    the result. A CPU tensor takes ``n`` sweeps of
+    :func:`watershed_sweep`'s twin; on the card the ``n`` launches go from
+    one host call, ping-ponging as :func:`chamfer_sweeper`'s. The image is
+    checked, the entry point bound and the stream read once; each state's
+    triples are checked at each call."""
+    if img.device.type == "cpu":
+        def sweep(state, changed=None, n=1):
+            for j in range(n):
+                state = watershed_sweep(img, *state, taps,
+                                        changed if j == n - 1 else None)
+            return state
+        return sweep
     relax_check(img, "watershed_sweep image")
     if img.dtype not in (torch.uint8, torch.uint16):
         raise TypeError(f"watershed_sweep: the kernel takes a uint8 or "
@@ -587,32 +578,22 @@ def _watershed_launch(img: torch.Tensor, taps: RelaxTaps):
     cargs = taps.c_args(img.device)
     stream = _stream(img)
     nbytes = img.element_size()
+    spare = []
 
-    def launch(state, out, n, changed, flag_out):
+    def sweep(state, changed=None, n=1):
         for t in state:
             if (t.dtype != torch.int32 or t.shape != img.shape
                     or not t.is_contiguous() or t.device != img.device):
                 raise TypeError("watershed_sweep: the kernel takes "
                                 "contiguous int32 triples of the image's "
                                 "shape on its device")
+        out = _spare(state, spare)
         _check_launch(fn(img.data_ptr(), nbytes,
                          *[t.data_ptr() for t in (*state, *out)], *cargs,
-                         n, _ptr(changed), flag_out, stream),
-                      "watershed_sweep")
+                         n, _ptr(changed), stream), "watershed_sweep")
         watershed_sweep.launches += n
-    return launch
-
-
-def watershed_sweeper(img: torch.Tensor, taps: RelaxTaps):
-    """The fixpoint driver's K17 sweeps for one call on the uint8 or uint16
-    ``img``: ``sweep(state, n)``, ``n`` sweeps of the triples ``state = (c,
-    s, l)``, returning the result and whether the last sweep changed a
-    voxel. A CPU tensor takes ``n`` sweeps of :func:`watershed_sweep`'s
-    twin; a CUDA tensor runs them from one host call (:func:`_group`)."""
-    if img.device.type == "cpu":
-        return _twin_group(
-            lambda st, ch: watershed_sweep(img, *st, taps, ch))
-    return _group(_watershed_launch(img, taps), img.device)
+        return out if n % 2 else state
+    return sweep
 
 
 def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
@@ -625,9 +606,7 @@ def watershed_sweep(img: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
     ``watershed_sweep.launches``."""
     if img.device.type == "cpu":
         return watershed_sweep_plain(img, c, s, l, taps.offs, changed)
-    out = tuple(torch.empty_like(t) for t in (c, s, l))
-    _watershed_launch(img, taps)((c, s, l), out, 1, changed, None)
-    return out
+    return watershed_sweeper(img, taps)((c, s, l), changed)
 
 
 watershed_sweep.launches = 0

@@ -50,8 +50,8 @@ it (``csrc/morphology.cu``), and ``watershed_ift`` a fifth:
   triples (:func:`~elasticdeform_tpu_torch.ops.distance.watershed_sweep`,
   beside K14-K16 in :mod:`~elasticdeform_tpu_torch.ops.distance`), run to
   the fixpoint by :func:`relax_to_fixpoint` over :class:`RelaxTaps` tables,
-  as the chamfer distance's K16 sweeps are, the changed flag read once a
-  group of eight sweeps, K13's schedule (:func:`sweep_to_fixpoint`).
+  as the chamfer distance's K16 sweeps are; :func:`sweep_to_fixpoint` reads
+  the changed flag once a group of sweeps for them and for K13.
 
 Min and max order -0 below +0, as ``jnp.minimum`` and ``jnp.maximum`` do.
 
@@ -1712,8 +1712,7 @@ def sweep_to_fixpoint(group, device) -> None:
     """Run ``group(changed)``, :data:`SWEEPS_PER_CHECK` sweeps whose last
     sets the int32 flag ``changed`` where it changed a voxel, until a group
     changes nothing, the flag zeroed before each group and read once after
-    it (K13's schedule; :func:`relax_to_fixpoint` keeps it for K16 and K17,
-    each group's zeroing, sweeps and read one host call)."""
+    it (K13's schedule, and K16's and K17's)."""
     changed = torch.zeros(1, dtype=torch.int32, device=device)
     while True:
         changed.zero_()
@@ -1722,19 +1721,19 @@ def sweep_to_fixpoint(group, device) -> None:
             return
 
 
-def relax_to_fixpoint(sweep, state):
-    """Jacobi sweeps to the fixpoint in groups of :data:`SWEEPS_PER_CHECK`,
-    each one call ``state, changed = sweep(state, SWEEPS_PER_CHECK)``
-    (``changed``: whether the group's last sweep changed a voxel;
-    ``ops/distance.py``'s sweepers zero the flag, run the group and read
-    the flag from one host call), until a group changes nothing: a sweep
-    that changes nothing is a fixpoint, and sweeps past it change nothing,
-    so the result is the reference's, which stops at the first such sweep.
-    Returns the last state."""
-    while True:
-        state, changed = sweep(state, SWEEPS_PER_CHECK)
-        if not changed:
-            return state
+def relax_to_fixpoint(sweep, state, device):
+    """Jacobi sweeps to the fixpoint by :func:`sweep_to_fixpoint`, each
+    group of :data:`SWEEPS_PER_CHECK` one call ``state = sweep(state,
+    changed, SWEEPS_PER_CHECK)``, which sets the flag by its last sweep
+    (``ops/distance.py``'s sweepers launch the group from one host call):
+    a sweep that changes nothing is a fixpoint, and sweeps past it change
+    nothing, so the result is the reference's, which stops at the first
+    such sweep. Returns the last state."""
+    def group(changed):
+        nonlocal state
+        state = sweep(state, changed, SWEEPS_PER_CHECK)
+    sweep_to_fixpoint(group, device)
+    return state
 
 
 def relax_check(x: torch.Tensor, what: str) -> None:
@@ -1799,7 +1798,7 @@ def watershed_ift(x: torch.Tensor, markers: torch.Tensor, structure=None):
         torch.int32)
     _, _, lab = relax_to_fixpoint(
         distance.watershed_sweeper(x, taps),
-        (c.contiguous(), s.contiguous(), lab.contiguous()))
+        (c.contiguous(), s.contiguous(), lab.contiguous()), x.device)
     return _label_cast(lab, markers.dtype)
 
 

@@ -2,21 +2,21 @@
 
 ``ops/morphology.py::relax_to_fixpoint`` runs the chamfer sweeps (K16,
 ``distance_transform_cdt``) and the watershed sweeps (K17,
-``watershed_ift``) in groups of eight, the changed flag read after each
+``watershed_ift``) in groups of eight, the changed flag set by each
 group's last sweep; ``ops/distance.py``'s ``chamfer_sweeper`` and
 ``watershed_sweeper`` check the inputs, bind the entry point and read the
-stream once a call, and on the card run a group from one host call (the
-flag zeroed, the sweeps launched, ping-ponging between the state's buffers
-and a second set allocated once, the flag read). On the CPU:
+stream once a call, and on the card launch a group's sweeps from one host
+call, ping-ponging between the state's buffers and a second set allocated
+once. On the CPU:
 
 * the public CDT and watershed equal the JAX package's bit for bit on 1-4
   axes (the CDT with and without indices, the watershed on uint8 and
   uint16 images, random and plateaus, over the cross, full and custom
   structures), with the sweep count of the JAX package's ``while_loop``
   rounded up to whole groups of eight;
-* the driver makes one sweeper call a group of eight sweeps until a
-  group's last sweep changes nothing, and the CPU sweepers run ``n`` twin
-  sweeps with the flag on the last alone.
+* the driver makes one sweeper call a group of eight sweeps, the flag
+  handed to each, and the CPU sweepers run ``n`` twin sweeps with the flag
+  on the last alone.
 
 ``tests/test_torch_relax_driver_cuda.py`` holds the sweepers and the
 drivers on the card to the twins and the CPU run.
@@ -129,23 +129,25 @@ def test_watershed_driver_matches_jax(monkeypatch, shape, sname, kind):
 
 @pytest.mark.parametrize("groups", [1, 2, 3])
 def test_driver_runs_whole_groups(groups):
-    """One sweeper call a group of eight sweeps until the first group whose
-    last sweep changed nothing."""
+    """One sweeper call a group of eight sweeps, the flag handed to each,
+    until the first group whose last sweep changed nothing."""
     calls = []
 
-    def sweep(state, n):
-        calls.append(n)
-        return state + n, len(calls) < groups
+    def sweep(state, changed, n):
+        calls.append((n, changed is not None))
+        if len(calls) < groups:
+            changed.fill_(1)
+        return state + n
 
-    last = mo.relax_to_fixpoint(sweep, 0)
-    assert calls == [mo.SWEEPS_PER_CHECK] * groups
+    last = mo.relax_to_fixpoint(sweep, 0, torch.device("cpu"))
+    assert calls == [(mo.SWEEPS_PER_CHECK, True)] * groups
     assert last == groups * mo.SWEEPS_PER_CHECK
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
 def test_cpu_sweepers_flag_the_last_of_n(monkeypatch, n):
     """The CPU sweepers run ``n`` twin sweeps, the flag handed to the last
-    alone, and equal ``n`` plain sweeps, the flag returned the last's."""
+    alone, and equal ``n`` plain sweeps."""
     rs = np.random.RandomState(n)
     shape = (6, 7, 9)
     taps = mo.relax_taps(mo.generate_binary_structure(3, 1), shape)
@@ -173,11 +175,12 @@ def test_cpu_sweepers_flag_the_last_of_n(monkeypatch, n):
             flags.append(args[-1] is not None)
             return one(*args)
         monkeypatch.setattr(ds, name, counted)
-        got, changed = sweeper()(state, n)
+        flag = torch.zeros(1, dtype=torch.int32)
+        got = sweeper()(state, flag, n)
         monkeypatch.undo()
         want, want_flag = state, torch.zeros(1, dtype=torch.int32)
         for j in range(n):
             want = plain(want, want_flag if j == n - 1 else None)
         assert flags == [False] * (n - 1) + [True]
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-        assert changed == bool(want_flag)
+        assert int(flag) == int(want_flag)

@@ -1,12 +1,11 @@
 """K16 and K17's sweepers and fixpoint drivers on the card.
 
-``ops/distance.py``'s ``chamfer_sweeper`` and ``watershed_sweeper`` run
+``ops/distance.py``'s ``chamfer_sweeper`` and ``watershed_sweeper`` launch
 a group of ``n`` sweeps from one host call, ping-ponging between the
-state's buffers and a second set allocated once, and return the changed
-flag of the last: each group is held to ``n`` sweeps of the plain twins
-bit for bit, the flag included, the result in the state's own buffers for
-an even ``n`` and in the second set for an odd one, a state that is the
-second set refused;
+state's buffers and a second set allocated once: each group is held to
+``n`` sweeps of the plain twins bit for bit, the changed flag of the last
+included, the result in the state's own buffers for an even ``n`` and in
+the second set for an odd one, a state that is the second set refused;
 the public CDT and watershed to the port's CPU run. Every test needs a
 CUDA device and skips without one (the kernels have no CPU build). The
 module imports no JAX, so it runs on the card with
@@ -56,17 +55,18 @@ def test_chamfer_sweeper_groups_match_twin(cuda_device, n):
                     want = ds.chamfer_sweep_plain(
                         *want, taps.offs, want_flag if j == n - 1 else None)
                 sweep = ds.chamfer_sweeper(*state, taps)
-                got, changed = sweep(state, n)
+                flag = torch.zeros_like(want_flag)
+                got = sweep(state, flag, n)
                 # an even n ends in the state's own buffers
                 assert (got[0].data_ptr() == state[0].data_ptr()) == (
                     n % 2 == 0)
                 assert torch.equal(got[0], want[0])
                 if with_ix:
                     assert torch.equal(got[1], want[1])
-                assert changed == bool(want_flag)
+                assert int(flag) == int(want_flag)
                 if n % 2:
                     with pytest.raises(ValueError):
-                        sweep(got, 1)
+                        sweep(got, None, 1)
 
 
 @pytest.mark.cuda
@@ -93,9 +93,10 @@ def test_watershed_sweeper_groups_match_twin(cuda_device, n):
                     want = ds.watershed_sweep_plain(
                         img, *want, taps.offs,
                         want_flag if j == n - 1 else None)
-                got, changed = ds.watershed_sweeper(img, taps)(state, n)
+                flag = torch.zeros_like(want_flag)
+                got = ds.watershed_sweeper(img, taps)(state, flag, n)
                 assert all(torch.equal(g, w) for g, w in zip(got, want))
-                assert changed == bool(want_flag)
+                assert int(flag) == int(want_flag)
 
 
 @pytest.mark.cuda

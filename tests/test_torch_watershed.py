@@ -109,7 +109,8 @@ def test_sweeps_past_the_fixpoint_change_nothing(monkeypatch):
 
     # the CPU sweeper looks the one-sweep wrapper up at each sweep
     monkeypatch.setattr(ds, "watershed_sweep", sweep)
-    state = mo.relax_to_fixpoint(ds.watershed_sweeper(img, taps), state)
+    state = mo.relax_to_fixpoint(ds.watershed_sweeper(img, taps), state,
+                                 img.device)
     monkeypatch.undo()
     # the flag rides on the last sweep of each group of eight
     assert len(sweeps) % mo.SWEEPS_PER_CHECK == 0
