@@ -25,7 +25,7 @@ Phases (any failure raises, and the exit code is not 0):
    float32, and every K3/K3c instantiation and K13's four tile
    instantiations and its pack and unpack kernels to no stack frame and no
    spills; prints the registers, stack frame, spills and shared bytes of
-   K14-K17's six kernels (``csrc/distance.cu``); then prints the atomic
+   K14-K17's eight kernels (``csrc/distance.cu``); then prints the atomic
    instructions of K3/K3c at rank 3 (``cuobjdump -sass``: native
    shared-memory adds or compare-and-swap loops);
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
@@ -133,8 +133,13 @@ Phases (any failure raises, and the exit code is not 0):
    P3 (row scatter-add) per element to the sum of its terms, integer
    counts exactly, P4 (bulk-copy row gather) as P2's sums; and, bit for
    bit, K14 (the EDT's nearest-background scan) with and without feature
-   planes, K15 (its min-plus pass) at every rung of the ladder on lines of
-   13-97 (dense only, a band of 16, both bands) with the certificate, K16
+   planes (lines of 1-300, segments of 1-19), K15 (its min-plus pass) at
+   every rung of the ladder alone on lines of 3-97 (dense only, a band of
+   16, both bands) with the certificate, on its tile route (column tiles,
+   partial ones, whole slabs) and on lines of 6150 past the staging (its
+   lines route), the dense kernel on a clear flag (it writes nothing) and
+   on a set one, and the pass entry (band and predicated dense kernel from
+   one host call) against the CPU schedule, its flag too, K16
    (the chamfer sweep) with and without indices and K17 (the watershed
    sweep) on uint8 and uint16 images, random and plateaus, over the cross,
    full and a custom structure, with the changed flag, one sweep a call
@@ -164,7 +169,9 @@ Phases (any failure raises, and the exit code is not 0):
    at sampling (1.5, 1, 1) and ``distance_transform_cdt`` with indices of
    80 slices of c17's segmentation, ``watershed_ift`` of a uint8 gradient
    of 48 slices of c15's volume with 28 markers, bit for bit, with exact
-   K15 rungs and K16 and K17 sweeps per call), each compared with the
+   K14 and K15 launches (K15's band and dense kernels, two a pass) and K16
+   and K17 sweeps per call and the tier each EDT pass kept, read from its
+   flag after the call), each compared with the
    port's own ``device="cpu"`` run;
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
@@ -219,8 +226,9 @@ Phases (any failure raises, and the exit code is not 0):
    on the nd route (K9 also for c14's 3^3 convolve), K11 at c16 on each
    route (the ball erosion, the non-flat 3^3 dilation and a flat 5^3 box
    beside ``max_pool3d``); K14-K17 at c19's shapes with their device ms
-   (K14 beside two ``torch.cummax`` scans, K15 as c19's two passes and per
-   rung and axis, K16 and K17 per sweep (the driver's sweeper and the
+   (K14 beside two ``torch.cummax`` scans, K15 as c19's two passes, the
+   pass entry's, and each kernel alone per axis, the dense one on a set
+   and a clear flag, K16 and K17 per sweep (the driver's sweeper and the
    wrapper), per group of eight sweeps from one host call and per call,
    each on the device, K16's sweep beside ``-max_pool3d(-d)``, a
    chessboard sweep without indices); one line per
@@ -237,7 +245,7 @@ its writeback route, K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K10, K11, K12
 and K13 with their launches per route;
 K13 also
 its sweeps and its pack and unpack launches; K14-K17 at c19's shapes, K15
-with its kept rungs and each rung's time, K16 and K17 per sweep with their
+with its kept tiers, plans and each kernel's time, K16 and K17 per sweep with their
 call's time and sweeps); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
@@ -247,9 +255,10 @@ CUDA device is present or when the package is missing.
 passes, K12's 5^3 median, 3^3 median and 33-tap percentile at c15,
 K6 at c8 and c9, K2's integer writeback at c2 and c18, K9T and K9 at c14,
 K10's 5^3 erosion and dilation and K11 at c16, K3 at c5
-(orders 3 and 1), K3c at c7, K16's and K17's calls at c19 and every config
+(orders 3 and 1), K3c at c7, K14, K15's passes, the EDT's, K16's and
+K17's calls at c19 and every config
 through the public wrappers only, and
-prints a digest of K6's output bits, so that a copy of this file put into
+prints digests of K6's and the EDT's output bits, so that a copy of this file put into
 an older tree times (and checks) that tree's package in the same call to
 the card.
 """
@@ -500,8 +509,10 @@ def _check_k13_ptxas(log):
 
 # K14-K17's kernels in csrc/distance.cu: (label, mangled name part)
 _DIST_PTXAS = (("K14 nearest_bg_kernel", "nearest_bg_kernel"),
-               ("K15 band", "minplus_kernelILb0E"),
-               ("K15 dense", "minplus_kernelILb1E"),
+               ("K15 band, tile route", "minplus_tile_kernelILb0E"),
+               ("K15 dense, tile route", "minplus_tile_kernelILb1E"),
+               ("K15 band, lines route", "minplus_lines_kernelILb0E"),
+               ("K15 dense, lines route", "minplus_lines_kernelILb1E"),
                ("K16 chamfer_sweep_kernel", "chamfer_sweep_kernel"),
                ("K17 uint8", "watershed_sweep_kernelIhE"),
                ("K17 uint16", "watershed_sweep_kernelItE"))
@@ -509,7 +520,7 @@ _DIST_PTXAS = (("K14 nearest_bg_kernel", "nearest_bg_kernel"),
 
 def _check_distance_ptxas(log):
     """Print K14-K17's registers, stack frame, spills and shared bytes; fail
-    unless each of their six kernels is found once."""
+    unless each of their eight kernels is found once."""
     kern = _ptxas_kernels(log)
     for label, part in _DIST_PTXAS:
         hits = [v for fn, v in kern.items() if part in fn]
@@ -3152,31 +3163,48 @@ def _dist_masks(rs, shape):
 def _check_distance_kernels(rs):
     """K14-K17 against their plain twins on the card, bit for bit, on odd
     small shapes of 1-4 axes: K14 with and without the feature planes; K15
-    at each rung of the ladder the driver would try along each later axis
-    (lines of 13, 17, 40 and 70-97: n <= 17 dense only, 18-65 a band of
-    16, >= 66 both bands) with and without the planes, the certificate
-    equal; sampling 0.7 and (1.5, 1, ...); masks with dense and sparse
-    background, none and all; K16 with and without indices and K17 on
-    uint8 and uint16 images (random, and plateaus where ties go by the step
-    count and the label), negative markers, over the cross, full and a
-    custom structure, six sweeps each, the changed flag equal, then the
-    fixpoint driver's groups of 3 and 8 sweeps from one host call
-    (:func:`_check_sweep_group`); then the public transforms against the
-    port's CPU run. Fails unless every K15 rung ran."""
+    at each rung of the ladder alone along each later axis (lines of 13,
+    17, 40 and 70-97: n <= 17 dense only, 18-65 a band of 16, >= 66 both
+    bands) with and without the planes, the certificate equal, on the
+    plan's tile route (column tiles of a strided axis, partial ones too,
+    and whole slabs) and, on lines of 6150, past the staging on the lines
+    route; the dense kernel predicated on a clear flag (it writes nothing)
+    and on a set one; the pass entry (band and predicated dense kernel from
+    one host call) against the CPU schedule, its flag too; sampling 0.7
+    and (1.5, 1, ...); masks with dense and sparse background, none and
+    all; K16 with and without indices and K17 on uint8 and uint16 images
+    (random, and plateaus where ties go by the step count and the label),
+    negative markers, over the cross, full and a custom structure, six
+    sweeps each, the changed flag equal, then the fixpoint driver's groups
+    of 3 and 8 sweeps from one host call (:func:`_check_sweep_group`); then
+    the public transforms against the port's CPU run. Fails unless every
+    K15 rung, both routes and both flags of the pass ran."""
     import torch
     import elasticdeform_tpu_torch as et
     from elasticdeform_tpu_torch.ops import distance as ds
     from elasticdeform_tpu_torch.ops import morphology as mo
     dev = torch.device("cuda")
-    n = dict.fromkeys(("K14", "K15", "K16", "K17", "K16 groups",
-                       "K17 groups", "calls"), 0)
+    n = dict.fromkeys(("K14", "K15", "K15 predicated", "K15 passes", "K16",
+                       "K17", "K16 groups", "K17 groups", "calls"), 0)
     rungs0 = dict(ds.minplus_rung.rungs)
-    for shape in ((13,), (5, 17), (3, 40), (7, 70), (3, 5, 19), (2, 9, 67),
-                  (3, 4, 5, 21), (2, 3, 4, 97)):
+    routes, pass_flags = set(), set()
+    clear = torch.zeros(1, dtype=torch.int32, device=dev)
+    setf = torch.ones(1, dtype=torch.int32, device=dev)
+    for shape in ((13,), (5, 17), (3, 40), (7, 70), (2, 70, 40), (3, 5, 19),
+                  (2, 9, 67), (3, 4, 5, 21), (2, 3, 4, 97), (80, 6, 7),
+                  (150, 40), (300, 3), (2, 6150), (2, 6150, 2)):
         nd = len(shape)
-        for label, m in _dist_masks(rs, shape):
+        masks = _dist_masks(rs, shape)
+        samps = ((0.7,) * nd, (1.5,) + (1.0,) * (nd - 1))
+        if max(shape) > 6144:
+            # the lines route: fewer cases (the dense twin's cost matrix
+            # is 300 MB a line)
+            masks = [mm for mm in masks
+                     if mm[0] in ("bg 30%", "no background", "stripes of 30")]
+            samps = samps[:1]
+        for label, m in masks:
             mc = torch.as_tensor(m, device=dev)
-            for samp in ((0.7,) * nd, (1.5,) + (1.0,) * (nd - 1)):
+            for samp in samps:
                 what = f"{shape} {label} sampling {samp}"
                 for want in (False, True):
                     a = ds.nearest_background(mc, samp[0], want)
@@ -3188,6 +3216,10 @@ def _check_distance_kernels(rs):
                 f, ix = b
                 for ax in range(1, nd):
                     size = shape[ax]
+                    inner = math.prod(shape[ax + 1:])
+                    routes.add(ds._minplus_plan(f.numel() // (size * inner),
+                                                size, inner,
+                                                ix.shape[0]).route)
                     for W in [w for w in ds.EDT_LADDER
                               if 0 < w < size - 1] + [0]:
                         for idx in (None, ix):
@@ -3207,7 +3239,41 @@ def _check_distance_kernels(rs):
                                 raise AssertionError(f"{w}: certificate "
                                                      f"{a[2]}, twin {ok}")
                             n["K15"] += 1
+                    # the dense kernel on a clear flag writes nothing; on a
+                    # set flag it is the dense tier
+                    w = f"K15 predicated dense axis {ax} {what}"
+                    into = (torch.full_like(f, -7.0),
+                            torch.full_like(ix, -3))
+                    ds._launch_rung(f, ix, ax, samp[ax], 0, clear, into)
+                    if not (bool((into[0] == -7.0).all())
+                            and bool((into[1] == -3).all())):
+                        raise AssertionError(f"{w}: wrote on a clear flag")
+                    ds._launch_rung(f, ix, ax, samp[ax], 0, setf, into)
+                    b = ds.matrix_plain(f, ix, ax, samp[ax])
+                    _same(into[0], b[0], w)
+                    _same(into[1], b[1], f"{w} planes")
+                    n["K15 predicated"] += 1
+                    # the pass entry against the CPU schedule
+                    for idx in (None, ix):
+                        kept = ([], [])
+                        a = ds.minplus_pass(f, idx, ax, samp[ax], kept[0])
+                        b = ds.minplus_pass(
+                            f.cpu(), None if idx is None else idx.cpu(), ax,
+                            samp[ax], kept[1])
+                        w = f"K15 pass axis {ax} {what}"
+                        _same(a[0].cpu(), b[0], w)
+                        if idx is not None:
+                            _same(a[1].cpu(), b[1], f"{w} planes")
+                        got, want = (ds.kept_rungs(k) for k in kept)
+                        if got != want:
+                            raise AssertionError(f"{w}: kept {got}, the CPU "
+                                                 f"schedule {want}")
+                        if kept[0][0][2] is not None:
+                            pass_flags.add(int(kept[0][0][2].item()))
+                        n["K15 passes"] += 1
                     f, ix = ds.minplus_pass(f, ix, ax, samp[ax])
+            if max(shape) > 6144:
+                continue
             got = et.distance_transform_edt(m, sampling=samp[::-1],
                                             return_indices=True, device=dev)
             want = et.distance_transform_edt(m, sampling=samp[::-1],
@@ -3219,6 +3285,9 @@ def _check_distance_kernels(rs):
     ran = {k: v - rungs0.get(k, 0) for k, v in ds.minplus_rung.rungs.items()}
     if min(ran[k] for k in ("w16", "w64", "dense")) <= 0:
         raise AssertionError(f"K15: a rung never ran in phase 2: {ran}")
+    if routes != {"tile", "lines"} or pass_flags != {0, 1}:
+        raise AssertionError(f"K15: routes {routes} and pass flags "
+                             f"{pass_flags} in phase 2, not both of each")
 
     for shape in ((31,), (9, 13), (5, 7, 9), (3, 4, 5, 6)):
         nd = len(shape)
@@ -3303,7 +3372,8 @@ def _check_distance_kernels(rs):
                           f"{dtype} {iname}")
                     n["calls"] += 1
     print(f"K14-K17 vs plain on the card, bit for bit: {json.dumps(n)} "
-          f"cases (K15's launches per rung {json.dumps(ran)}); the public "
+          f"cases (K15's launches per rung alone {json.dumps(ran)}, routes "
+          f"{sorted(routes)}, pass flags {sorted(pass_flags)}); the public "
           "transforms equal the CPU run")
 
 
@@ -3527,9 +3597,10 @@ def _on(cache, device, *arrays):
 
 def _configs(seed=0):
     """The BASELINE configs c1, c2, c3 and c3's gradient, c4, c5, c6, and
-    c7-c18."""
+    c7-c19."""
     import torch
     import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import distance as ds
     rs = np.random.RandomState(seed)
     F32 = (1e-5, 1e-4)   # float32 output against the CPU run
     EXACT = "exact"      # float output bit for bit with the CPU run
@@ -3806,7 +3877,8 @@ def _configs(seed=0):
     # labels 1-27 at single voxels of a 3x3x3 lattice inside the ellipsoid.
     # The transforms run on the central C19_SLICES slices, the watershed
     # on the central C19_WS_SLICES (cut in PERF.md section 4); the per-call
-    # K15 rungs, K16 and K17 sweeps are kept in ``calls``
+    # K14 and K15 launches, K16 and K17 sweeps are kept in ``calls``, the
+    # EDT passes' flags in ``flags``
     lo19 = (S7[0] - C19_SLICES) // 2
     M19 = M17[lo19:lo19 + C19_SLICES]
     lo19 = (S7[0] - C19_WS_SLICES) // 2
@@ -3815,6 +3887,7 @@ def _configs(seed=0):
     dev19 = {}
     calls19 = {}
     seconds19 = {}
+    flags19 = {}
 
     def c19(device, n=None):
         m, img, mk = _on(dev19, device, M19, G19, MK19)
@@ -3835,6 +3908,11 @@ def _configs(seed=0):
                 seconds19[name] = time.perf_counter() - t0
             calls19[name] = {k: v - before[k]
                              for k, v in _dist_counts().items()}
+            if name == "edt":
+                # the passes' flags, read after the call (a tree before the
+                # pass entry keeps none)
+                flags19[str(device)] = list(getattr(ds.edt_core, "flags",
+                                                    []))
         if device == "cpu":
             print(f"c19 CPU run per call, s: {json.dumps(seconds19)}")
         return out
@@ -3842,6 +3920,7 @@ def _configs(seed=0):
     cfg19 = _Config("c19", c19, 2 * M19.size + G19.size,
                     ["exact", None, None, None, None])
     cfg19.calls = calls19
+    cfg19.flags = flags19
     cfg19.inputs = (M19, G19, MK19)
 
     return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
@@ -4023,8 +4102,9 @@ _EXACT_LAUNCHES = {
             "binary_step": 0},
     "c18": {"spline_prefilter": 3, "resample_fwd": 1,
             "spline_prefilter_transpose": 0, "resample_bwd": 0},
-    # c19: K14 once, K15's five rungs (_C19_CALLS), K16's and K17's sweeps
-    "c19": {"nearest_background": 1, "minplus_pass": 5, "chamfer_sweep": 48,
+    # c19: K14 once, K15's band and dense kernels a pass (_C19_CALLS),
+    # K16's and K17's sweeps
+    "c19": {"nearest_background": 1, "minplus_pass": 4, "chamfer_sweep": 48,
             "watershed_sweep": 192}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
@@ -4050,16 +4130,21 @@ _TILE_ROUTES = (("c11", "correlate1d", {"tile": 3, "lines": 0}),
 _C17_SWEEPS = {"opening": 4, "fill_holes": 80, "propagation": 168}
 _C17_PACKS = {"opening": (2, 2), "fill_holes": (2, 1),
               "propagation": (2, 1)}
-# c19's launches per call: the EDT's K14 launch and K15 rungs (two passes,
-# each climbing the ladder until a band certifies or the dense tier runs),
-# the CDT's K16 sweeps and the watershed's K17 sweeps (multiples of
+# c19's launches per call: the EDT's K14 launch and K15's band and dense
+# kernels (two passes, each the band of 64 and the dense kernel, which
+# returns at once where the band certified; no rung alone), the CDT's K16
+# sweeps and the watershed's K17 sweeps (multiples of
 # SWEEPS_PER_CHECK), as the runs on the card counted them (the
 # transforms' the same on 80 slices and on the whole volume; the
 # watershed's on 48 slices as c19_cut.py counted them on the CPU)
-_C19_CALLS = {"edt": {"nearest_background": 1, "minplus_w16": 2,
-                      "minplus_w64": 2, "minplus_dense": 1},
+_C19_CALLS = {"edt": {"nearest_background": 1, "minplus_band": 2,
+                      "minplus_dense": 2},
               "cdt": {"chamfer_sweeps": 48},
               "watershed": {"watershed_sweeps": 192}}
+# the tier each of c19's EDT passes keeps, read from the passes' flags after
+# the call ({axis: W}, 0 the dense tier): axis 1 the dense tier (a band of
+# 64 fails at 1606 voxels), axis 2 the band of 64
+_C19_KEPT = {1: 0, 2: 64}
 _DEFORM_KERNELS = ("resample_fwd", "resample_bwd", "resample_coord_grad")
 _MUST_NOT_LAUNCH = {"c3_grad": ("resample_coord_grad",),
                     "c4": ("resample_coord_grad",),
@@ -4127,7 +4212,7 @@ def _path_wrappers():
             "rank_filter": mo.rank_filter,
             "binary_step": mo.binary_step,
             "nearest_background": ds.nearest_background,
-            "minplus_pass": ds.minplus_rung,
+            "minplus_pass": (ds.minplus_pass, ds.minplus_rung),
             "chamfer_sweep": ds.chamfer_sweep,
             "watershed_sweep": ds.watershed_sweep}
 
@@ -4152,11 +4237,16 @@ def _k13_counts():
 
 
 def _dist_counts():
-    """K14-K17's launches and K15's per rung (``w16``, ``w64``,
-    ``dense``); K16's and K17's launches are their sweeps."""
+    """K14-K17's launches, K15's per kernel of its passes (``band``,
+    ``dense``) and of its rungs alone (``rung_w16``, ``rung_w64``,
+    ``rung_dense``; a tree before the pass entry climbed the rungs); K16's
+    and K17's launches are their sweeps."""
     from elasticdeform_tpu_torch.ops import distance as ds
+    kernels = getattr(ds.minplus_pass, "kernels", {})
     return {"nearest_background": ds.nearest_background.launches,
-            **{f"minplus_{k}": v for k, v in ds.minplus_rung.rungs.items()},
+            **{f"minplus_{k}": v for k, v in kernels.items()},
+            **{f"minplus_rung_{k}": v
+               for k, v in ds.minplus_rung.rungs.items()},
             "chamfer_sweeps": ds.chamfer_sweep.launches,
             "watershed_sweeps": ds.watershed_sweep.launches}
 
@@ -4178,7 +4268,7 @@ def _reset_counts():
     for ws in _wrappers().values():
         for w in ws:
             w.launches = 0
-            for attr in ("routes", "writeback_routes", "rungs"):
+            for attr in ("routes", "writeback_routes", "rungs", "kernels"):
                 for route in getattr(w, attr, {}):
                     getattr(w, attr)[route] = 0
     mo.binary_step.sweeps = mo.pack_bits.launches = 0
@@ -4194,18 +4284,26 @@ def _route_counts():
 
 
 def _check_c19(configs):
-    """c19's K15 rungs and K16 and K17 sweeps per call, printed and held
-    to :data:`_C19_CALLS`."""
+    """c19's K14 and K15 launches and K16 and K17 sweeps per call, printed
+    and held to :data:`_C19_CALLS`; the tier each EDT pass kept, read from
+    the passes' flags after the call, held to :data:`_C19_KEPT`."""
+    from elasticdeform_tpu_torch.ops import distance as ds
     for cfg in configs:
         if cfg.name != "c19":
             continue
-        print(f"c19 K14 launches, K15 launches per rung and K16 and K17 "
+        print(f"c19 K14 launches, K15 launches per kernel and K16 and K17 "
               f"sweeps per call: {json.dumps(cfg.calls)}")
         got = {name: {k: v for k, v in c.items() if v}
                for name, c in cfg.calls.items()}
         if got != _C19_CALLS:
             raise AssertionError(f"c19: launches per call {got}, not "
                                  f"{_C19_CALLS}")
+        kept = ds.kept_rungs(cfg.flags["cuda"])
+        print(f"c19 EDT: the tier each pass kept, from its flag: {kept} "
+              "(0 the dense tier)")
+        if kept != _C19_KEPT:
+            raise AssertionError(f"c19: the passes kept {kept}, not "
+                                 f"{_C19_KEPT}")
 
 
 def _against_cpu(configs, outs):
@@ -5599,8 +5697,9 @@ def _times_distance(row, card, cfg19):
     device ms, its plain twin's ms on the card, its byte (and operation)
     bound, and the library call where one computes the same function: K14
     with the feature planes beside two ``torch.cummax`` scans (the JAX
-    package's formulation); K15 as c19's two passes (each rung it tries,
-    the certificate's read included) and per rung and axis; K16 and K17 per
+    package's formulation); K15 as c19's two passes (the pass entry, band
+    and predicated dense kernel from one host call) and each kernel alone
+    per axis (the dense one on a set and on a clear flag); K16 and K17 per
     sweep on c19's start state (the driver's sweeper, into its second
     buffer set, and the wrapper, which allocates its outputs), per group
     of eight sweeps from one host call (the driver's) and per call, each on
@@ -5631,49 +5730,69 @@ def _times_distance(row, card, cfg19):
         0.0, at=f"c19 {tuple(m.shape)} bool, sampling 1.5",
         extra={"device_ms": _device_ms(k14)})
 
-    # K15: c19's two passes, f and the planes in and out each pass
+    # K15: c19's two passes, f and the planes in and out each pass; each
+    # pass the entry's one host call (band, then the dense kernel, which
+    # reads the band's flag on the device)
     f0, ix0 = k14()
-    tried = {}
+    kept = []
 
-    def passes(plain=False):
+    def passes():
+        f, ix = f0, ix0
+        del kept[:]
+        for ax in (1, 2):
+            f, ix = ds.minplus_pass(f, ix, ax, samp[ax], kept)
+        return f, ix
+
+    def plain():
         f, ix = f0, ix0
         for ax in (1, 2):
-            for W in [w for w in ds.EDT_LADDER
-                      if 0 < w < f.shape[ax] - 1] + [0]:
-                if plain:
-                    out, planes = (ds.banded_plain(f, ix, ax, samp[ax], W)
-                                   if W else
-                                   ds.matrix_plain(f, ix, ax, samp[ax]))
-                    ok = not W or bool((out <= (samp[ax] * W) ** 2).all())
-                else:
-                    out, planes, ok = ds.minplus_rung(f, ix, ax, samp[ax], W)
-                tried[ax] = W
-                if ok:
-                    break
+            W = ds.band_width(f.shape[ax])
+            out, planes = ds.banded_plain(f, ix, ax, samp[ax], W)
+            if not bool((out <= (samp[ax] * W) ** 2).all()):
+                out, planes = ds.matrix_plain(f, ix, ax, samp[ax])
             f, ix = out, planes
         return f, ix
 
-    passes()
-    per_rung = {}
+    for a, b, part in zip(passes(), plain(), ("f", "planes")):
+        _same(a, b, f"K15 at c19, {part}")
+    tiers = ds.kept_rungs(kept)
+    clear = torch.zeros(1, dtype=torch.int32, device=dev)
+    setf = torch.ones(1, dtype=torch.int32, device=dev)
+    alone, plans = {}, {}
     f, ix = f0, ix0
-    ops = 0
+    visits = 0
     for ax in (1, 2):
         n = f.shape[ax]
-        for W in [w for w in ds.EDT_LADDER if 0 < w < n - 1] + [0]:
-            per_rung[f"axis {ax} {f'W={W}' if W else 'dense'}"] = _time_ms(
-                lambda W=W, f=f, ix=ix, ax=ax: ds.minplus_rung(
-                    f, ix, ax, samp[ax], W))
-        W = tried[ax]
-        # the kept rung's adds and comparisons per voxel
-        ops += 2 * (2 * W if W else n) * N
-        f, ix, _ = ds.minplus_rung(f, ix, ax, samp[ax], W)
+        W = ds.band_width(n)
+        inner = math.prod(f.shape[ax + 1:])
+        plans[f"axis {ax}"] = ds._minplus_plan(f.numel() // (n * inner), n,
+                                               inner, ix.shape[0])._asdict()
+        # each kernel alone (the wrapper's outputs and flag allocated)
+        for label, fn in (
+                (f"axis {ax} band W={W}", lambda f=f, ix=ix, ax=ax, W=W:
+                 ds._launch_rung(f, ix, ax, samp[ax], W)),
+                (f"axis {ax} dense", lambda f=f, ix=ix, ax=ax:
+                 ds._launch_rung(f, ix, ax, samp[ax], 0, setf)),
+                (f"axis {ax} dense on a clear flag", lambda f=f, ix=ix, ax=ax:
+                 ds._launch_rung(f, ix, ax, samp[ax], 0, clear))):
+            alone[label] = {"ms": _time_ms(fn), "device_ms": _device_ms(fn)}
+        out, planes = ds.minplus_pass(f, ix, ax, samp[ax])
+        # the candidates this run's data needs: each voxel's own value and
+        # the offsets k >= 1 on both sides with s^2 k^2 <= its result (the
+        # band's up to W, the dense tier's up to n - 1, where it ran)
+        reach = torch.floor(torch.sqrt(out) / samp[ax])
+        for cap, ran in ((W, True), (n - 1, tiers[ax] == 0)):
+            if ran:
+                visits += int((1 + 2 * reach.clamp(max=cap)).sum())
+        f, ix = out, planes
     row("minplus_pass", "distance.cu",
         "elasticdeform_tpu/ops/distance.py:193", _time_ms(passes),
-        _time_ms(lambda: passes(True), reps=3, warmup=1),
-        _bound(2 * 2 * (8 * N + plane_bytes), ops, FP64_FLOPS), None, 0.0,
-        at="c19 axes 1 and 2, sampling 1.0",
-        extra={"rung_kept": {f"axis {a}": w for a, w in tried.items()},
-               "per_rung_ms": per_rung, "device_ms": _device_ms(passes)})
+        _time_ms(plain, reps=3, warmup=1),
+        _bound(2 * 2 * (8 * N + plane_bytes), 2 * visits, FP64_FLOPS), None,
+        0.0, at="c19 axes 1 and 2, sampling 1.0",
+        extra={"rung_kept": {f"axis {a}": w for a, w in tiers.items()},
+               "kernels_alone": alone, "plans": plans,
+               "device_ms": _device_ms(passes)})
 
     # K16: one sweep reads d and ix and writes them; a call reads the mask
     # and writes d and ix
@@ -6458,6 +6577,7 @@ def times_ab(card, reps=REPS):
         out[cfg.name] = _time_ms(lambda run=cfg.run: run("cuda"), reps)
         if cfg.name == "c19":
             out.update(_times_ab_relax(cfg, reps))
+            out.update(_times_ab_edt(cfg, reps))
     print(f"ab: {json.dumps(out)} [{card}]")
     return out
 
@@ -6477,6 +6597,41 @@ def _times_ab_relax(cfg19, reps):
                                                       device="cuda"))):
         out[label] = _time_ms(fn, reps)
         out[f"{label}_device"] = _device_ms(fn, calls=3)
+    return out
+
+
+def _times_ab_edt(cfg19, reps):
+    """K14 and K15 at c19 through the module functions both trees have
+    (``nearest_background`` with the planes; ``minplus_pass`` along axes 1
+    and 2, c19's two passes) and the EDT call through the public API: ms
+    (CUDA events) and device ms (``torch.profiler``) each, and a digest of
+    the passes' output bits (equal digests: bit-equal results)."""
+    import hashlib
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import distance as ds
+    m = torch.as_tensor(cfg19.inputs[0], device="cuda")
+    samp = (1.5, 1.0, 1.0)
+    f0, ix0 = ds.nearest_background(m, samp[0], True)
+
+    def passes():
+        f, ix = f0, ix0
+        for ax in (1, 2):
+            f, ix = ds.minplus_pass(f, ix, ax, samp[ax])
+        return f, ix
+
+    out = {}
+    for label, fn in (
+            ("K14_c19", lambda: ds.nearest_background(m, samp[0], True)),
+            ("K15_passes_c19", passes),
+            ("EDT_call_c19", lambda: et.distance_transform_edt(
+                m, sampling=samp, return_indices=True, device="cuda"))):
+        out[label] = _time_ms(fn, reps)
+        out[f"{label}_device"] = _device_ms(fn, calls=3)
+    h = hashlib.sha256()
+    for t in (*passes(), *ds.nearest_background(m, samp[0], True)):
+        h.update(t.cpu().numpy().tobytes())
+    out["EDT_digest_c19"] = h.hexdigest()[:16]
     return out
 
 

@@ -9,13 +9,16 @@ morphology` and sweeps by K17 here. Four kernels carry them
 * :func:`nearest_background` (K14): the exact EDT's first pass, the
   distance along axis 0 to the nearest background voxel of each line, and
   the feature planes it starts (the JAX package's ``_nearest_bg_last``).
-* :func:`minplus_rung` (K15): one rung of a later pass, ``f(i) = min_j
-  f(j) + s^2 (i - j)^2`` along an axis, the feature planes gathered at the
-  argmin: a band of ``W`` with its exactness certificate (``_banded_last``)
-  or the dense tier (``_matrix_last``). :func:`minplus_pass` climbs the
-  JAX package's ladder, (16, 64) then dense, the same rungs in the same
-  order with the same global certificate, so the indices, whose ties each
-  tier breaks its own way, are the JAX package's too (note R2).
+* :func:`minplus_pass` (K15): a later pass, ``f(i) = min_j f(j) + s^2 (i -
+  j)^2`` along an axis, the feature planes gathered at the argmin. The JAX
+  package climbs a ladder of bands, (16, 64), each kept where its global
+  certificate holds, then the dense tier; a band that certifies gives the
+  wider band's values and argmins too, so the ladder's result is the band
+  of its last width ``W < n - 1`` where that certifies, else the dense
+  tier, and the pass runs just those (the same indices, whose ties each
+  tier breaks its own way: note R2). On the card a pass is one host call
+  with no flag read: the band, then the dense tier, which reads the band's
+  flag on the device. :func:`minplus_rung` runs one rung alone.
 * :func:`chamfer_sweep` (K16): one Jacobi sweep of the chamfer relaxation
   (``cdt_core``), run to the fixpoint by
   :func:`~elasticdeform_tpu_torch.ops.morphology.relax_to_fixpoint`.
@@ -43,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,13 +62,24 @@ from elasticdeform_tpu_torch.ops.morphology import (
 _BIG32 = float(np.finfo(np.float32).max / 16)
 # the banded pass's half-widths, tried in order before the dense tier
 EDT_LADDER = (16, 64)
+# K15's tile route: a block stages its lines' values and feature planes in
+# shared memory, at most MINPLUS_SMEM bytes (the default dynamic shared
+# memory, as csrc/distance.cu's ED_MINPLUS_SMEM), aiming at MINPLUS_TILE
+# elements; a strided axis's tile is a multiple of MINPLUS_COLS inner
+# positions wide (rows of 64 bytes of values, 32 of a plane)
+MINPLUS_SMEM = 48 << 10
+MINPLUS_TILE = 1536
+MINPLUS_COLS = 8
+_THREADS = 256
+_MAX_BLOCKS = 4096
 # the plain dense tier's (lines, n, n) chunk: a few MB, which stays in cache
 _DENSE_CHUNK_BYTES = 8 << 20
 
 
 _SIGNATURES = (
     ("ed_nearest_background", "vvvipddv"),
-    ("ed_minplus_pass", "vvvvililviddvv"),
+    ("ed_minplus_rung", "vvvvililviddvviiv"),
+    ("ed_minplus_pass", "vvvvililvidvdviiv"),
     ("ed_chamfer_sweep", "vvvvviipivv"),
     ("ed_watershed_sweep", "vivvvvvvviipivv"))
 _entries: dict = {}
@@ -155,8 +170,7 @@ def nearest_background(fg: torch.Tensor, s0: float, want_idx: bool):
         return f, planes
     _lib()
     err = _entries["ed_nearest_background"](
-        fg.data_ptr(), f.data_ptr(),
-        _ptr(planes), fg.dim(),
+        fg.data_ptr(), f.data_ptr(), _ptr(planes), fg.dim(),
         (ctypes.c_longlong * fg.dim())(*shape), float(s0), _BIG32,
         _stream(fg))
     _check_launch(err, "nearest_background")
@@ -193,9 +207,16 @@ def _dense_constants(spacing: float, n: int) -> np.ndarray:
 def _table(spacing: float, W: int, n: int, device) -> torch.Tensor:
     """K15's constants on ``device``: the band's (``W > 0``) or the dense
     tier's (``W = 0``), uploaded once per spacing, width, length and
-    device."""
-    vals = _band_constants(spacing, W) if W else _dense_constants(spacing, n)
-    return torch.as_tensor(np.asarray(vals, dtype=np.float64)).to(device)
+    device. The band kernel adds offset ``-k``'s constant for ``k`` too,
+    so the two must agree bit for bit (they do: ``(s o)^2`` is even in
+    ``o``)."""
+    vals = np.asarray(_band_constants(spacing, W) if W
+                      else _dense_constants(spacing, n), dtype=np.float64)
+    if W and not np.array_equal(vals[0::2].view(np.int64),
+                                vals[1::2].view(np.int64)):
+        raise ValueError(f"minplus: the band's constants of -k and k differ "
+                         f"at spacing {spacing!r}")
+    return torch.as_tensor(vals).to(device)
 
 
 def _gather_planes(idx, bestj: torch.Tensor, axis: int):
@@ -259,14 +280,86 @@ def matrix_plain(g: torch.Tensor, idx, axis: int, spacing: float):
     return out, _gather_planes(idx, bestj, axis)
 
 
+class MinplusPlan(NamedTuple):
+    """K15's launch geometry along an axis: ``route`` ``"tile"`` (``w``
+    inner positions and ``L`` outer slices a block, ``L > 1`` only where
+    ``w`` is the whole inner extent; ``smem`` bytes of values and feature
+    planes staged) or ``"lines"`` (one thread an output voxel; ``w = L =
+    smem = 0``); ``blocks`` a launch."""
+    route: str
+    w: int
+    L: int
+    blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def _minplus_plan(outer: int, n: int, inner: int, nidx: int) -> MinplusPlan:
+    """K15's plan for the ``(outer, n, inner)`` view with ``nidx`` feature
+    planes: the tile route where a column of ``n`` elements (8 + 4 ``nidx``
+    bytes each) fits :data:`MINPLUS_SMEM`, its width a multiple of
+    :data:`MINPLUS_COLS` near :data:`MINPLUS_TILE` elements (halved until
+    it fits), whole slabs where it spans ``inner``; else the lines
+    route."""
+    col = (8 + 4 * nidx) * n
+    if col > MINPLUS_SMEM:
+        blocks = -(-outer * n * inner // _THREADS)
+        return MinplusPlan("lines", 0, 0, max(1, min(blocks, _MAX_BLOCKS)),
+                           0)
+    w = min(inner, max(MINPLUS_COLS,
+                       MINPLUS_TILE // n // MINPLUS_COLS * MINPLUS_COLS))
+    while w * col > MINPLUS_SMEM:
+        w //= 2
+    L = max(1, min(outer, MINPLUS_TILE // (n * inner))) if w == inner else 1
+    return MinplusPlan("tile", w, L, -(-outer // L) * -(-inner // w),
+                       L * w * col)
+
+
+def _k15_view(g: torch.Tensor, idx, axis: int, what: str):
+    """Check K15's inputs; ``(outer, n, inner, plan, nidx)``."""
+    relax_check(g, what)
+    if g.dtype != torch.float64 or (idx is not None and (
+            idx.dtype != torch.int32 or not idx.is_contiguous()
+            or tuple(idx.shape[1:]) != tuple(g.shape)
+            or idx.device != g.device)):
+        raise TypeError(f"{what}: the kernel takes float64 values and "
+                        f"contiguous int32 feature planes of their shape")
+    n, inner = g.shape[axis], math.prod(g.shape[axis + 1:])
+    outer = g.numel() // (n * inner)
+    nidx = 0 if idx is None else idx.shape[0]
+    return outer, n, inner, _minplus_plan(outer, n, inner, nidx), nidx
+
+
+def _launch_rung(g: torch.Tensor, idx, axis: int, spacing: float, W: int,
+                 pred=None, into=None):
+    """One K15 launch, not counted: the band of ``W > 0`` (its flag a new
+    int32 tensor, set where a voxel is not certified) or the dense tier
+    (``W = 0``; where ``pred``, an int32 device tensor, is 0 its blocks
+    return at once), written into ``into`` = ``(out, planes)`` or new
+    buffers. Returns ``(out, planes, flag or None, plan)``."""
+    outer, n, inner, plan, nidx = _k15_view(g, idx, axis, "minplus_rung")
+    out, planes = into if into is not None else (
+        torch.empty_like(g), None if idx is None else torch.empty_like(idx))
+    fail = torch.zeros(1, dtype=torch.int32, device=g.device) if W else None
+    _lib()
+    err = _entries["ed_minplus_rung"](
+        g.data_ptr(), out.data_ptr(), _ptr(idx), _ptr(planes), nidx,
+        g.numel(), n, inner,
+        _table(float(spacing), W, 0 if W else n, g.device).data_ptr(), W,
+        (float(spacing) * W) ** 2, _BIG32, _ptr(fail), _ptr(pred), plan.w,
+        plan.L, _stream(g))
+    _check_launch(err, "minplus_rung")
+    return out, planes, fail, plan
+
+
 def minplus_rung(g: torch.Tensor, idx, axis: int, spacing: float, W: int):
-    """One rung of :func:`minplus_pass`: the band of ``W`` (``W > 0``) or
-    the dense tier (``W = 0``) along ``axis`` of the float64 ``g``, the
+    """One rung of the JAX package's ladder: the band of ``W`` (``W > 0``)
+    or the dense tier (``W = 0``) along ``axis`` of the float64 ``g``, the
     feature planes ``idx`` (or None) gathered at the argmin. Returns
     ``(out, idx, certified)``: a band is certified where every output is
     at most ``(s W)^2``, the dense tier always. A CPU tensor takes
     :func:`banded_plain` / :func:`matrix_plain`; a CUDA tensor launches K15
-    (one launch; a band's flag is read once, a sync) and adds one to
+    (one launch; a band's flag is read, a sync) and adds one to
     ``minplus_rung.launches`` and to its rung's count in
     ``minplus_rung.rungs``."""
     if g.device.type == "cpu":
@@ -274,26 +367,10 @@ def minplus_rung(g: torch.Tensor, idx, axis: int, spacing: float, W: int):
             return (*matrix_plain(g, idx, axis, spacing), True)
         out, planes = banded_plain(g, idx, axis, spacing, W)
         return out, planes, bool((out <= (float(spacing) * W) ** 2).all())
-    relax_check(g, "minplus_rung")
-    if g.dtype != torch.float64 or (idx is not None and (
-            idx.dtype != torch.int32 or not idx.is_contiguous())):
-        raise TypeError("minplus_rung: the kernel takes float64 values and "
-                        "contiguous int32 feature planes")
-    n, inner = g.shape[axis], math.prod(g.shape[axis + 1:])
-    out = torch.empty_like(g)
-    planes = None if idx is None else torch.empty_like(idx)
-    fail = torch.zeros(1, dtype=torch.int32, device=g.device) if W else None
-    thr = (float(spacing) * W) ** 2
-    _lib()
-    err = _entries["ed_minplus_pass"](
-        g.data_ptr(), out.data_ptr(),
-        _ptr(idx),
-        _ptr(planes),
-        0 if idx is None else idx.shape[0], g.numel(), n, inner,
-        _table(float(spacing), W, n if not W else 0, g.device).data_ptr(),
-        W, thr, _BIG32, _ptr(fail),
-        _stream(g))
-    _check_launch(err, "minplus_rung")
+    if g.numel() == 0:
+        _k15_view(g, idx, axis, "minplus_rung")
+        return torch.empty_like(g), _empty_like(idx), True
+    out, planes, fail, _ = _launch_rung(g, idx, axis, spacing, W)
     minplus_rung.launches += 1
     key = f"w{W}" if W else "dense"
     minplus_rung.rungs[key] = minplus_rung.rungs.get(key, 0) + 1
@@ -304,31 +381,103 @@ minplus_rung.launches = 0
 minplus_rung.rungs = {f"w{w}": 0 for w in EDT_LADDER} | {"dense": 0}
 
 
-def minplus_pass(f: torch.Tensor, idx, axis: int, spacing: float):
-    """The JAX package's ``_minplus_pass`` (``:193``): the bands of
-    :data:`EDT_LADDER` with ``0 < W < n - 1``, in order, each kept where its
-    global certificate holds, else the dense tier. Returns ``(f, idx)``."""
-    n = int(f.shape[axis])
-    for W in EDT_LADDER:
-        if 0 < W < n - 1:
+def _empty_like(t):
+    return None if t is None else torch.empty_like(t)
+
+
+def band_width(n: int) -> int:
+    """The band a pass along a line of ``n`` runs: the last width of
+    :data:`EDT_LADDER` with ``0 < W < n - 1``, or 0 (the dense tier
+    alone)."""
+    return ([w for w in EDT_LADDER if 0 < w < n - 1] or [0])[-1]
+
+
+def _launch_pass(g: torch.Tensor, idx, axis: int, spacing: float):
+    """A whole K15 pass from one host call, not counted: ``(out, planes,
+    W, flag)``, ``flag`` (int32, on the card; None where ``W = 0``) set
+    where the band did not certify and the dense tier overwrote it."""
+    outer, n, inner, plan, nidx = _k15_view(g, idx, axis, "minplus_pass")
+    W = band_width(n)
+    out, planes = torch.empty_like(g), _empty_like(idx)
+    flag = torch.empty(1, dtype=torch.int32, device=g.device) if W else None
+    dev = g.device
+    _lib()
+    err = _entries["ed_minplus_pass"](
+        g.data_ptr(), out.data_ptr(), _ptr(idx), _ptr(planes), nidx,
+        g.numel(), n, inner,
+        _table(float(spacing), W, 0, dev).data_ptr() if W else None, W,
+        (float(spacing) * W) ** 2, _table(float(spacing), 0, n, dev)
+        .data_ptr(), _BIG32, _ptr(flag), plan.w, plan.L, _stream(g))
+    _check_launch(err, "minplus_pass")
+    return out, planes, W, flag
+
+
+def minplus_pass(f: torch.Tensor, idx, axis: int, spacing: float,
+                 flags: list | None = None):
+    """The JAX package's ``_minplus_pass`` (``:193``): the band of
+    :func:`band_width`, kept where its global certificate holds, else the
+    dense tier (the ladder's result; its narrower rungs would only repeat
+    it). A CPU tensor runs :func:`minplus_rung` for each; a CUDA tensor
+    launches K15's band and dense kernels from one host call (the dense
+    kernel reads the band's flag on the device; no host sync), adding one
+    to ``minplus_pass.kernels`` per kernel and to ``.launches`` per
+    launch. ``flags``, a list, gets ``(axis, W, flag)``:
+    ``flag`` an int32 tensor of one element, nonzero where the dense tier
+    was kept (None where ``W = 0``; on the card read it after the call).
+    Returns ``(f, idx)``."""
+    W = band_width(int(f.shape[axis]))
+    if f.device.type == "cpu":
+        flag = None
+        if W:
             out, planes, ok = minplus_rung(f, idx, axis, spacing, W)
-            if ok:
-                return out, planes
-    out, planes, _ = minplus_rung(f, idx, axis, spacing, 0)
+            flag = torch.tensor([0 if ok else 1], dtype=torch.int32)
+        if not W or not ok:
+            out, planes, _ = minplus_rung(f, idx, axis, spacing, 0)
+    elif f.numel() == 0:
+        _k15_view(f, idx, axis, "minplus_pass")
+        out, planes = torch.empty_like(f), _empty_like(idx)
+        flag = torch.zeros(1, dtype=torch.int32, device=f.device) if W \
+            else None
+    else:
+        out, planes, W, flag = _launch_pass(f, idx, axis, spacing)
+        kernels = ("band", "dense") if W else ("dense",)
+        for k in kernels:
+            minplus_pass.kernels[k] += 1
+        minplus_pass.launches += len(kernels)
+    if flags is not None:
+        flags.append((axis, W, flag))
     return out, planes
+
+
+minplus_pass.launches = 0
+minplus_pass.kernels = {"band": 0, "dense": 0}
 
 
 def edt_core(fg: torch.Tensor, samplings, want_idx: bool):
     """The squared EDT of the bool ``fg`` (the JAX package's ``edt_core``,
     ``:237``): ``(f, idx)``, ``f`` float64, ``idx`` None or the ``(ndim,
-    *shape)`` int32 feature planes (None for a 0-d ``fg``)."""
+    *shape)`` int32 feature planes (None for a 0-d ``fg``). Each pass's
+    ``(axis, W, flag)`` is kept in ``edt_core.flags`` until the next call,
+    for :func:`kept_rungs`."""
+    edt_core.flags = []
     if fg.dim() == 0:
         return torch.where(fg, _BIG32, 0.0).to(torch.float64), None
     fg = fg.contiguous()
     f, idx = nearest_background(fg, samplings[0], want_idx)
     for ax in range(1, fg.dim()):
-        f, idx = minplus_pass(f, idx, ax, samplings[ax])
+        f, idx = minplus_pass(f, idx, ax, samplings[ax], edt_core.flags)
     return f, idx
+
+
+edt_core.flags = []
+
+
+def kept_rungs(flags) -> dict:
+    """The rung each pass of ``flags`` (a list of :func:`minplus_pass`'s
+    ``(axis, W, flag)``) kept, ``{axis: W}`` (0 the dense tier), read from
+    its flag (a sync on the card)."""
+    return {ax: W if W and not int(flag.item()) else 0
+            for ax, W, flag in flags}
 
 
 def _sqrt(f: torch.Tensor) -> torch.Tensor:

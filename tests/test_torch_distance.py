@@ -5,10 +5,10 @@
 kernels K14, K15 and K16) on numpy masks made from a seed, and are held to
 the JAX package under x64 with no tolerance: EDT distances bit for bit,
 EDT, CDT and bf indices and CDT and bf distances exactly, dtypes equal.
-The cases reach each rung of the EDT's ladder (a line of at most 17 goes
-straight to the dense tier; dense background certifies the band of 16;
-sparse background escalates to 64 and to the dense tier), with the rungs
-tried checked; isotropic, anisotropic and non-dyadic sampling; 1-D to 4-D;
+The cases reach each tier of the EDT's passes (a line of at most 17 goes
+straight to the dense tier; a line of 18 runs the band of 16, longer lines
+the band of 64, the ladder's last width below n - 1; sparse background
+escalates to the dense tier), with the rungs tried checked; isotropic, anisotropic and non-dyadic sampling; 1-D to 4-D;
 the output-array contract and every error string. The ``cuda`` tests hold
 the kernels against their twins and skip without a card.
 """
@@ -65,7 +65,7 @@ def _stripes(shape, every, row=0):
     return m
 
 
-# (name, mask, sampling, the rungs the last axis's pass tries)
+# (name, mask, sampling, the rungs the last axis's pass runs)
 def _edt_cases():
     rs = np.random.RandomState(19)
     return [
@@ -73,13 +73,12 @@ def _edt_cases():
         ("1d_no_background", np.ones(9, bool), 0.7, None),
         ("short_dense_tier", rs.rand(9, 13) > 0.2, None, [0]),
         ("short_all_background", np.zeros((9, 13), bool), 1.5, [0]),
-        ("certified_w16", _stripes((6, 100), 10), None, [16]),
-        ("random_w16", rs.rand(6, 100) > 0.3, 0.7, [16]),
-        ("escalate_w64", _stripes((6, 100), 50), None, [16, 64]),
-        ("escalate_dense", _stripes((6, 100), 200), None, [16, 64, 0]),
-        ("dense_anisotropic", _stripes((6, 100), 200), (1.5, 1.0), [16, 64,
-                                                                    0]),
-        ("no_background", np.ones((6, 100), bool), (1.5, 1.0), [16, 64, 0]),
+        ("certified_w16", _stripes((6, 100), 10), None, [64]),
+        ("random_w16", rs.rand(6, 100) > 0.3, 0.7, [64]),
+        ("escalate_w64", _stripes((6, 100), 50), None, [64]),
+        ("escalate_dense", _stripes((6, 100), 200), None, [64, 0]),
+        ("dense_anisotropic", _stripes((6, 100), 200), (1.5, 1.0), [64, 0]),
+        ("no_background", np.ones((6, 100), bool), (1.5, 1.0), [64, 0]),
         ("n18_only_w16", _stripes((6, 18), 100), 0.7, [16, 0]),
         ("3d_anisotropic", rs.rand(4, 6, 20) > 0.05, (1.5, 1.0, 1.0),
          None),
@@ -320,7 +319,7 @@ def _same_bits(a, b):
 def test_k14_k15_match_twins_on_card(cuda_device):
     rs = np.random.RandomState(10)
     for shape, p in (((7,), 0.3), ((9, 13), 0.2), ((6, 100), 0.02),
-                     ((5, 7, 70), 0.05), ((3, 4, 5, 20), 0.1)):
+                     ((4, 90), 0.0), ((5, 7, 70), 0.05), ((3, 4, 5, 20), 0.1)):
         m = torch.as_tensor(rs.rand(*shape) > p)
         for want in (False, True):
             a = dist.nearest_background(m.to(cuda_device), 1.5, want)
@@ -337,6 +336,20 @@ def test_k14_k15_match_twins_on_card(cuda_device):
                     b = dist.minplus_rung(f, idx, ax, 0.7, W)
                     assert _same_bits(a[0], b[0]) and _same_bits(a[1], b[1])
                     assert a[2] == b[2]
+            # the pass entry, its band kept (flag clear) or the dense tier
+            # run over it (flag set), against the CPU schedule
+            for idx in (None, ix):
+                kept = [[], []]
+                a = dist.minplus_pass(
+                    f.to(cuda_device),
+                    None if idx is None else idx.to(cuda_device), ax, 0.7,
+                    kept[0])
+                b = dist.minplus_pass(f, idx, ax, 0.7, kept[1])
+                assert _same_bits(a[0], b[0]) and _same_bits(a[1], b[1])
+                (_, wa, fa), (_, wb, fb) = kept[0][0], kept[1][0]
+                assert wa == wb
+                assert (fa is None and fb is None) or bool(
+                    int(fa.item())) == bool(int(fb.item()))
             f, ix = dist.minplus_pass(f, ix, ax, 0.7)
 
 
