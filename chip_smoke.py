@@ -3162,7 +3162,9 @@ def _dist_masks(rs, shape):
 
 def _check_distance_kernels(rs):
     """K14-K17 against their plain twins on the card, bit for bit, on odd
-    small shapes of 1-4 axes: K14 with and without the feature planes; K15
+    small shapes of 1-4 axes (K14 and K15 also of 7 and 8, whose 7 and 8
+    feature planes fill a slab tile's staging): K14 with and without the
+    feature planes; K15
     at each rung of the ladder alone along each later axis (lines of 13,
     17, 40 and 70-97: n <= 17 dense only, 18-65 a band of 16, >= 66 both
     bands) with and without the planes, the certificate equal, on the
@@ -3192,7 +3194,8 @@ def _check_distance_kernels(rs):
     setf = torch.ones(1, dtype=torch.int32, device=dev)
     for shape in ((13,), (5, 17), (3, 40), (7, 70), (2, 70, 40), (3, 5, 19),
                   (2, 9, 67), (3, 4, 5, 21), (2, 3, 4, 97), (80, 6, 7),
-                  (150, 40), (300, 3), (2, 6150), (2, 6150, 2)):
+                  (150, 40), (300, 3), (2, 6150), (2, 6150, 2),
+                  (2, 2, 2, 2, 2, 2, 40), (2, 1, 2, 1, 2, 3, 40, 2)):
         nd = len(shape)
         masks = _dist_masks(rs, shape)
         samps = ((0.7,) * nd, (1.5,) + (1.0,) * (nd - 1))

@@ -70,8 +70,6 @@ EDT_LADDER = (16, 64)
 MINPLUS_SMEM = 48 << 10
 MINPLUS_TILE = 1536
 MINPLUS_COLS = 8
-_THREADS = 256
-_MAX_BLOCKS = 4096
 # the plain dense tier's (lines, n, n) chunk: a few MB, which stays in cache
 _DENSE_CHUNK_BYTES = 8 << 20
 
@@ -285,11 +283,10 @@ class MinplusPlan(NamedTuple):
     inner positions and ``L`` outer slices a block, ``L > 1`` only where
     ``w`` is the whole inner extent; ``smem`` bytes of values and feature
     planes staged) or ``"lines"`` (one thread an output voxel; ``w = L =
-    smem = 0``); ``blocks`` a launch."""
+    smem = 0``). The kernel's entry point derives its grid from these."""
     route: str
     w: int
     L: int
-    blocks: int
     smem: int
 
 
@@ -299,20 +296,19 @@ def _minplus_plan(outer: int, n: int, inner: int, nidx: int) -> MinplusPlan:
     planes: the tile route where a column of ``n`` elements (8 + 4 ``nidx``
     bytes each) fits :data:`MINPLUS_SMEM`, its width a multiple of
     :data:`MINPLUS_COLS` near :data:`MINPLUS_TILE` elements (halved until
-    it fits), whole slabs where it spans ``inner``; else the lines
-    route."""
+    it fits), whole slabs where it spans ``inner`` (as many as
+    :data:`MINPLUS_TILE` elements and :data:`MINPLUS_SMEM` allow); else
+    the lines route."""
     col = (8 + 4 * nidx) * n
     if col > MINPLUS_SMEM:
-        blocks = -(-outer * n * inner // _THREADS)
-        return MinplusPlan("lines", 0, 0, max(1, min(blocks, _MAX_BLOCKS)),
-                           0)
+        return MinplusPlan("lines", 0, 0, 0)
     w = min(inner, max(MINPLUS_COLS,
                        MINPLUS_TILE // n // MINPLUS_COLS * MINPLUS_COLS))
     while w * col > MINPLUS_SMEM:
         w //= 2
-    L = max(1, min(outer, MINPLUS_TILE // (n * inner))) if w == inner else 1
-    return MinplusPlan("tile", w, L, -(-outer // L) * -(-inner // w),
-                       L * w * col)
+    L = max(1, min(outer, MINPLUS_TILE // (n * inner),
+                   MINPLUS_SMEM // (w * col))) if w == inner else 1
+    return MinplusPlan("tile", w, L, L * w * col)
 
 
 def _k15_view(g: torch.Tensor, idx, axis: int, what: str):

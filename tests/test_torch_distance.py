@@ -319,7 +319,9 @@ def _same_bits(a, b):
 def test_k14_k15_match_twins_on_card(cuda_device):
     rs = np.random.RandomState(10)
     for shape, p in (((7,), 0.3), ((9, 13), 0.2), ((6, 100), 0.02),
-                     ((4, 90), 0.0), ((5, 7, 70), 0.05), ((3, 4, 5, 20), 0.1)):
+                     ((4, 90), 0.0), ((5, 7, 70), 0.05), ((3, 4, 5, 20), 0.1),
+                     ((2, 2, 2, 2, 2, 2, 40), 0.1),
+                     ((2, 1, 2, 1, 2, 3, 40, 2), 0.1)):
         m = torch.as_tensor(rs.rand(*shape) > p)
         for want in (False, True):
             a = dist.nearest_background(m.to(cuda_device), 1.5, want)
