@@ -25,7 +25,8 @@ Phases (any failure raises, and the exit code is not 0):
    float32, and every K3/K3c instantiation and K13's four tile
    instantiations and its pack and unpack kernels to no stack frame and no
    spills; prints the registers, stack frame, spills and shared bytes of
-   K14-K17's eight kernels (``csrc/distance.cu``); then prints the atomic
+   K14-K17's eight kernels (``csrc/distance.cu``) and K18-K20's seven
+   (``csrc/measure.cu``); then prints the atomic
    instructions of K3/K3c at rank 3 (``cuobjdump -sass``: native
    shared-memory adds or compare-and-swap loops);
 2. each kernel against its plain PyTorch version on the card: K1 (resample),
@@ -146,7 +147,17 @@ Phases (any failure raises, and the exit code is not 0):
    and the fixpoint driver's groups of 3 and 8 sweeps from one host call,
    each on 1-D to 4-D shapes and with sampling 0.7 and (1.5, 1, ...),
    dense and sparse background, none and all; and the public transforms
-   against the CPU run;
+   against the CPU run; K18 (the union-find labeling: roots, root flags
+   and the numbering) bit for bit on 1-D to 4-D masks at five foreground
+   shares under every connectivity and a random symmetric structure,
+   snakes, and ``label`` of NaN-holding float inputs against the CPU run;
+   K19 (every segment statistic at once) on both routes and K20 (both
+   extrema's positions) in the eleven dtypes with NaN, +-0 and
+   infinities, without labels, without an index, with duplicate and absent
+   index entries and a scalar, and with 10^5 segments (the device route):
+   counts, order keys,
+   coordinate bounds, histograms and positions bit for bit, float64 sums
+   per segment to 1e-12 of the sum of their terms' magnitudes;
 3. the main path through the public entry points at the BASELINE configs
    c1, c2, c3 (forward, and ``deform_grid_gradient`` with crop, X_shape,
    affine and constant mode), c4 (forward and autograd to X), c5 (batched
@@ -171,11 +182,19 @@ Phases (any failure raises, and the exit code is not 0):
    of 48 slices of c15's volume with 28 markers, bit for bit, with exact
    K14 and K15 launches (K15's band and dense kernels, two a pass) and K16
    and K17 sweeps per call and the tier each EDT pass kept, read from its
-   flag after the call), each compared with the
-   port's own ``device="cpu"`` run;
+   flag after the call), and c20 (``label`` of 64 central slices of c17's
+   segmentation under the 3^3 structure and of c15's volume above its
+   median under the cross, then ``sum_labels``, ``mean``, ``variance``,
+   ``minimum`` and ``maximum`` over the second labels and
+   ``minimum_position``, ``maximum_position``, ``center_of_mass``,
+   ``find_objects`` and a 64-bucket ``histogram`` over the first, each
+   index 1..n; labels, counts, minima, maxima, positions, slices and
+   histograms bit for bit, sums to rtol 1e-10, the variance to 1e-10 of
+   s2/c), each compared with the port's own ``device="cpu"`` run;
    the launch counters, set to 0 before each config and read after it, must
    show each kernel on the configs that run it and none on the configs that
-   do not need it (exact counts for c11-c16 and c18, and c17's K13 sweeps
+   do not need it (exact counts for c11-c16, c18 and c20 (K19 five
+   launches on each route), and c17's K13 sweeps
    per
    call, 4, 80 and 168, all on the tile route, with its pack and unpack
    launches; K2's, K4's, K6's, K7's, K3's, K3c's, K8T's, K9's, K9T's,
@@ -238,7 +257,10 @@ Phases (any failure raises, and the exit code is not 0):
    call, ``index_select``, ``gather``, ``embedding_bag`` or ``index_add_``;
    P2's host microseconds per call, device microseconds per call from the
    profiler and one launch between events, beside its library call's; the
-   library-only probes' rates), and each config (Mvox/s).
+   library-only probes' rates), K18-K20 at c20's shapes with their device
+   ms (K18 on both masks and its numbering, K19 per statistic on each
+   route beside ``index_add_`` and ``bincount``, K20 beside
+   ``scatter_reduce_``), and each config (Mvox/s).
 
 The line before the last is a JSON object with one entry per kernel (K2,
 its writeback route, K4, K6, K7, K8, K8T, K9, K9T, K3, K3c, K10, K11, K12
@@ -246,7 +268,8 @@ and K13 with their launches per route;
 K13 also
 its sweeps and its pack and unpack launches; K14-K17 at c19's shapes, K15
 with its kept tiers, plans and each kernel's time, K16 and K17 per sweep with their
-call's time and sweeps); the last line
+call's time and sweeps; K18-K20 at c20's shapes, K19 with its launches per
+route); the last line
 is
 ``{"ok": true, "device": {...}}``. It exits non-zero with no result when no
 CUDA device is present or when the package is missing.
@@ -291,15 +314,17 @@ KERNELS = ("resample_fwd", "spline_prefilter", "resample_bwd",
            "correlate_nd", "correlate_nd_transpose", "min_max_filter1d",
            "min_max_filter", "rank_filter", "binary_step",
            "nearest_background", "minplus_pass", "chamfer_sweep",
-           "watershed_sweep", "smem_probe", "row_gather", "row_scatter_add",
+           "watershed_sweep", "label_roots", "segment_reduce",
+           "segment_position", "smem_probe", "row_gather", "row_scatter_add",
            "row_gather_async")
 FILTER_KERNELS = KERNELS[10:14]
 MORPH_KERNELS = KERNELS[14:18]
 DIST_KERNELS = KERNELS[18:22]
-PROBE_KERNELS = KERNELS[22:]
-# the kernels of the deform, resampler, filter, morphology and distance
-# path (phase 3)
-PATH_KERNELS = KERNELS[:22]
+MEAS_KERNELS = KERNELS[22:25]
+PROBE_KERNELS = KERNELS[25:]
+# the kernels of the deform, resampler, filter, morphology, distance and
+# measurement path (phase 3)
+PATH_KERNELS = KERNELS[:25]
 
 
 # the resample kernels' sweep (phase 2): (naxis, input shape, output shape)
@@ -533,6 +558,31 @@ def _check_distance_ptxas(log):
               "static shared")
 
 
+# K18-K20's kernels in csrc/measure.cu: (label, mangled name part)
+_MEAS_PTXAS = (("K18 init", "uf_init_kernel"),
+               ("K18 merge", "uf_merge_kernel"),
+               ("K18 compress", "uf_compress_kernel"),
+               ("K18 numbering", "label_number_kernel"),
+               ("K19 shared route", "segment_reduce_kernelILb1E"),
+               ("K19 device route", "segment_reduce_kernelILb0E"),
+               ("K20", "segment_position_kernel"))
+
+
+def _check_measure_ptxas(log):
+    """Print K18-K20's registers, stack frame, spills and shared bytes; fail
+    unless each of their seven kernels is found once."""
+    kern = _ptxas_kernels(log)
+    for label, part in _MEAS_PTXAS:
+        hits = [v for fn, v in kern.items() if part in fn]
+        if len(hits) != 1:
+            raise AssertionError(f"{label}: {len(hits)} kernels named "
+                                 f"{part} in the ptxas report, not 1")
+        v = hits[0]
+        print(f"  ptxas {label}: {v[0]} registers, {v[1]} bytes stack "
+              f"frame, {v[2]}/{v[3]} bytes spill stores/loads, {v[5]} bytes "
+              "static shared")
+
+
 def _check_k9t_ptxas(log):
     """Print each K9T tile instantiation's registers, stack and spills per
     dtype, column C and fold flag; fail unless all 16 are found and none in
@@ -724,6 +774,7 @@ def phase_build():
         lambda dt, n: f"{_MANGLED[dt]} {n} wires")
     _check_k13_ptxas(_build.build_logs["morphology"])
     _check_distance_ptxas(_build.build_logs["distance"])
+    _check_measure_ptxas(_build.build_logs["measure"])
     _check_tile_table(
         "K12 select tile", _build.build_logs["morphology"], _K12_TILE, 22,
         lambda dt, c: f"{_MANGLED[dt]} C={c}")
@@ -933,6 +984,7 @@ def phase_kernels():
     _check_k12_routes(rs, torch.device("cuda"))
     _check_k12_network_routes(rs, torch.device("cuda"))
     _check_distance_kernels(rs)
+    _check_measure_kernels(rs, worst)
     return worst
 
 
@@ -3380,6 +3432,192 @@ def _check_distance_kernels(rs):
           "transforms equal the CPU run")
 
 
+# ---------------------------------------------------------------------------
+# K18-K20: labeling and region measurements
+
+
+def _snake(shape):
+    """A bool mask holding one serpentine component: every other line of
+    the last axis, joined at alternating ends, plane by plane, and the
+    planes joined at alternating corners."""
+    m = np.zeros(shape, dtype=bool)
+    rows = m.reshape(-1, shape[-1])
+    rows[::2] = True
+    for r in range(1, len(rows), 2):
+        rows[r, -1 if (r // 2) % 2 == 0 else 0] = True
+    return m
+
+
+def _check_k18(rs, dev):
+    """K18 (roots, root flags and numbering) against its twins, bit for
+    bit, on 1-D to 4-D masks at foreground shares 0, 0.3, 0.55, 0.7 and 1
+    under every connectivity and a random symmetric structure, snakes, and
+    the public ``label`` of float inputs holding NaN against the CPU run."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import measure as ms
+    from elasticdeform_tpu_torch.ops.morphology import (
+        generate_binary_structure)
+    n = 0
+    for shape in ((1,), (37,), (300,), (9, 13), (64, 70), (5, 7, 9),
+                  (24, 31, 33), (3, 4, 5, 6), (6, 7, 8, 9)):
+        nd = len(shape)
+        structs = [generate_binary_structure(nd, c) for c in range(1, nd + 1)]
+        r = rs.rand(*(3,) * nd) > 0.5
+        structs.append(r | r[(slice(None, None, -1),) * nd])
+        for st, p in itertools.product(structs, (0.0, 0.3, 0.55, 0.7, 1.0)):
+            offs = ms.structure_offsets(st, nd)
+            fg = torch.as_tensor(rs.rand(*shape) < p, device=dev)
+            got = ms.label_roots(fg, offs, flags=True)
+            want = ms.label_roots_plain(fg, offs, flags=True)
+            lab, count = ms.label_numbers(*got)
+            cum = torch.cumsum(want[1].reshape(-1), 0, dtype=torch.int32)
+            torch.cuda.synchronize()
+            what = f"K18 {shape} p={p} {len(offs)} offsets"
+            _same(got[0], want[0], f"{what} roots")
+            _same(got[1], want[1], f"{what} flags")
+            _same(lab, ms.label_numbers_plain(want[0], cum), f"{what} labels")
+            if count != int(cum[-1]):
+                raise AssertionError(f"{what}: {count} labels, not "
+                                     f"{int(cum[-1])}")
+            n += 1
+    for shape in ((200, 200), (9, 40, 40)):
+        for conn in (1, len(shape)):
+            offs = ms.structure_offsets(
+                generate_binary_structure(len(shape), conn), len(shape))
+            fg = torch.as_tensor(_snake(shape), device=dev)
+            _same(ms.label_roots(fg, offs), ms.label_roots_plain(fg, offs),
+                  f"K18 snake {shape}")
+            n += 1
+    for shape in ((40, 50), (12, 20, 30)):
+        x = rs.randn(*shape)
+        x[rs.rand(*shape) < 0.4] = 0.0
+        x[rs.rand(*shape) < 0.05] = np.nan
+        for dt in (np.float32, np.float64):
+            got, gn = et.label(x.astype(dt), device=dev)
+            want, wn = et.label(x.astype(dt), device="cpu")
+            _same(got.cpu(), want, f"label {shape} {np.dtype(dt)}")
+            if gn != wn:
+                raise AssertionError(f"label {shape}: {gn} labels, not {wn}")
+            n += 1
+    print(f"K18 label_roots and its numbering vs plain on the card, bit for "
+          f"bit: {n} cases (1-D to 4-D, every connectivity and random "
+          "structures, snakes, NaN inputs through label)")
+
+
+def _k19_cases(rs, shape, dev):
+    """(what, labels, lut, K) for K19 and K20: no labels; labels with no
+    index; index arrays with an absent entry, with duplicates, and a
+    scalar; the table built as ``_norm_labels_index`` builds it."""
+    import torch
+    from elasticdeform_tpu_torch.ops import measure as ms
+    lab = torch.as_tensor(rs.randint(-1, 8, shape).astype(np.int32),
+                          device=dev)
+    out = [("no labels", None, None, 1), ("no index", lab, None, 1)]
+    for idx in ([1, 2, 3, 5, 9], [2, 2, 0, 4, 2], 3):
+        lut, K, _, _ = ms.labels_index(lab, idx, dev)
+        out.append((f"index {idx}", lab, lut, K))
+    return out
+
+
+def _check_k19_k20(rs, dev, worst):
+    """K19 (every statistic at once, the histogram's 16 buckets too) and
+    K20 (both extrema's positions) against their twins on the card in the
+    eleven dtypes (:func:`_rand_volume`: NaN, +-0 and infinities in the
+    floats, ties), on 1-D to 4-D shapes: counts,
+    order keys, coordinate bounds, histograms and positions bit for bit,
+    float64 sums per segment to 1e-12 of the sum of their terms' magnitudes
+    (atomics reorder them); small K on both routes, forced, and K = 10^5
+    segments (the device route) with uint16 and float labels."""
+    import torch
+    from elasticdeform_tpu_torch.ops import measure as ms
+    n = {"shared": 0, "device": 0, "positions": 0}
+    stats = ms.STATS
+    for shape in ((37,), (9, 13), (5, 7, 9), (3, 4, 5, 6), (40, 50, 60)):
+        cases = _k19_cases(rs, shape, dev)
+        for dtype in _morph_dtypes():
+            x = _rand_volume(rs, shape, dtype, dev)
+            hist = (16, -3.0, 5.0)
+            for what, lab, lut, K in cases:
+                want = ms.segment_reduce_plain(x, lab, lut, K, stats, hist)
+                for route in ("shared", "device"):
+                    got = ms.segment_reduce(x, lab, lut, K, stats, hist,
+                                            route=route)
+                    torch.cuda.synchronize()
+                    _k19_same(got, want, x, lab, lut, K,
+                              f"K19 {route} {shape} {dtype} {what}", worst)
+                    n[route] += 1
+                for stat in ("min", "max"):
+                    _same(ms.segment_position(x, lab, lut, K, want[stat]),
+                          ms.segment_position_plain(x, lab, lut, K,
+                                                    want[stat]),
+                          f"K20 {stat} {shape} {dtype} {what}")
+                    n["positions"] += 1
+    # K = 10^5 segments over 120 000 voxels: the device route
+    shape = (40, 50, 60)
+    for ldt in (np.uint16, np.float64):
+        lab = torch.as_tensor(rs.randint(0, 100_001, shape).astype(ldt),
+                              device=dev)
+        lut, K, _, _ = ms.labels_index(lab, np.arange(100_000), dev)
+        for dtype in (torch.int16, torch.float32, torch.float64):
+            x = _rand_volume(rs, shape, dtype, dev)
+            want = ms.segment_reduce_plain(x, lab, lut, K, stats, (8, -2, 2))
+            if ms.segment_plan(K, stats, 3, 8) != "device":
+                raise AssertionError("K19: 10^5 segments did not take the "
+                                     "device route")
+            got = ms.segment_reduce(x, lab, lut, K, stats, (8, -2, 2))
+            _k19_same(got, want, x, lab, lut, K,
+                      f"K19 device K=1e5 {dtype} labels {np.dtype(ldt)}",
+                      worst)
+            n["device"] += 1
+            for stat in ("min", "max"):
+                _same(ms.segment_position(x, lab, lut, K, want[stat]),
+                      ms.segment_position_plain(x, lab, lut, K, want[stat]),
+                      f"K20 {stat} K=1e5 {dtype}")
+                n["positions"] += 1
+    print(f"K19 segment_reduce and K20 segment_position vs plain on the "
+          f"card: {json.dumps(n)} cases in the eleven dtypes, exact but the "
+          f"float64 sums (max abs err of a float input's "
+          f"{worst['segment_reduce']:.3e})")
+
+
+def _k19_same(got, want, x, lab, lut, K, what, worst):
+    """K19's accumulators against the twin's: exact, but the float64 sums
+    to 1e-12 of the sum of their terms' magnitudes per segment; the largest
+    error of a float input's sum goes into ``worst``."""
+    import torch
+    from elasticdeform_tpu_torch.ops import measure as ms
+    terms = ms.segment_reduce_plain(x.to(torch.float64).abs(), lab, lut, K,
+                                    ("sum", "sum2", "csum"))
+    for s, w in want.items():
+        g = got[s]
+        if s in terms:
+            bound = 1e-12 * terms[s]
+            err = (g - w).abs()
+            ok = (err <= bound) | (g == w) | (torch.isnan(g) &
+                                                torch.isnan(w))
+            if not bool(ok.all()):
+                raise AssertionError(f"{what} {s}: {int((~ok).sum())} "
+                                     f"segments off by more than 1e-12 of "
+                                     f"their terms")
+            # the reported error: float inputs' (integer inputs over their
+            # whole range sum past 2^53, where only the relative bound
+            # speaks)
+            fin = torch.isfinite(err)
+            if x.dtype.is_floating_point and bool(fin.any()):
+                worst["segment_reduce"] = max(worst["segment_reduce"],
+                                              float(err[fin].max()))
+        else:
+            _same(g, w, f"{what} {s}")
+
+
+def _check_measure_kernels(rs, worst):
+    import torch
+    dev = torch.device("cuda")
+    _check_k18(rs, dev)
+    _check_k19_k20(rs, dev, worst)
+
+
 def _check_sweep_group(what, sweeper, state, plain, group):
     """One call of ``sweeper`` (K16's or K17's, the fixpoint driver's) for
     ``group`` sweeps of ``state`` from one host call against ``group``
@@ -3600,7 +3838,7 @@ def _on(cache, device, *arrays):
 
 def _configs(seed=0):
     """The BASELINE configs c1, c2, c3 and c3's gradient, c4, c5, c6, and
-    c7-c19."""
+    c7-c20."""
     import torch
     import elasticdeform_tpu_torch as et
     from elasticdeform_tpu_torch.ops import distance as ds
@@ -3926,6 +4164,59 @@ def _configs(seed=0):
     cfg19.flags = flags19
     cfg19.inputs = (M19, G19, MK19)
 
+    # c20: region labeling and measurement, as lesion and nuclei counting,
+    # per-organ statistics after a segmentation and the largest-component
+    # clean-up of a thresholded MRI run it: the components of c17's
+    # segmentation under the full 3^3 structure (a few hundred) and of
+    # c15's MRI-like volume above its median under the cross (about a third
+    # of a million), then the sum, mean, variance, minimum and maximum of
+    # the volume over the second labels and the extremum positions, centres
+    # of mass, bounding boxes and 64-bucket histograms over the first, each
+    # label's index 1..n. Both run on the central C20_SLICES slices (cut in
+    # PERF.md section 4); the outputs that the port assembles on the host
+    # (positions, centres, slices, histograms) are compared as tensors
+    lo20 = (S7[0] - C20_SLICES) // 2
+    M20 = M17[lo20:lo20 + C20_SLICES]
+    X20 = X15[lo20:lo20 + C20_SLICES]
+    T20 = float(np.median(X15))
+    dev20 = {}
+    seconds20 = {}
+
+    def c20(device, n=None):
+        m, x = _on(dev20, device, M20, X20)
+        t0 = time.perf_counter()
+        l1, n1 = et.label(m, structure=np.ones((3, 3, 3)), device=device)
+        l2, n2 = et.label(x > T20, device=device)
+        t1 = time.perf_counter()
+        i1, i2 = np.arange(1, n1 + 1), np.arange(1, n2 + 1)
+        out = [l1, l2, torch.tensor([n1, n2])]
+        out += [f(x, l2, i2, device=device) for f in (
+            et.sum_labels, et.mean, et.variance, et.minimum, et.maximum)]
+        out += [torch.tensor(et.minimum_position(x, l1, i1, device=device)),
+                torch.tensor(et.maximum_position(x, l1, i1, device=device)),
+                torch.tensor(et.center_of_mass(x, l1, i1, device=device),
+                             dtype=torch.float64),
+                torch.tensor([[(-1, -1) if s is None else (s[k].start,
+                                                           s[k].stop)
+                               for k in range(3)] for s in
+                              et.find_objects(l1, device=device)]),
+                torch.tensor(np.stack([
+                    np.full(64, -1) if h is None else h for h in
+                    et.histogram(x, 0, 1, 64, l1, i1, device=device)]))]
+        if device == "cpu":
+            seconds20.update(label=t1 - t0, measure=time.perf_counter() - t1)
+            print(f"c20 CPU run, s: {json.dumps(seconds20)}; {n1} and {n2} "
+                  "labels")
+        return out
+
+    # the variance to 1e-10 of s2/c = var + mean^2 per region (output 4 the
+    # mean); the float sums to rtol 1e-10
+    SUM20 = (1e-10, 0.0)
+    cfg20 = _Config("c20", c20, 2 * M20.size,
+                    [None, None, None, SUM20, SUM20, ("variance", 4), EXACT,
+                     EXACT, None, None, (1e-10, 1e-10), None, None])
+    cfg20.inputs = (M20, X20, T20)
+
     return [_Config("c1", c1, 200 * 300, [(1e-10, 1e-10)]),
             _Config("c2", c2, 200 * 300, [F32, F32]),
             _Config("c3", c3, 96 ** 3, [F32]),
@@ -3945,7 +4236,7 @@ def _configs(seed=0):
             _Config("c16", c16, (2 * 512 + 256) * 512 * 300, [None] * 3),
             cfg17,
             _Config("c18", c18, 96 ** 3, [None]),
-            cfg19]
+            cfg19, cfg20]
 
 
 # c19's central slices of the 160, cut to keep its CPU run under 15 s on
@@ -3954,6 +4245,11 @@ def _configs(seed=0):
 # 80, 10.1-10.2 s at 48 and 21.8-23.6 s at 64; c19_cut.py)
 C19_SLICES = 80
 C19_WS_SLICES = 48
+# c20's central slices of the 160, cut to keep its CPU run under 15 s on
+# the card's host: the run took 76.7 s on the whole volume, 31.9 / 11.6 /
+# 8.6 / 7.2 s on 128 / 96 / 80 / 64 slices (c20_cut.py), and 14.5 s on 80
+# inside chip_smoke.py's phase 3, so 64 (PERF.md section 4)
+C20_SLICES = 64
 
 
 def _gradient_u8(vol):
@@ -4080,7 +4376,8 @@ _MUST_LAUNCH = {"c3_grad": ("resample_bwd", "spline_prefilter_transpose"),
                 "c16": ("min_max_filter1d", "min_max_filter"),
                 "c17": ("binary_step",),
                 "c18": ("spline_prefilter", "resample_fwd"),
-                "c19": DIST_KERNELS}
+                "c19": DIST_KERNELS,
+                "c20": MEAS_KERNELS}
 # exact launch counts of the filter configs: c11 one K8 and one K8T per
 # spatial axis; c12 three passes for each of the three LoG and three
 # gradient terms; c13 three gaussian passes and sobel's three; c14 K9 for
@@ -4108,7 +4405,11 @@ _EXACT_LAUNCHES = {
     # c19: K14 once, K15's band and dense kernels a pass (_C19_CALLS),
     # K16's and K17's sweeps
     "c19": {"nearest_background": 1, "minplus_pass": 4, "chamfer_sweep": 48,
-            "watershed_sweep": 192}}
+            "watershed_sweep": 192},
+    # c20: K18's roots and its numbering for each of the two labelings; K19
+    # once for each statistic, the positions' extrema included, K20 for
+    # each position
+    "c20": {"label_roots": 4, "segment_reduce": 10, "segment_position": 2}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
 # (3^3 median and the 33-tap percentile on the network tile, the 5^3
@@ -4125,7 +4426,10 @@ _TILE_ROUTES = (("c11", "correlate1d", {"tile": 3, "lines": 0}),
                 ("c16", "min_max_filter", {"tile": 3, "nd": 0}),
                 ("c16", "min_max_filter1d", {"box": 2, "lines": 0}),
                 ("c18", "spline_prefilter", {"tile": 0, "lines": 0,
-                                             "writeback": 3}))
+                                             "writeback": 3}),
+                # c20: the few hundred regions' accumulators fit a block's
+                # shared memory, the third of a million's do not
+                ("c20", "segment_reduce", {"shared": 5, "device": 5}))
 # c17's K13 sweeps per call (the fixpoints' counts of the seeded
 # segmentation, as every PR since PR 5 measured them) and its (pack, unpack)
 # launches: the opening packs and unpacks its erosion and its dilation, each
@@ -4173,11 +4477,13 @@ _MUST_NOT_LAUNCH["c18"] = ("spline_prefilter_transpose", "spline_prefilter_bc",
 for _name in ("c1", "c2", "c3", "c3_grad", "c4", "c5", "c6", "c7", "c8",
               "c9", "c10", "c18"):
     _MUST_NOT_LAUNCH[_name] = _MUST_NOT_LAUNCH.get(_name, ()) + \
-        FILTER_KERNELS + MORPH_KERNELS + DIST_KERNELS + PROBE_KERNELS
+        FILTER_KERNELS + MORPH_KERNELS + DIST_KERNELS + MEAS_KERNELS + \
+        PROBE_KERNELS
 for _name, _tier in (("c11", FILTER_KERNELS), ("c12", FILTER_KERNELS),
                      ("c13", FILTER_KERNELS), ("c14", FILTER_KERNELS),
                      ("c15", MORPH_KERNELS), ("c16", MORPH_KERNELS),
-                     ("c17", ("binary_step",)), ("c19", DIST_KERNELS)):
+                     ("c17", ("binary_step",)), ("c19", DIST_KERNELS),
+                     ("c20", MEAS_KERNELS)):
     _MUST_NOT_LAUNCH[_name] = tuple(k for k in KERNELS if k not in _tier)
 
 
@@ -4191,6 +4497,7 @@ def _wrappers():
 
 def _path_wrappers():
     from elasticdeform_tpu_torch.ops import distance as ds
+    from elasticdeform_tpu_torch.ops import measure as ms
     from elasticdeform_tpu_torch.ops import filters as ft
     from elasticdeform_tpu_torch.ops import morphology as mo
     from elasticdeform_tpu_torch.ops import prefilter as pf
@@ -4217,7 +4524,10 @@ def _path_wrappers():
             "nearest_background": ds.nearest_background,
             "minplus_pass": (ds.minplus_pass, ds.minplus_rung),
             "chamfer_sweep": ds.chamfer_sweep,
-            "watershed_sweep": ds.watershed_sweep}
+            "watershed_sweep": ds.watershed_sweep,
+            "label_roots": (ms.label_roots, ms.label_numbers),
+            "segment_reduce": ms.segment_reduce,
+            "segment_position": ms.segment_position}
 
 
 def _counts():
@@ -4329,6 +4639,14 @@ def _against_cpu(configs, outs):
                     f"gives {tuple(want.shape)} {want.dtype}")
             if not bool(torch.isfinite(got.double()).all()):
                 raise AssertionError(f"{what}: non-finite output")
+            if isinstance(tol, tuple) and tol[0] == "variance":
+                m = torch.as_tensor(ref[tol[1]])
+                err = _assert_close(got, want, 0.0, 1e-10 * (want + m * m),
+                                    f"{what} vs CPU")
+                print(f"{what}: {tuple(got.shape)} {got.dtype} matches the "
+                      f"CPU run (max abs err {err:.3e}, atol 1e-10 of s2/c "
+                      "per region)")
+                continue
             if tol == "exact":
                 _same(got, want, f"{what} vs CPU")
                 print(f"{what}: {tuple(got.shape)} {got.dtype} equals the "
@@ -4416,10 +4734,12 @@ def phase_main_path():
     if min(total.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never ran: {total}")
     for k, by_route in routes.items():
-        main = "box" if k == "min_max_filter1d" else "tile"
-        if by_route[main] <= 0:
-            raise AssertionError(f"{k} never ran on its {main} route: "
-                                 f"{by_route}")
+        for main in {"min_max_filter1d": ("box",),
+                     "segment_reduce": ("shared", "device")}.get(k,
+                                                                 ("tile",)):
+            if by_route[main] <= 0:
+                raise AssertionError(f"{k} never ran on its {main} route: "
+                                     f"{by_route}")
     for name, kernels in _MUST_LAUNCH.items():
         for k in kernels:
             if launches[name][k] <= 0:
@@ -5865,6 +6185,127 @@ def _times_distance(row, card, cfg19):
                "sweeps_per_call": sweeps})
 
 
+def _times_measure(row, card, cfg20):
+    """Phase 4 of K18-K20 at c20's shapes and inputs: each kernel's ms,
+    device ms, its plain twin's ms on the card, its byte bound and the
+    library call where one computes the same function. K18 on both of
+    c20's masks (roots and flags; the numbering, a ``torch.cumsum`` and
+    the gather, beside it); K19 on its device route as ``sum_labels`` over
+    the second labels (about a third of a million segments; the other
+    statistics' launches beside it) beside ``index_add_`` of the
+    float64 values at int64 segment ids made beforehand, and on its shared
+    route as ``histogram``, ``minimum_position``'s minimum, ``center_of_mass``
+    and ``find_objects`` over the first (a few hundred) beside
+    ``bincount`` of the buckets made beforehand; K20 as ``minimum_position``'s
+    second pass beside ``scatter_reduce_`` (``amin``) of the hits' indices
+    made beforehand."""
+    import torch
+    import elasticdeform_tpu_torch as et
+    from elasticdeform_tpu_torch.ops import measure as ms
+    dev = torch.device("cuda")
+    M20, X20, T20 = cfg20.inputs
+    m = torch.as_tensor(M20, device=dev)
+    x = torch.as_tensor(X20, device=dev)
+    fg2 = x > T20
+    N = m.numel()
+    shape = f"c20 {tuple(m.shape)}"
+    offs1 = ms.structure_offsets(np.ones((3, 3, 3)), 3)
+    offs2 = ms.structure_offsets(None, 3)
+
+    # K18: the mask in, roots and flags out; the numbering reads the roots
+    # and the counts and writes the labels
+    k18 = lambda: ms.label_roots(fg2, offs2, flags=True)  # noqa: E731
+    k18a = lambda: ms.label_roots(m, offs1, flags=True)  # noqa: E731
+    roots, flags = k18()
+    number = lambda: ms.label_numbers(roots, flags)  # noqa: E731
+    _same(roots, ms.label_roots_plain(fg2, offs2), "K18 at c20, roots")
+    row("label_roots", "measure.cu", "elasticdeform_tpu/measure.py:93",
+        _time_ms(k18), _time_ms(lambda: ms.label_roots_plain(fg2, offs2,
+                                                             flags=True)),
+        _bound(N * (1 + 4 + 4), 0), None, 0.0,
+        at=f"{shape} bool above the median, cross",
+        extra={"device_ms": _device_ms(k18),
+               "full_structure_mask_ms": _time_ms(k18a),
+               "full_structure_mask_device_ms": _device_ms(k18a),
+               "full_structure_mask_plain_ms": _time_ms(
+                   lambda: ms.label_roots_plain(m, offs1, flags=True)),
+               "numbering_ms": _time_ms(number),
+               "numbering_device_ms": _device_ms(number),
+               "numbering_bound_ms": _bound(N * 12, 0)[0]})
+
+    l1, n1 = et.label(m, structure=np.ones((3, 3, 3)), device=dev)
+    l2, n2 = et.label(fg2, device=dev)
+    lut1, K1, _, _ = ms.labels_index(l1, np.arange(1, n1 + 1), dev)
+    lut2, K2, _, _ = ms.labels_index(l2, np.arange(1, n2 + 1), dev)
+    seg1 = ms.segment_ids_plain(l1, lut1, tuple(l1.shape), dev)
+    seg2 = ms.segment_ids_plain(l2, lut2, tuple(l2.shape), dev)
+    f = x.reshape(-1).to(torch.float64)
+
+    # K19's device route: sum_labels over the second labels (the input and
+    # the labels in, K sums out), beside index_add_
+    def k19(lab, lut, K, stats, hist=None):
+        return lambda: ms.segment_reduce(x, lab, lut, K, stats, hist)
+
+    segk2 = torch.where(seg2 < 0, K2, seg2)
+    got = k19(l2, lut2, K2, ("sum",))()["sum"]
+    want = ms.segment_reduce_plain(x, l2, lut2, K2, ("sum",))["sum"]
+    terms = ms.segment_reduce_plain(x.abs(), l2, lut2, K2, ("sum",))["sum"]
+    if not bool(((got - want).abs() <= 1e-12 * terms).all()):
+        raise AssertionError("K19 at c20: sums off by more than 1e-12 of "
+                             "their terms")
+    err = float((got - want).abs().max())
+    lib = torch.zeros(K2 + 1, dtype=torch.float64, device=dev)
+    other = {}
+    for name, lab, lut, K, stats, hist in (
+            ("device_mean", l2, lut2, K2, ("sum", "count"), None),
+            ("device_variance", l2, lut2, K2, ("sum", "sum2", "count"), None),
+            ("device_minimum", l2, lut2, K2, ("count", "min"), None),
+            ("shared_histogram", l1, lut1, K1, ("count", "hist"),
+             (64, 0, 1)),
+            ("shared_minimum", l1, lut1, K1, ("count", "min"), None),
+            ("shared_center_of_mass", l1, lut1, K1, ("sum", "csum"), None),
+            ("shared_find_objects", l1, lut1, K1, ("count", "bounds"),
+             None)):
+        fn = k19(lab, lut, K, stats, hist)
+        route = ms.segment_plan(K, stats, 3, hist[0] if hist else 0)
+        if route != name.split("_")[0]:
+            raise AssertionError(f"K19 at c20: {name} took the {route} route")
+        other[f"{name}_ms"] = _time_ms(fn)
+        other[f"{name}_device_ms"] = _device_ms(fn)
+    q, ok = ms.histogram_buckets(f, 0, 1, 64)
+    hkey = torch.where(ok & (seg1 >= 0), seg1 * 64 + q, K1 * 64)
+    other["shared_histogram_library_ms"] = _time_ms(
+        lambda: torch.bincount(hkey, minlength=K1 * 64 + 1))
+    k19d = k19(l2, lut2, K2, ("sum",))
+    row("segment_reduce", "measure.cu", "elasticdeform_tpu/measure.py:201",
+        _time_ms(k19d), _time_ms(
+            lambda: ms.segment_reduce_plain(x, l2, lut2, K2, ("sum",))),
+        _bound(N * (4 + 4) + K2 * 8, 0),
+        _time_ms(lambda: lib.index_add_(0, segk2, f)), err,
+        at=f"{shape} float32, {K2} segments (sum_labels)",
+        extra={"device_ms": _device_ms(k19d), "segments": [K1, K2],
+               **other})
+
+    # K20: minimum_position's second pass over the first labels (the input,
+    # the labels and K keys in, K positions out), beside scatter_reduce_
+    keys = ms.segment_reduce(x, l1, lut1, K1, ("min",))["min"]
+    k20 = lambda: ms.segment_position(x, l1, lut1, K1, keys)  # noqa: E731
+    _same(k20(), ms.segment_position_plain(x, l1, lut1, K1, keys),
+          "K20 at c20")
+    ext = ms.key_values(keys, x.dtype)
+    hit = (x.reshape(-1) == ext[seg1.clamp(min=0)]) & (seg1 >= 0)
+    hseg = torch.where(hit, seg1, K1)
+    iota = torch.arange(N, device=dev)
+    pos = torch.full((K1 + 1,), N, dtype=torch.int64, device=dev)
+    row("segment_position", "measure.cu", "elasticdeform_tpu/measure.py:298",
+        _time_ms(k20), _time_ms(
+            lambda: ms.segment_position_plain(x, l1, lut1, K1, keys)),
+        _bound(N * (4 + 4) + K1 * 16, 0),
+        _time_ms(lambda: pos.scatter_reduce_(0, hseg, iota, "amin")), 0.0,
+        at=f"{shape} float32, {K1} segments (minimum_position)",
+        extra={"device_ms": _device_ms(k20)})
+
+
 def _times_morphology(row, card, k13=None):
     """Phase 4 for the morphology tier: K10 as the three passes of c16's
     5^3 dilation (int16, 512x512x300) beside ``max_pool3d`` (stride 1) on the
@@ -6852,6 +7293,7 @@ def phase_times(card, total_launches, errs, probe_data, routes=None,
     _times_morphology(row, card, k13)
     configs = _configs()
     _times_distance(row, card, next(c for c in configs if c.name == "c19"))
+    _times_measure(row, card, next(c for c in configs if c.name == "c20"))
     probe_times = _times_probes(row, card, probe_data, errs)
     _print_k1_lines(k1_lines, probe_times, card)
     _print_k3_lines(k3_lines, probe_times, card)

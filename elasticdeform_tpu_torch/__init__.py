@@ -3,8 +3,9 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The PyTorch port of :mod:`elasticdeform_tpu`, which stays the reference.
 It imports neither JAX nor that package. It ports the forward deformation,
-its exact adjoint, the general resampler family, the linear filter tier and
-the morphology tier:
+its exact adjoint, the general resampler family, the linear filter tier,
+the morphology tier, the distance transforms and the labeling and region
+measurements:
 
 numpy API (numpy in, numpy out):
     deform_grid, deform_random_grid, deform_grid_gradient,
@@ -29,8 +30,11 @@ tensor API (torch tensors in and out):
     binary_dilation, binary_opening, binary_closing, binary_propagation,
     binary_fill_holes, binary_hit_or_miss, generic_filter, generic_filter1d,
     vectorized_filter, watershed_ift (no gradient); distance_transform_edt,
-    distance_transform_cdt, distance_transform_bf; generate_binary_structure,
-    iterate_structure (numpy)
+    distance_transform_cdt, distance_transform_bf; label, find_objects,
+    sum_labels, sum, mean, variance, standard_deviation, minimum, maximum,
+    minimum_position, maximum_position, extrema, center_of_mass, histogram;
+    generate_binary_structure, iterate_structure, median,
+    labeled_comprehension, value_indices (numpy)
 
 Every entry point takes ``device=None``, which means ``"cuda"``; the CPU
 runs only on ``device="cpu"``. On the card the input prefilter runs as
@@ -45,8 +49,11 @@ transpose K9T (``csrc/filters.cu``); the morphology tier runs the 1-D
 min/max K10, the footprint min/max K11, the rank selection K12 and the
 binary sweep K13 (``csrc/morphology.cu``); the distance transforms the
 nearest-background scan K14, the min-plus pass K15 and the chamfer sweep
-K16, the watershed its sweep K17 (``csrc/distance.cu``); all are built with
-``nvcc`` at first use. On the CPU their plain PyTorch versions run.
+K16, the watershed its sweep K17 (``csrc/distance.cu``); the labeling the
+union-find K18 and its numbering, the region measurements the segment
+reductions K19 and the extremum positions K20 (``csrc/measure.cu``); all
+are built with ``nvcc`` at first use. On the CPU their plain PyTorch
+versions run.
 """
 
 from elasticdeform_tpu_torch.api import (
@@ -69,6 +76,12 @@ from elasticdeform_tpu_torch.core import (
     prewitt, rank_filter, rotate, shift, sobel, spline_filter,
     spline_filter1d, uniform_filter, uniform_filter1d, vectorized_filter,
     watershed_ift, white_tophat, zoom,
+)
+from elasticdeform_tpu_torch.measure import (
+    center_of_mass, extrema, find_objects, histogram, label,
+    labeled_comprehension, maximum, maximum_position, mean, median, minimum,
+    minimum_position, standard_deviation, sum, sum_labels, value_indices,
+    variance,
 )
 from elasticdeform_tpu_torch.ops.morphology import (
     generate_binary_structure, iterate_structure,
@@ -96,5 +109,9 @@ __all__ = ["deform_grid", "deform_random_grid", "deform_grid_gradient",
            "binary_fill_holes", "binary_hit_or_miss", "generic_filter",
            "generic_filter1d", "vectorized_filter", "watershed_ift",
            "distance_transform_bf", "distance_transform_cdt",
-           "distance_transform_edt", "generate_binary_structure",
+           "distance_transform_edt", "label", "find_objects", "sum_labels",
+           "sum", "mean", "variance", "standard_deviation", "minimum",
+           "maximum", "median", "minimum_position", "maximum_position",
+           "extrema", "center_of_mass", "histogram", "labeled_comprehension",
+           "value_indices", "generate_binary_structure",
            "iterate_structure", "__version__"]

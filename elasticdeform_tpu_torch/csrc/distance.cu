@@ -84,7 +84,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define ED_DIST_MAXD 8
+#include "array_dims.cuh"
+
+#define ED_DIST_MAXD ED_DIMS_MAXD
 #define ED_DIST_THREADS 256
 #define ED_DIST_BLOCKS 4096
 // K14: a block's lines at most (a warp's width)
@@ -95,13 +97,6 @@
 #define ED_MINPLUS_SMEM 49152
 
 namespace {
-
-// the extents of an array of up to ED_DIST_MAXD axes (fewer than 2^31
-// elements: the feature indices are int32)
-struct Dims {
-  int ndim;
-  unsigned n[ED_DIST_MAXD];
-};
 
 // one block's vote: *flag |= any thread's local flag
 __device__ __forceinline__ void block_flag(int* flag, bool local) {
@@ -429,23 +424,6 @@ minplus_lines_kernel(const double* __restrict__ g, double* __restrict__ out,
 // ---------------------------------------------------------------------------
 // K16 and K17
 
-// the axes where voxel v sits on the low edge (bits 0-7) and on the high
-// edge (bits 8-15); a tap's word holds the axes it steps down along (bits
-// 0-7) and up along (bits 8-15), so it leaves the array where the two meet
-__device__ __forceinline__ unsigned edge_bits(unsigned v, const Dims& dm) {
-  unsigned lo = 0, hi = 0, rem = v;
-#pragma unroll
-  for (int k = ED_DIST_MAXD - 1; k >= 0; --k) {
-    if (k < dm.ndim) {
-      const unsigned c = rem % dm.n[k];
-      rem /= dm.n[k];
-      lo |= (unsigned)(c == 0) << k;
-      hi |= (unsigned)(c == dm.n[k] - 1) << k;
-    }
-  }
-  return lo | (hi << 8);
-}
-
 __global__ void __launch_bounds__(ED_DIST_THREADS)
 chamfer_sweep_kernel(const int* __restrict__ d, const int* __restrict__ ix,
                      int* __restrict__ d_out, int* __restrict__ ix_out,
@@ -511,22 +489,6 @@ watershed_sweep_kernel(const X* __restrict__ img, const int* __restrict__ c,
     any |= nc != c0 || ns != s0 || nl != l0;
   }
   if (changed) block_flag(changed, any);
-}
-
-bool make_dims(int ndim, const long long* shape, Dims* dm,
-               long long* total) {
-  if (ndim < 1 || ndim > ED_DIST_MAXD) return false;
-  long long t = 1;
-  dm->ndim = ndim;
-  for (int k = 0; k < ED_DIST_MAXD; ++k) dm->n[k] = 1;
-  for (int k = 0; k < ndim; ++k) {
-    if (shape[k] < 1) return false;
-    dm->n[k] = (unsigned)shape[k];
-    t *= shape[k];
-    if (t >= (1LL << 31)) return false;
-  }
-  *total = t;
-  return true;
 }
 
 // one K15 launch along the middle axis of the (outer, n, inner) view: the

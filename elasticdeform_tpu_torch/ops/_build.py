@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SOURCES = ("resample", "prefilter", "resample_bwd", "filters", "morphology",
-           "probes", "distance")
+           "probes", "distance", "measure")
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -79,6 +79,9 @@ assert et.grey_opening((X * 100).astype(np.int16), size=(3, 2),
                        device='cpu').dtype == elasticdeform_tpu_torch.core.torch.int16
 assert et.binary_fill_holes(X > 0.5, device='cpu').dtype \
     == elasticdeform_tpu_torch.core.torch.bool
+labels, n = et.label(X > 0.5, device='cpu')
+assert n >= 1 and et.find_objects(labels, device='cpu')[0] is not None
+assert et.mean(X, labels, np.arange(1, n + 1), device='cpu').shape == (n,)
 assert probe_pallas.dynload('cpu').shape == (8, 128)
 assert probe_gather.pl_dg(256, 1024, 256, 'cpu').shape == (256, 128)
 assert probe_gather2.pl_loop_scatter(256, 1024, 256, 'cpu').sum() \
@@ -180,6 +183,11 @@ for call in (lambda: et.deform_grid(X, d),
              lambda: et.generic_filter(X, lambda v: v.max(), 3),
              lambda: et.generic_filter1d(X, lambda v: v[:11], 3),
              lambda: et.vectorized_filter(X, torch.amax, size=3),
+             lambda: et.label(X > 0.5),
+             lambda: et.sum_labels(X, X > 0.5),
+             lambda: et.minimum_position(X),
+             lambda: et.histogram(X, 0, 1, 4),
+             lambda: et.find_objects((X > 0.5).astype(int)),
              lambda: probe_pallas.vmem(48),
              lambda: probe_pallas.dynload(),
              lambda: probe_pallas.dynstore(),

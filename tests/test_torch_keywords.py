@@ -29,19 +29,15 @@ import elasticdeform_tpu_torch.api as et_api
 from elasticdeform_tpu_torch import core as et_core
 
 # exported by the JAX package, still queued in the port (ROADMAP.md Queue
-# 1: items 6, 8, 11b)
+# 1: items 6 and 8)
 QUEUED = {
-    "bending_energy", "center_of_mass", "compose_displacement_fields",
+    "bending_energy", "compose_displacement_fields",
     "deform_random", "deform_random_diffeo", "displacement_field",
-    "displacement_field_jacobian", "extrema",
-    "find_objects", "fourier_ellipsoid", "fourier_gaussian", "fourier_shift",
-    "fourier_uniform", "histogram", "integrate_velocity_field",
+    "displacement_field_jacobian", "fourier_ellipsoid", "fourier_gaussian",
+    "fourier_shift", "fourier_uniform", "integrate_velocity_field",
     "invert_displacement_field", "jacobian_determinant",
-    "jacobian_determinant_field", "label", "labeled_comprehension",
-    "maximum", "maximum_position", "mean", "median", "membrane_energy",
-    "minimum", "minimum_position", "random_displacement",
-    "refine_displacement_grid", "standard_deviation", "sum", "sum_labels",
-    "value_indices", "variance",
+    "jacobian_determinant_field", "membrane_energy", "random_displacement",
+    "refine_displacement_grid",
 }
 
 CPU = {"device": "cpu"}
