@@ -3458,6 +3458,7 @@ def _check_k18(rs, dev):
     from elasticdeform_tpu_torch.ops import measure as ms
     from elasticdeform_tpu_torch.ops.morphology import (
         generate_binary_structure)
+    t0 = time.perf_counter()
     n = 0
     for shape in ((1,), (37,), (300,), (9, 13), (64, 70), (5, 7, 9),
                   (24, 31, 33), (3, 4, 5, 6), (6, 7, 8, 9)):
@@ -3468,7 +3469,13 @@ def _check_k18(rs, dev):
         for st, p in itertools.product(structs, (0.0, 0.3, 0.55, 0.7, 1.0)):
             offs = ms.structure_offsets(st, nd)
             fg = torch.as_tensor(rs.rand(*shape) < p, device=dev)
+            before = ms.label_roots.launches
             got = ms.label_roots(fg, offs, flags=True)
+            if ms.label_roots.launches - before != \
+                    (3 if len(ms.half_taps(offs, shape)) else 2):
+                raise AssertionError(f"K18 {shape}: counted "
+                                     f"{ms.label_roots.launches - before} "
+                                     f"kernels for one call")
             want = ms.label_roots_plain(fg, offs, flags=True)
             lab, count = ms.label_numbers(*got)
             cum = torch.cumsum(want[1].reshape(-1), 0, dtype=torch.int32)
@@ -3502,7 +3509,8 @@ def _check_k18(rs, dev):
             n += 1
     print(f"K18 label_roots and its numbering vs plain on the card, bit for "
           f"bit: {n} cases (1-D to 4-D, every connectivity and random "
-          "structures, snakes, NaN inputs through label)")
+          f"structures, snakes, NaN inputs through label); "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _k19_cases(rs, shape, dev):
@@ -3528,23 +3536,30 @@ def _check_k19_k20(rs, dev, worst):
     order keys, coordinate bounds, histograms and positions bit for bit,
     float64 sums per segment to 1e-12 of the sum of their terms' magnitudes
     (atomics reorder them); small K on both routes, forced, and K = 10^5
-    segments (the device route) with uint16 and float labels."""
+    segments (the device route) with uint16 and float labels. Each shape
+    and dtype takes two of :func:`_k19_cases`' five cases, turning with
+    the shape and the dtype, so that every dtype meets every case and
+    every shape every case."""
     import torch
     from elasticdeform_tpu_torch.ops import measure as ms
+    t0 = time.perf_counter()
     n = {"shared": 0, "device": 0, "positions": 0}
     stats = ms.STATS
-    for shape in ((37,), (9, 13), (5, 7, 9), (3, 4, 5, 6), (40, 50, 60)):
+    for i, shape in enumerate(((37,), (9, 13), (5, 7, 9), (3, 4, 5, 6),
+                               (40, 50, 60))):
         cases = _k19_cases(rs, shape, dev)
-        for dtype in _morph_dtypes():
+        for j, dtype in enumerate(_morph_dtypes()):
             x = _rand_volume(rs, shape, dtype, dev)
             hist = (16, -3.0, 5.0)
-            for what, lab, lut, K in cases:
+            for c in ((i + j) % len(cases), (i + j + 2) % len(cases)):
+                what, lab, lut, K = cases[c]
                 want = ms.segment_reduce_plain(x, lab, lut, K, stats, hist)
+                terms = _k19_terms(x, lab, lut, K)
                 for route in ("shared", "device"):
                     got = ms.segment_reduce(x, lab, lut, K, stats, hist,
                                             route=route)
                     torch.cuda.synchronize()
-                    _k19_same(got, want, x, lab, lut, K,
+                    _k19_same(got, want, x, terms,
                               f"K19 {route} {shape} {dtype} {what}", worst)
                     n[route] += 1
                 for stat in ("min", "max"):
@@ -3566,7 +3581,7 @@ def _check_k19_k20(rs, dev, worst):
                 raise AssertionError("K19: 10^5 segments did not take the "
                                      "device route")
             got = ms.segment_reduce(x, lab, lut, K, stats, (8, -2, 2))
-            _k19_same(got, want, x, lab, lut, K,
+            _k19_same(got, want, x, _k19_terms(x, lab, lut, K),
                       f"K19 device K=1e5 {dtype} labels {np.dtype(ldt)}",
                       worst)
             n["device"] += 1
@@ -3578,17 +3593,25 @@ def _check_k19_k20(rs, dev, worst):
     print(f"K19 segment_reduce and K20 segment_position vs plain on the "
           f"card: {json.dumps(n)} cases in the eleven dtypes, exact but the "
           f"float64 sums (max abs err of a float input's "
-          f"{worst['segment_reduce']:.3e})")
+          f"{worst['segment_reduce']:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
-def _k19_same(got, want, x, lab, lut, K, what, worst):
-    """K19's accumulators against the twin's: exact, but the float64 sums
-    to 1e-12 of the sum of their terms' magnitudes per segment; the largest
-    error of a float input's sum goes into ``worst``."""
+def _k19_terms(x, lab, lut, K):
+    """The sums of K19's float64 sums' terms' magnitudes per segment, which
+    scale their tolerance."""
     import torch
     from elasticdeform_tpu_torch.ops import measure as ms
-    terms = ms.segment_reduce_plain(x.to(torch.float64).abs(), lab, lut, K,
-                                    ("sum", "sum2", "csum"))
+    return ms.segment_reduce_plain(x.to(torch.float64).abs(), lab, lut, K,
+                                   ("sum", "sum2", "csum"))
+
+
+def _k19_same(got, want, x, terms, what, worst):
+    """K19's accumulators against the twin's: exact, but the float64 sums
+    to 1e-12 of the sum of their terms' magnitudes (``terms``,
+    :func:`_k19_terms`) per segment; the largest error of a float input's
+    sum goes into ``worst``."""
+    import torch
     for s, w in want.items():
         g = got[s]
         if s in terms:
@@ -4247,8 +4270,9 @@ C19_SLICES = 80
 C19_WS_SLICES = 48
 # c20's central slices of the 160, cut to keep its CPU run under 15 s on
 # the card's host: the run took 76.7 s on the whole volume, 31.9 / 11.6 /
-# 8.6 / 7.2 s on 128 / 96 / 80 / 64 slices (c20_cut.py), and 14.5 s on 80
-# inside chip_smoke.py's phase 3, so 64 (PERF.md section 4)
+# 8.6 / 7.2 s on 128 / 96 / 80 / 64 slices (c20_cut.py, kept in commit
+# 868588e), and 14.5 s on 80 inside chip_smoke.py's phase 3, so 64
+# (PERF.md section 4)
 C20_SLICES = 64
 
 
@@ -4406,10 +4430,10 @@ _EXACT_LAUNCHES = {
     # K16's and K17's sweeps
     "c19": {"nearest_background": 1, "minplus_pass": 4, "chamfer_sweep": 48,
             "watershed_sweep": 192},
-    # c20: K18's roots and its numbering for each of the two labelings; K19
-    # once for each statistic, the positions' extrema included, K20 for
-    # each position
-    "c20": {"label_roots": 4, "segment_reduce": 10, "segment_position": 2}}
+    # c20: K18's three kernels (init, merge, compress) and its numbering
+    # for each of the two labelings; K19 once for each statistic, the
+    # positions' extrema included, K20 for each position
+    "c20": {"label_roots": 8, "segment_reduce": 10, "segment_position": 2}}
 # the launches per route of c11's K8 and K8T (one each per spatial axis),
 # c12's and c13's K8, c14's K9 (correlate and convolve) and K9T, c15's K12
 # (3^3 median and the 33-tap percentile on the network tile, the 5^3
@@ -6212,8 +6236,9 @@ def _times_measure(row, card, cfg20):
     offs1 = ms.structure_offsets(np.ones((3, 3, 3)), 3)
     offs2 = ms.structure_offsets(None, 3)
 
-    # K18: the mask in, roots and flags out; the numbering reads the roots
-    # and the counts and writes the labels
+    # K18: the function it replaces reads the mask and writes the roots (1
+    # + 4 bytes a voxel; the root flags are its own design's); mapping the
+    # roots to labels reads the roots and writes the labels (4 + 4)
     k18 = lambda: ms.label_roots(fg2, offs2, flags=True)  # noqa: E731
     k18a = lambda: ms.label_roots(m, offs1, flags=True)  # noqa: E731
     roots, flags = k18()
@@ -6222,7 +6247,7 @@ def _times_measure(row, card, cfg20):
     row("label_roots", "measure.cu", "elasticdeform_tpu/measure.py:93",
         _time_ms(k18), _time_ms(lambda: ms.label_roots_plain(fg2, offs2,
                                                              flags=True)),
-        _bound(N * (1 + 4 + 4), 0), None, 0.0,
+        _bound(N * (1 + 4), 0), None, 0.0,
         at=f"{shape} bool above the median, cross",
         extra={"device_ms": _device_ms(k18),
                "full_structure_mask_ms": _time_ms(k18a),
@@ -6231,7 +6256,7 @@ def _times_measure(row, card, cfg20):
                    lambda: ms.label_roots_plain(m, offs1, flags=True)),
                "numbering_ms": _time_ms(number),
                "numbering_device_ms": _device_ms(number),
-               "numbering_bound_ms": _bound(N * 12, 0)[0]})
+               "numbering_bound_ms": _bound(N * (4 + 4), 0)[0]})
 
     l1, n1 = et.label(m, structure=np.ones((3, 3, 3)), device=dev)
     l2, n2 = et.label(fg2, device=dev)

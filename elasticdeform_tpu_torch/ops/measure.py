@@ -31,8 +31,9 @@ which is exact below 2^24 voxels a segment: note R1).
 
 On a CPU tensor each wrapper takes its plain version (``*_plain``: the JAX
 package's algorithm on tensors); on a CUDA tensor it launches its kernel or
-raises, and adds one to its ``.launches`` counter (K19 also to its route's
-count in ``.routes``). The kernels index with 32 bits: 1 to 8 axes and
+raises, and adds the number of kernels it launched to its ``.launches``
+counter: one, but K18's roots three (two where the structure has no
+offsets); K19 also adds one to its route's count in ``.routes``. The kernels index with 32 bits: 1 to 8 axes and
 fewer than 2^31 voxels (``relax_check``).
 """
 
@@ -228,7 +229,8 @@ def label_roots_plain(fg: torch.Tensor, offsets, flags: bool = False):
 def label_roots(fg: torch.Tensor, offsets, flags: bool = False):
     """:func:`label_roots_plain` on a CPU tensor; on a CUDA tensor K18 (one
     host call: init, merge, compress, the flags written by the compress
-    kernel), adding one to ``label_roots.launches``."""
+    kernel; no merge where the structure has no offsets), adding the
+    number of kernels launched, 3 or 2, to ``label_roots.launches``."""
     if fg.device.type == "cpu":
         return label_roots_plain(fg, offsets, flags)
     relax_check(fg, "label_roots")
@@ -245,7 +247,7 @@ def label_roots(fg: torch.Tensor, offsets, flags: bool = False):
         fg.data_ptr(), roots.data_ptr(), _ptr(fl), _ptr(taps) if len(taps)
         else None, len(taps), _shape_arg(shape), fg.dim(), _stream(fg))
     _check_launch(err, "label_roots")
-    label_roots.launches += 1
+    label_roots.launches += 3 if len(taps) else 2
     return (roots, fl) if flags else roots
 
 

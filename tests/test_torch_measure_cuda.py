@@ -80,7 +80,11 @@ def test_k18_matches_twin(cuda_device, shape):
         offs = ms.structure_offsets(st, nd)
         for p in (0.0, 0.3, 0.55, 0.7, 1.0):
             fg = torch.as_tensor(rs.rand(*shape) < p, device=cuda_device)
+            before = ms.label_roots.launches
             roots, flags = ms.label_roots(fg, offs, flags=True)
+            # init and compress, and the merge where there are offsets
+            assert ms.label_roots.launches - before == \
+                (3 if len(ms.half_taps(offs, shape)) else 2)
             want, wflags = ms.label_roots_plain(fg, offs, flags=True)
             _same(roots, want, f"roots {shape} {p}")
             _same(flags, wflags, f"flags {shape} {p}")
